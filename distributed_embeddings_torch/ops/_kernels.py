@@ -1,0 +1,151 @@
+"""Builds and loads the package's hand-written CUDA kernels.
+
+Each ``csrc/*.cu`` file is compiled with ``nvcc`` for Hopper
+(``sm_90a``) into its own shared library under ``build/kernels/`` beside
+the package, and loaded with ``ctypes``. The sources export plain C
+functions: every pointer and the stream pass as ``c_void_p``, sizes as
+``c_int64``/``c_int``, and each function returns the ``cudaError_t`` of
+its launch, which the wrapper turns into an exception.
+
+The build runs at first use (or up front through :func:`build_all`),
+one ``nvcc`` per source, all started together. A library is named by a
+hash of its source and flags, so an edited source never loads a stale
+build. Nothing here runs at import time, and nothing falls back: a
+failed build or launch raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from typing import Dict, List, Optional, Sequence
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-lineinfo")
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_I = ctypes.c_int
+
+#: C signature of each exported function, per source stem
+SIGNATURES: Dict[str, Dict[str, tuple]] = {
+    "gather_combine": {
+        # slab, slab_rows, width, ids, ids_is_64, rows, roff, div, mask,
+        # weights, out, n_slots, b, hot, dtype, stream
+        "detpu_gather_combine": (_P, _I64, _I, _P, _I, _P, _P, _P, _P,
+                                 _P, _P, _I, _I64, _I, _I, _P),
+    },
+    "dot_interact": {
+        # feats, out, batch, num_features, dim, dtype, stream
+        "detpu_dot_interact_fwd": (_P, _P, _I64, _I, _I, _I, _P),
+    },
+}
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+class KernelBuildError(RuntimeError):
+    """``nvcc`` failed or is missing; the message carries its output."""
+
+
+def nvcc_path() -> str:
+    """``nvcc`` from ``$CUDA_HOME``, the ``PATH``, or the toolkit's
+    default install prefix."""
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    which = shutil.which("nvcc")
+    if which:
+        cands.append(which)
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise KernelBuildError("nvcc not found (set CUDA_HOME or PATH); the "
+                           "CUDA kernels build only where the toolkit is")
+
+
+def _lib_path(name: str) -> str:
+    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
+        h = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:12]}.so")
+
+
+def build_log(name: str) -> str:
+    """The compiler's output (``-Xptxas -v`` resource lines) of the
+    current build of ``name``, or ``""`` before it was built."""
+    log = _lib_path(name)[:-3] + ".log"
+    if not os.path.exists(log):
+        return ""
+    with open(log) as f:
+        return f.read()
+
+
+def build_all(names: Optional[Sequence[str]] = None) -> List[str]:
+    """Compile every kernel source not yet built, one ``nvcc`` process
+    per source, all running at once. Returns the library paths."""
+    names = list(SIGNATURES) if names is None else list(names)
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    procs = []
+    for name in names:
+        out = _lib_path(name)
+        if os.path.exists(out):
+            continue
+        tmp = f"{out}.{os.getpid()}.tmp"
+        log = open(out[:-3] + ".log", "w")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
+               os.path.join(CSRC, name + ".cu")]
+        procs.append((name, out, tmp, log,
+                      subprocess.Popen(cmd, stdout=log,
+                                       stderr=subprocess.STDOUT)))
+    failed = []
+    for name, out, tmp, log, p in procs:
+        rc = p.wait()
+        log.close()
+        if rc != 0:
+            failed.append(f"{name} (exit {rc}):\n{build_log(name)}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise KernelBuildError("nvcc failed for " + "\n".join(failed))
+    return [_lib_path(n) for n in names]
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (built on first use)
+    with ``argtypes``/``restype`` set for every exported function."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            path = _lib_path(name)
+            if not os.path.exists(path):
+                build_all([name])
+            lib = ctypes.CDLL(path)
+            for fn, argtypes in SIGNATURES[name].items():
+                f = getattr(lib, fn)
+                f.argtypes = list(argtypes)
+                f.restype = ctypes.c_int
+            lib.detpu_error_string.argtypes = [ctypes.c_int]
+            lib.detpu_error_string.restype = ctypes.c_char_p
+            _libs[name] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a launch returned a nonzero ``cudaError_t``."""
+    if err != 0:
+        msg = lib.detpu_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA launch failed: {msg} "
+                           f"(cudaError_t {err})")

@@ -1,0 +1,354 @@
+"""Model-parallel embedding layer (counterpart of
+``distributed_embeddings_tpu/parallel/dist_embedding.py``), at world 1.
+
+What this slice ports: the constructor's placement plan and slab-offset
+bookkeeping, ``init``, input normalization, the cached exchange plans,
+the world-1 forward (``__call__`` / ``forward_with_residuals``), and
+``get_weights`` / ``set_weights``. Tables of one width stack row-major
+into one LOGICAL slab per width, ``{"w128": [world, rows_cap, 128]}``,
+each table starting at the same row offset as in the JAX package (its
+lane-packing alignment is kept, see ``ops/packed_slab.py``), so both
+packages build identical exchange plans. Every (width, hotness) group
+of the plan is ONE launch of the gather kernel (``parallel/lookup.py``).
+
+Not yet ported, each raising ``NotImplementedError`` with its ROADMAP
+item: ``world_size > 1`` (A7), row slicing (A9), ragged and sparse
+inputs (B5), streaming vocabularies (A11) and the ``'raise'`` invalid-id
+policy (A12). Model-parallel input, step schedules and the sparse
+backward are not in this slice (A5b, A6, A7, A11).
+
+Ids must lie in ``[0, input_dim)``; out-of-range ids CLIP in the
+forward (a negative id reads row 0, one past the table its last row),
+as in the JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..layers.embedding import default_embeddings_init
+from ..ops import packed_slab as ps
+from ..ops.embedding_lookup import Ragged, SparseIds
+from ..utils.convert import host_tensor
+from ..utils.device import resolve_device
+from . import exchange as exchange_mod
+from . import lookup as lookup_mod
+from . import plan as plan_mod
+from .strategy import DistEmbeddingStrategy
+
+EmbedParams = Dict[str, torch.Tensor]
+
+#: host rows per copy in set_weights / get_weights: 128M elements, the
+#: JAX package's checkpoint chunk
+CHECKPOINT_CHUNK_ELEMS = 128 * 1024 * 1024
+
+
+def _wkey(width: int) -> str:
+    return f"w{width}"
+
+
+def slab_layout(strategy: DistEmbeddingStrategy
+                ) -> Tuple[List[int], List[List[int]], Dict[int, int]]:
+    """``(widths, row_offsets_list, rows_cap)`` of the width-grouped
+    slabs, computed exactly as the JAX package does: per rank, tables of
+    one width stack row-major at aligned logical offsets
+    (``row_offsets_list[rank][m]``), and each width's slab holds the
+    largest rank's rows (``rows_cap[w]``)."""
+    widths = sorted({int(c["output_dim"])
+                     for cfgs in strategy.local_configs_list for c in cfgs})
+    row_offsets_list: List[List[int]] = []
+    per_rank_rows = []
+    for cfgs in strategy.local_configs_list:
+        used = {w: 0 for w in widths}
+        offsets = []
+        for c in cfgs:
+            w = int(c["output_dim"])
+            offsets.append(used[w])
+            used[w] += ps.align_rows(int(c["input_dim"]), w)
+        row_offsets_list.append(offsets)
+        per_rank_rows.append(used)
+    rows_cap = {w: ps.align_rows(max(max(max(r[w] for r in per_rank_rows),
+                                         1), ps.pack_factor(w)), w)
+                for w in widths}
+    return widths, row_offsets_list, rows_cap
+
+
+class DistributedEmbedding:
+    """Embedding tables behind one plan-driven lookup (world 1).
+
+    Args follow the JAX package's ``DistributedEmbedding``:
+      embeddings: table config dicts (``input_dim``, ``output_dim``,
+        optional ``combiner`` and ``embeddings_initializer`` — an
+        in-place ``init(out, generator)``, see ``layers/embedding.py``).
+      world_size: must be 1 in this slice.
+      strategy, column_slice_threshold, input_table_map, input_hotness,
+        table_loads: passed to :class:`DistEmbeddingStrategy`.
+      compute_dtype: torch dtype the outputs are cast to (``None`` keeps
+        the table dtype).
+      masked_reads: out-of-range ids read a ZERO row instead of clipping.
+      invalid_id_policy: ``'clamp'`` (default) or ``'drop'`` (forces
+        ``masked_reads``).
+    """
+
+    def __init__(self,
+                 embeddings: Sequence[Any],
+                 world_size: int,
+                 strategy: str = "basic",
+                 column_slice_threshold: Optional[int] = None,
+                 row_slice: Optional[int] = None,
+                 input_table_map: Optional[Sequence[int]] = None,
+                 compute_dtype: Optional[torch.dtype] = None,
+                 input_hotness: Optional[Sequence[int]] = None,
+                 masked_reads: bool = False,
+                 invalid_id_policy: str = "clamp",
+                 table_loads: Optional[Sequence[float]] = None):
+        if int(world_size) != 1:
+            raise NotImplementedError(
+                "world_size > 1 (the all-to-all exchanges over NCCL) is "
+                "not ported yet: ROADMAP A7")
+        if row_slice is not None:
+            raise NotImplementedError(
+                "row slicing is not ported yet: ROADMAP A9")
+        if invalid_id_policy == "raise":
+            raise NotImplementedError(
+                "the 'raise' ingestion checks are not ported yet: "
+                "ROADMAP A12")
+        if invalid_id_policy not in ("clamp", "drop"):
+            raise ValueError(
+                f"invalid_id_policy must be 'clamp' | 'drop' | 'raise', "
+                f"got {invalid_id_policy!r}")
+        self.world_size = 1
+        self.compute_dtype = compute_dtype
+        self.invalid_id_policy = invalid_id_policy
+        self.masked_reads = bool(masked_reads) or invalid_id_policy == "drop"
+        self.strategy = DistEmbeddingStrategy(
+            embeddings, self.world_size, strategy=strategy,
+            input_table_map=input_table_map,
+            column_slice_threshold=column_slice_threshold,
+            input_hotness=input_hotness, table_loads=table_loads)
+        if any(c.get("streaming") for c in self.strategy.global_configs):
+            raise NotImplementedError(
+                "streaming (dynamic-vocab) tables are not ported yet: "
+                "ROADMAP A11")
+        self.widths, self.row_offsets_list, self.rows_cap = \
+            slab_layout(self.strategy)
+        self._plan_cache: Dict[tuple, plan_mod.ExchangePlan] = {}
+        self._meta_cache: Dict[tuple, tuple] = {}
+
+    # ------------------------------------------------------------------ params
+
+    def _tables_of_width(self, width: int):
+        """``(config, slab row offset)`` of rank 0's tables of one width."""
+        return [(c, self.row_offsets_list[0][m])
+                for m, c in enumerate(self.strategy.local_configs_list[0])
+                if int(c["output_dim"]) == width]
+
+    def init(self, generator: Optional[torch.Generator] = None,
+             dtype: torch.dtype = torch.float32,
+             device="cuda") -> EmbedParams:
+        """Build ``{"w<width>": [world, rows_cap, width]}``.
+
+        Each slab is allocated once (``torch.empty``) and filled IN
+        PLACE, table by table, by its initializer (or, when every table
+        of the width uses the default, by one uniform fill of the whole
+        slab, as the JAX package's fast path does), so no second copy of
+        a slab ever exists. Rows between and after tables are zeroed."""
+        dev = resolve_device(device)
+        out = {}
+        for w in self.widths:
+            buf = torch.empty((self.world_size, self.rows_cap[w], w),
+                              dtype=dtype, device=dev)
+            tables = self._tables_of_width(w)
+            if all(c.get("embeddings_initializer") is None
+                   for c, _ in tables):
+                default_embeddings_init(buf, generator)
+            else:
+                pos = 0
+                for c, roff in tables:
+                    rows = int(c["input_dim"])
+                    buf[0, pos:roff].zero_()
+                    init = (c.get("embeddings_initializer")
+                            or default_embeddings_init)
+                    init(buf[0, roff:roff + rows], generator)
+                    pos = roff + rows
+                buf[0, pos:].zero_()
+            out[_wkey(w)] = buf
+        return out
+
+    def get_weights(self, params: EmbedParams) -> List[np.ndarray]:
+        """The global tables on the host, ``[input_dim, output_dim]``
+        each, copied in row chunks. numpy has no bfloat16, so bfloat16
+        tables come back as float32 (exact)."""
+        out = []
+        for tid, cfg in enumerate(self.strategy.global_configs):
+            m = self.strategy.table_ids_list[0].index(tid)
+            rows, w = int(cfg["input_dim"]), int(cfg["output_dim"])
+            roff = self.row_offsets_list[0][m]
+            slab = params[_wkey(w)][0]
+            upcast = slab.dtype == torch.bfloat16
+            host = np.empty((rows, w), np.float32 if upcast else
+                            torch.empty(0, dtype=slab.dtype).numpy().dtype)
+            step = max(1, CHECKPOINT_CHUNK_ELEMS // w)
+            for s in range(0, rows, step):
+                n = min(step, rows - s)
+                chunk = slab[roff + s:roff + s + n].cpu()
+                host[s:s + n] = (chunk.float() if upcast else chunk).numpy()
+            out.append(host)
+        return out
+
+    def set_weights(self, weights: Sequence[Any],
+                    dtype: torch.dtype = torch.float32,
+                    device="cuda") -> EmbedParams:
+        """Build the slab dict from full global tables (numpy arrays,
+        ``ml_dtypes`` bfloat16 arrays, tensors, or ``.npy`` paths, which
+        are memory-mapped), copied in row chunks so the host never holds
+        more than one chunk beyond the sources."""
+        dev = resolve_device(device)
+        loaded = [np.load(w, mmap_mode="r") if isinstance(w, str) else w
+                  for w in weights]
+        if len(loaded) != len(self.strategy.global_configs):
+            raise ValueError("set_weights needs one array per global table")
+        for tid, (src, cfg) in enumerate(
+                zip(loaded, self.strategy.global_configs)):
+            want = (int(cfg["input_dim"]), int(cfg["output_dim"]))
+            if tuple(src.shape) != want:
+                raise ValueError(
+                    f"Table {tid}: expected shape {want}, got "
+                    f"{tuple(src.shape)}")
+        out = {}
+        for w in self.widths:
+            buf = torch.zeros((self.world_size, self.rows_cap[w], w),
+                              dtype=dtype, device=dev)
+            step = max(1, CHECKPOINT_CHUNK_ELEMS // w)
+            for m, c in enumerate(self.strategy.local_configs_list[0]):
+                if int(c["output_dim"]) != w:
+                    continue
+                src = loaded[self.strategy.table_ids_list[0][m]]
+                roff, rows = self.row_offsets_list[0][m], int(c["input_dim"])
+                for s in range(0, rows, step):
+                    n = min(step, rows - s)
+                    buf[0, roff + s:roff + s + n].copy_(
+                        host_tensor(src[s:s + n]).to(dtype))
+            out[_wkey(w)] = buf
+        return out
+
+    # ----------------------------------------------------------------- forward
+
+    @staticmethod
+    def _dense_enc(shape, comb) -> tuple:
+        """Static routing descriptor of a dense input: ``("d", hotness,
+        num_slots)``. With a combiner the LAST dim is the reduced hotness
+        and every lead position beyond the batch becomes its own slot;
+        without one, every id is a hotness-1 slot."""
+        dims = tuple(int(d) for d in shape[1:])
+        if comb:
+            h = dims[-1] if dims else 1
+            ns = int(np.prod(dims[:-1], dtype=np.int64)) if len(dims) > 1 \
+                else 1
+            return ("d", h, ns)
+        ns = int(np.prod(dims, dtype=np.int64)) if dims else 1
+        return ("d", 1, ns)
+
+    def _normalize_inputs(self, inputs, device):
+        """Promote to a common int dtype (int64 if any input is int64,
+        else int32) on ``device``; inputs flatten to ``[batch, -1]``.
+        Returns ``(entries, encs, shapes)``: the flattened ids, the
+        static routing descriptors the plan is built from, and the
+        original shapes (output ranks follow them)."""
+        if len(inputs) != self.strategy.num_inputs:
+            raise ValueError(
+                f"Expected {self.strategy.num_inputs} inputs, got "
+                f"{len(inputs)}")
+        if any(isinstance(i, (Ragged, SparseIds)) for i in inputs):
+            raise NotImplementedError(
+                "ragged / sparse inputs are not ported yet: ROADMAP B5")
+        inputs = [torch.as_tensor(i) for i in inputs]
+        comm_dtype = (torch.int64 if any(i.dtype == torch.int64
+                                         for i in inputs) else torch.int32)
+        out, encs, shapes = [], [], []
+        for i, inp in enumerate(inputs):
+            tid = self.strategy.input_table_map[i]
+            comb = self.strategy.global_configs[tid].get("combiner")
+            inp = inp.to(device=device, dtype=comm_dtype)
+            shapes.append(tuple(inp.shape))
+            encs.append(self._dense_enc(inp.shape, comb))
+            out.append(inp.reshape(inp.shape[0], -1) if inp.dim() != 1
+                       else inp[:, None])
+        return out, encs, shapes, comm_dtype
+
+    def _get_plan(self, encs, b: int) -> plan_mod.ExchangePlan:
+        key = (tuple(encs), int(b))
+        p = self._plan_cache.get(key)
+        if p is None:
+            p = plan_mod.build_plan(self.strategy, self.row_offsets_list,
+                                    encs, int(b))
+            self._plan_cache[key] = p
+        return p
+
+    def _plan_meta(self, plan, gi: int, device):
+        """Device arrays of one group's per-slot plan rows, cached per
+        plan: ``rows``/``roff`` (int64), the divisor (``hot`` on mean
+        slots of a multi-hot group, else 1) and the zero-read mask
+        (``None`` unless ``masked_reads``)."""
+        key = (id(plan), gi, str(device))
+        meta = self._meta_cache.get(key)
+        if meta is None:
+            g = plan.groups[gi]
+            mean = plan.mean[gi][0] > 0
+            div = np.where(mean & (g.hot > 1), float(g.hot), 1.0)
+            mask = (torch.ones(g.n, dtype=torch.int32, device=device)
+                    if self.masked_reads else None)
+            meta = (torch.as_tensor(plan.rows[gi][0], dtype=torch.int64,
+                                    device=device),
+                    torch.as_tensor(plan.roff[gi][0], dtype=torch.int64,
+                                    device=device),
+                    torch.as_tensor(div, dtype=torch.float32, device=device),
+                    mask)
+            self._meta_cache[key] = meta
+        return meta
+
+    def __call__(self, params: EmbedParams, inputs) -> List[torch.Tensor]:
+        """Forward pass: one output per input, in input order, with the
+        input's rank preserved (no combiner: ``shape[1:] + (w,)``;
+        combiner: the lead dims survive the trailing-dim reduction)."""
+        return self.forward_with_residuals(params, inputs)[0]
+
+    def forward_with_residuals(self, params: EmbedParams, inputs,
+                               streaming=None):
+        """Forward pass that also returns the routing residuals
+        ``("dist", ids_block, encs, b)`` the sparse backward will read."""
+        if streaming is not None:
+            raise NotImplementedError(
+                "streaming vocabularies are not ported yet: ROADMAP A11")
+        device = next(iter(params.values())).device
+        local = {k: v[0] for k, v in params.items()}
+        entries, encs, shapes, comm_dtype = self._normalize_inputs(
+            inputs, device)
+        b = entries[0].shape[0]
+        plan = self._get_plan(encs, b)
+        ids_recv = exchange_mod.build_send_blocks(self, plan, entries,
+                                                  comm_dtype, device)
+        reds = lookup_mod.plan_lookup_groups(self, plan, local, ids_recv)
+        outs = []
+        for inst in plan.instances:  # worker order == input order here
+            g = plan.groups[inst.group]
+            red = reds[inst.group]  # [1, n, b, w]
+            if inst.num_slots == 1:
+                o = red[0, inst.slot0]
+            else:
+                o = red[0, inst.slot0:inst.slot0 + inst.num_slots
+                        ].transpose(0, 1).reshape(b, -1)
+            shape = shapes[inst.input_id]
+            if len(shape) >= 2:
+                comb = self.strategy.global_configs[
+                    self.strategy.input_table_map[inst.input_id]
+                ].get("combiner")
+                lead = shape[1:] if comb is None else shape[1:-1]
+                if comb is None or lead:
+                    o = o.reshape((b,) + tuple(lead) + (g.width,))
+            outs.append(o)
+        result = [outs[i] for i in self.strategy.rev_global_input_ids]
+        return result, ("dist", ids_recv, tuple(encs), b)

@@ -1,0 +1,81 @@
+"""Registry of the ``DETPU_*`` environment variables the port reads.
+
+Counterpart of ``distributed_embeddings_tpu/utils/envvars.py``, cut to
+the serving knobs this package has: the ``DETPU_SERVE_*`` declarations
+that :class:`~..parallel.serving.ServeConfig` reads, with the JAX
+package's names and defaults, so one environment configures both
+servers alike.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, NamedTuple, Optional
+
+
+class EnvVar(NamedTuple):
+    """One registered knob: its default (``None`` = unset) and meaning."""
+    name: str
+    default: Optional[str]
+    doc: str
+
+
+_REGISTRY: Dict[str, EnvVar] = {}
+
+
+def declare(name: str, default: Optional[str] = None, doc: str = "") -> str:
+    """Register one ``DETPU_*`` variable; returns the name."""
+    _REGISTRY[name] = EnvVar(name, default, doc)
+    return name
+
+
+def _require(name: str) -> EnvVar:
+    spec = _REGISTRY.get(name)
+    if spec is None:
+        raise KeyError(f"{name!r} is not a registered DETPU env var")
+    return spec
+
+
+def get(name: str) -> Optional[str]:
+    """Read a registered variable (its declared default when unset)."""
+    return os.environ.get(name, _require(name).default)
+
+
+def get_float(name: str) -> float:
+    """Float read; a malformed value falls back to the declared default."""
+    fb = float(_require(name).default or 0.0)
+    try:
+        return float(os.environ.get(name, fb))
+    except (TypeError, ValueError):
+        return fb
+
+
+def get_int(name: str) -> int:
+    """Int read (same fallback policy as :func:`get_float`)."""
+    fb = int(_require(name).default or 0)
+    try:
+        return int(os.environ.get(name, fb))
+    except (TypeError, ValueError):
+        return fb
+
+
+# deadline-bounded serving runtime (parallel/serving.py)
+declare("DETPU_SERVE_DEADLINE_MS", default="100",
+        doc="default per-request deadline (ms, from submit): the "
+            "scheduler flushes early to make it and drops requests "
+            "already past it (typed Expired)")
+declare("DETPU_SERVE_MAX_BATCH", default="256",
+        doc="largest padded-batch rung (samples per flush)")
+declare("DETPU_SERVE_MAX_QUEUE", default="1024",
+        doc="hard admission bound (queued samples): a submit that would "
+            "exceed it is shed with a typed Overloaded response")
+declare("DETPU_SERVE_MAX_WAIT_MS", default="5",
+        doc="batching delay: a queued request is flushed no later than "
+            "this many ms after submit (0 under pressure)")
+declare("DETPU_SERVE_RUNGS", default="",
+        doc="comma-separated explicit padded-batch ladder (ascending) "
+            "overriding the power-of-two default")
+declare("DETPU_SERVE_SHED_FRAC", default="0.5",
+        doc="queue fraction of DETPU_SERVE_MAX_QUEUE at which new "
+            "lowest-priority (<= 0) requests are refused with a typed "
+            "Overloaded response")

@@ -54,7 +54,10 @@ setup(
     description=("TPU-native large-embedding recommender training: "
                  "hybrid model/data-parallel embedding layers on JAX/XLA"),
     packages=find_packages(exclude=("tests", "examples")),
-    package_data={"distributed_embeddings_tpu.utils": ["*.so"]},
+    # distributed_embeddings_torch (the PyTorch/CUDA port) ships its CUDA
+    # sources; they are compiled with nvcc at first use on the GPU
+    package_data={"distributed_embeddings_tpu.utils": ["*.so"],
+                  "distributed_embeddings_torch": ["csrc/*.cu"]},
     cmdclass={"build_py": build_py_with_native},
     python_requires=">=3.10",
     install_requires=[
@@ -63,4 +66,5 @@ setup(
         "optax",
         "numpy",
     ],
+    extras_require={"torch": ["torch", "numpy"]},
 )

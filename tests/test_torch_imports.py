@@ -1,0 +1,97 @@
+"""Guard: the port stands alone and never falls back silently.
+
+AST-scans every module of ``distributed_embeddings_torch/`` and
+``chip_smoke.py``:
+
+* no import of ``jax``, ``flax``, ``optax``, ``distributed_embeddings_tpu``
+  or ``tools`` (the port keeps its own copy of what it needs);
+* no ``try``/``except`` whose handler calls a kernel's plain version
+  (``*_plain``): a CUDA tensor launches the kernel or raises.
+
+The checker itself is held to seeded violations, so a broken scan
+cannot pass vacuously.
+"""
+
+import ast
+import pathlib
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "flax", "optax", "distributed_embeddings_tpu", "tools")
+
+
+def _sources():
+    files = sorted((ROOT / "distributed_embeddings_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    return files
+
+
+def _called_names(nodes):
+    out = set()
+    for node in nodes:
+        for sub in ast.walk(node):
+            if isinstance(sub, ast.Call):
+                f = sub.func
+                if isinstance(f, ast.Name):
+                    out.add(f.id)
+                elif isinstance(f, ast.Attribute):
+                    out.add(f.attr)
+    return out
+
+
+def violations(source: str, name: str = "<src>"):
+    """Forbidden imports and plain-version fallbacks in ``source``."""
+    found = []
+    for node in ast.walk(ast.parse(source, name)):
+        mods = []
+        if isinstance(node, ast.Import):
+            mods = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mods = [node.module or ""]
+        for m in mods:
+            if m.split(".")[0] in FORBIDDEN:
+                found.append(f"{name}:{node.lineno}: imports {m}")
+        if isinstance(node, ast.Try):
+            plain = sorted(n for n in _called_names(node.handlers)
+                           if n.endswith("_plain"))
+            if plain:
+                found.append(f"{name}:{node.lineno}: an except handler "
+                             f"falls back to {plain}")
+    return found
+
+
+def test_sources_exist():
+    names = {p.name for p in _sources()}
+    assert {"chip_smoke.py", "_kernels.py", "embedding_lookup.py",
+            "interaction.py", "serving.py"} <= names
+
+
+@pytest.mark.parametrize("path", _sources(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_module_is_standalone(path):
+    assert violations(path.read_text(), str(path.relative_to(ROOT))) == []
+
+
+@pytest.mark.parametrize("bad", [
+    "import jax\n",
+    "import jax.numpy as jnp\n",
+    "from flax import linen\n",
+    "import optax\n",
+    "from distributed_embeddings_tpu.parallel import plan\n",
+    "from tools._profcommon import CRITEO_1TB_SIZES\n",
+    "def f(x):\n    try:\n        return gather_combine(x)\n"
+    "    except RuntimeError:\n        return gather_combine_plain(x)\n",
+    "def f(x):\n    try:\n        return k.dot_interact_fwd(x)\n"
+    "    except Exception:\n        return ops.dot_interact_fwd_plain(x)\n",
+])
+def test_checker_catches_seeded_violations(bad):
+    assert violations(bad)
+
+
+def test_checker_allows_relative_and_plain_calls_outside_handlers():
+    ok = ("from .ops import gather_combine_plain\n"
+          "import torch\n"
+          "def f(x):\n    if x.is_cpu:\n        return gather_combine_plain(x)\n"
+          "    try:\n        return g(x)\n    finally:\n        pass\n")
+    assert violations(ok) == []
