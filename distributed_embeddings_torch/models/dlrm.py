@@ -1,10 +1,11 @@
 """DLRM (counterpart of ``distributed_embeddings_tpu/models/dlrm.py``).
 
 Bottom MLP over the dense features, one embedding per categorical
-feature, the pairwise dot interaction on the hand-written kernel K2
-(``ops/interaction.py``), and the top MLP to one logit. The dense half
-is an ``nn.Module`` that takes the embedding activations as inputs, so
-they can come from local tables (:class:`DLRM`) or from
+feature, the pairwise dot interaction on the hand-written kernels K2
+(forward) and K4 (backward) through ``ops/interaction.py:DotInteract``,
+and the top MLP to one logit. The dense half is an ``nn.Module`` that
+takes the embedding activations as inputs, so they can come from local
+tables (:class:`DLRM`) or from
 :class:`~..parallel.dist_embedding.DistributedEmbedding`.
 
 Precision follows the flax module: parameters are float32, every layer
@@ -24,7 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.embedding_lookup import embedding_lookup
-from ..ops.interaction import dot_interact_fwd
+from ..ops.interaction import DotInteract
 from ..utils.device import resolve_device
 
 
@@ -45,9 +46,10 @@ def dot_interact(emb_outs: Sequence[torch.Tensor],
     """Pairwise dot-product interaction: stacks ``[bottom_mlp_out] +
     emb_outs`` into ``[B, F, D]`` and returns the strictly lower
     triangle of each sample's Gram matrix (``np.tril_indices(F, -1)``
-    order) followed by ``bottom_mlp_out``: ``[B, F(F-1)/2 + D]``."""
+    order) followed by ``bottom_mlp_out``: ``[B, F(F-1)/2 + D]``. One
+    launch of K2 forward; its gradient is one launch of K4."""
     feats = torch.stack([bottom_mlp_out] + list(emb_outs), dim=1)
-    return dot_interact_fwd(feats)
+    return DotInteract.apply(feats)
 
 
 class DLRMConfig:

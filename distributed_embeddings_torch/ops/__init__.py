@@ -2,8 +2,13 @@
 
 from .embedding_lookup import (Ragged, SparseIds, embedding_lookup,
                                gather_combine, gather_combine_plain)
-from .interaction import dot_interact_fwd, dot_interact_fwd_plain
+from .interaction import (DotInteract, dot_interact_bwd,
+                          dot_interact_bwd_plain, dot_interact_fwd,
+                          dot_interact_fwd_plain)
+from .scatter_add import sgd_scatter, sgd_scatter_plain
 
 __all__ = ["Ragged", "SparseIds", "embedding_lookup", "gather_combine",
            "gather_combine_plain", "dot_interact_fwd",
-           "dot_interact_fwd_plain"]
+           "dot_interact_fwd_plain", "dot_interact_bwd",
+           "dot_interact_bwd_plain", "DotInteract", "sgd_scatter",
+           "sgd_scatter_plain"]

@@ -46,6 +46,14 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "dot_interact": {
         # feats, out, batch, num_features, dim, dtype, stream
         "detpu_dot_interact_fwd": (_P, _P, _I64, _I, _I, _I, _P),
+        # feats, dy, dfeats, batch, num_features, dim, dtype, stream
+        "detpu_dot_interact_bwd": (_P, _P, _P, _I64, _I, _I, _I, _P),
+    },
+    "sgd_scatter": {
+        # slab, rows, width, slab_dtype, ids, ids_is_64, n, vals,
+        # vals_dtype, neg_lr, neg_lr_dev, stream
+        "detpu_sgd_scatter": (_P, _I64, _I, _I, _P, _I, _I64, _P, _I,
+                              ctypes.c_float, _P, _P),
     },
 }
 

@@ -1,16 +1,21 @@
-"""Placement planner, the world-1 embedding layer, the eval step and the
-serving runtime."""
+"""Placement planner, the world-1 embedding layer, its sparse
+optimizers, the train and eval steps, and the serving runtime."""
 
 from .dist_embedding import DistributedEmbedding
+from .optimizers import SGD, SparseSGD
 from .plan import ExchangePlan, build_plan
 from .serving import (Expired, Failed, Overloaded, Request, ServeConfig,
                       Served, ServingRuntime, drive, resolve_rungs,
                       synthetic_request)
 from .strategy import DistEmbeddingStrategy
-from .trainer import HybridTrainState, make_hybrid_eval_step
+from .trainer import (HybridTrainState, init_hybrid_state,
+                      make_hybrid_eval_step, make_hybrid_train_loop,
+                      make_hybrid_train_step)
 
 __all__ = ["DistributedEmbedding", "ExchangePlan", "build_plan",
            "Expired", "Failed", "Overloaded", "Request", "ServeConfig",
            "Served", "ServingRuntime", "drive", "resolve_rungs",
            "synthetic_request", "DistEmbeddingStrategy",
-           "HybridTrainState", "make_hybrid_eval_step"]
+           "HybridTrainState", "make_hybrid_eval_step",
+           "make_hybrid_train_step", "make_hybrid_train_loop",
+           "init_hybrid_state", "SGD", "SparseSGD"]

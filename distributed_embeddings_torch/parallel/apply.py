@@ -1,0 +1,147 @@
+"""Apply layer of the hybrid step: the manual sparse backward and the
+per-width optimizer scatters (counterpart of
+``distributed_embeddings_tpu/parallel/apply.py``), at world 1.
+
+Everything after the dense backward: the output cotangents go back to
+worker order and into the plan's column layout
+(:func:`~.exchange.pack_grad_blocks`; the reverse exchange is a
+passthrough at world 1), the per-group id streams are rebuilt from the
+forward's residual, and each width slab gets ONE optimizer scatter
+(:func:`apply_width_streams`). No dense table gradient is ever built.
+
+Dense groups (kind ``"d"``) are ported. Ragged groups (``"r"``/``"rw"``,
+ROADMAP A9/B5) and row-sliced slots (A9) raise.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List
+
+import torch
+
+from . import exchange as exchange_mod
+from .lookup import _wkey
+
+
+def apply_width_streams(de, params, opt_state,
+                        per_width: Dict[str, List], optimizer, lr,
+                        scale, enable=None):
+    """Concatenate each width's ``(ids, update rows)`` stream and run ONE
+    optimizer scatter per width slab, in place.
+
+    The JAX package lane-expands the stream to its packed physical rows
+    here (``ops/packed_slab.py:expand_update_rows``); the port's slabs
+    are logical ``[rows_cap, w]``, so that step is the identity and the
+    logical stream goes to the optimizer as it is.
+
+    ``enable`` (a 0-d bool tensor): when False every id is routed to the
+    dropped-row sentinel, so the slabs and any slab-shaped optimizer
+    state stay bitwise unchanged, without a slab-wide select and without
+    reading the verdict on the host."""
+    new_params = dict(params)
+    new_state = dict(opt_state) if isinstance(opt_state, dict) else opt_state
+    for k in sorted(per_width):
+        tris = per_width[k]
+        w = tris[0][2]
+        ids = torch.cat([t[0].reshape(-1) for t in tris]) if len(tris) > 1 \
+            else tris[0][0].reshape(-1)
+        if enable is not None:
+            ids = torch.where(enable, ids, de.rows_cap[w])
+        vals = torch.cat([t[1].reshape(-1, w) for t in tris]) \
+            if len(tris) > 1 else tris[0][1].reshape(-1, w)
+        if scale != 1.0:
+            # a Python scale is rounded to the values' dtype, as in JAX
+            vals = vals * torch.tensor(scale, dtype=vals.dtype,
+                                       device=vals.device)
+        st = new_state[k] if isinstance(new_state, dict) else new_state
+        slab, st = optimizer.apply_rows(new_params[k], st,
+                                        ids.contiguous(), vals.contiguous(),
+                                        lr)
+        new_params[k] = slab
+        if isinstance(new_state, dict):
+            new_state[k] = st
+    return new_params, new_state
+
+
+def sparse_apply_gradients(de, params, opt_state, residuals, out_grads,
+                           optimizer, lr, scale=None, enable=None):
+    """Manual sparse backward + in-place optimizer update (the body of
+    :meth:`~.dist_embedding.DistributedEmbedding.sparse_apply_gradients`;
+    see that method's docstring for the argument contract)."""
+    params = de.local_view(params)
+    if isinstance(opt_state, dict):
+        opt_state = de.local_view(opt_state)
+    if scale is None:
+        scale = 1.0 / de.world_size
+    fallback = next(iter(params.values())).dtype
+    per_width = cotangent_width_streams(de, residuals, out_grads,
+                                        fallback_dtype=fallback)
+    return apply_width_streams(de, params, opt_state, per_width,
+                               optimizer, lr, scale, enable=enable)
+
+
+def cotangent_width_streams(de, residuals, out_grads, fallback_dtype=None):
+    """The sparse backward MINUS the optimizer scatter: put the output
+    cotangents in the plan's column layout and rebuild the per-width
+    ``{"w<width>": [(ids, update rows, width), ...]}`` streams from the
+    forward residual.
+
+    Per dense group the stream is b-major: ids ``[world, b, n, hot]``
+    (table-local id + the slot's slab row offset), update rows
+    ``[world, b, n, hot, w]`` (the slot cotangent, over ``hot`` for
+    ``mean`` slots of a multi-hot group, broadcast over the hot ids).
+    Ids outside their table, and every id of a padding slot, become the
+    dropped-row sentinel ``rows_cap[w]``: a bad id trains nothing."""
+    _, ids_recv, encs, b = residuals
+    # no-combiner outputs keep their [b, h, w] rank; the layout is flat
+    out_grads = [g.reshape(g.shape[0], -1) for g in out_grads]
+    world = de.world_size
+    plan = de._get_plan(list(encs), b)
+
+    # back to worker order (at world 1 no table is column- or row-sliced,
+    # so every input owns exactly one worker instance)
+    rev = de.strategy.rev_global_input_ids
+    worker_grads: List = [None] * len(rev)
+    for i, g in enumerate(out_grads):
+        worker_grads[rev[i]] = g
+    out_dtype = out_grads[0].dtype if out_grads else fallback_dtype
+    grads_by_worker = dict(zip(plan.instances, worker_grads))
+    mp_grad = exchange_mod.pack_grad_blocks(de, plan, grads_by_worker, b,
+                                            out_dtype)
+
+    per_width: Dict[str, List] = {}
+    for gi, g in enumerate(plan.groups):
+        if g.kind != "d":
+            raise NotImplementedError(
+                f"the sparse backward of lookup group kind {g.kind!r} "
+                "(ragged) is not ported yet: ROADMAP A9/B5")
+        if plan.rsliced[gi].any():
+            raise NotImplementedError(
+                "the sparse backward of row-sliced slots is not ported "
+                "yet: ROADMAP A9")
+        rows, roff, _, _ = de._plan_meta(plan, gi, mp_grad.device)
+        valid, mean = de._plan_bwd_meta(plan, gi, mp_grad.device)
+        sent = de.rows_cap[g.width]  # dropped-row sentinel (logical)
+        region = ids_recv[:, g.goff:g.goff + g.n * g.blen]
+        gsl = mp_grad[:, :, g.col:g.col + g.n * g.width].reshape(
+            world, b, g.n, g.width)
+        # b-major stream: the update rows are then exactly the
+        # [world, b, n, w] cotangent layout, a free view; only the small
+        # id tensor transposes
+        ids4 = region.reshape(world, g.n, b, g.hot).transpose(1, 2)
+        ok = (ids4 >= 0) & (ids4 < rows[None, None, :, None])
+        if valid is not None:
+            ok = ok & valid[None, None, :, None]
+        # int32 ids stay int32 while the sentinel fits (the JAX stream's
+        # dtype); the kernel reads half the bytes
+        idt = ids4.dtype if sent < 2 ** 31 else torch.int64
+        ids = torch.where(ok, ids4 + roff.to(idt)[None, None, :, None],
+                          sent)
+        gb = gsl
+        if g.hot > 1 and mean is not None:
+            gb = (gsl / g.hot if bool(plan.mean[gi].all()) else
+                  torch.where(mean[None, None, :, None], gsl / g.hot, gsl))
+        vals = gb[:, :, :, None, :].expand(world, b, g.n, g.hot, g.width)
+        per_width.setdefault(_wkey(g.width), []).append(
+            (ids, vals, g.width))
+    return per_width

@@ -14,8 +14,9 @@ of the plan is ONE launch of the gather kernel (``parallel/lookup.py``).
 Not yet ported, each raising ``NotImplementedError`` with its ROADMAP
 item: ``world_size > 1`` (A7), row slicing (A9), ragged and sparse
 inputs (B5), streaming vocabularies (A11) and the ``'raise'`` invalid-id
-policy (A12). Model-parallel input, step schedules and the sparse
-backward are not in this slice (A5b, A6, A7, A11).
+policy (A12). The sparse backward (``sparse_apply_gradients``,
+``parallel/apply.py``) is ported for dense inputs; model-parallel input
+and step schedules are not (A5b, A7, A11).
 
 Ids must lie in ``[0, input_dim)``; out-of-range ids CLIP in the
 forward (a negative id reads row 0, one past the table its last row),
@@ -34,6 +35,7 @@ from ..ops import packed_slab as ps
 from ..ops.embedding_lookup import Ragged, SparseIds
 from ..utils.convert import host_tensor
 from ..utils.device import resolve_device
+from . import apply as apply_mod
 from . import exchange as exchange_mod
 from . import lookup as lookup_mod
 from . import plan as plan_mod
@@ -235,6 +237,14 @@ class DistributedEmbedding:
             out[_wkey(w)] = buf
         return out
 
+    @staticmethod
+    def local_view(params):
+        """Drop the leading world axis of each slab (``[1, rows, w]`` ->
+        ``[rows, w]``, a view); other entries (an empty optimizer state)
+        pass through."""
+        return {k: (v[0] if isinstance(v, torch.Tensor) and v.dim() == 3
+                    else v) for k, v in params.items()}
+
     # ----------------------------------------------------------------- forward
 
     @staticmethod
@@ -310,6 +320,21 @@ class DistributedEmbedding:
             self._meta_cache[key] = meta
         return meta
 
+    def _plan_bwd_meta(self, plan, gi: int, device):
+        """The backward's per-slot masks of one group, cached per plan:
+        ``valid`` (bool, ``None`` when every slot is live) and ``mean``
+        (bool, ``None`` when no slot is a mean slot)."""
+        key = ("bwd", id(plan), gi, str(device))
+        meta = self._meta_cache.get(key)
+        if meta is None:
+            valid, mean = plan.valid[gi][0] > 0, plan.mean[gi][0] > 0
+            meta = (None if valid.all() else
+                    torch.as_tensor(valid, device=device),
+                    torch.as_tensor(mean, device=device) if mean.any()
+                    else None)
+            self._meta_cache[key] = meta
+        return meta
+
     def __call__(self, params: EmbedParams, inputs) -> List[torch.Tensor]:
         """Forward pass: one output per input, in input order, with the
         input's rank preserved (no combiner: ``shape[1:] + (w,)``;
@@ -352,3 +377,37 @@ class DistributedEmbedding:
             outs.append(o)
         result = [outs[i] for i in self.strategy.rev_global_input_ids]
         return result, ("dist", ids_recv, tuple(encs), b)
+
+    # --------------------------------------------------------- sparse backward
+
+    def sparse_apply_gradients(self, params: EmbedParams, opt_state,
+                               residuals, out_grads, optimizer, lr,
+                               scale=None, enable=None):
+        """Manual sparse backward + IN-PLACE optimizer update.
+
+        Replaces autodiff through the slabs: ``out_grads`` are the
+        cotangents of this layer's outputs (from differentiating the
+        dense model w.r.t. the embedding activations), applied as
+        per-row scatter updates; no dense table gradient is built.
+
+        Args:
+          params: the slabs (``[1, rows, w]`` or ``[rows, w]``), updated
+            in place.
+          opt_state: optimizer slab state from ``optimizer.init``.
+          residuals: second output of :meth:`forward_with_residuals`.
+          out_grads: cotangents matching the forward outputs.
+          optimizer: :class:`~.optimizers.SparseSGD`.
+          lr: learning rate, a Python number or a 0-d float32 tensor.
+          scale: gradient pre-scale; defaults to ``1/world_size``.
+          enable: optional 0-d bool tensor; when False the update is
+            skipped with the slabs bitwise unchanged (every id goes to
+            the dropped-row sentinel, see
+            :func:`~.apply.apply_width_streams`).
+
+        Returns:
+          ``(params, opt_state)`` as ``[rows, w]`` views of the updated
+          slabs and the optimizer state.
+        """
+        return apply_mod.sparse_apply_gradients(
+            self, params, opt_state, residuals, out_grads, optimizer, lr,
+            scale=scale, enable=enable)

@@ -3,10 +3,11 @@
 
 The id blocks are laid out as the plan's rank-uniform group regions
 (``parallel/plan.py``): each instance's ids at its (rank, group, slot)
-cell, dead cells zero-filled, concatenated per destination rank. At
-world 1 the block IS the lookup's input (the exchange is a
-passthrough), which is all this slice runs; the all-to-alls and the
-gradient packing are ROADMAP A7 / B4.
+cell, dead cells zero-filled, concatenated per destination rank; the
+output cotangents pack the same way into the plan's column layout. At
+world 1 each block IS the next stage's input (the exchange is a
+passthrough), which is all the port runs so far; the all-to-alls and a
+fused packing kernel are ROADMAP A7 / B4.
 """
 
 from __future__ import annotations
@@ -61,7 +62,8 @@ def assemble_cells(de, plan, fill, dead_shape, full_shape, dtype,
                 parts.append(dead(dead_shape(g)) if c is None else c)
         blocks.append(torch.cat(parts, dim=axis) if parts
                       else dead(full_shape))
-    return torch.stack(blocks)
+    # one rank's block needs no second copy
+    return blocks[0][None] if len(blocks) == 1 else torch.stack(blocks)
 
 
 def build_send_blocks(de, plan, entries, comm_dtype, device
@@ -84,4 +86,18 @@ def build_send_blocks(de, plan, entries, comm_dtype, device
         full_shape=(plan.l_max,), dtype=comm_dtype, axis=0, device=device)
 
 
-__all__: List[str] = ["assemble_cells", "build_send_blocks"]
+def pack_grad_blocks(de, plan, grads_by_worker, b: int,
+                     out_dtype) -> torch.Tensor:
+    """Pack the output cotangents ``[world, b, s_max]`` in the plan's
+    column layout (the reverse of the forward unpack): each worker-order
+    instance's grad ``[b, num_slots * w]`` spans its columns, dead
+    columns are zero."""
+    device = next(iter(grads_by_worker.values())).device
+    return assemble_cells(
+        de, plan, fill=lambda inst: grads_by_worker[inst].to(out_dtype),
+        dead_shape=lambda g: (b, g.width), full_shape=(b, plan.s_max),
+        dtype=out_dtype, axis=1, device=device)
+
+
+__all__: List[str] = ["assemble_cells", "build_send_blocks",
+                      "pack_grad_blocks"]

@@ -1,28 +1,236 @@
-"""Train state and the eval step (counterpart of
-``distributed_embeddings_tpu/parallel/trainer.py``).
+"""Hybrid train step, its loop, the train state and the eval step
+(counterpart of ``distributed_embeddings_tpu/parallel/trainer.py``), at
+world 1.
 
-This slice carries the serving half: :class:`HybridTrainState` (same
-field names; the optimizer fields stay ``None`` for a serving-only
-state) and :func:`make_hybrid_eval_step` at world 1. The train step,
-its loop and ``init_hybrid_state`` are the next slice (ROADMAP A3–A6).
+* dense (data-parallel) parameters: autograd + a dense optimizer with
+  ``optax``'s ``init``/``update`` contract (e.g.
+  :class:`~.optimizers.SGD`), updated in place;
+* embedding slabs: **no autograd through the tables**. The forward runs
+  outside autograd; its outputs are detached leaves, the dense model is
+  differentiated w.r.t. them, and their cotangents feed
+  :meth:`~.dist_embedding.DistributedEmbedding.sparse_apply_gradients`,
+  which scatters per-row updates into the slabs in place. (A graph edge
+  to a slab would make PyTorch build a dense gradient as large as the
+  slab.)
+
+Not yet ported, each raising with its ROADMAP item: world > 1 and a mesh
+(A7), step metrics (``with_metrics`` / ``DETPU_OBS=1``, A6), access
+telemetry, streaming vocabularies and microbatch schedules (A11).
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, List, NamedTuple, Optional
 
 import torch
+
+from ..utils import obs
 
 
 class HybridTrainState(NamedTuple):
     """All mutable model state. ``emb_params`` is the slab dict
-    ``{"w<width>": [world, rows_cap, width]}``; ``dense_params`` is the
-    dense module (e.g. a ``DLRMDense``) the ``pred_fn`` calls."""
+    ``{"w<width>": [world, rows_cap, width]}`` and ``emb_opt_state`` its
+    optimizer state; ``dense_params`` is the dense module (e.g. a
+    ``DLRMDense``) and ``dense_opt_state`` its optimizer state; ``step``
+    is a 0-d int32 tensor on the card. The optimizer fields stay ``None``
+    for a serving-only state."""
     emb_params: Any
     emb_opt_state: Any = None
     dense_params: Any = None
     dense_opt_state: Any = None
     step: Any = None
+
+
+def _sq_sum(tensors) -> torch.Tensor:
+    """Sum of squares over every tensor, in float32."""
+    return sum(t.float().square().sum() for t in tensors)
+
+
+def _not_ported(with_metrics, mesh, telemetry, dynamic, world_size):
+    if world_size != 1 or mesh is not None:
+        raise NotImplementedError(
+            "the multi-rank train step is not ported yet: ROADMAP A7")
+    if with_metrics:
+        raise NotImplementedError(
+            "step metrics (with_metrics / DETPU_OBS=1) are not ported yet: "
+            "ROADMAP A6")
+    if telemetry:
+        raise NotImplementedError(
+            "access telemetry is not ported yet: ROADMAP A11")
+    if dynamic:
+        raise NotImplementedError(
+            "streaming vocabularies are not ported yet: ROADMAP A11")
+
+
+def _apply_dense_and_assemble(state, dense_grads, dense_tx, ok, nan_guard):
+    """The step's epilogue: the dense optimizer update, the non-finite
+    guard's select on the small leaves, and the new state.
+
+    The dense parameters update IN PLACE; under the guard each becomes
+    ``where(ok, new, old)``, so a skipped step leaves them (and any
+    tensor leaf of the dense optimizer state) bitwise unchanged. The
+    slabs need no select: their scatter already routed every id to the
+    dropped-row sentinel. ``step`` advances either way."""
+    params = list(state.dense_params.parameters())
+    updates, dense_opt_state = dense_tx.update(
+        dense_grads, state.dense_opt_state, params)
+    with torch.no_grad():
+        for p, u in zip(params, updates):
+            new = p + u
+            p.copy_(torch.where(ok, new, p) if nan_guard else new)
+    if nan_guard:
+        dense_opt_state = _select(ok, dense_opt_state, state.dense_opt_state)
+    return HybridTrainState(
+        emb_params=state.emb_params, emb_opt_state=state.emb_opt_state,
+        dense_params=state.dense_params, dense_opt_state=dense_opt_state,
+        step=state.step + 1)
+
+
+def _select(ok, new, old):
+    """``where(ok, new, old)`` over the tensor leaves of two states of
+    one structure (tuples, lists, dicts)."""
+    if isinstance(new, torch.Tensor):
+        return torch.where(ok, new, old)
+    if isinstance(new, dict):
+        return {k: _select(ok, v, old[k]) for k, v in new.items()}
+    if isinstance(new, (tuple, list)):
+        return type(new)(_select(ok, a, b) for a, b in zip(new, old))
+    return new
+
+
+def _hybrid_local_step(de, loss_fn, dense_tx, emb_optimizer, lr_schedule,
+                       state, cat_inputs, batch, nan_guard=False):
+    """One hybrid step (shared by :func:`make_hybrid_train_step` and
+    :func:`make_hybrid_train_loop`): embedding forward, one backward
+    giving the dense gradients and the embedding-output cotangents,
+    both optimizer updates, step counter bump. Returns ``(loss, state)``.
+
+    ``nan_guard=True`` checks the loss and both gradient energies for
+    NaN/Inf ON THE CARD and, on a non-finite verdict, skips the dense
+    and sparse updates with parameters and optimizer state bitwise
+    unchanged; the step counter still advances and the returned loss is
+    the true (non-finite) value. The verdict is never read on the host.
+    """
+    with torch.no_grad():
+        outs, res = de.forward_with_residuals(state.emb_params, cat_inputs)
+    outs = [o.detach().requires_grad_() for o in outs]
+    params = list(state.dense_params.parameters())
+    with torch.enable_grad():
+        loss = loss_fn(state.dense_params, outs, batch)
+        grads = torch.autograd.grad(loss, params + outs)
+    dense_grads, out_grads = list(grads[:len(params)]), grads[len(params):]
+    loss = loss.detach()
+
+    ok = None
+    if nan_guard:
+        # 0 * (embedding-cotangent energy) is 0 when finite and NaN
+        # otherwise
+        probe = 0.0 * _sq_sum(out_grads)
+        ok = (torch.isfinite(loss.float()) & torch.isfinite(
+            _sq_sum(dense_grads)) & torch.isfinite(probe))
+
+    lr = lr_schedule(state.step) if callable(lr_schedule) else lr_schedule
+    de.sparse_apply_gradients(state.emb_params, state.emb_opt_state, res,
+                              list(out_grads), emb_optimizer, lr, enable=ok)
+    return loss, _apply_dense_and_assemble(state, dense_grads, dense_tx, ok,
+                                           nan_guard)
+
+
+def make_hybrid_train_step(de, loss_fn: Callable, dense_tx, emb_optimizer,
+                           mesh=None, lr_schedule=1.0,
+                           with_metrics: Optional[bool] = None,
+                           nan_guard: Optional[bool] = None,
+                           telemetry=None, dynamic=None):
+    """Build ``step(state, cat_inputs, batch) -> (loss, state)``.
+
+    Args:
+      de: the embedding layer (world 1).
+      loss_fn: ``loss_fn(dense_params, emb_outputs, batch) -> scalar``
+        mean loss over the batch.
+      dense_tx: the dense optimizer (``init(params)``,
+        ``update(grads, state, params) -> (updates, state)``; e.g.
+        :class:`~.optimizers.SGD`).
+      emb_optimizer: :class:`~.optimizers.SparseSGD`.
+      lr_schedule: the embedding learning rate, a constant or a
+        ``step -> lr`` callable (called with the 0-d step tensor; it
+        returns a 0-d float32 tensor on the card).
+      nan_guard: build the step with the on-card non-finite guard;
+        ``None`` follows ``DETPU_NANGUARD`` (default on).
+      mesh, with_metrics, telemetry, dynamic: not ported yet (raise;
+        ``with_metrics=None`` follows ``DETPU_OBS``).
+
+    The state's slabs and dense parameters are updated in place (the
+    JAX step donates them); the returned state holds the same tensors.
+    """
+    if with_metrics is None:
+        with_metrics = obs.metrics_enabled()
+    _not_ported(with_metrics, mesh, telemetry, dynamic, de.world_size)
+    if nan_guard is None:
+        nan_guard = obs.nanguard_enabled()
+
+    def step(state: HybridTrainState, cat_inputs, batch):
+        return _hybrid_local_step(de, loss_fn, dense_tx, emb_optimizer,
+                                  lr_schedule, state, cat_inputs, batch,
+                                  nan_guard=nan_guard)
+
+    return step
+
+
+def _index(tree, k: int):
+    """The ``k``-th leading slice of every tensor in a batch structure."""
+    if isinstance(tree, torch.Tensor):
+        return tree[k]
+    if isinstance(tree, dict):
+        return {key: _index(v, k) for key, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_index(v, k) for v in tree)
+    raise TypeError(f"batch leaves must be tensors, got {type(tree)}")
+
+
+def make_hybrid_train_loop(de, loss_fn: Callable, dense_tx, emb_optimizer,
+                           mesh=None, lr_schedule=1.0,
+                           with_metrics: Optional[bool] = None,
+                           nan_guard: Optional[bool] = None,
+                           telemetry=None, dynamic=None):
+    """Multi-step loop: ``loop(state, cat_stacks, batch_stacks) ->
+    (losses [K], state)`` runs K steps of :func:`make_hybrid_train_step`
+    over the leading axis of every input (each categorical input
+    ``[K, batch, ...]``, ``batch`` any structure of ``[K, ...]``
+    tensors). The JAX loop scans inside one compiled program (its
+    ``unroll`` is a ``lax.scan`` knob, not taken here); this is a Python
+    loop with the same per-step semantics, guard included."""
+    step = make_hybrid_train_step(
+        de, loss_fn, dense_tx, emb_optimizer, mesh=mesh,
+        lr_schedule=lr_schedule, with_metrics=with_metrics,
+        nan_guard=nan_guard, telemetry=telemetry, dynamic=dynamic)
+
+    def loop(state: HybridTrainState, cat_stacks, batch_stacks):
+        K = cat_stacks[0].shape[0]
+        losses: List[torch.Tensor] = []
+        for k in range(K):
+            loss, state = step(state, [c[k] for c in cat_stacks],
+                               _index(batch_stacks, k))
+            losses.append(loss)
+        return torch.stack(losses), state
+
+    return loop
+
+
+def init_hybrid_state(de, emb_optimizer, dense_params, dense_tx,
+                      generator: Optional[torch.Generator] = None,
+                      dtype: torch.dtype = torch.float32,
+                      device="cuda") -> HybridTrainState:
+    """Initialize all state: slabs from the tables' initializers (in
+    place, see ``DistributedEmbedding.init``), both optimizer states, and
+    ``step = 0`` on ``device``."""
+    emb_params = de.init(generator, dtype=dtype, device=device)
+    dev = next(iter(emb_params.values())).device
+    return HybridTrainState(
+        emb_params=emb_params,
+        emb_opt_state=emb_optimizer.init(emb_params),
+        dense_params=dense_params,
+        dense_opt_state=dense_tx.init(list(dense_params.parameters())),
+        step=torch.zeros((), dtype=torch.int32, device=dev))
 
 
 def make_hybrid_eval_step(de, pred_fn: Callable):

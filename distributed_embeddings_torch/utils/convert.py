@@ -8,13 +8,16 @@
   into the torch :class:`~..models.dlrm.DLRMDense` through
   :func:`load_flax_dense`; a flax kernel becomes ``Linear.weight`` of
   shape ``[out, in]``.
+* Train state: :func:`hybrid_state_from_jax` builds the port's
+  ``HybridTrainState`` from those two plus the JAX state's optimizer
+  states and step, so both packages train from one state.
 
 Nothing here imports JAX: the arrays arrive as numpy.
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -52,3 +55,45 @@ def load_flax_dense(module, params: Mapping[str, Any]) -> None:
                                  f"{lin.out_features})")
             lin.weight.copy_(kernel.t())
             lin.bias.copy_(bias)
+
+
+def _leaf_count(tree) -> int:
+    """Array leaves of a nested tuple/list/dict (namedtuples included)."""
+    if isinstance(tree, dict):
+        return sum(_leaf_count(v) for v in tree.values())
+    if isinstance(tree, (tuple, list)):
+        return sum(_leaf_count(v) for v in tree)
+    return 0 if tree is None else 1
+
+
+def hybrid_state_from_jax(de, dense, tables: Sequence[Any],
+                          dense_tree: Mapping[str, Any], step,
+                          emb_opt_state=None, dense_opt_state=None,
+                          dtype: torch.dtype = torch.float32,
+                          device="cuda"):
+    """The port's ``HybridTrainState`` from a JAX one, given as numpy:
+
+    * ``tables``: the JAX ``DistributedEmbedding.get_weights`` list;
+    * ``dense_tree``: the flax ``DLRMDense`` parameters, loaded into
+      ``dense`` (a torch ``DLRMDense`` on ``device``) in place;
+    * ``step``: the step counter;
+    * ``emb_opt_state`` / ``dense_opt_state``: the optimizer states. The
+      port's optimizers (``SparseSGD``, ``SGD``) keep none, so they must
+      hold no arrays (the stateful optimizers are ROADMAP B8).
+    """
+    from ..parallel.trainer import HybridTrainState
+
+    for name, st in (("emb_opt_state", emb_opt_state),
+                     ("dense_opt_state", dense_opt_state)):
+        if _leaf_count(st):
+            raise NotImplementedError(
+                f"{name} holds arrays: stateful optimizers are not ported "
+                "yet (ROADMAP B8)")
+    load_flax_dense(dense, dense_tree)
+    params = de.set_weights(tables, dtype=dtype, device=device)
+    dev = next(iter(params.values())).device
+    return HybridTrainState(
+        emb_params=params, emb_opt_state={k: () for k in params},
+        dense_params=dense, dense_opt_state=(),
+        step=torch.tensor(int(np.asarray(step)), dtype=torch.int32,
+                          device=dev))

@@ -1,10 +1,11 @@
 """Registry of the ``DETPU_*`` environment variables the port reads.
 
 Counterpart of ``distributed_embeddings_tpu/utils/envvars.py``, cut to
-the serving knobs this package has: the ``DETPU_SERVE_*`` declarations
-that :class:`~..parallel.serving.ServeConfig` reads, with the JAX
-package's names and defaults, so one environment configures both
-servers alike.
+the knobs this package has: the ``DETPU_SERVE_*`` declarations that
+:class:`~..parallel.serving.ServeConfig` reads, and the train-step
+switches (``DETPU_OBS``, ``DETPU_NANGUARD``, ``DETPU_SGD_DEDUP``), with
+the JAX package's names and defaults, so one environment configures
+both packages alike.
 """
 
 from __future__ import annotations
@@ -39,6 +40,12 @@ def _require(name: str) -> EnvVar:
 def get(name: str) -> Optional[str]:
     """Read a registered variable (its declared default when unset)."""
     return os.environ.get(name, _require(name).default)
+
+
+def enabled(name: str) -> bool:
+    """Truthy read with the JAX package's convention: unset-with-falsy-
+    default, empty, and ``"0"`` are off; anything else is on."""
+    return get(name) not in (None, "", "0")
 
 
 def get_float(name: str) -> float:
@@ -79,3 +86,14 @@ declare("DETPU_SERVE_SHED_FRAC", default="0.5",
         doc="queue fraction of DETPU_SERVE_MAX_QUEUE at which new "
             "lowest-priority (<= 0) requests are refused with a typed "
             "Overloaded response")
+
+# train step (parallel/trainer.py, parallel/optimizers.py)
+declare("DETPU_OBS", default="",
+        doc="1 = build train steps with on-device step metrics (not "
+            "ported yet: building a train step raises, ROADMAP A6)")
+declare("DETPU_NANGUARD", default="1",
+        doc="on-device non-finite guard in the hybrid step; 0 = build the "
+            "unguarded step")
+declare("DETPU_SGD_DEDUP", default="",
+        doc="1 = force the sort/segment-sum dedup pass into SparseSGD "
+            "(not ported yet: apply_rows raises, ROADMAP B7)")

@@ -9,19 +9,30 @@ Tolerances: the hotness-1 gather and the bottom-row copy of the
 interaction are bit-exact; fp32-accumulated sums (hotness 3, weights,
 the pair dot products) are within 1 bf16 ulp of the plain result (bf16)
 or 1e-6 / 1e-5 relative (fp32), since the kernel sums in another order.
+The interaction backward (K4) is within 1 bf16 ulp of the plain result
+plus 2^-20 of the sum of |terms| (fp32 order; fp32: 1e-5 of that sum).
+The SGD scatter (K3) is bit-exact on rows one id updates and on dyadic
+float32 duplicates; a row that k ids update with inexact sums is within
+k ulps of its dtype of ``|old| + sum |update|`` (both sides add with
+atomics, in an order of the card's choosing). A small DLRM trained 5
+steps on the card (kernels) and on the CPU (plain versions), float32:
+losses, tables and dense params within 1e-4 (cuBLAS and the CPU sum in
+other orders).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from distributed_embeddings_torch.models import DLRMConfig, DLRMDense
+from distributed_embeddings_torch.models import (DLRMConfig, DLRMDense,
+                                                 bce_with_logits)
 from distributed_embeddings_torch.ops import (
-    dot_interact_fwd, dot_interact_fwd_plain, embedding_lookup,
-    gather_combine, gather_combine_plain)
+    dot_interact_bwd, dot_interact_bwd_plain, dot_interact_fwd,
+    dot_interact_fwd_plain, embedding_lookup, gather_combine,
+    gather_combine_plain, sgd_scatter, sgd_scatter_plain)
 from distributed_embeddings_torch.parallel import (
-    DistributedEmbedding, HybridTrainState, ServeConfig, Served,
-    ServingRuntime, synthetic_request)
+    SGD, DistributedEmbedding, HybridTrainState, ServeConfig, Served,
+    ServingRuntime, SparseSGD, make_hybrid_train_step, synthetic_request)
 
 from torch_parity import assert_within_ulps, cuda_device, to_np  # noqa: F401
 
@@ -150,3 +161,148 @@ def test_served_dlrm_on_the_card_matches_the_cpu(cuda_device):
     for a, b in zip(gpu, cpu):
         np.testing.assert_allclose(a.predictions, b.predictions, atol=2e-2,
                                    rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slab_dtype,vals_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("width", [3, 8, 16, 24, 128])
+def test_sgd_scatter_kernel_matches_plain(cuda_device, slab_dtype,
+                                          vals_dtype, width):
+    rng = np.random.default_rng(width)
+    R = 300
+    for ids_dtype in (torch.int32, torch.int64):
+        # unique rows (some from the end), the sentinel, ids past the slab
+        # and below -R: bit-exact
+        rows = rng.permutation(R)[:200]
+        ids = np.where(rng.random(200) < 0.3, rows - R, rows)
+        ids = np.concatenate([ids, [R, R + 1, 10 ** 6, -R - 1]])
+        slab = torch.from_numpy(rng.normal(size=(R, width)).astype(
+            np.float32)).to(slab_dtype).to(cuda_device)
+        vals = torch.from_numpy(rng.normal(size=(len(ids), width)).astype(
+            np.float32)).to(vals_dtype).to(cuda_device)
+        tid = torch.from_numpy(ids).to(ids_dtype).to(cuda_device)
+        for lr in (0.005, 0.37):
+            got, want = slab.clone(), slab.clone()
+            sgd_scatter(got, tid, vals, lr)
+            sgd_scatter_plain(want, tid, vals, lr)
+            np.testing.assert_array_equal(to_np(got), to_np(want))
+        # duplicates: Zipfian ids into a few hot rows
+        ids = (rng.zipf(1.2, size=2000) - 1) % (R + 5)
+        tid = torch.from_numpy(ids).to(ids_dtype).to(cuda_device)
+        if slab_dtype == torch.float32:  # dyadic: every sum exact
+            slab = torch.from_numpy(rng.integers(-64, 64, size=(R, width))
+                                    .astype(np.float32) / 16).to(cuda_device)
+            vals = torch.from_numpy(rng.integers(-32, 32, size=(
+                len(ids), width)).astype(np.float32) / 8).to(
+                vals_dtype).to(cuda_device)
+            got, want = slab.clone(), slab.clone()
+            sgd_scatter(got, tid, vals, 0.25)
+            sgd_scatter_plain(want, tid, vals, 0.25)
+            np.testing.assert_array_equal(to_np(got), to_np(want))
+            # a float32 device lr (a callable schedule's): the products
+            # are inexact, so a row k ids update is within k float32 ulps
+            # (2^-16 bf16 ulps) of |old| + sum |update|
+            lr = torch.tensor(0.013, device=cuda_device)
+            got, want = slab.clone(), slab.clone()
+            sgd_scatter(got, tid, vals, lr)
+            sgd_scatter_plain(want, tid, vals, lr)
+            keep = ids < R
+            k = np.bincount(ids[keep], minlength=R)[:, None]
+            mag = np.zeros((R, width))
+            np.add.at(mag, ids[keep], np.abs(0.013 * to_np(vals)[keep]))
+            assert_within_ulps(to_np(got), to_np(want),
+                               np.abs(to_np(slab)) + mag, k * 2.0 ** -16,
+                               f"w{width} duplicates, tensor lr")
+        else:
+            vals = torch.from_numpy(rng.normal(size=(len(ids), width))
+                                    .astype(np.float32)).to(vals_dtype).to(
+                cuda_device)
+            got, want = slab.clone(), slab.clone()
+            sgd_scatter(got, tid, vals, 0.05)
+            sgd_scatter_plain(want, tid, vals, 0.05)
+            keep = ids < R
+            k = np.bincount(ids[keep], minlength=R)[:, None]
+            mag = np.zeros((R, width))
+            np.add.at(mag, ids[keep], np.abs(0.05 * to_np(vals)[keep]))
+            assert_within_ulps(to_np(got), to_np(want),
+                               np.abs(to_np(slab)) + mag, k + 0.0,
+                               f"w{width} duplicates")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 27, 128), (257, 27, 128),
+                                   (33, 27, 16), (9, 5, 13)])
+def test_dot_interact_bwd_kernel_matches_plain(cuda_device, dtype, shape):
+    g = torch.Generator().manual_seed(4)
+    b, f, d = shape
+    feats = torch.randn(shape, generator=g).to(dtype).to(cuda_device)
+    dy = torch.randn((b, f * (f - 1) // 2 + d), generator=g).to(dtype).to(
+        cuda_device)
+    got = to_np(dot_interact_bwd(feats, dy))
+    want = to_np(dot_interact_bwd_plain(feats, dy))
+    scale = to_np(dot_interact_bwd_plain(feats.float().abs(),
+                                         dy.float().abs()))
+    if dtype == torch.float32:
+        np.testing.assert_array_less(np.abs(got - want), 1e-5 * scale + 1e-30)
+    else:
+        ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want),
+                                                  2.0 ** -126))) - 7)
+        np.testing.assert_array_less(np.abs(got - want),
+                                     ulp + 2.0 ** -20 * scale + 1e-30)
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_matches_the_cpu(cuda_device):
+    """A small float32 DLRM trained 5 steps on the card (all four
+    kernels) and on the CPU (their plain versions) from one state."""
+    sizes = [500, 7, 33, 1200]
+    cfg = DLRMConfig(table_sizes=sizes, embedding_dim=16,
+                     num_numerical_features=13, bottom_mlp_dims=(32, 16),
+                     top_mlp_dims=(64, 1))
+    de = DistributedEmbedding(cfg.embedding_configs(), world_size=1)
+    params = de.init(torch.Generator().manual_seed(0), device="cpu")
+    dense = DLRMDense(cfg, device="cpu",
+                      generator=torch.Generator().manual_seed(1))
+
+    def loss_fn(m, outs, batch):
+        return bce_with_logits(m(batch[0], outs), batch[1])
+
+    rng = np.random.default_rng(2)
+    batches = [([_ids(rng, s, (256,)) for s in sizes],
+                rng.normal(size=(256, 13)).astype(np.float32),
+                (rng.random(256) < 0.3).astype(np.float32))
+               for _ in range(5)]
+    out = {}
+    kernels = (gather_combine, dot_interact_fwd, dot_interact_bwd,
+               sgd_scatter)
+    for dev in ("cpu", cuda_device):
+        d = DLRMDense(cfg, device=dev)
+        d.load_state_dict(dense.state_dict())
+        state = HybridTrainState(
+            emb_params={k: v.clone().to(dev) for k, v in params.items()},
+            emb_opt_state=SparseSGD().init(params), dense_params=d,
+            dense_opt_state=(),
+            step=torch.zeros((), dtype=torch.int32, device=dev))
+        step = make_hybrid_train_step(de, loss_fn, SGD(0.1), SparseSGD(),
+                                      lr_schedule=0.1)
+        before = [k.launches for k in kernels]
+        losses = []
+        for cats, num, lab in batches:
+            loss, state = step(state, [torch.from_numpy(c).to(dev)
+                                       for c in cats],
+                               (torch.from_numpy(num).to(dev),
+                                torch.from_numpy(lab).to(dev)))
+            losses.append(float(loss))
+        launched = [k.launches - b for k, b in zip(kernels, before)]
+        assert launched == ([0, 0, 0, 0] if dev == "cpu" else [5] * 4)
+        out[str(dev)] = (losses, de.get_weights(state.emb_params),
+                         [p.detach().cpu() for p in d.parameters()])
+    (lc, tc, dc), (lg, tg, dg) = out["cpu"], out[str(cuda_device)]
+    np.testing.assert_allclose(lg, lc, atol=1e-4, rtol=0)
+    for a, b in zip(tg, tc):
+        np.testing.assert_allclose(a, b, atol=1e-4, rtol=0)
+    for a, b in zip(dg, dc):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-4, rtol=0)

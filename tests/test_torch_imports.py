@@ -64,7 +64,8 @@ def violations(source: str, name: str = "<src>"):
 def test_sources_exist():
     names = {p.name for p in _sources()}
     assert {"chip_smoke.py", "_kernels.py", "embedding_lookup.py",
-            "interaction.py", "serving.py"} <= names
+            "interaction.py", "serving.py", "scatter_add.py",
+            "optimizers.py", "apply.py", "trainer.py", "obs.py"} <= names
 
 
 @pytest.mark.parametrize("path", _sources(),
@@ -84,6 +85,12 @@ def test_port_module_is_standalone(path):
     "    except RuntimeError:\n        return gather_combine_plain(x)\n",
     "def f(x):\n    try:\n        return k.dot_interact_fwd(x)\n"
     "    except Exception:\n        return ops.dot_interact_fwd_plain(x)\n",
+    "def f(s, i, v):\n    try:\n        return sgd_scatter(s, i, v, .1)\n"
+    "    except RuntimeError:\n"
+    "        return sgd_scatter_plain(s, i, v, .1)\n",
+    "def g(f, d):\n    try:\n        return dot_interact_bwd(f, d)\n"
+    "    except (RuntimeError, OSError):\n"
+    "        return dot_interact_bwd_plain(f, d)\n",
 ])
 def test_checker_catches_seeded_violations(bad):
     assert violations(bad)

@@ -1,5 +1,5 @@
-"""The port's two kernels against the JAX package, on the CPU, and
-against their plain versions on the card.
+"""The port's interaction and gather kernels against the JAX package, on
+the CPU, and against their plain versions on the card.
 
 * K1 (``ops.embedding_lookup.gather_combine``): the plain version the
   CPU runs is held to the JAX ``parallel/lookup.py:lookup_group`` (kind
@@ -7,6 +7,9 @@ against their plain versions on the card.
   logical rows) and to the dense branch of ``embedding_lookup``.
 * K2 (``ops.interaction.dot_interact_fwd``): held to the JAX
   ``models/dlrm.py:dot_interact``.
+* K4 (``ops.interaction.dot_interact_bwd``): held to ``jax.vjp`` of the
+  same JAX function, and ``DotInteract`` (K2 forward, K4 backward) to
+  ``torch.autograd.gradcheck`` in float64.
 
 Tolerances, with their reasons:
   - gathers (hotness 1, sums of bf16 rows accumulated in fp32 by both)
@@ -19,7 +22,12 @@ Tolerances, with their reasons:
   - fp32 reductions: summation order only, rtol 1e-6;
   - K2 bf16: both accumulate in fp32 and round once; the fp32 order
     differs: <= 1 bf16 ulp of the result; K2 fp32: 1e-5 of the sum of
-    |products|.
+    |products|;
+  - K4 fp32: summation order only, 1e-5 of the sum of |terms|
+    (``sum_g |dG[f, g]| |feats[g]|``, plus the appended row's cotangent
+    on feature 0); K4 bf16: the port rounds the fp32 sum once, JAX
+    rounds the two einsum cotangents, their sum and the appended row's
+    add: <= 2 bf16 ulp of the sum of |terms|.
 ``tests/test_torch_cuda.py`` holds each kernel to its plain version on
 the card.
 """
@@ -38,7 +46,8 @@ from distributed_embeddings_tpu.parallel import exchange as jax_exchange
 from distributed_embeddings_tpu.parallel import lookup as jax_lookup_mod
 
 from distributed_embeddings_torch.ops import (
-    dot_interact_fwd, embedding_lookup, gather_combine)
+    DotInteract, dot_interact_bwd, dot_interact_fwd, embedding_lookup,
+    gather_combine)
 from distributed_embeddings_torch.parallel import DistributedEmbedding
 from distributed_embeddings_torch.parallel import exchange as t_exchange
 from distributed_embeddings_torch.parallel import lookup as t_lookup
@@ -191,11 +200,14 @@ def test_gather_clips_out_of_range_ids():
 
 
 def test_cpu_tensors_run_plain_and_count_no_launch():
-    before = (gather_combine.launches, dot_interact_fwd.launches)
+    kernels = (gather_combine, dot_interact_fwd, dot_interact_bwd)
+    before = [k.launches for k in kernels]
     table = torch.ones(5, 8)
     embedding_lookup(table, torch.tensor([[1, 2]]), "sum")
-    dot_interact_fwd(torch.ones(2, 3, 8))
-    assert (gather_combine.launches, dot_interact_fwd.launches) == before
+    feats = torch.ones(2, 3, 8, requires_grad=True)
+    DotInteract.apply(feats).sum().backward()
+    assert feats.grad.shape == feats.shape
+    assert [k.launches for k in kernels] == before
 
 
 def test_wrappers_refuse_other_devices():
@@ -206,6 +218,9 @@ def test_wrappers_refuse_other_devices():
         embedding_lookup(meta, torch.tensor([1], device="meta"))
     with pytest.raises(ValueError, match="unsupported device"):
         dot_interact_fwd(torch.empty(2, 3, 8, device="meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        dot_interact_bwd(torch.empty(2, 3, 8, device="meta"),
+                         torch.empty(2, 11, device="meta"))
 
 
 # ------------------------------------------------------------ K2 vs JAX
@@ -234,3 +249,52 @@ def test_dot_interact_matches_jax(dim, dtype):
         np.testing.assert_array_equal(got[:, -dim:], want[:, -dim:])
         assert_within_ulps(got, want, np.maximum(np.abs(want), 1e-30), 1,
                            "dot_interact")
+
+
+# ------------------------------------------------------------ K4 vs JAX
+
+
+@pytest.mark.parametrize("dim", [16, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dot_interact_bwd_matches_jax_vjp(dim, dtype):
+    """K4's plain version against the cotangent JAX's autodiff gives the
+    stacked features (bottom-MLP input and every embedding output)."""
+    jdt, tdt = DTYPES[dtype]
+    rng = np.random.default_rng(100 + dim)
+    B, F = 48, 27
+    P = F * (F - 1) // 2
+    feats = rng.normal(size=(B, F, dim)).astype(np.float32)
+    dy = rng.normal(size=(B, P + dim)).astype(np.float32)
+
+    def fn(bottom, embs):
+        return jax_dot_interact(embs, bottom)
+
+    jf = jnp.asarray(feats, jdt)
+    _, vjp = jax.vjp(fn, jf[:, 0], [jf[:, f] for f in range(1, F)])
+    d_bottom, d_embs = vjp(jnp.asarray(dy, jdt))
+    want = np.stack([to_np(d_bottom)] + [to_np(e) for e in d_embs], axis=1)
+    got = to_np(dot_interact_bwd(torch.from_numpy(feats).to(tdt),
+                                 torch.from_numpy(dy).to(tdt)))
+    assert got.shape == want.shape == (B, F, dim)
+    # the sum of |terms| each output element adds up
+    qf = to_np(torch.from_numpy(feats).to(tdt))
+    qd = to_np(torch.from_numpy(dy).to(tdt))
+    li, lj = np.tril_indices(F, k=-1)
+    adg = np.zeros((B, F, F))
+    adg[:, li, lj] = np.abs(qd[:, :P])
+    adg[:, lj, li] = np.abs(qd[:, :P])
+    scale = np.einsum("bfg,bgd->bfd", adg, np.abs(qf))
+    scale[:, 0] += np.abs(qd[:, P:])
+    if dtype == "float32":
+        np.testing.assert_array_less(np.abs(got - want), 1e-5 * scale + 1e-30)
+    else:
+        assert_within_ulps(got, want, np.maximum(scale, 1e-30), 2,
+                           "dot_interact_bwd")
+
+
+def test_dot_interact_function_gradcheck():
+    """``DotInteract`` (K2 forward, K4 backward; their plain versions on
+    the CPU) against finite differences, in float64."""
+    feats = torch.from_numpy(np.random.default_rng(9).normal(
+        size=(3, 5, 4))).requires_grad_()
+    assert torch.autograd.gradcheck(DotInteract.apply, (feats,))
