@@ -41,7 +41,23 @@ Phases (any failure raises and the script exits non-zero):
 7. time: CUDA-event medians (20+ runs after warmup) of each kernel, its
    plain version, one PyTorch library call for the same function, and
    the least time the card could take (bytes over 3.35 TB/s, operations
-   over 989 TFLOP/s bf16, the H100 SXM data-sheet peaks).
+   over 989 TFLOP/s bf16, the H100 SXM data-sheet peaks);
+8. zoo, after freeing the DLRM state: the synthetic zoo's tiny model
+   (55 tables, a w8 slab run dense-apply and a 70.2M-row w16 slab run
+   sparse) trained by ``SparseAdagrad`` + ``Adagrad`` at lr 0.01, MSE:
+   a. capped at 20000 rows, batch 4096: 5 steps with the kernels
+      against 5 through ``plain_kernels()``, fp32, bf16 tables over
+      fp32 accumulators and bf16/bf16, each regime forced;
+   b. uncapped, batch 65536, fp32 then bf16 tables: one step, each
+      kernel of the sparse apply (K3 + K7 on w8, K5 + K6 on w16) held
+      to its plain version on the inputs the step gave it;
+   c. a NaN batch must leave the touched rows and accumulators, the
+      dense params and their Adagrad state bitwise unchanged;
+   d. 3 warmup + 20 timed steps, fp32 and bf16 tables, launches counted
+      as in 6d, a stage split and a ``torch.profiler`` window (device
+      busy share, K5's launch chain);
+   e. K1 (hot 10, w16), K3 (the w8 scatter-sum), K5, K6 and K7 timed
+      as in 7, and the w16 slab through both Adagrad regimes.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Run from the root of a checkout:
@@ -50,6 +66,7 @@ The line before the last is ``{"kernels": [...]}``; the last is
 
 import contextlib
 import copy
+import gc
 import json
 import os
 import re
@@ -75,7 +92,17 @@ TRAIN_LR = 0.005               # both optimizers' lr in the DLRM bench
 TRAIN_STEPS = 20
 SMALL_BATCH = 4096
 SMALL_STEPS = 5
-SMALL_ROWS = 20000             # table-size cap of the small training check
+SMALL_ROWS = 20000             # table-size cap of the small training checks
+DLRM_KERNELS = ("gather_combine", "dot_interact_fwd", "dot_interact_bwd",
+                "sgd_scatter")
+F32_OPS_PER_S = 67e12          # H100 SXM data sheet, fp32 (no tensor cores)
+ZOO_LR = 0.01                  # both optimizers' lr in bench.py:run_tiny_zoo
+ZOO_BATCH = 65536
+ZOO_BATCHES = 4                # distinct batches the timed steps cycle over
+K5_KERNELS = ("init_keys", "radix_hist", "scan_reduce", "scan_partials",
+              "scan_apply", "radix_scatter", "count_bounds", "seg_sum",
+              "seg_fix", "fill_tail")  # csrc/dedup.cu's launch chain
+K5_CHAIN = re.compile(r"namespace\)::(" + "|".join(K5_KERNELS) + r")[<(]")
 
 
 def check(cond, msg):
@@ -147,7 +174,29 @@ def phase_device(torch):
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python "
         f"{sys.version.split()[0]} device {torch.cuda.get_device_name(0)} "
         f"count {torch.cuda.device_count()}")
+    uuid = subprocess.run(
+        ["nvidia-smi", "--query-gpu=uuid,pci.bus_id",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    log(f"host: {host_cpu()}; {len(os.sched_getaffinity(0))} cores usable "
+        f"of {os.cpu_count()}; card {uuid.stdout.strip()}")
     return lines[0].strip()
+
+
+def host_cpu():
+    """The host CPU as ``/proc/cpuinfo`` describes its first core (a
+    host-bound step's time depends on it)."""
+    keys = ("vendor_id", "cpu family", "model", "model name", "stepping",
+            "cpu MHz")
+    found = {}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            if not line.strip():
+                break
+            key, _, val = line.partition(":")
+            if key.strip() in keys:
+                found[key.strip()] = val.strip()
+    return ", ".join(f"{k} {found[k]}" for k in keys if k in found)
 
 
 def phase_build():
@@ -319,8 +368,10 @@ def phase_serve(torch, de, state):
     for name in ("gather_combine", "dot_interact_fwd"):
         check(launches[name] > 0, f"{name} never launched on the served "
               "path")
-    for name in ("dot_interact_bwd", "sgd_scatter"):
-        check(launches[name] == 0, f"{name} launched on the served path")
+    for name in launches:
+        if name not in ("gather_combine", "dot_interact_fwd"):
+            check(launches[name] == 0, f"{name} launched on the served "
+                  "path")
     by_rid = {r.rid: r for r in results}
     worst = 0.0
     for rid in sorted(by_rid)[::max(1, len(by_rid) // 16)]:
@@ -352,11 +403,14 @@ def kernel_fns():
     """Every kernel wrapper of the port, by name (each counts its own
     launches)."""
     from distributed_embeddings_torch.ops import (
-        dot_interact_bwd, dot_interact_fwd, gather_combine, sgd_scatter)
+        adagrad_dense, adagrad_rows, dedup_sparse_grad, dot_interact_bwd,
+        dot_interact_fwd, gather_combine, sgd_scatter)
 
     return {"gather_combine": gather_combine,
             "dot_interact_fwd": dot_interact_fwd,
-            "dot_interact_bwd": dot_interact_bwd, "sgd_scatter": sgd_scatter}
+            "dot_interact_bwd": dot_interact_bwd, "sgd_scatter": sgd_scatter,
+            "dedup_sparse_grad": dedup_sparse_grad,
+            "adagrad_rows": adagrad_rows, "adagrad_dense": adagrad_dense}
 
 
 def zero_counts():
@@ -370,10 +424,12 @@ def read_counts():
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route the package's four kernel calls to their plain versions
-    (the reference run of the small training check)."""
-    from distributed_embeddings_torch.ops import (gather_combine_plain,
-                                                  interaction, scatter_add)
+    """Route every kernel call site of the package to its plain version
+    (the reference run of the small training checks)."""
+    from distributed_embeddings_torch.ops import (adagrad,
+                                                  gather_combine_plain,
+                                                  interaction, scatter_add,
+                                                  sparse_grad)
     from distributed_embeddings_torch.parallel import lookup, optimizers
 
     swaps = [(lookup, "gather_combine", gather_combine_plain),
@@ -381,7 +437,11 @@ def plain_kernels():
               interaction.dot_interact_fwd_plain),
              (interaction, "dot_interact_bwd",
               interaction.dot_interact_bwd_plain),
-             (optimizers, "sgd_scatter", scatter_add.sgd_scatter_plain)]
+             (optimizers, "sgd_scatter", scatter_add.sgd_scatter_plain),
+             (optimizers, "dedup_sparse_grad",
+              sparse_grad.dedup_sparse_grad_plain),
+             (optimizers, "adagrad_rows", adagrad.adagrad_rows_plain),
+             (optimizers, "adagrad_dense", adagrad.adagrad_dense_plain)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, fn in swaps:
         setattr(mod, name, fn)
@@ -496,9 +556,10 @@ def small_train_check(torch, dtype):
         torch.cuda.synchronize()
         counts = read_counts()
         want = SMALL_STEPS if name == "kernels" else 0
-        check(all(n == want for n in counts.values()),
+        check(all(counts[k] == (want if k in DLRM_KERNELS else 0)
+                  for k in counts),
               f"small train check ({name}): launches {counts}, expected "
-              f"{want} of each")
+              f"{want} of each DLRM kernel and none of the others")
         runs[name] = (torch.stack(losses).float(), state)
     (lk, stk), (lp, stp) = runs["kernels"], runs["plain"]
     check(bool(torch.isfinite(lk).all()), "small train check: loss "
@@ -667,8 +728,9 @@ def phase_train(torch, de, state):
     losses = torch.stack(losses).float().cpu().numpy()
     check(np.isfinite(losses).all(), f"train: non-finite loss {losses}")
     for name, n in launches.items():
-        check(n == TRAIN_STEPS, f"train: {name} launched {n} times in "
-              f"{TRAIN_STEPS} steps (expected once per step)")
+        want = TRAIN_STEPS if name in DLRM_KERNELS else 0
+        check(n == want, f"train: {name} launched {n} times in "
+              f"{TRAIN_STEPS} steps (expected {want})")
     step_ms = [s.elapsed_time(e) for s, e in times]
 
     # the step's stages, called one by one with events between them
@@ -895,6 +957,749 @@ def time_dot_interact_bwd(torch):
              "bytes": nbytes, "ops": ops}]
 
 
+# ------------------------------------------------------------------ zoo
+
+
+def zoo_loss(dense, outs, batch):
+    """MSE of the synthetic model's output, as ``bench.py:run_tiny_zoo``."""
+    num, lab = batch
+    return (dense(num, outs) - lab).square().mean()
+
+
+def zoo_streams(cfg, b):
+    """Ids per step of each width slab: ``{width: n}``."""
+    from distributed_embeddings_torch.models import expand_embedding_configs
+
+    tables, imap, hot = expand_embedding_configs(cfg)
+    out = {}
+    for t, h in zip(imap, hot):
+        w = tables[t]["output_dim"]
+        out[w] = out.get(w, 0) + b * h
+    return out
+
+
+def zoo_expected(de, opt, cfg, b):
+    """Launches per step of each kernel on the zoo path: K1 once per plan
+    group; per slab K3 + K7 (dense-apply) or K5 + K6 (sparse)."""
+    plan = next(iter(de._plan_cache.values()))
+    want = {name: 0 for name in kernel_fns()}
+    want["gather_combine"] = len(plan.groups)
+    regimes = {}
+    for w, n in zoo_streams(cfg, b).items():
+        dense = opt.dense_apply(de.rows_cap[w], n)
+        regimes[f"w{w}"] = "dense-apply" if dense else "sparse"
+        for name in (("sgd_scatter", "adagrad_dense") if dense
+                     else ("dedup_sparse_grad", "adagrad_rows")):
+            want[name] += 1
+    return want, regimes
+
+
+def zoo_model(torch, dtype, row_cap=None, ratio=6.0, seed=SEED + 40):
+    """The tiny zoo (``row_cap`` rows a table at most), its train state
+    with ``SparseAdagrad`` + ``Adagrad`` and the optimizer."""
+    from distributed_embeddings_torch.models import (build_synthetic,
+                                                     synthetic_models_v3)
+    from distributed_embeddings_torch.parallel import (
+        Adagrad, SparseAdagrad, init_hybrid_state)
+
+    cfg = synthetic_models_v3["tiny"]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    de, dense, _ = build_synthetic(cfg, 1, row_cap=row_cap, device="cuda",
+                                   generator=gen)
+    opt = SparseAdagrad(dense_apply_ratio=ratio)
+    st = init_hybrid_state(de, opt, dense, Adagrad(ZOO_LR), generator=gen,
+                           dtype=dtype, device="cuda")
+    return cfg, de, opt, st
+
+
+def clone_state(st):
+    from distributed_embeddings_torch.parallel import HybridTrainState
+
+    return HybridTrainState(
+        emb_params={k: v.clone() for k, v in st.emb_params.items()},
+        emb_opt_state={k: v.clone() for k, v in st.emb_opt_state.items()},
+        dense_params=copy.deepcopy(st.dense_params),
+        dense_opt_state=tuple(t.clone() for t in st.dense_opt_state),
+        step=st.step.clone())
+
+
+def zoo_small_check(torch, dtype, acc_dtype, ratio):
+    """5 steps of the tiny zoo capped at SMALL_ROWS rows a table, b=4096,
+    with the kernels against the same 5 steps through the plain
+    versions, on the card, from one state (tables in ``dtype``,
+    accumulators in ``acc_dtype``).
+
+    Bounds: both runs compute the dense half alike, but the kernels sum
+    duplicate ids in another order than the plain versions (K3's atomics,
+    K5's pieces) and round ``rsqrt`` differently, and the synthetic
+    model's raw numerical features (x100) can make a ReLU whose
+    pre-activation is at rounding level flip sign, after which that
+    unit's Adagrad steps differ by up to lr:
+    - fp32 tables: losses within 2e-3 relative, dense params within
+      2e-3, slabs within 1e-4, accumulators within 1e-3 relative;
+    - bf16 tables: losses 2e-2, dense 1e-2, slabs within 8 bf16 ulps of
+      the slab's largest entry, accumulators 1e-3 (fp32) or 1/8 (bf16)
+      relative;
+    - bf16 accumulators in the dense-apply regime: the scatter-sum adds
+      a ten-row table's ~6,500 ids a step in bf16, rounding after each
+      add (as JAX does), in each run's own atomic order, so a row's
+      gradient sum, and the sign of its Adagrad step, differ between
+      the runs, and the 5-step trajectories part: finite losses, dense
+      params, slabs and accumulators, and trained slabs, are all that
+      is checked (the differences are logged). ``zoo_full_check`` holds
+      this path's K3 and K7 to their bounds on the step's own inputs."""
+    from distributed_embeddings_torch.models import InputGenerator
+    from distributed_embeddings_torch.parallel import (
+        Adagrad, make_hybrid_train_step)
+
+    cfg, de, opt, sk = zoo_model(torch, dtype, SMALL_ROWS, ratio)
+    sk = sk._replace(emb_opt_state={k: v.to(acc_dtype) for k, v in
+                                    sk.emb_opt_state.items()})
+    sp = clone_state(sk)
+    init = {k: v.float().clone() for k, v in sk.emb_params.items()}
+    step = make_hybrid_train_step(de, zoo_loss, Adagrad(ZOO_LR), opt,
+                                  lr_schedule=ZOO_LR, nan_guard=True)
+    data = InputGenerator(cfg, SMALL_BATCH, alpha=1.05,
+                          num_batches=SMALL_STEPS, seed=SEED + 41,
+                          row_cap=SMALL_ROWS, device="cuda")
+    runs, want, regimes = {}, None, None
+    for name, st in (("kernels", sk), ("plain", sp)):
+        zero_counts()
+        with (plain_kernels() if name == "plain"
+              else contextlib.nullcontext()):
+            losses = []
+            for k in range(SMALL_STEPS):
+                num, cats, lab = data[k]
+                loss, st = step(st, cats, (num, lab))
+                losses.append(loss)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if want is None:
+            want, regimes = zoo_expected(de, opt, cfg, SMALL_BATCH)
+        expect = {k: (v * SMALL_STEPS if name == "kernels" else 0)
+                  for k, v in want.items()}
+        check(counts == expect, f"zoo small check ({name}): launches "
+              f"{counts}, expected {expect}")
+        runs[name] = (torch.stack(losses).float(), st)
+    (lk, stk), (lp, stp) = runs["kernels"], runs["plain"]
+    check(bool(torch.isfinite(lk).all() and torch.isfinite(lp).all()),
+          "zoo small check: loss not finite")
+    noisy = acc_dtype == torch.bfloat16 and ratio is not None
+    if noisy:
+        t_loss = t_dense = t_acc = None
+    elif dtype == torch.float32:
+        t_loss, t_dense, t_acc = 2e-3, 2e-3, 1e-3
+    else:
+        t_loss, t_dense = 2e-2, 1e-2
+        t_acc = 1e-3 if acc_dtype == torch.float32 else 0.125
+    loss_err = float(((lk - lp).abs() / lp.abs()).max())
+    dense_err = max(float((a.detach() - b.detach()).abs().max())
+                    for a, b in zip(stk.dense_params.parameters(),
+                                    stp.dense_params.parameters()))
+    slab_err, acc_err, t_slabs = 0.0, 0.0, {}
+    for key in stk.emb_params:
+        a, b = stk.emb_params[key].float(), stp.emb_params[key].float()
+        t_slabs[key] = (None if noisy else 1e-4 if dtype == torch.float32
+                        else 8 * float(ulp(torch, b.abs().max(),
+                                           torch.bfloat16)))
+        e = float((a - b).abs().max())
+        check(bool(torch.isfinite(a).all()), f"zoo small check: {key} "
+              "not finite")
+        check(noisy or e <= t_slabs[key], f"zoo small check {dtype}/"
+              f"{acc_dtype} ratio {ratio} {key}: slabs differ by {e} (> "
+              f"{t_slabs[key]})")
+        check(bool((a != init[key]).any()), f"zoo small check: {key} "
+              "did not train")
+        slab_err = max(slab_err, e)
+        a, b = stk.emb_opt_state[key].float(), stp.emb_opt_state[key].float()
+        check(bool(torch.isfinite(a).all()), f"zoo small check: {key} "
+              "accumulators not finite")
+        acc_err = max(acc_err, float(((a - b).abs() / b).max()))
+    log(f"  zoo small check {str(dtype)[6:]} tables, {str(acc_dtype)[6:]} "
+        f"accumulators, {regimes}: {SMALL_STEPS} steps at b={SMALL_BATCH}, "
+        f"losses {[round(float(x), 4) for x in lk]}; kernels vs plain"
+        f"{' (logged; finiteness only, see the docstring)' if noisy else ''}"
+        f": loss rel {loss_err} (tol {t_loss}), dense {dense_err} (tol "
+        f"{t_dense}), slab {slab_err} (tol {t_slabs}), accumulators rel "
+        f"{acc_err} (tol {t_acc})")
+    check(all(bool(torch.isfinite(p).all())
+              for p in stk.dense_params.parameters()),
+          "zoo small check: dense params not finite")
+    check(noisy or (loss_err <= t_loss and dense_err <= t_dense
+                    and acc_err <= t_acc),
+          f"zoo small check {dtype}/{acc_dtype} ratio {ratio}: beyond the "
+          "bounds above")
+    return slab_err
+
+
+@contextlib.contextmanager
+def recording(torch, opt, snapshot=True):
+    """Yields ``{"w<width>": record}``: what each ``apply_rows`` call of a
+    ``SparseAdagrad`` is given (and, with ``snapshot``, the rows it will
+    touch, before it runs), and what its own K3 (``g``, the gradient
+    slab) or K5 (``uids``, ``ugrads``) call gave the update kernel."""
+    from distributed_embeddings_torch.parallel import optimizers
+
+    seen, cur = {}, {}
+    real_apply = opt.apply_rows
+    real_scatter = optimizers.sgd_scatter
+    real_dedup = optimizers.dedup_sparse_grad
+
+    def apply_rows(slab, accum, ids, vals, lr):
+        rows, w = slab.shape
+        rec = dict(ids=ids.clone(), vals=vals.to(accum.dtype).clone(),
+                   lr=lr, dense=opt.dense_apply(rows, ids.shape[0]))
+        if snapshot:
+            if rec["dense"]:
+                rec["uniq"] = None
+                rec["slab"], rec["acc"] = slab.clone(), accum.clone()
+            else:
+                uniq = torch.unique(ids[(ids >= 0) & (ids < rows)].long())
+                rec["uniq"] = uniq
+                rec["slab"], rec["acc"] = slab[uniq], accum[uniq]
+        seen[f"w{w}"] = cur["rec"] = rec
+        return real_apply(slab, accum, ids, vals, lr)
+
+    def sgd_scatter(g, *args, **kw):
+        out = real_scatter(g, *args, **kw)
+        cur["rec"]["g"] = g.clone()
+        return out
+
+    def dedup_sparse_grad(*args, **kw):
+        uids, ugrads = real_dedup(*args, **kw)
+        cur["rec"]["uids"], cur["rec"]["ugrads"] = uids.clone(), ugrads.clone()
+        return uids, ugrads
+
+    opt.apply_rows = apply_rows
+    optimizers.sgd_scatter = sgd_scatter
+    optimizers.dedup_sparse_grad = dedup_sparse_grad
+    try:
+        yield seen
+    finally:
+        opt.__dict__.pop("apply_rows", None)
+        optimizers.sgd_scatter = real_scatter
+        optimizers.dedup_sparse_grad = real_dedup
+
+
+def zoo_full_check(torch, de, opt, st, data, cfg, label):
+    """One full-size step; each kernel of the sparse apply is held to its
+    plain version on the very inputs the step gave it (the step's own K3
+    gradient slab, the step's own K5 output), so no bound has to cover
+    a difference the kernel before it made.
+
+    Bounds (``k`` the ids a row sums, ``mag`` their fp32 sum of |rows|):
+    - K5 (w16, sparse): unique ids equal the plain dedup's; both sum in
+      fp32, in other orders, each within (k - 1) 2^-24 mag, so within
+      2 k 2^-24 mag (bf16: and 1 bf16 ulp more, each rounds once);
+    - K3 as the w8 scatter-sum (dense-apply): fp32 as K5; in bf16 both
+      round after each add, in the card's atomic order, so within k bf16
+      ulps of mag (the bound of ``tests/test_torch_cuda.py``);
+    - K6 (touched rows) and K7 (whole slab): accumulators bit-exact (the
+      same per-op rounding); the kernels' correctly rounded ``rsqrt``
+      and PyTorch's ``rsqrtf`` differ by up to 2 ulps, so slab values
+      within 3 ulps of their dtype of |old| + lr."""
+    from distributed_embeddings_torch.ops import (
+        adagrad_dense_plain, adagrad_rows_plain, dedup_sparse_grad_plain,
+        sgd_scatter_plain)
+    from distributed_embeddings_torch.parallel import (
+        Adagrad, make_hybrid_train_step)
+
+    step = make_hybrid_train_step(de, zoo_loss, Adagrad(ZOO_LR), opt,
+                                  lr_schedule=ZOO_LR, nan_guard=True)
+    num, cats, lab = data[0]
+    with recording(torch, opt) as seen:
+        zero_counts()
+        loss, st = step(st, cats, (num, lab))
+        torch.cuda.synchronize()
+        counts = read_counts()
+    want, regimes = zoo_expected(de, opt, cfg, ZOO_BATCH)
+    check(counts == want, f"zoo full-size step {label}: launches {counts}, "
+          f"expected {want}")
+    check(bool(torch.isfinite(loss)), f"zoo full-size step {label}: loss "
+          f"{float(loss)}")
+    errs = {}
+    for key, r in seen.items():
+        slab = st.emb_params[key][0]
+        acc = st.emb_opt_state[key][0]
+        rows = slab.shape[0]
+        ids, vals = r["ids"], r["vals"]
+        ones = torch.ones((ids.numel(), 1), device="cuda")
+        what = f"zoo full-size step {label} {key}"
+        if r["dense"]:
+            g = r["g"]
+            pg = sgd_scatter_plain(torch.zeros_like(g), ids, vals, -1.0)
+            mag = sgd_scatter_plain(torch.zeros(g.shape, device="cuda"), ids,
+                                    vals.float().abs(), -1.0)
+            cnt = sgd_scatter_plain(torch.zeros((rows, 1), device="cuda"),
+                                    ids, ones, -1.0)
+            tol = (2 * cnt * 2.0 ** -24 * mag if g.dtype == torch.float32
+                   else cnt * ulp(torch, mag, torch.bfloat16))
+            first, upd = "sgd_scatter", "adagrad_dense"
+            bound = ("2 k 2^-24" if g.dtype == torch.float32
+                     else "k bf16 ulps") + " of the sum of |rows|"
+            e1 = (g.float() - pg.float()).abs()
+            ws, wa = r["slab"].clone(), r["acc"].clone()
+            adagrad_dense_plain(ws, wa, g, r["lr"], opt.eps)
+            gs, ga = slab, acc
+            touched = int(torch.count_nonzero(cnt))
+        else:
+            kw = dict(pad_id=rows, max_unique=rows + 1)
+            u, s = r["uids"], r["ugrads"]
+            pu, ps = dedup_sparse_grad_plain(ids, vals, **kw)
+            check(bool(torch.equal(u, pu)), f"{what}: K5 unique ids differ "
+                  "from the plain dedup's")
+            _, mag = dedup_sparse_grad_plain(ids, vals.float().abs(), **kw)
+            _, cnt = dedup_sparse_grad_plain(ids, ones, **kw)
+            tol = 2 * cnt * 2.0 ** -24 * mag
+            if s.dtype == torch.bfloat16:
+                tol = tol + ulp(torch, ps.float(), torch.bfloat16)
+            first, upd = "dedup_sparse_grad", "adagrad_rows"
+            bound = "2 k 2^-24 of the sum of |rows|" + (
+                "" if s.dtype == torch.float32 else " + 1 bf16 ulp")
+            e1 = (s.float() - ps.float()).abs()
+            keep = u < rows
+            pos = torch.searchsorted(r["uniq"], u[keep].long())
+            check(bool(torch.equal(r["uniq"][pos], u[keep].long())),
+                  f"{what}: K5's ids differ from the touched rows")
+            ws, wa = r["slab"].clone(), r["acc"].clone()
+            adagrad_rows_plain(ws, wa, pos, s[keep], r["lr"], opt.eps)
+            gs, ga = slab[r["uniq"]], acc[r["uniq"]]
+            touched = len(r["uniq"])
+        bad = int((e1 > tol + 1e-30).sum())
+        check(bad == 0, f"{what}: {bad} {first} values beyond their bound "
+              f"(max err {float(e1.max())})")
+        check(bool(torch.equal(ga, wa)), f"{what}: {upd} accumulators "
+              f"differ from the plain update's ({int((ga != wa).sum())} "
+              "values)")
+        es = (gs.float() - ws.float()).abs()
+        ts = 3 * ulp(torch, r["slab"].float().abs() + ZOO_LR, slab.dtype)
+        bad = int((es > ts).sum())
+        check(bad == 0, f"{what}: {bad} {upd} slab values beyond 3 ulps "
+              f"(max err {float(es.max())})")
+        changed = int(torch.count_nonzero((gs != r["slab"]).any(1)))
+        errs[first], errs[upd] = float(e1.max()), float(es.max())
+        log(f"zoo: full-size step {label} {key} ({regimes[key]}): "
+            f"{ids.numel()} ids, {touched} touched rows, {changed} changed; "
+            f"vs plain on the step's own inputs: {first} max_abs_err "
+            f"{errs[first]} (<= {bound}), "
+            f"{upd} accumulators bit-exact, slab max_abs_err {errs[upd]} "
+            f"(<= 3 ulps)")
+    log(f"zoo: full-size step {label} at b={ZOO_BATCH}: loss "
+        f"{float(loss):.5f}, launches {counts} (regimes {regimes})")
+    return st, errs, regimes
+
+
+def zoo_touched(torch, de, cats):
+    """``{"w<width>": unique slab rows}`` a batch's ids hit."""
+    strat = de.strategy
+    rows = {}
+    for i, ids in enumerate(cats):
+        t = strat.input_table_map[i]
+        m = strat.table_ids_list[0].index(t)
+        w = int(strat.global_configs[t]["output_dim"])
+        rows.setdefault(f"w{w}", []).append(
+            ids.reshape(-1).long() + de.row_offsets_list[0][m])
+    return {k: torch.unique(torch.cat(v)) for k, v in rows.items()}
+
+
+def zoo_nan_check(torch, de, opt, st, data):
+    from distributed_embeddings_torch.parallel import (
+        Adagrad, make_hybrid_train_step)
+
+    step = make_hybrid_train_step(de, zoo_loss, Adagrad(ZOO_LR), opt,
+                                  lr_schedule=ZOO_LR, nan_guard=True)
+    num, cats, lab = data[1]
+    num = num.clone()
+    num[ZOO_BATCH // 2, 3] = float("nan")
+    touched = zoo_touched(torch, de, cats)
+    before = {k: (st.emb_params[k][0][r].clone(),
+                  st.emb_opt_state[k][0][r].clone())
+              for k, r in touched.items()}
+    dense_before = [p.detach().clone() for p in st.dense_params.parameters()]
+    dstate_before = [t.clone() for t in st.dense_opt_state]
+    step_before = int(st.step)
+    loss, st = step(st, cats, (num, lab))
+    torch.cuda.synchronize()
+    check(not bool(torch.isfinite(loss)), "zoo NaN batch: loss is finite")
+    for k, r in touched.items():
+        check(torch.equal(st.emb_params[k][0][r], before[k][0]) and
+              torch.equal(st.emb_opt_state[k][0][r], before[k][1]),
+              f"zoo NaN batch: {k} rows or accumulators changed")
+    check(all(torch.equal(p, q) for p, q in zip(
+        st.dense_params.parameters(), dense_before)),
+        "zoo NaN batch: dense params changed")
+    check(all(torch.equal(p, q) for p, q in zip(
+        st.dense_opt_state, dstate_before)),
+        "zoo NaN batch: dense Adagrad state changed")
+    check(int(st.step) == step_before + 1, "zoo NaN batch: step did not "
+          "advance")
+    log(f"zoo: NaN batch skipped, "
+        f"{ {k: len(r) for k, r in touched.items()} } touched rows and "
+        f"accumulators, the dense params and dense Adagrad state bitwise "
+        f"unchanged, step {step_before} -> {int(st.step)}")
+    return st
+
+
+def zoo_timed(torch, de, opt, st, data, cfg, label):
+    """3 warmup + 20 timed steps (no guard, as ``run_tiny_zoo`` builds
+    the step) with the launch counters zeroed just before and read just
+    after."""
+    from distributed_embeddings_torch.parallel import (
+        Adagrad, make_hybrid_train_step)
+
+    step = make_hybrid_train_step(de, zoo_loss, Adagrad(ZOO_LR), opt,
+                                  lr_schedule=ZOO_LR, nan_guard=False)
+    for k in range(WARMUP_RUNS):
+        num, cats, lab = data[k]
+        _, st = step(st, cats, (num, lab))
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    losses, times = [], []
+    for k in range(TRAIN_STEPS):
+        num, cats, lab = data[k]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss, st = step(st, cats, (num, lab))
+        end.record()
+        losses.append(loss)
+        times.append((start, end))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    losses = torch.stack(losses).float().cpu().numpy()
+    check(np.isfinite(losses).all(), f"zoo {label}: non-finite loss")
+    want, regimes = zoo_expected(de, opt, cfg, ZOO_BATCH)
+    for name, n in launches.items():
+        check(n == want[name] * TRAIN_STEPS, f"zoo {label}: {name} launched "
+              f"{n} times in {TRAIN_STEPS} steps (expected "
+              f"{want[name]} a step)")
+    step_ms = [s.elapsed_time(e) for s, e in times]
+    result = {
+        "tables": label, "batch": ZOO_BATCH, "steps": TRAIN_STEPS,
+        "samples_per_s": TRAIN_STEPS * ZOO_BATCH / wall,
+        "wall_step_ms": wall / TRAIN_STEPS * 1e3,
+        "step_ms_p50": float(np.median(step_ms)),
+        "step_ms_min": float(np.min(step_ms)), "regimes": regimes,
+        "launches_per_step": {n: v / TRAIN_STEPS
+                              for n, v in launches.items()},
+        "loss_first": float(losses[0]), "loss_last": float(losses[-1])}
+    log(f"zoo timed {label}: " + json.dumps(result))
+    return st, launches, result
+
+
+def zoo_profile(torch, de, opt, st, data, steps=5):
+    """``torch.profiler`` over a few steps of the timed program: the
+    device's busy time (the sum of the self time of the events that ran
+    on the card, its kernels and copies on one stream; the host ops that
+    launched them also carry that time and are left out) against the
+    window's host-clock time, and the kernels that take most of it. The
+    profiler's own cost lengthens the window, so the busy share it gives
+    is a lower bound."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributed_embeddings_torch.parallel import (
+        Adagrad, make_hybrid_train_step)
+
+    step = make_hybrid_train_step(de, zoo_loss, Adagrad(ZOO_LR), opt,
+                                  lr_schedule=ZOO_LR, nan_guard=False)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for k in range(steps):
+            num, cats, lab = data[k % len(data)]
+            _, st = step(st, cats, (num, lab))
+        torch.cuda.synchronize()
+        window = (time.perf_counter() - t0) * 1e3
+    dev = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            dev[e.key] = e.self_device_time_total / 1e3
+    busy = sum(dev.values())
+    top = sorted(dev.items(), key=lambda kv: -kv[1])[:10]
+    # K5's launch chain (csrc/dedup.cu), its kernels summed over their
+    # template instances
+    k5 = {}
+    for key, ms in dev.items():
+        m = K5_CHAIN.search(key)
+        if m:
+            k5[m.group(1)] = k5.get(m.group(1), 0.0) + ms / steps
+    out = {"steps": steps, "window_ms_per_step": window / steps,
+           "device_busy_ms_per_step": busy / steps,
+           "device_busy_share": busy / window,
+           "top_device_ms_per_step": [(k[:60], v / steps) for k, v in top],
+           "k5_chain_ms_per_step": dict(sorted(k5.items(),
+                                               key=lambda kv: -kv[1]))}
+    log("zoo profile fp32: " + json.dumps(out))
+    check(busy > 0, "zoo profile: the trace holds no device time")
+    check(set(k5) == set(K5_KERNELS), f"zoo profile: K5's launch chain "
+          f"is incomplete in the trace: {k5}")
+    return st, out
+
+
+def zoo_stages(torch, de, opt, st, data):
+    """The step's stages called one by one with events between them."""
+    from distributed_embeddings_torch.parallel import Adagrad
+    from distributed_embeddings_torch.parallel import apply as apply_mod
+
+    tx = Adagrad(ZOO_LR)
+    params = list(st.dense_params.parameters())
+    dstate = st.dense_opt_state
+    names = ["embedding_forward", "dense_forward_backward",
+             "cotangent_streams"]
+    stage_ms = {}
+    for k in range(WARMUP_RUNS + 10):
+        num, cats, lab = data[k % len(data)]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+        ev[0].record()
+        with torch.no_grad():
+            outs, res = de.forward_with_residuals(st.emb_params, cats)
+        ev[1].record()
+        outs = [o.detach().requires_grad_() for o in outs]
+        loss = zoo_loss(st.dense_params, outs, (num, lab))
+        grads = torch.autograd.grad(loss, params + outs)
+        ev[2].record()
+        per_width = apply_mod.cotangent_width_streams(
+            de, res, list(grads[len(params):]))
+        ev[3].record()
+        local = de.local_view(st.emb_params)
+        lstate = de.local_view(st.emb_opt_state)
+        keys = sorted(per_width)
+        for i, key in enumerate(keys):
+            apply_mod.apply_width_streams(de, local, lstate,
+                                          {key: per_width[key]}, opt,
+                                          ZOO_LR, 1.0)
+            ev[4 + i].record()
+        updates, dstate = tx.update(list(grads[:len(params)]), dstate)
+        with torch.no_grad():
+            for p, u in zip(params, updates):
+                p.add_(u)
+        ev[4 + len(keys)].record()
+        torch.cuda.synchronize()
+        labels = names + [f"sparse_apply_{key}" for key in keys] + [
+            "dense_update"]
+        if k >= WARMUP_RUNS:
+            for i, name in enumerate(labels):
+                stage_ms.setdefault(name, []).append(
+                    ev[i].elapsed_time(ev[i + 1]))
+    return {n: float(np.median(v)) for n, v in stage_ms.items()}
+
+
+def zoo_kernel_times(torch, de, opt, st, data, cfg):
+    """CUDA-event medians of K5, K6, K7, and of K1 (hot 10, w16) and K3
+    (the w8 scatter-sum), at the shapes one full-size step gives them,
+    each against its plain version, one library call where there is one,
+    and its byte bound."""
+    import torch.nn.functional as F
+    from distributed_embeddings_torch.ops import (
+        adagrad_dense, adagrad_dense_plain, adagrad_rows, adagrad_rows_plain,
+        dedup_sparse_grad, dedup_sparse_grad_plain, gather_combine,
+        gather_combine_plain, sgd_scatter, sgd_scatter_plain)
+    from distributed_embeddings_torch.parallel import (
+        Adagrad, lookup, make_hybrid_train_step)
+
+    k1_calls = []
+    real_k1 = lookup.gather_combine
+
+    def recording_k1(slab, ids, rows, roff, div=None, mask=None):
+        k1_calls.append((slab, ids, rows, roff, div, mask))
+        return real_k1(slab, ids, rows, roff, div, mask)
+
+    step = make_hybrid_train_step(de, zoo_loss, Adagrad(ZOO_LR), opt,
+                                  lr_schedule=ZOO_LR, nan_guard=False)
+    num, cats, lab = data[2]
+    lookup.gather_combine = recording_k1
+    try:
+        with recording(torch, opt, snapshot=False) as seen:
+            _, st = step(st, cats, (num, lab))
+    finally:
+        lookup.gather_combine = real_k1
+    torch.cuda.synchronize()
+    out = {}
+
+    # K1, the w16 hot-10 group
+    slab, ids, rows, roff, div, mask = next(
+        c for c in k1_calls if c[0].shape[1] == 16 and c[1].shape[2] == 10)
+    hot, w = ids.shape[2], slab.shape[1]
+    grows = (torch.minimum(ids.long().clamp(min=0), rows.view(-1, 1, 1) - 1)
+             + roff.view(-1, 1, 1))
+    got = gather_combine(slab, ids, rows, roff, div, mask)
+    want = gather_combine_plain(slab, ids, rows, roff, div, mask)
+    err = float((got - want).abs().max())
+    scale = gather_combine_plain(slab.abs(), ids, rows, roff, div, mask)
+    check(bool(((got - want).abs() <= 1e-6 * scale + 1e-30).all()),
+          f"K1 w16 hot 10: beyond 1e-6 of the sum of |rows| (max {err})")
+    uniq = int(torch.unique(grows).numel())
+    nbytes = uniq * w * 4 + ids.numel() * 4 + ids.shape[0] * ids.shape[1] * w * 4
+    out["gather_combine"] = {
+        "case": "zoo_w16_hot10_sum",
+        "ms": time_ms(torch, lambda: gather_combine(slab, ids, rows, roff,
+                                                    div, mask), [()]),
+        "plain_ms": time_ms(torch, lambda: gather_combine_plain(
+            slab, ids, rows, roff, div, mask), [()]),
+        "library_ms": time_ms(torch, lambda: F.embedding_bag(
+            grows.view(-1, hot), slab, mode="sum"), [()]),
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "unique_rows": uniq, "bytes": nbytes, "max_abs_err": err,
+        "shape": list(ids.shape)}
+    del k1_calls
+
+    # K3, the w8 scatter-sum into a zero gradient slab
+    r8, r16 = seen["w8"], seen["w16"]
+    R8, w8 = st.emb_params["w8"].shape[1:]
+    ids8, vals8 = r8["ids"], r8["vals"]
+    ids8l = ids8.long()
+    touched8 = int(torch.unique(ids8l[ids8l < R8]).numel())
+    gz = torch.zeros((R8, w8), device="cuda")
+    nbytes = ids8.numel() * (4 + w8 * 4) + 2 * touched8 * w8 * 4
+    out["sgd_scatter"] = {
+        "case": "zoo_w8_scatter_sum",
+        "ms": time_ms(torch, lambda: sgd_scatter(gz.zero_(), ids8, vals8,
+                                                 -1.0), [()]),
+        "plain_ms": time_ms(torch, lambda: sgd_scatter_plain(
+            gz.zero_(), ids8, vals8, -1.0), [()]),
+        "library_ms": time_ms(torch, lambda: gz.zero_().index_add_(
+            0, ids8l, vals8), [()]),
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "ids": ids8.numel(), "unique_rows": touched8, "bytes": nbytes}
+
+    # K7 over the w8 slab (dense-apply)
+    s8, a8 = st.emb_params["w8"][0], st.emb_opt_state["w8"][0]
+    sgd_scatter(gz.zero_(), ids8, vals8, -1.0)
+    nbytes = 5 * s8.numel() * 4
+    ops = 9 * s8.numel()
+    out["adagrad_dense"] = {
+        "case": "zoo_w8_dense_apply",
+        "ms": time_ms(torch, lambda: adagrad_dense(s8, a8, gz, ZOO_LR,
+                                                   opt.eps), [()]),
+        "plain_ms": time_ms(torch, lambda: adagrad_dense_plain(
+            s8, a8, gz, ZOO_LR, opt.eps), [()]),
+        "library_ms": None,
+        "bound_ms": max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3,
+        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S
+        else "operations", "elements": s8.numel(), "bytes": nbytes}
+
+    # K5 on the w16 stream
+    R16, w16 = st.emb_params["w16"].shape[1:]
+    ids16, vals16 = r16["ids"], r16["vals"]
+    n = ids16.numel()
+    u_cap = min(n, R16 + 1)
+    uids, ugrads = dedup_sparse_grad(ids16, vals16, pad_id=R16,
+                                     max_unique=R16 + 1)
+    distinct = int((uids < R16).sum())
+    nbytes = n * (4 + w16 * 4) + u_cap * (4 + w16 * 4)
+
+    def library_dedup():
+        u, inv = torch.unique(ids16, sorted=True, return_inverse=True)
+        return u, torch.zeros((u.numel(), w16), device="cuda").index_add_(
+            0, inv, vals16)
+
+    out["dedup_sparse_grad"] = {
+        "case": "zoo_w16_stream",
+        "ms": time_ms(torch, lambda: dedup_sparse_grad(
+            ids16, vals16, pad_id=R16, max_unique=R16 + 1), [()]),
+        "plain_ms": time_ms(torch, lambda: dedup_sparse_grad_plain(
+            ids16, vals16, pad_id=R16, max_unique=R16 + 1), [()]),
+        "library_ms": time_ms(torch, library_dedup, [()]),
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "ids": n, "unique_ids": distinct, "bytes": nbytes}
+
+    # K6 on K5's output, into the w16 slab: it reads every id, and the
+    # gradient, accumulator and slab row of each id below R16 only (the
+    # pad tail's gradient rows are never read)
+    s16, a16 = st.emb_params["w16"][0], st.emb_opt_state["w16"][0]
+    touched16 = int((uids < R16).sum())
+    nbytes = u_cap * 4 + touched16 * w16 * 4 + touched16 * w16 * 4 * 4
+    ops = 9 * touched16 * w16
+    out["adagrad_rows"] = {
+        "case": "zoo_w16_sparse",
+        "ms": time_ms(torch, lambda: adagrad_rows(s16, a16, uids, ugrads,
+                                                  ZOO_LR, opt.eps), [()]),
+        "plain_ms": time_ms(torch, lambda: adagrad_rows_plain(
+            s16, a16, uids, ugrads, ZOO_LR, opt.eps), [()]),
+        "library_ms": None,
+        "bound_ms": max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3,
+        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S
+        else "operations", "unique_rows": touched16, "bytes": nbytes}
+    for name, c in out.items():
+        lib = "—" if c["library_ms"] is None else f"{c['library_ms']:.4f}"
+        log(f"time {name} {c['case']}: kernel {c['ms']:.4f} ms, plain "
+            f"{c['plain_ms']:.4f}, library {lib}, bound "
+            f"{c['bound_ms']:.4f}")
+
+    # both regimes on the w16 slab
+    from distributed_embeddings_torch.parallel import SparseAdagrad
+
+    regime_ms = {}
+    for label, ratio in (("dense_apply", 1e9), ("sparse", None)):
+        o = SparseAdagrad(dense_apply_ratio=ratio)
+        regime_ms[label] = time_ms(
+            torch, lambda: o.apply_rows(s16, a16, ids16, vals16, ZOO_LR),
+            [()])
+    dense_bytes = s16.numel() * 4 * 6 + n * (4 + w16 * 4)
+    regime = {"w16_rows": R16, "ids": n, "unique_ids": distinct,
+              "dense_apply_ms": regime_ms["dense_apply"],
+              "sparse_ms": regime_ms["sparse"],
+              "dense_apply_bound_ms": dense_bytes / HBM_BYTES_PER_S * 1e3}
+    log("zoo regimes on w16: " + json.dumps(regime))
+    return st, out, regime
+
+
+def phase_zoo(torch):
+    """The synthetic zoo's tiny model trained with SparseAdagrad."""
+    from distributed_embeddings_torch.models import InputGenerator
+
+    log("zoo: small-table check, kernels against plain versions")
+    errs = {"adagrad_rows": 0.0, "adagrad_dense": 0.0}
+    for dtype, acc_dtype in ((torch.float32, torch.float32),
+                             (torch.bfloat16, torch.float32),
+                             (torch.bfloat16, torch.bfloat16)):
+        for ratio in (6.0, None):
+            e = zoo_small_check(torch, dtype, acc_dtype, ratio)
+            if dtype == torch.float32:
+                name = "adagrad_dense" if ratio else "adagrad_rows"
+                errs[name] = max(errs[name], e)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cfg, de, opt, st = zoo_model(torch, torch.float32, seed=SEED + 50)
+    torch.cuda.synchronize()
+    log(f"zoo: tiny model, slabs "
+        f"{ {k: tuple(v.shape) for k, v in st.emb_params.items()} } fp32 "
+        f"+ accumulators = "
+        f"{2 * sum(v.numel() for v in st.emb_params.values()) * 4 / 1e9:.2f}"
+        f" GB, built in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    data = InputGenerator(cfg, ZOO_BATCH, alpha=1.05, num_batches=ZOO_BATCHES,
+                          seed=0, device="cuda")
+    log(f"zoo: {ZOO_BATCHES} batches of {ZOO_BATCH} made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    st, full_errs, regimes = zoo_full_check(torch, de, opt, st, data, cfg,
+                                            "fp32")
+    for k, v in full_errs.items():
+        errs[k] = max(errs.get(k, 0.0), v)
+    st = zoo_nan_check(torch, de, opt, st, data)
+    st, launches, fp32 = zoo_timed(torch, de, opt, st, data, cfg, "fp32")
+    fp32["stage_ms_p50"] = zoo_stages(torch, de, opt, st, data)
+    log("zoo stages fp32 (ms): " + json.dumps(fp32["stage_ms_p50"]))
+    st, fp32["profile"] = zoo_profile(torch, de, opt, st, data)
+    st, kcases, regime = zoo_kernel_times(torch, de, opt, st, data, cfg)
+    log(f"zoo peak memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    del st
+    torch.cuda.empty_cache()
+    cfg, de, opt, st = zoo_model(torch, torch.bfloat16, seed=SEED + 60)
+    st, bf16_errs, _ = zoo_full_check(torch, de, opt, st, data, cfg, "bf16")
+    st, _, bf16 = zoo_timed(torch, de, opt, st, data, cfg, "bf16")
+    bf16["full_step_max_abs_err"] = bf16_errs
+    del st
+    torch.cuda.empty_cache()
+    return launches, errs, kcases, {"fp32": fp32, "bf16": bf16,
+                                    "regimes_w16": regime}
+
+
 def main():
     try:
         import torch
@@ -920,7 +1725,41 @@ def main():
     errs.update(train_errs)
     launches = {"serve": serve_launches, "train": train_launches}
     kernels = phase_time(torch, de, state, errs, launches)
-    log(f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB, "
+    log(f"DLRM peak memory {torch.cuda.max_memory_allocated() / 1e9:.1f} "
+        f"GB, {time.perf_counter() - t_start:.1f} s so far")
+    # the 48.1 GB DLRM slab leaves no room for the zoo: free it
+    del state, de
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    log(f"DLRM state freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        "still allocated")
+    zoo_launches, zoo_errs, zoo_cases, zoo = phase_zoo(torch)
+    launches["zoo"] = zoo_launches
+    for k in kernels:
+        k["launches_by_path"]["zoo"] = zoo_launches[k["name"]]
+        k["max_abs_err"] = max(k["max_abs_err"], zoo_errs.get(k["name"], 0.0))
+        if k["name"] in zoo_cases:
+            k["cases"].append(zoo_cases[k["name"]])
+    for name, src, repl in (
+            ("dedup_sparse_grad", "dedup.cu",
+             "distributed_embeddings_tpu/ops/sparse_grad.py:58"),
+            ("adagrad_rows", "adagrad.cu",
+             "distributed_embeddings_tpu/parallel/optimizers.py:214"),
+            ("adagrad_dense", "adagrad.cu",
+             "distributed_embeddings_tpu/parallel/optimizers.py:197")):
+        c = zoo_cases[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"distributed_embeddings_torch/csrc/{src}",
+            "replaces": repl, "launches": zoo_launches[name],
+            "launches_by_path": {p: launches[p][name] for p in launches},
+            "max_abs_err": zoo_errs[name], "ms": c["ms"],
+            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+            "shape": c["case"], "cases": [c]})
+    log("zoo: " + json.dumps(zoo))
+    log(f"zoo peak memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB, "
         f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

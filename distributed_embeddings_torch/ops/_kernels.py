@@ -55,7 +55,28 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "detpu_sgd_scatter": (_P, _I64, _I, _I, _P, _I, _I64, _P, _I,
                               ctypes.c_float, _P, _P),
     },
+    "dedup": {
+        # ids, ids_is_64, n, vals, vals_dtype, width, pad_id, u_cap, uids,
+        # ugrads, scratch, stream
+        "detpu_dedup": (_P, _I, _I64, _P, _I, _I, _I64, _I64, _P, _P, _P,
+                        _P),
+        # n, width, ids_is_64 -> bytes
+        "detpu_dedup_scratch_bytes": (_I64, _I, _I),
+    },
+    "adagrad": {
+        # slab, slab_dtype, acc, acc_dtype, rows, width, uids, ids_is_64, u,
+        # ugrads, lr, lr_dev, eps, stream
+        "detpu_adagrad_rows": (_P, _I, _P, _I, _I64, _I, _P, _I, _I64, _P,
+                               ctypes.c_float, _P, ctypes.c_float, _P),
+        # slab, slab_dtype, acc, acc_dtype, grad, numel, lr, lr_dev, eps,
+        # stream
+        "detpu_adagrad_dense": (_P, _I, _P, _I, _P, _I64, ctypes.c_float,
+                                _P, ctypes.c_float, _P),
+    },
 }
+
+#: return type of the exported functions that return no ``cudaError_t``
+RESTYPES = {"detpu_dedup_scratch_bytes": _I64}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -144,7 +165,7 @@ def library(name: str) -> ctypes.CDLL:
             for fn, argtypes in SIGNATURES[name].items():
                 f = getattr(lib, fn)
                 f.argtypes = list(argtypes)
-                f.restype = ctypes.c_int
+                f.restype = RESTYPES.get(fn, ctypes.c_int)
             lib.detpu_error_string.argtypes = [ctypes.c_int]
             lib.detpu_error_string.restype = ctypes.c_char_p
             _libs[name] = lib

@@ -1,0 +1,180 @@
+"""The Adagrad row update of ``SparseAdagrad`` on the hand-written
+kernels K6 (per unique row) and K7 (elementwise over a slab), both in
+``csrc/adagrad.cu``, with their plain PyTorch versions.
+
+Counterpart of the two branches of
+``distributed_embeddings_tpu/parallel/optimizers.py:SparseAdagrad.
+apply_rows`` (optax ``scale_by_rss`` numerics), IN PLACE on the slab and
+its accumulator:
+
+    acc_new = acc + g * g
+    slab   -= (lr * g * rsqrt(acc_new + eps)).astype(slab.dtype)
+
+with JAX's rounding chain: ``g``, the accumulator and every
+intermediate are in the accumulator dtype (rounded after each operation
+when it is bfloat16), a constant ``lr`` and ``eps`` are rounded to it
+first, a float32 device ``lr`` (what a callable schedule gives) promotes
+the ``lr * g * r`` products to float32, and the update is rounded to the
+slab dtype before the subtraction. The kernels' float32 ``rsqrt`` is
+correctly rounded; PyTorch's is ``1 / sqrt`` on the CPU (two roundings)
+and ``rsqrtf`` on the card (within 2 ulps), so the plain versions may
+differ from the kernels by that much.
+
+:func:`adagrad_rows` takes the dedup output (``ops/sparse_grad.py``):
+an id at or past the slab's rows (the sentinel, the pad tail) is
+skipped; a negative id reads row 0 and writes row ``id + rows``, as
+JAX's ``take(mode="clip")`` and ``.at[].set/.add(mode="drop")`` do.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple, Union
+
+import torch
+
+from . import _kernels
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+Lr = Union[float, torch.Tensor]
+
+
+def _transition(a: torch.Tensor, g: torch.Tensor, lr: Lr, eps: float,
+                slab_dtype: torch.dtype):
+    """``(acc_new, update)`` of elements ``a``, ``g`` (accumulator dtype);
+    the update in ``slab_dtype``."""
+    dt = a.dtype
+    na = a + g * g
+    r = torch.rsqrt(na + torch.tensor(eps, dtype=dt, device=a.device))
+    if isinstance(lr, torch.Tensor):
+        u = lr.to(device=a.device, dtype=torch.float32) * g.float() \
+            * r.float()
+    else:
+        u = torch.tensor(lr, dtype=dt, device=a.device) * g * r
+    return na, u.to(slab_dtype)
+
+
+def adagrad_rows_plain(slab: torch.Tensor, acc: torch.Tensor,
+                       uids: torch.Tensor, ugrads: torch.Tensor, lr: Lr,
+                       eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`adagrad_rows`. Returns ``(slab,
+    acc)``."""
+    rows = slab.shape[0]
+    uid = uids.long()
+    wr = torch.where(uid < 0, uid + rows, uid)
+    keep = (uid < rows) & (wr >= 0)
+    rd = uid.clamp(0, rows - 1)[keep]
+    wr = wr[keep]
+    na, upd = _transition(acc[rd], ugrads[keep].to(acc.dtype), lr, eps,
+                          slab.dtype)
+    acc[wr] = na
+    slab[wr] = slab[wr] - upd
+    return slab, acc
+
+
+def adagrad_dense_plain(slab: torch.Tensor, acc: torch.Tensor,
+                        grad: torch.Tensor, lr: Lr, eps: float
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`adagrad_dense`. Returns ``(slab,
+    acc)``."""
+    na, upd = _transition(acc, grad.to(acc.dtype), lr, eps, slab.dtype)
+    acc.copy_(na)
+    slab.sub_(upd)
+    return slab, acc
+
+
+def _lr_args(lr: Lr, acc_dtype: torch.dtype, device):
+    """``(lr as a float rounded to the accumulator dtype, None)`` for a
+    constant lr, ``(0.0, float32 one-element tensor on device)`` for a
+    tensor lr (the kernel reads it there)."""
+    if isinstance(lr, torch.Tensor):
+        if lr.numel() != 1:
+            raise ValueError(f"a tensor lr must hold one value, got shape "
+                             f"{tuple(lr.shape)}")
+        return 0.0, lr.to(device=device, dtype=torch.float32).contiguous()
+    return float(torch.tensor(float(lr), dtype=acc_dtype)), None
+
+
+def _check_pair(slab, acc):
+    if slab.device.type != "cuda":
+        raise ValueError(f"unsupported device {slab.device}")
+    for name, t in (("slab", slab), ("acc", acc)):
+        if t.dtype not in _DTYPE_CODE or t.dim() != 2 \
+                or not t.is_contiguous() or t.device != slab.device:
+            raise ValueError(f"{name}: expected a contiguous 2-D float32/"
+                             f"bfloat16 tensor on {slab.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if acc.shape != slab.shape:
+        raise ValueError(f"acc {tuple(acc.shape)} != slab "
+                         f"{tuple(slab.shape)}")
+
+
+def adagrad_rows(slab: torch.Tensor, acc: torch.Tensor, uids: torch.Tensor,
+                 ugrads: torch.Tensor, lr: Lr, eps: float
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6: the Adagrad transition of the rows ``uids [U]`` (unique, the
+    dedup's output) from their summed gradients ``ugrads [U, w]`` (in the
+    accumulator dtype), in place on ``slab [R, w]`` and ``acc [R, w]``
+    (float32/bfloat16 each). Returns ``(slab, acc)``. CPU tensors run
+    :func:`adagrad_rows_plain`; CUDA tensors launch the kernel or
+    raise."""
+    if slab.device.type == "cpu":
+        return adagrad_rows_plain(slab, acc, uids, ugrads, lr, eps)
+    _check_pair(slab, acc)
+    u, w = uids.shape[0], slab.shape[1]
+    if uids.dim() != 1 or uids.dtype not in (torch.int32, torch.int64) \
+            or uids.device != slab.device or not uids.is_contiguous():
+        raise ValueError(f"uids: expected a contiguous [U] int32/int64 "
+                         f"tensor on {slab.device}, got {uids.dtype} "
+                         f"{tuple(uids.shape)} on {uids.device}")
+    if ugrads.dtype != acc.dtype or tuple(ugrads.shape) != (u, w) \
+            or ugrads.device != slab.device or not ugrads.is_contiguous():
+        raise ValueError(f"ugrads: expected a contiguous {(u, w)} "
+                         f"{acc.dtype} tensor, got {ugrads.dtype} "
+                         f"{tuple(ugrads.shape)} on {ugrads.device}")
+    lr_f, lr_t = _lr_args(lr, acc.dtype, slab.device)
+    if u == 0:
+        return slab, acc
+    eps_f = float(torch.tensor(float(eps), dtype=acc.dtype))
+    lib = _kernels.library("adagrad")
+    err = lib.detpu_adagrad_rows(
+        slab.data_ptr(), _DTYPE_CODE[slab.dtype], acc.data_ptr(),
+        _DTYPE_CODE[acc.dtype], slab.shape[0], w, uids.data_ptr(),
+        int(uids.dtype == torch.int64), u, ugrads.data_ptr(), lr_f,
+        None if lr_t is None else lr_t.data_ptr(), eps_f,
+        torch.cuda.current_stream(slab.device).cuda_stream)
+    _kernels.check(lib, err, "adagrad_rows")
+    adagrad_rows.launches += 1
+    return slab, acc
+
+
+def adagrad_dense(slab: torch.Tensor, acc: torch.Tensor, grad: torch.Tensor,
+                  lr: Lr, eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K7: the Adagrad transition of every element of ``slab [R, w]`` and
+    ``acc [R, w]`` from the gradient slab ``grad [R, w]`` (accumulator
+    dtype), in place; an element with ``g = 0`` keeps its bits. Returns
+    ``(slab, acc)``. CPU tensors run :func:`adagrad_dense_plain`; CUDA
+    tensors launch the kernel or raise."""
+    if slab.device.type == "cpu":
+        return adagrad_dense_plain(slab, acc, grad, lr, eps)
+    _check_pair(slab, acc)
+    if grad.dtype != acc.dtype or grad.shape != acc.shape \
+            or grad.device != slab.device or not grad.is_contiguous():
+        raise ValueError(f"grad: expected a contiguous "
+                         f"{tuple(acc.shape)} {acc.dtype} tensor, got "
+                         f"{grad.dtype} {tuple(grad.shape)} on {grad.device}")
+    lr_f, lr_t = _lr_args(lr, acc.dtype, slab.device)
+    eps_f = float(torch.tensor(float(eps), dtype=acc.dtype))
+    lib = _kernels.library("adagrad")
+    err = lib.detpu_adagrad_dense(
+        slab.data_ptr(), _DTYPE_CODE[slab.dtype], acc.data_ptr(),
+        _DTYPE_CODE[acc.dtype], grad.data_ptr(), slab.numel(), lr_f,
+        None if lr_t is None else lr_t.data_ptr(), eps_f,
+        torch.cuda.current_stream(slab.device).cuda_stream)
+    _kernels.check(lib, err, "adagrad_dense")
+    adagrad_dense.launches += 1
+    return slab, acc
+
+
+adagrad_rows.launches = 0
+adagrad_dense.launches = 0

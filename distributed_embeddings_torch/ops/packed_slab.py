@@ -12,6 +12,7 @@ plans; parity is held on the logical tables (``get_weights``).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 LANES = 128
@@ -28,6 +29,17 @@ def align_rows(rows: int, width: int) -> int:
     JAX layout (tables never share one)."""
     p = pack_factor(width)
     return -(-int(rows) // p) * p
+
+
+def unpack_rows_np(phys: np.ndarray, width: int) -> np.ndarray:
+    """Host-side unpacking of the JAX package's lane-packed rows (the
+    port's copy of its ``ops/packed_slab.py:unpack_rows_np``):
+    ``[m, 128]`` physical rows -> ``[m * p, w]`` logical rows."""
+    p = pack_factor(width)
+    if p == 1:
+        return phys
+    m = phys.shape[0]
+    return phys[:, :p * width].reshape(m * p, width)
 
 
 def packed_gather(slab: torch.Tensor, logical_ids: torch.Tensor,

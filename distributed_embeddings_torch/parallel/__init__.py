@@ -2,7 +2,7 @@
 optimizers, the train and eval steps, and the serving runtime."""
 
 from .dist_embedding import DistributedEmbedding
-from .optimizers import SGD, SparseSGD
+from .optimizers import SGD, Adagrad, SparseAdagrad, SparseSGD
 from .plan import ExchangePlan, build_plan
 from .serving import (Expired, Failed, Overloaded, Request, ServeConfig,
                       Served, ServingRuntime, drive, resolve_rungs,
@@ -18,4 +18,5 @@ __all__ = ["DistributedEmbedding", "ExchangePlan", "build_plan",
            "synthetic_request", "DistEmbeddingStrategy",
            "HybridTrainState", "make_hybrid_eval_step",
            "make_hybrid_train_step", "make_hybrid_train_loop",
-           "init_hybrid_state", "SGD", "SparseSGD"]
+           "init_hybrid_state", "SGD", "SparseSGD", "Adagrad",
+           "SparseAdagrad"]

@@ -30,9 +30,11 @@ def apply_width_streams(de, params, opt_state,
     optimizer scatter per width slab, in place.
 
     The JAX package lane-expands the stream to its packed physical rows
-    here (``ops/packed_slab.py:expand_update_rows``); the port's slabs
-    are logical ``[rows_cap, w]``, so that step is the identity and the
-    logical stream goes to the optimizer as it is.
+    here (``ops/packed_slab.py:expand_update_rows``); the port's slabs,
+    and any slab-shaped optimizer state (``SparseAdagrad``'s
+    accumulators), are logical ``[rows_cap, w]``, so that step is the
+    identity and the logical stream goes to the optimizer as it is,
+    with that width's state (updated in place).
 
     ``enable`` (a 0-d bool tensor): when False every id is routed to the
     dropped-row sentinel, so the slabs and any slab-shaped optimizer

@@ -393,14 +393,17 @@ class DistributedEmbedding:
         Args:
           params: the slabs (``[1, rows, w]`` or ``[rows, w]``), updated
             in place.
-          opt_state: optimizer slab state from ``optimizer.init``.
+          opt_state: optimizer slab state from ``optimizer.init``
+            (slab-shaped state is updated in place too).
           residuals: second output of :meth:`forward_with_residuals`.
           out_grads: cotangents matching the forward outputs.
-          optimizer: :class:`~.optimizers.SparseSGD`.
+          optimizer: :class:`~.optimizers.SparseSGD` or
+            :class:`~.optimizers.SparseAdagrad`.
           lr: learning rate, a Python number or a 0-d float32 tensor.
           scale: gradient pre-scale; defaults to ``1/world_size``.
           enable: optional 0-d bool tensor; when False the update is
-            skipped with the slabs bitwise unchanged (every id goes to
+            skipped with the slabs and their optimizer state bitwise
+            unchanged (every id goes to
             the dropped-row sentinel, see
             :func:`~.apply.apply_width_streams`).
 

@@ -3,8 +3,8 @@
 world 1.
 
 * dense (data-parallel) parameters: autograd + a dense optimizer with
-  ``optax``'s ``init``/``update`` contract (e.g.
-  :class:`~.optimizers.SGD`), updated in place;
+  ``optax``'s ``init``/``update`` contract (:class:`~.optimizers.SGD`,
+  :class:`~.optimizers.Adagrad`), updated in place;
 * embedding slabs: **no autograd through the tables**. The forward runs
   outside autograd; its outputs are detached leaves, the dense model is
   differentiated w.r.t. them, and their cotangents feed
@@ -30,8 +30,10 @@ from ..utils import obs
 class HybridTrainState(NamedTuple):
     """All mutable model state. ``emb_params`` is the slab dict
     ``{"w<width>": [world, rows_cap, width]}`` and ``emb_opt_state`` its
-    optimizer state; ``dense_params`` is the dense module (e.g. a
-    ``DLRMDense``) and ``dense_opt_state`` its optimizer state; ``step``
+    optimizer state (``SparseAdagrad``: one slab-shaped accumulator per
+    width, updated in place with the slab); ``dense_params`` is the
+    dense module (a ``DLRMDense``, a ``SyntheticDense``) and
+    ``dense_opt_state`` its optimizer state; ``step``
     is a 0-d int32 tensor on the card. The optimizer fields stay ``None``
     for a serving-only state."""
     emb_params: Any
@@ -148,9 +150,10 @@ def make_hybrid_train_step(de, loss_fn: Callable, dense_tx, emb_optimizer,
       loss_fn: ``loss_fn(dense_params, emb_outputs, batch) -> scalar``
         mean loss over the batch.
       dense_tx: the dense optimizer (``init(params)``,
-        ``update(grads, state, params) -> (updates, state)``; e.g.
-        :class:`~.optimizers.SGD`).
-      emb_optimizer: :class:`~.optimizers.SparseSGD`.
+        ``update(grads, state, params) -> (updates, state)``;
+        :class:`~.optimizers.SGD`, :class:`~.optimizers.Adagrad`).
+      emb_optimizer: :class:`~.optimizers.SparseSGD` or
+        :class:`~.optimizers.SparseAdagrad`.
       lr_schedule: the embedding learning rate, a constant or a
         ``step -> lr`` callable (called with the 0-d step tensor; it
         returns a 0-d float32 tensor on the card).
@@ -221,8 +224,9 @@ def init_hybrid_state(de, emb_optimizer, dense_params, dense_tx,
                       dtype: torch.dtype = torch.float32,
                       device="cuda") -> HybridTrainState:
     """Initialize all state: slabs from the tables' initializers (in
-    place, see ``DistributedEmbedding.init``), both optimizer states, and
-    ``step = 0`` on ``device``."""
+    place, see ``DistributedEmbedding.init``), both optimizer states
+    (``emb_optimizer.init`` builds any slab-shaped state beside the slabs,
+    on the same device), and ``step = 0`` on ``device``."""
     emb_params = de.init(generator, dtype=dtype, device=device)
     dev = next(iter(emb_params.values())).device
     return HybridTrainState(

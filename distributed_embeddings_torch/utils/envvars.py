@@ -95,5 +95,5 @@ declare("DETPU_NANGUARD", default="1",
         doc="on-device non-finite guard in the hybrid step; 0 = build the "
             "unguarded step")
 declare("DETPU_SGD_DEDUP", default="",
-        doc="1 = force the sort/segment-sum dedup pass into SparseSGD "
-            "(not ported yet: apply_rows raises, ROADMAP B7)")
+        doc="1 = force the sort/segment-sum dedup pass (K5) into "
+            "SparseSGD, to compare it with the direct scatter")

@@ -17,22 +17,28 @@ k ulps of its dtype of ``|old| + sum |update|`` (both sides add with
 atomics, in an order of the card's choosing). A small DLRM trained 5
 steps on the card (kernels) and on the CPU (plain versions), float32:
 losses, tables and dense params within 1e-4 (cuBLAS and the CPU sum in
-other orders).
+other orders). The dedup (K5), Adagrad row (K6) and dense (K7) kernels
+and a 3-step tiny-zoo run card-vs-CPU state their bounds where they are
+tested.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from distributed_embeddings_torch.models import (DLRMConfig, DLRMDense,
-                                                 bce_with_logits)
+from distributed_embeddings_torch.models import (
+    DLRMConfig, DLRMDense, InputGenerator, bce_with_logits, build_synthetic,
+    synthetic_models_v3)
 from distributed_embeddings_torch.ops import (
-    dot_interact_bwd, dot_interact_bwd_plain, dot_interact_fwd,
-    dot_interact_fwd_plain, embedding_lookup, gather_combine,
-    gather_combine_plain, sgd_scatter, sgd_scatter_plain)
+    adagrad_dense, adagrad_dense_plain, adagrad_rows, adagrad_rows_plain,
+    dedup_sparse_grad, dedup_sparse_grad_plain, dot_interact_bwd,
+    dot_interact_bwd_plain, dot_interact_fwd, dot_interact_fwd_plain,
+    embedding_lookup, gather_combine, gather_combine_plain, sgd_scatter,
+    sgd_scatter_plain)
 from distributed_embeddings_torch.parallel import (
-    SGD, DistributedEmbedding, HybridTrainState, ServeConfig, Served,
-    ServingRuntime, SparseSGD, make_hybrid_train_step, synthetic_request)
+    SGD, Adagrad, DistributedEmbedding, HybridTrainState, ServeConfig,
+    Served, ServingRuntime, SparseAdagrad, SparseSGD, make_hybrid_train_step,
+    synthetic_request)
 
 from torch_parity import assert_within_ulps, cuda_device, to_np  # noqa: F401
 
@@ -306,3 +312,218 @@ def test_train_step_on_the_card_matches_the_cpu(cuda_device):
         np.testing.assert_allclose(a, b, atol=1e-4, rtol=0)
     for a, b in zip(dg, dc):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-4, rtol=0)
+
+
+def _dedup_case(rng, n, rows, hot_run=0):
+    """Zipfian ids into ``rows`` (the sentinel, ids past it and negative
+    ids mixed in), plus ``hot_run`` copies of one id, shuffled: a segment
+    that spans many 256-row chunks of the kernel's segment-sum."""
+    ids = (rng.zipf(1.1, size=n) - 1) % rows
+    flip = rng.random(n) < 0.03
+    ids = np.where(flip, rng.choice([rows, rows + 5, -2, -rows - 9], size=n),
+                   ids)
+    ids = rng.permutation(np.concatenate([ids, np.full(hot_run, 7)]))
+    return ids
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("width", [1, 8, 16, 40])
+def test_dedup_kernel_matches_plain(cuda_device, dtype, width):
+    """K5 against its plain version: unique ids bit-exact (tail
+    included); a row that k ids sum is a fp32 sum taken in stable order
+    in 256-row pieces by the kernel and with atomics by the plain
+    version, each within (k - 1) 2^-24 of the sum of |rows|: float32
+    sums within 2 k 2^-24 of it, bf16 sums within 1 bf16 ulp of the
+    plain result more (both round one fp32 sum once). Two runs of the
+    kernel agree bitwise."""
+    rng = np.random.default_rng(width)
+    for n, rows, hot_run, ids_dtype, kw in (
+            (1, 10, 0, torch.int32, {}),
+            (700, 50, 0, torch.int64, {}),
+            (20000, 3000, 9000, torch.int32, {}),
+            (5000, 10 ** 6, 2000, torch.int32, {}),
+            (3000, 100, 0, torch.int32, {"max_unique": 40}),
+            (3000, 100, 600, torch.int64, {"valid": True})):
+        ids = _dedup_case(rng, n, rows, hot_run)
+        tid = torch.from_numpy(ids).to(ids_dtype).to(cuda_device)
+        vals = torch.from_numpy(rng.normal(size=(len(ids), width)).astype(
+            np.float32)).to(dtype).to(cuda_device)
+        if kw.get("valid"):
+            kw = {"valid": torch.from_numpy(rng.random(len(ids)) < 0.7).to(
+                cuda_device)}
+        before = dedup_sparse_grad.launches
+        gu, gg = dedup_sparse_grad(tid, vals, pad_id=rows, **kw)
+        gu2, gg2 = dedup_sparse_grad(tid, vals, pad_id=rows, **kw)
+        assert dedup_sparse_grad.launches == before + 2
+        pu, pg = dedup_sparse_grad_plain(tid, vals, pad_id=rows, **kw)
+        assert gu.dtype == ids_dtype and gg.dtype == dtype
+        assert torch.equal(gu, gu2) and torch.equal(gg, gg2)
+        np.testing.assert_array_equal(to_np(gu), to_np(pu))
+        _, mag = dedup_sparse_grad_plain(tid, vals.float().abs(),
+                                         pad_id=rows, **kw)
+        _, cnt = dedup_sparse_grad_plain(
+            tid, torch.ones((len(ids), 1), device=cuda_device), pad_id=rows,
+            **kw)
+        got, want, mag = to_np(gg), to_np(pg), to_np(mag)
+        tol = 2 * to_np(cnt) * 2.0 ** -24 * mag + 1e-30
+        if dtype == torch.bfloat16:
+            tol = tol + 2.0 ** (np.floor(np.log2(np.maximum(
+                np.abs(want), 2.0 ** -126))) - 7)
+        np.testing.assert_array_less(np.abs(got - want), tol)
+
+
+ADAGRAD_PAIRS = [(torch.float32, torch.float32),
+                 (torch.bfloat16, torch.bfloat16),
+                 (torch.bfloat16, torch.float32),
+                 (torch.float32, torch.bfloat16)]
+
+
+def _adagrad_tol(got, want, old, lr, slab_dtype):
+    """The kernel's correctly rounded rsqrt against PyTorch's CUDA
+    ``rsqrtf`` (within 2 ulps): the update, below lr, may differ by 2
+    ulps and its rounding by one more, so the slab is held within 3 ulps
+    of ``|old| + lr`` (a bound on |old| and |update|) of its dtype."""
+    mant = 7 if slab_dtype == torch.bfloat16 else 23
+    scale = np.abs(old) + lr
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(scale, 2.0 ** -126))) - mant)
+    bad = np.abs(got - want) > 3 * ulp
+    assert not bad.any(), (f"{int(bad.sum())} values beyond 3 ulps; max "
+                           f"err {np.abs(got - want).max()}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slab_dtype,acc_dtype", ADAGRAD_PAIRS)
+@pytest.mark.parametrize("width", [8, 16, 40])
+def test_adagrad_rows_kernel_matches_plain(cuda_device, slab_dtype,
+                                           acc_dtype, width):
+    """K6 against its plain version on unique rows, negative ids, the
+    sentinel and ids past the slab, for a constant and a device lr:
+    accumulators bit-exact (the same per-op rounding), slab rows within
+    3 ulps (``rsqrt``, see ``_adagrad_tol``), untouched rows bitwise
+    unchanged."""
+    rng = np.random.default_rng(width)
+    R = 400
+    rows = rng.permutation(R - 20)[:150]  # rows R-20.. stay for negatives
+    uids = np.concatenate([np.sort(rows), [-1, -7, R, R, 10 ** 6, -R - 3]])
+    for ids_dtype in (torch.int32, torch.int64):
+        for lr in (0.05, torch.tensor(0.013)):
+            slab = torch.from_numpy(rng.normal(size=(R, width)).astype(
+                np.float32)).to(slab_dtype).to(cuda_device)
+            acc = torch.from_numpy((0.1 + rng.random((R, width))).astype(
+                np.float32)).to(acc_dtype).to(cuda_device)
+            g = torch.from_numpy(rng.normal(size=(len(uids), width)).astype(
+                np.float32)).to(acc_dtype).to(cuda_device)
+            tid = torch.from_numpy(uids).to(ids_dtype).to(cuda_device)
+            lr_d = lr.to(cuda_device) if isinstance(lr, torch.Tensor) else lr
+            gs, ga, ps, pa = slab.clone(), acc.clone(), slab.clone(), \
+                acc.clone()
+            before = adagrad_rows.launches
+            adagrad_rows(gs, ga, tid, g, lr_d, 1e-7)
+            assert adagrad_rows.launches == before + 1
+            adagrad_rows_plain(ps, pa, tid, g, lr_d, 1e-7)
+            np.testing.assert_array_equal(to_np(ga), to_np(pa))
+            _adagrad_tol(to_np(gs), to_np(ps), to_np(slab), float(lr),
+                         slab_dtype)
+            hit = np.union1d(rows, [R - 1, R - 7])
+            untouched = np.setdiff1d(np.arange(R), hit)
+            assert torch.equal(gs[untouched], slab[untouched])
+            assert torch.equal(ga[untouched], acc[untouched])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slab_dtype,acc_dtype", ADAGRAD_PAIRS)
+def test_adagrad_dense_kernel_matches_plain(cuda_device, slab_dtype,
+                                            acc_dtype):
+    """K7 against its plain version over a slab whose gradient is zero
+    on most rows: accumulators bit-exact, slab within 3 ulps (as K6), and
+    every element with g = 0 keeps its bits."""
+    rng = np.random.default_rng(3)
+    R, w = 5000, 16
+    for lr in (0.05, torch.tensor(0.013)):
+        slab = torch.from_numpy(rng.normal(size=(R, w)).astype(
+            np.float32)).to(slab_dtype).to(cuda_device)
+        acc = torch.from_numpy((0.1 + rng.random((R, w))).astype(
+            np.float32)).to(acc_dtype).to(cuda_device)
+        g = torch.from_numpy(rng.normal(size=(R, w)).astype(np.float32)
+                             * (rng.random((R, 1)) < 0.1)).to(acc_dtype).to(
+            cuda_device)
+        lr_d = lr.to(cuda_device) if isinstance(lr, torch.Tensor) else lr
+        gs, ga, ps, pa = slab.clone(), acc.clone(), slab.clone(), acc.clone()
+        before = adagrad_dense.launches
+        adagrad_dense(gs, ga, g, lr_d, 1e-7)
+        assert adagrad_dense.launches == before + 1
+        adagrad_dense_plain(ps, pa, g, lr_d, 1e-7)
+        np.testing.assert_array_equal(to_np(ga), to_np(pa))
+        _adagrad_tol(to_np(gs), to_np(ps), to_np(slab), float(lr),
+                     slab_dtype)
+        zero = (g == 0).cpu()
+        assert torch.equal(gs.cpu()[zero], slab.cpu()[zero])
+        assert torch.equal(ga.cpu()[zero], acc.cpu()[zero])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ratio", [6.0, None], ids=["dense", "sparse"])
+def test_zoo_train_on_the_card_matches_the_cpu(cuda_device, ratio):
+    """The capped tiny zoo trained 3 steps with ``SparseAdagrad`` +
+    ``Adagrad`` on the card (K1, then K3 + K7 or K5 + K6 per slab) and on
+    the CPU (the plain versions) from one state, float32: losses within
+    1e-5 relative, tables within 1e-5, accumulators and dense params
+    within 1e-4 relative / absolute (cuBLAS and the CPU sum in other
+    orders; K5 sums in pieces)."""
+    cfg = synthetic_models_v3["tiny"]
+    gen = InputGenerator(cfg, 128, alpha=1.05, num_batches=3, seed=4,
+                         row_cap=500, device="cpu")
+    out = {}
+    for dev in ("cpu", cuda_device):
+        de, dense, _ = build_synthetic(
+            cfg, 1, row_cap=500, device=dev,
+            generator=torch.Generator(device=dev).manual_seed(0))
+        if dev == "cpu":
+            init = de.init(torch.Generator().manual_seed(1), device="cpu")
+            dense_init = {k: v.clone() for k, v in dense.state_dict().items()}
+        dense.load_state_dict(dense_init)
+        state = HybridTrainState(
+            emb_params={k: v.clone().to(dev) for k, v in init.items()},
+            emb_opt_state=SparseAdagrad().init(
+                {k: v.to(dev) for k, v in init.items()}),
+            dense_params=dense,
+            dense_opt_state=Adagrad(0.01).init(list(dense.parameters())),
+            step=torch.zeros((), dtype=torch.int32, device=dev))
+        opt = SparseAdagrad(dense_apply_ratio=ratio)
+        step = make_hybrid_train_step(de, _mse, Adagrad(0.01), opt,
+                                      lr_schedule=0.01)
+        kernels = (sgd_scatter, adagrad_dense, dedup_sparse_grad,
+                   adagrad_rows)
+        before = [k.launches for k in kernels]
+        losses = []
+        for k in range(3):
+            n, c, y = gen[k]
+            loss, state = step(state, [t.to(dev) for t in c],
+                               (n.to(dev), y.to(dev)))
+            losses.append(float(loss))
+        launched = [k.launches - b for k, b in zip(kernels, before)]
+        slabs = 2 * 3  # two width slabs, three steps
+        if dev == "cpu":
+            assert launched == [0, 0, 0, 0]
+        elif ratio is None:
+            assert launched == [0, 0, slabs, slabs]
+        else:
+            assert launched == [slabs, slabs, 0, 0]
+        out[str(dev)] = (np.array(losses), de.get_weights(state.emb_params),
+                         {k: to_np(v) for k, v in
+                          state.emb_opt_state.items()},
+                         [p.detach().cpu() for p in dense.parameters()])
+    (lc, tc, ac, dc), (lg, tg, ag, dg) = out["cpu"], out[str(cuda_device)]
+    np.testing.assert_allclose(lg, lc, rtol=1e-5)
+    for a, b in zip(tg, tc):
+        np.testing.assert_allclose(a, b, atol=1e-5, rtol=0)
+    for k in ac:
+        np.testing.assert_allclose(ag[k], ac[k], rtol=1e-4, atol=0)
+    for a, b in zip(dg, dc):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-4, rtol=0)
+
+
+def _mse(dense, outs, batch):
+    n, y = batch
+    return torch.mean((dense(n, outs) - y) ** 2)

@@ -65,7 +65,9 @@ def test_sources_exist():
     names = {p.name for p in _sources()}
     assert {"chip_smoke.py", "_kernels.py", "embedding_lookup.py",
             "interaction.py", "serving.py", "scatter_add.py",
-            "optimizers.py", "apply.py", "trainer.py", "obs.py"} <= names
+            "optimizers.py", "apply.py", "trainer.py", "obs.py",
+            "sparse_grad.py", "adagrad.py", "synthetic.py",
+            "synthetic_configs.py", "packed_slab.py", "convert.py"} <= names
 
 
 @pytest.mark.parametrize("path", _sources(),
@@ -91,6 +93,18 @@ def test_port_module_is_standalone(path):
     "def g(f, d):\n    try:\n        return dot_interact_bwd(f, d)\n"
     "    except (RuntimeError, OSError):\n"
     "        return dot_interact_bwd_plain(f, d)\n",
+    "def h(i, v):\n    try:\n        return dedup_sparse_grad(i, v, pad_id=9)\n"
+    "    except RuntimeError:\n"
+    "        return dedup_sparse_grad_plain(i, v, pad_id=9)\n",
+    "def h(s, a, u, g):\n    try:\n"
+    "        return adagrad_rows(s, a, u, g, .1, 1e-7)\n"
+    "    except RuntimeError:\n"
+    "        return adagrad.adagrad_rows_plain(s, a, u, g, .1, 1e-7)\n",
+    "def h(s, a, g):\n    try:\n        return adagrad_dense(s, a, g, .1, 0.)\n"
+    "    except Exception:\n        return adagrad_dense_plain(s, a, g, .1, 0.)\n",
+    "from distributed_embeddings_tpu.models.synthetic_configs import "
+    "model_tiny\n",
+    "import distributed_embeddings_tpu.ops.sparse_grad as sparse_grad\n",
 ])
 def test_checker_catches_seeded_violations(bad):
     assert violations(bad)

@@ -143,11 +143,23 @@ def test_tensor_lr_into_bfloat16_slab_raises():
 
 
 def test_sgd_dedup_env_raises(monkeypatch):
+    """``DETPU_SGD_DEDUP=1`` (which raised until the dedup kernel K5 was
+    ported) now forces the sort + segment-sum pass into ``SparseSGD``: on
+    dyadic values, with duplicates and the dropped-row sentinel, the
+    forced step equals the default one and JAX's forced step, bit for
+    bit (mirrors ``tests/test_sparse_optax.py``'s env-hatch test). The
+    dedup keeps at most ``rows + 1`` distinct ids, in both packages, so
+    the stream stays within ``[0, rows]``."""
+    rng = np.random.default_rng(9)
+    R, w, n = 12, 8, 300
+    slab = rng.integers(-64, 64, size=(R, w)).astype(np.float32) / 16
+    ids = rng.integers(0, R + 1, size=n).astype(np.int32)
+    vals = rng.integers(-32, 32, size=(n, w)).astype(np.float32) / 8
+    default, _ = _both(slab, ids, vals, 0.25, "float32", "float32")
     monkeypatch.setenv("DETPU_SGD_DEDUP", "1")
-    with pytest.raises(NotImplementedError, match="B7"):
-        SparseSGD().apply_rows(torch.zeros(4, 8), (),
-                               torch.tensor([1], dtype=torch.int32),
-                               torch.ones(1, 8), 0.1)
+    want, got = _both(slab, ids, vals, 0.25, "float32", "float32")
+    np.testing.assert_array_equal(got, default)
+    np.testing.assert_array_equal(got, want)
 
 
 def test_cpu_scatter_counts_no_launch_and_other_devices_raise():
