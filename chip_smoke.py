@@ -57,7 +57,34 @@ Phases (any failure raises and the script exits non-zero):
       as in 6d, a stage split and a ``torch.profiler`` window (device
       busy share, K5's launch chain);
    e. K1 (hot 10, w16), K3 (the w8 scatter-sum), K5, K6 and K7 timed
-      as in 7, and the w16 slab through both Adagrad regimes.
+      as in 7, and the w16 slab through both Adagrad regimes;
+9. ragged, after freeing the zoo state: the multi-hot ragged DLRM
+   (``bench.py``'s ``multihot_ragged``): the Criteo-Kaggle tables capped
+   at 2M rows in fp32 (10,569,296 rows, a 5.41 GB slab), 26 ragged
+   features of U{1..30} Zipfian ids a row in one plan group, bf16
+   compute, ``SparseSGD`` + SGD at lr 0.005, batch 65536:
+   a. K8, K9 and K10 against their plain versions on the card,
+      bit-exact, at the edge cases (sum/mean, weights, bad ids clipped
+      and masked, empty rows, rows past the capacity, a row of 1,200
+      ids);
+   b. capped at 20000 rows, batch 4096, one mean table and one weighted
+      feature, fp32 and bf16 tables: 5 steps in lockstep, each run with
+      the kernels and, from a copy of the same state, with K8-K10
+      through ``plain_kernels(RAGGED_SITES)``: losses and dense params
+      bitwise equal, slabs within K3's atomic-order bound, and a control
+      run that drops half the stream must fail that bound;
+   c. one full-size step (~1% bad ids): K10's splits, K8's output and
+      K9's stream bit-exact against their plain versions on the step's
+      own inputs,
+      the touched slab rows against the plain scatter of the stream,
+      and three features given as ``SparseIds`` (``row_to_split``, K10)
+      giving a bitwise-equal forward;
+   d. a NaN batch leaving the touched rows and the dense params
+      bitwise unchanged;
+   e. 3 warmup + 20 timed steps over 4 pre-staged batches with the
+      launches counted (K8 1, K9 1, K10 2, K3 1, K2 1, K4 1 a step) and
+      a stage split;
+   f. K8, K9 and K10 timed at this shape as in 7.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Run from the root of a checkout:
@@ -404,13 +431,17 @@ def kernel_fns():
     launches)."""
     from distributed_embeddings_torch.ops import (
         adagrad_dense, adagrad_rows, dedup_sparse_grad, dot_interact_bwd,
-        dot_interact_fwd, gather_combine, sgd_scatter)
+        dot_interact_fwd, gather_combine, lengths_to_splits, ragged_combine,
+        ragged_grad, ragged_row_ids, row_to_split, sgd_scatter)
 
     return {"gather_combine": gather_combine,
             "dot_interact_fwd": dot_interact_fwd,
             "dot_interact_bwd": dot_interact_bwd, "sgd_scatter": sgd_scatter,
             "dedup_sparse_grad": dedup_sparse_grad,
-            "adagrad_rows": adagrad_rows, "adagrad_dense": adagrad_dense}
+            "adagrad_rows": adagrad_rows, "adagrad_dense": adagrad_dense,
+            "ragged_combine": ragged_combine, "ragged_grad": ragged_grad,
+            "lengths_to_splits": lengths_to_splits,
+            "row_to_split": row_to_split, "ragged_row_ids": ragged_row_ids}
 
 
 def zero_counts():
@@ -423,16 +454,22 @@ def read_counts():
 
 
 @contextlib.contextmanager
-def plain_kernels():
-    """Route every kernel call site of the package to its plain version
-    (the reference run of the small training checks)."""
-    from distributed_embeddings_torch.ops import (adagrad,
-                                                  gather_combine_plain,
-                                                  interaction, scatter_add,
-                                                  sparse_grad)
-    from distributed_embeddings_torch.parallel import lookup, optimizers
+def plain_kernels(names=None):
+    """Route every kernel call site of the package (or, with ``names``,
+    those of the wrappers so named) to its plain version (the reference
+    run of the small training checks)."""
+    from distributed_embeddings_torch.ops import (
+        adagrad, gather_combine_plain, interaction, lengths_to_splits_plain,
+        ragged_combine_plain, row_to_split_plain, scatter_add, sparse_grad)
+    from distributed_embeddings_torch.parallel import (
+        apply, dist_embedding, lookup, optimizers)
 
     swaps = [(lookup, "gather_combine", gather_combine_plain),
+             (lookup, "ragged_combine", ragged_combine_plain),
+             (lookup, "lengths_to_splits", lengths_to_splits_plain),
+             (apply, "lengths_to_splits", lengths_to_splits_plain),
+             (apply, "ragged_grad", sparse_grad.ragged_grad_plain),
+             (dist_embedding, "row_to_split", row_to_split_plain),
              (interaction, "dot_interact_fwd",
               interaction.dot_interact_fwd_plain),
              (interaction, "dot_interact_bwd",
@@ -442,6 +479,8 @@ def plain_kernels():
               sparse_grad.dedup_sparse_grad_plain),
              (optimizers, "adagrad_rows", adagrad.adagrad_rows_plain),
              (optimizers, "adagrad_dense", adagrad.adagrad_dense_plain)]
+    if names is not None:
+        swaps = [sw for sw in swaps if sw[1] in names]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, fn in swaps:
         setattr(mod, name, fn)
@@ -1017,7 +1056,8 @@ def clone_state(st):
 
     return HybridTrainState(
         emb_params={k: v.clone() for k, v in st.emb_params.items()},
-        emb_opt_state={k: v.clone() for k, v in st.emb_opt_state.items()},
+        emb_opt_state={k: v.clone() if hasattr(v, "clone") else v
+                       for k, v in st.emb_opt_state.items()},
         dense_params=copy.deepcopy(st.dense_params),
         dense_opt_state=tuple(t.clone() for t in st.dense_opt_state),
         step=st.step.clone())
@@ -1700,6 +1740,867 @@ def phase_zoo(torch):
                                     "regimes_w16": regime}
 
 
+# ------------------------------------------------------------------ ragged
+
+# Criteo-Kaggle vocabularies (bench.py:63-67), frequency-capped at 2M rows
+# as bench.py's "capped" DLRM variants cap them
+CRITEO_KAGGLE_SIZES = [
+    1460, 583, 10131227, 2202608, 305, 24, 12517, 633, 3, 93145, 5683,
+    8351593, 3194, 27, 14992, 5461306, 10, 5652, 2173, 4, 7046547, 18, 15,
+    286181, 105, 142572,
+]
+KAGGLE_CAP = 2_000_000
+RAGGED_HOT = 15                # bench.py multihot_ragged: U{1..2*15} ids a row
+RAGGED_BATCHES = 4             # distinct batches the timed steps cycle over
+SPARSE_FEATURES = (0, 5, 13)   # given as SparseIds in the forward check
+
+
+def ragged_sizes(row_cap=KAGGLE_CAP):
+    return [min(s, row_cap) for s in CRITEO_KAGGLE_SIZES]
+
+
+def ragged_per_step(groups):
+    """Launches per ragged DLRM step: K8 and K9 once per ragged plan
+    group, K10 twice (forward and backward), K3 once (one slab), K2 and
+    K4 once; nothing else."""
+    want = {name: 0 for name in kernel_fns()}
+    want.update(ragged_combine=groups, ragged_grad=groups,
+                lengths_to_splits=2 * groups, sgd_scatter=1,
+                dot_interact_fwd=1, dot_interact_bwd=1)
+    return want
+
+
+def device_power_law(torch, gen, vocab, n):
+    """``utils.data.power_law_ids`` (alpha 1.05) drawn on the card: the
+    same inverse CDF over float64 uniforms of the card's generator."""
+    u = torch.rand(n, dtype=torch.float64, generator=gen, device="cuda")
+    exp = 1.0 - 1.05
+    ids = ((vocab + 1) ** exp * u + (1 - u)) ** (1.0 / exp) - 1.0
+    return ids.long().clamp(0, vocab - 1).to(torch.int32)
+
+
+def ragged_batches(torch, sizes, b, n_batches, seed, bad_ids=False,
+                   weighted=(), nan=False):
+    """``n_batches`` batches of ``bench.py:run_dlrm``'s ragged traffic,
+    made on the card: per feature and row ``U{1..30}`` Zipfian ids, one
+    capacity for every feature and batch (the largest feature's total),
+    values zero-padded past each feature's total (``bad_ids``: ~1%
+    negative or past the table; ``weighted`` features carry weights in
+    [0.25, 1.75)); N(0, 1) numerical features (``nan``: one NaN) and 0/1
+    labels. Returns ``(batches, cap)``."""
+    from distributed_embeddings_torch import Ragged
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    splits = []
+    for _ in range(n_batches):
+        row = []
+        for _ in sizes:
+            hots = torch.randint(1, 2 * RAGGED_HOT + 1, (b,), generator=gen,
+                                 device="cuda", dtype=torch.int32)
+            sp = torch.zeros(b + 1, dtype=torch.int32, device="cuda")
+            torch.cumsum(hots, 0, out=sp[1:])
+            row.append(sp)
+        splits.append(row)
+    cap = int(torch.stack([sp[-1] for row in splits for sp in row]).max())
+    batches = []
+    for k in range(n_batches):
+        cats = []
+        for t, v in enumerate(sizes):
+            sp = splits[k][t]
+            nnz = int(sp[-1])
+            ids = device_power_law(torch, gen, v, nnz)
+            if bad_ids:
+                u = torch.rand((2, nnz), generator=gen, device="cuda")
+                bad = torch.where(
+                    u[1] < 0.5, -1 - (u[1] * 1000).int(),
+                    v + ((u[1] - 0.5) * 2000).int())
+                ids = torch.where(u[0] < 0.01, bad, ids)
+            vals = torch.zeros(cap, dtype=torch.int32, device="cuda")
+            vals[:nnz] = ids
+            w = None
+            if t in weighted:
+                w = torch.zeros(cap, dtype=torch.float32, device="cuda")
+                w[:nnz] = 0.25 + 1.5 * torch.rand(nnz, generator=gen,
+                                                  device="cuda")
+            cats.append(Ragged(values=vals, row_splits=sp, weights=w))
+        num = torch.randn((b, 13), generator=gen, device="cuda")
+        if nan:
+            num[b // 2, 3] = float("nan")
+        lab = (torch.rand(b, generator=gen, device="cuda") < 0.25).float()
+        batches.append((cats, (num, lab)))
+    return batches, cap
+
+
+def as_sparse_ids(torch, r, b):
+    """A ``Ragged`` batch as the same ids in COO form: row ``r`` for its
+    ids, padding rows ``b`` past the total."""
+    from distributed_embeddings_torch import SparseIds
+
+    lengths = (r.row_splits[1:] - r.row_splits[:-1]).long()
+    rows = torch.repeat_interleave(torch.arange(b, device="cuda"), lengths)
+    pad = r.values.shape[0] - rows.shape[0]
+    rows = torch.cat([rows, torch.full((pad,), b, device="cuda")])
+    rows = rows.to(torch.int32)
+    return SparseIds(indices=torch.stack([rows, torch.zeros_like(rows)], 1),
+                     values=r.values, dense_shape=(b, 2 * RAGGED_HOT),
+                     weights=r.weights)
+
+
+def ragged_rows(torch, de, cats, sizes):
+    """The slab rows a ragged batch's live in-range ids hit, one entry
+    per id."""
+    out = []
+    for t, c in enumerate(cats):
+        nnz = min(int(c.row_splits[-1]), c.values.shape[0])
+        v = c.values[:nnz].long()
+        ok = (v >= 0) & (v < sizes[t])
+        out.append(v[ok] + de.row_offsets_list[0][t])
+    return torch.cat(out)
+
+
+def ragged_model(torch, sizes, table_dtype, seed, mean_table=None):
+    """The bench's DLRM over ``sizes`` with ``combiner="sum"`` tables
+    (``mean_table``: that one ``"mean"``), bf16 compute, tables in
+    ``table_dtype``, and its ``SparseSGD`` + SGD train state."""
+    from distributed_embeddings_torch.models import DLRMConfig, DLRMDense
+    from distributed_embeddings_torch.parallel import (
+        SGD, DistributedEmbedding, SparseSGD, init_hybrid_state)
+
+    cfg = DLRMConfig(table_sizes=sizes, embedding_dim=128,
+                     num_numerical_features=13,
+                     bottom_mlp_dims=(512, 256, 128),
+                     top_mlp_dims=(1024, 1024, 512, 256, 1),
+                     compute_dtype=torch.bfloat16)
+    configs = cfg.embedding_configs(combiner="sum")
+    if mean_table is not None:
+        configs[mean_table]["combiner"] = "mean"
+    de = DistributedEmbedding(configs, world_size=1,
+                              compute_dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dense = DLRMDense(cfg, device="cuda", generator=gen)
+    st = init_hybrid_state(de, SparseSGD(), dense, SGD(TRAIN_LR),
+                           generator=gen, dtype=table_dtype, device="cuda")
+    return de, st
+
+
+def exact(torch, got, want, what):
+    """Bitwise equality of kernel and plain outputs; returns the max abs
+    error (0)."""
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{what}: {got.dtype} {tuple(got.shape)} != {want.dtype} "
+          f"{tuple(want.shape)}")
+    if got.is_floating_point():
+        check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
+    ok = bool(torch.equal(got, want))
+    err = float((got.double() - want.double()).abs().max()) \
+        if got.numel() else 0.0
+    check(ok, f"{what}: differs from the plain version (max err {err})")
+    return err
+
+
+def ragged_kernel_checks(torch):
+    """K8, K9 and K10 against their plain versions on the card, bit-exact
+    (each kernel repeats its plain version's arithmetic, in the same
+    order): sum and mean slots, no / float32 / in-block int64 weights,
+    clipped and masked bad ids, empty rows, rows past the capacity, a
+    row of 1,200 ids, padding holding id 0."""
+    from distributed_embeddings_torch.ops import (
+        lengths_to_splits, lengths_to_splits_plain, ragged_combine,
+        ragged_combine_plain, ragged_grad, ragged_grad_plain, ragged_row_ids,
+        ragged_row_ids_plain, row_to_split, row_to_split_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 70)
+    n, b, vocab, w = 4, 4096, 5000, 128
+    lengths = torch.randint(0, 2 * RAGGED_HOT + 1, (n, b), generator=gen,
+                            device="cuda")
+    lengths[:, 7] = 0
+    lengths[1, 100] = 1200
+    tot = lengths.sum(1)
+    cases = 0
+    errs = {"csr": 0.0, "ragged_combine": 0.0, "ragged_grad": 0.0}
+    for frac in (1.0, 0.7):
+        cap = int(int(tot.max()) * frac)
+        for ids_dt in (torch.int32, torch.int64):
+            vals = torch.randint(-3, vocab + 3, (n, cap), generator=gen,
+                                 device="cuda")
+            for k in range(n):
+                vals[k, min(int(tot[k]), cap):] = 0
+            wts = 0.25 + 1.5 * torch.rand((n, cap), generator=gen,
+                                          device="cuda")
+            block = torch.cat([vals, lengths, wts.view(torch.int32).long()],
+                              1).to(ids_dt)
+            values, lview = block[:, :cap], block[:, cap:cap + b]
+            valid = torch.tensor([1, 1, 0, 1], dtype=torch.int32,
+                                 device="cuda")
+            for vd in (None, valid):
+                errs["csr"] = max(errs["csr"], exact(
+                    torch, lengths_to_splits(lview, vd),
+                    lengths_to_splits_plain(lview, vd), "lengths_to_splits"))
+            splits = lengths_to_splits(lview)
+            for c in (cap, cap // 3):
+                errs["csr"] = max(errs["csr"], exact(
+                    torch, ragged_row_ids(splits, c),
+                    ragged_row_ids_plain(splits, c), "ragged_row_ids"))
+            rows = torch.repeat_interleave(
+                torch.arange(b, device="cuda"), lengths[0]).to(ids_dt)
+            rows = torch.cat([rows, torch.full((5,), b + 2, device="cuda",
+                                               dtype=ids_dt)])
+            for idx in (rows, torch.stack([rows, torch.zeros_like(rows)],
+                                          1)):
+                errs["csr"] = max(errs["csr"], exact(
+                    torch, row_to_split(idx, b), row_to_split_plain(idx, b),
+                    "row_to_split"))
+            meta = dict(rows=torch.full((n,), vocab, dtype=torch.int64,
+                                        device="cuda"),
+                        roff=torch.arange(n, device="cuda") * vocab)
+            for dtype in (torch.float32, torch.bfloat16):
+                slab = torch.randn((n * vocab, w), generator=gen,
+                                   device="cuda").to(dtype)
+                g = torch.randn((b, n * w + 8), generator=gen,
+                                device="cuda").to(dtype)
+                g = g[:, :n * w].reshape(b, n, w).transpose(0, 1)
+                for wk, wt in (("none", None), ("f32", wts),
+                               ("bits", block[:, cap + b:])):
+                    for mean, mask in (((0, 1, 0, 1), None),
+                                       ((1, 0, 1, 1), (1, 1, 0, 1))):
+                        mt = torch.tensor(mean, dtype=torch.int32,
+                                          device="cuda")
+                        kw = dict(meta, mean=mt, weights=wt,
+                                  mask=None if mask is None else torch.tensor(
+                                      mask, dtype=torch.int32,
+                                      device="cuda"))
+                        errs["ragged_combine"] = max(
+                            errs["ragged_combine"], exact(
+                                torch, ragged_combine(
+                                    slab, values, splits, **kw,
+                                    out_dtype=torch.bfloat16),
+                                ragged_combine_plain(
+                                    slab, values, splits, **kw,
+                                    out_dtype=torch.bfloat16),
+                                f"ragged_combine {dtype} {wk} mean={mean}"))
+                        if wk == "f32":
+                            continue
+                        gkw = dict(meta, values=values, sentinel=n * vocab,
+                                   mean=mt, weights=wt)
+                        gi, gv = ragged_grad(g, splits, **gkw)
+                        pi, pv = ragged_grad_plain(g, splits, **gkw)
+                        exact(torch, gi, pi, "ragged_grad ids")
+                        errs["ragged_grad"] = max(
+                            errs["ragged_grad"], exact(
+                                torch, gv, pv,
+                                f"ragged_grad {dtype} {wk} mean={mean}"))
+                        cases += 1
+    torch.cuda.synchronize()
+    log(f"ragged: K8/K9/K10 vs plain on the card, bit-exact, {cases} K9 "
+        f"cases and twice as many K8 ones (b={b}, rows of 0-30 ids and one "
+        "of 1,200, capacity 100% and 70% of the largest total, int32 and "
+        "int64 blocks, bad ids clipped and masked)")
+    return errs
+
+
+RAGGED_SITES = ("ragged_combine", "lengths_to_splits", "ragged_grad",
+                "row_to_split")  # the call sites of K8, K10 and K9
+
+
+def stream_bounds(torch, streams, before):
+    """Per slab row, the number of live ids ``hits`` that K9's recorded
+    streams send to it, and per value ``mag``: ``|old|`` plus the sum of
+    ``|lr x update|`` over those ids."""
+    nrows, w = before.shape
+    mag = before.float().abs()
+    hits = torch.zeros(nrows, device="cuda")
+    for _, _, (ids, vals) in streams:
+        ids, vals = ids.reshape(-1), vals.reshape(-1, w)
+        keep = ids < nrows
+        gid = ids[keep].long()
+        mag.index_add_(0, gid, vals[keep].float().abs() * TRAIN_LR)
+        hits.index_add_(0, gid, torch.ones_like(gid, dtype=torch.float32))
+    return hits, mag
+
+
+def slab_misses(torch, got, want, hits, mag):
+    """Values of ``got`` beyond the atomic-order bound around ``want``:
+    rows hit at most once bit-exact, a row k ids hit within k ulps of
+    the slab dtype of ``mag``. Returns ``(count, max abs error)``."""
+    e = (got.float() - want.float()).abs()
+    tol = torch.where(hits[:, None] > 1,
+                      hits[:, None] * ulp(torch, mag, got.dtype),
+                      torch.zeros_like(mag))
+    return int(torch.count_nonzero(e > tol)), float(e.max())
+
+
+def ragged_small_check(torch, table_dtype):
+    """5 steps of the ragged DLRM with tables capped at SMALL_ROWS rows,
+    b=4096, bf16 compute, one mean table and one weighted feature (two
+    ragged plan groups), in lockstep: each step runs once with the
+    kernels and once, from a copy of the same state, with only K8, K9
+    and K10 routed to their plain versions (``RAGGED_SITES``); the
+    kernels' run goes on to the next step.
+
+    Bounds: K8-K10 repeat their plain versions' arithmetic and every
+    other kernel is the same in both runs, so the loss and the dense
+    params must be bitwise equal, and the slabs may differ only by the
+    order of K3's atomic adds: rows hit once bit-exact, a row k ids hit
+    within k ulps (of the table dtype) of |old| + the sum of
+    |lr x update|. A control run whose stream loses every other
+    position must fail that bound."""
+    from distributed_embeddings_torch.parallel import (
+        SGD, SparseSGD, apply, make_hybrid_train_step)
+
+    sizes = ragged_sizes(SMALL_ROWS)
+    de, st = ragged_model(torch, sizes, table_dtype, SEED + 80,
+                          mean_table=1)
+    init = st.emb_params["w128"][0].clone()
+    step = make_hybrid_train_step(de, loss_fn, SGD(TRAIN_LR), SparseSGD(),
+                                  lr_schedule=TRAIN_LR, nan_guard=True)
+    batches, cap = ragged_batches(torch, sizes, SMALL_BATCH, SMALL_STEPS,
+                                  SEED + 81, bad_ids=True, weighted=(2,))
+    losses, worst = [], 0.0
+    control = None
+    for i, (cats, batch) in enumerate(batches):
+        ref = clone_state(st)
+        ctrl = clone_state(st) if i == 0 else None
+        before = st.emb_params["w128"][0].clone()
+        zero_counts()
+        with record_calls(apply, "ragged_grad") as streams:
+            loss, st = step(st, cats, batch)
+        torch.cuda.synchronize()
+        kcounts = read_counts()
+        zero_counts()
+        with plain_kernels(RAGGED_SITES):
+            ploss, ref = step(ref, cats, batch)
+        torch.cuda.synchronize()
+        pcounts = read_counts()
+        groups = len(next(iter(de._plan_cache.values())).groups)
+        want = ragged_per_step(groups)
+        check(groups == 2 and kcounts == want, f"ragged small check step "
+              f"{i}: launches {kcounts}, expected {want}")
+        want = dict(want, **{k: 0 for k in RAGGED_SITES})
+        check(pcounts == want, f"ragged small check step {i} (plain ragged "
+              f"sites): launches {pcounts}, expected {want}")
+        check(bool(torch.isfinite(loss)), f"ragged small check step {i}: "
+              f"loss {float(loss)}")
+        check(torch.equal(loss, ploss), f"ragged small check "
+              f"{table_dtype} step {i}: loss {float(loss)} != "
+              f"{float(ploss)} of the plain ragged kernels")
+        check(all(torch.equal(a, b) for a, b in zip(
+            st.dense_params.parameters(), ref.dense_params.parameters())),
+            f"ragged small check {table_dtype} step {i}: dense params "
+            "differ from those of the plain ragged kernels")
+        hits, mag = stream_bounds(torch, streams, before)
+        bad, err = slab_misses(torch, st.emb_params["w128"][0],
+                               ref.emb_params["w128"][0], hits, mag)
+        check(bad == 0, f"ragged small check {table_dtype} step {i}: "
+              f"{bad} slab values beyond k ulps of |old| + sum |lr x "
+              f"update| (max err {err})")
+        worst = max(worst, err)
+        losses.append(float(loss))
+        if ctrl is not None:  # the planted fault: half the stream lost
+            real = apply.ragged_grad
+
+            def dropping(g, splits, **kw):
+                ids, vals = real(g, splits, **kw)
+                ids = ids.clone()
+                ids.view(-1)[::2] = kw["sentinel"]
+                return ids, vals
+
+            apply.ragged_grad = dropping
+            try:
+                _, ctrl = step(ctrl, cats, batch)
+            finally:
+                apply.ragged_grad = real
+            control = slab_misses(torch, ctrl.emb_params["w128"][0],
+                                  ref.emb_params["w128"][0], hits, mag)
+            check(control[0] > 0, "ragged small check: the control run "
+                  "that drops half the stream passes the slab bound")
+            del ctrl
+        del ref, streams, before, hits, mag
+    check(not torch.equal(st.emb_params["w128"][0], init),
+          "ragged small check: no slab row changed")
+    log(f"  ragged small check {str(table_dtype)[6:]} tables: "
+        f"{SMALL_STEPS} lockstep steps at b={SMALL_BATCH}, cap {cap}, "
+        f"losses {[round(x, 5) for x in losses]}; vs the plain K8/K9/K10: "
+        f"losses and dense params bitwise equal, slab max err {worst} "
+        f"(rows hit once bit-exact, k hits within k ulps); control with "
+        f"half the stream dropped: {control[0]} values beyond the bound "
+        f"(max err {control[1]})")
+
+
+@contextlib.contextmanager
+def record_calls(module, name, keep_out=True, on_call=None):
+    """Wrap ``module.<name>`` (a kernel wrapper the package calls by that
+    global) so each call's arguments, and its output if ``keep_out``,
+    are kept; ``on_call(args, kw, out)`` runs right after each call,
+    before the step goes on (and, say, updates the slab in place)."""
+    real = getattr(module, name)
+    calls = []
+
+    def wrapper(*args, **kw):
+        out = real(*args, **kw)
+        if on_call is not None:
+            on_call(args, kw, out)
+        calls.append((args, kw, out if keep_out else None))
+        return out
+
+    setattr(module, name, wrapper)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
+
+
+def ragged_full_check(torch, de, st, sizes):
+    """One full-size ragged step (~1% bad ids), each ragged kernel held
+    to its plain version on the inputs the step gave it: K10's splits
+    (forward and backward), K8's output and K9's stream bit-exact, and the touched slab rows against the plain
+    scatter of K9's stream (rows one id hit bit-exact; a row k ids hit
+    within k fp32 ulps of |old| + the sum of |lr x update|: both add in
+    an atomic order of the card's choosing). Then the same batch with
+    three features as ``SparseIds`` must give a bitwise-equal forward."""
+    from distributed_embeddings_torch.ops import (
+        lengths_to_splits_plain, ragged_combine_plain, ragged_grad_plain,
+        row_to_split, sgd_scatter_plain)
+    from distributed_embeddings_torch.parallel import (
+        SGD, SparseSGD, apply, lookup, make_hybrid_train_step)
+
+    slab = st.emb_params["w128"][0]
+    nrows = slab.shape[0]
+
+    class RecordingSGD(SparseSGD):
+        """SparseSGD that keeps its stream and snapshots the rows it
+        touches first."""
+
+        def apply_rows(self, slab, state, ids, vals, lr):
+            gid = ids.long()
+            uniq = torch.unique(gid[(gid >= 0) & (gid < nrows)])
+            self.seen = dict(ids=ids, vals=vals, lr=lr, uniq=uniq,
+                             before=slab[uniq].clone())
+            return super().apply_rows(slab, state, ids, vals, lr)
+
+    rec = RecordingSGD()
+    step = make_hybrid_train_step(de, loss_fn, SGD(TRAIN_LR), rec,
+                                  lr_schedule=TRAIN_LR, nan_guard=True)
+    (cats, batch), = ragged_batches(torch, sizes, TRAIN_BATCH, 1,
+                                    SEED + 90, bad_ids=True)[0]
+    errs = {}
+
+    def k8_check(args, kw, out):
+        # now, before the step's update changes the slab the plain
+        # version would read
+        errs["ragged_combine"] = exact(torch, out, ragged_combine_plain(
+            *args, **kw), "ragged_combine full-size")
+
+    def k10_check(args, kw, out):
+        errs["csr"] = max(errs.get("csr", 0.0), exact(
+            torch, out, lengths_to_splits_plain(*args, **kw),
+            "lengths_to_splits full-size"))
+
+    zero_counts()
+    with record_calls(lookup, "ragged_combine", keep_out=False,
+                      on_call=k8_check) as k8, \
+            record_calls(lookup, "lengths_to_splits", keep_out=False,
+                         on_call=k10_check) as k10f, \
+            record_calls(apply, "lengths_to_splits", keep_out=False,
+                         on_call=k10_check) as k10b, \
+            record_calls(apply, "ragged_grad") as k9:
+        loss, st = step(st, cats, batch)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(counts == ragged_per_step(1), f"ragged full-size step: launches "
+          f"{counts}, expected {ragged_per_step(1)}")
+    check(bool(torch.isfinite(loss)), f"ragged full-size step: loss "
+          f"{float(loss)}")
+    check(len(k8) == 1 and "ragged_combine" in errs, "ragged full-size "
+          "step: K8 was not checked")
+    check(len(k10f) == len(k10b) == 1 and "csr" in errs, "ragged "
+          "full-size step: K10 (lengths_to_splits) was not checked in the "
+          "forward and the backward")
+    del k8[:]
+    (args, kw, (ids, vals)), = k9
+    n = args[0].shape[0]
+    err = 0.0
+    for s in range(n):  # slot by slot: the plain version's float32 rows
+        one = {k: (v[s:s + 1] if isinstance(v, torch.Tensor) and v.dim()
+                   and v.shape[0] == n else v) for k, v in kw.items()}
+        pi, pv = ragged_grad_plain(args[0][s:s + 1], args[1][s:s + 1], **one)
+        exact(torch, ids[s:s + 1], pi, f"ragged_grad ids, slot {s}")
+        err = max(err, exact(torch, vals[s:s + 1], pv,
+                             f"ragged_grad rows, slot {s}"))
+    errs["ragged_grad"] = err
+    cap = ids.shape[1]
+    del k9[:], ids, vals, args, kw
+    # K3: the touched rows against the plain scatter of the same stream,
+    # in chunks of the stream
+    r = rec.seen
+    want = r["before"].clone()
+    mag = r["before"].float().abs()
+    hits = torch.zeros(len(r["uniq"]), device="cuda")
+    chunk = 1 << 22
+    for lo in range(0, r["ids"].numel(), chunk):
+        gid = r["ids"][lo:lo + chunk].long()
+        keep = (gid >= 0) & (gid < nrows)
+        pos = torch.searchsorted(r["uniq"], gid[keep])
+        v = r["vals"][lo:lo + chunk][keep]
+        sgd_scatter_plain(want, pos, v, r["lr"])
+        mag.index_add_(0, pos, v.float().abs() * TRAIN_LR)
+        hits.index_add_(0, pos, torch.ones_like(pos, dtype=torch.float32))
+    got = slab[r["uniq"]]
+    e = (got - want).abs()
+    once = int(torch.count_nonzero(e[hits == 1]))
+    multi = int(torch.count_nonzero(
+        e > hits[:, None] * ulp(torch, mag, torch.float32)))
+    check(once == 0 and multi == 0, f"ragged full-size step: {once} values "
+          f"of rows hit once differ from the plain scatter, {multi} beyond "
+          f"k fp32 ulps (max err {float(e.max())})")
+    errs["sgd_scatter"] = float(e.max())
+    changed = int(torch.count_nonzero((got != r["before"]).any(1)))
+    log(f"ragged: full-size step at b={TRAIN_BATCH}, cap {cap}: loss "
+        f"{float(loss):.5f}; {r['ids'].numel()} stream positions, "
+        f"{len(r['uniq'])} touched rows ({int((hits > 1).sum())} hit more "
+        f"than once, {changed} changed); vs plain on the step's inputs: "
+        f"lengths_to_splits (forward and backward), ragged_combine and "
+        f"ragged_grad bit-exact, sgd_scatter max_abs_err "
+        f"{errs['sgd_scatter']} (rows hit once bit-exact, k hits within k "
+        "fp32 ulps)")
+    del rec.seen, r, want, mag, got, e
+    # the same ids with three features as SparseIds: row_to_split (K10)
+    mixed = [as_sparse_ids(torch, c, TRAIN_BATCH) if t in SPARSE_FEATURES
+             else c for t, c in enumerate(cats)]
+    zero_counts()
+    with torch.no_grad():
+        a = de(st.emb_params, cats)
+        s = de(st.emb_params, mixed)
+    torch.cuda.synchronize()
+    check(row_to_split.launches == len(SPARSE_FEATURES),
+          f"SparseIds forward: row_to_split launched "
+          f"{row_to_split.launches} times")
+    check(all(torch.equal(x, y) for x, y in zip(a, s)), "SparseIds forward "
+          "differs from its Ragged twin")
+    log(f"ragged: features {SPARSE_FEATURES} as SparseIds give a bitwise-"
+        f"equal forward ({row_to_split.launches} row_to_split launches)")
+    return st, errs, cats
+
+
+def ragged_nan_check(torch, de, st, sizes):
+    from distributed_embeddings_torch.parallel import (
+        SGD, SparseSGD, make_hybrid_train_step)
+
+    slab = st.emb_params["w128"][0]
+    step = make_hybrid_train_step(de, loss_fn, SGD(TRAIN_LR), SparseSGD(),
+                                  lr_schedule=TRAIN_LR, nan_guard=True)
+    (cats, batch), = ragged_batches(torch, sizes, TRAIN_BATCH, 1,
+                                    SEED + 91, bad_ids=True, nan=True)[0]
+    touched = torch.unique(ragged_rows(torch, de, cats, sizes))
+    before = slab[touched].clone()
+    dense_before = [p.detach().clone() for p in st.dense_params.parameters()]
+    step_before = int(st.step)
+    loss, st = step(st, cats, batch)
+    torch.cuda.synchronize()
+    check(not bool(torch.isfinite(loss)), "ragged NaN batch: loss is finite")
+    check(torch.equal(slab[touched], before), "ragged NaN batch: slab rows "
+          "changed")
+    check(all(torch.equal(p, q) for p, q in zip(
+        st.dense_params.parameters(), dense_before)),
+        "ragged NaN batch: dense params changed")
+    check(int(st.step) == step_before + 1, "ragged NaN batch: step did not "
+          "advance")
+    log(f"ragged: NaN batch skipped, {len(touched)} touched rows and the "
+        f"dense params bitwise unchanged, step {step_before} -> "
+        f"{int(st.step)}")
+    return st
+
+
+def ragged_timed(torch, de, st, batches):
+    """3 warmup + 20 timed steps cycling over the pre-staged batches,
+    launch counters zeroed just before and read just after, then the
+    step's stages one by one for a split."""
+    from distributed_embeddings_torch.parallel import (
+        SGD, SparseSGD, make_hybrid_train_step)
+    from distributed_embeddings_torch.parallel import apply as apply_mod
+
+    step = make_hybrid_train_step(de, loss_fn, SGD(TRAIN_LR), SparseSGD(),
+                                  lr_schedule=TRAIN_LR, nan_guard=True)
+    for k in range(WARMUP_RUNS):
+        _, st = step(st, *batches[k % len(batches)])
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    losses, times = [], []
+    for k in range(TRAIN_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss, st = step(st, *batches[k % len(batches)])
+        end.record()
+        losses.append(loss)
+        times.append((start, end))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    losses = torch.stack(losses).float().cpu().numpy()
+    check(np.isfinite(losses).all(), f"ragged: non-finite loss {losses}")
+    want = ragged_per_step(1)
+    for name, n in launches.items():
+        check(n == want[name] * TRAIN_STEPS, f"ragged: {name} launched {n} "
+              f"times in {TRAIN_STEPS} steps (expected {want[name]} a step)")
+    step_ms = [s.elapsed_time(e) for s, e in times]
+
+    names = ["embedding_forward", "dense_forward_backward", "nan_guard",
+             "cotangent_streams", "sparse_apply", "dense_update"]
+    stage_ms = {n: [] for n in names}
+    params = list(st.dense_params.parameters())
+    local = de.local_view(st.emb_params)
+    for k in range(WARMUP_RUNS + 10):
+        cats, batch = batches[k % len(batches)]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+        ev[0].record()
+        with torch.no_grad():
+            outs, res = de.forward_with_residuals(st.emb_params, cats)
+        ev[1].record()
+        outs = [o.detach().requires_grad_() for o in outs]
+        loss = loss_fn(st.dense_params, outs, batch)
+        grads = torch.autograd.grad(loss, params + outs)
+        ev[2].record()
+        out_grads = list(grads[len(params):])
+        ok = torch.isfinite(loss) & torch.isfinite(sum(
+            g.float().square().sum() for g in grads))
+        ev[3].record()
+        per_width = apply_mod.cotangent_width_streams(de, res, out_grads)
+        ev[4].record()
+        apply_mod.apply_width_streams(de, local, st.emb_opt_state,
+                                      per_width, SparseSGD(), TRAIN_LR, 1.0,
+                                      enable=ok)
+        ev[5].record()
+        with torch.no_grad():
+            for p, g in zip(params, grads[:len(params)]):
+                p.copy_(torch.where(ok, p + g * -TRAIN_LR, p))
+        ev[6].record()
+        del per_width, grads, outs, res
+        torch.cuda.synchronize()
+        if k >= WARMUP_RUNS:
+            for i, name in enumerate(names):
+                stage_ms[name].append(ev[i].elapsed_time(ev[i + 1]))
+    stages = {n: float(np.median(v)) for n, v in stage_ms.items()}
+    b = batches[0][1][0].shape[0]
+    result = {
+        "batch": b, "steps": TRAIN_STEPS,
+        "samples_per_s": TRAIN_STEPS * b / wall,
+        "wall_step_ms": wall / TRAIN_STEPS * 1e3,
+        "step_ms_p50": float(np.median(step_ms)),
+        "step_ms_min": float(np.min(step_ms)),
+        "stage_ms_p50": stages,
+        "launches_per_step": {n: v / TRAIN_STEPS
+                              for n, v in launches.items()},
+        "loss_first": float(losses[0]), "loss_last": float(losses[-1])}
+    log("ragged timed: " + json.dumps(result))
+    return st, launches, result
+
+
+def ragged_kernel_times(torch, de, st, batches):
+    """CUDA-event medians of K8, K9 and K10 at the shapes the full-size
+    step gives them (recorded from the step itself, one set per
+    pre-staged batch), and of K3 on one step's ragged stream, each
+    against its plain version, one library call for the same function,
+    and its byte bound: each input read once, each output written once,
+    each distinct slab row read (and, for K3, written) once."""
+    import torch.nn.functional as F
+    from distributed_embeddings_torch.ops import (
+        lengths_to_splits, lengths_to_splits_plain, ragged_combine,
+        ragged_combine_plain, ragged_grad, ragged_grad_plain,
+        ragged_row_ids_plain, row_to_split, row_to_split_plain, sgd_scatter,
+        sgd_scatter_plain)
+    from distributed_embeddings_torch.parallel import apply, lookup
+
+    slab = st.emb_params["w128"][0]
+    w = slab.shape[1]
+    k8, k9, k10 = [], [], []
+    stream = None
+    for cats, batch in batches:
+        with record_calls(lookup, "ragged_combine", keep_out=False) as c8, \
+                record_calls(lookup, "lengths_to_splits",
+                             keep_out=False) as c10, \
+                torch.no_grad():
+            outs, res = de.forward_with_residuals(st.emb_params, cats)
+        grads = [torch.randn_like(o) * 1e-3 for o in outs]
+        with record_calls(apply, "ragged_grad", keep_out=False) as c9:
+            per_width = apply.cotangent_width_streams(de, res, grads)
+        if stream is None:  # K3's input: one step's (ids, rows)
+            ids, vals, _ = per_width["w128"][0]
+            stream = (ids.reshape(-1), vals.reshape(-1, w))
+        del per_width
+        k8 += c8
+        k9 += c9
+        k10 += c10
+    n, cap = k8[0][0][1].shape
+    b = k8[0][0][2].shape[1] - 1
+    cases = {}
+
+    # K8 --------------------------------------------------------------
+    args8 = [(a, kw) for a, kw, _ in k8]
+    lib8 = []
+    uniq8 = []
+    for (_, values, splits, rows, roff), _ in args8:
+        ends = splits[:, -1].clamp(max=cap)
+        live = torch.arange(cap, device="cuda")[None, :] < ends[:, None]
+        grow = (torch.minimum(values.long().clamp(min=0), rows[:, None] - 1)
+                + roff[:, None])[live]
+        base = torch.cumsum(ends, 0) - ends
+        offsets = (splits[:, :-1].clamp(max=cap) + base[:, None]).reshape(-1)
+        lib8.append((grow, offsets))
+        uniq8.append(int(torch.unique(grow).numel()))
+    fn8 = lambda a, kw: ragged_combine(*a, **kw)  # noqa: E731
+    ms = time_ms(torch, fn8, args8)
+    plain = time_ms(torch, lambda a, kw: ragged_combine_plain(*a, **kw),
+                    args8)
+    lib = time_ms(torch, lambda g, o: F.embedding_bag(g, slab, o,
+                                                      mode="sum"), lib8)
+    live_ids = int(lib8[0][0].numel())
+    nbytes = (live_ids * 4 + n * (b + 1) * 8 + uniq8[0] * w * 4
+              + n * b * w * 2)
+    cases["ragged_combine"] = dict(
+        case=f"{n}x{b} rows, cap {cap}", ms=ms, plain_ms=plain,
+        library_ms=lib, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+        bound_by="bytes", unique_rows=uniq8[0], ids=live_ids, bytes=nbytes)
+
+    # K9 --------------------------------------------------------------
+    args9 = [(a, kw) for a, kw, _ in k9]
+    lib9 = []
+    for a, kw in args9:
+        g, splits = a[0], a[1]
+        seg = ragged_row_ids_plain(splits, cap).long()
+        sidx = (torch.arange(n, device="cuda")[:, None] * (b + 1)
+                + seg).reshape(-1)
+        gpad = torch.cat([g, torch.zeros((n, 1, w), dtype=g.dtype,
+                                         device="cuda")], 1).reshape(-1, w)
+        lib9.append((gpad, sidx))
+    ms = time_ms(torch, lambda a, kw: ragged_grad(*a, **kw), args9)
+    plain = time_ms(torch, lambda a, kw: ragged_grad_plain(*a, **kw),
+                    args9)
+    lib = time_ms(torch, lambda g, i: torch.index_select(g, 0, i), lib9)
+    esize = args9[0][0][0].element_size()
+    nbytes = (n * b * w * esize + live_ids * 4 + n * (b + 1) * 8
+              + n * cap * (4 + w * esize))
+    cases["ragged_grad"] = dict(
+        case=f"{n}x{cap} positions", ms=ms, plain_ms=plain, library_ms=lib,
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        positions=n * cap, bytes=nbytes)
+    del lib9
+
+    # K10 -------------------------------------------------------------
+    args10 = [(a, kw) for a, kw, _ in k10]
+    ms = time_ms(torch, lambda a, kw: lengths_to_splits(*a, **kw), args10)
+    plain = time_ms(torch, lambda a, kw: lengths_to_splits_plain(*a, **kw),
+                    args10)
+    lib = time_ms(torch, lambda a, kw: torch.cumsum(a[0], 1), args10)
+    nbytes = n * b * args10[0][0][0].element_size() + n * (b + 1) * 8
+    csr = [dict(case=f"lengths_to_splits {n}x{b}", ms=ms, plain_ms=plain,
+                library_ms=lib, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                bound_by="bytes", bytes=nbytes)]
+    coo = [as_sparse_ids(torch, cats[0], b).indices for cats, _ in batches]
+    ms = time_ms(torch, lambda i: row_to_split(i, b), [(i,) for i in coo])
+    plain = time_ms(torch, lambda i: row_to_split_plain(i, b),
+                    [(i,) for i in coo])
+    targets = torch.arange(b + 1, dtype=torch.int32, device="cuda")
+    rows = [(i[:, 0].contiguous(),) for i in coo]
+    lib = time_ms(torch, lambda r: torch.searchsorted(r, targets), rows)
+    nbytes = coo[0].shape[0] * 4 + (b + 1) * 4
+    csr.append(dict(case=f"row_to_split {coo[0].shape[0]} ids", ms=ms,
+                    plain_ms=plain, library_ms=lib,
+                    bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                    bound_by="bytes", bytes=nbytes))
+    cases["csr"] = csr
+
+    # K3 on the ragged stream: 26.5M positions, ~19 ids per distinct row
+    ids, vals = stream
+    rows = slab.shape[0]
+
+    def k3_plain(i, v):
+        for lo in range(0, i.numel(), 1 << 22):  # chunks: float32 copies
+            sgd_scatter_plain(slab, i[lo:lo + (1 << 22)],
+                              v[lo:lo + (1 << 22)], TRAIN_LR)
+
+    keep = ids < rows
+    uniq = int(torch.unique(ids[keep]).numel())
+    ms = time_ms(torch, lambda i, v: sgd_scatter(slab, i, v, TRAIN_LR),
+                 [stream])
+    plain = time_ms(torch, k3_plain, [stream])
+    nl = torch.tensor(-TRAIN_LR, dtype=torch.float32, device="cuda")
+    lib_args = [(ids[keep].long(), vals[keep].float() * nl)]
+    del keep
+    lib = time_ms(torch, lambda i, u: slab.index_add_(0, i, u), lib_args)
+    del lib_args
+    n3 = ids.numel()
+    nbytes = n3 * w * vals.element_size() + n3 * 4 + 2 * uniq * w * 4
+    cases["sgd_scatter"] = dict(
+        case=f"ragged b65536 stream ({n3} positions)", ms=ms,
+        plain_ms=plain, library_ms=lib,
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        unique_rows=uniq, ids=n3, bytes=nbytes)
+    del stream, ids, vals
+    for name in ("ragged_combine", "ragged_grad", "sgd_scatter"):
+        c = cases[name]
+        log(f"time {name} {c['case']}: kernel {c['ms']:.4f} ms, plain "
+            f"{c['plain_ms']:.4f}, library {c['library_ms']:.4f}, bound "
+            f"{c['bound_ms']:.4f}")
+    for c in csr:
+        log(f"time csr {c['case']}: kernel {c['ms']:.4f} ms, plain "
+            f"{c['plain_ms']:.4f}, library {c['library_ms']:.4f}, bound "
+            f"{c['bound_ms']:.4f}")
+    return cases
+
+
+def phase_ragged(torch):
+    """The multi-hot ragged DLRM (``bench.py`` ``multihot_ragged``): the
+    capped Criteo-Kaggle tables in fp32, 26 ragged features of U{1..30}
+    Zipfian ids a row, bf16 compute, ``SparseSGD`` + SGD at lr 0.005,
+    batch 65536, on K10 (lengths -> splits), K8, K2/K4, K9 and K3."""
+    t_phase = time.perf_counter()
+    errs = ragged_kernel_checks(torch)
+    log("ragged: small-table check, kernels against plain versions")
+    for dtype in (torch.float32, torch.bfloat16):
+        ragged_small_check(torch, dtype)
+    torch.cuda.empty_cache()
+
+    sizes = ragged_sizes()
+    t0 = time.perf_counter()
+    de, st = ragged_model(torch, sizes, torch.float32, SEED + 85)
+    torch.cuda.synchronize()
+    slab = st.emb_params["w128"]
+    check(tuple(slab.shape) == (1, sum(sizes), 128),
+          f"ragged slab shape {tuple(slab.shape)}")
+    log(f"ragged: capped Criteo-Kaggle DLRM, slab {tuple(slab.shape)} fp32 "
+        f"= {slab.numel() * 4 / 1e9:.2f} GB, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    st, full_errs, _ = ragged_full_check(torch, de, st, sizes)
+    for k, v in full_errs.items():
+        errs[k] = max(errs.get(k, 0.0), v)
+    st = ragged_nan_check(torch, de, st, sizes)
+    t0 = time.perf_counter()
+    batches, cap = ragged_batches(torch, sizes, TRAIN_BATCH, RAGGED_BATCHES,
+                                  SEED + 92)
+    nnz = [int(c.row_splits[-1]) for c in batches[0][0]]
+    distinct = torch.unique(ragged_rows(torch, de, batches[0][0], sizes))
+    log(f"ragged: {RAGGED_BATCHES} batches of {TRAIN_BATCH} made on the "
+        f"card in {time.perf_counter() - t0:.1f} s; cap {cap}, ids a step "
+        f"{sum(nnz)} (largest feature {max(nnz)}), distinct slab rows "
+        f"{distinct.numel()}")
+    result_data = {"cap": cap, "ids_per_step": sum(nnz),
+                   "largest_feature": max(nnz),
+                   "distinct_rows": int(distinct.numel())}
+    del distinct
+    st, launches, result = ragged_timed(torch, de, st, batches)
+    result.update(result_data)
+    cases = ragged_kernel_times(torch, de, st, batches)
+    result["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    result["phase_s"] = time.perf_counter() - t_phase
+    log(f"ragged: phase done in {result['phase_s']:.1f} s, peak memory "
+        f"{result['peak_memory_gb']:.1f} GB")
+    del st, de, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, errs, cases, result
+
+
 def main():
     try:
         import torch
@@ -1760,7 +2661,49 @@ def main():
             "shape": c["case"], "cases": [c]})
     log("zoo: " + json.dumps(zoo))
     log(f"zoo peak memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB, "
-        f"total {time.perf_counter() - t_start:.1f} s")
+        f"{time.perf_counter() - t_start:.1f} s so far")
+    torch.cuda.reset_peak_memory_stats()
+    ragged_launches, ragged_errs, ragged_cases, ragged = phase_ragged(torch)
+    launches["ragged"] = ragged_launches
+    for k in kernels:
+        k["launches_by_path"]["ragged"] = ragged_launches[k["name"]]
+        k["max_abs_err"] = max(k["max_abs_err"],
+                               ragged_errs.get(k["name"], 0.0))
+        if k["name"] == "sgd_scatter":
+            k["cases"].append(ragged_cases["sgd_scatter"])
+    csr_names = ("lengths_to_splits", "row_to_split", "ragged_row_ids")
+    for name, src, repl, names in (
+            ("ragged_combine", "ragged_combine.cu",
+             "distributed_embeddings_tpu/ops/embedding_lookup.py:156",
+             ("ragged_combine",)),
+            ("ragged_grad", "ragged_grad.cu",
+             "distributed_embeddings_tpu/parallel/apply.py:222",
+             ("ragged_grad",)),
+            ("csr", "csr.cu",
+             "distributed_embeddings_tpu/parallel/lookup.py:38", csr_names)):
+        cases = ragged_cases[name]
+        cases = cases if isinstance(cases, list) else [cases]
+        c = cases[0]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"distributed_embeddings_torch/csrc/{src}",
+            "replaces": repl,
+            "launches": sum(ragged_launches[n] for n in names),
+            "launches_by_path": {p: sum(launches[p][n] for n in names)
+                                 for p in launches},
+            "max_abs_err": ragged_errs[name], "ms": c["ms"],
+            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+            "shape": c["case"], "cases": cases})
+    kernels[-1]["entry_points"] = {
+        "lengths_to_splits": "distributed_embeddings_tpu/parallel/"
+                             "lookup.py:38",
+        "row_to_split": "distributed_embeddings_tpu/ops/"
+                        "embedding_lookup.py:116",
+        "ragged_row_ids": "distributed_embeddings_tpu/ops/"
+                          "embedding_lookup.py:131"}
+    log("ragged: " + json.dumps(ragged))
+    log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,17 +3,27 @@
 from .adagrad import (adagrad_dense, adagrad_dense_plain, adagrad_rows,
                       adagrad_rows_plain)
 from .embedding_lookup import (Ragged, SparseIds, embedding_lookup,
-                               gather_combine, gather_combine_plain)
+                               gather_combine, gather_combine_plain,
+                               lengths_to_splits, lengths_to_splits_plain,
+                               ragged_combine, ragged_combine_plain,
+                               ragged_row_ids, ragged_row_ids_plain,
+                               row_to_split, row_to_split_plain)
 from .interaction import (DotInteract, dot_interact_bwd,
                           dot_interact_bwd_plain, dot_interact_fwd,
                           dot_interact_fwd_plain)
 from .scatter_add import sgd_scatter, sgd_scatter_plain
-from .sparse_grad import dedup_sparse_grad, dedup_sparse_grad_plain
+from .sparse_grad import (combiner_grad_values, dedup_sparse_grad,
+                          dedup_sparse_grad_plain, ragged_grad,
+                          ragged_grad_plain)
 
 __all__ = ["Ragged", "SparseIds", "embedding_lookup", "gather_combine",
-           "gather_combine_plain", "dot_interact_fwd",
+           "gather_combine_plain", "lengths_to_splits",
+           "lengths_to_splits_plain", "row_to_split", "row_to_split_plain",
+           "ragged_row_ids", "ragged_row_ids_plain", "ragged_combine",
+           "ragged_combine_plain", "dot_interact_fwd",
            "dot_interact_fwd_plain", "dot_interact_bwd",
            "dot_interact_bwd_plain", "DotInteract", "sgd_scatter",
            "sgd_scatter_plain", "dedup_sparse_grad",
-           "dedup_sparse_grad_plain", "adagrad_rows", "adagrad_rows_plain",
+           "dedup_sparse_grad_plain", "ragged_grad", "ragged_grad_plain",
+           "combiner_grad_values", "adagrad_rows", "adagrad_rows_plain",
            "adagrad_dense", "adagrad_dense_plain"]

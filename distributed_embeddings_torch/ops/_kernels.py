@@ -73,6 +73,32 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "detpu_adagrad_dense": (_P, _I, _P, _I, _P, _I64, ctypes.c_float,
                                 _P, ctypes.c_float, _P),
     },
+    "csr": {
+        # lengths, len_is_64, slot_stride, n_slots, b, valid, splits,
+        # stream
+        "detpu_lengths_to_splits": (_P, _I, _I64, _I, _I64, _P, _P, _P),
+        # rows, rows_is_64, stride, nnz, dim0, splits, out_is_64, stream
+        "detpu_row_to_split": (_P, _I, _I64, _I64, _I64, _P, _I, _P),
+        # splits, is_64, n_slots, nrows, cap, out, stream
+        "detpu_ragged_row_ids": (_P, _I, _I, _I64, _I64, _P, _P),
+    },
+    "ragged_combine": {
+        # slab, slab_rows, width, dtype, values, ids_is_64, v_stride,
+        # splits, rows, roff, mean, mask, weights, w_esize, w_stride, out,
+        # out_dtype, n_slots, b, cap, stream
+        "detpu_ragged_combine": (_P, _I64, _I, _I, _P, _I, _I64, _P, _P,
+                                 _P, _P, _P, _P, _I, _I64, _P, _I, _I,
+                                 _I64, _I64, _P),
+    },
+    "ragged_grad": {
+        # g, g_slot_stride, g_row_stride, width, dtype, splits, values,
+        # ids_in_64, v_stride, rows, roff, sentinel, ids_out, ids_out_64,
+        # mean, reciprocal, weights, w_esize, w_stride, vals_out, n_slots,
+        # b, cap, stream
+        "detpu_ragged_grad": (_P, _I64, _I64, _I, _I, _P, _P, _I, _I64, _P,
+                              _P, _I64, _P, _I, _P, _I, _P, _I, _I64, _P,
+                              _I, _I64, _I64, _P),
+    },
 }
 
 #: return type of the exported functions that return no ``cudaError_t``

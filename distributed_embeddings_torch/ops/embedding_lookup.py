@@ -1,12 +1,14 @@
 """Functional embedding lookup (counterpart of
 ``distributed_embeddings_tpu/ops/embedding_lookup.py``).
 
-This slice carries the DENSE branch: ``combiner=None`` gathers, and
-``sum``/``mean`` over a ``[batch, hotness]`` id block with optional
-per-id weights, all on the hand-written gather kernel
-:func:`gather_combine` (K1, ``csrc/gather_combine.cu``). The
-:class:`Ragged` and :class:`SparseIds` containers are ported; lookups
-over them (the CSR gather-combine) are ROADMAP queue B5 and raise here.
+The DENSE branch (``combiner=None`` gathers, and ``sum``/``mean`` over a
+``[batch, hotness]`` id block with optional per-id weights) runs on the
+hand-written gather kernel :func:`gather_combine` (K1,
+``csrc/gather_combine.cu``). The :class:`Ragged` branch, and the
+:class:`SparseIds` branch through :func:`row_to_split`, run on the CSR
+gather-combine :func:`ragged_combine` (K8, ``csrc/ragged_combine.cu``).
+The CSR bookkeeping (:func:`row_to_split`, :func:`ragged_row_ids` and
+the per-slot :func:`lengths_to_splits`) runs on K10 (``csrc/csr.cu``).
 
 Out-of-range ids CLIP, as the JAX gather's ``mode="clip"`` does: a
 negative id reads row 0 and an id past the table its last row
@@ -22,9 +24,6 @@ import numpy as np
 import torch
 
 from . import _kernels
-
-_RAGGED_TODO = ("ragged / sparse lookups (the CSR gather-combine) are not "
-                "ported yet: ROADMAP queue B5")
 
 
 @dataclasses.dataclass
@@ -184,6 +183,331 @@ def _expect(t: torch.Tensor, dtypes, shape, device, what: str) -> None:
             f"{tuple(t.shape)} on {t.device}")
 
 
+def _expect_rows(t: torch.Tensor, dtypes, n: int, device,
+                 what: str) -> None:
+    """``t`` is ``[n, k]`` of one of ``dtypes`` on ``device`` with unit
+    element stride (rows may be strided: a view into an id block)."""
+    if t.dtype not in dtypes or t.dim() != 2 or t.shape[0] != n \
+            or t.device != device or (t.shape[1] > 1 and t.stride(1) != 1):
+        raise ValueError(
+            f"{what}: expected an [{n}, k] tensor of unit element stride "
+            f"of {[str(d) for d in dtypes]} on {device}, got {t.dtype} "
+            f"{tuple(t.shape)} strides {t.stride()} on {t.device}")
+
+
+_INT = (torch.int32, torch.int64)
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# ------------------------------------------------------------ K10: CSR
+
+
+def lengths_to_splits_plain(lengths: torch.Tensor,
+                            valid: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """Plain PyTorch version of :func:`lengths_to_splits`."""
+    n, b = lengths.shape
+    ln = lengths.long()
+    if valid is not None:
+        ln = ln * (valid != 0).long()[:, None]
+    splits = torch.zeros((n, b + 1), dtype=torch.int64,
+                         device=lengths.device)
+    torch.cumsum(ln, dim=1, out=splits[:, 1:])
+    return splits
+
+
+def lengths_to_splits(lengths: torch.Tensor,
+                      valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K10: per-slot CSR offsets ``[n, b + 1]`` (int64, starting at 0)
+    from row lengths ``[n, b]`` (int32/int64, rows may be a strided view
+    into an id block), the ``splits`` half of
+    ``parallel/lookup.py:csr_seg``. ``valid`` (``[n]`` int32): a slot
+    whose flag is 0 gets zero lengths.
+
+    A CPU tensor runs :func:`lengths_to_splits_plain`; a CUDA tensor
+    launches the kernel (``csrc/csr.cu``) or raises."""
+    if lengths.dim() != 2:
+        raise ValueError(f"lengths must be [n, b], got "
+                         f"{tuple(lengths.shape)}")
+    if lengths.device.type == "cpu":
+        return lengths_to_splits_plain(lengths, valid)
+    if lengths.device.type != "cuda":
+        raise ValueError(f"unsupported device {lengths.device}")
+    n, b = lengths.shape
+    _expect_rows(lengths, _INT, n, lengths.device, "lengths")
+    if valid is not None:
+        _expect(valid, (torch.int32,), (n,), lengths.device, "valid")
+    splits = torch.empty((n, b + 1), dtype=torch.int64,
+                         device=lengths.device)
+    if n == 0:
+        return splits
+    lib = _kernels.library("csr")
+    err = lib.detpu_lengths_to_splits(
+        lengths.data_ptr(), int(lengths.dtype == torch.int64),
+        lengths.stride(0) if n > 1 else b, n, b,
+        None if valid is None else valid.data_ptr(), splits.data_ptr(),
+        _stream(lengths))
+    _kernels.check(lib, err, "lengths_to_splits")
+    lengths_to_splits.launches += 1
+    return splits
+
+
+lengths_to_splits.launches = 0
+
+
+def row_to_split_plain(indices: torch.Tensor, dim_0: int,
+                       dtype=None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`row_to_split`
+    (``torch.searchsorted``)."""
+    rows = (indices[:, 0] if indices.dim() == 2 else indices).contiguous()
+    targets = torch.arange(dim_0 + 1, dtype=rows.dtype, device=rows.device)
+    out = torch.searchsorted(rows, targets, side="left")
+    return out.to(rows.dtype if dtype is None else dtype)
+
+
+def row_to_split(indices: torch.Tensor, dim_0: int,
+                 dtype=None) -> torch.Tensor:
+    """K10: COO row ids (``[nnz, 2]`` indices or ``[nnz]`` rows,
+    ascending) -> CSR ``row_splits [dim_0 + 1]``: ``row_splits[t]`` is
+    the number of entries whose row is below ``t``, so padding rows
+    (``>= dim_0``) fall past the end. ``dtype`` defaults to the rows'.
+
+    A CPU tensor runs :func:`row_to_split_plain`; a CUDA tensor launches
+    the kernel (``csrc/csr.cu``) or raises."""
+    if indices.dim() not in (1, 2) or (indices.dim() == 2
+                                       and indices.shape[1] != 2):
+        raise ValueError(f"indices must be [nnz] or [nnz, 2], got "
+                         f"{tuple(indices.shape)}")
+    if indices.device.type == "cpu":
+        return row_to_split_plain(indices, dim_0, dtype)
+    if indices.device.type != "cuda":
+        raise ValueError(f"unsupported device {indices.device}")
+    if indices.dtype not in _INT or not indices.is_contiguous():
+        raise ValueError(f"indices: expected a contiguous int32/int64 "
+                         f"tensor, got {indices.dtype} strides "
+                         f"{indices.stride()}")
+    out_dt = indices.dtype if dtype is None else dtype
+    if out_dt not in _INT:
+        raise ValueError(f"row_to_split: dtype {out_dt} is not int32/int64")
+    splits = torch.empty((int(dim_0) + 1,), dtype=out_dt,
+                         device=indices.device)
+    lib = _kernels.library("csr")
+    err = lib.detpu_row_to_split(
+        indices.data_ptr(), int(indices.dtype == torch.int64),
+        indices.dim(), indices.shape[0], int(dim_0), splits.data_ptr(),
+        int(out_dt == torch.int64), _stream(indices))
+    _kernels.check(lib, err, "row_to_split")
+    row_to_split.launches += 1
+    return splits
+
+
+row_to_split.launches = 0
+
+
+def ragged_row_ids_plain(row_splits: torch.Tensor,
+                         capacity: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`ragged_row_ids`: the JAX marks +
+    cumsum form, over any leading dims."""
+    lead = row_splits.shape[:-1]
+    sp = row_splits.reshape(-1, row_splits.shape[-1])
+    ends = sp[:, 1:].long().clamp(0, capacity)
+    marks = torch.zeros((sp.shape[0], capacity + 1), dtype=torch.int64,
+                        device=sp.device)
+    marks.scatter_add_(1, ends, torch.ones_like(ends))
+    seg = torch.cumsum(marks[:, :capacity], dim=1).to(row_splits.dtype)
+    return seg.reshape(*lead, capacity)
+
+
+def ragged_row_ids(row_splits: torch.Tensor, capacity: int) -> torch.Tensor:
+    """K10: the row of every value position of a CSR batch:
+    ``row_splits [..., nrows + 1]`` -> ``[..., capacity]``, position
+    ``p`` getting the number of rows whose end (clipped to
+    ``[0, capacity]``) is at or before ``p``; positions past the last
+    row get ``nrows``. In the splits' dtype.
+
+    A CPU tensor runs :func:`ragged_row_ids_plain`; a CUDA tensor
+    launches the kernel (``csrc/csr.cu``, one binary search per
+    position; splits must not decrease) or raises."""
+    if row_splits.device.type == "cpu":
+        return ragged_row_ids_plain(row_splits, capacity)
+    if row_splits.device.type != "cuda":
+        raise ValueError(f"unsupported device {row_splits.device}")
+    if row_splits.dtype not in _INT or row_splits.dim() < 1 \
+            or not row_splits.is_contiguous():
+        raise ValueError(f"row_splits: expected a contiguous int32/int64 "
+                         f"tensor, got {row_splits.dtype} "
+                         f"{tuple(row_splits.shape)}")
+    lead = row_splits.shape[:-1]
+    nrows = row_splits.shape[-1] - 1
+    n = int(np.prod(lead, dtype=np.int64)) if lead else 1
+    out = torch.empty((*lead, int(capacity)), dtype=row_splits.dtype,
+                      device=row_splits.device)
+    lib = _kernels.library("csr")
+    err = lib.detpu_ragged_row_ids(
+        row_splits.data_ptr(), int(row_splits.dtype == torch.int64), n,
+        nrows, int(capacity), out.data_ptr(), _stream(row_splits))
+    _kernels.check(lib, err, "ragged_row_ids")
+    ragged_row_ids.launches += 1
+    return out
+
+
+ragged_row_ids.launches = 0
+
+
+# ----------------------------------------------- K8: ragged gather-combine
+
+
+def _rnd(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """float32 ``x`` rounded to ``dtype`` (and back to float32)."""
+    return x if dtype == torch.float32 else x.to(dtype).float()
+
+
+def weight_floats(weights: torch.Tensor) -> torch.Tensor:
+    """Per-id weights as float32: float32 as they are, int32 bits
+    reinterpreted, int64 elements by their low 32 bits (the form the
+    weights take inside an int64 id block)."""
+    if weights.dtype == torch.int64:
+        weights = weights.to(torch.int32)
+    if weights.dtype == torch.int32:
+        return weights.view(torch.float32)
+    return weights.float()
+
+
+def _row_bounds(splits: torch.Tensor, cap: int):
+    """Each row's first and past-the-last position, as the kernels walk
+    them: ``[min(splits[r], cap), min(splits[r + 1], cap))``, the first
+    row starting at 0 (the positions the JAX segment ids give it)."""
+    start = splits[:, :-1].clamp(0, cap)
+    start[:, 0] = 0
+    end = torch.maximum(splits[:, 1:].clamp(max=cap), start)
+    return start, end
+
+
+def ragged_combine_plain(slab: torch.Tensor, values: torch.Tensor,
+                         splits: torch.Tensor, rows: torch.Tensor,
+                         roff: torch.Tensor,
+                         mean: Optional[torch.Tensor] = None,
+                         mask: Optional[torch.Tensor] = None,
+                         weights: Optional[torch.Tensor] = None,
+                         out_dtype: Optional[torch.dtype] = None
+                         ) -> torch.Tensor:
+    """Plain PyTorch version of :func:`ragged_combine`, with the same
+    arithmetic in the same order: one pass per position of the longest
+    row, adding in float32 in position order."""
+    n, cap = values.shape
+    b = splits.shape[1] - 1
+    w = slab.shape[1]
+    dt = slab.dtype
+    start, end = _row_bounds(splits, cap)
+    count = _rnd((splits[:, 1:] - splits[:, :-1]).clamp(min=1).float(), dt)
+    ids = values.long()
+    r = rows.view(n, 1)
+    wf = None if weights is None else _rnd(weight_floats(weights), dt)
+    acc = torch.zeros((n, b, w), dtype=torch.float32, device=slab.device)
+    longest = int((end - start).max()) if n * b else 0
+    for j in range(longest):
+        live = (start + j) < end
+        p = (start + j).clamp(max=max(cap - 1, 0))
+        idj = ids.gather(1, p)
+        loc = torch.minimum(idj.clamp(min=0), r - 1)
+        grow = (loc + roff.view(n, 1)).clamp(max=slab.shape[0] - 1)
+        x = slab[grow].float()
+        if wf is not None:
+            x = _rnd(x * wf.gather(1, p)[..., None], dt)
+        if mask is not None:
+            inr = ((idj >= 0) & (idj < r)) | (mask.view(n, 1) == 0)
+            x = x * inr.float()[..., None]
+        acc = torch.where(live[..., None], acc + x, acc)
+    out = _rnd(acc, dt)
+    if mean is not None:
+        out = torch.where((mean != 0).view(n, 1, 1),
+                          _rnd(out / count[..., None], dt), out)
+    return out.to(dt).to(out_dtype or dt)
+
+
+def ragged_combine(slab: torch.Tensor, values: torch.Tensor,
+                   splits: torch.Tensor, rows: torch.Tensor,
+                   roff: torch.Tensor, mean: Optional[torch.Tensor] = None,
+                   mask: Optional[torch.Tensor] = None,
+                   weights: Optional[torch.Tensor] = None,
+                   out_dtype: Optional[torch.dtype] = None
+                   ) -> torch.Tensor:
+    """K8: per-slot CSR gather and combine.
+
+    ``slab [R, w]`` (float32/bfloat16) holds the slots' tables;
+    ``values [n, cap]`` (int32/int64) the table-local ids of each slot's
+    CSR batch and ``splits [n, b + 1]`` (int64) its row offsets. Row
+    ``r`` of slot ``k`` sums, over positions ``p`` in
+    ``[min(splits[r], cap), min(splits[r + 1], cap))``,
+    ``slab[clip(values[p], 0, rows[k] - 1) + roff[k]]`` times
+    ``weights[k, p]`` (float32, or the float32 bits in an int32/int64
+    id block) rounded to the slab dtype, times 0 where ``mask[k]``
+    (int32) is set and the id lies outside ``[0, rows[k])``. The sum is
+    taken in float32 in position order and rounded to the slab dtype;
+    where ``mean[k]`` (int32) is set it is divided by
+    ``max(splits[r + 1] - splits[r], 1)`` (the claimed length, rounded to
+    the slab dtype). Returns ``[n, b, w]`` in ``out_dtype`` (default: the
+    slab's). ``values`` and ``weights`` may be strided row views.
+
+    A CPU slab runs :func:`ragged_combine_plain`; a CUDA slab launches
+    the kernel (``csrc/ragged_combine.cu``) or raises.
+    """
+    if values.dim() != 2 or splits.dim() != 2:
+        raise ValueError(f"values must be [n, cap] and splits [n, b + 1], "
+                         f"got {tuple(values.shape)}, {tuple(splits.shape)}")
+    if slab.device.type == "cpu":
+        return ragged_combine_plain(slab, values, splits, rows, roff, mean,
+                                    mask, weights, out_dtype)
+    if slab.device.type != "cuda":
+        raise ValueError(f"unsupported device {slab.device}")
+    if slab.dtype not in _DTYPE_CODE or slab.dim() != 2 \
+            or not slab.is_contiguous():
+        raise ValueError("slab must be a contiguous 2-D float32/bfloat16 "
+                         f"tensor, got {slab.dtype} {tuple(slab.shape)}")
+    out_dtype = out_dtype or slab.dtype
+    if out_dtype not in _DTYPE_CODE:
+        raise ValueError(f"out_dtype {out_dtype} is not float32/bfloat16")
+    n, cap = values.shape
+    b = splits.shape[1] - 1
+    dev = slab.device
+    _expect_rows(values, _INT, n, dev, "values")
+    _expect(splits, (torch.int64,), (n, b + 1), dev, "splits")
+    _expect(rows, (torch.int64,), (n,), dev, "rows")
+    _expect(roff, (torch.int64,), (n,), dev, "roff")
+    for t, what in ((mean, "mean"), (mask, "mask")):
+        if t is not None:
+            _expect(t, (torch.int32,), (n,), dev, what)
+    if weights is not None:
+        _expect_rows(weights, (torch.float32,) + _INT, n, dev, "weights")
+        if weights.shape[1] < cap:
+            raise ValueError(f"weights: {weights.shape[1]} per slot for a "
+                             f"capacity of {cap}")
+    w = slab.shape[1]
+    out = torch.empty((n, b, w), dtype=out_dtype, device=dev)
+    if n * b == 0:
+        return out
+    lib = _kernels.library("ragged_combine")
+    err = lib.detpu_ragged_combine(
+        slab.data_ptr(), slab.shape[0], w, _DTYPE_CODE[slab.dtype],
+        values.data_ptr(), int(values.dtype == torch.int64),
+        values.stride(0), splits.data_ptr(), rows.data_ptr(),
+        roff.data_ptr(), None if mean is None else mean.data_ptr(),
+        None if mask is None else mask.data_ptr(),
+        None if weights is None else weights.data_ptr(),
+        0 if weights is None else weights.element_size(),
+        0 if weights is None else weights.stride(0), out.data_ptr(),
+        _DTYPE_CODE[out_dtype], n, b, cap, _stream(slab))
+    _kernels.check(lib, err, "ragged_combine")
+    ragged_combine.launches += 1
+    return out
+
+
+ragged_combine.launches = 0
+
+
 def embedding_lookup(params: torch.Tensor, ids: IdsLike,
                      combiner: Optional[str] = None,
                      weights: Optional[torch.Tensor] = None
@@ -194,12 +518,17 @@ def embedding_lookup(params: torch.Tensor, ids: IdsLike,
     * ``[batch, hotness]`` ids + ``'sum'``/``'mean'``: reduce over the
       hotness, with optional ``weights [batch, hotness]`` multiplying
       each id's row (cast to the table dtype first, as the JAX package
-      does); ``'mean'`` divides by the hotness.
+      does); ``'mean'`` divides by the hotness;
+    * :class:`Ragged` + combiner: the CSR lookup-reduce (K8), weights
+      from ``weights`` or the batch's own; ``'mean'`` divides by each
+      row's id count (1 for an empty row, whose result is 0);
+    * :class:`SparseIds` + combiner: converted to CSR by
+      :func:`row_to_split` (K10), then as :class:`Ragged`.
     """
     if combiner not in (None, "sum", "mean"):
         raise ValueError(f"Unsupported combiner {combiner!r}")
     if isinstance(ids, (Ragged, SparseIds)):
-        raise NotImplementedError(_RAGGED_TODO)
+        return _ragged_lookup(params, ids, combiner, weights)
     dev = params.device
     vocab, w = params.shape
     if combiner is None:
@@ -217,6 +546,32 @@ def embedding_lookup(params: torch.Tensor, ids: IdsLike,
     div = hot if combiner == "mean" else 1
     out = gather_combine(params, ids.reshape(1, *ids.shape).contiguous(),
                          *_slot_meta(vocab, div, dev), weights=wts)
+    return out[0]
+
+
+def _ragged_lookup(params, ids, combiner, weights):
+    """The :class:`Ragged` / :class:`SparseIds` branch of
+    :func:`embedding_lookup`: ``[nrows, w]`` in the table's dtype."""
+    if combiner is None:
+        raise ValueError("combiner=None requires dense ids")
+    dev = params.device
+    if weights is None:
+        weights = ids.weights
+    values = torch.as_tensor(ids.values).to(dev)
+    if isinstance(ids, SparseIds):
+        splits = row_to_split(torch.as_tensor(ids.indices).to(dev),
+                              ids.dense_shape[0], dtype=values.dtype)
+    else:
+        splits = torch.as_tensor(ids.row_splits).to(dev)
+    vocab = params.shape[0]
+    rows, roff, _ = _slot_meta(vocab, 1, dev)
+    mean = torch.full((1,), int(combiner == "mean"), dtype=torch.int32,
+                      device=dev)
+    wts = (None if weights is None else
+           torch.as_tensor(weights).to(dev).float().reshape(1, -1))
+    out = ragged_combine(params, values.reshape(1, -1),
+                         splits.long().reshape(1, -1), rows, roff,
+                         mean=mean, weights=wts)
     return out[0]
 
 

@@ -9,8 +9,10 @@ passthrough at world 1), the per-group id streams are rebuilt from the
 forward's residual, and each width slab gets ONE optimizer scatter
 (:func:`apply_width_streams`). No dense table gradient is ever built.
 
-Dense groups (kind ``"d"``) are ported. Ragged groups (``"r"``/``"rw"``,
-ROADMAP A9/B5) and row-sliced slots (A9) raise.
+Dense groups (kind ``"d"``) build their stream with torch ops; ragged
+groups (``"r"``/``"rw"``) on K10 (the row offsets from the residual's
+lengths) and K9 (:func:`~..ops.sparse_grad.ragged_grad`, the per-position
+ids and cotangent rows). Row-sliced slots (ROADMAP A9) raise.
 """
 
 from __future__ import annotations
@@ -19,8 +21,10 @@ from typing import Dict, List
 
 import torch
 
+from ..ops.embedding_lookup import lengths_to_splits
+from ..ops.sparse_grad import ragged_grad
 from . import exchange as exchange_mod
-from .lookup import _wkey
+from .lookup import _wkey, region_views
 
 
 def apply_width_streams(de, params, opt_state,
@@ -92,7 +96,11 @@ def cotangent_width_streams(de, residuals, out_grads, fallback_dtype=None):
     (table-local id + the slot's slab row offset), update rows
     ``[world, b, n, hot, w]`` (the slot cotangent, over ``hot`` for
     ``mean`` slots of a multi-hot group, broadcast over the hot ids).
-    Ids outside their table, and every id of a padding slot, become the
+    Per ragged group it is slot-major, one entry per value position:
+    ids ``[world, n, cap]`` and rows ``[world, n, cap, w]`` (the row's
+    cotangent times the position's weight, over the row's length on
+    ``mean`` slots), from K9. Ids outside their table, every id of a
+    padding slot and every position outside the rows become the
     dropped-row sentinel ``rows_cap[w]``: a bad id trains nothing."""
     _, ids_recv, encs, b = residuals
     # no-combiner outputs keep their [b, h, w] rank; the layout is flat
@@ -113,20 +121,21 @@ def cotangent_width_streams(de, residuals, out_grads, fallback_dtype=None):
 
     per_width: Dict[str, List] = {}
     for gi, g in enumerate(plan.groups):
-        if g.kind != "d":
-            raise NotImplementedError(
-                f"the sparse backward of lookup group kind {g.kind!r} "
-                "(ragged) is not ported yet: ROADMAP A9/B5")
         if plan.rsliced[gi].any():
             raise NotImplementedError(
                 "the sparse backward of row-sliced slots is not ported "
                 "yet: ROADMAP A9")
         rows, roff, _, _ = de._plan_meta(plan, gi, mp_grad.device)
-        valid, mean = de._plan_bwd_meta(plan, gi, mp_grad.device)
         sent = de.rows_cap[g.width]  # dropped-row sentinel (logical)
         region = ids_recv[:, g.goff:g.goff + g.n * g.blen]
         gsl = mp_grad[:, :, g.col:g.col + g.n * g.width].reshape(
             world, b, g.n, g.width)
+        if g.kind != "d":
+            per_width.setdefault(_wkey(g.width), []).append(
+                _ragged_stream(de, plan, gi, g, b, region, gsl, rows, roff,
+                               sent))
+            continue
+        valid, mean = de._plan_bwd_meta(plan, gi, mp_grad.device)
         # b-major stream: the update rows are then exactly the
         # [world, b, n, w] cotangent layout, a free view; only the small
         # id tensor transposes
@@ -147,3 +156,21 @@ def cotangent_width_streams(de, residuals, out_grads, fallback_dtype=None):
         per_width.setdefault(_wkey(g.width), []).append(
             (ids, vals, g.width))
     return per_width
+
+
+def _ragged_stream(de, plan, gi, g, b, region, gsl, rows, roff, sent):
+    """One ragged group's ``(ids [world, n, cap], rows [world, n, cap, w],
+    w)`` stream: K10 rebuilds the row offsets from the residual's
+    lengths (dead slots get none), K9 expands the ``[world, b, n, w]``
+    cotangent, read in place, to every value position."""
+    world = de.world_size
+    mean, valid = de._plan_ragged_meta(plan, gi, gsl.device)
+    values, lengths, wbits = region_views(g, b, region)
+    splits = lengths_to_splits(lengths, valid)
+    # int32 ids stay int32 while the sentinel fits (the JAX stream's dtype)
+    idt = values.dtype if sent < 2 ** 31 else torch.int64
+    ids, vals = ragged_grad(
+        gsl[0].transpose(0, 1), splits, values=values, rows=rows,
+        roff=roff, sentinel=sent, ids_dtype=idt, mean=mean, weights=wbits)
+    return (ids.reshape(world, g.n, g.hot),
+            vals.reshape(world, g.n, g.hot, g.width), g.width)

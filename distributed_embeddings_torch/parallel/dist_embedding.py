@@ -11,12 +11,17 @@ lane-packing alignment is kept, see ``ops/packed_slab.py``), so both
 packages build identical exchange plans. Every (width, hotness) group
 of the plan is ONE launch of the gather kernel (``parallel/lookup.py``).
 
+Inputs are dense id tensors, :class:`~..ops.embedding_lookup.Ragged`
+CSR batches (tables with a combiner; optional per-id weights ride the
+id block as float32 bits) and :class:`~..ops.embedding_lookup.SparseIds`
+COO batches (converted to CSR by ``row_to_split``, K10). The sparse
+backward (``sparse_apply_gradients``, ``parallel/apply.py``) covers all
+of them.
+
 Not yet ported, each raising ``NotImplementedError`` with its ROADMAP
-item: ``world_size > 1`` (A7), row slicing (A9), ragged and sparse
-inputs (B5), streaming vocabularies (A11) and the ``'raise'`` invalid-id
-policy (A12). The sparse backward (``sparse_apply_gradients``,
-``parallel/apply.py``) is ported for dense inputs; model-parallel input
-and step schedules are not (A5b, A7, A11).
+item: ``world_size > 1`` (A7), row slicing (A9), streaming vocabularies
+(A11) and the ``'raise'`` invalid-id policy (A12); model-parallel input
+and step schedules (A5b, A7, A11).
 
 Ids must lie in ``[0, input_dim)``; out-of-range ids CLIP in the
 forward (a negative id reads row 0, one past the table its last row),
@@ -32,7 +37,7 @@ import torch
 
 from ..layers.embedding import default_embeddings_init
 from ..ops import packed_slab as ps
-from ..ops.embedding_lookup import Ragged, SparseIds
+from ..ops.embedding_lookup import Ragged, SparseIds, row_to_split
 from ..utils.convert import host_tensor
 from ..utils.device import resolve_device
 from . import apply as apply_mod
@@ -262,32 +267,81 @@ class DistributedEmbedding:
         ns = int(np.prod(dims, dtype=np.int64)) if dims else 1
         return ("d", 1, ns)
 
+    @staticmethod
+    def _weight_bits(weights, cap: int, comm_dtype, device) -> torch.Tensor:
+        """Per-id float weights -> the int payload that rides the id
+        block: float32 bits as int32, widened to ``comm_dtype`` (an int64
+        block keeps them in its low 32 bits)."""
+        w = torch.as_tensor(weights).to(device=device, dtype=torch.float32)
+        return w.reshape(cap).view(torch.int32).to(comm_dtype)
+
     def _normalize_inputs(self, inputs, device):
-        """Promote to a common int dtype (int64 if any input is int64,
-        else int32) on ``device``; inputs flatten to ``[batch, -1]``.
-        Returns ``(entries, encs, shapes)``: the flattened ids, the
-        static routing descriptors the plan is built from, and the
-        original shapes (output ranks follow them)."""
+        """Promote to a common int dtype (int64 if any input, or any
+        ragged input's values or row splits, is int64, else int32) on
+        ``device``. Dense inputs flatten to ``[batch, -1]``;
+        :class:`~..ops.embedding_lookup.Ragged` inputs become ``("r",
+        values [cap], lengths [batch])`` records, ``("rw", values,
+        lengths, weight_bits [cap])`` with weights; a
+        :class:`~..ops.embedding_lookup.SparseIds` input is converted to
+        CSR first (``row_to_split``, K10). Returns ``(entries, encs,
+        shapes, comm_dtype)``: the entries, the static routing
+        descriptors the plan is built from (``("d", hotness,
+        num_slots)`` / ``("r"|"rw", capacity)``), and the original dense
+        shapes (``None`` for ragged; output ranks follow them)."""
         if len(inputs) != self.strategy.num_inputs:
             raise ValueError(
                 f"Expected {self.strategy.num_inputs} inputs, got "
                 f"{len(inputs)}")
-        if any(isinstance(i, (Ragged, SparseIds)) for i in inputs):
-            raise NotImplementedError(
-                "ragged / sparse inputs are not ported yet: ROADMAP B5")
-        inputs = [torch.as_tensor(i) for i in inputs]
-        comm_dtype = (torch.int64 if any(i.dtype == torch.int64
-                                         for i in inputs) else torch.int32)
+        inputs = [self._as_ragged(i, device) if isinstance(i, SparseIds)
+                  else i if isinstance(i, Ragged) else torch.as_tensor(i)
+                  for i in inputs]
+
+        def arrays(inp):
+            return ((inp.values, inp.row_splits) if isinstance(inp, Ragged)
+                    else (inp,))
+
+        comm_dtype = (torch.int64 if any(
+            torch.as_tensor(a).dtype == torch.int64
+            for inp in inputs for a in arrays(inp)) else torch.int32)
         out, encs, shapes = [], [], []
         for i, inp in enumerate(inputs):
             tid = self.strategy.input_table_map[i]
             comb = self.strategy.global_configs[tid].get("combiner")
+            if isinstance(inp, Ragged):
+                if not comb:
+                    raise ValueError(
+                        f"Ragged input {i} requires its table to have a "
+                        "combiner (multi-hot ragged ids are reduced by "
+                        "the combining lookup)")
+                values = torch.as_tensor(inp.values).to(device=device,
+                                                        dtype=comm_dtype)
+                splits = torch.as_tensor(inp.row_splits).to(device)
+                lengths = (splits[1:] - splits[:-1]).to(comm_dtype)
+                cap = int(values.shape[0])
+                if inp.weights is not None:
+                    out.append(("rw", values, lengths, self._weight_bits(
+                        inp.weights, cap, comm_dtype, device)))
+                    encs.append(("rw", cap))
+                else:
+                    out.append(("r", values, lengths))
+                    encs.append(("r", cap))
+                shapes.append(None)
+                continue
             inp = inp.to(device=device, dtype=comm_dtype)
             shapes.append(tuple(inp.shape))
             encs.append(self._dense_enc(inp.shape, comb))
             out.append(inp.reshape(inp.shape[0], -1) if inp.dim() != 1
                        else inp[:, None])
         return out, encs, shapes, comm_dtype
+
+    @staticmethod
+    def _as_ragged(inp: SparseIds, device) -> Ragged:
+        """A COO batch as CSR: its row ids -> row splits (``row_to_split``,
+        K10 on the card), in the values' dtype."""
+        values = torch.as_tensor(inp.values).to(device)
+        splits = row_to_split(torch.as_tensor(inp.indices).to(device),
+                              inp.dense_shape[0], dtype=values.dtype)
+        return Ragged(values=values, row_splits=splits, weights=inp.weights)
 
     def _get_plan(self, encs, b: int) -> plan_mod.ExchangePlan:
         key = (tuple(encs), int(b))
@@ -317,6 +371,22 @@ class DistributedEmbedding:
                                     device=device),
                     torch.as_tensor(div, dtype=torch.float32, device=device),
                     mask)
+            self._meta_cache[key] = meta
+        return meta
+
+    def _plan_ragged_meta(self, plan, gi: int, device):
+        """A ragged group's per-slot flags, cached per plan: ``mean``
+        (int32, ``None`` when no slot is a mean slot; a ragged row's
+        divisor is its own length, not the group's capacity) and
+        ``valid`` (int32, ``None`` when every slot is live)."""
+        key = ("ragged", id(plan), gi, str(device))
+        meta = self._meta_cache.get(key)
+        if meta is None:
+            mean, valid = plan.mean[gi][0] > 0, plan.valid[gi][0] > 0
+            meta = (torch.as_tensor(mean, dtype=torch.int32, device=device)
+                    if mean.any() else None,
+                    None if valid.all() else
+                    torch.as_tensor(valid, dtype=torch.int32, device=device))
             self._meta_cache[key] = meta
         return meta
 
@@ -352,7 +422,8 @@ class DistributedEmbedding:
         local = {k: v[0] for k, v in params.items()}
         entries, encs, shapes, comm_dtype = self._normalize_inputs(
             inputs, device)
-        b = entries[0].shape[0]
+        b = (entries[0][2].shape[0] if isinstance(entries[0], tuple)
+             else entries[0].shape[0])
         plan = self._get_plan(encs, b)
         ids_recv = exchange_mod.build_send_blocks(self, plan, entries,
                                                   comm_dtype, device)
@@ -367,7 +438,7 @@ class DistributedEmbedding:
                 o = red[0, inst.slot0:inst.slot0 + inst.num_slots
                         ].transpose(0, 1).reshape(b, -1)
             shape = shapes[inst.input_id]
-            if len(shape) >= 2:
+            if shape is not None and len(shape) >= 2:
                 comb = self.strategy.global_configs[
                     self.strategy.input_table_map[inst.input_id]
                 ].get("combiner")

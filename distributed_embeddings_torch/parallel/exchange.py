@@ -71,10 +71,13 @@ def build_send_blocks(de, plan, entries, comm_dtype, device
     """Assemble the id blocks ``[world, l_max]`` in the plan's
     group-region layout. Dead slots send zeros; a multi-slot feature
     (no-combiner multi-hot, or N-D dense) sends its ids slot-major so
-    each slot's ids stay contiguous."""
+    each slot's ids stay contiguous; a ragged feature sends its values,
+    then its row lengths, then (``"rw"``) its weight bits."""
 
     def fill(inst):
         e = entries[inst.input_id]
+        if isinstance(e, tuple):  # ("r"|"rw", values, lengths[, wbits])
+            return torch.cat([p.reshape(-1) for p in e[1:]])
         if inst.transposed:  # slot-major: [b, ns*h] -> [ns, b, h] flat
             h = plan.groups[inst.group].hot
             return e.reshape(e.shape[0], inst.num_slots, h

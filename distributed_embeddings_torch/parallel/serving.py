@@ -37,7 +37,7 @@ loop (``submit`` + ``poll``), tests drive a manual clock, and
 
 Not ported yet (ROADMAP A12 unless named): the metrics registry and its
 scrape endpoint, request tracing, snapshot installation and the
-freshness rung, streaming tables (A11), ragged requests (B5), the
+freshness rung, streaming tables (A11), ragged requests, the
 threaded ``RealtimeDriver`` and burst drills, the supervised worker
 process, and the multi-rank mesh (A7, through the layer's world size).
 """
@@ -338,7 +338,7 @@ class ServingRuntime:
             if isinstance(c, (list, tuple)):
                 raise NotImplementedError(
                     "ragged (list-of-lists) requests are not ported yet: "
-                    "ROADMAP B5")
+                    "ROADMAP A12")
             a = np.asarray(c)
             if a.ndim == 1:
                 spec.append(("d", 1))

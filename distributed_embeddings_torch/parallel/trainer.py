@@ -24,6 +24,7 @@ from typing import Any, Callable, List, NamedTuple, Optional
 
 import torch
 
+from ..ops.embedding_lookup import Ragged, SparseIds
 from ..utils import obs
 
 
@@ -180,9 +181,18 @@ def make_hybrid_train_step(de, loss_fn: Callable, dense_tx, emb_optimizer,
 
 
 def _index(tree, k: int):
-    """The ``k``-th leading slice of every tensor in a batch structure."""
+    """The ``k``-th leading slice of every tensor in a batch structure
+    (a :class:`Ragged` or :class:`SparseIds` stack carries its leading
+    axis on every field; ``dense_shape`` is per step)."""
     if isinstance(tree, torch.Tensor):
         return tree[k]
+    if isinstance(tree, (Ragged, SparseIds)):
+        w = None if tree.weights is None else tree.weights[k]
+        if isinstance(tree, Ragged):
+            return Ragged(values=tree.values[k],
+                          row_splits=tree.row_splits[k], weights=w)
+        return SparseIds(indices=tree.indices[k], values=tree.values[k],
+                         dense_shape=tree.dense_shape, weights=w)
     if isinstance(tree, dict):
         return {key: _index(v, k) for key, v in tree.items()}
     if isinstance(tree, (tuple, list)):
@@ -198,7 +208,8 @@ def make_hybrid_train_loop(de, loss_fn: Callable, dense_tx, emb_optimizer,
     """Multi-step loop: ``loop(state, cat_stacks, batch_stacks) ->
     (losses [K], state)`` runs K steps of :func:`make_hybrid_train_step`
     over the leading axis of every input (each categorical input
-    ``[K, batch, ...]``, ``batch`` any structure of ``[K, ...]``
+    ``[K, batch, ...]``, or a :class:`Ragged` / :class:`SparseIds` whose
+    fields all lead with ``K``; ``batch`` any structure of ``[K, ...]``
     tensors). The JAX loop scans inside one compiled program (its
     ``unroll`` is a ``lax.scan`` knob, not taken here); this is a Python
     loop with the same per-step semantics, guard included."""
@@ -208,10 +219,12 @@ def make_hybrid_train_loop(de, loss_fn: Callable, dense_tx, emb_optimizer,
         nan_guard=nan_guard, telemetry=telemetry, dynamic=dynamic)
 
     def loop(state: HybridTrainState, cat_stacks, batch_stacks):
-        K = cat_stacks[0].shape[0]
+        c0 = cat_stacks[0]
+        K = (c0.values if isinstance(c0, (Ragged, SparseIds))
+             else c0).shape[0]
         losses: List[torch.Tensor] = []
         for k in range(K):
-            loss, state = step(state, [c[k] for c in cat_stacks],
+            loss, state = step(state, [_index(c, k) for c in cat_stacks],
                                _index(batch_stacks, k))
             losses.append(loss)
         return torch.stack(losses), state

@@ -527,3 +527,320 @@ def test_zoo_train_on_the_card_matches_the_cpu(cuda_device, ratio):
 def _mse(dense, outs, batch):
     n, y = batch
     return torch.mean((dense(n, outs) - y) ** 2)
+
+
+# ------------------------------------------------- K8-K10: the ragged path
+
+
+def _csr(rng, n, b, max_hot, cap_frac=1.0, long_row=0):
+    """``n`` slots of CSR rows: lengths ``[n, b]`` (some empty, one of
+    ``long_row`` ids when given), splits ``[n, b + 1]`` int64, and the
+    capacity ``cap_frac`` of the largest total (rows past it truncate)."""
+    lengths = rng.integers(0, max_hot + 1, size=(n, b))
+    lengths[:, 1 % b] = 0
+    if long_row:
+        lengths[0, 2] = long_row
+    splits = np.zeros((n, b + 1), np.int64)
+    np.cumsum(lengths, 1, out=splits[:, 1:])
+    cap = max(1, int(splits[:, -1].max() * cap_frac))
+    return lengths, splits, cap
+
+
+@pytest.mark.cuda
+def test_csr_kernels_match_plain(cuda_device):
+    """K10: lengths -> splits (strided rows, dead slots), COO -> splits
+    ([nnz, 2] and [nnz], int32/int64), positions -> rows (past the
+    capacity too): bit-exact."""
+    from distributed_embeddings_torch.ops import (
+        lengths_to_splits, lengths_to_splits_plain, ragged_row_ids,
+        ragged_row_ids_plain, row_to_split, row_to_split_plain)
+
+    rng = np.random.default_rng(40)
+    for n, b in ((1, 1), (3, 70), (26, 5000)):
+        lengths, splits, cap = _csr(rng, n, b, 30)
+        for dt in (torch.int32, torch.int64):
+            block = torch.from_numpy(rng.integers(
+                0, 9, size=(n, cap + b + 3))).to(dt).to(cuda_device)
+            block[:, cap:cap + b] = torch.from_numpy(lengths).to(dt)
+            view = block[:, cap:cap + b]
+            for valid in (None, torch.from_numpy(
+                    (np.arange(n) % 3 != 1).astype(np.int32)
+                    ).to(cuda_device)):
+                got = lengths_to_splits(view, valid)
+                assert got.dtype == torch.int64
+                assert torch.equal(got, lengths_to_splits_plain(view, valid))
+        sp = torch.from_numpy(splits).to(cuda_device)
+        for c in (1, cap // 2 + 1, cap + 5):
+            for s in (sp, sp[0].contiguous()):
+                for dt in (torch.int32, torch.int64):
+                    x = s.to(dt)
+                    got = ragged_row_ids(x, c)
+                    assert got.dtype == dt
+                    assert torch.equal(got, ragged_row_ids_plain(x, c))
+        rows = np.concatenate([np.repeat(np.arange(b), lengths[0]),
+                               [b, b + 3]])
+        for dt in (torch.int32, torch.int64):
+            r = torch.from_numpy(rows).to(dt).to(cuda_device)
+            for idx in (r, torch.stack([r, torch.zeros_like(r)], 1)):
+                for out_dt in (None, torch.int64):
+                    got = row_to_split(idx, b, dtype=out_dt)
+                    assert torch.equal(got, row_to_split_plain(idx, b,
+                                                               out_dt))
+    torch.cuda.synchronize()
+
+
+def _ragged_block(rng, n, b, vocab, max_hot, ids_dt, cap_frac=1.0,
+                  long_row=0, weights="none"):
+    """An id block ``[n, cap + b + cap]`` as the lookup reads it:
+    values (with negative and past-the-table ids, padding holding id 0),
+    lengths, then float32 weight bits (``weights``: ``"none"``,
+    ``"f32"`` a separate float32 tensor, ``"bits"`` in the block)."""
+    lengths, splits, cap = _csr(rng, n, b, max_hot, cap_frac, long_row)
+    vals = rng.integers(-3, vocab + 3, size=(n, cap))
+    for k in range(n):
+        vals[k, min(splits[k, -1], cap):] = 0
+    w = rng.uniform(0.25, 2.0, size=(n, cap)).astype(np.float32)
+    block = np.concatenate([vals, lengths,
+                            w.view(np.int32).astype(np.int64)], 1)
+    block = torch.from_numpy(block).to(ids_dt)
+    wt = None
+    if weights == "f32":
+        wt = torch.from_numpy(w)
+    elif weights == "bits":
+        wt = block[:, cap + b:]
+    return block, cap, torch.from_numpy(splits), wt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,out_dtype", [
+    (torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("width", [3, 8, 16, 128])
+def test_ragged_combine_kernel_matches_plain(cuda_device, dtype, out_dtype,
+                                             width):
+    """K8 against its plain version, bit-exact (both add in float32 in
+    position order with the same roundings): sum and mean slots, no /
+    float32 / in-block (int32 and int64) weights, clipped and masked bad
+    ids, empty rows, rows past the capacity and a row of 1,500 ids."""
+    from distributed_embeddings_torch.ops import (ragged_combine,
+                                                  ragged_combine_plain)
+
+    rng = np.random.default_rng(width)
+    n, b, vocab = 3, 60, 50
+    slab = torch.from_numpy(rng.normal(size=(n * vocab, width))
+                            .astype(np.float32)).to(dtype).to(cuda_device)
+    meta = dict(
+        rows=torch.full((n,), vocab, dtype=torch.int64, device=cuda_device),
+        roff=torch.arange(n, dtype=torch.int64, device=cuda_device) * vocab)
+    for ids_dt in (torch.int32, torch.int64):
+        for frac, long_row in ((1.0, 0), (0.6, 0), (1.0, 1500)):
+            for wkind in ("none", "f32", "bits"):
+                block, cap, splits, wt = _ragged_block(
+                    rng, n, b, vocab, 6, ids_dt, frac, long_row, wkind)
+                block = block.to(cuda_device)
+                values = block[:, :cap]
+                wt = None if wt is None else (
+                    block[:, cap + b:] if wkind == "bits"
+                    else wt.to(cuda_device))
+                for mean, mask in (((0, 1, 0), None), ((1, 0, 1), (0, 1, 1))):
+                    kw = dict(meta, splits=splits.to(cuda_device),
+                              mean=torch.tensor(mean, dtype=torch.int32,
+                                                device=cuda_device),
+                              mask=None if mask is None else torch.tensor(
+                                  mask, dtype=torch.int32,
+                                  device=cuda_device),
+                              weights=wt, out_dtype=out_dtype)
+                    got = ragged_combine(slab, values, **kw)
+                    want = ragged_combine_plain(slab, values, **kw)
+                    assert got.dtype == out_dtype
+                    assert torch.equal(got, want), (
+                        f"{ids_dt} frac={frac} long={long_row} {wkind} "
+                        f"mean={mean}: max err "
+                        f"{float((got.float() - want.float()).abs().max())}")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("width", [3, 8, 16, 128])
+def test_ragged_grad_kernel_matches_plain(cuda_device, dtype, width):
+    """K9 against its plain version, bit-exact (the same rounding after
+    each op): ids with the sentinel for bad ids, padding and positions
+    past the rows, rows past the capacity, a row of 1,500 ids, weights,
+    mean slots by division and by reciprocal, a cotangent read through
+    strided rows, and every position written (the outputs start as
+    garbage)."""
+    from distributed_embeddings_torch.ops import ragged_grad, ragged_grad_plain
+
+    rng = np.random.default_rng(100 + width)
+    n, b, vocab = 3, 60, 50
+    # cotangent rows as the apply reads them: [n, b, w] through a
+    # [b, n * w + 5]-strided block
+    gblock = torch.from_numpy(rng.normal(size=(b, n * width + 8))
+                              .astype(np.float32)).to(dtype).to(cuda_device)
+    g = gblock[:, :n * width].reshape(b, n, width).transpose(0, 1)
+    meta = dict(
+        rows=torch.full((n,), vocab, dtype=torch.int64, device=cuda_device),
+        roff=torch.arange(n, dtype=torch.int64, device=cuda_device) * vocab)
+    for ids_dt in (torch.int32, torch.int64):
+        for frac, long_row in ((1.0, 0), (0.6, 0), (1.0, 1500)):
+            for wkind in ("none", "bits"):
+                block, cap, splits, wt = _ragged_block(
+                    rng, n, b, vocab, 6, ids_dt, frac, long_row, wkind)
+                block = block.to(cuda_device)
+                wt = None if wt is None else block[:, cap + b:]
+                for mean, recip in (((0, 1, 1), False), ((1, 1, 0), True)):
+                    kw = dict(splits=splits.to(cuda_device),
+                              values=block[:, :cap], sentinel=n * vocab + 7,
+                              ids_dtype=ids_dt, weights=wt,
+                              mean=torch.tensor(mean, dtype=torch.int32,
+                                                device=cuda_device),
+                              reciprocal=recip, **meta)
+                    torch.cuda.empty_cache()
+                    gi, gv = ragged_grad(g, **kw)
+                    wi, wv = ragged_grad_plain(g, cap=cap, **kw)
+                    assert torch.equal(gi, wi)
+                    assert torch.equal(gv, wv), (
+                        f"{ids_dt} frac={frac} {wkind} mean={mean}")
+    # no ids: the op-level combiner_grad_values form
+    _, gv = ragged_grad(g, splits.to(cuda_device), cap=cap + 9)
+    _, wv = ragged_grad_plain(g, splits.to(cuda_device), cap=cap + 9)
+    assert torch.equal(gv, wv)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_ragged_grad_kernel_past_2_31_elements(cuda_device):
+    """K9 writing a stream of more than 2^31 elements (one slot, ~19.2M
+    positions of 128 bf16): element offsets must be 64-bit. The rows
+    and ids past element 2^31, and a sample before it, match the plain
+    version bit for bit."""
+    from distributed_embeddings_torch.ops import ragged_grad, ragged_grad_plain
+
+    b, w, hot = 1 << 20, 128, 18
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    lengths = torch.randint(hot - 4, hot + 5, (1, b), generator=gen,
+                            device=cuda_device)
+    splits = torch.zeros((1, b + 1), dtype=torch.int64, device=cuda_device)
+    splits[0, 1:] = torch.cumsum(lengths[0], 0)
+    cap = int(splits[0, -1]) + 300_000
+    assert cap * w > 2 ** 31
+    values = torch.randint(-2, 1000, (1, cap), generator=gen,
+                           device=cuda_device, dtype=torch.int32)
+    g = torch.randn((1, b, w), generator=gen, device=cuda_device
+                    ).to(torch.bfloat16)
+    kw = dict(values=values, rows=torch.tensor([990], device=cuda_device),
+              roff=torch.tensor([5], device=cuda_device), sentinel=10 ** 6,
+              mean=torch.ones(1, dtype=torch.int32, device=cuda_device))
+    ids, vals = ragged_grad(g, splits, **kw)
+    torch.cuda.synchronize()
+    # the plain version on the last rows (their positions lie past 2^31
+    # elements) and on the first ones
+    for lo_row, hi_row in ((0, 1000), (b - 100_000, b)):
+        sp = splits[:, lo_row:hi_row + 1]
+        p0 = int(sp[0, 0])
+        p1 = cap if hi_row == b else int(sp[0, -1])
+        sub = dict(kw, values=values[:, p0:p1])
+        wi, wv = ragged_grad_plain(g[:, lo_row:hi_row], sp - p0,
+                                   cap=p1 - p0, **sub)
+        assert torch.equal(ids[:, p0:p1], wi)
+        assert torch.equal(vals[:, p0:p1], wv)
+    assert p0 * w > 2 ** 31
+
+
+@pytest.mark.cuda
+def test_ragged_train_step_on_the_card_matches_the_cpu(cuda_device):
+    """A small float32 DLRM on ragged inputs (a mean table, a weighted
+    input, bad ids) trained 5 steps on the card (K8-K10, K2-K4) and on
+    the CPU (their plain versions) from one state: losses, tables and
+    dense params within 1e-4 (cuBLAS and the CPU sum in other orders);
+    a SparseIds twin of the first batch gives the same forward."""
+    from distributed_embeddings_torch import Ragged, SparseIds
+    from distributed_embeddings_torch.ops import (
+        lengths_to_splits, ragged_combine, ragged_grad, row_to_split)
+
+    sizes = [500, 7, 33, 1200]
+    cfg = DLRMConfig(table_sizes=sizes, embedding_dim=16,
+                     num_numerical_features=13, bottom_mlp_dims=(32, 16),
+                     top_mlp_dims=(64, 1))
+    configs = cfg.embedding_configs(combiner="sum")
+    configs[2]["combiner"] = "mean"
+    de = DistributedEmbedding(configs, world_size=1)
+    params = de.init(torch.Generator().manual_seed(0), device="cpu")
+    dense = DLRMDense(cfg, device="cpu",
+                      generator=torch.Generator().manual_seed(1))
+
+    def loss_fn(m, outs, batch):
+        return bce_with_logits(m(batch[0], outs), batch[1])
+
+    rng = np.random.default_rng(3)
+    B = 256
+
+    def ragged(v, t):
+        lengths = rng.integers(1, 8, size=B)
+        splits = np.zeros(B + 1, np.int32)
+        np.cumsum(lengths, out=splits[1:])
+        ids = _ids(rng, v, (7 * B,))
+        w = rng.uniform(0.5, 1.5, 7 * B).astype(np.float32)
+        return (ids, splits, w if t == 1 else None)
+
+    batches = [([ragged(s, t) for t, s in enumerate(sizes)],
+                rng.normal(size=(B, 13)).astype(np.float32),
+                (rng.random(B) < 0.3).astype(np.float32)) for _ in range(5)]
+
+    def to(c, dev):
+        return Ragged(values=torch.from_numpy(c[0]).to(dev),
+                      row_splits=torch.from_numpy(c[1]).to(dev),
+                      weights=None if c[2] is None
+                      else torch.from_numpy(c[2]).to(dev))
+
+    kernels = (ragged_combine, lengths_to_splits, ragged_grad, sgd_scatter,
+               dot_interact_fwd, dot_interact_bwd, gather_combine)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        d = DLRMDense(cfg, device=dev)
+        d.load_state_dict(dense.state_dict())
+        state = HybridTrainState(
+            emb_params={k: v.clone().to(dev) for k, v in params.items()},
+            emb_opt_state=SparseSGD().init(params), dense_params=d,
+            dense_opt_state=(),
+            step=torch.zeros((), dtype=torch.int32, device=dev))
+        step = make_hybrid_train_step(de, loss_fn, SGD(0.1), SparseSGD(),
+                                      lr_schedule=0.1)
+        before = [k.launches for k in kernels]
+        losses = []
+        for cats, num, lab in batches:
+            loss, state = step(state, [to(c, dev) for c in cats],
+                               (torch.from_numpy(num).to(dev),
+                                torch.from_numpy(lab).to(dev)))
+            losses.append(float(loss))
+        launched = [k.launches - b for k, b in zip(kernels, before)]
+        # two ragged groups ("r" and "rw") a step: K8 and K9 twice, K10
+        # four times (forward and backward); one slab: K3 once
+        assert launched == ([0] * 7 if dev == "cpu"
+                            else [10, 20, 10, 5, 5, 5, 0])
+        if dev != "cpu":
+            cats = [to(c, dev) for c in batches[0][0]]
+            sparse = []
+            for c in cats:
+                rows = torch.repeat_interleave(
+                    torch.arange(B, device=dev),
+                    (c.row_splits[1:] - c.row_splits[:-1]).long())
+                rows = torch.cat([rows, torch.full(
+                    (c.values.shape[0] - rows.shape[0],), B, device=dev)])
+                sparse.append(SparseIds(
+                    indices=torch.stack([rows, torch.zeros_like(rows)], 1),
+                    values=c.values, dense_shape=(B, 7), weights=c.weights))
+            n0 = row_to_split.launches
+            for a, s in zip(de(state.emb_params, cats),
+                            de(state.emb_params, sparse)):
+                assert torch.equal(a, s)
+            assert row_to_split.launches - n0 == len(sizes)
+        out[str(dev)] = (losses, de.get_weights(state.emb_params),
+                         [p.detach().cpu() for p in d.parameters()])
+    (lc, tc, dc), (lg, tg, dg) = out["cpu"], out[str(cuda_device)]
+    np.testing.assert_allclose(lg, lc, atol=1e-4, rtol=0)
+    for a, b in zip(tg, tc):
+        np.testing.assert_allclose(a, b, atol=1e-4, rtol=0)
+    for a, b in zip(dg, dc):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-4, rtol=0)

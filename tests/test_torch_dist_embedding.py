@@ -182,9 +182,11 @@ def test_unported_paths_raise():
         DistributedEmbedding(CONFIGS, world_size=8)
     with pytest.raises(NotImplementedError, match="A9"):
         DistributedEmbedding(CONFIGS, world_size=1, row_slice=100)
+    # ragged inputs are ported; on a table without a combiner they are
+    # refused, as in the JAX package
     tde = DistributedEmbedding(CONFIGS[:1], world_size=1)
     params = tde.init(device="cpu")
-    with pytest.raises(NotImplementedError, match="B5"):
+    with pytest.raises(ValueError, match="combiner"):
         tde(params, [Ragged.from_lists([[1, 2], [3]])])
 
 

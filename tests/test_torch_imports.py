@@ -67,7 +67,19 @@ def test_sources_exist():
             "interaction.py", "serving.py", "scatter_add.py",
             "optimizers.py", "apply.py", "trainer.py", "obs.py",
             "sparse_grad.py", "adagrad.py", "synthetic.py",
-            "synthetic_configs.py", "packed_slab.py", "convert.py"} <= names
+            "synthetic_configs.py", "packed_slab.py", "convert.py",
+            "lookup.py", "exchange.py", "dist_embedding.py"} <= names
+
+
+def test_every_kernel_source_is_bound():
+    """Each ``csrc/*.cu`` has its C signatures in ``ops/_kernels.py``
+    (so it builds and loads), and each signature's source exists."""
+    from distributed_embeddings_torch.ops import _kernels
+
+    cu = {p.stem for p in (ROOT / "distributed_embeddings_torch" / "csrc"
+                           ).glob("*.cu")}
+    assert cu == set(_kernels.SIGNATURES)
+    assert {"csr", "ragged_combine", "ragged_grad"} <= cu
 
 
 @pytest.mark.parametrize("path", _sources(),
@@ -105,6 +117,22 @@ def test_port_module_is_standalone(path):
     "from distributed_embeddings_tpu.models.synthetic_configs import "
     "model_tiny\n",
     "import distributed_embeddings_tpu.ops.sparse_grad as sparse_grad\n",
+    "from distributed_embeddings_tpu.ops.embedding_lookup import "
+    "row_to_split\n",
+    "from distributed_embeddings_tpu.parallel.lookup import csr_seg\n",
+    "def f(s, v, sp, r, o):\n    try:\n"
+    "        return ragged_combine(s, v, sp, r, o)\n"
+    "    except RuntimeError:\n"
+    "        return ragged_combine_plain(s, v, sp, r, o)\n",
+    "def f(g, sp):\n    try:\n        return ops.ragged_grad(g, sp, cap=4)\n"
+    "    except (RuntimeError, ValueError):\n"
+    "        return ops.ragged_grad_plain(g, sp, cap=4)\n",
+    "def f(n):\n    try:\n        return lengths_to_splits(n)\n"
+    "    except Exception:\n        return lengths_to_splits_plain(n)\n",
+    "def f(i):\n    try:\n        return el.row_to_split(i, 8)\n"
+    "    except OSError:\n        return el.row_to_split_plain(i, 8)\n",
+    "def f(s):\n    try:\n        return ragged_row_ids(s, 8)\n"
+    "    except RuntimeError:\n        return ragged_row_ids_plain(s, 8)\n",
 ])
 def test_checker_catches_seeded_violations(bad):
     assert violations(bad)
