@@ -2,12 +2,14 @@
 
 from .adagrad import (adagrad_dense, adagrad_dense_plain, adagrad_rows,
                       adagrad_rows_plain)
+from .adam import adam_rows, adam_rows_plain, bias_powers
 from .embedding_lookup import (Ragged, SparseIds, embedding_lookup,
                                gather_combine, gather_combine_plain,
                                lengths_to_splits, lengths_to_splits_plain,
                                ragged_combine, ragged_combine_plain,
                                ragged_row_ids, ragged_row_ids_plain,
                                row_to_split, row_to_split_plain)
+from .momentum import momentum_rows, momentum_rows_plain
 from .interaction import (DotInteract, dot_interact_bwd,
                           dot_interact_bwd_plain, dot_interact_fwd,
                           dot_interact_fwd_plain)
@@ -26,4 +28,6 @@ __all__ = ["Ragged", "SparseIds", "embedding_lookup", "gather_combine",
            "sgd_scatter_plain", "dedup_sparse_grad",
            "dedup_sparse_grad_plain", "ragged_grad", "ragged_grad_plain",
            "combiner_grad_values", "adagrad_rows", "adagrad_rows_plain",
-           "adagrad_dense", "adagrad_dense_plain"]
+           "adagrad_dense", "adagrad_dense_plain", "adam_rows",
+           "adam_rows_plain", "bias_powers", "momentum_rows",
+           "momentum_rows_plain"]

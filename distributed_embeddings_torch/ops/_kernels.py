@@ -34,6 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I = ctypes.c_int
+_F = ctypes.c_float
 
 #: C signature of each exported function, per source stem
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
@@ -72,6 +73,19 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         # stream
         "detpu_adagrad_dense": (_P, _I, _P, _I, _P, _I64, ctypes.c_float,
                                 _P, ctypes.c_float, _P),
+    },
+    "adam": {
+        # slab, slab_dtype, mu, nu, mom_dtype, rows, width, uids, ids_is_64,
+        # u, ugrads, b1, omb1, b2, omb2, bp, lr, lr_dev, eps, eps_root, vec,
+        # stream
+        "detpu_adam_rows": (_P, _I, _P, _P, _I, _I64, _I, _P, _I, _I64, _P,
+                            _F, _F, _F, _F, _P, _F, _P, _F, _F, _I, _P),
+    },
+    "momentum": {
+        # slab, slab_dtype, trace, tr_dtype, rows, width, uids, ids_is_64,
+        # u, ugrads, m, nesterov, neg_lr, lr_dev, vec, stream
+        "detpu_momentum_rows": (_P, _I, _P, _I, _I64, _I, _P, _I, _I64, _P,
+                                _F, _I, _F, _P, _I, _P),
     },
     "csr": {
         # lengths, len_is_64, slot_stride, n_slots, b, valid, splits,

@@ -2,7 +2,9 @@
 optimizers, the train and eval steps, and the serving runtime."""
 
 from .dist_embedding import DistributedEmbedding
-from .optimizers import SGD, Adagrad, SparseAdagrad, SparseSGD
+from .optimizers import (SGD, Adagrad, Adam, AdamState, ScheduleState,
+                         SparseAdagrad, SparseAdam, SparseMomentum,
+                         SparseSGD, TraceState)
 from .plan import ExchangePlan, build_plan
 from .serving import (Expired, Failed, Overloaded, Request, ServeConfig,
                       Served, ServingRuntime, drive, resolve_rungs,
@@ -19,4 +21,5 @@ __all__ = ["DistributedEmbedding", "ExchangePlan", "build_plan",
            "HybridTrainState", "make_hybrid_eval_step",
            "make_hybrid_train_step", "make_hybrid_train_loop",
            "init_hybrid_state", "SGD", "SparseSGD", "Adagrad",
-           "SparseAdagrad"]
+           "SparseAdagrad", "Adam", "SparseAdam", "SparseMomentum",
+           "AdamState", "TraceState", "ScheduleState"]

@@ -34,11 +34,17 @@ def apply_width_streams(de, params, opt_state,
     optimizer scatter per width slab, in place.
 
     The JAX package lane-expands the stream to its packed physical rows
-    here (``ops/packed_slab.py:expand_update_rows``); the port's slabs,
-    and any slab-shaped optimizer state (``SparseAdagrad``'s
-    accumulators), are logical ``[rows_cap, w]``, so that step is the
-    identity and the logical stream goes to the optimizer as it is,
-    with that width's state (updated in place).
+    here (``ops/packed_slab.py:expand_update_rows``) and, for the
+    stateful-moment optimizers, builds a lane touch-mask
+    (``ops/packed_slab.py:lane_one_hot``, JAX ``parallel/apply.py:51``
+    and ``:70-78``) so that the packed neighbours of a touched row keep
+    their momentum or moments. The port's slabs, and any slab-shaped
+    optimizer state (``SparseAdagrad``'s accumulators, ``SparseMomentum``'s
+    trace, ``SparseAdam``'s moments), are logical ``[rows_cap, w]``:
+    there is no lane expansion and no mask (a row is touched exactly
+    when its id is in the dedup's segment set), and the logical stream
+    goes to the optimizer as it is, with that width's state (a tensor
+    or a tuple, updated in place).
 
     ``enable`` (a 0-d bool tensor): when False every id is routed to the
     dropped-row sentinel, so the slabs and any slab-shaped optimizer

@@ -34,6 +34,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from ..layers.embedding import default_embeddings_init
 from ..ops import packed_slab as ps
@@ -81,6 +82,12 @@ def slab_layout(strategy: DistEmbeddingStrategy
                                          1), ps.pack_factor(w)), w)
                 for w in widths}
     return widths, row_offsets_list, rows_cap
+
+
+def _map_tensors(fn, tree):
+    """``fn`` over every tensor of a dict / tuple / list tree."""
+    return pytree.tree_map(
+        lambda v: fn(v) if isinstance(v, torch.Tensor) else v, tree)
 
 
 class DistributedEmbedding:
@@ -244,11 +251,20 @@ class DistributedEmbedding:
 
     @staticmethod
     def local_view(params):
-        """Drop the leading world axis of each slab (``[1, rows, w]`` ->
-        ``[rows, w]``, a view); other entries (an empty optimizer state)
-        pass through."""
-        return {k: (v[0] if isinstance(v, torch.Tensor) and v.dim() == 3
-                    else v) for k, v in params.items()}
+        """Drop the leading world axis of every 3-D tensor of a slab dict
+        or of its optimizer state (``[1, rows, w]`` -> ``[rows, w]``,
+        ``SparseAdam``'s count ``[1, 1, 1]`` -> ``[1, 1]``; views),
+        mapping over tuple states; other leaves (an empty state) pass
+        through."""
+        return _map_tensors(
+            lambda v: v[0] if v.dim() == 3 else v, params)
+
+    @staticmethod
+    def stacked_view(params):
+        """The inverse of :meth:`local_view`: re-add the leading world
+        axis of every 2-D tensor (views)."""
+        return _map_tensors(
+            lambda v: v[None] if v.dim() == 2 else v, params)
 
     # ----------------------------------------------------------------- forward
 

@@ -17,17 +17,33 @@ slab (and on its slab-shaped state):
   regimes: dense-apply (K3 scatter-sums the stream into a zero gradient
   slab, then K7 runs the transition over the whole slab) or sparse (K5
   dedups the stream, then K6 updates the unique rows).
+* :class:`SparseMomentum` (K5, then K12 on the unique rows) and
+  :class:`SparseAdam` (K5, then K11) with LAZY slab-shaped state: only
+  the rows a step touches update their trace or moments; an untouched
+  row's state neither decays nor moves its row (the reference's Keras
+  sparse path, and every production embedding trainer). A row is
+  touched exactly when its id is in the dedup's segment set: the port's
+  slabs are logical ``[rows, w]``, so no lane mask is needed (the JAX
+  package's lane-packed physical rows need one, ``needs_touch_mask``).
+  A touched row with a zero gradient still decays. Adam's bias
+  correction uses the slab's global step count (LazyAdam).
 
-``SparseMomentum`` and ``SparseAdam`` are not ported yet (ROADMAP B8).
+The dense half's optimizers follow ``optax``'s ``init``/``update``
+contract: :class:`SGD` (``optax.sgd``, with ``momentum``/``nesterov``),
+:class:`Adagrad` (``optax.adagrad``) and :class:`Adam` (``optax.adam``);
+``update`` returns the updates and a NEW state, so the non-finite
+guard can keep the old one bitwise.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
 from ..ops.adagrad import adagrad_dense, adagrad_rows
+from ..ops.adam import adam_rows, bias_powers
+from ..ops.momentum import momentum_rows
 from ..ops.scatter_add import Lr, sgd_scatter
 from ..ops.sparse_grad import dedup_sparse_grad
 from ..utils import envvars
@@ -133,19 +149,177 @@ class SparseAdagrad:
         return slab, accum
 
 
-class SGD:
-    """Counterpart of ``optax.sgd(learning_rate)`` (no momentum) for the
-    dense parameters: ``init`` gives an empty state, ``update`` the
-    updates ``-learning_rate * g`` in each gradient's dtype."""
+class SparseMomentum:
+    """Heavy-ball SGD with lazy row-wise momentum; ``optax.sgd(momentum=m)``
+    (``optax.trace``) numerics: ``trace = g + m * trace``, ``slab -= lr *
+    trace`` (``nesterov``: ``lr * (g + m * trace_new)``), the trace in
+    the dtype ``init`` gives it (the slab's).
 
-    def __init__(self, learning_rate: float):
-        self.learning_rate = float(learning_rate)
+    ``needs_dedup=True``: the trace is read-modify-written per row, so
+    K5 sums duplicate ids first (at most ``rows + 1`` distinct ids, the
+    sentinel included), then K12 updates each unique row."""
+
+    needs_dedup = True
+    #: the JAX package lane-masks packed physical rows; logical rows need
+    #: no mask (a row is touched exactly when its id is in the dedup's
+    #: segment set)
+    needs_touch_mask = False
+    #: streaming moment hygiene: momentum traces init (and reset) to zero
+    fresh_row_fill = 0.0
+
+    def __init__(self, momentum: float = 0.9, nesterov: bool = False):
+        self.momentum = momentum
+        self.nesterov = nesterov
+
+    def init(self, params):
+        """One zero trace per slab (the slab's shape, dtype and device)."""
+        return {k: torch.zeros_like(v) for k, v in params.items()}
+
+    def apply_rows(self, slab: torch.Tensor, trace: torch.Tensor,
+                   ids: torch.Tensor, vals: torch.Tensor, lr: Lr):
+        """Update ``slab [R, w]`` and ``trace [R, w]`` in place from the
+        stream ``ids [n]``, ``vals [n, w]`` (cast to the trace dtype
+        first). Returns ``(slab, trace)``."""
+        vals = vals.to(trace.dtype)
+        rows = slab.shape[0]
+        uids, uvals = dedup_sparse_grad(ids, vals, pad_id=rows,
+                                        max_unique=rows + 1)
+        momentum_rows(slab, trace, uids, uvals, lr, self.momentum,
+                      self.nesterov)
+        return slab, trace
+
+
+class SparseAdam:
+    """Adam with lazy row-wise moments; ``optax.adam`` numerics
+    (``mu = b1*mu + (1-b1)*g``, ``nu = b2*nu + (1-b2)*g^2``, corrected by
+    the slab's global step count: the LazyAdam convention).
+
+    State per width slab: ``(mu, nu, count)``, the moments in the slab's
+    dtype and ``count`` a float32 ``[S, 1, 1]`` for a stacked ``[S, R,
+    w]`` slab (``[1, 1]`` for a 2-D one), so it strips and re-adds the
+    world axis with the slabs (``DistributedEmbedding.local_view``). The
+    count advances once per ``apply_rows`` call, in place, even when the
+    whole stream is the dropped-row sentinel (a guarded step restores
+    it, ``parallel/trainer.py``). K5 sums duplicate ids, then K11 updates
+    each unique row, reading the count on the card."""
+
+    needs_dedup = True
+    #: as :class:`SparseMomentum`: logical rows need no lane mask
+    needs_touch_mask = False
+    #: streaming moment hygiene: mu/nu init (and reset) to zero; the
+    #: non-slab step count is never touched
+    fresh_row_fill = 0.0
+
+    def __init__(self, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8, eps_root: float = 0.0):
+        self.b1, self.b2 = b1, b2
+        self.eps, self.eps_root = eps, eps_root
+
+    def init(self, params):
+        """``(zeros_like(slab), zeros_like(slab), count 0)`` per slab."""
+        def one(p):
+            shape = (p.shape[0], 1, 1) if p.dim() == 3 else (1, 1)
+            return (torch.zeros_like(p), torch.zeros_like(p),
+                    torch.zeros(shape, dtype=torch.float32,
+                                device=p.device))
+        return {k: one(v) for k, v in params.items()}
+
+    def apply_rows(self, slab: torch.Tensor, state, ids: torch.Tensor,
+                   vals: torch.Tensor, lr: Lr):
+        """Update ``slab [R, w]`` and its ``(mu, nu, count)`` in place from
+        the stream ``ids [n]``, ``vals [n, w]`` (cast to the moments'
+        dtype first). Returns ``(slab, (mu, nu, count))``."""
+        mu, nu, count = state
+        vals = vals.to(mu.dtype)
+        rows = slab.shape[0]
+        uids, uvals = dedup_sparse_grad(ids, vals, pad_id=rows,
+                                        max_unique=rows + 1)
+        count.add_(1.0)
+        adam_rows(slab, mu, nu, count, uids, uvals, lr, self.b1, self.b2,
+                  self.eps, self.eps_root)
+        return slab, (mu, nu, count)
+
+
+Schedule = Union[float, Callable[[torch.Tensor], torch.Tensor]]
+
+
+class TraceState(NamedTuple):
+    """``optax.trace``'s state: one trace per parameter."""
+    trace: Tuple[torch.Tensor, ...]
+
+
+class ScheduleState(NamedTuple):
+    """``optax.scale_by_schedule``'s state: the int32 count the
+    schedule is evaluated at (0 first)."""
+    count: torch.Tensor
+
+
+class AdamState(NamedTuple):
+    """``optax.scale_by_adam``'s state: the int32 update count and one
+    ``mu``, ``nu`` per parameter."""
+    count: torch.Tensor
+    mu: Tuple[torch.Tensor, ...]
+    nu: Tuple[torch.Tensor, ...]
+
+
+def _schedule_init(learning_rate: Schedule, params):
+    """``(ScheduleState,)`` for a callable lr, ``()`` for a constant."""
+    if not callable(learning_rate):
+        return ()
+    dev = params[0].device if params else None
+    return (ScheduleState(torch.zeros((), dtype=torch.int32, device=dev)),)
+
+
+def _scale_by_lr(learning_rate: Schedule, updates, sched):
+    """``optax.scale_by_learning_rate``: ``-lr * u`` with a constant lr
+    (rounded to each update's dtype); with a schedule, ``-lr(count)``
+    cast to each update's dtype times ``u``, and the count advanced.
+    Returns ``(updates, sched)``."""
+    if not callable(learning_rate):
+        return [u * -learning_rate for u in updates], sched
+    (st,) = sched
+    step_size = -learning_rate(st.count)
+    return ([step_size.to(u.dtype) * u for u in updates],
+            (ScheduleState(st.count + 1),))
+
+
+class SGD:
+    """Counterpart of ``optax.sgd(learning_rate, momentum, nesterov)``
+    for the dense parameters. ``learning_rate`` is a float or a ``count
+    -> lr`` schedule (a 0-d float32 tensor on the count's device, e.g.
+    ``models/schedules.py``). The state is optax's chain without its
+    empty parts: ``()`` for plain SGD, a :class:`TraceState` when
+    ``momentum`` is set, then a :class:`ScheduleState` for a schedule.
+    ``update`` returns the updates (``trace = g + m * trace``; the step
+    is the trace, or ``g + m * trace_new`` with ``nesterov``; times
+    ``-lr``) and a NEW state."""
+
+    def __init__(self, learning_rate: Schedule,
+                 momentum: Optional[float] = None, nesterov: bool = False):
+        self.learning_rate = (learning_rate if callable(learning_rate)
+                              else float(learning_rate))
+        self.momentum = momentum
+        self.nesterov = nesterov
 
     def init(self, params: Sequence[torch.Tensor]):
-        return ()
+        params = list(params)
+        state = ()
+        if self.momentum is not None:
+            state = (TraceState(tuple(torch.zeros_like(p.detach())
+                                      for p in params)),)
+        return state + _schedule_init(self.learning_rate, params)
 
     def update(self, grads: Sequence[torch.Tensor], state, params=None):
-        return [g * -self.learning_rate for g in grads], state
+        grads = list(grads)
+        head = ()
+        if self.momentum is not None:
+            m = self.momentum
+            trace = tuple(g + m * t for g, t in zip(grads, state[0].trace))
+            grads = ([g + m * t for g, t in zip(grads, trace)]
+                     if self.nesterov else list(trace))
+            head, state = (TraceState(trace),), state[1:]
+        updates, sched = _scale_by_lr(self.learning_rate, grads, state)
+        return updates, head + tuple(sched)
 
 
 class Adagrad:
@@ -173,3 +347,45 @@ class Adagrad:
                    * -self.learning_rate for g, s in zip(grads, new_state)]
         return updates, new_state
 
+
+
+class Adam:
+    """Counterpart of ``optax.adam(learning_rate, b1, b2, eps,
+    eps_root)`` for the dense parameters (``scale_by_adam``, then
+    ``-learning_rate``; a float or a schedule as :class:`SGD` takes).
+    The state is ``(AdamState(count, mu, nu),)``, then a
+    :class:`ScheduleState` for a schedule; ``update`` computes, in
+    optax's order, ``mu = (1-b1)*g + b1*mu``, ``nu = (1-b2)*g^2 +
+    b2*nu``, the int32 count advanced, ``u = (mu / (1 - b1**count)) /
+    (sqrt(nu / (1 - b2**count) + eps_root) + eps)`` and the lr scaling,
+    and returns the updates and a NEW state."""
+
+    def __init__(self, learning_rate: Schedule, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8,
+                 eps_root: float = 0.0):
+        self.learning_rate = (learning_rate if callable(learning_rate)
+                              else float(learning_rate))
+        self.b1, self.b2 = b1, b2
+        self.eps, self.eps_root = eps, eps_root
+
+    def init(self, params: Sequence[torch.Tensor]):
+        params = list(params)
+        dev = params[0].device if params else None
+        zeros = tuple(torch.zeros_like(p.detach()) for p in params)
+        return (AdamState(torch.zeros((), dtype=torch.int32, device=dev),
+                          zeros, tuple(torch.zeros_like(z) for z in zeros)),
+                ) + _schedule_init(self.learning_rate, params)
+
+    def update(self, grads: Sequence[torch.Tensor], state, params=None):
+        st = state[0]
+        b1, b2 = self.b1, self.b2
+        mu = tuple((1 - b1) * g + b1 * m for g, m in zip(grads, st.mu))
+        nu = tuple((1 - b2) * (g * g) + b2 * v for g, v in zip(grads, st.nu))
+        count = st.count + 1
+        bc = 1.0 - bias_powers(count, b1, b2)
+        updates = [(m / bc[0].to(m.dtype))
+                   / (torch.sqrt(v / bc[1].to(v.dtype) + self.eps_root)
+                      + self.eps) for m, v in zip(mu, nu)]
+        updates, sched = _scale_by_lr(self.learning_rate, updates,
+                                      state[1:])
+        return updates, (AdamState(count, mu, nu),) + tuple(sched)

@@ -4,7 +4,8 @@ world 1.
 
 * dense (data-parallel) parameters: autograd + a dense optimizer with
   ``optax``'s ``init``/``update`` contract (:class:`~.optimizers.SGD`,
-  :class:`~.optimizers.Adagrad`), updated in place;
+  :class:`~.optimizers.Adagrad`, :class:`~.optimizers.Adam`), updated
+  in place;
 * embedding slabs: **no autograd through the tables**. The forward runs
   outside autograd; its outputs are detached leaves, the dense model is
   differentiated w.r.t. them, and their cotangents feed
@@ -23,6 +24,7 @@ from __future__ import annotations
 from typing import Any, Callable, List, NamedTuple, Optional
 
 import torch
+from torch.utils import _pytree as pytree
 
 from ..ops.embedding_lookup import Ragged, SparseIds
 from ..utils import obs
@@ -32,7 +34,8 @@ class HybridTrainState(NamedTuple):
     """All mutable model state. ``emb_params`` is the slab dict
     ``{"w<width>": [world, rows_cap, width]}`` and ``emb_opt_state`` its
     optimizer state (``SparseAdagrad``: one slab-shaped accumulator per
-    width, updated in place with the slab); ``dense_params`` is the
+    width; ``SparseMomentum``: one trace; ``SparseAdam``: ``(mu, nu,
+    count)``; updated in place with the slab); ``dense_params`` is the
     dense module (a ``DLRMDense``, a ``SyntheticDense``) and
     ``dense_opt_state`` its optimizer state; ``step``
     is a 0-d int32 tensor on the card. The optimizer fields stay ``None``
@@ -97,8 +100,20 @@ def _select(ok, new, old):
     if isinstance(new, dict):
         return {k: _select(ok, v, old[k]) for k, v in new.items()}
     if isinstance(new, (tuple, list)):
-        return type(new)(_select(ok, a, b) for a, b in zip(new, old))
+        items = [_select(ok, a, b) for a, b in zip(new, old)]
+        return type(new)(*items) if hasattr(new, "_fields") \
+            else type(new)(items)
     return new
+
+
+def _small_leaves(de, emb_opt_state) -> List[torch.Tensor]:
+    """The tensor leaves of the embedding-optimizer state that are not
+    slab-shaped (Adam's step counts): the guard selects these, as the
+    JAX step does; slab-shaped state is protected by the sentinel."""
+    slab_shapes = {(de.world_size, r, w) for w, r in de.rows_cap.items()}
+    return [t for t in pytree.tree_leaves(emb_opt_state)
+            if isinstance(t, torch.Tensor)
+            and tuple(t.shape) not in slab_shapes]
 
 
 def _hybrid_local_step(de, loss_fn, dense_tx, emb_optimizer, lr_schedule,
@@ -111,8 +126,10 @@ def _hybrid_local_step(de, loss_fn, dense_tx, emb_optimizer, lr_schedule,
     ``nan_guard=True`` checks the loss and both gradient energies for
     NaN/Inf ON THE CARD and, on a non-finite verdict, skips the dense
     and sparse updates with parameters and optimizer state bitwise
-    unchanged; the step counter still advances and the returned loss is
-    the true (non-finite) value. The verdict is never read on the host.
+    unchanged (the slab-shaped state through the sentinel, the small
+    leaves, Adam's counts included, through a select); the step counter
+    still advances and the returned loss is the true (non-finite)
+    value. The verdict is never read on the host.
     """
     with torch.no_grad():
         outs, res = de.forward_with_residuals(state.emb_params, cat_inputs)
@@ -133,8 +150,15 @@ def _hybrid_local_step(de, loss_fn, dense_tx, emb_optimizer, lr_schedule,
             _sq_sum(dense_grads)) & torch.isfinite(probe))
 
     lr = lr_schedule(state.step) if callable(lr_schedule) else lr_schedule
+    small = _small_leaves(de, state.emb_opt_state) if nan_guard else []
+    before = [t.clone() for t in small]
     de.sparse_apply_gradients(state.emb_params, state.emb_opt_state, res,
                               list(out_grads), emb_optimizer, lr, enable=ok)
+    with torch.no_grad():
+        for t, old in zip(small, before):
+            # the sparse apply advanced it in place: keep the old value
+            # on a skipped step (JAX's where-select of non-slab leaves)
+            t.copy_(torch.where(ok, t, old))
     return loss, _apply_dense_and_assemble(state, dense_grads, dense_tx, ok,
                                            nan_guard)
 
@@ -152,9 +176,12 @@ def make_hybrid_train_step(de, loss_fn: Callable, dense_tx, emb_optimizer,
         mean loss over the batch.
       dense_tx: the dense optimizer (``init(params)``,
         ``update(grads, state, params) -> (updates, state)``;
-        :class:`~.optimizers.SGD`, :class:`~.optimizers.Adagrad`).
-      emb_optimizer: :class:`~.optimizers.SparseSGD` or
-        :class:`~.optimizers.SparseAdagrad`.
+        :class:`~.optimizers.SGD`, :class:`~.optimizers.Adagrad`,
+        :class:`~.optimizers.Adam`).
+      emb_optimizer: :class:`~.optimizers.SparseSGD`,
+        :class:`~.optimizers.SparseAdagrad`,
+        :class:`~.optimizers.SparseMomentum` or
+        :class:`~.optimizers.SparseAdam`.
       lr_schedule: the embedding learning rate, a constant or a
         ``step -> lr`` callable (called with the 0-d step tensor; it
         returns a 0-d float32 tensor on the card).

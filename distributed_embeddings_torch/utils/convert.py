@@ -13,7 +13,10 @@
   states and step, so both packages train from one state. It carries
   ``SparseAdagrad``'s accumulators (the JAX package's lane-packed
   ``[world, phys_rows, 128]`` slabs, unpacked to the port's logical
-  ``[world, rows_cap, w]``) and ``optax.adagrad``'s sum of squares.
+  ``[world, rows_cap, w]``) and ``optax.adagrad``'s sum of squares;
+  ``SparseMomentum``'s trace and ``SparseAdam``'s moments (unpacked
+  alike) and step count; ``optax.adam``'s ``ScaleByAdamState``,
+  ``optax.sgd``'s ``TraceState`` and a schedule's count.
 
 Nothing here imports JAX: the arrays arrive as numpy.
 """
@@ -71,44 +74,54 @@ def _leaf_count(tree) -> int:
 
 
 def _emb_state(de, params, emb_opt_state, emb_optimizer, device):
-    """The port's slab optimizer state from the JAX one (numpy)."""
+    """The port's slab optimizer state from the JAX one (numpy): each
+    lane-packed slab-shaped leaf (Adagrad's accumulator, momentum's
+    trace, Adam's ``mu``/``nu``) unpacked to logical rows, Adam's
+    ``[world, 1, 1]`` count as it is."""
     from ..ops.packed_slab import unpack_rows_np
-    from ..parallel.optimizers import SparseAdagrad
+    from ..parallel.optimizers import (SparseAdagrad, SparseAdam,
+                                       SparseMomentum)
 
     if not _leaf_count(emb_opt_state):
         return emb_optimizer.init(params) if emb_optimizer is not None \
             else {k: () for k in params}
-    if not isinstance(emb_optimizer, SparseAdagrad):
+    if not isinstance(emb_optimizer, (SparseAdagrad, SparseMomentum,
+                                      SparseAdam)):
         raise NotImplementedError(
-            "emb_opt_state holds arrays: only SparseAdagrad's accumulators "
-            "are carried (pass emb_optimizer=SparseAdagrad(...)); momentum "
-            "and Adam state are not ported yet (ROADMAP B8)")
+            "emb_opt_state holds arrays: pass the port's optimizer it "
+            "belongs to (emb_optimizer=SparseAdagrad(...), "
+            "SparseMomentum(...) or SparseAdam(...))")
+
+    def unpack(k, packed, slab):
+        w = slab.shape[-1]
+        out = np.stack([unpack_rows_np(np.asarray(packed[r]), w)
+                        for r in range(packed.shape[0])])
+        if out.shape != tuple(slab.shape):
+            raise ValueError(f"{k}: optimizer state unpacks to "
+                             f"{out.shape}, the slab is "
+                             f"{tuple(slab.shape)}")
+        return host_tensor(out).to(device)
+
     out = {}
     for k, slab in params.items():
-        w = slab.shape[-1]
-        packed = emb_opt_state[k]
-        acc = np.stack([unpack_rows_np(np.asarray(packed[r]), w)
-                        for r in range(packed.shape[0])])
-        if acc.shape != tuple(slab.shape):
-            raise ValueError(f"{k}: accumulator unpacks to {acc.shape}, "
-                             f"the slab is {tuple(slab.shape)}")
-        out[k] = host_tensor(acc).to(device)
+        st = emb_opt_state[k]
+        if isinstance(emb_optimizer, SparseAdam):
+            mu, nu, count = st
+            count = np.asarray(count)
+            if count.shape != (slab.shape[0], 1, 1):
+                raise ValueError(f"{k}: Adam count of shape {count.shape}, "
+                                 f"expected {(slab.shape[0], 1, 1)}")
+            out[k] = (unpack(k, mu, slab), unpack(k, nu, slab),
+                      host_tensor(count.astype(np.float32)).to(device))
+        else:
+            out[k] = unpack(k, st, slab)
     return out
 
 
-def _dense_state(dense, dense_opt_state, dense_tx):
-    """The port's dense optimizer state from the optax one (numpy)."""
-    from ..parallel.optimizers import Adagrad
-
-    if not _leaf_count(dense_opt_state):
-        return dense_tx.init(list(dense.parameters())) \
-            if dense_tx is not None else ()
-    rss = [s for s in dense_opt_state if hasattr(s, "sum_of_squares")]
-    if not isinstance(dense_tx, Adagrad) or len(rss) != 1:
-        raise NotImplementedError(
-            "dense_opt_state holds arrays: only optax.adagrad's sum of "
-            "squares is carried (pass dense_tx=Adagrad(...))")
-    tree = rss[0].sum_of_squares
+def _param_tensors(dense, tree):
+    """A flax ``Dense_i/{kernel, bias}`` tree (or ``{"params": ...}``) as
+    one host tensor per parameter of ``dense``, in its order (a kernel
+    ``[in, out]`` as ``[out, in]``)."""
     tree = tree.get("params", tree)
     names = sorted(tree, key=lambda k: int(k.split("_")[-1]))
     pairs = []
@@ -121,6 +134,59 @@ def _dense_state(dense, dense_opt_state, dense_tx):
         raise ValueError("the dense module's parameters are not its "
                          "linears' (weight, bias) pairs in flax order")
     return tuple(t.to(p.device).contiguous() for p, t in pairs)
+
+
+def _dense_state(dense, dense_opt_state, dense_tx):
+    """The port's dense optimizer state from the optax one (numpy):
+    ``optax.adagrad``'s sum of squares, ``optax.adam``'s
+    ``ScaleByAdamState``, ``optax.sgd``'s ``TraceState`` (momentum), and
+    the ``ScaleByScheduleState`` count a schedule keeps."""
+    from ..parallel.optimizers import (SGD, Adagrad, Adam, AdamState,
+                                       ScheduleState, TraceState)
+
+    if not _leaf_count(dense_opt_state):
+        return dense_tx.init(list(dense.parameters())) \
+            if dense_tx is not None else ()
+    if not isinstance(dense_tx, (SGD, Adagrad, Adam)):
+        raise NotImplementedError(
+            "dense_opt_state holds arrays: pass the port's optimizer it "
+            "belongs to (dense_tx=SGD(...), Adagrad(...) or Adam(...))")
+    parts = [s for s in dense_opt_state if _leaf_count(s)]
+    dev = next(dense.parameters()).device
+
+    def take(what, pred):
+        found = [s for s in parts if pred(s)]
+        if len(found) != 1:
+            names = [type(s).__name__ for s in parts]
+            raise ValueError(f"dense_opt_state: expected one {what}, found "
+                             f"{len(found)} in {names}")
+        parts.remove(found[0])
+        return found[0]
+
+    def count(s):
+        return torch.tensor(int(np.asarray(s.count)), dtype=torch.int32,
+                            device=dev)
+
+    if isinstance(dense_tx, Adagrad):
+        rss = take("sum of squares", lambda s: hasattr(s, "sum_of_squares"))
+        out = _param_tensors(dense, rss.sum_of_squares)
+    else:
+        out = ()
+        if isinstance(dense_tx, Adam):
+            st = take("ScaleByAdamState", lambda s: hasattr(s, "nu"))
+            out = (AdamState(count(st), _param_tensors(dense, st.mu),
+                             _param_tensors(dense, st.nu)),)
+        elif dense_tx.momentum is not None:
+            st = take("TraceState", lambda s: hasattr(s, "trace"))
+            out = (TraceState(_param_tensors(dense, st.trace)),)
+        if callable(dense_tx.learning_rate):
+            st = take("ScaleByScheduleState", lambda s: hasattr(s, "count"))
+            out += (ScheduleState(count(st)),)
+    if parts:
+        names = [type(s).__name__ for s in parts]
+        raise ValueError(f"dense_opt_state: {names} has no counterpart in "
+                         f"{type(dense_tx).__name__}")
+    return out
 
 
 def hybrid_state_from_jax(de, dense, tables: Sequence[Any],
@@ -138,11 +204,14 @@ def hybrid_state_from_jax(de, dense, tables: Sequence[Any],
     * ``emb_opt_state`` / ``dense_opt_state``: the optimizer states, read
       for ``emb_optimizer`` / ``dense_tx`` (the port's optimizers). State
       with no arrays (``SparseSGD``, ``optax.sgd``) needs neither. The
-      JAX ``SparseAdagrad`` accumulators are unpacked to logical rows,
-      keeping their dtype; ``optax.adagrad``'s ``ScaleByRssState`` becomes
-      :class:`~..parallel.optimizers.Adagrad`'s tuple (a flax kernel
-      ``[in, out]`` as ``[out, in]``). Momentum and Adam state raise
-      (ROADMAP B8).
+      JAX ``SparseAdagrad`` accumulators, ``SparseMomentum`` traces and
+      ``SparseAdam`` moments are unpacked to logical rows, keeping their
+      dtype (Adam's count stays ``[world, 1, 1]`` float32);
+      ``optax.adagrad``'s ``ScaleByRssState`` becomes
+      :class:`~..parallel.optimizers.Adagrad`'s tuple, ``optax.adam``'s
+      and ``optax.sgd``'s states the port's ``AdamState`` /
+      ``TraceState`` / ``ScheduleState`` tuples (a flax kernel ``[in,
+      out]`` as ``[out, in]``).
     """
     from ..parallel.trainer import HybridTrainState
 

@@ -17,9 +17,9 @@ k ulps of its dtype of ``|old| + sum |update|`` (both sides add with
 atomics, in an order of the card's choosing). A small DLRM trained 5
 steps on the card (kernels) and on the CPU (plain versions), float32:
 losses, tables and dense params within 1e-4 (cuBLAS and the CPU sum in
-other orders). The dedup (K5), Adagrad row (K6) and dense (K7) kernels
-and a 3-step tiny-zoo run card-vs-CPU state their bounds where they are
-tested.
+other orders). The dedup (K5), Adagrad row (K6) and dense (K7) kernels,
+the Adam (K11) and momentum (K12) row kernels and the 3-step tiny-zoo
+runs card-vs-CPU state their bounds where they are tested.
 """
 
 import numpy as np
@@ -31,14 +31,15 @@ from distributed_embeddings_torch.models import (
     synthetic_models_v3)
 from distributed_embeddings_torch.ops import (
     adagrad_dense, adagrad_dense_plain, adagrad_rows, adagrad_rows_plain,
+    adam_rows, adam_rows_plain, momentum_rows, momentum_rows_plain,
     dedup_sparse_grad, dedup_sparse_grad_plain, dot_interact_bwd,
     dot_interact_bwd_plain, dot_interact_fwd, dot_interact_fwd_plain,
     embedding_lookup, gather_combine, gather_combine_plain, sgd_scatter,
     sgd_scatter_plain)
 from distributed_embeddings_torch.parallel import (
-    SGD, Adagrad, DistributedEmbedding, HybridTrainState, ServeConfig,
-    Served, ServingRuntime, SparseAdagrad, SparseSGD, make_hybrid_train_step,
-    synthetic_request)
+    SGD, Adagrad, Adam, DistributedEmbedding, HybridTrainState, ServeConfig,
+    Served, ServingRuntime, SparseAdagrad, SparseAdam, SparseMomentum,
+    SparseSGD, make_hybrid_train_step, synthetic_request)
 
 from torch_parity import assert_within_ulps, cuda_device, to_np  # noqa: F401
 
@@ -520,6 +521,229 @@ def test_zoo_train_on_the_card_matches_the_cpu(cuda_device, ratio):
         np.testing.assert_allclose(a, b, atol=1e-5, rtol=0)
     for k in ac:
         np.testing.assert_allclose(ag[k], ac[k], rtol=1e-4, atol=0)
+    for a, b in zip(dg, dc):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-4, rtol=0)
+
+
+# ------------------------------------------------- K11 / K12: Adam, momentum
+
+
+def _row_case(rng, R, width, dtype, device, n_rows=150, unaligned=False):
+    """Unique sorted ids (no 0: a negative id reads row 0, and K6/K11/K12
+    read it in no set order against row 0's own update), negative ids,
+    the sentinel, ids past the slab and a pad tail; gradient rows in
+    ``dtype`` (``unaligned``: a contiguous view 4 bytes off its buffer,
+    so the kernel takes its one-element path)."""
+    rows = 1 + rng.permutation(R - 21)[:n_rows]  # rows R-20.. for negatives
+    uids = np.concatenate([np.sort(rows), [-1, -7, R, R, 10 ** 6, -R - 3]])
+    g = rng.normal(size=(len(uids), width)).astype(np.float32)
+    gt = torch.from_numpy(g).to(dtype).to(device)
+    if unaligned:
+        buf = torch.empty(g.size + 1, dtype=dtype, device=device)
+        buf[1:] = gt.reshape(-1)
+        gt = buf[1:].view(len(uids), width)
+        assert gt.data_ptr() % 16 != 0
+    return uids, gt, np.union1d(rows, [R - 1, R - 7])
+
+
+ROW_CASES = [(8, False), (16, False), (40, False), (3, False), (16, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slab_dtype,mom_dtype", ADAGRAD_PAIRS)
+@pytest.mark.parametrize("width,unaligned", ROW_CASES)
+def test_adam_rows_kernel_matches_plain(cuda_device, slab_dtype, mom_dtype,
+                                        width, unaligned):
+    """K11 against its plain version (on the card) on unique rows,
+    negative ids, the sentinel, ids past the slab and the pad tail, for
+    a constant and a device lr and counts 1 and 1000, int32 and int64
+    ids, 4-element and one-element loads: slab, mu and nu bit-exact
+    (the same correctly rounded ops in the same order; the bias
+    corrections come from one computation), untouched rows bitwise
+    unchanged."""
+    rng = np.random.default_rng(width + 100 * unaligned)
+    R = 400
+    uids, g, hit = _row_case(rng, R, width, mom_dtype, cuda_device,
+                             unaligned=unaligned)
+    untouched = np.setdiff1d(np.arange(R), hit)
+    for ids_dtype, lr, count in ((torch.int32, 0.01, 1.0),
+                                 (torch.int64, torch.tensor(0.013), 1000.0),
+                                 (torch.int32, torch.tensor(0.013), 1.0),
+                                 (torch.int64, 0.01, 1000.0)):
+        slab = torch.from_numpy(rng.normal(size=(R, width)).astype(
+            np.float32)).to(slab_dtype).to(cuda_device)
+        mu = torch.from_numpy(rng.normal(size=(R, width)).astype(
+            np.float32) * 0.1).to(mom_dtype).to(cuda_device)
+        nu = torch.from_numpy(rng.random((R, width)).astype(
+            np.float32) * 0.1).to(mom_dtype).to(cuda_device)
+        cnt = torch.full((1, 1), count, device=cuda_device)
+        tid = torch.from_numpy(uids).to(ids_dtype).to(cuda_device)
+        lr_d = lr.to(cuda_device) if isinstance(lr, torch.Tensor) else lr
+        got = [slab.clone(), mu.clone(), nu.clone()]
+        want = [slab.clone(), mu.clone(), nu.clone()]
+        before = adam_rows.launches
+        adam_rows(*got, cnt, tid, g, lr_d, 0.9, 0.999, 1e-8, 0.0)
+        assert adam_rows.launches == before + 1
+        adam_rows_plain(*want, cnt, tid, g, lr_d, 0.9, 0.999, 1e-8, 0.0)
+        for a, b, old in zip(got, want, (slab, mu, nu)):
+            np.testing.assert_array_equal(to_np(a), to_np(b))
+            assert torch.equal(a[untouched], old[untouched])
+        assert not torch.equal(got[0], slab)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slab_dtype,tr_dtype", ADAGRAD_PAIRS)
+@pytest.mark.parametrize("width,unaligned", ROW_CASES)
+def test_momentum_rows_kernel_matches_plain(cuda_device, slab_dtype,
+                                            tr_dtype, width, unaligned):
+    """K12 against its plain version as K11 above, with and without
+    Nesterov: slab and trace bit-exact, untouched rows unchanged."""
+    rng = np.random.default_rng(width + 100 * unaligned + 7)
+    R = 400
+    uids, g, hit = _row_case(rng, R, width, tr_dtype, cuda_device,
+                             unaligned=unaligned)
+    untouched = np.setdiff1d(np.arange(R), hit)
+    for ids_dtype, lr, nest in ((torch.int32, 0.01, False),
+                                (torch.int64, torch.tensor(0.013), True),
+                                (torch.int32, torch.tensor(0.013), False),
+                                (torch.int64, 0.01, True)):
+        slab = torch.from_numpy(rng.normal(size=(R, width)).astype(
+            np.float32)).to(slab_dtype).to(cuda_device)
+        tr = torch.from_numpy(rng.normal(size=(R, width)).astype(
+            np.float32) * 0.1).to(tr_dtype).to(cuda_device)
+        tid = torch.from_numpy(uids).to(ids_dtype).to(cuda_device)
+        lr_d = lr.to(cuda_device) if isinstance(lr, torch.Tensor) else lr
+        got, want = [slab.clone(), tr.clone()], [slab.clone(), tr.clone()]
+        before = momentum_rows.launches
+        momentum_rows(*got, tid, g, lr_d, 0.9, nest)
+        assert momentum_rows.launches == before + 1
+        momentum_rows_plain(*want, tid, g, lr_d, 0.9, nest)
+        for a, b, old in zip(got, want, (slab, tr)):
+            np.testing.assert_array_equal(to_np(a), to_np(b))
+            assert torch.equal(a[untouched], old[untouched])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["adam", "momentum"])
+def test_hot_id_apply_rows_kernels_match_plain(cuda_device, name):
+    """Two ``apply_rows`` calls on a stream where one id repeats 50,000
+    times among Zipfian ids, each kernel held on the card to the inputs
+    the call gave it, every row bit-exact, the hot row included:
+    - K5: its unique ids equal the plain dedup's, and its sum of the hot
+      row equals the float32 sum in K5's fixed order (the stably sorted
+      rows cut at multiples of 256, each piece summed in order, then the
+      pieces in order), which numpy repeats;
+    - K11/K12 on K5's own output, applied by the plain version to a copy
+      of the state taken before the call (Adam's count as the call
+      advanced it): slab and state equal."""
+    from distributed_embeddings_torch.parallel import optimizers
+
+    rng = np.random.default_rng(50)
+    R, w, n, hot, chunk = 5000, 16, 120_000, 1234, 256
+    ids = (rng.zipf(1.2, size=n) - 1) % R
+    ids[rng.permutation(n)[:50_000]] = hot
+    vals = rng.normal(size=(n, w)).astype(np.float32)
+    rows = vals[ids == hot]
+    start = int((ids < hot).sum())  # the hot id's first sorted position
+    cuts = np.r_[0, np.arange((start // chunk + 1) * chunk,
+                              start + len(rows), chunk) - start, len(rows)]
+    pieces = np.stack([np.add.accumulate(rows[a:b], dtype=np.float32)[-1]
+                       for a, b in zip(cuts[:-1], cuts[1:])])
+    hot_sum = np.add.accumulate(pieces, dtype=np.float32)[-1]
+    tids = torch.from_numpy(ids.astype(np.int32)).to(cuda_device)
+    tvals = torch.from_numpy(vals).to(cuda_device)
+    slab = torch.from_numpy(rng.normal(size=(R, w)).astype(np.float32)
+                            ).to(cuda_device)
+    opt = SparseAdam() if name == "adam" else SparseMomentum(0.9)
+    st = opt.init({"w": slab})["w"]
+    real, calls = optimizers.dedup_sparse_grad, []
+
+    def dedup(*args, **kw):
+        calls.append(real(*args, **kw))
+        return calls[-1]
+
+    pu, _ = dedup_sparse_grad_plain(tids, tvals, pad_id=R, max_unique=R + 1)
+    for _ in range(2):
+        ws, old_hot = slab.clone(), slab[hot].clone()
+        wst = tuple(t.clone() for t in st) if name == "adam" else st.clone()
+        optimizers.dedup_sparse_grad = dedup
+        try:
+            slab, st = opt.apply_rows(slab, st, tids, tvals, 0.01)
+        finally:
+            optimizers.dedup_sparse_grad = real
+        uids, uvals = calls[-1]
+        assert torch.equal(uids, pu)
+        assert int((uids == hot).sum()) == 1
+        np.testing.assert_array_equal(to_np(uvals[uids == hot][0]), hot_sum)
+        if name == "adam":
+            assert float(st[2]) == float(wst[2]) + 1
+            adam_rows_plain(ws, wst[0], wst[1], st[2], uids, uvals, 0.01,
+                            opt.b1, opt.b2, opt.eps, opt.eps_root)
+            got, want = (slab,) + st[:2], (ws,) + wst[:2]
+        else:
+            momentum_rows_plain(ws, wst, uids, uvals, 0.01, 0.9, False)
+            got, want = (slab, st), (ws, wst)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(to_np(a), to_np(b))
+        assert not torch.equal(slab[hot], old_hot)
+
+
+@pytest.mark.cuda
+def test_adam_zoo_train_on_the_card_matches_the_cpu(cuda_device):
+    """The capped tiny zoo trained 3 steps with ``SparseAdam`` + ``Adam``
+    on the card (K1, K5 + K11 per slab) and on the CPU (the plain
+    versions) from one state, float32: losses within 1e-5 relative,
+    moments within 1e-5, dense params within 1e-4; tables within 1e-4
+    except where Adam's sign-like step turns a summed gradient within
+    rounding of zero (K5 sums in pieces) into a step up to 2 lr the
+    other way, at most 0.01% of the values."""
+    cfg = synthetic_models_v3["tiny"]
+    gen = InputGenerator(cfg, 128, alpha=1.05, num_batches=3, seed=4,
+                         row_cap=500, device="cpu")
+    out = {}
+    for dev in ("cpu", cuda_device):
+        de, dense, _ = build_synthetic(
+            cfg, 1, row_cap=500, device=dev,
+            generator=torch.Generator(device=dev).manual_seed(0))
+        if dev == "cpu":
+            init = de.init(torch.Generator().manual_seed(1), device="cpu")
+            dense_init = {k: v.clone() for k, v in dense.state_dict().items()}
+        dense.load_state_dict(dense_init)
+        params = {k: v.clone().to(dev) for k, v in init.items()}
+        state = HybridTrainState(
+            emb_params=params, emb_opt_state=SparseAdam().init(params),
+            dense_params=dense,
+            dense_opt_state=Adam(0.01).init(list(dense.parameters())),
+            step=torch.zeros((), dtype=torch.int32, device=dev))
+        step = make_hybrid_train_step(de, _mse, Adam(0.01), SparseAdam(),
+                                      lr_schedule=0.01)
+        kernels = (dedup_sparse_grad, adam_rows, sgd_scatter, adagrad_rows)
+        before = [k.launches for k in kernels]
+        losses = []
+        for k in range(3):
+            n, c, y = gen[k]
+            loss, state = step(state, [t.to(dev) for t in c],
+                               (n.to(dev), y.to(dev)))
+            losses.append(float(loss))
+        launched = [k.launches - b for k, b in zip(kernels, before)]
+        assert launched == ([0, 0, 0, 0] if dev == "cpu" else [6, 6, 0, 0])
+        out[str(dev)] = (np.array(losses), de.get_weights(state.emb_params),
+                         {k: [to_np(t) for t in v] for k, v in
+                          state.emb_opt_state.items()},
+                         [p.detach().cpu() for p in dense.parameters()])
+    (lc, tc, ac, dc), (lg, tg, ag, dg) = out["cpu"], out[str(cuda_device)]
+    np.testing.assert_allclose(lg, lc, rtol=1e-5)
+    far = total = 0
+    for a, b in zip(tg, tc):
+        err = np.abs(a - b)
+        assert (err <= 2 * 0.01 * 3).all()
+        far += int((err > 1e-4).sum())
+        total += err.size
+    assert far <= total // 10_000, far
+    for k in ac:
+        for a, b in zip(ag[k][:2], ac[k][:2]):
+            np.testing.assert_allclose(a, b, atol=1e-5, rtol=0)
+        np.testing.assert_array_equal(ag[k][2], ac[k][2])
     for a, b in zip(dg, dc):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-4, rtol=0)
 

@@ -68,7 +68,9 @@ def test_sources_exist():
             "optimizers.py", "apply.py", "trainer.py", "obs.py",
             "sparse_grad.py", "adagrad.py", "synthetic.py",
             "synthetic_configs.py", "packed_slab.py", "convert.py",
-            "lookup.py", "exchange.py", "dist_embedding.py"} <= names
+            "lookup.py", "exchange.py", "dist_embedding.py", "adam.py",
+            "momentum.py", "learnable.py", "schedules.py",
+            "metrics.py"} <= names
 
 
 def test_every_kernel_source_is_bound():
@@ -79,7 +81,8 @@ def test_every_kernel_source_is_bound():
     cu = {p.stem for p in (ROOT / "distributed_embeddings_torch" / "csrc"
                            ).glob("*.cu")}
     assert cu == set(_kernels.SIGNATURES)
-    assert {"csr", "ragged_combine", "ragged_grad"} <= cu
+    assert {"csr", "ragged_combine", "ragged_grad", "adam",
+            "momentum"} <= cu
 
 
 @pytest.mark.parametrize("path", _sources(),
@@ -133,6 +136,14 @@ def test_port_module_is_standalone(path):
     "    except OSError:\n        return el.row_to_split_plain(i, 8)\n",
     "def f(s):\n    try:\n        return ragged_row_ids(s, 8)\n"
     "    except RuntimeError:\n        return ragged_row_ids_plain(s, 8)\n",
+    "def f(*a):\n    try:\n        return adam_rows(*a)\n"
+    "    except RuntimeError:\n        return adam.adam_rows_plain(*a)\n",
+    "def f(*a):\n    try:\n        return ops.momentum_rows(*a)\n"
+    "    except (OSError, RuntimeError):\n"
+    "        return momentum_rows_plain(*a)\n",
+    "from distributed_embeddings_tpu.models.learnable import "
+    "LearnableClicks\n",
+    "from distributed_embeddings_tpu.utils.metrics import binary_auc\n",
 ])
 def test_checker_catches_seeded_violations(bad):
     assert violations(bad)
