@@ -93,7 +93,9 @@ Phases (any failure raises and the script exits non-zero):
    a. K11 and K12 against their plain versions on the card, bit-exact,
       at the edge cases (fp32/bf16 tables and state, widths 16, 8 and 3,
       a Python and a device lr, counts 1 and 1000, Nesterov, negative
-      ids, the sentinel, the pad tail, an id repeated 50,000 times);
+      ids, the sentinel, the pad tail, an id repeated 50,000 times),
+      and K6, K11 and K12 on a stream holding a negative id beside its
+      wrapped row and id 0 beside -R;
    b. the tiny zoo capped at 20000 rows, b=4096, 5 lockstep steps with
       ``SparseAdam`` + ``Adam`` and with ``SparseMomentum`` + ``Adagrad``,
       fp32 and bf16 tables, each step also run from a copy of the same
@@ -113,6 +115,24 @@ Phases (any failure raises and the script exits non-zero):
    e. the same slabs with ``SparseMomentum(0.9)`` and with Nesterov: one
       checked step and 5 timed steps each, K12 timed;
    f. bf16 tables with ``SparseAdam``: one checked step, 20 timed steps.
+11. telemetry, after freeing the Adam state: access telemetry
+    (``analysis/telemetry.py``, K13-K15 in ``csrc/sketch.cu``) on
+    ``bench.py:run_telemetry_overhead``'s configuration (the one-hot
+    DLRM over the Criteo-Kaggle vocabularies capped at 2M rows, bf16
+    tables and compute, ``SparseSGD`` + SGD at lr 0.005, b=16384, guard
+    off, the default sketch):
+   a. 3 steps with K13-K15 and 3 with their plain versions: every
+      telemetry leaf bitwise equal;
+   b. 3 lockstep steps with telemetry on and off: losses, dense params
+      and K3's inputs bitwise, the slab within K3's atomic order;
+   c. a NaN batch under the guard: the train state bitwise unchanged,
+      its ids folded (bitwise the plain fold of them);
+   d. planted hot rows ranked first in their tables by ``hot_rows``;
+   e. 2 warmup + 12 timed steps off and on (launches a step: K1, K2,
+      K4, K3, K13, K14, K15 once), ``telemetry_overhead_frac``;
+   f. K13, K14 and K15 timed on the step's stream (and, in phase 9f, on
+      the ragged step's ~26.4M positions) beside their plain versions,
+      a PyTorch yardstick and their byte bounds.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Run from the root of a checkout:
@@ -458,10 +478,11 @@ def kernel_fns():
     """Every kernel wrapper of the port, by name (each counts its own
     launches)."""
     from distributed_embeddings_torch.ops import (
-        adagrad_dense, adagrad_rows, adam_rows, dedup_sparse_grad,
-        dot_interact_bwd, dot_interact_fwd, gather_combine, lengths_to_splits,
-        momentum_rows, ragged_combine, ragged_grad, ragged_row_ids,
-        row_to_split, sgd_scatter)
+        adagrad_dense, adagrad_rows, adam_rows, cms_query, cms_update,
+        dedup_sparse_grad, dot_interact_bwd, dot_interact_fwd,
+        gather_combine, lengths_to_splits, momentum_rows, ragged_combine,
+        ragged_grad, ragged_row_ids, row_to_split, sgd_scatter, topk_merge,
+        topk_pool)
 
     return {"gather_combine": gather_combine,
             "dot_interact_fwd": dot_interact_fwd,
@@ -471,7 +492,9 @@ def kernel_fns():
             "ragged_combine": ragged_combine, "ragged_grad": ragged_grad,
             "lengths_to_splits": lengths_to_splits,
             "row_to_split": row_to_split, "ragged_row_ids": ragged_row_ids,
-            "adam_rows": adam_rows, "momentum_rows": momentum_rows}
+            "adam_rows": adam_rows, "momentum_rows": momentum_rows,
+            "cms_update": cms_update, "cms_query": cms_query,
+            "topk_pool": topk_pool, "topk_merge": topk_merge}
 
 
 def zero_counts():
@@ -488,10 +511,11 @@ def plain_kernels(names=None):
     """Route every kernel call site of the package (or, with ``names``,
     those of the wrappers so named) to its plain version (the reference
     run of the small training checks)."""
+    from distributed_embeddings_torch.analysis import telemetry
     from distributed_embeddings_torch.ops import (
         adagrad, adam, gather_combine_plain, interaction,
         lengths_to_splits_plain, momentum, ragged_combine_plain,
-        row_to_split_plain, scatter_add, sparse_grad)
+        row_to_split_plain, scatter_add, sketch, sparse_grad)
     from distributed_embeddings_torch.parallel import (
         apply, dist_embedding, lookup, optimizers)
 
@@ -511,7 +535,11 @@ def plain_kernels(names=None):
              (optimizers, "adagrad_rows", adagrad.adagrad_rows_plain),
              (optimizers, "adagrad_dense", adagrad.adagrad_dense_plain),
              (optimizers, "adam_rows", adam.adam_rows_plain),
-             (optimizers, "momentum_rows", momentum.momentum_rows_plain)]
+             (optimizers, "momentum_rows", momentum.momentum_rows_plain),
+             (telemetry, "sketch_update", sketch.cms_update_plain),
+             (telemetry, "sketch_query", sketch.cms_query_plain),
+             (telemetry, "topk_pool", sketch.topk_pool_plain),
+             (telemetry, "topk_merge", sketch.topk_merge_plain)]
     if names is not None:
         swaps = [sw for sw in swaps if sw[1] in names]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
@@ -2503,13 +2531,15 @@ def ragged_kernel_times(torch, de, st, batches):
     slab = st.emb_params["w128"][0]
     w = slab.shape[1]
     k8, k9, k10 = [], [], []
-    stream = None
+    stream = tstream = None
     for cats, batch in batches:
         with record_calls(lookup, "ragged_combine", keep_out=False) as c8, \
                 record_calls(lookup, "lengths_to_splits",
                              keep_out=False) as c10, \
                 torch.no_grad():
             outs, res = de.forward_with_residuals(st.emb_params, cats)
+        if tstream is None:  # K13-K15's input: the step's telemetry stream
+            tstream = de.telemetry_streams(res)[w]
         grads = [torch.randn_like(o) * 1e-3 for o in outs]
         with record_calls(apply, "ragged_grad", keep_out=False) as c9:
             per_width = apply.cotangent_width_streams(de, res, grads)
@@ -2647,6 +2677,12 @@ def ragged_kernel_times(torch, de, st, batches):
         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
         unique_rows=uniq, ids=n3, bytes=nbytes)
     del stream, ids, vals
+    # K13-K15 on the step's telemetry stream (~26.4M positions)
+    from distributed_embeddings_torch.analysis import telemetry as tel
+
+    cases["telemetry"] = sketch_kernel_times(
+        torch, *tstream, tel.config_from_env(), f"ragged b{TRAIN_BATCH}")
+    del tstream
     for name in ("ragged_combine", "ragged_grad", "sgd_scatter"):
         c = cases[name]
         log(f"time {name} {c['case']}: kernel {c['ms']:.4f} ms, plain "
@@ -2851,10 +2887,60 @@ def adam_kernel_checks(torch):
         for a, b in pairs:
             exact(torch, a, b, what + " state")
         n_cases += 1
+    n_cases += wrapped_row_checks(torch, errs)
     torch.cuda.synchronize()
-    log(f"adam: K11/K12 edge cases on the card: {n_cases} cases bit-exact "
-        f"against the plain versions (max_abs_err {errs})")
+    log(f"adam: K6/K11/K12 edge cases on the card: {n_cases} cases "
+        f"bit-exact against the plain versions (max_abs_err {errs})")
     return errs
+
+
+def wrapped_row_checks(torch, errs):
+    """A negative id beside its wrapped row, and id 0 beside -R (which
+    wraps to row 0), in one sorted stream: K6, K11 and K12 (and
+    Nesterov) against their plain versions, fp32 and bf16 tables and
+    state, slab and state bit-exact. The plain versions hold JAX's order
+    (tests/test_torch_wrapped_rows.py): both deltas land on the wrapped
+    row, the negative id's first, and the row's own state transition
+    stays. Returns the number of cases."""
+    from distributed_embeddings_torch.ops import (
+        adagrad_rows, adagrad_rows_plain)
+
+    R, w = 4096, 16
+    uids = torch.tensor([-R - 2, -R, -9, -3, 0, 11, 40, R - 9, R - 3, R, R],
+                        dtype=torch.int32, device="cuda")
+    errs.setdefault("adagrad_rows", 0.0)
+    n_cases = 0
+    for dt in (torch.float32, torch.bfloat16):
+        g = torch.randn((uids.numel(), w), device="cuda").to(dt)
+        for name in ("adagrad", "adam", "momentum", "nesterov"):
+            slab = torch.randn((R, w), device="cuda").to(dt)
+            if name == "adam":
+                st = ((0.1 * torch.randn((R, w), device="cuda")).to(dt),
+                      (0.1 * torch.rand((R, w), device="cuda")).to(dt),
+                      torch.full((1, 1), 7.0, device="cuda"))
+            else:
+                st = (0.05 + 0.2 * torch.rand((R, w), device="cuda")).to(dt)
+            runs = []
+            for kernel in (True, False):
+                s_, t_ = slab.clone(), clone_tree(st)
+                if name == "adagrad":
+                    (adagrad_rows if kernel else adagrad_rows_plain)(
+                        s_, t_, uids, g, ZOO_LR, 1e-7)
+                else:
+                    row_update(torch, "adam" if name == "adam" else
+                               "momentum", kernel, s_, t_, uids, g, ZOO_LR,
+                               name == "nesterov")
+                runs.append([s_] + (list(t_[:2]) if name == "adam"
+                                    else [t_]))
+            site = {"adagrad": "adagrad_rows", "adam": "adam_rows"}.get(
+                name, "momentum_rows")
+            what = f"{site} wrapped rows {name} {str(dt)[6:]}"
+            for a, b in zip(*runs):
+                errs[site] = max(errs[site], exact(torch, a, b, what))
+            check(not torch.equal(runs[0][0][R - 3], slab[R - 3]),
+                  f"{what}: the wrapped row did not move")
+            n_cases += 1
+    return n_cases
 
 
 def adam_small_check(torch, dtype, name):
@@ -3227,6 +3313,455 @@ def phase_adam(torch):
 
 
 
+# ------------------------------------------------------------- telemetry
+
+TELEM_BATCH = 16384            # bench.py:run_telemetry_overhead's batch
+TELEM_STEPS = 12               # its timed steps (bench.py RESIL_STEPS)
+TELEM_WARMUP = 2
+TELEM_CHECK_STEPS = 3
+TELEMETRY_SITES = ("sketch_update", "sketch_query", "topk_pool",
+                   "topk_merge")  # the call sites of K13-K15
+#: planted hot rows (table: row), each given half its table's ids
+TELEM_PLANTED = {2: 123_457, 11: 999, 20: KAGGLE_CAP - 1}
+
+
+def telemetry_model(torch, seed):
+    """``run_telemetry_overhead``'s model: the one-hot DLRM over the
+    Criteo-Kaggle vocabularies capped at 2M rows, bf16 tables and
+    compute, ``SparseSGD`` + SGD at lr 0.005."""
+    from distributed_embeddings_torch.models import DLRMConfig, DLRMDense
+    from distributed_embeddings_torch.parallel import (
+        SGD, DistributedEmbedding, SparseSGD, init_hybrid_state)
+
+    cfg = DLRMConfig(table_sizes=ragged_sizes(), embedding_dim=128,
+                     num_numerical_features=13,
+                     bottom_mlp_dims=(512, 256, 128),
+                     top_mlp_dims=(1024, 1024, 512, 256, 1),
+                     compute_dtype=torch.bfloat16)
+    de = DistributedEmbedding(cfg.embedding_configs(), world_size=1,
+                              compute_dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dense = DLRMDense(cfg, device="cuda", generator=gen)
+    st = init_hybrid_state(de, SparseSGD(), dense, SGD(TRAIN_LR),
+                           generator=gen, dtype=torch.bfloat16,
+                           device="cuda")
+    return de, st
+
+
+def telemetry_step(de, telemetry, nan_guard=False):
+    from distributed_embeddings_torch.parallel import (
+        SGD, SparseSGD, make_hybrid_train_step)
+
+    return make_hybrid_train_step(de, loss_fn, SGD(TRAIN_LR), SparseSGD(),
+                                  lr_schedule=TRAIN_LR, nan_guard=nan_guard,
+                                  telemetry=telemetry)
+
+
+def telem_equal(torch, a, b, what):
+    """Every leaf of two telemetry states bitwise equal."""
+    for k in a:
+        if isinstance(a[k], dict):
+            telem_equal(torch, a[k], b[k], f"{what} {k}")
+        else:
+            exact(torch, a[k], b[k], f"{what} {k}")
+
+
+def telemetry_per_step(launches):
+    """Launches of one telemetry step of the one-hot DLRM (one width):
+    K1, K2, K4 and K3 once, K13, K14 (the pool) and K15 once."""
+    want = {name: 0 for name in kernel_fns()}
+    want.update(gather_combine=1, dot_interact_fwd=1, dot_interact_bwd=1,
+                sgd_scatter=1, cms_update=1, topk_pool=1, topk_merge=1)
+    return {k: v * launches for k, v in want.items()}
+
+
+def telemetry_checks(torch, de, st, sizes, cfg):
+    """The telemetry path held on the card (see ``phase_telemetry``).
+    Returns the state and the errors (0: bitwise)."""
+    from distributed_embeddings_torch.analysis import telemetry as tel
+    from distributed_embeddings_torch.parallel import optimizers
+
+    step_on = telemetry_step(de, cfg)
+    step_off = telemetry_step(de, None)
+    batches = [train_batch(torch, sizes, TELEM_BATCH, SEED + 131 + i)
+               for i in range(TELEM_CHECK_STEPS)]
+    # (a) K13-K15 against their plain versions over three steps: the
+    # telemetry state is the ids' alone, so each run trains its own copy
+    ref = clone_state(st)
+    tk, tp = (tel.init_telemetry(de, cfg, device="cuda") for _ in range(2))
+    for i, (cats, batch) in enumerate(batches):
+        zero_counts()
+        _, st, tk = step_on(st, cats, batch, tk)
+        torch.cuda.synchronize()
+        got = read_counts()
+        check(got == telemetry_per_step(1), f"telemetry step {i}: "
+              f"launches {got}, expected {telemetry_per_step(1)}")
+        zero_counts()
+        with plain_kernels(TELEMETRY_SITES):
+            _, ref, tp = step_on(ref, cats, batch, tp)
+        torch.cuda.synchronize()
+        got = read_counts()
+        want = dict(telemetry_per_step(1), cms_update=0, topk_pool=0,
+                    topk_merge=0)
+        check(got == want, f"telemetry step {i} (plain K13-K15): "
+              f"launches {got}, expected {want}")
+        telem_equal(torch, tk, tp, f"telemetry step {i} kernels vs plain")
+    live = TELEM_CHECK_STEPS * len(sizes) * TELEM_BATCH
+    check(float(tk["ids_total"][0, 0]) == live and int(tk["steps"][0, 0])
+          == TELEM_CHECK_STEPS, f"telemetry: ids_total "
+          f"{float(tk['ids_total'][0, 0])} != {live}")
+    log(f"  telemetry: {TELEM_CHECK_STEPS} steps with K13-K15 and with "
+        f"their plain versions: cms, topk_ids, topk_est, ids, steps and "
+        f"ids_total bitwise equal; {live} ids counted")
+    del ref, tp
+    # (b) telemetry on against off, in lockstep from one state: losses,
+    # dense params and K3's inputs bitwise; the slab within the order of
+    # K3's atomic adds (rows hit once bitwise)
+    telem = tel.init_telemetry(de, cfg, device="cuda")
+    slab_bitwise = True
+    worst = 0.0
+    for i, (cats, batch) in enumerate(batches):
+        off = clone_state(st)
+        before = st.emb_params["w128"][0].clone()
+        with record_calls(optimizers, "sgd_scatter", keep_out=False) as kon:
+            loss_on, st, telem = step_on(st, cats, batch, telem)
+        with record_calls(optimizers, "sgd_scatter", keep_out=False) as koff:
+            loss_off, off = step_off(off, cats, batch)
+        torch.cuda.synchronize()
+        check(torch.equal(loss_on, loss_off), f"telemetry on/off step {i}: "
+              f"loss {float(loss_on)} != {float(loss_off)}")
+        check(all(torch.equal(a, b) for a, b in zip(
+            st.dense_params.parameters(), off.dense_params.parameters())),
+            f"telemetry on/off step {i}: dense params differ")
+        (a_on, _), (a_off, _) = kon[0][:2], koff[0][:2]
+        for x, y in zip(a_on[1:3], a_off[1:3]):
+            exact(torch, x, y, f"telemetry on/off step {i}: K3's inputs")
+        streams = [(None, None, (a_on[1], a_on[2]))]
+        hits, mag = stream_bounds(torch, streams, before)
+        bad, err = slab_misses(torch, st.emb_params["w128"][0],
+                               off.emb_params["w128"][0], hits, mag)
+        check(bad == 0, f"telemetry on/off step {i}: {bad} slab values "
+              f"beyond K3's atomic-order bound (max err {err})")
+        worst = max(worst, err)
+        slab_bitwise &= torch.equal(st.emb_params["w128"],
+                                    off.emb_params["w128"])
+        del off, before, hits, mag, streams
+    log(f"  telemetry on vs off, {TELEM_CHECK_STEPS} lockstep steps: losses,"
+        f" dense params and K3's inputs bitwise equal; slab "
+        f"{'bitwise equal' if slab_bitwise else 'within K3 atomic order'} "
+        f"(max err {worst})")
+    # (c) the guard: a NaN batch leaves the train state bitwise unchanged
+    # and still folds its ids, exactly as the plain fold of those ids
+    guarded = telemetry_step(de, cfg, nan_guard=True)
+    cats, batch = train_batch(torch, sizes, TELEM_BATCH, SEED + 139,
+                              nan=True)
+    slab0 = st.emb_params["w128"].clone()
+    dense0 = [p.detach().clone() for p in st.dense_params.parameters()]
+    step0 = int(st.step)
+    want = clone_tree(telem)
+    with torch.no_grad(), plain_kernels(TELEMETRY_SITES):
+        _, res = de.forward_with_residuals(st.emb_params, cats)
+        de.update_telemetry(tel.local_state(want), res, cfg)
+    loss, st, telem = guarded(st, cats, batch, telem)
+    torch.cuda.synchronize()
+    check(not bool(torch.isfinite(loss)), "telemetry NaN batch: finite loss")
+    check(torch.equal(st.emb_params["w128"], slab0), "telemetry NaN batch: "
+          "the slab changed")
+    check(all(torch.equal(p, q) for p, q in zip(
+        st.dense_params.parameters(), dense0)),
+        "telemetry NaN batch: dense params changed")
+    check(int(st.step) == step0 + 1, "telemetry NaN batch: step did not "
+          "advance")
+    telem_equal(torch, telem, want, "telemetry NaN batch")
+    log("  telemetry NaN batch (guard on): slab, dense params bitwise "
+        "unchanged, step advanced, ids folded (bitwise the plain fold)")
+    del slab0, dense0, want
+    # (d) planted hot rows: each planted row ranks first in its table
+    telem = tel.init_telemetry(de, cfg, device="cuda")
+    rng = np.random.default_rng(SEED + 140)
+    for i in range(TELEM_CHECK_STEPS):
+        cats, batch = train_batch(torch, sizes, TELEM_BATCH, SEED + 141 + i)
+        for t, row in TELEM_PLANTED.items():
+            at = torch.as_tensor(rng.permutation(TELEM_BATCH)[
+                :TELEM_BATCH // 2], device="cuda")
+            cats[t][at] = row
+        _, st, telem = step_on(st, cats, batch, telem)
+    hot = tel.hot_rows(de, telem)
+    for t, row in TELEM_PLANTED.items():
+        check(t in hot and hot[t][0][0] == row, f"telemetry: planted row "
+              f"{row} of table {t} not first: {hot.get(t, [])[:3]}")
+        check(hot[t][0][1] >= TELEM_CHECK_STEPS * TELEM_BATCH // 2,
+              f"telemetry: planted row {row} undercounted {hot[t][0]}")
+    lb = tel.load_balance(telem)
+    check(lb["per_rank_ids"] == [float(live)] and lb["steps"] ==
+          TELEM_CHECK_STEPS, f"telemetry load balance {lb}")
+    log(f"  telemetry planted hot rows first in their tables: "
+        f"{ {t: hot[t][0] for t in TELEM_PLANTED} }; load {lb}")
+    return st, {"cms_update": 0.0, "cms_query": 0.0, "topk_merge": 0.0}
+
+
+def telemetry_timed(torch, de, st, sizes, cfg):
+    """``run_telemetry_overhead``: the step timed with telemetry off and
+    on, host clock over TELEM_STEPS steps after TELEM_WARMUP, the same
+    batch each step, in the order off, on, on, off (each mode's time is
+    the mean of its two runs); launches counted over the timed
+    on-steps."""
+    from distributed_embeddings_torch.analysis import telemetry as tel
+
+    cats, batch = train_batch(torch, sizes, TELEM_BATCH, SEED + 150)
+    runs = {"off": [], "on": []}
+    launches = None
+    for on in (False, True, True, False):
+        step = telemetry_step(de, cfg if on else None)
+        extra = (tel.init_telemetry(de, cfg, device="cuda"),) if on else ()
+        for _ in range(TELEM_WARMUP):
+            loss, st, *extra = step(st, cats, batch, *extra)
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        for _ in range(TELEM_STEPS):
+            loss, st, *extra = step(st, cats, batch, *extra)
+        torch.cuda.synchronize()
+        runs["on" if on else "off"].append(
+            (time.perf_counter() - t0) / TELEM_STEPS)
+        if on:
+            launches = read_counts()
+            check(launches == telemetry_per_step(TELEM_STEPS),
+                  f"telemetry timed launches {launches}, expected "
+                  f"{telemetry_per_step(TELEM_STEPS)}")
+        check(bool(torch.isfinite(loss)), f"telemetry timed loss {loss}")
+    off, on = (float(np.mean(runs[k])) for k in ("off", "on"))
+    metrics = {
+        "telemetry_off_samples_per_sec": TELEM_BATCH / off,
+        "telemetry_samples_per_sec": TELEM_BATCH / on,
+        "telemetry_overhead_frac": on / off - 1.0,
+        "step_ms_off": off * 1e3, "step_ms_on": on * 1e3,
+        "step_ms_runs": {k: [t * 1e3 for t in v] for k, v in runs.items()},
+        "sketch": dict(cfg._asdict()), "batch": TELEM_BATCH,
+        "steps": TELEM_STEPS}
+    return st, launches, metrics
+
+
+SKETCH_KERNELS = ("cms_update_kernel", "pool_keys", "radix_hist",
+                  "scan_reduce", "scan_partials", "scan_apply",
+                  "radix_scatter", "select_kernel", "topk_merge_kernel")
+SKETCH_CHAIN = re.compile(r"namespace\)::(" + "|".join(SKETCH_KERNELS)
+                          + r")[<(]")
+
+
+def telemetry_profile(torch, de, st, sizes, cfg, steps=5):
+    """``torch.profiler`` over a few telemetry steps (as ``zoo_profile``):
+    the device's busy time against the window, the top kernels, and
+    K13-K15's launch chain (csrc/sketch.cu) per step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributed_embeddings_torch.analysis import telemetry as tel
+
+    step = telemetry_step(de, cfg)
+    telem = tel.init_telemetry(de, cfg, device="cuda")
+    cats, batch = train_batch(torch, sizes, TELEM_BATCH, SEED + 150)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            _, st, telem = step(st, cats, batch, telem)
+        torch.cuda.synchronize()
+        window = (time.perf_counter() - t0) * 1e3
+    dev = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            dev[e.key] = e.self_device_time_total / 1e3
+    busy = sum(dev.values())
+    chain = {}
+    for key, ms in dev.items():
+        m = SKETCH_CHAIN.search(key)
+        if m:
+            chain[m.group(1)] = chain.get(m.group(1), 0.0) + ms / steps
+    top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
+    out = {"steps": steps, "window_ms_per_step": window / steps,
+           "device_busy_ms_per_step": busy / steps,
+           "device_busy_share": busy / window,
+           "sketch_chain_ms_per_step": chain,
+           "top_device_ms_per_step": [(k[:60], v / steps) for k, v in top]}
+    log("telemetry profile: " + json.dumps(out))
+    check(busy > 0, "telemetry profile: the trace holds no device time")
+    check(set(chain) == set(SKETCH_KERNELS), f"telemetry profile: the "
+          f"sketch chain is incomplete in the trace: {chain}")
+    return st, out
+
+
+def sketch_kernel_times(torch, ids, live, cfg, what):
+    """CUDA-event medians of K13, K14 (the query alone, and the candidate
+    pool with its sort) and K15 on one width's telemetry stream (``ids``,
+    ``live``), each held bitwise to its plain version first, beside its
+    plain version, a PyTorch yardstick and its byte bound (each input
+    read once, each output written once). The live count is held to the
+    exact count, rounded once to float32."""
+    from distributed_embeddings_torch.ops import sketch as sk
+
+    n = ids.numel()
+    k_pool = min(cfg.candidates, n)
+    sketch_bytes = cfg.depth * cfg.buckets * 4
+    fresh = lambda: torch.zeros((cfg.depth, cfg.buckets),  # noqa: E731
+                                dtype=torch.int32, device="cuda")
+    # bitwise: one fold from a fresh state, kernels against plain
+    ck, cp = fresh(), fresh()
+    counts = sk.cms_update(ck, ids, live)
+    pcounts = sk.cms_update_plain(cp, ids, live)
+    exact(torch, ck, cp, f"cms_update {what}")
+    n_live = int(live.sum())
+    check(int(counts.sum()) == int(pcounts.sum()) == n_live,
+          f"cms_update {what}: live count {int(counts.sum())} != {n_live}")
+    pool = sk.topk_pool(ck, ids, live, k_pool)
+    exact(torch, pool, sk.topk_pool_plain(cp, ids, live, k_pool),
+          f"topk_pool {what}")
+    exact(torch, sk.cms_query(ck, ids), sk.cms_query_plain(cp, ids),
+          f"cms_query {what}")
+    tstate = lambda: (torch.full((cfg.topk,), -1, dtype=torch.int32,  # noqa
+                                 device="cuda"),
+                      torch.zeros(cfg.topk, dtype=torch.int32,
+                                  device="cuda"),
+                      torch.zeros(1, device="cuda"))
+    kt, pt = tstate(), tstate()
+    cnt = sk.topk_merge(ck, pool, counts, *kt, cfg.candidates)
+    sk.topk_merge_plain(cp, pool, pcounts, *pt, cfg.candidates)
+    for a, b in zip(kt, pt):
+        exact(torch, a, b, f"topk_merge {what}")
+    check(float(cnt) == float(np.float32(n_live)), f"topk_merge {what}: "
+          f"count {float(cnt)} is not {n_live} rounded once")
+    cases = {}
+    # K13
+    flat = sk._flat(sk.buckets_of_plain(torch.where(live, ids, 0),
+                                        cfg.depth, cfg.buckets),
+                    cfg.buckets)
+    inc = live.to(torch.int32)[None].expand(cfg.depth, -1).reshape(-1)
+    sketch = fresh()
+    ms = time_ms(torch, lambda: sk.cms_update(sketch, ids, live), [()])
+    plain = time_ms(torch, lambda: sk.cms_update_plain(sketch, ids, live),
+                    [()])
+    lib = time_ms(torch, lambda: sketch.view(-1).index_add_(0, flat, inc),
+                  [()])
+    nbytes = n * 5 + 2 * sketch_bytes
+    cases["cms_update"] = dict(
+        case=f"{what}: {n} positions ({n_live} live), sketch "
+        f"{cfg.depth}x{cfg.buckets}", ms=ms, plain_ms=plain, library_ms=lib,
+        library="index_add_ on precomputed flat indices",
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        bytes=nbytes)
+    del flat, inc
+    # K14: the pool (sort, score, select) and the standalone query
+    keys = torch.where(live, ids, sk.PAD)
+    ms = time_ms(torch, lambda: sk.topk_pool(ck, ids, live, k_pool), [()])
+    plain = time_ms(torch, lambda: sk.topk_pool_plain(ck, ids, live, k_pool),
+                    [()])
+
+    def lib_pool():
+        u, c = torch.unique(keys, return_counts=True)
+        return u[torch.topk(c, min(k_pool, u.numel())).indices]
+
+    lib = time_ms(torch, lib_pool, [()])
+    nbytes = n * 5 + sketch_bytes + k_pool * 4
+    pool_case = dict(
+        case=f"{what}: pool of {k_pool} from {n} positions", ms=ms,
+        plain_ms=plain, library_ms=lib,
+        library="torch.unique + torch.topk (sort and select; no sketch "
+        "query, not tie-exact)", bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+        bound_by="bytes", bytes=nbytes)
+    del keys
+    ms = time_ms(torch, lambda: sk.cms_query(ck, ids), [()])
+    plain = time_ms(torch, lambda: sk.cms_query_plain(ck, ids), [()])
+    cols = sk._flat(sk.buckets_of_plain(ids.clamp(min=0), cfg.depth,
+                                        cfg.buckets), cfg.buckets)
+    lib = time_ms(torch, lambda: torch.amin(
+        ck.view(-1)[cols].view(cfg.depth, -1), 0), [()])
+    del cols
+    nbytes = n * 8 + sketch_bytes
+    query_case = dict(
+        case=f"{what}: query of {n} ids", ms=ms, plain_ms=plain,
+        library_ms=lib, library="gather + amin on precomputed columns",
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        bytes=nbytes)
+    cases["cms_query"] = [pool_case, query_case]
+    # K15
+    ms = time_ms(torch, lambda: sk.topk_merge(ck, pool, counts, *kt,
+                                              cfg.candidates), [()])
+    plain = time_ms(torch, lambda: sk.topk_merge_plain(
+        ck, pool, pcounts, *pt, cfg.candidates), [()])
+    all_est = torch.cat([kt[1], pool])
+
+    def lib_merge():
+        torch.unique(pool)
+        return torch.topk(all_est, cfg.topk)
+
+    lib = time_ms(torch, lib_merge, [()])
+    nbytes = (sketch_bytes + k_pool * 4 + counts.numel() * 8
+              + cfg.topk * 16 + 8)
+    cases["topk_merge"] = dict(
+        case=f"{what}: pool {k_pool} into top {cfg.topk}", ms=ms,
+        plain_ms=plain, library_ms=lib,
+        library="torch.unique + torch.topk (not tie-exact)",
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        bytes=nbytes)
+    for name, c in (("cms_update", cases["cms_update"]),
+                    ("topk_pool", pool_case), ("cms_query", query_case),
+                    ("topk_merge", cases["topk_merge"])):
+        log(f"time {name} {c['case']}: kernel {c['ms']:.4f} ms, plain "
+            f"{c['plain_ms']:.4f}, library {c['library_ms']:.4f}, bound "
+            f"{c['bound_ms']:.5f}")
+    return cases
+
+
+def phase_telemetry(torch):
+    """Access telemetry on ``bench.py:run_telemetry_overhead``'s
+    configuration: the one-hot DLRM over the 26 Criteo-Kaggle vocabularies
+    capped at 2M rows (10,569,296 rows, 2.7 GB of bf16 tables), bf16
+    compute, ``SparseSGD`` + SGD at lr 0.005, batch 16384, guard off,
+    one Zipfian id a table, the default sketch (4 x 2048, top 32, 128
+    candidates): the checks of ``telemetry_checks``, the step timed with
+    telemetry off and on, and K13-K15 timed at the step's stream."""
+    from distributed_embeddings_torch.analysis import telemetry as tel
+
+    t_phase = time.perf_counter()
+    log(f"telemetry: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated "
+        "at the start of the phase")
+    sizes = ragged_sizes()
+    cfg = tel.config_from_env()
+    t0 = time.perf_counter()
+    de, st = telemetry_model(torch, SEED + 130)
+    torch.cuda.synchronize()
+    slab = st.emb_params["w128"]
+    check(tuple(slab.shape) == (1, sum(sizes), 128),
+          f"telemetry slab shape {tuple(slab.shape)}")
+    log(f"telemetry: capped Criteo-Kaggle one-hot DLRM, slab "
+        f"{tuple(slab.shape)} bf16 = {slab.numel() * 2 / 1e9:.2f} GB, built "
+        f"in {time.perf_counter() - t0:.1f} s; sketch {cfg}")
+    st, errs = telemetry_checks(torch, de, st, sizes, cfg)
+    st, launches, metrics = telemetry_timed(torch, de, st, sizes, cfg)
+    log(json.dumps({k: metrics[k] for k in (
+        "telemetry_off_samples_per_sec", "telemetry_samples_per_sec",
+        "telemetry_overhead_frac")}))
+    log(f"telemetry: step {metrics['step_ms_off']:.3f} ms off, "
+        f"{metrics['step_ms_on']:.3f} ms on (runs off, on, on, off: "
+        f"{metrics['step_ms_runs']})")
+    st, metrics["profile"] = telemetry_profile(torch, de, st, sizes, cfg)
+    cats, _ = train_batch(torch, sizes, TELEM_BATCH, SEED + 150)
+    with torch.no_grad():
+        _, res = de.forward_with_residuals(st.emb_params, cats)
+    ids, live = de.telemetry_streams(res)[128]
+    cases = sketch_kernel_times(torch, ids, live, cfg,
+                                f"one-hot b{TELEM_BATCH}")
+    metrics["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    metrics["phase_s"] = time.perf_counter() - t_phase
+    log(f"telemetry: phase done in {metrics['phase_s']:.1f} s, peak memory "
+        f"{metrics['peak_memory_gb']:.1f} GB")
+    del st, de, res, ids, live
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"telemetry": launches}, errs, cases, metrics
+
+
 def main():
     try:
         import torch
@@ -3359,10 +3894,46 @@ def main():
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
             "shape": c["case"], "cases": cases})
-    for k in kernels:
-        check(k["launches"] > 0, f"{k['name']}: no launch on its main path")
     log("adam: " + json.dumps(adam))
     log(f"adam peak memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    torch.cuda.reset_peak_memory_stats()
+    tel_launches, tel_errs, tel_cases, tel = phase_telemetry(torch)
+    launches.update(tel_launches)
+    k14 = ("topk_pool", "cms_query")
+    for k in kernels:
+        names = csr_names if k["name"] == "csr" else (k["name"],)
+        k["launches_by_path"]["telemetry"] = sum(
+            tel_launches["telemetry"][n] for n in names)
+    for name, repl, names in (
+            ("cms_update",
+             "distributed_embeddings_tpu/analysis/telemetry.py:190",
+             ("cms_update",)),
+            ("cms_query",
+             "distributed_embeddings_tpu/analysis/telemetry.py:204", k14),
+            ("topk_merge",
+             "distributed_embeddings_tpu/analysis/telemetry.py:214",
+             ("topk_merge",))):
+        cases = []
+        for c in (tel_cases[name], ragged_cases["telemetry"][name]):
+            cases += c if isinstance(c, list) else [c]
+        c = cases[0]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "distributed_embeddings_torch/csrc/sketch.cu",
+            "replaces": repl,
+            "launches": sum(launches["telemetry"][n] for n in names),
+            "launches_by_path": {p: sum(launches[p][n] for n in names)
+                                 for p in launches},
+            "max_abs_err": tel_errs[name], "ms": c["ms"],
+            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+            "shape": c["case"], "cases": cases})
+    kernels[-2]["entry_points"] = {
+        "topk_pool": "distributed_embeddings_tpu/analysis/telemetry.py:214",
+        "cms_query": "distributed_embeddings_tpu/analysis/telemetry.py:204"}
+    for k in kernels:
+        check(k["launches"] > 0, f"{k['name']}: no launch on its main path")
+    log("telemetry: " + json.dumps(tel))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

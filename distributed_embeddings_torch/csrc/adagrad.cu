@@ -20,10 +20,13 @@
 // The fp32 rsqrt is the correctly rounded __frsqrt_rn; products and sums
 // use the _rn intrinsics so no FMA contracts them.
 //
-// K6 index rules: an id >= rows (the dropped-row sentinel, the dedup's
-// pad tail, ids past the slab) is skipped; a negative id reads row 0
-// (clip) and writes row id + rows (JAX's drop mode wraps once), and one
-// still negative is skipped.
+// K6 index rules (row_update.cuh): an id >= rows (the dropped-row
+// sentinel, the dedup's pad tail, ids past the slab) is skipped; a
+// negative id reads row 0 as it was before the launch and writes row
+// id + rows (JAX's drop mode wraps once), one still negative is
+// skipped; a negative id and its wrapped row in one stream both add to
+// the slab row (the negative one first) and the wrapped row's state
+// transition stays. K6 runs its rows in two passes for that.
 //
 // Bound: bytes. K6 reads a gradient row and an accumulator and slab row
 // and writes the two rows back per unique id; K7 streams g, acc and slab
@@ -32,33 +35,14 @@
 // 32), so a warp serves 32/G rows; K7 is a grid-stride elementwise loop.
 //
 // C interface (ctypes): pointers and the stream as void*, returns the
-// cudaError_t of the launch.
+// cudaError_t of the launches.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "row_update.cuh"
 
 namespace {
 
-struct F32 {
-  using E = float;
-  __device__ static float load(E v) { return v; }
-  __device__ static E store(float f) { return f; }
-  __device__ static float rnd(float f) { return f; }
-};
-
-struct BF16 {
-  using E = uint16_t;  // raw bf16 bits
-  __device__ static float load(E v) {
-    return __uint_as_float(static_cast<uint32_t>(v) << 16);
-  }
-  __device__ static E store(float f) {
-    return __bfloat16_as_ushort(__float2bfloat16_rn(f));
-  }
-  __device__ static float rnd(float f) {
-    return __bfloat162float(__float2bfloat16_rn(f));
-  }
-};
+using detpu::BF16;
+using detpu::F32;
 
 // One element's transition; a, g in A; returns the new accumulator and
 // writes the update (rounded to S) to *upd. lr and eps arrive rounded to
@@ -86,25 +70,24 @@ adagrad_rows_kernel(typename TS::E* __restrict__ slab,
                     const IdT* __restrict__ uids, int64_t u,
                     const typename TA::E* __restrict__ ug, float lr,
                     const float* __restrict__ lr_dev, float eps,
-                    int group_log2) {
+                    int group_log2, int pass) {
   const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
   const int64_t s = tid >> group_log2;  // unique row
   if (s >= u) return;
-  const int64_t id = static_cast<int64_t>(uids[s]);
-  if (id >= rows) return;                    // sentinel, pad tail, past
-  const int64_t wr = id < 0 ? id + rows : id;  // drop mode wraps once
-  if (wr < 0) return;
-  const int64_t rd = id < 0 ? 0 : id;          // take(mode="clip")
+  detpu::RowJob j;
+  if (!detpu::row_job(uids, u, s, rows, pass, &j)) return;
   const int G = 1 << group_log2;
   for (int c = static_cast<int>(tid & (G - 1)); c < width; c += G) {
-    const float a = TA::load(acc[rd * width + c]);
+    const float a = TA::load(acc[j.rd * width + c]);
     const float g = TA::load(ug[s * width + c]);
     float upd;
     const float na = transition<TS, TA>(a, g, lr, lr_dev, eps, &upd);
-    acc[wr * width + c] = TA::store(na);
-    const float old = TS::load(slab[wr * width + c]);
-    slab[wr * width + c] = TS::store(__fsub_rn(old, upd));
+    if (j.state) acc[j.wr * width + c] = TA::store(na);
+    if (j.slab) {
+      const float old = TS::load(slab[j.wr * width + c]);
+      slab[j.wr * width + c] = TS::store(__fsub_rn(old, upd));
+    }
   }
 }
 
@@ -138,18 +121,26 @@ cudaError_t rows_launch(void* slab, void* acc, int64_t rows, int width,
   auto* s = static_cast<typename TS::E*>(slab);
   auto* a = static_cast<typename TA::E*>(acc);
   auto* g = static_cast<const typename TA::E*>(ug);
-  if (ids64) {
-    adagrad_rows_kernel<TS, TA, int64_t>
-        <<<static_cast<unsigned>(blocks), 256, 0, st>>>(
-            s, a, rows, width, static_cast<const int64_t*>(uids), u, g, lr,
-            lr_dev, eps, group_log2);
-  } else {
-    adagrad_rows_kernel<TS, TA, int32_t>
-        <<<static_cast<unsigned>(blocks), 256, 0, st>>>(
-            s, a, rows, width, static_cast<const int32_t*>(uids), u, g, lr,
-            lr_dev, eps, group_log2);
+  // pass 0 (the negative ids, rare) gives each id one lane that walks
+  // its whole row; pass 1 a group of 2^group_log2 lanes per id
+  for (int pass = 0; pass < 2; ++pass) {
+    const int gl = pass == 0 ? 0 : group_log2;
+    const unsigned nb = static_cast<unsigned>(((u << gl) + 255) / 256);
+    if (ids64) {
+      adagrad_rows_kernel<TS, TA, int64_t>
+          <<<nb, 256, 0, st>>>(
+              s, a, rows, width, static_cast<const int64_t*>(uids), u, g,
+              lr, lr_dev, eps, gl, pass);
+    } else {
+      adagrad_rows_kernel<TS, TA, int32_t>
+          <<<nb, 256, 0, st>>>(
+              s, a, rows, width, static_cast<const int32_t*>(uids), u, g,
+              lr, lr_dev, eps, gl, pass);
+    }
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
   }
-  return cudaGetLastError();
+  return cudaSuccess;
 }
 
 template <typename TS, typename TA>
@@ -171,8 +162,9 @@ extern "C" const char* detpu_error_string(int err) {
 }
 
 // slab [rows, width] (slab_dtype) and acc [rows, width] (acc_dtype),
-// updated in place; uids [u] (int32, or int64 when ids_is_64), ugrads
-// [u, width] in acc_dtype. Dtype codes: 0 = float32, 1 = bfloat16. lr and
+// updated in place; uids [u] (int32, or int64 when ids_is_64; sorted,
+// each id once: the dedup's output), ugrads [u, width] in acc_dtype.
+// Dtype codes: 0 = float32, 1 = bfloat16. lr and
 // eps rounded to acc_dtype by the caller; lr_dev (nullable) an fp32 lr on
 // the card, used instead of lr.
 extern "C" int detpu_adagrad_rows(void* slab, int slab_dtype, void* acc,

@@ -28,10 +28,13 @@
 // no FMA contracts them, and each is correctly rounded as PyTorch's
 // elementwise ops are.
 //
-// Index rules: an id >= rows (the dropped-row sentinel, the dedup's pad
-// tail, ids past the slab) is skipped; a negative id reads row 0 (clip)
-// and writes row id + rows (JAX's drop mode wraps once), and one still
-// negative is skipped.
+// Index rules (row_update.cuh, as K6): an id >= rows (the dropped-row
+// sentinel, the dedup's pad tail, ids past the slab) is skipped; a
+// negative id reads row 0 as it was before the launch and writes row
+// id + rows (JAX's drop mode wraps once), one still negative is
+// skipped; a negative id and its wrapped row in one stream both add to
+// the slab row (the negative one first) and the wrapped row's state
+// transition stays, so the rows run in two passes.
 //
 // Bound: bytes. Per unique row the kernel reads the gradient row, the
 // two moment rows and the slab row and writes the three state rows back.
@@ -42,76 +45,16 @@
 // elements otherwise (V = 1).
 //
 // C interface (ctypes): pointers and the stream as void*, returns the
-// cudaError_t of the launch.
+// cudaError_t of the launches.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "row_update.cuh"
 
 namespace {
 
-// The build (ops/_kernels.py) names each library by the hash of its one
-// source, so no source includes a header of the repo: these load and
-// store helpers repeat those of momentum.cu.
-struct F32 {
-  using E = float;
-  __device__ static float load(E v) { return v; }
-  __device__ static E store(float f) { return f; }
-  __device__ static float rnd(float f) { return f; }
-  __device__ static void load4(const E* p, float* f) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
-  }
-  __device__ static void store4(E* p, const float* f) {
-    *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
-  }
-};
-
-struct BF16 {
-  using E = uint16_t;  // raw bf16 bits
-  __device__ static float load(E v) {
-    return __uint_as_float(static_cast<uint32_t>(v) << 16);
-  }
-  __device__ static E store(float f) {
-    return __bfloat16_as_ushort(__float2bfloat16_rn(f));
-  }
-  __device__ static float rnd(float f) {
-    return __bfloat162float(__float2bfloat16_rn(f));
-  }
-  __device__ static void load4(const E* p, float* f) {
-    const uint2 v = *reinterpret_cast<const uint2*>(p);
-    f[0] = __uint_as_float(v.x << 16);
-    f[1] = __uint_as_float(v.x & 0xffff0000u);
-    f[2] = __uint_as_float(v.y << 16);
-    f[3] = __uint_as_float(v.y & 0xffff0000u);
-  }
-  __device__ static void store4(E* p, const float* f) {
-    uint2 v;
-    v.x = static_cast<uint32_t>(store(f[0])) |
-          (static_cast<uint32_t>(store(f[1])) << 16);
-    v.y = static_cast<uint32_t>(store(f[2])) |
-          (static_cast<uint32_t>(store(f[3])) << 16);
-    *reinterpret_cast<uint2*>(p) = v;
-  }
-};
-
-template <typename T, int V>
-__device__ __forceinline__ void ld(const typename T::E* p, float* f) {
-  if constexpr (V == 4) {
-    T::load4(p, f);
-  } else {
-    f[0] = T::load(*p);
-  }
-}
-
-template <typename T, int V>
-__device__ __forceinline__ void st(typename T::E* p, const float* f) {
-  if constexpr (V == 4) {
-    T::store4(p, f);
-  } else {
-    *p = T::store(f[0]);
-  }
-}
+using detpu::BF16;
+using detpu::F32;
+using detpu::ld;
+using detpu::st;
 
 template <typename TS, typename TA, typename IdT, int V>
 __global__ void __launch_bounds__(256)
@@ -122,26 +65,24 @@ adam_rows_kernel(typename TS::E* __restrict__ slab,
                  const typename TA::E* __restrict__ ug, float b1, float omb1,
                  float b2, float omb2, const float* __restrict__ bp, float lr,
                  const float* __restrict__ lr_dev, float eps, float eps_root,
-                 int group_log2) {
+                 int group_log2, int pass) {
   const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
   const int64_t s = tid >> group_log2;  // unique row
   if (s >= u) return;
-  const int64_t id = static_cast<int64_t>(uids[s]);
-  if (id >= rows) return;                      // sentinel, pad tail, past
-  const int64_t wr = id < 0 ? id + rows : id;  // drop mode wraps once
-  if (wr < 0) return;
-  const int64_t rd = id < 0 ? 0 : id;          // take(mode="clip")
+  detpu::RowJob j;
+  if (!detpu::row_job(uids, u, s, rows, pass, &j)) return;
+  const int64_t rd = j.rd, wr = j.wr;
   const float c1 = __fsub_rn(1.0f, __ldg(bp));
   const float c2 = __fsub_rn(1.0f, __ldg(bp + 1));
   const float l = lr_dev != nullptr ? __ldg(lr_dev) : lr;
   const int G = 1 << group_log2;
   for (int c = static_cast<int>(tid & (G - 1)) * V; c < width; c += G * V) {
-    float g[V], m[V], n[V], p[V];
+    float g[V], m[V], n[V], p[V] = {};
     ld<TA, V>(ug + s * width + c, g);
     ld<TA, V>(mu + rd * width + c, m);
     ld<TA, V>(nu + rd * width + c, n);
-    ld<TS, V>(slab + wr * width + c, p);
+    if (j.slab) ld<TS, V>(slab + wr * width + c, p);
 #pragma unroll
     for (int k = 0; k < V; ++k) {
       const float mn = TA::rnd(__fadd_rn(TA::rnd(__fmul_rn(b1, m[k])),
@@ -156,9 +97,11 @@ adam_rows_kernel(typename TS::E* __restrict__ slab,
       m[k] = mn;
       n[k] = nn;
     }
-    st<TA, V>(mu + wr * width + c, m);
-    st<TA, V>(nu + wr * width + c, n);
-    st<TS, V>(slab + wr * width + c, p);
+    if (j.state) {
+      st<TA, V>(mu + wr * width + c, m);
+      st<TA, V>(nu + wr * width + c, n);
+    }
+    if (j.slab) st<TS, V>(slab + wr * width + c, p);
   }
 }
 
@@ -187,15 +130,23 @@ cudaError_t launch_v(const Args& a, cudaStream_t st) {
   while ((1 << group_log2) < chunks && group_log2 < 5) ++group_log2;
   const int64_t blocks = ((a.u << group_log2) + 255) / 256;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  adam_rows_kernel<TS, TA, IdT, V>
-      <<<static_cast<unsigned>(blocks), 256, 0, st>>>(
-          static_cast<typename TS::E*>(a.slab),
-          static_cast<typename TA::E*>(a.mu),
-          static_cast<typename TA::E*>(a.nu), a.rows, a.width,
-          static_cast<const IdT*>(a.uids), a.u,
-          static_cast<const typename TA::E*>(a.ug), a.b1, a.omb1, a.b2,
-          a.omb2, a.bp, a.lr, a.lr_dev, a.eps, a.eps_root, group_log2);
-  return cudaGetLastError();
+  // pass 0 (the negative ids, rare) gives each id one lane that walks
+  // its whole row; pass 1 a group of 2^group_log2 lanes per id
+  for (int pass = 0; pass < 2; ++pass) {
+    const int gl = pass == 0 ? 0 : group_log2;
+    const unsigned nb = static_cast<unsigned>(((a.u << gl) + 255) / 256);
+    adam_rows_kernel<TS, TA, IdT, V>
+        <<<nb, 256, 0, st>>>(
+            static_cast<typename TS::E*>(a.slab),
+            static_cast<typename TA::E*>(a.mu),
+            static_cast<typename TA::E*>(a.nu), a.rows, a.width,
+            static_cast<const IdT*>(a.uids), a.u,
+            static_cast<const typename TA::E*>(a.ug), a.b1, a.omb1, a.b2,
+            a.omb2, a.bp, a.lr, a.lr_dev, a.eps, a.eps_root, gl, pass);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
 }
 
 template <typename TS, typename TA>
@@ -215,7 +166,8 @@ extern "C" const char* detpu_error_string(int err) {
 }
 
 // slab [rows, width] (slab_dtype), mu and nu [rows, width] (mom_dtype),
-// updated in place; uids [u] (int32, or int64 when ids_is_64), ugrads
+// updated in place; uids [u] (int32, or int64 when ids_is_64; sorted,
+// each id once: the dedup's output), ugrads
 // [u, width] in mom_dtype. Dtype codes: 0 = float32, 1 = bfloat16. b1,
 // omb1 (1 - b1), b2 and omb2 rounded to mom_dtype by the caller; bp a
 // float32 [2] on the card holding b1^t and b2^t; lr_dev

@@ -18,17 +18,11 @@
 //
 // Design, a simple kernel chain on the caller's stream, all scratch from
 // one caller-allocated buffer (detpu_dedup_scratch_bytes):
-// 1. Sort. A stable LSD radix sort of (key, position) pairs, 8 bits a
-//    pass. The key is the id with its sign bit flipped, so unsigned order
-//    is the ids' signed order and negative ids and ids past pad_id sort
-//    where JAX's sort puts them; 32-bit ids take 4 passes (as the 27 bits
-//    of a 70M-row slab would), 64-bit ids 8. A pass is per-tile digit
-//    histograms (shared-memory atomics), an exclusive scan over the
-//    digit-major [256, tiles] counts (three launches: tile sums, one
-//    block over those, tile scans), and a stable scatter in which each
-//    warp ranks its items with __match_any_sync and per-warp digit
-//    counters, and the block adds the earlier warps' counts and the
-//    tile's global offset.
+// 1. Sort. The stable LSD radix sort of radix_sort.cuh over (key,
+//    position) pairs, 8 bits a pass. The key is the id with its sign bit
+//    flipped, so unsigned order is the ids' signed order and negative ids
+//    and ids past pad_id sort where JAX's sort puts them; 32-bit ids take
+//    4 passes (as the 27 bits of a 70M-row slab would), 64-bit ids 8.
 // 2. Boundaries. One warp per chunk of 256 sorted rows counts the rows
 //    whose key differs from the previous one; an exclusive scan of the
 //    counts gives each chunk its first segment index and the number of
@@ -50,47 +44,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "radix_sort.cuh"
+
 namespace {
 
-constexpr int kBins = 256;             // 8-bit digits
-constexpr int kWarps = 8;              // warps per radix block
-constexpr int kThreads = kWarps * 32;
-constexpr int kItemsPerLane = 8;
-constexpr int kWarpItems = 32 * kItemsPerLane;
-constexpr int kTile = kWarps * kWarpItems;  // 2048 pairs per radix block
-constexpr int kChunk = 256;            // sorted rows per segment-sum warp
-constexpr int kScanThreads = 1024;
-constexpr int kScanItems = 4;
-constexpr int kScanTile = kScanThreads * kScanItems;
-
-__host__ __device__ inline int64_t min64(int64_t a, int64_t b) {
-  return a < b ? a : b;
-}
-
-template <typename IdT>
-struct Key;
-
-template <>
-struct Key<int32_t> {
-  using U = uint32_t;
-  __device__ static U of(int32_t v) {
-    return static_cast<uint32_t>(v) ^ 0x80000000u;
-  }
-  __device__ static int32_t id(U k) {
-    return static_cast<int32_t>(k ^ 0x80000000u);
-  }
-};
-
-template <>
-struct Key<int64_t> {
-  using U = unsigned long long;
-  __device__ static U of(int64_t v) {
-    return static_cast<unsigned long long>(v) ^ (1ull << 63);
-  }
-  __device__ static int64_t id(U k) {
-    return static_cast<int64_t>(k ^ (1ull << 63));
-  }
-};
+constexpr int kChunk = 256;  // sorted rows per segment-sum warp
 
 struct F32 {
   using E = float;
@@ -117,191 +75,6 @@ init_keys(const IdT* __restrict__ ids, int64_t n,
   if (j < n) {
     keys[j] = Key<IdT>::of(ids[j]);
     pos[j] = static_cast<int>(j);
-  }
-}
-
-template <typename U>
-__global__ void __launch_bounds__(kThreads)
-radix_hist(const U* __restrict__ keys, int64_t n, int shift,
-           int* __restrict__ hist, int ntiles) {
-  __shared__ int sh[kBins];
-  for (int d = threadIdx.x; d < kBins; d += kThreads) sh[d] = 0;
-  __syncthreads();
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * kTile;
-  for (int i = threadIdx.x; i < kTile; i += kThreads) {
-    const int64_t j = base + i;
-    if (j < n) {
-      atomicAdd(&sh[static_cast<int>((keys[j] >> shift) & (kBins - 1))], 1);
-    }
-  }
-  __syncthreads();
-  for (int d = threadIdx.x; d < kBins; d += kThreads) {
-    hist[static_cast<int64_t>(d) * ntiles + blockIdx.x] = sh[d];
-  }
-}
-
-// Exclusive scan of one int per thread across a block of kScanThreads;
-// *total gets the block's sum.
-__device__ __forceinline__ int block_exclusive_scan(int v, int* warp_sums,
-                                                    int* total) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  int x = v;  // inclusive scan within the warp
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) warp_sums[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    int w = warp_sums[lane];
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, w, o);
-      if (lane >= o) w += y;
-    }
-    warp_sums[lane] = w;
-  }
-  __syncthreads();
-  *total = warp_sums[31];
-  return x - v + (warp > 0 ? warp_sums[warp - 1] : 0);
-}
-
-// A device-wide exclusive scan in three launches: per-tile sums
-// (scan_reduce), one block scanning those (scan_partials, which also
-// writes the total), and per-tile scans plus the tile's offset
-// (scan_apply). A tile is kScanThreads x kScanItems consecutive ints,
-// each thread owning kScanItems of them.
-__global__ void __launch_bounds__(kScanThreads)
-scan_reduce(const int* __restrict__ data, int64_t m,
-            int* __restrict__ partials) {
-  __shared__ int warp_sums[kScanThreads / 32];
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * kScanTile +
-                       static_cast<int64_t>(threadIdx.x) * kScanItems;
-  int s = 0;
-#pragma unroll
-  for (int q = 0; q < kScanItems; ++q) {
-    if (base + q < m) s += data[base + q];
-  }
-  int total;
-  block_exclusive_scan(s, warp_sums, &total);
-  if (threadIdx.x == 0) partials[blockIdx.x] = total;
-}
-
-// In-place exclusive scan of the m tile sums by one block; *total gets
-// their sum. Each thread scans a contiguous run (m is small).
-__global__ void __launch_bounds__(kScanThreads)
-scan_partials(int* __restrict__ data, int64_t m, int* __restrict__ total) {
-  __shared__ int warp_sums[kScanThreads / 32];
-  const int64_t per = (m + kScanThreads - 1) / kScanThreads;
-  const int64_t lo = min64(m, threadIdx.x * per);
-  const int64_t hi = min64(m, lo + per);
-  int s = 0;
-  for (int64_t i = lo; i < hi; ++i) s += data[i];
-  int sum;
-  int run = block_exclusive_scan(s, warp_sums, &sum);
-  for (int64_t i = lo; i < hi; ++i) {
-    const int v = data[i];
-    data[i] = run;
-    run += v;
-  }
-  if (threadIdx.x == 0 && total != nullptr) *total = sum;
-}
-
-__global__ void __launch_bounds__(kScanThreads)
-scan_apply(int* __restrict__ data, int64_t m,
-           const int* __restrict__ partials) {
-  __shared__ int warp_sums[kScanThreads / 32];
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * kScanTile +
-                       static_cast<int64_t>(threadIdx.x) * kScanItems;
-  int v[kScanItems];
-  int s = 0;
-#pragma unroll
-  for (int q = 0; q < kScanItems; ++q) {
-    v[q] = base + q < m ? data[base + q] : 0;
-    s += v[q];
-  }
-  int total;
-  int run = block_exclusive_scan(s, warp_sums, &total) + partials[blockIdx.x];
-#pragma unroll
-  for (int q = 0; q < kScanItems; ++q) {
-    if (base + q < m) data[base + q] = run;
-    run += v[q];
-  }
-}
-
-int64_t scan_tiles(int64_t m) { return (m + kScanTile - 1) / kScanTile; }
-
-// data[0, m) <- its exclusive scan; *total (nullable) <- its sum.
-cudaError_t exclusive_scan(int* data, int64_t m, int* partials, int* total,
-                           cudaStream_t st) {
-  const int64_t tiles = scan_tiles(m);
-  scan_reduce<<<static_cast<unsigned>(tiles), kScanThreads, 0, st>>>(
-      data, m, partials);
-  scan_partials<<<1, kScanThreads, 0, st>>>(partials, tiles, total);
-  scan_apply<<<static_cast<unsigned>(tiles), kScanThreads, 0, st>>>(
-      data, m, partials);
-  return cudaGetLastError();
-}
-
-// Stable scatter of one radix pass; offsets is the scanned histogram.
-template <typename U>
-__global__ void __launch_bounds__(kThreads)
-radix_scatter(const U* __restrict__ keys_in, const int* __restrict__ pos_in,
-              U* __restrict__ keys_out, int* __restrict__ pos_out, int64_t n,
-              int shift, const int* __restrict__ offsets, int ntiles) {
-  __shared__ int wh[kWarps][kBins];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  for (int d = lane; d < kBins; d += 32) wh[warp][d] = 0;
-  __syncwarp();
-  const unsigned lt = (1u << lane) - 1u;
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * kTile +
-                       static_cast<int64_t>(warp) * kWarpItems;
-  U key[kItemsPerLane];
-  int val[kItemsPerLane];
-  int dig[kItemsPerLane];
-  int rank[kItemsPerLane];
-#pragma unroll
-  for (int k = 0; k < kItemsPerLane; ++k) {
-    const int64_t j = base + k * 32 + lane;
-    const bool ok = j < n;
-    int d = -1;
-    key[k] = 0;
-    val[k] = 0;
-    if (ok) {
-      key[k] = keys_in[j];
-      val[k] = pos_in[j];
-      d = static_cast<int>((key[k] >> shift) & (kBins - 1));
-    }
-    dig[k] = d;
-    const unsigned peers = __match_any_sync(0xffffffffu, d);
-    int r = 0;
-    if (ok) r = wh[warp][d] + __popc(peers & lt);
-    __syncwarp();
-    if (ok && (peers & lt) == 0u) wh[warp][d] += __popc(peers);
-    __syncwarp();
-    rank[k] = r;
-  }
-  __syncthreads();
-  // per digit: the tile's global offset plus the earlier warps' counts
-  for (int d = threadIdx.x; d < kBins; d += kThreads) {
-    int run = offsets[static_cast<int64_t>(d) * ntiles + blockIdx.x];
-    for (int w = 0; w < kWarps; ++w) {
-      const int c = wh[w][d];
-      wh[w][d] = run;
-      run += c;
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < kItemsPerLane; ++k) {
-    if (dig[k] >= 0) {
-      const int p = wh[warp][dig[k]] + rank[k];
-      keys_out[p] = key[k];
-      pos_out[p] = val[k];
-    }
   }
 }
 
@@ -476,7 +249,6 @@ struct Scratch {
   int* partials;  // the scans' tile sums
 };
 
-int64_t ntiles_of(int64_t n) { return (n + kTile - 1) / kTile; }
 int64_t nchunks_of(int64_t n) { return (n + kChunk - 1) / kChunk; }
 
 // Carves the scratch buffer (or, with base null, returns its size).
@@ -525,28 +297,17 @@ cudaError_t run(const void* ids_v, int64_t n, const void* vals_v, int width,
   const E* vals = static_cast<const E*>(vals_v);
   IdT* uids = static_cast<IdT*>(uids_v);
   E* ugrads = static_cast<E*>(ugrads_v);
-  const int64_t ntiles = ntiles_of(n);
   const int64_t nchunks = nchunks_of(n);
-  if (ntiles > 0x7fffffffLL / kBins) return cudaErrorInvalidValue;
 
   init_keys<IdT><<<static_cast<unsigned>((n + 255) / 256), 256, 0, st>>>(
       ids, n, static_cast<U*>(s.keys[0]), s.pos[0]);
   DETPU_CHECK_LAUNCH();
+  U* keys[2] = {static_cast<U*>(s.keys[0]), static_cast<U*>(s.keys[1])};
   int cur = 0;
-  for (int shift = 0; shift < static_cast<int>(8 * sizeof(U)); shift += 8) {
-    const U* kin = static_cast<const U*>(s.keys[cur]);
-    radix_hist<U><<<static_cast<unsigned>(ntiles), kThreads, 0, st>>>(
-        kin, n, shift, s.hist, static_cast<int>(ntiles));
-    DETPU_CHECK_LAUNCH();
-    const cudaError_t e = exclusive_scan(s.hist, kBins * ntiles, s.partials,
-                                         nullptr, st);
-    if (e != cudaSuccess) return e;
-    radix_scatter<U><<<static_cast<unsigned>(ntiles), kThreads, 0, st>>>(
-        kin, s.pos[cur], static_cast<U*>(s.keys[1 - cur]), s.pos[1 - cur], n,
-        shift, s.hist, static_cast<int>(ntiles));
-    DETPU_CHECK_LAUNCH();
-    cur = 1 - cur;
-  }
+  const cudaError_t es = radix_sort<U, true>(
+      keys, s.pos, n, static_cast<int>(8 * sizeof(U)), s.hist, s.partials,
+      st, &cur);
+  if (es != cudaSuccess) return es;
   const U* sk = static_cast<const U*>(s.keys[cur]);
   const int* sp = s.pos[cur];
   const unsigned warp_blocks = static_cast<unsigned>((nchunks * 32 + 255) / 256);

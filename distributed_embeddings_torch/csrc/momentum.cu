@@ -21,9 +21,11 @@
 //   slab = rS(slab + rS(rA(-lr*step)))   or   rS(slab + rS(-lr*step))
 // The _rn intrinsics keep FMA contraction out.
 //
-// Index rules (as K6 and K11): an id >= rows is skipped; a negative id
-// reads row 0 (clip) and writes row id + rows, and one still negative is
-// skipped.
+// Index rules (row_update.cuh, as K6 and K11): an id >= rows is skipped;
+// a negative id reads row 0 as it was before the launch and writes row
+// id + rows, one still negative is skipped; a negative id and its
+// wrapped row both add to the slab row (the negative one first) and the
+// wrapped row's state transition stays, so the rows run in two passes.
 //
 // Bound: bytes. Per unique row the kernel reads the gradient, trace and
 // slab rows and writes the trace and slab rows. Design: as K11, a group
@@ -31,76 +33,16 @@
 // where width and alignment allow (V = 4), single elements otherwise.
 //
 // C interface (ctypes): pointers and the stream as void*, returns the
-// cudaError_t of the launch.
+// cudaError_t of the launches.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "row_update.cuh"
 
 namespace {
 
-// The build (ops/_kernels.py) names each library by the hash of its one
-// source, so no source includes a header of the repo: these load and
-// store helpers repeat those of adam.cu.
-struct F32 {
-  using E = float;
-  __device__ static float load(E v) { return v; }
-  __device__ static E store(float f) { return f; }
-  __device__ static float rnd(float f) { return f; }
-  __device__ static void load4(const E* p, float* f) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
-  }
-  __device__ static void store4(E* p, const float* f) {
-    *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
-  }
-};
-
-struct BF16 {
-  using E = uint16_t;  // raw bf16 bits
-  __device__ static float load(E v) {
-    return __uint_as_float(static_cast<uint32_t>(v) << 16);
-  }
-  __device__ static E store(float f) {
-    return __bfloat16_as_ushort(__float2bfloat16_rn(f));
-  }
-  __device__ static float rnd(float f) {
-    return __bfloat162float(__float2bfloat16_rn(f));
-  }
-  __device__ static void load4(const E* p, float* f) {
-    const uint2 v = *reinterpret_cast<const uint2*>(p);
-    f[0] = __uint_as_float(v.x << 16);
-    f[1] = __uint_as_float(v.x & 0xffff0000u);
-    f[2] = __uint_as_float(v.y << 16);
-    f[3] = __uint_as_float(v.y & 0xffff0000u);
-  }
-  __device__ static void store4(E* p, const float* f) {
-    uint2 v;
-    v.x = static_cast<uint32_t>(store(f[0])) |
-          (static_cast<uint32_t>(store(f[1])) << 16);
-    v.y = static_cast<uint32_t>(store(f[2])) |
-          (static_cast<uint32_t>(store(f[3])) << 16);
-    *reinterpret_cast<uint2*>(p) = v;
-  }
-};
-
-template <typename T, int V>
-__device__ __forceinline__ void ld(const typename T::E* p, float* f) {
-  if constexpr (V == 4) {
-    T::load4(p, f);
-  } else {
-    f[0] = T::load(*p);
-  }
-}
-
-template <typename T, int V>
-__device__ __forceinline__ void st(typename T::E* p, const float* f) {
-  if constexpr (V == 4) {
-    T::store4(p, f);
-  } else {
-    *p = T::store(f[0]);
-  }
-}
+using detpu::BF16;
+using detpu::F32;
+using detpu::ld;
+using detpu::st;
 
 template <typename TS, typename TA, typename IdT, int V>
 __global__ void __launch_bounds__(256)
@@ -109,24 +51,23 @@ momentum_rows_kernel(typename TS::E* __restrict__ slab,
                      int width, const IdT* __restrict__ uids, int64_t u,
                      const typename TA::E* __restrict__ ug, float m,
                      int nesterov, float neg_lr,
-                     const float* __restrict__ lr_dev, int group_log2) {
+                     const float* __restrict__ lr_dev, int group_log2,
+                     int pass) {
   const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
   const int64_t s = tid >> group_log2;  // unique row
   if (s >= u) return;
-  const int64_t id = static_cast<int64_t>(uids[s]);
-  if (id >= rows) return;                      // sentinel, pad tail, past
-  const int64_t wr = id < 0 ? id + rows : id;  // drop mode wraps once
-  if (wr < 0) return;
-  const int64_t rd = id < 0 ? 0 : id;          // take(mode="clip")
+  detpu::RowJob j;
+  if (!detpu::row_job(uids, u, s, rows, pass, &j)) return;
+  const int64_t rd = j.rd, wr = j.wr;
   const bool dev_lr = lr_dev != nullptr;
   const float nl = dev_lr ? -__ldg(lr_dev) : neg_lr;
   const int G = 1 << group_log2;
   for (int c = static_cast<int>(tid & (G - 1)) * V; c < width; c += G * V) {
-    float g[V], t[V], p[V];
+    float g[V], t[V], p[V] = {};
     ld<TA, V>(ug + s * width + c, g);
     ld<TA, V>(trace + rd * width + c, t);
-    ld<TS, V>(slab + wr * width + c, p);
+    if (j.slab) ld<TS, V>(slab + wr * width + c, p);
 #pragma unroll
     for (int k = 0; k < V; ++k) {
       const float tn = TA::rnd(__fadd_rn(g[k], TA::rnd(__fmul_rn(m, t[k]))));
@@ -138,8 +79,8 @@ momentum_rows_kernel(typename TS::E* __restrict__ slab,
       p[k] = __fadd_rn(p[k], TS::rnd(upd));
       t[k] = tn;
     }
-    st<TA, V>(trace + wr * width + c, t);
-    st<TS, V>(slab + wr * width + c, p);
+    if (j.state) st<TA, V>(trace + wr * width + c, t);
+    if (j.slab) st<TS, V>(slab + wr * width + c, p);
   }
 }
 
@@ -166,14 +107,22 @@ cudaError_t launch_v(const Args& a, cudaStream_t st) {
   while ((1 << group_log2) < chunks && group_log2 < 5) ++group_log2;
   const int64_t blocks = ((a.u << group_log2) + 255) / 256;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  momentum_rows_kernel<TS, TA, IdT, V>
-      <<<static_cast<unsigned>(blocks), 256, 0, st>>>(
-          static_cast<typename TS::E*>(a.slab),
-          static_cast<typename TA::E*>(a.trace), a.rows, a.width,
-          static_cast<const IdT*>(a.uids), a.u,
-          static_cast<const typename TA::E*>(a.ug), a.m, a.nesterov,
-          a.neg_lr, a.lr_dev, group_log2);
-  return cudaGetLastError();
+  // pass 0 (the negative ids, rare) gives each id one lane that walks
+  // its whole row; pass 1 a group of 2^group_log2 lanes per id
+  for (int pass = 0; pass < 2; ++pass) {
+    const int gl = pass == 0 ? 0 : group_log2;
+    const unsigned nb = static_cast<unsigned>(((a.u << gl) + 255) / 256);
+    momentum_rows_kernel<TS, TA, IdT, V>
+        <<<nb, 256, 0, st>>>(
+            static_cast<typename TS::E*>(a.slab),
+            static_cast<typename TA::E*>(a.trace), a.rows, a.width,
+            static_cast<const IdT*>(a.uids), a.u,
+            static_cast<const typename TA::E*>(a.ug), a.m, a.nesterov,
+            a.neg_lr, a.lr_dev, gl, pass);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
 }
 
 template <typename TS, typename TA>
@@ -193,7 +142,8 @@ extern "C" const char* detpu_error_string(int err) {
 }
 
 // slab [rows, width] (slab_dtype) and trace [rows, width] (tr_dtype),
-// updated in place; uids [u] (int32, or int64 when ids_is_64), ugrads
+// updated in place; uids [u] (int32, or int64 when ids_is_64; sorted,
+// each id once: the dedup's output), ugrads
 // [u, width] in tr_dtype. Dtype codes: 0 = float32, 1 = bfloat16. m and
 // neg_lr (-lr) rounded to tr_dtype by the caller; lr_dev (nullable) a
 // float32 lr on the card, used instead of neg_lr. vec: every pointer is

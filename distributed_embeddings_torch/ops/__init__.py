@@ -14,6 +14,9 @@ from .interaction import (DotInteract, dot_interact_bwd,
                           dot_interact_bwd_plain, dot_interact_fwd,
                           dot_interact_fwd_plain)
 from .scatter_add import sgd_scatter, sgd_scatter_plain
+from .sketch import (cms_query, cms_query_plain, cms_update,
+                     cms_update_plain, record_ids_plain, topk_merge,
+                     topk_merge_plain, topk_pool, topk_pool_plain)
 from .sparse_grad import (combiner_grad_values, dedup_sparse_grad,
                           dedup_sparse_grad_plain, ragged_grad,
                           ragged_grad_plain)
@@ -30,4 +33,6 @@ __all__ = ["Ragged", "SparseIds", "embedding_lookup", "gather_combine",
            "combiner_grad_values", "adagrad_rows", "adagrad_rows_plain",
            "adagrad_dense", "adagrad_dense_plain", "adam_rows",
            "adam_rows_plain", "bias_powers", "momentum_rows",
-           "momentum_rows_plain"]
+           "momentum_rows_plain", "cms_update", "cms_update_plain",
+           "cms_query", "cms_query_plain", "topk_pool", "topk_pool_plain",
+           "topk_merge", "topk_merge_plain", "record_ids_plain"]

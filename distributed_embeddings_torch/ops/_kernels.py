@@ -9,9 +9,10 @@ its launch, which the wrapper turns into an exception.
 
 The build runs at first use (or up front through :func:`build_all`),
 one ``nvcc`` per source, all started together. A library is named by a
-hash of its source and flags, so an edited source never loads a stale
-build. Nothing here runs at import time, and nothing falls back: a
-failed build or launch raises.
+hash of its source, of every local header the source includes
+(``#include "x.cuh"``, followed recursively) and of the flags, so an
+edited source or header never loads a stale build. Nothing here runs at
+import time, and nothing falls back: a failed build or launch raises.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -113,10 +115,31 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
                               _P, _I64, _P, _I, _P, _I, _P, _I, _I64, _P,
                               _I, _I64, _I64, _P),
     },
+    "sketch": {
+        # n -> blocks (and int64 count partials) of detpu_cms_update
+        "detpu_cms_update_blocks": (_I64,),
+        # cms, depth, buckets, ids, live, n, count_part, stream
+        "detpu_cms_update": (_P, _I, _I, _P, _P, _I64, _P, _P),
+        # cms, depth, buckets, ids, n, est, stream
+        "detpu_cms_query": (_P, _I, _I, _P, _I64, _P, _P),
+        # n, k_pool -> bytes
+        "detpu_topk_pool_scratch_bytes": (_I64, _I),
+        # -> the largest k_pool
+        "detpu_topk_pool_max": (),
+        # cms, depth, buckets, ids, live, n, k_pool, pool, scratch, stream
+        "detpu_topk_pool": (_P, _I, _I, _P, _P, _I64, _I, _P, _P, _P),
+        # -> the largest topk + candidates
+        "detpu_topk_merge_max": (),
+        # cms, depth, buckets, pool, k_pool, candidates, topk_ids,
+        # topk_est, topk, ids_acc, count_part, n_part, count_out, stream
+        "detpu_topk_merge": (_P, _I, _I, _P, _I, _I, _P, _P, _I, _P, _P,
+                             _I, _P, _P),
+    },
 }
 
 #: return type of the exported functions that return no ``cudaError_t``
-RESTYPES = {"detpu_dedup_scratch_bytes": _I64}
+RESTYPES = {"detpu_dedup_scratch_bytes": _I64,
+            "detpu_topk_pool_scratch_bytes": _I64}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -143,9 +166,36 @@ def nvcc_path() -> str:
                            "CUDA kernels build only where the toolkit is")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def source_bytes(path: str) -> bytes:
+    """The bytes of ``path`` followed by those of every local header it
+    includes (quoted includes, resolved beside the including file, each
+    once, in order of first inclusion)."""
+    seen: List[str] = []
+
+    def visit(p: str) -> None:
+        p = os.path.normpath(p)
+        if p in seen:
+            return
+        seen.append(p)
+        with open(p, "rb") as f:
+            text = f.read()
+        for inc in _LOCAL_INCLUDE.findall(text):
+            visit(os.path.join(os.path.dirname(p), inc.decode()))
+
+    visit(path)
+    out = b""
+    for p in seen:
+        with open(p, "rb") as f:
+            out += f.read()
+    return out
+
+
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        h = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(source_bytes(os.path.join(CSRC, name + ".cu"))
+                       + " ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:12]}.so")
 
 

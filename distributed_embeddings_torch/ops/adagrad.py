@@ -16,14 +16,20 @@ when it is bfloat16), a constant ``lr`` and ``eps`` are rounded to it
 first, a float32 device ``lr`` (what a callable schedule gives) promotes
 the ``lr * g * r`` products to float32, and the update is rounded to the
 slab dtype before the subtraction. The kernels' float32 ``rsqrt`` is
-correctly rounded; PyTorch's is ``1 / sqrt`` on the CPU (two roundings)
-and ``rsqrtf`` on the card (within 2 ulps), so the plain versions may
-differ from the kernels by that much.
+correctly rounded; the plain versions take it in float64 and round to
+float32 once, which is the same number (PyTorch's own float32 ``rsqrt``
+is ``1 / sqrt`` on the CPU and ``rsqrtf`` on the card, within 2 ulps).
+XLA's CPU ``rsqrt`` is an approximation, so against the JAX package the
+slab rows agree to an ulp of the update, not bit for bit.
 
-:func:`adagrad_rows` takes the dedup output (``ops/sparse_grad.py``):
-an id at or past the slab's rows (the sentinel, the pad tail) is
-skipped; a negative id reads row 0 and writes row ``id + rows``, as
-JAX's ``take(mode="clip")`` and ``.at[].set/.add(mode="drop")`` do.
+:func:`adagrad_rows` takes the dedup output (``ops/sparse_grad.py``:
+sorted, each id once) with the index rules of :func:`row_plan`, those
+of JAX's ``take(mode="clip")`` reads and ``.at[].set/.add(mode="drop")``
+writes: an id at or past the slab's rows (the sentinel, the pad tail)
+is skipped; a negative id reads row 0 as it was before the update and
+writes row ``id + rows``; when the same stream also holds that row's
+own id, the slab row takes both deltas (the negative id's first) and
+the state row the row's own transition.
 """
 
 from __future__ import annotations
@@ -45,7 +51,8 @@ def _transition(a: torch.Tensor, g: torch.Tensor, lr: Lr, eps: float,
     the update in ``slab_dtype``."""
     dt = a.dtype
     na = a + g * g
-    r = torch.rsqrt(na + torch.tensor(eps, dtype=dt, device=a.device))
+    r = torch.rsqrt((na + torch.tensor(eps, dtype=dt, device=a.device))
+                    .double()).float().to(dt)
     if isinstance(lr, torch.Tensor):
         u = lr.to(device=a.device, dtype=torch.float32) * g.float() \
             * r.float()
@@ -54,21 +61,45 @@ def _transition(a: torch.Tensor, g: torch.Tensor, lr: Lr, eps: float,
     return na, u.to(slab_dtype)
 
 
+def row_plan(uids: torch.Tensor, rows: int):
+    """How JAX's row optimizers index the dedup output ``uids [U]``
+    (``take(mode="clip")`` reads, ``.at[uids].set/.add(mode="drop",
+    indices_are_sorted=True)`` writes). Returns ``(keep, rd, wr, neg,
+    last)``: the mask of the ids that write (below ``rows``, and a
+    negative id's wrapped row ``id + rows`` not negative) and, over
+    those, the row each reads (0 for a negative id), the row it writes,
+    whether it is negative, and whether its state transition is the one
+    that stays (a negative id whose wrapped row is also in the stream
+    sorts before it, so that row's own set comes later and wins)."""
+    uid = uids.long()
+    wr = torch.where(uid < 0, uid + rows, uid)
+    keep = (uid < rows) & (wr >= 0)
+    uid, wr = uid[keep], wr[keep]
+    neg = uid < 0
+    last = ~(neg & torch.isin(wr, wr[~neg]))
+    return keep, uid.clamp(min=0), wr, neg, last
+
+
+def add_rows(slab: torch.Tensor, wr: torch.Tensor, delta: torch.Tensor,
+             neg: torch.Tensor) -> None:
+    """``slab[wr] += delta`` in place, each add rounded to the slab
+    dtype, the negative ids' deltas first: a row that a negative id and
+    its own id both write takes both, in JAX's scatter order."""
+    for part in (neg, ~neg):
+        rows = wr[part]
+        slab[rows] = slab[rows] + delta[part]
+
+
 def adagrad_rows_plain(slab: torch.Tensor, acc: torch.Tensor,
                        uids: torch.Tensor, ugrads: torch.Tensor, lr: Lr,
                        eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`adagrad_rows`. Returns ``(slab,
     acc)``."""
-    rows = slab.shape[0]
-    uid = uids.long()
-    wr = torch.where(uid < 0, uid + rows, uid)
-    keep = (uid < rows) & (wr >= 0)
-    rd = uid.clamp(0, rows - 1)[keep]
-    wr = wr[keep]
+    keep, rd, wr, neg, last = row_plan(uids, slab.shape[0])
     na, upd = _transition(acc[rd], ugrads[keep].to(acc.dtype), lr, eps,
                           slab.dtype)
-    acc[wr] = na
-    slab[wr] = slab[wr] - upd
+    acc[wr[last]] = na[last]
+    add_rows(slab, wr, -upd, neg)
     return slab, acc
 
 

@@ -27,16 +27,15 @@ The powers ``b1**t``, ``b2**t`` come from :func:`bias_powers` on the
 device, for the kernel and the plain version alike (``torch.pow``;
 XLA's ``pow`` may differ from it by an ulp, so the port is held to JAX
 within that), and both subtract them from 1 in float32. Every other op
-of the kernel is correctly rounded, as PyTorch's elementwise ops are,
-so the kernel equals its plain version bit for bit.
+of the kernel is correctly rounded, as PyTorch's elementwise ops are
+(the plain version takes the square root in float64 and rounds once:
+PyTorch's float32 one on the CPU can be an ulp off), so the kernel
+equals its plain version bit for bit.
 
-:func:`adam_rows` takes the dedup output (``ops/sparse_grad.py``): an id
-at or past the slab's rows (the sentinel, the pad tail) is skipped; a
-negative id reads row 0 and writes row ``id + rows``, as JAX's
-``take(mode="clip")`` and ``.at[].set/.add(mode="drop")`` do. As in
-K6, a negative id given together with id 0 reads row 0 in no set order
-against row 0's own update (JAX reads it first); the train step never
-gives one (its backward routes bad ids to the sentinel).
+:func:`adam_rows` takes the dedup output (``ops/sparse_grad.py``) with
+the index rules of ``ops/adagrad.py:row_plan`` (ids at or past the rows
+skipped, a negative id read at row 0 before the update and written at
+``id + rows``, its delta added before that row's own).
 """
 
 from __future__ import annotations
@@ -46,7 +45,7 @@ from typing import Tuple
 import torch
 
 from . import _kernels
-from .adagrad import _DTYPE_CODE, Lr
+from .adagrad import _DTYPE_CODE, Lr, add_rows, row_plan
 
 
 def _rnd(x: float, dtype: torch.dtype) -> float:
@@ -87,13 +86,8 @@ def adam_rows_plain(slab: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`adam_rows`. Returns ``(slab, mu,
     nu)``."""
-    rows = slab.shape[0]
     dt = mu.dtype
-    uid = uids.long()
-    wr = torch.where(uid < 0, uid + rows, uid)
-    keep = (uid < rows) & (wr >= 0)
-    rd = uid.clamp(0, rows - 1)[keep]
-    wr = wr[keep]
+    keep, rd, wr, neg, last = row_plan(uids, slab.shape[0])
     g = uvals[keep].to(dt)
 
     def c(x):
@@ -103,12 +97,14 @@ def adam_rows_plain(slab: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
     nu_new = c(b2) * nu[rd] + c(1.0 - b2) * g * g
     bc = 1.0 - bias_powers(count, b1, b2)
     f32 = torch.float32
-    den = torch.sqrt(nu_new.to(f32) / bc[1] + _rnd(eps_root, f32)) \
-        + _rnd(eps, f32)
+    # float64 then one rounding: the correctly rounded float32 square
+    # root (PyTorch's float32 one on the CPU can be an ulp off)
+    den = torch.sqrt((nu_new.to(f32) / bc[1] + _rnd(eps_root, f32))
+                     .double()).float() + _rnd(eps, f32)
     upd = _lr_f32(lr, mu.device) * (mu_new.to(f32) / bc[0]) / den
-    mu[wr] = mu_new
-    nu[wr] = nu_new
-    slab[wr] = slab[wr] - upd.to(slab.dtype)
+    mu[wr[last]] = mu_new[last]
+    nu[wr[last]] = nu_new[last]
+    add_rows(slab, wr, -upd.to(slab.dtype), neg)
     return slab, mu, nu
 
 

@@ -19,8 +19,9 @@ The update rounds once to the slab dtype before the add. Every op is
 correctly rounded, so the kernel equals its plain version bit for bit.
 
 :func:`momentum_rows` takes the dedup output, with the index rules of
-``ops/adam.py`` (ids at or past the rows skipped, a negative id read at
-row 0 and written at ``id + rows``).
+``ops/adagrad.py:row_plan`` (ids at or past the rows skipped, a
+negative id read at row 0 before the update and written at ``id +
+rows``, its delta added before that row's own).
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ from typing import Tuple
 import torch
 
 from . import _kernels
-from .adagrad import Lr
+from .adagrad import Lr, add_rows, row_plan
 from .adam import _DTYPE_CODE, _lr_f32, _rnd, check_rows, vector_ok
 
 
@@ -40,13 +41,8 @@ def momentum_rows_plain(slab: torch.Tensor, trace: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`momentum_rows`. Returns ``(slab,
     trace)``."""
-    rows = slab.shape[0]
     dt = trace.dtype
-    uid = uids.long()
-    wr = torch.where(uid < 0, uid + rows, uid)
-    keep = (uid < rows) & (wr >= 0)
-    rd = uid.clamp(0, rows - 1)[keep]
-    wr = wr[keep]
+    keep, rd, wr, neg, last = row_plan(uids, slab.shape[0])
     g = uvals[keep].to(dt)
     m = torch.tensor(_rnd(momentum, dt), dtype=dt, device=slab.device)
     t_new = g + m * trace[rd]
@@ -56,8 +52,8 @@ def momentum_rows_plain(slab: torch.Tensor, trace: torch.Tensor,
     else:
         upd = torch.tensor(_rnd(-float(lr), dt), dtype=dt,
                            device=slab.device) * step
-    trace[wr] = t_new
-    slab[wr] = slab[wr] + upd.to(slab.dtype)
+    trace[wr[last]] = t_new[last]
+    add_rows(slab, wr, upd.to(slab.dtype), neg)
     return slab, trace
 
 

@@ -18,10 +18,13 @@ COO batches (converted to CSR by ``row_to_split``, K10). The sparse
 backward (``sparse_apply_gradients``, ``parallel/apply.py``) covers all
 of them.
 
+``update_telemetry`` folds a forward's routed ids into the carried access
+telemetry (``analysis/telemetry.py``, kernels K13-K15).
+
 Not yet ported, each raising ``NotImplementedError`` with its ROADMAP
 item: ``world_size > 1`` (A7), row slicing (A9), streaming vocabularies
-(A11) and the ``'raise'`` invalid-id policy (A12); model-parallel input
-and step schedules (A5b, A7, A11).
+(A11b) and the ``'raise'`` invalid-id policy (A12); model-parallel input
+and step schedules (A5b, A7, A11b).
 
 Ids must lie in ``[0, input_dim)``; out-of-range ids CLIP in the
 forward (a negative id reads row 0, one past the table its last row),
@@ -36,6 +39,7 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
+from ..analysis import telemetry as tel
 from ..layers.embedding import default_embeddings_init
 from ..ops import packed_slab as ps
 from ..ops.embedding_lookup import Ragged, SparseIds, row_to_split
@@ -146,7 +150,7 @@ class DistributedEmbedding:
         if any(c.get("streaming") for c in self.strategy.global_configs):
             raise NotImplementedError(
                 "streaming (dynamic-vocab) tables are not ported yet: "
-                "ROADMAP A11")
+                "ROADMAP A11b")
         self.widths, self.row_offsets_list, self.rows_cap = \
             slab_layout(self.strategy)
         self._plan_cache: Dict[tuple, plan_mod.ExchangePlan] = {}
@@ -433,7 +437,7 @@ class DistributedEmbedding:
         ``("dist", ids_block, encs, b)`` the sparse backward will read."""
         if streaming is not None:
             raise NotImplementedError(
-                "streaming vocabularies are not ported yet: ROADMAP A11")
+                "streaming vocabularies are not ported yet: ROADMAP A11b")
         device = next(iter(params.values())).device
         local = {k: v[0] for k, v in params.items()}
         entries, encs, shapes, comm_dtype = self._normalize_inputs(
@@ -464,6 +468,82 @@ class DistributedEmbedding:
             outs.append(o)
         result = [outs[i] for i in self.strategy.rev_global_input_ids]
         return result, ("dist", ids_recv, tuple(encs), b)
+
+    # --------------------------------------------------------------- telemetry
+
+    def telemetry_streams(self, residuals) -> Dict[int, tuple]:
+        """Per width, ``(ids [n] int32, live [n] bool)``: the logical slab
+        rows the forward routed and whether each is live, over every
+        group of that width in plan order (``residuals``: the second
+        output of :meth:`forward_with_residuals`, or a list of them, whose
+        streams concatenate). A dense slot's id is live when it lies in
+        its table and the slot is live; a ragged slot's position also
+        when it lies within the slot's claimed values."""
+        res_list = ([residuals] if residuals and residuals[0] == "dist"
+                    else list(residuals))
+        world = self.world_size
+        per_width: Dict[int, tuple] = {}
+        for res in res_list:
+            _, ids_recv, encs, b = res
+            plan = self._get_plan(list(encs), b)
+            for gi, g in enumerate(plan.groups):
+                if plan.rsliced[gi].any():
+                    raise NotImplementedError(
+                        "telemetry of row-sliced slots is not ported yet: "
+                        "ROADMAP A9")
+                dev = ids_recv.device
+                rows, roff, _, _ = self._plan_meta(plan, gi, dev)
+                valid, _ = self._plan_bwd_meta(plan, gi, dev)
+                region = ids_recv[:, g.goff:g.goff + g.n * g.blen]
+                if g.kind == "d":
+                    ids = region.reshape(world, g.n, b, g.hot)
+                    per_slot = (slice(None), slice(None), None, None)
+                else:
+                    r3 = region.reshape(world, g.n, g.blen)
+                    ids = r3[:, :, :g.hot]
+                    tot = r3[:, :, g.hot:g.hot + b].sum(dim=2,
+                                                        dtype=torch.int32)
+                    per_slot = (slice(None), slice(None), None)
+                live = (ids >= 0) & (ids < rows[None][per_slot])
+                if valid is not None:
+                    live = live & valid[None][per_slot]
+                if g.kind != "d":
+                    live = live & (torch.arange(
+                        g.hot, dtype=torch.int32, device=dev)[None, None]
+                        < tot.clamp(max=g.hot)[:, :, None])
+                grow = (ids + roff[None][per_slot]).to(torch.int32)
+                acc = per_width.setdefault(g.width, ([], []))
+                acc[0].append(grow.reshape(-1))
+                acc[1].append(live.reshape(-1))
+        return {w: tuple(torch.cat(x) if len(x) > 1 else x[0] for x in acc)
+                for w, acc in per_width.items()}
+
+    def update_telemetry(self, tstate, residuals, config):
+        """Fold one forward's routed ids into the carried access telemetry
+        (:mod:`~..analysis.telemetry`), in place: per width slab, the
+        count-min sketch and the top-k hot-row merge over the live
+        logical slab rows (:meth:`telemetry_streams`; kernels K13-K15),
+        then the step count and the cumulative routed-id load.
+
+        Args:
+          tstate: the telemetry state without its world axis
+            (:func:`~..analysis.telemetry.local_state`).
+          residuals: the second output of :meth:`forward_with_residuals`,
+            or a list of them (their id streams fold as one).
+          config: a :class:`~..analysis.telemetry.TelemetryConfig`.
+
+        Widths fold in ascending order, and ``ids_total`` adds their
+        float32 live counts in that order, as JAX does. Returns the state
+        (the same tensors)."""
+        total = None
+        for w, (ids, live) in sorted(self.telemetry_streams(
+                residuals).items()):
+            _, count = tel._record(tstate[_wkey(w)], ids, live, config)
+            total = count if total is None else total + count
+        tstate["steps"].add_(1)
+        if total is not None:
+            tstate["ids_total"].add_(total)
+        return tstate
 
     # --------------------------------------------------------- sparse backward
 

@@ -14,9 +14,11 @@ world 1.
   to a slab would make PyTorch build a dense gradient as large as the
   slab.)
 
-Not yet ported, each raising with its ROADMAP item: world > 1 and a mesh
-(A7), step metrics (``with_metrics`` / ``DETPU_OBS=1``, A6), access
-telemetry, streaming vocabularies and microbatch schedules (A11).
+Access telemetry (``telemetry=``) rides through both as an extra
+argument and result (``analysis/telemetry.py``). Not yet ported, each
+raising with its ROADMAP item: world > 1 and a mesh (A7), step metrics
+(``with_metrics`` / ``DETPU_OBS=1``, A6), streaming vocabularies and
+microbatch schedules (A11b).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from typing import Any, Callable, List, NamedTuple, Optional
 import torch
 from torch.utils import _pytree as pytree
 
+from ..analysis import telemetry as tel
 from ..ops.embedding_lookup import Ragged, SparseIds
 from ..utils import obs
 
@@ -52,7 +55,7 @@ def _sq_sum(tensors) -> torch.Tensor:
     return sum(t.float().square().sum() for t in tensors)
 
 
-def _not_ported(with_metrics, mesh, telemetry, dynamic, world_size):
+def _not_ported(with_metrics, mesh, dynamic, world_size):
     if world_size != 1 or mesh is not None:
         raise NotImplementedError(
             "the multi-rank train step is not ported yet: ROADMAP A7")
@@ -60,12 +63,9 @@ def _not_ported(with_metrics, mesh, telemetry, dynamic, world_size):
         raise NotImplementedError(
             "step metrics (with_metrics / DETPU_OBS=1) are not ported yet: "
             "ROADMAP A6")
-    if telemetry:
-        raise NotImplementedError(
-            "access telemetry is not ported yet: ROADMAP A11")
     if dynamic:
         raise NotImplementedError(
-            "streaming vocabularies are not ported yet: ROADMAP A11")
+            "streaming vocabularies are not ported yet: ROADMAP A11b")
 
 
 def _apply_dense_and_assemble(state, dense_grads, dense_tx, ok, nan_guard):
@@ -117,11 +117,17 @@ def _small_leaves(de, emb_opt_state) -> List[torch.Tensor]:
 
 
 def _hybrid_local_step(de, loss_fn, dense_tx, emb_optimizer, lr_schedule,
-                       state, cat_inputs, batch, nan_guard=False):
+                       state, cat_inputs, batch, nan_guard=False,
+                       telemetry_cfg=None, telem=None):
     """One hybrid step (shared by :func:`make_hybrid_train_step` and
     :func:`make_hybrid_train_loop`): embedding forward, one backward
     giving the dense gradients and the embedding-output cotangents,
     both optimizer updates, step counter bump. Returns ``(loss, state)``.
+
+    With ``telemetry_cfg``, the forward's routed ids fold into ``telem``
+    (the stacked telemetry state, in place) right after the forward,
+    whatever the guard decides: as in the JAX step, a skipped step still
+    counts the ids it routed.
 
     ``nan_guard=True`` checks the loss and both gradient energies for
     NaN/Inf ON THE CARD and, on a non-finite verdict, skips the dense
@@ -133,6 +139,8 @@ def _hybrid_local_step(de, loss_fn, dense_tx, emb_optimizer, lr_schedule,
     """
     with torch.no_grad():
         outs, res = de.forward_with_residuals(state.emb_params, cat_inputs)
+        if telemetry_cfg is not None:
+            de.update_telemetry(tel.local_state(telem), res, telemetry_cfg)
     outs = [o.detach().requires_grad_() for o in outs]
     params = list(state.dense_params.parameters())
     with torch.enable_grad():
@@ -168,7 +176,9 @@ def make_hybrid_train_step(de, loss_fn: Callable, dense_tx, emb_optimizer,
                            with_metrics: Optional[bool] = None,
                            nan_guard: Optional[bool] = None,
                            telemetry=None, dynamic=None):
-    """Build ``step(state, cat_inputs, batch) -> (loss, state)``.
+    """Build ``step(state, cat_inputs, batch) -> (loss, state)``, or with
+    telemetry ``step(state, cat_inputs, batch, telem) -> (loss, state,
+    telem)``.
 
     Args:
       de: the embedding layer (world 1).
@@ -187,7 +197,14 @@ def make_hybrid_train_step(de, loss_fn: Callable, dense_tx, emb_optimizer,
         returns a 0-d float32 tensor on the card).
       nan_guard: build the step with the on-card non-finite guard;
         ``None`` follows ``DETPU_NANGUARD`` (default on).
-      mesh, with_metrics, telemetry, dynamic: not ported yet (raise;
+      telemetry: carry access telemetry (``analysis/telemetry.py``)
+        through the step: ``None``/``False`` off, ``True`` the
+        ``DETPU_TELEMETRY_*`` geometry, or a ``TelemetryConfig``. An
+        explicit opt-in, never an env default: it changes the call
+        arity. The telemetry state (``init_telemetry``) is the fourth
+        argument and the last result, updated in place; the parameter
+        and optimizer math is the same as without it.
+      mesh, with_metrics, dynamic: not ported yet (raise;
         ``with_metrics=None`` follows ``DETPU_OBS``).
 
     The state's slabs and dense parameters are updated in place (the
@@ -195,16 +212,26 @@ def make_hybrid_train_step(de, loss_fn: Callable, dense_tx, emb_optimizer,
     """
     if with_metrics is None:
         with_metrics = obs.metrics_enabled()
-    _not_ported(with_metrics, mesh, telemetry, dynamic, de.world_size)
+    _not_ported(with_metrics, mesh, dynamic, de.world_size)
     if nan_guard is None:
         nan_guard = obs.nanguard_enabled()
+    tel_cfg = tel.resolve_config(telemetry)
 
-    def step(state: HybridTrainState, cat_inputs, batch):
-        return _hybrid_local_step(de, loss_fn, dense_tx, emb_optimizer,
-                                  lr_schedule, state, cat_inputs, batch,
-                                  nan_guard=nan_guard)
+    if tel_cfg is None:
+        def step(state: HybridTrainState, cat_inputs, batch):
+            return _hybrid_local_step(de, loss_fn, dense_tx, emb_optimizer,
+                                      lr_schedule, state, cat_inputs, batch,
+                                      nan_guard=nan_guard)
+        return step
 
-    return step
+    def step_telem(state: HybridTrainState, cat_inputs, batch, telem):
+        loss, state = _hybrid_local_step(
+            de, loss_fn, dense_tx, emb_optimizer, lr_schedule, state,
+            cat_inputs, batch, nan_guard=nan_guard, telemetry_cfg=tel_cfg,
+            telem=telem)
+        return loss, state, telem
+
+    return step_telem
 
 
 def _index(tree, k: int):
@@ -233,7 +260,10 @@ def make_hybrid_train_loop(de, loss_fn: Callable, dense_tx, emb_optimizer,
                            nan_guard: Optional[bool] = None,
                            telemetry=None, dynamic=None):
     """Multi-step loop: ``loop(state, cat_stacks, batch_stacks) ->
-    (losses [K], state)`` runs K steps of :func:`make_hybrid_train_step`
+    (losses [K], state)`` (with telemetry ``loop(state, cat_stacks,
+    batch_stacks, telem) -> (losses, state, telem)``, one telemetry state
+    carried through every step) runs K steps of
+    :func:`make_hybrid_train_step`
     over the leading axis of every input (each categorical input
     ``[K, batch, ...]``, or a :class:`Ragged` / :class:`SparseIds` whose
     fields all lead with ``K``; ``batch`` any structure of ``[K, ...]``
@@ -245,16 +275,17 @@ def make_hybrid_train_loop(de, loss_fn: Callable, dense_tx, emb_optimizer,
         lr_schedule=lr_schedule, with_metrics=with_metrics,
         nan_guard=nan_guard, telemetry=telemetry, dynamic=dynamic)
 
-    def loop(state: HybridTrainState, cat_stacks, batch_stacks):
+    def loop(state: HybridTrainState, cat_stacks, batch_stacks, *telem):
         c0 = cat_stacks[0]
         K = (c0.values if isinstance(c0, (Ragged, SparseIds))
              else c0).shape[0]
         losses: List[torch.Tensor] = []
         for k in range(K):
-            loss, state = step(state, [_index(c, k) for c in cat_stacks],
-                               _index(batch_stacks, k))
+            loss, state, *telem = step(
+                state, [_index(c, k) for c in cat_stacks],
+                _index(batch_stacks, k), *telem)
             losses.append(loss)
-        return torch.stack(losses), state
+        return (torch.stack(losses), state, *telem)
 
     return loop
 

@@ -17,6 +17,9 @@
   ``SparseMomentum``'s trace and ``SparseAdam``'s moments (unpacked
   alike) and step count; ``optax.adam``'s ``ScaleByAdamState``,
   ``optax.sgd``'s ``TraceState`` and a schedule's count.
+* Access telemetry: :func:`telemetry_state_from_jax` and
+  :func:`telemetry_state_to_numpy` carry the telemetry state (the same
+  keys, shapes and dtypes in both packages) either way.
 
 Nothing here imports JAX: the arrays arrive as numpy.
 """
@@ -27,6 +30,8 @@ from typing import Any, Mapping, Sequence
 
 import numpy as np
 import torch
+
+from .device import resolve_device
 
 
 def host_tensor(a: Any) -> torch.Tensor:
@@ -226,3 +231,26 @@ def hybrid_state_from_jax(de, dense, tables: Sequence[Any],
         dense_opt_state=_dense_state(dense, dense_opt_state, dense_tx),
         step=torch.tensor(int(np.asarray(step)), dtype=torch.int32,
                           device=dev))
+
+
+def telemetry_state_from_jax(tree: Mapping[str, Any],
+                             device="cuda") -> dict:
+    """The port's telemetry state (``analysis/telemetry.py``) from a JAX
+    one given as numpy (the same nested dict), copied to ``device``."""
+    from .device import resolve_device
+
+    dev = resolve_device(device)
+
+    def one(v):
+        if isinstance(v, Mapping):
+            return {k: one(x) for k, x in v.items()}
+        return host_tensor(np.array(v)).to(dev)
+
+    return one(tree)
+
+
+def telemetry_state_to_numpy(state: Mapping[str, Any]) -> dict:
+    """A telemetry state as a nested dict of numpy arrays (host copies),
+    the form the JAX package's state takes through ``np.asarray``."""
+    return {k: telemetry_state_to_numpy(v) if isinstance(v, Mapping)
+            else v.detach().cpu().numpy().copy() for k, v in state.items()}

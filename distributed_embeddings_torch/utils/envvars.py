@@ -3,8 +3,9 @@
 Counterpart of ``distributed_embeddings_tpu/utils/envvars.py``, cut to
 the knobs this package has: the ``DETPU_SERVE_*`` declarations that
 :class:`~..parallel.serving.ServeConfig` reads, and the train-step
-switches (``DETPU_OBS``, ``DETPU_NANGUARD``, ``DETPU_SGD_DEDUP``), with
-the JAX package's names and defaults, so one environment configures
+switches (``DETPU_OBS``, ``DETPU_NANGUARD``, ``DETPU_SGD_DEDUP``) and
+the access-telemetry geometry (``DETPU_TELEMETRY*``), with the JAX
+package's names and defaults, so one environment configures
 both packages alike.
 """
 
@@ -97,3 +98,23 @@ declare("DETPU_NANGUARD", default="1",
 declare("DETPU_SGD_DEDUP", default="",
         doc="1 = force the sort/segment-sum dedup pass (K5) into "
             "SparseSGD, to compare it with the direct scatter")
+
+# access telemetry (analysis/telemetry.py; carried through train steps
+# built by parallel/trainer.py when enabled)
+declare("DETPU_TELEMETRY", default="",
+        doc="1 = telemetry-aware entry points build their steps with "
+            "carried access telemetry. Plain step builders need the "
+            "explicit telemetry= opt-in (it changes the step's call arity)")
+declare("DETPU_TELEMETRY_CANDIDATES", default="0",
+        doc="per-step unique-id candidates merged into the hot-row "
+            "top-k; 0 = 4 * DETPU_TELEMETRY_TOPK")
+declare("DETPU_TELEMETRY_INTERVAL", default="100",
+        doc="metrics-log cadence (steps) of a telemetry demo run (the "
+            "JAX package's tools/obs_report.py reads it)")
+declare("DETPU_TELEMETRY_SKETCH_DEPTH", default="4",
+        doc="count-min sketch rows (independent hashes) per width slab")
+declare("DETPU_TELEMETRY_SKETCH_WIDTH", default="2048",
+        doc="count-min sketch buckets per row; estimate error ~ "
+            "total_ids/buckets")
+declare("DETPU_TELEMETRY_TOPK", default="32",
+        doc="hot-row slots tracked per width slab per rank")

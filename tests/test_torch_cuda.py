@@ -1068,3 +1068,125 @@ def test_ragged_train_step_on_the_card_matches_the_cpu(cuda_device):
         np.testing.assert_allclose(a, b, atol=1e-4, rtol=0)
     for a, b in zip(dg, dc):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-4, rtol=0)
+
+
+# ---------------------------------------- wrapped rows in K6, K11, K12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stream", ["wrapped", "with_id0"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["adagrad", "momentum", "nesterov", "adam"])
+def test_wrapped_row_kernels_match_plain(cuda_device, name, dtype, stream):
+    """A negative id beside its wrapped row (and, in ``with_id0``, id 0
+    beside -R, which wraps to row 0) in one sorted unique stream: K6,
+    K11 and K12 against their plain versions, slab and state bit-exact
+    (the plain versions hold JAX's order, ``test_torch_wrapped_rows.py``;
+    the kernels run the negative ids in a pass of their own first)."""
+    rng = np.random.default_rng(len(name) + 10 * (stream == "with_id0"))
+    R, w = 64, 16
+    ids = {"wrapped": [-R - 2, -R, -5, -3, 7, 12, R - 3, R, R],
+           "with_id0": [-R, -9, -3, 0, 11, 40, R - 9, R - 3, R]}[stream]
+    uids = torch.tensor(ids, dtype=torch.int32, device=cuda_device)
+    g = torch.from_numpy(rng.normal(size=(len(ids), w)).astype(
+        np.float32)).to(dtype).to(cuda_device)
+    slab = torch.from_numpy(rng.normal(size=(R, w)).astype(np.float32)).to(
+        dtype).to(cuda_device)
+    state = [torch.from_numpy((0.05 + 0.2 * rng.random((R, w))).astype(
+        np.float32)).to(dtype).to(cuda_device)
+        for _ in range(2 if name == "adam" else 1)]
+    runs = []
+    for fn in ("kernel", "plain"):
+        s, st = slab.clone(), [t.clone() for t in state]
+        if name == "adagrad":
+            (adagrad_rows if fn == "kernel" else adagrad_rows_plain)(
+                s, st[0], uids, g, 0.1, 1e-7)
+        elif name == "adam":
+            cnt = torch.full((1, 1), 7.0, device=cuda_device)
+            (adam_rows if fn == "kernel" else adam_rows_plain)(
+                s, st[0], st[1], cnt, uids, g, 0.1, 0.9, 0.999, 1e-8, 0.0)
+        else:
+            (momentum_rows if fn == "kernel" else momentum_rows_plain)(
+                s, st[0], uids, g, 0.1, 0.9, name == "nesterov")
+        runs.append([s] + st)
+    for a, b in zip(*runs):
+        np.testing.assert_array_equal(to_np(a), to_np(b))
+    assert not torch.equal(runs[0][0][R - 3], slab[R - 3])
+
+
+# -------------------------------------------------- K13-K15: telemetry
+
+
+def _telemetry_case(rng, n, depth, buckets, topk, device):
+    """Zipfian ids with ~10% dead positions and a prior state (a nonzero
+    sketch, some carried hot rows)."""
+    ids = ((rng.zipf(1.2, n) - 1) % 200_000).astype(np.int32)
+    live = rng.random(n) < 0.9
+    cms = rng.integers(0, 9, (depth, buckets)).astype(np.int32)
+    tids = np.full(topk, -1, np.int32)
+    tids[:topk // 2] = rng.permutation(50)[:topk // 2]
+    test = np.where(tids >= 0, rng.integers(1, 30, topk), 0).astype(np.int32)
+    wstate = {"cms": torch.from_numpy(cms).to(device),
+              "topk_ids": torch.from_numpy(tids).to(device),
+              "topk_est": torch.from_numpy(test).to(device),
+              "ids": torch.tensor([123.0], device=device)}
+    return (torch.from_numpy(ids).to(device),
+            torch.from_numpy(live).to(device), wstate)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,depth,buckets,topk,cand", [
+    (425_984, 4, 2048, 32, 128),   # the DLRM telemetry step's stream
+    (5_000, 3, 61, 6, 10),
+    (1_000, 9, 3, 4, 7),           # depths past 8, 3 buckets
+    (50, 4, 2048, 32, 128),        # n < candidates
+    (100_000, 16, 8192, 32, 128),  # a 512 KB sketch: no shared copy
+    (300_000, 4, 2047, 64, 4096),  # a tournament of several rounds
+])
+def test_sketch_kernels_match_plain(cuda_device, n, depth, buckets, topk,
+                                    cand):
+    """K13 (sketch update and live count), K14 (query and candidate
+    pool) and K15 (top-k merge) against their plain versions on the
+    card, three steps from one prior state: every leaf bit-exact."""
+    from distributed_embeddings_torch.ops import sketch as sk
+
+    rng = np.random.default_rng(n + depth)
+    runs = []
+    for use_kernels in (True, False):
+        rng = np.random.default_rng(n + depth)
+        ids, live, ws = _telemetry_case(rng, n, depth, buckets, topk,
+                                        cuda_device)
+        outs = []
+        for step in range(3):
+            if step:
+                ids = ids[torch.randperm(n, device=cuda_device,
+                                         generator=torch.Generator(
+                                             cuda_device).manual_seed(step))]
+            if use_kernels:
+                before = (sk.cms_update.launches, sk.topk_pool.launches,
+                          sk.topk_merge.launches)
+                counts = sk.cms_update(ws["cms"], ids, live)
+                pool = sk.topk_pool(ws["cms"], ids, live, min(cand, n))
+                cnt = sk.topk_merge(ws["cms"], pool, counts, ws["topk_ids"],
+                                    ws["topk_est"], ws["ids"], cand)
+                assert (sk.cms_update.launches, sk.topk_pool.launches,
+                        sk.topk_merge.launches) == tuple(
+                            b + 1 for b in before)
+                est = sk.cms_query(ws["cms"], ids)
+            else:
+                counts = sk.cms_update_plain(ws["cms"], ids, live)
+                pool = sk.topk_pool_plain(ws["cms"], ids, live,
+                                          min(cand, n))
+                cnt = sk.topk_merge_plain(ws["cms"], pool, counts,
+                                          ws["topk_ids"], ws["topk_est"],
+                                          ws["ids"], cand)
+                est = sk.cms_query_plain(ws["cms"], ids)
+            outs.append([int(counts.sum()), pool.clone(), cnt.clone(),
+                         est] + [v.clone() for v in ws.values()])
+        runs.append(outs)
+    for step, (a, b) in enumerate(zip(*runs)):
+        assert a[0] == b[0] == int(live.sum()), step
+        for x, y in zip(a[1:], b[1:]):
+            np.testing.assert_array_equal(to_np(x), to_np(y),
+                                          err_msg=f"step {step}")
+    assert (runs[0][-1][-3] >= 0).any()  # hot rows found

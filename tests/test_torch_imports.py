@@ -13,6 +13,7 @@ cannot pass vacuously.
 """
 
 import ast
+import os
 import pathlib
 
 import pytest
@@ -70,7 +71,12 @@ def test_sources_exist():
             "synthetic_configs.py", "packed_slab.py", "convert.py",
             "lookup.py", "exchange.py", "dist_embedding.py", "adam.py",
             "momentum.py", "learnable.py", "schedules.py",
-            "metrics.py"} <= names
+            "metrics.py", "sketch.py", "telemetry.py"} <= names
+    # the telemetry slice's modules are scanned too
+    scanned = {str(p.relative_to(ROOT)) for p in _sources()}
+    assert {"distributed_embeddings_torch/analysis/__init__.py",
+            "distributed_embeddings_torch/analysis/telemetry.py",
+            "distributed_embeddings_torch/ops/sketch.py"} <= scanned
 
 
 def test_every_kernel_source_is_bound():
@@ -82,7 +88,34 @@ def test_every_kernel_source_is_bound():
                            ).glob("*.cu")}
     assert cu == set(_kernels.SIGNATURES)
     assert {"csr", "ragged_combine", "ragged_grad", "adam",
-            "momentum"} <= cu
+            "momentum", "sketch"} <= cu
+
+
+def test_library_name_follows_included_headers(tmp_path, monkeypatch):
+    """A library is named by its source and every local header the
+    source includes (followed through headers), so an edited header
+    never loads a stale build. Hashing only: no nvcc."""
+    from distributed_embeddings_torch.ops import _kernels
+
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\n#include <x.h>\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_kernels, "CSRC", str(tmp_path))
+    names = [_kernels._lib_path("k")]
+    for f, text in (("b.cuh", "// v2\n"), ("a.cuh", "#include \"b.cuh\"\n"),
+                    ("k.cu", '#include "a.cuh"\n')):
+        (tmp_path / f).write_text(text)
+        names.append(_kernels._lib_path("k"))
+    assert len(set(names)) == len(names)
+    (tmp_path / "b.cuh").write_text("// v1\n")
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\n#include <x.h>\n')
+    assert _kernels._lib_path("k") == names[0]
+    # the real sources: the shared headers are part of their libraries
+    monkeypatch.undo()
+    src = _kernels.source_bytes(os.path.join(_kernels.CSRC, "sketch.cu"))
+    with open(os.path.join(_kernels.CSRC, "radix_sort.cuh"), "rb") as f:
+        assert f.read() in src
 
 
 @pytest.mark.parametrize("path", _sources(),
@@ -144,6 +177,12 @@ def test_port_module_is_standalone(path):
     "from distributed_embeddings_tpu.models.learnable import "
     "LearnableClicks\n",
     "from distributed_embeddings_tpu.utils.metrics import binary_auc\n",
+    "from distributed_embeddings_tpu.analysis import telemetry\n",
+    "from distributed_embeddings_tpu.utils.envvars import declare\n",
+    "def f(c, i, v):\n    try:\n        return cms_update(c, i, v)\n"
+    "    except RuntimeError:\n        return cms_update_plain(c, i, v)\n",
+    "def f(*a):\n    try:\n        return ops.topk_merge(*a)\n"
+    "    except Exception:\n        return topk_merge_plain(*a)\n",
 ])
 def test_checker_catches_seeded_violations(bad):
     assert violations(bad)

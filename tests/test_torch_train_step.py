@@ -404,10 +404,13 @@ def test_init_hybrid_state_and_unported_arguments(monkeypatch):
             init_hybrid_state(de, SparseSGD(), dense, SGD(LR))
     args = (de, lambda *a: None, SGD(LR), SparseSGD())
     for kw, item in ((dict(with_metrics=True), "A6"), (dict(mesh=1), "A7"),
-                     (dict(telemetry=True), "A11"),
-                     (dict(dynamic=True), "A11")):
+                     (dict(dynamic=True), "A11b")):
         with pytest.raises(NotImplementedError, match=item):
             make_hybrid_train_step(*args, **kw)
+    # access telemetry is ported: an explicit opt-in, a TypeError otherwise
+    assert callable(make_hybrid_train_step(*args, telemetry=True))
+    with pytest.raises(TypeError, match="TelemetryConfig"):
+        make_hybrid_train_step(*args, telemetry="on")
     monkeypatch.setenv("DETPU_OBS", "1")
     with pytest.raises(NotImplementedError, match="A6"):
         make_hybrid_train_loop(*args)
