@@ -133,6 +133,35 @@ Phases (any failure raises and the script exits non-zero):
    f. K13, K14 and K15 timed on the step's stream (and, in phase 9f, on
       the ragged step's ~26.4M positions) beside their plain versions,
       a PyTorch yardstick and their byte bounds.
+12. streaming, after freeing the telemetry state: streaming vocabularies
+    (``parallel/streaming.py``; K16 remap and K17 commit in
+    ``csrc/streaming.cu``, K13 for the admission sketch):
+   a. K16 and K17 against their plain versions on the card, bit-exact,
+      at the edge cases (free slots, a claim below the gate, eviction at
+      exactly the margin and at one less, equal estimates decided by the
+      fingerprint and equal (estimate, fingerprint) by the position, a
+      row hit by its occupant and claimed by another id, dead, negative
+      and int64 ids past 2^32, enable false, a bf16 slab over fp32
+      accumulators, Adam's mu/nu, an Inf in a claimed row);
+   b. ``bench.py:run_streaming`` at its full size (vocab 400,000,
+      capacity 50,000 + 3,125 buckets at dim 16 beside a 100-row table,
+      ``SparseAdagrad`` at 0.5 and SGD(0.01) on a scalar, b=4096, 200
+      day-k steps, guard off) against its static twin (an 800,000-row
+      table): the first 5 steps in lockstep with K16/K17 through their
+      plain versions (everything bitwise), both day-k+1 AUCs (drift
+      0.15, 4 batches through ``make_hybrid_eval_step(dynamic=)``),
+      samples/s, the counters and the bytes;
+   c. the capped Criteo-Kaggle one-hot DLRM (fp32 tables, bf16 compute,
+      ``SparseAdagrad`` at 0.01 + SGD at 0.005, guard on, b=65536, one
+      Zipfian id a feature over its full vocabulary) with tables 2, 3,
+      11, 15 and 20 streaming (1,882,353 slots + 117,647 buckets each):
+      one step with K16 (and its K13 fold), K5, K6 and K17 each held to
+      its plain version on the step's own inputs, a NaN batch (all state
+      bitwise unchanged), 3 warmup + 20 timed steps against the static
+      twin (the same slabs without the streaming entries) with
+      ``streaming_overhead_frac``, Zipfian requests through
+      ``ServingRuntime(streaming=)``, and K16 (update and read-only) and
+      K17 timed beside their plain versions and byte bounds.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Run from the root of a checkout:
@@ -479,10 +508,10 @@ def kernel_fns():
     launches)."""
     from distributed_embeddings_torch.ops import (
         adagrad_dense, adagrad_rows, adam_rows, cms_query, cms_update,
-        dedup_sparse_grad, dot_interact_bwd, dot_interact_fwd,
+        commit_rows, dedup_sparse_grad, dot_interact_bwd, dot_interact_fwd,
         gather_combine, lengths_to_splits, momentum_rows, ragged_combine,
-        ragged_grad, ragged_row_ids, row_to_split, sgd_scatter, topk_merge,
-        topk_pool)
+        ragged_grad, ragged_row_ids, remap_stage, row_to_split, sgd_scatter,
+        topk_merge, topk_pool)
 
     return {"gather_combine": gather_combine,
             "dot_interact_fwd": dot_interact_fwd,
@@ -494,7 +523,8 @@ def kernel_fns():
             "row_to_split": row_to_split, "ragged_row_ids": ragged_row_ids,
             "adam_rows": adam_rows, "momentum_rows": momentum_rows,
             "cms_update": cms_update, "cms_query": cms_query,
-            "topk_pool": topk_pool, "topk_merge": topk_merge}
+            "topk_pool": topk_pool, "topk_merge": topk_merge,
+            "remap_stage": remap_stage, "commit_rows": commit_rows}
 
 
 def zero_counts():
@@ -516,8 +546,9 @@ def plain_kernels(names=None):
         adagrad, adam, gather_combine_plain, interaction,
         lengths_to_splits_plain, momentum, ragged_combine_plain,
         row_to_split_plain, scatter_add, sketch, sparse_grad)
+    from distributed_embeddings_torch.ops import streaming as sops
     from distributed_embeddings_torch.parallel import (
-        apply, dist_embedding, lookup, optimizers)
+        apply, dist_embedding, lookup, optimizers, streaming)
 
     swaps = [(lookup, "gather_combine", gather_combine_plain),
              (lookup, "ragged_combine", ragged_combine_plain),
@@ -539,7 +570,9 @@ def plain_kernels(names=None):
              (telemetry, "sketch_update", sketch.cms_update_plain),
              (telemetry, "sketch_query", sketch.cms_query_plain),
              (telemetry, "topk_pool", sketch.topk_pool_plain),
-             (telemetry, "topk_merge", sketch.topk_merge_plain)]
+             (telemetry, "topk_merge", sketch.topk_merge_plain),
+             (streaming, "remap_stage", sops.remap_stage_plain),
+             (streaming, "commit_rows", sops.commit_rows_plain)]
     if names is not None:
         swaps = [sw for sw in swaps if sw[1] in names]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
@@ -3762,6 +3795,932 @@ def phase_telemetry(torch):
     return {"telemetry": launches}, errs, cases, metrics
 
 
+# ------------------------------------------------------------------ streaming
+
+STREAM_SITES = ("remap_stage", "commit_rows")  # the call sites of K16-K17
+#: the five Criteo-Kaggle features whose vocabularies pass the 2M cap
+#: (bench.py:63-67), served from 2M rows each by admission
+STREAM_OVERCAP = (2, 3, 11, 15, 20)
+STREAM_CAPACITY = 1_882_353    # KAGGLE_CAP = capacity + capacity // 16
+STREAM_BUCKETS = KAGGLE_CAP - STREAM_CAPACITY
+STREAM_LR = 0.01               # SparseAdagrad at the zoo's lr
+STREAM_BATCHES = 4             # distinct batches the timed steps cycle over
+STREAM_QPS = 300.0             # Zipfian requests a second, for 1 s
+#: bench.py:run_streaming with SMOKE off
+BENCH_VOCAB = 400_000
+BENCH_CAPACITY = BENCH_VOCAB // 8
+BENCH_BUCKETS = max(64, BENCH_CAPACITY // 16)
+BENCH_DIM = 16
+BENCH_BATCH = 4096
+BENCH_STEPS = 200
+BENCH_DRIFT = 0.15
+BENCH_LOCKSTEP = 5
+
+
+def stream_config():
+    from distributed_embeddings_torch.parallel import StreamingConfig
+
+    return StreamingConfig(admit_min_count=2, evict_margin=1, depth=4,
+                           buckets=4096)
+
+
+def same_bits(torch, got, want, what):
+    """Bitwise equality where a NaN equals a NaN (a claimed row holding
+    an Inf resets to NaN on both sides); returns the max abs error over
+    the finite values."""
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{what}: {got.dtype} {tuple(got.shape)} != {want.dtype} "
+          f"{tuple(want.shape)}")
+    if got.is_floating_point():
+        g, w = got.float(), want.float()
+        ok = bool(((g == w) | (torch.isnan(g) & torch.isnan(w))).all())
+        fin = torch.isfinite(g) & torch.isfinite(w)
+        err = float((g[fin] - w[fin]).abs().max()) if fin.any() else 0.0
+    else:
+        ok = bool(torch.equal(got, want))
+        err = float((got.double() - want.double()).abs().max()) \
+            if got.numel() else 0.0
+    check(ok, f"{what}: differs from the plain version (max err {err})")
+    return err
+
+
+def stream_per_step(k16=1, k17=1, ro=0):
+    """K16 (update), K13 and K17 launches of ``k16``/``k17`` streaming
+    steps (one width) and ``ro`` read-only remaps."""
+    return dict(remap_stage=k16 + ro, cms_update=k16, commit_rows=k17)
+
+
+@contextlib.contextmanager
+def stream_checks(torch, errs, what, before_commit=None):
+    """Hold every K16 and K17 call of the streaming path (the module
+    globals ``parallel.streaming.remap_stage``/``commit_rows``) to its
+    plain version on the same inputs, right where the step calls it:
+    K16's outputs and the staged sketch K13 folded, bit-exact; K17's
+    slab, leaves, slot map, sketch, totals, counters and steps, bitwise
+    (a NaN equals a NaN). ``before_commit()`` runs before each K17."""
+    from distributed_embeddings_torch.ops import streaming as sops
+    from distributed_embeddings_torch.parallel import streaming as smod
+
+    real_remap, real_commit = smod.remap_stage, smod.commit_rows
+    calls = {"remap": 0, "commit": 0}
+
+    def clone(a):
+        return a.clone() if torch.is_tensor(a) else a
+
+    def remap(*args, **kw):
+        ins = [clone(a) for a in args]
+        out = real_remap(*args, **kw)
+        want = sops.remap_stage_plain(*ins, **kw)
+        for f in sops.Remap._fields:
+            g, w = getattr(out, f), getattr(want, f)
+            if w is not None:
+                errs["remap_stage"] = max(errs.get("remap_stage", 0.0),
+                                          same_bits(torch, g, w,
+                                                    f"{what} K16 {f}"))
+        if args[8] is not None:
+            same_bits(torch, args[8], ins[8], f"{what} K16 staged sketch")
+        calls["remap"] += 1
+        calls["positions"] = args[0].numel()
+        return out
+
+    def commit(slab, leaves, pend, *rest, enable=None, finalize=True):
+        if before_commit is not None:
+            before_commit()
+        ws, wl = slab.clone(), [(t.clone(), f) for t, f in leaves]
+        wrest = [[clone(x) for x in a] if isinstance(a, list) else clone(a)
+                 for a in rest]
+        sops.commit_rows_plain(ws, wl, pend, *wrest, enable=enable,
+                               finalize=finalize)
+        real_commit(slab, leaves, pend, *rest, enable=enable,
+                    finalize=finalize)
+        got = [slab] + [t for t, _ in leaves] + list(rest[:5]) + list(
+            rest[5]) + [rest[6]]
+        want = [ws] + [t for t, _ in wl] + list(wrest[:5]) + list(
+            wrest[5]) + [wrest[6]]
+        for k, (g, w) in enumerate(zip(got, want)):
+            errs["commit_rows"] = max(errs.get("commit_rows", 0.0),
+                                      same_bits(torch, g, w,
+                                                f"{what} K17 output {k}"))
+        del ws, wl, wrest
+        calls["commit"] += 1
+
+    smod.remap_stage, smod.commit_rows = remap, commit
+    try:
+        yield calls
+    finally:
+        smod.remap_stage, smod.commit_rows = real_remap, real_commit
+
+
+def stream_kernel_checks(torch):
+    """K16 and K17 against their plain versions on the card, bit-exact,
+    at the edge cases of a small slot map (64 rows: a 20-slot table with
+    4 buckets at row 0 and a 1-slot table with 3 buckets at row 32),
+    each case checking the outcome it is named for. Returns the max
+    abs errors (0)."""
+    from distributed_embeddings_torch.ops import streaming as sops
+
+    dev, rows_cap, w = "cuda", 64, 8
+    tabs = {0: (20, 4, 3, 0), 1: (1, 3, 8, 32)}  # cap, nb, tid, roff
+    errs = {}
+
+    def where(ids, t):
+        """``(row, fp)`` of external ids in table ``t`` (plain hashes)."""
+        cap, nb, tid, roff = tabs[t]
+        e = torch.as_tensor(ids)
+        tt = torch.full(e.shape, tid, dtype=torch.int32)
+        slot, _ = sops.slot_bucket_plain(e, tt, torch.full_like(tt, cap),
+                                         torch.full_like(tt, nb))
+        return (roff + slot).tolist(), sops.fingerprint_plain(e, tt).tolist()
+
+    def run(name, ext, t, occupy=(), admit=2, margin=1, enable=None,
+            slab_dtype=torch.float32, leaves=("acc",), inf_rows=(),
+            live=None):
+        ext = torch.as_tensor(ext)
+        t = torch.as_tensor(t)
+        n = ext.numel()
+        meta = [torch.as_tensor([tabs[int(k)][j] for k in t],
+                                dtype=torch.int32, device=dev)
+                for j in range(4)]
+        live = (torch.ones(n, dtype=torch.bool) if live is None
+                else torch.as_tensor(live)).to(dev)
+        out = []
+        for use_kernel in (True, False):
+            g = torch.Generator(device=dev).manual_seed(7)
+            slot_fp = torch.full((rows_cap,), -1, dtype=torch.int32,
+                                 device=dev)
+            slot_freq = torch.zeros(rows_cap, dtype=torch.int32, device=dev)
+            for row, fp, freq in occupy:
+                slot_fp[row], slot_freq[row] = fp, freq
+            cms = torch.zeros((4, 4096), dtype=torch.int32, device=dev)
+            slab = torch.randn(rows_cap, w, generator=g, device=dev).to(
+                slab_dtype)
+            for r in inf_rows:
+                slab[r, 1] = float("inf")
+            lv = [(torch.rand(rows_cap, w, generator=g, device=dev) + 0.5,
+                   0.1 if leaves == ("acc",) else 0.0) for _ in leaves]
+            totals = torch.zeros(4, device=dev)
+            counters = [torch.zeros(1, device=dev) for _ in range(4)]
+            steps = torch.zeros(1, dtype=torch.int32, device=dev)
+            staged = cms.clone()
+            remap = sops.remap_stage if use_kernel else sops.remap_stage_plain
+            commit = sops.commit_rows if use_kernel else \
+                sops.commit_rows_plain
+            args = (ext.to(dev), live, *meta, slot_fp, slot_freq)
+            ro = remap(*args, None, admit, margin, update=False)
+            r = remap(*args, staged, admit, margin)
+            en = None if enable is None else torch.tensor(enable,
+                                                          device=dev)
+            commit(slab, lv, r, slot_fp, slot_freq, cms, staged, totals,
+                   counters, steps, enable=en)
+            out.append([ro.local_rows] + list(r) + [
+                slot_fp, slot_freq, cms, staged, slab, totals, steps]
+                + [x for x, _ in lv] + counters)
+        for k, (a, b) in enumerate(zip(*out)):
+            err = same_bits(torch, a, b, f"streaming edge case {name} "
+                            f"output {k}")
+            key = "remap_stage" if k < 7 else "commit_rows"
+            errs[key] = max(errs.get(key, 0.0), err)
+        got = out[0]
+        return dict(zip(("admitted", "evicted", "bucket_ids", "hit_ids"),
+                        got[6].tolist()), slot_fp=got[7].cpu(),
+                    slot_freq=got[8].cpu(), slab=got[11].float().cpu(),
+                    steps=int(got[13]), leaves=[x.cpu() for x in got[14:-4]],
+                    counters=[float(c) for c in got[-4:]])
+
+    x0 = 10 ** 6
+    # free slots: 3 ids twice each claim their free slots, nothing evicted
+    c = run("free_slots", [x0, x0, x0 + 1, x0 + 1, x0 + 2, x0 + 2], [0] * 6)
+    check(c["admitted"] >= 1 and c["evicted"] == 0 and c["hit_ids"] == 0
+          and c["admitted"] == int((c["slot_fp"] >= 0).sum()),
+          f"free slots: {c}")
+    # a claim below the gate: one sighting each, admit_min_count 3
+    c = run("below_gate", [x0 + k for k in range(8)], [0] * 8, admit=3)
+    check(c["admitted"] == 0 and c["bucket_ids"] == 8, f"below gate: {c}")
+    # eviction at exactly evict_margin, and at one less (occupant freq 4)
+    (row,), _ = where([x0 + 5], 1)
+    for reps, want in ((6, 1), (5, 0)):
+        c = run(f"evict_at_margin_{reps}", [x0 + 5] * reps, [1] * reps,
+                occupy=[(row, 12345, 4)], margin=2)
+        check(c["evicted"] == want and c["admitted"] == want,
+              f"eviction with est {reps} against freq 4 + margin 2: {c}")
+    # several ids claim the one-slot table's row with equal est: fp decides
+    ids = [x0 + 11, x0 + 12, x0 + 13]
+    _, fps = where(ids, 1)
+    c = run("equal_est_fp", ids * 3, [1] * 9)
+    check(c["admitted"] == 1 and int(c["slot_fp"][32]) == max(fps),
+          f"equal est: the winner is the max fingerprint: {c['slot_fp'][32]}"
+          f" vs {fps}")
+    # equal (est, fp): one id repeated, the position decides (one claim)
+    c = run("equal_est_fp_pos", [x0 + 21] * 5, [1] * 5)
+    check(c["admitted"] == 1, f"equal (est, fp): {c}")
+    # a row hit by its occupant and claimed by another id in one step
+    (r1,), (fp_a,) = where([x0 + 31], 1)
+    c = run("hit_and_claim", [x0 + 31] + [x0 + 32] * 4, [1] * 5,
+            occupy=[(r1, fp_a, 1)])
+    check(c["hit_ids"] == 1 and c["evicted"] == 1
+          and int(c["slot_freq"][r1]) == 4,
+          f"hit and claim: {c} (slot_freq {int(c['slot_freq'][r1])})")
+    # dead, negative and int64 ids at and past 2^32 (congruent pairs)
+    big = [2 ** 32 + 7, 7, 2 ** 33 + 7, 2 ** 40, 2 ** 40, -3, -(2 ** 40),
+           2 ** 32 + 7]
+    c = run("dead_negative_int64", torch.tensor(big, dtype=torch.int64),
+            [0] * 8, live=[True, True, True, True, True, True, True, False])
+    check(c["bucket_ids"] + c["hit_ids"] == 5, f"int64 ids: {c}")
+    # enable false: nothing changes, the step does not count
+    c = run("enable_false", [x0] * 4, [0] * 4, enable=False)
+    check(c["steps"] == 0 and int((c["slot_fp"] >= 0).sum()) == 0
+          and c["counters"] == [0.0] * 4, f"enable false: {c}")
+    # bf16 slab with an fp32 accumulator; Adam's mu/nu; an Inf row
+    (r2,), _ = where([x0 + 40], 0)
+    c = run("bf16_slab_fp32_acc", [x0 + 40] * 3, [0] * 3,
+            slab_dtype=torch.bfloat16, inf_rows=(r2,))
+    check(bool(torch.isnan(c["slab"][r2, 1])) and
+          float(c["slab"][r2].nan_to_num().abs().sum()) == 0 and
+          bool((c["leaves"][0][r2] == torch.tensor(
+              0.1, dtype=torch.float32)).all()),
+          f"bf16 slab: the claimed Inf row {c['slab'][r2]}")
+    c = run("adam_mu_nu", [x0 + 40] * 3, [0] * 3, leaves=("mu", "nu"))
+    check(all(float(x[r2].abs().sum()) == 0 for x in c["leaves"]),
+          "adam: mu/nu of the claimed row not reset")
+    log(f"streaming: K16 and K17 against their plain versions in 11 edge "
+        f"cases (free slots, below the gate, eviction at the margin and one "
+        f"less, equal est, equal (est, fp), hit and claim, dead/negative/"
+        f"int64 ids, enable false, bf16 slab over fp32 accumulators, Adam "
+        f"mu/nu, an Inf row): bit-exact, outcomes as named")
+    return errs
+
+
+# -------------------------------------------- 12b: bench.py:run_streaming
+
+
+def bench_dense(torch):
+    """The bench's dense half: one scalar ``s``, initialized to 1."""
+    m = torch.nn.Module()
+    m.s = torch.nn.Parameter(torch.ones((), device="cuda"))
+    return m
+
+
+def bench_stream_batch(logits, day, i):
+    """``run_streaming``'s ``day_batch``: Zipfian ids over the vocab (day
+    k+1: a drift fraction of never-seen ids past it) and labels drawn
+    from the planted per-id logit."""
+    from distributed_embeddings_torch.utils.data import power_law_ids
+
+    r = np.random.default_rng(1000 * day + i)
+    ids = power_law_ids(r, BENCH_VOCAB, (BENCH_BATCH,)).astype(np.int64)
+    if day > 0:
+        fresh = r.random(BENCH_BATCH) < BENCH_DRIFT
+        ids = np.where(fresh, BENCH_VOCAB + power_law_ids(
+            r, BENCH_VOCAB, (BENCH_BATCH,)), ids)
+    y = (r.random(BENCH_BATCH) < 1.0 / (1.0 + np.exp(-logits[ids]))
+         ).astype(np.float32)
+    return ids, y
+
+
+def bench_loss(dense, outs, y):
+    from distributed_embeddings_torch.models import bce_with_logits
+
+    logit = outs[0].sum(dim=-1) * dense.s + 0.0 * outs[1].sum()
+    return bce_with_logits(logit, y)
+
+
+def bench_pred(dense, outs, y):
+    return outs[0].sum(dim=-1) * dense.s
+
+
+def bench_model(torch, dynamic):
+    from distributed_embeddings_torch.parallel import (
+        SGD, DistributedEmbedding, SparseAdagrad, init_hybrid_state)
+
+    if dynamic:
+        configs = [{"input_dim": BENCH_CAPACITY + BENCH_BUCKETS,
+                    "output_dim": BENCH_DIM,
+                    "streaming": {"capacity": BENCH_CAPACITY,
+                                  "buckets": BENCH_BUCKETS}}]
+    else:
+        configs = [{"input_dim": 2 * BENCH_VOCAB, "output_dim": BENCH_DIM}]
+    configs.append({"input_dim": 100, "output_dim": BENCH_DIM})
+    de = DistributedEmbedding(configs, world_size=1)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 160)
+    st = init_hybrid_state(de, SparseAdagrad(), bench_dense(torch),
+                           SGD(0.01), generator=gen, device="cuda")
+    return de, st
+
+
+def state_bytes(tree):
+    from torch.utils import _pytree as pytree
+
+    return sum(t.numel() * t.element_size() for t in pytree.tree_leaves(tree)
+               if hasattr(t, "numel"))
+
+
+def stream_bench(torch):
+    """``bench.py:run_streaming`` at its full size (see ``phase_streaming``).
+    Returns ``(metrics, launches of the dynamic timed run)``."""
+    from distributed_embeddings_torch.parallel import (
+        SGD, SparseAdagrad, init_streaming, make_hybrid_eval_step,
+        make_hybrid_train_step)
+    from distributed_embeddings_torch.parallel import streaming as smod
+    from distributed_embeddings_torch.utils.metrics import binary_auc
+
+    cfg = stream_config()
+    rng = np.random.default_rng(11)
+    logits = rng.normal(size=(2 * BENCH_VOCAB,)).astype(np.float32) * 2.0
+    side = torch.zeros(BENCH_BATCH, dtype=torch.int32, device="cuda")
+    data = []
+    for i in range(BENCH_STEPS):
+        ids, y = bench_stream_batch(logits, 0, i)
+        data.append((torch.as_tensor(ids, device="cuda"),
+                     torch.as_tensor(y, device="cuda")))
+    out, launches = {}, None
+    for label, dyn in (("static", None), ("dynamic", cfg)):
+        de, st = bench_model(torch, dyn is not None)
+        step = make_hybrid_train_step(de, bench_loss, SGD(0.01),
+                                      SparseAdagrad(), lr_schedule=0.5,
+                                      nan_guard=False, dynamic=dyn)
+        aux = (init_streaming(de, cfg, device="cuda"),) if dyn else ()
+        for i, (ids, y) in enumerate(data):
+            if dyn and i < BENCH_LOCKSTEP:
+                # lockstep: the same step from a copy of the state with
+                # K16 and K17 through their plain versions
+                ref, ref_ss = clone_state(st), clone_tree(aux[0])
+                with plain_kernels(STREAM_SITES):
+                    rl, ref, ref_ss = step(ref, [ids, side], y, ref_ss)
+            if i == BENCH_LOCKSTEP:  # both models clock the same steps
+                torch.cuda.synchronize()
+                zero_counts()
+                t0 = time.perf_counter()
+            loss, st, *aux = step(st, [ids, side], y, *aux)
+            if dyn and i < BENCH_LOCKSTEP:
+                same_bits(torch, loss, rl, f"bench lockstep {i} loss")
+                telem_equal(torch, aux[0], ref_ss, f"bench lockstep {i}")
+                for k in st.emb_params:
+                    same_bits(torch, st.emb_params[k], ref.emb_params[k],
+                              f"bench lockstep {i} slab {k}")
+                    same_bits(torch, st.emb_opt_state[k],
+                              ref.emb_opt_state[k],
+                              f"bench lockstep {i} accumulators {k}")
+                del ref, ref_ss
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if dyn:
+            launches = read_counts()
+            timed = BENCH_STEPS - BENCH_LOCKSTEP
+            want = stream_per_step(timed, timed)
+            check_launches({k: launches[k] for k in want}, want,
+                           "bench streaming timed run")
+        check(bool(torch.isfinite(loss)), f"bench {label}: loss {loss}")
+        ev = make_hybrid_eval_step(de, bench_pred, dynamic=dyn)
+        scores, labels = [], []
+        before = clone_tree(aux[0]) if dyn else None
+        zero_counts()
+        for i in range(4):
+            ids, y = bench_stream_batch(logits, 1, 10_000 + i)
+            p = ev(st, [torch.as_tensor(ids, device="cuda"), side], None,
+                   *aux)
+            scores.append(p.float().cpu().numpy())
+            labels.append(y)
+        if dyn:
+            check_launches({k: read_counts()[k] for k in stream_per_step()},
+                           stream_per_step(0, 0, 4), "bench eval")
+            telem_equal(torch, aux[0], before, "bench eval leaves the "
+                        "streaming state")
+        auc = binary_auc(np.concatenate(labels), np.concatenate(scores))
+        out[f"{label}_auc_day_k1"] = float(auc)
+        out[f"{label}_samples_per_sec"] = BENCH_BATCH * (
+            BENCH_STEPS - BENCH_LOCKSTEP) / dt
+        out[f"{label}_slab_bytes"] = state_bytes(st.emb_params)
+        out[f"{label}_opt_bytes"] = state_bytes(st.emb_opt_state)
+        if dyn:
+            occ = smod.occupancy(de, aux[0])
+            out.update({k: occ[k] for k in ("admitted", "evicted",
+                                            "bucket_ids", "hit_ids")})
+            out["occupancy_frac"] = occ["tables"][0]["occupancy_frac"]
+            out["streaming_state_bytes"] = state_bytes(aux[0])
+        del st, de, aux
+    out["auc_delta_vs_static"] = (out["dynamic_auc_day_k1"]
+                                  - out["static_auc_day_k1"])
+    out["bytes_frac_of_static"] = (
+        (out["dynamic_slab_bytes"] + out["streaming_state_bytes"])
+        / out["static_slab_bytes"])
+    out.update(vocab=BENCH_VOCAB, capacity=BENCH_CAPACITY,
+               buckets=BENCH_BUCKETS, batch=BENCH_BATCH, steps=BENCH_STEPS,
+               drift_frac=BENCH_DRIFT)
+    for k in ("admitted", "evicted", "bucket_ids", "hit_ids"):
+        check(out[k] > 0, f"bench streaming: no {k}: {out}")
+    for k in ("static_auc_day_k1", "dynamic_auc_day_k1"):
+        check(0.5 < out[k] <= 1.0, f"bench streaming: {k} {out[k]}")
+    log(f"streaming bench: {BENCH_LOCKSTEP} lockstep steps with K16/K17 "
+        "and with their plain versions: losses, slabs, accumulators, slot "
+        "map, sketch and counters bitwise equal")
+    return out, launches
+
+
+# ----------------------------------------- 12c: the capped DLRM streaming
+
+
+def check_launches(got, want, what):
+    check(got == want, f"{what}: launches {got}, expected {want}")
+
+
+def stream_dlrm_model(torch, seed):
+    """The one-hot DLRM over the 26 Criteo-Kaggle vocabularies at width
+    128, fp32 tables, bf16 compute; the five tables past 2M rows
+    streaming (capacity 1,882,353 + 117,647 buckets = 2M rows each), and
+    the static twin: the same tables without the streaming entries.
+    ``SparseAdagrad`` at lr 0.01 + SGD at 0.005, the guard on."""
+    from distributed_embeddings_torch.models import DLRMConfig, DLRMDense
+    from distributed_embeddings_torch.parallel import (
+        SGD, DistributedEmbedding, SparseAdagrad, init_hybrid_state)
+
+    sizes = ragged_sizes()
+    cfg = DLRMConfig(table_sizes=sizes, embedding_dim=128,
+                     num_numerical_features=13,
+                     bottom_mlp_dims=(512, 256, 128),
+                     top_mlp_dims=(1024, 1024, 512, 256, 1),
+                     compute_dtype=torch.bfloat16)
+    static = cfg.embedding_configs()
+    dynamic = [dict(c, streaming={"capacity": STREAM_CAPACITY,
+                                  "buckets": STREAM_BUCKETS})
+               if t in STREAM_OVERCAP else c for t, c in enumerate(static)]
+    de = DistributedEmbedding(dynamic, world_size=1,
+                              compute_dtype=torch.bfloat16)
+    twin = DistributedEmbedding(static, world_size=1,
+                                compute_dtype=torch.bfloat16)
+    check(de.rows_cap == twin.rows_cap and de.row_offsets_list ==
+          twin.row_offsets_list, "the static twin's layout differs")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dense = DLRMDense(cfg, device="cuda", generator=gen)
+    st = init_hybrid_state(de, SparseAdagrad(), dense, SGD(TRAIN_LR),
+                           generator=gen, dtype=torch.float32,
+                           device="cuda")
+    return de, twin, st
+
+
+def stream_dlrm_batch(torch, gen, b, nan=False):
+    """One Zipfian id (alpha 1.05) a feature over its FULL Kaggle
+    vocabulary (ids past 2M in the five streaming features), N(0, 1)
+    numerical features and 0/1 labels, made on the card."""
+    cats = [device_power_law(torch, gen, v, b) for v in CRITEO_KAGGLE_SIZES]
+    num = torch.randn(b, 13, generator=gen, device="cuda")
+    if nan:
+        num[b // 2, 3] = float("nan")
+    lab = (torch.rand(b, generator=gen, device="cuda") < 0.25).float()
+    return cats, (num, lab)
+
+
+def dlrm_stream_per_step(steps=1):
+    """Launches of ``steps`` streaming DLRM steps: K1, K2, K4, K5, K6,
+    K16, K13 and K17 once each (one width, the sparse Adagrad regime)."""
+    want = {name: 0 for name in kernel_fns()}
+    want.update(gather_combine=steps, dot_interact_fwd=steps,
+                dot_interact_bwd=steps, dedup_sparse_grad=steps,
+                adagrad_rows=steps, remap_stage=steps, cms_update=steps,
+                commit_rows=steps)
+    return want
+
+
+def stream_dlrm_checks(torch, de, st, ss, cfg, gen, errs):
+    """12c's checked step (K16 and its K13 fold, K5, K6 and K17 each
+    against its plain version on the step's own inputs) and its NaN
+    batch."""
+    from distributed_embeddings_torch.ops import adagrad_rows_plain
+    from distributed_embeddings_torch.parallel import SparseAdagrad
+
+    opt = SparseAdagrad()
+    step = make_step_with(de, cfg, opt)
+    cats, batch = stream_dlrm_batch(torch, gen, TRAIN_BATCH)
+    k56 = {}
+
+    def before_commit():
+        # the sparse apply has run, the commit has not: K5 and K6 against
+        # their plain versions on what the step gave them
+        r = seen["w128"]
+        slab = st.emb_params["w128"][0]
+        acc = st.emb_opt_state["w128"][0]
+        rows = slab.shape[0]
+        what = "streaming DLRM checked step"
+        e5, keep, pos = k5_check(torch, r, rows, what)
+        ws, wa = r["slab"].clone(), r["state"].clone()
+        adagrad_rows_plain(ws, wa, pos, r["ugrads"][keep], r["lr"], opt.eps)
+        gs, ga = slab[r["uniq"]], acc[r["uniq"]]
+        check(bool(torch.equal(ga, wa)), f"{what}: adagrad_rows "
+              "accumulators differ from the plain update's")
+        es = (gs.float() - ws.float()).abs()
+        ts = 3 * ulp(torch, r["slab"].float().abs() + STREAM_LR, slab.dtype)
+        check(int((es > ts).sum()) == 0, f"{what}: adagrad_rows slab beyond "
+              f"3 ulps (max err {float(es.max())})")
+        k56.update(dedup_sparse_grad=e5, adagrad_rows=float(es.max()),
+                   ids=r["ids"].numel(), unique=len(r["uniq"]))
+
+    with recording(torch, opt) as seen, \
+            stream_checks(torch, errs, "streaming DLRM checked step",
+                          before_commit) as calls:
+        zero_counts()
+        loss, st, ss = step(st, cats, batch, ss)
+        torch.cuda.synchronize()
+        got = read_counts()
+    n = calls.pop("positions")
+    check(calls == {"remap": 1, "commit": 1}, f"checked step calls {calls}")
+    check_launches(got, dlrm_stream_per_step(), "streaming DLRM checked step")
+    check(bool(torch.isfinite(loss)), f"streaming DLRM loss {float(loss)}")
+    for k in ("dedup_sparse_grad", "adagrad_rows"):
+        errs[k] = max(errs.get(k, 0.0), k56[k])
+    log(f"streaming DLRM: checked step, loss {float(loss):.5f}; K16 (and "
+        f"the K13 fold) bit-exact to the plain remap on the step's own "
+        f"{n} streaming positions; K5 max_abs_err "
+        f"{k56['dedup_sparse_grad']} on {k56['ids']} ids ({k56['unique']} "
+        f"unique), K6 accumulators bit-exact and slab max_abs_err "
+        f"{k56['adagrad_rows']} (<= 3 ulps); K17 bitwise on the slab, "
+        f"accumulators, slot map, sketch, totals and counters")
+    # a NaN batch: the train state and the streaming state bitwise unchanged
+    cats, batch = stream_dlrm_batch(torch, gen, TRAIN_BATCH, nan=True)
+    before = (clone_tree(st.emb_params), clone_tree(st.emb_opt_state),
+              clone_tree(ss),
+              [p.detach().clone() for p in st.dense_params.parameters()],
+              int(st.step))
+    loss, st, ss = step(st, cats, batch, ss)
+    check(not bool(torch.isfinite(loss)), "the NaN batch's loss is finite")
+    for k in st.emb_params:
+        exact(torch, st.emb_params[k], before[0][k], "NaN batch slab")
+        exact(torch, st.emb_opt_state[k], before[1][k],
+              "NaN batch accumulators")
+    telem_equal(torch, ss, before[2], "NaN batch streaming state")
+    for p, q in zip(st.dense_params.parameters(), before[3]):
+        exact(torch, p.detach(), q, "NaN batch dense params")
+    check(int(st.step) == before[4] + 1, "the NaN batch did not advance "
+          "the step")
+    log("streaming DLRM: a NaN batch left the slab, accumulators, dense "
+        "params, slot map, sketch and counters bitwise unchanged; step "
+        "advanced")
+    del before
+    return st, ss
+
+
+def make_step_with(de, cfg, opt, nan_guard=True):
+    from distributed_embeddings_torch.parallel import (
+        SGD, make_hybrid_train_step)
+
+    return make_hybrid_train_step(de, loss_fn, SGD(TRAIN_LR), opt,
+                                  lr_schedule=STREAM_LR,
+                                  nan_guard=nan_guard, dynamic=cfg)
+
+
+def stream_dlrm_timed(torch, de, twin, st, ss, cfg, batches):
+    """The dynamic step and the static twin's (the same slab tensors; ids
+    past 2M clip onto each table's last row), 3 warmup + 20 timed steps
+    each, host clock, in the order dynamic, static, static, dynamic;
+    launches counted over the first dynamic run."""
+    from distributed_embeddings_torch.parallel import SparseAdagrad
+
+    runs = {"dynamic": [], "static": []}
+    launches = None
+    for label in ("dynamic", "static", "static", "dynamic"):
+        dyn = label == "dynamic"
+        step = make_step_with(de if dyn else twin, cfg if dyn else None,
+                              SparseAdagrad())
+        aux = (ss,) if dyn else ()
+        for k in range(WARMUP_RUNS):
+            cats, batch = batches[k % len(batches)]
+            loss, st, *aux = step(st, cats, batch, *aux)
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        for k in range(TRAIN_STEPS):
+            cats, batch = batches[k % len(batches)]
+            loss, st, *aux = step(st, cats, batch, *aux)
+        torch.cuda.synchronize()
+        runs[label].append((time.perf_counter() - t0) / TRAIN_STEPS)
+        if dyn and launches is None:
+            launches = read_counts()
+            check_launches(launches, dlrm_stream_per_step(TRAIN_STEPS),
+                           "streaming DLRM timed run")
+        check(bool(torch.isfinite(loss)), f"streaming DLRM {label} loss "
+              f"{float(loss)}")
+    dyn_s, sta_s = (float(np.mean(runs[k])) for k in ("dynamic", "static"))
+    metrics = {
+        "dynamic_step_ms": dyn_s * 1e3, "static_step_ms": sta_s * 1e3,
+        "dynamic_samples_per_sec": TRAIN_BATCH / dyn_s,
+        "static_samples_per_sec": TRAIN_BATCH / sta_s,
+        "streaming_overhead_frac": dyn_s / sta_s - 1.0,
+        "step_ms_runs": {k: [t * 1e3 for t in v] for k, v in runs.items()},
+        "batch": TRAIN_BATCH, "steps": TRAIN_STEPS}
+    return st, ss, launches, metrics
+
+
+STREAM_KERNELS = ("stream_hash_kernel", "cms_update_kernel",
+                  "stream_claim_kernel", "stream_claim_pos_kernel",
+                  "stream_outputs_kernel", "commit_scrub_kernel",
+                  "commit_hits_kernel", "commit_state_kernel")
+STREAM_CHAIN = re.compile(r"namespace\)::(" + "|".join(STREAM_KERNELS)
+                          + r")[<(]")
+
+
+def stream_profile(torch, de, st, ss, cfg, batches, steps=5):
+    """``torch.profiler`` over a few streaming DLRM steps (as
+    ``telemetry_profile``): the device's busy time against the window,
+    the top kernels, K16/K13/K17's launch chain per step, and the host
+    time spent in the remap (``_streaming_remap``: the stream's
+    assembly, K16, the write-back) and the commit per step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributed_embeddings_torch.parallel import SparseAdagrad
+    from distributed_embeddings_torch.parallel import streaming as smod
+
+    step = make_step_with(de, cfg, SparseAdagrad())
+    host = {"remap": 0.0, "commit": 0.0}
+    real_remap, real_commit = de._streaming_remap, smod.commit
+
+    def timed(key, fn):
+        def wrapper(*a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            host[key] += (time.perf_counter() - t) * 1e3
+            return out
+        return wrapper
+
+    de._streaming_remap = timed("remap", real_remap)
+    smod.commit = timed("commit", real_commit)
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for k in range(steps):
+                cats, batch = batches[k % len(batches)]
+                _, st, ss = step(st, cats, batch, ss)
+            torch.cuda.synchronize()
+            window = (time.perf_counter() - t0) * 1e3
+    finally:
+        del de._streaming_remap
+        smod.commit = real_commit
+    dev = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            dev[e.key] = e.self_device_time_total / 1e3
+    busy = sum(dev.values())
+    chain = {}
+    for key, ms in dev.items():
+        m = STREAM_CHAIN.search(key)
+        if m:
+            chain[m.group(1)] = chain.get(m.group(1), 0.0) + ms / steps
+    top = sorted(dev.items(), key=lambda kv: -kv[1])[:10]
+    out = {"steps": steps, "window_ms_per_step": window / steps,
+           "device_busy_ms_per_step": busy / steps,
+           "device_busy_share": busy / window,
+           "stream_chain_ms_per_step": chain,
+           "host_ms_per_step": {k: v / steps for k, v in host.items()},
+           "top_device_ms_per_step": [(k[:60], v / steps) for k, v in top]}
+    log("streaming profile: " + json.dumps(out))
+    check(busy > 0, "streaming profile: the trace holds no device time")
+    check(set(chain) == set(STREAM_KERNELS), f"streaming profile: the "
+          f"K16/K13/K17 chain is incomplete in the trace: {chain}")
+    return st, ss, out
+
+
+def stream_dlrm_serve(torch, de, st, ss, cfg):
+    """Zipfian requests over the full vocabularies through
+    ``ServingRuntime(streaming=)``: every one ``Served``, a sample equal
+    to ``make_hybrid_eval_step(dynamic=)`` on the same inputs, and the
+    streaming state left alone."""
+    from distributed_embeddings_torch.parallel import (
+        ServeConfig, Served, ServingRuntime, drive, make_hybrid_eval_step,
+        synthetic_request)
+
+    def pred(d, outs, n):
+        return torch.sigmoid(d(n, outs))[:, 0]
+
+    rt = ServingRuntime(de, pred, st, config=ServeConfig(),
+                        streaming=(cfg, ss))
+    ev = make_hybrid_eval_step(de, pred, dynamic=cfg)
+    rng = np.random.default_rng(SEED + 170)
+    tmpl = synthetic_request(rng, CRITEO_KAGGLE_SIZES, 2, numerical=13)
+    rt.warmup((tmpl.cats, tmpl.batch))
+    before = clone_tree(ss)
+    sent = {}
+
+    def make_request(i):
+        req = synthetic_request(rng, CRITEO_KAGGLE_SIZES,
+                                int(rng.integers(1, 9)), numerical=13)
+        sent[i] = req
+        return req
+
+    zero_counts()
+    results = drive(rt, make_request, qps=STREAM_QPS, duration_s=1.0)
+    launches = read_counts()
+    check(len(sent) >= 200 and len(results) == len(sent) and all(
+        isinstance(r, Served) for r in results),
+        f"{len(results)} results for {len(sent)} requests, kinds "
+        f"{sorted({type(r).__name__ for r in results})}")
+    flushes = rt.stats()["flushes"]
+    check_launches({k: launches[k] for k in stream_per_step()},
+                   stream_per_step(0, 0, flushes),
+                   f"streaming serving ({flushes} flushes)")
+    worst = 0.0
+    for r in results[::max(1, len(results) // 16)]:
+        req = sent[r.rid]
+        want = ev(st, [torch.as_tensor(c, device="cuda") for c in req.cats],
+                  torch.as_tensor(req.batch, device="cuda"), ss)
+        err = float(np.abs(np.asarray(r.predictions)
+                           - want.float().cpu().numpy()).max())
+        worst = max(worst, err)
+        check(err <= 2e-2, f"rid {r.rid}: served vs eval step differ by "
+              f"{err}")
+    telem_equal(torch, ss, before, "serving leaves the streaming state")
+    s = rt.stats()
+    log(f"streaming DLRM serve: {len(results)} requests Served in "
+        f"{flushes} flushes (K16 read-only once a flush), p50 "
+        f"{s['latency_p50_ms']:.2f} / p99 {s['latency_p99_ms']:.2f} ms; "
+        f"sampled requests match the "
+        f"eval step, max abs err {worst} (atol 2e-2: a flush pads to its "
+        f"rung, so bf16 GEMMs run at other shapes)")
+    return launches, {"served": len(results), "flushes": flushes,
+                      "latency_p50_ms": s["latency_p50_ms"],
+                      "latency_p99_ms": s["latency_p99_ms"],
+                      "max_abs_err_vs_eval": worst}
+
+
+def stream_kernel_times(torch, de, st, ss, cfg, batches):
+    """K16 (update and read-only) and K17 timed on the streaming DLRM
+    step's own stream (the 5 streaming features' 327,680 positions),
+    beside their plain versions, their byte bounds and a PyTorch
+    yardstick."""
+    from distributed_embeddings_torch.ops import sketch as sk
+    from distributed_embeddings_torch.ops import streaming as sops
+    from distributed_embeddings_torch.parallel import streaming as smod
+
+    streams = []
+    real = smod.remap_width
+
+    def grab(wstate, stream, rows_cap, config, update=True):
+        streams.append(stream)
+        return real(wstate, stream, rows_cap, config, update)
+
+    smod.remap_width = grab
+    try:
+        with torch.no_grad():
+            for cats, _ in batches[:2]:
+                de.forward_with_residuals(
+                    st.emb_params, cats,
+                    streaming=(cfg, smod.local_state(ss), False))
+    finally:
+        smod.remap_width = real
+    ws = smod.local_state(ss)["w128"]
+    rows_cap = ws["slot_fp"].numel()
+    n = streams[0].ext.numel()
+    args = [(s.ext, s.live, s.cap, s.nbuckets, s.tid, s.roff,
+             ws["slot_fp"], ws["slot_freq"]) for s in streams]
+    staged = ws["cms"].clone()
+    pol = (cfg.admit_min_count, cfg.evict_margin)
+    ro_ms = time_ms(torch, lambda *a: sops.remap_stage(
+        *a, None, *pol, update=False), args)
+    ro_plain = time_ms(torch, lambda *a: sops.remap_stage_plain(
+        *a, None, *pol, update=False), args)
+    upd_ms = time_ms(torch, lambda *a: sops.remap_stage(*a, staged, *pol),
+                     args)
+    upd_plain = time_ms(torch, lambda *a: sops.remap_stage_plain(
+        *a, staged.clone(), *pol), args)
+
+    def yardstick(ext, live, cap, nb, tid, roff, slot_fp, slot_freq):
+        # part of the function: the sketch query by gather + amin on
+        # precomputed columns, and the slot-map gathers
+        v = flat[cols].view(cfg.depth, -1).amin(dim=0)
+        return v, slot_fp.index_select(0, rows), slot_freq.index_select(
+            0, rows)
+
+    key = sops.fingerprint_plain(streams[0].ext, streams[0].tid)
+    cols = (sk.buckets_of_plain(key, cfg.depth, cfg.buckets)
+            + torch.arange(cfg.depth, device="cuda")[:, None] * cfg.buckets
+            ).reshape(-1)
+    flat = staged.reshape(-1)
+    slot, _ = sops.slot_bucket_plain(streams[0].ext, streams[0].tid,
+                                     streams[0].cap, streams[0].nbuckets)
+    rows = (streams[0].roff + slot).long()
+    lib_ms = time_ms(torch, yardstick, args[:1])
+    esz = streams[0].ext.element_size()
+    sketch_b = 2 * cfg.depth * cfg.buckets * 4
+    ro_bytes = n * (esz + 1 + 16 + 4 + 4)
+    upd_bytes = n * (esz + 1 + 16 + 4 + 4 + 4 * 5) + 32 + sketch_b
+    # K17 on the first stream's staged transitions
+    pend = sops.remap_stage(*args[0], ws["cms"].clone(), *pol)
+    claims = int((pend.scrub_rows < rows_cap).sum())
+    hits = int((pend.hit_rows < rows_cap).sum())
+    slab = st.emb_params["w128"][0]
+    acc = st.emb_opt_state["w128"][0]
+    totals = torch.zeros(4, device="cuda")
+    counters = [torch.zeros(1, device="cuda") for _ in range(4)]
+    steps = torch.zeros(1, dtype=torch.int32, device="cuda")
+    on = torch.tensor(True, device="cuda")
+    slot_fp, slot_freq = ws["slot_fp"].clone(), ws["slot_freq"].clone()
+    cms, staged2 = ws["cms"].clone(), ws["cms"].clone()
+    c_args = [(slab, [(acc, 0.1)], pend, slot_fp, slot_freq, cms, staged2,
+               totals, counters, steps)]
+    commit_ms = time_ms(torch, lambda *a: sops.commit_rows(*a, enable=on),
+                        c_args)
+    commit_plain = time_ms(torch, lambda *a: sops.commit_rows_plain(
+        *a, enable=on), c_args)
+    commit_bytes = (n * 16 + claims * (2 * 2 * 128 * 4 + 8) + hits * 8
+                    + sketch_b + 64)
+    cases = {
+        "remap_stage": [dict(
+            case=f"update, {n} streaming positions of the DLRM step into "
+                 f"{rows_cap} slot rows (with its K13 fold)",
+            ms=upd_ms, plain_ms=upd_plain, library_ms=lib_ms,
+            library="sketch gather + amin and the slot-map gathers "
+                    "(partial)",
+            bound_ms=upd_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+            bytes=upd_bytes), dict(
+            case=f"read-only, {n} positions", ms=ro_ms, plain_ms=ro_plain,
+            library_ms=lib_ms, library="as above (partial)",
+            bound_ms=ro_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+            bytes=ro_bytes)],
+        "commit_rows": [dict(
+            case=f"{claims} claimed rows (slab and fp32 accumulator, "
+                 f"w128), {hits} hits, of {n} positions",
+            ms=commit_ms, plain_ms=commit_plain, library_ms=None,
+            library="none: no PyTorch call computes the guarded commit",
+            bound_ms=commit_bytes / HBM_BYTES_PER_S * 1e3,
+            bound_by="bytes", bytes=commit_bytes)]}
+    for name, cs in cases.items():
+        for c in cs:
+            lib = ("none" if c["library_ms"] is None
+                   else f"{c['library_ms']:.4f}")
+            log(f"time {name} {c['case']}: kernel {c['ms']:.4f} ms, plain "
+                f"{c['plain_ms']:.4f}, library {lib}, bound "
+                f"{c['bound_ms']:.5f}")
+    return cases
+
+
+def phase_streaming(torch):
+    """Streaming vocabularies (``parallel/streaming.py``, K16 and K17 in
+    ``csrc/streaming.cu``, K13 for the admission sketch):
+    12a. K16/K17 edge cases against their plain versions;
+    12b. ``bench.py:run_streaming`` at its full size: day-k training and
+         day-k+1 AUC, static against dynamic, the first steps in lockstep
+         with K16/K17 through their plain versions;
+    12c. the capped Criteo-Kaggle one-hot DLRM (fp32 tables, bf16
+         compute, ``SparseAdagrad``) with its five over-cap tables
+         streaming: a checked step, a NaN batch, timed steps against the
+         static twin, serving, and K16/K17 timed."""
+    from distributed_embeddings_torch.parallel import init_streaming
+    from distributed_embeddings_torch.parallel import streaming as smod
+
+    t_phase = time.perf_counter()
+    errs = stream_kernel_checks(torch)
+    bench, bench_launches = stream_bench(torch)
+    log("streaming bench: " + json.dumps(bench))
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = stream_config()
+    t0 = time.perf_counter()
+    de, twin, st = stream_dlrm_model(torch, SEED + 180)
+    ss = init_streaming(de, cfg, device="cuda")
+    torch.cuda.synchronize()
+    slab = st.emb_params["w128"]
+    check(tuple(slab.shape) == (1, sum(ragged_sizes()), 128),
+          f"streaming slab shape {tuple(slab.shape)}")
+    sbytes = state_bytes(ss)
+    log(f"streaming DLRM: slab {tuple(slab.shape)} fp32 = "
+        f"{slab.numel() * 4 / 1e9:.2f} GB (+ the same in Adagrad "
+        f"accumulators), streaming state {sbytes / 1e6:.1f} MB, tables "
+        f"{list(STREAM_OVERCAP)} streaming ({STREAM_CAPACITY} slots + "
+        f"{STREAM_BUCKETS} buckets each), built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 181)
+    st, ss = stream_dlrm_checks(torch, de, st, ss, cfg, gen, errs)
+    batches = [stream_dlrm_batch(torch, gen, TRAIN_BATCH)
+               for _ in range(STREAM_BATCHES)]
+    st, ss, launches, metrics = stream_dlrm_timed(torch, de, twin, st, ss,
+                                                  cfg, batches)
+    occ = smod.occupancy(de, ss)
+    metrics.update({k: occ[k] for k in ("steps", "admitted", "evicted",
+                                        "bucket_ids", "hit_ids")})
+    metrics["occupancy_frac"] = [t["occupancy_frac"] for t in occ["tables"]]
+    metrics["streaming_state_bytes"] = sbytes
+    log(json.dumps({k: metrics[k] for k in (
+        "static_samples_per_sec", "dynamic_samples_per_sec",
+        "streaming_overhead_frac")}))
+    log(f"streaming DLRM: step {metrics['dynamic_step_ms']:.3f} ms dynamic, "
+        f"{metrics['static_step_ms']:.3f} static (runs dynamic, static, "
+        f"static, dynamic: {metrics['step_ms_runs']})")
+    st, ss, metrics["profile"] = stream_profile(torch, de, st, ss, cfg,
+                                                batches)
+    serve_launches, metrics["serve"] = stream_dlrm_serve(torch, de, st, ss,
+                                                         cfg)
+    cases = stream_kernel_times(torch, de, st, ss, cfg, batches)
+    metrics["bench"] = bench
+    metrics["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    metrics["phase_s"] = time.perf_counter() - t_phase
+    log(f"streaming: phase done in {metrics['phase_s']:.1f} s, peak memory "
+        f"{metrics['peak_memory_gb']:.1f} GB")
+    del st, ss, de, twin, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ({"streaming": launches, "streaming_serve": serve_launches,
+             "streaming_bench": bench_launches}, errs, cases, metrics)
+
+
 def main():
     try:
         import torch
@@ -3931,9 +4890,42 @@ def main():
     kernels[-2]["entry_points"] = {
         "topk_pool": "distributed_embeddings_tpu/analysis/telemetry.py:214",
         "cms_query": "distributed_embeddings_tpu/analysis/telemetry.py:204"}
+    log("telemetry: " + json.dumps(tel))
+    log(f"telemetry peak memory {torch.cuda.max_memory_allocated() / 1e9:.1f} "
+        f"GB, {time.perf_counter() - t_start:.1f} s so far")
+    torch.cuda.reset_peak_memory_stats()
+    st_launches, st_errs, st_cases, stream = phase_streaming(torch)
+    launches.update(st_launches)
+    for k in kernels:
+        names = (csr_names if k["name"] == "csr" else k14 if k["name"] ==
+                 "cms_query" else (k["name"],))
+        for p in st_launches:
+            k["launches_by_path"][p] = sum(st_launches[p][n] for n in names)
+        k["max_abs_err"] = max(k["max_abs_err"],
+                               st_errs.get(k["name"], 0.0))
+    for name, repl in (
+            ("remap_stage",
+             "distributed_embeddings_tpu/parallel/streaming.py:265"),
+            ("commit_rows",
+             "distributed_embeddings_tpu/parallel/streaming.py:366")):
+        cases = st_cases[name]
+        c = cases[0]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "distributed_embeddings_torch/csrc/streaming.cu",
+            "replaces": repl, "launches": launches["streaming"][name],
+            "launches_by_path": {p: launches[p][name] for p in launches},
+            "max_abs_err": st_errs[name], "ms": c["ms"],
+            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+            "shape": c["case"], "cases": cases})
+    kernels[-2]["entry_points"] = {
+        "remap_width": "distributed_embeddings_tpu/parallel/streaming.py:265",
+        "_streaming_remap": "distributed_embeddings_tpu/parallel/"
+                            "dist_embedding.py:1418"}
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']}: no launch on its main path")
-    log("telemetry: " + json.dumps(tel))
+    log("streaming: " + json.dumps(stream))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -20,6 +20,8 @@ from .sketch import (cms_query, cms_query_plain, cms_update,
 from .sparse_grad import (combiner_grad_values, dedup_sparse_grad,
                           dedup_sparse_grad_plain, ragged_grad,
                           ragged_grad_plain)
+from .streaming import (commit_rows, commit_rows_plain, remap_stage,
+                        remap_stage_plain)
 
 __all__ = ["Ragged", "SparseIds", "embedding_lookup", "gather_combine",
            "gather_combine_plain", "lengths_to_splits",
@@ -35,4 +37,6 @@ __all__ = ["Ragged", "SparseIds", "embedding_lookup", "gather_combine",
            "adam_rows_plain", "bias_powers", "momentum_rows",
            "momentum_rows_plain", "cms_update", "cms_update_plain",
            "cms_query", "cms_query_plain", "topk_pool", "topk_pool_plain",
-           "topk_merge", "topk_merge_plain", "record_ids_plain"]
+           "topk_merge", "topk_merge_plain", "record_ids_plain",
+           "remap_stage", "remap_stage_plain", "commit_rows",
+           "commit_rows_plain"]

@@ -135,6 +135,24 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "detpu_topk_merge": (_P, _I, _I, _P, _I, _I, _P, _P, _I, _P, _P,
                              _I, _P, _P),
     },
+    "streaming": {
+        # ext, ext_is_64, live, cap, nb, tid, roff, slot_fp, n, local_rows,
+        # key, live_out, flags, rowc, stream
+        "detpu_stream_hash": (_P, _I, _P, _P, _P, _P, _P, _P, _I64, _P, _P,
+                              _P, _P, _P, _P),
+        # cms, depth, buckets, key, flags, rowc, slot_freq, admit, margin,
+        # n, rows_cap, best_key, best_pos, est, scrub_rows, hit_rows,
+        # counts, stream
+        "detpu_stream_stage": (_P, _I, _I, _P, _P, _P, _P, _I, _I, _I64,
+                               _I, _P, _P, _P, _P, _P, _P, _P),
+        # slab, slab_dtype, width, rows_cap, leaf_ptrs, leaf_dtypes,
+        # leaf_fills, n_leaves, scrub_rows, fp, est, hit_rows, n, slot_fp,
+        # slot_freq, cms, staged, cms_numel, counts, totals, c_admitted,
+        # c_evicted, c_bucket, c_hit, steps, finalize, enable, stream
+        "detpu_stream_commit": (_P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P,
+                                _P, _I64, _P, _P, _P, _P, _I64, _P, _P, _P,
+                                _P, _P, _P, _P, _I, _P, _P),
+    },
 }
 
 #: return type of the exported functions that return no ``cudaError_t``

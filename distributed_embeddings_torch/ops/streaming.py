@@ -1,0 +1,369 @@
+"""The streaming vocabulary's remap and commit on the hand-written kernels
+K16 (slot-map remap with admission and eviction) and K17 (the
+guard-gated commit), both in ``csrc/streaming.cu``, with their plain
+PyTorch versions.
+
+Counterpart of the math of ``distributed_embeddings_tpu/parallel/
+streaming.py`` (``_mix``, ``_fingerprint``, ``remap_width``, and the
+scatters of ``commit``), split at the kernels' seams:
+
+* :func:`remap_stage` (K16) serves one width slab's external-id stream
+  out of the slot map: each position's table-local row (its slot on a
+  map hit, else its shared hash bucket) and, in update mode, this step's
+  staged transitions (:class:`Remap`): it folds the stream's
+  fingerprints into the STAGED sketch it is given (K13,
+  ``ops/sketch.py:cms_update``), estimates each position from it, and
+  resolves the claims to one winner per row by the lexicographic max of
+  (estimate, fingerprint, position);
+* :func:`commit_rows` (K17) applies them under the device verdict
+  ``enable``: the claimed slab rows become ``x + (-x)``, every
+  slab-shaped optimizer leaf on them ``(c + (-c)) + fill``, the slot map
+  takes the winners' fingerprints and estimates and then the hits'
+  estimates (a max), the staged sketch replaces the carried one, and the
+  step counts join the cumulative counters.
+
+Everything is integer arithmetic or single IEEE adds, so each kernel
+equals its plain version bit for bit (a NaN is a NaN), and both equal
+JAX's ``remap_width``/``commit`` for live counts below 2^24 (JAX sums
+its masks in float32: beyond that its sum is not the count in any
+order; the port counts exactly in int64 and rounds once). The plain
+versions do the uint32 hashes in int64 masked to 32 bits, as
+``ops/sketch.py`` does (PyTorch's CPU uint32 lacks the shifts).
+
+A CPU tensor runs the plain version; a CUDA tensor launches the kernel
+or raises. Each wrapper counts its launches (one per call; K16's update
+also launches K13, counted by ``cms_update``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
+
+import torch
+
+from . import _kernels
+from .sketch import _M32, _mul32, cms_query_plain, cms_update, \
+    cms_update_plain
+
+#: free-slot marker in the slot map (fingerprints are >= 0)
+SLOT_FREE = -1
+#: odd multipliers of the slot, bucket and fingerprint hashes and the
+#: table-id salt (``streaming.py:83-86``)
+H_SLOT = 0x7FEB352D
+H_BUCKET = 0x846CA68B
+H_FP = 0x9E3779B1
+H_SALT = 0x85EBCA77
+AVALANCHE = 0x2C1B3C6D
+#: the four per-step counts, in the order of :attr:`Remap.counts`
+COUNT_NAMES = ("admitted", "evicted", "bucket_ids", "hit_ids")
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+class Remap(NamedTuple):
+    """One width stream's remap (``[n]`` int32 each unless noted).
+    Read-only remaps fill only ``local_rows``."""
+
+    local_rows: torch.Tensor   #: table-local row a live position reads
+    fp: Optional[torch.Tensor] = None  #: fingerprint (the sketch key)
+    est: Optional[torch.Tensor] = None  #: estimate in the staged sketch
+    scrub_rows: Optional[torch.Tensor] = None  #: claimed row or rows_cap
+    hit_rows: Optional[torch.Tensor] = None    #: hit row or rows_cap
+    counts: Optional[torch.Tensor] = None  #: [4] int64, COUNT_NAMES
+
+
+# ----------------------------------------------------------- the hashes
+
+
+def _low32(x: torch.Tensor) -> torch.Tensor:
+    """The low 32 bits of int64 ``x`` as int32 (two's complement)."""
+    return (((x & _M32) ^ 0x80000000) - 0x80000000).to(torch.int32)
+
+
+def fold_ids(ext: torch.Tensor) -> torch.Tensor:
+    """``uint32(ext)`` as int64 in ``[0, 2^32)``; 64-bit ids fold their
+    high word in first (``ext ^ (ext >> 32)``)."""
+    x = ext.long()
+    if ext.dtype == torch.int64:
+        x = x ^ (x >> 32)
+    return x & _M32
+
+
+def mix_plain(ext: torch.Tensor, salt: torch.Tensor, mult: int
+              ) -> torch.Tensor:
+    """``_mix``: the salted xxhash-style avalanche of ``ext`` (uint32 as
+    int64)."""
+    h = fold_ids(ext) ^ _mul32(salt.long() & _M32, H_SALT)
+    h = _mul32(h, mult)
+    h = h ^ (h >> 15)
+    h = _mul32(h, AVALANCHE)
+    return h ^ (h >> 13)
+
+
+def fingerprint_plain(ext: torch.Tensor, tid: torch.Tensor) -> torch.Tensor:
+    """``_fingerprint``: the 31-bit id fingerprint (int32), also the
+    admission sketch's key."""
+    return (mix_plain(ext, tid, H_FP) >> 1).to(torch.int32)
+
+
+def slot_bucket_plain(ext, tid, cap, nbuckets):
+    """Each position's direct-mapped slot and shared bucket (int32)."""
+    slot = mix_plain(ext, tid, H_SLOT) % cap.long().clamp(min=1)
+    bucket = mix_plain(ext, tid, H_BUCKET) % nbuckets.long().clamp(min=1)
+    return slot.to(torch.int32), bucket.to(torch.int32)
+
+
+# ----------------------------------------------------- plain versions
+
+
+def remap_stage_plain(ext, live, cap, nbuckets, tid, roff, slot_fp,
+                      slot_freq, cms, admit_min_count: int,
+                      evict_margin: int, update: bool = True) -> Remap:
+    """Plain PyTorch version of :func:`remap_stage`: ``remap_width`` op
+    for op (the winner through three ``rows_cap``-long max-scatters)."""
+    live = live & (ext >= 0)
+    fp = fingerprint_plain(ext, tid)
+    slot, bucket = slot_bucket_plain(ext, tid, cap, nbuckets)
+    row = roff + slot
+    rowc = torch.where(live, row, 0).long()
+    occ = slot_fp[rowc]
+    hit = live & (occ == fp)
+    local = torch.where(hit, slot, cap + bucket)
+    local_rows = torch.where(live, local, _low32(ext.long()))
+    if not update:
+        return Remap(local_rows)
+    cms_update_plain(cms, fp, live)
+    est = cms_query_plain(cms, fp)
+    free = occ == SLOT_FREE
+    admit = live & ~hit & (est >= admit_min_count)
+    claim = admit & (free | (est >= slot_freq[rowc] + evict_margin))
+    rows_cap = slot_fp.numel()
+    neg = torch.full((rows_cap,), -1, dtype=torch.int32, device=ext.device)
+
+    def best(vals):
+        return neg.scatter_reduce(0, rowc, vals, "amax")[rowc]
+
+    cand = claim & (est == best(torch.where(claim, est, -1)))
+    cand = cand & (fp == best(torch.where(cand, fp, -1)))
+    pos = torch.arange(ext.numel(), dtype=torch.int32, device=ext.device)
+    scrub = cand & (best(torch.where(cand, pos, -1)) == pos)
+    counts = torch.stack([scrub.sum(), (scrub & ~free).sum(),
+                          (live & ~hit).sum(), hit.sum()])
+    return Remap(local_rows, fp, est, torch.where(scrub, row, rows_cap),
+                 torch.where(hit, row, rows_cap), counts)
+
+
+def _reset(t: torch.Tensor, rows: torch.Tensor, fill: float) -> None:
+    c = t[rows]
+    z = c + (-c)
+    if fill:
+        z = z + torch.tensor(fill, dtype=t.dtype, device=t.device)
+    t[rows] = z
+
+
+def commit_rows_plain(slab, leaves, pend: Remap, slot_fp, slot_freq, cms,
+                      staged, totals, counters, steps, enable=None,
+                      finalize: bool = True) -> None:
+    """Plain PyTorch version of :func:`commit_rows`."""
+    rows_cap = slot_fp.numel()
+    en = (torch.ones((), dtype=torch.bool, device=slab.device)
+          if enable is None else enable)
+    sel = (pend.scrub_rows >= 0) & (pend.scrub_rows < rows_cap) & en
+    rows = pend.scrub_rows[sel].long()
+    _reset(slab, rows, 0.0)
+    for leaf, fill in leaves:
+        _reset(leaf, rows, fill)
+    slot_fp[rows] = pend.fp[sel]
+    slot_freq[rows] = pend.est[sel]
+    hsel = (pend.hit_rows >= 0) & (pend.hit_rows < rows_cap) & en
+    slot_freq.scatter_reduce_(0, pend.hit_rows[hsel].long(),
+                              pend.est[hsel], "amax")
+    cms.copy_(torch.where(en, staged, cms))
+    totals.add_(torch.where(en, pend.counts.to(torch.float32), 0.0))
+    if finalize:
+        for k, c in enumerate(counters):
+            c.add_(totals[k:k + 1])
+        steps.add_(en.to(torch.int32))
+
+
+# ----------------------------------------------------------- the kernels
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check(t, dtypes, shape, device, what):
+    dtypes = dtypes if isinstance(dtypes, tuple) else (dtypes,)
+    if t.dtype not in dtypes or tuple(t.shape) != tuple(shape) \
+            or not t.is_contiguous() or t.device != device:
+        raise ValueError(f"{what}: expected a contiguous {dtypes} tensor of "
+                         f"shape {tuple(shape)} on {device}, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+
+
+def _cuda(t: torch.Tensor) -> torch.device:
+    if t.device.type != "cuda":
+        raise ValueError(f"unsupported device {t.device}")
+    return t.device
+
+
+_scratch: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _claim_scratch(device: torch.device, rows_cap: int):
+    """K16's per-row claim scratch (``best_key`` zeros, ``best_pos``
+    -1s), kept between launches per card and slot-map size: each launch
+    resets the entries it touches, so a step costs O(n), not the
+    O(rows_cap) fill a fresh buffer would (12 B a row: 127 MB for the
+    capped Criteo-Kaggle slab)."""
+    key = (device.index, rows_cap)
+    s = _scratch.get(key)
+    if s is None:
+        s = (torch.zeros(rows_cap, dtype=torch.int64, device=device),
+             torch.full((rows_cap,), -1, dtype=torch.int32, device=device))
+        _scratch[key] = s
+    return s
+
+
+def remap_stage(ext: torch.Tensor, live: torch.Tensor, cap: torch.Tensor,
+                nbuckets: torch.Tensor, tid: torch.Tensor,
+                roff: torch.Tensor, slot_fp: torch.Tensor,
+                slot_freq: torch.Tensor, cms: Optional[torch.Tensor],
+                admit_min_count: int, evict_margin: int,
+                update: bool = True) -> Remap:
+    """K16: remap ``ext [n]`` (int32 or int64 external ids; ``live [n]``
+    bool; per position ``cap``, ``nbuckets``, ``tid`` (the hash salt) and
+    ``roff`` (the table's slab row offset), int32 ``[n]``) through the
+    slot map ``slot_fp``/``slot_freq [rows_cap]`` (int32). With
+    ``update``, fold the fingerprints of the live positions into ``cms``
+    ``[depth, buckets]`` (int32, the STAGED copy of the carried sketch,
+    in place, by K13) and stage the admissions (:class:`Remap`); the
+    slot map is only read."""
+    if ext.device.type == "cpu":
+        return remap_stage_plain(ext, live, cap, nbuckets, tid, roff,
+                                 slot_fp, slot_freq, cms, admit_min_count,
+                                 evict_margin, update)
+    dev = _cuda(ext)
+    n = ext.numel()
+    if n >= 2 ** 31:
+        raise ValueError(f"{n} positions: at most 2^31 - 1")
+    _check(ext, (torch.int32, torch.int64), (n,), dev, "ext")
+    _check(live, torch.bool, (n,), dev, "live")
+    for t, what in ((cap, "cap"), (nbuckets, "nbuckets"), (tid, "tid"),
+                    (roff, "roff")):
+        _check(t, torch.int32, (n,), dev, what)
+    rows_cap = slot_fp.numel()
+    _check(slot_fp, torch.int32, (rows_cap,), dev, "slot_fp")
+    _check(slot_freq, torch.int32, (rows_cap,), dev, "slot_freq")
+    lib = _kernels.library("streaming")
+    st = _stream(ext)
+    local_rows = torch.empty(n, dtype=torch.int32, device=dev)
+    if not update:
+        err = lib.detpu_stream_hash(
+            ext.data_ptr(), int(ext.dtype == torch.int64), live.data_ptr(),
+            cap.data_ptr(), nbuckets.data_ptr(), tid.data_ptr(),
+            roff.data_ptr(), slot_fp.data_ptr(), n, local_rows.data_ptr(),
+            None, None, None, None, st)
+        _kernels.check(lib, err, "remap_stage (hash)")
+        remap_stage.launches += 1
+        return Remap(local_rows)
+    if cms.dim() != 2:
+        raise ValueError(f"cms: expected [depth, buckets], got "
+                         f"{tuple(cms.shape)}")
+    _check(cms, torch.int32, tuple(cms.shape), dev, "cms")
+    fp = torch.empty(n, dtype=torch.int32, device=dev)
+    live_eff = torch.empty(n, dtype=torch.bool, device=dev)
+    flags = torch.empty(n, dtype=torch.uint8, device=dev)
+    rowc = torch.empty(n, dtype=torch.int32, device=dev)
+    err = lib.detpu_stream_hash(
+        ext.data_ptr(), int(ext.dtype == torch.int64), live.data_ptr(),
+        cap.data_ptr(), nbuckets.data_ptr(), tid.data_ptr(),
+        roff.data_ptr(), slot_fp.data_ptr(), n, local_rows.data_ptr(),
+        fp.data_ptr(), live_eff.data_ptr(), flags.data_ptr(),
+        rowc.data_ptr(), st)
+    _kernels.check(lib, err, "remap_stage (hash)")
+    cms_update(cms, fp, live_eff)  # K13 into the staged sketch
+    est = torch.empty(n, dtype=torch.int32, device=dev)
+    scrub_rows = torch.empty(n, dtype=torch.int32, device=dev)
+    hit_rows = torch.empty(n, dtype=torch.int32, device=dev)
+    counts = torch.empty(4, dtype=torch.int64, device=dev)
+    best_key, best_pos = _claim_scratch(dev, rows_cap)
+    err = lib.detpu_stream_stage(
+        cms.data_ptr(), cms.shape[0], cms.shape[1], fp.data_ptr(),
+        flags.data_ptr(), rowc.data_ptr(), slot_freq.data_ptr(),
+        int(admit_min_count), int(evict_margin), n, rows_cap,
+        best_key.data_ptr(), best_pos.data_ptr(), est.data_ptr(),
+        scrub_rows.data_ptr(), hit_rows.data_ptr(), counts.data_ptr(), st)
+    _kernels.check(lib, err, "remap_stage (stage)")
+    remap_stage.launches += 1
+    return Remap(local_rows, fp, est, scrub_rows, hit_rows, counts)
+
+
+def commit_rows(slab: torch.Tensor,
+                leaves: Sequence[Tuple[torch.Tensor, float]], pend: Remap,
+                slot_fp: torch.Tensor, slot_freq: torch.Tensor,
+                cms: torch.Tensor, staged: torch.Tensor,
+                totals: torch.Tensor, counters: Sequence[torch.Tensor],
+                steps: torch.Tensor, enable: Optional[torch.Tensor] = None,
+                finalize: bool = True) -> None:
+    """K17: commit one width's staged transitions (``pend``, from
+    :func:`remap_stage`) in place, unless the 0-d bool ``enable`` (on
+    the card; ``None`` commits) is False: reset the claimed rows of
+    ``slab [rows_cap, w]`` (float32/bfloat16) and of each ``(leaf,
+    fill)`` of its shape, write the slot map, copy ``staged`` into
+    ``cms``, and add the counts (0 when not enabled) to ``totals [4]``
+    (float32). With ``finalize`` (the step's last width), add ``totals``
+    to the four ``counters`` ([1] float32 each, :data:`COUNT_NAMES`
+    order) and ``enable`` to ``steps`` ([1] int32)."""
+    if slab.device.type == "cpu":
+        return commit_rows_plain(slab, leaves, pend, slot_fp, slot_freq,
+                                 cms, staged, totals, counters, steps,
+                                 enable, finalize)
+    dev = _cuda(slab)
+    if slab.dim() != 2 or slab.dtype not in _DTYPE_CODE:
+        raise ValueError(f"slab: expected a [rows, w] float32/bfloat16 "
+                         f"tensor, got {slab.dtype} {tuple(slab.shape)}")
+    rows_cap, w = slab.shape
+    _check(slab, tuple(_DTYPE_CODE), (rows_cap, w), dev, "slab")
+    for leaf, _ in leaves:
+        _check(leaf, tuple(_DTYPE_CODE), (rows_cap, w), dev, "leaf")
+    if len(leaves) > 4:
+        raise ValueError(f"{len(leaves)} leaves: the kernel takes at most 4")
+    n = pend.scrub_rows.numel()
+    for t, what in ((pend.scrub_rows, "scrub_rows"), (pend.fp, "fp"),
+                    (pend.est, "est"), (pend.hit_rows, "hit_rows")):
+        _check(t, torch.int32, (n,), dev, what)
+    _check(pend.counts, torch.int64, (4,), dev, "counts")
+    _check(slot_fp, torch.int32, (rows_cap,), dev, "slot_fp")
+    _check(slot_freq, torch.int32, (rows_cap,), dev, "slot_freq")
+    _check(cms, torch.int32, tuple(cms.shape), dev, "cms")
+    _check(staged, torch.int32, tuple(cms.shape), dev, "staged")
+    _check(totals, torch.float32, (4,), dev, "totals")
+    for c in counters:
+        _check(c, torch.float32, (1,), dev, "counter")
+    _check(steps, torch.int32, (1,), dev, "steps")
+    if enable is not None:
+        _check(enable, torch.bool, (), dev, "enable")
+    k = len(leaves)
+    ptrs = (ctypes.c_void_p * 4)(*[t.data_ptr() for t, _ in leaves])
+    codes = (ctypes.c_int * 4)(*[_DTYPE_CODE[t.dtype] for t, _ in leaves])
+    fills = (ctypes.c_float * 4)(*[float(f) for _, f in leaves])
+    lib = _kernels.library("streaming")
+    err = lib.detpu_stream_commit(
+        slab.data_ptr(), _DTYPE_CODE[slab.dtype], w, rows_cap,
+        ctypes.cast(ptrs, ctypes.c_void_p), ctypes.cast(codes,
+                                                        ctypes.c_void_p),
+        ctypes.cast(fills, ctypes.c_void_p), k, pend.scrub_rows.data_ptr(),
+        pend.fp.data_ptr(), pend.est.data_ptr(), pend.hit_rows.data_ptr(),
+        n, slot_fp.data_ptr(), slot_freq.data_ptr(), cms.data_ptr(),
+        staged.data_ptr(), cms.numel(), pend.counts.data_ptr(),
+        totals.data_ptr(), *[c.data_ptr() for c in counters],
+        steps.data_ptr(), int(finalize),
+        None if enable is None else enable.data_ptr(), _stream(slab))
+    _kernels.check(lib, err, "commit_rows")
+    commit_rows.launches += 1
+
+
+remap_stage.launches = 0
+commit_rows.launches = 0

@@ -19,12 +19,15 @@ backward (``sparse_apply_gradients``, ``parallel/apply.py``) covers all
 of them.
 
 ``update_telemetry`` folds a forward's routed ids into the carried access
-telemetry (``analysis/telemetry.py``, kernels K13-K15).
+telemetry (``analysis/telemetry.py``, kernels K13-K15). Tables with a
+``"streaming"`` entry serve an unbounded external id space through a
+carried slot map (``forward_with_residuals(streaming=)``,
+``parallel/streaming.py``, kernels K16-K17).
 
 Not yet ported, each raising ``NotImplementedError`` with its ROADMAP
-item: ``world_size > 1`` (A7), row slicing (A9), streaming vocabularies
-(A11b) and the ``'raise'`` invalid-id policy (A12); model-parallel input
-and step schedules (A5b, A7, A11b).
+item: ``world_size > 1`` (A7), row slicing (A9), the pipelined step's
+``"serve"`` streaming form (A7) and the ``'raise'`` invalid-id policy
+(A12); model-parallel input and step schedules (A5b, A7, A11b).
 
 Ids must lie in ``[0, input_dim)``; out-of-range ids CLIP in the
 forward (a negative id reads row 0, one past the table its last row),
@@ -147,10 +150,37 @@ class DistributedEmbedding:
             input_table_map=input_table_map,
             column_slice_threshold=column_slice_threshold,
             input_hotness=input_hotness, table_loads=table_loads)
-        if any(c.get("streaming") for c in self.strategy.global_configs):
-            raise NotImplementedError(
-                "streaming (dynamic-vocab) tables are not ported yet: "
-                "ROADMAP A11b")
+        # streaming (dynamic-vocab) tables: {tid: (capacity, buckets)}.
+        # The declared input_dim is the slab footprint (capacity slots,
+        # then the shared bucket rows); only the id interpretation changes
+        # (external ids remap through the carried slot map,
+        # parallel/streaming.py). A slot map cannot span slices.
+        self.streaming_tables: Dict[int, tuple] = {}
+        slices = [0] * len(self.strategy.global_configs)
+        for tids in self.strategy.table_ids_list:
+            for tid in tids:
+                slices[tid] += 1
+        for tid, cfg in enumerate(self.strategy.global_configs):
+            sc = cfg.get("streaming")
+            if not sc:
+                continue
+            cap, nb = int(sc["capacity"]), int(sc["buckets"])
+            if cap <= 0 or nb <= 0:
+                raise ValueError(
+                    f"table {tid}: streaming capacity/buckets must be "
+                    f"positive, got {sc!r}")
+            if cap + nb != int(cfg["input_dim"]):
+                raise ValueError(
+                    f"table {tid}: streaming capacity {cap} + buckets "
+                    f"{nb} must equal input_dim {cfg['input_dim']} (the "
+                    "slab holds the slots followed by the shared bucket "
+                    "rows)")
+            if slices[tid] != 1:
+                raise NotImplementedError(
+                    f"table {tid} is row/column-sliced ({slices[tid]} "
+                    "slices): streaming tables must stay unsliced (the "
+                    "slot map cannot span slices)")
+            self.streaming_tables[tid] = (cap, nb)
         self.widths, self.row_offsets_list, self.rows_cap = \
             slab_layout(self.strategy)
         self._plan_cache: Dict[tuple, plan_mod.ExchangePlan] = {}
@@ -434,10 +464,18 @@ class DistributedEmbedding:
     def forward_with_residuals(self, params: EmbedParams, inputs,
                                streaming=None):
         """Forward pass that also returns the routing residuals
-        ``("dist", ids_block, encs, b)`` the sparse backward will read."""
-        if streaming is not None:
-            raise NotImplementedError(
-                "streaming vocabularies are not ported yet: ROADMAP A11b")
+        ``("dist", ids_block, encs, b)`` the sparse backward will read.
+
+        ``streaming`` (streaming vocabularies, :mod:`.streaming`):
+        ``(config, state)`` (the local state, without its world axis)
+        remaps every streaming-table slot's external ids through the slot
+        map right after the id block is built (hits read their slot,
+        everything else its shared bucket) and stages this step's
+        admissions; the return grows a third element, the per-width
+        ``pending`` dict the trainer hands to :func:`.streaming.commit`.
+        ``(config, state, False)`` is the read-only form (eval, serving):
+        remap only, a 2-tuple return. The residuals carry the REMAPPED
+        block, so the backward and telemetry see in-range slab rows."""
         device = next(iter(params.values())).device
         local = {k: v[0] for k, v in params.items()}
         entries, encs, shapes, comm_dtype = self._normalize_inputs(
@@ -447,6 +485,10 @@ class DistributedEmbedding:
         plan = self._get_plan(encs, b)
         ids_recv = exchange_mod.build_send_blocks(self, plan, entries,
                                                   comm_dtype, device)
+        pending = None
+        if streaming is not None:
+            ids_recv, pending = self._streaming_remap(plan, ids_recv,
+                                                      streaming)
         reds = lookup_mod.plan_lookup_groups(self, plan, local, ids_recv)
         outs = []
         for inst in plan.instances:  # worker order == input order here
@@ -467,7 +509,108 @@ class DistributedEmbedding:
                     o = o.reshape((b,) + tuple(lead) + (g.width,))
             outs.append(o)
         result = [outs[i] for i in self.strategy.rev_global_input_ids]
-        return result, ("dist", ids_recv, tuple(encs), b)
+        res = ("dist", ids_recv, tuple(encs), b)
+        return (result, res) if pending is None else (result, res, pending)
+
+    # --------------------------------------------------------- streaming vocab
+
+    def _streaming_plan_arrays(self, plan, gi: int, device):
+        """One group's streaming plan arrays (JAX's per-slot
+        ``_streaming_plan_arrays``, expanded to positions), cached per
+        plan: ``None`` when the group has no streaming slot, else
+        ``(slots, cap, nbuckets, tid, roff)``: the
+        slot indices (int64 ``[k]``), then per position of those slots
+        (slot-major, as the region holds them: ``b * hot`` ids a dense
+        slot, ``hot`` values a ragged one) its table's capacity, bucket
+        count, table id (the hash salt) and slab row offset (int32)."""
+        key = ("streaming", id(plan), gi, str(device))
+        if key in self._meta_cache:
+            return self._meta_cache[key]
+        g = plan.groups[gi]
+        per_slot = {}
+        for inst in plan.instances:
+            tid = self.strategy.input_table_map[inst.input_id]
+            info = self.streaming_tables.get(tid)
+            if inst.group != gi or inst.rank != 0 or info is None:
+                continue
+            for k in range(inst.slot0, inst.slot0 + inst.num_slots):
+                per_slot[k] = (info[0], info[1], tid,
+                               int(plan.roff[gi][0][k]))
+        meta = None
+        if per_slot:
+            slots = sorted(per_slot)
+            per = plan.b * g.hot if g.kind == "d" else g.hot
+            cols = np.repeat(np.asarray([per_slot[k] for k in slots],
+                                        np.int32), per, axis=0)
+            meta = (torch.as_tensor(slots, dtype=torch.int64, device=device),
+                    *(torch.as_tensor(np.ascontiguousarray(cols[:, j]),
+                                      device=device) for j in range(4)))
+        self._meta_cache[key] = meta
+        return meta
+
+    def _streaming_remap(self, plan, ids_recv, streaming):
+        """Remap every streaming-table slot's external ids in the id block
+        through the slot map (:func:`.streaming.remap_width`, one call
+        per width over the streaming slots of all its groups in plan
+        order) and, in update mode, stage the admissions. Only live
+        streaming positions are rewritten (``ids >= 0``; a ragged slot's
+        positions below ``min(total length, capacity)``): other slots,
+        dead positions, negative ids, lengths and weights stay as they
+        are. Returns ``(ids_recv, pending)``: ``{width: (staged_cms,
+        remap)}`` in update mode, else ``None``."""
+        from . import streaming as smod
+
+        if not self.streaming_tables:
+            raise ValueError(
+                "streaming= passed but no table declares a 'streaming' "
+                "config entry")
+        if len(streaming) == 2:
+            (config, sstate), update = streaming, True
+        else:
+            config, sstate, update = streaming
+        if update not in (True, False):
+            raise NotImplementedError(
+                f"streaming form {update!r}: the pipelined step's 'serve' "
+                "form is not ported yet: ROADMAP A7")
+        dev, b = ids_recv.device, plan.b
+        per_width: Dict[int, list] = {}
+        sites = []
+        for gi, g in enumerate(plan.groups):
+            meta = self._streaming_plan_arrays(plan, gi, dev)
+            if meta is None:
+                continue
+            slots, *per_pos = meta
+            region = ids_recv[0, g.goff:g.goff + g.n * g.blen].view(
+                g.n, g.blen)
+            sel = region.index_select(0, slots)
+            if g.kind == "d":
+                vals = sel
+                live = torch.ones_like(vals, dtype=torch.bool)
+            else:  # values, then the lengths (and the weight bits)
+                vals = sel[:, :g.hot]
+                tot = sel[:, g.hot:g.hot + b].sum(dim=1, dtype=torch.int32)
+                live = (torch.arange(g.hot, dtype=torch.int32, device=dev)
+                        [None] < tot.clamp(max=g.hot)[:, None])
+            acc = per_width.setdefault(g.width, [])
+            start = sum(p[0].numel() for p in acc)
+            acc.append((vals.reshape(-1), live.reshape(-1), *per_pos))
+            sites.append((g, region, slots, start, vals, live))
+        remapped, pending = {}, {}
+        for w, pieces in sorted(per_width.items()):
+            stream = smod.WidthStream(*(
+                torch.cat([p[j] for p in pieces]) if len(pieces) > 1
+                else pieces[0][j] for j in range(6)))
+            remapped[w], pend = smod.remap_width(
+                sstate[_wkey(w)], stream, self.rows_cap[w], config,
+                update=update)
+            if pend is not None:
+                pending[w] = pend
+        for g, region, slots, start, vals, live in sites:
+            new = remapped[g.width][start:start + vals.numel()].view(
+                vals.shape)
+            new = torch.where(live & (vals >= 0), new.to(vals.dtype), vals)
+            region[slots, :vals.shape[1]] = new
+        return ids_recv, (pending if update else None)
 
     # --------------------------------------------------------------- telemetry
 

@@ -35,9 +35,13 @@ The runtime is single-threaded and clock-injectable: callers own the
 loop (``submit`` + ``poll``), tests drive a manual clock, and
 :func:`drive` is a real-time load loop.
 
+``streaming=(config, state)`` serves streaming tables through their
+slot map read-only (``make_hybrid_eval_step(dynamic=)``): every flush
+reads the installed streaming state and none writes it.
+
 Not ported yet (ROADMAP A12 unless named): the metrics registry and its
 scrape endpoint, request tracing, snapshot installation and the
-freshness rung, streaming tables (A11), ragged requests, the
+freshness rung, ragged requests, the
 threaded ``RealtimeDriver`` and burst drills, the supervised worker
 process, and the multi-rank mesh (A7, through the layer's world size).
 """
@@ -55,6 +59,7 @@ import torch
 
 from ..utils import envvars
 from ..utils.data import power_law_ids
+from . import streaming as streaming_mod
 from .trainer import make_hybrid_eval_step
 
 logger = logging.getLogger(__name__)
@@ -252,12 +257,15 @@ class ServingRuntime:
 
     Requests arrive as host numpy; each flush packs them, copies them to
     the device that holds the tables, and copies the predictions back.
-    ``clock`` is injectable for deterministic tests; ``submit`` and
-    ``poll`` accept an explicit ``now``.
+    ``streaming=(StreamingConfig, streaming_state)`` serves streaming
+    tables read-only (cold ids read their buckets; the state is never
+    written). ``clock`` is injectable for deterministic tests;
+    ``submit`` and ``poll`` accept an explicit ``now``.
     """
 
     def __init__(self, de, pred_fn: Callable, state,
                  config: Optional[ServeConfig] = None,
+                 streaming: Optional[tuple] = None,
                  clock: Callable[[], float] = time.monotonic):
         self.de = de
         self.config = config or ServeConfig()
@@ -266,7 +274,14 @@ class ServingRuntime:
         self.state = state
         self.device = next(iter(state.emb_params.values())).device
         self._clock = clock
-        self._eval = make_hybrid_eval_step(de, pred_fn)
+        self._streaming_cfg = None
+        self._streaming_state = None
+        if streaming is not None:
+            cfg, sstate = streaming
+            self._streaming_cfg = streaming_mod.resolve_config(cfg)
+            self._streaming_state = sstate
+        self._eval = make_hybrid_eval_step(de, pred_fn,
+                                           dynamic=self._streaming_cfg)
         self._queue: List[Request] = []
         self._queued_samples = 0
         self._level = 0
@@ -283,6 +298,21 @@ class ServingRuntime:
                         "expired": 0, "failed": 0, "flushes": 0,
                         "served_samples": 0, "degraded": 0,
                         "recovered": 0}
+
+    @property
+    def streaming_state(self):
+        """The streaming state every flush reads (``None`` without
+        streaming tables)."""
+        return self._streaming_state
+
+    @streaming_state.setter
+    def streaming_state(self, value) -> None:
+        self._streaming_state = value
+
+    def _forward(self, cats, batch):
+        if self._streaming_cfg is None:
+            return self._eval(self.state, cats, batch)
+        return self._eval(self.state, cats, batch, self._streaming_state)
 
     # ------------------------------------------------------------ intake
 
@@ -454,14 +484,14 @@ class ServingRuntime:
         self._input_spec, self._batch_spec = self._spec_of(cats, batch)
         for rung in self.rungs:
             c, b, _ = self._pack([], rung)
-            _to_host(self._eval(self.state, c, b))
+            _to_host(self._forward(c, b))
         return len(self.rungs)
 
     def _run_flush(self, reqs: List[Request], rung: int) -> List[Served]:
         t0 = self._clock()
         cats, batch, offsets = self._pack(reqs, rung)
         t_pack = self._clock()
-        pending = self._eval(self.state, cats, batch)
+        pending = self._forward(cats, batch)
         t_disp = self._clock()
         preds = _to_host(pending)  # device compute + host fetch
         t_dev = self._clock()

@@ -14,11 +14,12 @@ world 1.
   to a slab would make PyTorch build a dense gradient as large as the
   slab.)
 
-Access telemetry (``telemetry=``) rides through both as an extra
-argument and result (``analysis/telemetry.py``). Not yet ported, each
-raising with its ROADMAP item: world > 1 and a mesh (A7), step metrics
-(``with_metrics`` / ``DETPU_OBS=1``, A6), streaming vocabularies and
-microbatch schedules (A11b).
+Access telemetry (``telemetry=``, ``analysis/telemetry.py``) and
+streaming vocabularies (``dynamic=``, ``parallel/streaming.py``) ride
+through both as extra arguments and results, telemetry first. Not yet
+ported, each raising with its ROADMAP item: world > 1 and a mesh (A7),
+step metrics (``with_metrics`` / ``DETPU_OBS=1``, A6) and microbatch
+schedules (A7).
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from torch.utils import _pytree as pytree
 from ..analysis import telemetry as tel
 from ..ops.embedding_lookup import Ragged, SparseIds
 from ..utils import obs
+from . import streaming as smod
 
 
 class HybridTrainState(NamedTuple):
@@ -55,7 +57,7 @@ def _sq_sum(tensors) -> torch.Tensor:
     return sum(t.float().square().sum() for t in tensors)
 
 
-def _not_ported(with_metrics, mesh, dynamic, world_size):
+def _not_ported(with_metrics, mesh, world_size):
     if world_size != 1 or mesh is not None:
         raise NotImplementedError(
             "the multi-rank train step is not ported yet: ROADMAP A7")
@@ -63,9 +65,6 @@ def _not_ported(with_metrics, mesh, dynamic, world_size):
         raise NotImplementedError(
             "step metrics (with_metrics / DETPU_OBS=1) are not ported yet: "
             "ROADMAP A6")
-    if dynamic:
-        raise NotImplementedError(
-            "streaming vocabularies are not ported yet: ROADMAP A11b")
 
 
 def _apply_dense_and_assemble(state, dense_grads, dense_tx, ok, nan_guard):
@@ -118,7 +117,8 @@ def _small_leaves(de, emb_opt_state) -> List[torch.Tensor]:
 
 def _hybrid_local_step(de, loss_fn, dense_tx, emb_optimizer, lr_schedule,
                        state, cat_inputs, batch, nan_guard=False,
-                       telemetry_cfg=None, telem=None):
+                       telemetry_cfg=None, telem=None, streaming_cfg=None,
+                       sstate=None):
     """One hybrid step (shared by :func:`make_hybrid_train_step` and
     :func:`make_hybrid_train_loop`): embedding forward, one backward
     giving the dense gradients and the embedding-output cotangents,
@@ -129,6 +129,14 @@ def _hybrid_local_step(de, loss_fn, dense_tx, emb_optimizer, lr_schedule,
     whatever the guard decides: as in the JAX step, a skipped step still
     counts the ids it routed.
 
+    With ``streaming_cfg``, the forward remaps the streaming tables'
+    external ids through the slot map of ``sstate`` (the stacked
+    streaming state) and stages the admissions; they commit, in place,
+    after the sparse apply and under the guard's verdict
+    (:func:`~.streaming.commit`): a skipped step leaves the slot map,
+    sketch, counters, slabs and moments bitwise unchanged, and an
+    evictee's last update is dropped with its slot.
+
     ``nan_guard=True`` checks the loss and both gradient energies for
     NaN/Inf ON THE CARD and, on a non-finite verdict, skips the dense
     and sparse updates with parameters and optimizer state bitwise
@@ -138,7 +146,13 @@ def _hybrid_local_step(de, loss_fn, dense_tx, emb_optimizer, lr_schedule,
     value. The verdict is never read on the host.
     """
     with torch.no_grad():
-        outs, res = de.forward_with_residuals(state.emb_params, cat_inputs)
+        if streaming_cfg is not None:
+            outs, res, pending = de.forward_with_residuals(
+                state.emb_params, cat_inputs,
+                streaming=(streaming_cfg, smod.local_state(sstate)))
+        else:
+            outs, res = de.forward_with_residuals(state.emb_params,
+                                                  cat_inputs)
         if telemetry_cfg is not None:
             de.update_telemetry(tel.local_state(telem), res, telemetry_cfg)
     outs = [o.detach().requires_grad_() for o in outs]
@@ -167,8 +181,32 @@ def _hybrid_local_step(de, loss_fn, dense_tx, emb_optimizer, lr_schedule,
             # the sparse apply advanced it in place: keep the old value
             # on a skipped step (JAX's where-select of non-slab leaves)
             t.copy_(torch.where(ok, t, old))
+        if streaming_cfg is not None:
+            smod.commit(de, de.local_view(state.emb_params), pending,
+                        smod.local_state(sstate), enable=ok,
+                        opt_state=de.local_view(state.emb_opt_state),
+                        optimizer=emb_optimizer)
     return loss, _apply_dense_and_assemble(state, dense_grads, dense_tx, ok,
                                            nan_guard)
+
+
+def _with_aux_signature(core, tel_on: bool, dyn_on: bool):
+    """Give ``core(state, cat_inputs, batch, aux_tuple)`` the explicit
+    positional signature its aux combination implies (aux order:
+    telemetry, then streaming), as the JAX package does."""
+    if tel_on and dyn_on:
+        def step(state, cat_inputs, batch, telem, stream):
+            return core(state, cat_inputs, batch, (telem, stream))
+    elif tel_on:
+        def step(state, cat_inputs, batch, telem):
+            return core(state, cat_inputs, batch, (telem,))
+    elif dyn_on:
+        def step(state, cat_inputs, batch, stream):
+            return core(state, cat_inputs, batch, (stream,))
+    else:
+        def step(state, cat_inputs, batch):
+            return core(state, cat_inputs, batch, ())
+    return step
 
 
 def make_hybrid_train_step(de, loss_fn: Callable, dense_tx, emb_optimizer,
@@ -176,9 +214,9 @@ def make_hybrid_train_step(de, loss_fn: Callable, dense_tx, emb_optimizer,
                            with_metrics: Optional[bool] = None,
                            nan_guard: Optional[bool] = None,
                            telemetry=None, dynamic=None):
-    """Build ``step(state, cat_inputs, batch) -> (loss, state)``, or with
-    telemetry ``step(state, cat_inputs, batch, telem) -> (loss, state,
-    telem)``.
+    """Build ``step(state, cat_inputs, batch) -> (loss, state)``; with
+    telemetry and/or streaming, ``step(state, cat_inputs, batch[,
+    telem][, stream]) -> (loss, state[, telem][, stream])``.
 
     Args:
       de: the embedding layer (world 1).
@@ -202,36 +240,40 @@ def make_hybrid_train_step(de, loss_fn: Callable, dense_tx, emb_optimizer,
         ``DETPU_TELEMETRY_*`` geometry, or a ``TelemetryConfig``. An
         explicit opt-in, never an env default: it changes the call
         arity. The telemetry state (``init_telemetry``) is the fourth
-        argument and the last result, updated in place; the parameter
-        and optimizer math is the same as without it.
-      mesh, with_metrics, dynamic: not ported yet (raise;
-        ``with_metrics=None`` follows ``DETPU_OBS``).
+        argument and a result, updated in place; the parameter and
+        optimizer math is the same as without it.
+      dynamic: streaming vocabularies (``parallel/streaming.py``), the
+        same explicit opt-in: ``None``/``False`` off, ``True`` the
+        ``DETPU_ADMIT_*`` policy, or a ``StreamingConfig``. The streaming
+        state (``init_streaming``) is the last argument and the last
+        result (after the telemetry state when both ride), updated in
+        place. A step built without a streaming table raises
+        ``ValueError`` when called.
+      mesh, with_metrics: not ported yet (raise; ``with_metrics=None``
+        follows ``DETPU_OBS``).
 
     The state's slabs and dense parameters are updated in place (the
     JAX step donates them); the returned state holds the same tensors.
     """
     if with_metrics is None:
         with_metrics = obs.metrics_enabled()
-    _not_ported(with_metrics, mesh, dynamic, de.world_size)
+    _not_ported(with_metrics, mesh, de.world_size)
     if nan_guard is None:
         nan_guard = obs.nanguard_enabled()
     tel_cfg = tel.resolve_config(telemetry)
+    dyn_cfg = smod.resolve_config(dynamic)
 
-    if tel_cfg is None:
-        def step(state: HybridTrainState, cat_inputs, batch):
-            return _hybrid_local_step(de, loss_fn, dense_tx, emb_optimizer,
-                                      lr_schedule, state, cat_inputs, batch,
-                                      nan_guard=nan_guard)
-        return step
-
-    def step_telem(state: HybridTrainState, cat_inputs, batch, telem):
+    def core(state: HybridTrainState, cat_inputs, batch, aux):
+        telem = aux[0] if tel_cfg is not None else None
+        sstate = aux[-1] if dyn_cfg is not None else None
         loss, state = _hybrid_local_step(
             de, loss_fn, dense_tx, emb_optimizer, lr_schedule, state,
             cat_inputs, batch, nan_guard=nan_guard, telemetry_cfg=tel_cfg,
-            telem=telem)
-        return loss, state, telem
+            telem=telem, streaming_cfg=dyn_cfg, sstate=sstate)
+        return (loss, state) + tuple(aux)
 
-    return step_telem
+    return _with_aux_signature(core, tel_cfg is not None,
+                               dyn_cfg is not None)
 
 
 def _index(tree, k: int):
@@ -260,9 +302,10 @@ def make_hybrid_train_loop(de, loss_fn: Callable, dense_tx, emb_optimizer,
                            nan_guard: Optional[bool] = None,
                            telemetry=None, dynamic=None):
     """Multi-step loop: ``loop(state, cat_stacks, batch_stacks) ->
-    (losses [K], state)`` (with telemetry ``loop(state, cat_stacks,
-    batch_stacks, telem) -> (losses, state, telem)``, one telemetry state
-    carried through every step) runs K steps of
+    (losses [K], state)`` (with telemetry and/or streaming ``loop(state,
+    cat_stacks, batch_stacks[, telem][, stream]) -> (losses, state[,
+    telem][, stream])``, one such state carried through every step) runs
+    K steps of
     :func:`make_hybrid_train_step`
     over the leading axis of every input (each categorical input
     ``[K, batch, ...]``, or a :class:`Ragged` / :class:`SparseIds` whose
@@ -308,23 +351,41 @@ def init_hybrid_state(de, emb_optimizer, dense_params, dense_tx,
         step=torch.zeros((), dtype=torch.int32, device=dev))
 
 
-def make_hybrid_eval_step(de, pred_fn: Callable):
+def make_hybrid_eval_step(de, pred_fn: Callable, mesh=None, dynamic=None):
     """Build ``eval_step(state, cat_inputs, batch) -> predictions``.
 
     ``pred_fn(dense_params, emb_outputs, batch)`` maps the embedding
     outputs to predictions. The step runs under ``torch.inference_mode``
-    and PyTorch's eager dispatch (nothing to compile). The JAX version's
-    ``mesh``, ``dynamic`` and ``donate_inputs`` arguments belong to the
-    multi-rank step (ROADMAP A7), streaming tables (A11) and XLA buffer
-    reuse; they are not part of this slice.
+    and PyTorch's eager dispatch (nothing to compile).
+
+    ``dynamic`` (streaming vocabularies, resolved as the train step's):
+    the step then takes the carried streaming state as a fourth argument,
+    ``eval_step(state, cat_inputs, batch, stream)``, and serves ids
+    through the slot map READ-ONLY: admitted ids read their slots,
+    everything else its shared bucket; nothing is admitted and the state
+    is never written, so interleaved eval leaves the training trajectory
+    alone. ``mesh`` belongs to the multi-rank step (ROADMAP A7); the JAX
+    version's ``donate_inputs`` is an XLA buffer-reuse knob with no
+    counterpart here.
     """
-    if de.world_size != 1:
+    if de.world_size != 1 or mesh is not None:
         raise NotImplementedError(
             "the multi-rank eval step is not ported yet: ROADMAP A7")
+    dyn_cfg = smod.resolve_config(dynamic)
 
-    def eval_step(state: HybridTrainState, cat_inputs, batch):
+    if dyn_cfg is None:
+        def eval_step(state: HybridTrainState, cat_inputs, batch):
+            with torch.inference_mode():
+                outs = de(state.emb_params, cat_inputs)
+                return pred_fn(state.dense_params, outs, batch)
+        return eval_step
+
+    def eval_step_dynamic(state: HybridTrainState, cat_inputs, batch,
+                          stream):
         with torch.inference_mode():
-            outs = de(state.emb_params, cat_inputs)
+            outs, _ = de.forward_with_residuals(
+                state.emb_params, cat_inputs,
+                streaming=(dyn_cfg, smod.local_state(stream), False))
             return pred_fn(state.dense_params, outs, batch)
 
-    return eval_step
+    return eval_step_dynamic

@@ -19,7 +19,9 @@
   ``optax.sgd``'s ``TraceState`` and a schedule's count.
 * Access telemetry: :func:`telemetry_state_from_jax` and
   :func:`telemetry_state_to_numpy` carry the telemetry state (the same
-  keys, shapes and dtypes in both packages) either way.
+  keys, shapes and dtypes in both packages) either way;
+  :func:`streaming_state_from_jax` and :func:`streaming_state_to_numpy`
+  do the same for the streaming-vocabulary state.
 
 Nothing here imports JAX: the arrays arrive as numpy.
 """
@@ -233,10 +235,7 @@ def hybrid_state_from_jax(de, dense, tables: Sequence[Any],
                           device=dev))
 
 
-def telemetry_state_from_jax(tree: Mapping[str, Any],
-                             device="cuda") -> dict:
-    """The port's telemetry state (``analysis/telemetry.py``) from a JAX
-    one given as numpy (the same nested dict), copied to ``device``."""
+def _nested_from_numpy(tree: Mapping[str, Any], device) -> dict:
     from .device import resolve_device
 
     dev = resolve_device(device)
@@ -249,8 +248,34 @@ def telemetry_state_from_jax(tree: Mapping[str, Any],
     return one(tree)
 
 
+def _nested_to_numpy(state: Mapping[str, Any]) -> dict:
+    return {k: _nested_to_numpy(v) if isinstance(v, Mapping)
+            else v.detach().cpu().numpy().copy() for k, v in state.items()}
+
+
+def telemetry_state_from_jax(tree: Mapping[str, Any],
+                             device="cuda") -> dict:
+    """The port's telemetry state (``analysis/telemetry.py``) from a JAX
+    one given as numpy (the same nested dict), copied to ``device``."""
+    return _nested_from_numpy(tree, device)
+
+
 def telemetry_state_to_numpy(state: Mapping[str, Any]) -> dict:
     """A telemetry state as a nested dict of numpy arrays (host copies),
     the form the JAX package's state takes through ``np.asarray``."""
-    return {k: telemetry_state_to_numpy(v) if isinstance(v, Mapping)
-            else v.detach().cpu().numpy().copy() for k, v in state.items()}
+    return _nested_to_numpy(state)
+
+
+def streaming_state_from_jax(tree: Mapping[str, Any],
+                             device="cuda") -> dict:
+    """The port's streaming state (``parallel/streaming.py``) from a JAX
+    one given as numpy (the same nested dict: ``steps`` int32, the four
+    counters float32, per width ``slot_fp``/``slot_freq``/``cms``
+    int32), copied to ``device``."""
+    return _nested_from_numpy(tree, device)
+
+
+def streaming_state_to_numpy(state: Mapping[str, Any]) -> dict:
+    """A streaming state as a nested dict of numpy arrays (host copies),
+    the form the JAX package's state takes through ``np.asarray``."""
+    return _nested_to_numpy(state)

@@ -3,8 +3,9 @@
 Counterpart of ``distributed_embeddings_tpu/utils/envvars.py``, cut to
 the knobs this package has: the ``DETPU_SERVE_*`` declarations that
 :class:`~..parallel.serving.ServeConfig` reads, and the train-step
-switches (``DETPU_OBS``, ``DETPU_NANGUARD``, ``DETPU_SGD_DEDUP``) and
-the access-telemetry geometry (``DETPU_TELEMETRY*``), with the JAX
+switches (``DETPU_OBS``, ``DETPU_NANGUARD``, ``DETPU_SGD_DEDUP``), the
+access-telemetry geometry (``DETPU_TELEMETRY*``) and the streaming-vocab
+policy (``DETPU_ADMIT_*``, ``DETPU_EVICT_MARGIN``), with the JAX
 package's names and defaults, so one environment configures
 both packages alike.
 """
@@ -118,3 +119,21 @@ declare("DETPU_TELEMETRY_SKETCH_WIDTH", default="2048",
             "total_ids/buckets")
 declare("DETPU_TELEMETRY_TOPK", default="32",
         doc="hot-row slots tracked per width slab per rank")
+
+# streaming vocab: frequency-gated admission + approximate-LFU eviction
+# (parallel/streaming.py; carried through train steps built by
+# parallel/trainer.py with dynamic=)
+declare("DETPU_ADMIT_MIN_COUNT", default="2",
+        doc="count-min estimate an external id needs before it may claim "
+            "a dynamic-table slot; below it the id is served from its "
+            "shared hash bucket")
+declare("DETPU_ADMIT_SKETCH_DEPTH", default="4",
+        doc="admission count-min sketch rows (independent hashes) per "
+            "streaming width slab")
+declare("DETPU_ADMIT_SKETCH_WIDTH", default="4096",
+        doc="admission count-min sketch buckets per row; estimate error "
+            "~ total_ids/buckets")
+declare("DETPU_EVICT_MARGIN", default="1",
+        doc="approximate-LFU eviction margin: a claim on an occupied "
+            "slot succeeds only when the incoming estimate >= occupant "
+            "frequency + margin (0 = ties evict)")

@@ -19,7 +19,10 @@ steps on the card (kernels) and on the CPU (plain versions), float32:
 losses, tables and dense params within 1e-4 (cuBLAS and the CPU sum in
 other orders). The dedup (K5), Adagrad row (K6) and dense (K7) kernels,
 the Adam (K11) and momentum (K12) row kernels and the 3-step tiny-zoo
-runs card-vs-CPU state their bounds where they are tested.
+runs card-vs-CPU state their bounds where they are tested. The
+streaming remap (K16) and commit (K17) are bit-exact (a NaN equals a
+NaN); the streaming train run card-vs-CPU holds the streaming state
+bitwise and the floats within 1e-4.
 """
 
 import numpy as np
@@ -1190,3 +1193,215 @@ def test_sketch_kernels_match_plain(cuda_device, n, depth, buckets, topk,
             np.testing.assert_array_equal(to_np(x), to_np(y),
                                           err_msg=f"step {step}")
     assert (runs[0][-1][-3] >= 0).any()  # hot rows found
+
+
+def _remap_case(rng, n, rows_cap, cap, is64, dev):
+    """A width stream over three streaming tables of capacity ``cap``
+    (buckets cap // 4 + 1) stacked from slab row 0: Zipfian external ids
+    (int64 ones past 2^32 when ``is64``), 5% dead and 2% negative."""
+    nt = 3
+    nb = cap // 4 + 1
+    assert nt * (cap + nb) <= rows_cap
+    t = rng.integers(0, nt, n)
+    ext = 10 ** 6 + (rng.zipf(1.2, n) - 1) % (8 * cap + 8)
+    if is64:
+        ext = ext + (rng.integers(0, 3, n) << 32)
+    ext = np.where(rng.random(n) < 0.02, -rng.integers(1, 9, n), ext)
+    live = rng.random(n) >= 0.05
+
+    def t32(a):
+        return torch.from_numpy(np.ascontiguousarray(a).astype(
+            np.int32)).to(dev)
+
+    return (torch.from_numpy(ext.astype(np.int64 if is64 else np.int32)
+                             ).to(dev), torch.from_numpy(live).to(dev),
+            t32(np.full(n, cap)), t32(np.full(n, nb)), t32(t + 7),
+            t32(t * (cap + nb)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("is64", [False, True])
+@pytest.mark.parametrize("n,rows_cap,cap,admit,margin", [
+    (1, 8, 1, 1, 0),
+    (5_000, 4_096, 1_000, 2, 1),
+    (20_000, 64, 1, 1, 1),            # one slot a table: heavy contention
+    (300_000, 1 << 20, 200_000, 2, 0),
+])
+def test_streaming_kernels_match_plain(cuda_device, n, rows_cap, cap, admit,
+                                       margin, is64):
+    """K16 (remap and stage, update and read-only) and K17 (commit)
+    against their plain versions on the card, four steps from one prior
+    state with a fifth disabled: every output and leaf bit-exact (NaN
+    equals NaN)."""
+    from distributed_embeddings_torch.ops import streaming as so
+
+    runs = []
+    for use_kernels in (True, False):
+        rng = np.random.default_rng(n + cap)
+        dev = cuda_device
+        slot_fp = torch.full((rows_cap,), -1, dtype=torch.int32, device=dev)
+        slot_freq = torch.zeros(rows_cap, dtype=torch.int32, device=dev)
+        cms = torch.zeros((4, 4096), dtype=torch.int32, device=dev)
+        slab = torch.from_numpy(rng.normal(size=(rows_cap, 16)).astype(
+            np.float32)).to(dev)
+        slab[::5, 2] = float("inf")
+        acc = torch.full_like(slab, 0.7)
+        totals = torch.zeros(4, device=dev)
+        counters = [torch.zeros(1, device=dev) for _ in range(4)]
+        steps = torch.zeros(1, dtype=torch.int32, device=dev)
+        outs = []
+        for step in range(5):
+            s = _remap_case(rng, n, rows_cap, cap, is64, dev)
+            staged = cms.clone()
+            remap = so.remap_stage if use_kernels else so.remap_stage_plain
+            commit = so.commit_rows if use_kernels else so.commit_rows_plain
+            before = (so.remap_stage.launches, so.commit_rows.launches)
+            ro = remap(*s, slot_fp, slot_freq, None, admit, margin,
+                       update=False)
+            r = remap(*s, slot_fp, slot_freq, staged, admit, margin)
+            en = None if step < 3 else torch.tensor(step == 3, device=dev)
+            commit(slab, [(acc, 0.1)], r, slot_fp, slot_freq, cms, staged,
+                   totals, counters, steps, enable=en)
+            assert (so.remap_stage.launches, so.commit_rows.launches) == (
+                (before[0] + 2, before[1] + 1) if use_kernels else before)
+            outs.append([ro.local_rows] + list(r) + [
+                slot_fp.clone(), slot_freq.clone(), cms.clone(),
+                slab.clone(), acc.clone(), totals.clone(), steps.clone()]
+                + [c.clone() for c in counters])
+        runs.append(outs)
+    for step, (a, b) in enumerate(zip(*runs)):
+        for k, (x, y) in enumerate(zip(a, b)):
+            np.testing.assert_array_equal(to_np(x), to_np(y),
+                                          err_msg=f"step {step} output {k}")
+        assert torch.equal(a[0], a[1])  # read-only rows equal update's
+    counts = runs[0][-1][-4:]
+    assert float(counts[0]) > 0  # admissions
+    assert n == 1 or float(counts[3]) > 0  # hits
+    assert int(runs[0][-1][-5]) == 4  # the disabled step did not count
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opt", ["adagrad_bf16", "adam", "momentum"])
+def test_streaming_commit_kernel_resets_leaves(cuda_device, opt):
+    """K17 on a bf16 slab with fp32 accumulators, Adam's mu/nu and a
+    momentum trace (claims on free and occupied rows, an Inf row, a row
+    both hit and claimed): bit-exact to its plain version."""
+    from distributed_embeddings_torch.ops import streaming as so
+
+    dev = cuda_device
+    rng = np.random.default_rng(len(opt))
+    rows, w, n = 512, 24, 4_000
+    dt = torch.bfloat16 if opt == "adagrad_bf16" else torch.float32
+    fills = {"adagrad_bf16": [0.1], "adam": [0.0, 0.0], "momentum": [0.0]}
+    res = []
+    for use_kernel in (True, False):
+        g = torch.Generator(dev).manual_seed(3)
+        slab = torch.randn(rows, w, generator=g, device=dev).to(dt)
+        slab[8] = float("inf")
+        leaves = [(torch.rand(rows, w, generator=g, device=dev) + 0.5, f)
+                  for f in fills[opt]]
+        fp = torch.randint(0, 2 ** 31 - 1, (n,), generator=g, device=dev,
+                           dtype=torch.int32)
+        est = torch.randint(0, 50, (n,), generator=g, device=dev,
+                            dtype=torch.int32)
+        scrub = torch.full((n,), rows, dtype=torch.int32, device=dev)
+        scrub[:rows:2] = torch.arange(0, rows, 2, dtype=torch.int32,
+                                      device=dev)[torch.randperm(
+                                          rows // 2, generator=g,
+                                          device=dev)]
+        hit = torch.randint(0, rows + 40, (n,), generator=g, device=dev,
+                            dtype=torch.int32)
+        counts = torch.tensor([rows // 2, 9, 100, 30], device=dev)
+        r = so.Remap(torch.zeros(n, dtype=torch.int32, device=dev), fp, est,
+                     scrub, hit, counts)
+        slot_fp = torch.full((rows,), -1, dtype=torch.int32, device=dev)
+        slot_freq = torch.randint(0, 20, (rows,), generator=g, device=dev,
+                                  dtype=torch.int32)
+        cms = torch.zeros((4, 64), dtype=torch.int32, device=dev)
+        staged = torch.randint(0, 9, (4, 64), generator=g, device=dev,
+                               dtype=torch.int32)
+        totals = torch.zeros(4, device=dev)
+        counters = [torch.ones(1, device=dev) for _ in range(4)]
+        steps = torch.zeros(1, dtype=torch.int32, device=dev)
+        (so.commit_rows if use_kernel else so.commit_rows_plain)(
+            slab, leaves, r, slot_fp, slot_freq, cms, staged, totals,
+            counters, steps, enable=torch.tensor(True, device=dev))
+        res.append([slab, *[t for t, _ in leaves], slot_fp, slot_freq, cms,
+                    totals, steps, *counters])
+    for x, y in zip(*res):
+        np.testing.assert_array_equal(to_np(x), to_np(y))
+    claimed = to_np(res[0][0][0:rows:2])
+    assert np.isnan(claimed[4]).all()  # the Inf row: x + (-x) is NaN
+    assert (np.delete(claimed, 4, axis=0) == 0).all()
+
+
+@pytest.mark.cuda
+def test_streaming_train_step_on_the_card_matches_the_cpu(cuda_device):
+    """Four guarded SparseAdagrad steps of a small streaming model (a
+    static and a streaming table in one group, a streaming multi-hot
+    table), the third a NaN batch, on the card (K16, K13, K17) and on the
+    CPU (plain versions) from one state: the streaming state bitwise,
+    losses, slabs and accumulators within 1e-4."""
+    from distributed_embeddings_torch.parallel import (
+        StreamingConfig, init_streaming)
+
+    cfgs = [{"input_dim": 500, "output_dim": 16},
+            {"input_dim": 3000 + 200, "output_dim": 16,
+             "streaming": {"capacity": 3000, "buckets": 200}},
+            {"input_dim": 800 + 64, "output_dim": 16, "combiner": "sum",
+             "streaming": {"capacity": 800, "buckets": 64}}]
+    scfg = StreamingConfig(2, 1, 4, 1024)
+    rng = np.random.default_rng(8)
+    b = 2048
+    batches = []
+    for k in range(4):
+        ext = 10 ** 7 + (rng.zipf(1.2, (b, 4)) - 1) % 20_000
+        y = rng.normal(size=b).astype(np.float32)
+        if k == 2:
+            y[0] = np.nan
+        batches.append(([rng.integers(0, 500, b).astype(np.int32),
+                         ext[:, 0].astype(np.int64),
+                         ext[:, 1:].astype(np.int64)], y))
+    runs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        de = DistributedEmbedding(cfgs, world_size=1)
+        params = de.init(torch.Generator().manual_seed(0), device="cpu")
+        params = {k: v.to(dev) for k, v in params.items()}
+        lin = torch.nn.Linear(48, 1).to(dev)
+        with torch.no_grad():
+            lin.weight.copy_(torch.linspace(-1, 1, 48, device=dev)[None])
+            lin.bias.zero_()
+        opt = SparseAdagrad()
+        st = HybridTrainState(params, opt.init(params), lin,
+                              SGD(0.05).init(list(lin.parameters())),
+                              torch.zeros((), dtype=torch.int32, device=dev))
+
+        def loss_fn(m, outs, y):
+            x = torch.cat([o.reshape(o.shape[0], -1) for o in outs], 1)
+            return torch.mean((m(x)[:, 0] - y) ** 2)
+
+        step = make_hybrid_train_step(de, loss_fn, SGD(0.05), opt,
+                                      lr_schedule=0.05, nan_guard=True,
+                                      dynamic=scfg)
+        ss = init_streaming(de, scfg, device=dev)
+        losses = []
+        for cats, y in batches:
+            loss, st, ss = step(st, [torch.from_numpy(c).to(dev)
+                                     for c in cats],
+                                torch.from_numpy(y).to(dev), ss)
+            losses.append(float(loss))
+        runs.append((losses, st, ss))
+    (lk, sk, ssk), (lp, sp, ssp) = runs
+    np.testing.assert_allclose(lk, lp, rtol=1e-4, atol=1e-6)
+    for k in ("steps", "admitted", "evicted", "bucket_ids", "hit_ids"):
+        np.testing.assert_array_equal(to_np(ssk[k]), to_np(ssp[k]))
+    for k in ("slot_fp", "slot_freq", "cms"):
+        np.testing.assert_array_equal(to_np(ssk["w16"][k]),
+                                      to_np(ssp["w16"][k]))
+    np.testing.assert_allclose(to_np(sk.emb_params["w16"]),
+                               to_np(sp.emb_params["w16"]), rtol=1e-4,
+                               atol=1e-5)
+    np.testing.assert_allclose(to_np(sk.emb_opt_state["w16"]),
+                               to_np(sp.emb_opt_state["w16"]), rtol=1e-4,
+                               atol=1e-5)
+    assert float(ssk["admitted"][0, 0]) > 0 and int(ssk["steps"][0, 0]) == 3

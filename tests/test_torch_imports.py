@@ -71,12 +71,15 @@ def test_sources_exist():
             "synthetic_configs.py", "packed_slab.py", "convert.py",
             "lookup.py", "exchange.py", "dist_embedding.py", "adam.py",
             "momentum.py", "learnable.py", "schedules.py",
-            "metrics.py", "sketch.py", "telemetry.py"} <= names
-    # the telemetry slice's modules are scanned too
+            "metrics.py", "sketch.py", "telemetry.py",
+            "streaming.py"} <= names
+    # the telemetry and streaming slices' modules are scanned too
     scanned = {str(p.relative_to(ROOT)) for p in _sources()}
     assert {"distributed_embeddings_torch/analysis/__init__.py",
             "distributed_embeddings_torch/analysis/telemetry.py",
-            "distributed_embeddings_torch/ops/sketch.py"} <= scanned
+            "distributed_embeddings_torch/ops/sketch.py",
+            "distributed_embeddings_torch/ops/streaming.py",
+            "distributed_embeddings_torch/parallel/streaming.py"} <= scanned
 
 
 def test_every_kernel_source_is_bound():
@@ -88,7 +91,7 @@ def test_every_kernel_source_is_bound():
                            ).glob("*.cu")}
     assert cu == set(_kernels.SIGNATURES)
     assert {"csr", "ragged_combine", "ragged_grad", "adam",
-            "momentum", "sketch"} <= cu
+            "momentum", "sketch", "streaming"} <= cu
 
 
 def test_library_name_follows_included_headers(tmp_path, monkeypatch):

@@ -10,6 +10,7 @@ sums of counts below 2^24, so every leaf is held bit for bit. JAX builds
 """
 
 import functools
+import inspect
 
 import jax
 import jax.numpy as jnp
@@ -406,8 +407,10 @@ def test_resolve_config_and_init_device():
     want = jax.tree.map(np.asarray, jtel.init_telemetry(
         JaxDE(D_CONFIGS, world_size=1), JCFG))
     _assert_state_equal(st, want)
-    with pytest.raises(NotImplementedError, match="A11b"):
-        _tstep(tde, dynamic=True)
+    # streaming rides after telemetry: the step takes both states
+    both = _tstep(tde, telemetry=CFG, dynamic=True)
+    assert list(inspect.signature(both).parameters) == [
+        "state", "cat_inputs", "batch", "telem", "stream"]
 
 
 def test_sketch_wrappers_run_plain_on_the_cpu_and_refuse_other_devices():

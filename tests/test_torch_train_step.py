@@ -22,6 +22,7 @@ Tolerances, with their reasons:
 """
 
 import dataclasses
+import inspect
 
 import jax
 import jax.numpy as jnp
@@ -403,10 +404,16 @@ def test_init_hybrid_state_and_unported_arguments(monkeypatch):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             init_hybrid_state(de, SparseSGD(), dense, SGD(LR))
     args = (de, lambda *a: None, SGD(LR), SparseSGD())
-    for kw, item in ((dict(with_metrics=True), "A6"), (dict(mesh=1), "A7"),
-                     (dict(dynamic=True), "A11b")):
+    for kw, item in ((dict(with_metrics=True), "A6"), (dict(mesh=1), "A7")):
         with pytest.raises(NotImplementedError, match=item):
             make_hybrid_train_step(*args, **kw)
+    # streaming vocabularies are ported: dynamic= builds a step of the
+    # streaming arity, which refuses a layer without a streaming table
+    dyn = make_hybrid_train_step(*args, dynamic=True)
+    assert list(inspect.signature(dyn).parameters) == [
+        "state", "cat_inputs", "batch", "stream"]
+    with pytest.raises(TypeError, match="StreamingConfig"):
+        make_hybrid_train_step(*args, dynamic="on")
     # access telemetry is ported: an explicit opt-in, a TypeError otherwise
     assert callable(make_hybrid_train_step(*args, telemetry=True))
     with pytest.raises(TypeError, match="TelemetryConfig"):
