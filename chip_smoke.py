@@ -162,6 +162,31 @@ Phases (any failure raises and the script exits non-zero):
       ``streaming_overhead_frac``, Zipfian requests through
       ``ServingRuntime(streaming=)``, and K16 (update and read-only) and
       K17 timed beside their plain versions and byte bounds.
+13. example, after freeing the streaming state: the DLRM example
+    (``distributed_embeddings_torch/examples/dlrm_main.py``) with bf16
+    tables under the MLPerf schedule, whose ``SparseSGD`` update is JAX's
+    promoted float32 scatter (K18, ``csrc/sgd_promoted.cu``):
+   a. K18 against its stream-order plain version (on CPU copies),
+      bit-exact, at the edge cases (widths 3, 16, 128, 200, fp32 and
+      bf16 update rows, int32 and int64 ids, an empty stream, a row hit
+      5,000 and one 50,000 times, negative ids, the sentinel, ids past
+      the slab, NaN and Inf), and K3's dedup chain;
+   b. (run at the end of phase 7, on the Criteo-1TB bf16 DLRM) one step
+      under ``warmup_poly_decay_schedule(24, 8000, 48000, 24000)`` at
+      step 24000 (lr 24): K18's touched rows bit-exact to the plain version on the
+      step's own inputs, then K18 timed on that 1,703,936-id stream
+      beside K3, the plain version, ``index_add_`` and its byte bound;
+   c. the example in process at the capped Criteo-Kaggle size (10,569,296
+      rows, 2.71 GB bf16), dim 128, the default MLPs, b=65536, lr 24:
+      run A 40 steps with eval every 20 and 1 s of serving at 200 QPS
+      (every request ``Served``), launches counted (K1, K2, K4, K18);
+      run B 20 steps with ``--save_state``, then ``--restore_state`` to
+      step 40: losses, slab, dense params, schedule count and step
+      bitwise equal to A's; samples/s, save and restore seconds,
+      checkpoint bytes, AUC; K18 timed at this shape;
+   d. a NaN batch under the guard on A's final state: the bf16 slab, the
+      dense params and the schedule's count bitwise unchanged, the step
+      advanced.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Run from the root of a checkout:
@@ -511,7 +536,7 @@ def kernel_fns():
         commit_rows, dedup_sparse_grad, dot_interact_bwd, dot_interact_fwd,
         gather_combine, lengths_to_splits, momentum_rows, ragged_combine,
         ragged_grad, ragged_row_ids, remap_stage, row_to_split, sgd_scatter,
-        topk_merge, topk_pool)
+        sgd_scatter_promoted, topk_merge, topk_pool)
 
     return {"gather_combine": gather_combine,
             "dot_interact_fwd": dot_interact_fwd,
@@ -524,7 +549,8 @@ def kernel_fns():
             "adam_rows": adam_rows, "momentum_rows": momentum_rows,
             "cms_update": cms_update, "cms_query": cms_query,
             "topk_pool": topk_pool, "topk_merge": topk_merge,
-            "remap_stage": remap_stage, "commit_rows": commit_rows}
+            "remap_stage": remap_stage, "commit_rows": commit_rows,
+            "sgd_scatter_promoted": sgd_scatter_promoted}
 
 
 def zero_counts():
@@ -561,6 +587,8 @@ def plain_kernels(names=None):
              (interaction, "dot_interact_bwd",
               interaction.dot_interact_bwd_plain),
              (optimizers, "sgd_scatter", scatter_add.sgd_scatter_plain),
+             (scatter_add, "sgd_scatter_promoted",
+              scatter_add.sgd_scatter_promoted_plain),
              (optimizers, "dedup_sparse_grad",
               sparse_grad.dedup_sparse_grad_plain),
              (optimizers, "adagrad_rows", adagrad.adagrad_rows_plain),
@@ -4721,6 +4749,407 @@ def phase_streaming(torch):
              "streaming_bench": bench_launches}, errs, cases, metrics)
 
 
+# ------------------------------------------------------------------ example
+
+PROMOTED_SCHEDULE = (24.0, 8000, 48000, 24000)  # examples/dlrm/main.py:248
+PROMOTED_STEP = 24000          # on that schedule's plateau: lr 24
+EXAMPLE_STEPS = 40
+EXAMPLE_SAVE_AT = 20
+EXAMPLE_EVAL_INTERVAL = 20
+EXAMPLE_SERVE_QPS = 200.0
+EXAMPLE_WARMUP = 3             # steps left out of the example's step rate
+
+
+def bf16_bits(torch, got, want, what):
+    """Bitwise bfloat16 equality (a NaN matches any NaN; the two sides
+    may give it another payload); returns the max abs error over the
+    finite values, 0 when equal."""
+    check(got.shape == want.shape and got.dtype == want.dtype
+          == torch.bfloat16, f"{what}: {got.dtype} {tuple(got.shape)} != "
+          f"{want.dtype} {tuple(want.shape)}")
+    g = got.detach().cpu().view(torch.int16).numpy().view(np.uint16)
+    w = want.detach().cpu().view(torch.int16).numpy().view(np.uint16)
+    gnan, wnan = (g & 0x7FFF) > 0x7F80, (w & 0x7FFF) > 0x7F80
+    bad = int(((g != w) & ~(gnan & wnan)).sum())
+    gf = got.detach().cpu().float()
+    wf = want.detach().cpu().float()
+    fin = torch.isfinite(gf) & torch.isfinite(wf)
+    err = float((gf[fin] - wf[fin]).abs().max()) if bool(fin.any()) else 0.0
+    check(bad == 0, f"{what}: {bad} of {g.size} values differ from the "
+          f"plain version (max err {err})")
+    return err
+
+
+def promoted_kernel_checks(torch):
+    """13a. K18 against its stream-order plain version, run on CPU copies
+    (the card's ``index_add_`` adds in no fixed order), bit-exact: widths
+    3, 16, 128 and 200, float32 and bf16 update rows, int32 and int64
+    ids, an empty stream, Zipfian duplicates with a row hit 5,000 times
+    and (w128) one hit 50,000 times, negative ids, the sentinel, ids past
+    the slab, a NaN and an Inf in hit rows, update rows at an odd offset
+    in memory. Then K3's ``cast_vals=False``
+    chain (SparseSGD's DETPU_SGD_DEDUP branch) on unique rows of a bf16
+    slab, a constant and a tensor lr, bit-exact."""
+    from distributed_embeddings_torch.ops import (
+        sgd_scatter, sgd_scatter_plain, sgd_scatter_promoted,
+        sgd_scatter_promoted_plain)
+
+    rng = np.random.default_rng(SEED + 190)
+    R, n_cases = 5000, 0
+    for width in (3, 16, 128, 200):
+        for vals_dtype in (torch.float32, torch.bfloat16):
+            for ids_dtype in (torch.int32, torch.int64):
+                for n, hot in ((0, 0), (3000, 0), (9000, 5000),
+                               (60000, 50000)):
+                    if hot == 50000 and width != 128:
+                        continue
+                    ids = (rng.zipf(1.2, size=n) - 1) % R
+                    ids[rng.permutation(n)[:hot]] = 11
+                    ids = np.concatenate([ids, [-1, -R, R, R + 3, -R - 1,
+                                                10 ** 6]])
+                    slab = rng.normal(size=(R, width)).astype(np.float32)
+                    slab[ids[0] if n else R - 1, 0] = np.nan
+                    vals = rng.normal(scale=3.0, size=(len(ids), width)
+                                      ).astype(np.float32)
+                    vals[1, -1] = np.inf
+                    s = torch.from_numpy(slab).to(torch.bfloat16)
+                    v = torch.from_numpy(vals).to(vals_dtype)
+                    i = torch.from_numpy(ids).to(ids_dtype)
+                    lr = torch.tensor(0.0173)
+                    got = s.cuda()
+                    sgd_scatter_promoted(got, i.cuda(), v.cuda(), lr.cuda())
+                    torch.cuda.synchronize()
+                    want = sgd_scatter_promoted_plain(s.clone(), i, v, lr)
+                    bf16_bits(torch, got, want, f"K18 w{width} n{n} "
+                              f"{vals_dtype} {ids_dtype}")
+                    n_cases += 1
+                    if width == 128 and n == 3000:
+                        # update rows at an odd offset (a view into a
+                        # larger buffer)
+                        flat = torch.empty(v.numel() + 1, dtype=v.dtype,
+                                           device="cuda")
+                        vm = flat[1:].view(v.shape)
+                        vm.copy_(v)
+                        got = s.cuda()
+                        sgd_scatter_promoted(got, i.cuda(), vm, lr.cuda())
+                        bf16_bits(torch, got, want, f"K18 w{width} n{n} "
+                                  f"{vals_dtype} {ids_dtype} misaligned")
+                        n_cases += 1
+    for vals_dtype in (torch.float32, torch.bfloat16):
+        for lr in (0.37, torch.tensor(0.0123)):
+            ids = np.concatenate([rng.permutation(R)[:3000], [R]]).astype(
+                np.int32)
+            s = torch.from_numpy(rng.normal(size=(R, 128)).astype(
+                np.float32)).to(torch.bfloat16)
+            v = torch.from_numpy(rng.normal(size=(len(ids), 128)).astype(
+                np.float32)).to(vals_dtype)
+            got = s.cuda()
+            sgd_scatter(got, torch.from_numpy(ids).cuda(), v.cuda(),
+                        lr.cuda() if isinstance(lr, torch.Tensor) else lr,
+                        cast_vals=False)
+            want = sgd_scatter_plain(s.clone(), torch.from_numpy(ids), v, lr,
+                                     cast_vals=False)
+            bf16_bits(torch, got, want, f"K3 dedup chain lr={lr}")
+            n_cases += 1
+    log(f"example: K18 bit-exact to its plain version in {n_cases - 4} "
+        "edge cases, K3's dedup chain in 4")
+    return {"sgd_scatter_promoted": 0.0, "sgd_scatter": 0.0}
+
+
+def time_sgd_promoted(torch, de, slab, sizes, label, seed):
+    """K18 timed on a training stream (26 x 65536 ids, b-major as the
+    step builds it, 8 Zipfian id sets) into ``slab``, beside K3 on the
+    same stream (K3 rounds each add to bf16: not the same function), the
+    plain version, ``index_add_`` of the bf16-rounded products (K3's
+    chain: the nearest one PyTorch call) and the byte bound."""
+    from distributed_embeddings_torch.ops import (
+        sgd_scatter, sgd_scatter_promoted, sgd_scatter_promoted_plain)
+
+    w = slab.shape[1]
+    lr_val = PROMOTED_SCHEDULE[0]  # the schedule at PROMOTED_STEP
+    lr = torch.tensor(lr_val, device="cuda")
+    roff = torch.as_tensor(de.row_offsets_list[0], dtype=torch.int32,
+                           device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    args, lib_args, uniq, hot = [], [], [], []
+    for k in range(8):
+        cats, _ = train_batch(torch, sizes, TRAIN_BATCH, seed=seed + k)
+        ids = (torch.stack(cats, dim=1) + roff).reshape(-1).contiguous()
+        vals = (torch.randn((ids.numel(), w), generator=gen, device="cuda")
+                * 1e-3).to(torch.bfloat16)
+        args.append((ids, vals))
+        nl = torch.tensor(-lr_val, dtype=torch.bfloat16, device="cuda")
+        lib_args.append((ids.long(), vals * nl))
+        _, counts = torch.unique(ids, return_counts=True)
+        uniq.append(int(counts.numel()))
+        hot.append(int(counts.max()))
+    ms = time_ms(torch, lambda i, v: sgd_scatter_promoted(slab, i, v, lr),
+                 args)
+    k3 = time_ms(torch, lambda i, v: sgd_scatter(slab, i, v, lr_val), args)
+    plain = time_ms(torch, lambda i, v: sgd_scatter_promoted_plain(
+        slab, i, v, lr), args)
+    lib = time_ms(torch, lambda i, u: slab.index_add_(0, i, u), lib_args)
+    n = args[0][0].numel()
+    nbytes = n * w * 2 + n * 4 + 2 * uniq[0] * w * 2
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"time sgd_scatter_promoted {label}: kernel {ms:.4f} ms, K3 on the "
+        f"same stream {k3:.4f}, plain {plain:.4f}, library (index_add_, "
+        f"K3's chain) {lib:.4f}, bound {bound:.4f} ({uniq[0]} unique rows "
+        f"of {n} ids, the hottest hit {hot[0]} times)")
+    return {"case": label, "ms": ms, "plain_ms": plain, "library_ms": lib,
+            "library_call": "index_add_ of bf16-rounded products (K3's "
+                            "chain, not the promoted one)",
+            "k3_same_stream_ms": k3, "bound_ms": bound, "bound_by": "bytes",
+            "unique_rows": uniq[0], "hottest_row_hits": hot[0], "ids": n,
+            "bytes": nbytes}
+
+
+def promoted_full_check(torch, de, state):
+    """13b. One step of the Criteo-1TB bf16 DLRM (48.1 GB slab) under the
+    example's schedule at step 24000 (lr 24): K18's touched rows against
+    the plain version on the step's own inputs (on CPU copies), bit-exact;
+    then K18 timed on the 1TB stream."""
+    from distributed_embeddings_torch.models.schedules import (
+        warmup_poly_decay_schedule)
+    from distributed_embeddings_torch.ops import sgd_scatter_promoted_plain
+    from distributed_embeddings_torch.parallel import (
+        SGD, HybridTrainState, ScheduleState, SparseSGD,
+        make_hybrid_train_step)
+
+    sched = warmup_poly_decay_schedule(*PROMOTED_SCHEDULE)
+    slab = state.emb_params["w128"][0]
+    rows = slab.shape[0]
+    seen = {}
+
+    class RecordingSGD(SparseSGD):
+        """SparseSGD that snapshots the rows its stream touches first."""
+
+        def apply_rows(self, slab, st, ids, vals, lr):
+            gid = ids.long()
+            gid = torch.where(gid < 0, gid + rows, gid)
+            keep = (gid >= 0) & (gid < rows)
+            uniq, inv = torch.unique(gid[keep], return_inverse=True)
+            seen.update(uniq=uniq, inv=inv, vals=vals[keep], lr=lr,
+                        before=slab[uniq].clone())
+            return super().apply_rows(slab, st, ids, vals, lr)
+
+    count = torch.tensor(PROMOTED_STEP, dtype=torch.int32, device="cuda")
+    st = HybridTrainState(
+        emb_params=state.emb_params,
+        emb_opt_state=SparseSGD().init(state.emb_params),
+        dense_params=state.dense_params,
+        dense_opt_state=(ScheduleState(count.clone()),), step=count.clone())
+    step = make_hybrid_train_step(de, loss_fn, SGD(sched), RecordingSGD(),
+                                  lr_schedule=sched, nan_guard=True)
+    cats, batch = train_batch(torch, CRITEO_1TB_SIZES, TRAIN_BATCH,
+                              seed=SEED + 191)
+    zero_counts()
+    loss, st = step(st, cats, batch)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(bool(torch.isfinite(loss)), f"1TB promoted step: loss {loss}")
+    check(counts["sgd_scatter_promoted"] == 1 and counts["sgd_scatter"] == 0,
+          f"1TB promoted step: K18 {counts['sgd_scatter_promoted']}, K3 "
+          f"{counts['sgd_scatter']} launches (expected 1 and 0)")
+    check(abs(float(seen["lr"]) - PROMOTED_SCHEDULE[0]) < 1e-6,
+          f"1TB promoted step: lr {float(seen['lr'])}")
+    want = sgd_scatter_promoted_plain(
+        seen["before"].cpu(), seen["inv"].cpu(), seen["vals"].cpu(),
+        seen["lr"].cpu())
+    got = slab[seen["uniq"]]
+    err = bf16_bits(torch, got, want, "1TB promoted step, touched rows")
+    changed = int(torch.count_nonzero((got != seen["before"]).any(1)))
+    check(changed > 0, "1TB promoted step: no touched row changed")
+    log(f"example: 1TB bf16 step under the schedule at step {PROMOTED_STEP} "
+        f"(lr {float(seen['lr'])}): loss {float(loss):.5f}, "
+        f"{len(seen['uniq'])} touched rows ({changed} changed) bit-exact to "
+        f"the plain version of {seen['vals'].shape[0]} stream rows")
+    seen.clear()
+    case = time_sgd_promoted(torch, de, slab, CRITEO_1TB_SIZES, "1tb_b65536",
+                             SEED + 200)
+    return err, case
+
+
+def example_args(tmp, sizes):
+    """The example's command line at the capped Criteo-Kaggle size: its
+    default width, MLPs, batch and lr, bf16 tables, eval every 20."""
+    return ["--table_sizes", ",".join(map(str, sizes)),
+            "--param_dtype", "bfloat16",
+            "--eval_interval", str(EXAMPLE_EVAL_INTERVAL),
+            "--checkpoint_out", os.path.join(tmp, "embedding_weights")]
+
+
+def example_state_equal(torch, a, b, what):
+    """Bitwise equality of two example train states (SparseSGD + SGD
+    with a schedule)."""
+    check(int(a.step) == int(b.step), f"{what}: step {int(a.step)} != "
+          f"{int(b.step)}")
+    for k, v in a.emb_params.items():
+        check(torch.equal(v.view(torch.int16),
+                          b.emb_params[k].view(torch.int16)),
+              f"{what}: slab {k} differs")
+    for p, q in zip(a.dense_params.parameters(),
+                    b.dense_params.parameters()):
+        check(torch.equal(p, q), f"{what}: dense params differ")
+    for p, q in zip(a.dense_opt_state, b.dense_opt_state):
+        check(torch.equal(p.count, q.count), f"{what}: schedule count")
+
+
+def example_nan_check(torch, run, sizes):
+    """13d. A NaN batch through the example's step on run A's final
+    state: the bf16 slab, the dense params and the schedule's count
+    bitwise unchanged, the step advanced."""
+    from distributed_embeddings_torch.examples import dlrm_main
+    from distributed_embeddings_torch.models import DLRMConfig
+    from distributed_embeddings_torch.models.schedules import (
+        warmup_poly_decay_schedule)
+    from distributed_embeddings_torch.parallel import (
+        SGD, SparseSGD, make_hybrid_train_step)
+
+    sched = warmup_poly_decay_schedule(24, 8000, 48000, 24000)
+    step = make_hybrid_train_step(run.de, loss_fn, SGD(sched), SparseSGD(),
+                                  lr_schedule=sched)
+    cfg = DLRMConfig(table_sizes=sizes)
+    num, cats, lab = next(dlrm_main.synthetic_batches(cfg, 1, TRAIN_BATCH,
+                                                      seed=SEED + 210))
+    num[TRAIN_BATCH // 3, 5] = np.nan
+    st = run.state
+    key = next(iter(st.emb_params))
+    slab_before = st.emb_params[key].clone()
+    dense_before = [p.detach().clone() for p in st.dense_params.parameters()]
+    count_before = st.dense_opt_state[0].count.clone()
+    step_before = int(st.step)
+    zero_counts()
+    loss, st = step(st, [torch.from_numpy(c).cuda() for c in cats],
+                    (torch.from_numpy(num).cuda(),
+                     torch.from_numpy(lab).cuda()))
+    torch.cuda.synchronize()
+    check(not bool(torch.isfinite(loss)), "example NaN batch: finite loss")
+    check(read_counts()["sgd_scatter_promoted"] == 1,
+          "example NaN batch: K18 did not launch")
+    check(torch.equal(st.emb_params[key].view(torch.int16),
+                      slab_before.view(torch.int16)),
+          "example NaN batch: the bf16 slab changed")
+    check(all(torch.equal(p, q) for p, q in zip(
+        st.dense_params.parameters(), dense_before)),
+        "example NaN batch: dense params changed")
+    check(torch.equal(st.dense_opt_state[0].count, count_before),
+          "example NaN batch: the schedule's count changed")
+    check(int(st.step) == step_before + 1,
+          "example NaN batch: step did not advance")
+    log(f"example: NaN batch skipped, the {slab_before.numel() * 2 / 1e9:.2f} "
+        f"GB bf16 slab, the dense params and the schedule count "
+        f"({int(count_before)}) bitwise unchanged, step {step_before} -> "
+        f"{int(st.step)}")
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs)
+
+
+def phase_example(torch, promoted_1tb):
+    """The DLRM example (``examples/dlrm_main.py``) on the card:
+    13a. K18 (and K3's dedup chain) edge cases against the plain version;
+    (13b ran in the Criteo-1TB phase: ``promoted_1tb``;)
+    13c. the example in process at the capped Criteo-Kaggle size (26
+         vocabularies capped at 2M rows, 10,569,296 rows, 2.71 GB bf16),
+         dim 128, MLPs 512-256-128 / 1024-1024-512-256-1, b=65536, lr 24
+         with the MLPerf warmup: run A 40 steps with eval every 20 and
+         1 s of serving at 200 QPS, launches counted; run B 20 steps
+         saving the full train state, then a run restored to step 40:
+         losses and state bitwise equal to A's; K18 timed at this shape;
+    13d. a NaN batch under the guard on A's final state."""
+    import shutil
+    import tempfile
+
+    from distributed_embeddings_torch.examples import dlrm_main
+    from distributed_embeddings_torch.parallel import Served
+
+    t_phase = time.perf_counter()
+    errs = promoted_kernel_checks(torch)
+    sizes = ragged_sizes()
+    tmp = tempfile.mkdtemp(prefix="detpu_example_")
+    try:
+        args = example_args(tmp, sizes)
+        zero_counts()
+        t0 = time.perf_counter()
+        a = dlrm_main.main(args + [
+            "--num_batches", str(EXAMPLE_STEPS),
+            "--serve_qps", str(EXAMPLE_SERVE_QPS), "--serve_seconds", "1"])
+        torch.cuda.synchronize()
+        launches = read_counts()
+        run_a_s = time.perf_counter() - t0
+        check(a.steps_run == EXAMPLE_STEPS and np.isfinite(a.losses).all(),
+              f"example run A: {a.steps_run} steps, losses {a.losses}")
+        check(launches["sgd_scatter_promoted"] == EXAMPLE_STEPS
+              and launches["dot_interact_bwd"] == EXAMPLE_STEPS
+              and launches["gather_combine"] >= EXAMPLE_STEPS
+              and launches["dot_interact_fwd"] >= EXAMPLE_STEPS
+              and launches["sgd_scatter"] == 0,
+              f"example run A launches {launches}")
+        served = a.serve_results
+        check(len(served) >= EXAMPLE_SERVE_QPS * 0.9 and all(
+            isinstance(r, Served) for r in served),
+            f"example serving: {len(served)} results, "
+            f"{sum(not isinstance(r, Served) for r in served)} not Served")
+        check(a.auc is not None and 0.0 <= a.auc <= 1.0,
+              f"example AUC {a.auc}")
+        timed = a.step_s[EXAMPLE_WARMUP:]
+        ck = os.path.join(tmp, "state")
+        b1 = dlrm_main.main(args + ["--num_batches", str(EXAMPLE_SAVE_AT),
+                                    "--save_state", ck])
+        ck_bytes = dir_bytes(ck)
+        save_s = b1.save_s[-1]
+        b1_losses = b1.losses
+        del b1
+        gc.collect()
+        b2 = dlrm_main.main(args + ["--num_batches", str(EXAMPLE_STEPS),
+                                    "--restore_state", ck])
+        torch.cuda.synchronize()
+        check(b1_losses + b2.losses == a.losses,
+              f"example resumed losses differ: "
+              f"{[x for x in zip(b1_losses + b2.losses, a.losses)]}")
+        example_state_equal(torch, a.state, b2.state,
+                            f"example resumed at step {EXAMPLE_SAVE_AT}")
+        restore_s = b2.restore_s
+        del b2
+        gc.collect()
+        log(f"example: resumed run ({EXAMPLE_SAVE_AT} steps, save, restore, "
+            f"{EXAMPLE_STEPS - EXAMPLE_SAVE_AT} more) bitwise equal to the "
+            f"uninterrupted {EXAMPLE_STEPS}: losses, the bf16 slab, the dense "
+            "params, the schedule count and the step")
+        slab = next(iter(a.state.emb_params.values()))[0]
+        case = time_sgd_promoted(torch, a.de, slab, sizes, "kaggle_b65536",
+                                 SEED + 220)
+        del slab
+        example_nan_check(torch, a, sizes)
+        metrics = {
+            "table_rows": sum(sizes), "batch": TRAIN_BATCH,
+            "steps": EXAMPLE_STEPS,
+            "samples_per_s_step": TRAIN_BATCH * len(timed) / sum(timed),
+            "step_ms_p50": float(np.median(timed)) * 1e3,
+            "samples_per_s_loop": TRAIN_BATCH * EXAMPLE_STEPS / a.loop_s,
+            "loop_s": a.loop_s, "run_a_s": run_a_s,
+            "loss_first": a.losses[0], "loss_last": a.losses[-1],
+            "auc": a.auc, "save_s": save_s, "restore_s": restore_s,
+            "checkpoint_bytes": ck_bytes,
+            "serve": {k: a.serving[k] for k in (
+                "served", "shed", "latency_p50_ms", "latency_p99_ms",
+                "pad_fraction")},
+            "launches_per_step": {n: v / EXAMPLE_STEPS
+                                  for n, v in launches.items() if v}}
+        log("example: " + json.dumps(metrics))
+        del a
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    metrics["phase_s"] = time.perf_counter() - t_phase
+    return ({"example": launches}, errs, [case, promoted_1tb], metrics)
+
+
+
 def main():
     try:
         import torch
@@ -4746,6 +5175,7 @@ def main():
     errs.update(train_errs)
     launches = {"serve": serve_launches, "train": train_launches}
     kernels = phase_time(torch, de, state, errs, launches)
+    promoted_err, promoted_1tb = promoted_full_check(torch, de, state)
     log(f"DLRM peak memory {torch.cuda.max_memory_allocated() / 1e9:.1f} "
         f"GB, {time.perf_counter() - t_start:.1f} s so far")
     # the 48.1 GB DLRM slab leaves no room for the zoo: free it
@@ -4923,9 +5353,40 @@ def main():
         "remap_width": "distributed_embeddings_tpu/parallel/streaming.py:265",
         "_streaming_remap": "distributed_embeddings_tpu/parallel/"
                             "dist_embedding.py:1418"}
+    log("streaming: " + json.dumps(stream))
+    log(f"streaming peak memory {torch.cuda.max_memory_allocated() / 1e9:.1f} "
+        f"GB, {time.perf_counter() - t_start:.1f} s so far")
+    torch.cuda.reset_peak_memory_stats()
+    ex_launches, ex_errs, ex_cases, example = phase_example(torch,
+                                                            promoted_1tb)
+    launches.update(ex_launches)
+    for k in kernels:
+        names = (csr_names if k["name"] == "csr" else k14 if k["name"] ==
+                 "cms_query" else (k["name"],))
+        k["launches_by_path"]["example"] = sum(
+            ex_launches["example"][n] for n in names)
+        k["max_abs_err"] = max(k["max_abs_err"],
+                               ex_errs.get(k["name"], 0.0))
+    c = ex_cases[0]
+    kernels.append({
+        "name": "sgd_scatter_promoted", "route": "cuda",
+        "source": "distributed_embeddings_torch/csrc/sgd_promoted.cu",
+        "replaces": "distributed_embeddings_tpu/parallel/optimizers.py:95",
+        "launches": launches["example"]["sgd_scatter_promoted"],
+        "launches_by_path": {p: launches[p].get("sgd_scatter_promoted", 0)
+                             for p in launches},
+        "max_abs_err": max(promoted_err,
+                           ex_errs["sgd_scatter_promoted"]),
+        "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+        "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+        "shape": c["case"], "cases": ex_cases})
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']}: no launch on its main path")
-    log("streaming: " + json.dumps(stream))
+    for name in ("gather_combine", "dot_interact_fwd", "dot_interact_bwd",
+                 "sgd_scatter_promoted"):
+        check(launches["example"][name] > 0,
+              f"{name}: no launch on the example's path")
+    log("example: " + json.dumps(example))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

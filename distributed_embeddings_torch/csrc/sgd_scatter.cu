@@ -13,6 +13,12 @@
 // Each atomic add rounds to the slab dtype, as the JAX scatter does
 // after every add; duplicate ids add in another order than XLA's.
 //
+// With cast_vals = 0 the update is that of SparseSGD's DETPU_SGD_DEDUP
+// branch, slab.at[uids].add((-lr * uvals).astype(slab.dtype)): vals are
+// NOT rounded to the slab dtype first; the product rounds to the vals
+// dtype for a constant lr (nl rounded to it by the wrapper), stays
+// float32 for a device scalar lr, and rounds once to the slab dtype.
+//
 // Bound: bytes. Each stream row reads its update row and its id and
 // reads and writes the slab row it hits: about one operation per byte.
 // Design: a group of G lanes per stream row, each lane loading 16 B of
@@ -104,7 +110,8 @@ __global__ void __launch_bounds__(256)
 sgd_scatter_kernel(typename Ts::E* __restrict__ slab, int64_t rows,
                    int width, const IdT* __restrict__ ids, int64_t n,
                    const typename Tv::E* __restrict__ vals, float neg_lr,
-                   const float* __restrict__ neg_lr_dev, int group_log2) {
+                   const float* __restrict__ neg_lr_dev, int group_log2,
+                   int cast_vals) {
   using SE = typename Ts::E;
   using VE = typename Tv::E;
   // elements per lane step: 16 B of slab row, or one element
@@ -127,7 +134,13 @@ sgd_scatter_kernel(typename Ts::E* __restrict__ slab, int64_t rows,
     float u[CH];
 #pragma unroll
     for (int e = 0; e < CH; ++e) {
-      u[e] = Ts::rnd(__fmul_rn(nl, Ts::rnd(Tv::load(raw[e]))));
+      const float x = Tv::load(raw[e]);
+      if (cast_vals) {
+        u[e] = Ts::rnd(__fmul_rn(nl, Ts::rnd(x)));
+      } else {
+        const float p = __fmul_rn(nl, x);
+        u[e] = Ts::rnd(neg_lr_dev != nullptr ? p : Tv::rnd(p));
+      }
     }
     atomic_add<CH>(row + c, u);
   }
@@ -136,7 +149,8 @@ sgd_scatter_kernel(typename Ts::E* __restrict__ slab, int64_t rows,
 template <typename Ts, typename Tv, typename IdT>
 cudaError_t launch(void* slab, int64_t rows, int width, const void* ids,
                    int64_t n, const void* vals, float neg_lr,
-                   const float* neg_lr_dev, cudaStream_t stream) {
+                   const float* neg_lr_dev, int cast_vals,
+                   cudaStream_t stream) {
   using SE = typename Ts::E;
   using VE = typename Tv::E;
   constexpr int CH = 16 / static_cast<int>(sizeof(SE));
@@ -156,10 +170,10 @@ cudaError_t launch(void* slab, int64_t rows, int width, const void* ids,
   const VE* v = static_cast<const VE*>(vals);
   if (vec) {
     sgd_scatter_kernel<Ts, Tv, IdT, true><<<grid, 256, 0, stream>>>(
-        s, rows, width, d, n, v, neg_lr, neg_lr_dev, group_log2);
+        s, rows, width, d, n, v, neg_lr, neg_lr_dev, group_log2, cast_vals);
   } else {
     sgd_scatter_kernel<Ts, Tv, IdT, false><<<grid, 256, 0, stream>>>(
-        s, rows, width, d, n, v, neg_lr, neg_lr_dev, group_log2);
+        s, rows, width, d, n, v, neg_lr, neg_lr_dev, group_log2, cast_vals);
   }
   return cudaGetLastError();
 }
@@ -167,11 +181,14 @@ cudaError_t launch(void* slab, int64_t rows, int width, const void* ids,
 template <typename Ts, typename Tv>
 cudaError_t by_ids(bool ids64, void* slab, int64_t rows, int width,
                    const void* ids, int64_t n, const void* vals, float neg_lr,
-                   const float* neg_lr_dev, cudaStream_t stream) {
+                   const float* neg_lr_dev, int cast_vals,
+                   cudaStream_t stream) {
   return ids64 ? launch<Ts, Tv, int64_t>(slab, rows, width, ids, n, vals,
-                                         neg_lr, neg_lr_dev, stream)
+                                         neg_lr, neg_lr_dev, cast_vals,
+                                         stream)
                : launch<Ts, Tv, int32_t>(slab, rows, width, ids, n, vals,
-                                         neg_lr, neg_lr_dev, stream);
+                                         neg_lr, neg_lr_dev, cast_vals,
+                                         stream);
 }
 
 }  // namespace
@@ -184,11 +201,14 @@ extern "C" const char* detpu_error_string(int err) {
 // slab_dtype / vals_dtype: 0 = float32, 1 = bfloat16; ids_is_64: ids
 // are int64 (else int32). neg_lr is used when neg_lr_dev is null;
 // otherwise the update reads the fp32 scalar -lr at neg_lr_dev.
+// cast_vals: 1 rounds vals to the slab dtype before the product (the
+// stream update), 0 takes the dedup branch's chain (see the header).
 extern "C" int detpu_sgd_scatter(void* slab, int64_t rows, int width,
                                  int slab_dtype, const void* ids,
                                  int ids_is_64, int64_t n, const void* vals,
                                  int vals_dtype, float neg_lr,
-                                 const void* neg_lr_dev, void* stream) {
+                                 const void* neg_lr_dev, int cast_vals,
+                                 void* stream) {
   if (rows <= 0 || width <= 0 || n < 0 || (slab_dtype != 0 &&
       slab_dtype != 1) || (vals_dtype != 0 && vals_dtype != 1)) {
     return cudaErrorInvalidValue;
@@ -197,14 +217,17 @@ extern "C" int detpu_sgd_scatter(void* slab, int64_t rows, int width,
   const bool i64 = ids_is_64 != 0;
   const float* lr = static_cast<const float*>(neg_lr_dev);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int cv = cast_vals != 0;
   if (slab_dtype == 0) {
     return vals_dtype == 0
-        ? by_ids<F32, F32>(i64, slab, rows, width, ids, n, vals, neg_lr, lr, s)
+        ? by_ids<F32, F32>(i64, slab, rows, width, ids, n, vals, neg_lr, lr,
+                           cv, s)
         : by_ids<F32, BF16>(i64, slab, rows, width, ids, n, vals, neg_lr, lr,
-                            s);
+                            cv, s);
   }
   return vals_dtype == 0
-      ? by_ids<BF16, F32>(i64, slab, rows, width, ids, n, vals, neg_lr, lr, s)
+      ? by_ids<BF16, F32>(i64, slab, rows, width, ids, n, vals, neg_lr, lr,
+                          cv, s)
       : by_ids<BF16, BF16>(i64, slab, rows, width, ids, n, vals, neg_lr, lr,
-                           s);
+                           cv, s);
 }

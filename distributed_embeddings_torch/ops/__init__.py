@@ -13,7 +13,8 @@ from .momentum import momentum_rows, momentum_rows_plain
 from .interaction import (DotInteract, dot_interact_bwd,
                           dot_interact_bwd_plain, dot_interact_fwd,
                           dot_interact_fwd_plain)
-from .scatter_add import sgd_scatter, sgd_scatter_plain
+from .scatter_add import (sgd_scatter, sgd_scatter_plain,
+                          sgd_scatter_promoted, sgd_scatter_promoted_plain)
 from .sketch import (cms_query, cms_query_plain, cms_update,
                      cms_update_plain, record_ids_plain, topk_merge,
                      topk_merge_plain, topk_pool, topk_pool_plain)
@@ -30,7 +31,8 @@ __all__ = ["Ragged", "SparseIds", "embedding_lookup", "gather_combine",
            "ragged_combine_plain", "dot_interact_fwd",
            "dot_interact_fwd_plain", "dot_interact_bwd",
            "dot_interact_bwd_plain", "DotInteract", "sgd_scatter",
-           "sgd_scatter_plain", "dedup_sparse_grad",
+           "sgd_scatter_plain", "sgd_scatter_promoted",
+           "sgd_scatter_promoted_plain", "dedup_sparse_grad",
            "dedup_sparse_grad_plain", "ragged_grad", "ragged_grad_plain",
            "combiner_grad_values", "adagrad_rows", "adagrad_rows_plain",
            "adagrad_dense", "adagrad_dense_plain", "adam_rows",

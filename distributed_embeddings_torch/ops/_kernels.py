@@ -54,9 +54,17 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "sgd_scatter": {
         # slab, rows, width, slab_dtype, ids, ids_is_64, n, vals,
-        # vals_dtype, neg_lr, neg_lr_dev, stream
+        # vals_dtype, neg_lr, neg_lr_dev, cast_vals, stream
         "detpu_sgd_scatter": (_P, _I64, _I, _I, _P, _I, _I64, _P, _I,
-                              ctypes.c_float, _P, _P),
+                              ctypes.c_float, _P, _I, _P),
+    },
+    "sgd_promoted": {
+        # slab, rows, width, ids, ids_is_64, n, vals, vals_dtype,
+        # neg_lr_dev, scratch, stream
+        "detpu_sgd_promoted": (_P, _I64, _I, _P, _I, _I64, _P, _I, _P, _P,
+                               _P),
+        # n, rows -> bytes
+        "detpu_sgd_promoted_scratch_bytes": (_I64, _I64),
     },
     "dedup": {
         # ids, ids_is_64, n, vals, vals_dtype, width, pad_id, u_cap, uids,
@@ -157,6 +165,7 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
 
 #: return type of the exported functions that return no ``cudaError_t``
 RESTYPES = {"detpu_dedup_scratch_bytes": _I64,
+            "detpu_sgd_promoted_scratch_bytes": _I64,
             "detpu_topk_pool_scratch_bytes": _I64}
 
 _lock = threading.Lock()

@@ -4,7 +4,8 @@
 What this slice ports: the constructor's placement plan and slab-offset
 bookkeeping, ``init``, input normalization, the cached exchange plans,
 the world-1 forward (``__call__`` / ``forward_with_residuals``), and
-``get_weights`` / ``set_weights``. Tables of one width stack row-major
+``get_table`` / ``get_weights`` / ``set_weights`` (chunked, with the
+``src_dtype`` and ``use_lock`` of the checkpoint codec). Tables of one width stack row-major
 into one LOGICAL slab per width, ``{"w128": [world, rows_cap, 128]}``,
 each table starting at the same row offset as in the JAX package (its
 lane-packing alignment is kept, see ``ops/packed_slab.py``), so both
@@ -36,6 +37,7 @@ as in the JAX package.
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -89,6 +91,14 @@ def slab_layout(strategy: DistEmbeddingStrategy
                                          1), ps.pack_factor(w)), w)
                 for w in widths}
     return widths, row_offsets_list, rows_cap
+
+
+def _is_void(a) -> bool:
+    """Whether ``a`` is a numpy array of an opaque void dtype (what
+    ``np.load`` gives for a bfloat16 ``.npy``; an ``ml_dtypes`` bfloat16
+    array is not one)."""
+    return isinstance(a, np.ndarray) and a.dtype.kind == "V" \
+        and a.dtype.name.startswith("void")
 
 
 def _map_tensors(fn, tree):
@@ -226,37 +236,91 @@ class DistributedEmbedding:
             out[_wkey(w)] = buf
         return out
 
-    def get_weights(self, params: EmbedParams) -> List[np.ndarray]:
-        """The global tables on the host, ``[input_dim, output_dim]``
-        each, copied in row chunks. numpy has no bfloat16, so bfloat16
-        tables come back as float32 (exact)."""
-        out = []
-        for tid, cfg in enumerate(self.strategy.global_configs):
-            m = self.strategy.table_ids_list[0].index(tid)
-            rows, w = int(cfg["input_dim"]), int(cfg["output_dim"])
-            roff = self.row_offsets_list[0][m]
-            slab = params[_wkey(w)][0]
-            upcast = slab.dtype == torch.bfloat16
-            host = np.empty((rows, w), np.float32 if upcast else
-                            torch.empty(0, dtype=slab.dtype).numpy().dtype)
-            step = max(1, CHECKPOINT_CHUNK_ELEMS // w)
-            for s in range(0, rows, step):
-                n = min(step, rows - s)
-                chunk = slab[roff + s:roff + s + n].cpu()
-                host[s:s + n] = (chunk.float() if upcast else chunk).numpy()
-            out.append(host)
-        return out
+    def _table_tensor(self, params: EmbedParams, tid: int,
+                      chunk_elems: int = CHECKPOINT_CHUNK_ELEMS
+                      ) -> torch.Tensor:
+        """ONE global table ``[input_dim, output_dim]`` as a CPU tensor
+        in the slab's dtype (bfloat16 kept), copied in row chunks of at
+        most ``chunk_elems`` elements."""
+        cfg = self.strategy.global_configs[tid]
+        m = self.strategy.table_ids_list[0].index(tid)
+        rows, w = int(cfg["input_dim"]), int(cfg["output_dim"])
+        roff = self.row_offsets_list[0][m]
+        slab = params[_wkey(w)][0]
+        host = torch.empty((rows, w), dtype=slab.dtype)
+        step = max(1, int(chunk_elems) // w)
+        for s in range(0, rows, step):
+            n = min(step, rows - s)
+            host[s:s + n].copy_(slab[roff + s:roff + s + n])
+        return host
+
+    def get_table(self, params: EmbedParams, tid: int,
+                  chunk_elems: int = CHECKPOINT_CHUNK_ELEMS,
+                  all_ranks: bool = True) -> np.ndarray:
+        """ONE global table on the host, ``[input_dim, output_dim]``,
+        copied in row chunks of at most ``chunk_elems`` elements, so a
+        checkpoint writer holds one table, not the model. numpy has no
+        bfloat16, so bfloat16 tables come back as float32 (exact).
+        ``all_ranks`` matters only at world > 1 (ROADMAP A7): here the
+        one process always gets the table."""
+        del all_ranks
+        t = self._table_tensor(params, tid, chunk_elems)
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    def get_weights(self, params: EmbedParams,
+                    chunk_elems: int = CHECKPOINT_CHUNK_ELEMS,
+                    all_ranks: bool = True) -> List[np.ndarray]:
+        """The global tables on the host (:meth:`get_table` each)."""
+        return [self.get_table(params, tid, chunk_elems=chunk_elems,
+                               all_ranks=all_ranks)
+                for tid in range(len(self.strategy.global_configs))]
+
+    @staticmethod
+    def _uid_lock_path() -> str:
+        """Lock file of ``set_weights(use_lock=True)``: one per uid, so
+        every concurrent load by this user serializes (the JAX package's
+        name, so both packages' loads serialize together)."""
+        import tempfile
+        return os.path.join(tempfile.gettempdir(),
+                            f"detpu_set_weights_{os.getuid()}.lock")
 
     def set_weights(self, weights: Sequence[Any],
                     dtype: torch.dtype = torch.float32,
-                    device="cuda") -> EmbedParams:
+                    device="cuda",
+                    chunk_elems: int = CHECKPOINT_CHUNK_ELEMS,
+                    use_lock: bool = False,
+                    src_dtype=None) -> EmbedParams:
         """Build the slab dict from full global tables (numpy arrays,
         ``ml_dtypes`` bfloat16 arrays, tensors, or ``.npy`` paths, which
-        are memory-mapped), copied in row chunks so the host never holds
-        more than one chunk beyond the sources."""
+        are memory-mapped), copied in row chunks of at most
+        ``chunk_elems`` elements so the host never holds more than one
+        chunk beyond the sources.
+
+        ``src_dtype``: the dtype ``.npy`` sources were SAVED in. ``np.save``
+        of a bfloat16 array writes an opaque ``'<V2'`` descriptor that
+        ``np.load`` returns as ``|V2``; such sources are re-viewed as
+        bfloat16 bits here (``"bfloat16"`` or ``torch.bfloat16``; the
+        checkpoint codec records it in ``meta.json``).
+
+        ``use_lock=True`` serializes the build across this user's
+        processes on one per-uid file lock (the JAX package's; its
+        cross-host turn-taking belongs to world > 1, ROADMAP A7)."""
+        from ..utils import runtime
+
+        runtime.fault_point("checkpoint_read")
         dev = resolve_device(device)
         loaded = [np.load(w, mmap_mode="r") if isinstance(w, str) else w
                   for w in weights]
+        if any(_is_void(a) for a in loaded):
+            if src_dtype is None:
+                raise ValueError(
+                    "sources carry an opaque (void) dtype: np.save of an "
+                    "extension dtype like bfloat16 does not round-trip "
+                    "through np.load; pass src_dtype= with the dtype they "
+                    "were saved in")
+            if str(src_dtype).replace("torch.", "") != "bfloat16":
+                raise ValueError(f"void sources can only be re-viewed as "
+                                 f"bfloat16, got src_dtype={src_dtype!r}")
         if len(loaded) != len(self.strategy.global_configs):
             raise ValueError("set_weights needs one array per global table")
         for tid, (src, cfg) in enumerate(
@@ -266,22 +330,43 @@ class DistributedEmbedding:
                 raise ValueError(
                     f"Table {tid}: expected shape {want}, got "
                     f"{tuple(src.shape)}")
-        out = {}
-        for w in self.widths:
-            buf = torch.zeros((self.world_size, self.rows_cap[w], w),
-                              dtype=dtype, device=dev)
-            step = max(1, CHECKPOINT_CHUNK_ELEMS // w)
-            for m, c in enumerate(self.strategy.local_configs_list[0]):
-                if int(c["output_dim"]) != w:
-                    continue
-                src = loaded[self.strategy.table_ids_list[0][m]]
-                roff, rows = self.row_offsets_list[0][m], int(c["input_dim"])
-                for s in range(0, rows, step):
-                    n = min(step, rows - s)
-                    buf[0, roff + s:roff + s + n].copy_(
-                        host_tensor(src[s:s + n]).to(dtype))
-            out[_wkey(w)] = buf
-        return out
+
+        def rows_of(src, s, n):
+            part = src[s:s + n]
+            if _is_void(part):
+                bits = np.array(part).view(np.int16)  # a writable copy
+                return torch.from_numpy(bits).view(torch.bfloat16)
+            return host_tensor(part)
+
+        def build():
+            out = {}
+            for w in self.widths:
+                buf = torch.zeros((self.world_size, self.rows_cap[w], w),
+                                  dtype=dtype, device=dev)
+                step = max(1, int(chunk_elems) // w)
+                for m, c in enumerate(self.strategy.local_configs_list[0]):
+                    if int(c["output_dim"]) != w:
+                        continue
+                    src = loaded[self.strategy.table_ids_list[0][m]]
+                    roff, rows = (self.row_offsets_list[0][m],
+                                  int(c["input_dim"]))
+                    for s in range(0, rows, step):
+                        n = min(step, rows - s)
+                        buf[0, roff + s:roff + s + n].copy_(
+                            rows_of(src, s, n).to(dtype))
+                out[_wkey(w)] = buf
+            return out
+
+        if not use_lock:
+            return build()
+        import fcntl
+
+        with open(self._uid_lock_path(), "w") as lock_file:
+            fcntl.flock(lock_file, fcntl.LOCK_EX)
+            try:
+                return build()
+            finally:
+                fcntl.flock(lock_file, fcntl.LOCK_UN)
 
     @staticmethod
     def local_view(params):

@@ -8,11 +8,12 @@ The optimizers update only the rows a step looked up, IN PLACE on the
 slab (and on its slab-shaped state):
 
 * :class:`SparseSGD` through the scatter kernel K3
-  (``ops/scatter_add.py``). Duplicate ids scatter-add directly (the
-  update is linear in the gradient, so no dedup pass), and ids at or
-  past the slab's rows (the dropped-row sentinel included) train
-  nothing. ``DETPU_SGD_DEDUP=1`` forces the dedup pass (K5) in first,
-  as in JAX, to compare the two.
+  (``ops/scatter_add.py``), or K18 for a bfloat16 slab under a tensor
+  lr (a schedule: JAX's promoted float32 scatter). Duplicate ids
+  scatter-add directly (the update is linear in the gradient, so no
+  dedup pass), and ids at or past the slab's rows (the dropped-row
+  sentinel included) train nothing. ``DETPU_SGD_DEDUP=1`` forces the
+  dedup pass (K5) in first, as in JAX, to compare the two.
 * :class:`SparseAdagrad` with slab-shaped accumulators, in one of two
   regimes: dense-apply (K3 scatter-sums the stream into a zero gradient
   slab, then K7 runs the transition over the whole slab) or sparse (K5
@@ -71,11 +72,14 @@ class SparseSGD:
         ``(slab, state)``."""
         if envvars.enabled(SGD_DEDUP_ENV):
             # the A/B hatch: pre-sum duplicate rows as the stateful
-            # optimizers do (K5), then scatter the unique rows
+            # optimizers do (K5), then scatter the unique rows with JAX's
+            # (-lr * uvals).astype(slab.dtype) (K3's cast_vals=False)
             rows = slab.shape[0]
             ids, vals = dedup_sparse_grad(ids, vals, pad_id=rows,
                                           max_unique=rows + 1)
-        sgd_scatter(slab, ids, vals, lr)
+            sgd_scatter(slab, ids, vals, lr, cast_vals=False)
+        else:
+            sgd_scatter(slab, ids, vals, lr)
         return slab, state
 
 

@@ -7,7 +7,8 @@
   tree, as numpy (``params/Dense_0..Dense_k/{kernel [in, out], bias
   [out]}``), goes into the torch module (its ``linears()`` in flax
   order) through :func:`load_flax_dense`; a flax kernel becomes
-  ``Linear.weight`` of shape ``[out, in]``.
+  ``Linear.weight`` of shape ``[out, in]``. :func:`flax_dense_tree`
+  maps the other way (the checkpoint codec's ``dense.msgpack``).
 * Train state: :func:`hybrid_state_from_jax` builds the port's
   ``HybridTrainState`` from those two plus the JAX state's optimizer
   states and step, so both packages train from one state. It carries
@@ -69,6 +70,33 @@ def load_flax_dense(module, params: Mapping[str, Any]) -> None:
                                  f"{lin.out_features})")
             lin.weight.copy_(kernel.t())
             lin.bias.copy_(bias)
+
+
+def flax_dense_tree(module, tensors=None) -> dict:
+    """The inverse of :func:`load_flax_dense`: ``{"params": {"Dense_i":
+    {"bias": [out], "kernel": [in, out]}}}`` of ``module``'s linears in
+    flax order, as CPU tensors (a ``Linear.weight`` ``[out, in]`` as a
+    kernel ``[in, out]``). ``tensors``, one per parameter in the
+    module's order (each linear's weight, then its bias; an optimizer
+    state's per-parameter tuple), replaces the parameters' values. Keys
+    come in the order a JAX step's ``tree_map`` leaves them in."""
+    linears = list(module.linears())
+    params = list(module.parameters())
+    if tensors is None:
+        tensors = params
+    tensors = list(tensors)
+    if len(tensors) != 2 * len(linears) or any(
+            p is not q for p, q in zip(params, [t for lin in linears
+                                                for t in (lin.weight,
+                                                          lin.bias)])):
+        raise ValueError("the dense module's parameters are not its "
+                         "linears' (weight, bias) pairs in flax order")
+    out = {}
+    for i in range(len(linears)):
+        w, b = tensors[2 * i], tensors[2 * i + 1]
+        out[f"Dense_{i}"] = {"bias": b.detach().cpu().clone(),
+                             "kernel": w.detach().cpu().t().contiguous()}
+    return {"params": out}
 
 
 def _leaf_count(tree) -> int:

@@ -4,8 +4,10 @@ Counterpart of ``distributed_embeddings_tpu/utils/envvars.py``, cut to
 the knobs this package has: the ``DETPU_SERVE_*`` declarations that
 :class:`~..parallel.serving.ServeConfig` reads, and the train-step
 switches (``DETPU_OBS``, ``DETPU_NANGUARD``, ``DETPU_SGD_DEDUP``), the
-access-telemetry geometry (``DETPU_TELEMETRY*``) and the streaming-vocab
-policy (``DETPU_ADMIT_*``, ``DETPU_EVICT_MARGIN``), with the JAX
+checkpoint and fault knobs (``DETPU_CKPT_RING``, ``DETPU_FAULT``,
+``DETPU_ON_MISMATCH``), the access-telemetry geometry
+(``DETPU_TELEMETRY*``) and the streaming-vocab policy
+(``DETPU_ADMIT_*``, ``DETPU_EVICT_MARGIN``), with the JAX
 package's names and defaults, so one environment configures
 both packages alike.
 """
@@ -99,6 +101,23 @@ declare("DETPU_NANGUARD", default="1",
 declare("DETPU_SGD_DEDUP", default="",
         doc="1 = force the sort/segment-sum dedup pass (K5) into "
             "SparseSGD, to compare it with the direct scatter")
+
+# checkpoints and fault injection (utils/checkpoint.py, utils/runtime.py)
+declare("DETPU_CKPT_RING", default="2",
+        doc="ring size of last-good checkpoints kept BEYOND <dir> and "
+            "<dir>.prev (save_train_state keep_last_n): each save archives "
+            "the displaced .prev under <dir>.ring/ and prunes to this many "
+            "entries. 0 = no ring")
+declare("DETPU_FAULT", default="",
+        doc="comma-separated fault injections: hang|slow|raise|die:<point> "
+            "(checkpoint_write, checkpoint_commit, checkpoint_read) and "
+            "corrupt@ckpt (flip a byte in each just-committed checkpoint's "
+            "first table file, for the CRC manifest and .prev fallback)")
+declare("DETPU_ON_MISMATCH", default="reshard",
+        doc="restore policy of the DLRM example when a checkpoint's "
+            "recorded sharding plan differs from the model's: 'reshard' "
+            "re-slices the logical tables under the current plan, 'error' "
+            "raises CheckpointMismatch")
 
 # access telemetry (analysis/telemetry.py; carried through train steps
 # built by parallel/trainer.py when enabled)

@@ -13,7 +13,12 @@ Tolerances, with their reasons:
     state, and only the MLP sums' order differs between jitted XLA and
     eager PyTorch; Adam's normalized steps could turn such a difference
     into up to lr per element, but over 20 steps none reaches the
-    ranking of the 8,192 eval samples).
+    ranking of the 8,192 eval samples);
+  - a 6-step ``optimizer="mixed"`` run (dense Adam + ``SparseSGD``) on
+    bfloat16 tables under a schedule (the promoted scatter, K18's plain
+    version): losses within 2e-5 and AUCs within 1e-5 (measured 3.8e-6
+    and 1.8e-6: a bf16 cotangent rounds after MLP sums in another order,
+    so an update element can differ by a bf16 ulp of the cotangent).
 """
 
 import functools
@@ -33,6 +38,7 @@ from distributed_embeddings_tpu.models.schedules import (
     warmup_poly_decay_schedule as jax_schedule)
 from distributed_embeddings_tpu.parallel import (
     DistributedEmbedding as JaxDE, SparseAdam as JaxSparseAdam,
+    SparseSGD as JaxSparseSGD,
     init_hybrid_state as jax_init, make_hybrid_eval_step as jax_eval_step)
 from distributed_embeddings_tpu.parallel.trainer import (
     make_hybrid_train_step as jax_train_step)
@@ -40,7 +46,7 @@ from distributed_embeddings_tpu.utils.metrics import binary_auc as jax_auc
 
 from distributed_embeddings_torch.models import (
     LearnableClicks, train_dlrm_convergence, warmup_poly_decay_schedule)
-from distributed_embeddings_torch.parallel import SparseAdam
+from distributed_embeddings_torch.parallel import SparseAdam, SparseSGD
 from distributed_embeddings_torch.utils import binary_auc
 from distributed_embeddings_torch.utils.convert import hybrid_state_from_jax
 
@@ -53,6 +59,7 @@ BATCH = 1024
 DIM = 8
 EVAL_N = 8192
 SEED = 0
+MIXED_SCHED = (0.5, 3, 4, 4)  # base lr, warmup, decay start, decay steps
 
 
 def test_learnable_clicks_sample_bitwise():
@@ -107,12 +114,15 @@ def test_convergence_run_rejects_what_is_not_ported():
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_run():
+def _jax_run(mixed_bf16=False, steps=STEPS):
     """The JAX package's program (``models/learnable.py:
-    train_dlrm_convergence``) for STEPS steps, keeping its initial state
-    (as numpy, before any donating step), its losses and its AUCs."""
+    train_dlrm_convergence``) for ``steps`` steps, keeping its initial
+    state (as numpy, before any donating step), its losses and its AUCs.
+    ``mixed_bf16``: ``optimizer="mixed"`` (dense Adam + ``SparseSGD``)
+    on bfloat16 tables under MIXED_SCHED."""
     task = JaxClicks(SIZES, num_numerical=4, seed=123, scale=1.2)
-    sched = jax_schedule(0.01, 20, 180, 60)
+    sched = jax_schedule(*(MIXED_SCHED if mixed_bf16 else
+                           (0.01, 20, 180, 60)))
     cfg = JaxConfig(table_sizes=SIZES, embedding_dim=DIM,
                     num_numerical_features=4, bottom_mlp_dims=[2 * DIM, DIM],
                     top_mlp_dims=[64, 32, 1])
@@ -122,13 +132,14 @@ def _jax_run():
     dp = dense.init(jax.random.key(SEED), jnp.zeros((2, 4), jnp.float32),
                     [jnp.zeros((2, DIM), jnp.float32) for _ in SIZES])
     tx = optax.adam(sched)
-    emb_opt = JaxSparseAdam()
+    emb_opt = JaxSparseSGD() if mixed_bf16 else JaxSparseAdam()
 
     def loss_fn(d, outs, batch_):
         num, y = batch_
         return jbce(dense.apply(d, num, outs), y)
 
-    state = jax_init(de, emb_opt, dp, tx, jax.random.key(SEED + 1))
+    state = jax_init(de, emb_opt, dp, tx, jax.random.key(SEED + 1),
+                     dtype=jnp.bfloat16 if mixed_bf16 else jnp.float32)
     init = (de.get_weights(state.emb_params),
             jax.tree.map(np.array, state))
     step = jax_train_step(de, loss_fn, tx, emb_opt, lr_schedule=sched,
@@ -145,12 +156,12 @@ def _jax_run():
     aucs = [auc(state)]
     rng = np.random.default_rng(SEED + 7)
     losses = []
-    for i in range(STEPS):
+    for i in range(steps):
         num, cats, y = task.sample(rng, BATCH)
         loss, state = step(state, [jnp.asarray(c) for c in cats],
                            (jnp.asarray(num), jnp.asarray(y)))
         losses.append(float(loss))
-        if i == STEPS // 3:
+        if i == steps // 3:
             aucs.append(auc(state))
     aucs.append(auc(state))
     return init, np.array(losses), aucs
@@ -180,3 +191,31 @@ def test_short_convergence_run_matches_jax():
     np.testing.assert_allclose(losses, jl, rtol=1e-6)
     np.testing.assert_allclose(aucs, jaucs, atol=1e-6, rtol=0)
     assert aucs[2] > aucs[0]  # it learns, even in 20 warmup steps
+
+
+def test_mixed_bf16_scheduled_run_matches_jax():
+    """``train_dlrm_convergence(optimizer="mixed", param_dtype=bfloat16,
+    lr_schedule=<schedule>)``, which raised until the promoted scatter
+    was ported, from the JAX program's initial state: 6 steps."""
+    steps = 6
+    (tables, host), jl, jaucs = _jax_run(True, steps)
+    task = LearnableClicks(SIZES, num_numerical=4, seed=123, scale=1.2)
+
+    def init_state(de, dense, emb_opt, tx):
+        assert isinstance(emb_opt, SparseSGD)
+        return hybrid_state_from_jax(
+            de, dense, tables, host.dense_params, host.step,
+            emb_opt_state=host.emb_opt_state,
+            dense_opt_state=host.dense_opt_state, dtype=torch.bfloat16,
+            device="cpu", emb_optimizer=emb_opt, dense_tx=tx)
+
+    losses = []
+    aucs = train_dlrm_convergence(
+        task, steps=steps, batch=BATCH, embedding_dim=DIM,
+        lr_schedule=warmup_poly_decay_schedule(*MIXED_SCHED),
+        param_dtype=torch.bfloat16, optimizer="mixed", eval_n=EVAL_N,
+        seed=SEED, device="cpu", init_state=init_state,
+        on_step=lambda i, loss, st: losses.append(float(loss)))
+    assert len(losses) == steps and np.isfinite(losses).all()
+    np.testing.assert_allclose(losses, jl, atol=2e-5, rtol=0)
+    np.testing.assert_allclose(aucs, jaucs, atol=1e-5, rtol=0)

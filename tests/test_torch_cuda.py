@@ -22,7 +22,10 @@ the Adam (K11) and momentum (K12) row kernels and the 3-step tiny-zoo
 runs card-vs-CPU state their bounds where they are tested. The
 streaming remap (K16) and commit (K17) are bit-exact (a NaN equals a
 NaN); the streaming train run card-vs-CPU holds the streaming state
-bitwise and the floats within 1e-4.
+bitwise and the floats within 1e-4. The promoted scatter (K18) and K3's
+dedup chain are bit-exact to their plain versions run on CPU copies (a
+NaN equals a NaN), and the DLRM example resumed from a checkpoint on the
+card equals its uninterrupted run bitwise.
 """
 
 import numpy as np
@@ -1405,3 +1408,114 @@ def test_streaming_train_step_on_the_card_matches_the_cpu(cuda_device):
                                to_np(sp.emb_opt_state["w16"]), rtol=1e-4,
                                atol=1e-5)
     assert float(ssk["admitted"][0, 0]) > 0 and int(ssk["steps"][0, 0]) == 3
+
+
+def _bf16_bits_equal(got: torch.Tensor, want: torch.Tensor, what: str):
+    """Bitwise bfloat16 equality, a NaN matching any NaN."""
+    g = got.detach().cpu().view(torch.int16).numpy().view(np.uint16)
+    w = want.detach().cpu().view(torch.int16).numpy().view(np.uint16)
+    gnan, wnan = (g & 0x7FFF) > 0x7F80, (w & 0x7FFF) > 0x7F80
+    np.testing.assert_array_equal(gnan, wnan, err_msg=what)
+    bad = (g != w) & ~gnan
+    assert not bad.any(), f"{what}: {int(bad.sum())} elements differ"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vals_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("width", [3, 16, 128, 200])
+def test_sgd_promoted_kernel_matches_plain(cuda_device, vals_dtype, width):
+    """K18 against its stream-order plain version (run on CPU copies:
+    the card's ``index_add_`` adds in no fixed order), bit-exact: Zipfian
+    duplicates with a row hit 5,000 times, negative ids, the sentinel,
+    ids past the slab, NaN and Inf, an empty stream, int32/int64 ids,
+    and update rows at an odd offset in memory."""
+    from distributed_embeddings_torch.ops import (
+        sgd_scatter_promoted, sgd_scatter_promoted_plain)
+
+    rng = np.random.default_rng(width)
+    R = 500
+    for ids_dtype in (torch.int32, torch.int64):
+        for n, hot in ((0, 0), (700, 0), (9000, 5000)):
+            ids = (rng.zipf(1.2, size=n) - 1) % R
+            ids[rng.permutation(n)[:hot]] = 7
+            ids = np.concatenate([ids, [-1, -R, R, R + 3, -R - 1, 10 ** 6]])
+            slab = rng.normal(size=(R, width)).astype(np.float32)
+            slab[ids[0] if n else 0, 0] = np.nan
+            vals = rng.normal(scale=3.0, size=(len(ids), width)).astype(
+                np.float32)
+            vals[1, -1] = np.inf
+            s = torch.from_numpy(slab).to(torch.bfloat16)
+            v = torch.from_numpy(vals).to(vals_dtype)
+            i = torch.from_numpy(ids).to(ids_dtype)
+            lr = torch.tensor(0.0173)
+            got = s.to(cuda_device)
+            before = sgd_scatter_promoted.launches
+            sgd_scatter_promoted(got, i.to(cuda_device), v.to(cuda_device),
+                                 lr.to(cuda_device))
+            torch.cuda.synchronize()
+            assert sgd_scatter_promoted.launches == before + 1
+            want = sgd_scatter_promoted_plain(s.clone(), i, v, lr)
+            _bf16_bits_equal(got, want, f"w{width} n{n} {ids_dtype}")
+            if width % 4 == 0 and n:
+                # update rows at an odd offset (a view into a larger buffer)
+                flat = torch.empty(v.numel() + 1, dtype=v.dtype,
+                                   device=cuda_device)
+                vm = flat[1:].view(v.shape)
+                vm.copy_(v.to(cuda_device))
+                got = s.to(cuda_device)
+                sgd_scatter_promoted(got, i.to(cuda_device), vm,
+                                     lr.to(cuda_device))
+                _bf16_bits_equal(got, want, f"w{width} n{n} misaligned")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lr", [0.37, "tensor"])
+@pytest.mark.parametrize("vals_dtype", [torch.float32, torch.bfloat16])
+def test_sgd_dedup_chain_kernel_matches_plain(cuda_device, lr, vals_dtype):
+    """K3's ``cast_vals=False`` chain (SparseSGD's DETPU_SGD_DEDUP
+    branch) into a bf16 slab on unique rows: bit-exact."""
+    rng = np.random.default_rng(3)
+    R, w = 400, 128
+    ids = np.concatenate([rng.permutation(R)[:300], [R]]).astype(np.int32)
+    slab = torch.from_numpy(rng.normal(size=(R, w)).astype(np.float32)
+                            ).to(torch.bfloat16)
+    vals = torch.from_numpy(rng.normal(size=(len(ids), w)).astype(
+        np.float32)).to(vals_dtype)
+    t_lr = torch.tensor(0.0123) if lr == "tensor" else lr
+    got = slab.to(cuda_device)
+    sgd_scatter(got, torch.from_numpy(ids).to(cuda_device),
+                vals.to(cuda_device),
+                t_lr.to(cuda_device) if lr == "tensor" else t_lr,
+                cast_vals=False)
+    want = sgd_scatter_plain(slab.clone(), torch.from_numpy(ids), vals, t_lr,
+                             cast_vals=False)
+    _bf16_bits_equal(got, want, f"dedup chain lr={lr}")
+
+
+@pytest.mark.cuda
+def test_dlrm_example_on_the_card(cuda_device, tmp_path):
+    """The example for 3 steps on the card with bf16 tables (K18 once a
+    step), and a save at step 2 + restore to step 3 bitwise equal to the
+    uninterrupted run."""
+    from distributed_embeddings_torch.examples import dlrm_main
+    from distributed_embeddings_torch.ops import sgd_scatter_promoted
+
+    args = ["--batch_size", "256", "--table_sizes", ",".join(["500"] * 10),
+            "--embedding_dim", "16", "--bottom_mlp_dims", "32,16",
+            "--top_mlp_dims", "32,1", "--num_numerical_features", "4",
+            "--param_dtype", "bfloat16", "--eval_batches", "1",
+            "--checkpoint_out", str(tmp_path / "emb")]
+    before = sgd_scatter_promoted.launches
+    ref = dlrm_main.main(args + ["--num_batches", "3"])
+    assert sgd_scatter_promoted.launches == before + 3
+    assert np.isfinite(ref.losses).all() and ref.auc is not None
+    ck = str(tmp_path / "ck")
+    first = dlrm_main.main(args + ["--num_batches", "2", "--save_state", ck])
+    second = dlrm_main.main(args + ["--num_batches", "3",
+                                    "--restore_state", ck])
+    assert first.losses + second.losses == ref.losses
+    for k, v in ref.state.emb_params.items():
+        assert torch.equal(v, second.state.emb_params[k])
+    for a, b in zip(ref.state.dense_params.parameters(),
+                    second.state.dense_params.parameters()):
+        assert torch.equal(a, b)

@@ -3,8 +3,9 @@
 AST-scans every module of ``distributed_embeddings_torch/`` and
 ``chip_smoke.py``:
 
-* no import of ``jax``, ``flax``, ``optax``, ``distributed_embeddings_tpu``
-  or ``tools`` (the port keeps its own copy of what it needs);
+* no import of ``jax``, ``flax``, ``optax``, ``msgpack``, ``ml_dtypes``,
+  ``absl``, ``distributed_embeddings_tpu`` or ``tools`` (the port keeps
+  its own copy of what it needs; the card's machine has none of them);
 * no ``try``/``except`` whose handler calls a kernel's plain version
   (``*_plain``): a CUDA tensor launches the kernel or raises.
 
@@ -19,7 +20,8 @@ import pathlib
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "flax", "optax", "distributed_embeddings_tpu", "tools")
+FORBIDDEN = ("jax", "flax", "optax", "msgpack", "ml_dtypes", "absl",
+             "distributed_embeddings_tpu", "tools")
 
 
 def _sources():
@@ -79,7 +81,12 @@ def test_sources_exist():
             "distributed_embeddings_torch/analysis/telemetry.py",
             "distributed_embeddings_torch/ops/sketch.py",
             "distributed_embeddings_torch/ops/streaming.py",
-            "distributed_embeddings_torch/parallel/streaming.py"} <= scanned
+            "distributed_embeddings_torch/parallel/streaming.py",
+            "distributed_embeddings_torch/utils/checkpoint.py",
+            "distributed_embeddings_torch/utils/msgpack_state.py",
+            "distributed_embeddings_torch/utils/runtime.py",
+            "distributed_embeddings_torch/utils/data.py",
+            "distributed_embeddings_torch/examples/dlrm_main.py"} <= scanned
 
 
 def test_every_kernel_source_is_bound():
@@ -91,7 +98,7 @@ def test_every_kernel_source_is_bound():
                            ).glob("*.cu")}
     assert cu == set(_kernels.SIGNATURES)
     assert {"csr", "ragged_combine", "ragged_grad", "adam",
-            "momentum", "sketch", "streaming"} <= cu
+            "momentum", "sketch", "streaming", "sgd_promoted"} <= cu
 
 
 def test_library_name_follows_included_headers(tmp_path, monkeypatch):
@@ -186,6 +193,14 @@ def test_port_module_is_standalone(path):
     "    except RuntimeError:\n        return cms_update_plain(c, i, v)\n",
     "def f(*a):\n    try:\n        return ops.topk_merge(*a)\n"
     "    except Exception:\n        return topk_merge_plain(*a)\n",
+    "import msgpack\n",
+    "from flax import serialization\n",
+    "import ml_dtypes\n",
+    "from absl import flags\n",
+    "from distributed_embeddings_tpu.utils import checkpoint\n",
+    "def f(*a):\n    try:\n        return sgd_scatter_promoted(*a)\n"
+    "    except RuntimeError:\n"
+    "        return sgd_scatter_promoted_plain(*a)\n",
 ])
 def test_checker_catches_seeded_violations(bad):
     assert violations(bad)

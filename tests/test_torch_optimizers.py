@@ -134,12 +134,23 @@ def test_init_matches_jax():
 
 
 def test_tensor_lr_into_bfloat16_slab_raises():
-    """JAX promotes a bf16 slab to f32 for an f32-lr scatter; the port
-    does not carry that chain yet and says so."""
-    with pytest.raises(NotImplementedError, match="B2"):
-        SparseSGD().apply_rows(torch.zeros(4, 8, dtype=torch.bfloat16), (),
-                               torch.tensor([1], dtype=torch.int32),
-                               torch.ones(1, 8), torch.tensor(0.1))
+    """JAX promotes a bf16 slab to f32 for an f32-lr scatter. That call
+    raised until the promoted chain (K18) was ported; it now gives JAX's
+    bits, duplicates included (``tests/test_torch_promoted_scatter.py``
+    holds it in full), and still raises for a device it cannot run on."""
+    rng = np.random.default_rng(11)
+    R, w = 6, 8
+    slab = rng.normal(size=(R, w)).astype(np.float32)
+    ids = np.array([1, 1, 4, -1, 1, R], np.int32)
+    vals = rng.normal(size=(len(ids), w)).astype(np.float32)
+    want, got = _both(slab, ids, vals, np.float32(0.1), "bfloat16",
+                      "float32")
+    np.testing.assert_array_equal(got, want)
+    with pytest.raises(ValueError, match="unsupported device"):
+        SparseSGD().apply_rows(
+            torch.empty(4, 8, dtype=torch.bfloat16, device="meta"), (),
+            torch.tensor([1], dtype=torch.int32, device="meta"),
+            torch.empty(1, 8, device="meta"), torch.tensor(0.1))
 
 
 def test_sgd_dedup_env_raises(monkeypatch):
