@@ -187,6 +187,52 @@ Phases (any failure raises and the script exits non-zero):
    d. a NaN batch under the guard on A's final state: the bf16 slab, the
       dense params and the schedule's count bitwise unchanged, the step
       advanced.
+14. world 8, after freeing the example state: the DLRM hybrid step at
+    world 8 on this one card, eight rank processes on ``cuda:0`` joined
+    in one gloo group (a ``file://`` store), every exchange staged
+    through host memory (``parallel/bootstrap.py``). The exchange
+    packing is K19 (id blocks) and K20 (column blocks), both in
+    ``csrc/exchange_pack.cu``; every world-1 step above also packs its
+    id block (K19) and, in training, its cotangents (K20) once:
+   a. K19/K20 against their plain versions on the card, bit-exact, at
+      the edge cases (worlds 1 and 8, multi-slot and column-sliced
+      instances, ragged weighted blocks, int32/int64 ids, every
+      float32/bfloat16 pair, NaN and Inf bits, unaligned copies, 1,300
+      copies in three launches) and at the slice's rank shapes (ranks 0
+      and 7), the id block and the cotangent block also against the
+      reference concatenation of cells;
+   d. (run here, in this process alone: eight contending ranks would
+      distort kernel times) K19 and K20 timed at rank 0's shapes and at
+      the world-1 DLRM step's b=65536 beside their plain versions, one
+      ``torch.cat`` of the same parts and their byte bounds, with each
+      call's host time; and the world-1 DLRM's embedding forward and
+      sparse apply stages (capped tables, b=65536) with K19/K20 and with
+      the reference concatenation of cells (what the step ran before),
+      in turns;
+   b. the 26 tables capped at 20,000 rows, ``column_slice_threshold``
+      2,400,000 (the capped tables slice), fp32, b=4096 global: 5
+      world-8 steps and an eval batch against 5 world-1 steps in this
+      process from the same tables and dense params: losses, dense
+      params and eval predictions within 1e-5, slab values within 1e-6
+      and the slabs' updates within 1e-3 of world 1's in relative L2
+      norm (atomic add order and five steps of fp32 drift: 3.5e-8 at
+      most on the CPU); every rank's
+      K19/K20 calls bit-exact to their plain versions on the step's own
+      inputs; a control run that drops source rank 3's cotangent block
+      on every rank must fail the update bound;
+   c. the Criteo-1TB tables at width 128, ``comm_balanced``,
+      ``column_slice_threshold`` 1.4e9 (tools/_profcommon.py), bf16
+      tables and compute, ``SparseSGD`` + SGD at 0.005, guard on, global
+      batch 65536 (8192 a rank), Zipfian ids: one checked step (K19/K20
+      bit-exact on every rank, each width slab's touched rows against
+      the plain scatter), a NaN batch on rank 5 only (every rank's
+      touched rows and dense params bitwise unchanged, the step
+      advanced), 2 warmup + 10 timed steps with the launches counted
+      (a rank a step: K1 2, K19 1, K20 3, K2 1, K4 1, K3 2), and a
+      per-stage split (id exchange, lookup, output exchange, dense,
+      all-reduce, cotangent exchange, apply; host and device ms). Its
+      samples/s are those of 8 ranks time-sharing one H100 over gloo:
+      not a multi-GPU and not an NCCL number.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Run from the root of a checkout:
@@ -222,8 +268,11 @@ TRAIN_STEPS = 20
 SMALL_BATCH = 4096
 SMALL_STEPS = 5
 SMALL_ROWS = 20000             # table-size cap of the small training checks
+# every world-1 train step packs its id block (K19) and its cotangents
+# (K20) once
+EXCHANGE_KERNELS = ("pack_ids", "pack_columns")
 DLRM_KERNELS = ("gather_combine", "dot_interact_fwd", "dot_interact_bwd",
-                "sgd_scatter")
+                "sgd_scatter") + EXCHANGE_KERNELS
 F32_OPS_PER_S = 67e12          # H100 SXM data sheet, fp32 (no tensor cores)
 ZOO_LR = 0.01                  # both optimizers' lr in bench.py:run_tiny_zoo
 ZOO_BATCH = 65536
@@ -494,11 +543,12 @@ def phase_serve(torch, de, state):
         check(p.shape == (sent[r.rid].n,), f"rid {r.rid}: shape {p.shape}")
         check(np.isfinite(p).all() and (p > 0).all() and (p < 1).all(),
               f"rid {r.rid}: predictions outside (0, 1): {p}")
-    for name in ("gather_combine", "dot_interact_fwd"):
+    served_kernels = ("gather_combine", "dot_interact_fwd", "pack_ids")
+    for name in served_kernels:
         check(launches[name] > 0, f"{name} never launched on the served "
               "path")
     for name in launches:
-        if name not in ("gather_combine", "dot_interact_fwd"):
+        if name not in served_kernels:
             check(launches[name] == 0, f"{name} launched on the served "
                   "path")
     by_rid = {r.rid: r for r in results}
@@ -512,7 +562,7 @@ def phase_serve(torch, de, state):
     log(f"serve: sampled requests match the plain functions, max abs err "
         f"{worst} (atol 2e-2: bf16 MLP products round at other places)")
     s = rt.stats()
-    for name in ("gather_combine", "dot_interact_fwd"):
+    for name in served_kernels:
         check(launches[name] == s["flushes"], f"{name}: {launches[name]} "
               f"launches for {s['flushes']} flushes (expected one each)")
     log("serve stats: " + json.dumps({k: s[k] for k in (
@@ -534,9 +584,10 @@ def kernel_fns():
     from distributed_embeddings_torch.ops import (
         adagrad_dense, adagrad_rows, adam_rows, cms_query, cms_update,
         commit_rows, dedup_sparse_grad, dot_interact_bwd, dot_interact_fwd,
-        gather_combine, lengths_to_splits, momentum_rows, ragged_combine,
-        ragged_grad, ragged_row_ids, remap_stage, row_to_split, sgd_scatter,
-        sgd_scatter_promoted, topk_merge, topk_pool)
+        gather_combine, lengths_to_splits, momentum_rows, pack_columns,
+        pack_ids, ragged_combine, ragged_grad, ragged_row_ids, remap_stage,
+        row_to_split, sgd_scatter, sgd_scatter_promoted, topk_merge,
+        topk_pool)
 
     return {"gather_combine": gather_combine,
             "dot_interact_fwd": dot_interact_fwd,
@@ -550,7 +601,8 @@ def kernel_fns():
             "cms_update": cms_update, "cms_query": cms_query,
             "topk_pool": topk_pool, "topk_merge": topk_merge,
             "remap_stage": remap_stage, "commit_rows": commit_rows,
-            "sgd_scatter_promoted": sgd_scatter_promoted}
+            "sgd_scatter_promoted": sgd_scatter_promoted,
+            "pack_ids": pack_ids, "pack_columns": pack_columns}
 
 
 def zero_counts():
@@ -569,12 +621,12 @@ def plain_kernels(names=None):
     run of the small training checks)."""
     from distributed_embeddings_torch.analysis import telemetry
     from distributed_embeddings_torch.ops import (
-        adagrad, adam, gather_combine_plain, interaction,
+        adagrad, adam, exchange_pack, gather_combine_plain, interaction,
         lengths_to_splits_plain, momentum, ragged_combine_plain,
         row_to_split_plain, scatter_add, sketch, sparse_grad)
     from distributed_embeddings_torch.ops import streaming as sops
     from distributed_embeddings_torch.parallel import (
-        apply, dist_embedding, lookup, optimizers, streaming)
+        apply, dist_embedding, exchange, lookup, optimizers, streaming)
 
     swaps = [(lookup, "gather_combine", gather_combine_plain),
              (lookup, "ragged_combine", ragged_combine_plain),
@@ -600,7 +652,9 @@ def plain_kernels(names=None):
              (telemetry, "topk_pool", sketch.topk_pool_plain),
              (telemetry, "topk_merge", sketch.topk_merge_plain),
              (streaming, "remap_stage", sops.remap_stage_plain),
-             (streaming, "commit_rows", sops.commit_rows_plain)]
+             (streaming, "commit_rows", sops.commit_rows_plain),
+             (exchange, "pack_ids", exchange_pack.pack_ids_plain),
+             (exchange, "pack_columns", exchange_pack.pack_columns_plain)]
     if names is not None:
         swaps = [sw for sw in swaps if sw[1] in names]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
@@ -1144,7 +1198,7 @@ def zoo_expected(de, opt, cfg, b):
     group; per slab K3 + K7 (dense-apply) or K5 + K6 (sparse)."""
     plan = next(iter(de._plan_cache.values()))
     want = {name: 0 for name in kernel_fns()}
-    want["gather_combine"] = len(plan.groups)
+    want.update(gather_combine=len(plan.groups), pack_ids=1, pack_columns=1)
     regimes = {}
     for w, n in zoo_streams(cfg, b).items():
         dense = opt.dense_apply(de.rows_cap[w], n)
@@ -1944,7 +1998,8 @@ def ragged_per_step(groups):
     want = {name: 0 for name in kernel_fns()}
     want.update(ragged_combine=groups, ragged_grad=groups,
                 lengths_to_splits=2 * groups, sgd_scatter=1,
-                dot_interact_fwd=1, dot_interact_bwd=1)
+                dot_interact_fwd=1, dot_interact_bwd=1, pack_ids=1,
+                pack_columns=1)
     return want
 
 
@@ -3143,7 +3198,7 @@ def row_expected(de, name):
     K1 once per plan group, K5 and K11/K12 once per width slab."""
     plan = next(iter(de._plan_cache.values()))
     want = {k: 0 for k in kernel_fns()}
-    want["gather_combine"] = len(plan.groups)
+    want.update(gather_combine=len(plan.groups), pack_ids=1, pack_columns=1)
     want["dedup_sparse_grad"] = len(de.widths)
     want[ROW_SITES[name]] = len(de.widths)
     return want
@@ -3432,7 +3487,8 @@ def telemetry_per_step(launches):
     K1, K2, K4 and K3 once, K13, K14 (the pool) and K15 once."""
     want = {name: 0 for name in kernel_fns()}
     want.update(gather_combine=1, dot_interact_fwd=1, dot_interact_bwd=1,
-                sgd_scatter=1, cms_update=1, topk_pool=1, topk_merge=1)
+                sgd_scatter=1, cms_update=1, topk_pool=1, topk_merge=1,
+                pack_ids=1, pack_columns=1)
     return {k: v * launches for k, v in want.items()}
 
 
@@ -4304,7 +4360,7 @@ def dlrm_stream_per_step(steps=1):
     want.update(gather_combine=steps, dot_interact_fwd=steps,
                 dot_interact_bwd=steps, dedup_sparse_grad=steps,
                 adagrad_rows=steps, remap_stage=steps, cms_update=steps,
-                commit_rows=steps)
+                commit_rows=steps, pack_ids=steps, pack_columns=steps)
     return want
 
 
@@ -5086,6 +5142,8 @@ def phase_example(torch, promoted_1tb):
               and launches["dot_interact_bwd"] == EXAMPLE_STEPS
               and launches["gather_combine"] >= EXAMPLE_STEPS
               and launches["dot_interact_fwd"] >= EXAMPLE_STEPS
+              and launches["pack_ids"] >= EXAMPLE_STEPS
+              and launches["pack_columns"] == EXAMPLE_STEPS
               and launches["sgd_scatter"] == 0,
               f"example run A launches {launches}")
         served = a.serve_results
@@ -5148,6 +5206,1059 @@ def phase_example(torch, promoted_1tb):
     metrics["phase_s"] = time.perf_counter() - t_phase
     return ({"example": launches}, errs, [case, promoted_1tb], metrics)
 
+
+
+# ------------------------------------------------------- world 8 (phase 14)
+
+W8 = 8                         # the JAX multichip dryrun's world
+W8_BATCH = 65536               # global: 8192 a rank
+W8_CST = 1_400_000_000         # tools/_profcommon.py:57-60 (CRITEO1TB_COL_SLICE)
+W8_SMALL_CST = 2_400_000       # slices the 20,000-row tables of width 128
+W8_SMALL_BATCH = 4096
+W8_SMALL_LR = 0.1
+W8_STEPS = 10
+W8_WARMUP = 2
+W8_STAGE_STEPS = 3
+W8_NAN_RANK = 5
+W8_DROP_RANK = 3               # the control drops this source's cotangents
+W8_TIMEOUT_S = 600
+W8_STAGES = ("id_exchange", "lookup", "output_exchange", "dense",
+             "all_reduce", "cotangent_exchange", "apply")
+
+
+def w8_per_step(groups, widths, steps=1):
+    """Launches of ``steps`` world-8 DLRM steps on one rank: K1 once per
+    plan group, K3 once per width slab, K19 once, K20 three times (the
+    lookup rows, the unpack, the cotangent pack), K2 and K4 once."""
+    want = {name: 0 for name in kernel_fns()}
+    want.update(gather_combine=groups, sgd_scatter=widths, pack_ids=1,
+                pack_columns=3, dot_interact_fwd=1, dot_interact_bwd=1)
+    return {k: v * steps for k, v in want.items()}
+
+
+def w8_bits(torch, t):
+    """A float tensor's bits (NaN equals NaN), an int tensor itself."""
+    if not t.is_floating_point():
+        return t
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def bits_err(torch, got, want, what):
+    """Kernel against plain, compared as bits (NaN equals NaN): fails
+    unless every element's bits agree; returns the largest |got - want|
+    over the elements whose bits differ (inf where one side is NaN), 0.0
+    when none do."""
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{what}: {got.dtype} {tuple(got.shape)} != {want.dtype} "
+          f"{tuple(want.shape)}")
+    diff = w8_bits(torch, got) != w8_bits(torch, want)
+    err = 0.0
+    if bool(diff.any()):
+        d = (got[diff].double() - want[diff].double()).abs()
+        err = float(torch.nan_to_num(d, nan=float("inf")).max())
+    check(err == 0.0 and not bool(diff.any()),
+          f"{what}: kernel differs from plain (max err {err})")
+    return err
+
+
+@contextlib.contextmanager
+def pack_checks(torch):
+    """Route the exchange layer's K19/K20 calls through checkers: each
+    launch's output must equal the plain version's on the same inputs,
+    bitwise. Yields the number of checked calls by kernel, and under
+    ``"err"`` the largest difference each kernel's checks measured."""
+    from distributed_embeddings_torch.ops import exchange_pack as xp
+    from distributed_embeddings_torch.parallel import exchange
+
+    real_ids, real_cols = exchange.pack_ids, exchange.pack_columns
+    n = {"pack_ids": 0, "pack_columns": 0,
+         "err": {"pack_ids": 0.0, "pack_columns": 0.0}}
+
+    def ids(plan, srcs, out):
+        got = real_ids(plan, srcs, out)
+        want = xp.pack_ids_plain(plan, srcs, torch.empty_like(out))
+        n["err"]["pack_ids"] = max(n["err"]["pack_ids"], bits_err(
+            torch, got, want, "pack_ids on the step's inputs"))
+        n["pack_ids"] += 1
+        return got
+
+    def cols(plan, srcs, dsts):
+        got = real_cols(plan, srcs, dsts)
+        want = xp.pack_columns_plain(plan, srcs,
+                                     [torch.empty_like(d) for d in dsts])
+        for a, b in zip(got, want):
+            n["err"]["pack_columns"] = max(n["err"]["pack_columns"], bits_err(
+                torch, a, b, "pack_columns on the step's inputs"))
+        n["pack_columns"] += 1
+        return got
+
+    exchange.pack_ids, exchange.pack_columns = ids, cols
+    try:
+        yield n
+    finally:
+        exchange.pack_ids, exchange.pack_columns = real_ids, real_cols
+
+
+def w8_model(torch, sizes, cst, compute_dtype):
+    from distributed_embeddings_torch.models import DLRMConfig
+    from distributed_embeddings_torch.parallel import DistributedEmbedding
+
+    cfg = DLRMConfig(table_sizes=sizes, embedding_dim=128,
+                     num_numerical_features=13,
+                     bottom_mlp_dims=(512, 256, 128),
+                     top_mlp_dims=(1024, 1024, 512, 256, 1),
+                     compute_dtype=compute_dtype)
+    de = DistributedEmbedding(cfg.embedding_configs(), world_size=W8,
+                              strategy="comm_balanced",
+                              column_slice_threshold=cst,
+                              compute_dtype=compute_dtype)
+    return cfg, de
+
+
+def w8_small_sizes():
+    return [min(s, SMALL_ROWS) for s in CRITEO_1TB_SIZES]
+
+
+def w8_small_batch(seed, b=W8_SMALL_BATCH):
+    """A global batch of the small check as numpy: Zipfian ids a table,
+    N(0, 1) numerical features, 0/1 labels."""
+    from distributed_embeddings_torch.utils.data import power_law_ids
+
+    rng = np.random.default_rng(seed)
+    cats = [power_law_ids(rng, v, (b,)).astype(np.int32)
+            for v in w8_small_sizes()]
+    return (cats, rng.normal(size=(b, 13)).astype(np.float32),
+            (rng.random(b) < 0.25).astype(np.float32))
+
+
+def w8_small_state(torch, de, dense, tmp):
+    from distributed_embeddings_torch.parallel import (SGD, HybridTrainState,
+                                                       SparseSGD)
+
+    dense.load_state_dict(torch.load(os.path.join(tmp, "dense.pt")))
+    params = de.set_weights([os.path.join(tmp, f"table_{t}.npy")
+                             for t in range(len(CRITEO_1TB_SIZES))],
+                            device="cuda")
+    return HybridTrainState(
+        emb_params=params, emb_opt_state=SparseSGD().init(params),
+        dense_params=dense,
+        dense_opt_state=SGD(W8_SMALL_LR).init(list(dense.parameters())),
+        step=torch.zeros((), dtype=torch.int32, device="cuda"))
+
+
+def w8_small_run(torch, de, st, shard):
+    """SMALL_STEPS steps and an eval batch (``shard`` picks this
+    process's rows of a global numpy batch); returns losses, state and
+    eval predictions."""
+    from distributed_embeddings_torch.parallel import (
+        SGD, SparseSGD, make_hybrid_eval_step, make_hybrid_train_step)
+
+    step = make_hybrid_train_step(de, loss_fn, SGD(W8_SMALL_LR), SparseSGD(),
+                                  lr_schedule=W8_SMALL_LR, nan_guard=True)
+    losses = []
+    for k in range(SMALL_STEPS):
+        cats, num, lab = shard(w8_small_batch(SEED + 500 + k))
+        loss, st = step(st, cats, (num, lab))
+        losses.append(float(loss))
+    cats, num, _ = shard(w8_small_batch(SEED + 599))
+    pred = make_hybrid_eval_step(
+        de, lambda m, outs, n: torch.sigmoid(m(n, outs).float()))(
+        st, cats, num)
+    return losses, st, pred
+
+
+def w8_to_card(torch, batch, rows=None):
+    """A numpy global batch on the card, all rows or ``rows``."""
+    cats, num, lab = batch
+    sl = slice(None) if rows is None else rows
+    return ([torch.from_numpy(c[sl].copy()).cuda() for c in cats],
+            torch.from_numpy(num[sl].copy()).cuda(),
+            torch.from_numpy(lab[sl].copy()).cuda())
+
+
+def w8_small_reference(torch, tmp):
+    """14b's world-1 side: the small tables and dense params written to
+    ``tmp`` (the ranks load them), then SMALL_STEPS world-1 steps on the
+    card. Returns the losses, tables, dense params, eval predictions and
+    the number of ids that hit each table row."""
+    from distributed_embeddings_torch.models import DLRMConfig, DLRMDense
+    from distributed_embeddings_torch.parallel import DistributedEmbedding
+
+    sizes = w8_small_sizes()
+    rng = np.random.default_rng(SEED + 501)
+    for t, v in enumerate(sizes):
+        np.save(os.path.join(tmp, f"table_{t}.npy"),
+                rng.uniform(-0.05, 0.05, size=(v, 128)).astype(np.float32))
+    cfg = DLRMConfig(table_sizes=sizes, embedding_dim=128,
+                     num_numerical_features=13,
+                     bottom_mlp_dims=(512, 256, 128),
+                     top_mlp_dims=(1024, 1024, 512, 256, 1))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 502)
+    dense = DLRMDense(cfg, device="cuda", generator=gen)
+    torch.save(dense.state_dict(), os.path.join(tmp, "dense.pt"))
+    de = DistributedEmbedding(cfg.embedding_configs(), world_size=1)
+    st = w8_small_state(torch, de, dense, tmp)
+    losses, st, pred = w8_small_run(torch, de, st,
+                                    lambda b: w8_to_card(torch, b))
+    hits = [np.zeros(v, np.int64) for v in sizes]
+    for k in range(SMALL_STEPS):
+        for h, c in zip(hits, w8_small_batch(SEED + 500 + k)[0]):
+            np.add.at(h, c, 1)
+    return {"losses": losses, "tables": de.get_weights(st.emb_params),
+            "dense": [p.detach().cpu().numpy()
+                      for p in st.dense_params.parameters()],
+            "pred": pred.float().cpu().numpy(), "hits": hits}
+
+
+def w8_rank_small(torch, rank, tmp):
+    """14b on one rank: the small check, then its control (source rank
+    W8_DROP_RANK's cotangent block dropped on every rank); rank 0 writes
+    both runs' tables to ``tmp``."""
+    from distributed_embeddings_torch.models import DLRMDense
+    from distributed_embeddings_torch.parallel import bootstrap, exchange
+
+    cfg, de = w8_model(torch, w8_small_sizes(), W8_SMALL_CST, None)
+    b = W8_SMALL_BATCH // W8
+    rows = slice(rank * b, (rank + 1) * b)
+    out = {"slices": sum(map(len, de.strategy.table_ids_list))}
+    for run in ("main", "control"):
+        dense = DLRMDense(cfg, device="cuda")
+        st = w8_small_state(torch, de, dense, tmp)
+        real = exchange.exchange_grads
+
+        def dropped(de_, packed):
+            got = real(de_, packed)
+            got[W8_DROP_RANK].zero_()
+            return got
+
+        if run == "control":
+            exchange.exchange_grads = dropped
+        try:
+            with pack_checks(torch) as n:
+                losses, st, pred = w8_small_run(
+                    torch, de, st, lambda bt: w8_to_card(torch, bt, rows))
+        finally:
+            exchange.exchange_grads = real
+        tables = de.get_weights(st.emb_params, all_ranks=False)
+        if rank == 0:
+            for t, a in enumerate(tables):
+                np.save(os.path.join(tmp, f"w8_{run}_{t}.npy"), a)
+        out[run] = {"losses": losses, "checked": dict(n),
+                    "dense": [p.detach().cpu().numpy()
+                              for p in st.dense_params.parameters()],
+                    "pred": bootstrap.to_host(pred)}
+        del st, dense, tables
+    torch.cuda.empty_cache()
+    return out
+
+
+def w8_recording_sgd(torch):
+    from distributed_embeddings_torch.parallel import SparseSGD
+
+    class RecordingSGD(SparseSGD):
+        """SparseSGD that snapshots, per width slab, the rows its
+        stream touches before it updates them."""
+
+        seen = {}
+
+        def apply_rows(self, slab, state, ids, vals, lr):
+            rows = slab.shape[0]
+            gid = ids.long()
+            gid = torch.where(gid < 0, gid + rows, gid)
+            keep = (gid >= 0) & (gid < rows)
+            uniq, inv = torch.unique(gid[keep], return_inverse=True)
+            self.seen[slab.shape[1]] = dict(
+                slab=slab, uniq=uniq, inv=inv, vals=vals[keep], lr=lr,
+                before=slab[uniq].clone())
+            return super().apply_rows(slab, state, ids, vals, lr)
+
+    return RecordingSGD()
+
+
+def w8_scatter_check(torch, seen):
+    """Each width slab's touched rows against the plain scatter of the
+    step's stream applied to their snapshot: rows hit once bit-exact,
+    rows hit k times within k bf16 ulps (both add with atomics)."""
+    from distributed_embeddings_torch.ops import scatter_add
+
+    worst = 0.0
+    for w, r in sorted(seen.items()):
+        want = r["before"].clone()
+        scatter_add.sgd_scatter_plain(want, r["inv"], r["vals"], r["lr"])
+        got = r["slab"][r["uniq"]]
+        k = torch.bincount(r["inv"], minlength=len(r["uniq"])).float()[:, None]
+        mag = torch.zeros_like(want, dtype=torch.float32).index_add_(
+            0, r["inv"], r["vals"].float().abs() * float(r["lr"]))
+        err = (got.float() - want.float()).abs()
+        single = int(torch.count_nonzero(err[k[:, 0] == 1]))
+        bound = k * ulp(torch, r["before"].float().abs() + mag, got.dtype)
+        multi = int(torch.count_nonzero(err > bound))
+        check(single == 0 and multi == 0, f"world 8 w{w}: {single} values of "
+              f"rows hit once differ from the plain scatter, {multi} beyond "
+              f"k ulps (max err {float(err.max())})")
+        worst = max(worst, float(err.max()))
+    return worst
+
+
+def w8_touched_recorder(torch):
+    """Wrap ``apply.apply_width_streams`` to snapshot, before the update,
+    the slab rows the step's streams name (the guard's skip routes the
+    ids to the sentinel inside it)."""
+    from distributed_embeddings_torch.parallel import apply
+
+    real = apply.apply_width_streams
+    snaps = {}
+
+    def wrapper(de, params, opt_state, per_width, *a, **kw):
+        for k, tris in per_width.items():
+            ids = torch.cat([t[0].reshape(-1).long() for t in tris])
+            w = tris[0][2]
+            uniq = torch.unique(ids[(ids >= 0) & (ids < de.rows_cap[w])])
+            snaps[k] = (params[k], uniq, params[k][uniq].clone())
+        return real(de, params, opt_state, per_width, *a, **kw)
+
+    return real, wrapper, snaps
+
+
+@contextlib.contextmanager
+def w8_stage_marks(torch):
+    """Mark the stage bounds of the real world-8 step (the trainer's
+    own ``make_hybrid_train_step``): the exchange layer's three
+    all-to-alls, the unpack and ``grads.mean_flat`` are wrapped so that
+    each bound records an event and synchronizes. Yields ``mark`` (call
+    it before and after the step) and the list of ``(host s, event)``
+    marks; the stages are W8_STAGES, in order."""
+    from distributed_embeddings_torch.parallel import exchange, grads
+
+    marks = []
+
+    def mark():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), ev))
+
+    def wrap(fn, before, after):
+        def wrapper(*a, **kw):
+            if before:
+                mark()
+            out = fn(*a, **kw)
+            if after:
+                mark()
+            return out
+        return wrapper
+
+    # step start | id_exchange | lookup | output_exchange (with the
+    # unpack) | dense | all_reduce | cotangent_exchange (with the pack) |
+    # apply (with the dense update) | step end
+    real = {(exchange, "exchange_ids"): (False, True),
+            (exchange, "exchange_outputs"): (True, False),
+            (exchange, "unpack_outputs"): (False, True),
+            (grads, "mean_flat"): (True, True),
+            (exchange, "exchange_grads"): (False, True)}
+    saved = {k: getattr(*k) for k in real}
+    for (mod, name), (before, after) in real.items():
+        setattr(mod, name, wrap(saved[(mod, name)], before, after))
+    try:
+        yield mark, marks
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+
+
+def w8_staged_steps(torch, step, st, batches, steps):
+    """``steps`` real world-8 steps (after one unmarked) with their stage
+    bounds marked: per stage the medians of host ms and device ms."""
+    split = []
+    with w8_stage_marks(torch) as (mark, marks):
+        for k in range(1 + steps):
+            marks.clear()
+            mark()
+            _, st = step(st, *batches[k % len(batches)])
+            mark()
+            check(len(marks) == len(W8_STAGES) + 1, f"world 8 stage split: "
+                  f"{len(marks)} marks a step, expected "
+                  f"{len(W8_STAGES) + 1}")
+            if k:
+                split.append({name: (
+                    (marks[i + 1][0] - marks[i][0]) * 1e3,
+                    marks[i][1].elapsed_time(marks[i + 1][1]))
+                    for i, name in enumerate(W8_STAGES)})
+    return st, {name: {"host_ms": float(np.median([s[name][0] for s in split])),
+                       "device_ms": float(np.median([s[name][1]
+                                                     for s in split]))}
+                for name in W8_STAGES}
+
+
+def w8_rank_full(torch, rank):
+    """14c on one rank: the Criteo-1TB world-8 step (see main's
+    docstring, phase 14c)."""
+    from distributed_embeddings_torch.models import DLRMDense
+    from distributed_embeddings_torch.parallel import (
+        SGD, SparseSGD, apply, init_hybrid_state, make_hybrid_train_step)
+
+    cfg, de = w8_model(torch, CRITEO_1TB_SIZES, W8_CST, torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    dense = DLRMDense(cfg, device="cuda", generator=gen)
+    st = init_hybrid_state(de, SparseSGD(), dense, SGD(TRAIN_LR),
+                           generator=gen, dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    out = {"slab_bytes": sum(v.numel() * v.element_size()
+                             for v in st.emb_params.values()),
+           "instances": len(de.strategy.table_ids_list[rank])}
+    b = W8_BATCH // W8
+    batches = [train_batch(torch, CRITEO_1TB_SIZES, b,
+                           seed=SEED + 400 + 16 * k + rank)
+               for k in range(4)]
+    # c1: one checked step
+    rec = w8_recording_sgd(torch)
+    step = make_hybrid_train_step(de, loss_fn, SGD(TRAIN_LR), rec,
+                                  lr_schedule=TRAIN_LR, nan_guard=True)
+    zero_counts()
+    with pack_checks(torch) as n:
+        loss, st = step(st, *batches[0])
+        torch.cuda.synchronize()
+    counts = read_counts()
+    plan = next(iter(de._plan_cache.values()))
+    want = w8_per_step(len(plan.groups), len(de.widths))
+    check(counts == want, f"world 8 rank {rank} checked step: launches "
+          f"{counts}, expected {want}")
+    check(bool(torch.isfinite(loss)), f"world 8 rank {rank}: loss {loss}")
+    out["checked"] = dict(n)
+    out["scatter_err"] = w8_scatter_check(torch, rec.seen)
+    out["plan"] = {"groups": [(g.kind, g.width, g.hot, g.n)
+                              for g in plan.groups],
+                   "l_max": plan.l_max, "s_max": plan.s_max,
+                   "rows_cap": dict(de.rows_cap)}
+    rec.seen.clear()
+    # c2: a NaN batch on one rank only
+    step = make_hybrid_train_step(de, loss_fn, SGD(TRAIN_LR), SparseSGD(),
+                                  lr_schedule=TRAIN_LR, nan_guard=True)
+    cats, batch = train_batch(torch, CRITEO_1TB_SIZES, b,
+                              seed=SEED + 450 + rank,
+                              nan=rank == W8_NAN_RANK)
+    real, wrapper, snaps = w8_touched_recorder(torch)
+    dense_before = [p.detach().clone() for p in st.dense_params.parameters()]
+    step_before = int(st.step)
+    apply.apply_width_streams = wrapper
+    try:
+        loss, st = step(st, cats, batch)
+    finally:
+        apply.apply_width_streams = real
+    torch.cuda.synchronize()
+    check(not bool(torch.isfinite(loss)), f"world 8 rank {rank}: the NaN "
+          "batch gave a finite loss")
+    check(all(torch.equal(p[u], before) for p, u, before in snaps.values()),
+          f"world 8 rank {rank}: NaN batch changed slab rows")
+    check(all(torch.equal(p, q) for p, q in zip(
+        st.dense_params.parameters(), dense_before)),
+        f"world 8 rank {rank}: NaN batch changed the dense params")
+    check(int(st.step) == step_before + 1, f"world 8 rank {rank}: the "
+          "step did not advance")
+    out["nan_rows"] = int(sum(len(u) for _, u, _ in snaps.values()))
+    snaps.clear()
+    del dense_before
+    # c3: warmup, then timed steps with the launches counted
+    for k in range(W8_WARMUP):
+        _, st = step(st, *batches[k % len(batches)])
+    torch.cuda.synchronize()
+    zero_counts()
+    times, losses = [], []
+    t0 = time.perf_counter()
+    for k in range(W8_STEPS):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        loss, st = step(st, *batches[k % len(batches)])
+        ev[1].record()
+        times.append(ev)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    out["wall_s"] = time.perf_counter() - t0
+    counts = read_counts()
+    want = w8_per_step(len(plan.groups), len(de.widths), W8_STEPS)
+    check(counts == want, f"world 8 rank {rank} timed: launches {counts}, "
+          f"expected {want}")
+    out["launches"] = counts
+    out["step_ms"] = [s.elapsed_time(e) for s, e in times]
+    out["losses"] = [float(x) for x in losses]
+    check(np.isfinite(out["losses"]).all(), f"world 8 rank {rank}: "
+          "non-finite loss")
+    # c4: the stage split of the same step
+    st, out["stages"] = w8_staged_steps(torch, step, st, batches,
+                                        W8_STAGE_STEPS)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def w8_rank(rank, store, tmp, results):
+    """A rank process of phase 14: join the gloo group on the one card,
+    run 14b and 14c, send the results. Any failure raises (the process
+    exits non-zero and the phase fails)."""
+    import torch
+
+    torch.cuda.set_device(0)
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from distributed_embeddings_torch.parallel import bootstrap
+
+    bootstrap.initialize("gloo", f"file://{store}", W8, rank,
+                         timeout_s=W8_TIMEOUT_S)
+    t0 = time.perf_counter()
+    small = w8_rank_small(torch, rank, tmp)
+    small["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    full = w8_rank_full(torch, rank)
+    full["seconds"] = time.perf_counter() - t0
+    results.put((rank, {"small": small, "full": full}))
+    torch.distributed.destroy_process_group()
+
+
+def w8_run_ranks(torch, tmp):
+    """Start the W8 rank processes, wait for every result; a rank that
+    exits non-zero fails the phase. Stops every process it started."""
+    import multiprocessing as mp
+    import queue
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    store = os.path.join(tmp, "store")
+    procs = [ctx.Process(target=w8_rank, args=(r, store, tmp, results))
+             for r in range(W8)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        while len(got) < W8:
+            try:
+                rank, res = results.get(timeout=5)
+                got[rank] = res
+            except queue.Empty:
+                dead = [(r, p.exitcode) for r, p in enumerate(procs)
+                        if p.exitcode not in (None, 0)]
+                check(not dead, f"world 8: rank(s) failed (rank, exit "
+                      f"code) {dead}")
+                check(time.perf_counter() - t0 < W8_TIMEOUT_S,
+                      f"world 8: ranks {sorted(set(range(W8)) - set(got))} "
+                      f"gave no result in {W8_TIMEOUT_S} s")
+        for r, p in enumerate(procs):
+            p.join(timeout=120)
+            check(p.exitcode == 0, f"world 8: rank {r} exit code "
+                  f"{p.exitcode}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return [got[r] for r in range(W8)], time.perf_counter() - t0
+
+
+def w8_compare_small(torch, ref, ranks, tmp):
+    """14b: the world-8 run within its bound of world 1, the control
+    beyond it."""
+    first = ranks[0]["small"]
+    check(first["slices"] > len(CRITEO_1TB_SIZES), "world 8 small: no "
+          "table was column-sliced")
+    out = {}
+    for run in ("main", "control"):
+        r0 = first[run]
+        for r, res in enumerate(ranks):
+            got = res["small"][run]
+            check(got["losses"] == r0["losses"], f"world 8 small {run}: "
+                  f"rank {r}'s losses differ from rank 0's")
+            check(all(np.array_equal(a, b) for a, b in zip(
+                got["dense"], r0["dense"])), f"world 8 small {run}: rank "
+                f"{r}'s dense params differ from rank 0's")
+            if run == "main":
+                check(got["checked"]["pack_ids"] >= SMALL_STEPS + 1
+                      and got["checked"]["pack_columns"]
+                      >= 3 * SMALL_STEPS + 2, f"world 8 small rank {r}: "
+                      f"checked K19/K20 calls {got['checked']}")
+        loss_err = float(np.abs(np.subtract(r0["losses"],
+                                            ref["losses"])).max())
+        dense_err = max(float(np.abs(a - b).max())
+                        for a, b in zip(r0["dense"], ref["dense"]))
+        pred_err = float(np.abs(r0["pred"].reshape(-1)
+                                - ref["pred"].reshape(-1)).max())
+        sq_err, sq_upd, worst = 0.0, 0.0, 0.0
+        for t, want in enumerate(ref["tables"]):
+            a = np.load(os.path.join(tmp, f"w8_{run}_{t}.npy"))
+            init = np.load(os.path.join(tmp, f"table_{t}.npy"))
+            err = a.astype(np.float64) - want
+            sq_err += float(np.square(err).sum())
+            sq_upd += float(np.square(want.astype(np.float64) - init).sum())
+            worst = max(worst, float(np.abs(err).max()))
+        out[run] = {"loss_err": loss_err, "dense_err": dense_err,
+                    "pred_err": pred_err, "slab_max_err": worst,
+                    "slab_rel_err": (sq_err / max(sq_upd, 1e-300)) ** 0.5,
+                    "losses": r0["losses"]}
+    m, c = out["main"], out["control"]
+    check(m["loss_err"] <= 1e-5 and m["dense_err"] <= 1e-5
+          and m["pred_err"] <= 1e-5 and m["slab_max_err"] <= 1e-6
+          and m["slab_rel_err"] <= 1e-3,
+          f"world 8 small: beyond the bound of world 1: {m}")
+    check(c["slab_rel_err"] > 1e-3, f"world 8 small control (source rank "
+          f"{W8_DROP_RANK}'s cotangents dropped) stays within the bound: "
+          f"{c}")
+    out["checked"] = first["main"]["checked"]
+    return out
+
+
+def pack_edge_checks(torch):
+    """14a: K19/K20 against their plain versions (and the id block and
+    cotangent pack against the reference concatenation of cells) on the
+    card, bit-exact: worlds 1 and 8, multi-slot instances, column slices,
+    ragged weighted blocks, int64 ids, every float dtype pair (casts),
+    NaN and Inf bits, unaligned copies and more copies than one launch
+    carries. Returns the number of checks by kernel."""
+    from distributed_embeddings_torch.ops import exchange_pack as xp
+    from distributed_embeddings_torch.ops.embedding_lookup import Ragged
+    from distributed_embeddings_torch.parallel import (DistributedEmbedding,
+                                                       exchange)
+
+    dev = torch.device("cuda")
+    n = {"pack_ids": 0, "pack_columns": 0,
+         "err": {"pack_ids": 0.0, "pack_columns": 0.0}}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 600)
+
+    def rand(shape, dtype):
+        t = torch.randn(shape, generator=gen, device="cuda")
+        t.view(-1)[::17] = float("nan")
+        t.view(-1)[5::31] = float("inf")
+        return t.to(dtype)
+
+    def same(a, b, what, kernel="pack_columns"):
+        n["err"][kernel] = max(n["err"][kernel], bits_err(
+            torch, a, b, f"pack edge case {what}"))
+
+    for world in (1, W8):
+        for ragged in (False, True):
+            rng = np.random.default_rng(world + 10 * ragged)
+            configs = [{"input_dim": int(rng.integers(4, 100)),
+                        "output_dim": int(rng.integers(1, 9)),
+                        "combiner": (str(rng.choice(["sum", "mean"]))
+                                     if ragged else
+                                     rng.choice([None, "sum", "mean"]))}
+                       for _ in range(12)]
+            de = DistributedEmbedding(
+                configs, world, strategy="comm_balanced",
+                column_slice_threshold=150 if world > 1 else None)
+            b = 6
+            for ids_dt in (torch.int32, torch.int64):
+                if ragged:
+                    inputs = []
+                    for c in configs:
+                        rows = [list(rng.integers(0, c["input_dim"],
+                                                  size=rng.integers(0, 4)))
+                                for _ in range(b)]
+                        inputs.append(Ragged.from_lists(
+                            rows, capacity=16, dtype=ids_dt, weights=[
+                                list(rng.uniform(0.5, 2, len(r)))
+                                for r in rows]))
+                else:
+                    inputs = [torch.from_numpy(rng.integers(
+                        0, c["input_dim"], size=(b, int(rng.integers(1, 5))
+                                                 if c["combiner"] or world == 1
+                                                 else 1))).to(ids_dt)
+                        for c in configs]
+                entries, encs, _, dt = de._normalize_inputs(inputs, dev)
+                plan = de._get_plan(encs, b)
+                got = exchange.build_send_blocks(de, plan, entries, dt, dev)
+                same(got, exchange.build_send_blocks_plain(
+                    de, plan, entries, dt, dev), f"ids w{world} {dt}",
+                    "pack_ids")
+                n["pack_ids"] += 1
+            _, widths = exchange.slice_map(de, plan)
+            for src_dt in (torch.float32, torch.bfloat16):
+                for dst_dt in (torch.float32, torch.bfloat16):
+                    for r in range(world):
+                        de._rank = r
+                        reds = [rand((world * g.n, b, g.width), src_dt)
+                                for g in plan.groups]
+                        got = exchange.pack_lookup_rows(de, plan, reds,
+                                                        dst_dt, dev)
+                        want = torch.empty_like(got)
+                        xp.batched_copy_plain(
+                            exchange.lookup_copy_plan(de, plan),
+                            [x.reshape(-1) for x in reds], [want])
+                        same(got, want, f"lookup rows w{world} rank {r}")
+                        n["pack_columns"] += 1
+                grads = [rand((b, w), src_dt) for w in widths]
+                same(exchange.pack_grad_blocks(de, plan, grads, b, src_dt),
+                     exchange.pack_grad_blocks_plain(de, plan, grads, b,
+                                                     src_dt),
+                     f"grad pack w{world}")
+                dp = rand((world, b, plan.s_max), src_dt)
+                outs = exchange.unpack_outputs(de, plan, dp)
+                cplan, pieces = exchange._unpack_copy_plan(de, plan)
+                buf = torch.empty(sum(b * w for _, w in pieces),
+                                  dtype=src_dt, device=dev)
+                xp.batched_copy_plain(cplan, [dp], [buf])
+                for o, (off, w) in zip(outs, pieces):
+                    same(o, buf[off:off + b * w].view(b, w),
+                         f"unpack w{world}")
+                n["pack_columns"] += 2
+    rng = np.random.default_rng(SEED + 601)
+    copies = []
+    for k in range(1300):
+        rows, cols = int(rng.integers(1, 5)), int(rng.integers(1, 20))
+        copies.append((-1 if k % 11 == 0 else 0, int(rng.integers(0, 50)),
+                       cols + int(rng.integers(0, 3)), 0, k * 100 + (k % 3),
+                       cols + (k % 2), rows, cols))
+    plan = xp.CopyPlan(copies)
+    for dtype in (torch.float32, torch.bfloat16):
+        src = rand((400,), dtype)
+        got = torch.full((1300 * 100 + 200,), 7.0, device=dev, dtype=dtype)
+        want = got.clone()
+        before = xp.pack_columns.launches
+        xp.pack_columns(plan, [src], [got])
+        check(xp.pack_columns.launches - before == -(-1300 // xp.MAX_DESCS),
+              "pack edge case: 1300 copies did not split into launches")
+        xp.batched_copy_plain(plan, [src], [want])
+        same(got, want, f"unaligned copies {dtype}")
+        n["pack_columns"] += 1
+    torch.cuda.synchronize()
+    log(f"world 8 a: K19/K20 edge cases bit-exact to their plain versions "
+        f"({n})")
+    return n
+
+
+def w8_rank_shapes(torch, rank):
+    """The slice's K19/K20 inputs on one rank of the Criteo-1TB world-8
+    layer (planner only): its batch's id entries, the groups' lookups,
+    the cotangents and a received output block, bf16."""
+    from distributed_embeddings_torch.parallel import exchange
+
+    cfg, de = w8_model(torch, CRITEO_1TB_SIZES, W8_CST, torch.bfloat16)
+    de._rank = rank
+    b = W8_BATCH // W8
+    cats, _ = train_batch(torch, CRITEO_1TB_SIZES, b, seed=SEED + 400 + rank)
+    dev = torch.device("cuda")
+    entries, encs, _, dt = de._normalize_inputs(cats, dev)
+    plan = de._get_plan(encs, b)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 610 + rank)
+    reds = [torch.randn((W8 * g.n, b, g.width), generator=gen, device="cuda"
+                        ).to(torch.bfloat16) for g in plan.groups]
+    _, widths = exchange.slice_map(de, plan)
+    grads = [torch.randn((b, w), generator=gen, device="cuda"
+                         ).to(torch.bfloat16) for w in widths]
+    dp = torch.randn((W8, b, plan.s_max), generator=gen, device="cuda"
+                     ).to(torch.bfloat16)
+    return de, plan, entries, dt, reds, grads, dp
+
+
+def w8_shape_checks(torch):
+    """14a at the slice's rank shapes (ranks 0 and W8 - 1): each of the
+    four packs, kernel against plain and (id block, cotangents) against
+    the reference concatenation of cells, bit-exact."""
+    from distributed_embeddings_torch.parallel import exchange
+
+    dev = torch.device("cuda")
+    errs = {"pack_ids": 0.0, "pack_columns": 0.0}
+    for rank in (0, W8 - 1):
+        de, plan, entries, dt, reds, grads, dp = w8_rank_shapes(torch, rank)
+        b = plan.b
+        with pack_checks(torch) as n:
+            ids = exchange.build_send_blocks(de, plan, entries, dt, dev)
+            check(torch.equal(ids, exchange.build_send_blocks_plain(
+                de, plan, entries, dt, dev)), "world 8 rank shapes: id "
+                "block differs from the concatenation of cells")
+            exchange.pack_lookup_rows(de, plan, reds, torch.bfloat16, dev)
+            packed = exchange.pack_grad_blocks(de, plan, grads, b,
+                                               torch.bfloat16)
+            check(torch.equal(w8_bits(torch, packed), w8_bits(
+                torch, exchange.pack_grad_blocks_plain(
+                    de, plan, grads, b, torch.bfloat16))),
+                "world 8 rank shapes: cotangent block differs from the "
+                "concatenation of cells")
+            exchange.unpack_outputs(de, plan, dp)
+        torch.cuda.synchronize()
+        errs = {k: max(v, n["err"][k]) for k, v in errs.items()}
+        log(f"world 8 a: rank {rank} shapes (ids [{W8}, {plan.l_max}] "
+            f"{str(dt)[6:]}, rows [{W8}, {b}, {plan.s_max}] bf16, groups "
+            f"{[(g.width, g.n) for g in plan.groups]}) bit-exact")
+        del de, plan, entries, reds, grads, dp, packed, ids
+    return errs
+
+
+def host_ms(torch, fn, runs=TIMED_RUNS):
+    """The host's time a call of ``fn`` (launches queued, not waited
+    for), in ms: the enqueue cost a step pays when the card keeps up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        fn()
+    t = (time.perf_counter() - t0) / runs * 1e3
+    torch.cuda.synchronize()
+    return t
+
+
+def w1_stage_yardstick(torch):
+    """The world-1 DLRM's embedding forward and sparse apply stages at
+    b=65536 (the 26 tables capped at SMALL_ROWS rows, bf16) with K19/K20,
+    and with the id block and the cotangent pack assembled by the
+    reference concatenation of cells (torch.cat, what the step ran
+    before K19/K20), in one call: CUDA-event medians."""
+    from distributed_embeddings_torch.models import DLRMConfig
+    from distributed_embeddings_torch.parallel import (DistributedEmbedding,
+                                                       SparseSGD, exchange)
+
+    sizes = w8_small_sizes()
+    cfg = DLRMConfig(table_sizes=sizes, embedding_dim=128)
+    de = DistributedEmbedding(cfg.embedding_configs(), world_size=1,
+                              compute_dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 630)
+    params = de.init(gen, dtype=torch.bfloat16, device="cuda")
+    cats, _ = train_batch(torch, sizes, TRAIN_BATCH, seed=SEED + 631)
+    _, res = de.forward_with_residuals(params, cats)
+    # the step's cotangents: column slices of the interaction's gradient
+    g27 = torch.randn((TRAIN_BATCH, 27, 128), generator=gen, device="cuda"
+                      ).to(torch.bfloat16)
+    grads = [g27[:, 1 + t] for t in range(len(sizes))]
+    opt = SparseSGD()
+    st = opt.init(params)
+    ok = torch.ones((), dtype=torch.bool, device="cuda")
+    stages = {
+        "embedding_forward": lambda: de.forward_with_residuals(params, cats),
+        "sparse_apply": lambda: de.sparse_apply_gradients(
+            params, st, res, grads, opt, TRAIN_LR, enable=ok)}
+    real = exchange.build_send_blocks, exchange.pack_grad_blocks
+    out = {}
+    for via in ("K19/K20", "torch.cat", "K19/K20 again"):
+        if via == "torch.cat":
+            exchange.build_send_blocks = exchange.build_send_blocks_plain
+            exchange.pack_grad_blocks = exchange.pack_grad_blocks_plain
+        try:
+            for name, fn in stages.items():
+                out[f"{name} {via}"] = time_ms(torch, fn, [()])
+        finally:
+            exchange.build_send_blocks, exchange.pack_grad_blocks = real
+    log("world-1 stages (b=65536, capped tables), ms: " + json.dumps(out))
+    return out
+
+
+def pack_kernel_times(torch):
+    """14d: K19 and K20 timed alone at rank 0's shapes beside their plain
+    versions, one ``torch.cat`` of the same parts (the yardstick) and
+    their byte bounds."""
+    from distributed_embeddings_torch.ops import exchange_pack as xp
+    from distributed_embeddings_torch.parallel import exchange
+
+    de, plan, entries, dt, reds, grads, dp = w8_rank_shapes(torch, 0)
+    b, dev = plan.b, torch.device("cuda")
+    cells = exchange._cells(de, plan)
+    smap, widths = exchange.slice_map(de, plan)
+    es = 2  # bf16
+    # K19
+    cp = exchange._ids_copy_plan(de, plan, entries)
+    srcs = [t.contiguous() for t in entries]
+    out = torch.empty((W8, plan.l_max), dtype=dt, device=dev)
+    zero = {}
+
+    def zeros(n, dtype):
+        key = (n, dtype)
+        if key not in zero:
+            zero[key] = torch.zeros(n, dtype=dtype, device=dev)
+        return zero[key]
+
+    parts = []
+    for row in cells:
+        for gi, g in enumerate(plan.groups):
+            for c in row[gi]:
+                if c is not exchange._SPANNED:
+                    parts.append(
+                        zeros(g.blen, dt) if c is None else
+                        srcs[plan.instances[c].input_id].reshape(-1))
+    read = sum(t.numel() * t.element_size() for t in srcs)
+    cases = {"pack_ids": [], "pack_columns": []}
+
+    def case(name, label, fn, plain, lib, nbytes):
+        ms = time_ms(torch, fn, [()])
+        pms = time_ms(torch, plain, [()])
+        lms = time_ms(torch, lib, [()])
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        host = host_ms(torch, fn)
+        cases[name].append({"case": label, "ms": ms, "plain_ms": pms,
+                            "library_ms": lms, "bound_ms": bound,
+                            "bound_by": "bytes", "bytes": nbytes,
+                            "host_ms": host,
+                            "library_host_ms": host_ms(torch, lib)})
+        log(f"time {name} {label}: kernel {ms:.4f} ms, plain {pms:.4f}, "
+            f"torch.cat {lms:.4f}, bound {bound:.4f} ({nbytes} bytes); "
+            f"host {host:.4f} a call")
+
+    case("pack_ids", "rank0_ids", lambda: xp.pack_ids(cp, srcs, out),
+         lambda: xp.pack_ids_plain(cp, srcs, out), lambda: torch.cat(parts),
+         read + out.numel() * out.element_size())
+    # K20: the cotangent pack, the lookup rows, the unpack
+    gp = exchange._grad_copy_plan(de, plan, b)
+    packed = torch.empty((W8, b, plan.s_max), dtype=torch.bfloat16,
+                         device=dev)
+    parts = []
+    for dest, row in enumerate(cells):
+        for gi, g in enumerate(plan.groups):
+            for s, c in enumerate(row[gi]):
+                if c is None:
+                    parts.append(zeros(b * g.width, torch.bfloat16
+                                       ).view(b, g.width))
+                elif c is not exchange._SPANNED:
+                    i, pos = smap[c]
+                    w = plan.out_width(plan.instances[c])
+                    parts.append(grads[i][:, pos:pos + w])
+    case("pack_columns", "rank0_cotangent_pack",
+         lambda: xp.pack_columns(gp, grads, [packed]),
+         lambda: xp.pack_columns_plain(gp, grads, [packed]),
+         lambda: torch.cat(parts, dim=1),
+         sum(g.numel() for g in grads) * es + packed.numel() * es)
+    lp = exchange.lookup_copy_plan(de, plan)
+    flat = [x.reshape(-1) for x in reds]
+    rows_out = torch.empty_like(packed)
+    parts = []
+    for r in range(W8):
+        for gi, g in enumerate(plan.groups):
+            live = plan.valid[gi][0] > 0
+            for s in range(g.n):
+                parts.append(reds[gi][r * g.n + s] if live[s] else
+                             zeros(b * g.width, torch.bfloat16
+                                   ).view(b, g.width))
+    live_read = sum(g.width * b * W8 * int((plan.valid[gi][0] > 0).sum())
+                    for gi, g in enumerate(plan.groups)) * es
+    case("pack_columns", "rank0_lookup_rows",
+         lambda: xp.pack_columns(lp, flat, [rows_out]),
+         lambda: xp.pack_columns_plain(lp, flat, [rows_out]),
+         lambda: torch.cat(parts, dim=1), live_read + rows_out.numel() * es)
+    up, pieces = exchange._unpack_copy_plan(de, plan)
+    buf = torch.empty(sum(b * w for _, w in pieces), dtype=torch.bfloat16,
+                      device=dev)
+    order = []
+    for j, inst in enumerate(plan.instances):
+        i, pos = smap[j]
+        g = plan.groups[inst.group]
+        c0 = g.col + inst.slot0 * g.width
+        order.append(((i, pos), dp[inst.rank, :, c0:c0 + plan.out_width(
+            inst)]))
+    parts = [p for _, p in sorted(order, key=lambda t: t[0])]
+    case("pack_columns", "rank0_unpack",
+         lambda: xp.pack_columns(up, [dp], [buf]),
+         lambda: xp.pack_columns_plain(up, [dp], [buf]),
+         lambda: torch.cat(parts, dim=1), 2 * buf.numel() * es)
+    del reds, grads, dp, buf, packed, rows_out, parts, flat
+    # world 1: the DLRM train step's K20 cotangent pack at b=65536, and
+    # its K19 id block
+    from distributed_embeddings_torch.parallel import DistributedEmbedding
+
+    cfg, _ = w8_model(torch, CRITEO_1TB_SIZES, W8_CST, torch.bfloat16)
+    de1 = DistributedEmbedding(cfg.embedding_configs(), world_size=1,
+                               compute_dtype=torch.bfloat16)
+    cats, _ = train_batch(torch, CRITEO_1TB_SIZES, TRAIN_BATCH, seed=SEED + 620)
+    entries, encs, _, dt = de1._normalize_inputs(cats, dev)
+    plan = de1._get_plan(encs, TRAIN_BATCH)
+    cp = exchange._ids_copy_plan(de1, plan, entries)
+    srcs = [t.contiguous() for t in entries]
+    out = torch.empty((1, plan.l_max), dtype=dt, device=dev)
+    case("pack_ids", "world1_b65536_ids", lambda: xp.pack_ids(cp, srcs, out),
+         lambda: xp.pack_ids_plain(cp, srcs, out),
+         lambda: torch.cat([t.reshape(-1) for t in srcs]),
+         2 * sum(t.numel() * t.element_size() for t in srcs))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 621)
+    # the step's cotangents: column slices of the interaction's gradient
+    # [b, 27, 128], read in place
+    g27 = torch.randn((TRAIN_BATCH, 27, 128), generator=gen, device="cuda"
+                      ).to(torch.bfloat16)
+    grads = [g27[:, 1 + t] for t in range(len(CRITEO_1TB_SIZES))]
+    gp = exchange._grad_copy_plan(de1, plan, TRAIN_BATCH)
+    packed = torch.empty((1, TRAIN_BATCH, plan.s_max), dtype=torch.bfloat16,
+                         device=dev)
+    case("pack_columns", "world1_b65536_cotangent_pack",
+         lambda: xp.pack_columns(gp, grads, [packed]),
+         lambda: xp.pack_columns_plain(gp, grads, [packed]),
+         lambda: torch.cat(grads, dim=1), 2 * packed.numel() * es)
+    del grads, g27, packed, srcs, out
+    return cases, w1_stage_yardstick(torch)
+
+
+def phase_world8(torch):
+    """Phase 14: the hybrid train step at world 8 on one card (see
+    main's docstring). Returns (launches of rank 0's timed window, the
+    K19/K20 rows' cases, the largest kernel-vs-plain difference each of
+    K19/K20 showed in the phase's checks, the result)."""
+    import shutil
+    import tempfile
+
+    t_start = time.perf_counter()
+    edge = pack_edge_checks(torch)
+    errs = dict(edge["err"])
+    for k, v in w8_shape_checks(torch).items():
+        errs[k] = max(errs[k], v)
+    cases, w1_stages = pack_kernel_times(torch)
+    _, de = w8_model(torch, CRITEO_1TB_SIZES, W8_CST, torch.bfloat16)
+    per_rank = [sum(de.rows_cap[w] * w * 2 for w in de.widths)
+                for _ in range(W8)]
+    slices = [t for t, n in enumerate(de.slices_per_table) if n > 1]
+    log(f"world 8: Criteo-1TB tables, comm_balanced, column slices of "
+        f"tables {slices}; rows_cap {de.rows_cap}; bf16 slabs "
+        f"{per_rank[0] / 1e9:.2f} GB a rank, {sum(per_rank) / 1e9:.1f} GB "
+        f"for {W8} ranks on one card; instances a rank "
+        f"{[len(t) for t in de.strategy.table_ids_list]}")
+    del de
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="w8_")
+    try:
+        ref = w8_small_reference(torch, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"world 8 b: world-1 reference on the card, losses "
+            f"{[round(x, 5) for x in ref['losses']]}; "
+            f"{torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated "
+            "before the ranks start")
+        ranks, rank_s = w8_run_ranks(torch, tmp)
+        small = w8_compare_small(torch, ref, ranks, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("world 8 b: " + json.dumps(small))
+    full = [r["full"] for r in ranks]
+    r0 = full[0]
+    for res in ranks:
+        for n in (res["small"]["main"]["checked"],
+                  res["small"]["control"]["checked"], res["full"]["checked"]):
+            for k, v in n["err"].items():
+                errs[k] = max(errs[k], v)
+    for r, f in enumerate(full):
+        check(f["losses"] == r0["losses"], f"world 8: rank {r}'s losses "
+              "differ from rank 0's (one global mean)")
+        check(f["checked"]["pack_ids"] == 1
+              and f["checked"]["pack_columns"] == 3, f"world 8 rank {r}: "
+              f"checked K19/K20 calls {f['checked']}")
+    step_ms = [float(np.median(f["step_ms"])) for f in full]
+    wall = max(f["wall_s"] for f in full)
+    result = {
+        "world": W8, "global_batch": W8_BATCH, "steps": W8_STEPS,
+        "transport": "gloo over host memory, 8 ranks time-sharing one "
+                     "H100 (not a multi-GPU or NCCL number)",
+        "samples_per_s_8_ranks_on_one_h100_over_gloo":
+            W8_STEPS * W8_BATCH / wall,
+        "wall_step_ms": wall / W8_STEPS * 1e3,
+        "rank_step_ms_p50": step_ms,
+        "stage_ms_p50_by_rank": [f["stages"] for f in full],
+        "slab_gb_by_rank": [f["slab_bytes"] / 1e9 for f in full],
+        "peak_gb_by_rank": [f["peak_gb"] for f in full],
+        "instances_by_rank": [f["instances"] for f in full],
+        "plan": r0["plan"], "launches_per_step_rank0": {
+            n: v / W8_STEPS for n, v in r0["launches"].items() if v},
+        "scatter_max_err": max(f["scatter_err"] for f in full),
+        "nan_batch_rows_checked": [f["nan_rows"] for f in full],
+        "loss_first": r0["losses"][0], "loss_last": r0["losses"][-1],
+        "small": small, "edge_checks": edge, "pack_max_abs_err": errs,
+        "world1_stage_ms_k19_k20_vs_cat": w1_stages,
+        "rank_seconds": {"small": [r["small"]["seconds"] for r in ranks],
+                         "full": [f["seconds"] for f in full],
+                         "ranks_total": rank_s},
+        "phase_seconds": time.perf_counter() - t_start}
+    log("world 8: " + json.dumps(result))
+    return r0["launches"], cases, errs, result
 
 
 def main():
@@ -5380,13 +6491,53 @@ def main():
         "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
         "bound_by": c["bound_by"], "library_ms": c["library_ms"],
         "shape": c["case"], "cases": ex_cases})
-    for k in kernels:
-        check(k["launches"] > 0, f"{k['name']}: no launch on its main path")
     for name in ("gather_combine", "dot_interact_fwd", "dot_interact_bwd",
                  "sgd_scatter_promoted"):
         check(launches["example"][name] > 0,
               f"{name}: no launch on the example's path")
     log("example: " + json.dumps(example))
+    log(f"example peak memory {torch.cuda.max_memory_allocated() / 1e9:.1f} "
+        f"GB, {time.perf_counter() - t_start:.1f} s so far")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    w8_launches, w8_cases, w8_errs, world8 = phase_world8(torch)
+    launches["world8"] = w8_launches
+    for k in kernels:
+        names = (csr_names if k["name"] == "csr" else k14 if k["name"] ==
+                 "cms_query" else (k["name"],))
+        k["launches_by_path"]["world8"] = sum(w8_launches[n] for n in names)
+    for name, repl, entry_points in (
+            ("pack_ids", "distributed_embeddings_tpu/parallel/exchange.py:89",
+             {"build_send_blocks": "distributed_embeddings_tpu/parallel/"
+                                   "exchange.py:89",
+              "assemble_cells": "distributed_embeddings_tpu/parallel/"
+                                "exchange.py:43"}),
+            ("pack_columns",
+             "distributed_embeddings_tpu/parallel/exchange.py:137",
+             {"pack_grad_blocks": "distributed_embeddings_tpu/parallel/"
+                                  "exchange.py:137",
+              "plan_lookup": "distributed_embeddings_tpu/parallel/"
+                             "lookup.py:99",
+              "unpack": "distributed_embeddings_tpu/parallel/"
+                        "dist_embedding.py:1085",
+              "collapse_inverse": "distributed_embeddings_tpu/parallel/"
+                                  "apply.py:134"})):
+        cases = w8_cases[name]
+        c = cases[0]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "distributed_embeddings_torch/csrc/exchange_pack.cu",
+            "replaces": repl, "launches": w8_launches[name],
+            "launches_by_path": {p: launches[p].get(name, 0)
+                                 for p in launches},
+            "max_abs_err": w8_errs[name], "ms": c["ms"],
+            "plain_ms": c["plain_ms"],
+            "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+            "library_ms": c["library_ms"], "shape": c["case"],
+            "cases": cases, "entry_points": entry_points})
+    for k in kernels:
+        check(k["launches"] > 0, f"{k['name']}: no launch on its main path")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

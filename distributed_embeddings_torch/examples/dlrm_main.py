@@ -103,7 +103,7 @@ def build_parser() -> argparse.ArgumentParser:
     flag("checkpoint_out", default="/tmp/embedding_weights",
          help="np.savez path for final global embedding weights")
     bool_flag("dp_input", False,
-              "feed data-parallel id shards (world > 1 only: ROADMAP A7)")
+              "feed data-parallel id shards (world > 1 only: ROADMAP A7b)")
     flag("eval_interval", type=int, default=0,
          help="evaluate every N training steps (0 = only at the end)")
     flag("auc_threshold", type=float, default=None,
@@ -131,9 +131,9 @@ def build_parser() -> argparse.ArgumentParser:
     flag("quarantine_max", type=int, default=None,
          help="quarantined batch budget (ROADMAP A12)")
     flag("bootstrap_timeout_s", type=float, default=None,
-         help="multi-host join deadline (ROADMAP A7)")
+         help="multi-host join deadline (ROADMAP A7b)")
     flag("bootstrap_retries", type=int, default=2,
-         help="multi-host join retries (ROADMAP A7)")
+         help="multi-host join retries (ROADMAP A7b)")
     flag("metrics_out", default=None,
          help="step-metrics JSONL sidecar (ROADMAP A6)")
     flag("metrics_interval", type=int, default=100,
@@ -161,8 +161,8 @@ def _refuse_unported(args) -> None:
         ("plan_audit", args.plan_audit != "off", "A4b"),
         ("metrics_out", args.metrics_out is not None, "A6"),
         ("DETPU_OBS", obs.metrics_enabled(), "A6"),
-        ("bootstrap_timeout_s", args.bootstrap_timeout_s is not None, "A7"),
-        ("bootstrap_retries", args.bootstrap_retries != 2, "A7"),
+        ("bootstrap_timeout_s", args.bootstrap_timeout_s is not None, "A7b"),
+        ("bootstrap_retries", args.bootstrap_retries != 2, "A7b"),
         ("checkpoint_time_s", args.checkpoint_time_s != 0, "A12"),
         ("rollback_max", args.rollback_max is not None, "A12"),
         ("quarantine_max", args.quarantine_max is not None, "A12"),

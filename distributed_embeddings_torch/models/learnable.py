@@ -113,7 +113,7 @@ def train_dlrm_convergence(task: LearnableClicks, *, world_size: int = 1,
     dense_tx) -> HybridTrainState`` replaces that init (the tests carry
     the JAX package's initial state over); ``on_step(i, loss, state)``
     is called after every step. ``world_size > 1`` and ``mesh`` are not
-    ported yet (ROADMAP A7)."""
+    ported yet (ROADMAP A7b)."""
     from ..parallel import (SGD, Adam, DistributedEmbedding, SparseAdam,
                             SparseSGD, init_hybrid_state,
                             make_hybrid_eval_step, make_hybrid_train_step)
@@ -123,7 +123,7 @@ def train_dlrm_convergence(task: LearnableClicks, *, world_size: int = 1,
 
     if world_size != 1 or mesh is not None:
         raise NotImplementedError(
-            "the multi-rank convergence run is not ported yet: ROADMAP A7")
+            "the multi-rank convergence run is not ported yet: ROADMAP A7b")
     dev = resolve_device(device)
     cfg = DLRMConfig(table_sizes=task.table_sizes,
                      embedding_dim=embedding_dim,

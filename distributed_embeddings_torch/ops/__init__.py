@@ -9,6 +9,8 @@ from .embedding_lookup import (Ragged, SparseIds, embedding_lookup,
                                ragged_combine, ragged_combine_plain,
                                ragged_row_ids, ragged_row_ids_plain,
                                row_to_split, row_to_split_plain)
+from .exchange_pack import (CopyPlan, batched_copy_plain, pack_columns,
+                            pack_columns_plain, pack_ids, pack_ids_plain)
 from .momentum import momentum_rows, momentum_rows_plain
 from .interaction import (DotInteract, dot_interact_bwd,
                           dot_interact_bwd_plain, dot_interact_fwd,
@@ -41,4 +43,6 @@ __all__ = ["Ragged", "SparseIds", "embedding_lookup", "gather_combine",
            "cms_query", "cms_query_plain", "topk_pool", "topk_pool_plain",
            "topk_merge", "topk_merge_plain", "record_ids_plain",
            "remap_stage", "remap_stage_plain", "commit_rows",
-           "commit_rows_plain"]
+           "commit_rows_plain", "CopyPlan", "batched_copy_plain",
+           "pack_ids", "pack_ids_plain", "pack_columns",
+           "pack_columns_plain"]

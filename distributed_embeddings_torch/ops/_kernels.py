@@ -143,6 +143,14 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "detpu_topk_merge": (_P, _I, _I, _P, _I, _I, _P, _P, _I, _P, _P,
                              _I, _P, _P),
     },
+    "exchange_pack": {
+        # descs (host int64 [n, 8]), n, n_tiles, stream
+        "detpu_pack_ids": (_P, _I, _I64, _P),
+        "detpu_pack_cols": (_P, _I, _I64, _P),
+        # -> the most descriptors a launch takes / the units a tile covers
+        "detpu_pack_max_descs": (),
+        "detpu_pack_tile_units": (),
+    },
     "streaming": {
         # ext, ext_is_64, live, cap, nb, tid, roff, slot_fp, n, local_rows,
         # key, live_out, flags, rowc, stream

@@ -1,0 +1,366 @@
+"""Batched strided copies of the exchange layer on the hand-written
+kernels K19 (``pack_ids``: the id blocks) and K20 (``pack_columns``: the
+float column blocks), both in ``csrc/exchange_pack.cu``, with their plain
+PyTorch version.
+
+Counterpart of the layout half of
+``distributed_embeddings_tpu/parallel/exchange.py`` (``assemble_cells``
+under ``build_send_blocks`` and ``pack_grad_blocks``), of the exchange
+rows of ``parallel/lookup.py:plan_lookup`` and of the dp-side unpack in
+``parallel/dist_embedding.py:forward_with_residuals``: each is a set of
+2-D copies between a few tensors, which XLA lowered to concatenates,
+transposes and slices.
+
+A :class:`CopyPlan` lists the copies in ELEMENTS, by the index of the
+source and of the destination tensor in the lists a call passes, so it
+is built once per exchange plan and reused every step; a call only
+supplies the tensors. A source index of ``-1`` zero-fills. On the card
+the wrapper turns each copy into a descriptor (addresses patched from the
+tensors, the widest unit the alignment allows) and launches once per
+:data:`MAX_DESCS` descriptors; on the CPU it runs :func:`batched_copy_plain`.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence
+
+import numpy as np
+import torch
+
+from . import _kernels
+
+#: the most descriptors one launch carries (``csrc/exchange_pack.cu``)
+MAX_DESCS = 504
+#: units a tile of the kernel covers (256 threads x 4)
+TILE_UNITS = 1024
+
+_ESIZE = {torch.float32: 4, torch.bfloat16: 2, torch.int32: 4,
+          torch.int64: 8}
+_FLOATS = (torch.float32, torch.bfloat16)
+
+# CopyPlan columns
+SRC, SRC_OFF, SRC_STRIDE, DST, DST_OFF, DST_STRIDE, ROWS, COLS = range(8)
+
+
+class CopyPlan:
+    """A fixed list of 2-D copies: per copy ``(src, src_off, src_stride,
+    dst, dst_off, dst_stride, rows, cols)``, all in elements; ``src`` and
+    ``dst`` index the tensor lists of a call (``src == -1``: zero-fill).
+    Copies without elements are dropped.
+
+    ``src_width`` (optional, per source index; 0 for none) declares a
+    source read by logical rows of that width: it may then arrive as any
+    2-D ``[rows, width]`` tensor whose columns are contiguous (a column
+    slice of a wider one, as an autograd cotangent often is), its offsets
+    and strides mapped through its row stride at each call. Its copies
+    must stay inside one logical row and step whole rows."""
+
+    def __init__(self, copies: Sequence[Sequence[int]],
+                 src_width: Sequence[int] = ()):
+        a = np.asarray(list(copies), dtype=np.int64).reshape(-1, 8)
+        self.a = a[(a[:, ROWS] > 0) & (a[:, COLS] > 0)]
+        a = self.a
+        read = a[:, SRC] >= 0
+        #: the source indices read, and per index the elements it must hold
+        self.used_src = sorted(set(a[read, SRC].tolist()))
+        self.n_src = self.used_src[-1] + 1 if self.used_src else 0
+        self.n_dst = int(a[:, DST].max()) + 1 if len(a) else 0
+        s_last = (a[:, ROWS] - 1) * a[:, SRC_STRIDE] + a[:, SRC_OFF] \
+            + a[:, COLS]
+        d_last = (a[:, ROWS] - 1) * a[:, DST_STRIDE] + a[:, DST_OFF] \
+            + a[:, COLS]
+        src_need = np.zeros(self.n_src, np.int64)
+        np.maximum.at(src_need, a[read, SRC], s_last[read])
+        dst_need = np.zeros(self.n_dst, np.int64)
+        np.maximum.at(dst_need, a[:, DST], d_last)
+        self.src_need, self.dst_need = src_need.tolist(), dst_need.tolist()
+        width = np.zeros(max(self.n_src, len(src_width)), np.int64)
+        width[:len(src_width)] = src_width
+        #: the sources read by logical rows, and per copy of theirs
+        #: (offset // width, offset % width, stride // width)
+        self.row_src = [i for i in self.used_src if width[i]]
+        self.src_width = width.tolist()
+        w = np.where(read, width[np.maximum(a[:, SRC], 0)], 0)
+        self.rowwise = w > 0
+        wr = np.where(self.rowwise, w, 1)
+        self.q_off, self.r_off = a[:, SRC_OFF] // wr, a[:, SRC_OFF] % wr
+        self.q_stride = a[:, SRC_STRIDE] // wr
+        if ((self.r_off + a[:, COLS] > wr) | (a[:, SRC_STRIDE] % wr != 0)
+                )[self.rowwise].any():
+            raise ValueError("a copy of a row-wise source crosses a row")
+        #: the card's launch chunks by tensor addresses (``_launch_chunks``)
+        self.launch_cache = {}
+
+    def __len__(self) -> int:
+        return len(self.a)
+
+
+def _check_tensors(plan: CopyPlan, srcs, dsts, what: str):
+    """The common dtype of the sources and of the destinations (``None``
+    when no copy reads a source), after checking counts, contiguity and
+    extents."""
+    if len(srcs) < plan.n_src or len(dsts) < plan.n_dst:
+        raise ValueError(f"{what}: the plan reads {plan.n_src} sources and "
+                         f"writes {plan.n_dst} destinations, got "
+                         f"{len(srcs)} and {len(dsts)}")
+    used = [srcs[i] for i in plan.used_src]
+    for kind, idx, ts, need in (("source", plan.used_src, used,
+                                 plan.src_need),
+                                ("destination", range(len(dsts)), dsts,
+                                 plan.dst_need)):
+        for i, t in zip(idx, ts):
+            w = plan.src_width[i] if kind == "source" else 0
+            if w:  # rows of width w, columns contiguous
+                ok = t.dim() == 2 and t.shape[1] == w and (
+                    t.stride(1) == 1 or w == 1) and t.stride(0) >= w
+                n = t.shape[0] * w if t.dim() == 2 else 0
+            else:
+                ok, n = t.is_contiguous(), t.numel()
+            if not ok:
+                raise ValueError(f"{what}: {kind} {i} must be "
+                                 + (f"[rows, {w}] with contiguous columns"
+                                    if w else "contiguous"))
+            if i < len(need) and n < need[i]:
+                raise ValueError(f"{what}: {kind} {i} holds {n} "
+                                 f"elements, the plan needs {need[i]}")
+    sdt = {t.dtype for t in used}
+    ddt = {t.dtype for t in dsts}
+    if len(sdt) > 1 or len(ddt) != 1:
+        raise ValueError(f"{what}: sources must share one dtype and "
+                         f"destinations another, got {sdt} and {ddt}")
+    return next(iter(sdt), None), next(iter(ddt))
+
+
+def _src_geometry(plan: CopyPlan, srcs):
+    """Per copy, ``(offset, row stride)`` in elements of its source's
+    storage from the source's first element: the planned ones, with a
+    row-wise source's mapped through its row stride."""
+    off, stride = plan.a[:, SRC_OFF], plan.a[:, SRC_STRIDE]
+    if not plan.row_src:
+        return off, stride
+    rs = np.zeros(len(plan.src_width), np.int64)
+    rs[plan.row_src] = [srcs[i].stride(0) for i in plan.row_src]
+    s = rs[np.maximum(plan.a[:, SRC], 0)]
+    return (np.where(plan.rowwise, plan.q_off * s + plan.r_off, off),
+            np.where(plan.rowwise, plan.q_stride * s, stride))
+
+
+def batched_copy_plain(plan: CopyPlan, srcs: Sequence[torch.Tensor],
+                       dsts: Sequence[torch.Tensor]) -> None:
+    """Plain PyTorch version of :func:`pack_ids` / :func:`pack_columns`:
+    each copy through ``as_strided`` views (``copy_`` casts a float32
+    source to bfloat16 with round to nearest even, as the kernel does)."""
+    soff, sstride = _src_geometry(plan, srcs)
+    a = plan.a.copy()
+    a[:, SRC_OFF], a[:, SRC_STRIDE] = soff, sstride
+    for (si, so, ss, di, do, ds, rows, cols) in a.tolist():
+        d = dsts[di]
+        view = d.as_strided((rows, cols), (ds, 1), d.storage_offset() + do)
+        if si < 0:
+            view.zero_()
+        else:
+            s = srcs[si]
+            view.copy_(s.as_strided((rows, cols), (ss, 1),
+                                    s.storage_offset() + so))
+
+
+def _lowbit(x: np.ndarray) -> np.ndarray:
+    return x & -x
+
+
+def _raw_mode(unit_bytes: np.ndarray) -> np.ndarray:
+    """Kernel mode of a raw unit: 2, 4, 8, 16 bytes -> 0, 1, 2, 3."""
+    return np.log2(unit_bytes).astype(np.int64) - 1
+
+
+def descriptors(plan: CopyPlan, srcs, dsts, src_dtype, dst_dtype
+                ) -> np.ndarray:
+    """The kernel's descriptors ``int64 [n, 8]`` (src address, dst
+    address, src stride, dst stride, rows, cols, tile0 = 0, mode) for one
+    call: addresses from the tensors, everything in the widest unit that
+    every address, stride and row length of the copy allows."""
+    a = plan.a
+    n = len(a)
+    zero = a[:, SRC] < 0
+    soff, sstride = _src_geometry(plan, srcs)
+    sbase = np.asarray([t.data_ptr() for t in srcs] or [0], np.int64)
+    dbase = np.asarray([t.data_ptr() for t in dsts], np.int64)
+    de = _ESIZE[dst_dtype]
+    se = _ESIZE[src_dtype] if src_dtype is not None else de
+    saddr = np.where(zero, 0, sbase[np.maximum(a[:, SRC], 0)]
+                     + soff * se)
+    daddr = dbase[a[:, DST]] + a[:, DST_OFF] * de
+    out = np.zeros((n, 8), np.int64)
+    if src_dtype is None or src_dtype == dst_dtype:
+        # raw units of 2..16 bytes
+        g = (daddr | (a[:, DST_STRIDE] * de) | (a[:, COLS] * de)
+             | np.where(zero, 0, saddr | (sstride * se)))
+        unit = np.minimum(_lowbit(g), 16)
+        if (unit < de).any():
+            raise ValueError("exchange copy: a tensor is not aligned to its "
+                             "element size")
+        per = unit // de  # elements a unit
+        mode = _raw_mode(unit)
+    else:
+        # casts: units of 1, 2 or 4 elements
+        if {src_dtype, dst_dtype} != set(_FLOATS):
+            raise ValueError(f"exchange copy: no cast from {src_dtype} to "
+                             f"{dst_dtype}")
+        g = ((daddr // de) | a[:, DST_STRIDE] | a[:, COLS]
+             | np.where(zero, 0, (saddr // se) | sstride))
+        per = np.minimum(_lowbit(g), 4)
+        base = 4 if src_dtype == torch.float32 else 7
+        mode = base + np.log2(per).astype(np.int64)
+        # a zero-filled copy has no source: raw units of the destination
+        zbytes = np.minimum(_lowbit(daddr | (a[:, DST_STRIDE] * de)
+                                    | (a[:, COLS] * de)), 16)
+        per = np.where(zero, zbytes // de, per)
+        mode = np.where(zero, _raw_mode(zbytes), mode)
+    out[:, 0] = saddr
+    out[:, 1] = daddr
+    out[:, 2] = sstride // per
+    out[:, 3] = a[:, DST_STRIDE] // per
+    out[:, 4] = a[:, ROWS]
+    out[:, 5] = a[:, COLS] // per
+    out[:, 7] = mode
+    return out
+
+
+#: launch chunks kept per plan: the caching allocator hands a step's
+#: tensors the same addresses step after step, so they are found again
+LAUNCH_CACHE = 8
+
+
+def _launch_chunks(plan: CopyPlan, srcs, dsts, src_dtype, dst_dtype,
+                   what: str):
+    """``[(descriptors int64 [<= MAX_DESCS, 8], tiles)]`` of one call,
+    kept on the plan by the tensors' addresses and dtypes."""
+    key = (src_dtype, dst_dtype, tuple(t.data_ptr() for t in srcs),
+           tuple(d.data_ptr() for d in dsts),
+           tuple(srcs[i].stride(0) for i in plan.row_src))
+    chunks = plan.launch_cache.get(key)
+    if chunks is not None:
+        return chunks
+    desc = descriptors(plan, srcs, dsts, src_dtype, dst_dtype)
+    tiles = -(-(desc[:, 4] * desc[:, 5]) // TILE_UNITS)
+    chunks = []
+    for s in range(0, len(desc), MAX_DESCS):
+        chunk = np.ascontiguousarray(desc[s:s + MAX_DESCS])
+        t = tiles[s:s + MAX_DESCS]
+        chunk[:, 6] = np.cumsum(t) - t
+        n_tiles = int(t.sum())
+        if n_tiles >= 2 ** 31:
+            raise ValueError(f"{what}: {n_tiles} tiles in one launch")
+        chunks.append((chunk, n_tiles))
+    if len(plan.launch_cache) >= LAUNCH_CACHE:
+        plan.launch_cache.clear()
+    plan.launch_cache[key] = chunks
+    return chunks
+
+
+def _library():
+    """The loaded ``exchange_pack`` library, its launch geometry checked
+    against this module's once."""
+    lib = _kernels.library("exchange_pack")
+    if not getattr(lib, "geometry_checked", False):
+        if (lib.detpu_pack_max_descs(), lib.detpu_pack_tile_units()) != (
+                MAX_DESCS, TILE_UNITS):
+            raise RuntimeError("csrc/exchange_pack.cu and "
+                               "ops/exchange_pack.py disagree on the launch "
+                               "geometry")
+        lib.geometry_checked = True
+    return lib
+
+
+def _launch(fn_name: str, what: str, plan: CopyPlan, srcs, dsts,
+            src_dtype, dst_dtype) -> int:
+    """Launch the kernel over the plan's descriptors, :data:`MAX_DESCS`
+    a launch; returns the number of launches."""
+    dev = dsts[0].device
+    if any(t.device != dev for t in srcs):
+        raise ValueError(f"{what}: every tensor must be on {dev}")
+    if len(plan) == 0:
+        return 0
+    chunks = _launch_chunks(plan, srcs, dsts, src_dtype, dst_dtype, what)
+    lib = _library()
+    fn = getattr(lib, fn_name)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for chunk, n_tiles in chunks:
+        _kernels.check(lib, fn(chunk.ctypes.data, len(chunk), n_tiles,
+                               stream), what)
+    return len(chunks)
+
+
+def _run(fn, fn_name, plan, srcs, dsts, dtypes):
+    what = fn.__name__
+    if not dsts:
+        raise ValueError(f"{what}: no destination")
+    sdt, ddt = _check_tensors(plan, srcs, dsts, what)
+    for dt in (sdt, ddt):
+        if dt is not None and dt not in dtypes:
+            raise ValueError(f"{what}: dtype {dt} is not one of {dtypes}")
+    dev = dsts[0].device
+    if dev.type == "cpu":
+        return batched_copy_plain(plan, srcs, dsts)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    fn.launches += _launch(fn_name, what, plan, srcs, dsts, sdt, ddt)
+
+
+def pack_ids(plan: CopyPlan, srcs: Sequence[torch.Tensor],
+             out: torch.Tensor) -> torch.Tensor:
+    """K19: run ``plan``'s copies from the id tensors ``srcs`` (int32 or
+    int64, one dtype, contiguous) into ``out`` (the same dtype,
+    contiguous; destination 0). A CPU ``out`` runs
+    :func:`batched_copy_plain`; a CUDA ``out`` launches the kernel or
+    raises. Returns ``out``."""
+    if plan.n_dst > 1:
+        raise ValueError("pack_ids writes one destination")
+    srcs = list(srcs)
+    sdt = {srcs[i].dtype for i in plan.used_src if i < len(srcs)}
+    if sdt - {out.dtype}:
+        raise ValueError(f"pack_ids: sources {sdt} must have the block's "
+                         f"dtype {out.dtype}")
+    _run(pack_ids, "detpu_pack_ids", plan, srcs, [out],
+         (torch.int32, torch.int64))
+    return out
+
+
+pack_ids.launches = 0
+
+
+def pack_columns(plan: CopyPlan, srcs: Sequence[torch.Tensor],
+                 dsts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """K20: run ``plan``'s copies from the float tensors ``srcs`` (one
+    dtype, contiguous) into ``dsts`` (one dtype, contiguous), casting
+    float32 <-> bfloat16 where the two differ. CPU tensors run
+    :func:`batched_copy_plain`; CUDA tensors launch the kernel or raise.
+    Returns ``dsts``."""
+    dsts = list(dsts)
+    _run(pack_columns, "detpu_pack_cols", plan, list(srcs), dsts, _FLOATS)
+    return dsts
+
+
+pack_columns.launches = 0
+
+
+def pack_ids_plain(plan: CopyPlan, srcs: Sequence[torch.Tensor],
+                   out: torch.Tensor) -> torch.Tensor:
+    """:func:`pack_ids` through :func:`batched_copy_plain` on any device
+    (the reference run of the card checks). Returns ``out``."""
+    batched_copy_plain(plan, list(srcs), [out])
+    return out
+
+
+def pack_columns_plain(plan: CopyPlan, srcs: Sequence[torch.Tensor],
+                       dsts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """:func:`pack_columns` through :func:`batched_copy_plain` on any
+    device. Returns ``dsts``."""
+    dsts = list(dsts)
+    batched_copy_plain(plan, list(srcs), dsts)
+    return dsts
+
+
+__all__ = ["CopyPlan", "MAX_DESCS", "batched_copy_plain", "descriptors",
+           "pack_columns", "pack_columns_plain", "pack_ids",
+           "pack_ids_plain"]

@@ -1,9 +1,11 @@
-"""Placement planner, the world-1 embedding layer, its sparse
-optimizers, the train and eval steps, streaming vocabularies, and the
-serving runtime."""
+"""Placement planner, the embedding layer, its sparse optimizers, the
+process-group layer and the hybrid gradients, the train and eval steps,
+streaming vocabularies, and the serving runtime."""
 
-from . import streaming
+from . import bootstrap, streaming
 from .dist_embedding import DistributedEmbedding
+from .grads import (broadcast_variables, hybrid_gradients, mean_flat,
+                    resolve_dp_gradient, split_mp_dp)
 from .optimizers import (SGD, Adagrad, Adam, AdamState, ScheduleState,
                          SparseAdagrad, SparseAdam, SparseMomentum,
                          SparseSGD, TraceState)
@@ -26,4 +28,6 @@ __all__ = ["DistributedEmbedding", "ExchangePlan", "build_plan",
            "init_hybrid_state", "SGD", "SparseSGD", "Adagrad",
            "SparseAdagrad", "Adam", "SparseAdam", "SparseMomentum",
            "AdamState", "TraceState", "ScheduleState", "StreamingConfig",
-           "init_streaming", "streaming"]
+           "init_streaming", "streaming", "bootstrap",
+           "broadcast_variables", "hybrid_gradients", "mean_flat",
+           "resolve_dp_gradient", "split_mp_dp"]

@@ -1,13 +1,16 @@
 """Apply layer of the hybrid step: the manual sparse backward and the
 per-width optimizer scatters (counterpart of
-``distributed_embeddings_tpu/parallel/apply.py``), at world 1.
+``distributed_embeddings_tpu/parallel/apply.py``).
 
-Everything after the dense backward: the output cotangents go back to
-worker order and into the plan's column layout
-(:func:`~.exchange.pack_grad_blocks`; the reverse exchange is a
-passthrough at world 1), the per-group id streams are rebuilt from the
-forward's residual, and each width slab gets ONE optimizer scatter
-(:func:`apply_width_streams`). No dense table gradient is ever built.
+Everything after the dense backward: the output cotangents go into the
+plan's column layout, each column slice of a sliced table's cotangent
+to its own columns (:func:`~.exchange.pack_grad_blocks`, K20: the JAX
+package's inversion of the column-slice collapse and its packing in one
+launch), back to the tables' ranks (:func:`~.exchange.exchange_grads`;
+a passthrough at world 1), the per-group id streams are rebuilt from
+the forward's residual, and each width slab gets ONE optimizer scatter
+(:func:`apply_width_streams`) scaled by ``1/world``. No dense table
+gradient is ever built.
 
 Dense groups (kind ``"d"``) build their stream with torch ops; ragged
 groups (``"r"``/``"rw"``) on K10 (the row offsets from the residual's
@@ -109,22 +112,19 @@ def cotangent_width_streams(de, residuals, out_grads, fallback_dtype=None):
     padding slot and every position outside the rows become the
     dropped-row sentinel ``rows_cap[w]``: a bad id trains nothing."""
     _, ids_recv, encs, b = residuals
-    # no-combiner outputs keep their [b, h, w] rank; the layout is flat
-    out_grads = [g.reshape(g.shape[0], -1) for g in out_grads]
-    world = de.world_size
     plan = de._get_plan(list(encs), b)
-
-    # back to worker order (at world 1 no table is column- or row-sliced,
-    # so every input owns exactly one worker instance)
-    rev = de.strategy.rev_global_input_ids
-    worker_grads: List = [None] * len(rev)
-    for i, g in enumerate(out_grads):
-        worker_grads[rev[i]] = g
     out_dtype = out_grads[0].dtype if out_grads else fallback_dtype
-    grads_by_worker = dict(zip(plan.instances, worker_grads))
-    mp_grad = exchange_mod.pack_grad_blocks(de, plan, grads_by_worker, b,
-                                            out_dtype)
+    packed = exchange_mod.pack_grad_blocks(de, plan, out_grads, b,
+                                           out_dtype)
+    mp_grad = exchange_mod.exchange_grads(de, packed)
+    return received_width_streams(de, plan, ids_recv, mp_grad, b)
 
+
+def received_width_streams(de, plan, ids_recv, mp_grad, b: int):
+    """The per-width streams of :func:`cotangent_width_streams` from this
+    rank's received cotangents ``mp_grad [world, b, s_max]`` and its
+    received id block."""
+    world = de.world_size
     per_width: Dict[str, List] = {}
     for gi, g in enumerate(plan.groups):
         if plan.rsliced[gi].any():
@@ -170,13 +170,18 @@ def _ragged_stream(de, plan, gi, g, b, region, gsl, rows, roff, sent):
     lengths (dead slots get none), K9 expands the ``[world, b, n, w]``
     cotangent, read in place, to every value position."""
     world = de.world_size
-    mean, valid = de._plan_ragged_meta(plan, gi, gsl.device)
+    mean, valid = de._plan_ragged_meta(plan, gi, gsl.device, reps=world)
+    if world > 1:
+        rows, roff, _, _ = de._plan_meta(plan, gi, gsl.device, reps=world)
     values, lengths, wbits = region_views(g, b, region)
     splits = lengths_to_splits(lengths, valid)
     # int32 ids stay int32 while the sentinel fits (the JAX stream's dtype)
     idt = values.dtype if sent < 2 ** 31 else torch.int64
+    # [world * n, b, w] (source, slot) blocks: a strided view at world 1
+    g3 = (gsl[0].transpose(0, 1) if world == 1 else
+          gsl.permute(0, 2, 1, 3).reshape(world * g.n, b, g.width))
     ids, vals = ragged_grad(
-        gsl[0].transpose(0, 1), splits, values=values, rows=rows,
-        roff=roff, sentinel=sent, ids_dtype=idt, mean=mean, weights=wbits)
+        g3, splits, values=values, rows=rows, roff=roff, sentinel=sent,
+        ids_dtype=idt, mean=mean, weights=wbits)
     return (ids.reshape(world, g.n, g.hot),
             vals.reshape(world, g.n, g.hot, g.width), g.width)

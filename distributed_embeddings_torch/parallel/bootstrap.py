@@ -1,0 +1,230 @@
+"""The process-group layer: joining ``torch.distributed`` and moving
+tensors over it (counterpart of
+``distributed_embeddings_tpu/parallel/bootstrap.py``).
+
+The JAX package joins one process per host into one runtime and lets
+SPMD programs span its devices. Here every rank is a process (one per
+GPU, or several on one card), joined by :func:`initialize` with an
+explicit backend, address, world size and rank: nothing is detected
+from the environment, and a backend that fails to start raises. After
+it, :class:`~.dist_embedding.DistributedEmbedding` takes the group
+(``process_group=``, ``None`` for the default one) the way the JAX layer
+takes its mesh axis.
+
+The collectives the hybrid step runs (:func:`all_to_all`,
+:func:`all_reduce_sum_`, :func:`broadcast_`) hand their tensors to the
+group's own backend as they are, on the host or on the card (gloo
+copies a CUDA tensor through host memory itself); bfloat16 travels as
+its bytes in the all-to-all and the broadcast (copies, not sums).
+"""
+
+from __future__ import annotations
+
+import datetime
+import logging
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from ..utils import runtime
+
+logger = logging.getLogger(__name__)
+
+
+def initialize(backend: str, init_method: str, world_size: int, rank: int,
+               timeout_s: Optional[float] = None, retries: int = 2) -> bool:
+    """Join the process group (``torch.distributed.init_process_group``
+    with these arguments); safe to call more than once.
+
+    Args:
+      backend: ``"nccl"`` or ``"gloo"``, explicit: there is no switch from
+        one to the other. A backend this build lacks raises
+        ``ValueError`` at once.
+      init_method: the rendezvous, ``"tcp://host:port"`` or
+        ``"file:///path"``.
+      world_size, rank: this job's ranks and this process's rank.
+      timeout_s: the group's timeout (each collective and the join);
+        ``None`` keeps PyTorch's default.
+      retries: further attempts after a failed join, with backoff.
+
+    Returns True if this call joined, False if the process was already
+    in a group. After ``retries + 1`` failed attempts it raises
+    :class:`~..utils.runtime.CoordinatorUnreachable`.
+    """
+    if dist.is_initialized():
+        return False
+    avail = {"nccl": dist.is_nccl_available(),
+             "gloo": dist.is_gloo_available()}
+    if backend not in avail:
+        raise ValueError(f"backend must be 'nccl' or 'gloo', got "
+                         f"{backend!r}")
+    if not avail[backend]:
+        raise ValueError(f"this PyTorch build has no {backend} backend")
+    kw = {}
+    if timeout_s is not None:
+        kw["timeout"] = datetime.timedelta(seconds=float(timeout_s))
+    last: Optional[BaseException] = None
+    t0 = time.monotonic()
+    for attempt in range(int(retries) + 1):
+        try:
+            dist.init_process_group(backend=backend, init_method=init_method,
+                                    world_size=int(world_size),
+                                    rank=int(rank), **kw)
+            logger.info("bootstrap: joined %s group as rank %d/%d in %.2fs",
+                        backend, rank, world_size, time.monotonic() - t0)
+            return True
+        except (RuntimeError, ValueError, OSError) as e:
+            last = e
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            if attempt < retries:
+                time.sleep(min(2.0 ** attempt, 10.0) * (0.5 + np.random.
+                                                        random()))
+    raise runtime.CoordinatorUnreachable(
+        f"joining the {backend} group at {init_method!r} as rank {rank} of "
+        f"{world_size} failed {int(retries) + 1} time(s): {last!r}"
+    ) from last
+
+
+def process_count() -> int:
+    """Ranks in the default group (1 outside any group)."""
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def process_index() -> int:
+    """This process's rank in the default group (0 outside any group)."""
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def world() -> int:
+    """The ``world_size`` to build a
+    :class:`~.dist_embedding.DistributedEmbedding` with: one rank a
+    process."""
+    return process_count()
+
+
+def group_rank(group, world_size: int) -> int:
+    """This process's rank in ``group`` (``None``: the default group),
+    checking that the group has ``world_size`` ranks."""
+    if not dist.is_initialized():
+        raise RuntimeError(
+            f"world_size={world_size} needs a torch.distributed process "
+            "group: join one first (parallel/bootstrap.py:initialize)")
+    n = dist.get_world_size(group)
+    if n != world_size:
+        raise ValueError(f"the process group has {n} ranks, the layer "
+                         f"world_size={world_size}")
+    return dist.get_rank(group)
+
+
+def _wire(t: torch.Tensor) -> torch.Tensor:
+    """bfloat16 as its bytes (a view) for the copying collectives: gloo
+    moves no bfloat16 or 16-bit integer tensors."""
+    return t.view(torch.uint8) if t.dtype == torch.bfloat16 else t
+
+
+def all_to_all(x: torch.Tensor, group, world_size: int) -> torch.Tensor:
+    """``out[r] = x_on_rank_r[my rank]`` over the leading ``[world, ...]``
+    axis (the tiled all-to-all of the JAX package). World 1 returns
+    ``x`` itself."""
+    if world_size == 1:
+        return x
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(_wire(out), _wire(x), group=group)
+    return out
+
+
+def all_reduce_sum_(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum ``x`` over the group, in place; returns ``x``."""
+    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    return x
+
+
+def broadcast_(x: torch.Tensor, src: int, group) -> torch.Tensor:
+    """Overwrite ``x`` on every rank with group rank ``src``'s, in place;
+    returns ``x``."""
+    gsrc = dist.get_global_rank(group, src) if group is not None else src
+    dist.broadcast(_wire(x), gsrc, group=group)
+    return x
+
+
+def shard_batch(tree, rank: Optional[int] = None,
+                world_size: Optional[int] = None):
+    """This rank's rows of a GLOBAL batch (the reference's per-rank
+    dataset slicing): every tensor or array leaf ``[world * b, ...]``
+    gives rows ``[rank * b, (rank + 1) * b)``. A global
+    :class:`~..ops.embedding_lookup.Ragged` gives its rows' values and
+    weights, padded to the largest rank's count (every rank's capacity,
+    and so its exchange plan, must be the same), with rebased splits.
+    ``rank``/``world_size`` default to this process's."""
+    from ..ops.embedding_lookup import Ragged
+
+    rank = process_index() if rank is None else int(rank)
+    world_size = process_count() if world_size is None else int(world_size)
+
+    def padded(x, lo, n, cap):
+        x = torch.as_tensor(x)
+        out = torch.zeros(cap, dtype=x.dtype)
+        out[:n] = x[lo:lo + n]
+        return out
+
+    def rows(x):
+        if isinstance(x, Ragged):
+            splits = torch.as_tensor(x.row_splits)
+            b = (splits.numel() - 1) // world_size
+            ends = splits[::b].long()
+            cap = max(int((ends[1:] - ends[:-1]).max()), 1)
+            lo = int(ends[rank])
+            n = int(ends[rank + 1]) - lo
+            return Ragged(
+                values=padded(x.values, lo, n, cap),
+                row_splits=splits[rank * b:(rank + 1) * b + 1] - lo,
+                weights=(None if x.weights is None
+                         else padded(x.weights, lo, n, cap)))
+        if isinstance(x, dict):
+            return {k: rows(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(rows(v) for v in x)
+        b = x.shape[0] // world_size
+        return x[rank * b:(rank + 1) * b]
+
+    return rows(tree)
+
+
+def to_host(x: torch.Tensor, group=None) -> np.ndarray:
+    """Every rank's ``x`` (each ``[b, ...]``) gathered in rank order on
+    every rank, as one host array ``[world * b, ...]`` (the reference's
+    ``hvd.allgather`` of eval predictions; bfloat16 comes back as
+    float32, which holds it exactly)."""
+    x = x.detach()
+    if x.dtype == torch.bfloat16:
+        x = x.float()
+    if not dist.is_initialized() or dist.get_world_size(group) == 1:
+        return x.cpu().numpy()
+    nccl = dist.get_backend(group) == dist.Backend.NCCL
+    src = (x if nccl else x.cpu()).contiguous()
+    parts = [torch.empty_like(src)
+             for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, src, group=group)
+    return torch.cat(parts).cpu().numpy()
+
+
+def broadcast_seed(seed: int, group=None) -> int:
+    """Rank 0's ``seed`` on every rank (the reference's
+    ``hvd.broadcast_object(seed)``)."""
+    if not dist.is_initialized():
+        return int(seed)
+    t = torch.tensor([int(seed)], dtype=torch.int64)
+    if dist.get_backend(group) == dist.Backend.NCCL:
+        t = t.cuda()
+    broadcast_(t, 0, group)
+    return int(t.cpu()[0])
+
+
+__all__ = ["all_reduce_sum_", "all_to_all", "broadcast_", "broadcast_seed",
+           "group_rank", "initialize", "process_count", "process_index",
+           "shard_batch", "to_host", "world"]

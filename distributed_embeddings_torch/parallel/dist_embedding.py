@@ -1,16 +1,25 @@
 """Model-parallel embedding layer (counterpart of
-``distributed_embeddings_tpu/parallel/dist_embedding.py``), at world 1.
+``distributed_embeddings_tpu/parallel/dist_embedding.py``).
 
-What this slice ports: the constructor's placement plan and slab-offset
-bookkeeping, ``init``, input normalization, the cached exchange plans,
-the world-1 forward (``__call__`` / ``forward_with_residuals``), and
-``get_table`` / ``get_weights`` / ``set_weights`` (chunked, with the
-``src_dtype`` and ``use_lock`` of the checkpoint codec). Tables of one width stack row-major
-into one LOGICAL slab per width, ``{"w128": [world, rows_cap, 128]}``,
-each table starting at the same row offset as in the JAX package (its
-lane-packing alignment is kept, see ``ops/packed_slab.py``), so both
-packages build identical exchange plans. Every (width, hotness) group
-of the plan is ONE launch of the gather kernel (``parallel/lookup.py``).
+The constructor's placement plan and slab-offset bookkeeping, ``init``,
+input normalization, the cached exchange plans, the forward
+(``__call__`` / ``forward_with_residuals``) and ``get_table`` /
+``get_weights`` / ``set_weights`` (chunked, with the ``src_dtype`` and
+``use_lock`` of the checkpoint codec). Tables of one width stack
+row-major into one LOGICAL slab per width, each table starting at the
+same row offset as in the JAX package (its lane-packing alignment is
+kept, see ``ops/packed_slab.py``), so both packages build identical
+exchange plans. Every (width, hotness) group of the plan is ONE launch of
+the gather kernel (``parallel/lookup.py``).
+
+At world 1 the slabs are ``{"w128": [1, rows_cap, 128]}`` and the
+exchanges are passthroughs. At ``world_size > 1`` every rank is a
+process of a ``torch.distributed`` group (``process_group=``, see
+``parallel/bootstrap.py``) and holds only ITS slab ``[1, rows_cap, w]``;
+the forward takes this rank's rows of the batch (data-parallel input),
+exchanges ids, looks up its tables, exchanges the outputs back and
+unpacks them (``parallel/exchange.py``, kernels K19/K20), the column
+slices of a sliced table side by side.
 
 Inputs are dense id tensors, :class:`~..ops.embedding_lookup.Ragged`
 CSR batches (tables with a combiner; optional per-id weights ride the
@@ -23,12 +32,13 @@ of them.
 telemetry (``analysis/telemetry.py``, kernels K13-K15). Tables with a
 ``"streaming"`` entry serve an unbounded external id space through a
 carried slot map (``forward_with_residuals(streaming=)``,
-``parallel/streaming.py``, kernels K16-K17).
+``parallel/streaming.py``, kernels K16-K17). Both at world 1.
 
 Not yet ported, each raising ``NotImplementedError`` with its ROADMAP
-item: ``world_size > 1`` (A7), row slicing (A9), the pipelined step's
-``"serve"`` streaming form (A7) and the ``'raise'`` invalid-id policy
-(A12); model-parallel input and step schedules (A5b, A7, A11b).
+item: row slicing (A9), model-parallel input (``dp_input=False``),
+streaming and telemetry at world > 1 and the pipelined step's
+``"serve"`` streaming form (A7b), and the ``'raise'`` invalid-id policy
+(A12).
 
 Ids must lie in ``[0, input_dim)``; out-of-range ids CLIP in the
 forward (a negative id reads row 0, one past the table its last row),
@@ -51,6 +61,7 @@ from ..ops.embedding_lookup import Ragged, SparseIds, row_to_split
 from ..utils.convert import host_tensor
 from ..utils.device import resolve_device
 from . import apply as apply_mod
+from . import bootstrap
 from . import exchange as exchange_mod
 from . import lookup as lookup_mod
 from . import plan as plan_mod
@@ -108,13 +119,20 @@ def _map_tensors(fn, tree):
 
 
 class DistributedEmbedding:
-    """Embedding tables behind one plan-driven lookup (world 1).
+    """Embedding tables behind one plan-driven lookup.
 
     Args follow the JAX package's ``DistributedEmbedding``:
       embeddings: table config dicts (``input_dim``, ``output_dim``,
         optional ``combiner`` and ``embeddings_initializer`` — an
         in-place ``init(out, generator)``, see ``layers/embedding.py``).
-      world_size: must be 1 in this slice.
+      world_size: the ranks the tables are sharded over (1: one process
+        holds them all).
+      process_group: the ``torch.distributed`` group of those ranks (the
+        counterpart of the JAX mesh axis); ``None`` is the default group.
+        Read only at world > 1, where this process's rank in it decides
+        which slab it holds.
+      dp_input: data-parallel input (each rank passes its rows of the
+        batch); ``False`` (model-parallel input) raises: ROADMAP A7b.
       strategy, column_slice_threshold, input_table_map, input_hotness,
         table_loads: passed to :class:`DistEmbeddingStrategy`.
       compute_dtype: torch dtype the outputs are cast to (``None`` keeps
@@ -135,11 +153,13 @@ class DistributedEmbedding:
                  input_hotness: Optional[Sequence[int]] = None,
                  masked_reads: bool = False,
                  invalid_id_policy: str = "clamp",
-                 table_loads: Optional[Sequence[float]] = None):
-        if int(world_size) != 1:
+                 table_loads: Optional[Sequence[float]] = None,
+                 process_group=None,
+                 dp_input: bool = True):
+        if not dp_input:
             raise NotImplementedError(
-                "world_size > 1 (the all-to-all exchanges over NCCL) is "
-                "not ported yet: ROADMAP A7")
+                "model-parallel input (MpInputs, pack_mp_inputs) is not "
+                "ported yet: ROADMAP A7b")
         if row_slice is not None:
             raise NotImplementedError(
                 "row slicing is not ported yet: ROADMAP A9")
@@ -151,7 +171,11 @@ class DistributedEmbedding:
             raise ValueError(
                 f"invalid_id_policy must be 'clamp' | 'drop' | 'raise', "
                 f"got {invalid_id_policy!r}")
-        self.world_size = 1
+        self.world_size = int(world_size)
+        if self.world_size < 1:
+            raise ValueError(f"world_size must be >= 1, got {world_size}")
+        self.process_group = process_group
+        self._rank = None if self.world_size > 1 else 0
         self.compute_dtype = compute_dtype
         self.invalid_id_policy = invalid_id_policy
         self.masked_reads = bool(masked_reads) or invalid_id_policy == "drop"
@@ -160,16 +184,22 @@ class DistributedEmbedding:
             input_table_map=input_table_map,
             column_slice_threshold=column_slice_threshold,
             input_hotness=input_hotness, table_loads=table_loads)
+        if len(self.strategy.global_configs) < self.world_size:
+            raise NotImplementedError(
+                "Fewer tables than ranks is not supported (reference "
+                "constraint, dist_model_parallel.py:252-253)")
+        # slices per global table (column slicing)
+        self.slices_per_table = [0] * len(self.strategy.global_configs)
+        for tids in self.strategy.table_ids_list:
+            for tid in tids:
+                self.slices_per_table[tid] += 1
         # streaming (dynamic-vocab) tables: {tid: (capacity, buckets)}.
         # The declared input_dim is the slab footprint (capacity slots,
         # then the shared bucket rows); only the id interpretation changes
         # (external ids remap through the carried slot map,
         # parallel/streaming.py). A slot map cannot span slices.
         self.streaming_tables: Dict[int, tuple] = {}
-        slices = [0] * len(self.strategy.global_configs)
-        for tids in self.strategy.table_ids_list:
-            for tid in tids:
-                slices[tid] += 1
+        slices = self.slices_per_table
         for tid, cfg in enumerate(self.strategy.global_configs):
             sc = cfg.get("streaming")
             if not sc:
@@ -198,27 +228,53 @@ class DistributedEmbedding:
 
     # ------------------------------------------------------------------ params
 
+    @property
+    def rank(self) -> int:
+        """This process's rank in the layer's group (0 at world 1)."""
+        if self._rank is None:
+            self._rank = bootstrap.group_rank(self.process_group,
+                                              self.world_size)
+        return self._rank
+
     def _tables_of_width(self, width: int):
-        """``(config, slab row offset)`` of rank 0's tables of one width."""
-        return [(c, self.row_offsets_list[0][m])
-                for m, c in enumerate(self.strategy.local_configs_list[0])
+        """``(config, slab row offset)`` of this rank's tables of one
+        width."""
+        my = self.rank
+        return [(c, self.row_offsets_list[my][m])
+                for m, c in enumerate(self.strategy.local_configs_list[my])
                 if int(c["output_dim"]) == width]
+
+    def _rank_generator(self, generator, device):
+        """At world > 1, this rank's generator: seeded from ``(seed,
+        rank)``, ``seed`` the given generator's initial seed (or the
+        default one's), so the ranks draw different tables."""
+        if self.world_size == 1:
+            return generator
+        seed = (generator.initial_seed() if generator is not None
+                else torch.initial_seed())
+        mixed = np.random.SeedSequence([seed, self.rank]).generate_state(
+            1, np.uint64)[0]
+        return torch.Generator(device=device).manual_seed(
+            int(mixed) & 0x7fffffffffffffff)
 
     def init(self, generator: Optional[torch.Generator] = None,
              dtype: torch.dtype = torch.float32,
              device="cuda") -> EmbedParams:
-        """Build ``{"w<width>": [world, rows_cap, width]}``.
+        """Build this rank's slabs ``{"w<width>": [1, rows_cap, width]}``.
 
         Each slab is allocated once (``torch.empty``) and filled IN
         PLACE, table by table, by its initializer (or, when every table
         of the width uses the default, by one uniform fill of the whole
         slab, as the JAX package's fast path does), so no second copy of
-        a slab ever exists. Rows between and after tables are zeroed."""
+        a slab ever exists. Rows between and after tables are zeroed. At
+        world > 1 each rank draws from a generator derived from
+        ``(seed, rank)`` (:meth:`_rank_generator`)."""
         dev = resolve_device(device)
+        generator = self._rank_generator(generator, dev)
         out = {}
         for w in self.widths:
-            buf = torch.empty((self.world_size, self.rows_cap[w], w),
-                              dtype=dtype, device=dev)
+            buf = torch.empty((1, self.rows_cap[w], w), dtype=dtype,
+                              device=dev)
             tables = self._tables_of_width(w)
             if all(c.get("embeddings_initializer") is None
                    for c, _ in tables):
@@ -236,44 +292,85 @@ class DistributedEmbedding:
             out[_wkey(w)] = buf
         return out
 
+    def _slice_plan(self) -> List[List[tuple]]:
+        """Per (rank, local table): ``(table id, slab row offset, rows,
+        first column, width)``; a table's column slices are consumed in
+        rank order, the JAX package's ``_slice_plan``."""
+        col = [0] * len(self.strategy.global_configs)
+        plan = []
+        for r, cfgs in enumerate(self.strategy.local_configs_list):
+            rank_plan = []
+            for m, cfg in enumerate(cfgs):
+                tid = self.strategy.table_ids_list[r][m]
+                w = int(cfg["output_dim"])
+                rank_plan.append((tid, self.row_offsets_list[r][m],
+                                  int(cfg["input_dim"]), col[tid], w))
+                col[tid] += w
+            plan.append(rank_plan)
+        return plan
+
     def _table_tensor(self, params: EmbedParams, tid: int,
-                      chunk_elems: int = CHECKPOINT_CHUNK_ELEMS
-                      ) -> torch.Tensor:
+                      chunk_elems: int = CHECKPOINT_CHUNK_ELEMS,
+                      keep: bool = True) -> Optional[torch.Tensor]:
         """ONE global table ``[input_dim, output_dim]`` as a CPU tensor
         in the slab's dtype (bfloat16 kept), copied in row chunks of at
-        most ``chunk_elems`` elements."""
+        most ``chunk_elems`` elements. At world > 1 each slice's owner
+        broadcasts its chunks over the group (every rank must call);
+        ``keep=False`` joins the collectives and returns ``None``."""
         cfg = self.strategy.global_configs[tid]
-        m = self.strategy.table_ids_list[0].index(tid)
-        rows, w = int(cfg["input_dim"]), int(cfg["output_dim"])
-        roff = self.row_offsets_list[0][m]
-        slab = params[_wkey(w)][0]
-        host = torch.empty((rows, w), dtype=slab.dtype)
-        step = max(1, int(chunk_elems) // w)
-        for s in range(0, rows, step):
-            n = min(step, rows - s)
-            host[s:s + n].copy_(slab[roff + s:roff + s + n])
+        host = None
+        for r, rank_plan in enumerate(self._slice_plan()):
+            for t2, roff, rows, c0, w in rank_plan:
+                if t2 != tid:
+                    continue
+                slab = params[_wkey(w)][0]
+                if host is None and keep:
+                    host = torch.empty((int(cfg["input_dim"]),
+                                        int(cfg["output_dim"])),
+                                       dtype=slab.dtype)
+                step = max(1, int(chunk_elems) // w)
+                for s in range(0, rows, step):
+                    n = min(step, rows - s)
+                    if self.world_size == 1:
+                        chunk = slab[roff + s:roff + s + n]
+                    else:
+                        chunk = (slab[roff + s:roff + s + n].clone()
+                                 if r == self.rank else torch.empty(
+                                     (n, w), dtype=slab.dtype,
+                                     device=slab.device))
+                        bootstrap.broadcast_(chunk, r, self.process_group)
+                    if keep:
+                        host[s:s + n, c0:c0 + w].copy_(chunk)
         return host
 
     def get_table(self, params: EmbedParams, tid: int,
                   chunk_elems: int = CHECKPOINT_CHUNK_ELEMS,
-                  all_ranks: bool = True) -> np.ndarray:
+                  all_ranks: bool = True) -> Optional[np.ndarray]:
         """ONE global table on the host, ``[input_dim, output_dim]``,
         copied in row chunks of at most ``chunk_elems`` elements, so a
         checkpoint writer holds one table, not the model. numpy has no
         bfloat16, so bfloat16 tables come back as float32 (exact).
-        ``all_ranks`` matters only at world > 1 (ROADMAP A7): here the
-        one process always gets the table."""
-        del all_ranks
-        t = self._table_tensor(params, tid, chunk_elems)
+
+        At world > 1 every rank must call (the chunks are broadcast over
+        the group, the reference's chunked allgather); with ``all_ranks=
+        False`` only rank 0 keeps the table and the others return
+        ``None``."""
+        keep = all_ranks or self.rank == 0
+        t = self._table_tensor(params, tid, chunk_elems, keep=keep)
+        if t is None:
+            return None
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
     def get_weights(self, params: EmbedParams,
                     chunk_elems: int = CHECKPOINT_CHUNK_ELEMS,
-                    all_ranks: bool = True) -> List[np.ndarray]:
-        """The global tables on the host (:meth:`get_table` each)."""
-        return [self.get_table(params, tid, chunk_elems=chunk_elems,
-                               all_ranks=all_ranks)
-                for tid in range(len(self.strategy.global_configs))]
+                    all_ranks: bool = True) -> Optional[List[np.ndarray]]:
+        """The global tables on the host (:meth:`get_table` each; at
+        world > 1 with ``all_ranks=False``, ``None`` on ranks other than
+        0)."""
+        out = [self.get_table(params, tid, chunk_elems=chunk_elems,
+                              all_ranks=all_ranks)
+               for tid in range(len(self.strategy.global_configs))]
+        return out if all_ranks or self.rank == 0 else None
 
     @staticmethod
     def _uid_lock_path() -> str:
@@ -302,9 +399,13 @@ class DistributedEmbedding:
         bfloat16 bits here (``"bfloat16"`` or ``torch.bfloat16``; the
         checkpoint codec records it in ``meta.json``).
 
+        At world > 1 each rank builds only its own slab ``[1, rows_cap,
+        w]``, reading its tables' rows (and, for a column slice, its
+        columns) from the full sources.
+
         ``use_lock=True`` serializes the build across this user's
-        processes on one per-uid file lock (the JAX package's; its
-        cross-host turn-taking belongs to world > 1, ROADMAP A7)."""
+        processes on one per-uid file lock (the JAX package's lock; its
+        turn-taking across hosts is not ported: ROADMAP A7b)."""
         from ..utils import runtime
 
         runtime.fault_point("checkpoint_read")
@@ -331,8 +432,9 @@ class DistributedEmbedding:
                     f"Table {tid}: expected shape {want}, got "
                     f"{tuple(src.shape)}")
 
-        def rows_of(src, s, n):
-            part = src[s:s + n]
+        def rows_of(src, s, n, c0, w):
+            part = (src[s:s + n] if src.shape[1] == w
+                    else src[s:s + n, c0:c0 + w])
             if _is_void(part):
                 bits = np.array(part).view(np.int16)  # a writable copy
                 return torch.from_numpy(bits).view(torch.bfloat16)
@@ -340,20 +442,19 @@ class DistributedEmbedding:
 
         def build():
             out = {}
+            mine = self._slice_plan()[self.rank]
             for w in self.widths:
-                buf = torch.zeros((self.world_size, self.rows_cap[w], w),
-                                  dtype=dtype, device=dev)
+                buf = torch.zeros((1, self.rows_cap[w], w), dtype=dtype,
+                                  device=dev)
                 step = max(1, int(chunk_elems) // w)
-                for m, c in enumerate(self.strategy.local_configs_list[0]):
-                    if int(c["output_dim"]) != w:
+                for tid, roff, rows, c0, tw in mine:
+                    if tw != w:
                         continue
-                    src = loaded[self.strategy.table_ids_list[0][m]]
-                    roff, rows = (self.row_offsets_list[0][m],
-                                  int(c["input_dim"]))
+                    src = loaded[tid]
                     for s in range(0, rows, step):
                         n = min(step, rows - s)
                         buf[0, roff + s:roff + s + n].copy_(
-                            rows_of(src, s, n).to(dtype))
+                            rows_of(src, s, n, c0, w).to(dtype))
                 out[_wkey(w)] = buf
             return out
 
@@ -487,52 +588,59 @@ class DistributedEmbedding:
             self._plan_cache[key] = p
         return p
 
-    def _plan_meta(self, plan, gi: int, device):
-        """Device arrays of one group's per-slot plan rows, cached per
-        plan: ``rows``/``roff`` (int64), the divisor (``hot`` on mean
-        slots of a multi-hot group, else 1) and the zero-read mask
-        (``None`` unless ``masked_reads``)."""
-        key = (id(plan), gi, str(device))
+    def _plan_meta(self, plan, gi: int, device, reps: int = 1):
+        """Device arrays of one group's per-slot plan rows (this rank's
+        row of the ``[world, n]`` plan tensors, the JAX ``_plan_row``),
+        cached per plan: ``rows``/``roff`` (int64), the divisor (``hot``
+        on mean slots of a multi-hot group, else 1) and the zero-read mask
+        (``None`` unless ``masked_reads``), each repeated ``reps`` times
+        (one copy per source rank of a ``[world * n, ...]`` region)."""
+        key = (id(plan), gi, str(device), reps)
         meta = self._meta_cache.get(key)
         if meta is None:
-            g = plan.groups[gi]
-            mean = plan.mean[gi][0] > 0
+            g, my = plan.groups[gi], self.rank
+            mean = plan.mean[gi][my] > 0
             div = np.where(mean & (g.hot > 1), float(g.hot), 1.0)
-            mask = (torch.ones(g.n, dtype=torch.int32, device=device)
+            mask = (torch.ones(g.n * reps, dtype=torch.int32, device=device)
                     if self.masked_reads else None)
-            meta = (torch.as_tensor(plan.rows[gi][0], dtype=torch.int64,
+            meta = (torch.as_tensor(np.tile(plan.rows[gi][my], reps),
+                                    dtype=torch.int64, device=device),
+                    torch.as_tensor(np.tile(plan.roff[gi][my], reps),
+                                    dtype=torch.int64, device=device),
+                    torch.as_tensor(np.tile(div, reps), dtype=torch.float32,
                                     device=device),
-                    torch.as_tensor(plan.roff[gi][0], dtype=torch.int64,
-                                    device=device),
-                    torch.as_tensor(div, dtype=torch.float32, device=device),
                     mask)
             self._meta_cache[key] = meta
         return meta
 
-    def _plan_ragged_meta(self, plan, gi: int, device):
-        """A ragged group's per-slot flags, cached per plan: ``mean``
-        (int32, ``None`` when no slot is a mean slot; a ragged row's
-        divisor is its own length, not the group's capacity) and
-        ``valid`` (int32, ``None`` when every slot is live)."""
-        key = ("ragged", id(plan), gi, str(device))
+    def _plan_ragged_meta(self, plan, gi: int, device, reps: int = 1):
+        """A ragged group's per-slot flags (this rank's row, repeated
+        ``reps`` times), cached per plan: ``mean`` (int32, ``None`` when
+        no slot is a mean slot; a ragged row's divisor is its own length,
+        not the group's capacity) and ``valid`` (int32, ``None`` when
+        every slot is live)."""
+        key = ("ragged", id(plan), gi, str(device), reps)
         meta = self._meta_cache.get(key)
         if meta is None:
-            mean, valid = plan.mean[gi][0] > 0, plan.valid[gi][0] > 0
-            meta = (torch.as_tensor(mean, dtype=torch.int32, device=device)
-                    if mean.any() else None,
+            my = self.rank
+            mean, valid = plan.mean[gi][my] > 0, plan.valid[gi][my] > 0
+            meta = (torch.as_tensor(np.tile(mean, reps), dtype=torch.int32,
+                                    device=device) if mean.any() else None,
                     None if valid.all() else
-                    torch.as_tensor(valid, dtype=torch.int32, device=device))
+                    torch.as_tensor(np.tile(valid, reps), dtype=torch.int32,
+                                    device=device))
             self._meta_cache[key] = meta
         return meta
 
     def _plan_bwd_meta(self, plan, gi: int, device):
-        """The backward's per-slot masks of one group, cached per plan:
-        ``valid`` (bool, ``None`` when every slot is live) and ``mean``
-        (bool, ``None`` when no slot is a mean slot)."""
+        """The backward's per-slot masks of one group (this rank's row),
+        cached per plan: ``valid`` (bool, ``None`` when every slot is
+        live) and ``mean`` (bool, ``None`` when no slot is a mean slot)."""
         key = ("bwd", id(plan), gi, str(device))
         meta = self._meta_cache.get(key)
         if meta is None:
-            valid, mean = plan.valid[gi][0] > 0, plan.mean[gi][0] > 0
+            my = self.rank
+            valid, mean = plan.valid[gi][my] > 0, plan.mean[gi][my] > 0
             meta = (None if valid.all() else
                     torch.as_tensor(valid, device=device),
                     torch.as_tensor(mean, device=device) if mean.any()
@@ -549,9 +657,11 @@ class DistributedEmbedding:
     def forward_with_residuals(self, params: EmbedParams, inputs,
                                streaming=None):
         """Forward pass that also returns the routing residuals
-        ``("dist", ids_block, encs, b)`` the sparse backward will read.
+        ``("dist", ids_block, encs, b)`` the sparse backward will read
+        (``ids_block`` is the ``[world, l_max]`` block this rank RECEIVED:
+        source rank ``r``'s ids for this rank's tables).
 
-        ``streaming`` (streaming vocabularies, :mod:`.streaming`):
+        ``streaming`` (streaming vocabularies, :mod:`.streaming`, world 1):
         ``(config, state)`` (the local state, without its world axis)
         remaps every streaming-table slot's external ids through the slot
         map right after the id block is built (hits read their slot,
@@ -560,14 +670,35 @@ class DistributedEmbedding:
         ``pending`` dict the trainer hands to :func:`.streaming.commit`.
         ``(config, state, False)`` is the read-only form (eval, serving):
         remap only, a 2-tuple return. The residuals carry the REMAPPED
-        block, so the backward and telemetry see in-range slab rows."""
+        block, so the backward and telemetry see in-range slab rows.
+
+        At world > 1 every rank of the group must call with its own rows
+        of the batch: the ids go to their tables' ranks, each rank looks
+        up its tables, and the outputs come back as ``[b, W]`` per input
+        (the column slices of a sliced table side by side)."""
         device = next(iter(params.values())).device
         local = {k: v[0] for k, v in params.items()}
         entries, encs, shapes, comm_dtype = self._normalize_inputs(
             inputs, device)
-        b = (entries[0][2].shape[0] if isinstance(entries[0], tuple)
-             else entries[0].shape[0])
+
+        def batch_of(e):
+            return e[2].shape[0] if isinstance(e, tuple) else e.shape[0]
+
+        b = batch_of(entries[0])
+        if any(batch_of(e) != b for e in entries):
+            raise ValueError("All inputs must share the batch dimension")
         plan = self._get_plan(encs, b)
+        if self.world_size > 1:
+            if streaming is not None:
+                raise NotImplementedError(
+                    "streaming vocabularies at world > 1 are not ported "
+                    "yet: ROADMAP A7b")
+            ids_recv = exchange_mod.exchange_ids(self, plan, entries,
+                                                 comm_dtype, device)
+            mp_out = lookup_mod.plan_lookup(self, plan, local, ids_recv)
+            dp_recv = exchange_mod.exchange_outputs(self, mp_out)
+            result = exchange_mod.unpack_outputs(self, plan, dp_recv)
+            return result, ("dist", ids_recv, tuple(encs), b)
         ids_recv = exchange_mod.build_send_blocks(self, plan, entries,
                                                   comm_dtype, device)
         pending = None
@@ -656,7 +787,7 @@ class DistributedEmbedding:
         if update not in (True, False):
             raise NotImplementedError(
                 f"streaming form {update!r}: the pipelined step's 'serve' "
-                "form is not ported yet: ROADMAP A7")
+                "form is not ported yet: ROADMAP A7b")
         dev, b = ids_recv.device, plan.b
         per_width: Dict[int, list] = {}
         sites = []
@@ -707,6 +838,10 @@ class DistributedEmbedding:
         streams concatenate). A dense slot's id is live when it lies in
         its table and the slot is live; a ragged slot's position also
         when it lies within the slot's claimed values."""
+        if self.world_size > 1:
+            raise NotImplementedError(
+                "access telemetry at world > 1 is not ported yet: ROADMAP "
+                "A7b")
         res_list = ([residuals] if residuals and residuals[0] == "dist"
                     else list(residuals))
         world = self.world_size

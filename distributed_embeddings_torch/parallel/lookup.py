@@ -5,7 +5,8 @@ Each (width, kind) group of the exchange plan is one kernel launch over
 one slab and one id region, with the plan's per-slot ``rows``/``roff``/
 divisor/mask as small device arrays:
 
-* dense groups (kind ``"d"``, ``[n, b, hot]`` ids) on the gather kernel
+* dense groups (kind ``"d"``, ``[world * n, b, hot]`` ids) on the gather
+  kernel
   K1 (:func:`~..ops.embedding_lookup.gather_combine`);
 * ragged groups (``"r"``: ``cap`` values then ``b`` lengths per slot;
   ``"rw"``: then ``cap`` weight bits) on K10, which turns the lengths
@@ -18,6 +19,11 @@ The JAX package decodes a ragged region into per-position arrays
 (``csr_seg``, ``ragged_decode``, ``region_weights``,
 ``ragged_scatter_idx``) and scatters them; here K10 and K8 read the
 region in place, and the tests hold them to those helpers.
+
+At world > 1 the region holds one block per source rank, so each group
+is one launch over ``world * n`` slots, with this rank's per-slot plan
+row repeated per source; :func:`plan_lookup` lays the groups' lookups
+out as the ``[world, b, s_max]`` rows the output exchange sends (K20).
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import torch
 
 from ..ops.embedding_lookup import (gather_combine, lengths_to_splits,
                                     ragged_combine)
+from . import exchange as exchange_mod
 
 
 def _wkey(width: int) -> str:
@@ -45,6 +52,21 @@ def region_views(g, b: int, region: torch.Tensor):
     return values, lengths, wbits
 
 
+def plan_lookup(de, plan, params, ids_recv) -> torch.Tensor:
+    """All this rank's lookups in exchange-row layout ``[world, b,
+    s_max]`` in ``compute_dtype`` (the cast before the output exchange,
+    reference ``dist_model_parallel.py:300``): one launch per group, then
+    ONE K20 launch that places every (source rank, slot) block at its
+    columns, casting on the way; the columns of this rank's dead slots
+    are zero."""
+    reds = [lookup_group(de, plan, gi, g, params[_wkey(g.width)], ids_recv,
+                         plan.b, out_dtype=params[_wkey(g.width)].dtype)
+            for gi, g in enumerate(plan.groups)]
+    slab = next(iter(params.values()))
+    return exchange_mod.pack_lookup_rows(
+        de, plan, reds, de.compute_dtype or slab.dtype, slab.device)
+
+
 def plan_lookup_groups(de, plan, params, ids_recv) -> List[torch.Tensor]:
     """Per-group combined lookups in slot-major ``[world, n, b, width]``
     layout, cast to the layer's ``compute_dtype``."""
@@ -57,24 +79,28 @@ def plan_lookup_groups(de, plan, params, ids_recv) -> List[torch.Tensor]:
     return sections
 
 
-def lookup_group(de, plan, gi: int, g, slab, ids_recv,
-                 b: int) -> torch.Tensor:
+def lookup_group(de, plan, gi: int, g, slab, ids_recv, b: int,
+                 out_dtype=None) -> torch.Tensor:
     """One exchange group's combined lookup ``[world, n, b, width]``.
-    ``slab`` is this rank's ``[rows_cap, w]``."""
+    ``slab`` is this rank's ``[rows_cap, w]``; a ragged group's output is
+    in ``out_dtype`` (default the compute dtype, else the slab's), a
+    dense group's in the slab's."""
     if plan.rsliced[gi].any():
         raise NotImplementedError(
             "the lookup of row-sliced slots is not ported yet: ROADMAP A9")
     world = de.world_size
-    rows, roff, div, mask = de._plan_meta(plan, gi, slab.device)
+    rows, roff, div, mask = de._plan_meta(plan, gi, slab.device, reps=world)
     region = ids_recv[:, g.goff:g.goff + g.n * g.blen]
     if g.kind == "d":
         ids = region.reshape(world * g.n, b, g.hot).contiguous()
         red = gather_combine(slab, ids, rows, roff, div, mask)
     else:
-        mean, valid = de._plan_ragged_meta(plan, gi, slab.device)
+        mean, valid = de._plan_ragged_meta(plan, gi, slab.device,
+                                           reps=world)
         values, lengths, wbits = region_views(g, b, region)
         splits = lengths_to_splits(lengths, valid)
         red = ragged_combine(slab, values, splits, rows, roff, mean=mean,
                              mask=mask, weights=wbits,
-                             out_dtype=de.compute_dtype or slab.dtype)
+                             out_dtype=(out_dtype or de.compute_dtype
+                                        or slab.dtype))
     return red.reshape(world, g.n, b, g.width)

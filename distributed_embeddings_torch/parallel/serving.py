@@ -43,7 +43,8 @@ Not ported yet (ROADMAP A12 unless named): the metrics registry and its
 scrape endpoint, request tracing, snapshot installation and the
 freshness rung, ragged requests, the
 threaded ``RealtimeDriver`` and burst drills, the supervised worker
-process, and the multi-rank mesh (A7, through the layer's world size).
+process, and the multi-rank mesh (A7b: a layer of world size > 1
+raises).
 """
 
 from __future__ import annotations
@@ -267,6 +268,10 @@ class ServingRuntime:
                  config: Optional[ServeConfig] = None,
                  streaming: Optional[tuple] = None,
                  clock: Callable[[], float] = time.monotonic):
+        if de.world_size != 1:
+            raise NotImplementedError(
+                "serving a layer of world size > 1 (the serving mesh) is "
+                "not ported yet: ROADMAP A7b")
         self.de = de
         self.config = config or ServeConfig()
         self.world = 1

@@ -1,6 +1,5 @@
 """Hybrid train step, its loop, the train state and the eval step
-(counterpart of ``distributed_embeddings_tpu/parallel/trainer.py``), at
-world 1.
+(counterpart of ``distributed_embeddings_tpu/parallel/trainer.py``).
 
 * dense (data-parallel) parameters: autograd + a dense optimizer with
   ``optax``'s ``init``/``update`` contract (:class:`~.optimizers.SGD`,
@@ -14,12 +13,19 @@ world 1.
   to a slab would make PyTorch build a dense gradient as large as the
   slab.)
 
+At world > 1 every rank runs the step on its rows of the batch, in
+lockstep: the embedding forward and the sparse backward exchange over
+the layer's process group, and the loss, the guard's probe and every
+dense gradient are averaged in ONE float32 all-reduce
+(:func:`~.grads.mean_flat`), so every rank applies the same dense update
+and skips a non-finite batch together.
+
 Access telemetry (``telemetry=``, ``analysis/telemetry.py``) and
 streaming vocabularies (``dynamic=``, ``parallel/streaming.py``) ride
-through both as extra arguments and results, telemetry first. Not yet
-ported, each raising with its ROADMAP item: world > 1 and a mesh (A7),
-step metrics (``with_metrics`` / ``DETPU_OBS=1``, A6) and microbatch
-schedules (A7).
+through both as extra arguments and results, telemetry first (world 1).
+Not yet ported, each raising with its ROADMAP item: step metrics
+(``with_metrics`` / ``DETPU_OBS=1``, A6), telemetry and streaming at
+world > 1 and microbatch schedules (A7b).
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from torch.utils import _pytree as pytree
 from ..analysis import telemetry as tel
 from ..ops.embedding_lookup import Ragged, SparseIds
 from ..utils import obs
+from . import grads as grads_mod
 from . import streaming as smod
 
 
@@ -57,10 +64,21 @@ def _sq_sum(tensors) -> torch.Tensor:
     return sum(t.float().square().sum() for t in tensors)
 
 
-def _not_ported(with_metrics, mesh, world_size):
-    if world_size != 1 or mesh is not None:
+def _check_mesh(de, mesh):
+    """``mesh`` (the JAX step's mesh argument) is the layer's process
+    group or ``None``."""
+    if mesh is not None and mesh is not de.process_group:
+        raise ValueError(
+            "mesh must be the layer's process group (or None): the ranks "
+            "exchange over DistributedEmbedding(process_group=...)")
+
+
+def _not_ported(de, with_metrics, mesh, tel_cfg=None, dyn_cfg=None):
+    _check_mesh(de, mesh)
+    if de.world_size > 1 and (tel_cfg is not None or dyn_cfg is not None):
         raise NotImplementedError(
-            "the multi-rank train step is not ported yet: ROADMAP A7")
+            "telemetry and streaming vocabularies at world > 1 are not "
+            "ported yet: ROADMAP A7b")
     if with_metrics:
         raise NotImplementedError(
             "step metrics (with_metrics / DETPU_OBS=1) are not ported yet: "
@@ -109,7 +127,7 @@ def _small_leaves(de, emb_opt_state) -> List[torch.Tensor]:
     """The tensor leaves of the embedding-optimizer state that are not
     slab-shaped (Adam's step counts): the guard selects these, as the
     JAX step does; slab-shaped state is protected by the sentinel."""
-    slab_shapes = {(de.world_size, r, w) for w, r in de.rows_cap.items()}
+    slab_shapes = {(1, r, w) for w, r in de.rows_cap.items()}
     return [t for t in pytree.tree_leaves(emb_opt_state)
             if isinstance(t, torch.Tensor)
             and tuple(t.shape) not in slab_shapes]
@@ -144,6 +162,11 @@ def _hybrid_local_step(de, loss_fn, dense_tx, emb_optimizer, lr_schedule,
     leaves, Adam's counts included, through a select); the step counter
     still advances and the returned loss is the true (non-finite)
     value. The verdict is never read on the host.
+
+    At world > 1 the loss, the guard's probe and the dense gradients are
+    means over the ranks (one all-reduce), so the returned loss is the
+    global batch's and every rank takes the same verdict; the sparse
+    apply scales the local cotangents by ``1/world``.
     """
     with torch.no_grad():
         if streaming_cfg is not None:
@@ -163,11 +186,20 @@ def _hybrid_local_step(de, loss_fn, dense_tx, emb_optimizer, lr_schedule,
     dense_grads, out_grads = list(grads[:len(params)]), grads[len(params):]
     loss = loss.detach()
 
+    # 0 * (embedding-cotangent energy) is 0 when finite and NaN otherwise
+    probe = 0.0 * _sq_sum(out_grads) if nan_guard else None
+    if de.world_size > 1:
+        # the JAX step's pmeans of the loss, the dense gradients and the
+        # probe, as one all-reduce: a NaN on any rank reaches every rank
+        # and all skip together
+        extra = [loss] + ([probe] if nan_guard else [])
+        means = grads_mod.mean_flat(extra + dense_grads, de.process_group,
+                                    de.world_size)
+        loss, dense_grads = means[0], means[len(extra):]
+        if nan_guard:
+            probe = means[1]
     ok = None
     if nan_guard:
-        # 0 * (embedding-cotangent energy) is 0 when finite and NaN
-        # otherwise
-        probe = 0.0 * _sq_sum(out_grads)
         ok = (torch.isfinite(loss.float()) & torch.isfinite(
             _sq_sum(dense_grads)) & torch.isfinite(probe))
 
@@ -219,7 +251,8 @@ def make_hybrid_train_step(de, loss_fn: Callable, dense_tx, emb_optimizer,
     telem][, stream]) -> (loss, state[, telem][, stream])``.
 
     Args:
-      de: the embedding layer (world 1).
+      de: the embedding layer; at world > 1 every rank of its group
+        calls the step, in the same order, with its rows of the batch.
       loss_fn: ``loss_fn(dense_params, emb_outputs, batch) -> scalar``
         mean loss over the batch.
       dense_tx: the dense optimizer (``init(params)``,
@@ -249,19 +282,20 @@ def make_hybrid_train_step(de, loss_fn: Callable, dense_tx, emb_optimizer,
         result (after the telemetry state when both ride), updated in
         place. A step built without a streaming table raises
         ``ValueError`` when called.
-      mesh, with_metrics: not ported yet (raise; ``with_metrics=None``
-        follows ``DETPU_OBS``).
+      mesh: ``None`` or the layer's process group (the JAX step's mesh).
+      with_metrics: not ported yet (raises; ``None`` follows
+        ``DETPU_OBS``).
 
     The state's slabs and dense parameters are updated in place (the
     JAX step donates them); the returned state holds the same tensors.
     """
     if with_metrics is None:
         with_metrics = obs.metrics_enabled()
-    _not_ported(with_metrics, mesh, de.world_size)
     if nan_guard is None:
         nan_guard = obs.nanguard_enabled()
     tel_cfg = tel.resolve_config(telemetry)
     dyn_cfg = smod.resolve_config(dynamic)
+    _not_ported(de, with_metrics, mesh, tel_cfg, dyn_cfg)
 
     def core(state: HybridTrainState, cat_inputs, batch, aux):
         telem = aux[0] if tel_cfg is not None else None
@@ -340,9 +374,14 @@ def init_hybrid_state(de, emb_optimizer, dense_params, dense_tx,
     """Initialize all state: slabs from the tables' initializers (in
     place, see ``DistributedEmbedding.init``), both optimizer states
     (``emb_optimizer.init`` builds any slab-shaped state beside the slabs,
-    on the same device), and ``step = 0`` on ``device``."""
+    on the same device), and ``step = 0`` on ``device``. At world > 1
+    the dense parameters are overwritten with rank 0's (every rank must
+    call), so the replicas start equal."""
     emb_params = de.init(generator, dtype=dtype, device=device)
     dev = next(iter(emb_params.values())).device
+    if de.world_size > 1:
+        grads_mod.broadcast_variables(list(dense_params.parameters()),
+                                      False, de.process_group)
     return HybridTrainState(
         emb_params=emb_params,
         emb_opt_state=emb_optimizer.init(emb_params),
@@ -364,14 +403,14 @@ def make_hybrid_eval_step(de, pred_fn: Callable, mesh=None, dynamic=None):
     through the slot map READ-ONLY: admitted ids read their slots,
     everything else its shared bucket; nothing is admitted and the state
     is never written, so interleaved eval leaves the training trajectory
-    alone. ``mesh`` belongs to the multi-rank step (ROADMAP A7); the JAX
-    version's ``donate_inputs`` is an XLA buffer-reuse knob with no
-    counterpart here.
+    alone (world 1). At world > 1 every rank calls with its rows of the
+    batch and gets ITS predictions (``bootstrap.to_host`` gathers them);
+    ``mesh`` is ``None`` or the layer's process group. The JAX version's
+    ``donate_inputs`` is an XLA buffer-reuse knob with no counterpart
+    here.
     """
-    if de.world_size != 1 or mesh is not None:
-        raise NotImplementedError(
-            "the multi-rank eval step is not ported yet: ROADMAP A7")
     dyn_cfg = smod.resolve_config(dynamic)
+    _not_ported(de, False, mesh, dyn_cfg=dyn_cfg)
 
     if dyn_cfg is None:
         def eval_step(state: HybridTrainState, cat_inputs, batch):

@@ -420,6 +420,12 @@ def _components(opt_state, params):
         "slab-dict layouts of the parallel.optimizers classes")
 
 
+def _world_one(de) -> None:
+    if de.world_size != 1:
+        raise NotImplementedError(
+            "checkpoints at world > 1 are not ported yet: ROADMAP A7b")
+
+
 def save_train_state(path: str, de, state,
                      keep_last_n: int = 0,
                      run_id: Optional[str] = None,
@@ -435,7 +441,8 @@ def save_train_state(path: str, de, state,
     saved as ``aux/<name>.npz`` (the streaming state through
     ``parallel.streaming.encode_state``; read back with
     :func:`load_aux_state`). (World 1: the JAX package's ``is_chief``
-    and multi-host fetches have nothing to do here.)"""
+    and multi-host fetches are not ported, ROADMAP A7b.)"""
+    _world_one(de)
     staging = _staging_path(path)
     manifest: Dict[str, int] = {}
 
@@ -568,12 +575,13 @@ def restore_train_state(path: str, de, emb_optimizer, dense_template,
     ``<path>.prev`` with ``fallback`` (recording
     ``checkpoint_prev_fallback``), else
     :class:`~.runtime.CheckpointCorrupt` propagates. ``mesh`` belongs to
-    world > 1 (ROADMAP A7)."""
+    world > 1 (ROADMAP A7b)."""
     from ..parallel.trainer import HybridTrainState
 
+    _world_one(de)
     if mesh is not None:
         raise NotImplementedError(
-            "restoring onto a mesh is not ported yet: ROADMAP A7")
+            "restoring onto a mesh is not ported yet: ROADMAP A7b")
     if on_mismatch not in ("error", "reshard"):
         raise ValueError(
             f"on_mismatch must be 'error' | 'reshard', got {on_mismatch!r}")

@@ -127,10 +127,13 @@ def _emb_state(de, params, emb_opt_state, emb_optimizer, device):
             "belongs to (emb_optimizer=SparseAdagrad(...), "
             "SparseMomentum(...) or SparseAdam(...))")
 
+    # at world > 1 this process holds its rank's row of JAX's [world, ...]
+    ranks = (range(de.world_size) if de.world_size == 1 else [de.rank])
+
     def unpack(k, packed, slab):
         w = slab.shape[-1]
         out = np.stack([unpack_rows_np(np.asarray(packed[r]), w)
-                        for r in range(packed.shape[0])])
+                        for r in ranks])
         if out.shape != tuple(slab.shape):
             raise ValueError(f"{k}: optimizer state unpacks to "
                              f"{out.shape}, the slab is "
@@ -142,7 +145,7 @@ def _emb_state(de, params, emb_opt_state, emb_optimizer, device):
         st = emb_opt_state[k]
         if isinstance(emb_optimizer, SparseAdam):
             mu, nu, count = st
-            count = np.asarray(count)
+            count = np.asarray(count)[list(ranks)]
             if count.shape != (slab.shape[0], 1, 1):
                 raise ValueError(f"{k}: Adam count of shape {count.shape}, "
                                  f"expected {(slab.shape[0], 1, 1)}")
@@ -247,6 +250,9 @@ def hybrid_state_from_jax(de, dense, tables: Sequence[Any],
       and ``optax.sgd``'s states the port's ``AdamState`` /
       ``TraceState`` / ``ScheduleState`` tuples (a flax kernel ``[in,
       out]`` as ``[out, in]``).
+
+    At world > 1 each rank builds its own slab from the full tables and
+    takes its row of JAX's global ``[world, ...]`` optimizer state.
     """
     from ..parallel.trainer import HybridTrainState
 

@@ -37,6 +37,12 @@ class CheckpointMismatch(RuntimeFault):
     streams."""
 
 
+class CoordinatorUnreachable(RuntimeFault):
+    """The process group could not be joined within the retry budget
+    (``parallel/bootstrap.py:initialize``): a job that expects ranks must
+    not fall apart into independent single-rank runs."""
+
+
 class FaultInjected(RuntimeFault):
     """Raised by :func:`fault_point` under ``DETPU_FAULT=raise:<point>``."""
 

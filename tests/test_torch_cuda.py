@@ -1519,3 +1519,163 @@ def test_dlrm_example_on_the_card(cuda_device, tmp_path):
     for a, b in zip(ref.state.dense_params.parameters(),
                     second.state.dense_params.parameters()):
         assert torch.equal(a, b)
+
+
+# ------------------------------------------- K19/K20: the exchange packing
+
+
+def _pack_layer(world, ragged, seed):
+    """A random 12-table layer (planner only at world 8) and its inputs:
+    multi-hot combiner-less inputs (multi-slot instances) or ragged
+    weighted ones, with column slices at world 8."""
+    from distributed_embeddings_torch.ops.embedding_lookup import Ragged
+
+    rng = np.random.default_rng(seed)
+    configs = [{"input_dim": int(rng.integers(4, 100)),
+                "output_dim": int(rng.integers(1, 9)),
+                "combiner": (str(rng.choice(["sum", "mean"])) if ragged
+                             else rng.choice([None, "sum", "mean"]))}
+               for _ in range(12)]
+    de = DistributedEmbedding(
+        configs, world, column_slice_threshold=150 if world > 1 else None,
+        strategy="comm_balanced")
+    b = 6
+    if ragged:
+        inputs = []
+        for c in configs:
+            rows = [list(rng.integers(0, c["input_dim"],
+                                      size=rng.integers(0, 4)))
+                    for _ in range(b)]
+            inputs.append(Ragged.from_lists(
+                rows, capacity=16,
+                weights=[list(rng.uniform(0.5, 2, len(r))) for r in rows]))
+    else:
+        inputs = [torch.from_numpy(rng.integers(
+            0, c["input_dim"], size=(b, int(rng.integers(1, 5)) if (
+                c["combiner"] or world == 1) else 1)).astype(np.int32))
+            for c in configs]
+    return de, inputs
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.element_size() == 2 else
+                  torch.int32 if t.element_size() == 4 else torch.int64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ids_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("world,ragged", [(1, False), (8, False), (1, True),
+                                          (8, True)])
+def test_exchange_ids_kernel_matches_plain(cuda_device, world, ragged,
+                                           ids_dtype):
+    """K19: the id blocks bit-exact to the plain copy and to the JAX
+    package's concatenation of cells, on the card."""
+    from distributed_embeddings_torch.ops import exchange_pack as xp
+    from distributed_embeddings_torch.parallel import exchange
+
+    de, inputs = _pack_layer(world, ragged, seed=world + 10 * ragged)
+    if ids_dtype == torch.int64:
+        inputs = [x.long() if isinstance(x, torch.Tensor) else type(x)(
+            values=x.values.long(), row_splits=x.row_splits,
+            weights=x.weights) for x in inputs]
+    entries, encs, _, dt = de._normalize_inputs(inputs, cuda_device)
+    assert dt == ids_dtype
+    b = inputs[0].nrows if ragged else inputs[0].shape[0]
+    plan = de._get_plan(encs, b)
+    before = xp.pack_ids.launches
+    got = exchange.build_send_blocks(de, plan, entries, dt, cuda_device)
+    torch.cuda.synchronize()
+    assert xp.pack_ids.launches == before + 1
+    want = exchange.build_send_blocks_plain(de, plan, entries, dt,
+                                            cuda_device)
+    srcs = [t.contiguous() for e in entries
+            for t in (e[1:] if isinstance(e, tuple) else (e,))]
+    plain = xp.pack_ids_plain(exchange._ids_copy_plan(de, plan, entries),
+                              srcs, torch.empty_like(got))
+    assert torch.equal(got, want) and torch.equal(got, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("src_dt,dst_dt", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("world", [1, 8])
+def test_exchange_columns_kernel_matches_plain(cuda_device, world, src_dt,
+                                               dst_dt):
+    """K20: the cotangent pack, the lookup rows (with the cast) and the
+    dp-side unpack bit-exact to their plain versions on the card (NaN
+    and Inf bits included)."""
+    from distributed_embeddings_torch.ops import exchange_pack as xp
+    from distributed_embeddings_torch.parallel import exchange
+
+    de, inputs = _pack_layer(world, False, seed=3 + world)
+    _, encs, _, _ = de._normalize_inputs(inputs, cuda_device)
+    b = inputs[0].shape[0]
+    plan = de._get_plan(encs, b)
+    _, widths = exchange.slice_map(de, plan)
+    gen = torch.Generator(device=cuda_device).manual_seed(world)
+
+    def rand(*shape, dtype):
+        t = torch.randn(*shape, generator=gen, device=cuda_device)
+        t.view(-1)[::17] = float("nan")
+        t.view(-1)[5::31] = float("inf")
+        return t.to(dtype)
+
+    for r in range(world):
+        de._rank = r
+        reds = [rand(world * g.n, b, g.width, dtype=src_dt)
+                for g in plan.groups]
+        n0 = xp.pack_columns.launches
+        got = exchange.pack_lookup_rows(de, plan, reds, dst_dt, cuda_device)
+        torch.cuda.synchronize()
+        assert xp.pack_columns.launches == n0 + 1
+        want = torch.empty_like(got)
+        xp.batched_copy_plain(exchange.lookup_copy_plan(de, plan),
+                              [x.reshape(-1) for x in reds], [want])
+        assert torch.equal(_bits(got), _bits(want)), f"lookup rows rank {r}"
+    grads = [rand(b, w, dtype=src_dt) for w in widths]
+    wide = rand(b, sum(widths) + 3, dtype=src_dt)  # column slices of it
+    pos = np.concatenate([[1], 1 + np.cumsum(widths)])
+    for gs in (grads, [wide[:, p:p + w] for p, w in zip(pos, widths)]):
+        got = exchange.pack_grad_blocks(de, plan, gs, b, src_dt)
+        want = exchange.pack_grad_blocks_plain(de, plan, gs, b, src_dt)
+        assert torch.equal(_bits(got), _bits(want))
+    got = exchange.pack_grad_blocks(de, plan, grads, b, src_dt)
+    want = exchange.pack_grad_blocks_plain(de, plan, grads, b, src_dt)
+    assert torch.equal(_bits(got), _bits(want))
+    dp = rand(world, b, plan.s_max, dtype=dst_dt)
+    outs = exchange.unpack_outputs(de, plan, dp)
+    cplan, pieces = exchange._unpack_copy_plan(de, plan)
+    buf = torch.empty(sum(b * w for _, w in pieces), dtype=dst_dt,
+                      device=cuda_device)
+    xp.batched_copy_plain(cplan, [dp], [buf])
+    for o, (off, w) in zip(outs, pieces):
+        assert torch.equal(_bits(o), _bits(buf[off:off + b * w].view(b, w)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_exchange_copy_kernel_unaligned_and_split(cuda_device, dtype):
+    """Odd offsets and strides fall back to narrow units; more copies
+    than one launch's parameter block holds take several launches; a
+    zero-filled copy writes zeros; all bit-exact to the plain copy."""
+    from distributed_embeddings_torch.ops import exchange_pack as xp
+
+    rng = np.random.default_rng(0)
+    copies = []
+    for k in range(1300):
+        rows, cols = int(rng.integers(1, 5)), int(rng.integers(1, 20))
+        copies.append((-1 if k % 11 == 0 else 0, int(rng.integers(0, 50)),
+                       cols + int(rng.integers(0, 3)), 0, k * 100 + (k % 3),
+                       cols + (k % 2), rows, cols))
+    plan = xp.CopyPlan(copies)
+    src = torch.randn(400, device=cuda_device).to(dtype)
+    got = torch.full((1300 * 100 + 200,), 7.0, device=cuda_device,
+                     dtype=dtype)
+    want = got.clone()
+    n0 = xp.pack_columns.launches
+    xp.pack_columns(plan, [src], [got])
+    torch.cuda.synchronize()
+    assert xp.pack_columns.launches == n0 + -(-1300 // xp.MAX_DESCS)
+    xp.batched_copy_plain(plan, [src], [want])
+    assert torch.equal(_bits(got), _bits(want))

@@ -178,8 +178,20 @@ def test_init_fills_in_place_with_the_right_distribution():
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="A7"):
-        DistributedEmbedding(CONFIGS, world_size=8)
+    # world > 1 is ported: the layer places and slices the tables as the
+    # JAX package does, and runs only inside a process group
+    configs = CONFIGS + CONFIGS[:2]
+    kw = dict(world_size=8, strategy="comm_balanced",
+              column_slice_threshold=1000)
+    tde, jde = DistributedEmbedding(configs, **kw), JaxDE(configs, **kw)
+    assert tde.strategy.table_ids_list == jde.strategy.table_ids_list
+    assert tde.row_offsets_list == jde.row_offsets_list
+    assert tde.rows_cap == jde.rows_cap
+    assert sum(tde.slices_per_table) > len(configs)  # column slices
+    with pytest.raises(RuntimeError, match="process group"):
+        tde.init(device="cpu")
+    with pytest.raises(NotImplementedError, match="A7b"):
+        DistributedEmbedding(configs, world_size=8, dp_input=False)
     with pytest.raises(NotImplementedError, match="A9"):
         DistributedEmbedding(CONFIGS, world_size=1, row_slice=100)
     # ragged inputs are ported; on a table without a combiner they are

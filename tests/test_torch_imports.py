@@ -1,7 +1,8 @@
 """Guard: the port stands alone and never falls back silently.
 
-AST-scans every module of ``distributed_embeddings_torch/`` and
-``chip_smoke.py``:
+AST-scans every module of ``distributed_embeddings_torch/``,
+``chip_smoke.py`` and the world-8 tests' rank worker
+(``tests/torch_dist_worker.py``, which the ranks import):
 
 * no import of ``jax``, ``flax``, ``optax``, ``msgpack``, ``ml_dtypes``,
   ``absl``, ``distributed_embeddings_tpu`` or ``tools`` (the port keeps
@@ -27,6 +28,7 @@ FORBIDDEN = ("jax", "flax", "optax", "msgpack", "ml_dtypes", "absl",
 def _sources():
     files = sorted((ROOT / "distributed_embeddings_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    files.append(ROOT / "tests" / "torch_dist_worker.py")
     return files
 
 
@@ -86,7 +88,11 @@ def test_sources_exist():
             "distributed_embeddings_torch/utils/msgpack_state.py",
             "distributed_embeddings_torch/utils/runtime.py",
             "distributed_embeddings_torch/utils/data.py",
-            "distributed_embeddings_torch/examples/dlrm_main.py"} <= scanned
+            "distributed_embeddings_torch/examples/dlrm_main.py",
+            "distributed_embeddings_torch/ops/exchange_pack.py",
+            "distributed_embeddings_torch/parallel/bootstrap.py",
+            "distributed_embeddings_torch/parallel/grads.py",
+            "tests/torch_dist_worker.py"} <= scanned
 
 
 def test_every_kernel_source_is_bound():
@@ -98,7 +104,8 @@ def test_every_kernel_source_is_bound():
                            ).glob("*.cu")}
     assert cu == set(_kernels.SIGNATURES)
     assert {"csr", "ragged_combine", "ragged_grad", "adam",
-            "momentum", "sketch", "streaming", "sgd_promoted"} <= cu
+            "momentum", "sketch", "streaming", "sgd_promoted",
+            "exchange_pack"} <= cu
 
 
 def test_library_name_follows_included_headers(tmp_path, monkeypatch):

@@ -111,9 +111,8 @@ def _streams(hot, dtype, invalid_slot=None):
             valid[invalid_slot[0]][0, invalid_slot[1]] = 0.0
             de._plan_cache[(tuple(res[2]), B)] = dataclasses.replace(
                 plan, valid=tuple(valid))
-    grads = [rng.normal(size=(B, c["output_dim"])
-                        if c["combiner"] or hot == 1
-                        else (B, hot, c["output_dim"])).astype(np.float32)
+    # every output is [B, w]: the combiner-less inputs are [B] ids
+    grads = [rng.normal(size=(B, c["output_dim"])).astype(np.float32)
              for c in CONFIGS]
     jw = jax_apply.cotangent_width_streams(
         jde, jres, [jnp.asarray(g, jdt) for g in grads])
@@ -163,9 +162,9 @@ def test_sparse_apply_gradients_matches_jax(hot):
     rng = np.random.default_rng(10 + hot)
     cats = [_ids(rng, c["input_dim"], (B, hot) if c["combiner"] else (B,))
             for c in CONFIGS]
-    grads = [rng.normal(size=(B, c["output_dim"]) if c["combiner"] or
-                        hot == 1 else (B, hot, c["output_dim"])
-                        ).astype(np.float32) for c in CONFIGS]
+    # every output is [B, w]: the combiner-less inputs are [B] ids
+    grads = [rng.normal(size=(B, c["output_dim"])).astype(np.float32)
+             for c in CONFIGS]
     jlocal = jde.local_view(jparams)
     _, jres = jde.forward_with_residuals(jlocal, [jnp.asarray(c)
                                                   for c in cats])
@@ -404,9 +403,11 @@ def test_init_hybrid_state_and_unported_arguments(monkeypatch):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             init_hybrid_state(de, SparseSGD(), dense, SGD(LR))
     args = (de, lambda *a: None, SGD(LR), SparseSGD())
-    for kw, item in ((dict(with_metrics=True), "A6"), (dict(mesh=1), "A7")):
-        with pytest.raises(NotImplementedError, match=item):
-            make_hybrid_train_step(*args, **kw)
+    with pytest.raises(NotImplementedError, match="A6"):
+        make_hybrid_train_step(*args, with_metrics=True)
+    # the multi-rank step is ported: its mesh is the layer's process group
+    with pytest.raises(ValueError, match="process group"):
+        make_hybrid_train_step(*args, mesh=1)
     # streaming vocabularies are ported: dynamic= builds a step of the
     # streaming arity, which refuses a layer without a streaming table
     dyn = make_hybrid_train_step(*args, dynamic=True)

@@ -1,0 +1,374 @@
+"""Rank side of the world-8 ``torch.distributed`` (gloo) parity tests of
+the port, and the parent's handle on the ranks.
+
+:class:`RankGroup` spawns one process per rank (``spawn`` start method,
+a ``file://`` store under the test's temporary directory, one thread
+each) that joins one gloo group and then serves named cases from a queue
+until it is closed, so a test file pays for the group once. Each case
+builds the port's objects from numpy (tables, ids, dense parameters),
+runs them on this rank's rows of the batch and sends numpy back; the
+parent holds the results against the JAX package on its 8-device mesh.
+
+This module imports torch, numpy and the port only: the ranks never
+load JAX.
+"""
+
+import os
+import queue
+import traceback
+
+import torch
+
+#: seconds a case may take before the parent gives up on the group
+CASE_TIMEOUT_S = 240
+
+
+# ------------------------------------------------------------ rank side
+
+
+def _dtype(name):
+    return None if name is None else getattr(torch, name)
+
+
+def _layer(spec, world):
+    from distributed_embeddings_torch.parallel import DistributedEmbedding
+
+    return DistributedEmbedding(
+        spec["configs"], world_size=world,
+        strategy=spec.get("strategy", "basic"),
+        column_slice_threshold=spec.get("column_slice_threshold"),
+        input_table_map=spec.get("input_table_map"),
+        compute_dtype=_dtype(spec.get("compute_dtype")))
+
+
+def _inputs(spec_inputs, rank, world):
+    """This rank's inputs: a global dense array gives its rows; a
+    ``("ragged", values, splits, weights)`` entry holds one static-
+    capacity CSR per rank already."""
+    from distributed_embeddings_torch.ops.embedding_lookup import Ragged
+    from distributed_embeddings_torch.parallel import bootstrap
+
+    out = []
+    for x in spec_inputs:
+        if isinstance(x, tuple) and x[0] == "ragged":
+            _, vals, splits, wts = x
+            out.append(Ragged(
+                values=torch.from_numpy(vals[rank].copy()),
+                row_splits=torch.from_numpy(splits[rank].copy()),
+                weights=(None if wts is None
+                         else torch.from_numpy(wts[rank].copy()))))
+        else:
+            out.append(bootstrap.shard_batch(torch.from_numpy(x.copy()),
+                                             rank, world))
+    return out
+
+
+def case_forward(rank, world, spec):
+    """Forward on this rank's rows: the received id block, the outputs
+    and (rank 0) the tables gathered back over the group."""
+    de = _layer(spec, world)
+    params = de.set_weights(spec["tables"], device="cpu")
+    outs, res = de.forward_with_residuals(
+        params, _inputs(spec["inputs"], rank, world))
+    tables = de.get_weights(params, all_ranks=False)
+    return {"ids": res[1].numpy(),
+            "outs": [o.float().numpy() for o in outs],
+            "tables": tables,
+            "slabs": {k: v[0].float().numpy() for k, v in params.items()}}
+
+
+def _quadratic_loss(outs):
+    return sum((o.float() ** 2).mean() for o in outs)
+
+
+def case_train(rank, world, spec):
+    """``spec["steps"]`` sparse steps of ``sum(mean(out ** 2))`` (each
+    step's inputs global, this rank takes its rows): the local losses,
+    and this rank's slabs and optimizer state at the end."""
+    from distributed_embeddings_torch.parallel import (SparseAdagrad,
+                                                       SparseSGD)
+
+    de = _layer(spec, world)
+    params = de.set_weights(spec["tables"], device="cpu")
+    opt = (SparseAdagrad(initial_accumulator_value=0.1)
+           if spec["optimizer"] == "adagrad" else SparseSGD())
+    opt_state = opt.init(params)
+    losses = []
+    for step_inputs in spec["steps"]:
+        with torch.no_grad():
+            outs, res = de.forward_with_residuals(
+                params, _inputs(step_inputs, rank, world))
+        outs = [o.detach().requires_grad_() for o in outs]
+        loss = _quadratic_loss(outs)
+        grads = torch.autograd.grad(loss, outs)
+        de.sparse_apply_gradients(params, opt_state, res, list(grads), opt,
+                                  spec["lr"])
+        losses.append(float(loss))
+    acc = ({k: v[0].numpy() for k, v in opt_state.items()}
+           if spec["optimizer"] == "adagrad" else None)
+    return {"losses": losses, "acc": acc,
+            "slabs": {k: v[0].float().numpy() for k, v in params.items()},
+            "tables": de.get_weights(params, all_ranks=False)}
+
+
+def _dlrm_control(name):
+    """Patches that break the world > 1 step on purpose (the parity
+    test's controls must fail its bounds); returns ``(module, attr,
+    replacement)`` or ``None``.
+
+    * ``"dense_summed"``: the dense gradients summed over the ranks, not
+      averaged (the guarded step's ``mean_flat`` list is ``[loss, probe,
+      *dense grads]``).
+    * ``"sparse_skipped"``: the sparse apply leaves the slabs as they
+      are."""
+    from distributed_embeddings_torch.parallel import apply, grads
+
+    if name is None:
+        return None
+    if name == "dense_summed":
+        real = grads.mean_flat
+
+        def summed(tensors, group, world_size):
+            out = real(tensors, group, world_size)
+            return out[:2] + [t * world_size for t in out[2:]]
+
+        return grads, "mean_flat", summed
+    if name == "sparse_skipped":
+        return apply, "apply_width_streams", (
+            lambda de, params, opt_state, *a, **kw: (params, opt_state))
+    raise ValueError(f"unknown control {name!r}")
+
+
+def case_dlrm(rank, world, spec):
+    """The hybrid DLRM train step at world ``world`` from a JAX state
+    (tables, flax dense params): ``spec["steps"]`` steps, then one batch
+    with a NaN on ``spec["nan_rank"]``'s rows, then eval predictions.
+    Then, for each of ``spec["controls"]`` (:func:`_dlrm_control`), the
+    same steps from the same state with the step broken that way: their
+    losses, slabs and dense parameters under ``"controls"``."""
+    from distributed_embeddings_torch.models import (DLRMConfig, DLRMDense,
+                                                     bce_with_logits)
+    from distributed_embeddings_torch.parallel import (
+        SGD, SparseSGD, bootstrap, make_hybrid_eval_step,
+        make_hybrid_train_step)
+    from distributed_embeddings_torch.utils.convert import (
+        hybrid_state_from_jax)
+
+    cdt = _dtype(spec["compute_dtype"])
+    cfg = DLRMConfig(compute_dtype=cdt, **spec["model"])
+    de = _layer(dict(spec, configs=cfg.embedding_configs()), world)
+
+    def fresh():
+        return hybrid_state_from_jax(de, DLRMDense(cfg, device="cpu"),
+                                     spec["tables"], spec["dense_tree"], 0,
+                                     dtype=_dtype(spec["table_dtype"]),
+                                     device="cpu")
+
+    def loss_fn(m, outs, batch):
+        n, y = batch
+        return bce_with_logits(m(n, outs), y)
+
+    step = make_hybrid_train_step(de, loss_fn, SGD(spec["lr"]), SparseSGD(),
+                                  lr_schedule=spec["lr"], nan_guard=True)
+
+    def run(st, batch):
+        cats, num, lab = batch
+        cats = _inputs(cats, rank, world)
+        num, lab = bootstrap.shard_batch(
+            (torch.from_numpy(num.copy()), torch.from_numpy(lab.copy())),
+            rank, world)
+        return step(st, cats, (num, lab))
+
+    def snapshot(st):
+        return ({k: v.clone() for k, v in st.emb_params.items()},
+                [p.detach().clone() for p in st.dense_params.parameters()])
+
+    def train(control):
+        patch = _dlrm_control(control)
+        if patch is not None:
+            mod, attr, fn = patch
+            real = getattr(mod, attr)
+            setattr(mod, attr, fn)
+        try:
+            st, losses = fresh(), []
+            for batch in spec["batches"]:
+                loss, st = run(st, batch)
+                losses.append(float(loss))
+        finally:
+            if patch is not None:
+                setattr(mod, attr, real)
+        return st, losses
+
+    state, losses = train(None)
+    slabs, dense_p = snapshot(state)
+    nan_loss, state = run(state, spec["nan_batch"])
+    unchanged = (all(torch.equal(slabs[k], v)
+                     for k, v in state.emb_params.items())
+                 and all(torch.equal(a, b) for a, b in zip(
+                     dense_p, state.dense_params.parameters())))
+    cats, num, lab = spec["eval_batch"]
+    pred = make_hybrid_eval_step(
+        de, lambda m, outs, b: torch.sigmoid(m(b, outs).float()))(
+        state, _inputs(cats, rank, world),
+        bootstrap.shard_batch(torch.from_numpy(num.copy()), rank, world))
+    controls = {}
+    for control in spec.get("controls", ()):
+        st, closs = train(control)
+        controls[control] = {
+            "losses": closs,
+            "slabs": {k: v[0].float().numpy()
+                      for k, v in st.emb_params.items()},
+            "dense": [p.detach().numpy()
+                      for p in st.dense_params.parameters()]}
+    return {"losses": losses, "nan_loss": float(nan_loss),
+            "unchanged": unchanged, "step": int(state.step),
+            "slabs": {k: v[0].float().numpy() for k, v in slabs.items()},
+            "dense": [p.detach().numpy() for p in dense_p],
+            "pred": pred.float().numpy(),
+            "pred_all": bootstrap.to_host(pred), "controls": controls}
+
+
+def case_glue(rank, world, spec):
+    """The process-group helpers and the gradient glue on rank-dependent
+    values: ``mean_flat``, ``resolve_dp_gradient``, ``hybrid_gradients``,
+    ``split_mp_dp``, ``broadcast_variables``, ``to_host``,
+    ``broadcast_seed``, ``shard_batch`` of a global ragged batch, and a
+    per-rank ``init`` drawn twice from one seed."""
+    from distributed_embeddings_torch.ops.embedding_lookup import Ragged
+    from distributed_embeddings_torch.parallel import (
+        DistributedEmbedding, bootstrap, broadcast_variables,
+        hybrid_gradients, mean_flat, resolve_dp_gradient, split_mp_dp)
+
+    x = torch.arange(6, dtype=torch.float32).reshape(2, 3) * (rank + 1)
+    y = torch.tensor([float(rank)], dtype=torch.bfloat16)
+    grads = {"mp": x.clone(), "dp": [x.clone(), x[0].clone()]}
+    mask = {"mp": True, "dp": False}
+    mp, dp = split_mp_dp(grads, mask)
+    hyb = hybrid_gradients(grads, mask, None, world)
+    params = [torch.full((3,), float(rank)), torch.full((2,), -float(rank))]
+    broadcast_variables(params, False, None, root_rank=2)
+    ragged = Ragged.from_lists([[1], [2, 3], [], [4, 5, 6]] * world,
+                               weights=[[0.5], [1, 2], [], [3, 4, 5]] * world)
+    mine = bootstrap.shard_batch(ragged, rank, world)
+    means = mean_flat([x, y], None, world)
+    de = DistributedEmbedding(spec["configs"], world)
+    a = de.init(torch.Generator().manual_seed(7), device="cpu")
+    b = de.init(torch.Generator().manual_seed(7), device="cpu")
+    return {
+        "mean": [t.float().numpy() for t in means],
+        "mean_dtypes": [str(t.dtype) for t in means],
+        "resolved": resolve_dp_gradient(x, None, world).numpy(),
+        "x_after": x.numpy(),
+        "split": (mp["mp"].numpy(), mp["dp"], dp["mp"],
+                  [t.numpy() for t in dp["dp"]]),
+        "hybrid": (hyb["mp"].numpy(), [t.numpy() for t in hyb["dp"]]),
+        "params": [p.numpy() for p in params],
+        "to_host": bootstrap.to_host(x[:1]),
+        "seed": bootstrap.broadcast_seed(100 + rank),
+        "world": (bootstrap.world(), bootstrap.process_index(),
+                  bootstrap.process_count()),
+        "ragged": (mine.values.numpy(), mine.row_splits.numpy(),
+                   mine.weights.numpy()),
+        "init_same": all(torch.equal(a[k], b[k]) for k in a),
+        "init": {k: v[0].numpy() for k, v in a.items()}}
+
+
+CASES = {"forward": case_forward, "train": case_train, "dlrm": case_dlrm,
+         "glue": case_glue}
+
+
+def serve(rank, world, store, inq, outq):
+    """A rank: join the gloo group, then run cases until ``None``."""
+    torch.set_num_threads(1)
+    from distributed_embeddings_torch.parallel import bootstrap
+
+    bootstrap.initialize("gloo", f"file://{store}", world, rank,
+                         timeout_s=CASE_TIMEOUT_S)
+    while True:
+        msg = inq.get()
+        if msg is None:
+            break
+        name, spec = msg
+        try:
+            outq.put((rank, True, CASES[name](rank, world, spec)))
+        except Exception:  # noqa: BLE001 - reported to the parent
+            outq.put((rank, False, traceback.format_exc()))
+    torch.distributed.destroy_process_group()
+
+
+def join_unreachable(path, q):
+    """A rank 0 of 2 whose peer never comes: its join must give up;
+    sends the exception's type name (or ``"joined"``)."""
+    from distributed_embeddings_torch.parallel import bootstrap
+
+    try:
+        bootstrap.initialize("gloo", f"file://{path}", 2, 0, timeout_s=1,
+                             retries=1)
+        q.put("joined")
+    except Exception as e:  # noqa: BLE001 - the type is the result
+        q.put(type(e).__name__)
+
+
+# ----------------------------------------------------------- parent side
+
+
+class RankGroup:
+    """``world`` rank processes of one gloo group, serving cases."""
+
+    def __init__(self, world, tmpdir):
+        import torch.multiprocessing as mp
+
+        ctx = mp.get_context("spawn")
+        self.world = world
+        self.outq = ctx.Queue()
+        self.inqs = [ctx.Queue() for _ in range(world)]
+        store = os.path.join(str(tmpdir), "store")
+        self.procs = [ctx.Process(target=serve,
+                                  args=(r, world, store, self.inqs[r],
+                                        self.outq), daemon=True)
+                      for r in range(world)]
+        for p in self.procs:
+            p.start()
+        self.broken = None
+
+    def submit(self, name, spec):
+        """Start case ``name`` on every rank; :meth:`collect` waits for
+        it (the parent can compute its reference meanwhile)."""
+        if self.broken:
+            raise RuntimeError(f"the rank group is broken: {self.broken}")
+        self.pending = name
+        for q in self.inqs:
+            q.put((name, spec))
+
+    def collect(self):
+        """Every rank's result of the submitted case, in rank order."""
+        name, got = self.pending, {}
+        try:
+            while len(got) < self.world:
+                rank, ok, res = self.outq.get(timeout=CASE_TIMEOUT_S)
+                got[rank] = (ok, res)
+        except queue.Empty:
+            self.broken = f"case {name!r} timed out"
+            raise RuntimeError(f"case {name!r}: only ranks {sorted(got)} "
+                               f"answered in {CASE_TIMEOUT_S} s") from None
+        errs = [f"rank {r}:\n{res}" for r, (ok, res) in sorted(got.items())
+                if not ok]
+        if errs:
+            raise RuntimeError(f"case {name!r} failed\n" + "\n".join(errs))
+        return [got[r][1] for r in range(self.world)]
+
+    def run(self, name, spec):
+        """Every rank's result of case ``name``, in rank order."""
+        self.submit(name, spec)
+        return self.collect()
+
+    def close(self):
+        for q in self.inqs:
+            q.put(None)
+        for p in self.procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+
+
+__all__ = ["CASES", "RankGroup"]
