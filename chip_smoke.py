@@ -3492,6 +3492,76 @@ def telemetry_per_step(launches):
     return {k: v * launches for k, v in want.items()}
 
 
+def pool_edge_streams(rng):
+    """Small ``(name, ids, live, k_pool)`` streams at the edges of K14's
+    candidate pool (int32 ids, bool live)."""
+    pad = 2 ** 31 - 1
+    out = []
+
+    def add(name, ids, live, k_pool):
+        out.append((name, np.asarray(ids, np.int64).astype(np.int32),
+                    np.asarray(live, bool), k_pool))
+
+    ids = np.concatenate([-rng.integers(1, 30, 400),
+                          rng.integers(0, 20, 400)])
+    add("negative ids", ids, rng.random(800) < 0.85, 10)
+    ids = np.concatenate([np.full(60, pad), rng.integers(0, 300, 600)])
+    ids = rng.permutation(ids)
+    ids[0] = pad
+    live = rng.random(ids.size) < 0.8
+    live[0] = True
+    add("live INT32_MAX first", ids, live, 10)
+    live = live.copy()
+    live[0] = False
+    add("dead pad-valued position first", ids, live, 10)
+    ids = rng.permutation(np.concatenate([
+        np.repeat(rng.permutation(300)[:6], 9),
+        np.repeat(300 + rng.permutation(300)[:14], 5)]))
+    add("estimate ties across the boundary", ids, np.ones(ids.size), 10)
+    add("k_pool above the distinct ids", rng.integers(0, 4, 40),
+        rng.random(40) < 0.9, 10)
+    add("n == 1", [7], [True], 1)
+    add("n == 1, dead", [7], [False], 1)
+    ends = np.array([-2 ** 31, -2 ** 31 + 1, -1, 0, pad - 2, pad - 1, pad])
+    add("ids at both ends of int32",
+        np.concatenate([rng.choice(ends, 300),
+                        rng.integers(-2 ** 31, pad, 100)]),
+        rng.random(400) < 0.9, 16)
+    ids = (rng.zipf(1.25, 200_000) - 1) % 20_000
+    add("Zipfian, ~19 positions a distinct id", ids,
+        rng.random(ids.size) < 0.95, 128)
+    add("all live and distinct", rng.permutation(400_000)[:100_000] - 200_000,
+        np.ones(100_000), 128)
+    add("all dead", rng.integers(0, 9, 5_000), np.zeros(5_000), 128)
+    return out
+
+
+def pool_edge_checks(torch, cfg):
+    """K14's pool against ``topk_pool_plain`` on the card, bit-exact, at
+    the streams of ``pool_edge_streams``, over a sketch each stream has
+    folded (and, for the largest pool, at the kernel's limit)."""
+    from distributed_embeddings_torch.ops import sketch as sk
+
+    rng = np.random.default_rng(SEED + 160)
+    streams = pool_edge_streams(rng)
+    name, ids, live, _ = streams[-3]
+    streams.append((f"{name}, the largest pool", ids, live, sk._pool_max()))
+    for name, ids, live, k_pool in streams:
+        cms = torch.as_tensor(rng.integers(0, 3, (cfg.depth, cfg.buckets)),
+                              dtype=torch.int32, device="cuda")
+        ti = torch.as_tensor(ids, device="cuda")
+        tl = torch.as_tensor(live, device="cuda")
+        sk.cms_update_plain(cms, ti, tl)
+        got = sk.topk_pool(cms, ti, tl, k_pool)
+        want = sk.topk_pool_plain(cms, ti, tl, k_pool)
+        exact(torch, got, want, f"topk_pool edge case '{name}'")
+        log(f"  topk_pool edge case '{name}' (n {ids.size}, k_pool "
+            f"{k_pool}): bit-exact, {int((got != sk.PAD).sum())} ids "
+            f"{'and the pad id ' if bool((got == sk.PAD).any()) else ''}"
+            f"in the pool")
+    return len(streams)
+
+
 def telemetry_checks(torch, de, st, sizes, cfg):
     """The telemetry path held on the card (see ``phase_telemetry``).
     Returns the state and the errors (0: bitwise)."""
@@ -3659,9 +3729,8 @@ def telemetry_timed(torch, de, st, sizes, cfg):
     return st, launches, metrics
 
 
-SKETCH_KERNELS = ("cms_update_kernel", "pool_keys", "radix_hist",
-                  "scan_reduce", "scan_partials", "scan_apply",
-                  "radix_scatter", "select_kernel", "topk_merge_kernel")
+SKETCH_KERNELS = ("cms_update_kernel", "pool_insert_kernel",
+                  "pool_select_kernel", "topk_merge_kernel")
 SKETCH_CHAIN = re.compile(r"namespace\)::(" + "|".join(SKETCH_KERNELS)
                           + r")[<(]")
 
@@ -3709,13 +3778,63 @@ def telemetry_profile(torch, de, st, sizes, cfg, steps=5):
     return st, out
 
 
+DEVICE_FN = re.compile(r"::(\w+(?:<[^<>()]*>)?)\(")
+
+
+def pool_split(torch, cms, ids, live, k_pool, calls=10):
+    """K14's pool call split by what it runs on the device:
+    ``torch.profiler`` over ``calls`` calls, each kernel's (and memset's)
+    device ms and launches a call, by name; and the wrapper's host ms a
+    call (median of the calls' host clock, no synchronize between)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributed_embeddings_torch.ops import sketch as sk
+
+    sk.topk_pool(cms, ids, live, k_pool)
+    torch.cuda.synchronize()
+    stages = {}
+    # the tracer has come back without device events in one run of
+    # several: try again, and report the split as not measured after three
+    for _ in range(3):
+        host = []
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                t0 = time.perf_counter()
+                sk.topk_pool(cms, ids, live, k_pool)
+                host.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if (e.device_type != DeviceType.CUDA
+                    or e.self_device_time_total <= 0):
+                continue
+            m = DEVICE_FN.search(e.key)
+            name = m.group(1) if m else e.key[:40]
+            ms, n = stages.get(name, (0.0, 0.0))
+            stages[name] = (ms + e.self_device_time_total / 1e3 / calls,
+                            n + e.count / calls)
+        if stages:
+            break
+    if not stages:
+        log("pool split: not measured (three traces held no device time)")
+        return {"stages_ms": None,
+                "host_ms_per_call": float(np.median(host))}
+    return {"stages_ms": {k: v[0] for k, v in stages.items()},
+            "launches_by_stage": {k: v[1] for k, v in stages.items()},
+            "launches_per_call": sum(v[1] for v in stages.values()),
+            "device_ms_per_call": sum(v[0] for v in stages.values()),
+            "host_ms_per_call": float(np.median(host))}
+
+
 def sketch_kernel_times(torch, ids, live, cfg, what):
     """CUDA-event medians of K13, K14 (the query alone, and the candidate
-    pool with its sort) and K15 on one width's telemetry stream (``ids``,
-    ``live``), each held bitwise to its plain version first, beside its
-    plain version, a PyTorch yardstick and its byte bound (each input
-    read once, each output written once). The live count is held to the
-    exact count, rounded once to float32."""
+    pool with its split by launch) and K15 on one width's telemetry
+    stream (``ids``, ``live``), each held bitwise to its plain version
+    first, beside its plain version, a PyTorch yardstick and its byte
+    bound (each input read once, each output written once). The live
+    count is held to the exact count, rounded once to float32."""
+    from distributed_embeddings_torch.ops import _kernels
     from distributed_embeddings_torch.ops import sketch as sk
 
     n = ids.numel()
@@ -3780,12 +3899,21 @@ def sketch_kernel_times(torch, ids, live, cfg, what):
 
     lib = time_ms(torch, lib_pool, [()])
     nbytes = n * 5 + sketch_bytes + k_pool * 4
+    split = pool_split(torch, ck, ids, live, k_pool)
+    klib = _kernels.library("sketch")
+    scratch = klib.detpu_topk_pool_scratch_bytes(n, k_pool)
+    cleared = klib.detpu_topk_pool_clear_bytes(n)
     pool_case = dict(
         case=f"{what}: pool of {k_pool} from {n} positions", ms=ms,
         plain_ms=plain, library_ms=lib,
         library="torch.unique + torch.topk (sort and select; no sketch "
         "query, not tie-exact)", bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-        bound_by="bytes", bytes=nbytes)
+        bound_by="bytes", bytes=nbytes, scratch_bytes=scratch,
+        cleared_bytes=cleared,
+        distinct_live=int(torch.unique(keys[keys != sk.PAD]).numel()),
+        split=split)
+    log(f"topk_pool {what} split: scratch {scratch} B, memset {cleared} B, "
+        + json.dumps(split))
     del keys
     ms = time_ms(torch, lambda: sk.cms_query(ck, ids), [()])
     plain = time_ms(torch, lambda: sk.cms_query_plain(ck, ids), [()])
@@ -3854,6 +3982,8 @@ def phase_telemetry(torch):
     log(f"telemetry: capped Criteo-Kaggle one-hot DLRM, slab "
         f"{tuple(slab.shape)} bf16 = {slab.numel() * 2 / 1e9:.2f} GB, built "
         f"in {time.perf_counter() - t0:.1f} s; sketch {cfg}")
+    log(f"telemetry: {pool_edge_checks(torch, cfg)} K14 pool edge cases "
+        "bit-exact")
     st, errs = telemetry_checks(torch, de, st, sizes, cfg)
     st, launches, metrics = telemetry_timed(torch, de, st, sizes, cfg)
     log(json.dumps({k: metrics[k] for k in (

@@ -24,18 +24,51 @@
 //   Otherwise the warps add to the sketch in device memory.
 // K14 (detpu_cms_query, detpu_topk_pool): the standalone query
 //   est[j] = min over d of cms[d, column(max(ids[j], 0))], and the
-//   candidate pool of record_ids: dead positions become the pad id
-//   INT32_MAX, the keys sort (radix_sort.cuh, keys only, 4 passes), each
-//   first occurrence of a live id is scored by the query (a live id's
-//   estimate depends only on the id, so JAX's score = where(first,
-//   est_all[order], -1) is (first && id != pad) ? query(id) : -1 with no
-//   permutation), and the k_pool = min(candidates, n) best positions are
-//   selected by the key ((INT32_MAX - score) << 32) | position, smallest
-//   first: lax.top_k's order, ties to the lower index. The selection is a
-//   tournament: each block bitonic-sorts a tile of T keys in shared
-//   memory and keeps its k_pool smallest; blocks then merge T / k_pool
-//   such lists at a time until one is left, which the last round turns
-//   into JAX's pool: the id where the score is >= 0, else the pad id.
+//   candidate pool of record_ids. JAX sorts the ids (dead positions as
+//   the pad id INT32_MAX), scores each id's first occurrence in sorted
+//   order by its estimate (every other position -1) and takes lax.top_k
+//   of the scores. A live id's estimate depends only on the id, and the
+//   first occurrences in sorted order are the distinct ids ascending, so
+//   the pool is the k_pool = min(candidates, n) distinct live ids with
+//   the largest estimates, ties to the smaller id, then the pad id. One
+//   more entry can reach it: the first pad-valued position in stream
+//   order (argsort is stable) scores the pad id's estimate when it is a
+//   live INT32_MAX, and -1 when it is dead; that entry's pool value is
+//   the pad id, and it sorts after every other id. The kernel computes
+//   this without sorting the n positions:
+//   1. cudaMemsetAsync(0xFF) clears the set and the counters (the first
+//      pad-valued position, a log2 histogram of the estimates, the keys
+//      each select round wrote; counts run down from 0xFFFFFFFF).
+//   2. pool_insert_kernel, one pass over ids and live: each live id
+//      below INT32_MAX goes into a device-wide open-addressing set of
+//      flipped ids (uint32(id) ^ 0x80000000; the pad id flips to
+//      0xFFFFFFFF, the empty slot), Fibonacci-hashed with linear
+//      probing, at most half full. A block takes a contiguous span of
+//      positions, a thread four a round with their loads, probes and
+//      claims issued together. A 4096-slot filter in shared memory
+//      keeps the ids the block has found or claimed, so a repeated id
+//      needs no probe (hot ids are most positions); a probe reads a
+//      slot before it takes atomicCAS. The thread whose atomicCAS claims
+//      a slot owns the id: it queries the sketch once (D queries, not
+//      n), counts the estimate in the histogram, and appends the key
+//      ((INT32_MAX - est) << 32) | flipped id (smallest first = estimate
+//      descending, then id ascending, signed) to the block's span of the
+//      list at a shared-memory count: no barrier and no device-wide
+//      counter in the loop. Each warp also atomicMins the first
+//      pad-valued position.
+//   3. pool_select_kernel, rounds of a tournament. Round 0 takes each
+//      block's span (and the pad key when the first pad-valued position
+//      is live), keeps the keys whose estimate bucket reaches the
+//      highest bucket with k_pool keys at or above it (the others have
+//      k_pool larger estimates ahead of them), bitonic-sorts them in
+//      shared memory and appends each span's k_pool smallest; each later
+//      round merges 8 * (T - k_pool) of the appended keys a block into
+//      k_pool, until one task is left, which writes the pool: the ids of
+//      its keys, the pad id past them. Grids and rounds follow n and
+//      k_pool; the keys present (counted on the device) decide the work:
+//      no host synchronisation, launches fixed by n and k_pool. The
+//      list's order varies from run to run, but its keys are unique, so
+//      the pool does not.
 // K15 (detpu_topk_merge, one block): sorts the pool and drops repeated
 //   values (jnp.unique(pool, size=candidates, fill_value=pad)), marks the
 //   candidates that repeat a carried id, scores the rest by the query and
@@ -45,9 +78,10 @@
 //   topk_est (clamped at 0), and adds the step's live count, rounded once
 //   to float32, to the width's `ids` accumulator.
 //
-// Bound: bytes. K13 reads ~5 B a position (id and live flag) and
-// read-modify-writes the small sketch; K14's sort moves each 4-byte key
-// through 4 passes of reads and writes; K15 touches a few KB.
+// Bound: bytes. K13 and K14's pool read ~5 B a position (id and live
+// flag); K13 read-modify-writes the small sketch, the pool clears its
+// set (4 B a slot, 2-4 slots a position) and writes 8 B a distinct id;
+// K15 touches a few KB.
 //
 // C interface (ctypes): pointers and the stream as void*, returns the
 // cudaError_t of the launches.
@@ -55,7 +89,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "radix_sort.cuh"
+#include <atomic>
 
 namespace {
 
@@ -65,8 +99,33 @@ __constant__ uint32_t kMults[8] = {0x9E3779B1u, 0x85EBCA77u, 0xC2B2AE3Du,
                                    0xFD7046C5u, 0xB55A4F09u};
 constexpr uint32_t kMix = 0x2C1B3C6Du;
 constexpr int kUpdThreads = 512;
+constexpr int kInsThreads = 256;
+constexpr int kInsPer = 4;        // positions a thread takes each round
+constexpr int kFilter = 4096;     // a block's filter of ids it has seen
 constexpr int kSelThreads = 1024;
 constexpr unsigned long long kNoKey = ~0ull;  // sorts after every key
+// an empty slot of the pool's set (the flipped pad id, never inserted);
+// also "no position" and the start of every count of the pool (the
+// memset that clears the set sets them; they count down)
+constexpr uint32_t kEmpty = 0xffffffffu;
+// the pool's counters: [1] the first pad-valued position, [kHist + b]
+// the listed ids of estimate bucket b (est_bucket), [kOut + r] the keys
+// select round r wrote; then the set
+constexpr int kHist = 4;
+constexpr int kOut = kHist + 32;
+constexpr int kMaxRounds = 16;
+constexpr int kCounters = kOut + kMaxRounds;
+constexpr int kMaxPerThread = 16;  // select keys a thread holds: T <= 16K
+constexpr int kMergeChunks = 8;    // chunks of C keys a task of round > 0
+
+// The id with its sign bit flipped: unsigned order is signed order.
+__device__ __forceinline__ uint32_t flip(int id) {
+  return static_cast<uint32_t>(id) ^ 0x80000000u;
+}
+
+__device__ __forceinline__ int unflip(uint32_t w) {
+  return static_cast<int>(w ^ 0x80000000u);
+}
 
 __device__ __forceinline__ uint32_t column(uint32_t id, int d,
                                            uint32_t buckets) {
@@ -173,14 +232,133 @@ cms_query_kernel(const int* __restrict__ cms, int depth, int buckets,
   if (j < n) est[j] = query(cms, depth, buckets, ids[j]);
 }
 
-// Sort keys of the ids: the id (INT32_MAX where dead) with its sign bit
-// flipped.
-__global__ void __launch_bounds__(256)
-pool_keys(const int* __restrict__ ids, const uint8_t* __restrict__ live,
-          int64_t n, uint32_t* __restrict__ keys) {
-  const int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-  if (j < n) keys[j] = Key<int32_t>::of(live[j] != 0 ? ids[j] : kPad);
+// The set's home slot of a flipped id: Fibonacci hashing, the top `bits`
+// bits of the 64-bit product (bits <= 32).
+__device__ __forceinline__ uint32_t home_slot(uint32_t w, int bits) {
+  return static_cast<uint32_t>(
+      (static_cast<uint64_t>(w) * 0x9E3779B97F4A7C15ull) >> (64 - bits));
+}
+
+// The slot of a flipped id in a block's filter.
+__device__ __forceinline__ int filter_slot(uint32_t w) {
+  return static_cast<int>((w * 0x85EBCA77u) >> 20) & (kFilter - 1);
+}
+
+// The bucket of an estimate: 0 for 0, else 1 + floor(log2(est)).
+__device__ __forceinline__ int est_bucket(int est) {
+  return est <= 0 ? 0 : 32 - __clz(est);
+}
+
+// Linear probing for w past slot s (which holds another id): true when
+// this thread's atomicCAS claims a slot for w, false when w is found.
+__device__ bool probe_on(uint32_t* set, uint32_t s, uint32_t mask,
+                         uint32_t w) {
+  for (;;) {
+    s = (s + 1) & mask;
+    const uint32_t cur = __ldcg(set + s);
+    if (cur == w) return false;
+    if (cur == kEmpty) {
+      const uint32_t prev = atomicCAS(set + s, kEmpty, w);
+      if (prev == kEmpty) return true;
+      if (prev == w) return false;
+    }
+  }
+}
+
+// Step 2 of the pool (see the header and kCounters). Block b takes the
+// positions [b * seg, (b + 1) * seg) and lists its winners' keys in the
+// same span of `list` (shared-memory counts, no barrier in the loop),
+// their number in seg_count[b].
+__global__ void __launch_bounds__(kInsThreads)
+pool_insert_kernel(const int* __restrict__ cms, int depth, int buckets,
+                   const int* __restrict__ ids,
+                   const uint8_t* __restrict__ live, int64_t n,
+                   uint32_t* __restrict__ set, int bits,
+                   unsigned long long* __restrict__ list, int64_t seg,
+                   uint32_t* __restrict__ seg_count,
+                   uint32_t* __restrict__ counters) {
+  // ids this block has found in the set or claimed (a cache: a later
+  // position with one of them needs no probe)
+  __shared__ uint32_t seen[kFilter];
+  __shared__ uint32_t listed, hist[32];
+  for (int f = threadIdx.x; f < kFilter; f += blockDim.x) seen[f] = kEmpty;
+  if (threadIdx.x < 32) hist[threadIdx.x] = 0;
+  if (threadIdx.x == 0) listed = 0;
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const uint32_t mask = static_cast<uint32_t>((uint64_t{1} << bits) - 1);
+  const int64_t begin = static_cast<int64_t>(blockIdx.x) * seg;
+  const int64_t end = begin + seg < n ? begin + seg : n;
+  unsigned long long* mine = list + begin;
+  uint32_t first_pad = kEmpty;
+  // each thread takes kInsPer positions a round, their loads, probes and
+  // claims issued together; the bound is uniform over the block
+  for (int64_t base = begin; base < end; base += kInsThreads * kInsPer) {
+    uint32_t w[kInsPer];
+    int fs[kInsPer];
+    bool lead[kInsPer];
+#pragma unroll
+    for (int v = 0; v < kInsPer; ++v) {
+      const int64_t i = base + v * kInsThreads + threadIdx.x;
+      const bool in = i < end;
+      const int id = in ? ids[i] : kPad;
+      const bool ok = in && live[i] != 0 && id != kPad;
+      if (in && !ok && first_pad == kEmpty) {
+        first_pad = static_cast<uint32_t>(i);
+      }
+      w[v] = flip(id);
+      fs[v] = filter_slot(w[v]);
+      lead[v] = ok && seen[fs[v]] != w[v];
+    }
+    uint32_t slot[kInsPer], got[kInsPer];
+    bool won[kInsPer];
+#pragma unroll
+    for (int v = 0; v < kInsPer; ++v) {
+      if (lead[v]) {
+        slot[v] = home_slot(w[v], bits);
+        got[v] = __ldcg(set + slot[v]);
+      }
+    }
+#pragma unroll
+    for (int v = 0; v < kInsPer; ++v) {
+      won[v] = false;
+      if (lead[v] && got[v] == kEmpty) {
+        got[v] = atomicCAS(set + slot[v], kEmpty, w[v]);
+        won[v] = got[v] == kEmpty;
+      }
+    }
+#pragma unroll
+    for (int v = 0; v < kInsPer; ++v) {
+      if (lead[v] && !won[v] && got[v] != w[v]) {
+        won[v] = probe_on(set, slot[v], mask, w[v]);
+      }
+      if (lead[v]) seen[fs[v]] = w[v];  // w is in the set now
+    }
+#pragma unroll
+    for (int v = 0; v < kInsPer; ++v) {
+      const unsigned wins = __ballot_sync(0xffffffffu, won[v]);
+      if (wins == 0) continue;
+      int est = 0;
+      if (won[v]) {
+        est = query(cms, depth, buckets, unflip(w[v]));
+        atomicAdd(&hist[est_bucket(est)], 1u);
+      }
+      const int first = __ffs(wins) - 1;
+      uint32_t at = 0;
+      if (lane == first) at = atomicAdd(&listed, __popc(wins));
+      at = __shfl_sync(0xffffffffu, at, first);
+      if (won[v]) {
+        mine[at + __popc(wins & ((1u << lane) - 1u))] = sel_key(est, w[v]);
+      }
+    }
+  }
+  const uint32_t fp = __reduce_min_sync(0xffffffffu, first_pad);
+  if (lane == 0 && fp != kEmpty) atomicMin(counters + 1, fp);
+  __syncthreads();
+  if (threadIdx.x < 32 && hist[threadIdx.x] != 0) {
+    atomicSub(counters + kHist + threadIdx.x, hist[threadIdx.x]);
+  }
+  if (threadIdx.x == 0) seg_count[blockIdx.x] = listed;
 }
 
 // Ascending bitonic sort of s[0, m) (m a power of two) by the block.
@@ -202,44 +380,120 @@ __device__ void bitonic_sort(unsigned long long* s, int m) {
   }
 }
 
-// One tournament round: block b takes the keys [b*T, (b+1)*T) of its
-// input (kScore: made from the sorted id keys, see the header; else read
-// from `in`, kNoKey past n_in) and keeps its k smallest, in order. The
-// last round (pool != null, one block) writes JAX's pool instead.
-template <bool kScore>
+// Step 3 of the pool: round `round` of the tournament, over `tasks`
+// tasks. In round 0, task b < tasks - 1 is insert block b's segment
+// (seg_count[b] keys at in + b * seg) and the last task holds the pad key
+// when the first pad-valued position is live; in round r + 1, task t
+// holds the keys [t * L, (t + 1) * L) of the m that round r wrote (L =
+// kMergeChunks * C, C = T - k >= k; tasks past m have none). A block
+// takes tasks blockIdx.x, + gridDim.x, ...: it reads a task's keys C at
+// a time, keeps those that can reach the pool, sorts them with the k
+// best it holds and keeps the k smallest, then appends them to `out` at
+// the round's count (counters[kOut + round], counting down). In round 0
+// a key can reach the pool when its estimate bucket is no lower than the
+// highest bucket b* with k listed keys in b* and above (below it, k keys
+// have larger estimates). The last round (pool != null, one task)
+// writes JAX's pool instead: the k best ids, the pad id past them.
 __global__ void __launch_bounds__(kSelThreads)
-select_kernel(const unsigned long long* __restrict__ in, int64_t n_in,
-              const uint32_t* __restrict__ skeys, const int* __restrict__ cms,
-              int depth, int buckets, int tile, int k,
-              unsigned long long* __restrict__ out, int* __restrict__ pool) {
+pool_select_kernel(const unsigned long long* __restrict__ in,
+                   const uint32_t* __restrict__ seg_count, int64_t seg,
+                   int64_t tasks, uint32_t* __restrict__ counters,
+                   const int* __restrict__ cms, int depth, int buckets,
+                   const uint8_t* __restrict__ live, int round, int tile,
+                   int k, unsigned long long* __restrict__ out,
+                   int* __restrict__ pool) {
   extern __shared__ unsigned long long s[];
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * tile;
-  for (int t = threadIdx.x; t < tile; t += blockDim.x) {
-    const int64_t i = base + t;
-    unsigned long long key = kNoKey;
-    if (i < n_in) {
-      if constexpr (kScore) {
-        const uint32_t kk = skeys[i];
-        const int id = Key<int32_t>::id(kk);
-        const bool first = i == 0 || kk != skeys[i - 1];
-        const int score = first && id != kPad
-            ? query(cms, depth, buckets, id) : -1;
-        key = sel_key(score, static_cast<uint32_t>(i));
-      } else {
-        key = in[i];
+  __shared__ int floor_bucket;
+  __shared__ uint32_t kept, out_at;
+  const int64_t m = round == 0 ? 0 : kEmpty - counters[kOut + round - 1];
+  if (threadIdx.x == 0) {
+    int b = 0;
+    uint32_t above = 0;
+    for (int j = 31; round == 0 && j > 0; --j) {
+      above += kEmpty - counters[kHist + j];
+      if (above >= static_cast<uint32_t>(k)) {
+        b = j;
+        break;
       }
     }
-    s[t] = key;
+    floor_bucket = b;
   }
-  __syncthreads();
-  bitonic_sort(s, tile);
-  for (int t = threadIdx.x; t < k; t += blockDim.x) {
-    const unsigned long long key = s[t];
+  const int lane = threadIdx.x & 31;
+  const int chunk = tile - k;
+  const int64_t task_len = static_cast<int64_t>(kMergeChunks) * chunk;
+  for (int64_t t = blockIdx.x; t < tasks; t += gridDim.x) {
+    // the task's keys: src[0, len), or the pad key
+    const unsigned long long* src = in + t * task_len;
+    int64_t len = m - t * task_len;
+    len = len < 0 ? 0 : len > task_len ? task_len : len;
+    bool pad_task = false;
+    if (round == 0) {
+      if (t < tasks - 1) {
+        src = in + t * seg;
+        len = seg_count[t];
+      } else {
+        const uint32_t fp = counters[1];
+        pad_task = true;
+        len = fp != kEmpty && live[fp] != 0 ? 1 : 0;
+      }
+    }
+    int best = 0;  // s[0, best): the k best keys so far, in order
+    for (int64_t off = 0; off < len; off += chunk) {
+      __syncthreads();  // s and kept are free
+      if (threadIdx.x == 0) kept = best;
+      __syncthreads();
+      // this thread's keys of the chunk that can reach the pool, after
+      // the best ones in any order (the sort orders them)
+      unsigned long long v[kMaxPerThread];
+      int mine = 0;
+#pragma unroll
+      for (int j = 0; j < kMaxPerThread; ++j) {
+        const int r = threadIdx.x + j * static_cast<int>(blockDim.x);
+        const int64_t x = off + r;
+        unsigned long long key = kNoKey;
+        if (r < chunk && x < len) {
+          key = pad_task ? sel_key(query(cms, depth, buckets, kPad), kEmpty)
+                         : src[x];
+          if (key != kNoKey && est_bucket(key_score(key)) < floor_bucket) {
+            key = kNoKey;
+          }
+        }
+        v[j] = key;
+        mine += key != kNoKey ? 1 : 0;
+      }
+      int upto = mine;  // inclusive scan over the warp
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, upto, o);
+        if (lane >= o) upto += y;
+      }
+      uint32_t at = 0;
+      if (lane == 31 && upto > 0) at = atomicAdd(&kept, upto);
+      at = __shfl_sync(0xffffffffu, at, 31) + upto - mine;
+#pragma unroll
+      for (int j = 0; j < kMaxPerThread; ++j) {
+        if (v[j] != kNoKey) s[at++] = v[j];
+      }
+      __syncthreads();
+      const int c = static_cast<int>(kept);
+      int size = 1;
+      while (size < c) size <<= 1;
+      for (int x = c + threadIdx.x; x < size; x += blockDim.x) s[x] = kNoKey;
+      __syncthreads();
+      bitonic_sort(s, size);
+      best = c < k ? c : k;
+    }
     if (pool != nullptr) {
-      const uint32_t pos = static_cast<uint32_t>(key & 0xffffffffu);
-      pool[t] = key_score(key) >= 0 ? Key<int32_t>::id(skeys[pos]) : kPad;
-    } else {
-      out[static_cast<int64_t>(blockIdx.x) * k + t] = key;
+      for (int x = threadIdx.x; x < k; x += blockDim.x) {
+        pool[x] = x < best ? unflip(static_cast<uint32_t>(s[x])) : kPad;
+      }
+    } else if (best > 0) {
+      if (threadIdx.x == 0) {
+        out_at = kEmpty - atomicSub(counters + kOut + round, best);
+      }
+      __syncthreads();
+      for (int x = threadIdx.x; x < best; x += blockDim.x) {
+        out[out_at + x] = s[x];
+      }
     }
   }
 }
@@ -290,8 +544,8 @@ topk_merge_kernel(const int* __restrict__ cms, int depth, int buckets,
   // each value's first copy
   for (int j = threadIdx.x; j < m_cand; j += blockDim.x) {
     s[j] = j < k_pool
-        ? static_cast<unsigned long long>(Key<int32_t>::of(pool[j]))
-        : static_cast<unsigned long long>(Key<int32_t>::of(kPad));
+        ? static_cast<unsigned long long>(flip(pool[j]))
+        : static_cast<unsigned long long>(flip(kPad));
   }
   __syncthreads();
   bitonic_sort(s, m_cand);
@@ -301,7 +555,7 @@ topk_merge_kernel(const int* __restrict__ cms, int depth, int buckets,
     const int at = block_scan(keep ? 1 : 0, warp_sums);
     const int base = j0 == 0 ? 0 : uniq;
     if (keep) {
-      cand[base + at] = Key<int32_t>::id(static_cast<uint32_t>(s[j]));
+      cand[base + at] = unflip(static_cast<uint32_t>(s[j]));
     }
     __syncthreads();
     if (threadIdx.x == blockDim.x - 1) uniq = base + at + (keep ? 1 : 0);
@@ -359,51 +613,105 @@ int next_pow2(int64_t v) {
 
 int64_t align16(int64_t b) { return (b + 15) / 16 * 16; }
 
-// Tournament geometry: the tile (a power of two >= 2 * k_pool, at least
-// 4096) and the list count after each round.
+// The select's tile: T keys in shared memory, a power of two >= 2 * k_pool
+// and at least 4096.
 int sel_tile(int k_pool) {
   const int t = next_pow2(2 * static_cast<int64_t>(k_pool));
   return t < 4096 ? 4096 : t;
 }
 
-struct PoolScratch {
-  uint32_t* keys[2];
-  int* hist;
-  int* partials;
-  unsigned long long* lists[2];
+// log2 of the pool's set: the power of two >= 2n slots, so the set is
+// at most half full when all n positions are distinct live ids.
+int set_bits(int64_t n) {
+  int b = 1;
+  while ((int64_t{1} << b) < 2 * n) ++b;
+  return b;
+}
+
+// Bytes the pool's memset clears: its counters and its set.
+int64_t clear_bytes(int64_t n) {
+  return 4 * (kCounters + (int64_t{1} << set_bits(n)));
+}
+
+int insert_blocks_per_sm();
+int sm_count();
+int max_dynamic_smem();
+
+// The pool's launch geometry, fixed by n and k_pool.
+struct PoolGeometry {
+  int64_t blocks;       // insert blocks (as many as run at once)
+  int64_t seg;          // list slots a block owns: the positions it takes
+  int tile;             // select tile: T keys in shared memory
 };
 
-// Carves the K14 scratch (or, with base null, returns its size).
-int64_t carve_pool(void* base, int64_t n, int k_pool, PoolScratch* s) {
-  const int tile = sel_tile(k_pool);
-  const int64_t lists = (n + tile - 1) / tile * static_cast<int64_t>(k_pool);
-  const int64_t sizes[] = {n * 4, n * 4, radix_hist_ints(n) * 4,
-                           radix_partial_ints(n) * 4, lists * 8, lists * 8};
-  void* ptrs[6];
+PoolGeometry pool_geometry(int64_t n, int k_pool) {
+  PoolGeometry g;
+  const int64_t step = static_cast<int64_t>(kInsThreads) * kInsPer;
+  const int64_t cap =
+      static_cast<int64_t>(insert_blocks_per_sm()) * sm_count();
+  g.blocks = (n + step - 1) / step;
+  if (g.blocks > cap) g.blocks = cap;
+  if (g.blocks < 1) g.blocks = 1;
+  g.seg = (n + g.blocks * step - 1) / (g.blocks * step) * step;
+  g.tile = sel_tile(k_pool);
+  return g;
+}
+
+struct PoolScratch {
+  uint32_t* counters;  // [kCounters], then the set: one memset clears both
+  uint32_t* set;
+  uint32_t* seg_count;  // [blocks]
+  unsigned long long* lists[2];  // the segments, round 0's lists
+};
+
+// Carves the K14 pool scratch (or, with base null, returns its size).
+int64_t carve_pool(void* base, int64_t n, int k_pool, const PoolGeometry& g,
+                   PoolScratch* s) {
+  const int64_t task_len = static_cast<int64_t>(kMergeChunks) *
+                           (g.tile - k_pool);
+  const int64_t lists0 = (g.blocks + 1) * k_pool;
+  const int64_t lists1 = (lists0 + task_len - 1) / task_len * k_pool;
+  const int64_t segs = g.blocks * g.seg;
+  const int64_t sizes[] = {clear_bytes(n), g.blocks * 4,
+                           (segs > lists1 ? segs : lists1) * 8, lists0 * 8};
+  void* ptrs[4];
   int64_t off = 0;
-  for (int i = 0; i < 6; ++i) {
+  for (int i = 0; i < 4; ++i) {
     ptrs[i] = base == nullptr ? nullptr : static_cast<char*>(base) + off;
     off += align16(sizes[i]);
   }
   if (s != nullptr) {
-    s->keys[0] = static_cast<uint32_t*>(ptrs[0]);
-    s->keys[1] = static_cast<uint32_t*>(ptrs[1]);
-    s->hist = static_cast<int*>(ptrs[2]);
-    s->partials = static_cast<int*>(ptrs[3]);
-    s->lists[0] = static_cast<unsigned long long*>(ptrs[4]);
-    s->lists[1] = static_cast<unsigned long long*>(ptrs[5]);
+    s->counters = static_cast<uint32_t*>(ptrs[0]);
+    s->set = s->counters + kCounters;
+    s->seg_count = static_cast<uint32_t*>(ptrs[1]);
+    s->lists[0] = static_cast<unsigned long long*>(ptrs[2]);
+    s->lists[1] = static_cast<unsigned long long*>(ptrs[3]);
   }
   return off;
 }
 
-int max_dynamic_smem() {
-  int dev = 0, v = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 48 * 1024;
-  if (cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev) != cudaSuccess) {
-    return 48 * 1024;
+// A device attribute of the current device, queried once per device and
+// process (fallback if the query fails).
+constexpr int kMaxDevices = 64;
+std::atomic<int> g_smem[kMaxDevices], g_sms[kMaxDevices];
+
+int device_attr(std::atomic<int>* cache, cudaDeviceAttr attr, int fallback) {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) {
+    return fallback;
   }
+  int v = cache[dev].load(std::memory_order_relaxed);
+  if (v > 0) return v;
+  if (cudaDeviceGetAttribute(&v, attr, dev) != cudaSuccess || v <= 0) {
+    return fallback;
+  }
+  cache[dev].store(v, std::memory_order_relaxed);
   return v;
+}
+
+int max_dynamic_smem() {
+  return device_attr(g_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                     48 * 1024);
 }
 
 template <typename Kernel>
@@ -414,13 +722,27 @@ cudaError_t allow_smem(Kernel k, int64_t bytes) {
 }
 
 int sm_count() {
-  int dev = 0, v = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 132;
-  if (cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev) !=
-      cudaSuccess) {
-    return 132;
+  return device_attr(g_sms, cudaDevAttrMultiProcessorCount, 132);
+}
+
+// Insert blocks that run at once on an SM of the current device (queried
+// once per device).
+std::atomic<int> g_ins[kMaxDevices];
+
+int insert_blocks_per_sm() {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) {
+    return 1;
   }
-  return v;
+  int nb = g_ins[dev].load(std::memory_order_relaxed);
+  if (nb > 0) return nb;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &nb, pool_insert_kernel, kInsThreads, 0) != cudaSuccess ||
+      nb < 1) {
+    return 1;
+  }
+  g_ins[dev].store(nb, std::memory_order_relaxed);
+  return nb;
 }
 
 }  // namespace
@@ -482,21 +804,28 @@ extern "C" int detpu_cms_query(const void* cms, int depth, int buckets,
 
 // Bytes of scratch detpu_topk_pool needs (0 < k_pool <= n < 2^31).
 extern "C" int64_t detpu_topk_pool_scratch_bytes(int64_t n, int k_pool) {
-  return carve_pool(nullptr, n, k_pool, nullptr);
+  return carve_pool(nullptr, n, k_pool, pool_geometry(n, k_pool), nullptr);
+}
+
+// Bytes of that scratch detpu_topk_pool clears each call (its memset).
+extern "C" int64_t detpu_topk_pool_clear_bytes(int64_t n) {
+  return clear_bytes(n);
 }
 
 // The largest k_pool detpu_topk_pool takes (its tile must fit in shared
 // memory).
 extern "C" int detpu_topk_pool_max(void) {
   int k = 1;
-  while (static_cast<int64_t>(sel_tile(2 * k)) * 8 <= max_dynamic_smem()) {
+  while (static_cast<int64_t>(sel_tile(2 * k)) * 8 <= max_dynamic_smem() &&
+         sel_tile(2 * k) <= kSelThreads * kMaxPerThread) {
     k *= 2;
   }
   return k;
 }
 
 // pool [k_pool] int32 <- JAX's candidate pool of record_ids from the
-// (already updated) sketch, ids [n] int32 and live [n] bool.
+// (already updated) sketch, ids [n] int32 and live [n] bool; scratch of
+// detpu_topk_pool_scratch_bytes(n, k_pool) bytes (see the header).
 extern "C" int detpu_topk_pool(const void* cms, int depth, int buckets,
                                const void* ids, const void* live, int64_t n,
                                int k_pool, void* pool, void* scratch,
@@ -506,41 +835,41 @@ extern "C" int detpu_topk_pool(const void* cms, int depth, int buckets,
     return cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const PoolGeometry g = pool_geometry(n, k_pool);
   PoolScratch s;
-  carve_pool(scratch, n, k_pool, &s);
+  carve_pool(scratch, n, k_pool, g, &s);
+  const int bits = set_bits(n);
+  cudaError_t e = cudaMemsetAsync(s.counters, 0xff, clear_bytes(n), st);
+  if (e != cudaSuccess) return e;
   const int* c = static_cast<const int*>(cms);
-  pool_keys<<<static_cast<unsigned>((n + 255) / 256), 256, 0, st>>>(
-      static_cast<const int*>(ids), static_cast<const uint8_t*>(live), n,
-      s.keys[0]);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  int cur = 0;
-  e = radix_sort<uint32_t, false>(s.keys, nullptr, n, 32, s.hist,
-                                  s.partials, st, &cur);
-  if (e != cudaSuccess) return e;
-  const uint32_t* sk = s.keys[cur];
-  const int tile = sel_tile(k_pool);
-  const int64_t smem = static_cast<int64_t>(tile) * 8;
-  if ((e = allow_smem(select_kernel<true>, smem)) != cudaSuccess) return e;
-  if ((e = allow_smem(select_kernel<false>, smem)) != cudaSuccess) return e;
-  int64_t blocks = (n + tile - 1) / tile;
-  int* out_pool = static_cast<int*>(pool);
-  select_kernel<true><<<static_cast<unsigned>(blocks), kSelThreads, smem,
-                        st>>>(nullptr, n, sk, c, depth, buckets, tile, k_pool,
-                              s.lists[0], blocks == 1 ? out_pool : nullptr);
+  const auto* i = static_cast<const int*>(ids);
+  const auto* l = static_cast<const uint8_t*>(live);
+  pool_insert_kernel<<<static_cast<unsigned>(g.blocks), kInsThreads, 0,
+                       st>>>(c, depth, buckets, i, l, n, s.set, bits,
+                             s.lists[0], g.seg, s.seg_count, s.counters);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  int w = 0;
-  while (blocks > 1) {
-    const int64_t n_in = blocks * k_pool;
-    blocks = (n_in + tile - 1) / tile;
-    select_kernel<false><<<static_cast<unsigned>(blocks), kSelThreads, smem,
-                           st>>>(s.lists[w], n_in, sk, c, depth, buckets,
-                                 tile, k_pool, s.lists[1 - w],
-                                 blocks == 1 ? out_pool : nullptr);
+  const int64_t smem = static_cast<int64_t>(g.tile) * 8;
+  if ((e = allow_smem(pool_select_kernel, smem)) != cudaSuccess) return e;
+  // rounds until one task is left; a round's grid takes at most two
+  // blocks an SM (they loop over its tasks)
+  int64_t tasks = g.blocks + 1;
+  for (int round = 0, w = 0; round < kMaxRounds; ++round, w = 1 - w) {
+    const bool last = tasks == 1;
+    const int64_t grid = tasks < 2 * sm_count() ? tasks : 2 * sm_count();
+    pool_select_kernel<<<static_cast<unsigned>(grid), kSelThreads, smem,
+                         st>>>(s.lists[w], s.seg_count, g.seg, tasks,
+                               s.counters, c, depth, buckets, l, round,
+                               g.tile, k_pool, s.lists[1 - w],
+                               last ? static_cast<int*>(pool) : nullptr);
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
-    w = 1 - w;
+    if (last) return cudaSuccess;
+    // each later task merges kMergeChunks * C >= 8k keys into k
+    const int64_t m = tasks * k_pool;
+    const int64_t task_len =
+        static_cast<int64_t>(kMergeChunks) * (g.tile - k_pool);
+    tasks = (m + task_len - 1) / task_len;
   }
-  return cudaSuccess;
+  return cudaErrorInvalidValue;  // more rounds than n < 2^31 needs
 }
 
 // The largest candidates + topk detpu_topk_merge takes.

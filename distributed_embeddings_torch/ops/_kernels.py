@@ -130,8 +130,9 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "detpu_cms_update": (_P, _I, _I, _P, _P, _I64, _P, _P),
         # cms, depth, buckets, ids, n, est, stream
         "detpu_cms_query": (_P, _I, _I, _P, _I64, _P, _P),
-        # n, k_pool -> bytes
+        # n, k_pool -> bytes; n -> the bytes of it each call clears
         "detpu_topk_pool_scratch_bytes": (_I64, _I),
+        "detpu_topk_pool_clear_bytes": (_I64,),
         # -> the largest k_pool
         "detpu_topk_pool_max": (),
         # cms, depth, buckets, ids, live, n, k_pool, pool, scratch, stream
@@ -174,7 +175,8 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
 #: return type of the exported functions that return no ``cudaError_t``
 RESTYPES = {"detpu_dedup_scratch_bytes": _I64,
             "detpu_sgd_promoted_scratch_bytes": _I64,
-            "detpu_topk_pool_scratch_bytes": _I64}
+            "detpu_topk_pool_scratch_bytes": _I64,
+            "detpu_topk_pool_clear_bytes": _I64}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

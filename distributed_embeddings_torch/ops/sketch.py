@@ -12,21 +12,23 @@ telemetry.py`` (``_buckets_of``, ``cms_update``, ``cms_query``,
   JAX step donates the state), and returns the live count as int64
   partial sums;
 * :func:`cms_query` (K14) is the count-min estimate of ids;
-* :func:`topk_pool` (K14) sorts the live ids (dead positions become the
-  pad id ``INT32_MAX``), scores each id's first occurrence by the
-  sketch, and gives JAX's candidate ``pool``: the ``k_pool`` best
-  positions in ``lax.top_k`` order (estimate descending, ties to the
-  lower sorted position, so the smaller id), each its id where the score
-  is >= 0, else the pad id;
+* :func:`topk_pool` (K14) gives JAX's candidate ``pool``: the
+  ``k_pool`` distinct live ids with the largest sketch estimates, ties to
+  the smaller id, padded with the pad id ``INT32_MAX``. JAX sorts the
+  ids (dead positions as the pad id) and scores each id's first sorted
+  occurrence, so one more entry can take a place: the first pad-valued
+  position in stream order scores the pad id's estimate when it is a
+  live ``INT32_MAX`` (its pool value is the pad id, after every other
+  id of its estimate), and nothing when it is dead;
 * :func:`topk_merge` (K15) merges the unique pool into the carried top-k,
   IN PLACE, and adds the live count, rounded once to float32, to the
   width's ``ids`` accumulator.
 
 Everything is integer arithmetic, so each kernel equals its plain
-version bit for bit, and both equal JAX's ``record_ids`` for live ids
-below ``INT32_MAX`` (a logical slab row always is) and live counts below
-2^24 (JAX sums the live mask in float32: beyond that its sum is not the
-count in any order, and the port rounds the exact count once).
+version bit for bit, and both equal JAX's ``record_ids`` for live
+counts below 2^24 (JAX sums the live mask in float32: beyond that its
+sum is not the count in any order, and the port rounds the exact count
+once).
 ``lax.top_k`` keeps the lower index first among equal values and
 ``torch.topk`` does not, so the plain versions select with a stable sort
 on the negated score.
@@ -37,6 +39,7 @@ or raises. Each wrapper counts its launches.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
 import torch
@@ -111,14 +114,18 @@ def _select(score: torch.Tensor, k: int) -> torch.Tensor:
 
 def topk_pool_plain(cms: torch.Tensor, ids: torch.Tensor,
                     live: torch.Tensor, k_pool: int) -> torch.Tensor:
-    """Plain PyTorch version of :func:`topk_pool`."""
-    sids = torch.sort(torch.where(live, ids, PAD)).values
-    first = torch.ones_like(sids, dtype=torch.bool)
-    first[1:] = sids[1:] != sids[:-1]
-    score = torch.where(first & (sids != PAD), cms_query_plain(cms, sids),
-                        -1)
-    order = _select(score, k_pool)
-    return torch.where(score[order] >= 0, sids[order], PAD)
+    """Plain PyTorch version of :func:`topk_pool`: the distinct live ids
+    (ascending) and the pad id where the first pad-valued position is
+    live, ordered by (estimate descending, id ascending)."""
+    keys = torch.where(live, ids, PAD)
+    pads = (keys == PAD).nonzero()
+    cand = torch.unique(keys[keys != PAD])
+    if pads.numel() and bool(live[pads[0, 0]]):
+        cand = torch.cat([cand, cand.new_full((1,), PAD)])
+    order = _select(cms_query_plain(cms, cand), k_pool)
+    pool = torch.full((k_pool,), PAD, dtype=torch.int32, device=ids.device)
+    pool[:order.numel()] = cand[order]
+    return pool
 
 
 def topk_merge_plain(cms: torch.Tensor, pool: torch.Tensor,
@@ -232,6 +239,12 @@ def cms_query(cms: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return est
 
 
+@functools.lru_cache(maxsize=None)
+def _pool_max() -> int:
+    """The largest ``k_pool`` the kernel takes (once per process)."""
+    return _kernels.library("sketch").detpu_topk_pool_max()
+
+
 def topk_pool(cms: torch.Tensor, ids: torch.Tensor, live: torch.Tensor,
               k_pool: int) -> torch.Tensor:
     """K14's candidate pool of ``record_ids`` (see the module docstring)
@@ -245,10 +258,10 @@ def topk_pool(cms: torch.Tensor, ids: torch.Tensor, live: torch.Tensor,
     pool = torch.empty((k_pool,), dtype=torch.int32, device=cms.device)
     if k_pool == 0:
         return pool
-    lib = _kernels.library("sketch")
-    if k_pool > lib.detpu_topk_pool_max():
+    if k_pool > _pool_max():
         raise ValueError(f"k_pool {k_pool}: the kernel takes at most "
-                         f"{lib.detpu_topk_pool_max()}")
+                         f"{_pool_max()}")
+    lib = _kernels.library("sketch")
     n = ids.numel()
     scratch = torch.empty((lib.detpu_topk_pool_scratch_bytes(n, k_pool),),
                           dtype=torch.uint8, device=cms.device)

@@ -1123,11 +1123,39 @@ def test_wrapped_row_kernels_match_plain(cuda_device, name, dtype, stream):
 # -------------------------------------------------- K13-K15: telemetry
 
 
-def _telemetry_case(rng, n, depth, buckets, topk, device):
-    """Zipfian ids with ~10% dead positions and a prior state (a nonzero
-    sketch, some carried hot rows)."""
-    ids = ((rng.zipf(1.2, n) - 1) % 200_000).astype(np.int32)
+def _telemetry_ids(rng, n, kind):
+    """``(ids, live)`` of a telemetry stream: ``zipf`` (Zipfian over 200K
+    rows, ~10% dead), ``zipf19`` (the ragged stream's ~19 positions a
+    distinct live id), ``edges`` (``zipf`` with 2% negative ids and 1%
+    ``INT32_MAX``, live and dead), ``spread`` (ids over all of int32, a
+    few repeated), ``distinct`` (every position live, no two alike)."""
+    if kind == "distinct":
+        ids = rng.permutation(4 * n)[:n] - 2 * n
+        return ids.astype(np.int32), np.ones(n, bool)
+    if kind == "spread":
+        ids = rng.integers(-2 ** 31, 2 ** 31 - 1, n)
+        again = rng.random(n) < 0.3
+        ids[again] = ids[:64][rng.integers(0, 64, int(again.sum()))]
+    elif kind == "zipf19":
+        ids = (rng.zipf(1.25, n) - 1) % 200_000
+    else:
+        ids = (rng.zipf(1.2, n) - 1) % 200_000
+    if kind == "edges":  # negative ids score id 0's count: make it ~80th
+        u = rng.random(n)
+        ids = np.where(u < 0.02, -rng.integers(1, 5000, n), ids + 1)
+        ids = np.where((u > 0.02) & (u < 0.021), 0, ids)
+        ids = np.where(u > 0.99, 2 ** 31 - 1, ids)
+        ids[0] = 2 ** 31 - 1
     live = rng.random(n) < 0.9
+    if kind == "edges":
+        live[0] = True  # the first pad-valued position is a live one
+    return ids.astype(np.int32), live
+
+
+def _telemetry_case(rng, n, depth, buckets, topk, device, kind="zipf"):
+    """A stream of ``_telemetry_ids`` and a prior state (a nonzero
+    sketch, some carried hot rows)."""
+    ids, live = _telemetry_ids(rng, n, kind)
     cms = rng.integers(0, 9, (depth, buckets)).astype(np.int32)
     tids = np.full(topk, -1, np.int32)
     tids[:topk // 2] = rng.permutation(50)[:topk // 2]
@@ -1140,28 +1168,44 @@ def _telemetry_case(rng, n, depth, buckets, topk, device):
             torch.from_numpy(live).to(device), wstate)
 
 
+def _sketch_case(n, depth, buckets, topk, cand, kind="zipf"):
+    return pytest.param(n, depth, buckets, topk, cand, kind,
+                        id=f"{n}-{depth}-{buckets}-{topk}-{cand}"
+                        + ("" if kind == "zipf" else f"-{kind}"))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,depth,buckets,topk,cand", [
-    (425_984, 4, 2048, 32, 128),   # the DLRM telemetry step's stream
-    (5_000, 3, 61, 6, 10),
-    (1_000, 9, 3, 4, 7),           # depths past 8, 3 buckets
-    (50, 4, 2048, 32, 128),        # n < candidates
-    (100_000, 16, 8192, 32, 128),  # a 512 KB sketch: no shared copy
-    (300_000, 4, 2047, 64, 4096),  # a tournament of several rounds
+@pytest.mark.parametrize("n,depth,buckets,topk,cand,kind", [
+    _sketch_case(425_984, 4, 2048, 32, 128),  # the DLRM telemetry stream
+    _sketch_case(5_000, 3, 61, 6, 10),
+    _sketch_case(1_000, 9, 3, 4, 7),          # depths past 8, 3 buckets
+    _sketch_case(50, 4, 2048, 32, 128),       # n < candidates
+    _sketch_case(100_000, 16, 8192, 32, 128),  # 512 KB: no shared copy
+    _sketch_case(300_000, 4, 2047, 64, 4096),  # several tournament rounds
+    _sketch_case(2_600_000, 4, 2048, 32, 128, "zipf19"),  # ragged-like
+    _sketch_case(200_000, 4, 2048, 32, 128, "edges"),  # < 0, INT32_MAX
+    _sketch_case(1_000_000, 4, 2048, 32, 128, "spread"),  # probing
+    _sketch_case(300_000, 4, 2048, 32, 0, "zipf"),  # cand: the pool max
+    _sketch_case(2_000_000, 4, 2048, 32, 128, "distinct"),  # a full set
 ])
 def test_sketch_kernels_match_plain(cuda_device, n, depth, buckets, topk,
-                                    cand):
+                                    cand, kind):
     """K13 (sketch update and live count), K14 (query and candidate
     pool) and K15 (top-k merge) against their plain versions on the
-    card, three steps from one prior state: every leaf bit-exact."""
+    card, three steps from one prior state: every leaf bit-exact.
+    ``cand`` 0 takes the largest pool the kernel allows (past K15's
+    limit: the merge is left out)."""
     from distributed_embeddings_torch.ops import sketch as sk
 
-    rng = np.random.default_rng(n + depth)
+    merge = cand > 0
+    if not merge:
+        cand = sk._pool_max()
+        assert cand >= 4096
     runs = []
     for use_kernels in (True, False):
         rng = np.random.default_rng(n + depth)
         ids, live, ws = _telemetry_case(rng, n, depth, buckets, topk,
-                                        cuda_device)
+                                        cuda_device, kind)
         outs = []
         for step in range(3):
             if step:
@@ -1174,10 +1218,12 @@ def test_sketch_kernels_match_plain(cuda_device, n, depth, buckets, topk,
                 counts = sk.cms_update(ws["cms"], ids, live)
                 pool = sk.topk_pool(ws["cms"], ids, live, min(cand, n))
                 cnt = sk.topk_merge(ws["cms"], pool, counts, ws["topk_ids"],
-                                    ws["topk_est"], ws["ids"], cand)
+                                    ws["topk_est"], ws["ids"], cand) \
+                    if merge else counts.sum()
                 assert (sk.cms_update.launches, sk.topk_pool.launches,
                         sk.topk_merge.launches) == tuple(
-                            b + 1 for b in before)
+                            b + (1 if i < 2 or merge else 0)
+                            for i, b in enumerate(before))
                 est = sk.cms_query(ws["cms"], ids)
             else:
                 counts = sk.cms_update_plain(ws["cms"], ids, live)
@@ -1185,7 +1231,8 @@ def test_sketch_kernels_match_plain(cuda_device, n, depth, buckets, topk,
                                           min(cand, n))
                 cnt = sk.topk_merge_plain(ws["cms"], pool, counts,
                                           ws["topk_ids"], ws["topk_est"],
-                                          ws["ids"], cand)
+                                          ws["ids"], cand) \
+                    if merge else counts.sum()
                 est = sk.cms_query_plain(ws["cms"], ids)
             outs.append([int(counts.sum()), pool.clone(), cnt.clone(),
                          est] + [v.clone() for v in ws.values()])
@@ -1195,7 +1242,8 @@ def test_sketch_kernels_match_plain(cuda_device, n, depth, buckets, topk,
         for x, y in zip(a[1:], b[1:]):
             np.testing.assert_array_equal(to_np(x), to_np(y),
                                           err_msg=f"step {step}")
-    assert (runs[0][-1][-3] >= 0).any()  # hot rows found
+    assert (runs[0][-1][-3] >= 0).any() or not merge  # hot rows found
+    assert (runs[0][-1][1] != sk.PAD).any()  # a pool of live ids
 
 
 def _remap_case(rng, n, rows_cap, cap, is64, dev):

@@ -128,11 +128,16 @@ def test_library_name_follows_included_headers(tmp_path, monkeypatch):
     (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
     (tmp_path / "k.cu").write_text('#include "a.cuh"\n#include <x.h>\n')
     assert _kernels._lib_path("k") == names[0]
-    # the real sources: the shared headers are part of their libraries
+    # the real sources: the shared headers are part of the libraries that
+    # include them, and of no other
     monkeypatch.undo()
-    src = _kernels.source_bytes(os.path.join(_kernels.CSRC, "sketch.cu"))
     with open(os.path.join(_kernels.CSRC, "radix_sort.cuh"), "rb") as f:
-        assert f.read() in src
+        header = f.read()
+    for name, included in (("dedup", True), ("sgd_promoted", True),
+                           ("sketch", False)):
+        src = _kernels.source_bytes(os.path.join(_kernels.CSRC,
+                                                 name + ".cu"))
+        assert (header in src) == included, name
 
 
 @pytest.mark.parametrize("path", _sources(),

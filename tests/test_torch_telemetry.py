@@ -94,8 +94,12 @@ def test_cms_update_and_query_match_jax(depth, buckets):
         np.asarray(jtel.cms_query(want, jnp.asarray(q))))
 
 
+I32_MIN, PAD = -2 ** 31, 2 ** 31 - 1
+
+
 def _stream(kind, rng, step):
-    """``(ids, live)`` of one step of a stream built to tie."""
+    """``(ids, live)`` of one step of a stream built to tie, or to reach
+    an edge of the candidate pool."""
     if kind == "ties":  # many ids of one count: the order decides
         ids = np.repeat(rng.permutation(40)[:30], 3)
         live = np.ones(ids.size, bool)
@@ -105,17 +109,66 @@ def _stream(kind, rng, step):
     elif kind == "all_dead":
         ids = rng.integers(0, 100, size=50)
         live = np.zeros(50, bool)
-    else:  # "hot": carried ids that stay hot beside fresh low counts
+    elif kind == "hot":  # carried ids that stay hot beside fresh low counts
         ids = np.concatenate([np.repeat([3, 17, 90], 6 + step),
                               rng.integers(100, 400, size=60)])
         live = rng.random(ids.size) < 0.9
+    elif kind == "negative":  # negative live ids all score id 0's count
+        ids = np.concatenate([-rng.integers(1, 30, size=40),
+                              rng.integers(0, 20, size=40)])
+        live = rng.random(ids.size) < 0.85
+    elif kind == "live_pad":  # INT32_MAX, live and dead, hot enough to
+        # take a pool place when its first pad-valued position is live
+        ids = np.concatenate([np.full(12, PAD), rng.integers(0, 60, 60)])
+        live = rng.random(ids.size) < 0.8
+        perm = rng.permutation(ids.size)
+        ids, live = ids[perm], live[perm]
+        first = int(np.flatnonzero(~live | (ids == PAD))[0])
+        ids[first], live[first] = (PAD, True) if step % 2 == 0 else \
+            (ids[first], False)
+        return ids.astype(np.int32), live
+    elif kind == "tie_boundary":  # one count across the pool's boundary
+        ids = np.concatenate([np.repeat(rng.permutation(300)[:6], 9),
+                              np.repeat(300 + rng.permutation(300)[:14], 5)])
+        live = np.ones(ids.size, bool)
+    elif kind == "k_above":  # n > candidates > distinct live ids
+        ids = rng.integers(0, 4, size=40)
+        live = rng.random(40) < 0.9
+    elif kind == "n1":
+        ids = rng.integers(0, 5, size=1)
+        live = np.array([step != 2])
+    elif kind == "int32_ends":  # ids at both ends of int32, and the pad
+        ends = np.array([I32_MIN, I32_MIN + 1, I32_MIN + 2, -1, 0,
+                         PAD - 2, PAD - 1, PAD])
+        ids = np.concatenate([rng.choice(ends, 40),
+                              rng.integers(I32_MIN, PAD, 20)])
+        live = rng.random(ids.size) < 0.9
+    else:  # "zipf19": Zipfian, ~19 positions a distinct live id
+        ids = (rng.zipf(1.8, size=1500) - 1) % 10 ** 6
+        live = rng.random(ids.size) < 0.95
     perm = rng.permutation(ids.size)
     return ids[perm].astype(np.int32), live[perm]
 
 
-@pytest.mark.parametrize("kind", ["ties", "short", "all_dead", "hot"])
-def test_record_ids_matches_jax(kind):
-    """Five steps of one width's fold, every leaf bitwise after each."""
+KINDS = ["ties", "short", "all_dead", "hot", "negative", "live_pad",
+         "tie_boundary", "k_above", "n1", "int32_ends", "zipf19"]
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_record_ids_matches_jax(kind, monkeypatch):
+    """Five steps of one width's fold, every leaf bitwise after each; and
+    each step's candidate pool (``topk_pool_plain`` on the updated
+    sketch) bitwise JAX's, read where JAX passes it to ``jnp.unique``."""
+    from distributed_embeddings_torch.ops import topk_pool_plain
+
+    pools = []
+    unique = jnp.unique
+
+    def spy(x, *args, **kw):
+        pools.append(np.asarray(x))
+        return unique(x, *args, **kw)
+
+    monkeypatch.setattr(jnp, "unique", spy)
     rng = np.random.default_rng(11)
     zeros = {"cms": np.zeros((CFG.depth, CFG.buckets), np.int32),
              "topk_ids": np.full(CFG.topk, -1, np.int32),
@@ -131,6 +184,12 @@ def test_record_ids_matches_jax(kind):
                              torch.from_numpy(live), CFG)
         assert out is tw
         _assert_state_equal(tw, jw, f"{kind} step {step}: ")
+        k_pool = min(CFG.candidates, ids.size)
+        pool = topk_pool_plain(tw["cms"], torch.from_numpy(ids),
+                               torch.from_numpy(live), k_pool)
+        assert len(pools) == step + 1 and pools[-1].dtype == np.int32
+        np.testing.assert_array_equal(pool.numpy(), pools[-1],
+                                      err_msg=f"{kind} step {step} pool")
         # the three plain versions in a row, as one function
         record_ids_plain(pw, torch.from_numpy(ids), torch.from_numpy(live),
                          CFG.candidates)
