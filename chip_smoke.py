@@ -27,17 +27,23 @@ Phases (any failure raises and the script exits non-zero):
    must have launched;
 6. train, on the same state after serving:
    a. small tables (capped at 20000 rows) at batch 4096, float32 and
-      bf16: 5 steps with the kernels against the same 5 steps with the
-      package's calls routed to the plain versions, on the card;
+      bf16: 5 instrumented steps (``with_metrics``) with the kernels
+      against the same 5 steps with the package's calls routed to the
+      plain versions, on the card, the step metrics included;
    b. full size, batch 65536, Zipfian ids: one step whose touched slab
       rows (snapshotted before it) must match the snapshot updated by
-      the plain scatter from the same cotangents, and whose interaction
-      backward must match its plain version on the same inputs;
+      the plain scatter from the same cotangents, whose interaction
+      backward must match its plain version on the same inputs, and
+      whose gradient-health reduction (K21) and dense update (K22) are
+      held to their plain versions where the step calls them;
    c. a NaN batch must leave the touched rows and the dense parameters
       bitwise unchanged and advance the step;
    d. 3 warmup + 20 timed steps with the launch counters zeroed just
-      before and read just after (every kernel once per step), then the
-      same stages called one by one for a per-stage split;
+      before and read just after (every kernel once per step), 10
+      timed instrumented steps, then the same stages called one by one
+      for a per-stage split, with K21/K22 and, in turns, with their
+      plain versions (the guard's and the dense update's "before");
+      K21 and K22 timed on the step's own gradients and parameters;
 7. time: CUDA-event medians (20+ runs after warmup) of each kernel, its
    plain version, one PyTorch library call for the same function, and
    the least time the card could take (bytes over 3.35 TB/s, operations
@@ -113,7 +119,11 @@ Phases (any failure raises and the script exits non-zero):
       split, and K11 timed at the w16 and w8 shapes beside its plain
       version, its byte bound and ``torch.optim.SparseAdam.step``;
    e. the same slabs with ``SparseMomentum(0.9)`` and with Nesterov: one
-      checked step and 5 timed steps each, K12 timed;
+      checked step and 5 timed steps each, K12 timed; every checked step
+      holds K21/K22 to their plain versions where the step calls them,
+      and the Adam zoo's stage split and profile run with K22 and with
+      its plain version; K22's Adam timed beside
+      ``torch.optim.Adam(fused=True)``;
    f. bf16 tables with ``SparseAdam``: one checked step, 20 timed steps.
 11. telemetry, after freeing the Adam state: access telemetry
     (``analysis/telemetry.py``, K13-K15 in ``csrc/sketch.cu``) on
@@ -132,7 +142,9 @@ Phases (any failure raises and the script exits non-zero):
       K4, K3, K13, K14, K15 once), ``telemetry_overhead_frac``;
    f. K13, K14 and K15 timed on the step's stream (and, in phase 9f, on
       the ragged step's ~26.4M positions) beside their plain versions,
-      a PyTorch yardstick and their byte bounds.
+      a PyTorch yardstick and their byte bounds; K14 and K15 also at
+      ``topk`` 2048 with its default 8192 candidates and at 16384
+      candidates, past their shared-memory tiles (bit-exact first).
 12. streaming, after freeing the telemetry state: streaming vocabularies
     (``parallel/streaming.py``; K16 remap and K17 commit in
     ``csrc/streaming.cu``, K13 for the admission sketch):
@@ -271,8 +283,11 @@ SMALL_ROWS = 20000             # table-size cap of the small training checks
 # every world-1 train step packs its id block (K19) and its cotangents
 # (K20) once
 EXCHANGE_KERNELS = ("pack_ids", "pack_columns")
+# every train step updates its dense half once (K22); a guarded or
+# instrumented step also reads its gradients' health once (K21)
+EPILOGUE_KERNELS = ("grad_health", "dense_update")
 DLRM_KERNELS = ("gather_combine", "dot_interact_fwd", "dot_interact_bwd",
-                "sgd_scatter") + EXCHANGE_KERNELS
+                "sgd_scatter") + EXCHANGE_KERNELS + EPILOGUE_KERNELS
 F32_OPS_PER_S = 67e12          # H100 SXM data sheet, fp32 (no tensor cores)
 ZOO_LR = 0.01                  # both optimizers' lr in bench.py:run_tiny_zoo
 ZOO_BATCH = 65536
@@ -583,11 +598,11 @@ def kernel_fns():
     launches)."""
     from distributed_embeddings_torch.ops import (
         adagrad_dense, adagrad_rows, adam_rows, cms_query, cms_update,
-        commit_rows, dedup_sparse_grad, dot_interact_bwd, dot_interact_fwd,
-        gather_combine, lengths_to_splits, momentum_rows, pack_columns,
-        pack_ids, ragged_combine, ragged_grad, ragged_row_ids, remap_stage,
-        row_to_split, sgd_scatter, sgd_scatter_promoted, topk_merge,
-        topk_pool)
+        commit_rows, dedup_sparse_grad, dense_update, dot_interact_bwd,
+        dot_interact_fwd, gather_combine, grad_health, lengths_to_splits,
+        momentum_rows, pack_columns, pack_ids, ragged_combine, ragged_grad,
+        ragged_row_ids, remap_stage, row_to_split, sgd_scatter,
+        sgd_scatter_promoted, topk_merge, topk_pool)
 
     return {"gather_combine": gather_combine,
             "dot_interact_fwd": dot_interact_fwd,
@@ -602,7 +617,14 @@ def kernel_fns():
             "topk_pool": topk_pool, "topk_merge": topk_merge,
             "remap_stage": remap_stage, "commit_rows": commit_rows,
             "sgd_scatter_promoted": sgd_scatter_promoted,
-            "pack_ids": pack_ids, "pack_columns": pack_columns}
+            "pack_ids": pack_ids, "pack_columns": pack_columns,
+            "grad_health": grad_health, "dense_update": dense_update}
+
+
+def epilogue(steps=1, guard=True):
+    """Launches of K21 and K22 in ``steps`` world-1 train steps (K21
+    only under the guard or the metrics)."""
+    return {"grad_health": steps if guard else 0, "dense_update": steps}
 
 
 def zero_counts():
@@ -621,12 +643,14 @@ def plain_kernels(names=None):
     run of the small training checks)."""
     from distributed_embeddings_torch.analysis import telemetry
     from distributed_embeddings_torch.ops import (
-        adagrad, adam, exchange_pack, gather_combine_plain, interaction,
+        adagrad, adam, dense_update_plain, exchange_pack,
+        gather_combine_plain, grad_health_plain, interaction,
         lengths_to_splits_plain, momentum, ragged_combine_plain,
         row_to_split_plain, scatter_add, sketch, sparse_grad)
     from distributed_embeddings_torch.ops import streaming as sops
     from distributed_embeddings_torch.parallel import (
-        apply, dist_embedding, exchange, lookup, optimizers, streaming)
+        apply, dist_embedding, exchange, lookup, optimizers, streaming,
+        trainer)
 
     swaps = [(lookup, "gather_combine", gather_combine_plain),
              (lookup, "ragged_combine", ragged_combine_plain),
@@ -654,7 +678,9 @@ def plain_kernels(names=None):
              (streaming, "remap_stage", sops.remap_stage_plain),
              (streaming, "commit_rows", sops.commit_rows_plain),
              (exchange, "pack_ids", exchange_pack.pack_ids_plain),
-             (exchange, "pack_columns", exchange_pack.pack_columns_plain)]
+             (exchange, "pack_columns", exchange_pack.pack_columns_plain),
+             (trainer, "grad_health", grad_health_plain),
+             (optimizers, "dense_update", dense_update_plain)]
     if names is not None:
         swaps = [sw for sw in swaps if sw[1] in names]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
@@ -755,8 +781,10 @@ def small_train_check(torch, dtype):
         dense_params=copy.deepcopy(sk.dense_params),
         dense_opt_state=sk.dense_opt_state, step=sk.step.clone())
     init = sk.emb_params["w128"][0].float().clone()
+    # instrumented: the metrics of each step are held to the plain run's
     step = make_hybrid_train_step(de, loss_fn, SGD(TRAIN_LR), SparseSGD(),
-                                  lr_schedule=TRAIN_LR, nan_guard=True)
+                                  lr_schedule=TRAIN_LR, nan_guard=True,
+                                  with_metrics=True)
     batches = [train_batch(torch, sizes, SMALL_BATCH, seed=100 + k,
                            bad_ids=True) for k in range(SMALL_STEPS)]
     runs = {}
@@ -764,10 +792,11 @@ def small_train_check(torch, dtype):
         zero_counts()
         with (plain_kernels() if name == "plain"
               else contextlib.nullcontext()):
-            losses = []
+            losses, mets = [], []
             for cats, batch in batches:
-                loss, state = step(state, cats, batch)
+                loss, state, m = step(state, cats, batch)
                 losses.append(loss)
+                mets.append(m)
         torch.cuda.synchronize()
         counts = read_counts()
         want = SMALL_STEPS if name == "kernels" else 0
@@ -775,8 +804,8 @@ def small_train_check(torch, dtype):
                   for k in counts),
               f"small train check ({name}): launches {counts}, expected "
               f"{want} of each DLRM kernel and none of the others")
-        runs[name] = (torch.stack(losses).float(), state)
-    (lk, stk), (lp, stp) = runs["kernels"], runs["plain"]
+        runs[name] = (torch.stack(losses).float(), state, mets)
+    (lk, stk, mk), (lp, stp, mp) = runs["kernels"], runs["plain"]
     check(bool(torch.isfinite(lk).all()), "small train check: loss "
           "not finite")
     f32 = dtype == torch.float32
@@ -803,12 +832,128 @@ def small_train_check(torch, dtype):
     check(bad == 0, f"small train check {dtype}: {bad} slab values beyond "
           f"(k + 1) ulps (max err {float(err.max())})")
     check(bool((a != init).any()), "small train check: no slab row changed")
+    # the norms and update bounds of two free-running trajectories whose
+    # parameters agree within the bounds above
+    metric_tol = 1e-3 if f32 else 5e-2
+    metric_err = metrics_close(torch, mk, mp, metric_tol,
+                               f"small train check {dtype}")
     log(f"  small train check {str(dtype)[6:]}: {SMALL_STEPS} steps at "
         f"b={SMALL_BATCH}, losses {[round(float(x), 5) for x in lk]}; "
         f"kernels vs plain: loss {loss_err} (tol {loss_tol}), dense "
         f"{dense_err} (tol {dense_tol}), slab max {float(err.max())} "
-        "(tol (k+1) ulp)")
+        f"(tol (k+1) ulp), step metrics max relative {metric_err} (counts "
+        f"exact, the rest within {metric_tol})")
     return float(err.max())
+
+
+METRIC_COUNTS = ("ids_routed", "id_overflow", "invalid_id_count",
+                 "skipped_steps", "step", "id_a2a_bytes", "out_a2a_bytes",
+                 "grad_a2a_bytes", "out_pad_frac", "table_nonfinite")
+
+
+def metrics_close(torch, got, want, tol, what):
+    """Two runs' step metrics, step by step: every key of
+    ``STEP_METRIC_KEYS``, counts exact, the rest (loss, norms, update
+    bounds) within ``tol`` relative. Returns the largest relative
+    difference."""
+    from distributed_embeddings_torch.utils import obs
+
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(set(g) == set(w) == set(obs.STEP_METRIC_KEYS),
+              f"{what} step {i}: metric keys {sorted(g)}")
+        for k in g:
+            a, b = g[k].float(), w[k].float()
+            check(a.shape == b.shape, f"{what} step {i} {k}: shape")
+            if k in METRIC_COUNTS:
+                check(torch.equal(a, b), f"{what} step {i} {k}: "
+                      f"{a.tolist()} != {b.tolist()}")
+                continue
+            check(bool(torch.isfinite(a).all()), f"{what} step {i} {k}: "
+                  f"not finite {a.tolist()}")
+            rel = float(((a - b).abs() / torch.maximum(
+                a.abs(), b.abs()).clamp(min=1e-12)).max())
+            check(rel <= tol, f"{what} step {i} {k}: {a.tolist()} vs "
+                  f"{b.tolist()} (relative {rel} > {tol})")
+            worst = max(worst, rel)
+    return worst
+
+
+def health_err(torch, got, want, what):
+    """K21 against its plain version on the same tensors: max |g| and
+    the non-finite counts exact (NaN equals NaN), the sums of squares
+    within 1.2e-5 relative (all terms positive: each order is within ~100
+    float32 roundings of the exact sum, 2 * 100 * 2^-24 = 1.2e-5), and
+    equal where not finite. Returns the largest absolute difference of
+    the finite sums."""
+    check(got.shape == want.shape, f"{what}: K21 shape {tuple(got.shape)}")
+    same = (got[1:] == want[1:]) | (torch.isnan(got[1:])
+                                    & torch.isnan(want[1:]))
+    check(bool(same.all()), f"{what}: K21 max/count differ from plain")
+    fin = torch.isfinite(want[0])
+    check(bool((torch.isfinite(got[0]) == fin).all())
+          and bool((got[0][~fin].nan_to_num(posinf=1, neginf=-1)
+                    == want[0][~fin].nan_to_num(posinf=1, neginf=-1)
+                    ).all()), f"{what}: K21 non-finite sums differ")
+    err = (got[0][fin] - want[0][fin]).abs()
+    bad = int(torch.count_nonzero(err > 1.2e-5 * want[0][fin].abs()))
+    check(bad == 0, f"{what}: {bad} K21 sums beyond 1.2e-5 relative "
+          f"(max err {float(err.max()) if err.numel() else 0.0})")
+    return float(err.max()) if err.numel() else 0.0
+
+
+@contextlib.contextmanager
+def epilogue_checks(torch, errs, what, keep=None):
+    """Hold every K21 and K22 call the step makes (the module globals
+    ``parallel.trainer.grad_health`` and ``parallel.optimizers.
+    dense_update``) to its plain version on the same inputs, right where
+    the step calls it: K21 by ``health_err``; K22 bit for bit, its plain
+    version run on copies of the parameters, state and counts taken just
+    before the call. ``keep`` (a dict) gets the last call's arguments."""
+    from distributed_embeddings_torch.ops import (dense_update_plain,
+                                                  grad_health_plain)
+    from distributed_embeddings_torch.parallel import optimizers, trainer
+
+    real_h, real_u = trainer.grad_health, optimizers.dense_update
+    calls = {"grad_health": 0, "dense_update": 0}
+
+    def health(tensors):
+        out = real_h(tensors)
+        errs["grad_health"] = max(errs.get("grad_health", 0.0), health_err(
+            torch, out, grad_health_plain(tensors), what))
+        calls["grad_health"] += 1
+        if keep is not None:
+            keep["grad_health"] = list(tensors)
+        return out
+
+    def update(kind, params, grads, s0, s1, nlr, hyper, bp=None, ok=None,
+               counts=()):
+        def copies(ts):
+            return None if ts is None else [t.clone() for t in ts]
+
+        cp, c0, c1, cc = (copies(params), copies(s0), copies(s1),
+                          copies(counts))
+        real_u(kind, params, grads, s0, s1, nlr, hyper, bp=bp, ok=ok,
+               counts=counts)
+        dense_update_plain(kind, cp, grads, c0, c1, nlr, hyper, bp=bp,
+                           ok=ok, counts=cc)
+        got = list(params) + list(s0 or ()) + list(s1 or ()) + list(counts)
+        want = cp + (c0 or []) + (c1 or []) + cc
+        for a, b in zip(got, want):
+            check(torch.equal(a, b), f"{what}: K22 ({kind}) differs from "
+                  "its plain version")
+        errs["dense_update"] = 0.0
+        calls["dense_update"] += 1
+        if keep is not None:
+            keep["dense_update"] = (kind, list(params), list(grads), s0, s1,
+                                    nlr, hyper, bp)
+        return None
+
+    trainer.grad_health, optimizers.dense_update = health, update
+    try:
+        yield calls
+    finally:
+        trainer.grad_health, optimizers.dense_update = real_h, real_u
 
 
 def phase_train(torch, de, state):
@@ -817,7 +962,8 @@ def phase_train(torch, de, state):
     from distributed_embeddings_torch.parallel import (
         SGD, SparseSGD, make_hybrid_train_step)
 
-    errs = {"sgd_scatter": 0.0, "dot_interact_bwd": 0.0}
+    errs = {"sgd_scatter": 0.0, "dot_interact_bwd": 0.0, "grad_health": 0.0,
+            "dense_update": 0.0}
     log("train: small-table check, kernels against plain versions")
     for dtype in (torch.float32, torch.bfloat16):
         errs["sgd_scatter"] = max(errs["sgd_scatter"],
@@ -856,11 +1002,18 @@ def phase_train(torch, de, state):
     cats, batch = train_batch(torch, CRITEO_1TB_SIZES, TRAIN_BATCH,
                               seed=SEED + 20)
     interaction.DotInteract.backward = staticmethod(recording_bwd)
+    epi = {}
     try:
-        loss, st = check_step(st, cats, batch)
+        with epilogue_checks(torch, errs, "full-size step", keep=epi) as ec:
+            loss, st = check_step(st, cats, batch)
     finally:
         interaction.DotInteract.backward = staticmethod(real_bwd)
     torch.cuda.synchronize()
+    check(ec == {"grad_health": 1, "dense_update": 1}, f"full-size step: "
+          f"epilogue calls {ec}")
+    log(f"train: full-size step's K21 over {len(epi['grad_health'])} "
+        f"gradients within its bound of the plain version (max abs err "
+        f"{errs['grad_health']}), K22 bit-exact")
     check(bool(torch.isfinite(loss)), f"full-size step: loss {float(loss)}")
     r = rec.seen
     want = r["before"].clone()
@@ -948,11 +1101,73 @@ def phase_train(torch, de, state):
               f"{TRAIN_STEPS} steps (expected {want})")
     step_ms = [s.elapsed_time(e) for s, e in times]
 
-    # the step's stages, called one by one with events between them
-    stage_ms = {"embedding_forward": [], "dense_forward_backward": [],
-                "nan_guard": [], "sparse_apply": [], "dense_update": []}
-    params = list(st.dense_params.parameters())
+    # the instrumented step (with_metrics): timed, every metric finite
+    mstep = make_hybrid_train_step(de, loss_fn, SGD(TRAIN_LR), SparseSGD(),
+                                   lr_schedule=TRAIN_LR, nan_guard=True,
+                                   with_metrics=True)
+    mtimes = []
     for k in range(WARMUP_RUNS + 10):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        _, st, mets = mstep(st, *batches[k % len(batches)])
+        end.record()
+        mtimes.append((start, end))
+    torch.cuda.synchronize()
+    metrics_ms = [s.elapsed_time(e) for s, e in mtimes[WARMUP_RUNS:]]
+    for k, v in mets.items():
+        check(bool(torch.isfinite(v.float()).all()), f"train: metric {k} "
+              f"not finite: {v.tolist()}")
+    check(int(mets["ids_routed"][0]) == TRAIN_BATCH * len(CRITEO_1TB_SIZES)
+          and int(mets["skipped_steps"][0]) == 0,
+          f"train: metrics {mets['ids_routed'].tolist()} ids routed, "
+          f"{mets['skipped_steps'].tolist()} skipped")
+
+    # the step's stages, called one by one with events between them; the
+    # guard's and the dense update's through the step's own calls, with
+    # K21/K22 and then with their plain versions (what the step ran
+    # before them), in turns
+    stages, stages_plain = [], []
+    for k in range(4):
+        plain = k in (1, 2)
+        with (plain_kernels(EPILOGUE_KERNELS) if plain
+              else contextlib.nullcontext()):
+            (stages_plain if plain else stages).append(
+                dlrm_stages(torch, de, st, batches))
+    stages = {n: float(np.median([r[n] for r in stages]))
+              for n in stages[0]}
+    stages_plain = {n: float(np.median([r[n] for r in stages_plain]))
+                    for n in stages_plain[0]}
+    epi_cases = time_epilogue(torch, epi)
+    result = {
+        "batch": TRAIN_BATCH, "steps": TRAIN_STEPS,
+        "samples_per_s": TRAIN_STEPS * TRAIN_BATCH / wall,
+        "wall_step_ms": wall / TRAIN_STEPS * 1e3,
+        "step_ms_p50": float(np.median(step_ms)),
+        "step_ms_min": float(np.min(step_ms)),
+        "metrics_step_ms_p50": float(np.median(metrics_ms)),
+        "stage_ms_p50": stages,
+        "stage_ms_p50_plain_epilogue": stages_plain,
+        "launches_per_step": {n: v / TRAIN_STEPS
+                              for n, v in launches.items()},
+        "loss_first": float(losses[0]), "loss_last": float(losses[-1])}
+    log("train: " + json.dumps(result))
+    return launches, errs, result, epi_cases
+
+
+def dlrm_stages(torch, de, st, batches, runs=6):
+    """Median device ms of the DLRM step's stages over ``runs`` steps
+    (after one warmup), each stage called as the step calls it, with
+    events between them: the guard is K21 over every gradient and its
+    verdict, the dense update ``SGD.update_`` (K22)."""
+    from distributed_embeddings_torch.parallel import SGD, SparseSGD, trainer
+
+    tx = SGD(TRAIN_LR)
+    names = ("embedding_forward", "dense_forward_backward", "nan_guard",
+             "sparse_apply", "dense_update")
+    stage_ms = {n: [] for n in names}
+    params = list(st.dense_params.parameters())
+    for k in range(1 + runs):
         cats, batch = batches[k % len(batches)]
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
         ev[0].record()
@@ -963,34 +1178,74 @@ def phase_train(torch, de, state):
         loss = loss_fn(st.dense_params, outs, batch)
         grads = torch.autograd.grad(loss, params + outs)
         ev[2].record()
-        out_grads = list(grads[len(params):])
-        ok = torch.isfinite(loss) & torch.isfinite(sum(
-            g.float().square().sum() for g in grads))
+        dense_grads, out_grads = (list(grads[:len(params)]),
+                                  list(grads[len(params):]))
+        health = trainer.grad_health(out_grads + dense_grads)
+        n = len(out_grads)
+        ok = (torch.isfinite(loss.float())
+              & torch.isfinite(health[0, n:].sum())
+              & torch.isfinite(0.0 * health[0, :n].sum()))
         ev[3].record()
         de.sparse_apply_gradients(st.emb_params, st.emb_opt_state, res,
                                   out_grads, SparseSGD(), TRAIN_LR, enable=ok)
         ev[4].record()
-        with torch.no_grad():
-            for p, g in zip(params, grads[:len(params)]):
-                p.copy_(torch.where(ok, p + g * -TRAIN_LR, p))
+        tx.update_(dense_grads, st.dense_opt_state, params, ok=ok)
         ev[5].record()
         torch.cuda.synchronize()
-        if k >= WARMUP_RUNS:
-            for i, name in enumerate(stage_ms):
+        if k:
+            for i, name in enumerate(names):
                 stage_ms[name].append(ev[i].elapsed_time(ev[i + 1]))
-    stages = {n: float(np.median(v)) for n, v in stage_ms.items()}
-    result = {
-        "batch": TRAIN_BATCH, "steps": TRAIN_STEPS,
-        "samples_per_s": TRAIN_STEPS * TRAIN_BATCH / wall,
-        "wall_step_ms": wall / TRAIN_STEPS * 1e3,
-        "step_ms_p50": float(np.median(step_ms)),
-        "step_ms_min": float(np.min(step_ms)),
-        "stage_ms_p50": stages,
-        "launches_per_step": {n: v / TRAIN_STEPS
-                              for n, v in launches.items()},
-        "loss_first": float(losses[0]), "loss_last": float(losses[-1])}
-    log("train: " + json.dumps(result))
-    return launches, errs, result
+    return {n: float(np.median(v)) for n, v in stage_ms.items()}
+
+
+def time_epilogue(torch, epi):
+    """K21 on the full-size step's own gradients and K22 on its dense
+    parameters (copies), each beside its plain version, one PyTorch call
+    for the same function (``torch._foreach_norm``; ``torch._foreach_add_``
+    for SGD) and its byte bound."""
+    from distributed_embeddings_torch.ops import (
+        dense_update, dense_update_plain, grad_health, grad_health_plain)
+
+    ts = epi["grad_health"]
+    nbytes = sum(t.numel() * t.element_size() for t in ts)
+    ms = time_ms(torch, grad_health, [(ts,)])
+    plain = time_ms(torch, grad_health_plain, [(ts,)])
+    lib = time_ms(torch, torch._foreach_norm, [(ts,)])
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    host = host_ms(torch, lambda: grad_health(ts))
+    k21 = {"case": f"dlrm_b{TRAIN_BATCH}", "ms": ms, "plain_ms": plain,
+           "library_ms": lib, "bound_ms": bound, "bound_by": "bytes",
+           "host_ms_per_call": host, "tensors": len(ts), "bytes": nbytes}
+    log(f"time grad_health dlrm b{TRAIN_BATCH}: kernel {ms:.4f} ms, plain "
+        f"{plain:.4f}, library (_foreach_norm) {lib:.4f}, bound {bound:.4f} "
+        f"({len(ts)} tensors, {nbytes} B); host {host:.4f} ms a call")
+    kind, params, grads, s0, s1, nlr, hyper, bp = epi["dense_update"]
+    check(kind == "sgd", f"the DLRM step's dense update is {kind}")
+    cp = [p.detach().clone() for p in params]
+    numel = sum(p.numel() for p in cp)
+
+    def kernel():
+        dense_update(kind, cp, grads, None, None, nlr, hyper)
+
+    def plain_fn():
+        dense_update_plain(kind, cp, grads, None, None, nlr, hyper)
+
+    ms = time_ms(torch, kernel, [()])
+    plain = time_ms(torch, plain_fn, [()])
+    lib = time_ms(torch, lambda: torch._foreach_add_(cp, grads, alpha=nlr),
+                  [()])
+    nbytes = 3 * 4 * numel  # read p and g, write p
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    host = host_ms(torch, kernel)
+    k22 = {"case": "dlrm_sgd", "ms": ms, "plain_ms": plain,
+           "library_ms": lib, "bound_ms": bound, "bound_by": "bytes",
+           "host_ms_per_call": host, "tensors": len(cp), "elements": numel,
+           "bytes": nbytes}
+    log(f"time dense_update dlrm sgd: kernel {ms:.4f} ms, plain "
+        f"{plain:.4f}, library (_foreach_add_) {lib:.4f}, bound "
+        f"{bound:.4f} ({len(cp)} tensors, {numel} elements); host "
+        f"{host:.4f} ms a call")
+    return {"grad_health": [k21], "dense_update": [k22]}
 
 
 def phase_time(torch, de, state, errs, launches):
@@ -1193,12 +1448,14 @@ def zoo_streams(cfg, b):
     return out
 
 
-def zoo_expected(de, opt, cfg, b):
+def zoo_expected(de, opt, cfg, b, guard=True):
     """Launches per step of each kernel on the zoo path: K1 once per plan
-    group; per slab K3 + K7 (dense-apply) or K5 + K6 (sparse)."""
+    group; per slab K3 + K7 (dense-apply) or K5 + K6 (sparse); K22 once,
+    and K21 once under the guard."""
     plan = next(iter(de._plan_cache.values()))
     want = {name: 0 for name in kernel_fns()}
     want.update(gather_combine=len(plan.groups), pack_ids=1, pack_columns=1)
+    want.update(epilogue(guard=guard))
     regimes = {}
     for w, n in zoo_streams(cfg, b).items():
         dense = opt.dense_apply(de.rows_cap[w], n)
@@ -1642,6 +1899,7 @@ def zoo_timed(torch, de, opt, st, data, cfg, label, tx=None, want=None,
     regimes = None
     if want is None:
         want, regimes = zoo_expected(de, opt, cfg, ZOO_BATCH)
+    want = dict(want, **epilogue(guard=False))  # the step runs unguarded
     for name, n in launches.items():
         check(n == want[name] * steps, f"zoo {label}: {name} launched "
               f"{n} times in {steps} steps (expected {want[name]} a step)")
@@ -1713,13 +1971,12 @@ def zoo_profile(torch, de, opt, st, data, steps=5, tx=None, label="fp32"):
 def zoo_stages(torch, de, opt, st, data, tx=None):
     """The step's stages called one by one with events between them
     (``tx``: the dense optimizer, by default ``Adagrad``; its state is
-    ``st``'s, carried on from step to step)."""
+    ``st``'s, updated in place by ``tx.update_`` as the step does)."""
     from distributed_embeddings_torch.parallel import Adagrad
     from distributed_embeddings_torch.parallel import apply as apply_mod
 
     tx = Adagrad(ZOO_LR) if tx is None else tx
     params = list(st.dense_params.parameters())
-    dstate = st.dense_opt_state
     names = ["embedding_forward", "dense_forward_backward",
              "cotangent_streams"]
     stage_ms = {}
@@ -1745,10 +2002,7 @@ def zoo_stages(torch, de, opt, st, data, tx=None):
                                           {key: per_width[key]}, opt,
                                           ZOO_LR, 1.0)
             ev[4 + i].record()
-        updates, dstate = tx.update(list(grads[:len(params)]), dstate)
-        with torch.no_grad():
-            for p, u in zip(params, updates):
-                p.add_(u)
+        tx.update_(list(grads[:len(params)]), st.dense_opt_state, params)
         ev[4 + len(keys)].record()
         torch.cuda.synchronize()
         labels = names + [f"sparse_apply_{key}" for key in keys] + [
@@ -1994,12 +2248,12 @@ def ragged_sizes(row_cap=KAGGLE_CAP):
 def ragged_per_step(groups):
     """Launches per ragged DLRM step: K8 and K9 once per ragged plan
     group, K10 twice (forward and backward), K3 once (one slab), K2 and
-    K4 once; nothing else."""
+    K4 once, K21 and K22 once (the step is guarded); nothing else."""
     want = {name: 0 for name in kernel_fns()}
     want.update(ragged_combine=groups, ragged_grad=groups,
                 lengths_to_splits=2 * groups, sgd_scatter=1,
                 dot_interact_fwd=1, dot_interact_bwd=1, pack_ids=1,
-                pack_columns=1)
+                pack_columns=1, **epilogue())
     return want
 
 
@@ -2548,9 +2802,10 @@ def ragged_timed(torch, de, st, batches):
     launch counters zeroed just before and read just after, then the
     step's stages one by one for a split."""
     from distributed_embeddings_torch.parallel import (
-        SGD, SparseSGD, make_hybrid_train_step)
+        SGD, SparseSGD, make_hybrid_train_step, trainer)
     from distributed_embeddings_torch.parallel import apply as apply_mod
 
+    tx = SGD(TRAIN_LR)
     step = make_hybrid_train_step(de, loss_fn, SGD(TRAIN_LR), SparseSGD(),
                                   lr_schedule=TRAIN_LR, nan_guard=True)
     for k in range(WARMUP_RUNS):
@@ -2594,9 +2849,14 @@ def ragged_timed(torch, de, st, batches):
         loss = loss_fn(st.dense_params, outs, batch)
         grads = torch.autograd.grad(loss, params + outs)
         ev[2].record()
-        out_grads = list(grads[len(params):])
-        ok = torch.isfinite(loss) & torch.isfinite(sum(
-            g.float().square().sum() for g in grads))
+        dense_grads, out_grads = (list(grads[:len(params)]),
+                                  list(grads[len(params):]))
+        # the guard and the dense update as the step calls them (K21, K22)
+        health = trainer.grad_health(out_grads + dense_grads)
+        n = len(out_grads)
+        ok = (torch.isfinite(loss.float())
+              & torch.isfinite(health[0, n:].sum())
+              & torch.isfinite(0.0 * health[0, :n].sum()))
         ev[3].record()
         per_width = apply_mod.cotangent_width_streams(de, res, out_grads)
         ev[4].record()
@@ -2604,9 +2864,7 @@ def ragged_timed(torch, de, st, batches):
                                       per_width, SparseSGD(), TRAIN_LR, 1.0,
                                       enable=ok)
         ev[5].record()
-        with torch.no_grad():
-            for p, g in zip(params, grads[:len(params)]):
-                p.copy_(torch.where(ok, p + g * -TRAIN_LR, p))
+        tx.update_(dense_grads, st.dense_opt_state, params, ok=ok)
         ev[6].record()
         del per_width, grads, outs, res
         torch.cuda.synchronize()
@@ -3201,6 +3459,7 @@ def row_expected(de, name):
     want.update(gather_combine=len(plan.groups), pack_ids=1, pack_columns=1)
     want["dedup_sparse_grad"] = len(de.widths)
     want[ROW_SITES[name]] = len(de.widths)
+    want.update(epilogue())
     return want
 
 
@@ -3217,7 +3476,9 @@ def row_zoo_full_check(torch, de, opt, tx, st, data, name, label,
     step = make_hybrid_train_step(de, zoo_loss, tx, opt, lr_schedule=ZOO_LR,
                                   nan_guard=True)
     num, cats, lab = data[0]
-    with recording(torch, opt) as seen:
+    epi_errs = {}
+    with recording(torch, opt) as seen, epilogue_checks(
+            torch, epi_errs, f"{name} zoo step {label}") as ec:
         zero_counts()
         loss, st = step(st, cats, (num, lab))
         torch.cuda.synchronize()
@@ -3225,9 +3486,11 @@ def row_zoo_full_check(torch, de, opt, tx, st, data, name, label,
     want = row_expected(de, name)
     check(counts == want, f"{name} zoo step {label}: launches {counts}, "
           f"expected {want}")
+    check(ec == {"grad_health": 1, "dense_update": 1}, f"{name} zoo step "
+          f"{label}: epilogue calls {ec}")
     check(bool(torch.isfinite(loss)), f"{name} zoo step {label}: loss "
           f"{float(loss)}")
-    errs = {"dedup_sparse_grad": 0.0, ROW_SITES[name]: 0.0}
+    errs = {"dedup_sparse_grad": 0.0, ROW_SITES[name]: 0.0, **epi_errs}
     for key, r in seen.items():
         slab = st.emb_params[key][0]
         state = de.local_view(st.emb_opt_state)[key]
@@ -3367,11 +3630,20 @@ def phase_adam(torch):
     want = row_expected(de, "adam")
     st, adam_launches, fp32 = zoo_timed(torch, de, opt, st, data, cfg,
                                         "adam fp32", tx=tx, want=want)
-    fp32["stage_ms_p50"] = zoo_stages(torch, de, opt, st, data, tx=tx)
-    log("adam zoo stages fp32 (ms): " + json.dumps(fp32["stage_ms_p50"]))
-    st, fp32["profile"] = zoo_profile(torch, de, opt, st, data, tx=tx,
-                                      label="adam fp32")
+    # the stage split and the device busy share with K22 and, in turns,
+    # with its plain version (the dense Adam chain the step ran before)
+    for plain in (False, True):
+        tag = "_plain_dense_update" if plain else ""
+        with (plain_kernels(("dense_update",)) if plain
+              else contextlib.nullcontext()):
+            fp32["stage_ms_p50" + tag] = zoo_stages(torch, de, opt, st,
+                                                    data, tx=tx)
+            log(f"adam zoo stages fp32{tag} (ms): "
+                + json.dumps(fp32["stage_ms_p50" + tag]))
+            st, fp32["profile" + tag] = zoo_profile(
+                torch, de, opt, st, data, tx=tx, label="adam fp32" + tag)
     st, adam_cases = row_kernel_times(torch, de, opt, st, data, "adam")
+    adam_cases_k22 = time_dense_adam(torch, st, tx)
     result["adam_fp32"] = fp32
     result["adam_peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
 
@@ -3425,7 +3697,57 @@ def phase_adam(torch):
     launches = {"adam": adam_launches, "momentum": mom_launches,
                 "convergence": conv_launches}
     return launches, errs, {"adam_rows": adam_cases,
-                            "momentum_rows": mom_cases}, result
+                            "momentum_rows": mom_cases,
+                            "dense_update": adam_cases_k22}, result
+
+
+def time_dense_adam(torch, st, tx):
+    """K22's Adam update on copies of the zoo's dense parameters and
+    their Adam state, beside its plain version, one
+    ``torch.optim.Adam(fused=True).step()`` over the same parameters and
+    gradients (the library yardstick) and its byte bound (read p, g, mu,
+    nu; write p, mu, nu: 28 B an element)."""
+    from distributed_embeddings_torch.ops import (bias_powers, dense_update,
+                                                  dense_update_plain)
+
+    (ad,) = st.dense_opt_state[:1]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 160)
+    params = [p.detach().clone() for p in st.dense_params.parameters()]
+    grads = [torch.randn(p.shape, generator=gen, device="cuda") * 1e-2
+             for p in params]
+    mu = [m.clone() for m in ad.mu]
+    nu = [v.clone() for v in ad.nu]
+    bp = bias_powers(ad.count + 1, tx.b1, tx.b2)
+    hyper = {"b1": tx.b1, "b2": tx.b2, "eps": tx.eps,
+             "eps_root": tx.eps_root}
+    nlr = -tx.learning_rate
+
+    def kernel():
+        dense_update("adam", params, grads, mu, nu, nlr, hyper, bp=bp)
+
+    def plain():
+        dense_update_plain("adam", params, grads, mu, nu, nlr, hyper, bp=bp)
+
+    ms = time_ms(torch, kernel, [()])
+    plain_ms = time_ms(torch, plain, [()])
+    lp = [torch.nn.Parameter(p.clone()) for p in params]
+    for p, g in zip(lp, grads):
+        p.grad = g
+    fused = torch.optim.Adam(lp, lr=tx.learning_rate, betas=(tx.b1, tx.b2),
+                             eps=tx.eps, fused=True)
+    lib = time_ms(torch, fused.step, [()])
+    numel = sum(p.numel() for p in params)
+    nbytes = 28 * numel
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    host = host_ms(torch, kernel)
+    log(f"time dense_update zoo adam: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f}, library (Adam fused) {lib:.4f}, bound {bound:.4f} "
+        f"({len(params)} tensors, {numel} elements); host {host:.4f} ms a "
+        "call")
+    return [{"case": "zoo_adam", "ms": ms, "plain_ms": plain_ms,
+             "library_ms": lib, "bound_ms": bound, "bound_by": "bytes",
+             "host_ms_per_call": host, "tensors": len(params),
+             "elements": numel, "bytes": nbytes}]
 
 
 
@@ -3484,11 +3806,12 @@ def telem_equal(torch, a, b, what):
 
 def telemetry_per_step(launches):
     """Launches of one telemetry step of the one-hot DLRM (one width):
-    K1, K2, K4 and K3 once, K13, K14 (the pool) and K15 once."""
+    K1, K2, K4 and K3 once, K13, K14 (the pool) and K15 once, K22 once
+    (the step is unguarded: no K21)."""
     want = {name: 0 for name in kernel_fns()}
     want.update(gather_combine=1, dot_interact_fwd=1, dot_interact_bwd=1,
                 sgd_scatter=1, cms_update=1, topk_pool=1, topk_merge=1,
-                pack_ids=1, pack_columns=1)
+                pack_ids=1, pack_columns=1, **epilogue(guard=False))
     return {k: v * launches for k, v in want.items()}
 
 
@@ -3999,6 +4322,24 @@ def phase_telemetry(torch):
     ids, live = de.telemetry_streams(res)[128]
     cases = sketch_kernel_times(torch, ids, live, cfg,
                                 f"one-hot b{TELEM_BATCH}")
+    # sizes past the shared-memory tiles (C5): topk 2048 with its default
+    # 4 * topk candidates, and 16384 candidates; K14 and K15 bit-exact to
+    # their plain versions on this stream, then timed
+    from distributed_embeddings_torch.ops import sketch as sk
+
+    cases["cms_query"] = list(cases["cms_query"])
+    cases["topk_merge"] = [cases["topk_merge"]]
+    for topk, cand in ((2048, 4 * 2048), (32, 16384)):
+        big = tel.TelemetryConfig(depth=cfg.depth, buckets=cfg.buckets,
+                                  topk=topk, candidates=cand)
+        k_pool = min(cand, ids.numel())
+        what = (f"one-hot b{TELEM_BATCH} topk {topk} candidates {cand} "
+                f"(pool {sk.pool_path(k_pool)}, merge "
+                f"{sk.merge_path(topk, cand)})")
+        c5 = sketch_kernel_times(torch, ids, live, big, what)
+        cases["cms_query"].insert(len(cases["cms_query"]) - 1,
+                                  c5["cms_query"][0])
+        cases["topk_merge"].append(c5["topk_merge"])
     metrics["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     metrics["phase_s"] = time.perf_counter() - t_phase
     log(f"telemetry: phase done in {metrics['phase_s']:.1f} s, peak memory "
@@ -4485,12 +4826,14 @@ def stream_dlrm_batch(torch, gen, b, nan=False):
 
 def dlrm_stream_per_step(steps=1):
     """Launches of ``steps`` streaming DLRM steps: K1, K2, K4, K5, K6,
-    K16, K13 and K17 once each (one width, the sparse Adagrad regime)."""
+    K16, K13, K17, K21 and K22 once each (one width, the sparse Adagrad
+    regime, the guard on)."""
     want = {name: 0 for name in kernel_fns()}
     want.update(gather_combine=steps, dot_interact_fwd=steps,
                 dot_interact_bwd=steps, dedup_sparse_grad=steps,
                 adagrad_rows=steps, remap_stage=steps, cms_update=steps,
-                commit_rows=steps, pack_ids=steps, pack_columns=steps)
+                commit_rows=steps, pack_ids=steps, pack_columns=steps,
+                **epilogue(steps))
     return want
 
 
@@ -5241,8 +5584,9 @@ def phase_example(torch, promoted_1tb):
     13c. the example in process at the capped Criteo-Kaggle size (26
          vocabularies capped at 2M rows, 10,569,296 rows, 2.71 GB bf16),
          dim 128, MLPs 512-256-128 / 1024-1024-512-256-1, b=65536, lr 24
-         with the MLPerf warmup: run A 40 steps with eval every 20 and
-         1 s of serving at 200 QPS, launches counted; run B 20 steps
+         with the MLPerf warmup: run A 40 steps with eval every 20,
+         1 s of serving at 200 QPS and ``--metrics_out`` every 10
+         steps, launches counted; run B 20 steps
          saving the full train state, then a run restored to step 40:
          losses and state bitwise equal to A's; K18 timed at this shape;
     13d. a NaN batch under the guard on A's final state."""
@@ -5251,6 +5595,7 @@ def phase_example(torch, promoted_1tb):
 
     from distributed_embeddings_torch.examples import dlrm_main
     from distributed_embeddings_torch.parallel import Served
+    from distributed_embeddings_torch.utils import obs
 
     t_phase = time.perf_counter()
     errs = promoted_kernel_checks(torch)
@@ -5260,11 +5605,24 @@ def phase_example(torch, promoted_1tb):
         args = example_args(tmp, sizes)
         zero_counts()
         t0 = time.perf_counter()
+        mpath = os.path.join(tmp, "metrics.jsonl")
         a = dlrm_main.main(args + [
             "--num_batches", str(EXAMPLE_STEPS),
-            "--serve_qps", str(EXAMPLE_SERVE_QPS), "--serve_seconds", "1"])
+            "--serve_qps", str(EXAMPLE_SERVE_QPS), "--serve_seconds", "1",
+            "--metrics_out", mpath, "--metrics_interval", "10"])
         torch.cuda.synchronize()
         launches = read_counts()
+        recs = obs.MetricsLogger.load(mpath)
+        check([r["section"] for r in recs] == ["step_metrics"] * 4
+              + ["counters"] and [r["step"] for r in recs[:4]]
+              == [0, 10, 20, 30] and all(
+                  set(r["metrics"]) == set(obs.STEP_METRIC_KEYS)
+                  and r["metrics"]["skipped_steps"] == [0]
+                  and np.isfinite(r["metrics"]["emb_grad_norm"][0])
+                  for r in recs[:4]),
+              f"example --metrics_out records: {recs}")
+        log(f"example: --metrics_out wrote {len(recs)} records (steps 0, "
+            "10, 20, 30 and the counters), every metric key present")
         run_a_s = time.perf_counter() - t0
         check(a.steps_run == EXAMPLE_STEPS and np.isfinite(a.losses).all(),
               f"example run A: {a.steps_run} steps, losses {a.losses}")
@@ -5274,6 +5632,8 @@ def phase_example(torch, promoted_1tb):
               and launches["dot_interact_fwd"] >= EXAMPLE_STEPS
               and launches["pack_ids"] >= EXAMPLE_STEPS
               and launches["pack_columns"] == EXAMPLE_STEPS
+              and launches["grad_health"] == EXAMPLE_STEPS
+              and launches["dense_update"] == EXAMPLE_STEPS
               and launches["sgd_scatter"] == 0,
               f"example run A launches {launches}")
         served = a.serve_results
@@ -5359,10 +5719,13 @@ W8_STAGES = ("id_exchange", "lookup", "output_exchange", "dense",
 def w8_per_step(groups, widths, steps=1):
     """Launches of ``steps`` world-8 DLRM steps on one rank: K1 once per
     plan group, K3 once per width slab, K19 once, K20 three times (the
-    lookup rows, the unpack, the cotangent pack), K2 and K4 once."""
+    lookup rows, the unpack, the cotangent pack), K2 and K4 once, K21
+    twice (the local cotangents before the all-reduce, the averaged
+    dense gradients after it) and K22 once."""
     want = {name: 0 for name in kernel_fns()}
     want.update(gather_combine=groups, sgd_scatter=widths, pack_ids=1,
-                pack_columns=3, dot_interact_fwd=1, dot_interact_bwd=1)
+                pack_columns=3, dot_interact_fwd=1, dot_interact_bwd=1,
+                grad_health=2, dense_update=1)
     return {k: v * steps for k, v in want.items()}
 
 
@@ -6412,10 +6775,33 @@ def main():
     _, de, state = phase_model(torch)
     errs = phase_check(torch, de, state)
     serve_launches, _ = phase_serve(torch, de, state)
-    train_launches, train_errs, _ = phase_train(torch, de, state)
+    train_launches, train_errs, _, epi_cases = phase_train(torch, de, state)
     errs.update(train_errs)
     launches = {"serve": serve_launches, "train": train_launches}
     kernels = phase_time(torch, de, state, errs, launches)
+    for name, src, repl, entry_points in (
+            ("grad_health", "grad_health.cu",
+             "distributed_embeddings_tpu/parallel/trainer.py:60",
+             {"_sq_sum": "distributed_embeddings_tpu/parallel/trainer.py:60",
+              "_table_sentinels": "distributed_embeddings_tpu/parallel/"
+                                  "trainer.py:67",
+              "_finish_metrics": "distributed_embeddings_tpu/parallel/"
+                                 "trainer.py:217"}),
+            ("dense_update", "dense_update.cu",
+             "distributed_embeddings_tpu/parallel/trainer.py:180",
+             {"_apply_dense_and_assemble": "distributed_embeddings_tpu/"
+                                           "parallel/trainer.py:180"})):
+        c = epi_cases[name][0]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"distributed_embeddings_torch/csrc/{src}",
+            "replaces": repl, "launches": train_launches[name],
+            "launches_by_path": {p: launches[p][name] for p in launches},
+            "max_abs_err": errs[name], "ms": c["ms"],
+            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+            "shape": c["case"], "cases": epi_cases[name],
+            "entry_points": entry_points})
     promoted_err, promoted_1tb = promoted_full_check(torch, de, state)
     log(f"DLRM peak memory {torch.cuda.max_memory_allocated() / 1e9:.1f} "
         f"GB, {time.perf_counter() - t_start:.1f} s so far")
@@ -6499,6 +6885,9 @@ def main():
     torch.cuda.reset_peak_memory_stats()
     adam_launches, adam_errs, adam_cases, adam = phase_adam(torch)
     launches.update(adam_launches)
+    for k in kernels:
+        if k["name"] == "dense_update":
+            k["cases"] += adam_cases["dense_update"]
     for k in kernels:
         names = csr_names if k["name"] == "csr" else (k["name"],)
         for p in adam_launches:
@@ -6622,7 +7011,7 @@ def main():
         "bound_by": c["bound_by"], "library_ms": c["library_ms"],
         "shape": c["case"], "cases": ex_cases})
     for name in ("gather_combine", "dot_interact_fwd", "dot_interact_bwd",
-                 "sgd_scatter_promoted"):
+                 "sgd_scatter_promoted", "grad_health", "dense_update"):
         check(launches["example"][name] > 0,
               f"{name}: no launch on the example's path")
     log("example: " + json.dumps(example))

@@ -69,6 +69,13 @@
 //      no host synchronisation, launches fixed by n and k_pool. The
 //      list's order varies from run to run, but its keys are unique, so
 //      the pool does not.
+//   Above detpu_topk_pool_max() (a tile of 2 * k_pool keys no longer fits
+//   in shared memory) step 3 runs in device memory instead:
+//   pool_fill_kernel marks each segment's unused slots (and the pad key's
+//   slot, live or not) with the key that sorts last, the stable radix
+//   sort of radix_sort.cuh sorts the whole list on its 64 bits, and
+//   pool_take_kernel writes the ids of the k_pool smallest keys, the pad
+//   id past them. The keys are the same, so the pool is the same.
 // K15 (detpu_topk_merge, one block): sorts the pool and drops repeated
 //   values (jnp.unique(pool, size=candidates, fill_value=pad)), marks the
 //   candidates that repeat a carried id, scores the rest by the query and
@@ -76,7 +83,10 @@
 //   of [carried | candidates] by the same key (carried slots first among
 //   equals), writes topk_ids (-1 where the estimate is negative) and
 //   topk_est (clamped at 0), and adds the step's live count, rounded once
-//   to float32, to the width's `ids` accumulator.
+//   to float32, to the width's `ids` accumulator. Above
+//   detpu_topk_merge_max() (topk + candidates past what shared memory
+//   holds) the same kernel keeps its sort buffer and arrays in a device
+//   scratch instead: the same steps in the same order, so the same result.
 //
 // Bound: bytes. K13 and K14's pool read ~5 B a position (id and live
 // flag); K13 read-modify-writes the small sketch, the pool clears its
@@ -90,6 +100,8 @@
 #include <stdint.h>
 
 #include <atomic>
+
+#include "radix_sort.cuh"
 
 namespace {
 
@@ -498,6 +510,42 @@ pool_select_kernel(const unsigned long long* __restrict__ in,
   }
 }
 
+// Step 3 of the pool above the select tile: every slot of the list that
+// no insert block wrote (segment b's slots past seg_count[b]) and the pad
+// key's slot at blocks * seg get a key; kNoKey sorts after every key.
+__global__ void __launch_bounds__(256)
+pool_fill_kernel(unsigned long long* __restrict__ list,
+                 const uint32_t* __restrict__ seg_count, int64_t seg,
+                 int64_t blocks, const uint32_t* __restrict__ counters,
+                 const int* __restrict__ cms, int depth, int buckets,
+                 const uint8_t* __restrict__ live) {
+  const int64_t total = blocks * seg;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x;
+       j <= total; j += stride) {
+    if (j == total) {
+      const uint32_t fp = counters[1];
+      list[j] = fp != kEmpty && live[fp] != 0
+          ? sel_key(query(cms, depth, buckets, kPad), kEmpty) : kNoKey;
+    } else if (j - j / seg * seg >= seg_count[j / seg]) {
+      list[j] = kNoKey;
+    }
+  }
+}
+
+// The pool from the sorted list: the ids of its k smallest keys, the pad
+// id past the keys that are there.
+__global__ void __launch_bounds__(256)
+pool_take_kernel(const unsigned long long* __restrict__ sorted, int k,
+                 int* __restrict__ pool) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  if (x < k) {
+    const unsigned long long key = sorted[x];
+    pool[x] = key != kNoKey ? unflip(static_cast<uint32_t>(key)) : kPad;
+  }
+}
+
 // ------------------------------------------------------------------ K15
 
 // Exclusive scan of one int per thread over the block (kSelThreads).
@@ -524,8 +572,9 @@ __device__ int block_scan(int v, int* warp_sums) {
   return r;
 }
 
-// Shared memory (dynamic): sort [m_all] u64 | cand [m_cand] int |
-// all_ids [topk + cand] int | all_est [topk + cand] int.
+// Shared memory (dynamic), or `scratch` in device memory when it is not
+// null: sort [m_all] u64 | cand [m_cand] int | all_ids [topk + cand] int |
+// all_est [topk + cand] int.
 __global__ void __launch_bounds__(kSelThreads)
 topk_merge_kernel(const int* __restrict__ cms, int depth, int buckets,
                   const int* __restrict__ pool, int k_pool, int cand_n,
@@ -533,8 +582,10 @@ topk_merge_kernel(const int* __restrict__ cms, int depth, int buckets,
                   int* __restrict__ topk_est, int topk,
                   float* __restrict__ ids_acc,
                   const long long* __restrict__ count_part, int n_part,
-                  float* __restrict__ count_out) {
-  extern __shared__ unsigned long long s[];
+                  float* __restrict__ count_out,
+                  unsigned long long* scratch) {
+  extern __shared__ unsigned long long sh_merge[];
+  unsigned long long* s = scratch != nullptr ? scratch : sh_merge;
   __shared__ int warp_sums[32];
   __shared__ int uniq;
   int* cand = reinterpret_cast<int*>(s + m_all);
@@ -690,6 +741,43 @@ int64_t carve_pool(void* base, int64_t n, int k_pool, const PoolGeometry& g,
   return off;
 }
 
+// Carves the scratch of the pool above the select tile (or, with base
+// null, returns its size): the counters and the set, the segment counts,
+// the list (every segment, then the pad key's slot) and the radix sort's
+// second buffer, histograms and scan partials.
+struct BigPoolScratch {
+  uint32_t* counters;
+  uint32_t* set;
+  uint32_t* seg_count;
+  unsigned long long* keys[2];
+  int* hist;
+  int* partials;
+};
+
+int64_t carve_big_pool(void* base, int64_t n, const PoolGeometry& g,
+                       BigPoolScratch* s) {
+  const int64_t len = g.blocks * g.seg + 1;
+  const int64_t sizes[] = {clear_bytes(n), g.blocks * 4, len * 8, len * 8,
+                           radix_hist_ints(len) * 4,
+                           radix_partial_ints(len) * 4};
+  void* ptrs[6];
+  int64_t off = 0;
+  for (int i = 0; i < 6; ++i) {
+    ptrs[i] = base == nullptr ? nullptr : static_cast<char*>(base) + off;
+    off += align16(sizes[i]);
+  }
+  if (s != nullptr) {
+    s->counters = static_cast<uint32_t*>(ptrs[0]);
+    s->set = s->counters + kCounters;
+    s->seg_count = static_cast<uint32_t*>(ptrs[1]);
+    s->keys[0] = static_cast<unsigned long long*>(ptrs[2]);
+    s->keys[1] = static_cast<unsigned long long*>(ptrs[3]);
+    s->hist = static_cast<int*>(ptrs[4]);
+    s->partials = static_cast<int*>(ptrs[5]);
+  }
+  return off;
+}
+
 // A device attribute of the current device, queried once per device and
 // process (fallback if the query fails).
 constexpr int kMaxDevices = 64;
@@ -802,9 +890,15 @@ extern "C" int detpu_cms_query(const void* cms, int depth, int buckets,
   return cudaGetLastError();
 }
 
+extern "C" int detpu_topk_pool_max(void);
+
 // Bytes of scratch detpu_topk_pool needs (0 < k_pool <= n < 2^31).
 extern "C" int64_t detpu_topk_pool_scratch_bytes(int64_t n, int k_pool) {
-  return carve_pool(nullptr, n, k_pool, pool_geometry(n, k_pool), nullptr);
+  const PoolGeometry g = pool_geometry(n, k_pool);
+  if (k_pool > detpu_topk_pool_max()) {
+    return carve_big_pool(nullptr, n, g, nullptr);
+  }
+  return carve_pool(nullptr, n, k_pool, g, nullptr);
 }
 
 // Bytes of that scratch detpu_topk_pool clears each call (its memset).
@@ -812,8 +906,8 @@ extern "C" int64_t detpu_topk_pool_clear_bytes(int64_t n) {
   return clear_bytes(n);
 }
 
-// The largest k_pool detpu_topk_pool takes (its tile must fit in shared
-// memory).
+// The largest k_pool whose select tile fits in shared memory; above it
+// detpu_topk_pool sorts the list in device memory.
 extern "C" int detpu_topk_pool_max(void) {
   int k = 1;
   while (static_cast<int64_t>(sel_tile(2 * k)) * 8 <= max_dynamic_smem() &&
@@ -831,13 +925,25 @@ extern "C" int detpu_topk_pool(const void* cms, int depth, int buckets,
                                int k_pool, void* pool, void* scratch,
                                void* stream) {
   if (depth <= 0 || buckets <= 0 || n <= 0 || n > 0x7fffffffLL ||
-      k_pool <= 0 || k_pool > n || k_pool > detpu_topk_pool_max()) {
+      k_pool <= 0 || k_pool > n) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const PoolGeometry g = pool_geometry(n, k_pool);
+  const bool big = k_pool > detpu_topk_pool_max();
   PoolScratch s;
-  carve_pool(scratch, n, k_pool, g, &s);
+  BigPoolScratch bs;
+  if (big) {
+    if (g.blocks * g.seg + 1 > 0x7fffffffLL) return cudaErrorInvalidValue;
+    carve_big_pool(scratch, n, g, &bs);
+    s.counters = bs.counters;
+    s.set = bs.set;
+    s.seg_count = bs.seg_count;
+    s.lists[0] = bs.keys[0];
+    s.lists[1] = bs.keys[1];
+  } else {
+    carve_pool(scratch, n, k_pool, g, &s);
+  }
   const int bits = set_bits(n);
   cudaError_t e = cudaMemsetAsync(s.counters, 0xff, clear_bytes(n), st);
   if (e != cudaSuccess) return e;
@@ -848,6 +954,25 @@ extern "C" int detpu_topk_pool(const void* cms, int depth, int buckets,
                        st>>>(c, depth, buckets, i, l, n, s.set, bits,
                              s.lists[0], g.seg, s.seg_count, s.counters);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  if (big) {
+    // step 3 in device memory: fill, sort all 64 bits, take k_pool
+    const int64_t len = g.blocks * g.seg + 1;
+    const int64_t fill = (len + 255) / 256 < 4 * sm_count()
+        ? (len + 255) / 256 : 4 * sm_count();
+    pool_fill_kernel<<<static_cast<unsigned>(fill), 256, 0, st>>>(
+        bs.keys[0], bs.seg_count, g.seg, g.blocks, bs.counters, c, depth,
+        buckets, l);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    int cur = 0;
+    e = radix_sort<unsigned long long, false>(bs.keys, nullptr, len, 64,
+                                              bs.hist, bs.partials, st,
+                                              &cur);
+    if (e != cudaSuccess) return e;
+    pool_take_kernel<<<static_cast<unsigned>((k_pool + 255) / 256), 256,
+                       0, st>>>(bs.keys[cur], k_pool,
+                                static_cast<int*>(pool));
+    return cudaGetLastError();
+  }
   const int64_t smem = static_cast<int64_t>(g.tile) * 8;
   if ((e = allow_smem(pool_select_kernel, smem)) != cudaSuccess) return e;
   // rounds until one task is left; a round's grid takes at most two
@@ -872,7 +997,8 @@ extern "C" int detpu_topk_pool(const void* cms, int depth, int buckets,
   return cudaErrorInvalidValue;  // more rounds than n < 2^31 needs
 }
 
-// The largest candidates + topk detpu_topk_merge takes.
+// The largest candidates + topk whose merge fits in shared memory; above
+// it detpu_topk_merge works in a device scratch.
 extern "C" int detpu_topk_merge_max(void) {
   int k = 1;
   // sort buffer (8 B), candidates (4 B) and the merged ids and estimates
@@ -883,24 +1009,41 @@ extern "C" int detpu_topk_merge_max(void) {
   return k;
 }
 
+// Bytes of the merge's arrays (its shared memory, or its device scratch).
+int64_t merge_bytes(int topk, int cand_n) {
+  return static_cast<int64_t>(next_pow2(topk + cand_n)) * 8 +
+         static_cast<int64_t>(next_pow2(cand_n)) * 4 +
+         static_cast<int64_t>(topk + cand_n) * 8;
+}
+
+// Bytes of device scratch detpu_topk_merge needs: 0 when its arrays fit in
+// shared memory.
+extern "C" int64_t detpu_topk_merge_scratch_bytes(int topk, int cand_n) {
+  if (topk + cand_n <= detpu_topk_merge_max()) return 0;
+  return merge_bytes(topk, cand_n);
+}
+
 // The merge of record_ids (see the header): topk_ids and topk_est [topk]
 // int32 and the width's ids accumulator [1] float32 updated in place;
 // pool [k_pool] int32 from detpu_topk_pool (k_pool may be 0);
 // count_part [n_part] int64 from detpu_cms_update; count_out [1] float32
-// <- the live count rounded to float32.
+// <- the live count rounded to float32; scratch of
+// detpu_topk_merge_scratch_bytes(topk, cand_n) bytes (null when 0).
 extern "C" int detpu_topk_merge(const void* cms, int depth, int buckets,
                                 const void* pool, int k_pool, int cand_n,
                                 void* topk_ids, void* topk_est, int topk,
                                 void* ids_acc, const void* count_part,
-                                int n_part, void* count_out, void* stream) {
+                                int n_part, void* count_out, void* scratch,
+                                void* stream) {
   if (depth <= 0 || buckets <= 0 || k_pool < 0 || k_pool > cand_n ||
-      topk <= 0 || topk + cand_n > detpu_topk_merge_max()) {
+      topk <= 0 || static_cast<int64_t>(topk) + cand_n > 0x40000000LL) {
     return cudaErrorInvalidValue;
   }
+  const bool big = topk + cand_n > detpu_topk_merge_max();
+  if (big && scratch == nullptr) return cudaErrorInvalidValue;
   const int m_cand = next_pow2(cand_n);
   const int m_all = next_pow2(topk + cand_n);
-  const int64_t smem = static_cast<int64_t>(m_all) * 8 + m_cand * 4 +
-                       static_cast<int64_t>(topk + cand_n) * 8;
+  const int64_t smem = big ? 0 : merge_bytes(topk, cand_n);
   cudaError_t e = allow_smem(topk_merge_kernel, smem);
   if (e != cudaSuccess) return e;
   topk_merge_kernel<<<1, kSelThreads, smem,
@@ -910,6 +1053,7 @@ extern "C" int detpu_topk_merge(const void* cms, int depth, int buckets,
       static_cast<int*>(topk_ids), static_cast<int*>(topk_est), topk,
       static_cast<float*>(ids_acc),
       static_cast<const long long*>(count_part), n_part,
-      static_cast<float*>(count_out));
+      static_cast<float*>(count_out),
+      big ? static_cast<unsigned long long*>(scratch) : nullptr);
   return cudaGetLastError();
 }

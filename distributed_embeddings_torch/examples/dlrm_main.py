@@ -26,6 +26,14 @@ eval every ``--eval_interval``), a checkpoint every
 ``state.step`` with the data stream fast-forwarded to it. Flags whose
 machinery is not ported raise ``NotImplementedError`` naming their
 ROADMAP item when set. :func:`main` returns a :class:`RunResult`.
+
+Step metrics: ``--metrics_out F`` or ``DETPU_OBS=1`` builds the
+instrumented step, and every ``--metrics_interval`` steps (from step 0)
+one ``step_metrics`` record is appended, fsynced, to ``F`` (default
+``<checkpoint_out>.metrics.jsonl``), with a final ``counters`` record at
+exit. JAX's example installs a recompile listener for that record;
+eager PyTorch compiles nothing, so the record carries the port's process
+counters (``utils/obs.py:counters``) in its place.
 """
 
 from __future__ import annotations
@@ -135,9 +143,11 @@ def build_parser() -> argparse.ArgumentParser:
     flag("bootstrap_retries", type=int, default=2,
          help="multi-host join retries (ROADMAP A7b)")
     flag("metrics_out", default=None,
-         help="step-metrics JSONL sidecar (ROADMAP A6)")
+         help="step-metrics JSONL sidecar path; default "
+              "<checkpoint_out>.metrics.jsonl when DETPU_OBS=1")
     flag("metrics_interval", type=int, default=100,
-         help="step-metrics cadence (ROADMAP A6)")
+         help="log a step-metrics record every N training steps (only "
+              "when metrics are enabled)")
     flag("plan_audit", default="off", choices=["off", "warn", "strict"],
          help="plan-time capacity preflight (ROADMAP A4b)")
     flag("plan_audit_chip", default="v5e",
@@ -159,8 +169,6 @@ def _refuse_unported(args) -> None:
     """Raise for a non-default flag whose machinery is not ported."""
     unported = [
         ("plan_audit", args.plan_audit != "off", "A4b"),
-        ("metrics_out", args.metrics_out is not None, "A6"),
-        ("DETPU_OBS", obs.metrics_enabled(), "A6"),
         ("bootstrap_timeout_s", args.bootstrap_timeout_s is not None, "A7b"),
         ("bootstrap_retries", args.bootstrap_retries != 2, "A7b"),
         ("checkpoint_time_s", args.checkpoint_time_s != 0, "A12"),
@@ -281,9 +289,15 @@ def main(argv: Optional[Sequence[str]] = None) -> RunResult:
             de, emb_opt, dense, tx,
             generator=torch.Generator(device=dev).manual_seed(1),
             dtype=dtype, device=dev)
+    # step metrics (world 1: this process is the chief and writes them)
+    with_metrics = obs.metrics_enabled() or args.metrics_out is not None
+    metrics_log = (obs.MetricsLogger(
+        args.metrics_out or args.checkpoint_out + ".metrics.jsonl")
+        if with_metrics else None)
     with_telemetry = telemetry.telemetry_enabled()
     step_fn = make_hybrid_train_step(de, loss_fn, tx, emb_opt,
                                      lr_schedule=sched,
+                                     with_metrics=with_metrics,
                                      telemetry=with_telemetry)
     telem = (telemetry.init_telemetry(de, device=dev) if with_telemetry
              else None)
@@ -380,12 +394,16 @@ def main(argv: Optional[Sequence[str]] = None) -> RunResult:
     for cats, batch in fast_forward(data_source, int(state.step)):
         cur = int(state.step)
         t0 = time.perf_counter()
+        out = (step_fn(state, cats, batch, telem) if telem is not None
+               else step_fn(state, cats, batch))
+        loss, state = out[:2]
         if telem is not None:
-            loss, state, telem = step_fn(state, cats, batch, telem)
-        else:
-            loss, state = step_fn(state, cats, batch)
+            telem = out[-1]
         losses.append(float(loss))
         step_s.append(time.perf_counter() - t0)
+        if (metrics_log is not None and args.metrics_interval
+                and cur % args.metrics_interval == 0):
+            metrics_log.log_step(out[2], step=cur)
         if on_step(cur, losses[-1], state):
             stop_reason = "on_step"
             break
@@ -437,6 +455,9 @@ def main(argv: Optional[Sequence[str]] = None) -> RunResult:
     print("saved", len(tables), "tables to", args.checkpoint_out)
     if args.save_state:
         print("saved full train state to", args.save_state)
+    if metrics_log is not None:
+        # the final process-counter snapshot
+        metrics_log.log_counters(final=True)
     return RunResult(de=de, state=state, losses=losses, auc=last_auc[0],
                      stop_reason=stop_reason, steps_run=len(losses),
                      serving=serving, serve_results=serve_results,

@@ -3,6 +3,7 @@
 from .adagrad import (adagrad_dense, adagrad_dense_plain, adagrad_rows,
                       adagrad_rows_plain)
 from .adam import adam_rows, adam_rows_plain, bias_powers
+from .dense_update import dense_update, dense_update_plain
 from .embedding_lookup import (Ragged, SparseIds, embedding_lookup,
                                gather_combine, gather_combine_plain,
                                lengths_to_splits, lengths_to_splits_plain,
@@ -11,6 +12,7 @@ from .embedding_lookup import (Ragged, SparseIds, embedding_lookup,
                                row_to_split, row_to_split_plain)
 from .exchange_pack import (CopyPlan, batched_copy_plain, pack_columns,
                             pack_columns_plain, pack_ids, pack_ids_plain)
+from .grad_health import grad_health, grad_health_plain
 from .momentum import momentum_rows, momentum_rows_plain
 from .interaction import (DotInteract, dot_interact_bwd,
                           dot_interact_bwd_plain, dot_interact_fwd,
@@ -45,4 +47,5 @@ __all__ = ["Ragged", "SparseIds", "embedding_lookup", "gather_combine",
            "remap_stage", "remap_stage_plain", "commit_rows",
            "commit_rows_plain", "CopyPlan", "batched_copy_plain",
            "pack_ids", "pack_ids_plain", "pack_columns",
-           "pack_columns_plain"]
+           "pack_columns_plain", "grad_health", "grad_health_plain",
+           "dense_update", "dense_update_plain"]

@@ -137,12 +137,15 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "detpu_topk_pool_max": (),
         # cms, depth, buckets, ids, live, n, k_pool, pool, scratch, stream
         "detpu_topk_pool": (_P, _I, _I, _P, _P, _I64, _I, _P, _P, _P),
-        # -> the largest topk + candidates
+        # -> the largest topk + candidates merged in shared memory
         "detpu_topk_merge_max": (),
+        # topk, candidates -> bytes of device scratch (0 below the max)
+        "detpu_topk_merge_scratch_bytes": (_I, _I),
         # cms, depth, buckets, pool, k_pool, candidates, topk_ids,
-        # topk_est, topk, ids_acc, count_part, n_part, count_out, stream
+        # topk_est, topk, ids_acc, count_part, n_part, count_out, scratch,
+        # stream
         "detpu_topk_merge": (_P, _I, _I, _P, _I, _I, _P, _P, _I, _P, _P,
-                             _I, _P, _P),
+                             _I, _P, _P, _P),
     },
     "exchange_pack": {
         # descs (host int64 [n, 8]), n, n_tiles, stream
@@ -151,6 +154,22 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         # -> the most descriptors a launch takes / the units a tile covers
         "detpu_pack_max_descs": (),
         "detpu_pack_tile_units": (),
+    },
+    "grad_health": {
+        # descs (host int64 [n, 6]), n, chunks, partials, out, stream
+        "detpu_grad_health": (_P, _I, _I64, _P, _P, _P),
+        # -> the most tensors a call takes / the elements a chunk covers
+        "detpu_grad_health_max_tensors": (),
+        "detpu_grad_health_chunk": (),
+    },
+    "dense_update": {
+        # descs (host int64 [n, 6]), n, tiles, kind, nlr, nlr_dev, m, b1,
+        # omb1, b2, omb2, eps, eps_root, bp, ok, count_a, count_s, stream
+        "detpu_dense_update": (_P, _I, _I64, _I, _F, _P, _F, _F, _F, _F,
+                               _F, _F, _F, _P, _P, _P, _P, _P),
+        # -> the most tensors a launch takes / the elements a tile covers
+        "detpu_dense_update_max_tensors": (),
+        "detpu_dense_update_tile": (),
     },
     "streaming": {
         # ext, ext_is_64, live, cap, nb, tid, roff, slot_fp, n, local_rows,
@@ -176,7 +195,10 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
 RESTYPES = {"detpu_dedup_scratch_bytes": _I64,
             "detpu_sgd_promoted_scratch_bytes": _I64,
             "detpu_topk_pool_scratch_bytes": _I64,
-            "detpu_topk_pool_clear_bytes": _I64}
+            "detpu_topk_pool_clear_bytes": _I64,
+            "detpu_topk_merge_scratch_bytes": _I64,
+            "detpu_grad_health_chunk": _I64,
+            "detpu_dense_update_tile": _I64}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

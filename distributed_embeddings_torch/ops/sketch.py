@@ -24,6 +24,11 @@ telemetry.py`` (``_buckets_of``, ``cms_update``, ``cms_query``,
   IN PLACE, and adds the live count, rounded once to float32, to the
   width's ``ids`` accumulator.
 
+Both take any size JAX takes: above what shared memory holds, the pool
+sorts its candidate list in device memory and the merge keeps its arrays
+in a device scratch (:func:`pool_path`, :func:`merge_path`), with the
+same result.
+
 Everything is integer arithmetic, so each kernel equals its plain
 version bit for bit, and both equal JAX's ``record_ids`` for live
 counts below 2^24 (JAX sums the live mask in float32: beyond that its
@@ -241,8 +246,29 @@ def cms_query(cms: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=None)
 def _pool_max() -> int:
-    """The largest ``k_pool`` the kernel takes (once per process)."""
+    """The largest ``k_pool`` whose select tile fits in shared memory
+    (once per process)."""
     return _kernels.library("sketch").detpu_topk_pool_max()
+
+
+@functools.lru_cache(maxsize=None)
+def _merge_max() -> int:
+    """The largest ``topk + candidates`` whose merge fits in shared
+    memory (once per process)."""
+    return _kernels.library("sketch").detpu_topk_merge_max()
+
+
+def pool_path(k_pool: int) -> str:
+    """Where K14's pool selects on the card: ``"tile"`` (tournament
+    rounds in shared memory) or ``"device"`` (a radix sort of the list in
+    device memory, above the tile)."""
+    return "tile" if k_pool <= _pool_max() else "device"
+
+
+def merge_path(topk: int, candidates: int) -> str:
+    """Where K15 merges on the card: ``"tile"`` (shared memory) or
+    ``"device"`` (the same kernel over a device scratch)."""
+    return "tile" if topk + candidates <= _merge_max() else "device"
 
 
 def topk_pool(cms: torch.Tensor, ids: torch.Tensor, live: torch.Tensor,
@@ -258,9 +284,6 @@ def topk_pool(cms: torch.Tensor, ids: torch.Tensor, live: torch.Tensor,
     pool = torch.empty((k_pool,), dtype=torch.int32, device=cms.device)
     if k_pool == 0:
         return pool
-    if k_pool > _pool_max():
-        raise ValueError(f"k_pool {k_pool}: the kernel takes at most "
-                         f"{_pool_max()}")
     lib = _kernels.library("sketch")
     n = ids.numel()
     scratch = torch.empty((lib.detpu_topk_pool_scratch_bytes(n, k_pool),),
@@ -299,16 +322,16 @@ def topk_merge(cms: torch.Tensor, pool: torch.Tensor, counts: torch.Tensor,
         raise ValueError("topk_est must match topk_ids, and ids hold one "
                          "value")
     lib = _kernels.library("sketch")
-    if topk_ids.numel() + candidates > lib.detpu_topk_merge_max():
-        raise ValueError(f"topk + candidates = "
-                         f"{topk_ids.numel() + candidates}: the kernel takes "
-                         f"at most {lib.detpu_topk_merge_max()}")
     count = torch.empty((1,), dtype=torch.float32, device=dev)
+    nbytes = lib.detpu_topk_merge_scratch_bytes(topk_ids.numel(), candidates)
+    scratch = (torch.empty((nbytes,), dtype=torch.uint8, device=dev)
+               if nbytes else None)
     err = lib.detpu_topk_merge(
         cms.data_ptr(), cms.shape[0], cms.shape[1], pool.data_ptr(),
         pool.numel(), candidates, topk_ids.data_ptr(), topk_est.data_ptr(),
         topk_ids.numel(), ids_acc.data_ptr(), counts.data_ptr(),
-        counts.numel(), count.data_ptr(), _stream(cms))
+        counts.numel(), count.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), _stream(cms))
     _kernels.check(lib, err, "topk_merge")
     topk_merge.launches += 1
     return count

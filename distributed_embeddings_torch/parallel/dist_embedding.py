@@ -828,6 +828,90 @@ class DistributedEmbedding:
             region[slots, :vals.shape[1]] = new
         return ids_recv, (pending if update else None)
 
+    # ----------------------------------------------------------- observability
+
+    def step_metrics(self, residuals, out_dtype=None
+                     ) -> Dict[str, torch.Tensor]:
+        """Exchange and overflow metrics of one forward from its
+        residuals (JAX's ``step_metrics``): a few sums over tensors the
+        step holds and tallies of the static plan, each a ``[1]`` tensor
+        on the residuals' device (world 1; the trainer adds the norms,
+        loss, step and sentinels):
+
+        * ``ids_routed`` (int32): live ids this rank received, the dense
+          slots' static count plus the ragged totals clamped to capacity;
+        * ``id_overflow`` (int32): ragged ids claimed past a slot's
+          capacity (ids the lookup dropped);
+        * ``invalid_id_count`` (int32): negative or out-of-vocabulary ids
+          among the live ones, dead and row-sliced slots skipped;
+        * ``id_a2a_bytes``, ``out_a2a_bytes``, ``grad_a2a_bytes``
+          (float32): bytes leaving this rank per step in the three
+          exchanges (0 at world 1);
+        * ``out_pad_frac`` (float32): dead-column fraction of this rank's
+          output rows.
+
+        ``out_dtype``: the exchanged activations' dtype (the trainer
+        passes the cotangents'); default ``compute_dtype`` or float32."""
+        if self.world_size > 1:
+            raise NotImplementedError(
+                "step metrics at world > 1 are not ported yet: ROADMAP A7b")
+        _, ids_recv, encs, b = residuals
+        plan = self._get_plan(list(encs), b)
+        world, my, dev = self.world_size, self.rank, ids_recv.device
+        i32 = torch.int32
+        id_bytes = ids_recv.element_size()
+        out_bytes = (out_dtype or self.compute_dtype or torch.float32
+                     ).itemsize
+        dense_live = live_cols = 0
+        for inst in plan.instances:
+            if inst.rank != my:
+                continue
+            g = plan.groups[inst.group]
+            live_cols += plan.out_width(inst)
+            if g.kind == "d":
+                dense_live += world * b * inst.num_slots * g.hot
+        routed = torch.full((1,), dense_live, dtype=i32, device=dev)
+        overflow = torch.zeros((1,), dtype=i32, device=dev)
+        invalid = torch.zeros((1,), dtype=i32, device=dev)
+        for gi, g in enumerate(plan.groups):
+            region = ids_recv[:, g.goff:g.goff + g.n * g.blen]
+            rows, _, _, _ = self._plan_meta(plan, gi, dev)
+            slot_ok = torch.as_tensor(
+                (plan.valid[gi][my] > 0) & (plan.rsliced[gi][my] == 0),
+                device=dev)
+            if g.kind == "d":
+                ids = region.reshape(world, g.n, b, g.hot)
+                bad = (((ids < 0) | (ids >= rows[None, :, None, None]))
+                       & slot_ok[None, :, None, None])
+                invalid += bad.sum(dtype=i32)
+                continue
+            r3 = region.reshape(world, g.n, g.blen)
+            values = r3[:, :, :g.hot]
+            tot = r3[:, :, g.hot:g.hot + b].sum(dim=2, dtype=i32)
+            clamped = tot.clamp(max=g.hot)
+            routed += clamped.sum(dtype=i32)
+            overflow += (tot - g.hot).clamp(min=0).sum(dtype=i32)
+            live = (torch.arange(g.hot, dtype=i32, device=dev)[None, None]
+                    < clamped[:, :, None])
+            bad = (((values < 0) | (values >= rows[None, :, None]))
+                   & live & slot_ok[None, :, None])
+            invalid += bad.sum(dtype=i32)
+        off_chip = float(world - 1)
+        f32 = torch.float32
+        a2a = off_chip * b * plan.s_max * out_bytes
+        return {
+            "ids_routed": routed,
+            "id_overflow": overflow,
+            "invalid_id_count": invalid,
+            "id_a2a_bytes": torch.full((1,), off_chip * plan.l_max
+                                       * id_bytes, dtype=f32, device=dev),
+            "out_a2a_bytes": torch.full((1,), a2a, dtype=f32, device=dev),
+            "grad_a2a_bytes": torch.full((1,), a2a, dtype=f32, device=dev),
+            "out_pad_frac": 1.0 - torch.full(
+                (1,), live_cols, dtype=f32, device=dev)
+            / float(max(plan.s_max, 1)),
+        }
+
     # --------------------------------------------------------------- telemetry
 
     def telemetry_streams(self, residuals) -> Dict[int, tuple]:

@@ -32,8 +32,15 @@ slab (and on its slab-shaped state):
 The dense half's optimizers follow ``optax``'s ``init``/``update``
 contract: :class:`SGD` (``optax.sgd``, with ``momentum``/``nesterov``),
 :class:`Adagrad` (``optax.adagrad``) and :class:`Adam` (``optax.adam``);
-``update`` returns the updates and a NEW state, so the non-finite
-guard can keep the old one bitwise.
+``update`` returns the updates and a NEW state (the CPU reference chain,
+what ``utils/convert.py`` and the checkpoint codec rely on). ``update_``
+is what the train step runs: the same chain followed by ``p + u``,
+applied IN PLACE to the parameters and the state by one multi-tensor
+kernel (K22, ``ops/dense_update.py``; its plain version on the CPU),
+with the non-finite guard's verdict fused: a false ``ok`` leaves the
+parameters and every state leaf bitwise unchanged, the counts included.
+The square roots of ``Adagrad`` and ``Adam`` are taken in float64 and
+rounded once (the kernel's correctly rounded float32 ones).
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ import torch
 
 from ..ops.adagrad import adagrad_dense, adagrad_rows
 from ..ops.adam import adam_rows, bias_powers
+from ..ops.dense_update import rsqrt_f32, sqrt_f32, dense_update
 from ..ops.momentum import momentum_rows
 from ..ops.scatter_add import Lr, sgd_scatter
 from ..ops.sparse_grad import dedup_sparse_grad
@@ -274,6 +282,16 @@ def _schedule_init(learning_rate: Schedule, params):
     return (ScheduleState(torch.zeros((), dtype=torch.int32, device=dev)),)
 
 
+def _neg_lr(learning_rate: Schedule, sched):
+    """``(-lr, counts)`` for :func:`~..ops.dense_update.dense_update`:
+    ``-lr`` as a float, or ``-lr(count)`` (a 0-d float32 tensor, the
+    count before this step) with the schedule's count to advance."""
+    if not callable(learning_rate):
+        return -learning_rate, ()
+    (st,) = sched
+    return -learning_rate(st.count), (st.count,)
+
+
 def _scale_by_lr(learning_rate: Schedule, updates, sched):
     """``optax.scale_by_learning_rate``: ``-lr * u`` with a constant lr
     (rounded to each update's dtype); with a schedule, ``-lr(count)``
@@ -325,6 +343,22 @@ class SGD:
         updates, sched = _scale_by_lr(self.learning_rate, grads, state)
         return updates, head + tuple(sched)
 
+    def update_(self, grads: Sequence[torch.Tensor], state, params,
+                ok: Optional[torch.Tensor] = None):
+        """``params += update(grads, state)`` and the state advanced,
+        IN PLACE (K22); with ``ok`` (a 0-d bool tensor) only where it is
+        true. Returns ``state`` (the same tensors)."""
+        if self.momentum is None:
+            kind, trace, sched = "sgd", None, state
+        else:
+            kind = "nesterov" if self.nesterov else "momentum"
+            trace, sched = state[0].trace, state[1:]
+        nlr, counts = _neg_lr(self.learning_rate, sched)
+        dense_update(kind, list(params), list(grads), trace, None, nlr,
+                     {"momentum": self.momentum or 0.0}, ok=ok,
+                     counts=counts)
+        return state
+
 
 class Adagrad:
     """Counterpart of ``optax.adagrad(learning_rate)`` for the dense
@@ -347,10 +381,17 @@ class Adagrad:
 
     def update(self, grads: Sequence[torch.Tensor], state, params=None):
         new_state = tuple(g * g + s for g, s in zip(grads, state))
-        updates = [torch.where(s > 0, torch.rsqrt(s + self.eps), 0.0) * g
+        updates = [torch.where(s > 0, rsqrt_f32(s + self.eps), 0.0) * g
                    * -self.learning_rate for g, s in zip(grads, new_state)]
         return updates, new_state
 
+    def update_(self, grads: Sequence[torch.Tensor], state, params,
+                ok: Optional[torch.Tensor] = None):
+        """In-place :meth:`update` plus ``p + u`` (K22), as
+        :meth:`SGD.update_`. Returns ``state``."""
+        dense_update("adagrad", list(params), list(grads), list(state),
+                     None, -self.learning_rate, {"eps": self.eps}, ok=ok)
+        return state
 
 
 class Adam:
@@ -388,8 +429,24 @@ class Adam:
         count = st.count + 1
         bc = 1.0 - bias_powers(count, b1, b2)
         updates = [(m / bc[0].to(m.dtype))
-                   / (torch.sqrt(v / bc[1].to(v.dtype) + self.eps_root)
+                   / (sqrt_f32(v / bc[1].to(v.dtype) + self.eps_root)
                       + self.eps) for m, v in zip(mu, nu)]
         updates, sched = _scale_by_lr(self.learning_rate, updates,
                                       state[1:])
         return updates, (AdamState(count, mu, nu),) + tuple(sched)
+
+    def update_(self, grads: Sequence[torch.Tensor], state, params,
+                ok: Optional[torch.Tensor] = None):
+        """In-place :meth:`update` plus ``p + u`` (K22), as
+        :meth:`SGD.update_`: the bias powers of the advanced count are
+        computed on the card, and the count advances by ``ok``. Returns
+        ``state``."""
+        st = state[0]
+        bp = bias_powers(st.count + 1, self.b1, self.b2)
+        nlr, counts = _neg_lr(self.learning_rate, state[1:])
+        dense_update("adam", list(params), list(grads), list(st.mu),
+                     list(st.nu), nlr,
+                     {"b1": self.b1, "b2": self.b2, "eps": self.eps,
+                      "eps_root": self.eps_root}, bp=bp, ok=ok,
+                     counts=(st.count,) + counts)
+        return state

@@ -20,12 +20,22 @@ dense gradient are averaged in ONE float32 all-reduce
 (:func:`~.grads.mean_flat`), so every rank applies the same dense update
 and skips a non-finite batch together.
 
+Two hand-written kernels carry the step's epilogue: K21
+(``ops/grad_health.py``) reads every cotangent and dense gradient once
+for the non-finite guard's energies (and, under ``with_metrics``, the
+norms and the per-table health sentinels), and K22
+(``ops/dense_update.py``, through the dense optimizer's ``update_``)
+updates the dense parameters and their optimizer state in place with the
+guard's select fused.
+
 Access telemetry (``telemetry=``, ``analysis/telemetry.py``) and
 streaming vocabularies (``dynamic=``, ``parallel/streaming.py``) ride
 through both as extra arguments and results, telemetry first (world 1).
-Not yet ported, each raising with its ROADMAP item: step metrics
-(``with_metrics`` / ``DETPU_OBS=1``, A6), telemetry and streaming at
-world > 1 and microbatch schedules (A7b).
+The instrumented step (``with_metrics`` / ``DETPU_OBS=1``) returns the
+:data:`~..utils.obs.STEP_METRIC_KEYS` dict beside the loss and state
+(world 1). Not yet ported, each raising with its ROADMAP item: step
+metrics, telemetry and streaming at world > 1, and microbatch schedules
+(A7b).
 """
 
 from __future__ import annotations
@@ -37,6 +47,7 @@ from torch.utils import _pytree as pytree
 
 from ..analysis import telemetry as tel
 from ..ops.embedding_lookup import Ragged, SparseIds
+from ..ops.grad_health import grad_health
 from ..utils import obs
 from . import grads as grads_mod
 from . import streaming as smod
@@ -59,9 +70,70 @@ class HybridTrainState(NamedTuple):
     step: Any = None
 
 
-def _sq_sum(tensors) -> torch.Tensor:
-    """Sum of squares over every tensor, in float32."""
-    return sum(t.float().square().sum() for t in tensors)
+def _table_sentinels(de, health: torch.Tensor, lr) -> dict:
+    """The three per-table health sentinels (JAX ``_table_sentinels``),
+    each ``[1, n_tables]``, folded from K21's per-input ``health [3,
+    n_inputs]`` (sum of squares, max |g|, non-finite count of each
+    embedding cotangent) through ``input_table_map``: per table the sum
+    of its inputs' sums and counts and the max of their maxima (NaN
+    propagates); a table with no input gets a real 0. The update bound
+    is ``|lr| / world * max |g|``, the ``1/world`` pre-scale of the
+    sparse apply."""
+    tmap = de.strategy.input_table_map
+    n_tables = len(de.strategy.global_configs)
+    idx = _table_index(de, health.device)
+    zero = torch.zeros((3, 1), dtype=health.dtype, device=health.device)
+    per = torch.cat([health[:, :len(tmap)], zero], dim=1)[:, idx]
+    lr_t = torch.as_tensor(lr, dtype=torch.float32, device=health.device)
+    scale = (lr_t / de.world_size).abs()
+    return {
+        "table_grad_norm": torch.sqrt(per[0].sum(dim=1)).reshape(
+            1, n_tables),
+        "table_update_maxabs": (scale * per[1].amax(dim=1)).reshape(
+            1, n_tables),
+        "table_nonfinite": per[2].sum(dim=1).reshape(1, n_tables),
+    }
+
+
+def _table_index(de, device) -> torch.Tensor:
+    """``[n_tables, k]`` int64: each table's inputs (in input order),
+    padded with ``n_inputs`` (the zero column), cached per layer and
+    device."""
+    key = ("table_index", str(device))
+    idx = de._meta_cache.get(key)
+    if idx is None:
+        tmap = de.strategy.input_table_map
+        n_tables = len(de.strategy.global_configs)
+        mine = [[i for i, t in enumerate(tmap) if t == tt]
+                for tt in range(n_tables)]
+        k = max([len(m) for m in mine] + [1])
+        idx = torch.as_tensor([m + [len(tmap)] * (k - len(m)) for m in mine],
+                              dtype=torch.int64, device=device)
+        de._meta_cache[key] = idx
+    return idx
+
+
+def _finish_metrics(de, metrics, health, n_out, loss, ok, state, sstats,
+                    lr):
+    """The instrumented step's metrics beyond ``step_metrics`` (JAX
+    ``_finish_metrics``): the sentinels, both norms (square roots of
+    K21's sums), the loss, ``skipped_steps`` (``1 - ok``) and ``step``
+    (the count at the start of the step), and a streaming step's
+    guard-gated ``stream_*`` counts."""
+    metrics.update(_table_sentinels(de, health[:, :n_out], lr))
+    metrics["emb_grad_norm"] = torch.sqrt(health[0, :n_out].sum()).reshape(1)
+    metrics["dense_grad_norm"] = torch.sqrt(
+        health[0, n_out:].sum()).reshape(1)
+    metrics["loss"] = loss.float().reshape(1)
+    dev = loss.device
+    metrics["skipped_steps"] = (
+        (1 - ok.to(torch.int32)).reshape(1) if ok is not None
+        else torch.zeros((1,), dtype=torch.int32, device=dev))
+    metrics["step"] = state.step.to(torch.int32).reshape(1).clone()
+    if sstats is not None:
+        for k, v in sstats.items():
+            metrics[f"stream_{k}"] = v
+    return metrics
 
 
 def _check_mesh(de, mesh):
@@ -79,48 +151,31 @@ def _not_ported(de, with_metrics, mesh, tel_cfg=None, dyn_cfg=None):
         raise NotImplementedError(
             "telemetry and streaming vocabularies at world > 1 are not "
             "ported yet: ROADMAP A7b")
-    if with_metrics:
+    if with_metrics and de.world_size > 1:
         raise NotImplementedError(
-            "step metrics (with_metrics / DETPU_OBS=1) are not ported yet: "
-            "ROADMAP A6")
+            "step metrics (with_metrics / DETPU_OBS=1) at world > 1 are "
+            "not ported yet: ROADMAP A7b")
 
 
 def _apply_dense_and_assemble(state, dense_grads, dense_tx, ok, nan_guard):
-    """The step's epilogue: the dense optimizer update, the non-finite
-    guard's select on the small leaves, and the new state.
+    """The step's epilogue: the dense optimizer update with the
+    non-finite guard's select fused, and the new state.
 
-    The dense parameters update IN PLACE; under the guard each becomes
-    ``where(ok, new, old)``, so a skipped step leaves them (and any
-    tensor leaf of the dense optimizer state) bitwise unchanged. The
+    ``dense_tx.update_`` (K22) updates the dense parameters and every
+    tensor of the dense optimizer state IN PLACE; under the guard it
+    writes nothing on a skipped step and advances the optimizer's counts
+    by ``ok``, so a skipped step leaves them bitwise unchanged. The
     slabs need no select: their scatter already routed every id to the
-    dropped-row sentinel. ``step`` advances either way."""
-    params = list(state.dense_params.parameters())
-    updates, dense_opt_state = dense_tx.update(
-        dense_grads, state.dense_opt_state, params)
-    with torch.no_grad():
-        for p, u in zip(params, updates):
-            new = p + u
-            p.copy_(torch.where(ok, new, p) if nan_guard else new)
-    if nan_guard:
-        dense_opt_state = _select(ok, dense_opt_state, state.dense_opt_state)
+    dropped-row sentinel. ``step`` advances either way. The state keeps
+    its tensors: a caller that needs the old dense state clones it
+    first."""
+    dense_tx.update_(dense_grads, state.dense_opt_state,
+                     list(state.dense_params.parameters()),
+                     ok=ok if nan_guard else None)
     return HybridTrainState(
         emb_params=state.emb_params, emb_opt_state=state.emb_opt_state,
-        dense_params=state.dense_params, dense_opt_state=dense_opt_state,
-        step=state.step + 1)
-
-
-def _select(ok, new, old):
-    """``where(ok, new, old)`` over the tensor leaves of two states of
-    one structure (tuples, lists, dicts)."""
-    if isinstance(new, torch.Tensor):
-        return torch.where(ok, new, old)
-    if isinstance(new, dict):
-        return {k: _select(ok, v, old[k]) for k, v in new.items()}
-    if isinstance(new, (tuple, list)):
-        items = [_select(ok, a, b) for a, b in zip(new, old)]
-        return type(new)(*items) if hasattr(new, "_fields") \
-            else type(new)(items)
-    return new
+        dense_params=state.dense_params,
+        dense_opt_state=state.dense_opt_state, step=state.step + 1)
 
 
 def _small_leaves(de, emb_opt_state) -> List[torch.Tensor]:
@@ -136,11 +191,12 @@ def _small_leaves(de, emb_opt_state) -> List[torch.Tensor]:
 def _hybrid_local_step(de, loss_fn, dense_tx, emb_optimizer, lr_schedule,
                        state, cat_inputs, batch, nan_guard=False,
                        telemetry_cfg=None, telem=None, streaming_cfg=None,
-                       sstate=None):
+                       sstate=None, with_metrics=False):
     """One hybrid step (shared by :func:`make_hybrid_train_step` and
     :func:`make_hybrid_train_loop`): embedding forward, one backward
     giving the dense gradients and the embedding-output cotangents,
-    both optimizer updates, step counter bump. Returns ``(loss, state)``.
+    both optimizer updates, step counter bump. Returns ``(loss, state)``,
+    or ``(loss, state, metrics)`` with ``with_metrics`` (world 1).
 
     With ``telemetry_cfg``, the forward's routed ids fold into ``telem``
     (the stacked telemetry state, in place) right after the forward,
@@ -186,9 +242,13 @@ def _hybrid_local_step(de, loss_fn, dense_tx, emb_optimizer, lr_schedule,
     dense_grads, out_grads = list(grads[:len(params)]), grads[len(params):]
     loss = loss.detach()
 
-    # 0 * (embedding-cotangent energy) is 0 when finite and NaN otherwise
-    probe = 0.0 * _sq_sum(out_grads) if nan_guard else None
+    # K21 gives the energies the guard reads: 0 * (embedding-cotangent
+    # energy) is 0 when finite and NaN otherwise
+    n_out = len(out_grads)
+    health = probe = dense_sq = None
     if de.world_size > 1:
+        if nan_guard:
+            probe = 0.0 * grad_health(out_grads)[0].sum()
         # the JAX step's pmeans of the loss, the dense gradients and the
         # probe, as one all-reduce: a NaN on any rank reaches every rank
         # and all skip together
@@ -198,10 +258,16 @@ def _hybrid_local_step(de, loss_fn, dense_tx, emb_optimizer, lr_schedule,
         loss, dense_grads = means[0], means[len(extra):]
         if nan_guard:
             probe = means[1]
+            dense_sq = (grad_health(dense_grads)[0].sum() if dense_grads
+                        else torch.zeros_like(probe))
+    elif nan_guard or with_metrics:
+        health = grad_health(list(out_grads) + dense_grads)
+        probe = 0.0 * health[0, :n_out].sum()
+        dense_sq = health[0, n_out:].sum()
     ok = None
     if nan_guard:
-        ok = (torch.isfinite(loss.float()) & torch.isfinite(
-            _sq_sum(dense_grads)) & torch.isfinite(probe))
+        ok = (torch.isfinite(loss.float()) & torch.isfinite(dense_sq)
+              & torch.isfinite(probe))
 
     lr = lr_schedule(state.step) if callable(lr_schedule) else lr_schedule
     small = _small_leaves(de, state.emb_opt_state) if nan_guard else []
@@ -213,13 +279,21 @@ def _hybrid_local_step(de, loss_fn, dense_tx, emb_optimizer, lr_schedule,
             # the sparse apply advanced it in place: keep the old value
             # on a skipped step (JAX's where-select of non-slab leaves)
             t.copy_(torch.where(ok, t, old))
+        sstats = None
         if streaming_cfg is not None:
-            smod.commit(de, de.local_view(state.emb_params), pending,
-                        smod.local_state(sstate), enable=ok,
-                        opt_state=de.local_view(state.emb_opt_state),
-                        optimizer=emb_optimizer)
-    return loss, _apply_dense_and_assemble(state, dense_grads, dense_tx, ok,
-                                           nan_guard)
+            sstats = smod.commit(
+                de, de.local_view(state.emb_params), pending,
+                smod.local_state(sstate), enable=ok,
+                opt_state=de.local_view(state.emb_opt_state),
+                optimizer=emb_optimizer)
+    new_state = _apply_dense_and_assemble(state, dense_grads, dense_tx, ok,
+                                          nan_guard)
+    if not with_metrics:
+        return loss, new_state
+    metrics = de.step_metrics(
+        res, out_dtype=out_grads[0].dtype if out_grads else None)
+    return loss, new_state, _finish_metrics(
+        de, metrics, health, n_out, loss, ok, state, sstats, lr)
 
 
 def _with_aux_signature(core, tel_on: bool, dyn_on: bool):
@@ -283,8 +357,12 @@ def make_hybrid_train_step(de, loss_fn: Callable, dense_tx, emb_optimizer,
         place. A step built without a streaming table raises
         ``ValueError`` when called.
       mesh: ``None`` or the layer's process group (the JAX step's mesh).
-      with_metrics: not ported yet (raises; ``None`` follows
-        ``DETPU_OBS``).
+      with_metrics: instrument the step (world 1): it then returns
+        ``(loss, state, metrics[, telem][, stream])``, ``metrics`` the
+        :data:`~..utils.obs.STEP_METRIC_KEYS` dict (with a streaming
+        step, :data:`~..utils.obs.STREAMING_METRIC_KEYS` too) of ``[1]``
+        tensors on the card, the ``table_*`` sentinels ``[1, n_tables]``.
+        Nothing is read on the host. ``None`` follows ``DETPU_OBS``.
 
     The state's slabs and dense parameters are updated in place (the
     JAX step donates them); the returned state holds the same tensors.
@@ -300,11 +378,12 @@ def make_hybrid_train_step(de, loss_fn: Callable, dense_tx, emb_optimizer,
     def core(state: HybridTrainState, cat_inputs, batch, aux):
         telem = aux[0] if tel_cfg is not None else None
         sstate = aux[-1] if dyn_cfg is not None else None
-        loss, state = _hybrid_local_step(
+        out = _hybrid_local_step(
             de, loss_fn, dense_tx, emb_optimizer, lr_schedule, state,
             cat_inputs, batch, nan_guard=nan_guard, telemetry_cfg=tel_cfg,
-            telem=telem, streaming_cfg=dyn_cfg, sstate=sstate)
-        return (loss, state) + tuple(aux)
+            telem=telem, streaming_cfg=dyn_cfg, sstate=sstate,
+            with_metrics=with_metrics)
+        return out + tuple(aux)
 
     return _with_aux_signature(core, tel_cfg is not None,
                                dyn_cfg is not None)
@@ -346,7 +425,15 @@ def make_hybrid_train_loop(de, loss_fn: Callable, dense_tx, emb_optimizer,
     fields all lead with ``K``; ``batch`` any structure of ``[K, ...]``
     tensors). The JAX loop scans inside one compiled program (its
     ``unroll`` is a ``lax.scan`` knob, not taken here); this is a Python
-    loop with the same per-step semantics, guard included."""
+    loop with the same per-step semantics, guard included.
+
+    ``with_metrics`` (``None`` follows ``DETPU_OBS``) instruments every
+    step: the loop then returns ``(losses, state, metrics[, telem][,
+    stream])``, each metric stacked along a leading step axis (``[K,
+    1]``; the sentinels ``[K, 1, n_tables]``), as JAX's scan stacks
+    them."""
+    if with_metrics is None:
+        with_metrics = obs.metrics_enabled()
     step = make_hybrid_train_step(
         de, loss_fn, dense_tx, emb_optimizer, mesh=mesh,
         lr_schedule=lr_schedule, with_metrics=with_metrics,
@@ -357,12 +444,20 @@ def make_hybrid_train_loop(de, loss_fn: Callable, dense_tx, emb_optimizer,
         K = (c0.values if isinstance(c0, (Ragged, SparseIds))
              else c0).shape[0]
         losses: List[torch.Tensor] = []
+        per_step = []
         for k in range(K):
-            loss, state, *telem = step(
-                state, [_index(c, k) for c in cat_stacks],
-                _index(batch_stacks, k), *telem)
+            out = step(state, [_index(c, k) for c in cat_stacks],
+                       _index(batch_stacks, k), *telem)
+            loss, state = out[:2]
+            if with_metrics:
+                per_step.append(out[2])
+            telem = out[3:] if with_metrics else out[2:]
             losses.append(loss)
-        return (torch.stack(losses), state, *telem)
+        head = (torch.stack(losses), state)
+        if with_metrics:
+            head += ({key: torch.stack([m[key] for m in per_step])
+                      for key in per_step[0]},)
+        return head + tuple(telem)
 
     return loop
 

@@ -93,8 +93,8 @@ declare("DETPU_SERVE_SHED_FRAC", default="0.5",
 
 # train step (parallel/trainer.py, parallel/optimizers.py)
 declare("DETPU_OBS", default="",
-        doc="1 = build train steps with on-device step metrics (not "
-            "ported yet: building a train step raises, ROADMAP A6)")
+        doc="1 = build train steps with on-device step metrics (3-tuple "
+            "return) and let the DLRM example write its metrics sidecar")
 declare("DETPU_NANGUARD", default="1",
         doc="on-device non-finite guard in the hybrid step; 0 = build the "
             "unguarded step")

@@ -1,21 +1,65 @@
-"""The train step's observability switches and the process-level
-counters and events (counterpart of the parts of
-``distributed_embeddings_tpu/utils/obs.py`` the port calls): the two
-readers ``make_hybrid_train_step`` and ``make_hybrid_train_loop`` call
-(read when a step is BUILT), and the counters and structured events the
-checkpoint codec and the fault points record. Step metrics wait for
-ROADMAP A6."""
+"""The train step's observability switches, the step-metrics schema and
+its JSONL logger, and the process-level counters and events (counterpart
+of the parts of ``distributed_embeddings_tpu/utils/obs.py`` the port
+calls): the two readers ``make_hybrid_train_step`` and
+``make_hybrid_train_loop`` call (read when a step is BUILT), the key
+tuples of the instrumented step's metrics dict (the port's own copy of
+JAX's), :class:`MetricsLogger`, and the counters and structured events
+the checkpoint codec and the fault points record."""
 
 from __future__ import annotations
 
+import json
+import logging
+import os
 import threading
 import time
 from typing import Any, Dict, List, Optional
 
 from . import envvars
 
+logger = logging.getLogger(__name__)
+
 OBS_ENV = "DETPU_OBS"
 NANGUARD_ENV = "DETPU_NANGUARD"
+
+#: Keys of the instrumented step's metrics dict (``with_metrics=True`` /
+#: ``DETPU_OBS=1``). Every value is a ``[1]`` tensor at world 1 (JAX's
+#: per-rank ``[world]`` vector), except the three per-table health
+#: sentinels (``table_*``), which are ``[1, n_tables]``; the train loop
+#: stacks each along a leading step axis.
+STEP_METRIC_KEYS = (
+    "ids_routed",        # live (non-padding) ids this rank received
+    "id_overflow",       # ragged ids lost to static-capacity truncation
+    "invalid_id_count",  # negative / out-of-vocab ids among the live ids
+    "id_a2a_bytes",      # id-exchange bytes leaving this rank (dp->mp)
+    "out_a2a_bytes",     # activation-exchange bytes leaving (mp->dp fwd)
+    "grad_a2a_bytes",    # cotangent-exchange bytes leaving (dp->mp bwd)
+    "out_pad_frac",      # dead-column fraction of this rank's output rows
+    "loss",              # the step's loss
+    "emb_grad_norm",     # L2 norm of this rank's embedding cotangents
+    "dense_grad_norm",   # L2 norm of the (averaged) dense gradient
+    "skipped_steps",     # 1 when the non-finite guard skipped this step
+    "step",              # step counter at the START of the step
+    "table_grad_norm",      # per-table L2 norm of the sparse cotangents
+    "table_update_maxabs",  # per-table max |row update| (lr/world scaled)
+    "table_nonfinite",      # per-table count of non-finite cotangents
+)
+
+#: The per-table health-sentinel subset of :data:`STEP_METRIC_KEYS`.
+TABLE_HEALTH_KEYS = ("table_grad_norm", "table_update_maxabs",
+                     "table_nonfinite")
+
+#: Extra step-metric keys of streaming-vocabulary steps (``dynamic=``):
+#: ``[1]`` counts of THIS step's slot-map transitions, gated by the
+#: non-finite guard like the updates they describe (a skipped step
+#: reports zeros).
+STREAMING_METRIC_KEYS = (
+    "stream_admitted",    # external ids admitted to a real slot
+    "stream_evicted",     # slot occupants evicted back to their bucket
+    "stream_bucket_ids",  # live ids served from a shared hash bucket
+    "stream_hit_ids",     # live ids served from their admitted slot
+)
 
 _counters_lock = threading.Lock()
 _counters: Dict[str, int] = {}
@@ -77,3 +121,64 @@ def record_fault(point: str) -> None:
     injection, keyed globally and per point."""
     counter_inc("fault_injections")
     counter_inc(f"fault_injections.{point}")
+
+
+# --------------------------------------------------------- host collection
+
+
+class MetricsLogger:
+    """Fsynced JSONL sidecar of step metrics and counters (JAX's
+    ``MetricsLogger``): every record is one JSON line, written, flushed
+    and fsynced before the call returns, so a process killed at any point
+    leaves every earlier record parseable. Records:
+
+    * ``{"section": "step_metrics", "step": N, "metrics": {...}}`` from
+      :meth:`log_step`; tensors are read back and listified (``[1]``
+      vectors stay vectors);
+    * ``{"section": "counters", "counters": {...}}`` from
+      :meth:`log_counters`: the process counters."""
+
+    def __init__(self, path: str):
+        self.path = path
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+
+    def _record(self, section: str, **fields: Any) -> Dict[str, Any]:
+        rec: Dict[str, Any] = {"section": section, **fields}
+        with open(self.path, "a", encoding="utf-8") as f:
+            f.write(json.dumps(rec) + "\n")
+            f.flush()
+            os.fsync(f.fileno())
+        return rec
+
+    def log_step(self, metrics: Dict[str, Any], step: Optional[int] = None,
+                 **extra: Any) -> Dict[str, Any]:
+        """Append one step-metrics record. ``metrics`` is the dict the
+        instrumented train step returned; reading its tensors back here
+        is the one host read the caller opted into by logging."""
+        host = {k: v.tolist() if hasattr(v, "tolist") else v
+                for k, v in metrics.items()}
+        rec = dict(extra)
+        if step is not None:
+            rec["step"] = int(step)
+        return self._record("step_metrics", metrics=host, **rec)
+
+    def log_counters(self, **extra: Any) -> Dict[str, Any]:
+        """Append the current process-counter snapshot."""
+        return self._record("counters", counters=counters(), **extra)
+
+    @staticmethod
+    def load(path: str) -> List[Dict[str, Any]]:
+        """Parse a metrics sidecar (a torn trailing line is skipped)."""
+        out: List[Dict[str, Any]] = []
+        if not os.path.exists(path):
+            return out
+        with open(path, encoding="utf-8") as f:
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                try:
+                    out.append(json.loads(line))
+                except json.JSONDecodeError:
+                    logger.warning("skipping torn sidecar line in %s", path)
+        return out

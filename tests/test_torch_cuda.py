@@ -25,7 +25,13 @@ NaN); the streaming train run card-vs-CPU holds the streaming state
 bitwise and the floats within 1e-4. The promoted scatter (K18) and K3's
 dedup chain are bit-exact to their plain versions run on CPU copies (a
 NaN equals a NaN), and the DLRM example resumed from a checkpoint on the
-card equals its uninterrupted run bitwise.
+card equals its uninterrupted run bitwise. The gradient-health reduction
+(K21) equals its plain version in max |g| and the non-finite counts and
+within 1.2e-5 relative in the sums of squares (positive terms in another
+order), and gives the same bits on two runs; the dense update (K22) is
+bit-exact; K14's pool and K15's merge past their shared-memory tiles are
+bit-exact; an instrumented DLRM run card-vs-CPU holds its metrics within
+1e-4 (counts exact).
 """
 
 import numpy as np
@@ -1158,7 +1164,7 @@ def _telemetry_case(rng, n, depth, buckets, topk, device, kind="zipf"):
     ids, live = _telemetry_ids(rng, n, kind)
     cms = rng.integers(0, 9, (depth, buckets)).astype(np.int32)
     tids = np.full(topk, -1, np.int32)
-    tids[:topk // 2] = rng.permutation(50)[:topk // 2]
+    tids[:topk // 2] = rng.permutation(max(50, topk // 2))[:topk // 2]
     test = np.where(tids >= 0, rng.integers(1, 30, topk), 0).astype(np.int32)
     wstate = {"cms": torch.from_numpy(cms).to(device),
               "topk_ids": torch.from_numpy(tids).to(device),
@@ -1187,20 +1193,33 @@ def _sketch_case(n, depth, buckets, topk, cand, kind="zipf"):
     _sketch_case(1_000_000, 4, 2048, 32, 128, "spread"),  # probing
     _sketch_case(300_000, 4, 2048, 32, 0, "zipf"),  # cand: the pool max
     _sketch_case(2_000_000, 4, 2048, 32, 128, "distinct"),  # a full set
+    # past shared memory (C5): topk 2048 with its default 8192 candidates
+    # (the pool in the tile, the merge in device memory), and candidates
+    # past the tile (both in device memory), one with INT32_MAX ids
+    _sketch_case(2_600_000, 4, 2048, 2048, 8192, "zipf19"),
+    _sketch_case(1_000_000, 4, 2048, 32, 16384, "spread"),
+    _sketch_case(200_000, 4, 2048, 64, 20000, "edges"),
 ])
 def test_sketch_kernels_match_plain(cuda_device, n, depth, buckets, topk,
                                     cand, kind):
     """K13 (sketch update and live count), K14 (query and candidate
     pool) and K15 (top-k merge) against their plain versions on the
     card, three steps from one prior state: every leaf bit-exact.
-    ``cand`` 0 takes the largest pool the kernel allows (past K15's
-    limit: the merge is left out)."""
+    ``cand`` 0 takes the largest pool the shared-memory tile holds (the
+    merge is left out); the C5 cases run past the tile, in device
+    memory."""
     from distributed_embeddings_torch.ops import sketch as sk
 
     merge = cand > 0
     if not merge:
         cand = sk._pool_max()
         assert cand >= 4096
+    elif topk == 2048:
+        assert sk.pool_path(min(cand, n)) == "tile"
+        assert sk.merge_path(topk, cand) == "device"
+    elif cand > 8192:
+        assert sk.pool_path(min(cand, n)) == "device"
+        assert sk.merge_path(topk, cand) == "device"
     runs = []
     for use_kernels in (True, False):
         rng = np.random.default_rng(n + depth)
@@ -1727,3 +1746,219 @@ def test_exchange_copy_kernel_unaligned_and_split(cuda_device, dtype):
     assert xp.pack_columns.launches == n0 + -(-1300 // xp.MAX_DESCS)
     xp.batched_copy_plain(plan, [src], [want])
     assert torch.equal(_bits(got), _bits(want))
+
+
+# ---------------------------------------------------------------- K21, K22
+
+
+def _health_tensors(dev, case):
+    """Gradient lists for K21: the DLRM step's shapes (26 bf16 [65536,
+    128] cotangents as column slices of one [65536, 27, 128] block, and
+    the MLP's float32 gradients), or edge cases (empty, one element, odd
+    sizes around the chunk and the 16-byte group, unaligned starts,
+    strided views, NaN, Inf and finite values whose squares overflow)."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    if case == "dlrm":
+        block = torch.randn((65536, 27, 128), generator=gen, device=dev
+                            ).to(torch.bfloat16) * 1e-3
+        outs = [block[:, i + 1] for i in range(26)]
+        dense = [torch.randn(shape, generator=gen, device=dev) * 1e-2
+                 for shape in ((512, 13), (512,), (256, 512), (256,),
+                               (128, 256), (128,), (1024, 479), (1024,),
+                               (1024, 1024), (1024,), (512, 1024), (512,),
+                               (256, 512), (256,), (1, 256), (1,))]
+        return outs + dense
+    out = []
+    for dt in (torch.float32, torch.bfloat16):
+        for n in (0, 1, 7, 8, 9, 16383, 16384, 16385, 100_003):
+            out.append(torch.randn(n, generator=gen, device=dev).to(dt))
+        base = torch.randn(40_001, generator=gen, device=dev).to(dt)
+        out.append(base[1:])                    # unaligned start
+        wide = torch.randn((301, 50), generator=gen, device=dev).to(dt)
+        out.append(wide[:, 3:27])               # strided, odd row stride
+        out.append(wide[:, 8:40])               # strided, aligned columns
+        nan = torch.randn(20_000, generator=gen, device=dev).to(dt)
+        nan[12_345] = float("nan")
+        out.append(nan)
+        inf = torch.randn(20_000, generator=gen, device=dev).to(dt)
+        inf[3] = float("-inf")
+        inf[19_999] = float("inf")
+        out.append(inf)
+        big = torch.full((5,), 3e38, device=dev).to(dt)  # squares overflow
+        out.append(big)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["dlrm", "edges"])
+def test_grad_health_kernel_matches_plain(cuda_device, case):
+    """K21 against its plain version on the card: max |g| and the
+    non-finite count exact (NaN equals NaN); the sum of squares within
+    1.2e-5 relative (all terms are positive: each order's error is at
+    most ~100 float32 roundings of the sum, 100 * 2^-24 = 6e-6 a side),
+    infinite where the plain one is. Two runs give the same bits."""
+    from distributed_embeddings_torch.ops import grad_health, grad_health_plain
+
+    ts = _health_tensors(cuda_device, case)
+    before = grad_health.launches
+    got = grad_health(ts)
+    again = grad_health(ts)
+    assert grad_health.launches == before + 2
+    want = grad_health_plain(ts)
+    assert got.shape == (3, len(ts)) and got.device.type == "cuda"
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    g, w = to_np(got), to_np(want)
+    np.testing.assert_array_equal(g[1:], w[1:])
+    np.testing.assert_allclose(g[0], w[0], rtol=1.2e-5, atol=0)
+    if case == "edges":
+        assert np.isnan(g[1]).sum() == 2 and np.isinf(g[0]).sum() >= 4
+        assert (g[2] > 0).sum() == 4
+
+
+@pytest.mark.cuda
+def test_grad_health_kernel_control_fails(cuda_device):
+    """The control of the tolerance above: a sum missing one chunk's
+    squares is far outside 1.2e-5."""
+    from distributed_embeddings_torch.ops import grad_health, grad_health_plain
+
+    t = torch.randn(100_000, device=cuda_device)
+    got = to_np(grad_health([t[16384:]]))
+    want = to_np(grad_health_plain([t]))
+    assert abs(got[0, 0] - want[0, 0]) > 1.2e-5 * want[0, 0]
+
+
+def _dense_case(dev, kind, seed):
+    """Float32 parameters of odd sizes (one unaligned), their gradients
+    and their optimizer state for K22."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shapes = ((512, 13), (512,), (1,), (3, 5), (4099,), (1024, 479))
+    params = [torch.randn(s, generator=gen, device=dev) for s in shapes]
+    shifted = torch.randn(1001, generator=gen, device=dev)[1:]
+    params.append(shifted)                      # a 4-byte-aligned start
+    grads = [torch.randn(p.shape, generator=gen, device=dev) * 0.1
+             for p in params]
+    n_state = {"sgd": 0, "momentum": 1, "nesterov": 1, "adagrad": 1,
+               "adam": 2}[kind]
+    state = [[torch.rand(p.shape, generator=gen, device=dev) * (j + 1) * 0.1
+              for p in params] for j in range(n_state)]
+    return params, grads, state
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ok", [None, True, False])
+@pytest.mark.parametrize("kind,sched", [
+    (k, s) for k in ("sgd", "momentum", "nesterov", "adam")
+    for s in (False, True)] + [("adagrad", False)])
+def test_dense_update_kernel_matches_plain(cuda_device, kind, sched, ok):
+    """K22 against its plain version on the card, bit for bit: the
+    parameters, every state tensor and the counts (with ``ok`` false all
+    of them unchanged). Adagrad takes a constant lr, as its port does."""
+    from distributed_embeddings_torch.ops import (bias_powers, dense_update,
+                                                  dense_update_plain)
+
+    runs = []
+    for use_kernel in (True, False):
+        params, grads, state = _dense_case(cuda_device, kind, 7)
+        count = torch.tensor(41, dtype=torch.int32, device=cuda_device)
+        scount = torch.tensor(9, dtype=torch.int32, device=cuda_device)
+        okt = None if ok is None else torch.tensor(ok, device=cuda_device)
+        nlr = (-(0.003 + 0.0001 * scount.float()) if sched else -0.0123)
+        bp = bias_powers(count + 1, 0.9, 0.999) if kind == "adam" else None
+        counts = ((count,) if kind == "adam" else ()) + (
+            (scount,) if sched else ())
+        hyper = {"momentum": 0.9, "eps": 1e-7 if kind == "adagrad" else 1e-8,
+                 "b1": 0.9, "b2": 0.999, "eps_root": 0.0}
+        s0 = state[0] if state else None
+        s1 = state[1] if len(state) > 1 else None
+        fn = dense_update if use_kernel else dense_update_plain
+        before = dense_update.launches
+        fn(kind, params, grads, s0, s1, nlr, hyper, bp=bp, ok=okt,
+           counts=counts)
+        assert dense_update.launches == before + use_kernel
+        runs.append([*params, *(t for s in state for t in s), count,
+                     scount])
+    fresh = _dense_case(cuda_device, kind, 7)
+    for a, b in zip(*runs):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    if ok is False:
+        for a, b in zip(runs[0], [*fresh[0], *(t for s in fresh[2]
+                                               for t in s)]):
+            assert torch.equal(a, b)
+    else:
+        assert not torch.equal(runs[0][0], fresh[0][0])
+
+
+@pytest.mark.cuda
+def test_instrumented_train_step_on_the_card_matches_the_cpu(cuda_device):
+    """A small float32 DLRM, 5 instrumented steps (``with_metrics``, the
+    guard on) with dense ``Adam`` on the card (K21, K22 and the DLRM
+    kernels) and on the CPU (their plain versions) from one state, the
+    third step a NaN batch: losses, tables, dense params and every
+    metric within 1e-4 (integer metrics exact), the NaN step skipped on
+    both."""
+    from distributed_embeddings_torch.ops import dense_update, grad_health
+    from distributed_embeddings_torch.utils import obs
+
+    sizes = [500, 7, 33, 1200]
+    cfg = DLRMConfig(table_sizes=sizes, embedding_dim=16,
+                     num_numerical_features=13, bottom_mlp_dims=(32, 16),
+                     top_mlp_dims=(64, 1))
+    de = DistributedEmbedding(cfg.embedding_configs(), world_size=1)
+    params = de.init(torch.Generator().manual_seed(0), device="cpu")
+    dense = DLRMDense(cfg, device="cpu",
+                      generator=torch.Generator().manual_seed(1))
+
+    def loss_fn(m, outs, batch):
+        return bce_with_logits(m(batch[0], outs), batch[1])
+
+    rng = np.random.default_rng(2)
+    batches = [([_ids(rng, s, (256,)) for s in sizes],
+                rng.normal(size=(256, 13)).astype(np.float32),
+                (rng.random(256) < 0.3).astype(np.float32))
+               for _ in range(5)]
+    batches[2][1][7, 3] = np.nan
+    out = {}
+    for dev in ("cpu", cuda_device):
+        d = DLRMDense(cfg, device=dev)
+        d.load_state_dict(dense.state_dict())
+        tx = Adam(0.01)
+        state = HybridTrainState(
+            emb_params={k: v.clone().to(dev) for k, v in params.items()},
+            emb_opt_state=SparseSGD().init(params), dense_params=d,
+            dense_opt_state=tx.init(list(d.parameters())),
+            step=torch.zeros((), dtype=torch.int32, device=dev))
+        step = make_hybrid_train_step(de, loss_fn, tx, SparseSGD(),
+                                      lr_schedule=0.1, with_metrics=True,
+                                      nan_guard=True)
+        before = (grad_health.launches, dense_update.launches)
+        losses, mets = [], []
+        for cats, num, lab in batches:
+            loss, state, m = step(state, [torch.from_numpy(c).to(dev)
+                                          for c in cats],
+                                  (torch.from_numpy(num).to(dev),
+                                   torch.from_numpy(lab).to(dev)))
+            losses.append(float(loss))
+            mets.append({k: to_np(v) for k, v in m.items()})
+        launched = (grad_health.launches - before[0],
+                    dense_update.launches - before[1])
+        assert launched == ((0, 0) if dev == "cpu" else (5, 5))
+        assert set(obs.STEP_METRIC_KEYS) <= set(mets[0])
+        out[str(dev)] = (losses, de.get_weights(state.emb_params),
+                         [p.detach().cpu() for p in d.parameters()], mets,
+                         int(state.dense_opt_state[0].count))
+    (lc, tc, dc, mc, cc), (lg, tg, dg, mg, cg) = (out["cpu"],
+                                                  out[str(cuda_device)])
+    assert np.isnan(lc[2]) and np.isnan(lg[2]) and cc == cg == 4
+    np.testing.assert_allclose(lg, lc, atol=1e-4, rtol=0)
+    for a, b in zip(tg, tc):
+        np.testing.assert_allclose(a, b, atol=1e-4, rtol=0)
+    for a, b in zip(dg, dc):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-4, rtol=0)
+    for k, (a, b) in enumerate(zip(mg, mc)):
+        assert a["skipped_steps"][0] == b["skipped_steps"][0] == (k == 2)
+        for key in a:
+            if a[key].dtype.kind in "iu":
+                np.testing.assert_array_equal(a[key], b[key], err_msg=key)
+            else:
+                np.testing.assert_allclose(a[key], b[key], rtol=1e-4,
+                                           atol=1e-6, err_msg=key)

@@ -159,16 +159,18 @@ def test_save_then_restore_equals_uninterrupted(tmp_path, dtype):
 
 def test_unported_flags_and_no_card_raise(tmp_path, monkeypatch):
     for extra, item in ((["--plan_audit", "warn"], "A4b"),
-                        (["--metrics_out", "m.jsonl"], "A6"),
                         (["--bootstrap_timeout_s", "5"], "A7"),
                         (["--checkpoint_time_s", "60"], "A12"),
                         (["--rollback_max", "1"], "A12"),
                         (["--quarantine_max", "1"], "A12")):
         with pytest.raises(NotImplementedError, match=item):
             _main(tmp_path, extra)
+    # step metrics are ported: DETPU_OBS=1 writes the default sidecar
     monkeypatch.setenv("DETPU_OBS", "1")
-    with pytest.raises(NotImplementedError, match="A6"):
-        _main(tmp_path, [])
+    _main(tmp_path, ["--num_batches", "2"])
+    recs = dlrm_main.obs.MetricsLogger.load(
+        str(tmp_path / "emb") + ".metrics.jsonl")
+    assert [r["section"] for r in recs] == ["step_metrics", "counters"]
     monkeypatch.delenv("DETPU_OBS")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):

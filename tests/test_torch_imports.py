@@ -92,6 +92,9 @@ def test_sources_exist():
             "distributed_embeddings_torch/ops/exchange_pack.py",
             "distributed_embeddings_torch/parallel/bootstrap.py",
             "distributed_embeddings_torch/parallel/grads.py",
+            "distributed_embeddings_torch/ops/grad_health.py",
+            "distributed_embeddings_torch/ops/dense_update.py",
+            "distributed_embeddings_torch/utils/obs.py",
             "tests/torch_dist_worker.py"} <= scanned
 
 
@@ -105,7 +108,7 @@ def test_every_kernel_source_is_bound():
     assert cu == set(_kernels.SIGNATURES)
     assert {"csr", "ragged_combine", "ragged_grad", "adam",
             "momentum", "sketch", "streaming", "sgd_promoted",
-            "exchange_pack"} <= cu
+            "exchange_pack", "grad_health", "dense_update"} <= cu
 
 
 def test_library_name_follows_included_headers(tmp_path, monkeypatch):
@@ -134,7 +137,8 @@ def test_library_name_follows_included_headers(tmp_path, monkeypatch):
     with open(os.path.join(_kernels.CSRC, "radix_sort.cuh"), "rb") as f:
         header = f.read()
     for name, included in (("dedup", True), ("sgd_promoted", True),
-                           ("sketch", False)):
+                           ("sketch", True), ("grad_health", False),
+                           ("dense_update", False)):
         src = _kernels.source_bytes(os.path.join(_kernels.CSRC,
                                                  name + ".cu"))
         assert (header in src) == included, name

@@ -198,6 +198,53 @@ def test_record_ids_matches_jax(kind, monkeypatch):
         assert (tw["topk_ids"] >= 0).sum() > 0
 
 
+@pytest.mark.parametrize("topk,candidates", [(2048, 4 * 2048), (32, 16384)],
+                         ids=["topk2048", "cand16384"])
+def test_record_ids_at_sizes_past_the_tile_matches_jax(topk, candidates,
+                                                       monkeypatch):
+    """The sizes the card's shared memory does not hold (K14's pool
+    past 8192, K15's merge past 8192 of topk + candidates), which the
+    kernels run in device memory: ``topk`` 2048 with its default
+    ``4 * topk`` candidates, and 16384 candidates. Three steps of a
+    Zipfian stream over a uniform tail, with more distinct ids than
+    candidates; every leaf and each step's pool bitwise JAX's."""
+    from distributed_embeddings_torch.ops import topk_pool_plain
+
+    pools = []
+    unique = jnp.unique
+
+    def spy(x, *args, **kw):
+        pools.append(np.asarray(x))
+        return unique(x, *args, **kw)
+
+    monkeypatch.setattr(jnp, "unique", spy)
+    cfg = tel.TelemetryConfig(depth=4, buckets=2048, topk=topk,
+                              candidates=candidates)
+    jcfg = jtel.TelemetryConfig(*cfg)
+    rng = np.random.default_rng(23)
+    zeros = {"cms": np.zeros((cfg.depth, cfg.buckets), np.int32),
+             "topk_ids": np.full(topk, -1, np.int32),
+             "topk_est": np.zeros(topk, np.int32),
+             "ids": np.zeros(1, np.float32)}
+    jw = jax.tree.map(jnp.asarray, zeros)
+    tw = telemetry_state_from_jax(zeros, device="cpu")
+    for step in range(3):
+        ids = np.concatenate([(rng.zipf(1.3, size=30_000) - 1) % 10 ** 6,
+                              rng.integers(0, 10 ** 6, size=40_000)])
+        ids = rng.permutation(ids).astype(np.int32)
+        live = rng.random(ids.size) < 0.95
+        assert np.unique(ids[live]).size > candidates
+        jw = jtel.record_ids(jw, jnp.asarray(ids), jnp.asarray(live), jcfg)
+        tel.record_ids(tw, torch.from_numpy(ids), torch.from_numpy(live),
+                       cfg)
+        _assert_state_equal(tw, jw, f"step {step}: ")
+        pool = topk_pool_plain(tw["cms"], torch.from_numpy(ids),
+                               torch.from_numpy(live), candidates)
+        np.testing.assert_array_equal(pool.numpy(), pools[-1],
+                                      err_msg=f"step {step} pool")
+    assert (tw["topk_ids"] >= 0).sum() == topk
+
+
 # ---------------------------------------------- through the train step
 
 #: tables of two widths: two width-8 groups (one-hot; multi-hot with a

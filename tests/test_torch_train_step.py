@@ -403,8 +403,12 @@ def test_init_hybrid_state_and_unported_arguments(monkeypatch):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             init_hybrid_state(de, SparseSGD(), dense, SGD(LR))
     args = (de, lambda *a: None, SGD(LR), SparseSGD())
-    with pytest.raises(NotImplementedError, match="A6"):
-        make_hybrid_train_step(*args, with_metrics=True)
+    # step metrics are ported at world 1, and raise at world > 1 (A7b)
+    assert callable(make_hybrid_train_step(*args, with_metrics=True))
+    de2 = DistributedEmbedding(cfg.embedding_configs(), world_size=2)
+    args2 = (de2, lambda *a: None, SGD(LR), SparseSGD())
+    with pytest.raises(NotImplementedError, match="A7b"):
+        make_hybrid_train_step(*args2, with_metrics=True)
     # the multi-rank step is ported: its mesh is the layer's process group
     with pytest.raises(ValueError, match="process group"):
         make_hybrid_train_step(*args, mesh=1)
@@ -420,5 +424,6 @@ def test_init_hybrid_state_and_unported_arguments(monkeypatch):
     with pytest.raises(TypeError, match="TelemetryConfig"):
         make_hybrid_train_step(*args, telemetry="on")
     monkeypatch.setenv("DETPU_OBS", "1")
-    with pytest.raises(NotImplementedError, match="A6"):
-        make_hybrid_train_loop(*args)
+    assert callable(make_hybrid_train_loop(*args))
+    with pytest.raises(NotImplementedError, match="A7b"):
+        make_hybrid_train_loop(*args2)
