@@ -248,7 +248,11 @@ Phases (any failure raises and the script exits non-zero):
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Run from the root of a checkout:
-``python3 chip_smoke.py``.
+``python3 chip_smoke.py``. With ``--parent DIR`` (a checkout of another
+commit, e.g. unpacked with ``git archive``), the launch-record kernels
+K19, K20 and K22 are also timed through that checkout's wrappers, in
+turns with this tree's (``in_turns``); without it those "before" numbers
+are not measured.
 """
 
 import contextlib
@@ -326,6 +330,229 @@ def time_ms(torch, fn, arg_sets):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+#: a checkout of the parent commit (``--parent DIR``): its K19/K20/K22
+#: wrappers are timed in turns with this tree's; None: not measured
+PARENT_DIR = None
+_parent = {}
+
+
+def parent_ops():
+    """The parent checkout's ``ops.dense_update`` and
+    ``ops.exchange_pack`` modules, loaded under the package name
+    ``detpu_parent`` (its kernels built from its own sources into its own
+    ``build/``), or None without ``--parent``."""
+    if PARENT_DIR is None:
+        return None
+    if not _parent:
+        import importlib
+        import importlib.util
+
+        root = os.path.join(PARENT_DIR, "distributed_embeddings_torch")
+        spec = importlib.util.spec_from_file_location(
+            "detpu_parent", os.path.join(root, "__init__.py"),
+            submodule_search_locations=[root])
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules["detpu_parent"] = mod
+        spec.loader.exec_module(mod)
+        importlib.import_module("detpu_parent.ops._kernels").build_all(
+            ["dense_update", "exchange_pack"])
+        _parent["dense_update"] = importlib.import_module(
+            "detpu_parent.ops.dense_update")
+        _parent["exchange_pack"] = importlib.import_module(
+            "detpu_parent.ops.exchange_pack")
+    return _parent
+
+
+def in_turns(torch, fn, parent_fn):
+    """CUDA-event ms and host ms a call of ``fn`` (this tree's wrapper)
+    and ``parent_fn`` (the parent's, or None), in turns: change, parent,
+    parent, change; each side's ms is the median of its two runs'
+    medians."""
+    out = {"ms": [], "host_ms": [], "parent_ms": [], "parent_host_ms": []}
+    order = ((fn, ""), (parent_fn, "parent_"), (parent_fn, "parent_"),
+             (fn, ""))
+    for f, tag in order:
+        if f is None:
+            continue
+        out[tag + "ms"].append(time_ms(torch, f, [()]))
+        out[tag + "host_ms"].append(host_ms(torch, f))
+    return {k: float(np.median(v)) if v else None for k, v in out.items()}
+
+
+@contextlib.contextmanager
+def parent_wrappers():
+    """Route the steps' K19/K20/K22 call sites (the module globals
+    ``parallel.exchange.pack_ids``/``pack_columns`` and
+    ``parallel.optimizers.dense_update``) to the parent checkout's
+    wrappers, each copy plan handed over as the parent's ``CopyPlan`` of
+    the same copies."""
+    from distributed_embeddings_torch.parallel import exchange, optimizers
+
+    par = parent_ops()
+    plans = {}
+
+    def their(plan):
+        got = plans.get(id(plan))
+        if got is None:
+            got = plans[id(plan)] = (plan, par["exchange_pack"].CopyPlan(
+                plan.a.tolist(), plan.src_width))
+        return got[1]
+
+    saved = (exchange.pack_ids, exchange.pack_columns,
+             optimizers.dense_update)
+    exchange.pack_ids = (lambda plan, srcs, out: par["exchange_pack"]
+                         .pack_ids(their(plan), srcs, out))
+    exchange.pack_columns = (lambda plan, srcs, dsts: par["exchange_pack"]
+                             .pack_columns(their(plan), srcs, dsts))
+    optimizers.dense_update = par["dense_update"].dense_update
+    try:
+        yield
+    finally:
+        (exchange.pack_ids, exchange.pack_columns,
+         optimizers.dense_update) = saved
+
+
+def steps_in_turns(torch, run_step, rounds=2, steps=10, warmup=2):
+    """A step through this tree's K19/K20/K22 wrappers and through the
+    parent's (``parent_wrappers``) in turns: change, parent, parent,
+    change, ``rounds`` times; ``run_step(k)`` runs step ``k``. Per side
+    the median CUDA-event ms a step and the median of the turns' host
+    wall ms a step; None without ``--parent``."""
+    if parent_ops() is None:
+        return None
+    ms = {"change": [], "parent": []}
+    wall = {"change": [], "parent": []}
+    k = 0
+    for _ in range(rounds):
+        for side in ("change", "parent", "parent", "change"):
+            with (parent_wrappers() if side == "parent"
+                  else contextlib.nullcontext()):
+                for _ in range(warmup):
+                    run_step(k)
+                    k += 1
+                torch.cuda.synchronize()
+                ev = []
+                t0 = time.perf_counter()
+                for _ in range(steps):
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    run_step(k)
+                    end.record()
+                    ev.append((start, end))
+                    k += 1
+                torch.cuda.synchronize()
+                wall[side].append((time.perf_counter() - t0) / steps * 1e3)
+                ms[side] += [a.elapsed_time(b) for a, b in ev]
+    return {f"{side}_{what}": float(np.median(v[side]))
+            for what, v in (("step_ms_p50", ms), ("wall_step_ms", wall))
+            for side in ("change", "parent")}
+
+
+def device_ms(torch, fn, calls=20):
+    """Device-only ms a call of ``fn``: ``torch.profiler``'s CUDA events
+    (kernels and copies on the card) over ``calls`` calls, as
+    ``zoo_profile`` reads them; None if three traces hold no device
+    time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA)
+        if busy > 0:
+            return busy / 1e3 / calls
+    return None
+
+
+def us_per_call(fn, n=2000, repeat=5):
+    """Host microseconds a call of ``fn`` (best of ``repeat`` loops of
+    ``n`` calls)."""
+    import timeit
+
+    fn()
+    return min(timeit.repeat(fn, number=n, repeat=repeat)) / n * 1e6
+
+
+def launch_host_split(torch, what, key_fn, cache, tail, wrapper, ts):
+    """The host time of a launch record's hit path, split: building the
+    key (``key_fn``), finding the record (``cache``'s dict, with a fresh
+    key each call, as the wrapper hashes one), the ``ctypes`` calls of
+    its replay (``tail``: the per-call pointers) and the stream read,
+    against the whole wrapper call; beside them the stream read through
+    ``torch.cuda.current_stream(dev).cuda_stream`` and the key of the
+    same tensors built one tuple a tensor (``ts``), the forms the
+    launch path did not take. Microseconds."""
+    from distributed_embeddings_torch.ops import _kernels
+
+    torch.cuda.synchronize()
+    rec = cache.records[key_fn()]
+    dev = torch.device("cuda", rec.device)
+    keys = [key_fn() for _ in range(2000)]
+    it = iter(keys * 6)
+    stream = _kernels.stream_handle(rec.device)
+
+    def launches():
+        for fn, head in rec.calls:
+            fn(*head, *tail, stream)
+
+    out = {
+        "key_us": us_per_call(key_fn),
+        "lookup_us": us_per_call(lambda: cache.get(next(it)),
+                                 n=2000, repeat=5),
+        "ctypes_us": us_per_call(launches, n=500),
+        "stream_us": us_per_call(lambda: _kernels.stream_handle(
+            rec.device)),
+        "wrapper_us": us_per_call(wrapper, n=500),
+        "stream_object_us": us_per_call(
+            lambda: torch.cuda.current_stream(dev).cuda_stream),
+        "key_tuple_a_tensor_us": us_per_call(lambda: tuple(
+            (t.data_ptr(), t.shape, t.stride(), t.dtype, t.get_device())
+            for t in ts)),
+        "tensors_in_key": len(ts), "launches_per_call": len(rec.calls)}
+    torch.cuda.synchronize()
+    out["rest_us"] = out["wrapper_us"] - sum(
+        out[k] for k in ("key_us", "lookup_us", "ctypes_us", "stream_us"))
+    log(f"host split {what} (us a call): " + json.dumps(out))
+    return out
+
+
+def kernel_case(torch, name, label, fn, parent_fn, lib, nbytes, plain=None,
+                extra=None):
+    """One timed case of a launch-record kernel: event ms and host ms a
+    call of this tree's wrapper and, in turns, the parent's; device-only
+    ms; the plain version's ms; the library call's event ms and host ms;
+    the byte bound."""
+    t = in_turns(torch, fn, parent_fn)
+    case = {"case": label, "ms": t["ms"], "host_ms": t["host_ms"],
+            "device_ms": device_ms(torch, fn),
+            "parent_ms": t["parent_ms"],
+            "parent_host_ms": t["parent_host_ms"],
+            "parent_device_ms": (device_ms(torch, parent_fn) if parent_fn
+                                 else None),
+            "plain_ms": time_ms(torch, plain, [()]) if plain else None,
+            "library_ms": time_ms(torch, lib, [()]),
+            "library_host_ms": host_ms(torch, lib),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "bytes": nbytes, **(extra or {})}
+    fmt = {k: ("not measured" if v is None else f"{v:.4f}")
+           for k, v in case.items() if k.endswith("ms")}
+    log(f"time {name} {label}: kernel {fmt['ms']} ms (host {fmt['host_ms']}"
+        f" a call, device {fmt['device_ms']}); parent {fmt['parent_ms']} "
+        f"(host {fmt['parent_host_ms']}); plain {fmt['plain_ms']}; library "
+        f"{fmt['library_ms']} (host {fmt['library_host_ms']}); parent device "
+        f"{fmt['parent_device_ms']}; bound "
+        f"{fmt['bound_ms']} ({nbytes} B)")
+    return case
 
 
 def compare(torch, got, want, exact, what):
@@ -1139,6 +1366,20 @@ def phase_train(torch, de, state):
     stages_plain = {n: float(np.median([r[n] for r in stages_plain]))
                     for n in stages_plain[0]}
     epi_cases = time_epilogue(torch, epi)
+    holder = [st]
+
+    def plain_step(k):
+        holder[0] = step(holder[0], *batches[k % len(batches)])[1]
+
+    def metrics_step(k):
+        holder[0] = mstep(holder[0], *batches[k % len(batches)])[1]
+
+    turns = {"step": steps_in_turns(torch, plain_step),
+             "instrumented_step": steps_in_turns(torch, metrics_step)}
+    st = holder[0]
+    if turns["step"]:
+        log("train: steps in turns with the parent's K19/K20/K22 wrappers "
+            "(ms): " + json.dumps(turns))
     result = {
         "batch": TRAIN_BATCH, "steps": TRAIN_STEPS,
         "samples_per_s": TRAIN_STEPS * TRAIN_BATCH / wall,
@@ -1148,6 +1389,7 @@ def phase_train(torch, de, state):
         "metrics_step_ms_p50": float(np.median(metrics_ms)),
         "stage_ms_p50": stages,
         "stage_ms_p50_plain_epilogue": stages_plain,
+        "in_turns_with_parent": turns,
         "launches_per_step": {n: v / TRAIN_STEPS
                               for n, v in launches.items()},
         "loss_first": float(losses[0]), "loss_last": float(losses[-1])}
@@ -1223,28 +1465,26 @@ def time_epilogue(torch, epi):
     check(kind == "sgd", f"the DLRM step's dense update is {kind}")
     cp = [p.detach().clone() for p in params]
     numel = sum(p.numel() for p in cp)
+    parent = parent_ops()
 
     def kernel():
         dense_update(kind, cp, grads, None, None, nlr, hyper)
 
+    def parent_kernel():
+        parent["dense_update"].dense_update(kind, cp, grads, None, None, nlr,
+                                            hyper)
+
     def plain_fn():
         dense_update_plain(kind, cp, grads, None, None, nlr, hyper)
 
-    ms = time_ms(torch, kernel, [()])
-    plain = time_ms(torch, plain_fn, [()])
-    lib = time_ms(torch, lambda: torch._foreach_add_(cp, grads, alpha=nlr),
-                  [()])
-    nbytes = 3 * 4 * numel  # read p and g, write p
-    bound = nbytes / HBM_BYTES_PER_S * 1e3
-    host = host_ms(torch, kernel)
-    k22 = {"case": "dlrm_sgd", "ms": ms, "plain_ms": plain,
-           "library_ms": lib, "bound_ms": bound, "bound_by": "bytes",
-           "host_ms_per_call": host, "tensors": len(cp), "elements": numel,
-           "bytes": nbytes}
-    log(f"time dense_update dlrm sgd: kernel {ms:.4f} ms, plain "
-        f"{plain:.4f}, library (_foreach_add_) {lib:.4f}, bound "
-        f"{bound:.4f} ({len(cp)} tensors, {numel} elements); host "
-        f"{host:.4f} ms a call")
+    k22 = kernel_case(
+        torch, "dense_update", "dlrm_sgd", kernel,
+        parent_kernel if parent else None,
+        lambda: torch._foreach_add_(cp, grads, alpha=nlr),
+        3 * 4 * numel, plain=plain_fn,  # read p and g, write p
+        extra={"tensors": len(cp), "elements": numel})
+    k22["host_split_us"] = k22_host_split(torch, kind, cp, grads, (), nlr,
+                                          hyper, None, None, (), kernel)
     return {"grad_health": [k21], "dense_update": [k22]}
 
 
@@ -3599,6 +3839,7 @@ def phase_adam(torch):
     times), and with ``SparseAdam`` on bf16 tables (a checked step, a
     NaN batch, 20 timed steps and a stage split)."""
     from distributed_embeddings_torch.models import InputGenerator
+    from distributed_embeddings_torch.parallel import make_hybrid_train_step
 
     t_phase = time.perf_counter()
     errs = adam_kernel_checks(torch)
@@ -3642,6 +3883,20 @@ def phase_adam(torch):
                 + json.dumps(fp32["stage_ms_p50" + tag]))
             st, fp32["profile" + tag] = zoo_profile(
                 torch, de, opt, st, data, tx=tx, label="adam fp32" + tag)
+    holder = [st]
+    astep = make_hybrid_train_step(de, zoo_loss, tx, opt,
+                                   lr_schedule=ZOO_LR, nan_guard=False)
+
+    def adam_step(k):
+        num, cats, lab = data[k % len(data)]
+        holder[0] = astep(holder[0], cats, (num, lab))[1]
+
+    fp32["in_turns_with_parent"] = steps_in_turns(torch, adam_step,
+                                                  rounds=3)
+    st = holder[0]
+    if fp32["in_turns_with_parent"]:
+        log("adam zoo fp32: steps in turns with the parent's K19/K20/K22 "
+            "wrappers (ms): " + json.dumps(fp32["in_turns_with_parent"]))
     st, adam_cases = row_kernel_times(torch, de, opt, st, data, "adam")
     adam_cases_k22 = time_dense_adam(torch, st, tx)
     result["adam_fp32"] = fp32
@@ -3701,12 +3956,32 @@ def phase_adam(torch):
                             "dense_update": adam_cases_k22}, result
 
 
+def k22_host_split(torch, kind, params, grads, states, nlr, hyper, bp, ok,
+                   counts, wrapper):
+    """``launch_host_split`` of K22's record for one call."""
+    import importlib
+
+    du = importlib.import_module("distributed_embeddings_torch.ops."
+                                 "dense_update")
+    wrapper()
+    return launch_host_split(
+        torch, f"dense_update {kind}",
+        lambda: du.record_key(kind, params, grads, states, nlr, hyper, bp, ok,
+                              counts), du._CACHE,
+        (nlr.data_ptr() if isinstance(nlr, torch.Tensor) else None,
+         None if bp is None else bp.data_ptr(),
+         None if ok is None else ok.data_ptr(),
+         counts[0].data_ptr() if counts else None,
+         counts[1].data_ptr() if len(counts) > 1 else None),
+        wrapper, [*params, *grads, *(t for s in states for t in s)])
+
+
 def time_dense_adam(torch, st, tx):
     """K22's Adam update on copies of the zoo's dense parameters and
-    their Adam state, beside its plain version, one
-    ``torch.optim.Adam(fused=True).step()`` over the same parameters and
-    gradients (the library yardstick) and its byte bound (read p, g, mu,
-    nu; write p, mu, nu: 28 B an element)."""
+    their Adam state, beside its plain version and, in turns, the
+    parent's wrapper; one ``torch.optim.Adam(fused=True).step()`` over
+    the same parameters and gradients (the library yardstick) and its
+    byte bound (read p, g, mu, nu; write p, mu, nu: 28 B an element)."""
     from distributed_embeddings_torch.ops import (bias_powers, dense_update,
                                                   dense_update_plain)
 
@@ -3721,34 +3996,32 @@ def time_dense_adam(torch, st, tx):
     hyper = {"b1": tx.b1, "b2": tx.b2, "eps": tx.eps,
              "eps_root": tx.eps_root}
     nlr = -tx.learning_rate
+    parent = parent_ops()
 
     def kernel():
         dense_update("adam", params, grads, mu, nu, nlr, hyper, bp=bp)
 
+    def parent_kernel():
+        parent["dense_update"].dense_update("adam", params, grads, mu, nu,
+                                            nlr, hyper, bp=bp)
+
     def plain():
         dense_update_plain("adam", params, grads, mu, nu, nlr, hyper, bp=bp)
 
-    ms = time_ms(torch, kernel, [()])
-    plain_ms = time_ms(torch, plain, [()])
     lp = [torch.nn.Parameter(p.clone()) for p in params]
     for p, g in zip(lp, grads):
         p.grad = g
     fused = torch.optim.Adam(lp, lr=tx.learning_rate, betas=(tx.b1, tx.b2),
                              eps=tx.eps, fused=True)
-    lib = time_ms(torch, fused.step, [()])
     numel = sum(p.numel() for p in params)
-    nbytes = 28 * numel
-    bound = nbytes / HBM_BYTES_PER_S * 1e3
-    host = host_ms(torch, kernel)
-    log(f"time dense_update zoo adam: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f}, library (Adam fused) {lib:.4f}, bound {bound:.4f} "
-        f"({len(params)} tensors, {numel} elements); host {host:.4f} ms a "
-        "call")
-    return [{"case": "zoo_adam", "ms": ms, "plain_ms": plain_ms,
-             "library_ms": lib, "bound_ms": bound, "bound_by": "bytes",
-             "host_ms_per_call": host, "tensors": len(params),
-             "elements": numel, "bytes": nbytes}]
-
+    case = kernel_case(torch, "dense_update", "zoo_adam", kernel,
+                       parent_kernel if parent else None, fused.step,
+                       28 * numel, plain=plain,
+                       extra={"tensors": len(params), "elements": numel})
+    case["host_split_us"] = k22_host_split(
+        torch, "adam", params, grads, (mu, nu), nlr, hyper, bp, None, (),
+        kernel)
+    return [case]
 
 
 # ------------------------------------------------------------- telemetry
@@ -6566,25 +6839,34 @@ def pack_kernel_times(torch):
                         srcs[plan.instances[c].input_id].reshape(-1))
     read = sum(t.numel() * t.element_size() for t in srcs)
     cases = {"pack_ids": [], "pack_columns": []}
+    parent = parent_ops()
 
-    def case(name, label, fn, plain, lib, nbytes):
-        ms = time_ms(torch, fn, [()])
-        pms = time_ms(torch, plain, [()])
-        lms = time_ms(torch, lib, [()])
-        bound = nbytes / HBM_BYTES_PER_S * 1e3
-        host = host_ms(torch, fn)
-        cases[name].append({"case": label, "ms": ms, "plain_ms": pms,
-                            "library_ms": lms, "bound_ms": bound,
-                            "bound_by": "bytes", "bytes": nbytes,
-                            "host_ms": host,
-                            "library_host_ms": host_ms(torch, lib)})
-        log(f"time {name} {label}: kernel {ms:.4f} ms, plain {pms:.4f}, "
-            f"torch.cat {lms:.4f}, bound {bound:.4f} ({nbytes} bytes); "
-            f"host {host:.4f} a call")
+    def case(name, label, plan, srcs, dsts, plain, lib, nbytes):
+        """``plan``'s copies through this tree's wrapper, the parent's
+        (on the same copies) in turns, the plain version and ``lib``."""
+        wrap = getattr(xp, name)
+        arg = dsts[0] if name == "pack_ids" else dsts
+        parent_fn = None
+        if parent:
+            pp = parent["exchange_pack"].CopyPlan(plan.a.tolist(),
+                                                  plan.src_width)
+            pwrap = getattr(parent["exchange_pack"], name)
 
-    case("pack_ids", "rank0_ids", lambda: xp.pack_ids(cp, srcs, out),
-         lambda: xp.pack_ids_plain(cp, srcs, out), lambda: torch.cat(parts),
-         read + out.numel() * out.element_size())
+            def parent_fn():
+                pwrap(pp, srcs, arg)
+        c = kernel_case(torch, name, label, lambda: wrap(plan, srcs, arg),
+                        parent_fn, lib, nbytes, plain=plain)
+        cases[name].append(c)
+        return c
+
+    c = case("pack_ids", "rank0_ids", cp, srcs, [out],
+             lambda: xp.pack_ids_plain(cp, srcs, out),
+             lambda: torch.cat(parts),
+             read + out.numel() * out.element_size())
+    c["host_split_us"] = launch_host_split(
+        torch, "pack_ids rank0_ids",
+        lambda: xp.record_key("pack_ids", srcs, (out,)), cp.launch_cache, (),
+        lambda: xp.pack_ids(cp, srcs, out), [*srcs, out])
     # K20: the cotangent pack, the lookup rows, the unpack
     gp = exchange._grad_copy_plan(de, plan, b)
     packed = torch.empty((W8, b, plan.s_max), dtype=torch.bfloat16,
@@ -6600,8 +6882,7 @@ def pack_kernel_times(torch):
                     i, pos = smap[c]
                     w = plan.out_width(plan.instances[c])
                     parts.append(grads[i][:, pos:pos + w])
-    case("pack_columns", "rank0_cotangent_pack",
-         lambda: xp.pack_columns(gp, grads, [packed]),
+    case("pack_columns", "rank0_cotangent_pack", gp, grads, [packed],
          lambda: xp.pack_columns_plain(gp, grads, [packed]),
          lambda: torch.cat(parts, dim=1),
          sum(g.numel() for g in grads) * es + packed.numel() * es)
@@ -6618,8 +6899,7 @@ def pack_kernel_times(torch):
                                    ).view(b, g.width))
     live_read = sum(g.width * b * W8 * int((plan.valid[gi][0] > 0).sum())
                     for gi, g in enumerate(plan.groups)) * es
-    case("pack_columns", "rank0_lookup_rows",
-         lambda: xp.pack_columns(lp, flat, [rows_out]),
+    case("pack_columns", "rank0_lookup_rows", lp, flat, [rows_out],
          lambda: xp.pack_columns_plain(lp, flat, [rows_out]),
          lambda: torch.cat(parts, dim=1), live_read + rows_out.numel() * es)
     up, pieces = exchange._unpack_copy_plan(de, plan)
@@ -6633,8 +6913,7 @@ def pack_kernel_times(torch):
         order.append(((i, pos), dp[inst.rank, :, c0:c0 + plan.out_width(
             inst)]))
     parts = [p for _, p in sorted(order, key=lambda t: t[0])]
-    case("pack_columns", "rank0_unpack",
-         lambda: xp.pack_columns(up, [dp], [buf]),
+    case("pack_columns", "rank0_unpack", up, [dp], [buf],
          lambda: xp.pack_columns_plain(up, [dp], [buf]),
          lambda: torch.cat(parts, dim=1), 2 * buf.numel() * es)
     del reds, grads, dp, buf, packed, rows_out, parts, flat
@@ -6651,7 +6930,7 @@ def pack_kernel_times(torch):
     cp = exchange._ids_copy_plan(de1, plan, entries)
     srcs = [t.contiguous() for t in entries]
     out = torch.empty((1, plan.l_max), dtype=dt, device=dev)
-    case("pack_ids", "world1_b65536_ids", lambda: xp.pack_ids(cp, srcs, out),
+    case("pack_ids", "world1_b65536_ids", cp, srcs, [out],
          lambda: xp.pack_ids_plain(cp, srcs, out),
          lambda: torch.cat([t.reshape(-1) for t in srcs]),
          2 * sum(t.numel() * t.element_size() for t in srcs))
@@ -6664,9 +6943,8 @@ def pack_kernel_times(torch):
     gp = exchange._grad_copy_plan(de1, plan, TRAIN_BATCH)
     packed = torch.empty((1, TRAIN_BATCH, plan.s_max), dtype=torch.bfloat16,
                          device=dev)
-    case("pack_columns", "world1_b65536_cotangent_pack",
-         lambda: xp.pack_columns(gp, grads, [packed]),
-         lambda: xp.pack_columns_plain(gp, grads, [packed]),
+    case("pack_columns", "world1_b65536_cotangent_pack", gp, grads,
+         [packed], lambda: xp.pack_columns_plain(gp, grads, [packed]),
          lambda: torch.cat(grads, dim=1), 2 * packed.numel() * es)
     del grads, g27, packed, srcs, out
     return cases, w1_stage_yardstick(torch)
@@ -6755,10 +7033,16 @@ def phase_world8(torch):
 
 
 def main():
+    global PARENT_DIR
     try:
         import torch
     except ImportError as e:
         raise SystemExit(f"chip_smoke: PyTorch is not installed ({e})")
+    argv = sys.argv[1:]
+    if len(argv) == 2 and argv[0] == "--parent":
+        PARENT_DIR = os.path.abspath(argv[1])
+    elif argv:
+        raise SystemExit("usage: python3 chip_smoke.py [--parent DIR]")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this script "
                          "runs only on a GPU")

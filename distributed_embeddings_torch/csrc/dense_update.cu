@@ -36,24 +36,39 @@
 // read, 4 to 12 B written.
 // Design: the descriptors (p, g, state pointers, numel, first tile) travel
 // BY VALUE as a __grid_constant__ parameter; the grid is a flat list of
-// tiles of kTile elements of one tensor, a block finding its tensor by a
+// tiles of `tile` elements of one tensor, a block finding its tensor by a
 // binary search over the first tiles; a thread takes 4 elements kThreads
 // apart each round, as one float4 when every pointer is 16-byte aligned.
+// The tile is chosen per launch by the host (4096, 2048 or 1024
+// elements), so that the grid has at least two blocks an SM where the
+// elements allow: the DLRM SGD set (2.37M floats) keeps 4096, a set of
+// ~0.2M floats (the zoo's Adam) takes 1024 and ~200 blocks, not 51.
+// Host side: the parameters, the optimizer state and the gradients keep
+// their addresses from step to step, so the wrapper validates the
+// descriptors and converts the constant scalars ONCE, into a prepared
+// launch (detpu_dense_update_prepare); each step then passes only the
+// per-call pointers (the schedule's -lr, bp, ok, the counts) and the
+// stream to detpu_dense_update_launch, which copies the prepared
+// parameter block, patches them in and launches.
 //
-// C interface (ctypes): the descriptors as a host pointer to int64
-// [n, 6] (p, g, s0, s1, numel, first tile), the scalars by value, the
-// device scalars as pointers (null when absent); returns the cudaError_t
-// of the launch.
+// C interface (ctypes): detpu_dense_update_prepare takes the descriptors
+// as a host pointer to int64 [n, 6] (p, g, s0, s1, numel, first tile in
+// units of `tile`), the tile, the kind and the constant scalars, and
+// writes a prepared launch of detpu_dense_update_prepared_bytes() bytes
+// into host memory the caller owns; detpu_dense_update_launch takes that
+// and the device pointers (null when absent). Both return a cudaError_t
+// (the launch's).
 
 #include <cuda_runtime.h>
+#include <stddef.h>
 #include <stdint.h>
 #include <string.h>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int64_t kTile = 4096;   // elements a block updates
 constexpr int kMaxTensors = 512;  // descriptors a launch takes (48 B each)
+constexpr int64_t kMaxTile = 1 << 20;  // elements a block may update
 
 enum Kind { kSgd = 0, kMomentum = 1, kNesterov = 2, kAdagrad = 3, kAdam = 4 };
 
@@ -82,9 +97,21 @@ struct Scalars {
 template <int CAP>
 struct Params {
   int64_t n;
-  int64_t pad;
+  int64_t tile;  // elements a block updates (a multiple of 4)
   Scalars s;
   Desc d[CAP];
+};
+// A Params<CAP> is a prefix of a Params<kMaxTensors>: a prepared launch
+// keeps the largest and launches the first sizeof(Params<CAP>) bytes.
+static_assert(offsetof(Params<16>, d) == offsetof(Params<kMaxTensors>, d),
+              "Params layouts differ");
+
+struct Prepared {
+  int64_t cap;          // the Params<cap> launched: 16, 128 or kMaxTensors
+  int64_t tiles;        // blocks of the launch (at least 1)
+  int64_t nlr_on_card;  // -lr is read from the launch's nlr_dev
+  int64_t advance;      // this launch advances the counts (the first one)
+  Params<kMaxTensors> p;
 };
 
 template <int KIND>
@@ -184,9 +211,10 @@ dense_update_kernel(const __grid_constant__ Params<CAP> prm) {
     }
   }
   const Desc& d = prm.d[lo];
-  const int64_t begin = (tile - d.tile0) * kTile;
+  const int64_t begin = (tile - d.tile0) * prm.tile;
   if (begin >= d.numel) return;
-  const int64_t len = d.numel - begin < kTile ? d.numel - begin : kTile;
+  const int64_t len = d.numel - begin < prm.tile ? d.numel - begin
+                                                 : prm.tile;
   const float nlr = s.nlr_dev != nullptr ? *s.nlr_dev : s.nlr;
   float bc1 = 1.0f, bc2 = 1.0f;
   if (s.kind == kAdam) {
@@ -209,15 +237,19 @@ dense_update_kernel(const __grid_constant__ Params<CAP> prm) {
 }
 
 template <int CAP>
-cudaError_t launch_cap(const int64_t* descs, int n, int64_t tiles,
-                       const Scalars& s, cudaStream_t st) {
+cudaError_t launch_cap(const Prepared& pr, const void* nlr_dev,
+                       const void* bp, const void* ok, void* count_a,
+                       void* count_s, cudaStream_t st) {
   Params<CAP> p;
-  p.n = n;
-  p.pad = 0;
-  p.s = s;
-  memcpy(p.d, descs, sizeof(Desc) * static_cast<size_t>(n));
+  memcpy(&p, &pr.p, sizeof(Params<CAP>));
+  p.s.nlr_dev = pr.nlr_on_card ? static_cast<const float*>(nlr_dev)
+                               : nullptr;
+  p.s.bp = static_cast<const float*>(bp);
+  p.s.ok = static_cast<const bool*>(ok);
+  p.s.count_a = pr.advance ? static_cast<int*>(count_a) : nullptr;
+  p.s.count_s = pr.advance ? static_cast<int*>(count_s) : nullptr;
   dense_update_kernel<CAP>
-      <<<static_cast<unsigned>(tiles), kThreads, 0, st>>>(p);
+      <<<static_cast<unsigned>(pr.tiles), kThreads, 0, st>>>(p);
   return cudaGetLastError();
 }
 
@@ -230,21 +262,25 @@ extern "C" const char* detpu_error_string(int err) {
 // The most tensors one launch takes.
 extern "C" int detpu_dense_update_max_tensors() { return kMaxTensors; }
 
-// The elements a tile (a block) covers.
-extern "C" int64_t detpu_dense_update_tile() { return kTile; }
+// The bytes of a prepared launch.
+extern "C" int64_t detpu_dense_update_prepared_bytes() {
+  return static_cast<int64_t>(sizeof(Prepared));
+}
 
-// K22 over n tensors (see the header): descs int64 [n, 6] on the host
-// (p, g, s0, s1, numel, first tile), tiles their total (at least 1: a
-// launch over no element still advances the counts).
-extern "C" int detpu_dense_update(const int64_t* descs, int n, int64_t tiles,
-                                  int kind, float nlr, const void* nlr_dev,
-                                  float m, float b1, float omb1, float b2,
-                                  float omb2, float eps, float eps_root,
-                                  const void* bp, const void* ok,
-                                  void* count_a, void* count_s,
-                                  void* stream) {
-  if (n < 1 || n > kMaxTensors || tiles < 1 || tiles > 0x7fffffffLL ||
-      kind < kSgd || kind > kAdam || (kind == kAdam && bp == nullptr)) {
+// Validate one launch of K22 over n tensors (see the header) and write it
+// to `out` (detpu_dense_update_prepared_bytes() bytes of host memory):
+// descs int64 [n, 6] on the host (p, g, s0, s1, numel, first tile), tile
+// the elements a block updates; nlr the constant -lr, or nlr_on_card set
+// when each launch passes it on the card; advance set on the one launch
+// of a call that advances the counts. Launches nothing.
+extern "C" int detpu_dense_update_prepare(const int64_t* descs, int n,
+                                          int64_t tile, int kind, float nlr,
+                                          int nlr_on_card, float m, float b1,
+                                          float omb1, float b2, float omb2,
+                                          float eps, float eps_root,
+                                          int advance, void* out) {
+  if (n < 1 || n > kMaxTensors || tile < 4 || tile > kMaxTile ||
+      tile % 4 != 0 || kind < kSgd || kind > kAdam || out == nullptr) {
     return cudaErrorInvalidValue;
   }
   int64_t next = 0;
@@ -256,10 +292,18 @@ extern "C" int detpu_dense_update(const int64_t* descs, int n, int64_t tiles,
                           (need1 && !d->s1)))) {
       return cudaErrorInvalidValue;
     }
-    next += (d->numel + kTile - 1) / kTile;
+    next += (d->numel + tile - 1) / tile;
   }
-  if (next > tiles) return cudaErrorInvalidValue;
-  Scalars s;
+  if (next > 0x7fffffffLL) return cudaErrorInvalidValue;
+  Prepared* pr = static_cast<Prepared*>(out);
+  memset(pr, 0, sizeof(Prepared));
+  pr->cap = n <= 16 ? 16 : n <= 128 ? 128 : kMaxTensors;
+  pr->tiles = next > 0 ? next : 1;  // an empty launch still advances counts
+  pr->nlr_on_card = nlr_on_card != 0;
+  pr->advance = advance != 0;
+  pr->p.n = n;
+  pr->p.tile = tile;
+  Scalars& s = pr->p.s;
   s.kind = kind;
   s.nlr = nlr;
   s.m = m;
@@ -269,13 +313,30 @@ extern "C" int detpu_dense_update(const int64_t* descs, int n, int64_t tiles,
   s.omb2 = omb2;
   s.eps = eps;
   s.eps_root = eps_root;
-  s.nlr_dev = static_cast<const float*>(nlr_dev);
-  s.bp = static_cast<const float*>(bp);
-  s.ok = static_cast<const bool*>(ok);
-  s.count_a = static_cast<int*>(count_a);
-  s.count_s = static_cast<int*>(count_s);
+  memcpy(pr->p.d, descs, sizeof(Desc) * static_cast<size_t>(n));
+  return cudaSuccess;
+}
+
+// Launch a prepared K22 on `stream`: nlr_dev (-lr on the card, when the
+// launch was prepared so), bp ([b1**t, b2**t], adam), ok and the counts
+// (each null when absent).
+extern "C" int detpu_dense_update_launch(const void* prepared,
+                                         const void* nlr_dev, const void* bp,
+                                         const void* ok, void* count_a,
+                                         void* count_s, void* stream) {
+  const Prepared* pr = static_cast<const Prepared*>(prepared);
+  if (pr == nullptr || (pr->nlr_on_card && nlr_dev == nullptr) ||
+      (pr->p.s.kind == kAdam && bp == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n <= 16) return launch_cap<16>(descs, n, tiles, s, st);
-  if (n <= 128) return launch_cap<128>(descs, n, tiles, s, st);
-  return launch_cap<kMaxTensors>(descs, n, tiles, s, st);
+  switch (pr->cap) {
+    case 16:
+      return launch_cap<16>(*pr, nlr_dev, bp, ok, count_a, count_s, st);
+    case 128:
+      return launch_cap<128>(*pr, nlr_dev, bp, ok, count_a, count_s, st);
+    default:
+      return launch_cap<kMaxTensors>(*pr, nlr_dev, bp, ok, count_a, count_s,
+                                     st);
+  }
 }

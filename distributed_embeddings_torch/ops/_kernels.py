@@ -13,18 +13,30 @@ hash of its source, of every local header the source includes
 (``#include "x.cuh"``, followed recursively) and of the flags, so an
 edited source or header never loads a stale build. Nothing here runs at
 import time, and nothing falls back: a failed build or launch raises.
+
+The shared launch path (:class:`LaunchRecord`, :class:`LaunchCache`,
+:func:`tensor_key`): a wrapper validates its tensors and builds its
+launches' arguments once, keeps them as a record under a key that holds
+every fact the checks and the arguments rest on (per tensor its address,
+shape, strides or contiguity, dtype and device), and on a later call
+with the same key only reads the per-call pointers and the stream and
+replays the bound C functions: no check, no allocation, no host read of
+a device value, nothing copied from pageable memory.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import operator
 import os
 import re
 import shutil
 import subprocess
 import threading
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -163,13 +175,16 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "detpu_grad_health_chunk": (),
     },
     "dense_update": {
-        # descs (host int64 [n, 6]), n, tiles, kind, nlr, nlr_dev, m, b1,
-        # omb1, b2, omb2, eps, eps_root, bp, ok, count_a, count_s, stream
-        "detpu_dense_update": (_P, _I, _I64, _I, _F, _P, _F, _F, _F, _F,
-                               _F, _F, _F, _P, _P, _P, _P, _P),
-        # -> the most tensors a launch takes / the elements a tile covers
+        # descs (host int64 [n, 6]), n, tile, kind, nlr, nlr_on_card, m,
+        # b1, omb1, b2, omb2, eps, eps_root, advance, prepared (host, out)
+        "detpu_dense_update_prepare": (_P, _I, _I64, _I, _F, _I, _F, _F,
+                                       _F, _F, _F, _F, _F, _I, _P),
+        # prepared, nlr_dev, bp, ok, count_a, count_s, stream
+        "detpu_dense_update_launch": (_P, _P, _P, _P, _P, _P, _P),
+        # -> the most tensors a launch takes / the bytes of a prepared
+        # launch
         "detpu_dense_update_max_tensors": (),
-        "detpu_dense_update_tile": (),
+        "detpu_dense_update_prepared_bytes": (),
     },
     "streaming": {
         # ext, ext_is_64, live, cap, nb, tid, roff, slot_fp, n, local_rows,
@@ -198,7 +213,7 @@ RESTYPES = {"detpu_dedup_scratch_bytes": _I64,
             "detpu_topk_pool_clear_bytes": _I64,
             "detpu_topk_merge_scratch_bytes": _I64,
             "detpu_grad_health_chunk": _I64,
-            "detpu_dense_update_tile": _I64}
+            "detpu_dense_update_prepared_bytes": _I64}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -327,3 +342,124 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         msg = lib.detpu_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA launch failed: {msg} "
                            f"(cudaError_t {err})")
+
+
+# ------------------------------------------------------ the launch records
+
+#: launch records a cache keeps: the caching allocator hands a step's
+#: tensors the same addresses step after step, so they are found again
+LAUNCH_CACHE = 8
+
+_PTR = torch.Tensor.data_ptr
+_SHAPE = operator.attrgetter("shape")
+_STRIDE = torch.Tensor.stride
+_DTYPE = operator.attrgetter("dtype")
+_DEVICE = torch.Tensor.get_device
+
+
+def tensor_key(ts: Sequence[torch.Tensor]) -> tuple:
+    """Every fact a record rests on for the tensors ``ts``, in one flat
+    tuple: their addresses, shapes, strides, dtypes and device indices
+    (-1 off the card), each fact for all tensors in one C-level pass
+    (``map`` over unbound methods; ``chip_smoke.py``'s
+    ``launch_host_split`` times it against a tuple a tensor)."""
+    return (*map(_PTR, ts), *map(_SHAPE, ts), *map(_STRIDE, ts),
+            *map(_DTYPE, ts), *map(_DEVICE, ts))
+
+
+def layout_key(t: Optional[torch.Tensor]) -> Optional[tuple]:
+    """The facts of a tensor that a call passes anew each time (its
+    address is read per call, never kept): shape, strides, dtype and
+    device index; ``None`` for ``None``."""
+    if t is None:
+        return None
+    return t.shape, t.stride(), t.dtype, t.get_device()
+
+
+def stream_handle(index: int) -> int:
+    """The raw handle of PyTorch's current stream on card ``index``,
+    read without building a ``torch.cuda.Stream`` (``chip_smoke.py``'s
+    ``launch_host_split`` times it against
+    ``torch.cuda.current_stream(dev).cuda_stream``)."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+class LaunchRecord:
+    """One call's launches, validated and built once: per launch the
+    bound C function and its leading arguments (converted once); a
+    replay appends the per-call pointers and the current stream.
+
+    ``keep`` false marks a record that must not be found again (it rests
+    on a copy the call made). The C functions return a ``cudaError_t``,
+    which :func:`check` turns into an exception."""
+
+    __slots__ = ("lib", "what", "calls", "device", "keep", "payload")
+
+    def __init__(self, lib: Optional[ctypes.CDLL], what: str,
+                 calls: Sequence[Tuple[Callable, tuple]], device: int,
+                 keep: bool = True, payload=None):
+        self.lib, self.what = lib, what
+        self.calls = tuple(calls)
+        self.device, self.keep = device, keep
+        #: what the arguments point into (host buffers), kept alive
+        self.payload = payload
+
+    def replay(self, *tail) -> int:
+        """Launch every call on the current stream; returns the number
+        of launches."""
+        stream = stream_handle(self.device)
+        for fn, head in self.calls:
+            err = fn(*head, *tail, stream)
+            if err:
+                check(self.lib, err, self.what)
+        return len(self.calls)
+
+
+class LaunchCache:
+    """A wrapper's (or a plan's) launch records by key, at most
+    :data:`LAUNCH_CACHE` of them (the oldest goes first); ``builds``
+    counts the records made. :meth:`get` compares a key with the last
+    record's before it hashes it: a step calls with the same tensors
+    again, and one comparison costs less than a hash and a comparison.
+    Lookups take no lock (the last record and its key are one attribute,
+    read at once); additions do."""
+
+    __slots__ = ("records", "builds", "cap", "_last", "_lock")
+
+    def __init__(self, cap: int = LAUNCH_CACHE):
+        self.records: Dict[tuple, LaunchRecord] = {}
+        self.builds = 0
+        self.cap = cap
+        self._last: Tuple[Optional[tuple], Optional[LaunchRecord]] = (None,
+                                                                      None)
+        self._lock = threading.Lock()
+
+    def get(self, key: tuple) -> Optional[LaunchRecord]:
+        """The record kept under ``key``, or None."""
+        last = self._last
+        if key == last[0]:
+            return last[1]
+        rec = self.records.get(key)
+        if rec is not None:
+            self._last = (key, rec)
+        return rec
+
+    def add(self, key: tuple, record: LaunchRecord) -> LaunchRecord:
+        """Count a new record and keep it under ``key`` unless it is
+        marked not to be kept. Returns it."""
+        with self._lock:
+            self.builds += 1
+            if record.keep:
+                if len(self.records) >= self.cap:
+                    old = next(iter(self.records))
+                    del self.records[old]
+                    if old == self._last[0]:
+                        self._last = (None, None)
+                self.records[key] = record
+                self._last = (key, record)
+        return record
+
+    def clear(self) -> None:
+        with self._lock:
+            self.records.clear()
+            self._last = (None, None)

@@ -18,6 +18,14 @@ supplies the tensors. A source index of ``-1`` zero-fills. On the card
 the wrapper turns each copy into a descriptor (addresses patched from the
 tensors, the widest unit the alignment allows) and launches once per
 :data:`MAX_DESCS` descriptors; on the CPU it runs :func:`batched_copy_plain`.
+
+The launches go through the shared launch path (``_kernels.LaunchRecord``):
+the first call with a set of tensors checks them and builds the
+descriptor chunks, kept on the plan under a key of every fact they rest
+on (per tensor its address, shape, strides, dtype and device); a later
+call with the same key (the caching allocator hands a step's tensors the
+same addresses step after step) only replays one ``ctypes`` call per
+chunk.
 """
 
 from __future__ import annotations
@@ -88,8 +96,8 @@ class CopyPlan:
         if ((self.r_off + a[:, COLS] > wr) | (a[:, SRC_STRIDE] % wr != 0)
                 )[self.rowwise].any():
             raise ValueError("a copy of a row-wise source crosses a row")
-        #: the card's launch chunks by tensor addresses (``_launch_chunks``)
-        self.launch_cache = {}
+        #: the card's launch records by tensor facts (:func:`find_record`)
+        self.launch_cache = _kernels.LaunchCache()
 
     def __len__(self) -> int:
         return len(self.a)
@@ -226,21 +234,11 @@ def descriptors(plan: CopyPlan, srcs, dsts, src_dtype, dst_dtype
     return out
 
 
-#: launch chunks kept per plan: the caching allocator hands a step's
-#: tensors the same addresses step after step, so they are found again
-LAUNCH_CACHE = 8
-
-
-def _launch_chunks(plan: CopyPlan, srcs, dsts, src_dtype, dst_dtype,
-                   what: str):
-    """``[(descriptors int64 [<= MAX_DESCS, 8], tiles)]`` of one call,
-    kept on the plan by the tensors' addresses and dtypes."""
-    key = (src_dtype, dst_dtype, tuple(t.data_ptr() for t in srcs),
-           tuple(d.data_ptr() for d in dsts),
-           tuple(srcs[i].stride(0) for i in plan.row_src))
-    chunks = plan.launch_cache.get(key)
-    if chunks is not None:
-        return chunks
+def launch_chunks(plan: CopyPlan, srcs, dsts, src_dtype, dst_dtype,
+                  what: str):
+    """``[(descriptors int64 [<= MAX_DESCS, 8], tiles)]`` of one call:
+    :func:`descriptors` split into launches, each descriptor's first tile
+    (column 6) counted from its launch's start."""
     desc = descriptors(plan, srcs, dsts, src_dtype, dst_dtype)
     tiles = -(-(desc[:, 4] * desc[:, 5]) // TILE_UNITS)
     chunks = []
@@ -252,9 +250,6 @@ def _launch_chunks(plan: CopyPlan, srcs, dsts, src_dtype, dst_dtype,
         if n_tiles >= 2 ** 31:
             raise ValueError(f"{what}: {n_tiles} tiles in one launch")
         chunks.append((chunk, n_tiles))
-    if len(plan.launch_cache) >= LAUNCH_CACHE:
-        plan.launch_cache.clear()
-    plan.launch_cache[key] = chunks
     return chunks
 
 
@@ -272,39 +267,82 @@ def _library():
     return lib
 
 
-def _launch(fn_name: str, what: str, plan: CopyPlan, srcs, dsts,
-            src_dtype, dst_dtype) -> int:
-    """Launch the kernel over the plan's descriptors, :data:`MAX_DESCS`
-    a launch; returns the number of launches."""
-    dev = dsts[0].device
-    if any(t.device != dev for t in srcs):
-        raise ValueError(f"{what}: every tensor must be on {dev}")
-    if len(plan) == 0:
-        return 0
-    chunks = _launch_chunks(plan, srcs, dsts, src_dtype, dst_dtype, what)
-    lib = _library()
-    fn = getattr(lib, fn_name)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    for chunk, n_tiles in chunks:
-        _kernels.check(lib, fn(chunk.ctypes.data, len(chunk), n_tiles,
-                               stream), what)
-    return len(chunks)
+#: per wrapper: the C function, the dtypes it takes
+_WRAPPERS = {"pack_ids": ("detpu_pack_ids", (torch.int32, torch.int64)),
+             "pack_columns": ("detpu_pack_cols", _FLOATS)}
 
 
-def _run(fn, fn_name, plan, srcs, dsts, dtypes):
-    what = fn.__name__
+def _validate(plan: CopyPlan, what: str, srcs, dsts):
+    """Every check of a call (raising as the wrappers always have): the
+    common dtypes of the sources and the destinations."""
     if not dsts:
         raise ValueError(f"{what}: no destination")
+    if what == "pack_ids":
+        if plan.n_dst > 1:
+            raise ValueError("pack_ids writes one destination")
+        out = dsts[0]
+        sdt = {srcs[i].dtype for i in plan.used_src if i < len(srcs)}
+        if sdt - {out.dtype}:
+            raise ValueError(f"pack_ids: sources {sdt} must have the "
+                             f"block's dtype {out.dtype}")
     sdt, ddt = _check_tensors(plan, srcs, dsts, what)
     for dt in (sdt, ddt):
-        if dt is not None and dt not in dtypes:
-            raise ValueError(f"{what}: dtype {dt} is not one of {dtypes}")
+        if dt is not None and dt not in _WRAPPERS[what][1]:
+            raise ValueError(f"{what}: dtype {dt} is not one of "
+                             f"{_WRAPPERS[what][1]}")
+    return sdt, ddt
+
+
+def build_record(plan: CopyPlan, what: str, srcs, dsts
+                 ) -> _kernels.LaunchRecord:
+    """Validate a call of ``what`` (``"pack_ids"`` or ``"pack_columns"``)
+    and build its launch record: the descriptor chunks
+    (``record.payload``, :func:`launch_chunks`) and, for CUDA tensors,
+    one bound ``ctypes`` call per chunk. CPU tensors (the tests) get a
+    record without launches."""
+    sdt, ddt = _validate(plan, what, srcs, dsts)
     dev = dsts[0].device
-    if dev.type == "cpu":
-        return batched_copy_plain(plan, srcs, dsts)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
-    fn.launches += _launch(fn_name, what, plan, srcs, dsts, sdt, ddt)
+    if any(t.device != dev for t in srcs):
+        raise ValueError(f"{what}: every tensor must be on {dev}")
+    chunks = (launch_chunks(plan, srcs, dsts, sdt, ddt, what) if len(plan)
+              else [])
+    lib, calls = None, []
+    if dev.type == "cuda":
+        lib = _library()
+        fn = getattr(lib, _WRAPPERS[what][0])
+        calls = [(fn, (chunk.ctypes.data, len(chunk), n_tiles))
+                 for chunk, n_tiles in chunks]
+    return _kernels.LaunchRecord(
+        lib, what, calls, (dev.index or 0) if dev.type == "cuda" else -1,
+        payload=chunks)
+
+
+def record_key(what: str, srcs: Sequence[torch.Tensor],
+               dsts: Sequence[torch.Tensor]) -> tuple:
+    """Every fact a launch record of ``what`` rests on: the number of
+    sources and, per source and destination, its address, shape,
+    strides, dtype and device."""
+    ts = [*srcs, *dsts]
+    return (what, len(ts) - len(dsts), *_kernels.tensor_key(ts))
+
+
+def find_record(plan: CopyPlan, what: str, srcs: Sequence[torch.Tensor],
+                dsts: Sequence[torch.Tensor], build_on_cpu: bool = False):
+    """The launch record of a call, found on the plan by
+    :func:`record_key` or built (:func:`build_record`) and kept. A miss on CPU
+    tensors is validated and gives ``None`` (the wrapper runs the plain
+    version) unless ``build_on_cpu``."""
+    key = record_key(what, srcs, dsts)
+    rec = plan.launch_cache.get(key)
+    if rec is not None:
+        return rec
+    srcs, dsts = list(srcs), list(dsts)
+    if dsts and dsts[0].device.type == "cpu" and not build_on_cpu:
+        _validate(plan, what, srcs, dsts)
+        return None
+    return plan.launch_cache.add(key, build_record(plan, what, srcs, dsts))
 
 
 def pack_ids(plan: CopyPlan, srcs: Sequence[torch.Tensor],
@@ -314,15 +352,11 @@ def pack_ids(plan: CopyPlan, srcs: Sequence[torch.Tensor],
     contiguous; destination 0). A CPU ``out`` runs
     :func:`batched_copy_plain`; a CUDA ``out`` launches the kernel or
     raises. Returns ``out``."""
-    if plan.n_dst > 1:
-        raise ValueError("pack_ids writes one destination")
-    srcs = list(srcs)
-    sdt = {srcs[i].dtype for i in plan.used_src if i < len(srcs)}
-    if sdt - {out.dtype}:
-        raise ValueError(f"pack_ids: sources {sdt} must have the block's "
-                         f"dtype {out.dtype}")
-    _run(pack_ids, "detpu_pack_ids", plan, srcs, [out],
-         (torch.int32, torch.int64))
+    rec = find_record(plan, "pack_ids", srcs, (out,))
+    if rec is None:
+        batched_copy_plain(plan, list(srcs), [out])
+    else:
+        pack_ids.launches += rec.replay()
     return out
 
 
@@ -337,7 +371,11 @@ def pack_columns(plan: CopyPlan, srcs: Sequence[torch.Tensor],
     :func:`batched_copy_plain`; CUDA tensors launch the kernel or raise.
     Returns ``dsts``."""
     dsts = list(dsts)
-    _run(pack_columns, "detpu_pack_cols", plan, list(srcs), dsts, _FLOATS)
+    rec = find_record(plan, "pack_columns", srcs, dsts)
+    if rec is None:
+        batched_copy_plain(plan, list(srcs), dsts)
+    else:
+        pack_columns.launches += rec.replay()
     return dsts
 
 

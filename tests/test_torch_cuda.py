@@ -31,7 +31,9 @@ within 1.2e-5 relative in the sums of squares (positive terms in another
 order), and gives the same bits on two runs; the dense update (K22) is
 bit-exact; K14's pool and K15's merge past their shared-memory tiles are
 bit-exact; an instrumented DLRM run card-vs-CPU holds its metrics within
-1e-4 (counts exact).
+1e-4 (counts exact). K22 and K19/K20 through their launch records are
+bit-exact to their plain versions on record hits and after a rebuild,
+and replayed in a CUDA graph bit-exact to eager launches.
 """
 
 import numpy as np
@@ -1962,3 +1964,235 @@ def test_instrumented_train_step_on_the_card_matches_the_cpu(cuda_device):
             else:
                 np.testing.assert_allclose(a[key], b[key], rtol=1e-4,
                                            atol=1e-6, err_msg=key)
+
+
+# ------------------------------------- the launch records of K19/K20, K22
+
+
+def _k22_step_args(dev, kind, sched, count, scount, okt):
+    """One step's per-call arguments of K22 (new tensors each step, as
+    the optimizers make them)."""
+    from distributed_embeddings_torch.ops import bias_powers
+
+    nlr = (-(0.003 + 0.0001 * scount.float()) if sched else -0.0123)
+    bp = bias_powers(count + 1, 0.9, 0.999) if kind == "adam" else None
+    counts = ((count,) if kind == "adam" else ()) + (
+        (scount,) if sched else ())
+    hyper = {"momentum": 0.9, "eps": 1e-7 if kind == "adagrad" else 1e-8,
+             "b1": 0.9, "b2": 0.999, "eps_root": 0.0}
+    return nlr, hyper, bp, okt, counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,sched", [
+    ("sgd", False), ("sgd", True), ("momentum", True), ("nesterov", False),
+    ("adagrad", False), ("adam", False), ("adam", True)])
+def test_dense_update_records_hit_and_rebuild(cuda_device, kind, sched):
+    """K22 through its launch record: three steps on one set of tensors
+    (the first builds the record, the next two replay it), then the
+    records dropped and three more (a forced rebuild), each step bit for
+    bit equal to the plain version stepping a copy of the same state;
+    the third step's verdict is false."""
+    import importlib
+
+    from distributed_embeddings_torch.ops import (dense_update,
+                                                  dense_update_plain)
+    mod = importlib.import_module("distributed_embeddings_torch.ops."
+                                  "dense_update")
+
+    sets = []
+    for _ in range(2):
+        params, grads, state = _dense_case(cuda_device, kind, 11)
+        count = torch.tensor(41, dtype=torch.int32, device=cuda_device)
+        scount = torch.tensor(9, dtype=torch.int32, device=cuda_device)
+        sets.append((params, grads, state, count, scount))
+    mod._CACHE.clear()
+    builds = mod._CACHE.builds
+    for k in range(6):
+        if k == 3:
+            mod._CACHE.clear()
+        okt = torch.tensor(k != 2, device=cuda_device)
+        for fn, (params, grads, state, count, scount) in zip(
+                (dense_update, dense_update_plain), sets):
+            nlr, hyper, bp, okt_, counts = _k22_step_args(
+                cuda_device, kind, sched, count, scount, okt)
+            fn(kind, params, grads, state[0] if state else None,
+               state[1] if len(state) > 1 else None, nlr, hyper, bp=bp,
+               ok=okt_, counts=counts)
+        a, b = ([*p, *(t for s in st for t in s), c, sc]
+                for p, _, st, c, sc in sets)
+        for x, y in zip(a, b):
+            assert torch.equal(x.view(torch.int32), y.view(torch.int32)), k
+    assert mod._CACHE.builds == builds + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", [1, 8])
+def test_exchange_pack_records_hit_and_rebuild(cuda_device, world):
+    """K19 and K20 through their launch records: the id blocks, the
+    lookup rows and the cotangent pack three times each with the same
+    tensors (one build, then replays), then after the plans' records are
+    dropped (a rebuild), every result bit-exact to the plain copy."""
+    from distributed_embeddings_torch.ops import exchange_pack as xp
+    from distributed_embeddings_torch.parallel import exchange
+
+    de, inputs = _pack_layer(world, False, seed=20 + world)
+    de._rank = 0
+    entries, encs, _, dt = de._normalize_inputs(inputs, cuda_device)
+    b = inputs[0].shape[0]
+    plan = de._get_plan(encs, b)
+    ids_plan = exchange._ids_copy_plan(de, plan, entries)
+    srcs = [t.contiguous() for e in entries
+            for t in (e[1:] if isinstance(e, tuple) else (e,))]
+    out = torch.empty((world, plan.l_max), dtype=dt, device=cuda_device)
+    want_ids = xp.pack_ids_plain(ids_plan, srcs, torch.empty_like(out))
+    _, widths = exchange.slice_map(de, plan)
+    gen = torch.Generator(device=cuda_device).manual_seed(world)
+    grads = [torch.randn(b, w, generator=gen, device=cuda_device
+                         ).to(torch.bfloat16) for w in widths]
+    gplan = exchange._grad_copy_plan(de, plan, b)
+    packed = torch.empty((world, b, plan.s_max), dtype=torch.bfloat16,
+                         device=cuda_device)
+    want_g = xp.pack_columns_plain(gplan, grads, [torch.empty_like(packed)])
+    lplan = exchange.lookup_copy_plan(de, plan)
+    reds = [torch.randn(world * g.n * b * g.width, generator=gen,
+                        device=cuda_device) for g in plan.groups]
+    rows = torch.empty_like(packed)
+    want_r = xp.pack_columns_plain(lplan, reds, [torch.empty_like(rows)])
+    for cp in (ids_plan, gplan, lplan):
+        cp.launch_cache.clear()
+    want_n = tuple(-(-len(cp) // xp.MAX_DESCS) for cp in (ids_plan, gplan,
+                                                          lplan))
+    for k in range(6):
+        if k == 3:
+            for cp in (ids_plan, gplan, lplan):
+                cp.launch_cache.clear()
+        for t in (out, packed, rows):
+            t.fill_(7)
+        n0 = (xp.pack_ids.launches, xp.pack_columns.launches)
+        xp.pack_ids(ids_plan, srcs, out)
+        xp.pack_columns(gplan, grads, [packed])
+        xp.pack_columns(lplan, reds, [rows])
+        torch.cuda.synchronize()
+        assert (xp.pack_ids.launches - n0[0],
+                xp.pack_columns.launches - n0[1]) == (want_n[0],
+                                                      want_n[1] + want_n[2])
+        assert torch.equal(out, want_ids)
+        assert torch.equal(_bits(packed), _bits(want_g[0]))
+        assert torch.equal(_bits(rows), _bits(want_r[0]))
+    assert [cp.launch_cache.builds for cp in (ids_plan, gplan, lplan)] == [
+        2, 2, 2]
+
+
+@pytest.mark.cuda
+def test_launch_records_hit_path_still_raises(cuda_device):
+    """With records in place, a call whose tensors differ in shape, dtype
+    or device misses them and raises as the wrappers always have."""
+    from distributed_embeddings_torch.ops import dense_update
+    from distributed_embeddings_torch.ops import exchange_pack as xp
+
+    params, grads, state = _dense_case(cuda_device, "momentum", 3)
+    args = (None, -0.01, {"momentum": 0.9})
+    dense_update("momentum", params, grads, state[0], *args)
+    dense_update("momentum", params, grads, state[0], *args)
+    bad = {"shape": [grads[0].reshape(-1)] + grads[1:],
+           "dtype": [grads[0].double()] + grads[1:],
+           "device": [grads[0].cpu()] + grads[1:]}
+    for what, g in bad.items():
+        with pytest.raises(ValueError):
+            dense_update("momentum", params, g, state[0], *args)
+    with pytest.raises(ValueError):
+        dense_update("momentum", params, grads,
+                     [state[0][0].cpu()] + state[0][1:], *args)
+    plan = xp.CopyPlan([(0, 0, 4, 0, 0, 4, 3, 4), (1, 2, 4, 0, 12, 4, 1, 2)])
+    srcs = [torch.arange(12, dtype=torch.int32, device=cuda_device),
+            torch.arange(6, dtype=torch.int32, device=cuda_device)]
+    out = torch.empty(16, dtype=torch.int32, device=cuda_device)
+    xp.pack_ids(plan, srcs, out)
+    xp.pack_ids(plan, srcs, out)
+    assert plan.launch_cache.builds == 1
+    for bad_srcs, bad_out in (([srcs[0][:8], srcs[1]], out),
+                              ([srcs[0].long(), srcs[1]], out),
+                              ([srcs[0].cpu(), srcs[1]], out),
+                              (srcs, out[:8]), (srcs, out.float())):
+        with pytest.raises(ValueError):
+            xp.pack_ids(plan, bad_srcs, bad_out)
+
+
+@pytest.mark.cuda
+def test_launch_records_replay_in_a_cuda_graph(cuda_device):
+    """K22 (Adam with a schedule's -lr on the card, and SGD) and K19/K20
+    captured on their record's hit path in a ``torch.cuda.CUDAGraph``:
+    three replays equal three eager steps bit for bit. The capture fails
+    if a hit synchronizes or copies from pageable memory."""
+    from distributed_embeddings_torch.ops import dense_update
+    from distributed_embeddings_torch.ops import exchange_pack as xp
+
+    def k22_sets():
+        out = []
+        for kind in ("adam", "sgd"):
+            params, grads, state = _dense_case(cuda_device, kind, 5)
+            out.append((kind, params, grads, state,
+                        torch.tensor(3, dtype=torch.int32,
+                                     device=cuda_device),
+                        torch.tensor(2, dtype=torch.int32,
+                                     device=cuda_device)))
+        return out
+
+    okt = torch.ones((), dtype=torch.bool, device=cuda_device)
+
+    def k22_step(sets):
+        for kind, params, grads, state, count, scount in sets:
+            nlr, hyper, bp, o, counts = _k22_step_args(
+                cuda_device, kind, kind == "adam", count, scount, okt)
+            dense_update(kind, params, grads, state[0] if state else None,
+                         state[1] if len(state) > 1 else None, nlr, hyper,
+                         bp=bp, ok=o, counts=counts)
+
+    # 40 strided copies of narrowing rows (units of 2 to 16 bytes) into
+    # disjoint regions, and a zero fill
+    plan = xp.CopyPlan([(k % 3, 5 * k, 64, 0, 300 * k, 70, 4, 64 - k)
+                        for k in range(40)] + [(-1, 0, 0, 0, 12000, 8, 1, 8)])
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    ids = [torch.randint(0, 1 << 30, (4 * 64 + 5 * 40,), generator=gen,
+                         device=cuda_device, dtype=torch.int32)
+           for _ in range(3)]
+    flo = [torch.randn(4 * 64 + 5 * 40, generator=gen, device=cuda_device)
+           for _ in range(3)]
+
+    def pack_step(outs):
+        xp.pack_ids(plan, ids, outs[0])
+        xp.pack_columns(plan, flo, [outs[1]])
+
+    eager, graphed = k22_sets(), k22_sets()
+    outs_e = [torch.zeros(12008, dtype=torch.int32, device=cuda_device),
+              torch.zeros(12008, dtype=torch.bfloat16, device=cuda_device)]
+    outs_g = [torch.zeros_like(t) for t in outs_e]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # builds the records off the capture
+        k22_step(graphed)
+        pack_step(outs_g)
+    torch.cuda.current_stream().wait_stream(side)
+    k22_step(eager)
+    pack_step(outs_e)
+    graph = torch.cuda.CUDAGraph()
+    n0 = (dense_update.launches, xp.pack_ids.launches)
+    with torch.cuda.graph(graph):
+        k22_step(graphed)
+        pack_step(outs_g)
+    assert (dense_update.launches - n0[0], xp.pack_ids.launches - n0[1]
+            ) == (2, 1)
+    for _ in range(3):
+        graph.replay()
+        k22_step(eager)
+        pack_step(outs_e)
+    torch.cuda.synchronize()
+    for (_, pe, _, se, ce, sce), (_, pg, _, sg, cg, scg) in zip(eager,
+                                                                 graphed):
+        for a, b in zip([*pe, *(t for s in se for t in s), ce, sce],
+                        [*pg, *(t for s in sg for t in s), cg, scg]):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    for a, b in zip(outs_e, outs_g):
+        assert torch.equal(_bits(a), _bits(b))
+    assert int(eager[0][4]) == 3 + 4
