@@ -250,9 +250,12 @@ The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Run from the root of a checkout:
 ``python3 chip_smoke.py``. With ``--parent DIR`` (a checkout of another
 commit, e.g. unpacked with ``git archive``), the launch-record kernels
-K19, K20 and K22 are also timed through that checkout's wrappers, in
-turns with this tree's (``in_turns``); without it those "before" numbers
-are not measured.
+K1, K10, K19, K20 and K22 are also timed through that checkout's
+wrappers, in turns with this tree's (``in_turns``), K1 is held bit-exact
+to that checkout's K1 at phase 4's shapes and the zoo's, and the DLRM
+and ragged steps and serving latency run through both sides' wrappers
+in turns (``steps_in_turns``, ``serve_in_turns``); without it those
+"before" numbers are not measured.
 """
 
 import contextlib
@@ -339,8 +342,8 @@ _parent = {}
 
 
 def parent_ops():
-    """The parent checkout's ``ops.dense_update`` and
-    ``ops.exchange_pack`` modules, loaded under the package name
+    """The parent checkout's ``ops.dense_update``, ``ops.exchange_pack``
+    and ``ops.embedding_lookup`` modules, loaded under the package name
     ``detpu_parent`` (its kernels built from its own sources into its own
     ``build/``), or None without ``--parent``."""
     if PARENT_DIR is None:
@@ -357,22 +360,22 @@ def parent_ops():
         sys.modules["detpu_parent"] = mod
         spec.loader.exec_module(mod)
         importlib.import_module("detpu_parent.ops._kernels").build_all(
-            ["dense_update", "exchange_pack"])
-        _parent["dense_update"] = importlib.import_module(
-            "detpu_parent.ops.dense_update")
-        _parent["exchange_pack"] = importlib.import_module(
-            "detpu_parent.ops.exchange_pack")
+            ["dense_update", "exchange_pack", "gather_combine", "csr"])
+        for name in ("dense_update", "exchange_pack", "embedding_lookup"):
+            _parent[name] = importlib.import_module(
+                f"detpu_parent.ops.{name}")
     return _parent
 
 
-def in_turns(torch, fn, parent_fn):
-    """CUDA-event ms and host ms a call of ``fn`` (this tree's wrapper)
-    and ``parent_fn`` (the parent's, or None), in turns: change, parent,
-    parent, change; each side's ms is the median of its two runs'
-    medians."""
-    out = {"ms": [], "host_ms": [], "parent_ms": [], "parent_host_ms": []}
-    order = ((fn, ""), (parent_fn, "parent_"), (parent_fn, "parent_"),
-             (fn, ""))
+def in_turns(torch, fn, parent_fn, lib=None):
+    """CUDA-event ms and host ms a call of ``fn`` (this tree's wrapper),
+    ``lib`` (the library call, or None) and ``parent_fn`` (the parent's,
+    or None), in turns: change, library, parent, parent, library,
+    change; each side's ms is the median of its two runs' medians."""
+    out = {f"{tag}{m}": [] for tag in ("", "library_", "parent_")
+           for m in ("ms", "host_ms")}
+    order = ((fn, ""), (lib, "library_"), (parent_fn, "parent_"),
+             (parent_fn, "parent_"), (lib, "library_"), (fn, ""))
     for f, tag in order:
         if f is None:
             continue
@@ -381,13 +384,22 @@ def in_turns(torch, fn, parent_fn):
     return {k: float(np.median(v)) if v else None for k, v in out.items()}
 
 
+#: the K1 and K10 call sites of the steps and the forward: (module,
+#: global) pairs that ``parent_wrappers`` routes to the parent's wrappers
+LOOKUP_SITES = (("lookup", "gather_combine"), ("lookup", "lengths_to_splits"),
+                ("apply", "lengths_to_splits"),
+                ("dist_embedding", "row_to_split"))
+
+
 @contextlib.contextmanager
 def parent_wrappers():
     """Route the steps' K19/K20/K22 call sites (the module globals
     ``parallel.exchange.pack_ids``/``pack_columns`` and
-    ``parallel.optimizers.dense_update``) to the parent checkout's
-    wrappers, each copy plan handed over as the parent's ``CopyPlan`` of
-    the same copies."""
+    ``parallel.optimizers.dense_update``) and their K1/K10 call sites
+    (``LOOKUP_SITES``) to the parent checkout's wrappers, each copy plan
+    handed over as the parent's ``CopyPlan`` of the same copies."""
+    import importlib
+
     from distributed_embeddings_torch.parallel import exchange, optimizers
 
     par = parent_ops()
@@ -407,16 +419,24 @@ def parent_wrappers():
     exchange.pack_columns = (lambda plan, srcs, dsts: par["exchange_pack"]
                              .pack_columns(their(plan), srcs, dsts))
     optimizers.dense_update = par["dense_update"].dense_update
+    mods = {m: importlib.import_module(
+        f"distributed_embeddings_torch.parallel.{m}")
+        for m, _ in LOOKUP_SITES}
+    lookups = [getattr(mods[m], name) for m, name in LOOKUP_SITES]
+    for m, name in LOOKUP_SITES:
+        setattr(mods[m], name, getattr(par["embedding_lookup"], name))
     try:
         yield
     finally:
         (exchange.pack_ids, exchange.pack_columns,
          optimizers.dense_update) = saved
+        for (m, name), fn in zip(LOOKUP_SITES, lookups):
+            setattr(mods[m], name, fn)
 
 
 def steps_in_turns(torch, run_step, rounds=2, steps=10, warmup=2):
-    """A step through this tree's K19/K20/K22 wrappers and through the
-    parent's (``parent_wrappers``) in turns: change, parent, parent,
+    """A step through this tree's K1/K10/K19/K20/K22 wrappers and through
+    the parent's (``parent_wrappers``) in turns: change, parent, parent,
     change, ``rounds`` times; ``run_step(k)`` runs step ``k``. Per side
     the median CUDA-event ms a step and the median of the turns' host
     wall ms a step; None without ``--parent``."""
@@ -530,9 +550,9 @@ def kernel_case(torch, name, label, fn, parent_fn, lib, nbytes, plain=None,
                 extra=None):
     """One timed case of a launch-record kernel: event ms and host ms a
     call of this tree's wrapper and, in turns, the parent's; device-only
-    ms; the plain version's ms; the library call's event ms and host ms;
-    the byte bound."""
-    t = in_turns(torch, fn, parent_fn)
+    ms; the plain version's ms; the library call's event ms and host ms
+    (in the same turns); the byte bound."""
+    t = in_turns(torch, fn, parent_fn, lib)
     case = {"case": label, "ms": t["ms"], "host_ms": t["host_ms"],
             "device_ms": device_ms(torch, fn),
             "parent_ms": t["parent_ms"],
@@ -540,8 +560,8 @@ def kernel_case(torch, name, label, fn, parent_fn, lib, nbytes, plain=None,
             "parent_device_ms": (device_ms(torch, parent_fn) if parent_fn
                                  else None),
             "plain_ms": time_ms(torch, plain, [()]) if plain else None,
-            "library_ms": time_ms(torch, lib, [()]),
-            "library_host_ms": host_ms(torch, lib),
+            "library_ms": t["library_ms"],
+            "library_host_ms": t["library_host_ms"],
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes", "bytes": nbytes, **(extra or {})}
     fmt = {k: ("not measured" if v is None else f"{v:.4f}")
@@ -695,15 +715,22 @@ def phase_check(torch, de, state):
     errs = {"gather_combine": 0.0, "dot_interact_fwd": 0.0}
     log("check: kernels against their plain versions on the card")
     slab = state.emb_params["w128"][0]
+    parent = parent_ops()
     for b, hot in ((RUNG, 1), (RUNG, 3), (TRAIN_BATCH, 1), (TRAIN_BATCH, 3)):
         c = k1_case(torch, de, b, hot, seed=b + hot)
         got = gather_combine(slab, c["ids"], c["rows"], c["roff"], c["div"])
         want = gather_combine_plain(slab, c["ids"], c["rows"], c["roff"],
                                     c["div"])
+        what = f"gather_combine b={b} hot={hot}{' mean' if hot > 1 else ''}"
         errs["gather_combine"] = max(errs["gather_combine"], compare(
-            torch, got, want, exact=hot == 1,
-            what=f"gather_combine b={b} hot={hot}"
-                 f"{' mean' if hot > 1 else ''}"))
+            torch, got, want, exact=hot == 1, what=what))
+        if parent:  # the redesign keeps the first design's arithmetic
+            theirs = parent["embedding_lookup"].gather_combine(
+                slab, c["ids"], c["rows"], c["roff"], c["div"])
+            check(torch.equal(got.view(torch.int16),
+                              theirs.view(torch.int16)),
+                  f"{what}: not bit-exact to the parent's K1")
+            log(f"  {what}: bit-exact to the parent's K1")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     for b in (RUNG, TRAIN_BATCH):
         feats = torch.randn((b, 27, 128), generator=gen, device="cuda"
@@ -814,7 +841,48 @@ def phase_serve(torch, de, state):
     log("serve stages (ms): " + json.dumps({
         stage: {q: v[q] for q in ("p50", "p99", "mean")}
         for stage, v in s["latency_stages_ms"].items()}))
+    s["in_turns_with_parent"] = serve_in_turns(torch, de, state)
+    if s["in_turns_with_parent"]:
+        log("serve: latency in turns with the parent's K1/K10/K19 wrappers "
+            "(ms): " + json.dumps(s["in_turns_with_parent"]))
     return launches, s
+
+
+def serve_in_turns(torch, de, state, rounds=2):
+    """Serving latency through this tree's wrappers and the parent's
+    (``parent_wrappers``) in turns, change, parent, parent, change,
+    ``rounds`` times: per turn a fresh runtime, warmed, then 1 s of
+    Zipfian requests at 400 QPS through ``drive``. Per side the median
+    of the turns' p50 and p99; None without ``--parent``."""
+    from distributed_embeddings_torch.parallel import (
+        ServeConfig, Served, ServingRuntime, drive, synthetic_request)
+
+    if parent_ops() is None:
+        return None
+    got = {"change": [], "parent": []}
+    k = 0
+    for _ in range(rounds):
+        for side in ("change", "parent", "parent", "change"):
+            with (parent_wrappers() if side == "parent"
+                  else contextlib.nullcontext()):
+                rt = ServingRuntime(
+                    de, lambda d, outs, n: torch.sigmoid(d(n, outs))[:, 0],
+                    state, config=ServeConfig())
+                rng = np.random.default_rng(SEED + 50 + k)
+                k += 1
+                tmpl = synthetic_request(rng, CRITEO_1TB_SIZES, 2,
+                                         numerical=13)
+                rt.warmup((tmpl.cats, tmpl.batch))
+                res = drive(rt, lambda i: synthetic_request(
+                    rng, CRITEO_1TB_SIZES, int(rng.integers(1, 9)),
+                    numerical=13), qps=400.0, duration_s=1.0)
+                check(all(isinstance(r, Served) for r in res),
+                      f"serve in turns ({side}): a request was not Served")
+                st = rt.stats()
+                got[side].append((st["latency_p50_ms"],
+                                  st["latency_p99_ms"]))
+    return {f"{side}_{q}_ms": float(np.median([v[i] for v in got[side]]))
+            for side in got for i, q in enumerate(("p50", "p99"))}
 
 
 # ------------------------------------------------------------------ training
@@ -1378,8 +1446,8 @@ def phase_train(torch, de, state):
              "instrumented_step": steps_in_turns(torch, metrics_step)}
     st = holder[0]
     if turns["step"]:
-        log("train: steps in turns with the parent's K19/K20/K22 wrappers "
-            "(ms): " + json.dumps(turns))
+        log("train: steps in turns with the parent's K1/K10/K19/K20/K22 "
+            "wrappers (ms): " + json.dumps(turns))
     result = {
         "batch": TRAIN_BATCH, "steps": TRAIN_STEPS,
         "samples_per_s": TRAIN_STEPS * TRAIN_BATCH / wall,
@@ -1488,46 +1556,75 @@ def time_epilogue(torch, epi):
     return {"grad_health": [k21], "dense_update": [k22]}
 
 
-def phase_time(torch, de, state, errs, launches):
+def cycling(fn, arg_sets):
+    """A call of ``fn`` taking no arguments that cycles through
+    ``arg_sets`` (a new input each call, as a step gives it)."""
+    import itertools
+
+    it = itertools.cycle(arg_sets)
+    return lambda: fn(*next(it))
+
+
+def time_k1(torch, de, slab, label, b, hot):
+    """K1 at one shape as a step calls it: ONE set of slot metadata (the
+    plan's, cached) and fresh ids each call (8 Zipfian id sets), through
+    this tree's wrapper and, in turns, the parent's (``kernel_case``),
+    beside the plain version, the library call on the same global rows
+    (clipped and offset outside the timed region) and the byte bound
+    (each distinct row read once, the ids read, the output written)."""
+    import importlib
+
     import torch.nn.functional as F
-    from distributed_embeddings_torch.ops import (
-        dot_interact_fwd, dot_interact_fwd_plain, gather_combine,
-        gather_combine_plain)
+    from distributed_embeddings_torch.ops import (gather_combine,
+                                                  gather_combine_plain)
+
+    el = importlib.import_module("distributed_embeddings_torch.ops."
+                                 "embedding_lookup")
+    w = slab.shape[1]
+    cases = [k1_case(torch, de, b, hot, seed=1000 + k, bad_ids=False)
+             for k in range(8)]
+    meta = (cases[0]["rows"], cases[0]["roff"], cases[0]["div"])
+    ids = [(c["ids"],) for c in cases]
+    grows = [(torch.minimum(i.long().clamp(min=0), meta[0].view(-1, 1, 1) - 1)
+              + meta[1].view(-1, 1, 1),) for (i,) in ids]
+    parent = parent_ops()
+    parent_fn = None
+    if parent:
+        parent_fn = cycling(lambda i: parent["embedding_lookup"]
+                            .gather_combine(slab, i, *meta), ids)
+    if hot == 1:
+        lib = cycling(lambda g: F.embedding(g.view(-1), slab), grows)
+    else:
+        lib = cycling(lambda g: F.embedding_bag(g.view(-1, hot), slab,
+                                                mode="mean"), grows)
+    uniq = int(torch.unique(grows[0][0]).numel())
+    nbytes = (uniq * w * 2 + ids[0][0].numel() * 4
+              + len(CRITEO_1TB_SIZES) * b * w * 2)
+    c = kernel_case(
+        torch, "gather_combine", label,
+        cycling(lambda i: gather_combine(slab, i, *meta), ids), parent_fn,
+        lib, nbytes,
+        plain=cycling(lambda i: gather_combine_plain(slab, i, *meta), ids),
+        extra={"unique_rows": uniq})
+    i0 = ids[0][0]
+    out = gather_combine(slab, i0, *meta)
+    c["host_split_us"] = launch_host_split(
+        torch, f"gather_combine {label}",
+        lambda: el.gather_record_key(slab, i0, *meta), el._GATHER,
+        (i0.data_ptr(), None, out.data_ptr()),
+        lambda: gather_combine(slab, i0, *meta), [slab, *meta])
+    return c
+
+
+def phase_time(torch, de, state, errs, launches):
+    from distributed_embeddings_torch.ops import (dot_interact_fwd,
+                                                  dot_interact_fwd_plain)
 
     slab = state.emb_params["w128"][0]
-    w = slab.shape[1]
-    k1_cases = []
-    for label, b, hot in (("rung256_hot1", RUNG, 1),
-                          ("b65536_hot1", TRAIN_BATCH, 1),
-                          ("b65536_hot3_mean", TRAIN_BATCH, 3)):
-        cases = [k1_case(torch, de, b, hot, seed=1000 + k, bad_ids=False)
-                 for k in range(8)]
-        args = [(c["ids"], c["rows"], c["roff"], c["div"]) for c in cases]
-        # the library call's input: the same global rows, clipped and
-        # offset outside the timed region
-        grows = [(torch.minimum(c["ids"].long().clamp(min=0),
-                                c["rows"].view(-1, 1, 1) - 1)
-                  + c["roff"].view(-1, 1, 1)) for c in cases]
-        ms = time_ms(torch, lambda *a: gather_combine(slab, *a), args)
-        plain = time_ms(torch, lambda *a: gather_combine_plain(slab, *a),
-                        args)
-        if hot == 1:
-            lib = time_ms(torch, lambda g: F.embedding(g.view(-1), slab),
-                          [(g,) for g in grows])
-        else:
-            lib = time_ms(torch, lambda g: F.embedding_bag(
-                g.view(-1, hot), slab, mode="mean"), [(g,) for g in grows])
-        uniq = int(torch.unique(grows[0]).numel())
-        nbytes = (uniq * w * 2 + cases[0]["ids"].numel() * 4
-                  + len(CRITEO_1TB_SIZES) * b * w * 2)
-        bound = nbytes / HBM_BYTES_PER_S * 1e3
-        k1_cases.append({"case": label, "ms": ms, "plain_ms": plain,
-                         "library_ms": lib, "bound_ms": bound,
-                         "bound_by": "bytes", "unique_rows": uniq,
-                         "bytes": nbytes})
-        log(f"time gather_combine {label}: kernel {ms:.4f} ms, plain "
-            f"{plain:.4f}, library {lib:.4f}, bound {bound:.4f} "
-            f"({uniq} unique rows)")
+    k1_cases = [time_k1(torch, de, slab, label, b, hot)
+                for label, b, hot in (("rung256_hot1", RUNG, 1),
+                                      ("b65536_hot1", TRAIN_BATCH, 1),
+                                      ("b65536_hot3_mean", TRAIN_BATCH, 3))]
     k2_cases = []
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     for label, b in (("rung256", RUNG), ("b65536", TRAIN_BATCH)):
@@ -2300,17 +2397,24 @@ def zoo_kernel_times(torch, de, opt, st, data, cfg):
           f"K1 w16 hot 10: beyond 1e-6 of the sum of |rows| (max {err})")
     uniq = int(torch.unique(grows).numel())
     nbytes = uniq * w * 4 + ids.numel() * 4 + ids.shape[0] * ids.shape[1] * w * 4
-    out["gather_combine"] = {
-        "case": "zoo_w16_hot10_sum",
-        "ms": time_ms(torch, lambda: gather_combine(slab, ids, rows, roff,
-                                                    div, mask), [()]),
-        "plain_ms": time_ms(torch, lambda: gather_combine_plain(
-            slab, ids, rows, roff, div, mask), [()]),
-        "library_ms": time_ms(torch, lambda: F.embedding_bag(
-            grows.view(-1, hot), slab, mode="sum"), [()]),
-        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-        "unique_rows": uniq, "bytes": nbytes, "max_abs_err": err,
-        "shape": list(ids.shape)}
+    parent = parent_ops()
+    parent_fn = None
+    if parent:
+        pk1 = parent["embedding_lookup"].gather_combine
+        check(torch.equal(got.view(torch.int32), pk1(
+            slab, ids, rows, roff, div, mask).view(torch.int32)),
+            "K1 w16 hot 10: not bit-exact to the parent's K1")
+
+        def parent_fn():
+            pk1(slab, ids, rows, roff, div, mask)
+    out["gather_combine"] = kernel_case(
+        torch, "gather_combine", "zoo_w16_hot10_sum",
+        lambda: gather_combine(slab, ids, rows, roff, div, mask), parent_fn,
+        lambda: F.embedding_bag(grows.view(-1, hot), slab, mode="sum"),
+        nbytes, plain=lambda: gather_combine_plain(slab, ids, rows, roff,
+                                                   div, mask),
+        extra={"unique_rows": uniq, "max_abs_err": err,
+               "shape": list(ids.shape)})
     del k1_calls
 
     # K3, the w8 scatter-sum into a zero gradient slab
@@ -3112,6 +3216,16 @@ def ragged_timed(torch, de, st, batches):
             for i, name in enumerate(names):
                 stage_ms[name].append(ev[i].elapsed_time(ev[i + 1]))
     stages = {n: float(np.median(v)) for n, v in stage_ms.items()}
+    holder = [st]
+
+    def run_step(k):
+        holder[0] = step(holder[0], *batches[k % len(batches)])[1]
+
+    turns = steps_in_turns(torch, run_step)
+    st = holder[0]
+    if turns:
+        log("ragged: steps in turns with the parent's K1/K10/K19/K20/K22 "
+            "wrappers (ms): " + json.dumps(turns))
     b = batches[0][1][0].shape[0]
     result = {
         "batch": b, "steps": TRAIN_STEPS,
@@ -3120,6 +3234,7 @@ def ragged_timed(torch, de, st, batches):
         "step_ms_p50": float(np.median(step_ms)),
         "step_ms_min": float(np.min(step_ms)),
         "stage_ms_p50": stages,
+        "in_turns_with_parent": turns,
         "launches_per_step": {n: v / TRAIN_STEPS
                               for n, v in launches.items()},
         "loss_first": float(losses[0]), "loss_last": float(losses[-1])}
@@ -3220,47 +3335,64 @@ def ragged_kernel_times(torch, de, st, batches):
     del lib9
 
     # K10 -------------------------------------------------------------
-    args10 = [(a, kw) for a, kw, _ in k10]
-    ms = time_ms(torch, lambda a, kw: lengths_to_splits(*a, **kw), args10)
-    plain = time_ms(torch, lambda a, kw: lengths_to_splits_plain(*a, **kw),
-                    args10)
-    lib = time_ms(torch, lambda a, kw: torch.cumsum(a[0], 1), args10)
-    nbytes = n * b * args10[0][0][0].element_size() + n * (b + 1) * 8
-    csr = [dict(case=f"lengths_to_splits {n}x{b}", ms=ms, plain_ms=plain,
-                library_ms=lib, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-                bound_by="bytes", bytes=nbytes)]
-    coo = [as_sparse_ids(torch, cats[0], b).indices for cats, _ in batches]
-    ms = time_ms(torch, lambda i: row_to_split(i, b), [(i,) for i in coo])
-    plain = time_ms(torch, lambda i: row_to_split_plain(i, b),
-                    [(i,) for i in coo])
+    # each entry point through this tree's wrapper and, in turns, the
+    # parent's, on the step's own inputs (``kernel_case``)
+    import importlib
+
+    el = importlib.import_module("distributed_embeddings_torch.ops."
+                                 "embedding_lookup")
+    parent = parent_ops()
+    pel = parent["embedding_lookup"] if parent else None
+
+    def parent_of(name, arg_sets):
+        if pel is None:
+            return None
+        return cycling(getattr(pel, name), arg_sets)
+
+    args10 = [tuple(a) + tuple(kw.values()) for a, kw, _ in k10]
+    lengths0, valid0 = args10[0][0], args10[0][1]
+    nbytes = n * b * lengths0.element_size() + n * (b + 1) * 8
+    csr = [kernel_case(
+        torch, "csr", f"lengths_to_splits {n}x{b}",
+        cycling(lengths_to_splits, args10),
+        parent_of("lengths_to_splits", args10),
+        cycling(lambda ln, *_: torch.cumsum(ln, 1), args10), nbytes,
+        plain=cycling(lengths_to_splits_plain, args10))]
+    out10 = lengths_to_splits(lengths0, valid0)
+    csr[-1]["host_split_us"] = launch_host_split(
+        torch, f"lengths_to_splits {n}x{b}",
+        lambda: el.splits_record_key(lengths0, valid0), el._SPLITS,
+        (lengths0.data_ptr(), out10.data_ptr()),
+        lambda: lengths_to_splits(lengths0, valid0),
+        [lengths0] if valid0 is None else [lengths0, valid0])
+    del out10
+    coo = [(as_sparse_ids(torch, cats[0], b).indices, b)
+           for cats, _ in batches]
     targets = torch.arange(b + 1, dtype=torch.int32, device="cuda")
-    rows = [(i[:, 0].contiguous(),) for i in coo]
-    lib = time_ms(torch, lambda r: torch.searchsorted(r, targets), rows)
-    nbytes = coo[0].shape[0] * 4 + (b + 1) * 4
-    csr.append(dict(case=f"row_to_split {coo[0].shape[0]} ids", ms=ms,
-                    plain_ms=plain, library_ms=lib,
-                    bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-                    bound_by="bytes", bytes=nbytes))
+    rows = [(i[:, 0].contiguous(),) for i, _ in coo]
+    nbytes = coo[0][0].shape[0] * 4 + (b + 1) * 4
+    csr.append(kernel_case(
+        torch, "csr", f"row_to_split {coo[0][0].shape[0]} ids",
+        cycling(row_to_split, coo), parent_of("row_to_split", coo),
+        cycling(lambda r: torch.searchsorted(r, targets), rows), nbytes,
+        plain=cycling(row_to_split_plain, coo)))
     # ragged_row_ids on the step's own splits (no path of the step
     # calls it: the JAX package's ragged_row_ids entry point)
-    rid_args = [(a[1],) for a, _ in args9]
-    for (sp,) in rid_args:
-        exact(torch, ragged_row_ids(sp, cap), ragged_row_ids_plain(sp, cap),
+    rid_args = [(a[1], cap) for a, _ in args9]
+    for sp, c in rid_args:
+        exact(torch, ragged_row_ids(sp, c), ragged_row_ids_plain(sp, c),
               "ragged_row_ids on the step's splits")
-    ms = time_ms(torch, lambda sp: ragged_row_ids(sp, cap), rid_args)
-    plain = time_ms(torch, lambda sp: ragged_row_ids_plain(sp, cap),
-                    rid_args)
     pos = torch.arange(cap, dtype=rid_args[0][0].dtype,
                        device="cuda").expand(n, cap).contiguous()
-    ends = [(sp[:, 1:].clamp(0, cap).contiguous(),) for (sp,) in rid_args]
-    lib = time_ms(torch, lambda e: torch.searchsorted(e, pos, right=True),
-                  ends)
+    ends = [(sp[:, 1:].clamp(0, cap).contiguous(),) for sp, _ in rid_args]
     es = rid_args[0][0].element_size()
     nbytes = n * (b + 1) * es + n * cap * es
-    csr.append(dict(case=f"ragged_row_ids {n}x{cap} positions", ms=ms,
-                    plain_ms=plain, library_ms=lib,
-                    bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-                    bound_by="bytes", bytes=nbytes))
+    csr.append(kernel_case(
+        torch, "csr", f"ragged_row_ids {n}x{cap} positions",
+        cycling(ragged_row_ids, rid_args),
+        parent_of("ragged_row_ids", rid_args),
+        cycling(lambda e: torch.searchsorted(e, pos, right=True), ends),
+        nbytes, plain=cycling(ragged_row_ids_plain, rid_args)))
     del pos, ends
     cases["csr"] = csr
 
@@ -3895,8 +4027,9 @@ def phase_adam(torch):
                                                   rounds=3)
     st = holder[0]
     if fp32["in_turns_with_parent"]:
-        log("adam zoo fp32: steps in turns with the parent's K19/K20/K22 "
-            "wrappers (ms): " + json.dumps(fp32["in_turns_with_parent"]))
+        log("adam zoo fp32: steps in turns with the parent's "
+            "K1/K10/K19/K20/K22 wrappers (ms): "
+            + json.dumps(fp32["in_turns_with_parent"]))
     st, adam_cases = row_kernel_times(torch, de, opt, st, data, "adam")
     adam_cases_k22 = time_dense_adam(torch, st, tx)
     result["adam_fp32"] = fp32

@@ -20,8 +20,9 @@ launches' arguments once, keeps them as a record under a key that holds
 every fact the checks and the arguments rest on (per tensor its address,
 shape, strides or contiguity, dtype and device), and on a later call
 with the same key only reads the per-call pointers and the stream and
-replays the bound C functions: no check, no allocation, no host read of
-a device value, nothing copied from pageable memory.
+replays the bound C functions: no check, no allocation beyond the
+call's own output, no host read of a device value, nothing copied from
+pageable memory.
 """
 
 from __future__ import annotations
@@ -53,10 +54,14 @@ _F = ctypes.c_float
 #: C signature of each exported function, per source stem
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "gather_combine": {
-        # slab, slab_rows, width, ids, ids_is_64, rows, roff, div, mask,
-        # weights, out, n_slots, b, hot, dtype, stream
-        "detpu_gather_combine": (_P, _I64, _I, _P, _I, _P, _P, _P, _P,
-                                 _P, _P, _I, _I64, _I, _I, _P),
+        # slab, slab_rows, width, ids_is_64, rows, roff, div, mask,
+        # weighted, n_slots, b, hot, dtype, vb, prepared (host, out)
+        "detpu_gather_combine_prepare": (_P, _I64, _I, _I, _P, _P, _P, _P,
+                                         _I, _I, _I64, _I, _I, _I, _P),
+        # prepared, ids, weights, out, stream
+        "detpu_gather_combine_launch": (_P, _P, _P, _P, _P),
+        # -> the bytes of a prepared launch
+        "detpu_gather_combine_prepared_bytes": (),
     },
     "dot_interact": {
         # feats, out, batch, num_features, dim, dtype, stream
@@ -110,13 +115,21 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
                                 _F, _I, _F, _P, _I, _P),
     },
     "csr": {
-        # lengths, len_is_64, slot_stride, n_slots, b, valid, splits,
-        # stream
-        "detpu_lengths_to_splits": (_P, _I, _I64, _I, _I64, _P, _P, _P),
-        # rows, rows_is_64, stride, nnz, dim0, splits, out_is_64, stream
-        "detpu_row_to_split": (_P, _I, _I64, _I64, _I64, _P, _I, _P),
-        # splits, is_64, n_slots, nrows, cap, out, stream
-        "detpu_ragged_row_ids": (_P, _I, _I, _I64, _I64, _P, _P),
+        # len_is_64, slot_stride, n_slots, b, valid, scratch, prepared
+        "detpu_lengths_to_splits_prepare": (_I, _I64, _I, _I64, _P, _P,
+                                            _P),
+        # n_slots, b -> bytes of card scratch
+        "detpu_lengths_to_splits_scratch_bytes": (_I, _I64),
+        # rows_is_64, stride, nnz, dim0, out_is_64, prepared
+        "detpu_row_to_split_prepare": (_I, _I64, _I64, _I64, _I, _P),
+        # is_64, n_slots, nrows, cap, prepared
+        "detpu_ragged_row_ids_prepare": (_I, _I, _I64, _I64, _P),
+        # prepared, src, dst, stream
+        "detpu_csr_launch": (_P, _P, _P, _P),
+        # -> the bytes of a prepared launch / the lengths a scan tile
+        # covers
+        "detpu_csr_prepared_bytes": (),
+        "detpu_csr_scan_tile": (),
     },
     "ragged_combine": {
         # slab, slab_rows, width, dtype, values, ids_is_64, v_stride,
@@ -208,6 +221,10 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
 
 #: return type of the exported functions that return no ``cudaError_t``
 RESTYPES = {"detpu_dedup_scratch_bytes": _I64,
+            "detpu_gather_combine_prepared_bytes": _I64,
+            "detpu_csr_prepared_bytes": _I64,
+            "detpu_csr_scan_tile": _I64,
+            "detpu_lengths_to_splits_scratch_bytes": _I64,
             "detpu_sgd_promoted_scratch_bytes": _I64,
             "detpu_topk_pool_scratch_bytes": _I64,
             "detpu_topk_pool_clear_bytes": _I64,

@@ -116,6 +116,118 @@ def gather_combine_plain(slab: torch.Tensor, ids: torch.Tensor,
     return (g.sum(2) / div.view(n, 1, 1)).to(slab.dtype)
 
 
+def vector_bytes(slab: torch.Tensor) -> int:
+    """K1's lane load for ``slab``: the widest of 16, 8, 4 and 2 bytes
+    (at least one element) that divides a row's bytes and the slab's
+    address (the output, a fresh allocation, is aligned to more)."""
+    es = slab.element_size()
+    row = slab.shape[1] * es
+    vb = 16
+    while vb > es and (row % vb or slab.data_ptr() % vb):
+        vb //= 2
+    return vb
+
+
+def _device_index(dev: torch.device) -> int:
+    return (dev.index or 0) if dev.type == "cuda" else -1
+
+
+def _check_device(dev: torch.device) -> None:
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+
+
+def _prepared(lib, what: str) -> np.ndarray:
+    """Host memory for one prepared launch of ``what``'s library."""
+    size = getattr(lib, f"detpu_{what}_prepared_bytes")()
+    return np.zeros(size, np.uint8)
+
+
+def gather_record_key(slab, ids, rows, roff, div, mask=None,
+                      weights=None) -> tuple:
+    """Every fact K1's launch record rests on: per slab, ``rows``,
+    ``roff``, ``div`` and ``mask`` its address, shape, strides, dtype and
+    device (the vector width and the dtype code follow from the slab's),
+    and the layouts of ``ids`` (``n``, ``b``, ``hot``) and ``weights``,
+    whose addresses are read per call."""
+    ts = (slab, rows, roff, div) if mask is None else (slab, rows, roff,
+                                                       div, mask)
+    return (len(ts), *_kernels.tensor_key(ts), _kernels.layout_key(ids),
+            _kernels.layout_key(weights))
+
+
+def build_gather_record(slab, ids, rows, roff, div, mask=None,
+                        weights=None) -> _kernels.LaunchRecord:
+    """Validate a K1 call as :func:`gather_combine` always has (raising as
+    it did) and build its launch record: for CUDA tensors the prepared
+    launch (``csrc/gather_combine.cu``), bound to the library. The
+    payload is ``(out shape, out dtype, device, vector bytes, prepared
+    launch)``; CPU tensors (the tests) get a record without launches."""
+    if ids.dim() != 3:
+        raise ValueError(f"ids must be [n, b, hot], got {tuple(ids.shape)}")
+    n, b, hot = ids.shape
+    dev = slab.device
+    _check_device(dev)
+    if slab.dtype not in _DTYPE_CODE or slab.dim() != 2 \
+            or not slab.is_contiguous():
+        raise ValueError("slab must be a contiguous 2-D float32/bfloat16 "
+                         f"tensor, got {slab.dtype} {tuple(slab.shape)}")
+    _expect(ids, (torch.int32, torch.int64), (n, b, hot), dev, "ids")
+    _expect(rows, (torch.int64,), (n,), dev, "rows")
+    _expect(roff, (torch.int64,), (n,), dev, "roff")
+    _expect(div, (torch.float32,), (n,), dev, "div")
+    if mask is not None:
+        _expect(mask, (torch.int32,), (n,), dev, "mask")
+    if weights is not None:
+        _expect(weights, (torch.float32,), (n, b, hot), dev, "weights")
+    w = slab.shape[1]
+    vb = vector_bytes(slab)
+    lib, calls, buf = None, [], None
+    if dev.type == "cuda":
+        lib = _kernels.library("gather_combine")
+        buf = _prepared(lib, "gather_combine")
+        _kernels.check(lib, lib.detpu_gather_combine_prepare(
+            slab.data_ptr(), slab.shape[0], w, int(ids.dtype == torch.int64),
+            rows.data_ptr(), roff.data_ptr(), div.data_ptr(),
+            None if mask is None else mask.data_ptr(),
+            int(weights is not None), n, b, hot, _DTYPE_CODE[slab.dtype],
+            vb, buf.ctypes.data), "gather_combine")
+        if n * b:
+            calls = [(lib.detpu_gather_combine_launch, (buf.ctypes.data,))]
+    return _kernels.LaunchRecord(
+        lib, "gather_combine", calls, _device_index(dev),
+        payload=((n, b, w), slab.dtype, dev, vb, buf))
+
+
+def _find(cache: _kernels.LaunchCache, key: tuple, build, on_cpu: bool,
+          build_on_cpu: bool, *args):
+    """The record under ``key`` in ``cache``, or ``build(*args)`` kept
+    there. A miss on CPU tensors is validated and gives None (the
+    wrapper runs the plain version) unless ``build_on_cpu``."""
+    rec = cache.get(key)
+    if rec is not None:
+        return rec
+    if on_cpu and not build_on_cpu:
+        build(*args)
+        return None
+    return cache.add(key, build(*args))
+
+
+def find_gather_record(cache: _kernels.LaunchCache, slab, ids, rows, roff,
+                       div, mask=None, weights=None,
+                       build_on_cpu: bool = False):
+    """K1's launch record of a call: found in ``cache`` by
+    :func:`gather_record_key`, or built (:func:`build_gather_record`) and
+    kept (:func:`_find`)."""
+    return _find(cache, gather_record_key(slab, ids, rows, roff, div, mask,
+                                          weights),
+                 build_gather_record, slab.device.type == "cpu",
+                 build_on_cpu, slab, ids, rows, roff, div, mask, weights)
+
+
+_GATHER = _kernels.LaunchCache()
+
+
 def gather_combine(slab: torch.Tensor, ids: torch.Tensor,
                    rows: torch.Tensor, roff: torch.Tensor,
                    div: torch.Tensor, mask: Optional[torch.Tensor] = None,
@@ -132,42 +244,25 @@ def gather_combine(slab: torch.Tensor, ids: torch.Tensor,
     slab's dtype.
 
     A CPU slab runs :func:`gather_combine_plain`; a CUDA slab launches
-    the kernel (``csrc/gather_combine.cu``) or raises.
+    the kernel (``csrc/gather_combine.cu``) or raises. The first call
+    with a slab, metadata and id layout validates them and builds a
+    launch record; a later one only reads the ids', weights' and
+    output's addresses and replays it.
     """
-    if ids.dim() != 3:
-        raise ValueError(f"ids must be [n, b, hot], got {tuple(ids.shape)}")
-    n, b, hot = ids.shape
     if slab.device.type == "cpu":
+        if ids.dim() != 3:
+            raise ValueError(f"ids must be [n, b, hot], got "
+                             f"{tuple(ids.shape)}")
         return gather_combine_plain(slab, ids, rows, roff, div, mask, weights)
-    if slab.device.type != "cuda":
-        raise ValueError(f"unsupported device {slab.device}")
-    if slab.dtype not in _DTYPE_CODE or slab.dim() != 2 \
-            or not slab.is_contiguous():
-        raise ValueError("slab must be a contiguous 2-D float32/bfloat16 "
-                         f"tensor, got {slab.dtype} {tuple(slab.shape)}")
-    _expect(ids, (torch.int32, torch.int64), (n, b, hot), slab.device, "ids")
-    _expect(rows, (torch.int64,), (n,), slab.device, "rows")
-    _expect(roff, (torch.int64,), (n,), slab.device, "roff")
-    _expect(div, (torch.float32,), (n,), slab.device, "div")
-    if mask is not None:
-        _expect(mask, (torch.int32,), (n,), slab.device, "mask")
-    if weights is not None:
-        _expect(weights, (torch.float32,), (n, b, hot), slab.device,
-                "weights")
-    w = slab.shape[1]
-    out = torch.empty((n, b, w), dtype=slab.dtype, device=slab.device)
-    if n * b == 0:
-        return out
-    lib = _kernels.library("gather_combine")
-    err = lib.detpu_gather_combine(
-        slab.data_ptr(), slab.shape[0], w, ids.data_ptr(),
-        int(ids.dtype == torch.int64), rows.data_ptr(), roff.data_ptr(),
-        div.data_ptr(), None if mask is None else mask.data_ptr(),
-        None if weights is None else weights.data_ptr(), out.data_ptr(),
-        n, b, hot, _DTYPE_CODE[slab.dtype],
-        torch.cuda.current_stream(slab.device).cuda_stream)
-    _kernels.check(lib, err, "gather_combine")
-    gather_combine.launches += 1
+    rec = (_GATHER.get(gather_record_key(slab, ids, rows, roff, div, mask,
+                                         weights))
+           or find_gather_record(_GATHER, slab, ids, rows, roff, div, mask,
+                                 weights))
+    shape, dtype, dev = rec.payload[:3]
+    out = torch.empty(*shape, dtype=dtype, device=dev)
+    gather_combine.launches += rec.replay(
+        ids.data_ptr(), None if weights is None else weights.data_ptr(),
+        out.data_ptr())
     return out
 
 
@@ -204,6 +299,18 @@ def _stream(t: torch.Tensor) -> int:
 
 # ------------------------------------------------------------ K10: CSR
 
+#: lengths a block of the lengths -> splits scan covers
+#: (``csrc/csr.cu``'s kScanTile)
+SCAN_TILE = 4096
+
+
+def scan_scratch_bytes(n: int, b: int) -> int:
+    """The card scratch of a lengths -> splits record: per scan tile an
+    int64 aggregate, inclusive prefix and status word, and the 64-bit
+    tile counter (``detpu_lengths_to_splits_scratch_bytes``)."""
+    tiles = n * max(1, -(-b // SCAN_TILE))
+    return tiles * 24 + 8
+
 
 def lengths_to_splits_plain(lengths: torch.Tensor,
                             valid: Optional[torch.Tensor] = None
@@ -219,6 +326,64 @@ def lengths_to_splits_plain(lengths: torch.Tensor,
     return splits
 
 
+def splits_record_key(lengths, valid=None) -> tuple:
+    """Every fact the lengths -> splits record rests on: ``valid``'s
+    address, shape, strides, dtype and device, and the layout of
+    ``lengths`` (its address is read per call)."""
+    return (None if valid is None else _kernels.tensor_key((valid,)),
+            _kernels.layout_key(lengths))
+
+
+def build_splits_record(lengths, valid=None) -> _kernels.LaunchRecord:
+    """Validate a lengths -> splits call as :func:`lengths_to_splits`
+    always has and build its record: for CUDA tensors the scan's scratch
+    (owned by the record, zeroed once: the kernel's tile counter numbers
+    the calls, so no call resets it) and the prepared launch. Payload:
+    ``(out shape, out dtype, device, scratch, prepared launch)``."""
+    if lengths.dim() != 2:
+        raise ValueError(f"lengths must be [n, b], got "
+                         f"{tuple(lengths.shape)}")
+    dev = lengths.device
+    _check_device(dev)
+    n, b = lengths.shape
+    _expect_rows(lengths, _INT, n, dev, "lengths")
+    if valid is not None:
+        _expect(valid, (torch.int32,), (n,), dev, "valid")
+    lib, calls, buf, scratch = None, [], None, None
+    if dev.type == "cuda":
+        lib = _kernels.library("csr")
+        nbytes = scan_scratch_bytes(n, b)
+        if lib.detpu_csr_scan_tile() != SCAN_TILE or \
+                lib.detpu_lengths_to_splits_scratch_bytes(n, b) != nbytes:
+            raise RuntimeError("csrc/csr.cu and ops/embedding_lookup.py "
+                               "disagree on the scan's tile or scratch")
+        scratch = torch.zeros(-(-nbytes // 8), dtype=torch.int64,
+                              device=dev)
+        buf = _prepared(lib, "csr")
+        _kernels.check(lib, lib.detpu_lengths_to_splits_prepare(
+            int(lengths.dtype == torch.int64),
+            lengths.stride(0) if n > 1 else b, n, b,
+            None if valid is None else valid.data_ptr(),
+            scratch.data_ptr(), buf.ctypes.data), "lengths_to_splits")
+        if n:
+            calls = [(lib.detpu_csr_launch, (buf.ctypes.data,))]
+    return _kernels.LaunchRecord(
+        lib, "lengths_to_splits", calls, _device_index(dev),
+        payload=((n, b + 1), torch.int64, dev, scratch, buf))
+
+
+def find_splits_record(cache: _kernels.LaunchCache, lengths, valid=None,
+                       build_on_cpu: bool = False):
+    """The lengths -> splits record of a call, found in ``cache`` by
+    :func:`splits_record_key` or built and kept (:func:`_find`)."""
+    return _find(cache, splits_record_key(lengths, valid),
+                 build_splits_record, lengths.device.type == "cpu",
+                 build_on_cpu, lengths, valid)
+
+
+_SPLITS = _kernels.LaunchCache()
+
+
 def lengths_to_splits(lengths: torch.Tensor,
                       valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K10: per-slot CSR offsets ``[n, b + 1]`` (int64, starting at 0)
@@ -228,30 +393,22 @@ def lengths_to_splits(lengths: torch.Tensor,
     whose flag is 0 gets zero lengths.
 
     A CPU tensor runs :func:`lengths_to_splits_plain`; a CUDA tensor
-    launches the kernel (``csrc/csr.cu``) or raises."""
-    if lengths.dim() != 2:
-        raise ValueError(f"lengths must be [n, b], got "
-                         f"{tuple(lengths.shape)}")
+    launches the kernel (``csrc/csr.cu``) or raises, through a launch
+    record kept per ``valid`` and lengths layout. The record's scan
+    scratch serves one stream at a time, and a CUDA graph that captures
+    a call reads it on every replay: keep such a record among the cache's
+    last :data:`~._kernels.LAUNCH_CACHE`."""
     if lengths.device.type == "cpu":
+        if lengths.dim() != 2:
+            raise ValueError(f"lengths must be [n, b], got "
+                             f"{tuple(lengths.shape)}")
         return lengths_to_splits_plain(lengths, valid)
-    if lengths.device.type != "cuda":
-        raise ValueError(f"unsupported device {lengths.device}")
-    n, b = lengths.shape
-    _expect_rows(lengths, _INT, n, lengths.device, "lengths")
-    if valid is not None:
-        _expect(valid, (torch.int32,), (n,), lengths.device, "valid")
-    splits = torch.empty((n, b + 1), dtype=torch.int64,
-                         device=lengths.device)
-    if n == 0:
-        return splits
-    lib = _kernels.library("csr")
-    err = lib.detpu_lengths_to_splits(
-        lengths.data_ptr(), int(lengths.dtype == torch.int64),
-        lengths.stride(0) if n > 1 else b, n, b,
-        None if valid is None else valid.data_ptr(), splits.data_ptr(),
-        _stream(lengths))
-    _kernels.check(lib, err, "lengths_to_splits")
-    lengths_to_splits.launches += 1
+    rec = (_SPLITS.get(splits_record_key(lengths, valid))
+           or find_splits_record(_SPLITS, lengths, valid))
+    shape, dtype, dev = rec.payload[:3]
+    splits = torch.empty(*shape, dtype=dtype, device=dev)
+    lengths_to_splits.launches += rec.replay(lengths.data_ptr(),
+                                             splits.data_ptr())
     return splits
 
 
@@ -268,6 +425,61 @@ def row_to_split_plain(indices: torch.Tensor, dim_0: int,
     return out.to(rows.dtype if dtype is None else dtype)
 
 
+def _check_indices(indices: torch.Tensor) -> None:
+    if indices.dim() not in (1, 2) or (indices.dim() == 2
+                                       and indices.shape[1] != 2):
+        raise ValueError(f"indices must be [nnz] or [nnz, 2], got "
+                         f"{tuple(indices.shape)}")
+
+
+def row_split_record_key(indices, dim_0: int, dtype=None) -> tuple:
+    """Every fact the ``row_to_split`` record rests on: the layout of
+    ``indices`` (its address is read per call), ``dim_0`` and the output
+    dtype."""
+    return (_kernels.layout_key(indices), int(dim_0), dtype)
+
+
+def build_row_split_record(indices, dim_0: int,
+                           dtype=None) -> _kernels.LaunchRecord:
+    """Validate a ``row_to_split`` call as the wrapper always has and
+    build its record (the prepared launch for CUDA tensors). Payload:
+    ``(out shape, out dtype, device, prepared launch)``."""
+    _check_indices(indices)
+    dev = indices.device
+    _check_device(dev)
+    if indices.dtype not in _INT or not indices.is_contiguous():
+        raise ValueError(f"indices: expected a contiguous int32/int64 "
+                         f"tensor, got {indices.dtype} strides "
+                         f"{indices.stride()}")
+    out_dt = indices.dtype if dtype is None else dtype
+    if out_dt not in _INT:
+        raise ValueError(f"row_to_split: dtype {out_dt} is not int32/int64")
+    lib, calls, buf = None, [], None
+    if dev.type == "cuda":
+        lib = _kernels.library("csr")
+        buf = _prepared(lib, "csr")
+        _kernels.check(lib, lib.detpu_row_to_split_prepare(
+            int(indices.dtype == torch.int64), indices.dim(),
+            indices.shape[0], int(dim_0), int(out_dt == torch.int64),
+            buf.ctypes.data), "row_to_split")
+        calls = [(lib.detpu_csr_launch, (buf.ctypes.data,))]
+    return _kernels.LaunchRecord(
+        lib, "row_to_split", calls, _device_index(dev),
+        payload=((int(dim_0) + 1,), out_dt, dev, buf))
+
+
+def find_row_split_record(cache: _kernels.LaunchCache, indices, dim_0: int,
+                          dtype=None, build_on_cpu: bool = False):
+    """The ``row_to_split`` record of a call, found in ``cache`` by
+    :func:`row_split_record_key` or built and kept (:func:`_find`)."""
+    return _find(cache, row_split_record_key(indices, dim_0, dtype),
+                 build_row_split_record, indices.device.type == "cpu",
+                 build_on_cpu, indices, dim_0, dtype)
+
+
+_ROW_SPLITS = _kernels.LaunchCache()
+
+
 def row_to_split(indices: torch.Tensor, dim_0: int,
                  dtype=None) -> torch.Tensor:
     """K10: COO row ids (``[nnz, 2]`` indices or ``[nnz]`` rows,
@@ -276,31 +488,17 @@ def row_to_split(indices: torch.Tensor, dim_0: int,
     (``>= dim_0``) fall past the end. ``dtype`` defaults to the rows'.
 
     A CPU tensor runs :func:`row_to_split_plain`; a CUDA tensor launches
-    the kernel (``csrc/csr.cu``) or raises."""
-    if indices.dim() not in (1, 2) or (indices.dim() == 2
-                                       and indices.shape[1] != 2):
-        raise ValueError(f"indices must be [nnz] or [nnz, 2], got "
-                         f"{tuple(indices.shape)}")
+    the kernel (``csrc/csr.cu``) or raises, through a launch record kept
+    per indices layout, ``dim_0`` and dtype."""
     if indices.device.type == "cpu":
+        _check_indices(indices)
         return row_to_split_plain(indices, dim_0, dtype)
-    if indices.device.type != "cuda":
-        raise ValueError(f"unsupported device {indices.device}")
-    if indices.dtype not in _INT or not indices.is_contiguous():
-        raise ValueError(f"indices: expected a contiguous int32/int64 "
-                         f"tensor, got {indices.dtype} strides "
-                         f"{indices.stride()}")
-    out_dt = indices.dtype if dtype is None else dtype
-    if out_dt not in _INT:
-        raise ValueError(f"row_to_split: dtype {out_dt} is not int32/int64")
-    splits = torch.empty((int(dim_0) + 1,), dtype=out_dt,
-                         device=indices.device)
-    lib = _kernels.library("csr")
-    err = lib.detpu_row_to_split(
-        indices.data_ptr(), int(indices.dtype == torch.int64),
-        indices.dim(), indices.shape[0], int(dim_0), splits.data_ptr(),
-        int(out_dt == torch.int64), _stream(indices))
-    _kernels.check(lib, err, "row_to_split")
-    row_to_split.launches += 1
+    rec = (_ROW_SPLITS.get(row_split_record_key(indices, dim_0, dtype))
+           or find_row_split_record(_ROW_SPLITS, indices, dim_0, dtype))
+    shape, out_dt, dev = rec.payload[:3]
+    splits = torch.empty(*shape, dtype=out_dt, device=dev)
+    row_to_split.launches += rec.replay(indices.data_ptr(),
+                                        splits.data_ptr())
     return splits
 
 
@@ -321,6 +519,53 @@ def ragged_row_ids_plain(row_splits: torch.Tensor,
     return seg.reshape(*lead, capacity)
 
 
+def row_ids_record_key(row_splits, capacity: int) -> tuple:
+    """Every fact the ``ragged_row_ids`` record rests on: the layout of
+    the splits (their address is read per call) and the capacity."""
+    return (_kernels.layout_key(row_splits), int(capacity))
+
+
+def build_row_ids_record(row_splits, capacity: int) -> _kernels.LaunchRecord:
+    """Validate a ``ragged_row_ids`` call as the wrapper always has and
+    build its record (the prepared launch for CUDA tensors). Payload:
+    ``(out shape, out dtype, device, prepared launch)``."""
+    dev = row_splits.device
+    _check_device(dev)
+    if row_splits.dtype not in _INT or row_splits.dim() < 1 \
+            or not row_splits.is_contiguous():
+        raise ValueError(f"row_splits: expected a contiguous int32/int64 "
+                         f"tensor, got {row_splits.dtype} "
+                         f"{tuple(row_splits.shape)}")
+    lead = tuple(row_splits.shape[:-1])
+    nrows = row_splits.shape[-1] - 1
+    n = int(np.prod(lead, dtype=np.int64)) if lead else 1
+    cap = int(capacity)
+    lib, calls, buf = None, [], None
+    if dev.type == "cuda":
+        lib = _kernels.library("csr")
+        buf = _prepared(lib, "csr")
+        _kernels.check(lib, lib.detpu_ragged_row_ids_prepare(
+            int(row_splits.dtype == torch.int64), n, nrows, cap,
+            buf.ctypes.data), "ragged_row_ids")
+        if n * cap:
+            calls = [(lib.detpu_csr_launch, (buf.ctypes.data,))]
+    return _kernels.LaunchRecord(
+        lib, "ragged_row_ids", calls, _device_index(dev),
+        payload=((*lead, cap), row_splits.dtype, dev, buf))
+
+
+def find_row_ids_record(cache: _kernels.LaunchCache, row_splits,
+                        capacity: int, build_on_cpu: bool = False):
+    """The ``ragged_row_ids`` record of a call, found in ``cache`` by
+    :func:`row_ids_record_key` or built and kept (:func:`_find`)."""
+    return _find(cache, row_ids_record_key(row_splits, capacity),
+                 build_row_ids_record, row_splits.device.type == "cpu",
+                 build_on_cpu, row_splits, capacity)
+
+
+_ROW_IDS = _kernels.LaunchCache()
+
+
 def ragged_row_ids(row_splits: torch.Tensor, capacity: int) -> torch.Tensor:
     """K10: the row of every value position of a CSR batch:
     ``row_splits [..., nrows + 1]`` -> ``[..., capacity]``, position
@@ -329,28 +574,17 @@ def ragged_row_ids(row_splits: torch.Tensor, capacity: int) -> torch.Tensor:
     row get ``nrows``. In the splits' dtype.
 
     A CPU tensor runs :func:`ragged_row_ids_plain`; a CUDA tensor
-    launches the kernel (``csrc/csr.cu``, one binary search per
-    position; splits must not decrease) or raises."""
+    launches the kernel (``csrc/csr.cu``, a fill of each row's positions;
+    splits must not decrease) or raises, through a launch record kept per
+    splits layout and capacity."""
     if row_splits.device.type == "cpu":
         return ragged_row_ids_plain(row_splits, capacity)
-    if row_splits.device.type != "cuda":
-        raise ValueError(f"unsupported device {row_splits.device}")
-    if row_splits.dtype not in _INT or row_splits.dim() < 1 \
-            or not row_splits.is_contiguous():
-        raise ValueError(f"row_splits: expected a contiguous int32/int64 "
-                         f"tensor, got {row_splits.dtype} "
-                         f"{tuple(row_splits.shape)}")
-    lead = row_splits.shape[:-1]
-    nrows = row_splits.shape[-1] - 1
-    n = int(np.prod(lead, dtype=np.int64)) if lead else 1
-    out = torch.empty((*lead, int(capacity)), dtype=row_splits.dtype,
-                      device=row_splits.device)
-    lib = _kernels.library("csr")
-    err = lib.detpu_ragged_row_ids(
-        row_splits.data_ptr(), int(row_splits.dtype == torch.int64), n,
-        nrows, int(capacity), out.data_ptr(), _stream(row_splits))
-    _kernels.check(lib, err, "ragged_row_ids")
-    ragged_row_ids.launches += 1
+    rec = (_ROW_IDS.get(row_ids_record_key(row_splits, capacity))
+           or find_row_ids_record(_ROW_IDS, row_splits, capacity))
+    shape, dtype, dev = rec.payload[:3]
+    out = torch.empty(*shape, dtype=dtype, device=dev)
+    ragged_row_ids.launches += rec.replay(row_splits.data_ptr(),
+                                          out.data_ptr())
     return out
 
 

@@ -33,7 +33,11 @@ bit-exact; K14's pool and K15's merge past their shared-memory tiles are
 bit-exact; an instrumented DLRM run card-vs-CPU holds its metrics within
 1e-4 (counts exact). K22 and K19/K20 through their launch records are
 bit-exact to their plain versions on record hits and after a rebuild,
-and replayed in a CUDA graph bit-exact to eager launches.
+and replayed in a CUDA graph bit-exact to eager launches, as are K1 and
+the three K10 wrappers. K10 is bit-exact over multi-tile scans, totals
+past 2^31, 2.4M-entry COO rows and every capacity; on rows that do not
+ascend every entry it writes lies in [0, nnz]. K1's bounds at hot 10 and
+at its wide grid are stated in its test.
 """
 
 import numpy as np
@@ -55,7 +59,8 @@ from distributed_embeddings_torch.parallel import (
     Served, ServingRuntime, SparseAdagrad, SparseAdam, SparseMomentum,
     SparseSGD, make_hybrid_train_step, synthetic_request)
 
-from torch_parity import assert_within_ulps, cuda_device, to_np  # noqa: F401
+from torch_parity import (assert_within_ulps, bf16_ulp,  # noqa: F401
+                          cuda_device, to_np)
 
 torch.set_num_threads(1)
 
@@ -68,13 +73,37 @@ def _ids(rng, vocab, shape):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("width", [3, 8, 16, 24, 128])
-def test_gather_combine_kernel_matches_plain(cuda_device, dtype, width):
-    rng = np.random.default_rng(width)
-    n, b, hot, rows = 3, 70, 3, 50
-    slab = torch.from_numpy(rng.normal(size=(n * rows, width))
-                            .astype(np.float32)).to(dtype).to(cuda_device)
+@pytest.mark.parametrize("b,aligned", [(70, True), (6001, True),
+                                       (6001, False)])
+def test_gather_combine_kernel_matches_plain(cuda_device, dtype, width, b,
+                                             aligned):
+    """K1 against its plain version at hot 1, 3 and 10, with and without
+    weights and the mask, int32 and int64 ids. b=70 and b=6001 (3 x 6001
+    rows) are not multiples of the rows a block takes (2 a lane group);
+    an unaligned slab view (one element past an allocation) narrows the
+    lane loads. Tolerances: hot 1 without
+    weights bit-exact; fp32 sums at hot 3 1e-6; bf16 sums at b=70, hot 3,
+    1 bf16 ulp of |want|. Hot 10, and bf16 at b=6001, where weighted sums
+    that cancel to ~1e-6 occur among 18,003 rows: 16 fp32 ulps of
+    sum |f x| / div (the kernel's fmaf chain against the plain version's
+    rounded products) plus, in bf16, one ulp of the larger side."""
+    from distributed_embeddings_torch.ops.embedding_lookup import (
+        vector_bytes)
+
+    rng = np.random.default_rng(width + b)
+    n, rows = 3, 50
+    host = torch.from_numpy(rng.normal(size=(n * rows, width))
+                            .astype(np.float32)).to(dtype)
+    if aligned:
+        slab = host.to(cuda_device)
+    else:
+        buf = torch.empty(n * rows * width + 1, dtype=dtype,
+                          device=cuda_device)
+        slab = buf[1:].view(n * rows, width)
+        slab.copy_(host)
+        assert vector_bytes(slab) == slab.element_size()
     for ids_dtype in (torch.int32, torch.int64):
-        for hot_ in (1, hot):
+        for hot_ in (1, 3, 10):
             ids = torch.from_numpy(_ids(rng, rows, (n, b, hot_))).to(
                 ids_dtype).to(cuda_device)
             meta = dict(
@@ -95,13 +124,32 @@ def test_gather_combine_kernel_matches_plain(cuda_device, dtype, width):
                 want = to_np(gather_combine_plain(slab, ids, **kw))
                 if hot_ == 1 and "weights" in drop:
                     np.testing.assert_array_equal(got, want)
-                elif dtype == torch.float32:
+                    continue
+                if dtype == torch.float32 and hot_ < 10:
                     np.testing.assert_allclose(got, want, rtol=1e-6,
                                                atol=1e-6)
-                else:
+                    continue
+                if dtype == torch.bfloat16 and hot_ < 10 and b == 70:
                     assert_within_ulps(got, want,
                                        np.maximum(np.abs(want), 1e-30), 1,
                                        f"w{width} hot{hot_} {drop}")
+                    continue
+                # two fp32 summation orders (fmaf chain, rounded
+                # products summed): 16 fp32 ulps of sum |f x| / div, then
+                # (bf16) one ulp of the larger side's rounding
+                akw = dict(kw)
+                if "weights" in akw:
+                    akw["weights"] = akw["weights"].abs()
+                scale = to_np(gather_combine_plain(
+                    slab.float().abs(), ids, **akw)).astype(np.float64)
+                tol = 16 * 2.0 ** -24 * scale
+                if dtype == torch.bfloat16:
+                    tol = tol + bf16_ulp(np.maximum(np.abs(got),
+                                                    np.abs(want)))
+                err = np.abs(got.astype(np.float64) - want)
+                assert (err <= tol).all(), (
+                    f"w{width} hot{hot_} {drop}: {int((err > tol).sum())} "
+                    f"beyond; max err {err.max()}")
 
 
 @pytest.mark.cuda
@@ -825,6 +873,99 @@ def test_csr_kernels_match_plain(cuda_device):
                     assert torch.equal(got, row_to_split_plain(idx, b,
                                                                out_dt))
     torch.cuda.synchronize()
+
+
+def _poisoned(numel, dtype, dev):
+    """Fill a block of the caching allocator with -7 and free it, so the
+    next allocation of that size reuses stale memory."""
+    t = torch.full((numel,), -7, dtype=dtype, device=dev)
+    del t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 2047, 4097, 65536, 300001])
+def test_csr_scan_over_tiles_matches_plain(cuda_device, b):
+    """K10 lengths -> splits over slots of one to 74 scan tiles of 4,096
+    (the decoupled look-back), int32 and int64 lengths, strided rows,
+    dead slots, and a slot whose total passes 2^31: bit-exact. Then
+    ``ragged_row_ids`` on those splits at capacities below and above the
+    total."""
+    from distributed_embeddings_torch.ops import (
+        lengths_to_splits, lengths_to_splits_plain, ragged_row_ids,
+        ragged_row_ids_plain)
+
+    rng = np.random.default_rng(b)
+    n = 5 if b <= 65536 else 2
+    for dt in (torch.int32, torch.int64):
+        lengths = rng.integers(0, 31, size=(n, b))
+        lengths[0, : b // 2] = 0                      # a long empty run
+        big = (2 ** 30 + 12345) if dt == torch.int32 else 3 * 2 ** 40
+        lengths[-1, ::max(1, b // 7)] = big           # total past 2^31
+        block = torch.from_numpy(rng.integers(0, 9, size=(n, 2 * b + 3))
+                                 ).to(dt).to(cuda_device)
+        block[:, 3:b + 3] = torch.from_numpy(lengths).to(dt)
+        for view in (block[:, 3:b + 3], block[:, 3:b + 3].contiguous()):
+            for valid in (None, torch.from_numpy(
+                    (np.arange(n) % 2 == 0).astype(np.int32)
+                    ).to(cuda_device)):
+                _poisoned(n * (b + 1), torch.int64, cuda_device)
+                got = lengths_to_splits(view, valid)
+                want = lengths_to_splits_plain(view, valid)
+                assert got.dtype == torch.int64
+                assert torch.equal(got, want)
+                if valid is None and (dt == torch.int64 or b > 2):
+                    assert int(want[-1, -1]) > 2 ** 31
+    small = torch.from_numpy(rng.integers(0, 31, size=(n, b))).to(
+        cuda_device)
+    sp = lengths_to_splits(small)
+    total = int(sp[:, -1].max())
+    for cap in (1, max(1, total // 3), total, total + 4097):
+        for s in (sp, sp[0].contiguous(), sp.to(torch.int32)):
+            got = ragged_row_ids(s, cap)
+            assert got.dtype == s.dtype
+            assert torch.equal(got, ragged_row_ids_plain(s, cap))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.int32, torch.int64])
+def test_csr_row_to_split_edges_match_plain(cuda_device, dt):
+    """K10 ``row_to_split`` bit-exact over 2.4M COO entries with long
+    empty runs, negative rows and padding rows past ``dim_0``, at
+    ``nnz`` 0 and 1 and all rows past ``dim_0``; on rows that do not
+    ascend (outside the contract) every entry is written, with a value
+    in ``[0, nnz]``, over a poisoned allocation."""
+    from distributed_embeddings_torch.ops import row_to_split, \
+        row_to_split_plain
+
+    rng = np.random.default_rng(3)
+    dim0 = 65536
+    counts = rng.integers(0, 150, size=dim0)
+    counts[1000:30000] = 0                            # a long empty run
+    counts[-5000:] = 0
+    rows = np.concatenate([np.full(777, -3), [-1],
+                           np.repeat(np.arange(dim0), counts),
+                           np.full(1234, dim0), [dim0 + 5, 2 ** 30]])
+    assert rows.size > 2_000_000
+    cases = {"long": rows, "empty": rows[:0], "one": np.array([7]),
+             "one_negative": np.array([-2]),
+             "all_past": np.full(3000, dim0 + 1)}
+    for what, r in cases.items():
+        t = torch.from_numpy(r).to(dt).to(cuda_device)
+        for idx in (t, torch.stack([t, torch.zeros_like(t)], 1)):
+            for d0 in (dim0, 5):
+                for out_dt in (None, torch.int64, torch.int32):
+                    got = row_to_split(idx, d0, dtype=out_dt)
+                    want = row_to_split_plain(idx, d0, out_dt)
+                    assert torch.equal(got, want), (what, d0, out_dt)
+    shuffled = torch.from_numpy(rng.permutation(rows[:300000])).to(dt).to(
+        cuda_device)
+    for d0 in (dim0, 100):
+        _poisoned(d0 + 1, torch.int64, cuda_device)
+        got = row_to_split(shuffled, d0, dtype=torch.int64)
+        torch.cuda.synchronize()
+        assert got.shape == (d0 + 1,)
+        assert int(got.min()) >= 0 and int(got.max()) <= shuffled.shape[0]
 
 
 def _ragged_block(rng, n, b, vocab, max_hot, ids_dt, cap_frac=1.0,
@@ -2117,15 +2258,96 @@ def test_launch_records_hit_path_still_raises(cuda_device):
                               (srcs, out[:8]), (srcs, out.float())):
         with pytest.raises(ValueError):
             xp.pack_ids(plan, bad_srcs, bad_out)
+    _k1_k10_hits_still_raise(cuda_device)
+
+
+def _k1_k10_calls(dev, seed=0):
+    """Fixed inputs of K1 and the three K10 wrappers, and one call of
+    each: ``(inputs, call)``, ``call()`` returning the four outputs."""
+    from distributed_embeddings_torch.ops import (
+        lengths_to_splits, ragged_row_ids, row_to_split)
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n, b, hot, rows = 3, 700, 2, 40
+    x = dict(
+        slab=torch.randn(n * rows, 24, generator=gen, device=dev
+                         ).to(torch.bfloat16),
+        ids=torch.randint(-2, rows + 2, (n, b, hot), generator=gen,
+                          device=dev, dtype=torch.int32),
+        rows=torch.full((n,), rows, dtype=torch.int64, device=dev),
+        roff=torch.arange(n, dtype=torch.int64, device=dev) * rows,
+        div=torch.tensor([1.0, 2.0, 1.0], device=dev),
+        mask=torch.tensor([0, 1, 1], dtype=torch.int32, device=dev),
+        weights=torch.rand(n, b, hot, generator=gen, device=dev),
+        lengths=torch.randint(0, 9, (n, 9000), generator=gen, device=dev,
+                              dtype=torch.int32),
+        valid=torch.tensor([1, 0, 1], dtype=torch.int32, device=dev),
+        coo=torch.sort(torch.randint(-3, 5003, (20000,), generator=gen,
+                                     device=dev)).values,
+        splits=torch.sort(torch.randint(0, 30000, (n, 801), generator=gen,
+                                        device=dev), dim=1).values)
+
+    def call():
+        return (gather_combine(x["slab"], x["ids"], x["rows"], x["roff"],
+                               x["div"], x["mask"], x["weights"]),
+                lengths_to_splits(x["lengths"], x["valid"]),
+                row_to_split(x["coo"], 5000, dtype=torch.int32),
+                ragged_row_ids(x["splits"], 20000))
+
+    return x, call
+
+
+def _k1_k10_hits_still_raise(dev):
+    from distributed_embeddings_torch.ops import (
+        lengths_to_splits, ragged_row_ids, row_to_split)
+    import importlib
+
+    el = importlib.import_module(
+        "distributed_embeddings_torch.ops.embedding_lookup")
+    x, call = _k1_k10_calls(dev)
+    call()
+    caches = (el._GATHER, el._SPLITS, el._ROW_SPLITS, el._ROW_IDS)
+    builds = [c.builds for c in caches]
+    call()
+    assert [c.builds for c in caches] == builds
+    meta = (x["rows"], x["roff"], x["div"])
+    for bad in (x["ids"][0], x["ids"].float(), x["ids"].cpu(),
+                x["ids"].transpose(1, 2)):
+        with pytest.raises(ValueError):
+            gather_combine(x["slab"], bad, *meta)
+    with pytest.raises(ValueError):
+        gather_combine(x["slab"], x["ids"], x["rows"].cpu(), *meta[1:])
+    with pytest.raises(ValueError):
+        gather_combine(x["slab"], x["ids"], *meta, weights=x["weights"][:1])
+    with pytest.raises(ValueError):
+        gather_combine(x["slab"].half(), x["ids"], *meta)
+    for lengths, valid in ((x["lengths"].float(), None),
+                           (x["lengths"][:, ::2], None),
+                           (x["lengths"], x["valid"].cpu()),
+                           (x["lengths"], x["valid"][:2])):
+        with pytest.raises(ValueError):
+            lengths_to_splits(lengths, valid)
+    for idx, kw in ((x["coo"].float(), {}),
+                    (torch.stack([x["coo"]] * 3, 1), {}),
+                    (torch.stack([x["coo"]] * 2, 0).t(), {}),
+                    (x["coo"], {"dtype": torch.float32})):
+        with pytest.raises(ValueError):
+            row_to_split(idx, 5000, **kw)
+    for sp in (x["splits"].float(), x["splits"].t()):
+        with pytest.raises(ValueError):
+            ragged_row_ids(sp, 20000)
 
 
 @pytest.mark.cuda
 def test_launch_records_replay_in_a_cuda_graph(cuda_device):
-    """K22 (Adam with a schedule's -lr on the card, and SGD) and K19/K20
-    captured on their record's hit path in a ``torch.cuda.CUDAGraph``:
-    three replays equal three eager steps bit for bit. The capture fails
-    if a hit synchronizes or copies from pageable memory."""
-    from distributed_embeddings_torch.ops import dense_update
+    """K22 (Adam with a schedule's -lr on the card, and SGD), K19/K20,
+    K1 and the three K10 wrappers captured on their record's hit path in
+    a ``torch.cuda.CUDAGraph``: three replays equal three eager steps bit
+    for bit (K1/K10 on new inputs written in place before each). The
+    capture fails if a hit synchronizes or copies from pageable
+    memory."""
+    from distributed_embeddings_torch.ops import (
+        dense_update, lengths_to_splits, ragged_row_ids, row_to_split)
     from distributed_embeddings_torch.ops import exchange_pack as xp
 
     def k22_sets():
@@ -2170,23 +2392,40 @@ def test_launch_records_replay_in_a_cuda_graph(cuda_device):
     outs_g = [torch.zeros_like(t) for t in outs_e]
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
+    x, k1_k10 = _k1_k10_calls(cuda_device, seed=5)
+    wrappers = (gather_combine, lengths_to_splits, row_to_split,
+                ragged_row_ids)
     with torch.cuda.stream(side):  # builds the records off the capture
         k22_step(graphed)
         pack_step(outs_g)
+        k1_k10()
     torch.cuda.current_stream().wait_stream(side)
     k22_step(eager)
     pack_step(outs_e)
     graph = torch.cuda.CUDAGraph()
-    n0 = (dense_update.launches, xp.pack_ids.launches)
+    n0 = (dense_update.launches, xp.pack_ids.launches,
+          *(f.launches for f in wrappers))
     with torch.cuda.graph(graph):
         k22_step(graphed)
         pack_step(outs_g)
-    assert (dense_update.launches - n0[0], xp.pack_ids.launches - n0[1]
-            ) == (2, 1)
-    for _ in range(3):
+        got = k1_k10()
+    assert (dense_update.launches - n0[0], xp.pack_ids.launches - n0[1],
+            *(f.launches - k for f, k in zip(wrappers, n0[2:]))
+            ) == (2, 1, 1, 1, 1, 1)
+    for k in range(3):
+        # new inputs in place: the graph reads them where it was captured
+        gen = torch.Generator(device=cuda_device).manual_seed(100 + k)
+        for name in ("ids", "lengths", "coo", "splits"):
+            t = x[name]
+            t.copy_(torch.randint(-2, 42, t.shape, generator=gen,
+                                  device=cuda_device).to(t.dtype))
+        x["coo"].copy_(torch.sort(x["coo"] * 120).values)
+        x["splits"].copy_(torch.sort(x["splits"].abs() * 700, dim=1).values)
         graph.replay()
         k22_step(eager)
         pack_step(outs_e)
+        for a, b in zip(k1_k10(), got):
+            assert torch.equal(_bits(a), _bits(b))
     torch.cuda.synchronize()
     for (_, pe, _, se, ce, sce), (_, pg, _, sg, cg, scg) in zip(eager,
                                                                  graphed):

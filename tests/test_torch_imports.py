@@ -28,6 +28,7 @@ FORBIDDEN = ("jax", "flax", "optax", "msgpack", "ml_dtypes", "absl",
 def _sources():
     files = sorted((ROOT / "distributed_embeddings_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    files.append(ROOT / "k1_variants.py")
     files.append(ROOT / "tests" / "torch_dist_worker.py")
     return files
 

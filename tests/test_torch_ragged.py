@@ -179,6 +179,50 @@ def test_csr_seg_bit_exact(cap):
                                   np.asarray(jseg))
 
 
+@pytest.mark.parametrize("case", ["negative", "all_past", "empty",
+                                  "single", "single_negative"])
+@pytest.mark.parametrize("form", ["coo2", "rows"])
+def test_row_to_split_edges_bit_exact(case, form):
+    """The edges the card's boundary fill makes live, as JAX's
+    searchsorted gives them: negative rows before row 0, every row past
+    ``dim_0``, no entry, one entry (in range and negative)."""
+    dim0 = 12
+    rows = {"negative": [-4, -4, -1, 0, 0, 3, 11, 12, 12],
+            "all_past": [12, 12, 15], "empty": [], "single": [5],
+            "single_negative": [-2]}[case]
+    rows = np.asarray(rows, np.int32)
+    idx = (np.stack([rows, np.zeros_like(rows)], 1) if form == "coo2"
+           else rows)
+    want = np.asarray(jax_row_to_split(jnp.asarray(idx), dim0))
+    got = row_to_split(torch.from_numpy(idx), dim0)
+    np.testing.assert_array_equal(to_np(got), want)
+    np.testing.assert_array_equal(
+        to_np(row_to_split(torch.from_numpy(idx).long(), dim0,
+                           dtype=torch.int32)), want)
+
+
+@pytest.mark.parametrize("b", [4097, 8191])
+def test_csr_seg_past_one_scan_tile(b):
+    """``csr_seg`` of slots longer than one 4,096-length scan tile and not
+    a multiple of it, a dead slot among them: the port's
+    ``lengths_to_splits`` (then ``ragged_row_ids``) equal JAX's."""
+    rng = np.random.default_rng(b)
+    lengths = rng.integers(0, 4, size=(3, b)).astype(np.int32)
+    cap = int(lengths.sum(1).max()) - 5
+    js, jseg = jax_lookup.csr_seg(jnp.asarray(lengths), cap)
+    valid = torch.tensor([1, 0, 1], dtype=torch.int32)
+    ts = lengths_to_splits(torch.from_numpy(lengths))
+    np.testing.assert_array_equal(to_np(ts), np.asarray(js))
+    np.testing.assert_array_equal(to_np(ragged_row_ids(ts, cap)),
+                                  np.asarray(jseg))
+    dead = lengths.copy()
+    dead[1] = 0
+    jd, _ = jax_lookup.csr_seg(jnp.asarray(dead), cap)
+    np.testing.assert_array_equal(
+        to_np(lengths_to_splits(torch.from_numpy(lengths), valid)),
+        np.asarray(jd))
+
+
 # ----------------------------------------------------- K8: op level
 
 
