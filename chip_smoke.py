@@ -77,12 +77,14 @@ Phases (any failure raises and the script exits non-zero):
       feature, fp32 and bf16 tables: 5 steps in lockstep, each run with
       the kernels and, from a copy of the same state, with K8-K10
       through ``plain_kernels(RAGGED_SITES)``: losses and dense params
-      bitwise equal, slabs within K3's atomic-order bound, and a control
+      bitwise equal, slabs within the k-ulp bound (bitwise since K3 is
+      deterministic: K3 runs in both), and a control
       run that drops half the stream must fail that bound;
    c. one full-size step (~1% bad ids): K10's splits, K8's output and
       K9's stream bit-exact against their plain versions on the step's
-      own inputs,
-      the touched slab rows against the plain scatter of the stream,
+      own inputs, K3's touched slab rows bit-exact to the stream-order
+      sum where a row has at most L (``SPLIT``) hits and within k fp32
+      ulps elsewhere (a control dropping every other position must fail),
       and three features given as ``SparseIds`` (``row_to_split``, K10)
       giving a bitwise-equal forward;
    d. a NaN batch leaving the touched rows and the dense params
@@ -92,7 +94,9 @@ Phases (any failure raises and the script exits non-zero):
       a stage split;
    f. K8, K9 and K10 timed at this shape as in 7 (K10's
       ``ragged_row_ids`` on the step's own splits, beside
-      ``torch.searchsorted``);
+      ``torch.searchsorted``), and K3 on the step's stream with its
+      engine's device split, in turns with ``DETPU_SGD_DEDUP=1``'s K5 +
+      K3 chain;
 10. adam, after freeing the ragged state: lazy ``SparseAdam`` and
     ``SparseMomentum`` on K5 then K11 (``csrc/adam.cu``) / K12
     (``csrc/momentum.cu``):
@@ -134,7 +138,8 @@ Phases (any failure raises and the script exits non-zero):
    a. 3 steps with K13-K15 and 3 with their plain versions: every
       telemetry leaf bitwise equal;
    b. 3 lockstep steps with telemetry on and off: losses, dense params
-      and K3's inputs bitwise, the slab within K3's atomic order;
+      and K3's inputs bitwise, the slab within the k-ulp bound (bitwise:
+      K3 is deterministic);
    c. a NaN batch under the guard: the train state bitwise unchanged,
       its ids folded (bitwise the plain fold of them);
    d. planted hot rows ranked first in their tables by ``hot_rows``;
@@ -185,9 +190,10 @@ Phases (any failure raises and the script exits non-zero):
       the slab, NaN and Inf), and K3's dedup chain;
    b. (run at the end of phase 7, on the Criteo-1TB bf16 DLRM) one step
       under ``warmup_poly_decay_schedule(24, 8000, 48000, 24000)`` at
-      step 24000 (lr 24): K18's touched rows bit-exact to the plain version on the
-      step's own inputs, then K18 timed on that 1,703,936-id stream
-      beside K3, the plain version, ``index_add_`` and its byte bound;
+      step 24000 (lr 24): K18's touched rows bit-exact to the plain
+      version on the step's own inputs, then K18 timed on that
+      1,703,936-id stream beside K3 in turns, the plain version,
+      ``index_add_`` and its byte bound, with its engine's device split;
    c. the example in process at the capped Criteo-Kaggle size (10,569,296
       rows, 2.71 GB bf16), dim 128, the default MLPs, b=65536, lr 24:
       run A 40 steps with eval every 20 and 1 s of serving at 200 QPS
@@ -195,7 +201,8 @@ Phases (any failure raises and the script exits non-zero):
       run B 20 steps with ``--save_state``, then ``--restore_state`` to
       step 40: losses, slab, dense params, schedule count and step
       bitwise equal to A's; samples/s, save and restore seconds,
-      checkpoint bytes, AUC; K18 timed at this shape;
+      checkpoint bytes, AUC; the example's step in turns with the
+      parent's wrappers (``--parent``); K18 timed at this shape;
    d. a NaN batch under the guard on A's final state: the bf16 slab, the
       dense params and the schedule's count bitwise unchanged, the step
       advanced.
@@ -250,12 +257,12 @@ The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Run from the root of a checkout:
 ``python3 chip_smoke.py``. With ``--parent DIR`` (a checkout of another
 commit, e.g. unpacked with ``git archive``), the launch-record kernels
-K1, K10, K19, K20 and K22 are also timed through that checkout's
-wrappers, in turns with this tree's (``in_turns``), K1 is held bit-exact
-to that checkout's K1 at phase 4's shapes and the zoo's, and the DLRM
-and ragged steps and serving latency run through both sides' wrappers
-in turns (``steps_in_turns``, ``serve_in_turns``); without it those
-"before" numbers are not measured.
+K1, K3, K10, K18, K19, K20 and K22 are also timed through that
+checkout's wrappers, in turns with this tree's (``in_turns``), K1 is
+held bit-exact to that checkout's K1 at phase 4's shapes and the zoo's,
+and the DLRM, ragged and example steps and serving latency run through
+both sides' wrappers in turns (``steps_in_turns``, ``serve_in_turns``);
+without it those "before" numbers are not measured.
 """
 
 import contextlib
@@ -342,8 +349,9 @@ _parent = {}
 
 
 def parent_ops():
-    """The parent checkout's ``ops.dense_update``, ``ops.exchange_pack``
-    and ``ops.embedding_lookup`` modules, loaded under the package name
+    """The parent checkout's ``ops.dense_update``, ``ops.exchange_pack``,
+    ``ops.embedding_lookup`` and ``ops.scatter_add`` modules, loaded
+    under the package name
     ``detpu_parent`` (its kernels built from its own sources into its own
     ``build/``), or None without ``--parent``."""
     if PARENT_DIR is None:
@@ -360,8 +368,10 @@ def parent_ops():
         sys.modules["detpu_parent"] = mod
         spec.loader.exec_module(mod)
         importlib.import_module("detpu_parent.ops._kernels").build_all(
-            ["dense_update", "exchange_pack", "gather_combine", "csr"])
-        for name in ("dense_update", "exchange_pack", "embedding_lookup"):
+            ["dense_update", "exchange_pack", "gather_combine", "csr",
+             "sgd_scatter", "sgd_promoted"])
+        for name in ("dense_update", "exchange_pack", "embedding_lookup",
+                     "scatter_add"):
             _parent[name] = importlib.import_module(
                 f"detpu_parent.ops.{name}")
     return _parent
@@ -393,9 +403,11 @@ LOOKUP_SITES = (("lookup", "gather_combine"), ("lookup", "lengths_to_splits"),
 
 @contextlib.contextmanager
 def parent_wrappers():
-    """Route the steps' K19/K20/K22 call sites (the module globals
-    ``parallel.exchange.pack_ids``/``pack_columns`` and
-    ``parallel.optimizers.dense_update``) and their K1/K10 call sites
+    """Route the steps' K19/K20/K22 and K3/K18 call sites (the module
+    globals ``parallel.exchange.pack_ids``/``pack_columns`` and
+    ``parallel.optimizers.dense_update``/``sgd_scatter``: the parent's
+    ``sgd_scatter`` takes its own K18 for the promoted chain) and their
+    K1/K10 call sites
     (``LOOKUP_SITES``) to the parent checkout's wrappers, each copy plan
     handed over as the parent's ``CopyPlan`` of the same copies."""
     import importlib
@@ -413,12 +425,13 @@ def parent_wrappers():
         return got[1]
 
     saved = (exchange.pack_ids, exchange.pack_columns,
-             optimizers.dense_update)
+             optimizers.dense_update, optimizers.sgd_scatter)
     exchange.pack_ids = (lambda plan, srcs, out: par["exchange_pack"]
                          .pack_ids(their(plan), srcs, out))
     exchange.pack_columns = (lambda plan, srcs, dsts: par["exchange_pack"]
                              .pack_columns(their(plan), srcs, dsts))
     optimizers.dense_update = par["dense_update"].dense_update
+    optimizers.sgd_scatter = par["scatter_add"].sgd_scatter
     mods = {m: importlib.import_module(
         f"distributed_embeddings_torch.parallel.{m}")
         for m, _ in LOOKUP_SITES}
@@ -429,13 +442,14 @@ def parent_wrappers():
         yield
     finally:
         (exchange.pack_ids, exchange.pack_columns,
-         optimizers.dense_update) = saved
+         optimizers.dense_update, optimizers.sgd_scatter) = saved
         for (m, name), fn in zip(LOOKUP_SITES, lookups):
             setattr(mods[m], name, fn)
 
 
 def steps_in_turns(torch, run_step, rounds=2, steps=10, warmup=2):
-    """A step through this tree's K1/K10/K19/K20/K22 wrappers and through
+    """A step through this tree's K1/K3/K10/K18/K19/K20/K22 wrappers and
+    through
     the parent's (``parent_wrappers``) in turns: change, parent, parent,
     change, ``rounds`` times; ``run_step(k)`` runs step ``k``. Per side
     the median CUDA-event ms a step and the median of the turns' host
@@ -572,6 +586,77 @@ def kernel_case(torch, name, label, fn, parent_fn, lib, nbytes, plain=None,
         f"{fmt['library_ms']} (host {fmt['library_host_ms']}); parent device "
         f"{fmt['parent_device_ms']}; bound "
         f"{fmt['bound_ms']} ({nbytes} B)")
+    return case
+
+
+#: the launches of K3's and K18's engine (csrc/segment_scatter.cuh), by
+#: the stage of the call each belongs to
+SEGMENT_STAGES = (("seg_hist", "sort"), ("seg_sort_pass", "sort"),
+                  ("seg_list", "segments"), ("seg_rows", "rows"),
+                  ("seg_combine", "rows"))
+
+
+def segment_split(torch, fn, calls=10):
+    """Device ms a call of a K3/K18 wrapper split into the engine's sort
+    (the histogram and the digit passes), segment lists and rows pass
+    (with K3's combine), and its launches a call: ``torch.profiler``'s
+    CUDA events over ``calls`` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {"sort_ms": 0.0, "segments_ms": 0.0, "rows_ms": 0.0,
+           "other_ms": 0.0, "launches_per_call": 0.0}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        stage = next((st for name, st in SEGMENT_STAGES
+                      if f"::{name}<" in e.key or f"::{name}(" in e.key),
+                     "other")
+        out[f"{stage}_ms"] += e.self_device_time_total / 1e3 / calls
+        if stage != "other":
+            out["launches_per_call"] += e.count / calls
+    return out
+
+
+def ab_ms(torch, a, b):
+    """CUDA-event ms of ``a`` and ``b`` in turns a, b, b, a (each side the
+    median of its two runs' medians)."""
+    ta, tb = [], []
+    for f, out in ((a, ta), (b, tb), (b, tb), (a, ta)):
+        out.append(time_ms(torch, f, [()]))
+    return float(np.median(ta)), float(np.median(tb))
+
+
+def segment_case(torch, name, label, fn, parent_fn, lib, nbytes, plain,
+                 ids, rows, extra=None):
+    """``kernel_case`` for a K3/K18 call, with the engine's device split
+    (``segment_split``), the stream's distinct rows and its longest
+    segment (the hottest row's hits)."""
+    from distributed_embeddings_torch.ops.scatter_add import SPLIT
+
+    keep = ids.long()
+    keep = torch.where(keep < 0, keep + rows, keep)
+    keep = keep[(keep >= 0) & (keep < rows)]
+    counts = torch.unique(keep, return_counts=True)[1]
+    ext = {"ids": ids.numel(), "kept": keep.numel(),
+           "unique_rows": counts.numel(),
+           "longest_segment": int(counts.max()) if counts.numel() else 0,
+           "rows_over_split": int((counts > SPLIT).sum()),
+           **(extra or {})}
+    del keep, counts
+    case = kernel_case(torch, name, label, fn, parent_fn, lib, nbytes,
+                       plain=plain, extra=ext)
+    case["device_split"] = segment_split(torch, fn)
+    log(f"  {name} {label}: device split {json.dumps(case['device_split'])}"
+        f"; longest segment {ext['longest_segment']}, "
+        f"{ext['rows_over_split']} rows over L")
     return case
 
 
@@ -1051,12 +1136,20 @@ def ulp(torch, x, dtype):
 
 
 def small_train_check(torch, dtype):
-    """5 steps with the kernels against the same 5 steps through the
-    plain versions, on the card, from one state (small tables)."""
+    """5 steps with the kernels against the same steps through the plain
+    versions, on the card, small tables, in lockstep: each step runs with
+    the kernels and, from a copy of the same state, with every DLRM call
+    site routed to its plain version; the kernels' run goes on to the
+    next step. Lockstep, since K3 rounds a row's adds in stream order and
+    the plain ``index_add_`` in its atomics' order: two free-running
+    trajectories part from those last-bit differences (by 1.59e-5 in
+    the slab over 5 steps in one run, every K3 call of which was correct),
+    while one step from one state holds each kernel to its plain
+    version."""
     from distributed_embeddings_torch.models import DLRMConfig, DLRMDense
     from distributed_embeddings_torch.parallel import (
-        SGD, DistributedEmbedding, HybridTrainState, SparseSGD,
-        init_hybrid_state, make_hybrid_train_step)
+        SGD, DistributedEmbedding, SparseSGD, init_hybrid_state,
+        make_hybrid_train_step)
 
     sizes = [min(s, SMALL_ROWS) for s in CRITEO_1TB_SIZES]
     cfg = DLRMConfig(table_sizes=sizes, embedding_dim=128,
@@ -1070,11 +1163,6 @@ def small_train_check(torch, dtype):
     dense = DLRMDense(cfg, device="cuda", generator=gen)
     sk = init_hybrid_state(de, SparseSGD(), dense, SGD(TRAIN_LR),
                            generator=gen, dtype=dtype, device="cuda")
-    sp = HybridTrainState(
-        emb_params={k: v.clone() for k, v in sk.emb_params.items()},
-        emb_opt_state=sk.emb_opt_state,
-        dense_params=copy.deepcopy(sk.dense_params),
-        dense_opt_state=sk.dense_opt_state, step=sk.step.clone())
     init = sk.emb_params["w128"][0].float().clone()
     # instrumented: the metrics of each step are held to the plain run's
     step = make_hybrid_train_step(de, loss_fn, SGD(TRAIN_LR), SparseSGD(),
@@ -1082,63 +1170,71 @@ def small_train_check(torch, dtype):
                                   with_metrics=True)
     batches = [train_batch(torch, sizes, SMALL_BATCH, seed=100 + k,
                            bad_ids=True) for k in range(SMALL_STEPS)]
-    runs = {}
-    for name, state in (("kernels", sk), ("plain", sp)):
-        zero_counts()
-        with (plain_kernels() if name == "plain"
-              else contextlib.nullcontext()):
-            losses, mets = [], []
-            for cats, batch in batches:
-                loss, state, m = step(state, cats, batch)
-                losses.append(loss)
-                mets.append(m)
-        torch.cuda.synchronize()
-        counts = read_counts()
-        want = SMALL_STEPS if name == "kernels" else 0
-        check(all(counts[k] == (want if k in DLRM_KERNELS else 0)
-                  for k in counts),
-              f"small train check ({name}): launches {counts}, expected "
-              f"{want} of each DLRM kernel and none of the others")
-        runs[name] = (torch.stack(losses).float(), state, mets)
-    (lk, stk, mk), (lp, stp, mp) = runs["kernels"], runs["plain"]
-    check(bool(torch.isfinite(lk).all()), "small train check: loss "
-          "not finite")
     f32 = dtype == torch.float32
     loss_tol, dense_tol = (1e-5, 1e-5) if f32 else (1e-2, 1e-3)
-    loss_err = float((lk - lp).abs().max())
+    metric_tol = 1e-3 if f32 else 5e-2
+    counts = {"kernels": {}, "plain": {}}
+    losses, loss_err, dense_err, slab_err, metric_err = [], 0.0, 0.0, 0.0, 0.0
+    for i, (cats, batch) in enumerate(batches):
+        twin = clone_state(sk)
+        before = sk.emb_params["w128"][0].float().clone()
+        out = {}
+        for name in ("kernels", "plain"):
+            zero_counts()
+            with (plain_kernels() if name == "plain"
+                  else contextlib.nullcontext()):
+                out[name] = step(sk if name == "kernels" else twin, cats,
+                                 batch)
+            torch.cuda.synchronize()
+            for k, v in read_counts().items():
+                counts[name][k] = counts[name].get(k, 0) + v
+        (lk, sk, mk), (lp, stp, mp) = out["kernels"], out["plain"]
+        check(bool(torch.isfinite(lk)), f"small train check step {i}: "
+              "loss not finite")
+        losses.append(float(lk))
+        loss_err = max(loss_err, float((lk.float() - lp.float()).abs()))
+        dense_err = max(dense_err, max(
+            float((a.detach() - b.detach()).abs().max())
+            for a, b in zip(sk.dense_params.parameters(),
+                            stp.dense_params.parameters())))
+        # a slab row that k ids updated this step: within k + 1 ulps of
+        # twice the largest magnitude it held (K3 and index_add_ round
+        # the adds in their own orders; the cotangents of the two sides
+        # differ by the dense kernels' float order)
+        a = sk.emb_params["w128"][0].float()
+        b = stp.emb_params["w128"][0].float()
+        k = torch.bincount(global_rows(torch, de, cats, sizes),
+                           minlength=a.shape[0]).float()[:, None]
+        scale = 2 * torch.maximum(torch.maximum(before.abs(), a.abs()),
+                                  b.abs())
+        err = (a - b).abs()
+        bad = int(torch.count_nonzero(err > (k + 1) * ulp(torch, scale,
+                                                          dtype)))
+        check(bad == 0, f"small train check {dtype} step {i}: {bad} slab "
+              f"values beyond (k + 1) ulps (max err {float(err.max())})")
+        slab_err = max(slab_err, float(err.max()))
+        metric_err = max(metric_err, metrics_close(
+            torch, [mk], [mp], metric_tol,
+            f"small train check {dtype} step {i}"))
+        del twin, stp, before, a, b, err
+    for name, want in (("kernels", SMALL_STEPS), ("plain", 0)):
+        check(all(counts[name][k] == (want if k in DLRM_KERNELS else 0)
+                  for k in counts[name]),
+              f"small train check ({name}): launches {counts[name]}, "
+              f"expected {want} of each DLRM kernel and none of the others")
     check(loss_err <= loss_tol, f"small train check {dtype}: losses differ "
           f"by {loss_err} (> {loss_tol})")
-    dense_err = max(float((a.detach() - b.detach()).abs().max())
-                    for a, b in zip(stk.dense_params.parameters(),
-                                    stp.dense_params.parameters()))
     check(dense_err <= dense_tol, f"small train check {dtype}: dense params "
           f"differ by {dense_err} (> {dense_tol})")
-    # a slab row that k ids updated: within k + 1 ulps of twice the
-    # largest magnitude it held (both sides add with atomics in their own
-    # order; upstream fp32 order differences move an add by one ulp)
-    a = stk.emb_params["w128"][0].float()
-    b = stp.emb_params["w128"][0].float()
-    k = torch.bincount(torch.cat([global_rows(torch, de, cats, sizes)
-                                  for cats, _ in batches]),
-                       minlength=a.shape[0]).float()[:, None]
-    scale = 2 * torch.maximum(torch.maximum(init.abs(), a.abs()), b.abs())
-    err = (a - b).abs()
-    bad = int(torch.count_nonzero(err > (k + 1) * ulp(torch, scale, dtype)))
-    check(bad == 0, f"small train check {dtype}: {bad} slab values beyond "
-          f"(k + 1) ulps (max err {float(err.max())})")
-    check(bool((a != init).any()), "small train check: no slab row changed")
-    # the norms and update bounds of two free-running trajectories whose
-    # parameters agree within the bounds above
-    metric_tol = 1e-3 if f32 else 5e-2
-    metric_err = metrics_close(torch, mk, mp, metric_tol,
-                               f"small train check {dtype}")
+    check(bool((sk.emb_params["w128"][0].float() != init).any()),
+          "small train check: no slab row changed")
     log(f"  small train check {str(dtype)[6:]}: {SMALL_STEPS} steps at "
-        f"b={SMALL_BATCH}, losses {[round(float(x), 5) for x in lk]}; "
-        f"kernels vs plain: loss {loss_err} (tol {loss_tol}), dense "
-        f"{dense_err} (tol {dense_tol}), slab max {float(err.max())} "
-        f"(tol (k+1) ulp), step metrics max relative {metric_err} (counts "
-        f"exact, the rest within {metric_tol})")
-    return float(err.max())
+        f"b={SMALL_BATCH} in lockstep, losses "
+        f"{[round(x, 5) for x in losses]}; kernels vs plain: loss "
+        f"{loss_err} (tol {loss_tol}), dense {dense_err} (tol {dense_tol}),"
+        f" slab max {slab_err} (tol (k+1) ulp), step metrics max relative "
+        f"{metric_err} (counts exact, the rest within {metric_tol})")
+    return slab_err
 
 
 METRIC_COUNTS = ("ids_routed", "id_overflow", "invalid_id_count",
@@ -1446,7 +1542,7 @@ def phase_train(torch, de, state):
              "instrumented_step": steps_in_turns(torch, metrics_step)}
     st = holder[0]
     if turns["step"]:
-        log("train: steps in turns with the parent's K1/K10/K19/K20/K22 "
+        log("train: steps in turns with the parent's K1/K3/K10/K19/K20/K22 "
             "wrappers (ms): " + json.dumps(turns))
     result = {
         "batch": TRAIN_BATCH, "steps": TRAIN_STEPS,
@@ -1690,7 +1786,9 @@ def phase_time(torch, de, state, errs, launches):
 
 def time_sgd_scatter(torch, de, slab):
     """K3 at the training stream (26 x 65536 ids, b-major, as the step
-    builds it) on the real slab, with 8 Zipfian id sets."""
+    builds it) on the real slab, cycling 8 Zipfian id sets: this tree's
+    wrapper, the parent's (``--parent``) and ``index_add_`` in turns, the
+    plain version, the engine's device split and the byte bound."""
     from distributed_embeddings_torch.ops import (sgd_scatter,
                                                   sgd_scatter_plain)
 
@@ -1698,7 +1796,7 @@ def time_sgd_scatter(torch, de, slab):
     roff = torch.as_tensor(de.row_offsets_list[0], dtype=torch.int32,
                            device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
-    args, lib_args, uniq = [], [], []
+    args, lib_args = [], []
     for k in range(8):
         cats, _ = train_batch(torch, CRITEO_1TB_SIZES, TRAIN_BATCH,
                               seed=2000 + k)
@@ -1708,20 +1806,19 @@ def time_sgd_scatter(torch, de, slab):
         args.append((ids, vals))
         nl = torch.tensor(-TRAIN_LR, dtype=torch.bfloat16, device="cuda")
         lib_args.append((ids.long(), vals * nl))
-        uniq.append(int(torch.unique(ids).numel()))
-    ms = time_ms(torch, lambda i, v: sgd_scatter(slab, i, v, TRAIN_LR), args)
-    plain = time_ms(torch, lambda i, v: sgd_scatter_plain(slab, i, v,
-                                                          TRAIN_LR), args)
-    lib = time_ms(torch, lambda i, u: slab.index_add_(0, i, u), lib_args)
+    parent = parent_ops()
     n = args[0][0].numel()
-    nbytes = n * w * 2 + n * 4 + 2 * uniq[0] * w * 2
-    bound = nbytes / HBM_BYTES_PER_S * 1e3
-    log(f"time sgd_scatter b65536: kernel {ms:.4f} ms, plain {plain:.4f}, "
-        f"library {lib:.4f}, bound {bound:.4f} ({uniq[0]} unique rows of "
-        f"{n} ids)")
-    return [{"case": "b65536", "ms": ms, "plain_ms": plain,
-             "library_ms": lib, "bound_ms": bound, "bound_by": "bytes",
-             "unique_rows": uniq[0], "ids": n, "bytes": nbytes}]
+    uniq = int(torch.unique(args[0][0]).numel())
+    nbytes = n * w * 2 + n * 4 + 2 * uniq * w * 2
+    case = segment_case(
+        torch, "sgd_scatter", "b65536",
+        cycling(lambda i, v: sgd_scatter(slab, i, v, TRAIN_LR), args),
+        cycling(lambda i, v: parent["scatter_add"].sgd_scatter(
+            slab, i, v, TRAIN_LR), args) if parent else None,
+        cycling(lambda i, u: slab.index_add_(0, i, u), lib_args), nbytes,
+        cycling(lambda i, v: sgd_scatter_plain(slab, i, v, TRAIN_LR), args),
+        args[0][0], slab.shape[0])
+    return [case]
 
 
 def time_dot_interact_bwd(torch):
@@ -1850,8 +1947,9 @@ def zoo_small_check(torch, dtype, acc_dtype, ratio):
     accumulators in ``acc_dtype``).
 
     Bounds: both runs compute the dense half alike, but the kernels sum
-    duplicate ids in another order than the plain versions (K3's atomics,
-    K5's pieces) and round ``rsqrt`` differently, and the synthetic
+    duplicate ids in another order than the plain versions (K3 in stream
+    order or chunks of L against ``index_add_``'s atomics, K5's pieces)
+    and round ``rsqrt`` differently, and the synthetic
     model's raw numerical features (x100) can make a ReLU whose
     pre-activation is at rounding level flip sign, after which that
     unit's Adagrad steps differ by up to lr:
@@ -1862,7 +1960,7 @@ def zoo_small_check(torch, dtype, acc_dtype, ratio):
       relative;
     - bf16 accumulators in the dense-apply regime: the scatter-sum adds
       a ten-row table's ~6,500 ids a step in bf16, rounding after each
-      add (as JAX does), in each run's own atomic order, so a row's
+      add (as JAX does), in each run's own order, so a row's
       gradient sum, and the sign of its Adagrad step, differ between
       the runs, and the 5-step trajectories part: finite losses, dense
       params, slabs and accumulators, and trained slabs, are all that
@@ -2052,8 +2150,9 @@ def zoo_full_check(torch, de, opt, st, data, cfg, label):
       fp32, in other orders, each within (k - 1) 2^-24 mag, so within
       2 k 2^-24 mag (bf16: and 1 bf16 ulp more, each rounds once);
     - K3 as the w8 scatter-sum (dense-apply): fp32 as K5; in bf16 both
-      round after each add, in the card's atomic order, so within k bf16
-      ulps of mag (the bound of ``tests/test_torch_cuda.py``);
+      round after each add, K3 in stream order (chunks of L past L hits)
+      and the plain ``index_add_`` in its atomics' order, so within k
+      bf16 ulps of mag (the bound of ``tests/test_torch_cuda.py``);
     - K6 (touched rows) and K7 (whole slab): accumulators bit-exact (the
       same per-op rounding); the kernels' correctly rounded ``rsqrt``
       and PyTorch's ``rsqrtf`` differ by up to 2 ulps, so slab values
@@ -2361,6 +2460,8 @@ def zoo_kernel_times(torch, de, opt, st, data, cfg):
         adagrad_dense, adagrad_dense_plain, adagrad_rows, adagrad_rows_plain,
         dedup_sparse_grad, dedup_sparse_grad_plain, gather_combine,
         gather_combine_plain, sgd_scatter, sgd_scatter_plain)
+    from distributed_embeddings_torch.ops.scatter_add import (
+        SPLIT, add_in_stream_order)
     from distributed_embeddings_torch.parallel import (
         Adagrad, lookup, make_hybrid_train_step)
 
@@ -2417,7 +2518,8 @@ def zoo_kernel_times(torch, de, opt, st, data, cfg):
                "shape": list(ids.shape)})
     del k1_calls
 
-    # K3, the w8 scatter-sum into a zero gradient slab
+    # K3, the w8 scatter-sum into a zero gradient slab (the zeroing in
+    # every timed call, as the step makes a zero slab)
     r8, r16 = seen["w8"], seen["w16"]
     R8, w8 = st.emb_params["w8"].shape[1:]
     ids8, vals8 = r8["ids"], r8["vals"]
@@ -2425,16 +2527,28 @@ def zoo_kernel_times(torch, de, opt, st, data, cfg):
     touched8 = int(torch.unique(ids8l[ids8l < R8]).numel())
     gz = torch.zeros((R8, w8), device="cuda")
     nbytes = ids8.numel() * (4 + w8 * 4) + 2 * touched8 * w8 * 4
-    out["sgd_scatter"] = {
-        "case": "zoo_w8_scatter_sum",
-        "ms": time_ms(torch, lambda: sgd_scatter(gz.zero_(), ids8, vals8,
-                                                 -1.0), [()]),
-        "plain_ms": time_ms(torch, lambda: sgd_scatter_plain(
-            gz.zero_(), ids8, vals8, -1.0), [()]),
-        "library_ms": time_ms(torch, lambda: gz.zero_().index_add_(
-            0, ids8l, vals8), [()]),
-        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-        "ids": ids8.numel(), "unique_rows": touched8, "bytes": nbytes}
+    out["sgd_scatter"] = segment_case(
+        torch, "sgd_scatter", "zoo_w8_scatter_sum",
+        lambda: sgd_scatter(gz.zero_(), ids8, vals8, -1.0),
+        (lambda: parent["scatter_add"].sgd_scatter(gz.zero_(), ids8, vals8,
+                                                   -1.0)) if parent else None,
+        lambda: gz.zero_().index_add_(0, ids8l, vals8), nbytes,
+        lambda: sgd_scatter_plain(gz.zero_(), ids8, vals8, -1.0), ids8, R8)
+    # the scatter-sum against the stream-order sum on the rows with at
+    # most L hits, and the same bits twice
+    a = sgd_scatter(torch.zeros_like(gz), ids8, vals8, -1.0)
+    check(torch.equal(a, sgd_scatter(torch.zeros_like(gz), ids8, vals8,
+                                     -1.0)), "K3 zoo w8: two calls differ")
+    cnt = torch.bincount(ids8l[(ids8l >= 0) & (ids8l < R8)], minlength=R8)
+    few = cnt <= SPLIT
+    sel = (ids8l >= 0) & (ids8l < R8)
+    sel &= few[ids8l.clamp(0, R8 - 1)]
+    want = add_in_stream_order(torch.zeros_like(gz), ids8l[sel], vals8[sel])
+    check(torch.equal(a[few], want[few]), "K3 zoo w8: rows with at most L "
+          "hits differ from the stream-order sum")
+    log(f"  sgd_scatter zoo w8: deterministic, {int(few.sum())} rows with "
+        f"at most {SPLIT} hits bit-exact to the stream-order sum")
+    del a, want, sel, cnt, few
 
     # K7 over the w8 slab (dense-apply)
     s8, a8 = st.emb_params["w8"][0], st.emb_opt_state["w8"][0]
@@ -2556,6 +2670,24 @@ def phase_zoo(torch):
     fp32["stage_ms_p50"] = zoo_stages(torch, de, opt, st, data)
     log("zoo stages fp32 (ms): " + json.dumps(fp32["stage_ms_p50"]))
     st, fp32["profile"] = zoo_profile(torch, de, opt, st, data)
+    # the fp32 Adagrad step (K3 the w8 scatter-sum) through the parent's
+    # wrappers in turns (--parent)
+    from distributed_embeddings_torch.parallel import (
+        Adagrad, make_hybrid_train_step)
+
+    holder = [st]
+    zstep = make_hybrid_train_step(de, zoo_loss, Adagrad(ZOO_LR), opt,
+                                   lr_schedule=ZOO_LR, nan_guard=False)
+
+    def zoo_step(k):
+        num, cats, lab = data[k % len(data)]
+        holder[0] = zstep(holder[0], cats, (num, lab))[1]
+
+    fp32["in_turns_with_parent"] = steps_in_turns(torch, zoo_step, rounds=3)
+    st = holder[0]
+    if fp32["in_turns_with_parent"]:
+        log("zoo fp32: steps in turns with the parent's K1/K3/K10/K19/K20/"
+            "K22 wrappers (ms): " + json.dumps(fp32["in_turns_with_parent"]))
     st, kcases, regime = zoo_kernel_times(torch, de, opt, st, data, cfg)
     log(f"zoo peak memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
     del st
@@ -2850,9 +2982,10 @@ def stream_bounds(torch, streams, before):
 
 
 def slab_misses(torch, got, want, hits, mag):
-    """Values of ``got`` beyond the atomic-order bound around ``want``:
-    rows hit at most once bit-exact, a row k ids hit within k ulps of
-    the slab dtype of ``mag``. Returns ``(count, max abs error)``."""
+    """Values of ``got`` beyond the reordered-scatter bound around
+    ``want``: rows hit at most once bit-exact, a row k ids hit within k
+    ulps of the slab dtype of ``mag``. Returns ``(count, max abs
+    error)``."""
     e = (got.float() - want.float()).abs()
     tol = torch.where(hits[:, None] > 1,
                       hits[:, None] * ulp(torch, mag, got.dtype),
@@ -2870,9 +3003,10 @@ def ragged_small_check(torch, table_dtype):
 
     Bounds: K8-K10 repeat their plain versions' arithmetic and every
     other kernel is the same in both runs, so the loss and the dense
-    params must be bitwise equal, and the slabs may differ only by the
-    order of K3's atomic adds: rows hit once bit-exact, a row k ids hit
-    within k ulps (of the table dtype) of |old| + the sum of
+    params must be bitwise equal, and the slabs are held within the
+    bound of a reordered scatter (K3 runs in both, and is deterministic:
+    they come out bitwise equal): rows hit once bit-exact, a row k ids
+    hit within k ulps (of the table dtype) of |old| + the sum of
     |lr x update|. A control run whose stream loses every other
     position must fail that bound."""
     from distributed_embeddings_torch.parallel import (
@@ -2983,14 +3117,18 @@ def record_calls(module, name, keep_out=True, on_call=None):
 def ragged_full_check(torch, de, st, sizes):
     """One full-size ragged step (~1% bad ids), each ragged kernel held
     to its plain version on the inputs the step gave it: K10's splits
-    (forward and backward), K8's output and K9's stream bit-exact, and the touched slab rows against the plain
-    scatter of K9's stream (rows one id hit bit-exact; a row k ids hit
-    within k fp32 ulps of |old| + the sum of |lr x update|: both add in
-    an atomic order of the card's choosing). Then the same batch with
-    three features as ``SparseIds`` must give a bitwise-equal forward."""
+    (forward and backward), K8's output and K9's stream bit-exact, and the
+    touched slab rows against K9's stream: rows hit at most L (``SPLIT``)
+    times bit-exact to the stream-order sum, a row k ids hit within k
+    fp32 ulps of |old| + the sum of |lr x update| (K3 sums its chunks of
+    L in a fixed order, the reference ``index_add_`` in its atomics'
+    order), and a control dropping every other position must fail the
+    bit-exact part. Then the same batch with three features as
+    ``SparseIds`` must give a bitwise-equal forward."""
     from distributed_embeddings_torch.ops import (
         lengths_to_splits_plain, ragged_combine_plain, ragged_grad_plain,
-        row_to_split, sgd_scatter_plain)
+        row_to_split, scatter_add)
+    from distributed_embeddings_torch.ops.scatter_add import SPLIT
     from distributed_embeddings_torch.parallel import (
         SGD, SparseSGD, apply, lookup, make_hybrid_train_step)
 
@@ -3060,30 +3198,71 @@ def ragged_full_check(torch, de, st, sizes):
     errs["ragged_grad"] = err
     cap = ids.shape[1]
     del k9[:], ids, vals, args, kw
-    # K3: the touched rows against the plain scatter of the same stream,
-    # in chunks of the stream
+    # K3: the touched rows against the stream: rows hit at most L times
+    # bit-exact to the stream-order sum, the rest within k fp32 ulps of an
+    # index_add_ of their updates (its atomics' order)
     r = rec.seen
-    want = r["before"].clone()
+    gid = r["ids"].long()
+    keep = torch.nonzero((gid >= 0) & (gid < nrows)).squeeze(1)
+    pos = torch.searchsorted(r["uniq"], gid[keep])
+    del gid
+    hits = torch.bincount(pos, minlength=len(r["uniq"]))
+    few = hits <= SPLIT
+    nl = scatter_add._neg_lr(r["lr"], torch.float32).cuda()
+
+    def upd(i):  # K3's float32 chain: fp32(-lr) * vals
+        return r["vals"][keep[i]].float() * nl
+
+    def stream_order(at):
+        """``before`` plus the updates at ``at`` (indices into the kept
+        positions, rows with at most L hits), the k-th update of every row
+        in pass k."""
+        out = r["before"].clone()
+        rr = pos[at]
+        order = torch.sort(rr, stable=True).indices
+        s_ = rr[order]
+        idx = torch.arange(len(s_), device="cuda")
+        first = torch.ones_like(s_, dtype=torch.bool)
+        first[1:] = s_[1:] != s_[:-1]
+        rank = idx - torch.cummax(torch.where(first, idx, 0), 0).values
+        by_rank = at[order][torch.sort(rank, stable=True).indices]
+        lo = 0
+        for hi in torch.cumsum(torch.bincount(rank), 0).tolist():
+            i = by_rank[lo:hi]
+            out[pos[i]] = out[pos[i]] + upd(i)
+            lo = hi
+        return out
+
+    exact_at = torch.nonzero(few[pos]).squeeze(1)
+    want = stream_order(exact_at)
     mag = r["before"].float().abs()
-    hits = torch.zeros(len(r["uniq"]), device="cuda")
+    many_at = torch.nonzero(~few[pos]).squeeze(1)
     chunk = 1 << 22
-    for lo in range(0, r["ids"].numel(), chunk):
-        gid = r["ids"][lo:lo + chunk].long()
-        keep = (gid >= 0) & (gid < nrows)
-        pos = torch.searchsorted(r["uniq"], gid[keep])
-        v = r["vals"][lo:lo + chunk][keep]
-        sgd_scatter_plain(want, pos, v, r["lr"])
-        mag.index_add_(0, pos, v.float().abs() * TRAIN_LR)
-        hits.index_add_(0, pos, torch.ones_like(pos, dtype=torch.float32))
+    for lo in range(0, len(many_at), chunk):
+        i = many_at[lo:lo + chunk]
+        want.index_add_(0, pos[i], upd(i))
+    for lo in range(0, len(pos), chunk):
+        i = torch.arange(lo, min(lo + chunk, len(pos)), device="cuda")
+        mag.index_add_(0, pos[i], upd(i).abs())
     got = slab[r["uniq"]]
     e = (got - want).abs()
-    once = int(torch.count_nonzero(e[hits == 1]))
+    once = int(torch.count_nonzero(e[few]))
     multi = int(torch.count_nonzero(
         e > hits[:, None] * ulp(torch, mag, torch.float32)))
     check(once == 0 and multi == 0, f"ragged full-size step: {once} values "
-          f"of rows hit once differ from the plain scatter, {multi} beyond "
-          f"k fp32 ulps (max err {float(e.max())})")
+          f"of rows hit at most {SPLIT} times differ from the stream-order "
+          f"sum, {multi} beyond k fp32 ulps (max err {float(e.max())})")
+    # the control: every other position of the stream is not the function
+    ctrl = stream_order(exact_at[keep[exact_at] % 2 == 0])
+    ctrl_bad = int(torch.count_nonzero((got != ctrl)[few]))
+    check(ctrl_bad > 0, "ragged full-size step: the control (every other "
+          "position dropped) passed the bit-exact check")
     errs["sgd_scatter"] = float(e.max())
+    log(f"ragged: K3 on the step's stream: {int(few.sum())} rows with at "
+        f"most {SPLIT} hits bit-exact to the stream-order sum, "
+        f"{int((~few).sum())} rows (up to {int(hits.max())} hits) within k "
+        f"fp32 ulps; the control differs in {ctrl_bad} values")
+    del want, ctrl, mag, pos, keep, exact_at, many_at
     changed = int(torch.count_nonzero((got != r["before"]).any(1)))
     log(f"ragged: full-size step at b={TRAIN_BATCH}, cap {cap}: loss "
         f"{float(loss):.5f}; {r['ids'].numel()} stream positions, "
@@ -3091,9 +3270,9 @@ def ragged_full_check(torch, de, st, sizes):
         f"than once, {changed} changed); vs plain on the step's inputs: "
         f"lengths_to_splits (forward and backward), ragged_combine and "
         f"ragged_grad bit-exact, sgd_scatter max_abs_err "
-        f"{errs['sgd_scatter']} (rows hit once bit-exact, k hits within k "
-        "fp32 ulps)")
-    del rec.seen, r, want, mag, got, e
+        f"{errs['sgd_scatter']} (rows hit at most {SPLIT} times bit-exact, "
+        "k hits within k fp32 ulps)")
+    del rec.seen, r, got, e
     # the same ids with three features as SparseIds: row_to_split (K10)
     mixed = [as_sparse_ids(torch, c, TRAIN_BATCH) if t in SPARSE_FEATURES
              else c for t, c in enumerate(cats)]
@@ -3224,7 +3403,7 @@ def ragged_timed(torch, de, st, batches):
     turns = steps_in_turns(torch, run_step)
     st = holder[0]
     if turns:
-        log("ragged: steps in turns with the parent's K1/K10/K19/K20/K22 "
+        log("ragged: steps in turns with the parent's K1/K3/K10/K19/K20/K22 "
             "wrappers (ms): " + json.dumps(turns))
     b = batches[0][1][0].shape[0]
     result = {
@@ -3407,21 +3586,44 @@ def ragged_kernel_times(torch, de, st, batches):
 
     keep = ids < rows
     uniq = int(torch.unique(ids[keep]).numel())
-    ms = time_ms(torch, lambda i, v: sgd_scatter(slab, i, v, TRAIN_LR),
-                 [stream])
-    plain = time_ms(torch, k3_plain, [stream])
     nl = torch.tensor(-TRAIN_LR, dtype=torch.float32, device="cuda")
-    lib_args = [(ids[keep].long(), vals[keep].float() * nl)]
+    lib_i, lib_u = ids[keep].long(), vals[keep].float() * nl
     del keep
-    lib = time_ms(torch, lambda i, u: slab.index_add_(0, i, u), lib_args)
-    del lib_args
     n3 = ids.numel()
     nbytes = n3 * w * vals.element_size() + n3 * 4 + 2 * uniq * w * 4
-    cases["sgd_scatter"] = dict(
-        case=f"ragged b65536 stream ({n3} positions)", ms=ms,
-        plain_ms=plain, library_ms=lib,
-        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-        unique_rows=uniq, ids=n3, bytes=nbytes)
+    parent = parent_ops()
+    from distributed_embeddings_torch.ops import scatter_add
+
+    scratch = scatter_add.find_sgd_record(
+        scatter_add._K3, slab, ids, vals, TRAIN_LR,
+        build_on_cpu=True).payload[0]
+    scratch_gb = 0.0 if scratch is None else scratch.numel() / 1e9
+    del scratch
+    case = segment_case(
+        torch, "sgd_scatter", f"ragged b65536 stream ({n3} positions)",
+        lambda: sgd_scatter(slab, ids, vals, TRAIN_LR),
+        (lambda: parent["scatter_add"].sgd_scatter(slab, ids, vals,
+                                                   TRAIN_LR))
+        if parent else None,
+        lambda: slab.index_add_(0, lib_i, lib_u), nbytes,
+        lambda: k3_plain(ids, vals), ids, rows,
+        extra={"scratch_gb": scratch_gb})
+    del lib_i, lib_u
+    log(f"  sgd_scatter ragged: the record's scratch (sort buffers, lists "
+        f"and partials) holds {scratch_gb:.3f} GB")
+    # DETPU_SGD_DEDUP=1's chain (K5 then K3's dedup chain) in turns
+    from distributed_embeddings_torch.ops import dedup_sparse_grad
+
+    def dedup_chain():
+        u, v = dedup_sparse_grad(ids, vals, pad_id=rows, max_unique=rows + 1)
+        sgd_scatter(slab, u, v, TRAIN_LR, cast_vals=False)
+
+    case["k3_ms_in_turns"], case["dedup_chain_ms"] = ab_ms(
+        torch, lambda: sgd_scatter(slab, ids, vals, TRAIN_LR), dedup_chain)
+    log(f"  sgd_scatter ragged: K3 {case['k3_ms_in_turns']:.4f} ms against "
+        f"DETPU_SGD_DEDUP=1's K5 + K3 {case['dedup_chain_ms']:.4f} ms in "
+        "turns")
+    cases["sgd_scatter"] = case
     del stream, ids, vals
     # K13-K15 on the step's telemetry stream (~26.4M positions)
     from distributed_embeddings_torch.analysis import telemetry as tel
@@ -4331,8 +4533,8 @@ def telemetry_checks(torch, de, st, sizes, cfg):
         f"ids_total bitwise equal; {live} ids counted")
     del ref, tp
     # (b) telemetry on against off, in lockstep from one state: losses,
-    # dense params and K3's inputs bitwise; the slab within the order of
-    # K3's atomic adds (rows hit once bitwise)
+    # dense params and K3's inputs bitwise; the slab within the bound of a
+    # reordered scatter (K3 is deterministic: bitwise)
     telem = tel.init_telemetry(de, cfg, device="cuda")
     slab_bitwise = True
     worst = 0.0
@@ -4357,14 +4559,14 @@ def telemetry_checks(torch, de, st, sizes, cfg):
         bad, err = slab_misses(torch, st.emb_params["w128"][0],
                                off.emb_params["w128"][0], hits, mag)
         check(bad == 0, f"telemetry on/off step {i}: {bad} slab values "
-              f"beyond K3's atomic-order bound (max err {err})")
+              f"beyond the reordered-scatter bound (max err {err})")
         worst = max(worst, err)
         slab_bitwise &= torch.equal(st.emb_params["w128"],
                                     off.emb_params["w128"])
         del off, before, hits, mag, streams
     log(f"  telemetry on vs off, {TELEM_CHECK_STEPS} lockstep steps: losses,"
         f" dense params and K3's inputs bitwise equal; slab "
-        f"{'bitwise equal' if slab_bitwise else 'within K3 atomic order'} "
+        f"{'bitwise equal' if slab_bitwise else 'within the k-ulp bound'} "
         f"(max err {worst})")
     # (c) the guard: a NaN batch leaves the train state bitwise unchanged
     # and still folds its ids, exactly as the plain fold of those ids
@@ -5793,10 +5995,12 @@ def promoted_kernel_checks(torch):
 
 def time_sgd_promoted(torch, de, slab, sizes, label, seed):
     """K18 timed on a training stream (26 x 65536 ids, b-major as the
-    step builds it, 8 Zipfian id sets) into ``slab``, beside K3 on the
-    same stream (K3 rounds each add to bf16: not the same function), the
-    plain version, ``index_add_`` of the bf16-rounded products (K3's
-    chain: the nearest one PyTorch call) and the byte bound."""
+    step builds it, 8 Zipfian id sets) into ``slab``: this tree's wrapper,
+    the parent's (``--parent``) and ``index_add_`` of the bf16-rounded
+    products (K3's chain: the nearest one PyTorch call) in turns, the
+    plain version, the engine's device split and the byte bound; then K3
+    on the same stream (K3 rounds each add to bf16: not the same
+    function), this tree's and the parent's, in turns with K18."""
     from distributed_embeddings_torch.ops import (
         sgd_scatter, sgd_scatter_promoted, sgd_scatter_promoted_plain)
 
@@ -5806,7 +6010,7 @@ def time_sgd_promoted(torch, de, slab, sizes, label, seed):
     roff = torch.as_tensor(de.row_offsets_list[0], dtype=torch.int32,
                            device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    args, lib_args, uniq, hot = [], [], [], []
+    args, lib_args = [], []
     for k in range(8):
         cats, _ = train_batch(torch, sizes, TRAIN_BATCH, seed=seed + k)
         ids = (torch.stack(cats, dim=1) + roff).reshape(-1).contiguous()
@@ -5815,28 +6019,44 @@ def time_sgd_promoted(torch, de, slab, sizes, label, seed):
         args.append((ids, vals))
         nl = torch.tensor(-lr_val, dtype=torch.bfloat16, device="cuda")
         lib_args.append((ids.long(), vals * nl))
-        _, counts = torch.unique(ids, return_counts=True)
-        uniq.append(int(counts.numel()))
-        hot.append(int(counts.max()))
-    ms = time_ms(torch, lambda i, v: sgd_scatter_promoted(slab, i, v, lr),
-                 args)
-    k3 = time_ms(torch, lambda i, v: sgd_scatter(slab, i, v, lr_val), args)
-    plain = time_ms(torch, lambda i, v: sgd_scatter_promoted_plain(
-        slab, i, v, lr), args)
-    lib = time_ms(torch, lambda i, u: slab.index_add_(0, i, u), lib_args)
+    parent = parent_ops()
+    par = parent["scatter_add"] if parent else None
     n = args[0][0].numel()
-    nbytes = n * w * 2 + n * 4 + 2 * uniq[0] * w * 2
-    bound = nbytes / HBM_BYTES_PER_S * 1e3
-    log(f"time sgd_scatter_promoted {label}: kernel {ms:.4f} ms, K3 on the "
-        f"same stream {k3:.4f}, plain {plain:.4f}, library (index_add_, "
-        f"K3's chain) {lib:.4f}, bound {bound:.4f} ({uniq[0]} unique rows "
-        f"of {n} ids, the hottest hit {hot[0]} times)")
-    return {"case": label, "ms": ms, "plain_ms": plain, "library_ms": lib,
-            "library_call": "index_add_ of bf16-rounded products (K3's "
-                            "chain, not the promoted one)",
-            "k3_same_stream_ms": k3, "bound_ms": bound, "bound_by": "bytes",
-            "unique_rows": uniq[0], "hottest_row_hits": hot[0], "ids": n,
-            "bytes": nbytes}
+    uniq = int(torch.unique(args[0][0]).numel())
+    nbytes = n * w * 2 + n * 4 + 2 * uniq * w * 2
+    case = segment_case(
+        torch, "sgd_scatter_promoted", label,
+        cycling(lambda i, v: sgd_scatter_promoted(slab, i, v, lr), args),
+        cycling(lambda i, v: par.sgd_scatter_promoted(slab, i, v, lr), args)
+        if par else None,
+        cycling(lambda i, u: slab.index_add_(0, i, u), lib_args), nbytes,
+        cycling(lambda i, v: sgd_scatter_promoted_plain(slab, i, v, lr),
+                args), args[0][0], slab.shape[0])
+    case["library_call"] = ("index_add_ of bf16-rounded products (K3's "
+                            "chain, not the promoted one)")
+    k18 = cycling(lambda i, v: sgd_scatter_promoted(slab, i, v, lr), args)
+    k3 = cycling(lambda i, v: sgd_scatter(slab, i, v, lr_val), args)
+    case["k18_ms_in_turns"], case["k3_same_stream_ms"] = ab_ms(torch, k18,
+                                                               k3)
+    case["parent_k3_same_stream_ms"] = None
+    if par is not None:
+        _, case["parent_k3_same_stream_ms"] = ab_ms(torch, k18, cycling(
+            lambda i, v: par.sgd_scatter(slab, i, v, lr_val), args))
+    # the hottest row's serial chain alone: its entries of the stream
+    ids0, vals0 = args[0]
+    rows0, counts0 = torch.unique(ids0, return_counts=True)
+    hot = ids0 == rows0[counts0.argmax()]
+    hot_ids, hot_vals = ids0[hot].contiguous(), vals0[hot].contiguous()
+    case["hottest_row_alone_ms"] = time_ms(
+        torch, lambda: sgd_scatter_promoted(slab, hot_ids, hot_vals, lr),
+        [()])
+    del rows0, counts0, hot, hot_ids, hot_vals
+    log(f"  sgd_scatter_promoted {label}: K18 {case['k18_ms_in_turns']:.4f}"
+        f" ms, K3 on the same stream {case['k3_same_stream_ms']:.4f}, the "
+        f"parent's K3 {case['parent_k3_same_stream_ms']}; the hottest row's "
+        f"{case['longest_segment']} entries alone "
+        f"{case['hottest_row_alone_ms']:.4f} ms")
+    return case
 
 
 def promoted_full_check(torch, de, state):
@@ -5912,6 +6132,39 @@ def example_args(tmp, sizes):
             "--param_dtype", "bfloat16",
             "--eval_interval", str(EXAMPLE_EVAL_INTERVAL),
             "--checkpoint_out", os.path.join(tmp, "embedding_weights")]
+
+
+def example_steps_in_turns(torch, run, sizes):
+    """The example's train step (its loss, SGD under its schedule on
+    both halves, bf16 tables: K18 once a step) on run A's layer and
+    final state, through this tree's wrappers and the parent's in turns
+    (``steps_in_turns``); None without ``--parent``. Updates the state
+    in place."""
+    from distributed_embeddings_torch.models import bce_with_logits
+    from distributed_embeddings_torch.models.schedules import (
+        warmup_poly_decay_schedule)
+    from distributed_embeddings_torch.parallel import (
+        SGD, SparseSGD, make_hybrid_train_step)
+
+    if parent_ops() is None:
+        return None
+    sched = warmup_poly_decay_schedule(*PROMOTED_SCHEDULE)
+    step = make_hybrid_train_step(
+        run.de, lambda dp, outs, batch: bce_with_logits(dp(batch[0], outs),
+                                                        batch[1]),
+        SGD(sched), SparseSGD(), lr_schedule=sched)
+    data = [train_batch(torch, sizes, TRAIN_BATCH, seed=SEED + 230 + k)
+            for k in range(4)]
+    holder = [run.state]
+
+    def run_step(k):
+        cats, batch = data[k % len(data)]
+        _, holder[0] = step(holder[0], cats, batch)
+
+    turns = steps_in_turns(torch, run_step)
+    log("example: steps in turns with the parent's wrappers (ms): "
+        + json.dumps(turns))
+    return turns
 
 
 def example_state_equal(torch, a, b, what):
@@ -6073,6 +6326,7 @@ def phase_example(torch, promoted_1tb):
             f"{EXAMPLE_STEPS - EXAMPLE_SAVE_AT} more) bitwise equal to the "
             f"uninterrupted {EXAMPLE_STEPS}: losses, the bf16 slab, the dense "
             "params, the schedule count and the step")
+        example_turns = example_steps_in_turns(torch, a, sizes)
         slab = next(iter(a.state.emb_params.values()))[0]
         case = time_sgd_promoted(torch, a.de, slab, sizes, "kaggle_b65536",
                                  SEED + 220)
@@ -6092,7 +6346,8 @@ def phase_example(torch, promoted_1tb):
                 "served", "shed", "latency_p50_ms", "latency_p99_ms",
                 "pad_fraction")},
             "launches_per_step": {n: v / EXAMPLE_STEPS
-                                  for n, v in launches.items() if v}}
+                                  for n, v in launches.items() if v},
+            "in_turns_with_parent": example_turns}
         log("example: " + json.dumps(metrics))
         del a
     finally:
@@ -6377,7 +6632,8 @@ def w8_recording_sgd(torch):
 def w8_scatter_check(torch, seen):
     """Each width slab's touched rows against the plain scatter of the
     step's stream applied to their snapshot: rows hit once bit-exact,
-    rows hit k times within k bf16 ulps (both add with atomics)."""
+    rows hit k times within k bf16 ulps (K3 and the plain ``index_add_``
+    add in their own orders)."""
     from distributed_embeddings_torch.ops import scatter_add
 
     worst = 0.0

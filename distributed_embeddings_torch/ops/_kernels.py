@@ -70,18 +70,29 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "detpu_dot_interact_bwd": (_P, _P, _P, _I64, _I, _I, _I, _P),
     },
     "sgd_scatter": {
-        # slab, rows, width, slab_dtype, ids, ids_is_64, n, vals,
-        # vals_dtype, neg_lr, neg_lr_dev, cast_vals, stream
-        "detpu_sgd_scatter": (_P, _I64, _I, _I, _P, _I, _I64, _P, _I,
-                              ctypes.c_float, _P, _I, _P),
+        # rows, width, slab_dtype, ids_is_64, n, vals_dtype, neg_lr,
+        # lr_on_card, cast_vals, scratch, prepared (host, out)
+        "detpu_sgd_scatter_prepare": (_I64, _I, _I, _I, _I64, _I, _F, _I,
+                                      _I, _P, _P),
+        # prepared, slab, ids, vals, lr, stream
+        "detpu_sgd_scatter_launch": (_P, _P, _P, _P, _P, _P),
+        # n, width -> bytes of card scratch
+        "detpu_sgd_scatter_scratch_bytes": (_I64, _I),
+        # -> the bytes of a prepared launch / K3's chunk L / a sort tile
+        "detpu_segment_prepared_bytes": (),
+        "detpu_segment_split": (),
+        "detpu_segment_sort_tile": (),
     },
     "sgd_promoted": {
-        # slab, rows, width, ids, ids_is_64, n, vals, vals_dtype,
-        # neg_lr_dev, scratch, stream
-        "detpu_sgd_promoted": (_P, _I64, _I, _P, _I, _I64, _P, _I, _P, _P,
-                               _P),
-        # n, rows -> bytes
-        "detpu_sgd_promoted_scratch_bytes": (_I64, _I64),
+        # rows, width, ids_is_64, n, vals_dtype, scratch, prepared (out)
+        "detpu_sgd_promoted_prepare": (_I64, _I, _I, _I64, _I, _P, _P),
+        # prepared, slab, ids, vals, lr, stream
+        "detpu_sgd_promoted_launch": (_P, _P, _P, _P, _P, _P),
+        # n, width -> bytes of card scratch
+        "detpu_sgd_promoted_scratch_bytes": (_I64, _I),
+        # -> the bytes of a prepared launch / the block path's length
+        "detpu_segment_prepared_bytes": (),
+        "detpu_segment_long": (),
     },
     "dedup": {
         # ids, ids_is_64, n, vals, vals_dtype, width, pad_id, u_cap, uids,
@@ -226,6 +237,11 @@ RESTYPES = {"detpu_dedup_scratch_bytes": _I64,
             "detpu_csr_scan_tile": _I64,
             "detpu_lengths_to_splits_scratch_bytes": _I64,
             "detpu_sgd_promoted_scratch_bytes": _I64,
+            "detpu_sgd_scatter_scratch_bytes": _I64,
+            "detpu_segment_prepared_bytes": _I64,
+            "detpu_segment_split": _I64,
+            "detpu_segment_sort_tile": _I64,
+            "detpu_segment_long": _I64,
             "detpu_topk_pool_scratch_bytes": _I64,
             "detpu_topk_pool_clear_bytes": _I64,
             "detpu_topk_merge_scratch_bytes": _I64,
@@ -399,6 +415,26 @@ def stream_handle(index: int) -> int:
     ``launch_host_split`` times it against
     ``torch.cuda.current_stream(dev).cuda_stream``)."""
     return torch._C._cuda_getCurrentRawStream(index)
+
+
+def device_index(dev: torch.device) -> int:
+    """A record's card index (-1 off the card)."""
+    return (dev.index or 0) if dev.type == "cuda" else -1
+
+
+def find_or_build(cache: "LaunchCache", key: tuple, build, on_cpu: bool,
+                  build_on_cpu: bool, *args) -> Optional["LaunchRecord"]:
+    """The record under ``key`` in ``cache``, or ``build(*args)`` kept
+    there. A miss on CPU tensors is validated (``build`` raises as the
+    wrapper always has) and gives None (the wrapper runs the plain
+    version) unless ``build_on_cpu``."""
+    rec = cache.get(key)
+    if rec is not None:
+        return rec
+    if on_cpu and not build_on_cpu:
+        build(*args)
+        return None
+    return cache.add(key, build(*args))
 
 
 class LaunchRecord:

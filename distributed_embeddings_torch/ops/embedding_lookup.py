@@ -128,10 +128,6 @@ def vector_bytes(slab: torch.Tensor) -> int:
     return vb
 
 
-def _device_index(dev: torch.device) -> int:
-    return (dev.index or 0) if dev.type == "cuda" else -1
-
-
 def _check_device(dev: torch.device) -> None:
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
@@ -195,22 +191,8 @@ def build_gather_record(slab, ids, rows, roff, div, mask=None,
         if n * b:
             calls = [(lib.detpu_gather_combine_launch, (buf.ctypes.data,))]
     return _kernels.LaunchRecord(
-        lib, "gather_combine", calls, _device_index(dev),
+        lib, "gather_combine", calls, _kernels.device_index(dev),
         payload=((n, b, w), slab.dtype, dev, vb, buf))
-
-
-def _find(cache: _kernels.LaunchCache, key: tuple, build, on_cpu: bool,
-          build_on_cpu: bool, *args):
-    """The record under ``key`` in ``cache``, or ``build(*args)`` kept
-    there. A miss on CPU tensors is validated and gives None (the
-    wrapper runs the plain version) unless ``build_on_cpu``."""
-    rec = cache.get(key)
-    if rec is not None:
-        return rec
-    if on_cpu and not build_on_cpu:
-        build(*args)
-        return None
-    return cache.add(key, build(*args))
 
 
 def find_gather_record(cache: _kernels.LaunchCache, slab, ids, rows, roff,
@@ -218,11 +200,11 @@ def find_gather_record(cache: _kernels.LaunchCache, slab, ids, rows, roff,
                        build_on_cpu: bool = False):
     """K1's launch record of a call: found in ``cache`` by
     :func:`gather_record_key`, or built (:func:`build_gather_record`) and
-    kept (:func:`_find`)."""
-    return _find(cache, gather_record_key(slab, ids, rows, roff, div, mask,
-                                          weights),
-                 build_gather_record, slab.device.type == "cpu",
-                 build_on_cpu, slab, ids, rows, roff, div, mask, weights)
+    kept (:func:`~._kernels.find_or_build`)."""
+    return _kernels.find_or_build(
+        cache, gather_record_key(slab, ids, rows, roff, div, mask, weights),
+        build_gather_record, slab.device.type == "cpu", build_on_cpu, slab,
+        ids, rows, roff, div, mask, weights)
 
 
 _GATHER = _kernels.LaunchCache()
@@ -368,17 +350,18 @@ def build_splits_record(lengths, valid=None) -> _kernels.LaunchRecord:
         if n:
             calls = [(lib.detpu_csr_launch, (buf.ctypes.data,))]
     return _kernels.LaunchRecord(
-        lib, "lengths_to_splits", calls, _device_index(dev),
+        lib, "lengths_to_splits", calls, _kernels.device_index(dev),
         payload=((n, b + 1), torch.int64, dev, scratch, buf))
 
 
 def find_splits_record(cache: _kernels.LaunchCache, lengths, valid=None,
                        build_on_cpu: bool = False):
     """The lengths -> splits record of a call, found in ``cache`` by
-    :func:`splits_record_key` or built and kept (:func:`_find`)."""
-    return _find(cache, splits_record_key(lengths, valid),
-                 build_splits_record, lengths.device.type == "cpu",
-                 build_on_cpu, lengths, valid)
+    :func:`splits_record_key` or built and kept
+    (:func:`~._kernels.find_or_build`)."""
+    return _kernels.find_or_build(
+        cache, splits_record_key(lengths, valid), build_splits_record,
+        lengths.device.type == "cpu", build_on_cpu, lengths, valid)
 
 
 _SPLITS = _kernels.LaunchCache()
@@ -464,17 +447,19 @@ def build_row_split_record(indices, dim_0: int,
             buf.ctypes.data), "row_to_split")
         calls = [(lib.detpu_csr_launch, (buf.ctypes.data,))]
     return _kernels.LaunchRecord(
-        lib, "row_to_split", calls, _device_index(dev),
+        lib, "row_to_split", calls, _kernels.device_index(dev),
         payload=((int(dim_0) + 1,), out_dt, dev, buf))
 
 
 def find_row_split_record(cache: _kernels.LaunchCache, indices, dim_0: int,
                           dtype=None, build_on_cpu: bool = False):
     """The ``row_to_split`` record of a call, found in ``cache`` by
-    :func:`row_split_record_key` or built and kept (:func:`_find`)."""
-    return _find(cache, row_split_record_key(indices, dim_0, dtype),
-                 build_row_split_record, indices.device.type == "cpu",
-                 build_on_cpu, indices, dim_0, dtype)
+    :func:`row_split_record_key` or built and kept
+    (:func:`~._kernels.find_or_build`)."""
+    return _kernels.find_or_build(
+        cache, row_split_record_key(indices, dim_0, dtype),
+        build_row_split_record, indices.device.type == "cpu", build_on_cpu,
+        indices, dim_0, dtype)
 
 
 _ROW_SPLITS = _kernels.LaunchCache()
@@ -550,17 +535,19 @@ def build_row_ids_record(row_splits, capacity: int) -> _kernels.LaunchRecord:
         if n * cap:
             calls = [(lib.detpu_csr_launch, (buf.ctypes.data,))]
     return _kernels.LaunchRecord(
-        lib, "ragged_row_ids", calls, _device_index(dev),
+        lib, "ragged_row_ids", calls, _kernels.device_index(dev),
         payload=((*lead, cap), row_splits.dtype, dev, buf))
 
 
 def find_row_ids_record(cache: _kernels.LaunchCache, row_splits,
                         capacity: int, build_on_cpu: bool = False):
     """The ``ragged_row_ids`` record of a call, found in ``cache`` by
-    :func:`row_ids_record_key` or built and kept (:func:`_find`)."""
-    return _find(cache, row_ids_record_key(row_splits, capacity),
-                 build_row_ids_record, row_splits.device.type == "cpu",
-                 build_on_cpu, row_splits, capacity)
+    :func:`row_ids_record_key` or built and kept
+    (:func:`~._kernels.find_or_build`)."""
+    return _kernels.find_or_build(
+        cache, row_ids_record_key(row_splits, capacity),
+        build_row_ids_record, row_splits.device.type == "cpu", build_on_cpu,
+        row_splits, capacity)
 
 
 _ROW_IDS = _kernels.LaunchCache()

@@ -12,9 +12,12 @@ or 1e-6 / 1e-5 relative (fp32), since the kernel sums in another order.
 The interaction backward (K4) is within 1 bf16 ulp of the plain result
 plus 2^-20 of the sum of |terms| (fp32 order; fp32: 1e-5 of that sum).
 The SGD scatter (K3) is bit-exact on rows one id updates and on dyadic
-float32 duplicates; a row that k ids update with inexact sums is within
-k ulps of its dtype of ``|old| + sum |update|`` (both sides add with
-atomics, in an order of the card's choosing). A small DLRM trained 5
+float32 duplicates; against the card's ``index_add_`` a row that k ids
+update with inexact sums is within k ulps of its dtype of ``|old| + sum
+|update|`` (the plain version's atomics add in an order of the card's
+choosing); against its plain version run on the CPU (stream order) K3
+is bit-exact on every row hit at most L = 256 times, and the same bits
+on every launch. A small DLRM trained 5
 steps on the card (kernels) and on the CPU (plain versions), float32:
 losses, tables and dense params within 1e-4 (cuBLAS and the CPU sum in
 other orders). The dedup (K5), Adagrad row (K6) and dense (K7) kernels,
@@ -1700,6 +1703,255 @@ def test_sgd_dedup_chain_kernel_matches_plain(cuda_device, lr, vals_dtype):
     want = sgd_scatter_plain(slab.clone(), torch.from_numpy(ids), vals, t_lr,
                              cast_vals=False)
     _bf16_bits_equal(got, want, f"dedup chain lr={lr}")
+
+
+def _float_bits_equal(got: torch.Tensor, want: torch.Tensor, what: str):
+    """Bitwise float32/bfloat16 equality of a card tensor and a CPU one,
+    a NaN matching any NaN."""
+    if got.dtype == torch.bfloat16:
+        return _bf16_bits_equal(got, want, what)
+    g = got.detach().cpu().view(torch.int32).numpy().view(np.uint32)
+    w = want.detach().cpu().view(torch.int32).numpy().view(np.uint32)
+    gnan, wnan = (g & 0x7FFFFFFF) > 0x7F800000, (w & 0x7FFFFFFF) > 0x7F800000
+    np.testing.assert_array_equal(gnan, wnan, err_msg=what)
+    bad = (g != w) & ~gnan
+    assert not bad.any(), f"{what}: {int(bad.sum())} elements differ"
+
+
+def _capped_zipf(rng, n, rows, cap):
+    """A Zipfian stream into ``rows`` rows in which no row has more than
+    ``cap`` hits (an extra hit of a full row moves to the next row that
+    is not full; n <= rows * cap)."""
+    assert n <= rows * cap
+    ids = (rng.zipf(1.2, size=n) - 1) % rows
+    seen = np.zeros(rows, np.int64)
+    for j, r in enumerate(ids):
+        while seen[r] >= cap:
+            r = (r + 1) % rows
+        seen[r] += 1
+        ids[j] = r
+    return ids
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slab_dtype,vals_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("width", [3, 8, 16, 24, 128])
+def test_sgd_scatter_bit_exact_up_to_the_split(cuda_device, slab_dtype,
+                                               vals_dtype, width):
+    """The sorted-segment K3 against its plain version run on CPU copies
+    (``index_add_`` in stream order), BIT-EXACT when no row has more than
+    ``SPLIT`` hits: Zipfian duplicates capped at ``SPLIT`` (a row at
+    exactly ``SPLIT``), negative ids, the sentinel, ids past the slab,
+    a NaN and an Inf in hit rows, int32 and int64 ids, a constant and a
+    tensor lr, both chains (``cast_vals``), and update rows at an odd
+    offset in memory (the one-column-a-lane path)."""
+    from distributed_embeddings_torch.ops.scatter_add import SPLIT
+
+    rng = np.random.default_rng(1000 + width)
+    R = 700
+    ids = _capped_zipf(rng, 6000, R, SPLIT - 1)  # -1 and -R add one hit
+    ids[rng.permutation(6000)[:SPLIT - int((ids == 5).sum())]] = 5
+    ids = np.concatenate([ids, [-1, -R, R, R + 3, -R - 1, 10 ** 6]])
+    kept = ids[(ids >= -R) & (ids < R)]
+    counts = np.bincount(np.where(kept < 0, kept + R, kept), minlength=R)
+    assert counts.max() <= SPLIT and counts.max() >= SPLIT - 5
+    slab = rng.normal(size=(R, width)).astype(np.float32)
+    slab[ids[0], 0] = np.nan
+    vals = rng.normal(scale=2.0, size=(len(ids), width)).astype(np.float32)
+    vals[1, -1] = np.inf
+    s = torch.from_numpy(slab).to(slab_dtype)
+    v = torch.from_numpy(vals).to(vals_dtype)
+    for ids_dtype in (torch.int32, torch.int64):
+        i = torch.from_numpy(ids).to(ids_dtype)
+        for lr in (0.37, torch.tensor(0.0123)):
+            for cast in (True, False):
+                if (cast and isinstance(lr, torch.Tensor)
+                        and slab_dtype == torch.bfloat16):
+                    continue  # the promoted chain: K18's test
+                got = s.to(cuda_device)
+                before = sgd_scatter.launches
+                sgd_scatter(got, i.to(cuda_device), v.to(cuda_device),
+                            lr.to(cuda_device) if isinstance(
+                                lr, torch.Tensor) else lr, cast_vals=cast)
+                torch.cuda.synchronize()
+                assert sgd_scatter.launches == before + 1
+                want = sgd_scatter_plain(s.clone(), i, v, lr, cast_vals=cast)
+                what = f"w{width} {ids_dtype} lr={lr} cast={cast}"
+                _float_bits_equal(got, want, what)
+        # update rows at an odd offset: one column a lane
+        flat = torch.empty(v.numel() + 1, dtype=v.dtype, device=cuda_device)
+        vm = flat[1:].view(v.shape)
+        vm.copy_(v.to(cuda_device))
+        got = s.to(cuda_device)
+        sgd_scatter(got, i.to(cuda_device), vm, 0.37)
+        _float_bits_equal(got, sgd_scatter_plain(s.clone(), i, v, 0.37),
+                          f"w{width} {ids_dtype} misaligned")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slab_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("width", [8, 128, 3])
+def test_sgd_scatter_hot_rows_deterministic(cuda_device, slab_dtype, width):
+    """A Zipfian stream with rows far past ``SPLIT`` hits (one at 20,000):
+    two launches give the same bits, and the slab is within k ulps of the
+    plain version (CPU, stream order) on a row k ids hit (the chunks are
+    summed in float32, then added in chunk order); rows with at most
+    ``SPLIT`` hits stay bit-exact. A control that drops every other
+    position of the stream must fail the k-ulp bound."""
+    from distributed_embeddings_torch.ops.scatter_add import SPLIT
+
+    rng = np.random.default_rng(7 + width)
+    R, n = 2000, 60000
+    ids = (rng.zipf(1.1, size=n) - 1) % R
+    ids[rng.permutation(n)[:20000]] = 17
+    slab = rng.normal(size=(R, width)).astype(np.float32)
+    vals = rng.normal(size=(n, width)).astype(np.float32)
+    s = torch.from_numpy(slab).to(slab_dtype)
+    v = torch.from_numpy(vals).to(slab_dtype)
+    i = torch.from_numpy(ids.astype(np.int32))
+    lr = 0.05
+    a, b = s.to(cuda_device), s.to(cuda_device)
+    sgd_scatter(a, i.to(cuda_device), v.to(cuda_device), lr)
+    sgd_scatter(b, i.to(cuda_device), v.to(cuda_device), lr)
+    assert torch.equal(_bits(a), _bits(b)), "two launches differ"
+    want = sgd_scatter_plain(s.clone(), i, v, lr)
+    k = np.bincount(ids, minlength=R)[:, None]
+    assert k.max() > 5 * SPLIT
+    mag = np.abs(to_np(s)).astype(np.float64)
+    np.add.at(mag, ids, np.abs(lr * to_np(v)))
+    ulps = k * (1.0 if slab_dtype == torch.bfloat16 else 2.0 ** -16)
+    assert_within_ulps(to_np(a), to_np(want), mag, ulps, "hot rows")
+    few = (k <= SPLIT)[:, 0]
+    _float_bits_equal(a[torch.from_numpy(few).to(cuda_device)],
+                      want[torch.from_numpy(few)], "rows with <= L hits")
+    # the control: half the stream is not the function
+    c = s.to(cuda_device)
+    sgd_scatter(c, i[::2].contiguous().to(cuda_device),
+                v[::2].contiguous().to(cuda_device), lr)
+    with pytest.raises(AssertionError):
+        assert_within_ulps(to_np(c), to_np(want), mag, ulps, "control")
+
+
+@pytest.mark.cuda
+def test_segment_scatter_all_sentinel_and_empty_streams(cuda_device):
+    """A NaN batch routes every id to the sentinel: K3 and K18 leave the
+    slab bitwise unchanged (nothing is kept, nothing is written), as does
+    an empty stream (no launch)."""
+    from distributed_embeddings_torch.ops import sgd_scatter_promoted
+
+    R, w = 1000, 128
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    for dtype in (torch.float32, torch.bfloat16):
+        slab = torch.randn((R, w), generator=gen, device=cuda_device).to(
+            dtype)
+        before = slab.clone()
+        ids = torch.full((5000,), R, dtype=torch.int32, device=cuda_device)
+        vals = torch.full((5000, w), float("nan"), device=cuda_device).to(
+            dtype)
+        sgd_scatter(slab, ids, vals, 0.1)
+        if dtype == torch.bfloat16:
+            sgd_scatter_promoted(slab, ids, vals,
+                                 torch.tensor(0.1, device=cuda_device))
+        n0 = (sgd_scatter.launches, sgd_scatter_promoted.launches)
+        empty = torch.zeros((0,), dtype=torch.int64, device=cuda_device)
+        sgd_scatter(slab, empty, vals[:0], 0.1)
+        if dtype == torch.bfloat16:
+            sgd_scatter_promoted(slab, empty, vals[:0],
+                                 torch.tensor(0.1, device=cuda_device))
+        torch.cuda.synchronize()
+        assert (sgd_scatter.launches, sgd_scatter_promoted.launches) == n0
+        assert torch.equal(_bits(slab), _bits(before))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vals_dtype", [torch.float32, torch.bfloat16])
+def test_sgd_promoted_bit_exact_at_a_33k_hit_row(cuda_device, vals_dtype):
+    """K18 at the example's hot-row length: a row hit 33,334 times (the
+    block path's shared-memory ring) and rows around the block path's
+    threshold (``LONG_SEGMENT`` - 1 and ``LONG_SEGMENT`` hits), w128 and
+    w200, bit-exact to the plain version run on CPU copies."""
+    from distributed_embeddings_torch.ops import (
+        sgd_scatter_promoted, sgd_scatter_promoted_plain)
+    from distributed_embeddings_torch.ops.scatter_add import LONG_SEGMENT
+
+    rng = np.random.default_rng(33)
+    R, n = 5000, 120000
+    for width in (128, 200):
+        ids = (rng.zipf(1.2, size=n) - 1) % R
+        ids[ids == 7] = 8
+        ids[ids == 9] = 8
+        ids[ids == 11] = 8
+        perm = rng.permutation(n)
+        ids[perm[:33334]] = 7
+        ids[perm[33334:33334 + LONG_SEGMENT - 1]] = 9
+        ids[perm[40000:40000 + LONG_SEGMENT]] = 11
+        slab = rng.normal(size=(R, width)).astype(np.float32)
+        vals = rng.normal(scale=3.0, size=(n, width)).astype(np.float32)
+        s = torch.from_numpy(slab).to(torch.bfloat16)
+        v = torch.from_numpy(vals).to(vals_dtype)
+        i = torch.from_numpy(ids.astype(np.int64))
+        lr = torch.tensor(0.0173)
+        got = s.to(cuda_device)
+        sgd_scatter_promoted(got, i.to(cuda_device), v.to(cuda_device),
+                             lr.to(cuda_device))
+        want = sgd_scatter_promoted_plain(s.clone(), i, v, lr)
+        _bf16_bits_equal(got, want, f"w{width} hot 33,334")
+
+
+@pytest.mark.cuda
+def test_segment_scatter_replays_in_a_cuda_graph(cuda_device):
+    """One K3 call (float32 slab, a tensor lr, rows past ``SPLIT`` hits)
+    and one K18 call captured on their records' hit path in a
+    ``torch.cuda.CUDAGraph``: three replays on new ids, rows and lr
+    written in place equal three eager calls bit for bit. Nothing is
+    reset between calls (the sort's tile ticket numbers them), and the
+    capture fails if a call synchronizes or reads a count on the host."""
+    from distributed_embeddings_torch.ops import sgd_scatter_promoted
+
+    R, n, w = 3000, 50000, 128
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+
+    def inputs():
+        ids = (torch.randint(0, R, (n,), generator=gen, device=cuda_device)
+               // torch.randint(1, 60, (n,), generator=gen,
+                                device=cuda_device)).to(torch.int32)
+        vals = torch.randn((n, w), generator=gen, device=cuda_device)
+        return ids, vals, vals.to(torch.bfloat16)
+
+    s32 = torch.randn((R, w), generator=gen, device=cuda_device)
+    s16 = s32.to(torch.bfloat16)
+    e32, e16 = s32.clone(), s16.clone()
+    ids, vals, vb = inputs()
+    lr = torch.tensor(0.01, device=cuda_device)
+
+    def call(a, b):
+        sgd_scatter(a, ids, vals, lr)
+        sgd_scatter_promoted(b, ids, vb, lr)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # builds the records off the capture
+        call(s32, s16)
+    torch.cuda.current_stream().wait_stream(side)
+    call(e32, e16)
+    graph = torch.cuda.CUDAGraph()
+    n0 = (sgd_scatter.launches, sgd_scatter_promoted.launches)
+    with torch.cuda.graph(graph):
+        call(s32, s16)
+    assert (sgd_scatter.launches - n0[0],
+            sgd_scatter_promoted.launches - n0[1]) == (1, 1)
+    for k in range(3):
+        new = inputs()
+        for t, x in zip((ids, vals, vb), new):
+            t.copy_(x)
+        lr.fill_(0.01 * (k + 2))
+        graph.replay()
+        call(e32, e16)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(s32), _bits(e32)), f"K3 replay {k}"
+        assert torch.equal(_bits(s16), _bits(e16)), f"K18 replay {k}"
 
 
 @pytest.mark.cuda

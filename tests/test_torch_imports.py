@@ -29,6 +29,7 @@ def _sources():
     files = sorted((ROOT / "distributed_embeddings_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     files.append(ROOT / "k1_variants.py")
+    files.append(ROOT / "segment_variants.py")
     files.append(ROOT / "tests" / "torch_dist_worker.py")
     return files
 
@@ -135,14 +136,16 @@ def test_library_name_follows_included_headers(tmp_path, monkeypatch):
     # the real sources: the shared headers are part of the libraries that
     # include them, and of no other
     monkeypatch.undo()
-    with open(os.path.join(_kernels.CSRC, "radix_sort.cuh"), "rb") as f:
-        header = f.read()
-    for name, included in (("dedup", True), ("sgd_promoted", True),
-                           ("sketch", True), ("grad_health", False),
-                           ("dense_update", False)):
-        src = _kernels.source_bytes(os.path.join(_kernels.CSRC,
-                                                 name + ".cu"))
-        assert (header in src) == included, name
+    for hdr, users in (("radix_sort.cuh", ("dedup", "sketch")),
+                       ("segment_scatter.cuh", ("sgd_scatter",
+                                                "sgd_promoted"))):
+        with open(os.path.join(_kernels.CSRC, hdr), "rb") as f:
+            header = f.read()
+        for name in ("dedup", "sgd_promoted", "sgd_scatter", "sketch",
+                     "grad_health", "dense_update"):
+            src = _kernels.source_bytes(os.path.join(_kernels.CSRC,
+                                                     name + ".cu"))
+            assert (header in src) == (name in users), (hdr, name)
 
 
 @pytest.mark.parametrize("path", _sources(),
