@@ -18,7 +18,10 @@ Phases (any failure raises and the script exits non-zero):
 4. check: holds each kernel against its plain PyTorch version on the
    card at the serving and training shapes (K1 at rung 256 and at
    b=65536, hot 1 and hot 3 mean, with negative and out-of-range ids;
-   K2 at B=256 and B=65536);
+   K2 at B=256 and B=65536 on the features where the step leaves them,
+   the bottom-MLP output and 26 pieces of one buffer: on the tensor
+   cores, the appended row bit-exact, the pairs within 1 bf16 ulp,
+   bit-identical to the stacked form);
 5. serve: a few hundred Zipfian requests of 1-8 samples through
    ``drive`` with the kernel launch counters zeroed just before and
    read just after; every result must be ``Served`` with finite
@@ -33,9 +36,10 @@ Phases (any failure raises and the script exits non-zero):
    b. full size, batch 65536, Zipfian ids: one step whose touched slab
       rows (snapshotted before it) must match the snapshot updated by
       the plain scatter from the same cotangents, whose interaction
-      backward must match its plain version on the same inputs, and
-      whose gradient-health reduction (K21) and dense update (K22) are
-      held to their plain versions where the step calls them;
+      forward (K2) and backward (K4) must match their plain versions on
+      the inputs the step gave them, and whose gradient-health
+      reduction (K21) and dense update (K22) are held to their plain
+      versions where the step calls them;
    c. a NaN batch must leave the touched rows and the dense parameters
       bitwise unchanged and advance the step;
    d. 3 warmup + 20 timed steps with the launch counters zeroed just
@@ -43,11 +47,15 @@ Phases (any failure raises and the script exits non-zero):
       timed instrumented steps, then the same stages called one by one
       for a per-stage split, with K21/K22 and, in turns, with their
       plain versions (the guard's and the dense update's "before");
-      K21 and K22 timed on the step's own gradients and parameters;
+      with ``--parent`` the step's and the instrumented step's stage
+      splits in turns with the parent's wrappers; K21 and K22 timed on
+      the step's own gradients and parameters;
 7. time: CUDA-event medians (20+ runs after warmup) of each kernel, its
    plain version, one PyTorch library call for the same function, and
    the least time the card could take (bytes over 3.35 TB/s, operations
-   over 989 TFLOP/s bf16, the H100 SXM data-sheet peaks);
+   over 989 TFLOP/s bf16, the H100 SXM data-sheet peaks); K2 (rung 256
+   and b=65536) and K4 (b=65536) on the step's features through
+   ``kernel_case``, in turns with the parent's (its stack and its K2);
 8. zoo, after freeing the DLRM state: the synthetic zoo's tiny model
    (55 tables, a w8 slab run dense-apply and a 70.2M-row w16 slab run
    sparse) trained by ``SparseAdagrad`` + ``Adagrad`` at lr 0.01, MSE:
@@ -85,16 +93,19 @@ Phases (any failure raises and the script exits non-zero):
       own inputs, K3's touched slab rows bit-exact to the stream-order
       sum where a row has at most L (``SPLIT``) hits and within k fp32
       ulps elsewhere (a control dropping every other position must fail),
+      K2 and K4 held to their plain versions on the step's own inputs,
       and three features given as ``SparseIds`` (``row_to_split``, K10)
       giving a bitwise-equal forward;
    d. a NaN batch leaving the touched rows and the dense params
       bitwise unchanged;
    e. 3 warmup + 20 timed steps over 4 pre-staged batches with the
       launches counted (K8 1, K9 1, K10 2, K3 1, K2 1, K4 1 a step) and
-      a stage split;
+      a stage split (with ``--parent`` in turns with the parent's);
    f. K8, K9 and K10 timed at this shape as in 7 (K10's
       ``ragged_row_ids`` on the step's own splits, beside
-      ``torch.searchsorted``), and K3 on the step's stream with its
+      ``torch.searchsorted``; K8 also with every id folded into the
+      first 2,048 rows of its table, all rows resident in the L2, and
+      both runs' row-read rates), and K3 on the step's stream with its
       engine's device split, in turns with ``DETPU_SGD_DEDUP=1``'s K5 +
       K3 chain;
 10. adam, after freeing the ragged state: lazy ``SparseAdam`` and
@@ -257,12 +268,14 @@ The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Run from the root of a checkout:
 ``python3 chip_smoke.py``. With ``--parent DIR`` (a checkout of another
 commit, e.g. unpacked with ``git archive``), the launch-record kernels
-K1, K3, K10, K18, K19, K20 and K22 are also timed through that
+K1, K2, K3, K4, K10, K18, K19, K20 and K22 are also timed through that
 checkout's wrappers, in turns with this tree's (``in_turns``), K1 is
-held bit-exact to that checkout's K1 at phase 4's shapes and the zoo's,
-and the DLRM, ragged and example steps and serving latency run through
-both sides' wrappers in turns (``steps_in_turns``, ``serve_in_turns``);
-without it those "before" numbers are not measured.
+held bit-exact to that checkout's K1 at phase 4's shapes and the zoo's
+(and K2 within its tolerance of that checkout's), and the DLRM,
+instrumented, ragged and example steps, their stage splits and serving
+latency run through both sides' wrappers in turns (``steps_in_turns``,
+``stages_in_turns``, ``serve_in_turns``); without it those "before"
+numbers are not measured.
 """
 
 import contextlib
@@ -350,8 +363,9 @@ _parent = {}
 
 def parent_ops():
     """The parent checkout's ``ops.dense_update``, ``ops.exchange_pack``,
-    ``ops.embedding_lookup`` and ``ops.scatter_add`` modules, loaded
-    under the package name
+    ``ops.embedding_lookup``, ``ops.scatter_add`` and ``ops.interaction``
+    modules and its ``models.dlrm`` (key ``"dlrm"``), loaded under the
+    package name
     ``detpu_parent`` (its kernels built from its own sources into its own
     ``build/``), or None without ``--parent``."""
     if PARENT_DIR is None:
@@ -369,11 +383,12 @@ def parent_ops():
         spec.loader.exec_module(mod)
         importlib.import_module("detpu_parent.ops._kernels").build_all(
             ["dense_update", "exchange_pack", "gather_combine", "csr",
-             "sgd_scatter", "sgd_promoted"])
+             "sgd_scatter", "sgd_promoted", "dot_interact"])
         for name in ("dense_update", "exchange_pack", "embedding_lookup",
-                     "scatter_add"):
+                     "scatter_add", "interaction"):
             _parent[name] = importlib.import_module(
                 f"detpu_parent.ops.{name}")
+        _parent["dlrm"] = importlib.import_module("detpu_parent.models.dlrm")
     return _parent
 
 
@@ -406,12 +421,14 @@ def parent_wrappers():
     """Route the steps' K19/K20/K22 and K3/K18 call sites (the module
     globals ``parallel.exchange.pack_ids``/``pack_columns`` and
     ``parallel.optimizers.dense_update``/``sgd_scatter``: the parent's
-    ``sgd_scatter`` takes its own K18 for the promoted chain) and their
-    K1/K10 call sites
+    ``sgd_scatter`` takes its own K18 for the promoted chain), the
+    interaction (``models.dlrm.dot_interact``: the parent's stacks the
+    features and runs its K2 and K4) and their K1/K10 call sites
     (``LOOKUP_SITES``) to the parent checkout's wrappers, each copy plan
     handed over as the parent's ``CopyPlan`` of the same copies."""
     import importlib
 
+    from distributed_embeddings_torch.models import dlrm
     from distributed_embeddings_torch.parallel import exchange, optimizers
 
     par = parent_ops()
@@ -425,7 +442,11 @@ def parent_wrappers():
         return got[1]
 
     saved = (exchange.pack_ids, exchange.pack_columns,
-             optimizers.dense_update, optimizers.sgd_scatter)
+             optimizers.dense_update, optimizers.sgd_scatter,
+             dlrm.dot_interact)
+    # the parent's interaction: its stack of the features, then its K2
+    # (and, through its autograd Function, its K4)
+    dlrm.dot_interact = par["dlrm"].dot_interact
     exchange.pack_ids = (lambda plan, srcs, out: par["exchange_pack"]
                          .pack_ids(their(plan), srcs, out))
     exchange.pack_columns = (lambda plan, srcs, dsts: par["exchange_pack"]
@@ -442,7 +463,8 @@ def parent_wrappers():
         yield
     finally:
         (exchange.pack_ids, exchange.pack_columns,
-         optimizers.dense_update, optimizers.sgd_scatter) = saved
+         optimizers.dense_update, optimizers.sgd_scatter,
+         dlrm.dot_interact) = saved
         for (m, name), fn in zip(LOOKUP_SITES, lookups):
             setattr(mods[m], name, fn)
 
@@ -485,6 +507,34 @@ def steps_in_turns(torch, run_step, rounds=2, steps=10, warmup=2):
             for side in ("change", "parent")}
 
 
+def host_profile_in_turns(torch, run_step, steps=6, top=14):
+    """The host's self time a step by operation (``torch.profiler``, CPU
+    events only), through this tree's wrappers and the parent's
+    (``parent_wrappers``), change then parent, after two warmup steps
+    each: per side the ``top`` operations by self time and the sum over
+    all of them, in microseconds a step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for side in ("change", "parent"):
+        with (parent_wrappers() if side == "parent"
+              else contextlib.nullcontext()):
+            for k in range(2):
+                run_step(k)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                for k in range(steps):
+                    run_step(k)
+                torch.cuda.synchronize()
+        ev = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+        out[side] = {
+            "self_cpu_us_a_step": sum(e.self_cpu_time_total for e in ev)
+            / steps,
+            "top": {e.key: [round(e.self_cpu_time_total / steps, 1),
+                            e.count / steps] for e in ev[:top]}}
+    return out
+
+
 def device_ms(torch, fn, calls=20):
     """Device-only ms a call of ``fn``: ``torch.profiler``'s CUDA events
     (kernels and copies on the card) over ``calls`` calls, as
@@ -517,7 +567,8 @@ def us_per_call(fn, n=2000, repeat=5):
     return min(timeit.repeat(fn, number=n, repeat=repeat)) / n * 1e6
 
 
-def launch_host_split(torch, what, key_fn, cache, tail, wrapper, ts):
+def launch_host_split(torch, what, key_fn, cache, tail, wrapper, ts,
+                      extra=None):
     """The host time of a launch record's hit path, split: building the
     key (``key_fn``), finding the record (``cache``'s dict, with a fresh
     key each call, as the wrapper hashes one), the ``ctypes`` calls of
@@ -525,7 +576,9 @@ def launch_host_split(torch, what, key_fn, cache, tail, wrapper, ts):
     against the whole wrapper call; beside them the stream read through
     ``torch.cuda.current_stream(dev).cuda_stream`` and the key of the
     same tensors built one tuple a tensor (``ts``), the forms the
-    launch path did not take. Microseconds."""
+    launch path did not take, and ``extra`` (name -> a call: more parts
+    of the wrapper, timed alone and also taken out of ``rest_us``).
+    Microseconds."""
     from distributed_embeddings_torch.ops import _kernels
 
     torch.cuda.synchronize()
@@ -553,9 +606,13 @@ def launch_host_split(torch, what, key_fn, cache, tail, wrapper, ts):
             (t.data_ptr(), t.shape, t.stride(), t.dtype, t.get_device())
             for t in ts)),
         "tensors_in_key": len(ts), "launches_per_call": len(rec.calls)}
+    parts = ["key_us", "lookup_us", "ctypes_us", "stream_us"]
+    for name, fn in (extra or {}).items():
+        out[name] = us_per_call(fn, n=500)
+        if name != "through_forward_record_us":
+            parts.append(name)
     torch.cuda.synchronize()
-    out["rest_us"] = out["wrapper_us"] - sum(
-        out[k] for k in ("key_us", "lookup_us", "ctypes_us", "stream_us"))
+    out["rest_us"] = out["wrapper_us"] - sum(out[k] for k in parts)
     log(f"host split {what} (us a call): " + json.dumps(out))
     return out
 
@@ -660,10 +717,12 @@ def segment_case(torch, name, label, fn, parent_fn, lib, nbytes, plain,
     return case
 
 
-def compare(torch, got, want, exact, what):
+def compare(torch, got, want, exact, what, scale=None):
     """Max abs error of kernel vs plain (compared on the card in fp32,
     which holds every bf16 value); raises beyond the tolerance:
-    bit-exact, or within 1 bf16 ulp of the plain result."""
+    bit-exact, or within 1 bf16 ulp of the plain result, plus 2^-20 of
+    ``scale`` (the sum of |terms| of each output) where given (K4, whose
+    sums of F terms a column the plain version orders otherwise)."""
     check(got.shape == want.shape, f"{what}: shape {tuple(got.shape)} != "
           f"{tuple(want.shape)}")
     g, w = got.float(), want.float()
@@ -674,13 +733,102 @@ def compare(torch, got, want, exact, what):
     else:
         ulp = torch.exp2(torch.floor(torch.log2(
             w.abs().clamp(min=2.0 ** -126))) - 7)
+        if scale is not None:
+            ulp = ulp + 2.0 ** -20 * scale
         bad = int(torch.count_nonzero(err > ulp))
     max_err = float(err.max())
     check(bad == 0, f"{what}: {bad} values beyond tolerance "
           f"(max err {max_err})")
-    log(f"  {what}: max_abs_err {max_err} "
-        f"({'bit-exact' if exact else '<= 1 bf16 ulp'} required)")
+    log(f"  {what}: max_abs_err {max_err} ("
+        + ("bit-exact" if exact else "<= 1 bf16 ulp" if scale is None
+           else "<= 1 bf16 ulp + 2^-20 of the sum of |terms|")
+        + " required)")
     return max_err
+
+
+def step_features(torch, gen, b, f=27, d=128, dtype=None):
+    """K2's input as the DLRM step hands it over: the bottom-MLP output
+    and f - 1 pieces of one embedding buffer (the lookup's unpack),
+    bf16."""
+    dtype = dtype or torch.bfloat16
+    bottom = torch.randn((b, d), generator=gen, device="cuda").to(dtype)
+    buf = torch.randn(((f - 1) * b, d), generator=gen, device="cuda").to(
+        dtype)
+    return [bottom] + [buf[i * b:(i + 1) * b] for i in range(f - 1)]
+
+
+@contextlib.contextmanager
+def interaction_checks(torch, errs, what):
+    """Hold the step's K2 and K4 calls (``DotInteract``'s forward and
+    backward) to their plain versions on the inputs the step gave them,
+    right after each call: K2 within 1 bf16 ulp with the appended row
+    bit-exact, K4 within 1 bf16 ulp + 2^-20 of the sum of |terms| (phase
+    4's and phase 6's tolerances). Yields the calls checked."""
+    from distributed_embeddings_torch.ops import interaction
+
+    seen = {"fwd": 0, "bwd": 0}
+    real_fwd, real_bwd = (interaction.DotInteract.forward,
+                          interaction.DotInteract.backward)
+
+    def fwd(ctx, *feats):
+        out = real_fwd(ctx, *feats)
+        want = interaction.dot_interact_fwd_plain(list(feats))
+        p = out.shape[1] - feats[0].shape[1]
+        compare(torch, out[:, p:], want[:, p:], exact=True,
+                what=f"{what}: dot_interact_fwd bottom-row copy")
+        errs["dot_interact_fwd"] = max(errs.get("dot_interact_fwd", 0.0),
+                                       compare(
+            torch, out, want, exact=False,
+            what=f"{what}: dot_interact_fwd {tuple(out.shape)}"))
+        seen["fwd"] += 1
+        return out
+
+    def bwd(ctx, dy):
+        grads = real_bwd(ctx, dy)
+        feats = list(ctx.saved_tensors)
+        want = interaction.dot_interact_bwd_plain(feats, dy.contiguous())
+        scale = interaction.dot_interact_bwd_plain(
+            [f.float().abs() for f in feats], dy.float().abs())
+        errs["dot_interact_bwd"] = max(errs.get("dot_interact_bwd", 0.0),
+                                       compare(
+            torch, torch.stack(list(grads), 1), torch.stack(list(want), 1),
+            exact=False, scale=torch.stack(list(scale), 1),
+            what=f"{what}: dot_interact_bwd {len(feats)} x "
+                 f"{tuple(feats[0].shape)}"))
+        seen["bwd"] += 1
+        return grads
+
+    interaction.DotInteract.forward = staticmethod(fwd)
+    interaction.DotInteract.backward = staticmethod(bwd)
+    try:
+        yield seen
+    finally:
+        interaction.DotInteract.forward = staticmethod(real_fwd)
+        interaction.DotInteract.backward = staticmethod(real_bwd)
+
+
+def interaction_builds():
+    """The launch records K2's and K4's wrappers have built so far (a
+    timed window that builds none finds its records on every call)."""
+    from distributed_embeddings_torch.ops import interaction
+
+    return interaction._FWD.builds + interaction._BWD.builds
+
+
+def stages_in_turns(torch, split):
+    """A stage split (``split()``: a dict of stage ms) through this
+    tree's wrappers and the parent's (``parent_wrappers``) in turns:
+    change, parent, parent, change; per side and stage the median of its
+    two runs. None without ``--parent``."""
+    if parent_ops() is None:
+        return None
+    runs = {"change": [], "parent": []}
+    for side in ("change", "parent", "parent", "change"):
+        with (parent_wrappers() if side == "parent"
+              else contextlib.nullcontext()):
+            runs[side].append(split())
+    return {side: {n: float(np.median([r[n] for r in v])) for n in v[0]}
+            for side, v in runs.items()}
 
 
 # ------------------------------------------------------------------ phases
@@ -816,16 +964,30 @@ def phase_check(torch, de, state):
                               theirs.view(torch.int16)),
                   f"{what}: not bit-exact to the parent's K1")
             log(f"  {what}: bit-exact to the parent's K1")
+    from distributed_embeddings_torch.ops.interaction import (
+        tensor_core_paths)
+
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     for b in (RUNG, TRAIN_BATCH):
-        feats = torch.randn((b, 27, 128), generator=gen, device="cuda"
-                            ).to(torch.bfloat16)
+        # the features where the step leaves them (no stack)
+        feats = step_features(torch, gen, b)
+        check(tensor_core_paths(feats) == 1, f"dot_interact_fwd B={b}: not "
+              "on the tensor-core kernel")
         got = dot_interact_fwd(feats)
         want = dot_interact_fwd_plain(feats)
         compare(torch, got[:, 351:], want[:, 351:], exact=True,
                 what=f"dot_interact_fwd B={b} bottom-row copy")
         errs["dot_interact_fwd"] = max(errs["dot_interact_fwd"], compare(
             torch, got, want, exact=False, what=f"dot_interact_fwd B={b}"))
+        stacked = dot_interact_fwd(torch.stack(feats, 1))
+        check(torch.equal(got.view(torch.int16), stacked.view(torch.int16)),
+              f"dot_interact_fwd B={b}: the list and the stacked form "
+              "differ")
+        if parent:  # the first design (on the stack) within 1 bf16 ulp
+            theirs = parent["interaction"].dot_interact_fwd(
+                torch.stack(feats, 1))
+            compare(torch, got, theirs, exact=False,
+                    what=f"dot_interact_fwd B={b} against the parent's K2")
     return errs
 
 
@@ -1039,9 +1201,11 @@ def plain_kernels(names=None):
              (apply, "ragged_grad", sparse_grad.ragged_grad_plain),
              (dist_embedding, "row_to_split", row_to_split_plain),
              (interaction, "dot_interact_fwd",
-              interaction.dot_interact_fwd_plain),
+              lambda feats, record=None: interaction.dot_interact_fwd_plain(
+                  feats)),
              (interaction, "dot_interact_bwd",
-              interaction.dot_interact_bwd_plain),
+              lambda feats, dy, fwd_record=None:
+              interaction.dot_interact_bwd_plain(feats, dy)),
              (optimizers, "sgd_scatter", scatter_add.sgd_scatter_plain),
              (scatter_add, "sgd_scatter_promoted",
               scatter_add.sgd_scatter_promoted_plain),
@@ -1348,8 +1512,7 @@ def epilogue_checks(torch, errs, what, keep=None):
 
 
 def phase_train(torch, de, state):
-    from distributed_embeddings_torch.ops import dot_interact_bwd_plain
-    from distributed_embeddings_torch.ops import interaction, scatter_add
+    from distributed_embeddings_torch.ops import scatter_add
     from distributed_embeddings_torch.parallel import (
         SGD, SparseSGD, make_hybrid_train_step)
 
@@ -1376,30 +1539,18 @@ def phase_train(torch, de, state):
                              before=slab[uniq].clone())
             return super().apply_rows(slab, state, ids, vals, lr)
 
-    seen_bwd = {}
-    real_bwd = interaction.DotInteract.backward
-
-    def recording_bwd(ctx, dy):
-        """``DotInteract.backward`` (one K4 launch), keeping its inputs
-        and output for the comparison with the plain version."""
-        out = real_bwd(ctx, dy)
-        seen_bwd.update(feats=ctx.saved_tensors[0].detach(),
-                        dy=dy.contiguous(), out=out)
-        return out
-
     rec = RecordingSGD()
     check_step = make_hybrid_train_step(de, loss_fn, SGD(TRAIN_LR), rec,
                                         lr_schedule=TRAIN_LR, nan_guard=True)
     cats, batch = train_batch(torch, CRITEO_1TB_SIZES, TRAIN_BATCH,
                               seed=SEED + 20)
-    interaction.DotInteract.backward = staticmethod(recording_bwd)
     epi = {}
-    try:
-        with epilogue_checks(torch, errs, "full-size step", keep=epi) as ec:
-            loss, st = check_step(st, cats, batch)
-    finally:
-        interaction.DotInteract.backward = staticmethod(real_bwd)
+    with epilogue_checks(torch, errs, "full-size step", keep=epi) as ec, \
+            interaction_checks(torch, errs, "full-size step") as ic:
+        loss, st = check_step(st, cats, batch)
     torch.cuda.synchronize()
+    check(ic == {"fwd": 1, "bwd": 1}, f"full-size step: interaction calls "
+          f"{ic}")
     check(ec == {"grad_health": 1, "dense_update": 1}, f"full-size step: "
           f"epilogue calls {ec}")
     log(f"train: full-size step's K21 over {len(epi['grad_health'])} "
@@ -1427,21 +1578,10 @@ def phase_train(torch, de, state):
         f"once, {changed} changed), sgd_scatter vs plain max_abs_err "
         f"{float(err.max())} (rows hit once bit-exact, k hits within k bf16 "
         "ulps)")
-    b = seen_bwd
-    want = dot_interact_bwd_plain(b["feats"], b["dy"])
-    scale = dot_interact_bwd_plain(b["feats"].float().abs(),
-                                   b["dy"].float().abs())
-    err = (b["out"].float() - want.float()).abs()
-    bad = int(torch.count_nonzero(err > ulp(torch, want.float(),
-                                             torch.bfloat16)
-                                  + 2.0 ** -20 * scale))
-    check(bad == 0, f"full-size step: dot_interact_bwd differs from plain "
-          f"in {bad} values (max err {float(err.max())})")
-    errs["dot_interact_bwd"] = float(err.max())
-    log(f"train: dot_interact_bwd {tuple(b['feats'].shape)} vs plain "
-        f"max_abs_err {float(err.max())} (<= 1 bf16 ulp + 2^-20 of the "
-        "sum of |terms|)")
-    del seen_bwd["feats"], seen_bwd["dy"], seen_bwd["out"], rec.seen
+    log(f"train: K2 and K4 in the step within their bounds of the plain "
+        f"versions (max abs err {errs['dot_interact_fwd']}, "
+        f"{errs['dot_interact_bwd']})")
+    del rec.seen
 
     step = make_hybrid_train_step(de, loss_fn, SGD(TRAIN_LR), SparseSGD(),
                                   lr_schedule=TRAIN_LR, nan_guard=True)
@@ -1471,6 +1611,7 @@ def phase_train(torch, de, state):
         _, st = step(st, *batches[k % len(batches)])
     torch.cuda.synchronize()
     zero_counts()
+    b0 = interaction_builds()
     t0 = time.perf_counter()
     losses, times = [], []
     for k in range(TRAIN_STEPS):
@@ -1484,6 +1625,7 @@ def phase_train(torch, de, state):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()
+    builds = interaction_builds() - b0
     losses = torch.stack(losses).float().cpu().numpy()
     check(np.isfinite(losses).all(), f"train: non-finite loss {losses}")
     for name, n in launches.items():
@@ -1538,12 +1680,32 @@ def phase_train(torch, de, state):
     def metrics_step(k):
         holder[0] = mstep(holder[0], *batches[k % len(batches)])[1]
 
+    # the step at the serving rung's batch, where the host sets the pace
+    small = [train_batch(torch, CRITEO_1TB_SIZES, RUNG, seed=SEED + 40 + k)
+             for k in range(4)]
+
+    def small_step(k):
+        holder[0] = step(holder[0], *small[k % len(small)])[1]
+
     turns = {"step": steps_in_turns(torch, plain_step),
              "instrumented_step": steps_in_turns(torch, metrics_step)}
+    built = interaction_builds()
+    turns["step_b256"] = steps_in_turns(torch, small_step)
+    if turns["step_b256"]:
+        turns["step_b256"]["interaction_records_built"] = (
+            interaction_builds() - built)
+        turns["step_b256"]["host_profile"] = host_profile_in_turns(
+            torch, small_step)
     st = holder[0]
+    # the stage splits through both sides' wrappers, in turns
+    turns["stages"] = stages_in_turns(
+        torch, lambda: dlrm_stages(torch, de, st, batches))
+    turns["instrumented_stages"] = stages_in_turns(
+        torch, lambda: dlrm_stages(torch, de, st, batches, metrics=True))
     if turns["step"]:
-        log("train: steps in turns with the parent's K1/K3/K10/K19/K20/K22 "
-            "wrappers (ms): " + json.dumps(turns))
+        log("train: steps and stage splits in turns with the parent's "
+            "K1/K2/K3/K4/K10/K19/K20/K22 wrappers (ms): "
+            + json.dumps(turns))
     result = {
         "batch": TRAIN_BATCH, "steps": TRAIN_STEPS,
         "samples_per_s": TRAIN_STEPS * TRAIN_BATCH / wall,
@@ -1556,47 +1718,59 @@ def phase_train(torch, de, state):
         "in_turns_with_parent": turns,
         "launches_per_step": {n: v / TRAIN_STEPS
                               for n, v in launches.items()},
+        "interaction_records_built": builds,
         "loss_first": float(losses[0]), "loss_last": float(losses[-1])}
     log("train: " + json.dumps(result))
     return launches, errs, result, epi_cases
 
 
-def dlrm_stages(torch, de, st, batches, runs=6):
+def dlrm_stages(torch, de, st, batches, runs=6, loss=None, tx=None,
+                lr=TRAIN_LR, metrics=False):
     """Median device ms of the DLRM step's stages over ``runs`` steps
     (after one warmup), each stage called as the step calls it, with
     events between them: the guard is K21 over every gradient and its
-    verdict, the dense update ``SGD.update_`` (K22)."""
+    verdict, the dense update ``tx.update_`` (K22; ``SGD(TRAIN_LR)`` by
+    default) and, with ``metrics``, the instrumented step's metrics
+    (``step_metrics`` and ``_finish_metrics``). ``lr`` is the sparse
+    apply's (a tensor: the promoted chain, K18)."""
     from distributed_embeddings_torch.parallel import SGD, SparseSGD, trainer
 
-    tx = SGD(TRAIN_LR)
-    names = ("embedding_forward", "dense_forward_backward", "nan_guard",
-             "sparse_apply", "dense_update")
+    loss = loss or loss_fn
+    tx = tx or SGD(TRAIN_LR)
+    names = ["embedding_forward", "dense_forward_backward", "nan_guard",
+             "sparse_apply", "dense_update"] + (["metrics"] if metrics
+                                                else [])
     stage_ms = {n: [] for n in names}
     params = list(st.dense_params.parameters())
     for k in range(1 + runs):
         cats, batch = batches[k % len(batches)]
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        ev = [torch.cuda.Event(enable_timing=True)
+              for _ in range(len(names) + 1)]
         ev[0].record()
         with torch.no_grad():
             outs, res = de.forward_with_residuals(st.emb_params, cats)
         ev[1].record()
         outs = [o.detach().requires_grad_() for o in outs]
-        loss = loss_fn(st.dense_params, outs, batch)
-        grads = torch.autograd.grad(loss, params + outs)
+        lv = loss(st.dense_params, outs, batch)
+        grads = torch.autograd.grad(lv, params + outs)
         ev[2].record()
         dense_grads, out_grads = (list(grads[:len(params)]),
                                   list(grads[len(params):]))
         health = trainer.grad_health(out_grads + dense_grads)
         n = len(out_grads)
-        ok = (torch.isfinite(loss.float())
+        ok = (torch.isfinite(lv.float())
               & torch.isfinite(health[0, n:].sum())
               & torch.isfinite(0.0 * health[0, :n].sum()))
         ev[3].record()
         de.sparse_apply_gradients(st.emb_params, st.emb_opt_state, res,
-                                  out_grads, SparseSGD(), TRAIN_LR, enable=ok)
+                                  out_grads, SparseSGD(), lr, enable=ok)
         ev[4].record()
         tx.update_(dense_grads, st.dense_opt_state, params, ok=ok)
         ev[5].record()
+        if metrics:
+            m = de.step_metrics(res, out_dtype=out_grads[0].dtype)
+            trainer._finish_metrics(de, m, health, n, lv, ok, st, None, lr)
+            ev[6].record()
         torch.cuda.synchronize()
         if k:
             for i, name in enumerate(names):
@@ -1713,42 +1887,12 @@ def time_k1(torch, de, slab, label, b, hot):
 
 
 def phase_time(torch, de, state, errs, launches):
-    from distributed_embeddings_torch.ops import (dot_interact_fwd,
-                                                  dot_interact_fwd_plain)
-
     slab = state.emb_params["w128"][0]
     k1_cases = [time_k1(torch, de, slab, label, b, hot)
                 for label, b, hot in (("rung256_hot1", RUNG, 1),
                                       ("b65536_hot1", TRAIN_BATCH, 1),
                                       ("b65536_hot3_mean", TRAIN_BATCH, 3))]
-    k2_cases = []
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
-    for label, b in (("rung256", RUNG), ("b65536", TRAIN_BATCH)):
-        feats = [(torch.randn((b, 27, 128), generator=gen, device="cuda"
-                              ).to(torch.bfloat16),) for _ in range(4)]
-        li, lj = np.tril_indices(27, k=-1)
-        li = torch.as_tensor(li, device="cuda")
-        lj = torch.as_tensor(lj, device="cuda")
-
-        def library(f):
-            gram = torch.bmm(f, f.transpose(1, 2))
-            return torch.cat([gram[:, li, lj], f[:, 0]], dim=1)
-
-        ms = time_ms(torch, dot_interact_fwd, feats)
-        plain = time_ms(torch, dot_interact_fwd_plain, feats)
-        lib = time_ms(torch, library, feats)
-        p = 27 * 26 // 2
-        nbytes = b * 27 * 128 * 2 + b * (p + 128) * 2
-        ops = 2 * b * p * 128
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / BF16_OPS_PER_S * 1e3
-        k2_cases.append({"case": label, "ms": ms, "plain_ms": plain,
-                         "library_ms": lib, "bound_ms": max(t_bytes, t_ops),
-                         "bound_by": "bytes" if t_bytes >= t_ops
-                         else "operations", "bytes": nbytes, "ops": ops})
-        log(f"time dot_interact_fwd {label}: kernel {ms:.4f} ms, plain "
-            f"{plain:.4f}, library {lib:.4f}, bound "
-            f"{max(t_bytes, t_ops):.4f}")
+    k2_cases = time_dot_interact_fwd(torch)
     k3_cases = time_sgd_scatter(torch, de, slab)
     k4_cases = time_dot_interact_bwd(torch)
     kernels = []
@@ -1821,22 +1965,93 @@ def time_sgd_scatter(torch, de, slab):
     return [case]
 
 
+def interaction_bound(b, f=27, d=128, es=2, bwd=False):
+    """The least time of K2 (or K4) on the card: its bytes (the features
+    read once, dy read once, the output written once) over the HBM rate,
+    or its multiply-adds over the bf16 tensor-core rate, the larger."""
+    p = f * (f - 1) // 2
+    nbytes = (2 if bwd else 1) * b * f * d * es + b * (p + d) * es
+    ops = 2 * b * (f * f if bwd else p) * d
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / BF16_OPS_PER_S * 1e3
+    return nbytes, ops, max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                              else "operations")
+
+
+def time_dot_interact_fwd(torch):
+    """K2 at the serving rung and the training batch, on the features as
+    the step hands them over (``step_features``): this tree's wrapper and,
+    in turns, the parent's (``kernel_case``; the parent's K2 took a stack,
+    so its turn is the stack and its K2, the function the parent's step
+    ran; its K2 alone on a stack made beforehand is timed beside it), the
+    plain version, the library yardstick (the stack, ``bmm``, the
+    triangle's index and ``cat``: several calls, no single PyTorch call
+    computes the function), the byte bound and the host split of a hit."""
+    from distributed_embeddings_torch.ops import interaction as it
+
+    parent = parent_ops()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    li, lj = (torch.as_tensor(a, device="cuda")
+              for a in np.tril_indices(27, k=-1))
+
+    def library(feats):
+        f = torch.stack(feats, 1)
+        gram = torch.bmm(f, f.transpose(1, 2))
+        return torch.cat([gram[:, li, lj], f[:, 0]], dim=1)
+
+    cases = []
+    for label, b in (("rung256", RUNG), ("b65536", TRAIN_BATCH)):
+        sets = [(step_features(torch, gen, b),) for _ in range(4)]
+        nbytes, ops, bound, by = interaction_bound(b)
+        parent_fn = parent_stacked = None
+        if parent:
+            parent_fn = cycling(lambda fs: parent["interaction"]
+                                .dot_interact_fwd(torch.stack(fs, 1)), sets)
+            stacks = [(torch.stack(fs, 1),) for fs, in sets]
+            parent_stacked = cycling(
+                parent["interaction"].dot_interact_fwd, stacks)
+        c = kernel_case(
+            torch, "dot_interact_fwd", label,
+            cycling(it.dot_interact_fwd, sets), parent_fn,
+            cycling(library, sets), nbytes,
+            plain=cycling(it.dot_interact_fwd_plain, sets),
+            extra={"ops": ops, "bound_by_ops": by,
+                   "tensor_core_paths": it.tensor_core_paths(sets[0][0])})
+        c["bound_ms"], c["bound_by"] = bound, by
+        if parent_stacked:
+            c["parent_on_stack_ms"] = time_ms(torch, parent_stacked, [()])
+            log(f"  dot_interact_fwd {label}: the parent's K2 alone on a "
+                f"stack made beforehand {c['parent_on_stack_ms']:.4f} ms")
+            del stacks
+        fs = sets[0][0]
+        out = it.dot_interact_fwd(fs)
+        c["host_split_us"] = launch_host_split(
+            torch, f"dot_interact_fwd {label}",
+            lambda: it.fwd_record_key(fs), it._FWD, (out.data_ptr(),),
+            lambda: it.dot_interact_fwd(fs), fs)
+        cases.append(c)
+        del sets, out
+    return cases
+
+
 def time_dot_interact_bwd(torch):
-    """K4 at the training batch: feats [65536, 27, 128] and dy
-    [65536, 479], bf16."""
-    from distributed_embeddings_torch.ops import (dot_interact_bwd,
-                                                  dot_interact_bwd_plain)
+    """K4 at the training batch: the step's features (``step_features``)
+    and dy [65536, 479], bf16; this tree's wrapper and, in turns, the
+    parent's on the stack of the same features (its step stacked them in
+    the forward), the plain version, the library yardstick (the dG
+    scatter, ``bmm`` and the appended row's add on the stack) and the
+    byte bound."""
+    from distributed_embeddings_torch.ops import interaction as it
 
     b, f, d = TRAIN_BATCH, 27, 128
     p = f * (f - 1) // 2
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
-    args = [(torch.randn((b, f, d), generator=gen, device="cuda"
-                         ).to(torch.bfloat16),
+    sets = [(step_features(torch, gen, b),
              torch.randn((b, p + d), generator=gen, device="cuda"
                          ).to(torch.bfloat16)) for _ in range(4)]
-    li, lj = np.tril_indices(f, k=-1)
-    li = torch.as_tensor(li, device="cuda")
-    lj = torch.as_tensor(lj, device="cuda")
+    stacks = [(torch.stack(fs, 1), dy) for fs, dy in sets]
+    li, lj = (torch.as_tensor(a, device="cuda")
+              for a in np.tril_indices(f, k=-1))
 
     def library(feats, dy):
         dg = torch.zeros((b, f, f), dtype=feats.dtype, device="cuda")
@@ -1846,19 +2061,53 @@ def time_dot_interact_bwd(torch):
         out[:, 0] += dy[:, p:]
         return out
 
-    ms = time_ms(torch, dot_interact_bwd, args)
-    plain = time_ms(torch, dot_interact_bwd_plain, args)
-    lib = time_ms(torch, library, args)
-    nbytes = 2 * b * f * d * 2 + b * (p + d) * 2
-    ops = 2 * b * f * f * d
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / BF16_OPS_PER_S * 1e3
-    log(f"time dot_interact_bwd b65536: kernel {ms:.4f} ms, plain "
-        f"{plain:.4f}, library {lib:.4f}, bound {max(t_bytes, t_ops):.4f}")
-    return [{"case": "b65536", "ms": ms, "plain_ms": plain,
-             "library_ms": lib, "bound_ms": max(t_bytes, t_ops),
-             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-             "bytes": nbytes, "ops": ops}]
+    parent = parent_ops()
+    nbytes, ops, bound, by = interaction_bound(b, bwd=True)
+    c = kernel_case(
+        torch, "dot_interact_bwd", "b65536", cycling(it.dot_interact_bwd,
+                                                     sets),
+        cycling(parent["interaction"].dot_interact_bwd, stacks)
+        if parent else None, cycling(library, stacks), nbytes,
+        plain=cycling(it.dot_interact_bwd_plain, sets),
+        extra={"ops": ops, "bound_by_ops": by,
+               "tensor_core_paths": it.tensor_core_paths(*sets[0])})
+    c["bound_ms"], c["bound_by"] = bound, by
+    fs, dy = sets[0]
+    c["host_split_us"] = k4_host_split(torch, "b65536", fs, dy)
+    del sets, stacks
+    # the host's share alone, at the serving rung (the card keeps up)
+    c["host_split_rung256_us"] = k4_host_split(
+        torch, "rung256", step_features(torch, gen, RUNG),
+        torch.randn((RUNG, p + d), generator=gen, device="cuda").to(
+            torch.bfloat16))
+    return [c]
+
+
+def k4_host_split(torch, label, fs, dy):
+    """``launch_host_split`` of K4's record for the features ``fs`` and
+    ``dy``, with the wrapper's other parts: the output's allocation, its
+    27 views (``unbind``) and the call as ``DotInteract``'s backward
+    makes it (the record found through K2's, no key of the features)."""
+    from distributed_embeddings_torch.ops import interaction as it
+
+    b, d = fs[0].shape
+    f = len(fs)
+    out = torch.empty((f, b, d), dtype=torch.bfloat16, device="cuda")
+    found = []
+    it.dot_interact_fwd(fs, record=found)
+    fwd = found[0]
+    it.dot_interact_bwd(fs, dy)
+    it.dot_interact_bwd(fs, dy, fwd_record=fwd)
+    return launch_host_split(
+        torch, f"dot_interact_bwd {label}",
+        lambda: it.bwd_record_key(fs, dy), it._BWD,
+        (dy.data_ptr(), out.data_ptr()), lambda: it.dot_interact_bwd(fs, dy),
+        fs + [dy], extra={
+            "alloc_us": lambda: torch.empty((f, b, d), dtype=torch.bfloat16,
+                                            device="cuda"),
+            "views_us": lambda: out.unbind(0),
+            "through_forward_record_us": lambda: it.dot_interact_bwd(
+                fs, dy, fwd_record=fwd)})
 
 
 # ------------------------------------------------------------------ zoo
@@ -3171,12 +3420,15 @@ def ragged_full_check(torch, de, st, sizes):
                          on_call=k10_check) as k10f, \
             record_calls(apply, "lengths_to_splits", keep_out=False,
                          on_call=k10_check) as k10b, \
-            record_calls(apply, "ragged_grad") as k9:
+            record_calls(apply, "ragged_grad") as k9, \
+            interaction_checks(torch, errs, "ragged full-size step") as ic:
         loss, st = step(st, cats, batch)
     torch.cuda.synchronize()
     counts = read_counts()
     check(counts == ragged_per_step(1), f"ragged full-size step: launches "
           f"{counts}, expected {ragged_per_step(1)}")
+    check(ic == {"fwd": 1, "bwd": 1}, f"ragged full-size step: "
+          f"interaction calls {ic}")
     check(bool(torch.isfinite(loss)), f"ragged full-size step: loss "
           f"{float(loss)}")
     check(len(k8) == 1 and "ragged_combine" in errs, "ragged full-size "
@@ -3325,10 +3577,8 @@ def ragged_timed(torch, de, st, batches):
     launch counters zeroed just before and read just after, then the
     step's stages one by one for a split."""
     from distributed_embeddings_torch.parallel import (
-        SGD, SparseSGD, make_hybrid_train_step, trainer)
-    from distributed_embeddings_torch.parallel import apply as apply_mod
+        SGD, SparseSGD, make_hybrid_train_step)
 
-    tx = SGD(TRAIN_LR)
     step = make_hybrid_train_step(de, loss_fn, SGD(TRAIN_LR), SparseSGD(),
                                   lr_schedule=TRAIN_LR, nan_guard=True)
     for k in range(WARMUP_RUNS):
@@ -3356,12 +3606,50 @@ def ragged_timed(torch, de, st, batches):
               f"times in {TRAIN_STEPS} steps (expected {want[name]} a step)")
     step_ms = [s.elapsed_time(e) for s, e in times]
 
+    stages = ragged_stages(torch, de, st, batches)
+    holder = [st]
+
+    def run_step(k):
+        holder[0] = step(holder[0], *batches[k % len(batches)])[1]
+
+    turns = steps_in_turns(torch, run_step)
+    st = holder[0]
+    if turns:
+        turns["stages"] = stages_in_turns(
+            torch, lambda: ragged_stages(torch, de, st, batches))
+        log("ragged: steps and stage splits in turns with the parent's "
+            "K1/K2/K3/K4/K10/K19/K20/K22 wrappers (ms): " + json.dumps(turns))
+    b = batches[0][1][0].shape[0]
+    result = {
+        "batch": b, "steps": TRAIN_STEPS,
+        "samples_per_s": TRAIN_STEPS * b / wall,
+        "wall_step_ms": wall / TRAIN_STEPS * 1e3,
+        "step_ms_p50": float(np.median(step_ms)),
+        "step_ms_min": float(np.min(step_ms)),
+        "stage_ms_p50": stages,
+        "in_turns_with_parent": turns,
+        "launches_per_step": {n: v / TRAIN_STEPS
+                              for n, v in launches.items()},
+        "loss_first": float(losses[0]), "loss_last": float(losses[-1])}
+    log("ragged timed: " + json.dumps(result))
+    return st, launches, result
+
+
+def ragged_stages(torch, de, st, batches, runs=10):
+    """Median device ms of the ragged step's stages over ``runs`` steps
+    (after the warmup), each called as the step calls it with events
+    between them (the cotangent streams, K9 and K10, apart from the
+    sparse apply, K3)."""
+    from distributed_embeddings_torch.parallel import SGD, SparseSGD, trainer
+    from distributed_embeddings_torch.parallel import apply as apply_mod
+
+    tx = SGD(TRAIN_LR)
     names = ["embedding_forward", "dense_forward_backward", "nan_guard",
              "cotangent_streams", "sparse_apply", "dense_update"]
     stage_ms = {n: [] for n in names}
     params = list(st.dense_params.parameters())
     local = de.local_view(st.emb_params)
-    for k in range(WARMUP_RUNS + 10):
+    for k in range(WARMUP_RUNS + runs):
         cats, batch = batches[k % len(batches)]
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
         ev[0].record()
@@ -3394,31 +3682,7 @@ def ragged_timed(torch, de, st, batches):
         if k >= WARMUP_RUNS:
             for i, name in enumerate(names):
                 stage_ms[name].append(ev[i].elapsed_time(ev[i + 1]))
-    stages = {n: float(np.median(v)) for n, v in stage_ms.items()}
-    holder = [st]
-
-    def run_step(k):
-        holder[0] = step(holder[0], *batches[k % len(batches)])[1]
-
-    turns = steps_in_turns(torch, run_step)
-    st = holder[0]
-    if turns:
-        log("ragged: steps in turns with the parent's K1/K3/K10/K19/K20/K22 "
-            "wrappers (ms): " + json.dumps(turns))
-    b = batches[0][1][0].shape[0]
-    result = {
-        "batch": b, "steps": TRAIN_STEPS,
-        "samples_per_s": TRAIN_STEPS * b / wall,
-        "wall_step_ms": wall / TRAIN_STEPS * 1e3,
-        "step_ms_p50": float(np.median(step_ms)),
-        "step_ms_min": float(np.min(step_ms)),
-        "stage_ms_p50": stages,
-        "in_turns_with_parent": turns,
-        "launches_per_step": {n: v / TRAIN_STEPS
-                              for n, v in launches.items()},
-        "loss_first": float(losses[0]), "loss_last": float(losses[-1])}
-    log("ragged timed: " + json.dumps(result))
-    return st, launches, result
+    return {n: float(np.median(v)) for n, v in stage_ms.items()}
 
 
 def ragged_kernel_times(torch, de, st, batches):
@@ -3488,6 +3752,23 @@ def ragged_kernel_times(torch, de, st, batches):
         case=f"{n}x{b} rows, cap {cap}", ms=ms, plain_ms=plain,
         library_ms=lib, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
         bound_by="bytes", unique_rows=uniq8[0], ids=live_ids, bytes=nbytes)
+    # the same positions and splits with every id folded into the first
+    # 2,048 rows of its table: all rows resident in the 50 MB L2 (26 x
+    # 2,048 x 512 B = 27 MB); K8 reads one slab row a position, so
+    # positions x row bytes / ms is the row-read rate it reaches
+    fold = [((a[0], a[1].remainder(2048), *a[2:]), kw) for a, kw in args8]
+    ms_l2 = time_ms(torch, fn8, fold)
+    row = w * slab.element_size()
+    rate = {k: live_ids * row / (t * 1e-3) / 1e12
+            for k, t in (("hbm", ms), ("l2", ms_l2))}
+    cases["ragged_combine"].update(
+        l2_resident_ms=ms_l2, row_reads=live_ids, row_bytes=row,
+        row_read_tb_per_s=rate["hbm"], l2_row_read_tb_per_s=rate["l2"])
+    log(f"time ragged_combine: {ms:.4f} ms at the step's ids "
+        f"({rate['hbm']:.2f} TB/s of row reads, {live_ids} positions x "
+        f"{row} B), {ms_l2:.4f} ms with every id folded into its table's "
+        f"first 2,048 rows (L2-resident: {rate['l2']:.2f} TB/s)")
+    del fold
 
     # K9 --------------------------------------------------------------
     args9 = [(a, kw) for a, kw, _ in k9]
@@ -5540,6 +5821,7 @@ def stream_dlrm_timed(torch, de, twin, st, ss, cfg, batches):
 
     runs = {"dynamic": [], "static": []}
     launches = None
+    builds = {"dynamic": 0, "static": 0}
     for label in ("dynamic", "static", "static", "dynamic"):
         dyn = label == "dynamic"
         step = make_step_with(de if dyn else twin, cfg if dyn else None,
@@ -5550,12 +5832,14 @@ def stream_dlrm_timed(torch, de, twin, st, ss, cfg, batches):
             loss, st, *aux = step(st, cats, batch, *aux)
         torch.cuda.synchronize()
         zero_counts()
+        b0 = interaction_builds()
         t0 = time.perf_counter()
         for k in range(TRAIN_STEPS):
             cats, batch = batches[k % len(batches)]
             loss, st, *aux = step(st, cats, batch, *aux)
         torch.cuda.synchronize()
         runs[label].append((time.perf_counter() - t0) / TRAIN_STEPS)
+        builds[label] += interaction_builds() - b0
         if dyn and launches is None:
             launches = read_counts()
             check_launches(launches, dlrm_stream_per_step(TRAIN_STEPS),
@@ -5569,6 +5853,7 @@ def stream_dlrm_timed(torch, de, twin, st, ss, cfg, batches):
         "static_samples_per_sec": TRAIN_BATCH / sta_s,
         "streaming_overhead_frac": dyn_s / sta_s - 1.0,
         "step_ms_runs": {k: [t * 1e3 for t in v] for k, v in runs.items()},
+        "interaction_records_built": builds,
         "batch": TRAIN_BATCH, "steps": TRAIN_STEPS}
     return st, ss, launches, metrics
 
@@ -6162,8 +6447,15 @@ def example_steps_in_turns(torch, run, sizes):
         _, holder[0] = step(holder[0], cats, batch)
 
     turns = steps_in_turns(torch, run_step)
-    log("example: steps in turns with the parent's wrappers (ms): "
-        + json.dumps(turns))
+
+    def loss(dp, outs, batch):
+        return bce_with_logits(dp(batch[0], outs), batch[1])
+
+    turns["stages"] = stages_in_turns(torch, lambda: dlrm_stages(
+        torch, run.de, holder[0], data, loss=loss, tx=SGD(sched),
+        lr=sched(holder[0].step)))
+    log("example: steps and stage splits in turns with the parent's "
+        "wrappers (ms): " + json.dumps(turns))
     return turns
 
 
@@ -7168,10 +7460,11 @@ def w1_stage_yardstick(torch):
     params = de.init(gen, dtype=torch.bfloat16, device="cuda")
     cats, _ = train_batch(torch, sizes, TRAIN_BATCH, seed=SEED + 631)
     _, res = de.forward_with_residuals(params, cats)
-    # the step's cotangents: column slices of the interaction's gradient
-    g27 = torch.randn((TRAIN_BATCH, 27, 128), generator=gen, device="cuda"
+    # the step's cotangents: K4's contiguous views of one [27, b, 128]
+    # buffer
+    g27 = torch.randn((27, TRAIN_BATCH, 128), generator=gen, device="cuda"
                       ).to(torch.bfloat16)
-    grads = [g27[:, 1 + t] for t in range(len(sizes))]
+    grads = [g27[1 + t] for t in range(len(sizes))]
     opt = SparseSGD()
     st = opt.init(params)
     ok = torch.ones((), dtype=torch.bool, device="cuda")
@@ -7324,11 +7617,11 @@ def pack_kernel_times(torch):
          lambda: torch.cat([t.reshape(-1) for t in srcs]),
          2 * sum(t.numel() * t.element_size() for t in srcs))
     gen = torch.Generator(device="cuda").manual_seed(SEED + 621)
-    # the step's cotangents: column slices of the interaction's gradient
-    # [b, 27, 128], read in place
-    g27 = torch.randn((TRAIN_BATCH, 27, 128), generator=gen, device="cuda"
+    # the step's cotangents: K4's contiguous views of one [27, b, 128]
+    # buffer, read in place
+    g27 = torch.randn((27, TRAIN_BATCH, 128), generator=gen, device="cuda"
                       ).to(torch.bfloat16)
-    grads = [g27[:, 1 + t] for t in range(len(CRITEO_1TB_SIZES))]
+    grads = [g27[1 + t] for t in range(len(CRITEO_1TB_SIZES))]
     gp = exchange._grad_copy_plan(de1, plan, TRAIN_BATCH)
     packed = torch.empty((1, TRAIN_BATCH, plan.s_max), dtype=torch.bfloat16,
                          device=dev)
@@ -7449,7 +7742,8 @@ def main():
     errs = phase_check(torch, de, state)
     serve_launches, _ = phase_serve(torch, de, state)
     train_launches, train_errs, _, epi_cases = phase_train(torch, de, state)
-    errs.update(train_errs)
+    for k, v in train_errs.items():
+        errs[k] = max(errs.get(k, 0.0), v)
     launches = {"serve": serve_launches, "train": train_launches}
     kernels = phase_time(torch, de, state, errs, launches)
     for name, src, repl, entry_points in (

@@ -43,13 +43,14 @@ def dlrm_initializer(rows: int):
 
 def dot_interact(emb_outs: Sequence[torch.Tensor],
                  bottom_mlp_out: torch.Tensor) -> torch.Tensor:
-    """Pairwise dot-product interaction: stacks ``[bottom_mlp_out] +
-    emb_outs`` into ``[B, F, D]`` and returns the strictly lower
-    triangle of each sample's Gram matrix (``np.tril_indices(F, -1)``
-    order) followed by ``bottom_mlp_out``: ``[B, F(F-1)/2 + D]``. One
-    launch of K2 forward; its gradient is one launch of K4."""
-    feats = torch.stack([bottom_mlp_out] + list(emb_outs), dim=1)
-    return DotInteract.apply(feats)
+    """Pairwise dot-product interaction of the features ``[bottom_mlp_out]
+    + emb_outs`` (each ``[B, D]``): the strictly lower triangle of each
+    sample's Gram matrix (``np.tril_indices(F, -1)`` order) followed by
+    ``bottom_mlp_out``: ``[B, F(F-1)/2 + D]``. One launch of K2, which
+    reads the features where they lie (no stack is built); its gradient
+    is one launch of K4, each feature's a contiguous ``[B, D]`` view of
+    one buffer."""
+    return DotInteract.apply(bottom_mlp_out, *emb_outs)
 
 
 class DLRMConfig:

@@ -64,10 +64,19 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "detpu_gather_combine_prepared_bytes": (),
     },
     "dot_interact": {
-        # feats, out, batch, num_features, dim, dtype, stream
-        "detpu_dot_interact_fwd": (_P, _P, _I64, _I, _I, _I, _P),
-        # feats, dy, dfeats, batch, num_features, dim, dtype, stream
-        "detpu_dot_interact_bwd": (_P, _P, _P, _I64, _I, _I, _I, _P),
+        # ptrs, strides (host int64), n_table, fstride, batch,
+        # num_features, dim, dtype, out_fs, out_rs, dy_aligned, prepared
+        # (host, out)
+        "detpu_dot_interact_prepare": (_P, _P, _I, _I64, _I64, _I, _I, _I,
+                                       _I64, _I64, _I, _P),
+        # prepared, out, stream
+        "detpu_dot_interact_fwd_launch": (_P, _P, _P),
+        # prepared, dy, dfeats, stream
+        "detpu_dot_interact_bwd_launch": (_P, _P, _P, _P),
+        # -> the bytes of a prepared launch
+        "detpu_dot_interact_prepared_bytes": (),
+        # prepared -> bit 0: K2, bit 1: K4 on the tensor cores
+        "detpu_dot_interact_paths": (_P,),
     },
     "sgd_scatter": {
         # rows, width, slab_dtype, ids_is_64, n, vals_dtype, neg_lr,
@@ -233,6 +242,7 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
 #: return type of the exported functions that return no ``cudaError_t``
 RESTYPES = {"detpu_dedup_scratch_bytes": _I64,
             "detpu_gather_combine_prepared_bytes": _I64,
+            "detpu_dot_interact_prepared_bytes": _I64,
             "detpu_csr_prepared_bytes": _I64,
             "detpu_csr_scan_tile": _I64,
             "detpu_lengths_to_splits_scratch_bytes": _I64,

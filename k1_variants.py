@@ -3,8 +3,8 @@
 
 Builds variants of ``distributed_embeddings_torch/csrc/gather_combine.cu``
 (output rows a lane group R, threads a block, streaming output stores)
-by patching a copy of the source, each with ``nvcc`` into
-``build/k1_variants/``, all builds at once; then times each at the
+by patching a copy of the source (``variants.py``), each with ``nvcc``
+into ``build/k1_variants/``, all builds at once; then times each at the
 Criteo-1TB DLRM's training shapes (26 bf16 tables of width 128, b=65536,
 hot 1 and hot 3 mean, Zipfian ids) with CUDA events, in turns (three
 rounds, alternating the order), after checking that every variant gives
@@ -15,25 +15,23 @@ Run from the root of a checkout: ``python3 k1_variants.py [--parent DIR]``.
 Prints the card's name and power limit, then one line a shape.
 """
 
-import ctypes
 import importlib
 import importlib.util
 import os
-import subprocess
 import sys
 
 import numpy as np
 
+import variants as vs
+
 HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join(HERE, "distributed_embeddings_torch", "csrc",
-                      "gather_combine.cu")
 #: name -> (rows a lane group, threads a block, streaming stores)
 VARIANTS = {"r2_t128": (2, 128, False), "r1_t128": (1, 128, False),
             "r3_t128": (3, 128, False), "r4_t256": (4, 256, False),
             "r2_t256": (2, 256, False), "r2_t128_cs": (2, 128, True)}
 
 
-def variant_source(text, rows, threads, streaming):
+def variant(rows, threads, streaming):
     """The source with another R, block size or output store."""
     subs = [("constexpr int kRows = 2;", f"constexpr int kRows = {rows};"),
             ("constexpr int kThreads = 128;",
@@ -41,40 +39,7 @@ def variant_source(text, rows, threads, streaming):
     if streaming:
         subs.append(("*reinterpret_cast<RawT*>(out) = raw_out;",
                      "__stcs(reinterpret_cast<RawT*>(out), raw_out);"))
-    for old, new in subs:
-        if text.count(old) != 1:
-            raise SystemExit(f"k1_variants: {old!r} is not in the source "
-                             "once; update VARIANTS' patches")
-        text = text.replace(old, new)
-    return text
-
-
-def build(kernels):
-    """One library a variant, ``nvcc`` runs started together."""
-    out_dir = os.path.join(HERE, "build", "k1_variants")
-    os.makedirs(out_dir, exist_ok=True)
-    text = open(SOURCE).read()
-    flags = [f for f in kernels.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
-    procs = {}
-    for name, (rows, threads, streaming) in VARIANTS.items():
-        src = os.path.join(out_dir, name + ".cu")
-        with open(src, "w") as f:
-            f.write(variant_source(text, rows, threads, streaming))
-        procs[name] = subprocess.Popen(
-            [kernels.nvcc_path(), *flags, "-o", src[:-3] + ".so", src],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-    libs = {}
-    for name, p in procs.items():
-        log = p.communicate()[0].decode()
-        if p.returncode:
-            raise SystemExit(f"k1_variants: nvcc failed for {name}:\n{log}")
-        lib = ctypes.CDLL(os.path.join(out_dir, name + ".so"))
-        for fn, argtypes in kernels.SIGNATURES["gather_combine"].items():
-            f = getattr(lib, fn)
-            f.argtypes = list(argtypes)
-            f.restype = kernels.RESTYPES.get(fn, ctypes.c_int)
-        libs[name] = lib
-    return libs
+    return vs.replace(*subs)
 
 
 def parent_gather(path):
@@ -104,11 +69,10 @@ def main():
     from distributed_embeddings_torch.ops import _kernels, gather_combine
     from distributed_embeddings_torch.utils.data import power_law_ids
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    print(smi.stdout.strip(), flush=True)
-    libs = build(_kernels)
+    print(vs.card_line(), flush=True)
+    libs = vs.build(_kernels, "gather_combine",
+                    {name: variant(*v) for name, v in VARIANTS.items()},
+                    "k1_variants")
     dev = torch.device("cuda")
     sizes = CRITEO_1TB_SIZES
     n, total = len(sizes), sum(sizes)
@@ -152,11 +116,9 @@ def main():
             if not torch.equal(fn(sets[0]).view(torch.int16),
                                want.view(torch.int16)):
                 raise SystemExit(f"k1_variants: {name} differs from K1")
-        got = {name: [] for name in fns}
-        order = list(fns)
-        for rnd in range(3):
-            for name in (order if rnd % 2 == 0 else order[::-1]):
-                got[name].append(time_ms(torch, fns[name], sets))
+        cur = {}
+        got = vs.in_turns(list(fns), lambda name: cur.update(fn=fns[name]),
+                          lambda: time_ms(torch, cur["fn"], sets), rounds=3)
         print(f"b={b} hot={hot}: " + ", ".join(
             f"{k} {np.median(v):.4f} ms ({min(v):.4f}-{max(v):.4f})"
             for k, v in got.items()), flush=True)

@@ -3,7 +3,7 @@
 one NVIDIA GPU.
 
 Builds variants of ``distributed_embeddings_torch/csrc/segment_scatter.cuh``
-(the constants a variant changes: K18's ring stages and columns a block,
+(``variants.py``; the constants a variant changes: K18's ring stages and columns a block,
 the segment length from which K18 takes the block path, the update rows a
 lane loads ahead, K3's chunk L) by patching a copy of the sources, each
 with ``nvcc`` into ``build/segment_variants/``, all builds at once;
@@ -25,17 +25,13 @@ Run from the root of a checkout: ``python3 segment_variants.py``. Prints
 the card's name and power limit, then one line a shape.
 """
 
-import ctypes
 import json
-import os
-import re
-import shutil
-import subprocess
 import sys
 
 import numpy as np
 
-HERE = os.path.dirname(os.path.abspath(__file__))
+import variants as vs
+
 #: library -> variant -> the constants it sets
 VARIANTS = {
     "sgd_promoted": {"base": {}, "ring4": {"kStages": "4"},
@@ -47,60 +43,22 @@ VARIANTS = {
                     "split1024": {"kSplit": "1024"}}}
 
 
-def build(kernels):
-    """One library a variant, ``nvcc`` runs started together; returns the
-    loaded libraries by (library, variant)."""
-    root = os.path.join(HERE, "build", "segment_variants")
-    shutil.rmtree(root, ignore_errors=True)
-    procs = []
-    for lib, variants in VARIANTS.items():
-        for name, patch in variants.items():
-            d = os.path.join(root, lib, name, "csrc")
-            shutil.copytree(kernels.CSRC, d)
-            path = os.path.join(d, "segment_scatter.cuh")
-            text = open(path).read()
-            for const, value in patch.items():
-                text, n = re.subn(r"(constexpr int %s = )\d+;" % const,
-                                  r"\g<1>%s;" % value, text)
-                if n != 1:
-                    raise SystemExit(f"segment_variants: {const} is not "
-                                     "set once in segment_scatter.cuh")
-            open(path, "w").write(text)
-            out = os.path.join(root, lib, name, lib + ".so")
-            cmd = [kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-o", out,
-                   os.path.join(d, lib + ".cu")]
-            procs.append((lib, name, out, subprocess.Popen(
-                cmd, stdout=subprocess.DEVNULL, stderr=subprocess.STDOUT)))
-    libs = {}
-    for lib, name, out, proc in procs:
-        if proc.wait() != 0:
-            raise SystemExit(f"segment_variants: nvcc failed for {lib} "
-                             f"{name}")
-        handle = ctypes.CDLL(out)
-        for fn, argtypes in kernels.SIGNATURES[lib].items():
-            f = getattr(handle, fn)
-            f.argtypes = list(argtypes)
-            f.restype = kernels.RESTYPES.get(fn, ctypes.c_int)
-        handle.detpu_error_string.argtypes = [ctypes.c_int]
-        handle.detpu_error_string.restype = ctypes.c_char_p
-        libs[(lib, name)] = handle
-    return libs
-
-
 def main():
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("segment_variants: CUDA is not available")
-    sys.path.insert(0, HERE)
+    sys.path.insert(0, vs.HERE)
     import chip_smoke as cs
     from distributed_embeddings_torch.ops import _kernels
     from distributed_embeddings_torch.ops import scatter_add as sa
 
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip(), flush=True)
-    libs = build(_kernels)
+    print(vs.card_line(), flush=True)
+    libs = {(lib, name): handle for lib, variants in VARIANTS.items()
+            for name, handle in vs.build(
+                _kernels, lib, {n: vs.constants(**c) if c else None
+                                for n, c in variants.items()},
+                "segment_variants", "segment_scatter.cuh").items()}
 
     def use(lib, name):
         handle = libs[(lib, name)]
@@ -129,11 +87,8 @@ def main():
                              f"{out}")
 
     def turns(lib, fn):
-        names = list(VARIANTS[lib])
-        runs = {n: [] for n in names}
-        for name in names + names[::-1]:
-            use(lib, name)
-            runs[name].append(cs.time_ms(torch, fn, [()]))
+        runs = vs.in_turns(list(VARIANTS[lib]), lambda n: use(lib, n),
+                           lambda: cs.time_ms(torch, fn, [()]))
         return {n: round(float(np.median(v)), 4) for n, v in runs.items()}
 
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED)

@@ -8,7 +8,11 @@ installed, run them without the suite's JAX conftest::
 Tolerances: the hotness-1 gather and the bottom-row copy of the
 interaction are bit-exact; fp32-accumulated sums (hotness 3, weights,
 the pair dot products) are within 1 bf16 ulp of the plain result (bf16)
-or 1e-6 / 1e-5 relative (fp32), since the kernel sums in another order.
+or 1e-6 / 1e-5 relative (fp32), since the kernel sums in another order
+(K2's tensor-core kernel sums a pair that nearly cancels again in fp32,
+in order, to stay there). K2 and K4 on the features where the DLRM step
+leaves them (the list form) give the stacked form's bits, and a K2 + K4
+pair replays in a CUDA graph bit-exact to eager.
 The interaction backward (K4) is within 1 bf16 ulp of the plain result
 plus 2^-20 of the sum of |terms| (fp32 order; fp32: 1e-5 of that sum).
 The SGD scatter (K3) is bit-exact on rows one id updates and on dyadic
@@ -155,10 +159,21 @@ def test_gather_combine_kernel_matches_plain(cuda_device, dtype, width, b,
                     f"beyond; max err {err.max()}")
 
 
+def _k2_close(got, want, dtype, what):
+    """K2 against its plain version: fp32 within 1e-5; bf16 within 1
+    bf16 ulp."""
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        assert_within_ulps(got, want, np.maximum(np.abs(want), 1e-30), 1,
+                           what)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(1, 27, 128), (257, 27, 128),
-                                   (33, 27, 16), (9, 5, 13)])
+                                   (33, 27, 16), (9, 5, 13),
+                                   (65536, 27, 128)])
 def test_dot_interact_kernel_matches_plain(cuda_device, dtype, shape):
     feats = torch.randn(shape, generator=torch.Generator().manual_seed(3)
                         ).to(dtype).to(cuda_device)
@@ -306,7 +321,8 @@ def test_sgd_scatter_kernel_matches_plain(cuda_device, slab_dtype,
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(1, 27, 128), (257, 27, 128),
-                                   (33, 27, 16), (9, 5, 13)])
+                                   (33, 27, 16), (9, 5, 13),
+                                   (65536, 27, 128)])
 def test_dot_interact_bwd_kernel_matches_plain(cuda_device, dtype, shape):
     g = torch.Generator().manual_seed(4)
     b, f, d = shape
@@ -2687,3 +2703,226 @@ def test_launch_records_replay_in_a_cuda_graph(cuda_device):
     for a, b in zip(outs_e, outs_g):
         assert torch.equal(_bits(a), _bits(b))
     assert int(eager[0][4]) == 3 + 4
+
+
+def _step_features(dev, shape, dtype, layout, seed):
+    """The features as the DLRM step hands them to K2: the bottom-MLP
+    output and F - 1 pieces of one embedding buffer (``"step"``), or
+    column slices of one ``[B, (F - 1) D]`` tensor (``"columns"``); and
+    their stack."""
+    b, f, d = shape
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(shape, generator=g).to(dtype).to(dev)
+    bottom = x[:, 0].contiguous()
+    if layout == "step":
+        buf = torch.empty(((f - 1) * b, d), dtype=dtype, device=dev)
+        embs = [buf[k * b:(k + 1) * b] for k in range(f - 1)]
+    else:
+        wide = torch.empty((b, (f - 1) * d), dtype=dtype, device=dev)
+        embs = [wide[:, k * d:(k + 1) * d] for k in range(f - 1)]
+    for k, e in enumerate(embs):
+        e.copy_(x[:, k + 1])
+    return [bottom] + embs, x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["step", "columns"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 27, 128), (257, 27, 128),
+                                   (33, 27, 16), (9, 5, 13),
+                                   (65536, 27, 128)])
+def test_dot_interact_list_kernels_match_plain(cuda_device, dtype, shape,
+                                               layout):
+    """K2 and K4 on the features where the step leaves them (no stack):
+    the tensor-core kernels for bf16 with D a multiple of 16, the
+    CUDA-core ones otherwise; against the plain versions with the
+    stacked form's tolerances, and bit-identical to the stacked form."""
+    from distributed_embeddings_torch.ops.interaction import \
+        tensor_core_paths
+
+    b, f, d = shape
+    feats, x = _step_features(cuda_device, shape, dtype, layout, seed=11)
+    dy = torch.randn((b, f * (f - 1) // 2 + d),
+                     generator=torch.Generator().manual_seed(12)).to(
+        dtype).to(cuda_device)
+    tc = dtype == torch.bfloat16 and d % 16 == 0
+    assert tensor_core_paths(feats) == (1 if tc else 0)
+    assert tensor_core_paths(feats, dy) == (3 if tc else 0)
+    n0 = (dot_interact_fwd.launches, dot_interact_bwd.launches)
+    out = dot_interact_fwd(feats)
+    grads = dot_interact_bwd(feats, dy)
+    assert (dot_interact_fwd.launches - n0[0],
+            dot_interact_bwd.launches - n0[1]) == (1, 1)
+    assert len(grads) == f and all(g.is_contiguous() for g in grads)
+    got, want = to_np(out), to_np(dot_interact_fwd_plain(x))
+    np.testing.assert_array_equal(got[:, -d:], want[:, -d:])
+    _k2_close(got, want, dtype, "dot_interact list")
+    gb = np.stack([to_np(g) for g in grads], 1)
+    wb = to_np(dot_interact_bwd_plain(x, dy))
+    scale = to_np(dot_interact_bwd_plain(x.float().abs(), dy.float().abs()))
+    if dtype == torch.float32:
+        np.testing.assert_array_less(np.abs(gb - wb), 1e-5 * scale + 1e-30)
+    else:
+        ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(wb),
+                                                  2.0 ** -126))) - 7)
+        np.testing.assert_array_less(np.abs(gb - wb),
+                                     ulp + 2.0 ** -20 * scale + 1e-30)
+    # the stacked form runs the same per-sample arithmetic
+    assert torch.equal(_bits(out), _bits(dot_interact_fwd(x)))
+    whole = dot_interact_bwd(x, dy)
+    for k, g in enumerate(grads):
+        assert torch.equal(_bits(g), _bits(whole[:, k]))
+
+
+@pytest.mark.cuda
+def test_dot_interact_refuses_layouts_it_does_not_take(cuda_device):
+    """A transposed feature and a misaligned bf16 row on the tensor-core
+    shapes raise on the card too; the wrapper copies nothing."""
+    feats, _ = _step_features(cuda_device, (64, 5, 16), torch.bfloat16,
+                              "step", seed=1)
+    with pytest.raises(ValueError, match="feature 2.*not contiguous"):
+        dot_interact_fwd(feats[:2] + [feats[2].t().contiguous().t()]
+                         + feats[3:])
+    wide = torch.zeros((64, 40), dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="feature 1's rows are not 16-B"):
+        dot_interact_fwd([feats[0], wide[:, 1:17]] + feats[2:])
+
+
+@pytest.mark.cuda
+def test_bf16_train_step_on_the_card_matches_the_cpu(cuda_device):
+    """A small DLRM with bf16 compute at width 16 (K2 and K4 on the
+    tensor cores, F = 5) trained 3 steps in lockstep: each step runs on
+    the card from the CPU run's state, and the two results must agree
+    within bf16's rounding of the MLP products (cuBLAS and the CPU round
+    them at other places): losses within 1e-2, dense params and tables
+    within 1e-3."""
+    from distributed_embeddings_torch.ops.interaction import \
+        tensor_core_paths
+
+    sizes = [500, 7, 33, 1200]
+    cfg = DLRMConfig(table_sizes=sizes, embedding_dim=16,
+                     num_numerical_features=13, bottom_mlp_dims=(32, 16),
+                     top_mlp_dims=(64, 1), compute_dtype=torch.bfloat16)
+    de = DistributedEmbedding(cfg.embedding_configs(), world_size=1,
+                              compute_dtype=torch.bfloat16)
+    params = de.init(torch.Generator().manual_seed(0), device="cpu")
+    dense = DLRMDense(cfg, device="cpu",
+                      generator=torch.Generator().manual_seed(1))
+
+    def loss_fn(m, outs, batch):
+        return bce_with_logits(m(batch[0], outs), batch[1])
+
+    rng = np.random.default_rng(2)
+    batches = [([_ids(rng, s, (256,)) for s in sizes],
+                rng.normal(size=(256, 13)).astype(np.float32),
+                (rng.random(256) < 0.3).astype(np.float32))
+               for _ in range(3)]
+
+    def state_on(dev, emb, dparams):
+        d = DLRMDense(cfg, device=dev)
+        d.load_state_dict(dparams)
+        return HybridTrainState(
+            emb_params={k: v.clone().to(dev) for k, v in emb.items()},
+            emb_opt_state=SparseSGD().init(emb), dense_params=d,
+            dense_opt_state=(),
+            step=torch.zeros((), dtype=torch.int32, device=dev))
+
+    step = make_hybrid_train_step(de, loss_fn, SGD(0.1), SparseSGD(),
+                                  lr_schedule=0.1)
+    emb, dparams = params, dense.state_dict()
+    n0 = (dot_interact_fwd.launches, dot_interact_bwd.launches)
+    for cats, num, lab in batches:
+        out = {}
+        for dev in ("cpu", cuda_device):
+            st = state_on(dev, emb, dparams)
+            loss, st = step(st, [torch.from_numpy(c).to(dev) for c in cats],
+                            (torch.from_numpy(num).to(dev),
+                             torch.from_numpy(lab).to(dev)))
+            out[str(dev)] = (float(loss), {k: v.cpu() for k, v in
+                                           st.emb_params.items()},
+                             {k: v.cpu() for k, v in
+                              st.dense_params.state_dict().items()})
+        (lc, ec, dc), (lg, eg, dg) = out["cpu"], out[str(cuda_device)]
+        assert abs(lc - lg) <= 1e-2, (lc, lg)
+        for k in dc:
+            np.testing.assert_allclose(dg[k].numpy(), dc[k].numpy(),
+                                       atol=1e-3, rtol=0)
+        for k in ec:
+            np.testing.assert_allclose(eg[k].float().numpy(),
+                                       ec[k].float().numpy(), atol=1e-3,
+                                       rtol=0)
+        emb, dparams = ec, dc
+    assert (dot_interact_fwd.launches - n0[0],
+            dot_interact_bwd.launches - n0[1]) == (3, 3)
+    feats, _ = _step_features(cuda_device, (256, 5, 16), torch.bfloat16,
+                              "step", seed=3)
+    assert tensor_core_paths(feats) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_dot_interact_records_replay_in_a_cuda_graph(cuda_device, dtype):
+    """A K2 + K4 pair on the step's features, captured on the records'
+    hit path in a ``torch.cuda.CUDAGraph``: three replays on new inputs
+    written in place equal eager calls bit for bit (the tensor-core
+    kernels for bf16, the CUDA-core ones for float32). The capture fails
+    if a hit synchronizes or copies from pageable memory."""
+    shape = (1000, 27, 128)
+    feats, _ = _step_features(cuda_device, shape, dtype, "step", seed=21)
+    dy = torch.randn((1000, 351 + 128), device=cuda_device).to(dtype)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # builds the records off the capture
+        dot_interact_fwd(feats)
+        dot_interact_bwd(feats, dy)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    n0 = (dot_interact_fwd.launches, dot_interact_bwd.launches)
+    with torch.cuda.graph(graph):
+        out = dot_interact_fwd(feats)
+        grads = dot_interact_bwd(feats, dy)
+    assert (dot_interact_fwd.launches - n0[0],
+            dot_interact_bwd.launches - n0[1]) == (1, 1)
+    for k in range(3):
+        gen = torch.Generator(device=cuda_device).manual_seed(300 + k)
+        for t in feats + [dy]:
+            t.copy_(torch.randn(t.shape, generator=gen, device=cuda_device))
+        graph.replay()
+        want = dot_interact_fwd(feats)
+        wgrads = dot_interact_bwd(feats, dy)
+        assert torch.equal(_bits(out), _bits(want))
+        for a, b in zip(grads, wgrads):
+            assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.cuda
+def test_dot_interact_records_follow_moved_features(cuda_device):
+    """Features at new addresses (the allocator moved them) build a record
+    of their own and give the stacked form's bits; the earlier features
+    still find theirs; a feature moved off a 16-B boundary is refused."""
+    from distributed_embeddings_torch.ops import interaction as it
+
+    shape = (300, 27, 128)
+    a, _ = _step_features(cuda_device, shape, torch.bfloat16, "step", 31)
+    b, xb = _step_features(cuda_device, shape, torch.bfloat16, "step", 32)
+    dy = torch.randn((300, 351 + 128), device=cuda_device).to(torch.bfloat16)
+    it.dot_interact_fwd(a)
+    it.dot_interact_bwd(a, dy)
+    built = (it._FWD.builds, it._BWD.builds)
+    out = it.dot_interact_fwd(b)
+    grads = it.dot_interact_bwd(b, dy)
+    assert (it._FWD.builds, it._BWD.builds) == (built[0] + 1, built[1] + 1)
+    it.dot_interact_fwd(a)
+    it.dot_interact_bwd(a, dy)
+    assert (it._FWD.builds, it._BWD.builds) == (built[0] + 1, built[1] + 1)
+    assert torch.equal(_bits(out), _bits(dot_interact_fwd(xb)))
+    whole = dot_interact_bwd(xb, dy)
+    for k, g in enumerate(grads):
+        assert torch.equal(_bits(g), _bits(whole[:, k]))
+    wide = torch.empty(300 * 128 + 8, dtype=torch.bfloat16,
+                       device=cuda_device)
+    mis = wide[1:1 + 300 * 128].view(300, 128)
+    with pytest.raises(ValueError, match="feature 3's rows are not 16-B"):
+        it.dot_interact_fwd(b[:3] + [mis] + b[4:])
+    with pytest.raises(ValueError, match="feature 3's rows are not 16-B"):
+        it.dot_interact_bwd(b[:3] + [mis] + b[4:], dy)

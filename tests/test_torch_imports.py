@@ -1,7 +1,8 @@
 """Guard: the port stands alone and never falls back silently.
 
 AST-scans every module of ``distributed_embeddings_torch/``,
-``chip_smoke.py`` and the world-8 tests' rank worker
+``chip_smoke.py``, the kernel-variant scripts and the world-8 tests' rank
+worker
 (``tests/torch_dist_worker.py``, which the ranks import):
 
 * no import of ``jax``, ``flax``, ``optax``, ``msgpack``, ``ml_dtypes``,
@@ -30,6 +31,8 @@ def _sources():
     files.append(ROOT / "chip_smoke.py")
     files.append(ROOT / "k1_variants.py")
     files.append(ROOT / "segment_variants.py")
+    files.append(ROOT / "dot_variants.py")
+    files.append(ROOT / "variants.py")
     files.append(ROOT / "tests" / "torch_dist_worker.py")
     return files
 
