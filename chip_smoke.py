@@ -21,7 +21,8 @@ Phases (any failure raises and the script exits non-zero):
    K2 at B=256 and B=65536 on the features where the step leaves them,
    the bottom-MLP output and 26 pieces of one buffer: on the tensor
    cores, the appended row bit-exact, the pairs within 1 bf16 ulp,
-   bit-identical to the stacked form);
+   bit-identical to the stacked form); K2 and K4 at 1 and 256 features
+   (the model's ``dot_interact`` with no tables launches nothing);
 5. serve: a few hundred Zipfian requests of 1-8 samples through
    ``drive`` with the kernel launch counters zeroed just before and
    read just after; every result must be ``Served`` with finite
@@ -71,7 +72,10 @@ Phases (any failure raises and the script exits non-zero):
       as in 6d, a stage split and a ``torch.profiler`` window (device
       busy share, K5's launch chain);
    e. K1 (hot 10, w16), K3 (the w8 scatter-sum), K5, K6 and K7 timed
-      as in 7, and the w16 slab through both Adagrad regimes;
+      as in 7 (K5 also in turns with the parent's and with
+      ``torch.unique`` + ``index_add_``, its device ms split by stage:
+      sort, boundaries, sum, finish), and the w16 slab through both
+      Adagrad regimes;
 9. ragged, after freeing the zoo state: the multi-hot ragged DLRM
    (``bench.py``'s ``multihot_ragged``): the Criteo-Kaggle tables capped
    at 2M rows in fp32 (10,569,296 rows, a 5.41 GB slab), 26 ragged
@@ -105,7 +109,9 @@ Phases (any failure raises and the script exits non-zero):
       ``ragged_row_ids`` on the step's own splits, beside
       ``torch.searchsorted``; K8 also with every id folded into the
       first 2,048 rows of its table, all rows resident in the L2, and
-      both runs' row-read rates), and K3 on the step's stream with its
+      its row reads a second, every one from global memory; the stage
+      that served hot rows from shared memory is ``k8_variants.py``'s),
+      and K3 on the step's stream with its
       engine's device split, in turns with ``DETPU_SGD_DEDUP=1``'s K5 +
       K3 chain;
 10. adam, after freeing the ragged state: lazy ``SparseAdam`` and
@@ -188,8 +194,9 @@ Phases (any failure raises and the script exits non-zero):
       bitwise unchanged), 3 warmup + 20 timed steps against the static
       twin (the same slabs without the streaming entries) with
       ``streaming_overhead_frac``, Zipfian requests through
-      ``ServingRuntime(streaming=)``, and K16 (update and read-only) and
-      K17 timed beside their plain versions and byte bounds.
+      ``ServingRuntime(streaming=)``, K16 (update and read-only) and
+      K17 timed beside their plain versions and byte bounds, and K5 timed
+      on the checked step's w128 stream as in 8e.
 13. example, after freeing the streaming state: the DLRM example
     (``distributed_embeddings_torch/examples/dlrm_main.py``) with bf16
     tables under the MLPerf schedule, whose ``SparseSGD`` update is JAX's
@@ -268,7 +275,7 @@ The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Run from the root of a checkout:
 ``python3 chip_smoke.py``. With ``--parent DIR`` (a checkout of another
 commit, e.g. unpacked with ``git archive``), the launch-record kernels
-K1, K2, K3, K4, K10, K18, K19, K20 and K22 are also timed through that
+K1-K5, K8, K10, K18, K19, K20 and K22 are also timed through that
 checkout's wrappers, in turns with this tree's (``in_turns``), K1 is
 held bit-exact to that checkout's K1 at phase 4's shapes and the zoo's
 (and K2 within its tolerance of that checkout's), and the DLRM,
@@ -319,10 +326,22 @@ F32_OPS_PER_S = 67e12          # H100 SXM data sheet, fp32 (no tensor cores)
 ZOO_LR = 0.01                  # both optimizers' lr in bench.py:run_tiny_zoo
 ZOO_BATCH = 65536
 ZOO_BATCHES = 4                # distinct batches the timed steps cycle over
-K5_KERNELS = ("init_keys", "radix_hist", "scan_reduce", "scan_partials",
-              "scan_apply", "radix_scatter", "count_bounds", "seg_sum",
-              "seg_fix", "fill_tail")  # csrc/dedup.cu's launch chain
-K5_CHAIN = re.compile(r"namespace\)::(" + "|".join(K5_KERNELS) + r")[<(]")
+K5_KERNELS = ("seg_hist", "seg_sort_pass", "dd_rank", "dd_sum",
+              "dd_finish")  # csrc/dedup.cu's launch chain on the engine
+# the engine's sort launches under K5's key policy (K3's run under RowKey)
+K5_CHAIN = re.compile(r"namespace\)::((?:seg_hist|seg_sort_pass)(?=<[^>]*"
+                      r"IdKey)|dd_rank|dd_sum|dd_finish)[<(]")
+#: K5's launches by the stage of the call each belongs to: this tree's
+#: chain on the engine and the first design's (``--parent``) chain on
+#: ``radix_sort.cuh`` (its scans serve the sort and the boundary count)
+DEDUP_STAGES = (("seg_hist", "sort"), ("seg_sort_pass", "sort"),
+                ("dd_rank", "boundaries"), ("dd_sum", "sum"),
+                ("dd_finish", "finish"), ("init_keys", "sort"),
+                ("radix_hist", "sort"), ("scan_reduce", "sort"),
+                ("scan_partials", "sort"), ("scan_apply", "sort"),
+                ("radix_scatter", "sort"), ("count_bounds", "boundaries"),
+                ("seg_sum", "sum"), ("seg_fix", "finish"),
+                ("fill_tail", "finish"))
 
 
 def check(cond, msg):
@@ -363,8 +382,9 @@ _parent = {}
 
 def parent_ops():
     """The parent checkout's ``ops.dense_update``, ``ops.exchange_pack``,
-    ``ops.embedding_lookup``, ``ops.scatter_add`` and ``ops.interaction``
-    modules and its ``models.dlrm`` (key ``"dlrm"``), loaded under the
+    ``ops.embedding_lookup``, ``ops.scatter_add``, ``ops.interaction`` and
+    ``ops.sparse_grad`` modules and its ``models.dlrm`` (key ``"dlrm"``),
+    loaded under the
     package name
     ``detpu_parent`` (its kernels built from its own sources into its own
     ``build/``), or None without ``--parent``."""
@@ -383,9 +403,10 @@ def parent_ops():
         spec.loader.exec_module(mod)
         importlib.import_module("detpu_parent.ops._kernels").build_all(
             ["dense_update", "exchange_pack", "gather_combine", "csr",
-             "sgd_scatter", "sgd_promoted", "dot_interact"])
+             "sgd_scatter", "sgd_promoted", "dot_interact",
+             "ragged_combine", "dedup"])
         for name in ("dense_update", "exchange_pack", "embedding_lookup",
-                     "scatter_add", "interaction"):
+                     "scatter_add", "interaction", "sparse_grad"):
             _parent[name] = importlib.import_module(
                 f"detpu_parent.ops.{name}")
         _parent["dlrm"] = importlib.import_module("detpu_parent.models.dlrm")
@@ -409,21 +430,22 @@ def in_turns(torch, fn, parent_fn, lib=None):
     return {k: float(np.median(v)) if v else None for k, v in out.items()}
 
 
-#: the K1 and K10 call sites of the steps and the forward: (module,
+#: the K1, K8 and K10 call sites of the steps and the forward: (module,
 #: global) pairs that ``parent_wrappers`` routes to the parent's wrappers
 LOOKUP_SITES = (("lookup", "gather_combine"), ("lookup", "lengths_to_splits"),
-                ("apply", "lengths_to_splits"),
+                ("lookup", "ragged_combine"), ("apply", "lengths_to_splits"),
                 ("dist_embedding", "row_to_split"))
 
 
 @contextlib.contextmanager
 def parent_wrappers():
-    """Route the steps' K19/K20/K22 and K3/K18 call sites (the module
+    """Route the steps' K19/K20/K22, K3/K18 and K5 call sites (the module
     globals ``parallel.exchange.pack_ids``/``pack_columns`` and
-    ``parallel.optimizers.dense_update``/``sgd_scatter``: the parent's
-    ``sgd_scatter`` takes its own K18 for the promoted chain), the
+    ``parallel.optimizers.dense_update``/``sgd_scatter``/
+    ``dedup_sparse_grad``: the parent's ``sgd_scatter`` takes its own K18
+    for the promoted chain), the
     interaction (``models.dlrm.dot_interact``: the parent's stacks the
-    features and runs its K2 and K4) and their K1/K10 call sites
+    features and runs its K2 and K4) and their K1/K8/K10 call sites
     (``LOOKUP_SITES``) to the parent checkout's wrappers, each copy plan
     handed over as the parent's ``CopyPlan`` of the same copies."""
     import importlib
@@ -443,7 +465,7 @@ def parent_wrappers():
 
     saved = (exchange.pack_ids, exchange.pack_columns,
              optimizers.dense_update, optimizers.sgd_scatter,
-             dlrm.dot_interact)
+             optimizers.dedup_sparse_grad, dlrm.dot_interact)
     # the parent's interaction: its stack of the features, then its K2
     # (and, through its autograd Function, its K4)
     dlrm.dot_interact = par["dlrm"].dot_interact
@@ -453,6 +475,7 @@ def parent_wrappers():
                              .pack_columns(their(plan), srcs, dsts))
     optimizers.dense_update = par["dense_update"].dense_update
     optimizers.sgd_scatter = par["scatter_add"].sgd_scatter
+    optimizers.dedup_sparse_grad = par["sparse_grad"].dedup_sparse_grad
     mods = {m: importlib.import_module(
         f"distributed_embeddings_torch.parallel.{m}")
         for m, _ in LOOKUP_SITES}
@@ -464,7 +487,7 @@ def parent_wrappers():
     finally:
         (exchange.pack_ids, exchange.pack_columns,
          optimizers.dense_update, optimizers.sgd_scatter,
-         dlrm.dot_interact) = saved
+         optimizers.dedup_sparse_grad, dlrm.dot_interact) = saved
         for (m, name), fn in zip(LOOKUP_SITES, lookups):
             setattr(mods[m], name, fn)
 
@@ -653,11 +676,12 @@ SEGMENT_STAGES = (("seg_hist", "sort"), ("seg_sort_pass", "sort"),
                   ("seg_combine", "rows"))
 
 
-def segment_split(torch, fn, calls=10):
+def segment_split(torch, fn, calls=10, stages=SEGMENT_STAGES):
     """Device ms a call of a K3/K18 wrapper split into the engine's sort
     (the histogram and the digit passes), segment lists and rows pass
     (with K3's combine), and its launches a call: ``torch.profiler``'s
-    CUDA events over ``calls`` calls."""
+    CUDA events over ``calls`` calls (``stages``: kernel name -> stage,
+    ``DEDUP_STAGES`` for K5)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -668,12 +692,12 @@ def segment_split(torch, fn, calls=10):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    out = {"sort_ms": 0.0, "segments_ms": 0.0, "rows_ms": 0.0,
-           "other_ms": 0.0, "launches_per_call": 0.0}
+    out = {f"{st}_ms": 0.0 for _, st in stages}
+    out.update(other_ms=0.0, launches_per_call=0.0)
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
-        stage = next((st for name, st in SEGMENT_STAGES
+        stage = next((st for name, st in stages
                       if f"::{name}<" in e.key or f"::{name}(" in e.key),
                      "other")
         out[f"{stage}_ms"] += e.self_device_time_total / 1e3 / calls
@@ -988,7 +1012,51 @@ def phase_check(torch, de, state):
                 torch.stack(feats, 1))
             compare(torch, got, theirs, exact=False,
                     what=f"dot_interact_fwd B={b} against the parent's K2")
+    feature_count_checks(torch, gen, errs)
     return errs
+
+
+def feature_count_checks(torch, gen, errs):
+    """The feature counts JAX's ``dot_interact`` takes beyond the DLRM's
+    27 (C6), bf16 at b=RUNG and width 128: one feature (the model's
+    ``dot_interact`` hands the bottom output through and launches
+    nothing; K2 and K4 take it too) and 256 (the stacked CUDA-core
+    kernels), each launch counted and held to the plain version at phase
+    4's tolerances (K4: 1 bf16 ulp plus 2^-20 of the sum of |terms|)."""
+    from distributed_embeddings_torch.models import dot_interact
+    from distributed_embeddings_torch.ops import (
+        dot_interact_bwd, dot_interact_bwd_plain, dot_interact_fwd,
+        dot_interact_fwd_plain)
+
+    for f in (1, 256):
+        x = torch.randn((RUNG, f, 128), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        feats = list(x.unbind(1))
+        dy = torch.randn((RUNG, f * (f - 1) // 2 + 128), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+        n0 = (dot_interact_fwd.launches, dot_interact_bwd.launches)
+        if f == 1:
+            bottom = feats[0].clone().requires_grad_(True)
+            out = dot_interact([], bottom)
+            out.backward(dy)
+            check(out is bottom and bool(torch.equal(bottom.grad, dy)),
+                  "dot_interact with no tables: not the bottom output")
+            check((dot_interact_fwd.launches, dot_interact_bwd.launches)
+                  == n0, "dot_interact with no tables launched a kernel")
+        got = dot_interact_fwd(feats)
+        grads = dot_interact_bwd(feats, dy)
+        check((dot_interact_fwd.launches - n0[0],
+               dot_interact_bwd.launches - n0[1]) == (1, 1),
+              f"dot_interact F={f}: not one launch of K2 and of K4")
+        errs["dot_interact_fwd"] = max(errs["dot_interact_fwd"], compare(
+            torch, got, dot_interact_fwd_plain(x), exact=False,
+            what=f"dot_interact_fwd F={f} B={RUNG}"))
+        scale = dot_interact_bwd_plain(x.float().abs(), dy.float().abs())
+        errs["dot_interact_bwd"] = max(errs.get("dot_interact_bwd", 0.0),
+                                       compare(
+            torch, torch.stack(grads, 1), dot_interact_bwd_plain(x, dy),
+            exact=False, what=f"dot_interact_bwd F={f} B={RUNG}",
+            scale=scale))
 
 
 def plain_predictions(torch, de, state, req):
@@ -2699,6 +2767,48 @@ def zoo_stages(torch, de, opt, st, data, tx=None):
     return {n: float(np.median(v)) for n, v in stage_ms.items()}
 
 
+def dedup_case(torch, label, ids, vals, rows):
+    """K5 timed on one call's stream (``kernel_case``: in turns with the
+    parent's K5 and with ``torch.unique`` + ``index_add_``, the library
+    call for the same function), its device ms split by stage
+    (``DEDUP_STAGES``: sort, boundaries, sum, finish) and, with
+    ``--parent``, the parent's split, beside its byte bound (the ids and
+    rows read once, the U outputs written once)."""
+    from distributed_embeddings_torch.ops import (dedup_sparse_grad,
+                                                  dedup_sparse_grad_plain)
+
+    kw = dict(pad_id=rows, max_unique=rows + 1)
+    n, w = vals.shape
+    u_cap = min(n, rows + 1)
+    uids, _ = dedup_sparse_grad(ids, vals, **kw)
+    row = ids.element_size() + w * vals.element_size()
+    par = parent_ops()
+    parent = None if par is None else (
+        lambda: par["sparse_grad"].dedup_sparse_grad(ids, vals, **kw))
+
+    def library():
+        u, inv = torch.unique(ids, sorted=True, return_inverse=True)
+        return u, torch.zeros((u.numel(), w), dtype=vals.dtype,
+                              device="cuda").index_add_(0, inv, vals)
+
+    def fn():
+        return dedup_sparse_grad(ids, vals, **kw)
+
+    case = kernel_case(
+        torch, "dedup_sparse_grad", label, fn, parent, library,
+        (n + u_cap) * row, plain=lambda: dedup_sparse_grad_plain(
+            ids, vals, **kw),
+        extra={"ids": n, "width": w,
+               "unique_ids": int((uids < rows).sum())})
+    case["split"] = segment_split(torch, fn, stages=DEDUP_STAGES)
+    case["parent_split"] = (segment_split(torch, parent, stages=DEDUP_STAGES)
+                            if parent else None)
+    log(f"dedup_sparse_grad {label} split (device ms a call): "
+        + json.dumps({"change": case["split"],
+                      "parent": case["parent_split"]}))
+    return case
+
+
 def zoo_kernel_times(torch, de, opt, st, data, cfg):
     """CUDA-event medians of K5, K6, K7, and of K1 (hot 10, w16) and K3
     (the w8 scatter-sum), at the shapes one full-size step gives them,
@@ -2707,8 +2817,8 @@ def zoo_kernel_times(torch, de, opt, st, data, cfg):
     import torch.nn.functional as F
     from distributed_embeddings_torch.ops import (
         adagrad_dense, adagrad_dense_plain, adagrad_rows, adagrad_rows_plain,
-        dedup_sparse_grad, dedup_sparse_grad_plain, gather_combine,
-        gather_combine_plain, sgd_scatter, sgd_scatter_plain)
+        dedup_sparse_grad, gather_combine, gather_combine_plain, sgd_scatter,
+        sgd_scatter_plain)
     from distributed_embeddings_torch.ops.scatter_add import (
         SPLIT, add_in_stream_order)
     from distributed_embeddings_torch.parallel import (
@@ -2823,22 +2933,8 @@ def zoo_kernel_times(torch, de, opt, st, data, cfg):
     uids, ugrads = dedup_sparse_grad(ids16, vals16, pad_id=R16,
                                      max_unique=R16 + 1)
     distinct = int((uids < R16).sum())
-    nbytes = n * (4 + w16 * 4) + u_cap * (4 + w16 * 4)
-
-    def library_dedup():
-        u, inv = torch.unique(ids16, sorted=True, return_inverse=True)
-        return u, torch.zeros((u.numel(), w16), device="cuda").index_add_(
-            0, inv, vals16)
-
-    out["dedup_sparse_grad"] = {
-        "case": "zoo_w16_stream",
-        "ms": time_ms(torch, lambda: dedup_sparse_grad(
-            ids16, vals16, pad_id=R16, max_unique=R16 + 1), [()]),
-        "plain_ms": time_ms(torch, lambda: dedup_sparse_grad_plain(
-            ids16, vals16, pad_id=R16, max_unique=R16 + 1), [()]),
-        "library_ms": time_ms(torch, library_dedup, [()]),
-        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-        "ids": n, "unique_ids": distinct, "bytes": nbytes}
+    out["dedup_sparse_grad"] = dedup_case(torch, "zoo_w16_stream", ids16,
+                                          vals16, R16)
 
     # K6 on K5's output, into the w16 slab: it reads every id, and the
     # gradient, accumulator and slab row of each id below R16 only (the
@@ -3740,34 +3836,38 @@ def ragged_kernel_times(torch, de, st, batches):
         lib8.append((grow, offsets))
         uniq8.append(int(torch.unique(grow).numel()))
     fn8 = lambda a, kw: ragged_combine(*a, **kw)  # noqa: E731
-    ms = time_ms(torch, fn8, args8)
-    plain = time_ms(torch, lambda a, kw: ragged_combine_plain(*a, **kw),
-                    args8)
-    lib = time_ms(torch, lambda g, o: F.embedding_bag(g, slab, o,
-                                                      mode="sum"), lib8)
-    live_ids = int(lib8[0][0].numel())
-    nbytes = (live_ids * 4 + n * (b + 1) * 8 + uniq8[0] * w * 4
-              + n * b * w * 2)
-    cases["ragged_combine"] = dict(
-        case=f"{n}x{b} rows, cap {cap}", ms=ms, plain_ms=plain,
-        library_ms=lib, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-        bound_by="bytes", unique_rows=uniq8[0], ids=live_ids, bytes=nbytes)
+    a0, kw0 = args8[0]
+    g0, o0 = lib8[0]
+    live_ids = int(g0.numel())
+    esize = slab.element_size()
+    row = w * esize
+    out_bytes = n * b * w * torch.empty(
+        (), dtype=kw0.get("out_dtype") or slab.dtype).element_size()
+    nbytes = live_ids * 4 + n * (b + 1) * 8 + uniq8[0] * row + out_bytes
+    par = parent_ops()
+    parent8 = None if par is None else (
+        lambda: par["embedding_lookup"].ragged_combine(*a0, **kw0))
+    case = kernel_case(
+        torch, "ragged_combine", f"{n}x{b} rows, cap {cap}",
+        lambda: ragged_combine(*a0, **kw0), parent8,
+        lambda: F.embedding_bag(g0, slab, o0, mode="sum"), nbytes,
+        plain=lambda: ragged_combine_plain(*a0, **kw0),
+        extra=dict(unique_rows=uniq8[0], ids=live_ids))
+    case.update(out_bytes=out_bytes,
+                row_read_tb_per_s=live_ids * row / (case["ms"] * 1e-3) / 1e12)
     # the same positions and splits with every id folded into the first
     # 2,048 rows of its table: all rows resident in the 50 MB L2 (26 x
-    # 2,048 x 512 B = 27 MB); K8 reads one slab row a position, so
-    # positions x row bytes / ms is the row-read rate it reaches
+    # 2,048 x 512 B = 27 MB)
     fold = [((a[0], a[1].remainder(2048), *a[2:]), kw) for a, kw in args8]
     ms_l2 = time_ms(torch, fn8, fold)
-    row = w * slab.element_size()
-    rate = {k: live_ids * row / (t * 1e-3) / 1e12
-            for k, t in (("hbm", ms), ("l2", ms_l2))}
-    cases["ragged_combine"].update(
-        l2_resident_ms=ms_l2, row_reads=live_ids, row_bytes=row,
-        row_read_tb_per_s=rate["hbm"], l2_row_read_tb_per_s=rate["l2"])
-    log(f"time ragged_combine: {ms:.4f} ms at the step's ids "
-        f"({rate['hbm']:.2f} TB/s of row reads, {live_ids} positions x "
-        f"{row} B), {ms_l2:.4f} ms with every id folded into its table's "
-        f"first 2,048 rows (L2-resident: {rate['l2']:.2f} TB/s)")
+    case.update(l2_resident_ms=ms_l2, row_reads=live_ids, row_bytes=row,
+                l2_row_read_tb_per_s=live_ids * row / (ms_l2 * 1e-3) / 1e12)
+    cases["ragged_combine"] = case
+    log(f"time ragged_combine: {case['ms']:.4f} ms at the step's ids "
+        f"({case['row_read_tb_per_s']:.2f} TB/s of row reads, every one "
+        f"from global memory (L2 or HBM); parent {case['parent_ms']}); "
+        f"{ms_l2:.4f} ms with every id folded into its table's first "
+        f"2,048 rows")
     del fold
 
     # K9 --------------------------------------------------------------
@@ -5729,7 +5829,8 @@ def dlrm_stream_per_step(steps=1):
 def stream_dlrm_checks(torch, de, st, ss, cfg, gen, errs):
     """12c's checked step (K16 and its K13 fold, K5, K6 and K17 each
     against its plain version on the step's own inputs) and its NaN
-    batch."""
+    batch. Returns the state and K5's inputs in the step (the w128
+    stream, to time K5 at)."""
     from distributed_embeddings_torch.ops import adagrad_rows_plain
     from distributed_embeddings_torch.parallel import SparseAdagrad
 
@@ -5772,6 +5873,8 @@ def stream_dlrm_checks(torch, de, st, ss, cfg, gen, errs):
     check(bool(torch.isfinite(loss)), f"streaming DLRM loss {float(loss)}")
     for k in ("dedup_sparse_grad", "adagrad_rows"):
         errs[k] = max(errs.get(k, 0.0), k56[k])
+    k5_args = (seen["w128"]["ids"], seen["w128"]["vals"],
+               st.emb_params["w128"].shape[1])
     log(f"streaming DLRM: checked step, loss {float(loss):.5f}; K16 (and "
         f"the K13 fold) bit-exact to the plain remap on the step's own "
         f"{n} streaming positions; K5 max_abs_err "
@@ -5800,7 +5903,7 @@ def stream_dlrm_checks(torch, de, st, ss, cfg, gen, errs):
         "params, slot map, sketch and counters bitwise unchanged; step "
         "advanced")
     del before
-    return st, ss
+    return st, ss, k5_args
 
 
 def make_step_with(de, cfg, opt, nan_guard=True):
@@ -6138,7 +6241,7 @@ def phase_streaming(torch):
         f"{STREAM_BUCKETS} buckets each), built in "
         f"{time.perf_counter() - t0:.1f} s")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 181)
-    st, ss = stream_dlrm_checks(torch, de, st, ss, cfg, gen, errs)
+    st, ss, k5_args = stream_dlrm_checks(torch, de, st, ss, cfg, gen, errs)
     batches = [stream_dlrm_batch(torch, gen, TRAIN_BATCH)
                for _ in range(STREAM_BATCHES)]
     st, ss, launches, metrics = stream_dlrm_timed(torch, de, twin, st, ss,
@@ -6159,6 +6262,9 @@ def phase_streaming(torch):
     serve_launches, metrics["serve"] = stream_dlrm_serve(torch, de, st, ss,
                                                          cfg)
     cases = stream_kernel_times(torch, de, st, ss, cfg, batches)
+    cases["dedup_sparse_grad"] = dedup_case(torch, "streaming_dlrm_w128",
+                                            *k5_args)
+    del k5_args
     metrics["bench"] = bench
     metrics["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     metrics["phase_s"] = time.perf_counter() - t_phase
@@ -7930,6 +8036,9 @@ def main():
             k["launches_by_path"][p] = sum(st_launches[p][n] for n in names)
         k["max_abs_err"] = max(k["max_abs_err"],
                                st_errs.get(k["name"], 0.0))
+    for k in kernels:
+        if k["name"] == "dedup_sparse_grad":
+            k["cases"].append(st_cases["dedup_sparse_grad"])
     for name, repl in (
             ("remap_stage",
              "distributed_embeddings_tpu/parallel/streaming.py:265"),

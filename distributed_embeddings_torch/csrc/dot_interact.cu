@@ -10,7 +10,8 @@
 // part of that function, and K2 takes it over: it reads the F features
 // where they lie, through a table of (pointer, row stride) pairs passed
 // by value in the kernel's parameters (F <= 32), or through one stacked
-// tensor's (base, feature stride, row stride) above that.
+// tensor's (base, feature stride, row stride) above that (any F up to
+// 46,340; F = 1 is the bottom-MLP row alone).
 //
 // K4 replaces what JAX's autodiff makes of the same function (the
 // transposed selection matmul, the two einsum cotangents and the
@@ -92,11 +93,14 @@
 // synchronisation; the work is bound by the bytes either way, so the
 // smaller instruction that fits one sample is the better one.
 //
-// Other shapes (float32, D not a multiple of 16, F > 32, rows that are
-// not 16-B aligned) take the CUDA-core kernels: a CTA stages S samples'
-// rows in shared memory (padded by 16 B), K2's threads take (sample,
-// pair) tasks and K4's (sample, feature, column chunk) tasks, each
-// accumulating in fp32 in sequential order and storing once.
+// Other shapes (float32, D not a multiple of 16, F = 1 or F > 32, rows
+// that are not 16-B aligned) take the CUDA-core kernels: a CTA stages S
+// samples' rows in shared memory (padded by 16 B), K2's threads take
+// (sample, pair) tasks and K4's (sample, feature, column chunk) tasks,
+// each accumulating in fp32 in sequential order and storing once. Past
+// 256 features (the pair table's 8-bit codes), or where one sample's rows
+// and dG do not fit in shared memory, the wide kernels do the same tasks
+// reading the rows where they lie (the same sums, bit for bit).
 //
 // C interface (ctypes): detpu_dot_interact_prepare validates a call and
 // writes its launch parameters into host memory (the features' table,
@@ -112,7 +116,8 @@
 namespace {
 
 constexpr int kTable = 32;     // features passed one by one (pointer, stride)
-constexpr int kMaxF = 255;     // the largest F (pair codes are 8 + 8 bits)
+constexpr int kMaxF = 46340;   // the largest F (F(F-1) below 2^31)
+constexpr int kMaxStagedF = 256;  // the staged kernels' pair codes: 8 + 8 bits
 
 // Where feature f's row of sample b lies, in bytes: a table of (pointer,
 // row stride) a feature, or one stacked tensor (base, feature stride, row
@@ -172,6 +177,7 @@ struct BF16 {
 constexpr int kThreads = 256;
 constexpr int kMaxSamples = 16;
 constexpr int kSmemBudget = 48 * 1024;
+constexpr int64_t kWideGrid = 4096;  // the wide kernels' CTAs, at most
 
 template <typename Tr, bool VEC>
 __device__ __forceinline__ void stage_rows(const Args& a,
@@ -337,6 +343,127 @@ dot_interact_bwd_kernel(const __grid_constant__ Args a) {
         acc = fmaf(coef[g], Tr::load(tile[(s * F + g) * Dpad + d]), acc);
       }
       dfeats[f * a.out_fs + (s0 + s) * a.out_rs + d] = Tr::store(acc);
+    }
+  }
+}
+
+// ------------------------------------------ CUDA-core path, any F
+
+// The pair at index p of np.tril_indices(F, -1) order: (i, j) with
+// i(i-1)/2 <= p < i(i+1)/2 and j = p - i(i-1)/2.
+__device__ __forceinline__ void pair_of(int64_t p, int* i, int* j) {
+  int r = static_cast<int>(
+      (1.0 + sqrt(1.0 + 8.0 * static_cast<double>(p))) * 0.5);
+  while (static_cast<int64_t>(r) * (r - 1) / 2 > p) --r;
+  while (static_cast<int64_t>(r + 1) * r / 2 <= p) ++r;
+  *i = r;
+  *j = static_cast<int>(p - static_cast<int64_t>(r) * (r - 1) / 2);
+}
+
+// Features the staged kernels cannot hold (more than kMaxStagedF, or a
+// sample's rows and dG past the shared memory): each task reads its
+// rows (and K4 its dy entries) where they lie, through L1 and L2, and
+// accumulates in the staged kernels' order, so the results are theirs
+// bit for bit. A thread a (sample, output) for K2, a (sample, feature,
+// column chunk) for K4, grid-strided.
+template <typename Tr, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+dot_interact_fwd_wide(const __grid_constant__ Args a) {
+  using E = typename Tr::E;
+  constexpr int VE = 16 / static_cast<int>(sizeof(E));
+  const int D = a.D;
+  const int64_t P = static_cast<int64_t>(a.F) * (a.F - 1) / 2;
+  const int64_t out_w = P + D;
+  E* out = static_cast<E*>(a.out);
+  const int64_t total = a.batch * out_w;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x;
+       t < total; t += stride) {
+    const int64_t s = t / out_w, p = t - s * out_w;
+    if (p >= P) {  // the bottom-MLP row (feature 0) follows the triangle
+      out[t] = reinterpret_cast<const E*>(row_of(a.in, 0, s))[p - P];
+      continue;
+    }
+    int i, j;
+    pair_of(p, &i, &j);
+    const E* ri = reinterpret_cast<const E*>(row_of(a.in, i, s));
+    const E* rj = reinterpret_cast<const E*>(row_of(a.in, j, s));
+    float acc = 0.f;
+    if (VEC) {
+      for (int k = 0; k < D; k += VE) {
+        const uint4 x = __ldg(reinterpret_cast<const uint4*>(ri + k));
+        const uint4 y = __ldg(reinterpret_cast<const uint4*>(rj + k));
+        E ea[VE], eb[VE];
+        memcpy(ea, &x, 16);
+        memcpy(eb, &y, 16);
+#pragma unroll
+        for (int e = 0; e < VE; ++e) {
+          acc = fmaf(Tr::load(ea[e]), Tr::load(eb[e]), acc);
+        }
+      }
+    } else {
+      for (int k = 0; k < D; ++k) {
+        acc = fmaf(Tr::load(ri[k]), Tr::load(rj[k]), acc);
+      }
+    }
+    out[t] = Tr::store(acc);
+  }
+}
+
+template <typename Tr, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+dot_interact_bwd_wide(const __grid_constant__ Args a) {
+  using E = typename Tr::E;
+  constexpr int VE = 16 / static_cast<int>(sizeof(E));
+  constexpr int W = VEC ? VE : 1;  // columns a task
+  const int F = a.F, D = a.D;
+  const int64_t P = static_cast<int64_t>(F) * (F - 1) / 2;
+  const int64_t out_w = P + D;
+  const int dv = D / W;
+  const int64_t total = a.batch * F * dv;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  E* dfeats = static_cast<E*>(a.out);
+  for (int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x;
+       t < total; t += stride) {
+    const int64_t s = t / (static_cast<int64_t>(F) * dv);
+    const int64_t r = t - s * F * dv;
+    const int f = static_cast<int>(r / dv);
+    const int c = static_cast<int>(r - static_cast<int64_t>(f) * dv) * W;
+    const E* dys = static_cast<const E*>(a.dy) + s * out_w;
+    float acc[W];
+#pragma unroll
+    for (int e = 0; e < W; ++e) {
+      // the appended bottom-MLP row's cotangent goes to feature 0
+      acc[e] = f == 0 ? Tr::load(dys[P + c + e]) : 0.f;
+    }
+    for (int g = 0; g < F; ++g) {
+      // dG[f, g]: pair (max, min)'s cotangent, 0 on the diagonal
+      const int hi = g > f ? g : f, lo = g > f ? f : g;
+      const float k = g == f ? 0.f : Tr::load(
+          dys[static_cast<int64_t>(hi) * (hi - 1) / 2 + lo]);
+      const E* x = reinterpret_cast<const E*>(row_of(a.in, g, s)) + c;
+      E ea[W];
+      if (VEC) {
+        const uint4 v = __ldg(reinterpret_cast<const uint4*>(x));
+        memcpy(ea, &v, 16);
+      } else {
+        ea[0] = x[0];
+      }
+#pragma unroll
+      for (int e = 0; e < W; ++e) acc[e] = fmaf(k, Tr::load(ea[e]), acc[e]);
+    }
+    E eo[W];
+#pragma unroll
+    for (int e = 0; e < W; ++e) eo[e] = Tr::store(acc[e]);
+    E* o = dfeats + f * a.out_fs + s * a.out_rs + c;
+    if (VEC) {
+      uint4 v;
+      memcpy(&v, eo, 16);
+      *reinterpret_cast<uint4*>(o) = v;
+    } else {
+      o[0] = eo[0];
     }
   }
 }
@@ -870,6 +997,10 @@ enum Kind {
   kCoreBf16,
   kCoreBf16Vec,
   kTc,  // the tensor-core kernels
+  kWideF32,  // the CUDA-core kernels for any F
+  kWideF32Vec,
+  kWideBf16,
+  kWideBf16Vec,
 };
 
 struct Launch {
@@ -885,26 +1016,38 @@ struct Prepared {
   int dy_aligned;
 };
 
-// A CUDA-core launch: S samples a CTA, their rows padded in shared memory.
+// A CUDA-core launch: S samples a CTA, their rows padded in shared memory;
+// the wide kernels where the pair table's 8-bit codes or the shared
+// memory cannot hold one sample.
 void core_plan(bool bwd, bool vec, int esize, Args* a, Launch* l) {
   const int F = a->F, D = a->D;
   const int VE = 16 / esize;
   const int Dpad = vec ? D + VE : D + 1;
-  const size_t per_tile = static_cast<size_t>(F) * Dpad * esize;
-  const size_t per_dg = bwd ? static_cast<size_t>(F) * F * sizeof(float)
-                            : 0;
-  const size_t pair_bytes = static_cast<size_t>(F) * (F - 1) / 2 * 2;
-  int S = static_cast<int>((kSmemBudget - pair_bytes - 16) /
-                           (per_tile + per_dg));
-  S = S < 1 ? 1 : (S > kMaxSamples ? kMaxSamples : S);
-  const size_t tile_bytes = (S * per_tile + 15) / 16 * 16;
+  const int64_t per_tile = static_cast<int64_t>(F) * Dpad * esize;
+  const int64_t per_dg = bwd ? static_cast<int64_t>(F) * F * 4 : 0;
+  const int64_t pair_bytes = static_cast<int64_t>(F) * (F - 1) / 2 * 2;
+  const int64_t fit = (kSmemBudget - pair_bytes - 16) / (per_tile + per_dg);
+  const int S = fit < 1 ? 1 : (fit > kMaxSamples ? kMaxSamples
+                                                 : static_cast<int>(fit));
+  const int64_t tile_bytes = (S * per_tile + 15) / 16 * 16;
+  const int64_t smem = tile_bytes + S * per_dg + pair_bytes;
+  l->threads = kThreads;
+  if (F > kMaxStagedF || smem > kSmemMax) {
+    l->kind = esize == 4 ? (vec ? kWideF32Vec : kWideF32)
+                         : (vec ? kWideBf16Vec : kWideBf16);
+    l->smem = 0;
+    const int64_t tasks = bwd ? a->batch * F * (vec ? D / VE : D)
+                              : a->batch * (F * (F - 1) / 2 + D);
+    const int64_t blocks = (tasks + kThreads - 1) / kThreads;
+    l->grid = static_cast<unsigned>(blocks < kWideGrid ? blocks : kWideGrid);
+    return;
+  }
   a->S = S;
   a->Dpad = Dpad;
-  a->tile_bytes = static_cast<int64_t>(tile_bytes);
+  a->tile_bytes = tile_bytes;
   l->kind = esize == 4 ? (vec ? kCoreF32Vec : kCoreF32)
                        : (vec ? kCoreBf16Vec : kCoreBf16);
-  l->threads = kThreads;
-  l->smem = static_cast<int>(tile_bytes + S * per_dg + pair_bytes);
+  l->smem = static_cast<int>(smem);
   const int64_t blocks = (a->batch + S - 1) / S;
   l->grid = blocks > 0x7fffffffLL ? 0u : static_cast<unsigned>(blocks);
 }
@@ -974,6 +1117,17 @@ cudaError_t launch_core(const Launch& l, const Args& a, bool bwd,
   return cudaGetLastError();
 }
 
+template <typename Tr, bool VEC>
+cudaError_t launch_wide(const Launch& l, const Args& a, bool bwd,
+                        cudaStream_t s) {
+  if (bwd) {
+    dot_interact_bwd_wide<Tr, VEC><<<l.grid, l.threads, 0, s>>>(a);
+  } else {
+    dot_interact_fwd_wide<Tr, VEC><<<l.grid, l.threads, 0, s>>>(a);
+  }
+  return cudaGetLastError();
+}
+
 cudaError_t launch(const Launch& l, const Args& a, bool bwd,
                    cudaStream_t s) {
   if (l.grid == 0) return cudaErrorInvalidConfiguration;
@@ -982,6 +1136,10 @@ cudaError_t launch(const Launch& l, const Args& a, bool bwd,
     case kCoreF32Vec: return launch_core<F32, true>(l, a, bwd, s);
     case kCoreBf16: return launch_core<BF16, false>(l, a, bwd, s);
     case kCoreBf16Vec: return launch_core<BF16, true>(l, a, bwd, s);
+    case kWideF32: return launch_wide<F32, false>(l, a, bwd, s);
+    case kWideF32Vec: return launch_wide<F32, true>(l, a, bwd, s);
+    case kWideBf16: return launch_wide<BF16, false>(l, a, bwd, s);
+    case kWideBf16Vec: return launch_wide<BF16, true>(l, a, bwd, s);
     case kTc:
       if (bwd) {
         dot_interact_bwd_tc<<<l.grid, l.threads, l.smem, s>>>(a);
@@ -1016,7 +1174,7 @@ extern "C" int detpu_dot_interact_prepare(
     const int64_t* ptrs, const int64_t* strides, int n_table,
     int64_t fstride, int64_t batch, int F, int D, int dtype, int64_t out_fs,
     int64_t out_rs, int dy_aligned, void* prepared) {
-  if (F < 2 || F > kMaxF || D <= 0 || batch < 0 ||
+  if (F < 1 || F > kMaxF || D <= 0 || batch < 0 ||
       (dtype != 0 && dtype != 1) || prepared == nullptr ||
       (n_table != 0 && n_table != F) || n_table > kTable ||
       ptrs == nullptr || strides == nullptr) {
@@ -1055,7 +1213,7 @@ extern "C" int detpu_dot_interact_prepare(
   const int VE = 16 / esize;
   const bool vec = D % VE == 0 && aligned;
   cudaError_t err = cudaSuccess;
-  if (dtype == 1 && F <= kTable && D % 16 == 0 && aligned) {
+  if (dtype == 1 && F >= 2 && F <= kTable && D % 16 == 0 && aligned) {
     const int P = F * (F - 1) / 2;
     a.sample_bytes = 2 * D;
     a.rs = kTcWarps * a.sample_bytes + 16;

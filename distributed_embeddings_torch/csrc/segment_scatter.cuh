@@ -53,6 +53,11 @@
 //    into a 3-stage shared-memory ring with cp.async while one warp runs
 //    the column chains out of shared memory, a lane a column.
 //
+// The sort is also K5's (dedup.cu): a key policy (RowKey here, K5's
+// IdKey there) says how the histogram and the first pass read a stream
+// position, so K5 sorts every id, sign-flipped, with no compaction, on
+// 32 or 64-bit keys.
+//
 // Bound: bytes. The stream is read once (ids, positions, update rows),
 // each distinct hit row read and written once; the sort moves 8-byte
 // (key, position) pairs once a digit. Row arithmetic is int64 (187.8M
@@ -75,9 +80,8 @@ namespace {
 constexpr int kThreads = 256;          // every launch's block
 constexpr int kWarps = kThreads / 32;
 constexpr int kBins = 256;             // 8-bit digits
-constexpr int kMaxPasses = 4;          // uint32 keys
+constexpr int kMaxPasses = 4;          // uint32 keys (K5's uint64: 8)
 constexpr int kItems = 16;             // pairs a thread in a sort tile
-constexpr int kWarpItems = 32 * kItems;
 constexpr int kTile = kThreads * kItems;  // 4,096 pairs a sort tile
 constexpr int kClasses = 32;           // segment length classes
 // update rows a lane loads ahead: 4 beats 8 and 16 (more warps resident;
@@ -94,7 +98,6 @@ constexpr int kCombBatch = 16;         // K3's partials a lane loads ahead
 constexpr int kBlockCols = 32;         // K18's block path: columns a block
 constexpr int kStages = 3;             // ... its ring of stages
 constexpr int kStageBytes = 16384;     // ... of 16 KB each
-constexpr uint32_t kDropKey = 0xffffffffu;  // in registers only
 constexpr unsigned long long kInclusive = 1ull << 31;
 
 // the words a call counts in
@@ -134,6 +137,9 @@ struct Params {
   int2* combs;                   // K3: (first chunk, chunks) a long segment
   float* partials;               // K3: [chunks, width]
   int64_t class_off[kClasses];   // class c's list: sum_{c' < c} (n >> c')
+  // K5's key policy (IdKey in dedup.cu): the valid mask and the pad id
+  const unsigned char* valid;    // null: every position is valid
+  int64_t pad_id;
   // per call
   void* slab;
   const void* ids;
@@ -187,6 +193,18 @@ __device__ __forceinline__ bool row_key(IdT raw, int64_t rows,
   return true;
 }
 
+// The engine's key policy: a position keys by its row under JAX
+// indexing, and a dropped id (outside the slab) is not kept.
+template <typename IdT>
+struct RowKey {
+  using U = uint32_t;
+  static constexpr int kMaxPasses = 4;
+  static constexpr int kItems = 16;  // kTile / kThreads
+  __device__ static bool of(const Params& p, int64_t j, U* key) {
+    return row_key(static_cast<const IdT*>(p.ids)[j], p.rows, key);
+  }
+};
+
 // Exclusive scan of one int per thread over the block; *total gets the
 // block's sum. Ends with a barrier, so it can be called again.
 __device__ __forceinline__ int block_scan(int v, int* total) {
@@ -221,23 +239,24 @@ __device__ __forceinline__ int block_scan(int v, int* total) {
 
 // Every digit of every kept id, counted at once; block 0 zeroes the
 // call's counters (their last use was the previous call's last launch).
-template <typename IdT>
+template <typename KeyOf>
 __global__ void __launch_bounds__(kThreads)
 seg_hist(const __grid_constant__ Params p) {
-  __shared__ int sh[kMaxPasses * kBins];
-  for (int i = threadIdx.x; i < kMaxPasses * kBins; i += kThreads) sh[i] = 0;
+  constexpr int kPasses = KeyOf::kMaxPasses;
+  __shared__ int sh[kPasses * kBins];
+  for (int i = threadIdx.x; i < kPasses * kBins; i += kThreads) sh[i] = 0;
   if (blockIdx.x == 0) {
     for (int i = threadIdx.x; i < kWords; i += kThreads) p.words[i] = 0;
   }
   __syncthreads();
-  const IdT* ids = static_cast<const IdT*>(p.ids);
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
   for (int64_t j = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
        j < p.n; j += stride) {
-    uint32_t key;
-    if (row_key(ids[j], p.rows, &key)) {
+    typename KeyOf::U key;
+    if (KeyOf::of(p, j, &key)) {
       for (int q = 0; q < p.passes; ++q) {
-        atomicAdd(&sh[q * kBins + ((key >> (8 * q)) & (kBins - 1))], 1);
+        atomicAdd(&sh[q * kBins + static_cast<int>((key >> (8 * q)) &
+                                                   (kBins - 1))], 1);
       }
     }
   }
@@ -285,13 +304,17 @@ __device__ __forceinline__ int look_back(unsigned long long* status,
   return prefix;
 }
 
-// One digit pass: pass 0 reads the ids (and drops what JAX drops), a
-// later pass the previous pass's pairs; writes keys[(pass + 1) & 1].
-template <typename IdT, bool kFirst>
+// One digit pass: pass 0 reads the ids (and drops what the key policy
+// drops), a later pass the previous pass's pairs; writes
+// keys[(pass + 1) & 1] (keys of the policy's type U).
+template <typename KeyOf, bool kFirst>
 __global__ void __launch_bounds__(kThreads)
 seg_sort_pass(const __grid_constant__ Params p, int pass) {
-  __shared__ uint32_t s_key[kTile];
-  __shared__ int s_pos[kTile];
+  using U = typename KeyOf::U;
+  constexpr int kIt = KeyOf::kItems;
+  constexpr int kTileIt = kThreads * kIt;
+  __shared__ U s_key[kTileIt];
+  __shared__ int s_pos[kTileIt];
   __shared__ int wh[kWarps][kBins];
   __shared__ int s_local[kBins];
   __shared__ int s_global[kBins];
@@ -306,44 +329,46 @@ seg_sort_pass(const __grid_constant__ Params p, int pass) {
   const int64_t tile = static_cast<int64_t>(ticket % gridDim.x);
   const uint32_t epoch = static_cast<uint32_t>(ticket / gridDim.x) + 1u;
   if (kFirst && tile == 0 && tid == 0) p.words[kWordKept] = m;
-  const int64_t base = tile * kTile;
+  const int64_t base = tile * kTileIt;
   const int64_t limit = kFirst ? p.n : static_cast<int64_t>(m);
   if (base >= limit) return;  // a later pass's tiles past the kept pairs
   const int shift = 8 * pass;
-  const uint32_t* keys_in = p.keys[pass & 1];
+  const U* keys_in = reinterpret_cast<const U*>(p.keys[pass & 1]);
   const int* pos_in = p.pos[pass & 1];
-  uint32_t* keys_out = p.keys[(pass + 1) & 1];
+  U* keys_out = reinterpret_cast<U*>(p.keys[(pass + 1) & 1]);
   int* pos_out = p.pos[(pass + 1) & 1];
   for (int d = lane; d < kBins; d += 32) wh[warp][d] = 0;
-  const int64_t wbase = base + warp * kWarpItems;
-  uint32_t key[kItems];
-  int val[kItems];
+  const int64_t wbase = base + warp * (32 * kIt);
+  U key[kIt];
+  int val[kIt];
+  uint32_t live = 0;  // bit k: item k is kept
 #pragma unroll
-  for (int k = 0; k < kItems; ++k) {
+  for (int k = 0; k < kIt; ++k) {
     const int64_t j = wbase + k * 32 + lane;
-    key[k] = kDropKey;
+    key[k] = 0;
     val[k] = 0;
     if (j < limit) {
       if (kFirst) {
-        uint32_t r;
-        if (row_key(static_cast<const IdT*>(p.ids)[j], p.rows, &r)) {
-          key[k] = r;
+        if (KeyOf::of(p, j, &key[k])) {
           val[k] = static_cast<int>(j);
+          live |= 1u << k;
         }
       } else {
         key[k] = keys_in[j];
         val[k] = pos_in[j];
+        live |= 1u << k;
       }
     }
   }
   __syncwarp();
   // rank within the warp, in stream order (k-major, lane-minor)
   const unsigned lt = (1u << lane) - 1u;
-  int rank[kItems];
+  int rank[kIt];
 #pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const int d = key[k] == kDropKey
-                      ? -1 : static_cast<int>((key[k] >> shift) & (kBins - 1));
+  for (int k = 0; k < kIt; ++k) {
+    const int d = (live >> k) & 1u
+                      ? static_cast<int>((key[k] >> shift) & (kBins - 1))
+                      : -1;
     const unsigned peers = __match_any_sync(0xffffffffu, d);
     int r = 0;
     if (d >= 0) r = wh[warp][d] + __popc(peers & lt);
@@ -366,8 +391,8 @@ seg_sort_pass(const __grid_constant__ Params p, int pass) {
   s_global[tid] = excl + look_back(p.status, tile, tid, count, epoch);
   __syncthreads();
 #pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    if (key[k] != kDropKey) {
+  for (int k = 0; k < kIt; ++k) {
+    if ((live >> k) & 1u) {
       const int d = static_cast<int>((key[k] >> shift) & (kBins - 1));
       const int li = s_local[d] + wh[warp][d] + rank[k];
       s_key[li] = key[k];
@@ -377,7 +402,7 @@ seg_sort_pass(const __grid_constant__ Params p, int pass) {
   __syncthreads();
   // out in digit runs: neighbouring threads on neighbouring addresses
   for (int i = tid; i < tile_total; i += kThreads) {
-    const uint32_t kk = s_key[i];
+    const U kk = s_key[i];
     const int d = static_cast<int>((kk >> shift) & (kBins - 1));
     const int64_t dst = static_cast<int64_t>(s_global[d]) + (i - s_local[d]);
     keys_out[dst] = kk;
@@ -388,8 +413,9 @@ seg_sort_pass(const __grid_constant__ Params p, int pass) {
 // ------------------------------------------------------------- segments
 
 // The end of the run of `key` that starts at j: gallop, then bisect.
-__device__ __forceinline__ int run_length(const uint32_t* sk, int64_t j,
-                                          int64_t m, uint32_t key) {
+template <typename U>
+__device__ __forceinline__ int run_length(const U* sk, int64_t j, int64_t m,
+                                          U key) {
   int64_t lo = j;          // sk[lo] == key
   int64_t hi = j + 1;      // sk[hi] != key, or hi == m
   int64_t step = 1;
@@ -995,22 +1021,29 @@ bool aligned(const void* a, int bytes) {
 }
 
 // The sort and the segment lists: everything before the rows pass.
-template <typename IdT>
-cudaError_t sort_and_list(const Params& p, cudaStream_t st) {
+// The histogram and the digit passes under the key policy KeyOf.
+template <typename KeyOf>
+cudaError_t sort_keys(const Params& p, cudaStream_t st) {
   const int64_t hist_blocks = min(static_cast<int64_t>(p.sms) * 4,
                                   (p.n + kThreads * 8 - 1) / (kThreads * 8));
-  seg_hist<IdT><<<static_cast<unsigned>(hist_blocks), kThreads, 0, st>>>(p);
+  seg_hist<KeyOf><<<static_cast<unsigned>(hist_blocks), kThreads, 0, st>>>(
+      p);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const unsigned tiles = static_cast<unsigned>(p.tiles);
-  seg_sort_pass<IdT, true><<<tiles, kThreads, 0, st>>>(p, 0);
+  seg_sort_pass<KeyOf, true><<<tiles, kThreads, 0, st>>>(p, 0);
   e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  for (int q = 1; q < p.passes; ++q) {
-    seg_sort_pass<int32_t, false><<<tiles, kThreads, 0, st>>>(p, q);
+  for (int q = 1; q < p.passes && e == cudaSuccess; ++q) {
+    seg_sort_pass<KeyOf, false><<<tiles, kThreads, 0, st>>>(p, q);
     e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
   }
+  return e;
+}
+
+template <typename IdT>
+cudaError_t sort_and_list(const Params& p, cudaStream_t st) {
+  cudaError_t e = sort_keys<RowKey<IdT>>(p, st);
+  if (e != cudaSuccess) return e;
   const int64_t list_blocks = min(static_cast<int64_t>(p.sms) * 8,
                                   (p.n + kThreads - 1) / kThreads);
   seg_list<<<static_cast<unsigned>(list_blocks), kThreads, 0, st>>>(p);

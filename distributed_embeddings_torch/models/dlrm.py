@@ -49,7 +49,11 @@ def dot_interact(emb_outs: Sequence[torch.Tensor],
     ``bottom_mlp_out``: ``[B, F(F-1)/2 + D]``. One launch of K2, which
     reads the features where they lie (no stack is built); its gradient
     is one launch of K4, each feature's a contiguous ``[B, D]`` view of
-    one buffer."""
+    one buffer. With no embeddings (F = 1) there are no pairs: the result
+    is ``bottom_mlp_out`` itself (JAX concatenates an empty triangle to
+    it), its gradient flows straight through, and no kernel launches."""
+    if not emb_outs:
+        return bottom_mlp_out
     return DotInteract.apply(bottom_mlp_out, *emb_outs)
 
 

@@ -104,12 +104,15 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "detpu_segment_long": (),
     },
     "dedup": {
-        # ids, ids_is_64, n, vals, vals_dtype, width, pad_id, u_cap, uids,
-        # ugrads, scratch, stream
-        "detpu_dedup": (_P, _I, _I64, _P, _I, _I, _I64, _I64, _P, _P, _P,
-                        _P),
-        # n, width, ids_is_64 -> bytes
+        # n, width, ids_is_64, vals_dtype, pad_id, u_cap, scratch, prepared
+        # (host, out)
+        "detpu_dedup_prepare": (_I64, _I, _I, _I, _I64, _I64, _P, _P),
+        # prepared, ids, vals, valid, uids, ugrads, stream
+        "detpu_dedup_launch": (_P, _P, _P, _P, _P, _P, _P),
+        # n, width, ids_is_64 -> bytes of card scratch
         "detpu_dedup_scratch_bytes": (_I64, _I, _I),
+        # -> the bytes of a prepared launch
+        "detpu_dedup_prepared_bytes": (),
     },
     "adagrad": {
         # slab, slab_dtype, acc, acc_dtype, rows, width, uids, ids_is_64, u,
@@ -152,12 +155,16 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "detpu_csr_scan_tile": (),
     },
     "ragged_combine": {
-        # slab, slab_rows, width, dtype, values, ids_is_64, v_stride,
-        # splits, rows, roff, mean, mask, weights, w_esize, w_stride, out,
-        # out_dtype, n_slots, b, cap, stream
-        "detpu_ragged_combine": (_P, _I64, _I, _I, _P, _I, _I64, _P, _P,
-                                 _P, _P, _P, _P, _I, _I64, _P, _I, _I,
-                                 _I64, _I64, _P),
+        # slab, slab_rows, width, dtype, ids_is_64, v_stride, rows, roff,
+        # mean, mask, w_esize, w_stride, out_dtype, n_slots, b, cap,
+        # prepared (host, out)
+        "detpu_ragged_combine_prepare": (_P, _I64, _I, _I, _I, _I64, _P, _P,
+                                         _P, _P, _I, _I64, _I, _I, _I64,
+                                         _I64, _P),
+        # prepared, values, splits, weights, out, stream
+        "detpu_ragged_combine_launch": (_P, _P, _P, _P, _P, _P),
+        # -> the bytes of a prepared launch
+        "detpu_ragged_combine_prepared_bytes": (),
     },
     "ragged_grad": {
         # g, g_slot_stride, g_row_stride, width, dtype, splits, values,
@@ -241,8 +248,10 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
 
 #: return type of the exported functions that return no ``cudaError_t``
 RESTYPES = {"detpu_dedup_scratch_bytes": _I64,
+            "detpu_dedup_prepared_bytes": _I64,
             "detpu_gather_combine_prepared_bytes": _I64,
             "detpu_dot_interact_prepared_bytes": _I64,
+            "detpu_ragged_combine_prepared_bytes": _I64,
             "detpu_csr_prepared_bytes": _I64,
             "detpu_csr_scan_tile": _I64,
             "detpu_lengths_to_splits_scratch_bytes": _I64,

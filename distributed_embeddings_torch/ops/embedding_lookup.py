@@ -649,13 +649,100 @@ def ragged_combine_plain(slab: torch.Tensor, values: torch.Tensor,
     return out.to(dt).to(out_dtype or dt)
 
 
+def ragged_record_key(slab, values, splits, rows, roff, mean=None,
+                      mask=None, weights=None, out_dtype=None) -> tuple:
+    """Every fact K8's launch record rests on: per slab, ``rows``,
+    ``roff``, ``mean`` and ``mask`` its address, shape, strides, dtype and
+    device (which of the optional two are given leads the key), the
+    LAYOUTS of ``values``, ``splits`` and ``weights`` (their addresses are
+    read per call) and the output dtype."""
+    ts = (slab, rows, roff) if mean is None and mask is None else tuple(
+        t for t in (slab, rows, roff, mean, mask) if t is not None)
+    return ((mean is not None) + 2 * (mask is not None),
+            *_kernels.tensor_key(ts), _kernels.layout_key(values),
+            _kernels.layout_key(splits), _kernels.layout_key(weights),
+            out_dtype)
+
+
+def build_ragged_record(slab, values, splits, rows, roff, mean=None,
+                        mask=None, weights=None,
+                        out_dtype=None) -> _kernels.LaunchRecord:
+    """Validate a K8 call as :func:`ragged_combine` always has (raising as
+    it did) and build its launch record: for CUDA tensors the prepared
+    launch (``csrc/ragged_combine.cu``: the vector width, the source
+    words a pass sized from the CTA's shared memory, the grid). Payload:
+    ``(out shape, out dtype, device, prepared launch)``; CPU tensors (the
+    tests) get a record without launches."""
+    if values.dim() != 2 or splits.dim() != 2:
+        raise ValueError(f"values must be [n, cap] and splits [n, b + 1], "
+                         f"got {tuple(values.shape)}, {tuple(splits.shape)}")
+    dev = slab.device
+    _check_device(dev)
+    if slab.dtype not in _DTYPE_CODE or slab.dim() != 2 \
+            or not slab.is_contiguous():
+        raise ValueError("slab must be a contiguous 2-D float32/bfloat16 "
+                         f"tensor, got {slab.dtype} {tuple(slab.shape)}")
+    out_dtype = out_dtype or slab.dtype
+    if out_dtype not in _DTYPE_CODE:
+        raise ValueError(f"out_dtype {out_dtype} is not float32/bfloat16")
+    n, cap = values.shape
+    b = splits.shape[1] - 1
+    _expect_rows(values, _INT, n, dev, "values")
+    _expect(splits, (torch.int64,), (n, b + 1), dev, "splits")
+    _expect(rows, (torch.int64,), (n,), dev, "rows")
+    _expect(roff, (torch.int64,), (n,), dev, "roff")
+    for t, what in ((mean, "mean"), (mask, "mask")):
+        if t is not None:
+            _expect(t, (torch.int32,), (n,), dev, what)
+    if weights is not None:
+        _expect_rows(weights, (torch.float32,) + _INT, n, dev, "weights")
+        if weights.shape[1] < cap:
+            raise ValueError(f"weights: {weights.shape[1]} per slot for a "
+                             f"capacity of {cap}")
+    w = slab.shape[1]
+    lib, calls, buf = None, [], None
+    if dev.type == "cuda":
+        lib = _kernels.library("ragged_combine")
+        buf = _prepared(lib, "ragged_combine")
+        _kernels.check(lib, lib.detpu_ragged_combine_prepare(
+            slab.data_ptr(), slab.shape[0], w, _DTYPE_CODE[slab.dtype],
+            int(values.dtype == torch.int64), values.stride(0),
+            rows.data_ptr(), roff.data_ptr(),
+            None if mean is None else mean.data_ptr(),
+            None if mask is None else mask.data_ptr(),
+            0 if weights is None else weights.element_size(),
+            0 if weights is None else weights.stride(0),
+            _DTYPE_CODE[out_dtype], n, b, cap, buf.ctypes.data),
+            "ragged_combine")
+        if n * b:
+            calls = [(lib.detpu_ragged_combine_launch, (buf.ctypes.data,))]
+    return _kernels.LaunchRecord(
+        lib, "ragged_combine", calls, _kernels.device_index(dev),
+        payload=((n, b, w), out_dtype, dev, buf))
+
+
+def find_ragged_record(cache: _kernels.LaunchCache, slab, values, splits,
+                       rows, roff, mean=None, mask=None, weights=None,
+                       out_dtype=None, build_on_cpu: bool = False):
+    """K8's launch record of a call: found in ``cache`` by
+    :func:`ragged_record_key`, or built (:func:`build_ragged_record`) and
+    kept (:func:`~._kernels.find_or_build`)."""
+    return _kernels.find_or_build(
+        cache, ragged_record_key(slab, values, splits, rows, roff, mean,
+                                 mask, weights, out_dtype),
+        build_ragged_record, slab.device.type == "cpu", build_on_cpu, slab,
+        values, splits, rows, roff, mean, mask, weights, out_dtype)
+
+
+_RAGGED = _kernels.LaunchCache()
+
+
 def ragged_combine(slab: torch.Tensor, values: torch.Tensor,
                    splits: torch.Tensor, rows: torch.Tensor,
                    roff: torch.Tensor, mean: Optional[torch.Tensor] = None,
                    mask: Optional[torch.Tensor] = None,
                    weights: Optional[torch.Tensor] = None,
-                   out_dtype: Optional[torch.dtype] = None
-                   ) -> torch.Tensor:
+                   out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """K8: per-slot CSR gather and combine.
 
     ``slab [R, w]`` (float32/bfloat16) holds the slots' tables;
@@ -674,7 +761,10 @@ def ragged_combine(slab: torch.Tensor, values: torch.Tensor,
     slab's). ``values`` and ``weights`` may be strided row views.
 
     A CPU slab runs :func:`ragged_combine_plain`; a CUDA slab launches
-    the kernel (``csrc/ragged_combine.cu``) or raises.
+    the kernel (``csrc/ragged_combine.cu``) or raises. The first call
+    with a slab, slot metadata and per-call layouts validates them and
+    builds a launch record; a later one only reads the values', splits',
+    weights' and output's addresses and replays it.
     """
     if values.dim() != 2 or splits.dim() != 2:
         raise ValueError(f"values must be [n, cap] and splits [n, b + 1], "
@@ -682,47 +772,15 @@ def ragged_combine(slab: torch.Tensor, values: torch.Tensor,
     if slab.device.type == "cpu":
         return ragged_combine_plain(slab, values, splits, rows, roff, mean,
                                     mask, weights, out_dtype)
-    if slab.device.type != "cuda":
-        raise ValueError(f"unsupported device {slab.device}")
-    if slab.dtype not in _DTYPE_CODE or slab.dim() != 2 \
-            or not slab.is_contiguous():
-        raise ValueError("slab must be a contiguous 2-D float32/bfloat16 "
-                         f"tensor, got {slab.dtype} {tuple(slab.shape)}")
-    out_dtype = out_dtype or slab.dtype
-    if out_dtype not in _DTYPE_CODE:
-        raise ValueError(f"out_dtype {out_dtype} is not float32/bfloat16")
-    n, cap = values.shape
-    b = splits.shape[1] - 1
-    dev = slab.device
-    _expect_rows(values, _INT, n, dev, "values")
-    _expect(splits, (torch.int64,), (n, b + 1), dev, "splits")
-    _expect(rows, (torch.int64,), (n,), dev, "rows")
-    _expect(roff, (torch.int64,), (n,), dev, "roff")
-    for t, what in ((mean, "mean"), (mask, "mask")):
-        if t is not None:
-            _expect(t, (torch.int32,), (n,), dev, what)
-    if weights is not None:
-        _expect_rows(weights, (torch.float32,) + _INT, n, dev, "weights")
-        if weights.shape[1] < cap:
-            raise ValueError(f"weights: {weights.shape[1]} per slot for a "
-                             f"capacity of {cap}")
-    w = slab.shape[1]
-    out = torch.empty((n, b, w), dtype=out_dtype, device=dev)
-    if n * b == 0:
-        return out
-    lib = _kernels.library("ragged_combine")
-    err = lib.detpu_ragged_combine(
-        slab.data_ptr(), slab.shape[0], w, _DTYPE_CODE[slab.dtype],
-        values.data_ptr(), int(values.dtype == torch.int64),
-        values.stride(0), splits.data_ptr(), rows.data_ptr(),
-        roff.data_ptr(), None if mean is None else mean.data_ptr(),
-        None if mask is None else mask.data_ptr(),
-        None if weights is None else weights.data_ptr(),
-        0 if weights is None else weights.element_size(),
-        0 if weights is None else weights.stride(0), out.data_ptr(),
-        _DTYPE_CODE[out_dtype], n, b, cap, _stream(slab))
-    _kernels.check(lib, err, "ragged_combine")
-    ragged_combine.launches += 1
+    rec = (_RAGGED.get(ragged_record_key(slab, values, splits, rows, roff,
+                                         mean, mask, weights, out_dtype))
+           or find_ragged_record(_RAGGED, slab, values, splits, rows, roff,
+                                 mean, mask, weights, out_dtype))
+    shape, dtype, dev = rec.payload[:3]
+    out = torch.empty(*shape, dtype=dtype, device=dev)
+    ragged_combine.launches += rec.replay(
+        values.data_ptr(), splits.data_ptr(),
+        None if weights is None else weights.data_ptr(), out.data_ptr())
     return out
 
 

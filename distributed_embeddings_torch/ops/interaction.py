@@ -27,7 +27,9 @@ kernels; the plain versions run only for CPU tensors):
 * the tensor-core kernels: bfloat16, 2 <= F <= 32, D a multiple of 16,
   every feature's rows 16-B aligned (its address and row stride; a list
   feature or a column slice of a wider tensor qualifies);
-* the CUDA-core kernels: float32, D not a multiple of 16, or F > 32;
+* the CUDA-core kernels: float32, D not a multiple of 16, F = 1 or F >
+  32 (past 256 features, or where a sample's rows do not fit in shared
+  memory, their wide form, which reads the rows where they lie);
 * refused with a ``ValueError`` naming the feature: a last dimension that
   is not contiguous, and, on the tensor-core shapes, rows that are not
   16-B aligned. Nothing is copied to make a layout fit.
@@ -55,8 +57,9 @@ from . import _kernels
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: the features a launch's table holds (``csrc/dot_interact.cu``'s kTable)
 TABLE = 32
-#: the most features the kernels take
-MAX_FEATURES = 255
+#: the most features the kernels take (``csrc/dot_interact.cu``'s kMaxF:
+#: F(F-1) below 2^31)
+MAX_FEATURES = 46340
 
 Feats = Union[torch.Tensor, Sequence[torch.Tensor]]
 
@@ -139,11 +142,12 @@ def _tensor_cores(dtype: torch.dtype, f: int, d: int) -> bool:
 def check_feats(feats: Feats) -> Tuple[int, int, int]:
     """Validate either form as the wrappers do (on any device) and
     return ``(B, F, D)``: one dtype, one device, one ``[B, D]`` shape,
-    2..255 features, a contiguous last dimension, and on the tensor-core
-    shapes 16-B aligned rows; a ``ValueError`` names what is refused."""
+    1..:data:`MAX_FEATURES` features (one is the bottom-MLP row alone), a
+    contiguous last dimension, and on the tensor-core shapes 16-B aligned
+    rows; a ``ValueError`` names what is refused."""
     b, f, d = _shape(feats)
-    if not 2 <= f <= MAX_FEATURES:
-        raise ValueError(f"dot_interact takes 2..{MAX_FEATURES} features, "
+    if not 1 <= f <= MAX_FEATURES:
+        raise ValueError(f"dot_interact takes 1..{MAX_FEATURES} features, "
                          f"got {f}")
     listed = _is_list(feats)
     ts = feats if listed else (feats,)
@@ -287,6 +291,8 @@ def _as_form(feats: Feats) -> Feats:
         return feats
     if not isinstance(feats, tuple):
         feats = tuple(feats)
+    if not feats:
+        _shape(feats)  # raises
     if len(feats) > TABLE and feats[0].device.type == "cuda":
         check_feats(feats)
         return torch.stack(feats, dim=1)

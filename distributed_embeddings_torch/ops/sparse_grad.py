@@ -27,6 +27,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from . import _kernels
@@ -227,6 +228,81 @@ def dedup_sparse_grad_plain(ids: torch.Tensor, grads: torch.Tensor, *,
     return uids, sums.to(grads.dtype)
 
 
+def dedup_record_key(ids, grads, pad_id: int, valid=None,
+                     max_unique: Optional[int] = None) -> tuple:
+    """Every fact K5's launch record rests on: the LAYOUTS of ``ids``,
+    ``grads`` and ``valid`` (their addresses are read per call), the pad
+    id and ``max_unique``."""
+    return (_kernels.layout_key(ids), _kernels.layout_key(grads),
+            _kernels.layout_key(valid), int(pad_id),
+            None if max_unique is None else int(max_unique))
+
+
+def build_dedup_record(ids, grads, pad_id: int, valid=None,
+                       max_unique: Optional[int] = None
+                       ) -> _kernels.LaunchRecord:
+    """Validate a K5 call as :func:`dedup_sparse_grad` always has
+    (raising as it did; ``ids``, ``grads`` and ``valid`` contiguous, as
+    the wrapper passes them) and build its launch record: for CUDA
+    tensors the card scratch of the sort and the segment lists (owned by
+    the record, zeroed once: the engine's tile ticket numbers the calls,
+    so no call resets it) and the prepared chain. Payload: ``(U, ids
+    dtype, rows dtype, width, device, scratch, prepared launch)``; CPU
+    tensors (the tests) get a record without launches."""
+    dev = ids.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    if ids.dim() != 1 or ids.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"ids: expected [n] int32/int64, got {ids.dtype} "
+                         f"{tuple(ids.shape)}")
+    n = ids.shape[0]
+    if grads.dtype not in _DTYPE_CODE or grads.dim() != 2 \
+            or grads.shape[0] != n or grads.device != dev:
+        raise ValueError(f"grads: expected [{n}, w] float32/bfloat16 on "
+                         f"{dev}, got {grads.dtype} "
+                         f"{tuple(grads.shape)} on {grads.device}")
+    if n >= 2 ** 31:
+        raise ValueError(f"dedup of {n} ids: at most 2^31 - 1")
+    if valid is not None:
+        _expect(valid, (torch.bool,), (n,), dev, "valid")
+    if not (ids.is_contiguous() and grads.is_contiguous()):
+        raise ValueError("ids and grads must be contiguous")
+    w = grads.shape[1]
+    u = n if max_unique is None else min(n, int(max_unique))
+    if u < 0:
+        raise ValueError(f"max_unique {max_unique} is negative")
+    lib, calls, scratch, buf = None, [], None, None
+    if dev.type == "cuda":
+        lib = _kernels.library("dedup")
+        i64 = int(ids.dtype == torch.int64)
+        scratch = torch.zeros((lib.detpu_dedup_scratch_bytes(n, w, i64),),
+                              dtype=torch.uint8, device=dev)
+        buf = np.zeros(lib.detpu_dedup_prepared_bytes(), np.uint8)
+        _kernels.check(lib, lib.detpu_dedup_prepare(
+            n, w, i64, _DTYPE_CODE[grads.dtype], int(pad_id), u,
+            scratch.data_ptr(), buf.ctypes.data), "dedup")
+        if u:
+            calls = [(lib.detpu_dedup_launch, (buf.ctypes.data,))]
+    return _kernels.LaunchRecord(
+        lib, "dedup", calls, _kernels.device_index(dev),
+        payload=(u, ids.dtype, grads.dtype, w, dev, scratch, buf))
+
+
+def find_dedup_record(cache: _kernels.LaunchCache, ids, grads, pad_id: int,
+                      valid=None, max_unique: Optional[int] = None,
+                      build_on_cpu: bool = False):
+    """K5's launch record of a call: found in ``cache`` by
+    :func:`dedup_record_key`, or built (:func:`build_dedup_record`) and
+    kept (:func:`~._kernels.find_or_build`)."""
+    return _kernels.find_or_build(
+        cache, dedup_record_key(ids, grads, pad_id, valid, max_unique),
+        build_dedup_record, ids.device.type == "cpu", build_on_cpu, ids,
+        grads, pad_id, valid, max_unique)
+
+
+_DEDUP = _kernels.LaunchCache()
+
+
 def dedup_sparse_grad(ids: torch.Tensor, grads: torch.Tensor, *,
                       pad_id: int, valid: Optional[torch.Tensor] = None,
                       max_unique: Optional[int] = None
@@ -239,42 +315,25 @@ def dedup_sparse_grad(ids: torch.Tensor, grads: torch.Tensor, *,
     ids' rows, as in JAX.
 
     CPU tensors run :func:`dedup_sparse_grad_plain`; CUDA tensors launch
-    the kernel chain (scratch from the caching allocator, sized by n) or
-    raise."""
+    the kernel chain or raise, through a launch record kept per layout,
+    pad id and bound (its scratch is the record's)."""
     if ids.device.type == "cpu":
         return dedup_sparse_grad_plain(ids, grads, pad_id=pad_id,
                                        valid=valid, max_unique=max_unique)
-    if ids.device.type != "cuda":
-        raise ValueError(f"unsupported device {ids.device}")
-    if ids.dim() != 1 or ids.dtype not in (torch.int32, torch.int64):
-        raise ValueError(f"ids: expected [n] int32/int64, got {ids.dtype} "
-                         f"{tuple(ids.shape)}")
-    n = ids.shape[0]
-    if grads.dtype not in _DTYPE_CODE or grads.dim() != 2 \
-            or grads.shape[0] != n or grads.device != ids.device:
-        raise ValueError(f"grads: expected [{n}, w] float32/bfloat16 on "
-                         f"{ids.device}, got {grads.dtype} "
-                         f"{tuple(grads.shape)} on {grads.device}")
-    if n >= 2 ** 31:
-        raise ValueError(f"dedup of {n} ids: at most 2^31 - 1")
-    ids, u = _prepare(ids, pad_id, valid, max_unique)
     ids, grads = ids.contiguous(), grads.contiguous()
-    w = grads.shape[1]
-    uids = torch.empty((u,), dtype=ids.dtype, device=ids.device)
-    ugrads = torch.empty((u, w), dtype=grads.dtype, device=grads.device)
-    if u == 0:
-        return uids, ugrads
-    lib = _kernels.library("dedup")
-    i64 = int(ids.dtype == torch.int64)
-    scratch = torch.empty((lib.detpu_dedup_scratch_bytes(n, w, i64),),
-                          dtype=torch.uint8, device=ids.device)
-    err = lib.detpu_dedup(
-        ids.data_ptr(), i64, n, grads.data_ptr(), _DTYPE_CODE[grads.dtype],
-        w, int(pad_id), u, uids.data_ptr(), ugrads.data_ptr(),
-        scratch.data_ptr(),
-        torch.cuda.current_stream(ids.device).cuda_stream)
-    _kernels.check(lib, err, "dedup")
-    dedup_sparse_grad.launches += 1
+    if valid is not None:
+        valid = valid.contiguous()
+    rec = (_DEDUP.get(dedup_record_key(ids, grads, pad_id, valid,
+                                       max_unique))
+           or find_dedup_record(_DEDUP, ids, grads, pad_id, valid,
+                                max_unique))
+    u, idt, gdt, w, dev = rec.payload[:5]
+    uids = torch.empty(u, dtype=idt, device=dev)
+    ugrads = torch.empty(u, w, dtype=gdt, device=dev)
+    dedup_sparse_grad.launches += rec.replay(
+        ids.data_ptr(), grads.data_ptr(),
+        None if valid is None else valid.data_ptr(), uids.data_ptr(),
+        ugrads.data_ptr())
     return uids, ugrads
 
 

@@ -410,7 +410,7 @@ def _dedup_case(rng, n, rows, hot_run=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("width", [1, 8, 16, 40])
+@pytest.mark.parametrize("width", [1, 8, 16, 40, 128])
 def test_dedup_kernel_matches_plain(cuda_device, dtype, width):
     """K5 against its plain version: unique ids bit-exact (tail
     included); a row that k ids sum is a fp32 sum taken in stable order
@@ -418,7 +418,10 @@ def test_dedup_kernel_matches_plain(cuda_device, dtype, width):
     version, each within (k - 1) 2^-24 of the sum of |rows|: float32
     sums within 2 k 2^-24 of it, bf16 sums within 1 bf16 ulp of the
     plain result more (both round one fp32 sum once). Two runs of the
-    kernel agree bitwise."""
+    kernel agree bitwise. The streams mix negative ids, the sentinel and
+    ids past it; one repeats an id 50,000 times, two bound the distinct
+    ids below their count (``max_unique``), one clears entries with a
+    ``valid`` mask, one has int64 ids past 2^32."""
     rng = np.random.default_rng(width)
     for n, rows, hot_run, ids_dtype, kw in (
             (1, 10, 0, torch.int32, {}),
@@ -426,7 +429,9 @@ def test_dedup_kernel_matches_plain(cuda_device, dtype, width):
             (20000, 3000, 9000, torch.int32, {}),
             (5000, 10 ** 6, 2000, torch.int32, {}),
             (3000, 100, 0, torch.int32, {"max_unique": 40}),
-            (3000, 100, 600, torch.int64, {"valid": True})):
+            (3000, 100, 600, torch.int64, {"valid": True}),
+            (30000, 70000, 50000, torch.int32, {}),
+            (4000, 3 * 2 ** 32, 500, torch.int64, {"max_unique": 900})):
         ids = _dedup_case(rng, n, rows, hot_run)
         tid = torch.from_numpy(ids).to(ids_dtype).to(cuda_device)
         vals = torch.from_numpy(rng.normal(size=(len(ids), width)).astype(
@@ -711,9 +716,9 @@ def test_hot_id_apply_rows_kernels_match_plain(cuda_device, name):
     times among Zipfian ids, each kernel held on the card to the inputs
     the call gave it, every row bit-exact, the hot row included:
     - K5: its unique ids equal the plain dedup's, and its sum of the hot
-      row equals the float32 sum in K5's fixed order (the stably sorted
-      rows cut at multiples of 256, each piece summed in order, then the
-      pieces in order), which numpy repeats;
+      row equals the float32 sum in K5's fixed order (the id's rows in
+      stream order cut into pieces of 256 from its first, each piece
+      summed in order, then the pieces in order), which numpy repeats;
     - K11/K12 on K5's own output, applied by the plain version to a copy
       of the state taken before the call (Adam's count as the call
       advanced it): slab and state equal."""
@@ -725,9 +730,7 @@ def test_hot_id_apply_rows_kernels_match_plain(cuda_device, name):
     ids[rng.permutation(n)[:50_000]] = hot
     vals = rng.normal(size=(n, w)).astype(np.float32)
     rows = vals[ids == hot]
-    start = int((ids < hot).sum())  # the hot id's first sorted position
-    cuts = np.r_[0, np.arange((start // chunk + 1) * chunk,
-                              start + len(rows), chunk) - start, len(rows)]
+    cuts = np.r_[np.arange(0, len(rows), chunk), len(rows)]
     pieces = np.stack([np.add.accumulate(rows[a:b], dtype=np.float32)[-1]
                        for a, b in zip(cuts[:-1], cuts[1:])])
     hot_sum = np.add.accumulate(pieces, dtype=np.float32)[-1]
@@ -2926,3 +2929,279 @@ def test_dot_interact_records_follow_moved_features(cuda_device):
         it.dot_interact_fwd(b[:3] + [mis] + b[4:])
     with pytest.raises(ValueError, match="feature 3's rows are not 16-B"):
         it.dot_interact_bwd(b[:3] + [mis] + b[4:], dy)
+
+
+# ---------------------------------- K8 staged rows, K5 on the engine, C6
+
+
+def _k8_stream(rng, rows, b, max_hot, bad, cap_frac, ids_dt, cap=None):
+    """A ragged id block ``[n, 2 cap]`` (values, then float32 weight
+    bits) over tables of ``rows`` rows: U{1..max_hot} ids a sample,
+    Zipfian (alpha 1.05) ranks hashed to random rows (the hot rows are
+    not the low ids), a ``bad`` share of negative and past-the-table
+    ids; ``cap_frac`` below 1 truncates the last rows (``cap``, if given,
+    is the capacity)."""
+    n = len(rows)
+    lengths = rng.integers(1, max_hot + 1, size=(n, b))
+    splits = np.zeros((n, b + 1), np.int64)
+    np.cumsum(lengths, axis=1, out=splits[:, 1:])
+    if cap is None:
+        cap = max(1, int(splits[:, -1].max() * cap_frac))
+    vals = np.zeros((n, cap), np.int64)
+    for k, r in enumerate(rows):
+        rank = (rng.zipf(1.05, size=cap) - 1) % r
+        vals[k] = rng.permutation(r)[rank]
+        flip = rng.random(cap) < bad
+        vals[k] = np.where(flip, rng.choice([-1, -7, r, r + 3], size=cap),
+                           vals[k])
+    w = rng.uniform(0.25, 2.0, size=(n, cap)).astype(np.float32)
+    block = np.concatenate([vals, w.view(np.int32).astype(np.int64)], 1)
+    return torch.from_numpy(block).to(ids_dt), cap, torch.from_numpy(splits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,out_dtype", [
+    (torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("width", [3, 8, 16, 128])
+def test_ragged_combine_zipf_streams_bit_exact(cuda_device, dtype,
+                                               out_dtype, width):
+    """K8 bit-exact to the plain version (a NaN equals a NaN): a Zipfian
+    50,000-row table whose hot rows are hashed (not the low ids), a
+    700-row table every tile hits whole, tables of 3, 4 and 10 rows; ~1%
+    bad ids, the mask on and off, a NaN in the row a masked
+    past-the-table id clips to (the NaN propagates); weights (in the id
+    block), mean slots, capacity truncation; int32 and int64 ids as
+    strided views."""
+    from distributed_embeddings_torch.ops import (ragged_combine,
+                                                  ragged_combine_plain)
+
+    rng = np.random.default_rng(7 * width)
+    rows = [50000, 700, 3, 4, 10]
+    n, b = len(rows), 1100  # five tiles of 256 samples, the last short
+    roff = np.concatenate([[0], np.cumsum(rows)[:-1]])
+    host = rng.normal(size=(sum(rows), width)).astype(np.float32)
+    host[roff[0] + rows[0] - 1] = np.nan  # the clip target of ids >= R
+    slab = torch.from_numpy(host).to(dtype).to(cuda_device)
+    meta = dict(rows=torch.tensor(rows, dtype=torch.int64,
+                                  device=cuda_device),
+                roff=torch.from_numpy(roff).to(cuda_device))
+    for ids_dt, cap_frac in ((torch.int32, 1.0), (torch.int64, 0.8)):
+        block, cap, splits = _k8_stream(rng, rows, b, 30, 0.01, cap_frac,
+                                        ids_dt)
+        block = block.to(cuda_device)
+        values = block[:, :cap]
+        for wts, mean, mask in ((None, None, None),
+                                (block[:, cap:], (1, 0, 1, 0, 1),
+                                 (1, 1, 0, 1, 0)),
+                                (None, (0, 1, 0, 1, 0), (1, 0, 1, 0, 1))):
+            kw = dict(meta, splits=splits.to(cuda_device), weights=wts,
+                      mean=None if mean is None else torch.tensor(
+                          mean, dtype=torch.int32, device=cuda_device),
+                      mask=None if mask is None else torch.tensor(
+                          mask, dtype=torch.int32, device=cuda_device),
+                      out_dtype=out_dtype)
+            got = ragged_combine(slab, values, **kw)
+            want = ragged_combine_plain(slab, values, **kw)
+            what = f"{ids_dt} cap {cap_frac} w={wts is not None} {mean}"
+            assert got.dtype == out_dtype
+            _float_bits_equal(got, want, what)
+            # the NaN row read (masked or not: 0 * NaN is NaN) is kept
+            assert torch.isnan(got[0].float()).any(), what
+    torch.cuda.synchronize()
+
+
+def _k8_counting_library():
+    """A build of ``csrc/ragged_combine.cu`` that counts its general-form
+    calls (``k8_variants.COUNT_GENERAL``), with that counter's reader."""
+    import ctypes
+    import importlib.util
+    import pathlib
+    import sys
+
+    from distributed_embeddings_torch.ops import _kernels
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(root))
+    try:
+        spec = importlib.util.spec_from_file_location(
+            "k8_variants", root / "k8_variants.py")
+        k8 = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(k8)
+    finally:
+        sys.path.remove(str(root))
+    lib = k8.vs.build(_kernels, "ragged_combine",
+                      {"count": k8.COUNT_GENERAL}, "tests")["count"]
+    lib.detpu_k8_general_calls.argtypes = []
+    lib.detpu_k8_general_calls.restype = ctypes.c_ulonglong
+    return k8, lib
+
+
+@pytest.mark.cuda
+def test_ragged_combine_long_rows_take_the_flat_form(cuda_device):
+    """Rows of U{1..hot} ids a sample, hot 60 to 2,000 (means 30 to
+    1,000, past the 20 a sample the first sizing of the source words
+    held), take the flat form, in passes of whole rows: a build that
+    counts the kernel's general-form calls counts none. A row past the
+    source words (70,000 ids) is the one general-form call of its
+    launch. Every result bit-exact to the plain version (fp32, weights,
+    a mean slot, ~1% bad ids masked)."""
+    import importlib
+
+    from distributed_embeddings_torch.ops import ragged_combine_plain
+
+    el = importlib.import_module(
+        "distributed_embeddings_torch.ops.embedding_lookup")
+    k8, lib = _k8_counting_library()
+    rng = np.random.default_rng(11)
+    rows = [30000, 500]
+    roff = torch.tensor([0, 30000], dtype=torch.int64, device=cuda_device)
+    slab = torch.randn((30500, 16), device=cuda_device)
+    meta = dict(rows=torch.tensor(rows, dtype=torch.int64,
+                                  device=cuda_device), roff=roff,
+                mean=torch.tensor([0, 1], dtype=torch.int32,
+                                  device=cuda_device),
+                mask=torch.ones(2, dtype=torch.int32, device=cuda_device))
+    for hot, b, long_row in ((60, 1100, False), (400, 600, False),
+                             (2000, 300, False), (20, 300, True)):
+        block, cap, splits = _k8_stream(rng, rows, b, hot, 0.01, 1.0,
+                                        torch.int32)
+        if long_row:  # sample 100 of slot 0 gets 70,000 ids
+            ln = np.diff(splits.numpy(), axis=1)
+            ln[0, 100] = 70000
+            sp = np.zeros_like(splits.numpy())
+            np.cumsum(ln, axis=1, out=sp[:, 1:])
+            cap = int(sp[:, -1].max())
+            splits = torch.from_numpy(sp)
+            block, _, _ = _k8_stream(rng, rows, b, hot, 0.01, 1.0,
+                                     torch.int32, cap)
+        block = block.to(cuda_device)
+        kw = dict(meta, splits=splits.to(cuda_device),
+                  weights=block[:, cap:])
+        values = block[:, :cap]
+        with k8.library(el, lib):
+            rec = el.build_ragged_record(slab, values, **kw)
+        got = torch.empty(*rec.payload[0], device=cuda_device)
+        before = lib.detpu_k8_general_calls()
+        rec.replay(values.data_ptr(), kw["splits"].data_ptr(),
+                   kw["weights"].data_ptr(), got.data_ptr())
+        torch.cuda.synchronize()
+        general = lib.detpu_k8_general_calls() - before
+        assert general == int(long_row), (hot, general)
+        want = ragged_combine_plain(
+            slab.cpu(), values.cpu(),
+            **{k: v.cpu() for k, v in kw.items()})
+        _float_bits_equal(got, want, f"hot {hot} long row {long_row}")
+
+
+@pytest.mark.cuda
+def test_ragged_combine_and_dedup_replay_in_a_cuda_graph(cuda_device):
+    """K8 (fp32 slab, bf16 output, in-block weights, a mean slot) and K5
+    (int32 ids with a valid mask, w16 float32 rows, a hot id past the
+    engine's L) captured on their records' hit path in a
+    ``torch.cuda.CUDAGraph``: three replays on new ids, splits and rows
+    written in place equal three eager calls bit for bit. The capture
+    fails if a call synchronizes or reads a count on the host."""
+    from distributed_embeddings_torch.ops import ragged_combine
+
+    rng = np.random.default_rng(3)
+    rows = [20000, 600, 10]
+    roff = torch.tensor([0, 20000, 20600], dtype=torch.int64,
+                        device=cuda_device)
+    slab = torch.randn((20610, 128), device=cuda_device)
+    rtab = torch.tensor(rows, dtype=torch.int64, device=cuda_device)
+    mean = torch.tensor([0, 1, 0], dtype=torch.int32, device=cuda_device)
+    cap = 700 * 20  # every stream's capacity: the most ids it can hold
+    block, _, splits = _k8_stream(rng, rows, 700, 20, 0.01, 1.0,
+                                  torch.int32, cap)
+    block, splits = block.to(cuda_device), splits.to(cuda_device)
+    n, w = 60000, 16
+    ids = torch.zeros(n, dtype=torch.int32, device=cuda_device)
+    vals = torch.zeros((n, w), device=cuda_device)
+    valid = torch.ones(n, dtype=torch.bool, device=cuda_device)
+
+    def new_inputs():
+        nb, _, ns = _k8_stream(rng, rows, 700, 20, 0.01, 1.0, torch.int32,
+                               cap)
+        block.copy_(nb)
+        splits.copy_(ns)
+        hot = np.concatenate([rng.integers(0, 5000, n - 1000),
+                              np.full(1000, 77)])
+        ids.copy_(torch.from_numpy(rng.permutation(hot)).int())
+        vals.copy_(torch.randn((n, w), device=cuda_device))
+        valid.copy_(torch.from_numpy(rng.random(n) < 0.9))
+
+    def call():
+        out = ragged_combine(slab, block[:, :cap], splits, rtab, roff,
+                             mean=mean, weights=block[:, cap:],
+                             out_dtype=torch.bfloat16)
+        return (out, *dedup_sparse_grad(ids, vals, pad_id=5000,
+                                        valid=valid, max_unique=4000))
+
+    new_inputs()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # builds the records off the capture
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    n0 = (ragged_combine.launches, dedup_sparse_grad.launches)
+    with torch.cuda.graph(graph):
+        g_out = call()
+    assert (ragged_combine.launches - n0[0],
+            dedup_sparse_grad.launches - n0[1]) == (1, 1)
+    for k in range(3):
+        new_inputs()
+        graph.replay()
+        e_out = call()
+        torch.cuda.synchronize()
+        for name, g, e in zip(("K8", "K5 ids", "K5 rows"), g_out, e_out):
+            assert torch.equal(_bits(g) if g.is_floating_point() else g,
+                               _bits(e) if e.is_floating_point() else e), (
+                f"{name} replay {k}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [1, 256, 300])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dot_interact_feature_counts_on_the_card(cuda_device, dtype, f):
+    """Feature counts JAX takes and the first kernels refused (C6): with
+    one feature the model's ``dot_interact`` hands the bottom output
+    through and launches nothing; K2 and K4 still take it (a copy and the
+    appended row's cotangent). 256 and 300 features (the stacked
+    CUDA-core kernels past the table, their wide form where the shared
+    memory or the pair codes end) run on the kernels, counted, held to
+    the plain versions at the stacked form's tolerances."""
+    from distributed_embeddings_torch.models import dot_interact
+
+    b, d = 64, 16
+    gen = torch.Generator().manual_seed(f)
+    x = torch.randn((b, f, d), generator=gen).to(dtype).to(cuda_device)
+    feats = list(x.unbind(1))
+    dy = torch.randn((b, f * (f - 1) // 2 + d), generator=gen).to(
+        dtype).to(cuda_device)
+    n0 = (dot_interact_fwd.launches, dot_interact_bwd.launches)
+    if f == 1:
+        bottom = feats[0].clone().requires_grad_(True)
+        out = dot_interact([], bottom)
+        out.backward(dy)
+        assert out is bottom and torch.equal(bottom.grad, dy)
+        assert (dot_interact_fwd.launches, dot_interact_bwd.launches) == n0
+    out = dot_interact_fwd(feats)
+    grads = dot_interact_bwd(feats, dy)
+    assert (dot_interact_fwd.launches - n0[0],
+            dot_interact_bwd.launches - n0[1]) == (1, 1)
+    got, want = to_np(out), to_np(dot_interact_fwd_plain(x))
+    assert got.shape == (b, f * (f - 1) // 2 + d)
+    np.testing.assert_array_equal(got[:, -d:], want[:, -d:])
+    _k2_close(got, want, dtype, f"dot_interact F={f}")
+    gb = np.stack([to_np(g) for g in grads], 1)
+    wb = to_np(dot_interact_bwd_plain(x, dy))
+    scale = to_np(dot_interact_bwd_plain(x.float().abs(), dy.float().abs()))
+    if dtype == torch.float32:
+        np.testing.assert_array_less(np.abs(gb - wb), 1e-5 * scale + 1e-30)
+    else:
+        ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(wb),
+                                                  2.0 ** -126))) - 7)
+        np.testing.assert_array_less(np.abs(gb - wb),
+                                     ulp + 2.0 ** -20 * scale + 1e-30)

@@ -258,8 +258,14 @@ def test_layouts_the_kernels_do_not_take_raise():
         dot_interact_fwd(feats[:2] + [feats[2][:, :8]] + feats[3:])
     with pytest.raises(ValueError, match="feature 1 is torch.float64"):
         dot_interact_fwd([feats[0], feats[1].double()] + feats[2:])
-    with pytest.raises(ValueError, match="2..255 features"):
-        dot_interact_fwd(feats[:1])
+    # one feature is the bottom-MLP row alone; none, or more than the
+    # kernels' limit, are refused
+    np.testing.assert_array_equal(to_np(dot_interact_fwd(feats[:1])),
+                                  to_np(feats[0]))
+    with pytest.raises(ValueError, match="at least one feature"):
+        dot_interact_fwd([])
+    with pytest.raises(ValueError, match="1..46340 features"):
+        dot_interact_fwd(torch.zeros(1, it.MAX_FEATURES + 1, 1))
     with pytest.raises(ValueError, match="dy must be"):
         dot_interact_bwd(feats, torch.zeros(B, 7))
 
@@ -275,6 +281,122 @@ def test_more_features_than_the_table_on_the_cpu():
     dy = torch.from_numpy(rng.normal(size=(6, 780 + 8)).astype(np.float32))
     got = np.stack([to_np(g) for g in dot_interact_bwd(feats, dy)], 1)
     np.testing.assert_array_equal(got, to_np(dot_interact_bwd_plain(x, dy)))
+
+
+# ----------------------------------- feature counts JAX takes (F = 1, 256)
+#
+# JAX's ``dot_interact`` selects the triangle with a 0/1 matmul of
+# ``[F * F, F(F-1)/2]``: at F = 256 that matrix alone is 8.6 GB of
+# float32 (a bf16 call peaked at 17 GB on the CPU), so F = 256 is held
+# against the same JAX computation with the selection as an index gather
+# (``_jax_gather_form``), which its own comment calls bit-exact to the
+# matmul; ``test_gather_form_is_jax_dot_interact`` holds the two
+# bitwise, forward and vjp, where the matrix is small.
+
+WIDE_B, WIDE_D = 6, 16
+
+
+def _jax_gather_form(embs, bottom):
+    feats = jnp.stack([bottom] + list(embs), axis=1)
+    gram = jnp.einsum("bfd,bgd->bfg", feats, feats)
+    li, lj = np.tril_indices(feats.shape[1], k=-1)
+    return jnp.concatenate([gram[:, li, lj], bottom], axis=1)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_reference(f, dtype):
+    """The JAX forward and vjp at F features: ``dot_interact`` itself up
+    to 64 features, its gather form beyond."""
+    if f <= 64:
+        return _jax_fns(f, dtype)
+
+    def vjp(bottom, embs, dy):
+        _, pull = jax.vjp(lambda b_, e_: _jax_gather_form(e_, b_), bottom,
+                          embs)
+        return pull(dy)
+
+    return (jax.jit(lambda b_, e_: _jax_gather_form(e_, b_)),
+            jax.jit(vjp))
+
+
+def _wide_inputs(f, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(WIDE_B, f, WIDE_D)).astype(np.float32)
+    dy = rng.normal(size=(WIDE_B, f * (f - 1) // 2 + WIDE_D)).astype(
+        np.float32)
+    return x, dy
+
+
+@pytest.mark.parametrize("f", [27, 64])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gather_form_is_jax_dot_interact(dtype, f):
+    jdt, _ = DTYPES[dtype]
+    x, dy = _wide_inputs(f, seed=f)
+    jx = jnp.asarray(x, jdt)
+    bottom, embs = jx[:, 0], tuple(jx[:, k] for k in range(1, f))
+    jfwd, jvjp = _jax_fns(f, dtype)
+    np.testing.assert_array_equal(to_np(_jax_gather_form(embs, bottom)),
+                                  to_np(jfwd(bottom, embs)))
+    _, pull = jax.vjp(lambda b_, e_: _jax_gather_form(e_, b_), bottom, embs)
+    got = pull(jnp.asarray(dy, jdt))
+    want = jvjp(bottom, embs, jnp.asarray(dy, jdt))
+    for g, w in zip(jax.tree_util.tree_leaves(got),
+                    jax.tree_util.tree_leaves(want)):
+        np.testing.assert_array_equal(to_np(g), to_np(w))
+
+
+@pytest.mark.parametrize("f", [1, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_feature_counts_forward_match_jax(dtype, f):
+    """F = 1 (no tables: the bottom-MLP row alone) and F = 256 through the
+    port's ``models.dlrm.dot_interact`` and ``dot_interact_fwd`` against
+    JAX at the file's forward tolerance, with its control."""
+    jdt, tdt = DTYPES[dtype]
+    x, _ = _wide_inputs(f, seed=f + 11)
+    jfwd, _ = _jax_reference(f, dtype)
+    jx = jnp.asarray(x, jdt)
+    want = to_np(jfwd(jx[:, 0], tuple(jx[:, k] for k in range(1, f))))
+    feats = _features(x, tdt)
+    got = to_np(dot_interact(feats[1:], feats[0]))
+    assert got.shape == want.shape == (WIDE_B,
+                                       f * (f - 1) // 2 + WIDE_D)
+    np.testing.assert_array_equal(to_np(dot_interact_fwd(feats)), got)
+    np.testing.assert_array_equal(got[:, -WIDE_D:], want[:, -WIDE_D:])
+    q = _rounded(x, tdt)
+    assert _fwd_within(got, want, q, dtype)
+    bad = got.copy()
+    bad[:, [0, 1]] = bad[:, [1, 0]]
+    assert not _fwd_within(bad, want, q, dtype)
+
+
+@pytest.mark.parametrize("f", [1, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_feature_counts_gradient_match_jax(dtype, f):
+    """The gradient of every input at F = 1 and F = 256 (through the
+    model's function, which for F = 1 hands the bottom output through
+    untouched) against JAX's vjp at the file's backward tolerance, with
+    its control; ``dot_interact_bwd`` gives the same bits."""
+    jdt, tdt = DTYPES[dtype]
+    x, dy = _wide_inputs(f, seed=f + 23)
+    _, jvjp = _jax_reference(f, dtype)
+    jx = jnp.asarray(x, jdt)
+    d_bottom, d_embs = jvjp(jx[:, 0], tuple(jx[:, k] for k in range(1, f)),
+                            jnp.asarray(dy, jdt))
+    want = np.stack([to_np(d_bottom)] + [to_np(e) for e in d_embs], axis=1)
+    feats = _features(x, tdt, requires_grad=True)
+    tdy = torch.from_numpy(dy).to(tdt)
+    dot_interact(feats[1:], feats[0]).backward(tdy)
+    got = np.stack([to_np(t.grad) for t in feats], axis=1)
+    assert got.shape == want.shape == (WIDE_B, f, WIDE_D)
+    scale = _bwd_scale(_rounded(x, tdt), _rounded(dy, tdt))
+    assert _bwd_within(got, want, scale, dtype)
+    plain = [t.detach() for t in feats]
+    np.testing.assert_array_equal(
+        np.stack([to_np(g) for g in dot_interact_bwd(plain, tdy)], 1), got)
+    cut = tdy.clone()
+    cut[:, f * (f - 1) // 2:] = 0
+    dropped = np.stack([to_np(g) for g in dot_interact_bwd(plain, cut)], 1)
+    assert not _bwd_within(dropped, want, scale, dtype)
 
 
 # ------------------------------------------------ the launch-record keys
