@@ -50,7 +50,9 @@ Phases (any failure raises and the script exits non-zero):
       plain versions (the guard's and the dense update's "before");
       with ``--parent`` the step's and the instrumented step's stage
       splits in turns with the parent's wrappers; K21 and K22 timed on
-      the step's own gradients and parameters;
+      the step's own gradients and parameters (K21 also on world 8's
+      two calls a rank: each cotangent's first 8192 rows, then the dense
+      gradients), each with its launch record's host split;
 7. time: CUDA-event medians (20+ runs after warmup) of each kernel, its
    plain version, one PyTorch library call for the same function, and
    the least time the card could take (bytes over 3.35 TB/s, operations
@@ -131,21 +133,24 @@ Phases (any failure raises and the script exits non-zero):
       card: the JAX learning test's configuration (240 steps, fp32 seeds
       0 and 11, bf16 seed 11) against that test's bounds, and the bench's
       ``convergence`` configuration (360 steps at b=8192, fp32 and bf16),
-      its AUCs printed;
+      its AUCs printed, and K11 timed on the last call of its fp32 run;
    d. the uncapped tiny zoo with ``SparseAdam`` + ``Adam(0.01)``, fp32
       tables: one step with K5 and K11 held to their plain versions on
       the step's own inputs, a NaN batch (slab rows, mu/nu, the counts,
       the dense params and dense Adam state bitwise unchanged), 3 warmup
       + 20 timed steps (launches a step: K1 4, K5 2, K11 2), a stage
-      split, and K11 timed at the w16 and w8 shapes beside its plain
-      version, its byte bound and ``torch.optim.SparseAdam.step``;
+      split, the steps in turns with the parent's wrappers, and K11
+      timed at the w16 and w8 shapes beside its plain version, its byte
+      bound and ``torch.optim.SparseAdam.step``, with its launch
+      record's host split (the rows it touches put back after);
    e. the same slabs with ``SparseMomentum(0.9)`` and with Nesterov: one
       checked step and 5 timed steps each, K12 timed; every checked step
       holds K21/K22 to their plain versions where the step calls them,
       and the Adam zoo's stage split and profile run with K22 and with
       its plain version; K22's Adam timed beside
       ``torch.optim.Adam(fused=True)``;
-   f. bf16 tables with ``SparseAdam``: one checked step, 20 timed steps.
+   f. bf16 tables with ``SparseAdam``: one checked step, 20 timed steps,
+      the steps in turns with the parent's wrappers, K11 timed as in d.
 11. telemetry, after freeing the Adam state: access telemetry
     (``analysis/telemetry.py``, K13-K15 in ``csrc/sketch.cu``) on
     ``bench.py:run_telemetry_overhead``'s configuration (the one-hot
@@ -275,7 +280,7 @@ The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Run from the root of a checkout:
 ``python3 chip_smoke.py``. With ``--parent DIR`` (a checkout of another
 commit, e.g. unpacked with ``git archive``), the launch-record kernels
-K1-K5, K8, K10, K18, K19, K20 and K22 are also timed through that
+K1-K5, K8, K10, K11, K18-K22 are also timed through that
 checkout's wrappers, in turns with this tree's (``in_turns``), K1 is
 held bit-exact to that checkout's K1 at phase 4's shapes and the zoo's
 (and K2 within its tolerance of that checkout's), and the DLRM,
@@ -382,8 +387,9 @@ _parent = {}
 
 def parent_ops():
     """The parent checkout's ``ops.dense_update``, ``ops.exchange_pack``,
-    ``ops.embedding_lookup``, ``ops.scatter_add``, ``ops.interaction`` and
-    ``ops.sparse_grad`` modules and its ``models.dlrm`` (key ``"dlrm"``),
+    ``ops.embedding_lookup``, ``ops.scatter_add``, ``ops.interaction``,
+    ``ops.sparse_grad``, ``ops.grad_health`` and ``ops.adam`` modules and
+    its ``models.dlrm`` (key ``"dlrm"``),
     loaded under the
     package name
     ``detpu_parent`` (its kernels built from its own sources into its own
@@ -404,9 +410,10 @@ def parent_ops():
         importlib.import_module("detpu_parent.ops._kernels").build_all(
             ["dense_update", "exchange_pack", "gather_combine", "csr",
              "sgd_scatter", "sgd_promoted", "dot_interact",
-             "ragged_combine", "dedup"])
+             "ragged_combine", "dedup", "grad_health", "adam"])
         for name in ("dense_update", "exchange_pack", "embedding_lookup",
-                     "scatter_add", "interaction", "sparse_grad"):
+                     "scatter_add", "interaction", "sparse_grad",
+                     "grad_health", "adam"):
             _parent[name] = importlib.import_module(
                 f"detpu_parent.ops.{name}")
         _parent["dlrm"] = importlib.import_module("detpu_parent.models.dlrm")
@@ -439,11 +446,12 @@ LOOKUP_SITES = (("lookup", "gather_combine"), ("lookup", "lengths_to_splits"),
 
 @contextlib.contextmanager
 def parent_wrappers():
-    """Route the steps' K19/K20/K22, K3/K18 and K5 call sites (the module
-    globals ``parallel.exchange.pack_ids``/``pack_columns`` and
+    """Route the steps' K19/K20/K22, K3/K18, K5, K11 and K21 call sites
+    (the module globals ``parallel.exchange.pack_ids``/``pack_columns``,
     ``parallel.optimizers.dense_update``/``sgd_scatter``/
-    ``dedup_sparse_grad``: the parent's ``sgd_scatter`` takes its own K18
-    for the promoted chain), the
+    ``dedup_sparse_grad``/``adam_rows`` and ``parallel.trainer.
+    grad_health``: the parent's ``sgd_scatter`` takes its own K18 for the
+    promoted chain), the
     interaction (``models.dlrm.dot_interact``: the parent's stacks the
     features and runs its K2 and K4) and their K1/K8/K10 call sites
     (``LOOKUP_SITES``) to the parent checkout's wrappers, each copy plan
@@ -451,7 +459,8 @@ def parent_wrappers():
     import importlib
 
     from distributed_embeddings_torch.models import dlrm
-    from distributed_embeddings_torch.parallel import exchange, optimizers
+    from distributed_embeddings_torch.parallel import (exchange, optimizers,
+                                                       trainer)
 
     par = parent_ops()
     plans = {}
@@ -465,7 +474,8 @@ def parent_wrappers():
 
     saved = (exchange.pack_ids, exchange.pack_columns,
              optimizers.dense_update, optimizers.sgd_scatter,
-             optimizers.dedup_sparse_grad, dlrm.dot_interact)
+             optimizers.dedup_sparse_grad, dlrm.dot_interact,
+             trainer.grad_health, optimizers.adam_rows)
     # the parent's interaction: its stack of the features, then its K2
     # (and, through its autograd Function, its K4)
     dlrm.dot_interact = par["dlrm"].dot_interact
@@ -476,6 +486,8 @@ def parent_wrappers():
     optimizers.dense_update = par["dense_update"].dense_update
     optimizers.sgd_scatter = par["scatter_add"].sgd_scatter
     optimizers.dedup_sparse_grad = par["sparse_grad"].dedup_sparse_grad
+    trainer.grad_health = par["grad_health"].grad_health
+    optimizers.adam_rows = par["adam"].adam_rows
     mods = {m: importlib.import_module(
         f"distributed_embeddings_torch.parallel.{m}")
         for m, _ in LOOKUP_SITES}
@@ -487,7 +499,8 @@ def parent_wrappers():
     finally:
         (exchange.pack_ids, exchange.pack_columns,
          optimizers.dense_update, optimizers.sgd_scatter,
-         optimizers.dedup_sparse_grad, dlrm.dot_interact) = saved
+         optimizers.dedup_sparse_grad, dlrm.dot_interact,
+         trainer.grad_health, optimizers.adam_rows) = saved
         for (m, name), fn in zip(LOOKUP_SITES, lookups):
             setattr(mods[m], name, fn)
 
@@ -1847,26 +1860,24 @@ def dlrm_stages(torch, de, st, batches, runs=6, loss=None, tx=None,
 
 
 def time_epilogue(torch, epi):
-    """K21 on the full-size step's own gradients and K22 on its dense
-    parameters (copies), each beside its plain version, one PyTorch call
-    for the same function (``torch._foreach_norm``; ``torch._foreach_add_``
-    for SGD) and its byte bound."""
-    from distributed_embeddings_torch.ops import (
-        dense_update, dense_update_plain, grad_health, grad_health_plain)
+    """K21 on the full-size step's own gradients (and on world 8's two
+    calls a rank: the first 8192 rows of each cotangent, then the dense
+    gradients) and K22 on its dense parameters (copies), each beside its
+    plain version, one PyTorch call for the same function
+    (``torch._foreach_norm``; ``torch._foreach_add_`` for SGD) and its
+    byte bound, in turns with the parent's wrappers."""
+    from distributed_embeddings_torch.ops import dense_update, dense_update_plain
 
     ts = epi["grad_health"]
-    nbytes = sum(t.numel() * t.element_size() for t in ts)
-    ms = time_ms(torch, grad_health, [(ts,)])
-    plain = time_ms(torch, grad_health_plain, [(ts,)])
-    lib = time_ms(torch, torch._foreach_norm, [(ts,)])
-    bound = nbytes / HBM_BYTES_PER_S * 1e3
-    host = host_ms(torch, lambda: grad_health(ts))
-    k21 = {"case": f"dlrm_b{TRAIN_BATCH}", "ms": ms, "plain_ms": plain,
-           "library_ms": lib, "bound_ms": bound, "bound_by": "bytes",
-           "host_ms_per_call": host, "tensors": len(ts), "bytes": nbytes}
-    log(f"time grad_health dlrm b{TRAIN_BATCH}: kernel {ms:.4f} ms, plain "
-        f"{plain:.4f}, library (_foreach_norm) {lib:.4f}, bound {bound:.4f} "
-        f"({len(ts)} tensors, {nbytes} B); host {host:.4f} ms a call")
+    n_out = len(ts) - sum(1 for t in ts if t.dtype == torch.float32)
+    # world 8's two calls a rank: the rank's 26 cotangents at its 8192
+    # rows (contiguous [8192, 128] views, as K4 leaves them), then the 16
+    # dense gradients after the all-reduce
+    rank = TRAIN_BATCH // 8
+    k21 = [k21_case(torch, f"dlrm_b{TRAIN_BATCH}", ts),
+           k21_case(torch, f"world8_rank_cotangents_b{rank}",
+                    [t[:rank] for t in ts[:n_out]]),
+           k21_case(torch, "world8_rank_dense", ts[n_out:])]
     kind, params, grads, s0, s1, nlr, hyper, bp = epi["dense_update"]
     check(kind == "sgd", f"the DLRM step's dense update is {kind}")
     cp = [p.detach().clone() for p in params]
@@ -1891,7 +1902,38 @@ def time_epilogue(torch, epi):
         extra={"tensors": len(cp), "elements": numel})
     k22["host_split_us"] = k22_host_split(torch, kind, cp, grads, (), nlr,
                                           hyper, None, None, (), kernel)
-    return {"grad_health": [k21], "dense_update": [k22]}
+    return {"grad_health": k21, "dense_update": [k22]}
+
+
+def k21_case(torch, label, ts):
+    """K21 on the gradients ``ts`` through ``kernel_case`` (in turns with
+    the parent's wrapper and ``torch._foreach_norm``, the library call),
+    beside its plain version and its byte bound (each element read once),
+    with its record's host split (``launch_host_split``: the layout key,
+    the lookup, the ``ctypes`` call and the stream, the addresses and the
+    output's allocation timed alone)."""
+    import importlib
+
+    from distributed_embeddings_torch.ops import grad_health, grad_health_plain
+
+    gh = importlib.import_module("distributed_embeddings_torch.ops."
+                                 "grad_health")
+    parent = parent_ops()
+    nbytes = sum(t.numel() * t.element_size() for t in ts)
+    case = kernel_case(
+        torch, "grad_health", label, lambda: grad_health(ts),
+        (lambda: parent["grad_health"].grad_health(ts)) if parent else None,
+        lambda: torch._foreach_norm(ts), nbytes,
+        plain=lambda: grad_health_plain(ts),
+        extra={"tensors": len(ts), "library_call": "torch._foreach_norm"})
+    out = grad_health(ts)
+    case["host_split_us"] = launch_host_split(
+        torch, f"grad_health {label}", lambda: gh.record_key(ts), gh._CACHE,
+        (gh._addresses(ts), out.data_ptr()), lambda: grad_health(ts), ts,
+        extra={"addresses_us": lambda: gh._addresses(ts),
+               "output_us": lambda: torch.empty(
+                   3, len(ts), dtype=torch.float32, device=out.device)})
+    return case
 
 
 def cycling(fn, arg_sets):
@@ -4130,8 +4172,8 @@ def adam_kernel_checks(torch):
     float32 state; widths 16, 8 (4-element loads) and 3 (one-element);
     int32 and int64 ids; a Python and a device lr; counts 1 and 1000
     (K11); Nesterov off and on (K12); negative ids, the sentinel, ids
-    past the slab and a pad tail (no id 0 beside negative ids: both read
-    row 0, in no set order on the card). Then one ``apply_rows`` of each
+    past the slab and a pad tail, in the dedup's signed order (no id 0
+    beside negative ids: both read row 0, in no set order on the card). Then one ``apply_rows`` of each
     optimizer on a stream where one id repeats 50,000 times, its row
     kernel held to the plain version on the K5 output of that call."""
     from distributed_embeddings_torch.parallel import optimizers
@@ -4144,8 +4186,9 @@ def adam_kernel_checks(torch):
     for sd, md in ((f32, f32), (bf16, bf16), (bf16, f32)):
         for w in (16, 8, 3):
             rows = 1 + rng.permutation(R - 21)[:1500]
-            uids = np.concatenate([np.sort(rows), [-1, -7, R, R + 5, -R - 3],
-                                   [R] * 64])
+            # the dedup's signed order (K11 finds its live range in it)
+            uids = np.sort(np.concatenate([rows, [-1, -7, R, R + 5, -R - 3],
+                                           [R] * 64]))
             untouched = torch.as_tensor(np.setdiff1d(
                 np.arange(R), np.union1d(rows, [R - 1, R - 7])),
                 device="cuda")
@@ -4348,6 +4391,7 @@ def convergence_runs(torch):
     counters are zeroed before (i) and read after (ii)."""
     from distributed_embeddings_torch.models import (
         LearnableClicks, train_dlrm_convergence, warmup_poly_decay_schedule)
+    from distributed_embeddings_torch.parallel import optimizers
 
     sched = warmup_poly_decay_schedule(*CONV_SCHEDULE)
     task = LearnableClicks([200] * 8, num_numerical=4, seed=123, scale=1.2)
@@ -4366,12 +4410,14 @@ def convergence_runs(torch):
         log(f"convergence (learning test, {label}): auc start/mid/end "
             f"{aucs}, {out[label]['wall_s']:.1f} s")
     task = LearnableClicks([2000] * 8, num_numerical=4, seed=123, scale=1.2)
+    last = []
     for label, dtype in (("bench_fp32", torch.float32),
                          ("bench_bf16", torch.bfloat16)):
         t0 = time.perf_counter()
-        aucs = train_dlrm_convergence(
-            task, steps=360, batch=8192, embedding_dim=16, lr_schedule=0.01,
-            param_dtype=dtype, device="cuda")
+        with last_call(optimizers, "adam_rows", last, label == "bench_fp32"):
+            aucs = train_dlrm_convergence(
+                task, steps=360, batch=8192, embedding_dim=16,
+                lr_schedule=0.01, param_dtype=dtype, device="cuda")
         out[label] = {"aucs": list(aucs),
                       "wall_s": time.perf_counter() - t0}
         log(f"convergence (bench, {label}): auc start/mid/end {aucs} in "
@@ -4403,7 +4449,30 @@ def convergence_runs(torch):
     if not bounds["0.45 < auc0 < 0.58"]:
         log(f"convergence: MISSED 0.45 < auc0 < 0.58 at the port's initial "
             f"weights (auc0 {a0}; the seed and bound kept as they are)")
+    # K11 at the convergence run's shapes: the last call of its fp32 run
+    args = last[0]
+    out["k11_case"] = k11_case(
+        torch, f"convergence bench fp32 w{args[0].shape[1]}: "
+        f"{int((args[4] < args[0].shape[0]).sum())} unique rows", args)
     return launches, out
+
+
+@contextlib.contextmanager
+def last_call(module, name, keep, on=True):
+    """Wrap ``module.<name>`` so that ``keep`` holds the arguments of its
+    last call only (``keep[0]``); nothing when not ``on``."""
+    real = getattr(module, name)
+
+    def wrapper(*args, **kw):
+        keep[:] = [args]
+        return real(*args, **kw)
+
+    if on:
+        setattr(module, name, wrapper)
+    try:
+        yield keep
+    finally:
+        setattr(module, name, real)
 
 
 def row_expected(de, name):
@@ -4481,12 +4550,10 @@ def row_zoo_full_check(torch, de, opt, tx, st, data, name, label,
 def row_kernel_times(torch, de, opt, st, data, name):
     """CUDA-event medians of K11 or K12 at the zoo's w16 and w8 shapes
     (the unique rows of one step's K5 output), each against its plain
-    version, its byte bound (each touched row's gradient, state and slab
-    rows read once and written once, and the ids), and for K11
-    ``torch.optim.SparseAdam.step`` on a coalesced sparse COO gradient of
-    the same unique rows (its ``eps`` sits outside the bias correction:
-    a yardstick of the same traffic, not the same function); K12 has no
-    single library call."""
+    version and its byte bound (each touched row's gradient, state and
+    slab rows read once and written once, and the ids); K11 through
+    ``k11_case`` (in turns with the parent's, its library call and its
+    host split); K12 has no single library call."""
     from distributed_embeddings_torch.parallel import (
         make_hybrid_train_step, optimizers)
 
@@ -4505,6 +4572,12 @@ def row_kernel_times(torch, de, opt, st, data, name):
         rows, w = slab.shape
         check(ugrads.shape[1] == w, f"{name} times: {key} stream order")
         touched = int((uids < rows).sum())
+        if name == "adam":
+            cases.append(k11_case(
+                torch, f"zoo {key} {str(slab.dtype)[6:]}: {touched} unique "
+                f"rows of {w}", (slab, *state, uids, ugrads, ZOO_LR, opt.b1,
+                                 opt.b2, opt.eps, opt.eps_root)))
+            continue
         es, eg = slab.element_size(), ugrads.element_size()
         n_state = 2 if name == "adam" else 1
         nest = name != "adam" and opt.nesterov
@@ -4525,16 +4598,6 @@ def row_kernel_times(torch, de, opt, st, data, name):
              "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
                           >= ops / F32_OPS_PER_S else "operations"),
              "unique_rows": touched, "bytes": nbytes}
-        if name == "adam" and slab.dtype == torch.float32:
-            keep = uids < rows
-            param = torch.nn.Parameter(slab, requires_grad=False)
-            param.grad = torch.sparse_coo_tensor(
-                uids[keep].long()[None], ugrads[keep].float(),
-                tuple(slab.shape)).coalesce()
-            lib = torch.optim.SparseAdam([param], lr=ZOO_LR)
-            c["library_ms"] = time_ms(torch, lib.step, [()])
-            c["library_call"] = "torch.optim.SparseAdam.step"
-            del lib, param
         cases.append(c)
         log(f"time {ROW_SITES[name]} {c['case']}: kernel {c['ms']:.4f} ms, "
             f"plain {c['plain_ms']:.4f}, library {c['library_ms']}, bound "
@@ -4542,6 +4605,62 @@ def row_kernel_times(torch, de, opt, st, data, name):
     gc.collect()
     torch.cuda.empty_cache()
     return st, sorted(cases, key=lambda c: -c["unique_rows"])
+
+
+def k11_case(torch, label, args):
+    """K11 on one call's arguments (slab, mu, nu, count, uids, uvals, lr,
+    b1, b2, eps, eps_root) through ``kernel_case``: in turns with the
+    parent's wrapper and, on a float32 slab, ``torch.optim.SparseAdam.
+    step`` on a coalesced COO gradient of the same live rows (the
+    library call: its ``eps`` sits outside the bias correction, a
+    yardstick of the same traffic), beside its plain version and its
+    byte bound (each live row's gradient, state and slab rows read once
+    and the state and slab written once, and the live ids: the pad tail
+    is not the function's work), and its record's host split. The rows it touches are put back after, so the
+    state goes on as the step left it."""
+    import importlib
+
+    from distributed_embeddings_torch.ops import adam_rows, adam_rows_plain
+
+    am = importlib.import_module("distributed_embeddings_torch.ops.adam")
+    slab, mu, nu, count, uids, uvals, lr = args[:7]
+    rows, w = slab.shape
+    touched = int((uids < rows).sum())
+    # the timing runs K11 (and the library call) thousands of times on the
+    # same rows: keep the rows it touches and put them back after
+    hit = uids[uids < rows].long()
+    hit = torch.unique(torch.cat([torch.where(hit < 0, hit + rows, hit),
+                                  hit.new_zeros(1)]))
+    hit = hit[hit >= 0]
+    kept = [t[hit].clone() for t in (slab, mu, nu)]
+    es, eg = slab.element_size(), uvals.element_size()
+    nbytes = touched * (uids.element_size() + w * (eg + 2 * (es + 2 * eg)))
+    lib = param = None
+    if slab.dtype == torch.float32:
+        keep = uids < rows
+        param = torch.nn.Parameter(slab, requires_grad=False)
+        param.grad = torch.sparse_coo_tensor(
+            uids[keep].long()[None], uvals[keep].float(),
+            tuple(slab.shape)).coalesce()
+        lib = torch.optim.SparseAdam([param], lr=float(lr)).step
+    parent = parent_ops()
+    case = kernel_case(
+        torch, "adam_rows", label, lambda: adam_rows(*args),
+        (lambda: parent["adam"].adam_rows(*args)) if parent else None, lib,
+        nbytes, plain=lambda: adam_rows_plain(*args),
+        extra={"unique_rows": touched, "ids": uids.numel(),
+               "library_call": "torch.optim.SparseAdam.step" if lib
+               else None})
+    del lib, param
+    case["host_split_us"] = launch_host_split(
+        torch, f"adam_rows {label}", lambda: am.record_key(*args), am._CACHE,
+        (slab.data_ptr(), mu.data_ptr(), nu.data_ptr(), uids.data_ptr(),
+         uvals.data_ptr(), count.data_ptr(),
+         lr.data_ptr() if isinstance(lr, torch.Tensor) else None),
+        lambda: adam_rows(*args), [slab, mu, nu, count, uids, uvals])
+    for t, k in zip((slab, mu, nu), kept):
+        t[hit] = k
+    return case
 
 
 def phase_adam(torch):
@@ -4564,6 +4683,7 @@ def phase_adam(torch):
             adam_small_check(torch, dtype, name)
     torch.cuda.empty_cache()
     conv_launches, conv = convergence_runs(torch)
+    conv_k11 = conv.pop("k11_case")
     result = {"convergence": conv}
 
     opt, tx = row_optimizer("adam")
@@ -4611,9 +4731,10 @@ def phase_adam(torch):
     st = holder[0]
     if fp32["in_turns_with_parent"]:
         log("adam zoo fp32: steps in turns with the parent's "
-            "K1/K10/K19/K20/K22 wrappers (ms): "
+            "K1/K5/K10/K11/K19/K20/K22 wrappers (ms): "
             + json.dumps(fp32["in_turns_with_parent"]))
     st, adam_cases = row_kernel_times(torch, de, opt, st, data, "adam")
+    adam_cases.append(conv_k11)
     adam_cases_k22 = time_dense_adam(torch, st, tx)
     result["adam_fp32"] = fp32
     result["adam_peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
@@ -4658,6 +4779,17 @@ def phase_adam(torch):
                             tx=tx, want=row_expected(de, "adam"))
     bf16["stage_ms_p50"] = zoo_stages(torch, de, opt, st, data, tx=tx)
     log("adam zoo stages bf16 (ms): " + json.dumps(bf16["stage_ms_p50"]))
+    holder = [st]
+    astep = make_hybrid_train_step(de, zoo_loss, tx, opt,
+                                   lr_schedule=ZOO_LR, nan_guard=False)
+    bf16["in_turns_with_parent"] = steps_in_turns(torch, adam_step,
+                                                  rounds=3)
+    st = holder[0]
+    if bf16["in_turns_with_parent"]:
+        log("adam zoo bf16: steps in turns with the parent's wrappers (ms): "
+            + json.dumps(bf16["in_turns_with_parent"]))
+    st, bf16_cases = row_kernel_times(torch, de, opt, st, data, "adam")
+    adam_cases += bf16_cases
     bf16["full_step_max_abs_err"] = full
     result["adam_bf16"] = bf16
     del st, de, data

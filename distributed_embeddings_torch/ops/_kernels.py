@@ -28,6 +28,7 @@ pageable memory.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import operator
 import os
@@ -125,11 +126,15 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
                                 _P, ctypes.c_float, _P),
     },
     "adam": {
-        # slab, slab_dtype, mu, nu, mom_dtype, rows, width, uids, ids_is_64,
-        # u, ugrads, b1, omb1, b2, omb2, bp, lr, lr_dev, eps, eps_root, vec,
-        # stream
-        "detpu_adam_rows": (_P, _I, _P, _P, _I, _I64, _I, _P, _I, _I64, _P,
-                            _F, _F, _F, _F, _P, _F, _P, _F, _F, _I, _P),
+        # slab_dtype, mom_dtype, rows, width, ids_is_64, u, b1, omb1, b2,
+        # omb2, pb1, pb2, lr, lr_on_card, eps, eps_root, sms, prepared
+        # (host, out)
+        "detpu_adam_prepare": (_I, _I, _I64, _I, _I, _I64, _F, _F, _F, _F,
+                               _F, _F, _F, _I, _F, _F, _I, _P),
+        # prepared, slab, mu, nu, uids, ugrads, count, lr_dev, stream
+        "detpu_adam_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P),
+        # -> the bytes of a prepared launch
+        "detpu_adam_prepared_bytes": (),
     },
     "momentum": {
         # slab, slab_dtype, trace, tr_dtype, rows, width, uids, ids_is_64,
@@ -208,11 +213,17 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "detpu_pack_tile_units": (),
     },
     "grad_health": {
-        # descs (host int64 [n, 6]), n, chunks, partials, out, stream
-        "detpu_grad_health": (_P, _I, _I64, _P, _P, _P),
-        # -> the most tensors a call takes / the elements a chunk covers
+        # descs (host int64 [n, 8]), n, scratch, sms, out_ld, prepared
+        # (host, out)
+        "detpu_grad_health_prepare": (_P, _I, _P, _I, _I, _P),
+        # prepared, addresses (host int64 [n]), out, stream
+        "detpu_grad_health_launch": (_P, _P, _P, _P),
+        # -> the most tensors a launch takes / the bytes a chunk covers /
+        # the bytes of a prepared launch; n, chunks -> bytes of scratch
         "detpu_grad_health_max_tensors": (),
-        "detpu_grad_health_chunk": (),
+        "detpu_grad_health_chunk_bytes": (),
+        "detpu_grad_health_prepared_bytes": (),
+        "detpu_grad_health_scratch_bytes": (_I, _I64),
     },
     "dense_update": {
         # descs (host int64 [n, 6]), n, tile, kind, nlr, nlr_on_card, m,
@@ -264,7 +275,9 @@ RESTYPES = {"detpu_dedup_scratch_bytes": _I64,
             "detpu_topk_pool_scratch_bytes": _I64,
             "detpu_topk_pool_clear_bytes": _I64,
             "detpu_topk_merge_scratch_bytes": _I64,
-            "detpu_grad_health_chunk": _I64,
+            "detpu_grad_health_prepared_bytes": _I64,
+            "detpu_adam_prepared_bytes": _I64,
+            "detpu_grad_health_scratch_bytes": _I64,
             "detpu_dense_update_prepared_bytes": _I64}
 
 _lock = threading.Lock()
@@ -434,6 +447,12 @@ def stream_handle(index: int) -> int:
     ``launch_host_split`` times it against
     ``torch.cuda.current_stream(dev).cuda_stream``)."""
     return torch._C._cuda_getCurrentRawStream(index)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SMs of card ``index`` (a persistent launch's grid)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def device_index(dev: torch.device) -> int:

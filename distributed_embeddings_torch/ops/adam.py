@@ -24,24 +24,31 @@ rounding chain:
   the slab dtype before the subtraction.
 
 The powers ``b1**t``, ``b2**t`` come from :func:`bias_powers` on the
-device, for the kernel and the plain version alike (``torch.pow``;
-XLA's ``pow`` may differ from it by an ulp, so the port is held to JAX
-within that), and both subtract them from 1 in float32. Every other op
-of the kernel is correctly rounded, as PyTorch's elementwise ops are
-(the plain version takes the square root in float64 and rounds once:
+device in the plain version (``torch.pow``; XLA's ``pow`` may differ
+from it by an ulp, so the port is held to JAX within that) and from the
+same float32 ``powf`` inside the kernel, which reads the count on the
+card; both subtract them from 1 in float32. Every other op of the
+kernel is correctly rounded, as PyTorch's elementwise ops are (the
+plain version takes the square root in float64 and rounds once:
 PyTorch's float32 one on the CPU can be an ulp off), so the kernel
 equals its plain version bit for bit.
 
-:func:`adam_rows` takes the dedup output (``ops/sparse_grad.py``) with
-the index rules of ``ops/adagrad.py:row_plan`` (ids at or past the rows
-skipped, a negative id read at row 0 before the update and written at
-``id + rows``, its delta added before that row's own).
+:func:`adam_rows` takes the dedup output (``ops/sparse_grad.py``:
+sorted, negative ids first and the pad tail last) with the index rules
+of ``ops/adagrad.py:row_plan`` (ids at or past the rows skipped, a
+negative id read at row 0 before the update and written at ``id +
+rows``, its delta added before that row's own). The kernel walks only
+the live rows, which it finds on the card in the sorted ids. It
+launches through the shared launch path (``_kernels.LaunchRecord``): a
+record keyed on the layouts, the dtypes and the hyperparameters holds
+the constants, rounded once; each call passes seven pointers.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from . import _kernels
@@ -108,15 +115,13 @@ def adam_rows_plain(slab: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
     return slab, mu, nu
 
 
-def check_rows(slab: torch.Tensor, state: dict, uids: torch.Tensor,
-               uvals: torch.Tensor) -> None:
-    """The argument checks of the row kernels (K11, K12): ``slab`` and
-    each tensor of ``state`` (name -> tensor) contiguous, 2-D, float32/
-    bfloat16 and on one CUDA device, the state tensors in one dtype and
+def check_layout(slab: torch.Tensor, state: dict, uids: torch.Tensor,
+                 uvals: torch.Tensor) -> None:
+    """The layout checks of the row kernels (K11, K12): ``slab`` and each
+    tensor of ``state`` (name -> tensor) contiguous, 2-D, float32/
+    bfloat16 and on the slab's device, the state tensors in one dtype and
     the slab's shape; ``uids`` a contiguous ``[U]`` int32/int64 tensor
     and ``uvals`` a contiguous ``[U, w]`` one in the state's dtype."""
-    if slab.device.type != "cuda":
-        raise ValueError(f"unsupported device {slab.device}")
     for name, t in (("slab", slab),) + tuple(state.items()):
         if t.dtype not in _DTYPE_CODE or t.dim() != 2 \
                 or not t.is_contiguous() or t.device != slab.device:
@@ -143,6 +148,14 @@ def check_rows(slab: torch.Tensor, state: dict, uids: torch.Tensor,
                          f"{tuple(uvals.shape)} on {uvals.device}")
 
 
+def check_rows(slab: torch.Tensor, state: dict, uids: torch.Tensor,
+               uvals: torch.Tensor) -> None:
+    """:func:`check_layout`, on one CUDA device."""
+    if slab.device.type != "cuda":
+        raise ValueError(f"unsupported device {slab.device}")
+    check_layout(slab, state, uids, uvals)
+
+
 def vector_ok(width: int, *tensors: torch.Tensor) -> bool:
     """Whether the row kernels may move 4 elements a load: the width a
     multiple of 4 and every pointer aligned to 4 of its elements."""
@@ -150,48 +163,117 @@ def vector_ok(width: int, *tensors: torch.Tensor) -> bool:
         t.data_ptr() % (4 * t.element_size()) == 0 for t in tensors)
 
 
+#: K11's launch records, by layout and constants
+_CACHE = _kernels.LaunchCache()
+
+
+def record_key(slab: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
+               count: torch.Tensor, uids: torch.Tensor, uvals: torch.Tensor,
+               lr: Lr, b1: float, b2: float, eps: float, eps_root: float
+               ) -> tuple:
+    """Every fact K11's launch record rests on: the hyperparameters, the
+    constant ``lr`` (or a tensor ``lr``'s layout), and the layouts (shape,
+    strides, dtype, device index) of the slab, the moments, the count,
+    the ids and the gradient rows. No address: each call passes its own
+    (a vector load's alignment is decided on the card side each call)."""
+    ts = (slab, mu, nu, count, uids, uvals)
+    return (_kernels.layout_key(lr) if isinstance(lr, torch.Tensor) else lr,
+            b1, b2, eps, eps_root, *map(_kernels._SHAPE, ts),
+            *map(_kernels._STRIDE, ts), *map(_kernels._DTYPE, ts),
+            *map(_kernels._DEVICE, ts))
+
+
+def build_record(slab: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
+                 count: torch.Tensor, uids: torch.Tensor,
+                 uvals: torch.Tensor, lr: Lr, b1: float, b2: float,
+                 eps: float, eps_root: float, sms: Optional[int] = None
+                 ) -> _kernels.LaunchRecord:
+    """Validate a call as :func:`adam_rows` does (raising as it does) and
+    build its launch record: the constants rounded once (``record.
+    payload``: ``(lr_as_is, constants, prepared)``, ``lr_as_is`` false
+    where a tensor lr is converted to float32 on the card each call)
+    and, for CUDA tensors with ids, the prepared launch bound to the
+    library. CPU tensors (the tests) get a record without launches."""
+    dev = slab.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    check_layout(slab, {"mu": mu, "nu": nu}, uids, uvals)
+    if count.numel() != 1 or count.dtype != torch.float32 \
+            or count.device != dev:
+        raise ValueError(f"count: expected one float32 value on "
+                         f"{dev}, got {count.dtype} "
+                         f"{tuple(count.shape)} on {count.device}")
+    lr_as_is = True
+    if isinstance(lr, torch.Tensor):
+        if lr.numel() != 1:
+            raise ValueError(f"a tensor lr must hold one value, got shape "
+                             f"{tuple(lr.shape)}")
+        lr_as_is = lr.dtype == torch.float32 and lr.device == dev
+    dt, f32 = mu.dtype, torch.float32
+    consts = {"b1": _rnd(b1, dt), "omb1": _rnd(1.0 - b1, dt),
+              "b2": _rnd(b2, dt), "omb2": _rnd(1.0 - b2, dt),
+              "pb1": _rnd(b1, f32), "pb2": _rnd(b2, f32),
+              "lr": 0.0 if isinstance(lr, torch.Tensor) else _rnd(lr, f32),
+              "eps": _rnd(eps, f32), "eps_root": _rnd(eps_root, f32)}
+    lib, calls, prepared = None, [], None
+    if dev.type == "cuda" and uids.shape[0] > 0:
+        lib = _kernels.library("adam")
+        prepared = np.zeros(lib.detpu_adam_prepared_bytes(), np.uint8)
+        c = consts
+        _kernels.check(lib, lib.detpu_adam_prepare(
+            _DTYPE_CODE[slab.dtype], _DTYPE_CODE[dt], slab.shape[0],
+            slab.shape[1], int(uids.dtype == torch.int64), uids.shape[0],
+            c["b1"], c["omb1"], c["b2"], c["omb2"], c["pb1"], c["pb2"],
+            c["lr"], int(isinstance(lr, torch.Tensor)), c["eps"],
+            c["eps_root"], sms or _kernels.sm_count(dev.index or 0),
+            prepared.ctypes.data), "adam_rows")
+        calls.append((lib.detpu_adam_launch, (prepared.ctypes.data,)))
+    return _kernels.LaunchRecord(lib, "adam_rows", calls,
+                                 _kernels.device_index(dev),
+                                 payload=(lr_as_is, consts, prepared))
+
+
+def find_record(slab, mu, nu, count, uids, uvals, lr: Lr, b1: float,
+                b2: float, eps: float, eps_root: float,
+                build_on_cpu: bool = False
+                ) -> Optional[_kernels.LaunchRecord]:
+    """The record of a call, found in :data:`_CACHE` by
+    :func:`record_key` or built (:func:`build_record`) and kept. A miss
+    on CPU tensors is validated and gives None (the wrapper runs the
+    plain version) unless ``build_on_cpu``."""
+    args = (slab, mu, nu, count, uids, uvals, lr, b1, b2, eps, eps_root)
+    return _kernels.find_or_build(_CACHE, record_key(*args), build_record,
+                                  slab.device.type == "cpu", build_on_cpu,
+                                  *args)
+
+
 def adam_rows(slab: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
               count: torch.Tensor, uids: torch.Tensor, uvals: torch.Tensor,
               lr: Lr, b1: float, b2: float, eps: float, eps_root: float
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K11: the Adam transition of the rows ``uids [U]`` (unique, the
-    dedup's output) from their summed gradients ``uvals [U, w]`` (in the
-    moments' dtype), in place on ``slab [R, w]`` and the moments ``mu``,
-    ``nu [R, w]`` (float32/bfloat16, one dtype), at the float32 step
-    ``count`` (one element, already advanced for this step; read on the
-    device). ``lr`` is a float or a one-element float32 tensor. Returns
-    ``(slab, mu, nu)``. CPU tensors run :func:`adam_rows_plain`; CUDA
-    tensors launch the kernel or raise."""
+    """K11: the Adam transition of the rows ``uids [U]`` (the dedup's
+    output: sorted, each live id once) from their summed gradients
+    ``uvals [U, w]`` (in the moments' dtype), in place on ``slab [R, w]``
+    and the moments ``mu``, ``nu [R, w]`` (float32/bfloat16, one dtype),
+    at the float32 step ``count`` (one element, already advanced for this
+    step; read on the device). ``lr`` is a float or a one-element float32
+    tensor. Returns ``(slab, mu, nu)``. CPU tensors run
+    :func:`adam_rows_plain`; CUDA tensors launch the kernel (through the
+    launch record of their layouts: the first call validates and
+    prepares, later ones pass the pointers) or raise."""
     if slab.device.type == "cpu":
         return adam_rows_plain(slab, mu, nu, count, uids, uvals, lr, b1, b2,
                                eps, eps_root)
-    check_rows(slab, {"mu": mu, "nu": nu}, uids, uvals)
-    if count.numel() != 1 or count.dtype != torch.float32 \
-            or count.device != slab.device:
-        raise ValueError(f"count: expected one float32 value on "
-                         f"{slab.device}, got {count.dtype} "
-                         f"{tuple(count.shape)} on {count.device}")
-    lr_t = None
+    args = (slab, mu, nu, count, uids, uvals, lr, b1, b2, eps, eps_root)
+    rec = _kernels.find_or_build(_CACHE, record_key(*args), build_record,
+                                 False, False, *args)
+    lr_p = None
     if isinstance(lr, torch.Tensor):
-        lr_t = _lr_f32(lr, slab.device).contiguous()
-    if uids.shape[0] == 0:
-        return slab, mu, nu
-    dt = mu.dtype
-    bp = bias_powers(count, b1, b2)
-    f32 = torch.float32
-    w = slab.shape[1]
-    lib = _kernels.library("adam")
-    err = lib.detpu_adam_rows(
-        slab.data_ptr(), _DTYPE_CODE[slab.dtype], mu.data_ptr(),
-        nu.data_ptr(), _DTYPE_CODE[dt], slab.shape[0], w, uids.data_ptr(),
-        int(uids.dtype == torch.int64), uids.shape[0], uvals.data_ptr(),
-        _rnd(b1, dt), _rnd(1.0 - b1, dt), _rnd(b2, dt), _rnd(1.0 - b2, dt),
-        bp.data_ptr(), 0.0 if lr_t is not None else _rnd(lr, f32),
-        None if lr_t is None else lr_t.data_ptr(), _rnd(eps, f32),
-        _rnd(eps_root, f32), int(vector_ok(w, slab, mu, nu, uvals)),
-        torch.cuda.current_stream(slab.device).cuda_stream)
-    _kernels.check(lib, err, "adam_rows")
-    adam_rows.launches += 1
+        lr_p = (lr if rec.payload[0] else _lr_f32(lr, slab.device)
+                ).data_ptr()
+    adam_rows.launches += rec.replay(slab.data_ptr(), mu.data_ptr(),
+                                     nu.data_ptr(), uids.data_ptr(),
+                                     uvals.data_ptr(), count.data_ptr(), lr_p)
     return slab, mu, nu
 
 

@@ -47,7 +47,6 @@ launch from the elements (:func:`pick_tile`).
 
 from __future__ import annotations
 
-import functools
 from typing import Dict, Optional, Sequence, Union
 
 import numpy as np
@@ -140,11 +139,6 @@ def pick_tile(numels: Sequence[int], sms: int) -> int:
         if sum(-(-n // tile) for n in numels) >= BLOCKS_PER_SM * sms:
             return tile
     return TILES[-1]
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def launch_tables(params: Sequence[torch.Tensor],
@@ -247,7 +241,7 @@ def build_record(kind: str, params, grads, states, nlr: Nlr, hyper, bp,
         if not bp.is_contiguous():
             bp, keep = bp.contiguous(), False
     tables = launch_tables(params, cgrads, states,
-                           sms or (_sm_count(dev.index or 0)
+                           sms or (_kernels.sm_count(dev.index or 0)
                                    if dev.type == "cuda" else H100_SMS))
     lib, calls, buffers = None, [], []
     if dev.type == "cuda":

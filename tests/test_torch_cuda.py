@@ -35,7 +35,11 @@ NaN equals a NaN), and the DLRM example resumed from a checkpoint on the
 card equals its uninterrupted run bitwise. The gradient-health reduction
 (K21) equals its plain version in max |g| and the non-finite counts and
 within 1.2e-5 relative in the sums of squares (positive terms in another
-order), and gives the same bits on two runs; the dense update (K22) is
+order), one launch a call on its layout-keyed record, and gives the same
+bits on two runs and in a CUDA-graph replay; K11 is bit-exact over the
+live ranges of sorted dedup outputs, its in-kernel bias powers give
+``torch.pow``'s bits, and its record replays in a CUDA graph; the dense
+update (K22) is
 bit-exact; K14's pool and K15's merge past their shared-memory tiles are
 bit-exact; an instrumented DLRM run card-vs-CPU holds its metrics within
 1e-4 (counts exact). K22 and K19/K20 through their launch records are
@@ -614,15 +618,21 @@ def test_zoo_train_on_the_card_matches_the_cpu(cuda_device, ratio):
 # ------------------------------------------------- K11 / K12: Adam, momentum
 
 
-def _row_case(rng, R, width, dtype, device, n_rows=150, unaligned=False):
+def _row_case(rng, R, width, dtype, device, n_rows=150, unaligned=False,
+              sort=False):
     """Unique sorted ids (no 0: a negative id reads row 0, and K6/K11/K12
     read it in no set order against row 0's own update), negative ids,
     the sentinel, ids past the slab and a pad tail; gradient rows in
     ``dtype`` (``unaligned``: a contiguous view 4 bytes off its buffer,
-    so the kernel takes its one-element path)."""
+    so the kernel takes its one-element path). ``sort``: the whole
+    stream in signed order, as the dedup gives it (K11 finds its live
+    range in it)."""
     rows = 1 + rng.permutation(R - 21)[:n_rows]  # rows R-20.. for negatives
     uids = np.concatenate([np.sort(rows), [-1, -7, R, R, 10 ** 6, -R - 3]])
     g = rng.normal(size=(len(uids), width)).astype(np.float32)
+    if sort:
+        order = np.argsort(uids, kind="stable")
+        uids, g = uids[order], g[order]
     gt = torch.from_numpy(g).to(dtype).to(device)
     if unaligned:
         buf = torch.empty(g.size + 1, dtype=dtype, device=device)
@@ -641,16 +651,16 @@ ROW_CASES = [(8, False), (16, False), (40, False), (3, False), (16, True)]
 def test_adam_rows_kernel_matches_plain(cuda_device, slab_dtype, mom_dtype,
                                         width, unaligned):
     """K11 against its plain version (on the card) on unique rows,
-    negative ids, the sentinel, ids past the slab and the pad tail, for
-    a constant and a device lr and counts 1 and 1000, int32 and int64
-    ids, 4-element and one-element loads: slab, mu and nu bit-exact
-    (the same correctly rounded ops in the same order; the bias
-    corrections come from one computation), untouched rows bitwise
-    unchanged."""
+    negative ids, the sentinel, ids past the slab and the pad tail, in
+    the dedup's signed order, for a constant and a device lr and counts
+    1 and 1000, int32 and int64 ids, 4-element and one-element loads:
+    slab, mu and nu bit-exact (the same correctly rounded ops in the
+    same order; the bias powers are the same float32 ``pow``),
+    untouched rows bitwise unchanged."""
     rng = np.random.default_rng(width + 100 * unaligned)
     R = 400
     uids, g, hit = _row_case(rng, R, width, mom_dtype, cuda_device,
-                             unaligned=unaligned)
+                             unaligned=unaligned, sort=True)
     untouched = np.setdiff1d(np.arange(R), hit)
     for ids_dtype, lr, count in ((torch.int32, 0.01, 1.0),
                                  (torch.int64, torch.tensor(0.013), 1000.0),
@@ -707,6 +717,138 @@ def test_momentum_rows_kernel_matches_plain(cuda_device, slab_dtype,
         for a, b, old in zip(got, want, (slab, tr)):
             np.testing.assert_array_equal(to_np(a), to_np(b))
             assert torch.equal(a[untouched], old[untouched])
+
+
+def _adam_pair(fn, slab, mu, nu, cnt, uids, g, lr):
+    """``fn`` (K11 or its plain version) on clones; the new tensors."""
+    out = [slab.clone(), mu.clone(), nu.clone()]
+    fn(*out, cnt, uids, g, lr, 0.9, 0.999, 1e-8, 0.0)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ids_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("stream", ["all_pad", "no_pad", "negatives_only",
+                                    "long_pad_tail", "wrap_to_row0"])
+def test_adam_rows_live_range_edges(cuda_device, stream, ids_dtype):
+    """K11 finds the live range of the sorted dedup output on the card:
+    a stream that is all pad tail (nothing moves), one with no pad at all,
+    one of negative ids only, a 300,000-id output with 1,000 live rows,
+    and -R (whose transition lands on row 0) with its prefix. Slab, mu
+    and nu bit-exact to the plain version in both dtypes."""
+    R, w = 5000, 16
+    rng = np.random.default_rng(len(stream))
+    live = np.sort(rng.permutation(np.arange(1, R - 40))[:1000])
+    ids = {"all_pad": np.full(700, R),
+           "no_pad": live,
+           "negatives_only": np.array([-R - 9, -R, -17, -3, -1]),
+           "long_pad_tail": np.concatenate([live, np.full(299_000, R)]),
+           "wrap_to_row0": np.concatenate([[-R - 1, -R, -33, -2], live,
+                                           [R, R + 3]])}[stream]
+    uids = torch.from_numpy(ids).to(ids_dtype).to(cuda_device)
+    for dt in (torch.float32, torch.bfloat16):
+        g = torch.from_numpy(rng.normal(size=(len(ids), w)).astype(
+            np.float32)).to(dt).to(cuda_device)
+        slab, mu = (torch.from_numpy(rng.normal(size=(R, w)).astype(
+            np.float32)).to(dt).to(cuda_device) for _ in range(2))
+        nu = torch.from_numpy(rng.random((R, w)).astype(np.float32)).to(
+            dt).to(cuda_device)
+        cnt = torch.full((1, 1), 3.0, device=cuda_device)
+        got = _adam_pair(adam_rows, slab, mu, nu, cnt, uids, g, 0.01)
+        want = _adam_pair(adam_rows_plain, slab, mu, nu, cnt, uids, g, 0.01)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), stream
+        moved = not torch.equal(got[0], slab)
+        assert moved == (stream != "all_pad")
+        if stream == "wrap_to_row0":
+            assert not torch.equal(got[1][0], mu[0])  # -R's transition
+
+
+@pytest.mark.cuda
+def test_adam_rows_bias_powers_match_torch_pow(cuda_device):
+    """K11's in-kernel float32 ``powf`` of the count gives the bits of
+    the plain version's ``torch.pow`` on the card at every count 1..2000
+    and at 10^4, 2^16, 10^5, 10^6 and 2^24 (each checked through a whole
+    row update, bit-exact); the control: the plain version one count
+    later differs."""
+    rng = np.random.default_rng(5)
+    R, w = 64, 8
+    uids = torch.arange(1, 33, dtype=torch.int32, device=cuda_device)
+    g = torch.from_numpy(rng.normal(size=(32, w)).astype(np.float32)).to(
+        cuda_device)
+    slab, mu = (torch.from_numpy(rng.normal(size=(R, w)).astype(
+        np.float32)).to(cuda_device) for _ in range(2))
+    nu = torch.from_numpy(rng.random((R, w)).astype(np.float32)).to(
+        cuda_device)
+    bad = []
+    for t in list(range(1, 2001)) + [10_000, 65_536, 100_000, 1_000_000,
+                                     16_777_216]:
+        cnt = torch.full((1, 1), float(t), device=cuda_device)
+        got = _adam_pair(adam_rows, slab, mu, nu, cnt, uids, g, 0.01)
+        want = _adam_pair(adam_rows_plain, slab, mu, nu, cnt, uids, g, 0.01)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            bad.append(t)
+    assert bad == []
+    later = _adam_pair(adam_rows_plain, slab, mu, nu,
+                       torch.full((1, 1), 3.0, device=cuda_device), uids, g,
+                       0.01)
+    now = _adam_pair(adam_rows, slab, mu, nu,
+                     torch.full((1, 1), 2.0, device=cuda_device), uids, g,
+                     0.01)
+    assert not torch.equal(later[0], now[0])
+
+
+@pytest.mark.cuda
+def test_adam_rows_record_hits_and_replays_in_a_cuda_graph(cuda_device):
+    """K11 through its launch record: a second call with new tensors of
+    the same layouts builds nothing; a changed width or dtype builds a
+    new record; a call captured in a ``torch.cuda.CUDAGraph`` (device lr)
+    and replayed twice from the same state gives the eager call's bits
+    (the launch keeps no state between calls)."""
+    import importlib
+
+    adam = importlib.import_module("distributed_embeddings_torch.ops.adam")
+    rng = np.random.default_rng(9)
+    R, w = 3000, 16
+    ids = np.concatenate([[-5], np.sort(rng.permutation(R - 10)[:700] + 1),
+                          np.full(400, R)])
+    uids = torch.from_numpy(ids).int().to(cuda_device)
+
+    def case():
+        g = torch.from_numpy(rng.normal(size=(len(ids), w)).astype(
+            np.float32)).to(cuda_device)
+        return [torch.from_numpy(rng.normal(size=(R, w)).astype(
+            np.float32)).abs().to(cuda_device) for _ in range(3)], g
+
+    lr = torch.tensor(0.02, device=cuda_device)
+    cnt = torch.full((1, 1), 4.0, device=cuda_device)
+    (slab, mu, nu), g = case()
+    adam_rows(slab.clone(), mu.clone(), nu.clone(), cnt, uids, g, lr, 0.9,
+              0.999, 1e-8, 0.0)
+    builds = adam._CACHE.builds
+    (slab, mu, nu), g = case()
+    want = _adam_pair(adam_rows_plain, slab, mu, nu, cnt, uids, g, lr)
+    got = _adam_pair(adam_rows, slab, mu, nu, cnt, uids, g, lr)
+    assert adam._CACHE.builds == builds
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    narrow = [t[:, :8].contiguous() for t in (slab, mu, nu)]
+    _adam_pair(adam_rows, *narrow, cnt, uids, g[:, :8].contiguous(), lr)
+    assert adam._CACHE.builds == builds + 1
+    state = [slab.clone(), mu.clone(), nu.clone()]
+    stream = torch.cuda.Stream(device=cuda_device)
+    stream.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(stream):
+        adam_rows(*state, cnt, uids, g, lr, 0.9, 0.999, 1e-8, 0.0)
+    torch.cuda.current_stream(cuda_device).wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        adam_rows(*state, cnt, uids, g, lr, 0.9, 0.999, 1e-8, 0.0)
+    for _ in range(2):
+        for t, s0 in zip(state, (slab, mu, nu)):
+            t.copy_(s0)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(state, want))
 
 
 @pytest.mark.cuda
@@ -2169,8 +2311,9 @@ def _health_tensors(dev, case):
     """Gradient lists for K21: the DLRM step's shapes (26 bf16 [65536,
     128] cotangents as column slices of one [65536, 27, 128] block, and
     the MLP's float32 gradients), or edge cases (empty, one element, odd
-    sizes around the chunk and the 16-byte group, unaligned starts,
-    strided views, NaN, Inf and finite values whose squares overflow)."""
+    sizes around the chunks (32768 float32 and 65536 bfloat16 elements)
+    and the 16-byte group, unaligned starts, strided views, NaN, Inf and
+    finite values whose squares overflow)."""
     gen = torch.Generator(device=dev).manual_seed(21)
     if case == "dlrm":
         block = torch.randn((65536, 27, 128), generator=gen, device=dev
@@ -2184,7 +2327,8 @@ def _health_tensors(dev, case):
         return outs + dense
     out = []
     for dt in (torch.float32, torch.bfloat16):
-        for n in (0, 1, 7, 8, 9, 16383, 16384, 16385, 100_003):
+        for n in (0, 1, 7, 8, 9, 16383, 16384, 16385, 32767, 32768, 32769,
+                  65537, 100_003):
             out.append(torch.randn(n, generator=gen, device=dev).to(dt))
         base = torch.randn(40_001, generator=gen, device=dev).to(dt)
         out.append(base[1:])                    # unaligned start
@@ -2239,6 +2383,86 @@ def test_grad_health_kernel_control_fails(cuda_device):
     got = to_np(grad_health([t[16384:]]))
     want = to_np(grad_health_plain([t]))
     assert abs(got[0, 0] - want[0, 0]) > 1.2e-5 * want[0, 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["dlrm_views", "mixed_views", "empty",
+                                  "many"])
+def test_grad_health_one_launch_records(cuda_device, case):
+    """K21 on its launch record: the DLRM step's cotangents as contiguous
+    views of one [26, B, 128] buffer (as K4 leaves them) with the dense
+    gradients; contiguous and column-slice views of fp32 and bf16 mixed
+    in one call; a call of empty tensors only; and 1,100 tensors (three
+    launches, each into its columns). One launch a call up to 512
+    tensors; a second call with NEW tensors of the same layouts builds
+    nothing and agrees with the plain version as above (max and counts
+    exact, sums within 1.2e-5 relative)."""
+    import importlib
+
+    gh = importlib.import_module("distributed_embeddings_torch.ops."
+                                 "grad_health")
+    from distributed_embeddings_torch.ops import grad_health, grad_health_plain
+
+    def make(seed):
+        gen = torch.Generator(device=cuda_device).manual_seed(seed)
+
+        def r(*shape, dt=torch.float32):
+            return torch.randn(shape, generator=gen, device=cuda_device
+                               ).to(dt)
+        if case == "dlrm_views":
+            cot = r(26, 4096, 128, dt=torch.bfloat16)
+            return list(cot.unbind(0)) + [r(512, 13), r(512), r(1, 256)]
+        if case == "mixed_views":
+            a, b = r(300, 40), r(300, 24, 48, dt=torch.bfloat16)
+            return [a[:, 4:36], b[:, :, 8:40], r(9), a, b[:, 1, :16],
+                    r(70_001, dt=torch.bfloat16)[1:], r(40_000)[::2]]
+        if case == "empty":
+            return [r(0), r(0, 128, dt=torch.bfloat16)]
+        return [r(1 + (k * 37) % 300, dt=(torch.bfloat16 if k % 3 else
+                                          torch.float32))
+                for k in range(1100)]
+
+    grad_health(make(0))
+    builds = gh._CACHE.builds
+    ts = make(1)
+    before = grad_health.launches
+    got = grad_health(ts)
+    assert grad_health.launches - before == -(-len(ts) // gh.MAX_TENSORS)
+    assert gh._CACHE.builds == builds
+    want = grad_health_plain(ts)
+    g, w = to_np(got), to_np(want)
+    np.testing.assert_array_equal(g[1:], w[1:])
+    np.testing.assert_allclose(g[0], w[0], rtol=1.2e-5, atol=0)
+    if case == "empty":
+        assert (g == 0).all()
+
+
+@pytest.mark.cuda
+def test_grad_health_replays_in_a_cuda_graph(cuda_device):
+    """K21's record captured in a ``torch.cuda.CUDAGraph`` over the DLRM
+    shapes and the edge cases: three replays give the eager call's bits
+    (the tickets are never reset, so each launch finds its last CTA a
+    tensor anew), and two eager calls give the same bits."""
+    from distributed_embeddings_torch.ops import grad_health
+
+    ts = _health_tensors(cuda_device, "edges")
+    ts += [t[:4096] for t in _health_tensors(cuda_device, "dlrm")[:26]]
+    eager = grad_health(ts)
+    assert torch.equal(eager.view(torch.int32),
+                       grad_health(ts).view(torch.int32))
+    stream = torch.cuda.Stream(device=cuda_device)
+    stream.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(stream):
+        grad_health(ts)
+    torch.cuda.current_stream(cuda_device).wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = grad_health(ts)
+    for _ in range(3):
+        out.fill_(-1.0)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out.view(torch.int32), eager.view(torch.int32))
 
 
 def _dense_case(dev, kind, seed):

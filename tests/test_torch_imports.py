@@ -33,6 +33,7 @@ def _sources():
     files.append(ROOT / "k8_variants.py")
     files.append(ROOT / "segment_variants.py")
     files.append(ROOT / "dot_variants.py")
+    files.append(ROOT / "row_variants.py")
     files.append(ROOT / "variants.py")
     files.append(ROOT / "tests" / "torch_dist_worker.py")
     return files
