@@ -76,8 +76,10 @@ Phases (any failure raises and the script exits non-zero):
    e. K1 (hot 10, w16), K3 (the w8 scatter-sum), K5, K6 and K7 timed
       as in 7 (K5 also in turns with the parent's and with
       ``torch.unique`` + ``index_add_``, its device ms split by stage:
-      sort, boundaries, sum, finish), and the w16 slab through both
-      Adagrad regimes;
+      sort, boundaries, sum, finish; K6 in turns with the parent's and
+      ``torch.optim.Adagrad``'s sparse step, with its record's host
+      split, and again at the bf16 tables' w16 shapes), and the w16
+      slab through both Adagrad regimes;
 9. ragged, after freeing the zoo state: the multi-hot ragged DLRM
    (``bench.py``'s ``multihot_ragged``): the Criteo-Kaggle tables capped
    at 2M rows in fp32 (10,569,296 rows, a 5.41 GB slab), 26 ragged
@@ -174,7 +176,8 @@ Phases (any failure raises and the script exits non-zero):
       candidates, past their shared-memory tiles (bit-exact first).
 12. streaming, after freeing the telemetry state: streaming vocabularies
     (``parallel/streaming.py``; K16 remap and K17 commit in
-    ``csrc/streaming.cu``, K13 for the admission sketch):
+    ``csrc/streaming.cu``; K16's update folds the admission sketch
+    itself, K13's integer adds in its own launch):
    a. K16 and K17 against their plain versions on the card, bit-exact,
       at the edge cases (free slots, a claim below the gate, eviction at
       exactly the margin and at one less, equal estimates decided by the
@@ -194,14 +197,19 @@ Phases (any failure raises and the script exits non-zero):
       ``SparseAdagrad`` at 0.01 + SGD at 0.005, guard on, b=65536, one
       Zipfian id a feature over its full vocabulary) with tables 2, 3,
       11, 15 and 20 streaming (1,882,353 slots + 117,647 buckets each):
-      one step with K16 (and its K13 fold), K5, K6 and K17 each held to
+      one step with K16 (and its sketch fold), K5, K6 and K17 each held to
       its plain version on the step's own inputs, a NaN batch (all state
       bitwise unchanged), 3 warmup + 20 timed steps against the static
       twin (the same slabs without the streaming entries) with
-      ``streaming_overhead_frac``, Zipfian requests through
-      ``ServingRuntime(streaming=)``, K16 (update and read-only) and
-      K17 timed beside their plain versions and byte bounds, and K5 timed
-      on the checked step's w128 stream as in 8e.
+      ``streaming_overhead_frac``, a profile window, the step's stage
+      split (remap, forward/dense/guard, sparse apply, commit, dense
+      update; with ``--parent`` in turns with the parent's wrappers, as
+      is ``streaming_overhead_frac``), Zipfian requests through
+      ``ServingRuntime(streaming=)``, K16 (update and read-only, in turns
+      with the parent's, each with its record's host split) and K17
+      timed beside their plain versions and byte bounds, K5 timed on the
+      checked step's w128 stream as in 8e, and K6 on that step's K5
+      output as in 8e.
 13. example, after freeing the streaming state: the DLRM example
     (``distributed_embeddings_torch/examples/dlrm_main.py``) with bf16
     tables under the MLPerf schedule, whose ``SparseSGD`` update is JAX's
@@ -280,7 +288,7 @@ The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Run from the root of a checkout:
 ``python3 chip_smoke.py``. With ``--parent DIR`` (a checkout of another
 commit, e.g. unpacked with ``git archive``), the launch-record kernels
-K1-K5, K8, K10, K11, K18-K22 are also timed through that
+K1-K6, K8, K10, K11, K16, K18-K22 are also timed through that
 checkout's wrappers, in turns with this tree's (``in_turns``), K1 is
 held bit-exact to that checkout's K1 at phase 4's shapes and the zoo's
 (and K2 within its tolerance of that checkout's), and the DLRM,
@@ -388,8 +396,9 @@ _parent = {}
 def parent_ops():
     """The parent checkout's ``ops.dense_update``, ``ops.exchange_pack``,
     ``ops.embedding_lookup``, ``ops.scatter_add``, ``ops.interaction``,
-    ``ops.sparse_grad``, ``ops.grad_health`` and ``ops.adam`` modules and
-    its ``models.dlrm`` (key ``"dlrm"``),
+    ``ops.sparse_grad``, ``ops.grad_health``, ``ops.adam``,
+    ``ops.adagrad`` and ``ops.streaming`` modules and its ``models.dlrm``
+    (key ``"dlrm"``),
     loaded under the
     package name
     ``detpu_parent`` (its kernels built from its own sources into its own
@@ -410,10 +419,11 @@ def parent_ops():
         importlib.import_module("detpu_parent.ops._kernels").build_all(
             ["dense_update", "exchange_pack", "gather_combine", "csr",
              "sgd_scatter", "sgd_promoted", "dot_interact",
-             "ragged_combine", "dedup", "grad_health", "adam"])
+             "ragged_combine", "dedup", "grad_health", "adam", "adagrad",
+             "streaming", "sketch"])
         for name in ("dense_update", "exchange_pack", "embedding_lookup",
                      "scatter_add", "interaction", "sparse_grad",
-                     "grad_health", "adam"):
+                     "grad_health", "adam", "adagrad", "streaming"):
             _parent[name] = importlib.import_module(
                 f"detpu_parent.ops.{name}")
         _parent["dlrm"] = importlib.import_module("detpu_parent.models.dlrm")
@@ -446,12 +456,13 @@ LOOKUP_SITES = (("lookup", "gather_combine"), ("lookup", "lengths_to_splits"),
 
 @contextlib.contextmanager
 def parent_wrappers():
-    """Route the steps' K19/K20/K22, K3/K18, K5, K11 and K21 call sites
-    (the module globals ``parallel.exchange.pack_ids``/``pack_columns``,
-    ``parallel.optimizers.dense_update``/``sgd_scatter``/
-    ``dedup_sparse_grad``/``adam_rows`` and ``parallel.trainer.
-    grad_health``: the parent's ``sgd_scatter`` takes its own K18 for the
-    promoted chain), the
+    """Route the steps' K19/K20/K22, K3/K18, K5, K6, K11, K16 and K21
+    call sites (the module globals ``parallel.exchange.pack_ids``/
+    ``pack_columns``, ``parallel.optimizers.dense_update``/
+    ``sgd_scatter``/``dedup_sparse_grad``/``adagrad_rows``/``adam_rows``,
+    ``parallel.streaming.remap_stage`` (the parent's K16 update folds
+    with its own K13) and ``parallel.trainer.grad_health``: the parent's
+    ``sgd_scatter`` takes its own K18 for the promoted chain), the
     interaction (``models.dlrm.dot_interact``: the parent's stacks the
     features and runs its K2 and K4) and their K1/K8/K10 call sites
     (``LOOKUP_SITES``) to the parent checkout's wrappers, each copy plan
@@ -461,6 +472,7 @@ def parent_wrappers():
     from distributed_embeddings_torch.models import dlrm
     from distributed_embeddings_torch.parallel import (exchange, optimizers,
                                                        trainer)
+    from distributed_embeddings_torch.parallel import streaming as smod
 
     par = parent_ops()
     plans = {}
@@ -475,7 +487,8 @@ def parent_wrappers():
     saved = (exchange.pack_ids, exchange.pack_columns,
              optimizers.dense_update, optimizers.sgd_scatter,
              optimizers.dedup_sparse_grad, dlrm.dot_interact,
-             trainer.grad_health, optimizers.adam_rows)
+             trainer.grad_health, optimizers.adam_rows,
+             optimizers.adagrad_rows, smod.remap_stage)
     # the parent's interaction: its stack of the features, then its K2
     # (and, through its autograd Function, its K4)
     dlrm.dot_interact = par["dlrm"].dot_interact
@@ -488,6 +501,8 @@ def parent_wrappers():
     optimizers.dedup_sparse_grad = par["sparse_grad"].dedup_sparse_grad
     trainer.grad_health = par["grad_health"].grad_health
     optimizers.adam_rows = par["adam"].adam_rows
+    optimizers.adagrad_rows = par["adagrad"].adagrad_rows
+    smod.remap_stage = par["streaming"].remap_stage
     mods = {m: importlib.import_module(
         f"distributed_embeddings_torch.parallel.{m}")
         for m, _ in LOOKUP_SITES}
@@ -500,7 +515,8 @@ def parent_wrappers():
         (exchange.pack_ids, exchange.pack_columns,
          optimizers.dense_update, optimizers.sgd_scatter,
          optimizers.dedup_sparse_grad, dlrm.dot_interact,
-         trainer.grad_health, optimizers.adam_rows) = saved
+         trainer.grad_health, optimizers.adam_rows,
+         optimizers.adagrad_rows, smod.remap_stage) = saved
         for (m, name), fn in zip(LOOKUP_SITES, lookups):
             setattr(mods[m], name, fn)
 
@@ -2858,9 +2874,8 @@ def zoo_kernel_times(torch, de, opt, st, data, cfg):
     and its byte bound."""
     import torch.nn.functional as F
     from distributed_embeddings_torch.ops import (
-        adagrad_dense, adagrad_dense_plain, adagrad_rows, adagrad_rows_plain,
-        dedup_sparse_grad, gather_combine, gather_combine_plain, sgd_scatter,
-        sgd_scatter_plain)
+        adagrad_dense, adagrad_dense_plain, dedup_sparse_grad,
+        gather_combine, gather_combine_plain, sgd_scatter, sgd_scatter_plain)
     from distributed_embeddings_torch.ops.scatter_add import (
         SPLIT, add_in_stream_order)
     from distributed_embeddings_torch.parallel import (
@@ -2971,30 +2986,17 @@ def zoo_kernel_times(torch, de, opt, st, data, cfg):
     R16, w16 = st.emb_params["w16"].shape[1:]
     ids16, vals16 = r16["ids"], r16["vals"]
     n = ids16.numel()
-    u_cap = min(n, R16 + 1)
     uids, ugrads = dedup_sparse_grad(ids16, vals16, pad_id=R16,
                                      max_unique=R16 + 1)
     distinct = int((uids < R16).sum())
     out["dedup_sparse_grad"] = dedup_case(torch, "zoo_w16_stream", ids16,
                                           vals16, R16)
 
-    # K6 on K5's output, into the w16 slab: it reads every id, and the
-    # gradient, accumulator and slab row of each id below R16 only (the
-    # pad tail's gradient rows are never read)
+    # K6 on K5's output, into the w16 slab (in turns with the parent's
+    # and torch.optim.Adagrad's sparse step; the rows put back after)
     s16, a16 = st.emb_params["w16"][0], st.emb_opt_state["w16"][0]
-    touched16 = int((uids < R16).sum())
-    nbytes = u_cap * 4 + touched16 * w16 * 4 + touched16 * w16 * 4 * 4
-    ops = 9 * touched16 * w16
-    out["adagrad_rows"] = {
-        "case": "zoo_w16_sparse",
-        "ms": time_ms(torch, lambda: adagrad_rows(s16, a16, uids, ugrads,
-                                                  ZOO_LR, opt.eps), [()]),
-        "plain_ms": time_ms(torch, lambda: adagrad_rows_plain(
-            s16, a16, uids, ugrads, ZOO_LR, opt.eps), [()]),
-        "library_ms": None,
-        "bound_ms": max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3,
-        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S
-        else "operations", "unique_rows": touched16, "bytes": nbytes}
+    out["adagrad_rows"] = k6_case(torch, "zoo_w16_sparse", (
+        s16, a16, uids, ugrads, ZOO_LR, opt.eps))
     for name, c in out.items():
         lib = "—" if c["library_ms"] is None else f"{c['library_ms']:.4f}"
         log(f"time {name} {c['case']}: kernel {c['ms']:.4f} ms, plain "
@@ -3083,6 +3085,19 @@ def phase_zoo(torch):
     st, bf16_errs, _ = zoo_full_check(torch, de, opt, st, data, cfg, "bf16")
     st, _, bf16 = zoo_timed(torch, de, opt, st, data, cfg, "bf16")
     bf16["full_step_max_abs_err"] = bf16_errs
+    # K6 at the bf16 tables' w16 shapes, on one step's K5 output
+    bstep = make_hybrid_train_step(de, zoo_loss, Adagrad(ZOO_LR), opt,
+                                   lr_schedule=ZOO_LR, nan_guard=False)
+    num, cats, lab = data[1]
+    with recording(torch, opt, snapshot=False) as seen:
+        _, st = bstep(st, cats, (num, lab))
+    r16 = seen["w16"]
+    kcases["adagrad_rows_bf16"] = k6_case(
+        torch, "zoo_w16_sparse_bf16", (st.emb_params["w16"][0],
+                                       st.emb_opt_state["w16"][0],
+                                       r16["uids"], r16["ugrads"], ZOO_LR,
+                                       opt.eps))
+    del seen, r16
     del st
     torch.cuda.empty_cache()
     return launches, errs, kcases, {"fp32": fp32, "bf16": bf16,
@@ -4607,6 +4622,65 @@ def row_kernel_times(torch, de, opt, st, data, name):
     return st, sorted(cases, key=lambda c: -c["unique_rows"])
 
 
+def k6_case(torch, label, args):
+    """K6 on one call's arguments (slab, acc, uids, ugrads, lr, eps)
+    through ``kernel_case``: in turns with the parent's wrapper and, on a
+    float32 slab, ``torch.optim.Adagrad(..., eps=eps).step`` on a
+    coalesced COO gradient of the same live rows (the library call: its
+    ``eps`` sits outside the square root, a yardstick of the same
+    traffic), beside its plain version and its byte bound (each live
+    row's gradient row read once, its accumulator and slab rows read and
+    written once, and the live ids: the pad tail is not the function's
+    work), with its record's host split. The rows it touches are put
+    back after, so the state goes on as the step left it."""
+    import importlib
+
+    from distributed_embeddings_torch.ops import (adagrad_rows,
+                                                  adagrad_rows_plain)
+
+    ada = importlib.import_module("distributed_embeddings_torch.ops.adagrad")
+    slab, acc, uids, ugrads, lr, eps = args
+    rows, w = slab.shape
+    live = uids < rows
+    touched = int(live.sum())
+    hit = uids[live].long()
+    hit = torch.unique(torch.cat([torch.where(hit < 0, hit + rows, hit),
+                                  hit.new_zeros(1)]))
+    hit = hit[hit >= 0]
+    kept = [t[hit].clone() for t in (slab, acc)]
+    es, ea = slab.element_size(), acc.element_size()
+    nbytes = touched * (uids.element_size() + w * (ea + 2 * (es + ea)))
+    ops = 9 * touched * w
+    lib = param = None
+    if slab.dtype == torch.float32:
+        param = torch.nn.Parameter(slab, requires_grad=False)
+        param.grad = torch.sparse_coo_tensor(
+            uids[live].long()[None], ugrads[live].float(),
+            tuple(slab.shape)).coalesce()
+        lib = torch.optim.Adagrad([param], lr=float(lr), eps=eps).step
+    parent = parent_ops()
+    case = kernel_case(
+        torch, "adagrad_rows", label, lambda: adagrad_rows(*args),
+        (lambda: parent["adagrad"].adagrad_rows(*args)) if parent else None,
+        lib, nbytes, plain=lambda: adagrad_rows_plain(*args),
+        extra={"unique_rows": touched, "ids": uids.numel(),
+               "dtypes": [str(slab.dtype)[6:], str(acc.dtype)[6:]],
+               "library_call": "torch.optim.Adagrad.step" if lib
+               else None})
+    if ops / F32_OPS_PER_S > nbytes / HBM_BYTES_PER_S:
+        case.update(bound_ms=ops / F32_OPS_PER_S * 1e3, bound_by="operations")
+    del lib, param
+    case["host_split_us"] = launch_host_split(
+        torch, f"adagrad_rows {label}", lambda: ada.record_key(*args),
+        ada._CACHE,
+        (slab.data_ptr(), acc.data_ptr(), uids.data_ptr(), ugrads.data_ptr(),
+         lr.data_ptr() if isinstance(lr, torch.Tensor) else None),
+        lambda: adagrad_rows(*args), [slab, acc, uids, ugrads])
+    for t, k in zip((slab, acc), kept):
+        t[hit] = k
+    return case
+
+
 def k11_case(torch, label, args):
     """K11 on one call's arguments (slab, mu, nu, count, uids, uvals, lr,
     b1, b2, eps, eps_root) through ``kernel_case``: in turns with the
@@ -5522,8 +5596,9 @@ def same_bits(torch, got, want, what):
 
 def stream_per_step(k16=1, k17=1, ro=0):
     """K16 (update), K13 and K17 launches of ``k16``/``k17`` streaming
-    steps (one width) and ``ro`` read-only remaps."""
-    return dict(remap_stage=k16 + ro, cms_update=k16, commit_rows=k17)
+    steps (one width) and ``ro`` read-only remaps: K16's update folds the
+    admission sketch itself, so no K13 launch."""
+    return dict(remap_stage=k16 + ro, cms_update=0, commit_rows=k17)
 
 
 @contextlib.contextmanager
@@ -5531,7 +5606,7 @@ def stream_checks(torch, errs, what, before_commit=None):
     """Hold every K16 and K17 call of the streaming path (the module
     globals ``parallel.streaming.remap_stage``/``commit_rows``) to its
     plain version on the same inputs, right where the step calls it:
-    K16's outputs and the staged sketch K13 folded, bit-exact; K17's
+    K16's outputs and the staged sketch it folded, bit-exact; K17's
     slab, leaves, slot map, sketch, totals, counters and steps, bitwise
     (a NaN equals a NaN). ``before_commit()`` runs before each K17."""
     from distributed_embeddings_torch.ops import streaming as sops
@@ -5947,22 +6022,22 @@ def stream_dlrm_batch(torch, gen, b, nan=False):
 
 def dlrm_stream_per_step(steps=1):
     """Launches of ``steps`` streaming DLRM steps: K1, K2, K4, K5, K6,
-    K16, K13, K17, K21 and K22 once each (one width, the sparse Adagrad
-    regime, the guard on)."""
+    K16, K17, K21 and K22 once each (one width, the sparse Adagrad
+    regime, the guard on; K16 folds the sketch itself, no K13)."""
     want = {name: 0 for name in kernel_fns()}
     want.update(gather_combine=steps, dot_interact_fwd=steps,
                 dot_interact_bwd=steps, dedup_sparse_grad=steps,
-                adagrad_rows=steps, remap_stage=steps, cms_update=steps,
+                adagrad_rows=steps, remap_stage=steps, cms_update=0,
                 commit_rows=steps, pack_ids=steps, pack_columns=steps,
                 **epilogue(steps))
     return want
 
 
 def stream_dlrm_checks(torch, de, st, ss, cfg, gen, errs):
-    """12c's checked step (K16 and its K13 fold, K5, K6 and K17 each
+    """12c's checked step (K16 and its sketch fold, K5, K6 and K17 each
     against its plain version on the step's own inputs) and its NaN
-    batch. Returns the state and K5's inputs in the step (the w128
-    stream, to time K5 at)."""
+    batch. Returns the state, K5's inputs in the step (the w128 stream,
+    to time K5 at) and K6's (its K5 output, lr and eps)."""
     from distributed_embeddings_torch.ops import adagrad_rows_plain
     from distributed_embeddings_torch.parallel import SparseAdagrad
 
@@ -6006,9 +6081,10 @@ def stream_dlrm_checks(torch, de, st, ss, cfg, gen, errs):
     for k in ("dedup_sparse_grad", "adagrad_rows"):
         errs[k] = max(errs.get(k, 0.0), k56[k])
     k5_args = (seen["w128"]["ids"], seen["w128"]["vals"],
-               st.emb_params["w128"].shape[1])
+               st.emb_params["w128"].shape[1], seen["w128"]["uids"],
+               seen["w128"]["ugrads"], seen["w128"]["lr"], opt.eps)
     log(f"streaming DLRM: checked step, loss {float(loss):.5f}; K16 (and "
-        f"the K13 fold) bit-exact to the plain remap on the step's own "
+        f"its sketch fold) bit-exact to the plain remap on the step's own "
         f"{n} streaming positions; K5 max_abs_err "
         f"{k56['dedup_sparse_grad']} on {k56['ids']} ids ({k56['unique']} "
         f"unique), K6 accumulators bit-exact and slab max_abs_err "
@@ -6093,9 +6169,7 @@ def stream_dlrm_timed(torch, de, twin, st, ss, cfg, batches):
     return st, ss, launches, metrics
 
 
-STREAM_KERNELS = ("stream_hash_kernel", "cms_update_kernel",
-                  "stream_claim_kernel", "stream_claim_pos_kernel",
-                  "stream_outputs_kernel", "commit_scrub_kernel",
+STREAM_KERNELS = ("stream_remap_kernel", "commit_scrub_kernel",
                   "commit_hits_kernel", "commit_state_kernel")
 STREAM_CHAIN = re.compile(r"namespace\)::(" + "|".join(STREAM_KERNELS)
                           + r")[<(]")
@@ -6104,7 +6178,7 @@ STREAM_CHAIN = re.compile(r"namespace\)::(" + "|".join(STREAM_KERNELS)
 def stream_profile(torch, de, st, ss, cfg, batches, steps=5):
     """``torch.profiler`` over a few streaming DLRM steps (as
     ``telemetry_profile``): the device's busy time against the window,
-    the top kernels, K16/K13/K17's launch chain per step, and the host
+    the top kernels, K16/K17's launch chain per step, and the host
     time spent in the remap (``_streaming_remap``: the stream's
     assembly, K16, the write-back) and the commit per step."""
     from torch.autograd import DeviceType
@@ -6160,7 +6234,7 @@ def stream_profile(torch, de, st, ss, cfg, batches, steps=5):
     log("streaming profile: " + json.dumps(out))
     check(busy > 0, "streaming profile: the trace holds no device time")
     check(set(chain) == set(STREAM_KERNELS), f"streaming profile: the "
-          f"K16/K13/K17 chain is incomplete in the trace: {chain}")
+          f"K16/K17 chain is incomplete in the trace: {chain}")
     return st, ss, out
 
 
@@ -6230,11 +6304,16 @@ def stream_kernel_times(torch, de, st, ss, cfg, batches):
     """K16 (update and read-only) and K17 timed on the streaming DLRM
     step's own stream (the 5 streaming features' 327,680 positions),
     beside their plain versions, their byte bounds and a PyTorch
-    yardstick."""
+    yardstick; K16 through ``kernel_case`` (in turns with the parent's
+    wrapper, which folds with its own K13) with its records' host
+    splits."""
+    import importlib
+
     from distributed_embeddings_torch.ops import sketch as sk
-    from distributed_embeddings_torch.ops import streaming as sops
     from distributed_embeddings_torch.parallel import streaming as smod
 
+    sops = importlib.import_module("distributed_embeddings_torch.ops."
+                                   "streaming")
     streams = []
     real = smod.remap_width
 
@@ -6254,25 +6333,22 @@ def stream_kernel_times(torch, de, st, ss, cfg, batches):
     ws = smod.local_state(ss)["w128"]
     rows_cap = ws["slot_fp"].numel()
     n = streams[0].ext.numel()
-    args = [(s.ext, s.live, s.cap, s.nbuckets, s.tid, s.roff,
-             ws["slot_fp"], ws["slot_freq"]) for s in streams]
+    a0 = (streams[0].ext, streams[0].live, *(
+        getattr(streams[0], f).to(torch.int32)
+        for f in ("cap", "nbuckets", "tid", "roff")),
+        ws["slot_fp"], ws["slot_freq"])
     staged = ws["cms"].clone()
+    staged_p = ws["cms"].clone()
     pol = (cfg.admit_min_count, cfg.evict_margin)
-    ro_ms = time_ms(torch, lambda *a: sops.remap_stage(
-        *a, None, *pol, update=False), args)
-    ro_plain = time_ms(torch, lambda *a: sops.remap_stage_plain(
-        *a, None, *pol, update=False), args)
-    upd_ms = time_ms(torch, lambda *a: sops.remap_stage(*a, staged, *pol),
-                     args)
-    upd_plain = time_ms(torch, lambda *a: sops.remap_stage_plain(
-        *a, staged.clone(), *pol), args)
+    parent = parent_ops()
+    psops = parent["streaming"] if parent else None
 
-    def yardstick(ext, live, cap, nb, tid, roff, slot_fp, slot_freq):
+    def yardstick():
         # part of the function: the sketch query by gather + amin on
         # precomputed columns, and the slot-map gathers
         v = flat[cols].view(cfg.depth, -1).amin(dim=0)
-        return v, slot_fp.index_select(0, rows), slot_freq.index_select(
-            0, rows)
+        return v, ws["slot_fp"].index_select(0, rows), \
+            ws["slot_freq"].index_select(0, rows)
 
     key = sops.fingerprint_plain(streams[0].ext, streams[0].tid)
     cols = (sk.buckets_of_plain(key, cfg.depth, cfg.buckets)
@@ -6282,13 +6358,49 @@ def stream_kernel_times(torch, de, st, ss, cfg, batches):
     slot, _ = sops.slot_bucket_plain(streams[0].ext, streams[0].tid,
                                      streams[0].cap, streams[0].nbuckets)
     rows = (streams[0].roff + slot).long()
-    lib_ms = time_ms(torch, yardstick, args[:1])
     esz = streams[0].ext.element_size()
     sketch_b = 2 * cfg.depth * cfg.buckets * 4
     ro_bytes = n * (esz + 1 + 16 + 4 + 4)
     upd_bytes = n * (esz + 1 + 16 + 4 + 4 + 4 * 5) + 32 + sketch_b
+    live = int(streams[0].live.sum())
+    extra = {"positions": n, "live": live, "rows_cap": rows_cap,
+             "library": "sketch gather + amin and the slot-map gathers "
+                        "(partial)"}
+    upd = kernel_case(
+        torch, "remap_stage",
+        f"update, {n} streaming positions of the DLRM step into "
+        f"{rows_cap} slot rows (the sketch fold included)",
+        lambda: sops.remap_stage(*a0, staged, *pol),
+        (lambda: psops.remap_stage(*a0, staged_p, *pol)) if parent
+        else None, yardstick, upd_bytes,
+        plain=lambda: sops.remap_stage_plain(*a0, staged.clone(), *pol),
+        extra=dict(extra))
+    buf, _ = sops.update_outputs(n, staged.device)
+    upd["host_split_us"] = launch_host_split(
+        torch, "remap_stage update",
+        lambda: sops.remap_key(*a0, staged, *pol), sops._CACHE,
+        tuple(t.data_ptr() for t in a0) + (staged.data_ptr(),
+                                           buf.data_ptr()),
+        lambda: sops.remap_stage(*a0, staged, *pol), list(a0) + [staged],
+        extra={"outputs_us": lambda: sops.update_outputs(n, staged.device)})
+    ro = kernel_case(
+        torch, "remap_stage", f"read-only, {n} positions",
+        lambda: sops.remap_stage(*a0, None, *pol, update=False),
+        (lambda: psops.remap_stage(*a0, None, *pol, update=False))
+        if parent else None, yardstick, ro_bytes,
+        plain=lambda: sops.remap_stage_plain(*a0, None, *pol, update=False),
+        extra=dict(extra))
+    local = torch.empty(n, dtype=torch.int32, device=staged.device)
+    ro["host_split_us"] = launch_host_split(
+        torch, "remap_stage read-only",
+        lambda: sops.remap_key(*a0, None, *pol, update=False), sops._CACHE,
+        tuple(t.data_ptr() for t in a0[:7]) + (None, None,
+                                                local.data_ptr()),
+        lambda: sops.remap_stage(*a0, None, *pol, update=False),
+        list(a0[:7]))
+    del buf, local
     # K17 on the first stream's staged transitions
-    pend = sops.remap_stage(*args[0], ws["cms"].clone(), *pol)
+    pend = sops.remap_stage(*a0, ws["cms"].clone(), *pol)
     claims = int((pend.scrub_rows < rows_cap).sum())
     hits = int((pend.hit_rows < rows_cap).sum())
     slab = st.emb_params["w128"][0]
@@ -6308,18 +6420,7 @@ def stream_kernel_times(torch, de, st, ss, cfg, batches):
     commit_bytes = (n * 16 + claims * (2 * 2 * 128 * 4 + 8) + hits * 8
                     + sketch_b + 64)
     cases = {
-        "remap_stage": [dict(
-            case=f"update, {n} streaming positions of the DLRM step into "
-                 f"{rows_cap} slot rows (with its K13 fold)",
-            ms=upd_ms, plain_ms=upd_plain, library_ms=lib_ms,
-            library="sketch gather + amin and the slot-map gathers "
-                    "(partial)",
-            bound_ms=upd_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-            bytes=upd_bytes), dict(
-            case=f"read-only, {n} positions", ms=ro_ms, plain_ms=ro_plain,
-            library_ms=lib_ms, library="as above (partial)",
-            bound_ms=ro_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-            bytes=ro_bytes)],
+        "remap_stage": [upd, ro],
         "commit_rows": [dict(
             case=f"{claims} claimed rows (slab and fp32 accumulator, "
                  f"w128), {hits} hits, of {n} positions",
@@ -6327,19 +6428,124 @@ def stream_kernel_times(torch, de, st, ss, cfg, batches):
             library="none: no PyTorch call computes the guarded commit",
             bound_ms=commit_bytes / HBM_BYTES_PER_S * 1e3,
             bound_by="bytes", bytes=commit_bytes)]}
-    for name, cs in cases.items():
-        for c in cs:
-            lib = ("none" if c["library_ms"] is None
-                   else f"{c['library_ms']:.4f}")
-            log(f"time {name} {c['case']}: kernel {c['ms']:.4f} ms, plain "
-                f"{c['plain_ms']:.4f}, library {lib}, bound "
-                f"{c['bound_ms']:.5f}")
+    c = cases["commit_rows"][0]
+    log(f"time commit_rows {c['case']}: kernel {c['ms']:.4f} ms, plain "
+        f"{c['plain_ms']:.4f}, library none, bound {c['bound_ms']:.5f}")
     return cases
+
+
+def stream_stages(torch, de, holder, cfg, batches, runs=8):
+    """The streaming DLRM step's stages, with CUDA events recorded around
+    the step's own calls (the step runs whole, through whichever
+    wrappers are in place): the remap (``_streaming_remap``: the
+    stream's assembly, K16, the write-back), the rest of the forward and
+    the dense forward and backward with the guard, the sparse apply (K5
+    + K6), the commit (K17) and the dense update; median ms a step over
+    ``runs`` steps after two warmups. ``holder``: ``[state, streaming
+    state]``, advanced in place."""
+    from distributed_embeddings_torch.parallel import SparseAdagrad
+    from distributed_embeddings_torch.parallel import streaming as smod
+
+    opt = SparseAdagrad()
+    step = make_step_with(de, cfg, opt)
+    marks = []
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev))
+
+    def around(name, fn):
+        def wrapper(*a, **kw):
+            mark(f"{name}<")
+            out = fn(*a, **kw)
+            mark(f"{name}>")
+            return out
+        return wrapper
+
+    real = (de._streaming_remap, opt.apply_rows, smod.commit)
+    de._streaming_remap = around("remap", real[0])
+    opt.apply_rows = around("sparse_apply", real[1])
+    smod.commit = around("commit", real[2])
+    stage_ms = {}
+    try:
+        for k in range(2 + runs):
+            cats, batch = batches[k % len(batches)]
+            marks.clear()
+            mark("start")
+            _, holder[0], holder[1] = step(holder[0], cats, batch, holder[1])
+            mark("end")
+            torch.cuda.synchronize()
+            if k < 2:
+                continue
+            ev = dict(marks)
+            split = {
+                "remap": ev["remap<"].elapsed_time(ev["remap>"]),
+                "forward_dense_guard": ev["remap>"].elapsed_time(
+                    ev["sparse_apply<"]),
+                "sparse_apply": ev["sparse_apply<"].elapsed_time(
+                    ev["sparse_apply>"]),
+                "commit": ev["commit<"].elapsed_time(ev["commit>"]),
+                "dense_update": ev["commit>"].elapsed_time(ev["end"]),
+                "before_remap": ev["start"].elapsed_time(ev["remap<"]),
+                "between_apply_and_commit": ev["sparse_apply>"].elapsed_time(
+                    ev["commit<"]),
+                "step": ev["start"].elapsed_time(ev["end"])}
+            for name, v in split.items():
+                stage_ms.setdefault(name, []).append(v)
+    finally:
+        del de._streaming_remap
+        opt.__dict__.pop("apply_rows", None)
+        smod.commit = real[2]
+    return {n: float(np.median(v)) for n, v in stage_ms.items()}
+
+
+def stream_overhead_in_turns(torch, de, twin, holder, cfg, batches,
+                             steps=10):
+    """``streaming_overhead_frac`` through this tree's wrappers and the
+    parent's (``parent_wrappers``: K5, K6, K16 and the rest), in turns
+    change, parent, parent, change; each turn times the dynamic step and
+    the static twin's, ``steps`` steps each after two warmups (host
+    clock). Per side the medians; None without ``--parent``.
+    ``holder``: ``[state, streaming state]``, advanced in place."""
+    from distributed_embeddings_torch.parallel import SparseAdagrad
+
+    if parent_ops() is None:
+        return None
+    runs = {side: {"dynamic": [], "static": []}
+            for side in ("change", "parent")}
+    for side in ("change", "parent", "parent", "change"):
+        with (parent_wrappers() if side == "parent"
+              else contextlib.nullcontext()):
+            for label in ("dynamic", "static"):
+                dyn = label == "dynamic"
+                step = make_step_with(de if dyn else twin,
+                                      cfg if dyn else None, SparseAdagrad())
+                for k in range(2 + steps):
+                    if k == 2:
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                    cats, batch = batches[k % len(batches)]
+                    if dyn:
+                        _, holder[0], holder[1] = step(holder[0], cats,
+                                                       batch, holder[1])
+                    else:
+                        _, holder[0] = step(holder[0], cats, batch)
+                torch.cuda.synchronize()
+                runs[side][label].append(
+                    (time.perf_counter() - t0) / steps * 1e3)
+    out = {}
+    for side, r in runs.items():
+        d, s = float(np.median(r["dynamic"])), float(np.median(r["static"]))
+        out[side] = {"dynamic_step_ms": d, "static_step_ms": s,
+                     "streaming_overhead_frac": d / s - 1.0,
+                     "runs_ms": r}
+    return out
 
 
 def phase_streaming(torch):
     """Streaming vocabularies (``parallel/streaming.py``, K16 and K17 in
-    ``csrc/streaming.cu``, K13 for the admission sketch):
+    ``csrc/streaming.cu``; K16's update folds the admission sketch):
     12a. K16/K17 edge cases against their plain versions;
     12b. ``bench.py:run_streaming`` at its full size: day-k training and
          day-k+1 AUC, static against dynamic, the first steps in lockstep
@@ -6393,9 +6599,29 @@ def phase_streaming(torch):
                                                 batches)
     serve_launches, metrics["serve"] = stream_dlrm_serve(torch, de, st, ss,
                                                          cfg)
+    holder = [st, ss]
+    metrics["stage_ms_p50"] = stream_stages(torch, de, holder, cfg, batches)
+    log("streaming DLRM stages (ms): " + json.dumps(metrics["stage_ms_p50"]))
+    turns = stages_in_turns(torch, lambda: stream_stages(
+        torch, de, holder, cfg, batches))
+    if turns:
+        metrics["stages_in_turns_with_parent"] = turns
+        log("streaming DLRM stages in turns with the parent's wrappers "
+            "(ms): " + json.dumps(turns))
+    turns = stream_overhead_in_turns(torch, de, twin, holder, cfg, batches)
+    st, ss = holder
+    if turns:
+        metrics["overhead_in_turns_with_parent"] = turns
+        log("streaming_overhead_frac in turns with the parent's wrappers: "
+            + json.dumps({k: v["streaming_overhead_frac"]
+                          for k, v in turns.items()}) + " "
+            + json.dumps(turns))
     cases = stream_kernel_times(torch, de, st, ss, cfg, batches)
     cases["dedup_sparse_grad"] = dedup_case(torch, "streaming_dlrm_w128",
-                                            *k5_args)
+                                            *k5_args[:3])
+    cases["adagrad_rows"] = k6_case(torch, "streaming_dlrm_w128", (
+        st.emb_params["w128"][0], st.emb_opt_state["w128"][0],
+        *k5_args[3:]))
     del k5_args
     metrics["bench"] = bench
     metrics["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
@@ -8040,7 +8266,9 @@ def main():
             "max_abs_err": zoo_errs[name], "ms": c["ms"],
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
-            "shape": c["case"], "cases": [c]})
+            "shape": c["case"],
+            "cases": [c] + ([zoo_cases["adagrad_rows_bf16"]]
+                            if name == "adagrad_rows" else [])})
     log("zoo: " + json.dumps(zoo))
     log(f"zoo peak memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB, "
         f"{time.perf_counter() - t_start:.1f} s so far")
@@ -8169,8 +8397,8 @@ def main():
         k["max_abs_err"] = max(k["max_abs_err"],
                                st_errs.get(k["name"], 0.0))
     for k in kernels:
-        if k["name"] == "dedup_sparse_grad":
-            k["cases"].append(st_cases["dedup_sparse_grad"])
+        if k["name"] in ("dedup_sparse_grad", "adagrad_rows"):
+            k["cases"].append(st_cases[k["name"]])
     for name, repl in (
             ("remap_stage",
              "distributed_embeddings_tpu/parallel/streaming.py:265"),

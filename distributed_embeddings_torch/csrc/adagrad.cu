@@ -26,36 +26,82 @@
 // id + rows (JAX's drop mode wraps once), one still negative is
 // skipped; a negative id and its wrapped row in one stream both add to
 // the slab row (the negative one first) and the wrapped row's state
-// transition stays. K6 runs its rows in two passes for that.
+// transition stays.
 //
 // Bound: bytes. K6 reads a gradient row and an accumulator and slab row
-// and writes the two rows back per unique id; K7 streams g, acc and slab
-// once and writes acc and slab once. Design: K6 gives each unique row a
-// group of G lanes (G the width rounded up to a power of two, at most
-// 32), so a warp serves 32/G rows; K7 is a grid-stride elementwise loop.
+// and writes the two rows back per live unique id (the dedup's pad tail
+// is not its work); K7 streams g, acc and slab once and writes acc and
+// slab once.
+//
+// K6's design: the live-range walk of row_update.cuh (walk_live_rows),
+// K11's: ONE launch of persistent CTAs (kCtasPerSm a SM), each of which
+// finds the live range of the SORTED dedup output (block_bounds) and
+// walks only its share of it, a lane group a row, 16 bytes a lane a load
+// (8 for bf16) where the width and the call's pointers allow it (V = 4),
+// single elements otherwise; CTA 0 runs a negative prefix and, behind a
+// barrier, the rows the index rules order after it. The kernel is its Op
+// (AdagradOp). The first design (two launches over all U ids, pad
+// included, one element a lane a load) is timed as the parent checkout's
+// wrapper in turns with it (row_variants.py and chip_smoke.py
+// --parent). K7 is a grid-stride elementwise loop.
+//
+// Host side (K6): a launch record (ops/adagrad.py) keyed on the layouts,
+// the dtypes, eps and a constant lr holds the constants, rounded once, in
+// a prepared launch (detpu_adagrad_prepare); each call passes the slab,
+// accumulator, uids, ugrads and device-lr pointers to
+// detpu_adagrad_launch. The launch keeps no state between calls, so its
+// record replays in a CUDA graph.
 //
 // C interface (ctypes): pointers and the stream as void*, returns the
-// cudaError_t of the launches.
+// cudaError_t of the launch.
 
 #include "row_update.cuh"
+
+#include <string.h>
 
 namespace {
 
 using detpu::BF16;
 using detpu::F32;
+using detpu::ld;
+using detpu::st;
+
+constexpr int kThreads = 256;
+constexpr int kCtasPerSm = 4;
+constexpr int kRows = 1;  // rows a lane group has in flight
+
+// What a K6 record fixes: the shapes, dtypes and constants, rounded once.
+struct Consts {
+  int64_t rows;
+  int64_t u;  // the dedup output's length (its capacity)
+  int32_t width;
+  int32_t slab_dtype, acc_dtype, ids64;
+  int32_t lr_on_card;
+  int32_t sms;
+  float lr, eps;  // rounded to the accumulator dtype
+};
+
+// What a K6 call passes.
+struct Ptrs {
+  void* slab;
+  void* acc;
+  const void* uids;
+  const void* ug;
+  const float* lr_dev;
+};
 
 // One element's transition; a, g in A; returns the new accumulator and
 // writes the update (rounded to S) to *upd. lr and eps arrive rounded to
-// A for a constant lr; lr_dev (when not null) is the fp32 device lr.
+// A for a constant lr; with lr_on_card, lr is the fp32 device lr.
 template <typename TS, typename TA>
 __device__ __forceinline__ float transition(float a, float g, float lr,
-                                            const float* lr_dev, float eps,
+                                            bool lr_on_card, float eps,
                                             float* upd) {
   const float na = TA::rnd(__fadd_rn(a, TA::rnd(__fmul_rn(g, g))));
   const float r = TA::rnd(__frsqrt_rn(TA::rnd(__fadd_rn(na, eps))));
   float u;
-  if (lr_dev != nullptr) {
-    u = __fmul_rn(__fmul_rn(__ldg(lr_dev), g), r);
+  if (lr_on_card) {
+    u = __fmul_rn(__fmul_rn(lr, g), r);
   } else {
     u = TA::rnd(__fmul_rn(TA::rnd(__fmul_rn(lr, g)), r));
   }
@@ -63,32 +109,65 @@ __device__ __forceinline__ float transition(float a, float g, float lr,
   return na;
 }
 
-template <typename TS, typename TA, typename IdT>
-__global__ void __launch_bounds__(256)
-adagrad_rows_kernel(typename TS::E* __restrict__ slab,
-                    typename TA::E* __restrict__ acc, int64_t rows, int width,
-                    const IdT* __restrict__ uids, int64_t u,
-                    const typename TA::E* __restrict__ ug, float lr,
-                    const float* __restrict__ lr_dev, float eps,
-                    int group_log2, int pass) {
-  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  const int64_t s = tid >> group_log2;  // unique row
-  if (s >= u) return;
-  detpu::RowJob j;
-  if (!detpu::row_job(uids, u, s, rows, pass, &j)) return;
-  const int G = 1 << group_log2;
-  for (int c = static_cast<int>(tid & (G - 1)); c < width; c += G) {
-    const float a = TA::load(acc[j.rd * width + c]);
-    const float g = TA::load(ug[s * width + c]);
-    float upd;
-    const float na = transition<TS, TA>(a, g, lr, lr_dev, eps, &upd);
-    if (j.state) acc[j.wr * width + c] = TA::store(na);
+// K6's Op for the walk: one row chunk's loads, transition and stores.
+template <typename TS, typename TA, int V>
+struct AdagradOp {
+  static constexpr int kV = V;
+  struct Chunk {
+    float g[V], a[V], p[V];
+  };
+  typename TS::E* slab;
+  typename TA::E* acc;
+  const typename TA::E* ug;
+  int w;
+  float lr, eps;
+  bool lr_on_card;
+
+  __device__ void load(Chunk& k, int64_t src, const detpu::RowJob& j,
+                       int col) const {
+    detpu::ld_once<TA, V>(ug + src * w + col, k.g);
+    ld<TA, V>(acc + j.rd * w + col, k.a);
     if (j.slab) {
-      const float old = TS::load(slab[j.wr * width + c]);
-      slab[j.wr * width + c] = TS::store(__fsub_rn(old, upd));
+      ld<TS, V>(slab + j.wr * w + col, k.p);
+    } else {
+#pragma unroll
+      for (int e = 0; e < V; ++e) k.p[e] = 0.0f;
     }
   }
+
+  __device__ void step(Chunk& k) const {
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      float upd;
+      k.a[e] = transition<TS, TA>(k.a[e], k.g[e], lr, lr_on_card, eps,
+                                  &upd);
+      k.p[e] = __fsub_rn(k.p[e], upd);
+    }
+  }
+
+  __device__ void store(const Chunk& k, const detpu::RowJob& j,
+                        int col) const {
+    if (j.state) st<TA, V>(acc + j.wr * w + col, k.a);
+    if (j.slab) st<TS, V>(slab + j.wr * w + col, k.p);
+  }
+};
+
+// ONE launch of persistent CTAs: the live range (block_bounds), then
+// the walk (row_update.cuh) with AdagradOp.
+template <typename TS, typename TA, typename IdT, int V>
+__global__ void __launch_bounds__(kThreads, kCtasPerSm)
+adagrad_rows_kernel(const Consts c, const Ptrs q, int group_log2) {
+  const IdT* uids = static_cast<const IdT*>(q.uids);
+  int64_t neg_end, live_end;
+  detpu::block_bounds<kThreads>(uids, c.u, 0, c.rows, &neg_end, &live_end);
+  if (live_end == 0) return;
+  const AdagradOp<TS, TA, V> op{
+      static_cast<typename TS::E*>(q.slab),
+      static_cast<typename TA::E*>(q.acc),
+      static_cast<const typename TA::E*>(q.ug), c.width,
+      c.lr_on_card ? __ldg(q.lr_dev) : c.lr, c.eps, c.lr_on_card != 0};
+  detpu::walk_live_rows<kThreads, kRows>(op, uids, c.u, c.rows, c.width,
+                                         group_log2, neg_end, live_end);
 }
 
 template <typename TS, typename TA>
@@ -102,45 +181,33 @@ adagrad_dense_kernel(typename TS::E* __restrict__ slab,
        i < numel; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
     const float g = TA::load(grad[i]);
     float upd;
-    const float na = transition<TS, TA>(TA::load(acc[i]), g, lr, lr_dev,
-                                        eps, &upd);
+    const float na = transition<TS, TA>(
+        TA::load(acc[i]), g, lr_dev != nullptr ? __ldg(lr_dev) : lr,
+        lr_dev != nullptr, eps, &upd);
     acc[i] = TA::store(na);
     slab[i] = TS::store(__fsub_rn(TS::load(slab[i]), upd));
   }
 }
 
+template <typename TS, typename TA, typename IdT, int V>
+cudaError_t rows_launch_v(const Consts& c, const Ptrs& q, cudaStream_t st) {
+  const int gl = detpu::walk_group_log2(c.width, V);
+  const int64_t grid = detpu::walk_grid(c.u, gl, kThreads, kRows, c.sms,
+                                        kCtasPerSm);
+  adagrad_rows_kernel<TS, TA, IdT, V>
+      <<<static_cast<unsigned>(grid), kThreads, 0, st>>>(c, q, gl);
+  return cudaGetLastError();
+}
+
 template <typename TS, typename TA>
-cudaError_t rows_launch(void* slab, void* acc, int64_t rows, int width,
-                        const void* uids, bool ids64, int64_t u,
-                        const void* ug, float lr, const float* lr_dev,
-                        float eps, cudaStream_t st) {
-  int group_log2 = 0;
-  while ((1 << group_log2) < width && group_log2 < 5) ++group_log2;
-  const int64_t blocks = ((u << group_log2) + 255) / 256;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  auto* s = static_cast<typename TS::E*>(slab);
-  auto* a = static_cast<typename TA::E*>(acc);
-  auto* g = static_cast<const typename TA::E*>(ug);
-  // pass 0 (the negative ids, rare) gives each id one lane that walks
-  // its whole row; pass 1 a group of 2^group_log2 lanes per id
-  for (int pass = 0; pass < 2; ++pass) {
-    const int gl = pass == 0 ? 0 : group_log2;
-    const unsigned nb = static_cast<unsigned>(((u << gl) + 255) / 256);
-    if (ids64) {
-      adagrad_rows_kernel<TS, TA, int64_t>
-          <<<nb, 256, 0, st>>>(
-              s, a, rows, width, static_cast<const int64_t*>(uids), u, g,
-              lr, lr_dev, eps, gl, pass);
-    } else {
-      adagrad_rows_kernel<TS, TA, int32_t>
-          <<<nb, 256, 0, st>>>(
-              s, a, rows, width, static_cast<const int32_t*>(uids), u, g,
-              lr, lr_dev, eps, gl, pass);
-    }
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
+cudaError_t rows_launch(const Consts& c, const Ptrs& q, bool vec,
+                        cudaStream_t st) {
+  if (c.ids64) {
+    return vec ? rows_launch_v<TS, TA, int64_t, 4>(c, q, st)
+               : rows_launch_v<TS, TA, int64_t, 1>(c, q, st);
   }
-  return cudaSuccess;
+  return vec ? rows_launch_v<TS, TA, int32_t, 4>(c, q, st)
+             : rows_launch_v<TS, TA, int32_t, 1>(c, q, st);
 }
 
 template <typename TS, typename TA>
@@ -161,41 +228,73 @@ extern "C" const char* detpu_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// slab [rows, width] (slab_dtype) and acc [rows, width] (acc_dtype),
-// updated in place; uids [u] (int32, or int64 when ids_is_64; sorted,
-// each id once: the dedup's output), ugrads [u, width] in acc_dtype.
-// Dtype codes: 0 = float32, 1 = bfloat16. lr and
-// eps rounded to acc_dtype by the caller; lr_dev (nullable) an fp32 lr on
-// the card, used instead of lr.
-extern "C" int detpu_adagrad_rows(void* slab, int slab_dtype, void* acc,
-                                  int acc_dtype, int64_t rows, int width,
-                                  const void* uids, int ids_is_64, int64_t u,
-                                  const void* ugrads, float lr,
-                                  const void* lr_dev, float eps,
-                                  void* stream) {
-  if (rows <= 0 || width <= 0 || u < 0 || (slab_dtype != 0 &&
-      slab_dtype != 1) || (acc_dtype != 0 && acc_dtype != 1)) {
-    return cudaErrorInvalidValue;
-  }
-  if (u == 0) return cudaSuccess;
-  const float* l = static_cast<const float*>(lr_dev);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool i64 = ids_is_64 != 0;
-  if (slab_dtype == 0) {
-    return acc_dtype == 0
-        ? rows_launch<F32, F32>(slab, acc, rows, width, uids, i64, u, ugrads,
-                                lr, l, eps, st)
-        : rows_launch<F32, BF16>(slab, acc, rows, width, uids, i64, u,
-                                 ugrads, lr, l, eps, st);
-  }
-  return acc_dtype == 0
-      ? rows_launch<BF16, F32>(slab, acc, rows, width, uids, i64, u, ugrads,
-                               lr, l, eps, st)
-      : rows_launch<BF16, BF16>(slab, acc, rows, width, uids, i64, u, ugrads,
-                                lr, l, eps, st);
+// The bytes of a prepared K6 launch.
+extern "C" int64_t detpu_adagrad_prepared_bytes() {
+  return static_cast<int64_t>(sizeof(Consts));
 }
 
-// slab and acc [numel] (as above), grad [numel] in acc_dtype.
+// Validate a K6 record and write its prepared launch to `out`
+// (detpu_adagrad_prepared_bytes() bytes of host memory): slab [rows,
+// width] (slab_dtype) and acc [rows, width] (acc_dtype), updated in
+// place; uids [u] (int32, or int64 when ids_is_64; sorted, each id once:
+// the dedup's output), ugrads [u, width] in acc_dtype. Dtype codes: 0 =
+// float32, 1 = bfloat16. lr and eps rounded to acc_dtype by the caller;
+// lr_on_card set when each call passes a float32 lr on the card instead;
+// sms the card's SMs. Launches nothing.
+extern "C" int detpu_adagrad_prepare(int slab_dtype, int acc_dtype,
+                                     int64_t rows, int width, int ids_is_64,
+                                     int64_t u, float lr, int lr_on_card,
+                                     float eps, int sms, void* out) {
+  if (rows <= 0 || width <= 0 || u <= 0 || sms <= 0 || out == nullptr ||
+      (slab_dtype != 0 && slab_dtype != 1) ||
+      (acc_dtype != 0 && acc_dtype != 1)) {
+    return cudaErrorInvalidValue;
+  }
+  Consts* c = static_cast<Consts*>(out);
+  memset(c, 0, sizeof(Consts));
+  c->rows = rows;
+  c->u = u;
+  c->width = width;
+  c->slab_dtype = slab_dtype;
+  c->acc_dtype = acc_dtype;
+  c->ids64 = ids_is_64 != 0;
+  c->lr_on_card = lr_on_card != 0;
+  c->sms = sms;
+  c->lr = lr;
+  c->eps = eps;
+  return cudaSuccess;
+}
+
+// K6 through a prepared launch: the call's pointers (lr_dev null unless
+// the record takes a card lr). 4-element loads where the width is a
+// multiple of 4 and slab, acc and ugrads are aligned to 4 of their
+// elements.
+extern "C" int detpu_adagrad_launch(const void* prepared, void* slab,
+                                    void* acc, const void* uids,
+                                    const void* ugrads, const void* lr_dev,
+                                    void* stream) {
+  const Consts* c = static_cast<const Consts*>(prepared);
+  if (c == nullptr || slab == nullptr || acc == nullptr ||
+      uids == nullptr || ugrads == nullptr ||
+      (c->lr_on_card && lr_dev == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
+  const Ptrs q{slab, acc, uids, ugrads, static_cast<const float*>(lr_dev)};
+  const int es = c->slab_dtype == 0 ? 4 : 2, ea = c->acc_dtype == 0 ? 4 : 2;
+  const bool vec = c->width % 4 == 0 && detpu::aligned4(slab, es) &&
+                   detpu::aligned4(acc, ea) && detpu::aligned4(ugrads, ea);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (c->slab_dtype == 0) {
+    return c->acc_dtype == 0 ? rows_launch<F32, F32>(*c, q, vec, st)
+                             : rows_launch<F32, BF16>(*c, q, vec, st);
+  }
+  return c->acc_dtype == 0 ? rows_launch<BF16, F32>(*c, q, vec, st)
+                           : rows_launch<BF16, BF16>(*c, q, vec, st);
+}
+
+// K7: slab and acc [numel] (dtype codes as K6's), grad [numel] in
+// acc_dtype; lr and eps rounded to acc_dtype by the caller; lr_dev
+// (nullable) an fp32 lr on the card, used instead of lr.
 extern "C" int detpu_adagrad_dense(void* slab, int slab_dtype, void* acc,
                                    int acc_dtype, const void* grad,
                                    int64_t numel, float lr,

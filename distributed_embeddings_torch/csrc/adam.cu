@@ -40,27 +40,18 @@
 // Bound: bytes. Per live row the kernel reads the gradient row, the two
 // moment rows and the slab row and writes the three state rows back.
 //
-// Design: the uids are the dedup's SORTED output (signed order: negative
-// ids first, the ids >= rows, the pad tail and the sentinel, last), of
-// which K5's zoo streams leave ~70% pad. So nothing walks the pad: ONE
-// launch of persistent CTAs (kCtasPerSm a SM), each of which finds the
-// end of the negative prefix and the end of the live range by a
-// block-wide search (kThreads evenly spaced probes a round, 3 rounds for
-// 2.9M ids) and walks its share of the live range. The index rules'
-// order is kept inside the launch (adam_rows_kernel): CTA 0 runs the
-// negative prefix (rare: the zoo has none) and, behind a barrier, the few
-// rows the rules put after it, which every CTA skips. A lane group of G
-// lanes (G the 4-element chunks of a row rounded up to a power of two, at
-// most 32) takes kRows consecutive live rows at a time and starts all of
-// their loads (gradient rows by a streaming load: read once) before the
-// math; each lane moves 16 bytes of a float32 row (8 of a bf16 one) a
-// load where the width and this call's pointers' alignment allow it
-// (V = 4), single elements otherwise. kRows is 1: two or four rows a lane
-// group (more loads in flight a lane, more registers) measured slower at
-// the zoo's w16 (row_variants.py: the slabs' random 64-byte rows bound
-// it, not the loads in flight), as did 2 or 8 CTAs a SM and one block of
-// the live range a CTA; two launches (a one-CTA search and prefix pass,
-// then the live rows) cost ~5 us more of host and a launch gap.
+// Design: the live-range walk of row_update.cuh (walk_live_rows), which
+// K6 shares: ONE launch of persistent CTAs (kCtasPerSm a SM), each of
+// which finds the live range of the SORTED dedup output and walks only
+// its share of it; CTA 0 runs a negative prefix and the rows the index
+// rules order after it. The kernel is its Op (AdamOp: the loads, the
+// transition and the stores of one row chunk). kRows is 1: two or four
+// rows a lane group (more loads in flight a lane, more registers)
+// measured slower at the zoo's w16 (row_variants.py: the slabs' random
+// 64-byte rows bound it, not the loads in flight), as did 2 or 8 CTAs a
+// SM and one block of the live range a CTA; two launches (a one-CTA
+// search and prefix pass, then the live rows) cost ~5 us more of host
+// and a launch gap.
 //
 // Host side: a launch record (ops/adam.py) keyed on the layouts, the
 // dtypes and the hyperparameters holds the constants, rounded once, in a
@@ -111,25 +102,6 @@ struct Ptrs {
   const float* lr_dev;
 };
 
-// Streaming loads of the gradient rows (read once).
-template <typename T, int V>
-__device__ __forceinline__ void ld_once(const typename T::E* p, float* f) {
-  if constexpr (V == 4) {
-    if constexpr (sizeof(typename T::E) == 4) {
-      const float4 v = __ldcs(reinterpret_cast<const float4*>(p));
-      f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
-    } else {
-      const uint2 v = __ldcs(reinterpret_cast<const uint2*>(p));
-      f[0] = __uint_as_float(v.x << 16);
-      f[1] = __uint_as_float(v.x & 0xffff0000u);
-      f[2] = __uint_as_float(v.y << 16);
-      f[3] = __uint_as_float(v.y & 0xffff0000u);
-    }
-  } else {
-    f[0] = T::load(__ldcs(p));
-  }
-}
-
 struct Scalars {
   float c1, c2, lr;
 };
@@ -141,220 +113,88 @@ __device__ __forceinline__ Scalars scalars(const Consts& c, const Ptrs& q) {
                  c.lr_on_card ? __ldg(q.lr_dev) : c.lr};
 }
 
-// One row chunk's transition: m, n (in A) and the slab values p (in S)
-// updated in place from g.
+// K11's Op for the walk: one row chunk's loads, transition and stores.
 template <typename TS, typename TA, int V>
-__device__ __forceinline__ void transition(const Consts& c, const Scalars& s,
-                                           const float* g, float* m, float* n,
-                                           float* p) {
-#pragma unroll
-  for (int k = 0; k < V; ++k) {
-    const float mn = TA::rnd(__fadd_rn(TA::rnd(__fmul_rn(c.b1, m[k])),
-                                       TA::rnd(__fmul_rn(c.omb1, g[k]))));
-    const float g2 = TA::rnd(__fmul_rn(TA::rnd(__fmul_rn(c.omb2, g[k])),
-                                       g[k]));
-    const float nn = TA::rnd(__fadd_rn(TA::rnd(__fmul_rn(c.b2, n[k])), g2));
-    const float den = __fadd_rn(
-        __fsqrt_rn(__fadd_rn(__fdiv_rn(nn, s.c2), c.eps_root)), c.eps);
-    const float upd = __fdiv_rn(__fmul_rn(s.lr, __fdiv_rn(mn, s.c1)), den);
-    p[k] = __fsub_rn(p[k], TS::rnd(upd));
-    m[k] = mn;
-    n[k] = nn;
-  }
-}
+struct AdamOp {
+  static constexpr int kV = V;
+  struct Chunk {
+    float g[V], m[V], n[V], p[V];
+  };
+  Consts c;
+  Scalars s;
+  typename TS::E* slab;
+  typename TA::E* mu;
+  typename TA::E* nu;
+  const typename TA::E* ug;
 
-// The first indices of the sorted ids [u] holding a value >= v0 and >= v1
-// (u where none), found by the whole block: each round every thread
-// probes one of kThreads evenly spaced positions of each open range.
-template <typename IdT>
-__device__ void block_bounds(const IdT* __restrict__ ids, int64_t u,
-                             int64_t v0, int64_t v1, int64_t* a0,
-                             int64_t* a1) {
-  int64_t lo[2] = {0, 0}, hi[2] = {u, u};
-  const int64_t v[2] = {v0, v1};
-  while (lo[0] < hi[0] || lo[1] < hi[1]) {
-    int64_t step[2];
-    bool below[2];
-#pragma unroll
-    for (int k = 0; k < 2; ++k) {
-      step[k] = (hi[k] - lo[k] + kThreads - 1) / kThreads;
-      const int64_t at = lo[k] + threadIdx.x * step[k];
-      below[k] = lo[k] < hi[k] && at < hi[k] &&
-                 static_cast<int64_t>(ids[at]) < v[k];
-    }
-    const int c0 = __syncthreads_count(below[0]);
-    const int c1 = __syncthreads_count(below[1]);
-#pragma unroll
-    for (int k = 0; k < 2; ++k) {
-      const int c = k == 0 ? c0 : c1;
-      if (lo[k] >= hi[k]) continue;
-      if (c == 0) {
-        hi[k] = lo[k];
-      } else {
-        const int64_t last = lo[k] + (c - 1) * step[k];
-        lo[k] = last + 1;
-        if (last + step[k] < hi[k]) hi[k] = last + step[k];
-      }
-    }
-  }
-  *a0 = lo[0];
-  *a1 = lo[1];
-}
-
-// The first index in [lo, hi) of the sorted ids holding v, or -1.
-template <typename IdT>
-__device__ int64_t find_id(const IdT* __restrict__ ids, int64_t lo,
-                           int64_t hi, int64_t v) {
-  const int64_t end = hi;
-  while (lo < hi) {
-    const int64_t mid = (lo + hi) >> 1;
-    if (static_cast<int64_t>(ids[mid]) < v) {
-      lo = mid + 1;
+  __device__ void load(Chunk& k, int64_t src, const detpu::RowJob& j,
+                       int col) const {
+    const int w = c.width;
+    detpu::ld_once<TA, V>(ug + src * w + col, k.g);
+    ld<TA, V>(mu + j.rd * w + col, k.m);
+    ld<TA, V>(nu + j.rd * w + col, k.n);
+    if (j.slab) {
+      ld<TS, V>(slab + j.wr * w + col, k.p);
     } else {
-      hi = mid;
+#pragma unroll
+      for (int e = 0; e < V; ++e) k.p[e] = 0.0f;
     }
   }
-  return lo < end && static_cast<int64_t>(ids[lo]) == v ? lo : -1;
-}
 
-// One lane group's job: the transition of the gradient row at position
-// src, reading the state of row j.rd and writing row j.wr (the state when
-// j.state, the slab when j.slab), chunk by chunk.
-template <typename TS, typename TA, int V>
-__device__ void run_job(const Consts& c, const Scalars& s, const Ptrs& q,
-                        int64_t src, const detpu::RowJob& j, int lane,
-                        int G) {
-  const int w = c.width;
-  auto* slab = static_cast<typename TS::E*>(q.slab);
-  auto* mu = static_cast<typename TA::E*>(q.mu);
-  auto* nu = static_cast<typename TA::E*>(q.nu);
-  const auto* ug = static_cast<const typename TA::E*>(q.ug);
-  for (int col = lane * V; col < w; col += G * V) {
-    float g[V], m[V], n[V], p[V] = {};
-    ld_once<TA, V>(ug + src * w + col, g);
-    ld<TA, V>(mu + j.rd * w + col, m);
-    ld<TA, V>(nu + j.rd * w + col, n);
-    if (j.slab) ld<TS, V>(slab + j.wr * w + col, p);
-    transition<TS, TA, V>(c, s, g, m, n, p);
+  // m, n (in A) and the slab values p (in S) updated in place from g
+  __device__ void step(Chunk& k) const {
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      const float mn = TA::rnd(__fadd_rn(TA::rnd(__fmul_rn(c.b1, k.m[e])),
+                                         TA::rnd(__fmul_rn(c.omb1, k.g[e]))));
+      const float g2 = TA::rnd(__fmul_rn(TA::rnd(__fmul_rn(c.omb2, k.g[e])),
+                                         k.g[e]));
+      const float nn = TA::rnd(__fadd_rn(TA::rnd(__fmul_rn(c.b2, k.n[e])),
+                                         g2));
+      const float den = __fadd_rn(
+          __fsqrt_rn(__fadd_rn(__fdiv_rn(nn, s.c2), c.eps_root)), c.eps);
+      const float upd = __fdiv_rn(__fmul_rn(s.lr, __fdiv_rn(mn, s.c1)), den);
+      k.p[e] = __fsub_rn(k.p[e], TS::rnd(upd));
+      k.m[e] = mn;
+      k.n[e] = nn;
+    }
+  }
+
+  __device__ void store(const Chunk& k, const detpu::RowJob& j,
+                        int col) const {
+    const int w = c.width;
     if (j.state) {
-      st<TA, V>(mu + j.wr * w + col, m);
-      st<TA, V>(nu + j.wr * w + col, n);
+      st<TA, V>(mu + j.wr * w + col, k.m);
+      st<TA, V>(nu + j.wr * w + col, k.n);
     }
-    if (j.slab) st<TS, V>(slab + j.wr * w + col, p);
+    if (j.slab) st<TS, V>(slab + j.wr * w + col, k.p);
   }
-}
+};
 
-// ONE launch of persistent CTAs. Each CTA finds the end of the negative
-// prefix and of the live range (block_bounds). CTA 0 first runs the
-// prefix's rows by row_job's pass-0 rules (each reads row 0 as it was),
-// then, behind a barrier, every row those rules order after them: live
-// row 0, each live row R - k whose -k is in the prefix (both deltas land
-// on it, -k's first; its own state transition stays), and -rows's state
-// transition onto row 0 where 0 is not in the stream (row_job's pass-1
-// case). Every CTA walks the live range, kRows rows a lane group at a
-// time, skipping those deferred rows: each other row is its own
-// read-modify-write. Without a negative prefix (the zoo's streams) no row
-// is deferred and no CTA waits.
+// ONE launch of persistent CTAs: the live range (block_bounds), then
+// the walk (row_update.cuh) with AdamOp.
 template <typename TS, typename TA, typename IdT, int V>
 __global__ void __launch_bounds__(kThreads, kCtasPerSm)
 adam_rows_kernel(const Consts c, const Ptrs q, int group_log2) {
   const IdT* uids = static_cast<const IdT*>(q.uids);
   int64_t neg_end, live_end;
-  block_bounds(uids, c.u, 0, c.rows, &neg_end, &live_end);
+  detpu::block_bounds<kThreads>(uids, c.u, 0, c.rows, &neg_end, &live_end);
   if (live_end == 0) return;
-  const Scalars s = scalars(c, q);
-  const int G = 1 << group_log2;
-  const int lane = static_cast<int>(threadIdx.x) & (G - 1);
-  const int64_t lgroup = threadIdx.x >> group_log2;
-  const int64_t lgroups = kThreads >> group_log2;
-  const bool neg = neg_end > 0;
-  const bool has0 = neg_end < live_end && uids[neg_end] == 0;
-  if (neg && blockIdx.x == 0) {
-    for (int64_t r = lgroup; r < neg_end; r += lgroups) {
-      detpu::RowJob j;
-      if (detpu::row_job(uids, c.u, r, c.rows, 0, &j)) {
-        run_job<TS, TA, V>(c, s, q, r, j, lane, G);
-      }
-    }
-    __syncthreads();
-    // item r < neg_end: what prefix id r orders after it; item neg_end:
-    // live row 0
-    for (int64_t r = lgroup; r <= neg_end; r += lgroups) {
-      int64_t src = r;
-      detpu::RowJob j{0, 0, true, true};
-      if (r == neg_end) {
-        if (!has0) continue;
-      } else {
-        const int64_t wr = static_cast<int64_t>(uids[r]) + c.rows;
-        if (wr < 0 || (wr == 0 && has0)) continue;
-        if (wr == 0) {
-          j.slab = false;  // -rows's state transition onto row 0
-        } else {
-          src = find_id(uids, neg_end, live_end, wr);
-          if (src < 0) continue;
-          j = detpu::RowJob{wr, wr, true, true};
-        }
-      }
-      run_job<TS, TA, V>(c, s, q, src, j, lane, G);
-    }
-  }
-  auto* slab = static_cast<typename TS::E*>(q.slab);
-  auto* mu = static_cast<typename TA::E*>(q.mu);
-  auto* nu = static_cast<typename TA::E*>(q.nu);
-  const auto* ug = static_cast<const typename TA::E*>(q.ug);
-  const int w = c.width;
-  const int64_t group = blockIdx.x * lgroups + lgroup;
-  const int64_t groups = gridDim.x * lgroups;
-  for (int64_t v0 = neg_end + group * kRows; v0 < live_end;
-       v0 += groups * kRows) {
-    int64_t row[kRows];
-    bool live[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int64_t v = v0 + r;
-      live[r] = v < live_end;
-      row[r] = live[r] ? static_cast<int64_t>(uids[v]) : 0;
-      if (live[r] && neg &&
-          (row[r] == 0 || detpu::sorted_has(uids, neg_end, row[r] - c.rows))) {
-        live[r] = false;  // CTA 0's, behind the prefix
-      }
-    }
-    for (int col = lane * V; col < w; col += G * V) {
-      float g[kRows][V], m[kRows][V], n[kRows][V], p[kRows][V];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        if (!live[r]) continue;
-        ld_once<TA, V>(ug + (v0 + r) * w + col, g[r]);
-        ld<TA, V>(mu + row[r] * w + col, m[r]);
-        ld<TA, V>(nu + row[r] * w + col, n[r]);
-        ld<TS, V>(slab + row[r] * w + col, p[r]);
-      }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        if (!live[r]) continue;
-        transition<TS, TA, V>(c, s, g[r], m[r], n[r], p[r]);
-        st<TA, V>(mu + row[r] * w + col, m[r]);
-        st<TA, V>(nu + row[r] * w + col, n[r]);
-        st<TS, V>(slab + row[r] * w + col, p[r]);
-      }
-    }
-  }
+  const AdamOp<TS, TA, V> op{
+      c, scalars(c, q), static_cast<typename TS::E*>(q.slab),
+      static_cast<typename TA::E*>(q.mu), static_cast<typename TA::E*>(q.nu),
+      static_cast<const typename TA::E*>(q.ug)};
+  detpu::walk_live_rows<kThreads, kRows>(op, uids, c.u, c.rows, c.width,
+                                         group_log2, neg_end, live_end);
 }
 
 template <typename TS, typename TA, typename IdT, int V>
 cudaError_t launch_v(const Consts& c, const Ptrs& q, cudaStream_t st) {
-  int group_log2 = 0;
-  const int chunks = (c.width + V - 1) / V;
-  while ((1 << group_log2) < chunks && group_log2 < 5) ++group_log2;
-  // every lane group of the grid takes kRows rows a round; no more CTAs
-  // than the whole output's rows fill, nor than kCtasPerSm a SM
-  const int64_t per_cta = static_cast<int64_t>(kThreads >> group_log2) *
-                          kRows;
-  int64_t grid = (c.u + per_cta - 1) / per_cta;
-  const int64_t most = static_cast<int64_t>(c.sms) * kCtasPerSm;
-  if (grid > most) grid = most;
+  const int gl = detpu::walk_group_log2(c.width, V);
+  const int64_t grid = detpu::walk_grid(c.u, gl, kThreads, kRows, c.sms,
+                                        kCtasPerSm);
   adam_rows_kernel<TS, TA, IdT, V>
-      <<<static_cast<unsigned>(grid), kThreads, 0, st>>>(c, q, group_log2);
+      <<<static_cast<unsigned>(grid), kThreads, 0, st>>>(c, q, gl);
   return cudaGetLastError();
 }
 
@@ -367,10 +207,6 @@ cudaError_t launch(const Consts& c, const Ptrs& q, bool vec,
   }
   return vec ? launch_v<TS, TA, int32_t, 4>(c, q, st)
              : launch_v<TS, TA, int32_t, 1>(c, q, st);
-}
-
-bool aligned(const void* p, int esize) {
-  return reinterpret_cast<uintptr_t>(p) % (4 * esize) == 0;
 }
 
 }  // namespace
@@ -443,8 +279,9 @@ extern "C" int detpu_adam_launch(const void* prepared, void* slab, void* mu,
   const Ptrs q{slab, mu, nu, uids, ugrads, static_cast<const float*>(count),
                static_cast<const float*>(lr_dev)};
   const int es = c->slab_dtype == 0 ? 4 : 2, ea = c->mom_dtype == 0 ? 4 : 2;
-  const bool vec = c->width % 4 == 0 && aligned(slab, es) &&
-                   aligned(mu, ea) && aligned(nu, ea) && aligned(ugrads, ea);
+  const bool vec = c->width % 4 == 0 && detpu::aligned4(slab, es) &&
+                   detpu::aligned4(mu, ea) && detpu::aligned4(nu, ea) &&
+                   detpu::aligned4(ugrads, ea);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (c->slab_dtype == 0) {
     return c->mom_dtype == 0 ? launch<F32, F32>(*c, q, vec, st)

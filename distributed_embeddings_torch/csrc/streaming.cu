@@ -13,13 +13,14 @@
 //   fp = mix(H_FP) >> 1 (31 bits, also the admission sketch's key);
 //   slot = mix(H_SLOT) % max(cap, 1), bucket = mix(H_BUCKET) % max(nb, 1);
 //   row = roff + slot, occ = slot_fp[live ? row : 0];
-//   hit = live && occ == fp; local = hit ? slot : cap + bucket.
-// detpu_stream_hash writes local (ext's low word where not live) and, for
-// the update, fp, the live mask, a flag byte and the row. The wrapper
-// (ops/streaming.py) then folds fp into the STAGED copy of the sketch
-// with K13 (ops/sketch.py:cms_update) and detpu_stream_stage finishes:
-//   est = the count-min estimate of fp in the staged sketch (K14's query,
-//     fused);
+//   hit = live && occ == fp; local = hit ? slot : cap + bucket
+// (local_rows holds ext's low word where not live). A read-only remap
+// (an eval step, a serving flush) stops there: one launch of
+// stream_lookup_kernel. The update then folds each live fp into the
+// STAGED copy of the sketch (K13's integer adds: the same words as
+// ops/sketch.py:cms_update) and finishes:
+//   est = the count-min estimate of fp in the staged sketch (K14's
+//     query);
 //   claim = live && !hit && est >= admit_min_count
 //           && (occ == SLOT_FREE || est >= slot_freq[row] + evict_margin);
 //   one winner per claimed row, the lexicographic max of (est, fp, pos):
@@ -33,6 +34,30 @@
 //   bucket_ids = live && !hit, hit_ids) exact in int64.
 // JAX resolves the winner with three rows_cap-long max-scatters filled
 // with -1 every step; the results are the same values.
+//
+// K16's update design: ONE launch of persistent CTAs (no more than the
+// card holds at once: the record reads the occupancy when it is built)
+// in four phases behind grid-wide barriers (stream_remap_kernel):
+//   1. hash each position, read the slot map, write local_rows and fp,
+//      fold each live fp into the staged sketch (a warp merges its lanes
+//      that hit one word, as K13 does); CTA 0 zeroes the counts;
+//   2. estimate each position from the folded sketch, decide the claims,
+//      take the 64-bit atomicMax of their keys;
+//   3. take the position atomicMax among the claims holding their row's
+//      best key;
+//   4. write est-derived outputs (scrub_rows, hit_rows), reset the
+//      touched best_key/best_pos entries, and add the counts (reduced in
+//      the CTA, then one atomic each).
+// A thread keeps its first kHold positions' fp, row, estimate and flags
+// in registers across the phases; past kHold positions a thread (a
+// stream longer than kHold x the grid's threads) the row and flags go
+// to a scratch the record owns. The barriers are a cooperative launch's
+// grid.sync(): it measured ~7 us a call faster than a plain launch with a
+// never-reset ticket barrier (as K21's ticket; stream_variants.py's
+// "ticket"), replays in a CUDA graph as that does, and refuses a grid
+// that cannot be resident at once. The launch leaves nothing to reset. The
+// one launch replaces six device operations (the hash, K13's fold and
+// its count buffer, a memset, three kernels) and their host work.
 //
 // K17 replaces the scatters of streaming.py:commit (:366-462), gated by
 // the device verdict `enable` (never read on the host; null = commit):
@@ -60,6 +85,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
+
+#include <cooperative_groups.h>
 
 namespace {
 
@@ -123,141 +151,308 @@ __device__ __forceinline__ unsigned long long claim_key(int est, int fp) {
 
 // ------------------------------------------------------------------ K16
 
-__global__ void __launch_bounds__(kThreads)
-stream_hash_kernel(const void* __restrict__ ext, int is64,
-                   const uint8_t* __restrict__ live,
-                   const int* __restrict__ cap, const int* __restrict__ nb,
-                   const int* __restrict__ tid,
-                   const int* __restrict__ roff,
-                   const int* __restrict__ slot_fp, int64_t n,
-                   int* __restrict__ local_rows, int* __restrict__ key,
-                   uint8_t* __restrict__ live_out,
-                   uint8_t* __restrict__ flags, int* __restrict__ rowc) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-  if (i >= n) return;
-  long long x;
-  uint32_t u;
-  if (is64) {
-    x = static_cast<const long long*>(ext)[i];
-    u = static_cast<uint32_t>(static_cast<unsigned long long>(x ^ (x >> 32)));
-  } else {
-    x = static_cast<const int*>(ext)[i];
-    u = static_cast<uint32_t>(x);
-  }
-  const bool lv = live[i] != 0 && x >= 0;
-  const uint32_t salt = static_cast<uint32_t>(tid[i]) * kHSalt;
+constexpr int kRemapThreads = 256;
+constexpr int kRemapCtasPerSm = 4;  // at most, as the occupancy allows
+constexpr int kHold = 4;            // positions a thread keeps in registers
+
+// What a K16 record fixes.
+struct RemapConsts {
+  int64_t n;
+  int64_t n4;  // an int32 output's stride in the call's allocation
+  int32_t update, ids64, rows_cap, depth, buckets, admit, margin, grid;
+  unsigned long long* best_key;  // [rows_cap], all 0 between launches
+  int* best_pos;                 // [rows_cap], all -1 between launches
+  int* rowc;                     // [n] past kHold a thread, else null
+  uint8_t* flags;                // [n] likewise
+};
+
+// What a K16 call passes.
+struct RemapPtrs {
+  const void* ext;
+  const uint8_t* live;
+  const int* cap;
+  const int* nb;
+  const int* tid;
+  const int* roff;
+  const int* slot_fp;
+  const int* slot_freq;
+  int* cms;
+  int* local_rows;
+  int* fp;
+  int* est;
+  int* scrub_rows;
+  int* hit_rows;
+  unsigned long long* counts;
+};
+
+// One position's state across the phases (est holds local_rows's value
+// until phase 2).
+struct Pos {
+  int fp, row, est;
+  uint8_t flags;
+};
+
+// Phase 1's hash of position i (loads only): fp, the row read (row when
+// live, else 0), the flags, and in est the row it reads (local_rows).
+template <typename IdT>
+__device__ __forceinline__ Pos hash_pos(const RemapPtrs& q, int64_t i) {
+  const long long x = static_cast<const IdT*>(q.ext)[i];
+  const uint32_t u = sizeof(IdT) == 8
+      ? static_cast<uint32_t>(static_cast<unsigned long long>(x ^ (x >> 32)))
+      : static_cast<uint32_t>(x);
+  const bool lv = q.live[i] != 0 && x >= 0;
+  const uint32_t salt = static_cast<uint32_t>(q.tid[i]) * kHSalt;
   const int fp = static_cast<int>(mix(u, salt, kHFp) >> 1);
-  const int c = cap[i];
-  const int b = nb[i];
+  const int c = q.cap[i];
+  const int b = q.nb[i];
   const uint32_t cs = static_cast<uint32_t>(c > 1 ? c : 1);
   const uint32_t bs = static_cast<uint32_t>(b > 1 ? b : 1);
   const int slot = static_cast<int>(mix(u, salt, kHSlot) % cs);
   const int bucket = static_cast<int>(mix(u, salt, kHBucket) % bs);
-  const int row = static_cast<int>(static_cast<uint32_t>(roff[i]) +
+  const int row = static_cast<int>(static_cast<uint32_t>(q.roff[i]) +
                                    static_cast<uint32_t>(slot));
   const int r = lv ? row : 0;
-  const int occ = slot_fp[r];
+  const int occ = q.slot_fp[r];
   const bool hit = lv && occ == fp;
   const int local = hit ? slot : static_cast<int>(static_cast<uint32_t>(c) +
                                                   static_cast<uint32_t>(bucket));
-  local_rows[i] = lv ? local : static_cast<int>(static_cast<uint32_t>(
-                                   static_cast<unsigned long long>(x)));
-  if (key != nullptr) {
-    key[i] = fp;
-    live_out[i] = lv ? 1 : 0;
-    flags[i] = static_cast<uint8_t>((lv ? kLive : 0) | (hit ? kHit : 0) |
-                                    (occ == kSlotFree ? kFree : 0));
-    rowc[i] = r;
+  return Pos{fp, r,
+             lv ? local : static_cast<int>(static_cast<uint32_t>(
+                              static_cast<unsigned long long>(x))),
+             static_cast<uint8_t>((lv ? kLive : 0) | (hit ? kHit : 0) |
+                                  (occ == kSlotFree ? kFree : 0))};
+}
+
+// The read-only remap: local_rows only, one thread a position.
+template <typename IdT>
+__global__ void __launch_bounds__(kThreads)
+stream_lookup_kernel(const RemapPtrs q, int64_t n) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (i < n) q.local_rows[i] = hash_pos<IdT>(q, i).est;
+}
+
+// The grid-wide barrier of the cooperative launch.
+__device__ __forceinline__ void grid_barrier() {
+  cooperative_groups::this_grid().sync();
+}
+
+// Phase 1's fold of a warp's live fingerprints into the staged sketch:
+// the lanes that hit one word add their count once (every lane of the
+// warp calls it).
+__device__ __forceinline__ void fold(int* cms, int depth, int buckets,
+                                     bool ok, int fp) {
+  const unsigned mask = __ballot_sync(0xffffffffu, ok);
+  if (!ok) return;
+  const int lane = threadIdx.x & 31;
+  for (int d = 0; d < depth; ++d) {
+    const uint32_t col = column(static_cast<uint32_t>(fp), d,
+                                static_cast<uint32_t>(buckets));
+    const unsigned peers = __match_any_sync(mask, col);
+    if (lane == __ffs(peers) - 1) {
+      atomicAdd(cms + static_cast<int64_t>(d) * buckets + col,
+                __popc(peers));
+    }
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-stream_claim_kernel(const int* __restrict__ cms, int depth, int buckets,
-                    const int* __restrict__ key,
-                    const int* __restrict__ rowc,
-                    const int* __restrict__ slot_freq, int admit,
-                    int margin, int64_t n, int* __restrict__ est,
-                    uint8_t* __restrict__ flags,
-                    unsigned long long* __restrict__ best_key) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-  if (i >= n) return;
-  const int k = key[i];
-  const int e = query(cms, depth, buckets, k);
-  est[i] = e;
-  const uint8_t f = flags[i];
-  if ((f & kLive) && !(f & kHit) && e >= admit) {
-    const int r = rowc[i];
+// Phase 2's estimate of a fingerprint in the folded sketch (read past the
+// L1: other SMs' adds).
+__device__ __forceinline__ int estimate(const RemapConsts& c,
+                                        const RemapPtrs& q, int fp) {
+  const uint32_t key = static_cast<uint32_t>(fp);
+  int e = 0x7fffffff;
+  for (int d = 0; d < c.depth; ++d) {
+    const int v = __ldcg(q.cms + static_cast<int64_t>(d) * c.buckets +
+                         column(key, d, static_cast<uint32_t>(c.buckets)));
+    e = v < e ? v : e;
+  }
+  return e;
+}
+
+// Phase 2 for one position whose estimate p.est is known: its claim.
+__device__ __forceinline__ void claim_pos(const RemapConsts& c,
+                                          const RemapPtrs& q, int64_t i,
+                                          Pos& p) {
+  const int e = p.est;
+  q.est[i] = e;
+  if ((p.flags & kLive) && !(p.flags & kHit) && e >= c.admit) {
     // int32 wrap, as JAX's slot_freq + evict_margin
-    const int thr = static_cast<int>(static_cast<uint32_t>(slot_freq[r]) +
-                                     static_cast<uint32_t>(margin));
-    if ((f & kFree) || e >= thr) {
-      flags[i] = f | kClaim;
-      atomicMax(best_key + r, claim_key(e, k));
+    const int thr = static_cast<int>(
+        static_cast<uint32_t>(q.slot_freq[p.row]) +
+        static_cast<uint32_t>(c.margin));
+    if ((p.flags & kFree) || e >= thr) {
+      p.flags |= kClaim;
+      atomicMax(c.best_key + p.row, claim_key(e, p.fp));
     }
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-stream_claim_pos_kernel(const int* __restrict__ key,
-                        const int* __restrict__ est,
-                        const uint8_t* __restrict__ flags,
-                        const int* __restrict__ rowc,
-                        const unsigned long long* __restrict__ best_key,
-                        int* __restrict__ best_pos, int64_t n) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-  if (i >= n || !(flags[i] & kClaim)) return;
-  const int r = rowc[i];
-  if (best_key[r] == claim_key(est[i], key[i])) {
-    atomicMax(best_pos + r, static_cast<int>(i));
+// Phase 3 for one position: the claims holding their row's best key
+// take the position max.
+__device__ __forceinline__ void claim_best(const RemapConsts& c, int64_t i,
+                                           const Pos& p) {
+  if ((p.flags & kClaim) &&
+      __ldcg(c.best_key + p.row) == claim_key(p.est, p.fp)) {
+    atomicMax(c.best_pos + p.row, static_cast<int>(i));
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-stream_outputs_kernel(const uint8_t* __restrict__ flags,
-                      const int* __restrict__ rowc,
-                      unsigned long long* __restrict__ best_key,
-                      int* __restrict__ best_pos, int64_t n, int rows_cap,
-                      int* __restrict__ scrub_rows,
-                      int* __restrict__ hit_rows,
-                      unsigned long long* __restrict__ counts) {
-  __shared__ unsigned warp_sums[4][kThreads / 32];
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-  unsigned c[4] = {0u, 0u, 0u, 0u};
-  if (i < n) {
-    const uint8_t f = flags[i];
-    const int r = rowc[i];
-    // only the winner reads its own position here: a loser reads the
-    // winner's position or the reset -1, neither of which is its own
-    const bool scrub = (f & kClaim) && best_pos[r] == static_cast<int>(i);
-    if (scrub) {
-      best_key[r] = 0ull;
-      best_pos[r] = -1;
-    }
-    const bool hit = (f & kHit) != 0;
-    scrub_rows[i] = scrub ? r : rows_cap;
-    hit_rows[i] = hit ? r : rows_cap;
-    c[0] = scrub;
-    c[1] = scrub && !(f & kFree);
-    c[2] = (f & kLive) && !hit;
-    c[3] = hit;
+// Phase 4 for one position: its outputs, the winner's reset of the
+// scratch entries, and its share of the counts.
+__device__ __forceinline__ void finish_pos(const RemapConsts& c,
+                                           const RemapPtrs& q, int64_t i,
+                                           const Pos& p, unsigned* cnt) {
+  // only the winner reads its own position here: a loser reads the
+  // winner's position or the reset -1, neither of which is its own
+  const bool scrub = (p.flags & kClaim) &&
+                     __ldcg(c.best_pos + p.row) == static_cast<int>(i);
+  if (scrub) {
+    c.best_key[p.row] = 0ull;
+    c.best_pos[p.row] = -1;
   }
+  const bool hit = (p.flags & kHit) != 0;
+  q.scrub_rows[i] = scrub ? p.row : c.rows_cap;
+  q.hit_rows[i] = hit ? p.row : c.rows_cap;
+  cnt[0] += scrub;
+  cnt[1] += scrub && !(p.flags & kFree);
+  cnt[2] += (p.flags & kLive) && !hit;
+  cnt[3] += hit;
+}
+
+// A position past kHold a thread: its state in the record's scratch (fp
+// and est in the call's own outputs).
+__device__ __forceinline__ Pos load_pos(const RemapConsts& c,
+                                        const RemapPtrs& q, int64_t i) {
+  return Pos{q.fp[i], c.rowc[i], q.est[i], c.flags[i]};
+}
+
+__device__ __forceinline__ void keep_pos(const RemapConsts& c, int64_t i,
+                                         const Pos& p) {
+  c.rowc[i] = p.row;
+  c.flags[i] = p.flags;
+}
+
+// K16's update: ONE launch of persistent CTAs, four phases, three
+// grid-wide barriers (see the header). Position i = t + k * T (t the
+// thread's rank in the grid, T the grid's threads): k < kHold in
+// registers, the rest through the scratch; every loop's bound is uniform
+// over a block, so the fold's warps run whole. Each phase starts all its
+// held positions' loads before their stores and atomics, so their
+// latencies overlap.
+template <typename IdT>
+__global__ void __launch_bounds__(kRemapThreads, kRemapCtasPerSm)
+stream_remap_kernel(const RemapConsts c, const RemapPtrs q) {
+  const int64_t T = static_cast<int64_t>(gridDim.x) * kRemapThreads;
+  const int64_t t0 = static_cast<int64_t>(blockIdx.x) * kRemapThreads;
+  const int64_t n = c.n;
+  Pos reg[kHold] = {};
+  // 1. hash, slot map, fold
+  if (blockIdx.x == 0 && threadIdx.x < 4) q.counts[threadIdx.x] = 0ull;
+#pragma unroll
+  for (int k = 0; k < kHold; ++k) {
+    const int64_t i = t0 + k * T + threadIdx.x;
+    if (i < n) reg[k] = hash_pos<IdT>(q, i);
+  }
+#pragma unroll
+  for (int k = 0; k < kHold; ++k) {
+    const int64_t i = t0 + k * T + threadIdx.x;
+    if (i < n) {
+      q.local_rows[i] = reg[k].est;
+      q.fp[i] = reg[k].fp;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kHold; ++k) {
+    const int64_t i = t0 + k * T + threadIdx.x;
+    if (t0 + k * T < n) {
+      fold(q.cms, c.depth, c.buckets, i < n && (reg[k].flags & kLive),
+           reg[k].fp);
+    }
+  }
+  for (int64_t b0 = t0 + kHold * T; b0 < n; b0 += T) {
+    const int64_t i = b0 + threadIdx.x;
+    Pos p{};
+    if (i < n) {
+      p = hash_pos<IdT>(q, i);
+      q.local_rows[i] = p.est;
+      q.fp[i] = p.fp;
+      keep_pos(c, i, p);
+    }
+    fold(q.cms, c.depth, c.buckets, i < n && (p.flags & kLive), p.fp);
+  }
+  grid_barrier();
+  // 2. estimates and claims
+#pragma unroll
+  for (int k = 0; k < kHold; ++k) {
+    const int64_t i = t0 + k * T + threadIdx.x;
+    if (i < n) reg[k].est = estimate(c, q, reg[k].fp);
+  }
+#pragma unroll
+  for (int k = 0; k < kHold; ++k) {
+    const int64_t i = t0 + k * T + threadIdx.x;
+    if (i < n) claim_pos(c, q, i, reg[k]);
+  }
+  for (int64_t i = t0 + kHold * T + threadIdx.x; i < n; i += T) {
+    Pos p = load_pos(c, q, i);
+    p.est = estimate(c, q, p.fp);
+    claim_pos(c, q, i, p);
+    keep_pos(c, i, p);
+  }
+  grid_barrier();
+  // 3. the position max among the best keys
+#pragma unroll
+  for (int k = 0; k < kHold; ++k) {
+    const int64_t i = t0 + k * T + threadIdx.x;
+    if (i < n) claim_best(c, i, reg[k]);
+  }
+  for (int64_t i = t0 + kHold * T + threadIdx.x; i < n; i += T) {
+    claim_best(c, i, load_pos(c, q, i));
+  }
+  grid_barrier();
+  // 4. outputs, resets, counts
+  unsigned cnt[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int k = 0; k < kHold; ++k) {
+    const int64_t i = t0 + k * T + threadIdx.x;
+    if (i < n) finish_pos(c, q, i, reg[k], cnt);
+  }
+  for (int64_t i = t0 + kHold * T + threadIdx.x; i < n; i += T) {
+    finish_pos(c, q, i, load_pos(c, q, i), cnt);
+  }
+  __shared__ unsigned warp_sums[4][kRemapThreads / 32];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
-    const unsigned s = __reduce_add_sync(0xffffffffu, c[k]);
+    const unsigned s = __reduce_add_sync(0xffffffffu, cnt[k]);
     if (lane == 0) warp_sums[k][warp] = s;
   }
   __syncthreads();
   if (threadIdx.x < 4) {
     unsigned long long s = 0;
-    for (int w = 0; w < kThreads / 32; ++w) s += warp_sums[threadIdx.x][w];
-    if (s) atomicAdd(counts + threadIdx.x, s);
+    for (int w = 0; w < kRemapThreads / 32; ++w) {
+      s += warp_sums[threadIdx.x][w];
+    }
+    if (s) atomicAdd(q.counts + threadIdx.x, s);
   }
+}
+
+// The CTAs of an update launch over n positions: no more than the card
+// holds at once (kRemapCtasPerSm a SM at most), nor than n fills; 0 on
+// an error.
+int remap_grid(int ids64, int64_t n, int sms) {
+  int per_sm = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm,
+      ids64 ? stream_remap_kernel<long long> : stream_remap_kernel<int>,
+      kRemapThreads, 0);
+  if (e != cudaSuccess || per_sm <= 0) return 0;
+  if (per_sm > kRemapCtasPerSm) per_sm = kRemapCtasPerSm;
+  int64_t g = (n + kRemapThreads - 1) / kRemapThreads;
+  const int64_t most = static_cast<int64_t>(sms) * per_sm;
+  if (g > most) g = most;
+  return static_cast<int>(g < 1 ? 1 : g);
 }
 
 // ------------------------------------------------------------------ K17
@@ -375,65 +570,129 @@ extern "C" const char* detpu_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// K16's first half. ext [n] int32 (ext_is_64 = 0) or int64, live [n]
-// bool, cap/nb/tid/roff [n] int32, slot_fp [rows_cap] int32; writes
-// local_rows [n] int32 and, when key is not null, key [n] int32,
-// live_out [n] bool, flags [n] uint8 and rowc [n] int32.
-extern "C" int detpu_stream_hash(const void* ext, int ext_is_64,
-                                 const void* live, const void* cap,
-                                 const void* nb, const void* tid,
-                                 const void* roff, const void* slot_fp,
-                                 int64_t n, void* local_rows, void* key,
-                                 void* live_out, void* flags, void* rowc,
-                                 void* stream) {
-  if (n < 0) return cudaErrorInvalidValue;
-  if (n == 0) return cudaSuccess;
-  stream_hash_kernel<<<grid(n), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      ext, ext_is_64, static_cast<const uint8_t*>(live),
-      static_cast<const int*>(cap), static_cast<const int*>(nb),
-      static_cast<const int*>(tid), static_cast<const int*>(roff),
-      static_cast<const int*>(slot_fp), n, static_cast<int*>(local_rows),
-      static_cast<int*>(key), static_cast<uint8_t*>(live_out),
-      static_cast<uint8_t*>(flags), static_cast<int*>(rowc));
-  return cudaGetLastError();
+// The bytes of a prepared K16 launch.
+extern "C" int64_t detpu_stream_remap_prepared_bytes() {
+  return static_cast<int64_t>(sizeof(RemapConsts));
 }
 
-// K16's second half, after K13 folded key/live_out into the staged
-// sketch cms [depth, buckets]: est [n], the claim resolution through
+// The bytes of card scratch a K16 update record owns: when n passes
+// kHold positions a thread of the grid, the rows and flags of the
+// positions past them; else 0. -1 when the kernel has no launch
+// configuration.
+extern "C" int64_t detpu_stream_remap_scratch_bytes(int ids_is_64, int64_t n,
+                                                    int sms) {
+  const int g = remap_grid(ids_is_64, n, sms);
+  if (g <= 0) return -1;
+  const int64_t held = static_cast<int64_t>(g) * kRemapThreads * kHold;
+  return n > held ? n * 5 : 0;
+}
+
+// Validate a K16 record and write its prepared launch to `out`
+// (detpu_stream_remap_prepared_bytes() bytes of host memory). update: 1
+// for the update (the sketch fold and the staged claims), 0 for the
+// read-only remap (local_rows alone). ext [n] int32 (ids_is_64 = 0) or
+// int64; rows_cap the slot map's rows; depth x buckets the sketch;
 // best_key [rows_cap] uint64 (all 0) and best_pos [rows_cap] int32 (all
-// -1), left as found; scrub_rows and hit_rows [n] int32; counts [4]
-// int64 (zeroed here).
-extern "C" int detpu_stream_stage(const void* cms, int depth, int buckets,
-                                  const void* key, void* flags,
-                                  const void* rowc, const void* slot_freq,
-                                  int admit, int margin, int64_t n,
-                                  int rows_cap, void* best_key,
-                                  void* best_pos, void* est,
-                                  void* scrub_rows, void* hit_rows,
-                                  void* counts, void* stream) {
-  if (n < 0 || depth <= 0 || buckets <= 0 || rows_cap <= 0) {
+// -1), left as found by every launch; scratch
+// (detpu_stream_remap_scratch_bytes of it, or null for none); n4 the
+// stride of the
+// call allocation's int32 outputs. The update's grid (the occupancy,
+// sms) is fixed here. Launches nothing.
+extern "C" int detpu_stream_remap_prepare(int update, int ids_is_64,
+                                          int64_t n, int64_t n4,
+                                          int rows_cap, int depth,
+                                          int buckets, int admit,
+                                          int margin, int sms,
+                                          void* best_key, void* best_pos,
+                                          void* scratch, void* out) {
+  if (n < 0 || n >= (1ll << 31) || n4 < n || rows_cap <= 0 || sms <= 0 ||
+      out == nullptr ||
+      (update && (depth <= 0 || buckets <= 0 || best_key == nullptr ||
+                  best_pos == nullptr))) {
+    return cudaErrorInvalidValue;
+  }
+  RemapConsts* c = static_cast<RemapConsts*>(out);
+  memset(c, 0, sizeof(RemapConsts));
+  c->n = n;
+  c->n4 = n4;
+  c->update = update != 0;
+  c->ids64 = ids_is_64 != 0;
+  c->rows_cap = rows_cap;
+  c->depth = depth;
+  c->buckets = buckets;
+  c->admit = admit;
+  c->margin = margin;
+  if (update) {
+    c->grid = remap_grid(ids_is_64, n, sms);
+    if (c->grid <= 0) return cudaErrorInvalidConfiguration;
+    c->best_key = static_cast<unsigned long long*>(best_key);
+    c->best_pos = static_cast<int*>(best_pos);
+    const int64_t held =
+        static_cast<int64_t>(c->grid) * kRemapThreads * kHold;
+    if (n > held) {
+      if (scratch == nullptr) return cudaErrorInvalidValue;
+      c->rowc = static_cast<int*>(scratch);
+      c->flags = static_cast<uint8_t*>(scratch) + n * 4;
+    }
+  }
+  return cudaSuccess;
+}
+
+// K16 through a prepared launch. ext, live [n] bool, cap/nb/tid/roff [n]
+// int32, slot_fp [rows_cap] int32; the update also reads slot_freq
+// [rows_cap] int32 and folds into cms [depth, buckets] int32 (the staged
+// sketch, in place). out: the read-only remap's local_rows [n] int32;
+// the update's one allocation: counts [4] int64 at its start, then
+// local_rows, fp, est, scrub_rows and hit_rows [n] int32 at 32 + k * 4
+// * n4 bytes.
+extern "C" int detpu_stream_remap_launch(const void* prepared,
+                                         const void* ext, const void* live,
+                                         const void* cap, const void* nb,
+                                         const void* tid, const void* roff,
+                                         const void* slot_fp,
+                                         const void* slot_freq, void* cms,
+                                         void* out, void* stream) {
+  const RemapConsts* c = static_cast<const RemapConsts*>(prepared);
+  if (c == nullptr || out == nullptr ||
+      (c->update && (slot_freq == nullptr || cms == nullptr))) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaMemsetAsync(counts, 0, 4 * sizeof(long long), st);
-  if (e != cudaSuccess || n == 0) return e;
-  auto* k = static_cast<const int*>(key);
-  auto* f = static_cast<uint8_t*>(flags);
-  auto* r = static_cast<const int*>(rowc);
-  auto* bk = static_cast<unsigned long long*>(best_key);
-  auto* bp = static_cast<int*>(best_pos);
-  auto* es = static_cast<int*>(est);
-  stream_claim_kernel<<<grid(n), kThreads, 0, st>>>(
-      static_cast<const int*>(cms), depth, buckets, k, r,
-      static_cast<const int*>(slot_freq), admit, margin, n, es, f, bk);
-  stream_claim_pos_kernel<<<grid(n), kThreads, 0, st>>>(k, es, f, r, bk, bp,
-                                                         n);
-  stream_outputs_kernel<<<grid(n), kThreads, 0, st>>>(
-      f, r, bk, bp, n, rows_cap, static_cast<int*>(scrub_rows),
-      static_cast<int*>(hit_rows),
-      static_cast<unsigned long long*>(counts));
-  return cudaGetLastError();
+  RemapPtrs q{};
+  q.ext = ext;
+  q.live = static_cast<const uint8_t*>(live);
+  q.cap = static_cast<const int*>(cap);
+  q.nb = static_cast<const int*>(nb);
+  q.tid = static_cast<const int*>(tid);
+  q.roff = static_cast<const int*>(roff);
+  q.slot_fp = static_cast<const int*>(slot_fp);
+  if (!c->update) {
+    if (c->n == 0) return cudaSuccess;
+    q.local_rows = static_cast<int*>(out);
+    if (c->ids64) {
+      stream_lookup_kernel<long long><<<grid(c->n), kThreads, 0, st>>>(q,
+                                                                        c->n);
+    } else {
+      stream_lookup_kernel<int><<<grid(c->n), kThreads, 0, st>>>(q, c->n);
+    }
+    return cudaGetLastError();
+  }
+  q.slot_freq = static_cast<const int*>(slot_freq);
+  q.cms = static_cast<int*>(cms);
+  q.counts = static_cast<unsigned long long*>(out);
+  int* o = reinterpret_cast<int*>(static_cast<uint8_t*>(out) + 32);
+  q.local_rows = o;
+  q.fp = o + c->n4;
+  q.est = o + 2 * c->n4;
+  q.scrub_rows = o + 3 * c->n4;
+  q.hit_rows = o + 4 * c->n4;
+  void* kernel = c->ids64
+      ? reinterpret_cast<void*>(stream_remap_kernel<long long>)
+      : reinterpret_cast<void*>(stream_remap_kernel<int>);
+  RemapConsts cc = *c;
+  void* args[] = {&cc, &q};
+  return cudaLaunchCooperativeKernel(kernel, c->grid, kRemapThreads, args, 0,
+                                     st);
 }
 
 // K17 for one width slab. slab [rows_cap, width] (dtype 0 float32, 1

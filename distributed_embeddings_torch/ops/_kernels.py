@@ -116,10 +116,14 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "detpu_dedup_prepared_bytes": (),
     },
     "adagrad": {
-        # slab, slab_dtype, acc, acc_dtype, rows, width, uids, ids_is_64, u,
-        # ugrads, lr, lr_dev, eps, stream
-        "detpu_adagrad_rows": (_P, _I, _P, _I, _I64, _I, _P, _I, _I64, _P,
-                               ctypes.c_float, _P, ctypes.c_float, _P),
+        # slab_dtype, acc_dtype, rows, width, ids_is_64, u, lr, lr_on_card,
+        # eps, sms, prepared (host, out)
+        "detpu_adagrad_prepare": (_I, _I, _I64, _I, _I, _I64, _F, _I, _F,
+                                  _I, _P),
+        # prepared, slab, acc, uids, ugrads, lr_dev, stream
+        "detpu_adagrad_launch": (_P, _P, _P, _P, _P, _P, _P),
+        # -> the bytes of a prepared launch
+        "detpu_adagrad_prepared_bytes": (),
         # slab, slab_dtype, acc, acc_dtype, grad, numel, lr, lr_dev, eps,
         # stream
         "detpu_adagrad_dense": (_P, _I, _P, _I, _P, _I64, ctypes.c_float,
@@ -238,15 +242,18 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "detpu_dense_update_prepared_bytes": (),
     },
     "streaming": {
-        # ext, ext_is_64, live, cap, nb, tid, roff, slot_fp, n, local_rows,
-        # key, live_out, flags, rowc, stream
-        "detpu_stream_hash": (_P, _I, _P, _P, _P, _P, _P, _P, _I64, _P, _P,
-                              _P, _P, _P, _P),
-        # cms, depth, buckets, key, flags, rowc, slot_freq, admit, margin,
-        # n, rows_cap, best_key, best_pos, est, scrub_rows, hit_rows,
-        # counts, stream
-        "detpu_stream_stage": (_P, _I, _I, _P, _P, _P, _P, _I, _I, _I64,
-                               _I, _P, _P, _P, _P, _P, _P, _P),
+        # update, ids_is_64, n, n4, rows_cap, depth, buckets, admit, margin,
+        # sms, best_key, best_pos, scratch, prepared (host, out)
+        "detpu_stream_remap_prepare": (_I, _I, _I64, _I64, _I, _I, _I, _I,
+                                       _I, _I, _P, _P, _P, _P),
+        # prepared, ext, live, cap, nb, tid, roff, slot_fp, slot_freq, cms,
+        # out, stream
+        "detpu_stream_remap_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                      _P, _P, _P),
+        # -> the bytes of a prepared launch; ids_is_64, n, sms -> bytes of
+        # the update record's card scratch
+        "detpu_stream_remap_prepared_bytes": (),
+        "detpu_stream_remap_scratch_bytes": (_I, _I64, _I),
         # slab, slab_dtype, width, rows_cap, leaf_ptrs, leaf_dtypes,
         # leaf_fills, n_leaves, scrub_rows, fp, est, hit_rows, n, slot_fp,
         # slot_freq, cms, staged, cms_numel, counts, totals, c_admitted,
@@ -277,6 +284,9 @@ RESTYPES = {"detpu_dedup_scratch_bytes": _I64,
             "detpu_topk_merge_scratch_bytes": _I64,
             "detpu_grad_health_prepared_bytes": _I64,
             "detpu_adam_prepared_bytes": _I64,
+            "detpu_adagrad_prepared_bytes": _I64,
+            "detpu_stream_remap_prepared_bytes": _I64,
+            "detpu_stream_remap_scratch_bytes": _I64,
             "detpu_grad_health_scratch_bytes": _I64,
             "detpu_dense_update_prepared_bytes": _I64}
 

@@ -29,13 +29,19 @@ writes: an id at or past the slab's rows (the sentinel, the pad tail)
 is skipped; a negative id reads row 0 as it was before the update and
 writes row ``id + rows``; when the same stream also holds that row's
 own id, the slab row takes both deltas (the negative id's first) and
-the state row the row's own transition.
+the state row the row's own transition. K6 walks only the live rows,
+which it finds on the card in the SORTED ids (the dedup's signed
+order). It launches through the shared launch path
+(``_kernels.LaunchRecord``): a record keyed on the layouts, the dtypes,
+``eps`` and a constant ``lr`` holds the constants, rounded once; each
+call passes five pointers.
 """
 
 from __future__ import annotations
 
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from . import _kernels
@@ -140,42 +146,134 @@ def _check_pair(slab, acc):
                          f"{tuple(slab.shape)}")
 
 
-def adagrad_rows(slab: torch.Tensor, acc: torch.Tensor, uids: torch.Tensor,
-                 ugrads: torch.Tensor, lr: Lr, eps: float
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K6: the Adagrad transition of the rows ``uids [U]`` (unique, the
-    dedup's output) from their summed gradients ``ugrads [U, w]`` (in the
-    accumulator dtype), in place on ``slab [R, w]`` and ``acc [R, w]``
-    (float32/bfloat16 each). Returns ``(slab, acc)``. CPU tensors run
-    :func:`adagrad_rows_plain`; CUDA tensors launch the kernel or
-    raise."""
-    if slab.device.type == "cpu":
-        return adagrad_rows_plain(slab, acc, uids, ugrads, lr, eps)
-    _check_pair(slab, acc)
+def check_layout(slab: torch.Tensor, state: dict, uids: torch.Tensor,
+                 uvals: torch.Tensor, vals_name: str = "uvals") -> None:
+    """The layout checks of the row kernels (K6, K11, K12): ``slab`` and
+    each tensor of ``state`` (name -> tensor) contiguous, 2-D, float32/
+    bfloat16 and on the slab's device, the state tensors in one dtype and
+    the slab's shape; ``uids`` a contiguous ``[U]`` int32/int64 tensor
+    and ``uvals`` (named ``vals_name`` in the errors) a contiguous
+    ``[U, w]`` one in the state's dtype."""
+    for name, t in (("slab", slab),) + tuple(state.items()):
+        if t.dtype not in _DTYPE_CODE or t.dim() != 2 \
+                or not t.is_contiguous() or t.device != slab.device:
+            raise ValueError(f"{name}: expected a contiguous 2-D float32/"
+                             f"bfloat16 tensor on {slab.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    dt = next(iter(state.values())).dtype
+    if any(t.shape != slab.shape or t.dtype != dt for t in state.values()):
+        raise ValueError(
+            " and ".join(f"{k} {t.dtype} {tuple(t.shape)}"
+                         for k, t in state.items())
+            + f" must share the slab's shape {tuple(slab.shape)} and one "
+            "dtype")
     u, w = uids.shape[0], slab.shape[1]
     if uids.dim() != 1 or uids.dtype not in (torch.int32, torch.int64) \
             or uids.device != slab.device or not uids.is_contiguous():
         raise ValueError(f"uids: expected a contiguous [U] int32/int64 "
                          f"tensor on {slab.device}, got {uids.dtype} "
                          f"{tuple(uids.shape)} on {uids.device}")
-    if ugrads.dtype != acc.dtype or tuple(ugrads.shape) != (u, w) \
-            or ugrads.device != slab.device or not ugrads.is_contiguous():
-        raise ValueError(f"ugrads: expected a contiguous {(u, w)} "
-                         f"{acc.dtype} tensor, got {ugrads.dtype} "
-                         f"{tuple(ugrads.shape)} on {ugrads.device}")
-    lr_f, lr_t = _lr_args(lr, acc.dtype, slab.device)
-    if u == 0:
-        return slab, acc
-    eps_f = float(torch.tensor(float(eps), dtype=acc.dtype))
-    lib = _kernels.library("adagrad")
-    err = lib.detpu_adagrad_rows(
-        slab.data_ptr(), _DTYPE_CODE[slab.dtype], acc.data_ptr(),
-        _DTYPE_CODE[acc.dtype], slab.shape[0], w, uids.data_ptr(),
-        int(uids.dtype == torch.int64), u, ugrads.data_ptr(), lr_f,
-        None if lr_t is None else lr_t.data_ptr(), eps_f,
-        torch.cuda.current_stream(slab.device).cuda_stream)
-    _kernels.check(lib, err, "adagrad_rows")
-    adagrad_rows.launches += 1
+    if uvals.dtype != dt or tuple(uvals.shape) != (u, w) \
+            or uvals.device != slab.device or not uvals.is_contiguous():
+        raise ValueError(f"{vals_name}: expected a contiguous {(u, w)} "
+                         f"{dt} tensor, got {uvals.dtype} "
+                         f"{tuple(uvals.shape)} on {uvals.device}")
+
+
+#: K6's launch records, by layout and constants
+_CACHE = _kernels.LaunchCache()
+
+
+def record_key(slab: torch.Tensor, acc: torch.Tensor, uids: torch.Tensor,
+               ugrads: torch.Tensor, lr: Lr, eps: float) -> tuple:
+    """Every fact K6's launch record rests on: ``eps``, the constant
+    ``lr`` (or a tensor ``lr``'s layout), and the layouts (shape,
+    strides, dtype, device index) of the slab, the accumulator, the ids
+    and the gradient rows. No address: each call passes its own (a
+    vector load's alignment is decided on the card side each call)."""
+    ts = (slab, acc, uids, ugrads)
+    return (_kernels.layout_key(lr) if isinstance(lr, torch.Tensor) else lr,
+            eps, *map(_kernels._SHAPE, ts), *map(_kernels._STRIDE, ts),
+            *map(_kernels._DTYPE, ts), *map(_kernels._DEVICE, ts))
+
+
+def build_record(slab: torch.Tensor, acc: torch.Tensor, uids: torch.Tensor,
+                 ugrads: torch.Tensor, lr: Lr, eps: float,
+                 sms: Optional[int] = None) -> _kernels.LaunchRecord:
+    """Validate a call as :func:`adagrad_rows` does (raising as it does)
+    and build its launch record: the constants rounded once as
+    :func:`_lr_args` rounds them (``record.payload``: ``(lr_as_is,
+    constants, prepared)``, ``lr_as_is`` false where a tensor lr is
+    converted to float32 on the card each call) and, for CUDA tensors
+    with ids, the prepared launch bound to the library. CPU tensors (the
+    tests) get a record without launches."""
+    dev = slab.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    check_layout(slab, {"acc": acc}, uids, ugrads, "ugrads")
+    lr_as_is = True
+    if isinstance(lr, torch.Tensor):
+        if lr.numel() != 1:
+            raise ValueError(f"a tensor lr must hold one value, got shape "
+                             f"{tuple(lr.shape)}")
+        lr_f, lr_as_is = 0.0, lr.dtype == torch.float32 and lr.device == dev
+    else:
+        lr_f = _lr_args(lr, acc.dtype, dev)[0]
+    consts = {"lr": lr_f, "eps": float(torch.tensor(float(eps),
+                                                     dtype=acc.dtype))}
+    lib, calls, prepared = None, [], None
+    if dev.type == "cuda" and uids.shape[0] > 0:
+        lib = _kernels.library("adagrad")
+        prepared = np.zeros(lib.detpu_adagrad_prepared_bytes(), np.uint8)
+        _kernels.check(lib, lib.detpu_adagrad_prepare(
+            _DTYPE_CODE[slab.dtype], _DTYPE_CODE[acc.dtype], slab.shape[0],
+            slab.shape[1], int(uids.dtype == torch.int64), uids.shape[0],
+            consts["lr"], int(isinstance(lr, torch.Tensor)), consts["eps"],
+            sms or _kernels.sm_count(dev.index or 0),
+            prepared.ctypes.data), "adagrad_rows")
+        calls.append((lib.detpu_adagrad_launch, (prepared.ctypes.data,)))
+    return _kernels.LaunchRecord(lib, "adagrad_rows", calls,
+                                 _kernels.device_index(dev),
+                                 payload=(lr_as_is, consts, prepared))
+
+
+def find_record(slab, acc, uids, ugrads, lr: Lr, eps: float,
+                build_on_cpu: bool = False
+                ) -> Optional[_kernels.LaunchRecord]:
+    """The record of a call, found in :data:`_CACHE` by
+    :func:`record_key` or built (:func:`build_record`) and kept. A miss
+    on CPU tensors is validated and gives None (the wrapper runs the
+    plain version) unless ``build_on_cpu``."""
+    args = (slab, acc, uids, ugrads, lr, eps)
+    return _kernels.find_or_build(_CACHE, record_key(*args), build_record,
+                                  slab.device.type == "cpu", build_on_cpu,
+                                  *args)
+
+
+def adagrad_rows(slab: torch.Tensor, acc: torch.Tensor, uids: torch.Tensor,
+                 ugrads: torch.Tensor, lr: Lr, eps: float
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6: the Adagrad transition of the rows ``uids [U]`` (the dedup's
+    output: sorted, each live id once) from their summed gradients
+    ``ugrads [U, w]`` (in the accumulator dtype), in place on ``slab [R,
+    w]`` and ``acc [R, w]`` (float32/bfloat16 each). ``lr`` is a float
+    or a one-element tensor (a float32 one on the card is read there).
+    Returns ``(slab, acc)``. CPU tensors run :func:`adagrad_rows_plain`;
+    CUDA tensors launch the kernel (through the launch record of their
+    layouts: the first call validates and prepares, later ones pass the
+    pointers) or raise."""
+    if slab.device.type == "cpu":
+        return adagrad_rows_plain(slab, acc, uids, ugrads, lr, eps)
+    args = (slab, acc, uids, ugrads, lr, eps)
+    rec = _kernels.find_or_build(_CACHE, record_key(*args), build_record,
+                                 False, False, *args)
+    lr_p = None
+    if isinstance(lr, torch.Tensor):
+        lr_p = (lr if rec.payload[0] else _lr_args(
+            lr, acc.dtype, slab.device)[1]).data_ptr()
+    adagrad_rows.launches += rec.replay(slab.data_ptr(), acc.data_ptr(),
+                                        uids.data_ptr(), ugrads.data_ptr(),
+                                        lr_p)
     return slab, acc
 
 

@@ -52,7 +52,7 @@ import numpy as np
 import torch
 
 from . import _kernels
-from .adagrad import _DTYPE_CODE, Lr, add_rows, row_plan
+from .adagrad import _DTYPE_CODE, Lr, add_rows, check_layout, row_plan
 
 
 def _rnd(x: float, dtype: torch.dtype) -> float:
@@ -113,39 +113,6 @@ def adam_rows_plain(slab: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
     nu[wr[last]] = nu_new[last]
     add_rows(slab, wr, -upd.to(slab.dtype), neg)
     return slab, mu, nu
-
-
-def check_layout(slab: torch.Tensor, state: dict, uids: torch.Tensor,
-                 uvals: torch.Tensor) -> None:
-    """The layout checks of the row kernels (K11, K12): ``slab`` and each
-    tensor of ``state`` (name -> tensor) contiguous, 2-D, float32/
-    bfloat16 and on the slab's device, the state tensors in one dtype and
-    the slab's shape; ``uids`` a contiguous ``[U]`` int32/int64 tensor
-    and ``uvals`` a contiguous ``[U, w]`` one in the state's dtype."""
-    for name, t in (("slab", slab),) + tuple(state.items()):
-        if t.dtype not in _DTYPE_CODE or t.dim() != 2 \
-                or not t.is_contiguous() or t.device != slab.device:
-            raise ValueError(f"{name}: expected a contiguous 2-D float32/"
-                             f"bfloat16 tensor on {slab.device}, got "
-                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
-    dt = next(iter(state.values())).dtype
-    if any(t.shape != slab.shape or t.dtype != dt for t in state.values()):
-        raise ValueError(
-            " and ".join(f"{k} {t.dtype} {tuple(t.shape)}"
-                         for k, t in state.items())
-            + f" must share the slab's shape {tuple(slab.shape)} and one "
-            "dtype")
-    u, w = uids.shape[0], slab.shape[1]
-    if uids.dim() != 1 or uids.dtype not in (torch.int32, torch.int64) \
-            or uids.device != slab.device or not uids.is_contiguous():
-        raise ValueError(f"uids: expected a contiguous [U] int32/int64 "
-                         f"tensor on {slab.device}, got {uids.dtype} "
-                         f"{tuple(uids.shape)} on {uids.device}")
-    if uvals.dtype != dt or tuple(uvals.shape) != (u, w) \
-            or uvals.device != slab.device or not uvals.is_contiguous():
-        raise ValueError(f"uvals: expected a contiguous {(u, w)} "
-                         f"{dt} tensor, got {uvals.dtype} "
-                         f"{tuple(uvals.shape)} on {uvals.device}")
 
 
 def check_rows(slab: torch.Tensor, state: dict, uids: torch.Tensor,

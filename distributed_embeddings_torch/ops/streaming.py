@@ -11,10 +11,10 @@ scatters of ``commit``), split at the kernels' seams:
   out of the slot map: each position's table-local row (its slot on a
   map hit, else its shared hash bucket) and, in update mode, this step's
   staged transitions (:class:`Remap`): it folds the stream's
-  fingerprints into the STAGED sketch it is given (K13,
-  ``ops/sketch.py:cms_update``), estimates each position from it, and
-  resolves the claims to one winner per row by the lexicographic max of
-  (estimate, fingerprint, position);
+  fingerprints into the STAGED sketch it is given (K13's integer adds:
+  the words ``ops/sketch.py:cms_update`` gives), estimates each position
+  from it, and resolves the claims to one winner per row by the
+  lexicographic max of (estimate, fingerprint, position);
 * :func:`commit_rows` (K17) applies them under the device verdict
   ``enable``: the claimed slab rows become ``x + (-x)``, every
   slab-shaped optimizer leaf on them ``(c + (-c)) + fill``, the slot map
@@ -30,9 +30,15 @@ order; the port counts exactly in int64 and rounds once). The plain
 versions do the uint32 hashes in int64 masked to 32 bits, as
 ``ops/sketch.py`` does (PyTorch's CPU uint32 lacks the shifts).
 
+K16 launches through the shared launch path (``_kernels.LaunchRecord``),
+one record a mode: the update is ONE cooperative launch of persistent
+CTAs (hash and fold, claims, the position max, outputs and counts,
+behind grid-wide barriers) that writes every output into one allocation the call makes
+and carves into the :class:`Remap`'s views (:func:`update_outputs`);
+the read-only remap is one launch into one ``[n]`` allocation.
+
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-or raises. Each wrapper counts its launches (one per call; K16's update
-also launches K13, counted by ``cms_update``).
+or raises. Each wrapper counts its launches (one per call).
 """
 
 from __future__ import annotations
@@ -43,8 +49,9 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from . import _kernels
-from .sketch import _M32, _mul32, cms_query_plain, cms_update, \
-    cms_update_plain
+import numpy as np
+
+from .sketch import _M32, _mul32, cms_query_plain, cms_update_plain
 
 #: free-slot marker in the slot map (fingerprints are >= 0)
 SLOT_FREE = -1
@@ -226,6 +233,149 @@ def _claim_scratch(device: torch.device, rows_cap: int):
     return s
 
 
+#: K16's launch records (both modes), by layout and policy
+_CACHE = _kernels.LaunchCache()
+#: int32 words before the update allocation's first [n] view: the four
+#: int64 counts
+_COUNT_WORDS = 8
+
+
+def out_stride(n: int) -> int:
+    """The int32 words between two ``[n]`` views of an update call's
+    allocation: ``n`` rounded up to 4 (each view starts 16-byte
+    aligned)."""
+    return (n + 3) // 4 * 4
+
+
+def _carve(buf: torch.Tensor, n: int) -> Remap:
+    """The :class:`Remap` of an update call's allocation ``buf``: one
+    ``split_with_sizes`` (the counts, then each ``[n]`` view and, where
+    ``n`` is not a multiple of 4, its pad) and the counts' int64 view
+    (each view object costs ~1 us of host)."""
+    pad = out_stride(n) - n
+    parts = buf.split_with_sizes([_COUNT_WORDS]
+                                 + ([n, pad] * 5 if pad else [n] * 5))
+    return Remap(*(parts[1::2] if pad else parts[1:]),
+                 parts[0].view(torch.int64))
+
+
+def update_outputs(n: int, device) -> Tuple[torch.Tensor, Remap]:
+    """An update call's one allocation (int32) and the :class:`Remap` of
+    its views: ``counts [4]`` int64 at its start, then ``local_rows``,
+    ``fp``, ``est``, ``scrub_rows`` and ``hit_rows`` ``[n]`` int32, each
+    at ``8 + k * out_stride(n)`` words (the kernel's layout,
+    ``csrc/streaming.cu:detpu_stream_remap_launch``)."""
+    buf = torch.empty(_COUNT_WORDS + 5 * out_stride(n), dtype=torch.int32,
+                      device=device)
+    return buf, _carve(buf, n)
+
+
+def _inputs(ext, live, cap, nbuckets, tid, roff, slot_fp, slot_freq, cms,
+            update):
+    """The tensors a K16 call reads, in the launch's order."""
+    return ((ext, live, cap, nbuckets, tid, roff, slot_fp)
+            + ((slot_freq, cms) if update else ()))
+
+
+def remap_key(ext, live, cap, nbuckets, tid, roff, slot_fp, slot_freq,
+              cms, admit_min_count: int, evict_margin: int,
+              update: bool = True) -> tuple:
+    """Every fact K16's launch record rests on: the mode, the layouts
+    (shape, strides, dtype, device index) of the tensors the call reads
+    (so ``n``, the id dtype, ``rows_cap`` and, in update mode, the
+    sketch's shape) and, in update mode, ``admit_min_count`` and
+    ``evict_margin``. No address: each call passes its own."""
+    if update and (cms is None or slot_freq is None):
+        raise ValueError("remap_stage: an update needs slot_freq and cms "
+                         "[depth, buckets]")
+    ts = _inputs(ext, live, cap, nbuckets, tid, roff, slot_fp, slot_freq,
+                 cms, update)
+    return (bool(update),
+            (int(admit_min_count), int(evict_margin)) if update else None,
+            *map(_kernels._SHAPE, ts), *map(_kernels._STRIDE, ts),
+            *map(_kernels._DTYPE, ts), *map(_kernels._DEVICE, ts))
+
+
+def build_remap_record(ext, live, cap, nbuckets, tid, roff, slot_fp,
+                       slot_freq, cms, admit_min_count: int,
+                       evict_margin: int, update: bool = True,
+                       sms: Optional[int] = None) -> _kernels.LaunchRecord:
+    """Validate a call as :func:`remap_stage` does (raising as it does)
+    and build its launch record: for CUDA tensors the prepared launch
+    bound to the library, with (update mode) the per-card claim scratch
+    (:func:`_claim_scratch`) and, where the stream passes the positions
+    the grid holds in registers, the record's own scratch for the rest's
+    rows and flags (``record.payload``: ``(prepared, scratch)``). CPU
+    tensors (the tests) get a record without launches."""
+    dev = ext.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    n = ext.numel()
+    if n >= 2 ** 31:
+        raise ValueError(f"{n} positions: at most 2^31 - 1")
+    _check(ext, (torch.int32, torch.int64), (n,), dev, "ext")
+    _check(live, torch.bool, (n,), dev, "live")
+    for t, what in ((cap, "cap"), (nbuckets, "nbuckets"), (tid, "tid"),
+                    (roff, "roff")):
+        _check(t, torch.int32, (n,), dev, what)
+    rows_cap = slot_fp.numel()
+    _check(slot_fp, torch.int32, (rows_cap,), dev, "slot_fp")
+    if update:
+        _check(slot_freq, torch.int32, (rows_cap,), dev, "slot_freq")
+        if cms is None or cms.dim() != 2:
+            raise ValueError(f"cms: expected [depth, buckets], got "
+                             f"{None if cms is None else tuple(cms.shape)}")
+        _check(cms, torch.int32, tuple(cms.shape), dev, "cms")
+    if rows_cap >= 2 ** 31:
+        raise ValueError(f"{rows_cap} slot rows: at most 2^31 - 1")
+    lib, calls, prepared, scratch = None, [], None, None
+    if dev.type == "cuda":
+        lib = _kernels.library("streaming")
+        sms = sms or _kernels.sm_count(dev.index or 0)
+        prepared = np.zeros(lib.detpu_stream_remap_prepared_bytes(),
+                            np.uint8)
+        keys = (None, None)
+        depth = buckets = 0
+        ids64 = int(ext.dtype == torch.int64)
+        if update:
+            nbytes = lib.detpu_stream_remap_scratch_bytes(ids64, n, sms)
+            if nbytes < 0:
+                raise RuntimeError("remap_stage: no launch configuration "
+                                   "for the update kernel")
+            if nbytes:
+                scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+            keys = tuple(t.data_ptr() for t in _claim_scratch(dev,
+                                                              rows_cap))
+            depth, buckets = cms.shape
+        _kernels.check(lib, lib.detpu_stream_remap_prepare(
+            int(update), ids64, n, out_stride(n), rows_cap, depth, buckets,
+            int(admit_min_count), int(evict_margin), sms, *keys,
+            None if scratch is None else scratch.data_ptr(),
+            prepared.ctypes.data), "remap_stage")
+        calls.append((lib.detpu_stream_remap_launch,
+                      (prepared.ctypes.data,)))
+    return _kernels.LaunchRecord(lib, "remap_stage", calls,
+                                 _kernels.device_index(dev),
+                                 payload=(prepared, scratch))
+
+
+def find_remap_record(ext, live, cap, nbuckets, tid, roff, slot_fp,
+                      slot_freq, cms, admit_min_count: int,
+                      evict_margin: int, update: bool = True,
+                      build_on_cpu: bool = False
+                      ) -> Optional[_kernels.LaunchRecord]:
+    """The record of a call, found in :data:`_CACHE` by
+    :func:`remap_key` or built (:func:`build_remap_record`) and kept. A
+    miss on CPU tensors is validated and gives None (the wrapper runs
+    the plain version) unless ``build_on_cpu``."""
+    args = (ext, live, cap, nbuckets, tid, roff, slot_fp, slot_freq, cms,
+            admit_min_count, evict_margin, update)
+    return _kernels.find_or_build(_CACHE, remap_key(*args),
+                                  build_remap_record,
+                                  ext.device.type == "cpu", build_on_cpu,
+                                  *args)
+
+
 def remap_stage(ext: torch.Tensor, live: torch.Tensor, cap: torch.Tensor,
                 nbuckets: torch.Tensor, tid: torch.Tensor,
                 roff: torch.Tensor, slot_fp: torch.Tensor,
@@ -238,66 +388,35 @@ def remap_stage(ext: torch.Tensor, live: torch.Tensor, cap: torch.Tensor,
     slot map ``slot_fp``/``slot_freq [rows_cap]`` (int32). With
     ``update``, fold the fingerprints of the live positions into ``cms``
     ``[depth, buckets]`` (int32, the STAGED copy of the carried sketch,
-    in place, by K13) and stage the admissions (:class:`Remap`); the
-    slot map is only read."""
+    in place) and stage the admissions (:class:`Remap`, views of one
+    allocation); the slot map is only read. On the card: one launch
+    through the launch record of the call's layouts (the first call
+    validates and prepares, later ones pass the pointers)."""
     if ext.device.type == "cpu":
         return remap_stage_plain(ext, live, cap, nbuckets, tid, roff,
                                  slot_fp, slot_freq, cms, admit_min_count,
                                  evict_margin, update)
-    dev = _cuda(ext)
-    n = ext.numel()
-    if n >= 2 ** 31:
-        raise ValueError(f"{n} positions: at most 2^31 - 1")
-    _check(ext, (torch.int32, torch.int64), (n,), dev, "ext")
-    _check(live, torch.bool, (n,), dev, "live")
-    for t, what in ((cap, "cap"), (nbuckets, "nbuckets"), (tid, "tid"),
-                    (roff, "roff")):
-        _check(t, torch.int32, (n,), dev, what)
-    rows_cap = slot_fp.numel()
-    _check(slot_fp, torch.int32, (rows_cap,), dev, "slot_fp")
-    _check(slot_freq, torch.int32, (rows_cap,), dev, "slot_freq")
-    lib = _kernels.library("streaming")
-    st = _stream(ext)
-    local_rows = torch.empty(n, dtype=torch.int32, device=dev)
+    args = (ext, live, cap, nbuckets, tid, roff, slot_fp, slot_freq, cms,
+            admit_min_count, evict_margin, update)
+    rec = _kernels.find_or_build(_CACHE, remap_key(*args),
+                                 build_remap_record, False, False, *args)
+    n = ext.shape[0]
     if not update:
-        err = lib.detpu_stream_hash(
-            ext.data_ptr(), int(ext.dtype == torch.int64), live.data_ptr(),
-            cap.data_ptr(), nbuckets.data_ptr(), tid.data_ptr(),
-            roff.data_ptr(), slot_fp.data_ptr(), n, local_rows.data_ptr(),
-            None, None, None, None, st)
-        _kernels.check(lib, err, "remap_stage (hash)")
-        remap_stage.launches += 1
+        local_rows = torch.empty(n, dtype=torch.int32, device=ext.device)
+        remap_stage.launches += rec.replay(
+            ext.data_ptr(), live.data_ptr(), cap.data_ptr(),
+            nbuckets.data_ptr(), tid.data_ptr(), roff.data_ptr(),
+            slot_fp.data_ptr(), None, None, local_rows.data_ptr())
         return Remap(local_rows)
-    if cms.dim() != 2:
-        raise ValueError(f"cms: expected [depth, buckets], got "
-                         f"{tuple(cms.shape)}")
-    _check(cms, torch.int32, tuple(cms.shape), dev, "cms")
-    fp = torch.empty(n, dtype=torch.int32, device=dev)
-    live_eff = torch.empty(n, dtype=torch.bool, device=dev)
-    flags = torch.empty(n, dtype=torch.uint8, device=dev)
-    rowc = torch.empty(n, dtype=torch.int32, device=dev)
-    err = lib.detpu_stream_hash(
-        ext.data_ptr(), int(ext.dtype == torch.int64), live.data_ptr(),
-        cap.data_ptr(), nbuckets.data_ptr(), tid.data_ptr(),
-        roff.data_ptr(), slot_fp.data_ptr(), n, local_rows.data_ptr(),
-        fp.data_ptr(), live_eff.data_ptr(), flags.data_ptr(),
-        rowc.data_ptr(), st)
-    _kernels.check(lib, err, "remap_stage (hash)")
-    cms_update(cms, fp, live_eff)  # K13 into the staged sketch
-    est = torch.empty(n, dtype=torch.int32, device=dev)
-    scrub_rows = torch.empty(n, dtype=torch.int32, device=dev)
-    hit_rows = torch.empty(n, dtype=torch.int32, device=dev)
-    counts = torch.empty(4, dtype=torch.int64, device=dev)
-    best_key, best_pos = _claim_scratch(dev, rows_cap)
-    err = lib.detpu_stream_stage(
-        cms.data_ptr(), cms.shape[0], cms.shape[1], fp.data_ptr(),
-        flags.data_ptr(), rowc.data_ptr(), slot_freq.data_ptr(),
-        int(admit_min_count), int(evict_margin), n, rows_cap,
-        best_key.data_ptr(), best_pos.data_ptr(), est.data_ptr(),
-        scrub_rows.data_ptr(), hit_rows.data_ptr(), counts.data_ptr(), st)
-    _kernels.check(lib, err, "remap_stage (stage)")
-    remap_stage.launches += 1
-    return Remap(local_rows, fp, est, scrub_rows, hit_rows, counts)
+    buf = torch.empty(_COUNT_WORDS + 5 * out_stride(n), dtype=torch.int32,
+                      device=ext.device)
+    remap_stage.launches += rec.replay(
+        ext.data_ptr(), live.data_ptr(), cap.data_ptr(),
+        nbuckets.data_ptr(), tid.data_ptr(), roff.data_ptr(),
+        slot_fp.data_ptr(), slot_freq.data_ptr(), cms.data_ptr(),
+        buf.data_ptr())
+    # the views are carved while the launch runs
+    return _carve(buf, n)
 
 
 def commit_rows(slab: torch.Tensor,

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""K21's and K11's variants (the gradient-health reduction,
-``csrc/grad_health.cu``, and the SparseAdam row update, ``csrc/adam.cu``):
-patched builds of each kernel (``variants.py``), held bit-equal to the
-tree's build and timed against it in turns on one NVIDIA GPU.
+"""K21's, K11's and K6's variants (the gradient-health reduction,
+``csrc/grad_health.cu``, the SparseAdam row update, ``csrc/adam.cu``, and
+the SparseAdagrad row update, ``csrc/adagrad.cu``): patched builds of
+each kernel (``variants.py``), held bit-equal to the tree's build and
+timed against it in turns on one NVIDIA GPU.
 
 K21 (one launch of persistent CTAs over chunks of ~128 KB, a ticket a
 tensor, the last CTA of a tensor folding its partials; 4 16-byte loads
@@ -29,6 +30,13 @@ time, every load before the math):
 - ``cached_grads``: the gradient rows read through the read-only cache
   in place of streaming loads.
 
+K6 (the same walk, ``csrc/row_update.cuh:walk_live_rows``, with K6's
+transition): ``rows2``, ``ctas2``, ``ctas8``, ``no_floor``, ``blocked``
+and ``cached_grads`` as K11's, and ``scalar_loads``: one element a lane
+a load on every call (V = 1, the first design's loads). The first
+design itself (two launches over every id) is the parent checkout's
+wrapper (``--parent``).
+
 Inputs: K21 on the DLRM step's gradients at b=65536 (26 bf16 [65536, 128]
 cotangents, contiguous views of one [26, 65536, 128] buffer as K4 leaves
 them, and the 16 float32 gradients of the MLPs 512-256-128 /
@@ -38,12 +46,16 @@ column slices of one [65536, 27, 128] block (the strided form). K11 on
 the Adam zoo's shapes: the w16 slab of 70.2M rows in float32 (and with
 bfloat16 tables and moments), 859,157 live unique rows of a 2,883,584-id
 dedup output (the rest the pad tail), and the w8 slab of 60,336 rows,
-48,689 live of 60,337; rows drawn at random, gradients normal. Each
+48,689 live of 60,337. K6 on the zoo's w16 slab in float32 and in
+bfloat16 (tables and accumulators), and on the streaming DLRM's w128 slab
+(10,569,296 rows, 400,000 live rows of a 1,703,936-id output). Rows drawn
+at random, gradients normal. Each
 variant runs from the same state (the touched rows restored between
 variants) and must give the tree's bits (K21's chunk variants, which fold
 in an order of their own, are held to the plain version as the tree is
 instead); the tree is held to the plain
-version (K21 by ``chip_smoke.health_err``, K11 bit for bit), and K11's
+version (K21 by ``chip_smoke.health_err``, K11 and K6 bit for bit), and
+K11's
 in-kernel ``powf`` bias powers to ``torch.pow``'s over the step counts
 1 to 2,000 and five larger ones.
 
@@ -56,8 +68,8 @@ that checkout's, are timed in the same turns as ``wrapper`` and
 ``parent_wrapper`` (event ms a call, host included).
 
 Run from the root of a checkout: ``python3 row_variants.py [--parent
-DIR]``. Prints the card's name and power limit, then one JSON line a
-kernel, input and variant.
+DIR] [--only k21,k11,k6]``. Prints the card's name and power limit, then
+one JSON line a kernel, input and variant.
 """
 
 import contextlib
@@ -101,8 +113,9 @@ K21_CHUNK = {"batch8_chunk64k": 65536, "chunk32k": 32768,
              "chunk64k": 65536, "chunk256k": 262144}
 
 #: the live range in blocks, one a CTA (in place of a grid-stride walk):
-#: a CTA's rows lie together in the slabs
-K11_BLOCKED = vs.replace(
+#: a CTA's rows lie together in the slabs (the walk K6 and K11 share, in
+#: csrc/row_update.cuh)
+WALK_BLOCKED = ("row_update.cuh", vs.replace(
     ("  const int64_t group = blockIdx.x * lgroups + lgroup;\n"
      "  const int64_t groups = gridDim.x * lgroups;\n"
      "  for (int64_t v0 = neg_end + group * kRows; v0 < live_end;\n"
@@ -113,7 +126,15 @@ K11_BLOCKED = vs.replace(
      "  const int64_t bhi = blo + per < live_end ? blo + per : live_end;\n"
      "  for (int64_t v0 = blo + lgroup * kRows; v0 < bhi;\n"
      "       v0 += lgroups * kRows) {"),
-    ("      live[r] = v < live_end;", "      live[r] = v < bhi;"))
+    ("      live[r] = v < live_end;", "      live[r] = v < bhi;")))
+#: the gradient rows through the read-only cache in place of streaming
+#: loads (the shared walk's ld_once)
+WALK_CACHED_GRADS = ("row_update.cuh", vs.replace(
+    ("__ldcs(reinterpret_cast<const float4*>(p))",
+     "__ldg(reinterpret_cast<const float4*>(p))"),
+    ("__ldcs(reinterpret_cast<const uint2*>(p))",
+     "__ldg(reinterpret_cast<const uint2*>(p))"),
+    ("f[0] = T::load(__ldcs(p));", "f[0] = T::load(__ldg(p));")))
 
 K11_VARIANTS = {
     "tree": None,
@@ -122,13 +143,31 @@ K11_VARIANTS = {
     "ctas2": vs.constants(kCtasPerSm=2),
     "ctas8": vs.constants(kCtasPerSm=8),
     "no_floor": K11_NO_FLOOR,
-    "blocked": K11_BLOCKED,
-    "cached_grads": vs.replace(
-        ("__ldcs(reinterpret_cast<const float4*>(p))",
-         "__ldg(reinterpret_cast<const float4*>(p))"),
-        ("__ldcs(reinterpret_cast<const uint2*>(p))",
-         "__ldg(reinterpret_cast<const uint2*>(p))"),
-        ("f[0] = T::load(__ldcs(p));", "f[0] = T::load(__ldg(p));")),
+    "blocked": WALK_BLOCKED,
+    "cached_grads": WALK_CACHED_GRADS,
+}
+
+#: K6 on the walk it shares with K11: the same knobs, and one element a
+#: lane a load (V = 1) on every call
+K6_VARIANTS = {
+    "tree": None,
+    "rows2": vs.constants(kRows=2),
+    "ctas2": vs.constants(kCtasPerSm=2),
+    "ctas8": vs.constants(kCtasPerSm=8),
+    "no_floor": vs.replace(("__launch_bounds__(kThreads, kCtasPerSm)\n"
+                            "adagrad_rows_kernel(",
+                            "__launch_bounds__(kThreads)\n"
+                            "adagrad_rows_kernel(")),
+    "blocked": WALK_BLOCKED,
+    "cached_grads": WALK_CACHED_GRADS,
+    "scalar_loads": vs.replace(("  const bool vec = c->width % 4 == 0 && "
+                                "detpu::aligned4(slab, es) &&\n"
+                                "                   detpu::aligned4(acc, "
+                                "ea)",
+                                "  const bool vec = false && "
+                                "detpu::aligned4(slab, es) &&\n"
+                                "                   detpu::aligned4(acc, "
+                                "ea)")),
 }
 
 ZOO_W16_ROWS = 70_200_000      # the zoo's w16 slab (4.49 GB in float32)
@@ -136,6 +175,12 @@ ZOO_W16_LIVE = 859_157         # unique rows of one step's K5 output
 ZOO_W16_U = 2_883_584          # that output's length (its pad tail)
 ZOO_W8_ROWS = 60_336
 ZOO_W8_LIVE = 48_689
+#: the capped Criteo-Kaggle w128 slab of the streaming DLRM (its K5 output
+#: over 1,703,936 ids, the live rows a guess of its order: the smoke run
+#: times the real call)
+STREAM_W128_ROWS = 10_569_296
+STREAM_W128_LIVE = 400_000
+STREAM_W128_U = 1_703_936
 LAUNCHES = 20                  # back-to-back launches a timing
 
 
@@ -348,6 +393,60 @@ def run_k11(torch, cs, kernels, adam, parent):
         torch.cuda.empty_cache()
 
 
+def run_k6(torch, cs, kernels, ada, parent):
+    libs = vs.build(kernels, "adagrad", K6_VARIANTS, "row_variants")
+    f32, bf16 = torch.float32, torch.bfloat16
+    for what, (rows, width, live, u, dt) in (
+            ("zoo_w16_fp32", (ZOO_W16_ROWS, 16, ZOO_W16_LIVE, ZOO_W16_U,
+                              f32)),
+            ("zoo_w16_bf16", (ZOO_W16_ROWS, 16, ZOO_W16_LIVE, ZOO_W16_U,
+                              bf16)),
+            ("stream_w128_fp32", (STREAM_W128_ROWS, 128, STREAM_W128_LIVE,
+                                  STREAM_W128_U, f32))):
+        slab, acc, _, _, uids, ugrads = k11_case(
+            torch, rows, width, live, u, dt, seed=601)
+        acc.abs_().add_(0.1)
+        hit = uids[:live].long()
+        start = [t[hit].clone() for t in (slab, acc)]
+
+        def restore():
+            for t, s in zip((slab, acc), start):
+                t[hit] = s
+
+        args = (slab, acc, uids, ugrads, 0.01, 1e-7)
+        ada.adagrad_rows_plain(*args)
+        want = [t[hit] for t in (slab, acc)]
+        ptrs = (slab.data_ptr(), acc.data_ptr(), uids.data_ptr(),
+                ugrads.data_ptr(), None)
+        fns = {}
+        for name, lib in libs.items():
+            with library(kernels, "adagrad", lib):
+                rec = ada.build_record(*args)
+            restore()
+            rec.replay(*ptrs)
+            torch.cuda.synchronize()
+            got = [t[hit] for t in (slab, acc)]
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise SystemExit(f"K6 {what} {name}: bits differ from the "
+                                 "plain version (and the tree)")
+            fns[name] = lambda rec=rec: rec.replay(*ptrs)
+        restore()
+        fns["wrapper"] = lambda: ada.adagrad_rows(*args)
+        if parent is not None:
+            fns["parent_wrapper"] = lambda: parent["adagrad"].adagrad_rows(
+                *args)
+        es, ea = slab.element_size(), acc.element_size()
+        nbytes = live * (uids.element_size() + width * (ea + 2 * (es + ea)))
+        for name, t in timed(torch, cs, fns).items():
+            print(json.dumps({"kernel": "K6", "input": what,
+                              "variant": name, "live_rows": live, "ids": u,
+                              "bytes": nbytes, "bound_ms": nbytes
+                              / cs.HBM_BYTES_PER_S * 1e3, **t}), flush=True)
+        restore()
+        del slab, acc, ugrads, start, want, fns, args
+        torch.cuda.empty_cache()
+
+
 def main():
     import torch
 
@@ -356,20 +455,34 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("row_variants.py needs a CUDA card")
     argv = sys.argv[1:]
-    if len(argv) == 2 and argv[0] == "--parent":
-        cs.PARENT_DIR = os.path.abspath(argv[1])
-    elif argv:
-        raise SystemExit("usage: python3 row_variants.py [--parent DIR]")
+    only = {"k21", "k11", "k6"}
+    while argv:
+        if len(argv) >= 2 and argv[0] == "--parent":
+            cs.PARENT_DIR = os.path.abspath(argv[1])
+        elif len(argv) >= 2 and argv[0] == "--only":
+            only = set(argv[1].split(","))
+        else:
+            raise SystemExit("usage: python3 row_variants.py [--parent DIR]"
+                             " [--only k21,k11,k6]")
+        argv = argv[2:]
     print(vs.card_line(), flush=True)
     kernels = importlib.import_module(
         "distributed_embeddings_torch.ops._kernels")
-    gh = importlib.import_module("distributed_embeddings_torch.ops."
-                                 "grad_health")
-    adam = importlib.import_module("distributed_embeddings_torch.ops.adam")
     parent = cs.parent_ops()
-    run_k21(torch, cs, kernels, gh, parent)
-    torch.cuda.empty_cache()
-    run_k11(torch, cs, kernels, adam, parent)
+    if "k21" in only:
+        gh = importlib.import_module("distributed_embeddings_torch.ops."
+                                     "grad_health")
+        run_k21(torch, cs, kernels, gh, parent)
+        torch.cuda.empty_cache()
+    if "k11" in only:
+        adam = importlib.import_module("distributed_embeddings_torch.ops."
+                                       "adam")
+        run_k11(torch, cs, kernels, adam, parent)
+        torch.cuda.empty_cache()
+    if "k6" in only:
+        ada = importlib.import_module("distributed_embeddings_torch.ops."
+                                      "adagrad")
+        run_k6(torch, cs, kernels, ada, parent)
 
 
 if __name__ == "__main__":

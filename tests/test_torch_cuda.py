@@ -483,43 +483,166 @@ def _adagrad_tol(got, want, old, lr, slab_dtype):
                            f"err {np.abs(got - want).max()}")
 
 
+#: K6's widths: one element, odd widths (one-element loads), 16-byte
+#: rows, a row past a warp of chunks, and an unaligned gradient view
+K6_CASES = [(1, False), (3, False), (8, False), (16, False), (17, False),
+            (128, False), (129, False), (16, True)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("slab_dtype,acc_dtype", ADAGRAD_PAIRS)
-@pytest.mark.parametrize("width", [8, 16, 40])
+@pytest.mark.parametrize("width,unaligned", K6_CASES)
 def test_adagrad_rows_kernel_matches_plain(cuda_device, slab_dtype,
-                                           acc_dtype, width):
-    """K6 against its plain version on unique rows, negative ids, the
-    sentinel and ids past the slab, for a constant and a device lr:
-    accumulators bit-exact (the same per-op rounding), slab rows within
-    3 ulps (``rsqrt``, see ``_adagrad_tol``), untouched rows bitwise
-    unchanged."""
-    rng = np.random.default_rng(width)
+                                           acc_dtype, width, unaligned):
+    """K6 against its plain version (on the card) on unique rows,
+    negative ids, the sentinel, ids past the slab and the pad tail, in
+    the dedup's signed order (K6 finds its live range in it), for a
+    constant and a device lr, int32 and int64 ids, 4-element and
+    one-element loads (``unaligned``: a gradient view 4 bytes off its
+    buffer): slab and accumulator bit-exact (the same correctly rounded
+    ops in the same order), untouched rows bitwise unchanged, one launch
+    a call."""
+    rng = np.random.default_rng(width + 100 * unaligned + 3)
     R = 400
-    rows = rng.permutation(R - 20)[:150]  # rows R-20.. stay for negatives
-    uids = np.concatenate([np.sort(rows), [-1, -7, R, R, 10 ** 6, -R - 3]])
-    for ids_dtype in (torch.int32, torch.int64):
-        for lr in (0.05, torch.tensor(0.013)):
-            slab = torch.from_numpy(rng.normal(size=(R, width)).astype(
-                np.float32)).to(slab_dtype).to(cuda_device)
-            acc = torch.from_numpy((0.1 + rng.random((R, width))).astype(
-                np.float32)).to(acc_dtype).to(cuda_device)
-            g = torch.from_numpy(rng.normal(size=(len(uids), width)).astype(
-                np.float32)).to(acc_dtype).to(cuda_device)
-            tid = torch.from_numpy(uids).to(ids_dtype).to(cuda_device)
-            lr_d = lr.to(cuda_device) if isinstance(lr, torch.Tensor) else lr
-            gs, ga, ps, pa = slab.clone(), acc.clone(), slab.clone(), \
-                acc.clone()
+    uids, g, hit = _row_case(rng, R, width, acc_dtype, cuda_device,
+                             unaligned=unaligned, sort=True)
+    untouched = np.setdiff1d(np.arange(R), hit)
+    for ids_dtype, lr in ((torch.int32, 0.05),
+                          (torch.int64, torch.tensor(0.013)),
+                          (torch.int32, torch.tensor(0.013)),
+                          (torch.int64, 0.05)):
+        slab = torch.from_numpy(rng.normal(size=(R, width)).astype(
+            np.float32)).to(slab_dtype).to(cuda_device)
+        acc = torch.from_numpy((0.1 + rng.random((R, width))).astype(
+            np.float32)).to(acc_dtype).to(cuda_device)
+        tid = torch.from_numpy(uids).to(ids_dtype).to(cuda_device)
+        lr_d = lr.to(cuda_device) if isinstance(lr, torch.Tensor) else lr
+        gs, ga, ps, pa = slab.clone(), acc.clone(), slab.clone(), \
+            acc.clone()
+        before = adagrad_rows.launches
+        adagrad_rows(gs, ga, tid, g, lr_d, 1e-7)
+        assert adagrad_rows.launches == before + 1
+        adagrad_rows_plain(ps, pa, tid, g, lr_d, 1e-7)
+        np.testing.assert_array_equal(to_np(ga), to_np(pa))
+        np.testing.assert_array_equal(to_np(gs), to_np(ps))
+        assert torch.equal(gs[untouched], slab[untouched])
+        assert torch.equal(ga[untouched], acc[untouched])
+        assert not torch.equal(gs, slab)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ids_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("stream", ["all_pad", "no_pad", "negatives_only",
+                                    "long_pad_tail", "wrap_to_row0",
+                                    "wrapped_row", "empty"])
+def test_adagrad_rows_live_range_edges(cuda_device, stream, ids_dtype):
+    """K6 finds the live range of the sorted dedup output on the card: a
+    stream that is all pad tail (nothing moves), one with no pad, one of
+    negative ids only, a 300,000-id output with 1,000 live rows, -R
+    (whose transition lands on row 0) with its prefix, a negative id
+    beside its wrapped row, and U = 0 (no launch), each with a constant
+    and a device lr. Slab and accumulator bit-exact to the plain version
+    in float32 and bfloat16."""
+    R, w = 5000, 16
+    rng = np.random.default_rng(len(stream) + 40)
+    live = np.sort(rng.permutation(np.arange(1, R - 40))[:1000])
+    ids = {"all_pad": np.full(700, R),
+           "no_pad": live,
+           "negatives_only": np.array([-R - 9, -R, -17, -3, -1]),
+           "long_pad_tail": np.concatenate([live, np.full(299_000, R)]),
+           "wrap_to_row0": np.concatenate([[-R - 1, -R, -33, -2], live,
+                                           [R, R + 3]]),
+           "wrapped_row": np.concatenate([[-R + 7, -3], live[live < R - 3],
+                                          [R - 3, R]]),
+           "empty": np.zeros(0, np.int64)}[stream]
+    assert (np.diff(ids) >= 0).all()  # the dedup's signed order
+    uids = torch.from_numpy(ids).to(ids_dtype).to(cuda_device)
+    for dt in (torch.float32, torch.bfloat16):
+        for lr in (0.01, torch.tensor(0.02, device=cuda_device)):
+            g = torch.from_numpy(rng.normal(size=(len(ids), w)).astype(
+                np.float32)).to(dt).to(cuda_device)
+            slab = torch.from_numpy(rng.normal(size=(R, w)).astype(
+                np.float32)).to(dt).to(cuda_device)
+            acc = torch.from_numpy((0.05 + rng.random((R, w))).astype(
+                np.float32)).to(dt).to(cuda_device)
+            got, want = [slab.clone(), acc.clone()], [slab.clone(),
+                                                      acc.clone()]
             before = adagrad_rows.launches
-            adagrad_rows(gs, ga, tid, g, lr_d, 1e-7)
-            assert adagrad_rows.launches == before + 1
-            adagrad_rows_plain(ps, pa, tid, g, lr_d, 1e-7)
-            np.testing.assert_array_equal(to_np(ga), to_np(pa))
-            _adagrad_tol(to_np(gs), to_np(ps), to_np(slab), float(lr),
-                         slab_dtype)
-            hit = np.union1d(rows, [R - 1, R - 7])
-            untouched = np.setdiff1d(np.arange(R), hit)
-            assert torch.equal(gs[untouched], slab[untouched])
-            assert torch.equal(ga[untouched], acc[untouched])
+            adagrad_rows(*got, uids, g, lr, 1e-7)
+            assert adagrad_rows.launches == before + (stream != "empty")
+            adagrad_rows_plain(*want, uids, g, lr, 1e-7)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), stream
+            moved = not torch.equal(got[0], slab)
+            assert moved == (stream not in ("all_pad", "empty"))
+            if stream == "wrap_to_row0":
+                assert not torch.equal(got[1][0], acc[0])  # -R's state
+            if stream == "wrapped_row":
+                assert not torch.equal(got[0][R - 3], slab[R - 3])
+
+
+@pytest.mark.cuda
+def test_adagrad_rows_record_hits_and_replays_in_a_cuda_graph(cuda_device):
+    """K6 through its launch record: a second call with new tensors of
+    the same layouts builds nothing; a changed width, dtype or eps builds
+    a new record; a call captured in a ``torch.cuda.CUDAGraph`` (device
+    lr) and replayed twice with fresh inputs copied into the captured
+    tensors gives the eager call's bits each time (the launch keeps no
+    state between calls)."""
+    import importlib
+
+    ada = importlib.import_module("distributed_embeddings_torch.ops.adagrad")
+    rng = np.random.default_rng(19)
+    R, w = 3000, 16
+    ids = np.concatenate([[-5], np.sort(rng.permutation(R - 10)[:700] + 1),
+                          np.full(400, R)])
+    uids = torch.from_numpy(ids).int().to(cuda_device)
+
+    def case():
+        g = torch.from_numpy(rng.normal(size=(len(ids), w)).astype(
+            np.float32)).to(cuda_device)
+        return [torch.from_numpy(rng.normal(size=(R, w)).astype(
+            np.float32)).abs().to(cuda_device) for _ in range(2)], g
+
+    def pair(fn, slab, acc, g, lr, eps=1e-7):
+        out = [slab.clone(), acc.clone()]
+        fn(*out, uids, g, lr, eps)
+        return out
+
+    lr = torch.tensor(0.02, device=cuda_device)
+    (slab, acc), g = case()
+    pair(adagrad_rows, slab, acc, g, lr)
+    builds = ada._CACHE.builds
+    (slab, acc), g = case()
+    want = pair(adagrad_rows_plain, slab, acc, g, lr)
+    got = pair(adagrad_rows, slab, acc, g, lr)
+    assert ada._CACHE.builds == builds
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    pair(adagrad_rows, slab[:, :8].contiguous(), acc[:, :8].contiguous(),
+         g[:, :8].contiguous(), lr)
+    assert ada._CACHE.builds == builds + 1
+    pair(adagrad_rows, slab, acc, g, lr, eps=1e-6)
+    assert ada._CACHE.builds == builds + 2
+    state = [slab.clone(), acc.clone()]
+    gin = g.clone()
+    stream = torch.cuda.Stream(device=cuda_device)
+    stream.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(stream):
+        adagrad_rows(*state, uids, gin, lr, 1e-7)
+    torch.cuda.current_stream(cuda_device).wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        adagrad_rows(*state, uids, gin, lr, 1e-7)
+    for _ in range(2):
+        (s0, a0), g0 = case()
+        want = pair(adagrad_rows, s0, a0, g0, lr)
+        state[0].copy_(s0)
+        state[1].copy_(a0)
+        gin.copy_(g0)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(state, want))
+        assert not torch.equal(state[0], s0)
 
 
 @pytest.mark.cuda
@@ -1602,14 +1725,18 @@ def _remap_case(rng, n, rows_cap, cap, is64, dev):
     (1, 8, 1, 1, 0),
     (5_000, 4_096, 1_000, 2, 1),
     (20_000, 64, 1, 1, 1),            # one slot a table: heavy contention
-    (300_000, 1 << 20, 200_000, 2, 0),
+    (300_000, 1 << 20, 200_000, 2, 0),  # past one wave of CTAs
+    (1_200_000, 1 << 21, 500_000, 2, 1),  # past kHold positions a thread
 ])
 def test_streaming_kernels_match_plain(cuda_device, n, rows_cap, cap, admit,
                                        margin, is64):
     """K16 (remap and stage, update and read-only) and K17 (commit)
     against their plain versions on the card, four steps from one prior
     state with a fifth disabled: every output and leaf bit-exact (NaN
-    equals NaN)."""
+    equals NaN). The update's persistent launch holds up to 4 positions
+    a thread of its grid in registers (132 SMs x 4 CTAs x 256 threads:
+    540,672 on an H100); the last case runs past that, through the
+    record's scratch."""
     from distributed_embeddings_torch.ops import streaming as so
 
     runs = []
@@ -1655,6 +1782,98 @@ def test_streaming_kernels_match_plain(cuda_device, n, rows_cap, cap, admit,
     assert float(counts[0]) > 0  # admissions
     assert n == 1 or float(counts[3]) > 0  # hits
     assert int(runs[0][-1][-5]) == 4  # the disabled step did not count
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("is64", [False, True])
+def test_streaming_remap_fold_views_and_graph_replay(cuda_device, is64):
+    """K16's update on its launch record: the staged sketch after the
+    call equals K13's fold (``cms_update``) of the same fingerprints of
+    the live positions into a copy of the prior sketch; its outputs are
+    views of one allocation (16-byte aligned, disjoint, int32 ``[n]`` and
+    int64 counts) bit-exact to the plain version; one launch a call and
+    no K13 launch; a second call with new tensors of the same layouts
+    builds no record; both modes captured in a ``torch.cuda.CUDAGraph``
+    and replayed twice with fresh inputs copied into the captured
+    tensors give the eager calls' bits."""
+    import importlib
+
+    from distributed_embeddings_torch.ops import sketch as sk
+    from distributed_embeddings_torch.ops import streaming as so
+
+    som = importlib.import_module("distributed_embeddings_torch.ops."
+                                  "streaming")
+    dev, n, rows_cap, cap = cuda_device, 70_001, 1 << 18, 20_000
+    rng = np.random.default_rng(71 + is64)
+    slot_fp = torch.full((rows_cap,), -1, dtype=torch.int32, device=dev)
+    slot_freq = torch.zeros(rows_cap, dtype=torch.int32, device=dev)
+    slot_fp[::3] = torch.randint(0, 2 ** 31 - 1, (slot_fp[::3].numel(),),
+                                 dtype=torch.int32, device=dev)
+    slot_freq[::2] = 3
+    cms = torch.randint(0, 5, (4, 4096), dtype=torch.int32, device=dev)
+
+    def stream():
+        return _remap_case(rng, n, rows_cap, cap, is64, dev)
+
+    s = stream()
+    staged = cms.clone()
+    k13 = sk.cms_update.launches
+    before = so.remap_stage.launches
+    r = so.remap_stage(*s, slot_fp, slot_freq, staged, 2, 1)
+    assert so.remap_stage.launches == before + 1
+    assert sk.cms_update.launches == k13
+    want = so.remap_stage_plain(*s, slot_fp, slot_freq, cms.clone(), 2, 1)
+    for f in so.Remap._fields:
+        np.testing.assert_array_equal(to_np(getattr(r, f)),
+                                      to_np(getattr(want, f)), err_msg=f)
+    folded = cms.clone()
+    sk.cms_update(folded, r.fp, s[1] & (s[0] >= 0))
+    assert torch.equal(staged, folded)
+    views = list(r)
+    base = views[0].untyped_storage().data_ptr()
+    spans = sorted((v.data_ptr(), v.data_ptr() + v.numel()
+                    * v.element_size()) for v in views)
+    assert all(v.untyped_storage().data_ptr() == base for v in views)
+    assert all(a % 16 == 0 for a, _ in spans)
+    assert all(b <= c for (_, b), (c, _) in zip(spans, spans[1:]))
+    assert [v.dtype for v in views] == [torch.int32] * 5 + [torch.int64]
+    assert [v.numel() for v in views] == [n] * 5 + [4]
+    builds = som._CACHE.builds
+    s2 = stream()
+    so.remap_stage(*s2, slot_fp, slot_freq, cms.clone(), 2, 1)
+    so.remap_stage(*s2, slot_fp, slot_freq, None, 2, 1, update=False)
+    so.remap_stage(*s2, slot_fp, slot_freq, None, 2, 1, update=False)
+    assert som._CACHE.builds == builds + 1  # the read-only record
+    # both modes in one graph, replayed on fresh streams
+    ins = [t.clone() for t in stream()]
+    st_in = cms.clone()
+    side = torch.cuda.Stream(device=dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        so.remap_stage(*ins, slot_fp, slot_freq, st_in, 2, 1)
+        so.remap_stage(*ins, slot_fp, slot_freq, None, 2, 1, update=False)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        gu = so.remap_stage(*ins, slot_fp, slot_freq, st_in, 2, 1)
+        gr = so.remap_stage(*ins, slot_fp, slot_freq, None, 2, 1,
+                            update=False)
+    for _ in range(2):
+        fresh = stream()
+        for t, v in zip(ins, fresh):
+            t.copy_(v)
+        st_in.copy_(cms)
+        eager_cms = cms.clone()
+        eu = so.remap_stage(*fresh, slot_fp, slot_freq, eager_cms, 2, 1)
+        er = so.remap_stage(*fresh, slot_fp, slot_freq, None, 2, 1,
+                            update=False)
+        graph.replay()
+        torch.cuda.synchronize()
+        for f in so.Remap._fields:
+            assert torch.equal(getattr(gu, f), getattr(eu, f)), f
+        assert torch.equal(gr.local_rows, er.local_rows)
+        assert torch.equal(st_in, eager_cms)
+        assert int(eu.counts[0]) > 0
 
 
 @pytest.mark.cuda

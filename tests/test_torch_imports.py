@@ -34,6 +34,7 @@ def _sources():
     files.append(ROOT / "segment_variants.py")
     files.append(ROOT / "dot_variants.py")
     files.append(ROOT / "row_variants.py")
+    files.append(ROOT / "stream_variants.py")
     files.append(ROOT / "variants.py")
     files.append(ROOT / "tests" / "torch_dist_worker.py")
     return files

@@ -1,7 +1,7 @@
-"""The launch records of K21 (``ops/grad_health.py``) and K11
-(``ops/adam.py``) on CPU tensors: the records are built without a launch
-(``build_on_cpu``), so their keys, their chunk plans and constants, their
-reuse and every rebuild or raise run here.
+"""The launch records of K21 (``ops/grad_health.py``), K11
+(``ops/adam.py``) and K6 (``ops/adagrad.py``) on CPU tensors: the records
+are built without a launch (``build_on_cpu``), so their keys, their chunk
+plans and constants, their reuse and every rebuild or raise run here.
 
 What is held, all exactly (integers, addresses and float32 constants):
   - K21's key holds the count, shapes, strides, dtypes and devices of the
@@ -13,10 +13,14 @@ What is held, all exactly (integers, addresses and float32 constants):
   - K11's key holds the layouts, dtypes, hyperparameters and a constant
     lr (a tensor lr's layout), no address; its constants are the float32
     and moment-dtype roundings ``ops/adam.py:_rnd`` gives;
-  - K11's live-range search (``csrc/adam.cu:block_bounds``, transcribed)
-    finds the ends of the negative prefix and of the live range of a
-    sorted id stream, as ``np.searchsorted`` does;
-  - both validate as their wrappers always have, raising the same errors.
+  - K6's key holds the layouts, dtypes, ``eps`` and a constant lr (a
+    tensor lr's layout), no address; its constants are the roundings of
+    ``ops/adagrad.py:_lr_args`` (and of ``eps``) to the accumulator dtype;
+  - the live-range search of K6 and K11 (``csrc/row_update.cuh:
+    block_bounds``, transcribed) finds the ends of the negative prefix and
+    of the live range of a sorted id stream, as ``np.searchsorted`` does;
+  - all three validate as their wrappers always have, raising the same
+    errors.
 """
 
 import importlib
@@ -26,14 +30,16 @@ import pytest
 import torch
 
 from distributed_embeddings_torch.ops import _kernels
+from distributed_embeddings_torch.ops import adagrad as ada_mod
 from distributed_embeddings_torch.ops import adam as adam_mod
-from distributed_embeddings_torch.ops import adam_rows, grad_health
+from distributed_embeddings_torch.ops import (adagrad_rows, adam_rows,
+                                              grad_health)
 
 gh = importlib.import_module("distributed_embeddings_torch.ops.grad_health")
 
 torch.set_num_threads(1)
 
-THREADS = 256  # csrc/grad_health.cu kThreads, csrc/adam.cu kThreads
+THREADS = 256  # kThreads of csrc/grad_health.cu, adam.cu and adagrad.cu
 
 
 def _find(cache, module, *args):
@@ -298,7 +304,7 @@ def test_k11_validates_and_raises_as_before():
 
 
 def block_bounds(ids, v0, v1):
-    """``csrc/adam.cu:block_bounds`` transcribed: the first indices of the
+    """``csrc/row_update.cuh:block_bounds`` (K6's and K11's) transcribed: the first indices of the
     sorted ``ids`` holding a value >= v0 and >= v1, each round every one
     of THREADS threads probing one evenly spaced position of each open
     range (the block's ``__syncthreads_count`` is the sum)."""
@@ -352,3 +358,94 @@ def test_k11_live_range_search(case):
     assert live == np.searchsorted(ids, rows, "left")
     if case == "zoo_w16":
         assert rounds == 3
+
+
+# ------------------------------------------------------------------- K6
+
+
+def _ada_args(seed=0, R=50, w=8, u=12, dt=torch.float32, sdt=torch.float32,
+              ids=torch.int32, lr=0.01, eps=1e-7):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn((R, w), generator=g).to(sdt),
+            torch.full((R, w), 0.1, dtype=dt), torch.arange(u, dtype=ids),
+            torch.randn((u, w), generator=g).to(dt), lr, eps)
+
+
+def test_k6_key_holds_no_addresses_and_fresh_tensors_hit():
+    cache = _kernels.LaunchCache()
+    a, b = _ada_args(0), _ada_args(1)
+    assert ada_mod.record_key(*a) == ada_mod.record_key(*b)
+    ptrs = {t.data_ptr() for t in a[:4] + b[:4]}
+    assert not ptrs & {k for k in ada_mod.record_key(*a)
+                       if isinstance(k, int)}
+    rec = _find(cache, ada_mod, *a)
+    assert _find(cache, ada_mod, *b) is rec and cache.builds == 1
+    assert rec.calls == ()
+    # a tensor lr: its layout, not its address or value
+    lr1, lr2 = torch.tensor(0.01), torch.tensor(0.5)
+    k1 = ada_mod.record_key(*_ada_args(lr=lr1))
+    assert k1 == ada_mod.record_key(*_ada_args(lr=lr2))
+    assert lr1.data_ptr() not in k1
+
+
+@pytest.mark.parametrize("change", [
+    dict(w=16), dict(R=51), dict(u=13), dict(dt=torch.bfloat16),
+    dict(sdt=torch.bfloat16), dict(ids=torch.int64), dict(lr=0.02),
+    dict(eps=1e-6), dict(lr=torch.tensor(0.01)),
+    dict(lr=torch.tensor(0.01, dtype=torch.float64))])
+def test_k6_changed_layout_or_constant_builds_a_new_record(change):
+    cache = _kernels.LaunchCache()
+    _find(cache, ada_mod, *_ada_args())
+    _find(cache, ada_mod, *_ada_args(**change))
+    assert cache.builds == 2
+    _find(cache, ada_mod, *_ada_args(seed=3))
+    assert cache.builds == 2
+
+
+@pytest.mark.parametrize("acc", [torch.float32, torch.bfloat16])
+def test_k6_constants_are_the_roundings_of_lr_args(acc):
+    for lr, eps in ((0.01, 1e-7), (0.3, 1e-10), (1.0 / 3.0, 0.1)):
+        rec = ada_mod.find_record(*_ada_args(dt=acc, lr=lr, eps=eps),
+                                  build_on_cpu=True)
+        lr_as_is, c, prepared = rec.payload
+        assert lr_as_is and prepared is None
+        assert c == {"lr": ada_mod._lr_args(lr, acc, "cpu")[0],
+                     "eps": float(torch.tensor(eps, dtype=acc))}
+        if acc == torch.bfloat16:
+            assert c["lr"] != lr
+    # a card lr is read per call: converted where it is not float32
+    for lr, as_is in ((torch.tensor(0.01), True),
+                      (torch.tensor(0.01, dtype=torch.float64), False),
+                      (torch.full((1, 1), 0.01), True)):
+        rec = ada_mod.find_record(*_ada_args(dt=acc, lr=lr),
+                                  build_on_cpu=True)
+        assert rec.payload[0] is as_is and rec.payload[1]["lr"] == 0.0
+
+
+def test_k6_validates_and_raises_as_before():
+    def raises(match, changes):
+        args = list(_ada_args())
+        for k, v in changes.items():
+            args[k] = v
+        with pytest.raises(ValueError, match=match):
+            ada_mod.find_record(*args, build_on_cpu=True)
+
+    raises("slab: expected a contiguous 2-D", {0: torch.zeros(8, 50).t()})
+    raises("acc: expected a contiguous 2-D",
+           {1: torch.zeros(50, 8, dtype=torch.float64)})
+    raises("must share the slab's shape", {1: torch.zeros(50, 4)})
+    raises("uids: expected a contiguous", {2: torch.zeros(3, 4,
+                                                            dtype=torch.int32)})
+    raises("uids: expected a contiguous", {2: torch.zeros(12)})
+    raises("ugrads: expected a contiguous", {3: torch.zeros(12, 4)})
+    raises("ugrads: expected a contiguous",
+           {3: torch.zeros(12, 8, dtype=torch.bfloat16)})
+    raises("a tensor lr must hold one value", {4: torch.ones(2)})
+    m = torch.zeros(4, 8, device="meta")
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        adagrad_rows(m, m, torch.zeros(2, dtype=torch.int32, device="meta"),
+                     torch.zeros(2, 8, device="meta"), 0.1, 1e-7)
+    # the CPU wrapper runs the plain version, builds nothing
+    before = (adagrad_rows.launches, ada_mod._CACHE.builds)
+    adagrad_rows(*_ada_args())
+    assert (adagrad_rows.launches, ada_mod._CACHE.builds) == before

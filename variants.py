@@ -1,5 +1,6 @@
 """What the kernel-variant scripts (``k1_variants.py``,
-``segment_variants.py``, ``dot_variants.py``) share: patched copies of a
+``segment_variants.py``, ``dot_variants.py``, ``row_variants.py``,
+``stream_variants.py``) share: patched copies of a
 kernel's sources, built with ``nvcc`` all at once and loaded with
 ``ctypes`` beside the tree's own library, and timings taken in turns.
 
@@ -53,7 +54,8 @@ def build(kernels, lib, variants, tool, patched=None):
     with ``patched`` (default ``<lib>.cu``) passed through the variant,
     under ``build/<tool>/<lib>/<name>/``; the ``nvcc`` runs start
     together. ``variants``: name -> patch (or None for the tree's
-    source). Returns the loaded libraries by name."""
+    source, or ``(file, patch)`` to patch another file of the copy, a
+    shared header). Returns the loaded libraries by name."""
     root = os.path.join(HERE, "build", tool, lib)
     shutil.rmtree(root, ignore_errors=True)
     procs = []
@@ -61,6 +63,8 @@ def build(kernels, lib, variants, tool, patched=None):
         d = os.path.join(root, name, "csrc")
         shutil.copytree(kernels.CSRC, d)
         path = os.path.join(d, patched or lib + ".cu")
+        if isinstance(patch, tuple):
+            path, patch = os.path.join(d, patch[0]), patch[1]
         if patch is not None:
             with open(path) as f:
                 text = patch(f.read(), f"{tool} {lib} {name}")
