@@ -397,7 +397,8 @@ def parent_ops():
     """The parent checkout's ``ops.dense_update``, ``ops.exchange_pack``,
     ``ops.embedding_lookup``, ``ops.scatter_add``, ``ops.interaction``,
     ``ops.sparse_grad``, ``ops.grad_health``, ``ops.adam``,
-    ``ops.adagrad`` and ``ops.streaming`` modules and its ``models.dlrm``
+    ``ops.adagrad``, ``ops.momentum`` and ``ops.streaming`` modules and
+    its ``models.dlrm``
     (key ``"dlrm"``),
     loaded under the
     package name
@@ -420,10 +421,11 @@ def parent_ops():
             ["dense_update", "exchange_pack", "gather_combine", "csr",
              "sgd_scatter", "sgd_promoted", "dot_interact",
              "ragged_combine", "dedup", "grad_health", "adam", "adagrad",
-             "streaming", "sketch"])
+             "momentum", "streaming", "sketch"])
         for name in ("dense_update", "exchange_pack", "embedding_lookup",
                      "scatter_add", "interaction", "sparse_grad",
-                     "grad_health", "adam", "adagrad", "streaming"):
+                     "grad_health", "adam", "adagrad", "momentum",
+                     "streaming"):
             _parent[name] = importlib.import_module(
                 f"detpu_parent.ops.{name}")
         _parent["dlrm"] = importlib.import_module("detpu_parent.models.dlrm")
@@ -456,12 +458,12 @@ LOOKUP_SITES = (("lookup", "gather_combine"), ("lookup", "lengths_to_splits"),
 
 @contextlib.contextmanager
 def parent_wrappers():
-    """Route the steps' K19/K20/K22, K3/K18, K5, K6, K11, K16 and K21
-    call sites (the module globals ``parallel.exchange.pack_ids``/
+    """Route the steps' K19/K20/K22, K3/K18, K5, K6, K11, K12, K16, K17
+    and K21 call sites (the module globals ``parallel.exchange.pack_ids``/
     ``pack_columns``, ``parallel.optimizers.dense_update``/
-    ``sgd_scatter``/``dedup_sparse_grad``/``adagrad_rows``/``adam_rows``,
-    ``parallel.streaming.remap_stage`` (the parent's K16 update folds
-    with its own K13) and ``parallel.trainer.grad_health``: the parent's
+    ``sgd_scatter``/``dedup_sparse_grad``/``adagrad_rows``/``adam_rows``/
+    ``momentum_rows``, ``parallel.streaming.remap_stage``/``commit_rows``
+    and ``parallel.trainer.grad_health``: the parent's
     ``sgd_scatter`` takes its own K18 for the promoted chain), the
     interaction (``models.dlrm.dot_interact``: the parent's stacks the
     features and runs its K2 and K4) and their K1/K8/K10 call sites
@@ -488,7 +490,8 @@ def parent_wrappers():
              optimizers.dense_update, optimizers.sgd_scatter,
              optimizers.dedup_sparse_grad, dlrm.dot_interact,
              trainer.grad_health, optimizers.adam_rows,
-             optimizers.adagrad_rows, smod.remap_stage)
+             optimizers.adagrad_rows, smod.remap_stage,
+             optimizers.momentum_rows, smod.commit_rows)
     # the parent's interaction: its stack of the features, then its K2
     # (and, through its autograd Function, its K4)
     dlrm.dot_interact = par["dlrm"].dot_interact
@@ -503,6 +506,8 @@ def parent_wrappers():
     optimizers.adam_rows = par["adam"].adam_rows
     optimizers.adagrad_rows = par["adagrad"].adagrad_rows
     smod.remap_stage = par["streaming"].remap_stage
+    optimizers.momentum_rows = par["momentum"].momentum_rows
+    smod.commit_rows = par["streaming"].commit_rows
     mods = {m: importlib.import_module(
         f"distributed_embeddings_torch.parallel.{m}")
         for m, _ in LOOKUP_SITES}
@@ -516,7 +521,8 @@ def parent_wrappers():
          optimizers.dense_update, optimizers.sgd_scatter,
          optimizers.dedup_sparse_grad, dlrm.dot_interact,
          trainer.grad_health, optimizers.adam_rows,
-         optimizers.adagrad_rows, smod.remap_stage) = saved
+         optimizers.adagrad_rows, smod.remap_stage,
+         optimizers.momentum_rows, smod.commit_rows) = saved
         for (m, name), fn in zip(LOOKUP_SITES, lookups):
             setattr(mods[m], name, fn)
 
@@ -666,6 +672,71 @@ def launch_host_split(torch, what, key_fn, cache, tail, wrapper, ts,
     torch.cuda.synchronize()
     out["rest_us"] = out["wrapper_us"] - sum(out[k] for k in parts)
     log(f"host split {what} (us a call): " + json.dumps(out))
+    return out
+
+
+def call_floor(torch, what, fn, parent_fn=None, calls=20, runs=5):
+    """Where a single call's event ms goes beyond its host and device
+    time: CUDA-event ms a call of ``fn`` (and of ``parent_fn``, in turns
+    with it) with ``calls`` calls between two events, over ``calls``
+    (``back_to_back_ms``: the host enqueues while the card runs), the
+    median of ``runs``; the host's time of one call right after the card
+    went idle (``single_host_ms``, the median of ``calls``: what a
+    single call between two events pays before its launch, where
+    ``host_ms`` is the mean of a loop of calls); and of one call of
+    ``fn`` captured in a CUDA graph, each replay between two events
+    (``graph_ms``: the launches with no wrapper host work; None where
+    the capture fails, with the error)."""
+    def back_to_back(f):
+        for _ in range(calls):
+            f()
+        torch.cuda.synchronize()
+        ms = []
+        for _ in range(runs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(calls):
+                f()
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end) / calls)
+        return float(np.median(ms))
+
+    def single_host(f):
+        ms = []
+        for _ in range(calls):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            f()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        return float(np.median(ms))
+
+    sides = [(fn, "")] + ([(parent_fn, "parent_")] if parent_fn else [])
+    out = {}
+    for name, how in (("back_to_back_ms", back_to_back),
+                      ("single_host_ms", single_host)):
+        got = {}
+        for f, tag in sides + sides[::-1]:
+            got.setdefault(tag, []).append(how(f))
+        out.update({f"{tag}{name}": float(np.median(v))
+                    for tag, v in got.items()})
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn()
+        out["graph_ms"] = time_ms(torch, graph.replay, [()])
+        del graph
+    except Exception as e:  # the diagnostic's result is the report
+        torch.cuda.synchronize()
+        out.update(graph_ms=None, graph_error=str(e)[:200])
+    log(f"call floor {what} (ms a call): " + json.dumps(out))
     return out
 
 
@@ -4186,11 +4257,13 @@ def adam_kernel_checks(torch):
     float32 tables and state, bf16 tables and state, bf16 tables over
     float32 state; widths 16, 8 (4-element loads) and 3 (one-element);
     int32 and int64 ids; a Python and a device lr; counts 1 and 1000
-    (K11); Nesterov off and on (K12); negative ids, the sentinel, ids
-    past the slab and a pad tail, in the dedup's signed order (no id 0
-    beside negative ids: both read row 0, in no set order on the card). Then one ``apply_rows`` of each
-    optimizer on a stream where one id repeats 50,000 times, its row
-    kernel held to the plain version on the K5 output of that call."""
+    (K11); Nesterov off and on (K12); negative ids beside id 0, the
+    sentinel, ids past the slab and a pad tail, in the dedup's signed
+    order (the walk K11 and K12 share runs the negative prefix, which
+    reads row 0 as it was, before row 0's own update). Then one
+    ``apply_rows`` of each optimizer on a stream where one id repeats
+    50,000 times, its row kernel held to the plain version on the K5
+    output of that call."""
     from distributed_embeddings_torch.parallel import optimizers
 
     rng = np.random.default_rng(SEED + 100)
@@ -4202,10 +4275,10 @@ def adam_kernel_checks(torch):
         for w in (16, 8, 3):
             rows = 1 + rng.permutation(R - 21)[:1500]
             # the dedup's signed order (K11 finds its live range in it)
-            uids = np.sort(np.concatenate([rows, [-1, -7, R, R + 5, -R - 3],
-                                           [R] * 64]))
+            uids = np.sort(np.concatenate([rows, [0, -1, -7, R, R + 5,
+                                                  -R - 3], [R] * 64]))
             untouched = torch.as_tensor(np.setdiff1d(
-                np.arange(R), np.union1d(rows, [R - 1, R - 7])),
+                np.arange(R), np.union1d(rows, [0, R - 1, R - 7])),
                 device="cuda")
             g = torch.as_tensor(rng.normal(size=(len(uids), w)).astype(
                 np.float32), device="cuda").to(md)
@@ -4563,12 +4636,11 @@ def row_zoo_full_check(torch, de, opt, tx, st, data, name, label,
 
 
 def row_kernel_times(torch, de, opt, st, data, name):
-    """CUDA-event medians of K11 or K12 at the zoo's w16 and w8 shapes
-    (the unique rows of one step's K5 output), each against its plain
-    version and its byte bound (each touched row's gradient, state and
-    slab rows read once and written once, and the ids); K11 through
-    ``k11_case`` (in turns with the parent's, its library call and its
-    host split); K12 has no single library call."""
+    """K11 or K12 at the zoo's w16 and w8 shapes (the unique rows of one
+    step's K5 output) through ``k11_case`` / ``k12_case``: in turns with
+    the parent's wrapper, beside the plain version, the byte bound of the
+    live rows and the record's host split (K12 has no single library
+    call)."""
     from distributed_embeddings_torch.parallel import (
         make_hybrid_train_step, optimizers)
 
@@ -4587,36 +4659,16 @@ def row_kernel_times(torch, de, opt, st, data, name):
         rows, w = slab.shape
         check(ugrads.shape[1] == w, f"{name} times: {key} stream order")
         touched = int((uids < rows).sum())
+        label = (f"zoo {key} {str(slab.dtype)[6:]}: {touched} unique rows "
+                 f"of {w}")
         if name == "adam":
-            cases.append(k11_case(
-                torch, f"zoo {key} {str(slab.dtype)[6:]}: {touched} unique "
-                f"rows of {w}", (slab, *state, uids, ugrads, ZOO_LR, opt.b1,
-                                 opt.b2, opt.eps, opt.eps_root)))
-            continue
-        es, eg = slab.element_size(), ugrads.element_size()
-        n_state = 2 if name == "adam" else 1
-        nest = name != "adam" and opt.nesterov
-
-        def run(kernel):
-            return row_update(torch, name, kernel, slab, state, uids, ugrads,
-                              ZOO_LR, nest)
-
-        nbytes = (uids.numel() * uids.element_size()
-                  + touched * w * (eg + 2 * (es + n_state * eg)))
-        ops = touched * w * (15 if name == "adam" else 6)
-        c = {"case": f"zoo {key}: {touched} unique rows of {w}",
-             "ms": time_ms(torch, run, [(True,)]),
-             "plain_ms": time_ms(torch, run, [(False,)]),
-             "library_ms": None,
-             "bound_ms": max(nbytes / HBM_BYTES_PER_S,
-                             ops / F32_OPS_PER_S) * 1e3,
-             "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
-                          >= ops / F32_OPS_PER_S else "operations"),
-             "unique_rows": touched, "bytes": nbytes}
-        cases.append(c)
-        log(f"time {ROW_SITES[name]} {c['case']}: kernel {c['ms']:.4f} ms, "
-            f"plain {c['plain_ms']:.4f}, library {c['library_ms']}, bound "
-            f"{c['bound_ms']:.4f}")
+            cases.append(k11_case(torch, label, (
+                slab, *state, uids, ugrads, ZOO_LR, opt.b1, opt.b2, opt.eps,
+                opt.eps_root)))
+        else:
+            cases.append(k12_case(torch, label, (
+                slab, state, uids, ugrads, ZOO_LR, opt.momentum,
+                opt.nesterov)))
     gc.collect()
     torch.cuda.empty_cache()
     return st, sorted(cases, key=lambda c: -c["unique_rows"])
@@ -4677,6 +4729,63 @@ def k6_case(torch, label, args):
          lr.data_ptr() if isinstance(lr, torch.Tensor) else None),
         lambda: adagrad_rows(*args), [slab, acc, uids, ugrads])
     for t, k in zip((slab, acc), kept):
+        t[hit] = k
+    return case
+
+
+def k12_case(torch, label, args):
+    """K12 on one call's arguments (slab, trace, uids, uvals, lr,
+    momentum, nesterov) through ``kernel_case``: in turns with the
+    parent's wrapper (the first design's two launches over every id),
+    beside its plain version and its byte bound (each live row's gradient
+    row read once, its trace and slab rows read and written once, and the
+    live ids: the pad tail is not the function's work), with its
+    record's host split; no single PyTorch call computes the momentum
+    row update. The rows it touches are put back after, so the state
+    goes on as the step left it."""
+    import importlib
+
+    from distributed_embeddings_torch.ops import (momentum_rows,
+                                                  momentum_rows_plain)
+
+    mom = importlib.import_module("distributed_embeddings_torch.ops."
+                                  "momentum")
+    slab, trace, uids, uvals, lr = args[:5]
+    rows, w = slab.shape
+    live = uids < rows
+    touched = int(live.sum())
+    hit = uids[live].long()
+    hit = torch.unique(torch.cat([torch.where(hit < 0, hit + rows, hit),
+                                  hit.new_zeros(1)]))
+    hit = hit[hit >= 0]
+    kept = [t[hit].clone() for t in (slab, trace)]
+    es, et = slab.element_size(), trace.element_size()
+    nbytes = touched * (uids.element_size() + w * (et + 2 * (es + et)))
+    ops = 6 * touched * w
+    parent = parent_ops()
+    case = kernel_case(
+        torch, "momentum_rows", label, lambda: momentum_rows(*args),
+        (lambda: parent["momentum"].momentum_rows(*args)) if parent
+        else None, None, nbytes, plain=lambda: momentum_rows_plain(*args),
+        extra={"unique_rows": touched, "ids": uids.numel(),
+               "dtypes": [str(slab.dtype)[6:], str(trace.dtype)[6:]],
+               "nesterov": bool(args[6]),
+               "library_call": "none: no single PyTorch call on CUDA "
+                               "computes the momentum row update"})
+    if ops / F32_OPS_PER_S > nbytes / HBM_BYTES_PER_S:
+        case.update(bound_ms=ops / F32_OPS_PER_S * 1e3, bound_by="operations")
+    case.update(call_floor(
+        torch, f"momentum_rows {label}", lambda: momentum_rows(*args),
+        (lambda: parent["momentum"].momentum_rows(*args)) if parent
+        else None))
+    case["host_split_us"] = launch_host_split(
+        torch, f"momentum_rows {label}", lambda: mom.record_key(*args),
+        mom._CACHE,
+        (slab.data_ptr(), trace.data_ptr(), uids.data_ptr(),
+         uvals.data_ptr(),
+         lr.data_ptr() if isinstance(lr, torch.Tensor) else None),
+        lambda: momentum_rows(*args), [slab, trace, uids, uvals])
+    for t, k in zip((slab, trace), kept):
         t[hit] = k
     return case
 
@@ -4816,16 +4925,19 @@ def phase_adam(torch):
     # the same slabs with SparseMomentum (and Nesterov): Adam's state goes
     mom = {}
     mom_launches = mom_cases = None
+
+    def fresh_state(st, opt, tx):
+        st = st._replace(emb_opt_state=None, dense_opt_state=None)
+        gc.collect()
+        torch.cuda.empty_cache()
+        return st._replace(
+            emb_opt_state=opt.init(st.emb_params),
+            dense_opt_state=tx.init(list(st.dense_params.parameters())))
+
     for nest in (False, True):
         label = "nesterov" if nest else "momentum"
         opt, tx = row_optimizer("momentum", nest)
-        st = st._replace(
-            emb_opt_state=None, dense_opt_state=None)
-        gc.collect()
-        torch.cuda.empty_cache()
-        st = st._replace(
-            emb_opt_state=opt.init(st.emb_params),
-            dense_opt_state=tx.init(list(st.dense_params.parameters())))
+        st = fresh_state(st, opt, tx)
         st, full = row_zoo_full_check(torch, de, opt, tx, st, data,
                                       "momentum", label, nesterov=nest)
         for k, v in full.items():
@@ -4837,6 +4949,28 @@ def phase_adam(torch):
             mom_launches = launches
             st, mom_cases = row_kernel_times(torch, de, opt, st, data,
                                              "momentum")
+    # both momentum steps in turns with the parent's wrappers (K12's
+    # first design among them), after every check: Nesterov on the state
+    # its checks left, then plain momentum from a fresh trace
+    for nest in (True, False):
+        label = "nesterov" if nest else "momentum"
+        if not nest:
+            opt, tx = row_optimizer("momentum", False)
+            st = fresh_state(st, opt, tx)
+        holder = [st]
+        mstep = make_hybrid_train_step(de, zoo_loss, tx, opt,
+                                       lr_schedule=ZOO_LR, nan_guard=False)
+
+        def mom_step(k, mstep=mstep):
+            num, cats, lab = data[k % len(data)]
+            holder[0] = mstep(holder[0], cats, (num, lab))[1]
+
+        turns = steps_in_turns(torch, mom_step, rounds=2)
+        st = holder[0]
+        if turns:
+            mom[label]["in_turns_with_parent"] = turns
+            log(f"{label} zoo fp32: steps in turns with the parent's "
+                "wrappers (K12 among them; ms): " + json.dumps(turns))
     result.update(mom)
     del st
     gc.collect()
@@ -6169,8 +6303,7 @@ def stream_dlrm_timed(torch, de, twin, st, ss, cfg, batches):
     return st, ss, launches, metrics
 
 
-STREAM_KERNELS = ("stream_remap_kernel", "commit_scrub_kernel",
-                  "commit_hits_kernel", "commit_state_kernel")
+STREAM_KERNELS = ("stream_remap_kernel", "commit_kernel")
 STREAM_CHAIN = re.compile(r"namespace\)::(" + "|".join(STREAM_KERNELS)
                           + r")[<(]")
 
@@ -6300,13 +6433,30 @@ def stream_dlrm_serve(torch, de, st, ss, cfg):
                       "max_abs_err_vs_eval": worst}
 
 
+def commit_bytes(torch, pend, rows_cap, row_bytes, sketch_words):
+    """K17's byte bound for one call on ``pend``'s data: each position's
+    scrub row, hit row and estimate read once; per claimed row its
+    fingerprint read, its two slot-map words written and its rows of the
+    slab and the leaves (``row_bytes``, summed over them) read and
+    written; per distinct hit row its ``slot_freq`` word read and
+    written; the staged sketch read and the carried one written; the
+    counts, totals, counters and ``steps`` (64 bytes)."""
+    def rows_of(r):
+        return r[(r >= 0) & (r < rows_cap)]
+
+    claims = rows_of(pend.scrub_rows).numel()
+    hit_rows = torch.unique(rows_of(pend.hit_rows)).numel()
+    return (pend.scrub_rows.numel() * 12 + claims * (12 + 2 * row_bytes)
+            + hit_rows * 8 + 2 * sketch_words * 4 + 64)
+
+
 def stream_kernel_times(torch, de, st, ss, cfg, batches):
     """K16 (update and read-only) and K17 timed on the streaming DLRM
     step's own stream (the 5 streaming features' 327,680 positions),
-    beside their plain versions, their byte bounds and a PyTorch
-    yardstick; K16 through ``kernel_case`` (in turns with the parent's
-    wrapper, which folds with its own K13) with its records' host
-    splits."""
+    beside their plain versions, their byte bounds and (K16) a PyTorch
+    yardstick; both through ``kernel_case`` (in turns with the parent's
+    wrappers: its K16 folds with its own K13, its K17 is three launches)
+    with their records' host splits."""
     import importlib
 
     from distributed_embeddings_torch.ops import sketch as sk
@@ -6411,27 +6561,37 @@ def stream_kernel_times(torch, de, st, ss, cfg, batches):
     on = torch.tensor(True, device="cuda")
     slot_fp, slot_freq = ws["slot_fp"].clone(), ws["slot_freq"].clone()
     cms, staged2 = ws["cms"].clone(), ws["cms"].clone()
-    c_args = [(slab, [(acc, 0.1)], pend, slot_fp, slot_freq, cms, staged2,
-               totals, counters, steps)]
-    commit_ms = time_ms(torch, lambda *a: sops.commit_rows(*a, enable=on),
-                        c_args)
-    commit_plain = time_ms(torch, lambda *a: sops.commit_rows_plain(
-        *a, enable=on), c_args)
-    commit_bytes = (n * 16 + claims * (2 * 2 * 128 * 4 + 8) + hits * 8
-                    + sketch_b + 64)
-    cases = {
-        "remap_stage": [upd, ro],
-        "commit_rows": [dict(
-            case=f"{claims} claimed rows (slab and fp32 accumulator, "
-                 f"w128), {hits} hits, of {n} positions",
-            ms=commit_ms, plain_ms=commit_plain, library_ms=None,
-            library="none: no PyTorch call computes the guarded commit",
-            bound_ms=commit_bytes / HBM_BYTES_PER_S * 1e3,
-            bound_by="bytes", bytes=commit_bytes)]}
-    c = cases["commit_rows"][0]
-    log(f"time commit_rows {c['case']}: kernel {c['ms']:.4f} ms, plain "
-        f"{c['plain_ms']:.4f}, library none, bound {c['bound_ms']:.5f}")
-    return cases
+    c_args = (slab, [(acc, 0.1)], pend, slot_fp, slot_freq, cms, staged2,
+              totals, counters, steps)
+    nbytes = commit_bytes(torch, pend, rows_cap,
+                          slab.element_size() * 128 + acc.element_size()
+                          * 128, ws["cms"].numel())
+    ts = sops._commit_tensors(*c_args, on)
+    commit = kernel_case(
+        torch, "commit_rows",
+        f"{claims} claimed rows (slab and fp32 accumulator, w128), {hits} "
+        f"hits, of {n} positions",
+        lambda: sops.commit_rows(*c_args, enable=on),
+        (lambda: psops.commit_rows(*c_args, enable=on)) if parent else None,
+        None, nbytes,
+        plain=lambda: sops.commit_rows_plain(*c_args, enable=on),
+        extra={"positions": n, "claims": claims, "hits": hits,
+               "distinct_hit_rows": int(torch.unique(
+                   pend.hit_rows[pend.hit_rows < rows_cap]).numel()),
+               "library": "none: no PyTorch call computes the guarded "
+                          "commit"})
+    commit.update(call_floor(
+        torch, "commit_rows", lambda: sops.commit_rows(*c_args, enable=on),
+        (lambda: psops.commit_rows(*c_args, enable=on)) if parent
+        else None))
+    pad = sops.find_commit_record(*c_args, enable=on).payload[1]
+    commit["host_split_us"] = launch_host_split(
+        torch, "commit_rows", lambda: sops.commit_key(*c_args, enable=on),
+        sops._COMMIT, (*(t.data_ptr() for t in ts), *pad),
+        lambda: sops.commit_rows(*c_args, enable=on), list(ts),
+        extra={"addresses_us": lambda: (*(t.data_ptr() for t in ts),
+                                        *pad)})
+    return {"remap_stage": [upd, ro], "commit_rows": [commit]}
 
 
 def stream_stages(torch, de, holder, cfg, batches, runs=8):
@@ -6503,7 +6663,7 @@ def stream_stages(torch, de, holder, cfg, batches, runs=8):
 def stream_overhead_in_turns(torch, de, twin, holder, cfg, batches,
                              steps=10):
     """``streaming_overhead_frac`` through this tree's wrappers and the
-    parent's (``parent_wrappers``: K5, K6, K16 and the rest), in turns
+    parent's (``parent_wrappers``: K5, K6, K16, K17 and the rest), in turns
     change, parent, parent, change; each turn times the dynamic step and
     the static twin's, ``steps`` steps each after two warmups (host
     clock). Per side the medians; None without ``--parent``.

@@ -2,7 +2,7 @@
 // (momentum.cu): the float32 / bfloat16 element types, their row loads
 // and stores, the index rules by which a kernel over the dedup output
 // uids [u] (sorted, each id once) reads and writes its rows, and the
-// live-range walk of K6 and K11.
+// live-range walk all three run (walk_live_rows).
 //
 // The rules are those of JAX's take(mode="clip") reads and
 // .at[uids].set / .add(mode="drop", indices_are_sorted=True) writes
@@ -15,29 +15,27 @@
 // - when the stream holds both -k and R - k, row R - k of the slab takes
 //   both deltas, -k's first (it sorts first): rS(rS(slab - u_neg) -
 //   u_pos); its state rows take R - k's transition (the later set wins).
-// K12 runs two passes over uids, in order on the stream:
-// pass 0, the negative ids: each reads row 0's state (nothing has been
-//   written yet), adds its delta to its slab row, and writes its state
-//   row unless a non-negative id of the stream owns that row (or the
-//   row is row 0, which the other negative ids are still reading);
-// pass 1, the other ids as one read-modify-write each; and -R, whose
-//   row is row 0, writes its state transition there unless id 0 is in
-//   the stream (no other thread reads row 0 in this pass then).
-// K6 and K11 keep the same order inside ONE launch (walk_live_rows): the
+// K6, K11 and K12 keep that order inside ONE launch (walk_live_rows): the
 // uids are the dedup's SORTED output (signed order: negative ids first,
 // then the live ids, then the ids >= rows, the pad tail and the
 // sentinel, last), of which the zoo's streams leave ~70% pad. Each CTA
 // finds the end of the negative prefix and of the live range by a
 // block-wide search (block_bounds: kThreads evenly spaced probes a
 // round, 3 rounds for 2.9M ids) and walks only its share of the live
-// rows. CTA 0 runs the negative prefix (rare: the zoo has none) by pass
-// 0's rules and, behind a barrier, the few rows the rules put after it,
-// which every CTA skips. A lane group of G lanes (G the V-element chunks
-// of a row rounded up to a power of two, at most 32) takes kRows
-// consecutive live rows at a time and starts all their loads (gradient
-// rows by a streaming load: read once) before the math; each lane moves
-// 16 bytes of a float32 row (8 of a bf16 one) a load where the width and
-// the call's pointers' alignment allow it (V = 4), single elements
+// rows. CTA 0 runs the negative prefix (rare: the zoo has none) first:
+// each negative id reads row 0's state (nothing has been written yet),
+// adds its delta to its slab row, and writes its state row unless a
+// live id of the stream owns that row (or the row is row 0, which the
+// other negative ids are still reading; prefix_job). Behind a barrier
+// CTA 0 then runs the few rows the rules put after the prefix, which
+// every CTA skips: live row 0, each live row R - k whose -k is in the
+// prefix, and -R's state transition onto row 0 where 0 is not in the
+// stream. A lane group of G lanes (G the V-element chunks of a row
+// rounded up to a power of two, at most 32) takes kRows consecutive live
+// rows at a time and starts all their loads (gradient rows by a
+// streaming load: read once) before the math; each lane moves 16 bytes
+// of a float32 row (8 of a bf16 one) a load where the width and the
+// call's pointers' alignment allow it (V = 4), single elements
 // otherwise. The kernel's per-element transition is its Op (see
 // walk_live_rows).
 
@@ -126,35 +124,25 @@ __device__ bool sorted_has(const IdT* __restrict__ uids, int64_t u,
   return lo < u && static_cast<int64_t>(uids[lo]) == v;
 }
 
-// What the thread group of unique row s does in pass `pass` (see the
-// header): read row rd, write the state rows at wr when `state`, add the
-// delta to slab row wr when `slab`. False: nothing.
+// What a lane group does for unique row s: read row rd, write the state
+// rows at wr when `state`, add the delta to slab row wr when `slab`.
 struct RowJob {
   int64_t rd, wr;
   bool state, slab;
 };
 
+// The job of the negative prefix id at position s (CTA 0's, first): read
+// row 0 as it was, add the delta to row id + rows, and write the state
+// there unless the stream's own id of that row does (or the row is row
+// 0, which the other prefix ids are reading). False: the wrapped row is
+// still negative (skipped).
 template <typename IdT>
-__device__ bool row_job(const IdT* __restrict__ uids, int64_t u, int64_t s,
-                        int64_t rows, int pass, RowJob* j) {
-  const int64_t id = static_cast<int64_t>(uids[s]);
-  if (id >= rows) return false;
-  if (id >= 0) {
-    if (pass == 0) return false;
-    *j = RowJob{id, id, true, true};
-    return true;
-  }
-  const int64_t wr = id + rows;
+__device__ bool prefix_job(const IdT* __restrict__ uids, int64_t u,
+                           int64_t s, int64_t rows, RowJob* j) {
+  const int64_t wr = static_cast<int64_t>(uids[s]) + rows;
   if (wr < 0) return false;
-  if (pass == 0) {
-    *j = RowJob{0, wr, wr != 0 && !sorted_has(uids, u, wr), true};
-    return true;
-  }
-  if (wr == 0 && !sorted_has(uids, u, 0)) {
-    *j = RowJob{0, 0, true, false};
-    return true;
-  }
-  return false;
+  *j = RowJob{0, wr, wr != 0 && !sorted_has(uids, u, wr), true};
+  return true;
 }
 
 // ------------------------------------------------ the live-range walk
@@ -259,12 +247,11 @@ __device__ void run_job(const Op& op, int64_t src, const RowJob& j,
 //   op.store(chunk, job, col): the state rows at job.wr when job.state,
 //     the slab row when job.slab.
 // [neg_end, live_end) is the live range (block_bounds of 0 and rows).
-// CTA 0 first runs the prefix's rows by row_job's pass-0 rules (each
-// reads row 0 as it was), then, behind a barrier, every row those rules
-// order after them: live row 0, each live row R - k whose -k is in the
-// prefix (both deltas land on it, -k's first; its own state transition
-// stays), and -rows's state transition onto row 0 where 0 is not in the
-// stream (row_job's pass-1 case). Every CTA walks the live range, kRows
+// CTA 0 first runs the prefix's rows (prefix_job: each reads row 0 as it
+// was), then, behind a barrier, every row the index rules order after
+// them: live row 0, each live row R - k whose -k is in the prefix (both
+// deltas land on it, -k's first; its own state transition stays), and
+// -rows's state transition onto row 0 where 0 is not in the stream. Every CTA walks the live range, kRows
 // rows a lane group at a time, skipping those deferred rows: each other
 // row is its own read-modify-write. Without a negative prefix (the zoo's
 // streams) no row is deferred and no CTA waits.
@@ -283,7 +270,7 @@ __device__ void walk_live_rows(const Op& op, const IdT* __restrict__ uids,
   if (neg && blockIdx.x == 0) {
     for (int64_t r = lgroup; r < neg_end; r += lgroups) {
       RowJob j;
-      if (row_job(uids, u, r, rows, 0, &j)) run_job(op, r, j, lane, G, w);
+      if (prefix_job(uids, u, r, rows, &j)) run_job(op, r, j, lane, G, w);
     }
     __syncthreads();
     // item r < neg_end: what prefix id r orders after it; item neg_end:

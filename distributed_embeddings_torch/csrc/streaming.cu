@@ -66,18 +66,37 @@
 //   slab.at[rows].add(-cur)), each element c of a slab-shaped optimizer
 //   leaf becomes (c + (-c)) + fill in the leaf dtype (JAX's zero-then-add
 //   reset to fresh_row_fill), and slot_fp[row] = fp, slot_freq[row] =
-//   est; then, in a second launch so a row both hit and claimed takes the
-//   set before the max, slot_freq[hit_row] = max(., est) (atomicMax);
-//   then the staged sketch is copied into the carried one, the counts
-//   rounded once to float32 are added to the step totals (0 when not
-//   enabled), and on the step's last width the totals are added to the
-//   cumulative counters and `steps` advances by enable.
+//   est; then slot_freq[hit_row] = max(., est) for each hit, so a row
+//   both claimed and hit takes the set before the max (remap_width's
+//   order, :349 then :353); the staged sketch replaces the carried one,
+//   the counts rounded once to float32 are added to the step totals (0
+//   when not enabled), and on the step's last width the totals are added
+//   to the cumulative counters and `steps` advances by enable.
 //
 // Everything but the float resets is integer arithmetic, and the resets
 // are single IEEE adds, so both kernels equal their plain versions bit
 // for bit (a NaN is a NaN). Bound: bytes (the id stream, the gathers of
 // slot_fp, slot_freq and the sketch words, the outputs; K17 the claimed
 // rows and the n-long row lists).
+//
+// K17's design: ONE cooperative launch of persistent CTAs (the occupancy
+// read when the record is built, kCommitCtasPerSm a SM at most) in two
+// phases behind one grid.sync() (commit_kernel). Each CTA reads `enable`
+// once; when it is False only CTA 0's fold of zero counts runs. Phase 1
+// walks the positions grid-stride: the claimed rows' slot-map entries are
+// set and a warp resets each claimed row of the slab and of every leaf,
+// 16-byte lanes where the row's bytes and the tensor's address allow;
+// every CTA copies its share of the staged sketch into the carried one
+// (int4 where aligned) and CTA 0 folds the counts. Phase 2 takes the
+// hits' atomicMax, each skipped where the slot, read first, already holds
+// as much (stream_variants.py: a warp's merge of the lanes that hit one
+// row before the max, and the max on every hit, both measured slower). A
+// thread keeps its first kCommitHold positions' hit rows and estimates
+// in registers across the barrier. The launch leaves nothing to reset, so
+// its record (ops/streaming.py: keyed on layouts, the leaves' dtypes and
+// fills, finalize and whether enable is given) replays in a CUDA graph;
+// a call passes only its addresses. chip_smoke.py --parent times it in
+// turns with an earlier checkout's wrapper.
 //
 // C interface (ctypes): pointers and the stream as void*, returns the
 // cudaError_t of the launches.
@@ -457,107 +476,214 @@ int remap_grid(int ids64, int64_t n, int sms) {
 
 // ------------------------------------------------------------------ K17
 
-struct Leaves {
-  void* ptr[kMaxLeaves];
-  int dtype[kMaxLeaves];  // 0 float32, 1 bfloat16
-  float fill[kMaxLeaves];
-  int count;
+constexpr int kCommitThreads = 256;
+constexpr int kCommitCtasPerSm = 4;  // at most, as the occupancy allows
+constexpr int kCommitHold = 4;       // hits a thread keeps across the barrier
+constexpr int kRowTensors = 1 + kMaxLeaves;  // the slab, then the leaves
+constexpr uint32_t kVecCopy = 1u << kRowTensors;  // cms <- staged by int4
+
+// What a K17 record fixes.
+struct CommitConsts {
+  int64_t n;          // positions
+  int64_t cms_numel;  // the sketch's words
+  int32_t width, rows_cap, n_leaves, finalize, has_enable, grid;
+  int32_t dtype[kRowTensors];  // 0 float32, 1 bfloat16
+  float fill[kRowTensors];     // 0 for the slab
 };
 
-__device__ __forceinline__ bool enabled(const uint8_t* enable) {
-  return enable == nullptr || *enable != 0;
+// What a K17 call passes.
+struct CommitPtrs {
+  void* row_t[kRowTensors];  // the slab, then the leaves
+  const int* scrub_rows;
+  const int* fp;
+  const int* est;
+  const int* hit_rows;
+  const unsigned long long* counts;
+  int* slot_fp;
+  int* slot_freq;
+  int* cms;
+  const int* staged;
+  float* totals;
+  float* counter[4];
+  int* steps;
+  const uint8_t* enable;  // null: commit
+  uint32_t vec;  // bit t: row tensor t takes 16-byte lanes; kVecCopy
+};
+
+// x + (-x), then + fill when add_fill, each add rounded to the dtype
+// (fill arrives rounded to it).
+__device__ __forceinline__ float reset_f32(float x, bool add_fill,
+                                           float fill) {
+  const float z = __fadd_rn(x, -x);
+  return add_fill ? __fadd_rn(z, fill) : z;
 }
 
-// x + (-x), then + fill when add_fill, each add rounded to the dtype.
-__device__ __forceinline__ void reset(void* base, int dtype, int64_t idx,
-                                      bool add_fill, float fill) {
-  if (dtype == 0) {
-    float* p = static_cast<float*>(base) + idx;
-    float z = __fadd_rn(*p, -*p);
-    if (add_fill) z = __fadd_rn(z, fill);
-    *p = z;
-  } else {
-    __nv_bfloat16* p = static_cast<__nv_bfloat16*>(base) + idx;
-    const float x = __bfloat162float(*p);
-    __nv_bfloat16 z = __float2bfloat16_rn(__fadd_rn(x, -x));
-    if (add_fill) {
-      const float fb = __bfloat162float(__float2bfloat16_rn(fill));
-      z = __float2bfloat16_rn(__fadd_rn(__bfloat162float(z), fb));
+__device__ __forceinline__ uint16_t reset_bf16(uint16_t bits, bool add_fill,
+                                               float fill) {
+  const float x = __uint_as_float(static_cast<uint32_t>(bits) << 16);
+  float z = __bfloat162float(__float2bfloat16_rn(__fadd_rn(x, -x)));
+  if (add_fill) z = __bfloat162float(__float2bfloat16_rn(__fadd_rn(z, fill)));
+  return __bfloat16_as_ushort(__float2bfloat16_rn(z));
+}
+
+__device__ __forceinline__ uint32_t reset_bf16x2(uint32_t w, bool add_fill,
+                                                 float fill) {
+  return static_cast<uint32_t>(reset_bf16(static_cast<uint16_t>(w),
+                                          add_fill, fill)) |
+         (static_cast<uint32_t>(reset_bf16(static_cast<uint16_t>(w >> 16),
+                                           add_fill, fill)) << 16);
+}
+
+// One row of row tensor t reset by the warp's lanes: 16 bytes a lane a
+// load where vec, one element otherwise.
+__device__ void reset_row(const CommitConsts& c, const CommitPtrs& q, int t,
+                          int64_t row, int lane) {
+  const int w = c.width;
+  const float f = c.fill[t];
+  const bool add = f != 0.0f;
+  const bool vec = (q.vec >> t) & 1u;
+  if (c.dtype[t] == 0) {
+    float* p = static_cast<float*>(q.row_t[t]) + row * w;
+    if (vec) {
+      float4* v = reinterpret_cast<float4*>(p);
+      for (int k = lane; k < w / 4; k += 32) {
+        float4 x = v[k];
+        x.x = reset_f32(x.x, add, f);
+        x.y = reset_f32(x.y, add, f);
+        x.z = reset_f32(x.z, add, f);
+        x.w = reset_f32(x.w, add, f);
+        v[k] = x;
+      }
+    } else {
+      for (int k = lane; k < w; k += 32) p[k] = reset_f32(p[k], add, f);
     }
-    *p = z;
+  } else {
+    uint16_t* p = static_cast<uint16_t*>(q.row_t[t]) + row * w;
+    if (vec) {
+      uint4* v = reinterpret_cast<uint4*>(p);
+      for (int k = lane; k < w / 8; k += 32) {
+        uint4 x = v[k];
+        x.x = reset_bf16x2(x.x, add, f);
+        x.y = reset_bf16x2(x.y, add, f);
+        x.z = reset_bf16x2(x.z, add, f);
+        x.w = reset_bf16x2(x.w, add, f);
+        v[k] = x;
+      }
+    } else {
+      for (int k = lane; k < w; k += 32) p[k] = reset_bf16(p[k], add, f);
+    }
   }
 }
 
-// One warp per 32 positions: the lanes holding a claimed row set its
-// slot-map entry; the warp then resets each claimed row, lanes over the
+// Phase 1 for the warp's 32 positions (every lane calls; r the lane's
+// scrub row or rows_cap): each claimed row's slot-map entry is set, then
+// the warp resets the claimed rows one after another, lanes over the
 // width.
-__global__ void __launch_bounds__(kThreads)
-commit_scrub_kernel(void* slab, int slab_dtype, int width, Leaves leaves,
-                    const int* __restrict__ scrub_rows,
-                    const int* __restrict__ fp, const int* __restrict__ est,
-                    int64_t n, int rows_cap, int* __restrict__ slot_fp,
-                    int* __restrict__ slot_freq,
-                    const uint8_t* __restrict__ enable) {
-  if (!enabled(enable)) return;
-  const int lane = threadIdx.x & 31;
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-  const int r = i < n ? scrub_rows[i] : rows_cap;
-  const bool mine = r >= 0 && r < rows_cap;
+__device__ __forceinline__ void claim_rows(const CommitConsts& c,
+                                           const CommitPtrs& q, int64_t i,
+                                           int r) {
+  const bool mine = r >= 0 && r < c.rows_cap;
   if (mine) {
-    slot_fp[r] = fp[i];
-    slot_freq[r] = est[i];
+    q.slot_fp[r] = q.fp[i];
+    q.slot_freq[r] = q.est[i];
   }
   unsigned m = __ballot_sync(0xffffffffu, mine);
+  const int lane = threadIdx.x & 31;
   while (m) {
     const int src = __ffs(m) - 1;
     m &= m - 1;
     const int64_t row = __shfl_sync(0xffffffffu, r, src);
-    for (int j = lane; j < width; j += 32) {
-      const int64_t idx = row * width + j;
-      reset(slab, slab_dtype, idx, false, 0.0f);
-      for (int k = 0; k < leaves.count; ++k) {
-        reset(leaves.ptr[k], leaves.dtype[k], idx, leaves.fill[k] != 0.0f,
-              leaves.fill[k]);
-      }
-    }
+    for (int t = 0; t <= c.n_leaves; ++t) reset_row(c, q, t, row, lane);
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-commit_hits_kernel(const int* __restrict__ hit_rows,
-                   const int* __restrict__ est, int64_t n, int rows_cap,
-                   int* __restrict__ slot_freq,
-                   const uint8_t* __restrict__ enable) {
-  if (!enabled(enable)) return;
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-  if (i >= n) return;
-  const int r = hit_rows[i];
-  if (r >= 0 && r < rows_cap) atomicMax(slot_freq + r, est[i]);
+// Phase 2 for one position (r its hit row or rows_cap, e its estimate):
+// the atomicMax where e passes the slot's value as read (slot_freq only
+// grows in phase 2, so a value read is never above the final one: the
+// skipped max is a no-op).
+__device__ __forceinline__ void hit_max(const CommitConsts& c,
+                                        const CommitPtrs& q, int r, int e) {
+  if (r >= 0 && r < c.rows_cap && e > __ldcg(q.slot_freq + r)) {
+    atomicMax(q.slot_freq + r, e);
+  }
 }
 
-__global__ void __launch_bounds__(kThreads)
-commit_state_kernel(int* __restrict__ cms,
-                    const int* __restrict__ staged, int64_t cms_numel,
-                    const unsigned long long* __restrict__ counts,
-                    float* __restrict__ totals, float* c0, float* c1,
-                    float* c2, float* c3, int* steps, int finalize,
-                    const uint8_t* __restrict__ enable) {
-  const bool en = enabled(enable);
-  if (en) {
-    for (int64_t k = threadIdx.x; k < cms_numel; k += blockDim.x) {
-      cms[k] = staged[k];
+// K17: ONE launch of persistent CTAs, two phases behind one grid-wide
+// barrier (see the header). Every CTA reads `enable` once; when it is
+// False no CTA goes past CTA 0's fold of zero counts, so none waits at
+// the barrier. Position i = t + k * T (t the thread's rank in the grid,
+// T the grid's threads): the first kCommitHold a thread keep their hit
+// row and estimate in registers across the barrier, the rest are read
+// again after it. Phase 1's loop bounds are uniform over a block, so the
+// warps run whole through claim_rows' ballot.
+__global__ void __launch_bounds__(kCommitThreads, kCommitCtasPerSm)
+commit_kernel(const CommitConsts c, const CommitPtrs q) {
+  __shared__ int s_en;
+  if (threadIdx.x == 0) s_en = q.enable == nullptr || *q.enable != 0;
+  __syncthreads();
+  const bool en = s_en != 0;
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    for (int k = 0; k < 4; ++k) {
+      const float g = en ? __ull2float_rn(q.counts[k]) : 0.0f;
+      q.totals[k] = __fadd_rn(q.totals[k], g);
+      if (c.finalize) *q.counter[k] = __fadd_rn(*q.counter[k], q.totals[k]);
     }
+    if (c.finalize) *q.steps += en ? 1 : 0;
   }
-  if (threadIdx.x != 0) return;
-  float* counters[4] = {c0, c1, c2, c3};
-  for (int k = 0; k < 4; ++k) {
-    const float g = en ? __ull2float_rn(counts[k]) : 0.0f;
-    totals[k] = __fadd_rn(totals[k], g);
-    if (finalize) *counters[k] = __fadd_rn(*counters[k], totals[k]);
+  if (!en) return;
+  const int64_t T = static_cast<int64_t>(gridDim.x) * kCommitThreads;
+  const int64_t tg = static_cast<int64_t>(blockIdx.x) * kCommitThreads +
+                     threadIdx.x;
+  // 1. the staged sketch, the claims' slot map and row resets
+  if (q.vec & kVecCopy) {
+    for (int64_t k = tg; k < c.cms_numel / 4; k += T) {
+      reinterpret_cast<int4*>(q.cms)[k] =
+          reinterpret_cast<const int4*>(q.staged)[k];
+    }
+  } else {
+    for (int64_t k = tg; k < c.cms_numel; k += T) q.cms[k] = q.staged[k];
   }
-  if (finalize) *steps += en ? 1 : 0;
+  const int64_t t0 = tg - threadIdx.x;
+  const int64_t n = c.n;
+  int sr[kCommitHold], hr[kCommitHold], he[kCommitHold];
+#pragma unroll
+  for (int k = 0; k < kCommitHold; ++k) {
+    const int64_t i = tg + k * T;
+    const bool in = i < n;
+    sr[k] = in ? q.scrub_rows[i] : c.rows_cap;
+    hr[k] = in ? q.hit_rows[i] : c.rows_cap;
+    he[k] = in ? q.est[i] : 0;
+  }
+#pragma unroll
+  for (int k = 0; k < kCommitHold; ++k) {
+    if (t0 + k * T < n) claim_rows(c, q, tg + k * T, sr[k]);
+  }
+  for (int64_t b0 = t0 + kCommitHold * T; b0 < n; b0 += T) {
+    const int64_t i = b0 + threadIdx.x;
+    claim_rows(c, q, i, i < n ? q.scrub_rows[i] : c.rows_cap);
+  }
+  grid_barrier();
+  // 2. the hits' max, after every claim's set
+#pragma unroll
+  for (int k = 0; k < kCommitHold; ++k) hit_max(c, q, hr[k], he[k]);
+  for (int64_t i = tg + kCommitHold * T; i < n; i += T) {
+    hit_max(c, q, q.hit_rows[i], q.est[i]);
+  }
+}
+
+// The CTAs of a commit over n positions: no more than the card holds at
+// once (kCommitCtasPerSm a SM at most), nor than n fills, at least one
+// (the sketch copy and the counts); 0 on an error.
+int commit_grid(int64_t n, int sms) {
+  int per_sm = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, commit_kernel, kCommitThreads, 0);
+  if (e != cudaSuccess || per_sm <= 0) return 0;
+  if (per_sm > kCommitCtasPerSm) per_sm = kCommitCtasPerSm;
+  int64_t g = (n + kCommitThreads - 1) / kCommitThreads;
+  const int64_t most = static_cast<int64_t>(sms) * per_sm;
+  if (g > most) g = most;
+  return static_cast<int>(g < 1 ? 1 : g);
 }
 
 unsigned grid(int64_t n) {
@@ -695,50 +821,120 @@ extern "C" int detpu_stream_remap_launch(const void* prepared,
                                      st);
 }
 
-// K17 for one width slab. slab [rows_cap, width] (dtype 0 float32, 1
-// bfloat16) and up to four leaves of its shape (leaf_ptrs/leaf_dtypes/
-// leaf_fills, n_leaves of them), reset on the scrub rows; slot_fp,
-// slot_freq [rows_cap] int32; cms and staged [cms_numel] int32; counts
-// [4] int64; totals [4] float32 (the step's gated totals, accumulated);
-// the four cumulative counters [1] float32 and steps [1] int32 take the
-// totals when finalize is set; enable: a bool on the card, or null.
-extern "C" int detpu_stream_commit(
-    void* slab, int slab_dtype, int width, int rows_cap,
-    const void* leaf_ptrs, const void* leaf_dtypes, const void* leaf_fills,
-    int n_leaves, const void* scrub_rows, const void* fp, const void* est,
-    const void* hit_rows, int64_t n, void* slot_fp, void* slot_freq,
-    void* cms, const void* staged, int64_t cms_numel, const void* counts,
-    void* totals, void* c_admitted, void* c_evicted, void* c_bucket,
-    void* c_hit, void* steps, int finalize, const void* enable,
-    void* stream) {
-  if (n < 0 || width <= 0 || rows_cap <= 0 || n_leaves < 0 ||
-      n_leaves > kMaxLeaves) {
+// The bytes of a prepared K17 launch.
+extern "C" int64_t detpu_stream_commit_prepared_bytes() {
+  return static_cast<int64_t>(sizeof(CommitConsts));
+}
+
+// Validate a K17 record and write its prepared launch to `out`
+// (detpu_stream_commit_prepared_bytes() bytes of host memory): a slab
+// [rows_cap, width] (dtype 0 float32, 1 bfloat16) and n_leaves (at most
+// four) leaves of its shape (leaf_dtypes int32 and leaf_fills float32,
+// host arrays of n_leaves); n positions; a sketch of cms_numel words;
+// finalize: the step's last width (the counters and steps advance);
+// has_enable: each call passes a bool on the card. The grid (the
+// occupancy, sms) is fixed here. Launches nothing.
+extern "C" int detpu_stream_commit_prepare(int slab_dtype, int width,
+                                           int rows_cap, int n_leaves,
+                                           const void* leaf_dtypes,
+                                           const void* leaf_fills,
+                                           int64_t n, int64_t cms_numel,
+                                           int finalize, int has_enable,
+                                           int sms, void* out) {
+  if (n < 0 || n >= (1ll << 31) || width <= 0 || rows_cap <= 0 ||
+      n_leaves < 0 || n_leaves > kMaxLeaves || cms_numel < 0 || sms <= 0 ||
+      out == nullptr || (slab_dtype != 0 && slab_dtype != 1) ||
+      (n_leaves > 0 && (leaf_dtypes == nullptr || leaf_fills == nullptr))) {
     return cudaErrorInvalidValue;
   }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Leaves lv{};
-  lv.count = n_leaves;
+  CommitConsts* c = static_cast<CommitConsts*>(out);
+  memset(c, 0, sizeof(CommitConsts));
+  c->n = n;
+  c->cms_numel = cms_numel;
+  c->width = width;
+  c->rows_cap = rows_cap;
+  c->n_leaves = n_leaves;
+  c->finalize = finalize != 0;
+  c->has_enable = has_enable != 0;
+  c->dtype[0] = slab_dtype;
   for (int k = 0; k < n_leaves; ++k) {
-    lv.ptr[k] = static_cast<void* const*>(leaf_ptrs)[k];
-    lv.dtype[k] = static_cast<const int*>(leaf_dtypes)[k];
-    lv.fill[k] = static_cast<const float*>(leaf_fills)[k];
+    const int d = static_cast<const int*>(leaf_dtypes)[k];
+    if (d != 0 && d != 1) return cudaErrorInvalidValue;
+    c->dtype[1 + k] = d;
+    float f = static_cast<const float*>(leaf_fills)[k];
+    if (d == 1) {  // rounded to bfloat16 (nearest even; fills are finite)
+      uint32_t u;
+      memcpy(&u, &f, 4);
+      u = (u + 0x7fffu + ((u >> 16) & 1u)) & 0xffff0000u;
+      memcpy(&f, &u, 4);
+    }
+    c->fill[1 + k] = f;
   }
-  auto* en = static_cast<const uint8_t*>(enable);
-  auto* es = static_cast<const int*>(est);
-  auto* sf = static_cast<int*>(slot_freq);
-  if (n > 0) {
-    commit_scrub_kernel<<<grid(n), kThreads, 0, st>>>(
-        slab, slab_dtype, width, lv, static_cast<const int*>(scrub_rows),
-        static_cast<const int*>(fp), es, n, rows_cap,
-        static_cast<int*>(slot_fp), sf, en);
-    commit_hits_kernel<<<grid(n), kThreads, 0, st>>>(
-        static_cast<const int*>(hit_rows), es, n, rows_cap, sf, en);
+  c->grid = commit_grid(n, sms);
+  return c->grid > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
+}
+
+// K17 through a prepared launch: scrub_rows, fp, est, hit_rows [n]
+// int32, counts [4] int64, slot_fp, slot_freq [rows_cap] int32, cms and
+// staged [cms_numel] int32, totals [4] float32 (the step's gated totals,
+// accumulated), the four cumulative counters [1] float32 and steps [1]
+// int32 (which take the totals when the record finalizes), the slab,
+// then x0..x4: each leaf in order, then the enable bool when the record
+// has one, null past them. The slab's and each leaf's rows take 16-byte
+// lanes where the row's bytes and the tensor's address allow; the
+// sketch copy likewise.
+extern "C" int detpu_stream_commit_launch(
+    const void* prepared, const void* scrub_rows, const void* fp,
+    const void* est, const void* hit_rows, const void* counts, void* slot_fp,
+    void* slot_freq, void* cms, const void* staged, void* totals, void* c0,
+    void* c1, void* c2, void* c3, void* steps, void* slab, void* x0,
+    void* x1, void* x2, void* x3, void* x4, void* stream) {
+  const CommitConsts* c = static_cast<const CommitConsts*>(prepared);
+  if (c == nullptr) return cudaErrorInvalidValue;
+  void* const x[] = {x0, x1, x2, x3, x4};
+  CommitPtrs q{};
+  for (int t = 0; t <= c->n_leaves; ++t) {
+    q.row_t[t] = t == 0 ? slab : x[t - 1];
+    const int64_t row_bytes =
+        static_cast<int64_t>(c->width) * (c->dtype[t] == 0 ? 4 : 2);
+    if (q.row_t[t] == nullptr) return cudaErrorInvalidValue;
+    if (row_bytes % 16 == 0 &&
+        reinterpret_cast<uintptr_t>(q.row_t[t]) % 16 == 0) {
+      q.vec |= 1u << t;
+    }
   }
-  commit_state_kernel<<<1, kThreads, 0, st>>>(
-      static_cast<int*>(cms), static_cast<const int*>(staged), cms_numel,
-      static_cast<const unsigned long long*>(counts),
-      static_cast<float*>(totals), static_cast<float*>(c_admitted),
-      static_cast<float*>(c_evicted), static_cast<float*>(c_bucket),
-      static_cast<float*>(c_hit), static_cast<int*>(steps), finalize, en);
-  return cudaGetLastError();
+  q.scrub_rows = static_cast<const int*>(scrub_rows);
+  q.fp = static_cast<const int*>(fp);
+  q.est = static_cast<const int*>(est);
+  q.hit_rows = static_cast<const int*>(hit_rows);
+  q.counts = static_cast<const unsigned long long*>(counts);
+  q.slot_fp = static_cast<int*>(slot_fp);
+  q.slot_freq = static_cast<int*>(slot_freq);
+  q.cms = static_cast<int*>(cms);
+  q.staged = static_cast<const int*>(staged);
+  q.totals = static_cast<float*>(totals);
+  q.counter[0] = static_cast<float*>(c0);
+  q.counter[1] = static_cast<float*>(c1);
+  q.counter[2] = static_cast<float*>(c2);
+  q.counter[3] = static_cast<float*>(c3);
+  q.steps = static_cast<int*>(steps);
+  q.enable =
+      c->has_enable ? static_cast<const uint8_t*>(x[c->n_leaves]) : nullptr;
+  // the [n] lists and the sketch may be empty; nothing else
+  const bool lists = c->n > 0, sketch = c->cms_numel > 0;
+  if ((lists && (!scrub_rows || !fp || !est || !hit_rows)) ||
+      (sketch && (!cms || !staged)) || !counts || !slot_fp || !slot_freq ||
+      !totals || !c0 || !c1 || !c2 || !c3 || !steps ||
+      (c->has_enable && q.enable == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
+  if (c->cms_numel % 4 == 0 && reinterpret_cast<uintptr_t>(cms) % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(staged) % 16 == 0) {
+    q.vec |= kVecCopy;
+  }
+  CommitConsts cc = *c;
+  void* kargs[] = {&cc, &q};
+  return cudaLaunchCooperativeKernel(reinterpret_cast<void*>(commit_kernel),
+                                     c->grid, kCommitThreads, kargs, 0,
+                                     static_cast<cudaStream_t>(stream));
 }

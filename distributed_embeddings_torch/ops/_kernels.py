@@ -141,10 +141,14 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "detpu_adam_prepared_bytes": (),
     },
     "momentum": {
-        # slab, slab_dtype, trace, tr_dtype, rows, width, uids, ids_is_64,
-        # u, ugrads, m, nesterov, neg_lr, lr_dev, vec, stream
-        "detpu_momentum_rows": (_P, _I, _P, _I, _I64, _I, _P, _I, _I64, _P,
-                                _F, _I, _F, _P, _I, _P),
+        # slab_dtype, tr_dtype, rows, width, ids_is_64, u, m, nesterov,
+        # neg_lr, lr_on_card, sms, prepared (host, out)
+        "detpu_momentum_prepare": (_I, _I, _I64, _I, _I, _I64, _F, _I, _F,
+                                   _I, _I, _P),
+        # prepared, slab, trace, uids, ugrads, lr_dev, stream
+        "detpu_momentum_launch": (_P, _P, _P, _P, _P, _P, _P),
+        # -> the bytes of a prepared launch
+        "detpu_momentum_prepared_bytes": (),
     },
     "csr": {
         # len_is_64, slot_stride, n_slots, b, valid, scratch, prepared
@@ -254,13 +258,17 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         # the update record's card scratch
         "detpu_stream_remap_prepared_bytes": (),
         "detpu_stream_remap_scratch_bytes": (_I, _I64, _I),
-        # slab, slab_dtype, width, rows_cap, leaf_ptrs, leaf_dtypes,
-        # leaf_fills, n_leaves, scrub_rows, fp, est, hit_rows, n, slot_fp,
-        # slot_freq, cms, staged, cms_numel, counts, totals, c_admitted,
-        # c_evicted, c_bucket, c_hit, steps, finalize, enable, stream
-        "detpu_stream_commit": (_P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P,
-                                _P, _I64, _P, _P, _P, _P, _I64, _P, _P, _P,
-                                _P, _P, _P, _P, _I, _P, _P),
+        # slab_dtype, width, rows_cap, n_leaves, leaf_dtypes, leaf_fills
+        # (host), n, cms_numel, finalize, has_enable, sms, prepared (host,
+        # out)
+        "detpu_stream_commit_prepare": (_I, _I, _I, _I, _P, _P, _I64, _I64,
+                                        _I, _I, _I, _P),
+        # prepared, scrub_rows, fp, est, hit_rows, counts, slot_fp,
+        # slot_freq, cms, staged, totals, the four counters, steps, slab,
+        # x0..x4 (the leaves, then enable; null past them), stream
+        "detpu_stream_commit_launch": (_P,) * 23,
+        # -> the bytes of a prepared launch
+        "detpu_stream_commit_prepared_bytes": (),
     },
 }
 
@@ -285,8 +293,10 @@ RESTYPES = {"detpu_dedup_scratch_bytes": _I64,
             "detpu_grad_health_prepared_bytes": _I64,
             "detpu_adam_prepared_bytes": _I64,
             "detpu_adagrad_prepared_bytes": _I64,
+            "detpu_momentum_prepared_bytes": _I64,
             "detpu_stream_remap_prepared_bytes": _I64,
             "detpu_stream_remap_scratch_bytes": _I64,
+            "detpu_stream_commit_prepared_bytes": _I64,
             "detpu_grad_health_scratch_bytes": _I64,
             "detpu_dense_update_prepared_bytes": _I64}
 

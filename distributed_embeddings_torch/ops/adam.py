@@ -115,21 +115,6 @@ def adam_rows_plain(slab: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
     return slab, mu, nu
 
 
-def check_rows(slab: torch.Tensor, state: dict, uids: torch.Tensor,
-               uvals: torch.Tensor) -> None:
-    """:func:`check_layout`, on one CUDA device."""
-    if slab.device.type != "cuda":
-        raise ValueError(f"unsupported device {slab.device}")
-    check_layout(slab, state, uids, uvals)
-
-
-def vector_ok(width: int, *tensors: torch.Tensor) -> bool:
-    """Whether the row kernels may move 4 elements a load: the width a
-    multiple of 4 and every pointer aligned to 4 of its elements."""
-    return width % 4 == 0 and all(
-        t.data_ptr() % (4 * t.element_size()) == 0 for t in tensors)
-
-
 #: K11's launch records, by layout and constants
 _CACHE = _kernels.LaunchCache()
 

@@ -35,7 +35,11 @@ one record a mode: the update is ONE cooperative launch of persistent
 CTAs (hash and fold, claims, the position max, outputs and counts,
 behind grid-wide barriers) that writes every output into one allocation the call makes
 and carves into the :class:`Remap`'s views (:func:`update_outputs`);
-the read-only remap is one launch into one ``[n]`` allocation.
+the read-only remap is one launch into one ``[n]`` allocation. K17 is
+ONE cooperative launch too (the claims' slot map and row resets, the
+sketch copy and the counts, then, behind a grid-wide barrier, the hits'
+max), on a record keyed on layouts to which each call passes its
+addresses.
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel
 or raises. Each wrapper counts its launches (one per call).
@@ -43,14 +47,12 @@ or raises. Each wrapper counts its launches (one per call).
 
 from __future__ import annotations
 
-import ctypes
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from . import _kernels
-import numpy as np
-
 from .sketch import _M32, _mul32, cms_query_plain, cms_update_plain
 
 #: free-slot marker in the slot map (fingerprints are >= 0)
@@ -196,10 +198,6 @@ def commit_rows_plain(slab, leaves, pend: Remap, slot_fp, slot_freq, cms,
 # ----------------------------------------------------------- the kernels
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def _check(t, dtypes, shape, device, what):
     dtypes = dtypes if isinstance(dtypes, tuple) else (dtypes,)
     if t.dtype not in dtypes or tuple(t.shape) != tuple(shape) \
@@ -207,12 +205,6 @@ def _check(t, dtypes, shape, device, what):
         raise ValueError(f"{what}: expected a contiguous {dtypes} tensor of "
                          f"shape {tuple(shape)} on {device}, got {t.dtype} "
                          f"{tuple(t.shape)} on {t.device}")
-
-
-def _cuda(t: torch.Tensor) -> torch.device:
-    if t.device.type != "cuda":
-        raise ValueError(f"unsupported device {t.device}")
-    return t.device
 
 
 _scratch: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
@@ -419,27 +411,59 @@ def remap_stage(ext: torch.Tensor, live: torch.Tensor, cap: torch.Tensor,
     return _carve(buf, n)
 
 
-def commit_rows(slab: torch.Tensor,
-                leaves: Sequence[Tuple[torch.Tensor, float]], pend: Remap,
-                slot_fp: torch.Tensor, slot_freq: torch.Tensor,
-                cms: torch.Tensor, staged: torch.Tensor,
-                totals: torch.Tensor, counters: Sequence[torch.Tensor],
-                steps: torch.Tensor, enable: Optional[torch.Tensor] = None,
-                finalize: bool = True) -> None:
-    """K17: commit one width's staged transitions (``pend``, from
-    :func:`remap_stage`) in place, unless the 0-d bool ``enable`` (on
-    the card; ``None`` commits) is False: reset the claimed rows of
-    ``slab [rows_cap, w]`` (float32/bfloat16) and of each ``(leaf,
-    fill)`` of its shape, write the slot map, copy ``staged`` into
-    ``cms``, and add the counts (0 when not enabled) to ``totals [4]``
-    (float32). With ``finalize`` (the step's last width), add ``totals``
-    to the four ``counters`` ([1] float32 each, :data:`COUNT_NAMES`
-    order) and ``enable`` to ``steps`` ([1] int32)."""
-    if slab.device.type == "cpu":
-        return commit_rows_plain(slab, leaves, pend, slot_fp, slot_freq,
-                                 cms, staged, totals, counters, steps,
-                                 enable, finalize)
-    dev = _cuda(slab)
+#: K17's launch records, by layout, leaves and policy
+_COMMIT = _kernels.LaunchCache()
+
+
+def _commit_tensors(slab, leaves, pend, slot_fp, slot_freq, cms, staged,
+                    totals, counters, steps, enable) -> tuple:
+    """The tensors a K17 call passes, in the launch's order
+    (``csrc/streaming.cu:detpu_stream_commit_launch``; the record's
+    ``payload[1]`` pads the leaves and ``enable`` to its five slots)."""
+    return ((pend.scrub_rows, pend.fp, pend.est, pend.hit_rows, pend.counts,
+             slot_fp, slot_freq, cms, staged, totals, *counters, steps, slab,
+             *[t for t, _ in leaves])
+            + (() if enable is None else (enable,)))
+
+
+_CONTIGUOUS = torch.Tensor.is_contiguous
+
+
+def _commit_key(ts, leaves, has_enable: bool, finalize: bool) -> tuple:
+    # contiguity, not the strides: every check rests on it, and it costs
+    # half as much a tensor (18 of them on the streaming step)
+    return (len(leaves), tuple(f for _, f in leaves), bool(finalize),
+            has_enable, *map(_kernels._SHAPE, ts),
+            *map(_CONTIGUOUS, ts), *map(_kernels._DTYPE, ts),
+            *map(_kernels._DEVICE, ts))
+
+
+def commit_key(slab, leaves, pend, slot_fp, slot_freq, cms, staged, totals,
+               counters, steps, enable=None, finalize: bool = True) -> tuple:
+    """Every fact K17's launch record rests on: the leaves' count and
+    fills, ``finalize``, whether ``enable`` is given, and the layouts
+    (shape, contiguity, dtype, device index) of every tensor the call
+    passes (the slab, the leaves, the ``pend`` views, the slot map, the
+    sketch and its staged copy, the totals, counters and ``steps``, and
+    ``enable``): so the width, ``rows_cap``, ``n``, the sketch's size and
+    the leaves' dtypes. No address: each call passes its own."""
+    ts = _commit_tensors(slab, leaves, pend, slot_fp, slot_freq, cms,
+                         staged, totals, counters, steps, enable)
+    return _commit_key(ts, leaves, enable is not None, finalize)
+
+
+def build_commit_record(slab, leaves, pend, slot_fp, slot_freq, cms, staged,
+                        totals, counters, steps, enable=None,
+                        finalize: bool = True, sms: Optional[int] = None
+                        ) -> _kernels.LaunchRecord:
+    """Validate a call as :func:`commit_rows` does (raising as it does)
+    and build its launch record: for CUDA tensors the prepared launch
+    bound to the library; ``record.payload`` is ``(prepared, pad)``, a
+    call replaying ``(*addresses, *pad)`` in :func:`_commit_tensors`'
+    order. CPU tensors (the tests) get a record without launches."""
+    dev = slab.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
     if slab.dim() != 2 or slab.dtype not in _DTYPE_CODE:
         raise ValueError(f"slab: expected a [rows, w] float32/bfloat16 "
                          f"tensor, got {slab.dtype} {tuple(slab.shape)}")
@@ -459,29 +483,90 @@ def commit_rows(slab: torch.Tensor,
     _check(cms, torch.int32, tuple(cms.shape), dev, "cms")
     _check(staged, torch.int32, tuple(cms.shape), dev, "staged")
     _check(totals, torch.float32, (4,), dev, "totals")
+    if len(counters) != 4:
+        raise ValueError(f"{len(counters)} counters: expected the four of "
+                         f"{COUNT_NAMES}")
     for c in counters:
         _check(c, torch.float32, (1,), dev, "counter")
     _check(steps, torch.int32, (1,), dev, "steps")
     if enable is not None:
         _check(enable, torch.bool, (), dev, "enable")
-    k = len(leaves)
-    ptrs = (ctypes.c_void_p * 4)(*[t.data_ptr() for t, _ in leaves])
-    codes = (ctypes.c_int * 4)(*[_DTYPE_CODE[t.dtype] for t, _ in leaves])
-    fills = (ctypes.c_float * 4)(*[float(f) for _, f in leaves])
-    lib = _kernels.library("streaming")
-    err = lib.detpu_stream_commit(
-        slab.data_ptr(), _DTYPE_CODE[slab.dtype], w, rows_cap,
-        ctypes.cast(ptrs, ctypes.c_void_p), ctypes.cast(codes,
-                                                        ctypes.c_void_p),
-        ctypes.cast(fills, ctypes.c_void_p), k, pend.scrub_rows.data_ptr(),
-        pend.fp.data_ptr(), pend.est.data_ptr(), pend.hit_rows.data_ptr(),
-        n, slot_fp.data_ptr(), slot_freq.data_ptr(), cms.data_ptr(),
-        staged.data_ptr(), cms.numel(), pend.counts.data_ptr(),
-        totals.data_ptr(), *[c.data_ptr() for c in counters],
-        steps.data_ptr(), int(finalize),
-        None if enable is None else enable.data_ptr(), _stream(slab))
-    _kernels.check(lib, err, "commit_rows")
-    commit_rows.launches += 1
+    if n >= 2 ** 31 or rows_cap >= 2 ** 31:
+        raise ValueError(f"{n} positions into {rows_cap} slot rows: at most "
+                         "2^31 - 1 each")
+    pad = (None,) * (5 - len(leaves) - (enable is not None))
+    lib, calls, prepared = None, [], None
+    if dev.type == "cuda":
+        lib = _kernels.library("streaming")
+        prepared = np.zeros(lib.detpu_stream_commit_prepared_bytes(),
+                            np.uint8)
+        codes = np.array([_DTYPE_CODE[t.dtype] for t, _ in leaves] + [0],
+                         np.int32)
+        fills = np.array([float(f) for _, f in leaves] + [0.0], np.float32)
+        _kernels.check(lib, lib.detpu_stream_commit_prepare(
+            _DTYPE_CODE[slab.dtype], w, rows_cap, len(leaves),
+            codes.ctypes.data, fills.ctypes.data, n, cms.numel(),
+            int(bool(finalize)), int(enable is not None),
+            sms or _kernels.sm_count(dev.index or 0),
+            prepared.ctypes.data), "commit_rows")
+        calls.append((lib.detpu_stream_commit_launch,
+                      (prepared.ctypes.data,)))
+    return _kernels.LaunchRecord(lib, "commit_rows", calls,
+                                 _kernels.device_index(dev),
+                                 payload=(prepared, pad))
+
+
+def _commit_record(args, build_on_cpu: bool):
+    """The record of a call (``args``: :func:`commit_rows`' arguments),
+    found in :data:`_COMMIT` or built, and the tensors the call passes."""
+    slab, leaves, *_, enable, finalize = args
+    ts = _commit_tensors(*args[:-1])
+    rec = _kernels.find_or_build(
+        _COMMIT, _commit_key(ts, leaves, enable is not None, finalize),
+        build_commit_record, slab.device.type == "cpu", build_on_cpu, *args)
+    return rec, ts
+
+
+def find_commit_record(slab, leaves, pend, slot_fp, slot_freq, cms, staged,
+                       totals, counters, steps, enable=None,
+                       finalize: bool = True, build_on_cpu: bool = False
+                       ) -> Optional[_kernels.LaunchRecord]:
+    """The record of a call, found in :data:`_COMMIT` by
+    :func:`commit_key` or built (:func:`build_commit_record`) and kept. A
+    miss on CPU tensors is validated and gives None (the wrapper runs the
+    plain version) unless ``build_on_cpu``."""
+    return _commit_record((slab, leaves, pend, slot_fp, slot_freq, cms,
+                           staged, totals, counters, steps, enable,
+                           finalize), build_on_cpu)[0]
+
+
+def commit_rows(slab: torch.Tensor,
+                leaves: Sequence[Tuple[torch.Tensor, float]], pend: Remap,
+                slot_fp: torch.Tensor, slot_freq: torch.Tensor,
+                cms: torch.Tensor, staged: torch.Tensor,
+                totals: torch.Tensor, counters: Sequence[torch.Tensor],
+                steps: torch.Tensor, enable: Optional[torch.Tensor] = None,
+                finalize: bool = True) -> None:
+    """K17: commit one width's staged transitions (``pend``, from
+    :func:`remap_stage`) in place, unless the 0-d bool ``enable`` (on
+    the card; ``None`` commits) is False: reset the claimed rows of
+    ``slab [rows_cap, w]`` (float32/bfloat16) and of each ``(leaf,
+    fill)`` of its shape, write the slot map, copy ``staged`` into
+    ``cms``, and add the counts (0 when not enabled) to ``totals [4]``
+    (float32). With ``finalize`` (the step's last width), add ``totals``
+    to the four ``counters`` ([1] float32 each, :data:`COUNT_NAMES`
+    order) and ``enable`` to ``steps`` ([1] int32). On the card: one
+    launch through the launch record of the call's layouts (the first
+    call validates and prepares, later ones pass the pointers)."""
+    if slab.device.type == "cpu":
+        return commit_rows_plain(slab, leaves, pend, slot_fp, slot_freq,
+                                 cms, staged, totals, counters, steps,
+                                 enable, finalize)
+    rec, ts = _commit_record((slab, leaves, pend, slot_fp, slot_freq, cms,
+                              staged, totals, counters, steps, enable,
+                              finalize), False)
+    commit_rows.launches += rec.replay(*map(_kernels._PTR, ts),
+                                       *rec.payload[1])
 
 
 remap_stage.launches = 0

@@ -37,6 +37,15 @@ a load on every call (V = 1, the first design's loads). The first
 design itself (two launches over every id) is the parent checkout's
 wrapper (``--parent``).
 
+K12 (the momentum row update, ``csrc/momentum.cu``, on the same walk
+with its transition, Nesterov on): ``rows2``, ``rows4``, ``ctas2``,
+``ctas8`` and ``scalar_loads`` as K6's. The first design (two launches
+over every id) is the parent checkout's wrapper. On the power-law input
+two diagnostics (timed, not held to the plain version): ``diag_empty``
+(the kernel returns at once: the launch alone) and ``diag_bounds`` (it
+returns after the live-range search), each also timed one call between
+events (``*_single``, as a wrapper is) beside the tree.
+
 Inputs: K21 on the DLRM step's gradients at b=65536 (26 bf16 [65536, 128]
 cotangents, contiguous views of one [26, 65536, 128] buffer as K4 leaves
 them, and the 16 float32 gradients of the MLPs 512-256-128 /
@@ -48,7 +57,8 @@ bfloat16 tables and moments), 859,157 live unique rows of a 2,883,584-id
 dedup output (the rest the pad tail), and the w8 slab of 60,336 rows,
 48,689 live of 60,337. K6 on the zoo's w16 slab in float32 and in
 bfloat16 (tables and accumulators), and on the streaming DLRM's w128 slab
-(10,569,296 rows, 400,000 live rows of a 1,703,936-id output). Rows drawn
+(10,569,296 rows, 400,000 live rows of a 1,703,936-id output). K12 on the
+zoo's w16 slab in float32 and bfloat16 and on its w8 slab (float32). Rows drawn
 at random, gradients normal. Each
 variant runs from the same state (the touched rows restored between
 variants) and must give the tree's bits (K21's chunk variants, which fold
@@ -68,7 +78,7 @@ that checkout's, are timed in the same turns as ``wrapper`` and
 ``parent_wrapper`` (event ms a call, host included).
 
 Run from the root of a checkout: ``python3 row_variants.py [--parent
-DIR] [--only k21,k11,k6]``. Prints the card's name and power limit, then
+DIR] [--only k21,k11,k6,k12]``. Prints the card's name and power limit, then
 one JSON line a kernel, input and variant.
 """
 
@@ -170,6 +180,33 @@ K6_VARIANTS = {
                                 "ea)")),
 }
 
+#: K12 on the walk: K6's knobs
+K12_VARIANTS = {
+    "tree": None,
+    "rows2": vs.constants(kRows=2),
+    "rows4": vs.constants(kRows=4),
+    "ctas2": vs.constants(kCtasPerSm=2),
+    "ctas8": vs.constants(kCtasPerSm=8),
+    "scalar_loads": vs.replace(("  const bool vec = c->width % 4 == 0 && "
+                                "detpu::aligned4(slab, es) &&",
+                                "  const bool vec = false && "
+                                "detpu::aligned4(slab, es) &&")),
+}
+
+#: K12's diagnostics: the launch alone, the launch and the live-range
+#: search
+K12_DIAGNOSTICS = {
+    "diag_empty": vs.replace(
+        ("  const IdT* uids = static_cast<const IdT*>(q.uids);\n"
+         "  int64_t neg_end, live_end;\n",
+         "  if (group_log2 >= 0) return;\n"
+         "  const IdT* uids = static_cast<const IdT*>(q.uids);\n"
+         "  int64_t neg_end, live_end;\n")),
+    "diag_bounds": vs.replace(
+        ("  if (live_end == 0) return;\n  const MomentumOp",
+         "  if (live_end >= 0) return;\n  const MomentumOp")),
+}
+
 ZOO_W16_ROWS = 70_200_000      # the zoo's w16 slab (4.49 GB in float32)
 ZOO_W16_LIVE = 859_157         # unique rows of one step's K5 output
 ZOO_W16_U = 2_883_584          # that output's length (its pad tail)
@@ -222,7 +259,7 @@ def timed(torch, cs, fns):
     for order in (list(fns), list(reversed(list(fns)))):
         for name in order:
             fn = fns[name]
-            if name.endswith("wrapper"):
+            if name.endswith("wrapper") or name.endswith("_single"):
                 ms[name].append(cs.time_ms(torch, fn, [()]))
             else:
                 ms[name].append(batch_ms(torch, fn))
@@ -294,16 +331,25 @@ def run_k21(torch, cs, kernels, gh, parent):
                   flush=True)
 
 
-def k11_case(torch, rows, width, live, u, dtype, seed):
+def k11_case(torch, rows, width, live, u, dtype, seed, zipf=False):
     """A slab, its moments and count, and a sorted dedup output of
-    ``live`` unique random rows padded with ``rows`` to ``u`` ids."""
+    ``live`` unique random rows padded with ``rows`` to ``u`` ids
+    (``zipf``: the distinct rows of ``u`` power-law ids, hot rows first,
+    as a zoo table's stream gives them)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     slab = torch.randn((rows, width), generator=gen, device="cuda").to(dtype)
     mu = (torch.randn((rows, width), generator=gen, device="cuda")
           * 0.1).to(dtype)
     nu = (torch.rand((rows, width), generator=gen, device="cuda")
           * 0.1).to(dtype)
-    pick = torch.randperm(rows, generator=gen, device="cuda")[:live]
+    if zipf:
+        import chip_smoke as cs
+
+        pick = torch.unique(cs.device_power_law(
+            torch, torch.Generator(device="cuda").manual_seed(1202), rows,
+            u))
+    else:
+        pick = torch.randperm(rows, generator=gen, device="cuda")[:live]
     uids = torch.full((u,), rows, dtype=torch.int32, device="cuda")
     uids[:live] = pick.sort().values.int()
     uvals = torch.zeros((u, width), device="cuda", dtype=dtype)
@@ -447,6 +493,75 @@ def run_k6(torch, cs, kernels, ada, parent):
         torch.cuda.empty_cache()
 
 
+def run_k12(torch, cs, kernels, mom, parent):
+    libs = vs.build(kernels, "momentum", {**K12_VARIANTS, **K12_DIAGNOSTICS},
+                    "row_variants")
+    diag = {k: libs.pop(k) for k in K12_DIAGNOSTICS}
+    f32, bf16 = torch.float32, torch.bfloat16
+    for what, (rows, width, live, u, dt) in (
+            ("zoo_w16_fp32", (ZOO_W16_ROWS, 16, ZOO_W16_LIVE, ZOO_W16_U,
+                              f32)),
+            ("zoo_w16_bf16", (ZOO_W16_ROWS, 16, ZOO_W16_LIVE, ZOO_W16_U,
+                              bf16)),
+            ("zoo_w16_fp32_zipf", (ZOO_W16_ROWS, 16, None, ZOO_W16_U,
+                                   f32)),
+            ("zoo_w8_fp32", (ZOO_W8_ROWS, 8, ZOO_W8_LIVE, ZOO_W8_ROWS + 1,
+                             f32))):
+        if live is None:  # the live rows of a power-law stream of u ids
+            gen = torch.Generator(device="cuda").manual_seed(1202)
+            live = int(torch.unique(cs.device_power_law(
+                torch, gen, rows, u)).numel())
+        slab, trace, _, _, uids, ugrads = k11_case(
+            torch, rows, width, live, u, dt, seed=1201,
+            zipf=what.endswith("zipf"))
+        hit = uids[:live].long()
+        start = [t[hit].clone() for t in (slab, trace)]
+
+        def restore():
+            for t, s in zip((slab, trace), start):
+                t[hit] = s
+
+        args = (slab, trace, uids, ugrads, 0.01, 0.9, True)
+        mom.momentum_rows_plain(*args)
+        want = [t[hit] for t in (slab, trace)]
+        ptrs = (slab.data_ptr(), trace.data_ptr(), uids.data_ptr(),
+                ugrads.data_ptr(), None)
+        fns = {}
+        for name, lib in libs.items():
+            with library(kernels, "momentum", lib):
+                rec = mom.build_record(*args)
+            restore()
+            rec.replay(*ptrs)
+            torch.cuda.synchronize()
+            got = [t[hit] for t in (slab, trace)]
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise SystemExit(f"K12 {what} {name}: bits differ from the "
+                                 "plain version (and the tree)")
+            fns[name] = lambda rec=rec: rec.replay(*ptrs)
+        restore()
+        if what.endswith("zipf"):
+            fns["tree_single"] = fns["tree"]
+            for name, lib in diag.items():
+                with library(kernels, "momentum", lib):
+                    rec = mom.build_record(*args)
+                fns[name] = fns[name + "_single"] = (
+                    lambda rec=rec: rec.replay(*ptrs))
+        fns["wrapper"] = lambda: mom.momentum_rows(*args)
+        if parent is not None:
+            fns["parent_wrapper"] = lambda: parent["momentum"].momentum_rows(
+                *args)
+        es, et = slab.element_size(), trace.element_size()
+        nbytes = live * (uids.element_size() + width * (et + 2 * (es + et)))
+        for name, t in timed(torch, cs, fns).items():
+            print(json.dumps({"kernel": "K12", "input": what,
+                              "variant": name, "live_rows": live, "ids": u,
+                              "bytes": nbytes, "bound_ms": nbytes
+                              / cs.HBM_BYTES_PER_S * 1e3, **t}), flush=True)
+        restore()
+        del slab, trace, ugrads, start, want, fns, args
+        torch.cuda.empty_cache()
+
+
 def main():
     import torch
 
@@ -455,7 +570,7 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("row_variants.py needs a CUDA card")
     argv = sys.argv[1:]
-    only = {"k21", "k11", "k6"}
+    only = {"k21", "k11", "k6", "k12"}
     while argv:
         if len(argv) >= 2 and argv[0] == "--parent":
             cs.PARENT_DIR = os.path.abspath(argv[1])
@@ -463,7 +578,7 @@ def main():
             only = set(argv[1].split(","))
         else:
             raise SystemExit("usage: python3 row_variants.py [--parent DIR]"
-                             " [--only k21,k11,k6]")
+                             " [--only k21,k11,k6,k12]")
         argv = argv[2:]
     print(vs.card_line(), flush=True)
     kernels = importlib.import_module(
@@ -483,6 +598,11 @@ def main():
         ada = importlib.import_module("distributed_embeddings_torch.ops."
                                       "adagrad")
         run_k6(torch, cs, kernels, ada, parent)
+        torch.cuda.empty_cache()
+    if "k12" in only:
+        mom = importlib.import_module("distributed_embeddings_torch.ops."
+                                      "momentum")
+        run_k12(torch, cs, kernels, mom, parent)
 
 
 if __name__ == "__main__":

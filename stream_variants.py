@@ -48,9 +48,34 @@ DIR``: that checkout's, which folds with its own K13) are timed in the
 same turns, event ms a call with the host, for the update and the
 read-only remap.
 
+K17's variants (the guard-gated commit: ONE cooperative launch of
+persistent CTAs, the claims' slot map and row resets, the sketch copy and
+the counts, then the hits' max behind one grid.sync(); a thread holding
+its first kCommitHold = 4 hits across the barrier; each hit's atomicMax
+taken only where its estimate passes the slot's value read first):
+
+- ``ctas2``: 2 CTAs a SM at most; ``threads512``: 2 CTAs of 512;
+- ``hold8``: 8 hits a thread held in registers;
+- ``warp_merge``: the lanes of a warp that hit one row merged first
+  (``__match_any_sync``, ``__reduce_max_sync``), one max a row;
+- ``warp_merge_no_preread``: merged, the max on every hit row without
+  reading the slot first (the kernel's first form);
+- ``no_preread``: the max on every hit, unmerged, without the read;
+- ``ticket``: a plain launch with K16's never-reset ticket barrier in
+  place of grid.sync() (the ticket variant of K16 above, the commit's
+  launch made plain too).
+
+K17's input: the commit of the step above's staged transitions (its
+claims and hits) on a float32 w128 slab of ROWS_CAP rows and one float32
+leaf (Adagrad's accumulator, fill 0.1), enable on the card; each variant
+is held bit for bit to the plain version from the same state. Timed as
+K16's, with the wrappers (``wrapper``: ``commit_rows``;
+``parent_wrapper``: that checkout's three launches).
+
 Run from the root of a checkout: ``python3 stream_variants.py [--parent
-DIR]``. Prints the card's name and power limit, then one JSON line a
-mode and variant, the stamps' phase split, and the graph trials.
+DIR] [--only k16,k17]``. Prints the card's name and power limit, then
+one JSON line a mode and variant, the stamps' phase split, and the graph
+trials.
 """
 
 import ctypes
@@ -161,6 +186,65 @@ DIAGNOSTICS = {
          "  grid_barrier();\n  return;\n  // 3. the position max")),
 }
 
+#: K17: the cooperative launch made plain, with K16's ticket barrier
+K17_TICKET = vs.replace(
+    ("// The grid-wide barrier of the cooperative launch.\n__device__ __forceinline__ void grid_barrier() {\n"
+     "  cooperative_groups::this_grid().sync();\n}\n",
+     "__device__ unsigned long long g_ticket = 0;\n"
+     "__device__ __forceinline__ void grid_barrier() {\n"
+     "  __syncthreads();\n"
+     "  if (threadIdx.x == 0) {\n"
+     "    __threadfence();\n"
+     "    const unsigned long long g = gridDim.x;\n"
+     "    const unsigned long long open =\n"
+     "        (atomicAdd(&g_ticket, 1ull) / g + 1) * g;\n"
+     "    while (true) {\n"
+     "      unsigned long long v;\n"
+     "      asm volatile(\"ld.acquire.gpu.global.u64 %0, [%1];\"\n"
+     "                   : \"=l\"(v) : \"l\"(&g_ticket) : \"memory\");\n"
+     "      if (v >= open) break;\n"
+     "      __nanosleep(32);\n"
+     "    }\n"
+     "    __threadfence();\n"
+     "  }\n"
+     "  __syncthreads();\n"
+     "}\n"),
+    ("  return cudaLaunchCooperativeKernel(reinterpret_cast<void*>("
+     "commit_kernel),",
+     "  return cudaLaunchKernel(reinterpret_cast<void*>(commit_kernel),"))
+
+K17_VARIANTS = {
+    "tree": None,
+    "ctas2": vs.constants(kCommitCtasPerSm=2),
+    "threads512": vs.constants(kCommitThreads=512, kCommitCtasPerSm=2),
+    "hold8": vs.constants(kCommitHold=8),
+    "warp_merge": vs.replace(
+        ("  if (r >= 0 && r < c.rows_cap && e > __ldcg(q.slot_freq + r)) {\n"
+         "    atomicMax(q.slot_freq + r, e);\n  }\n",
+         "  const bool ok = r >= 0 && r < c.rows_cap;\n"
+         "  const unsigned mask = __ballot_sync(__activemask(), ok);\n"
+         "  if (!ok) return;\n"
+         "  const unsigned peers = __match_any_sync(mask, r);\n"
+         "  const int best = __reduce_max_sync(peers, e);\n"
+         "  if ((threadIdx.x & 31) == __ffs(peers) - 1 &&\n"
+         "      best > __ldcg(q.slot_freq + r)) {\n"
+         "    atomicMax(q.slot_freq + r, best);\n  }\n")),
+    "warp_merge_no_preread": vs.replace(
+        ("  if (r >= 0 && r < c.rows_cap && e > __ldcg(q.slot_freq + r)) {\n"
+         "    atomicMax(q.slot_freq + r, e);\n  }\n",
+         "  const bool ok = r >= 0 && r < c.rows_cap;\n"
+         "  const unsigned mask = __ballot_sync(__activemask(), ok);\n"
+         "  if (!ok) return;\n"
+         "  const unsigned peers = __match_any_sync(mask, r);\n"
+         "  const int best = __reduce_max_sync(peers, e);\n"
+         "  if ((threadIdx.x & 31) == __ffs(peers) - 1) "
+         "atomicMax(q.slot_freq + r, best);\n")),
+    "no_preread": vs.replace(
+        ("  if (r >= 0 && r < c.rows_cap && e > __ldcg(q.slot_freq + r)) {\n",
+         "  if (r >= 0 && r < c.rows_cap) {\n")),
+    "ticket": K17_TICKET,
+}
+
 KAGGLE_FEATURES = (2, 3, 11, 15, 20)   # the streaming DLRM's over-cap five
 CAPACITY, BUCKETS = 1_882_353, 117_647
 ROWS_CAP = 10_569_296
@@ -235,6 +319,77 @@ def graph_trial(torch, fn, check):
         return {"replays": False, "error": str(e)[:300]}
 
 
+def run_k17(torch, cs, sops, kernels, parent, pend, slot_fp, slot_freq,
+            cms, staged):
+    """K17's variants on the commit of ``pend`` (the step's staged
+    transitions), each held to the plain version from the same state."""
+    libs = vs.build(kernels, "streaming", K17_VARIANTS, "stream_variants_k17")
+    slab = torch.zeros((ROWS_CAP, 128), device="cuda")
+    acc = torch.full_like(slab, 0.1)
+    on = torch.tensor(True, device="cuda")
+    totals = torch.zeros(4, device="cuda")
+    counters = [torch.zeros(1, device="cuda") for _ in range(4)]
+    steps = torch.zeros(1, dtype=torch.int32, device="cuda")
+    base = [t.clone() for t in (slot_fp, slot_freq, cms)]
+    out = [slot_fp, slot_freq, cms, totals, steps, *counters]
+    args = (slab, [(acc, 0.1)], pend, slot_fp, slot_freq, cms, staged,
+            totals, counters, steps)
+
+    def reset():
+        for t, b in zip((slot_fp, slot_freq, cms), base):
+            t.copy_(b)
+        for t in [totals, steps, *counters]:
+            t.zero_()
+
+    # the claimed rows' resets leave a zero slab row and a 0.1
+    # accumulator row as they were: only the slot map, sketch and counts
+    # need a reset between launches
+    reset()
+    sops.commit_rows_plain(*args, enable=on)
+    want = [t.clone() for t in out]
+    claims = int((pend.scrub_rows < ROWS_CAP).sum())
+    hits = int((pend.hit_rows < ROWS_CAP).sum())
+    n = pend.scrub_rows.numel()
+    ts = sops._commit_tensors(*args, on)
+    fns = {}
+    for name, lib in libs.items():
+        with rv.library(kernels, "streaming", lib):
+            rec = sops.build_commit_record(*args, enable=on)
+        tail = (*(t.data_ptr() for t in ts), *rec.payload[1])
+        reset()
+        rec.replay(*tail)
+        torch.cuda.synchronize()
+        for k, (a, b) in enumerate(zip(out, want)):
+            if not torch.equal(a, b):
+                raise SystemExit(f"K17 {name}: output {k} differs from the "
+                                 "plain version")
+        fns[name] = lambda rec=rec, tail=tail: rec.replay(*tail)
+    fns["wrapper"] = lambda: sops.commit_rows(*args, enable=on)
+    if parent is not None:
+        fns["parent_wrapper"] = lambda: parent["streaming"].commit_rows(
+            *args, enable=on)
+    nbytes = cs.commit_bytes(torch, pend, ROWS_CAP, 2 * 128 * 4,
+                             cms.numel())
+    for name, t in rv.timed(torch, cs, fns).items():
+        print(json.dumps({"kernel": "K17", "variant": name, "positions": n,
+                          "claims": claims, "hits": hits, "bytes": nbytes,
+                          "bound_ms": nbytes / cs.HBM_BYTES_PER_S * 1e3,
+                          **t}), flush=True)
+    for name in ("tree", "ticket"):
+        def same():
+            ok = all(torch.equal(a, b) for a, b in zip(out, want))
+            reset()
+            return ok
+
+        reset()
+        print(json.dumps({"kernel": "K17", "variant": name,
+                          "cuda_graph": graph_trial(torch, fns[name],
+                                                    same)}), flush=True)
+    reset()
+    torch.cuda.synchronize()
+    del slab, acc
+
+
 def main():
     import torch
 
@@ -243,20 +398,22 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("stream_variants.py needs a CUDA card")
     argv = sys.argv[1:]
-    if len(argv) == 2 and argv[0] == "--parent":
-        cs.PARENT_DIR = os.path.abspath(argv[1])
-    elif argv:
-        raise SystemExit("usage: python3 stream_variants.py [--parent DIR]")
+    only = {"k16", "k17"}
+    while argv:
+        if len(argv) >= 2 and argv[0] == "--parent":
+            cs.PARENT_DIR = os.path.abspath(argv[1])
+        elif len(argv) >= 2 and argv[0] == "--only":
+            only = set(argv[1].split(","))
+        else:
+            raise SystemExit("usage: python3 stream_variants.py [--parent "
+                             "DIR] [--only k16,k17]")
+        argv = argv[2:]
     print(vs.card_line(), flush=True)
     kernels = importlib.import_module(
         "distributed_embeddings_torch.ops._kernels")
     sops = importlib.import_module("distributed_embeddings_torch.ops."
                                    "streaming")
     parent = cs.parent_ops()
-    libs = vs.build(kernels, "streaming", {**VARIANTS, **DIAGNOSTICS},
-                    "stream_variants")
-    diag = {k: libs.pop(k) for k in DIAGNOSTICS}
-    libs["stamps"].detpu_stream_stamps.argtypes = [ctypes.c_void_p]
     gen = torch.Generator(device="cuda").manual_seed(1600)
     pol = (2, 1)
     slot_fp, slot_freq, cms, counters = warm_state(torch, cs, sops, gen, pol)
@@ -269,13 +426,28 @@ def main():
     print(json.dumps({"positions": n, "hits": hits,
                       "claims": int((want.scrub_rows < ROWS_CAP).sum()),
                       "warm_counters": counters}), flush=True)
+    if "k17" in only:
+        # the step's claims, then only its first 246 (a streaming DLRM
+        # step's commit after its warm-up claims a few hundred rows)
+        claimed = torch.nonzero(want.scrub_rows < ROWS_CAP).flatten()
+        few = want._replace(scrub_rows=want.scrub_rows.clone())
+        few.scrub_rows[claimed[246:]] = ROWS_CAP
+        for pend in (want, few):
+            run_k17(torch, cs, sops, kernels, parent, pend, slot_fp,
+                    slot_freq, cms.clone(), want_cms)
+            torch.cuda.empty_cache()
+    if "k16" not in only:
+        return
+    libs = vs.build(kernels, "streaming", {**VARIANTS, **DIAGNOSTICS},
+                    "stream_variants")
+    diag = {k: libs.pop(k) for k in DIAGNOSTICS}
+    libs["stamps"].detpu_stream_stamps.argtypes = [ctypes.c_void_p]
     fns, staged_t = {}, cms.clone()
     buf_t, _ = sops.update_outputs(n, "cuda")
     recs = {}
     for name, lib in libs.items():
         with rv.library(kernels, "streaming", lib):
             rec = sops.build_remap_record(*a0, cms, *pol)
-        recs[name] = rec
         staged = cms.clone()
         buf, out = sops.update_outputs(n, "cuda")
         rec.replay(*(t.data_ptr() for t in a0), staged.data_ptr(),

@@ -810,17 +810,26 @@ def test_adam_rows_kernel_matches_plain(cuda_device, slab_dtype, mom_dtype,
         assert not torch.equal(got[0], slab)
 
 
+#: K12's widths: one element, an odd width (one-element loads), 16-byte
+#: rows, a row of chunks short of its lane group, a row of a whole warp of
+#: chunks, and an unaligned gradient view
+K12_CASES = [(1, False), (3, False), (8, False), (16, False), (40, False),
+             (128, False), (16, True)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("slab_dtype,tr_dtype", ADAGRAD_PAIRS)
-@pytest.mark.parametrize("width,unaligned", ROW_CASES)
+@pytest.mark.parametrize("width,unaligned", K12_CASES)
 def test_momentum_rows_kernel_matches_plain(cuda_device, slab_dtype,
                                             tr_dtype, width, unaligned):
-    """K12 against its plain version as K11 above, with and without
-    Nesterov: slab and trace bit-exact, untouched rows unchanged."""
+    """K12 against its plain version as K11 above (the dedup's signed
+    order: K12 finds its live range in it), with and without Nesterov,
+    each with a Python and a device lr: slab and trace bit-exact,
+    untouched rows unchanged, one launch a call."""
     rng = np.random.default_rng(width + 100 * unaligned + 7)
     R = 400
     uids, g, hit = _row_case(rng, R, width, tr_dtype, cuda_device,
-                             unaligned=unaligned)
+                             unaligned=unaligned, sort=True)
     untouched = np.setdiff1d(np.arange(R), hit)
     for ids_dtype, lr, nest in ((torch.int32, 0.01, False),
                                 (torch.int64, torch.tensor(0.013), True),
@@ -840,6 +849,135 @@ def test_momentum_rows_kernel_matches_plain(cuda_device, slab_dtype,
         for a, b, old in zip(got, want, (slab, tr)):
             np.testing.assert_array_equal(to_np(a), to_np(b))
             assert torch.equal(a[untouched], old[untouched])
+        assert not torch.equal(got[0], slab)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ids_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("stream", ["all_pad", "no_pad", "negatives_only",
+                                    "long_pad_tail", "wrap_to_row0",
+                                    "wrapped_row", "id0_beside_negatives",
+                                    "empty_live", "empty"])
+def test_momentum_rows_live_range_edges(cuda_device, stream, ids_dtype):
+    """K12 finds the live range of the sorted dedup output on the card: a
+    stream that is all pad tail (nothing moves), one with no pad, one of
+    negative ids only, a 300,000-id output with 1,000 live rows, -R
+    (whose transition lands on row 0) with its prefix, a negative id
+    beside its wrapped row, id 0 beside negative ids (row 0 read by the
+    prefix before its own update: the walk orders it), a negative prefix
+    with an empty live range, and U = 0 (no launch); each in float32 and
+    bfloat16, with and without Nesterov, with a constant and a device lr.
+    Slab and trace bit-exact to the plain version."""
+    R, w = 5000, 16
+    rng = np.random.default_rng(len(stream) + 60)
+    live = np.sort(rng.permutation(np.arange(1, R - 40))[:1000])
+    ids = {"all_pad": np.full(700, R),
+           "no_pad": live,
+           "negatives_only": np.array([-R - 9, -R, -17, -3, -1]),
+           "long_pad_tail": np.concatenate([live, np.full(299_000, R)]),
+           "wrap_to_row0": np.concatenate([[-R - 1, -R, -33, -2], live,
+                                           [R, R + 3]]),
+           "wrapped_row": np.concatenate([[-R + 7, -3], live[live < R - 3],
+                                          [R - 3, R]]),
+           "id0_beside_negatives": np.concatenate([[-R, -40, -2, 0], live,
+                                                   [R, R]]),
+           "empty_live": np.concatenate([[-R - 4, -7, -2],
+                                         np.full(3000, R), [R + 9]]),
+           "empty": np.zeros(0, np.int64)}[stream]
+    assert (np.diff(ids) >= 0).all()  # the dedup's signed order
+    uids = torch.from_numpy(ids).to(ids_dtype).to(cuda_device)
+    for dt in (torch.float32, torch.bfloat16):
+        for lr, nest in ((0.01, False),
+                         (torch.tensor(0.02, device=cuda_device), True),
+                         (0.01, True),
+                         (torch.tensor(0.02, device=cuda_device), False)):
+            g = torch.from_numpy(rng.normal(size=(len(ids), w)).astype(
+                np.float32)).to(dt).to(cuda_device)
+            slab, tr = (torch.from_numpy(rng.normal(size=(R, w)).astype(
+                np.float32)).to(dt).to(cuda_device) for _ in range(2))
+            got, want = [slab.clone(), tr.clone()], [slab.clone(),
+                                                     tr.clone()]
+            before = momentum_rows.launches
+            momentum_rows(*got, uids, g, lr, 0.9, nest)
+            assert momentum_rows.launches == before + (stream != "empty")
+            momentum_rows_plain(*want, uids, g, lr, 0.9, nest)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), (stream, dt, nest)
+            moved = not torch.equal(got[0], slab)
+            assert moved == (stream not in ("all_pad", "empty"))
+            if stream in ("wrap_to_row0", "id0_beside_negatives"):
+                assert not torch.equal(got[1][0], tr[0])  # row 0's trace
+            if stream == "wrapped_row":
+                assert not torch.equal(got[0][R - 3], slab[R - 3])
+
+
+@pytest.mark.cuda
+def test_momentum_rows_record_hits_and_replays_in_a_cuda_graph(cuda_device):
+    """K12 through its launch record: a second call with new tensors of
+    the same layouts builds nothing; a changed width, trace dtype,
+    momentum, Nesterov or lr kind builds a new record; a call captured in
+    a ``torch.cuda.CUDAGraph`` (device lr, Nesterov) and replayed twice
+    with fresh inputs copied into the captured tensors gives the eager
+    call's bits each time (the launch keeps no state between calls)."""
+    import importlib
+
+    mom = importlib.import_module("distributed_embeddings_torch.ops."
+                                  "momentum")
+    rng = np.random.default_rng(23)
+    R, w = 3000, 16
+    ids = np.concatenate([[-5], np.sort(rng.permutation(R - 10)[:700] + 1),
+                          np.full(400, R)])
+    uids = torch.from_numpy(ids).int().to(cuda_device)
+
+    def case():
+        g = torch.from_numpy(rng.normal(size=(len(ids), w)).astype(
+            np.float32)).to(cuda_device)
+        return [torch.from_numpy(rng.normal(size=(R, w)).astype(
+            np.float32)).to(cuda_device) for _ in range(2)], g
+
+    def pair(fn, slab, tr, g, lr, m=0.9, nest=True):
+        out = [slab.clone(), tr.clone()]
+        fn(*out, uids, g, lr, m, nest)
+        return out
+
+    lr = torch.tensor(0.02, device=cuda_device)
+    (slab, tr), g = case()
+    pair(momentum_rows, slab, tr, g, lr)
+    builds = mom._CACHE.builds
+    (slab, tr), g = case()
+    want = pair(momentum_rows_plain, slab, tr, g, lr)
+    got = pair(momentum_rows, slab, tr, g, lr)
+    assert mom._CACHE.builds == builds
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    for k, (args, kw) in enumerate((
+            ((slab[:, :8].contiguous(), tr[:, :8].contiguous(),
+              g[:, :8].contiguous(), lr), {}),
+            ((slab, tr.bfloat16(), g.bfloat16(), lr), {}),
+            ((slab, tr, g, lr), {"m": 0.8}),
+            ((slab, tr, g, lr), {"nest": False}),
+            ((slab, tr, g, 0.02), {}))):
+        pair(momentum_rows, *args, **kw)
+        assert mom._CACHE.builds == builds + 1 + k
+    state = [slab.clone(), tr.clone()]
+    gin = g.clone()
+    stream = torch.cuda.Stream(device=cuda_device)
+    stream.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(stream):
+        momentum_rows(*state, uids, gin, lr, 0.9, True)
+    torch.cuda.current_stream(cuda_device).wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        momentum_rows(*state, uids, gin, lr, 0.9, True)
+    for _ in range(2):
+        (s0, t0), g0 = case()
+        want = pair(momentum_rows, s0, t0, g0, lr)
+        state[0].copy_(s0)
+        state[1].copy_(t0)
+        gin.copy_(g0)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(state, want))
+        assert not torch.equal(state[0], s0)
 
 
 def _adam_pair(fn, slab, mu, nu, cnt, uids, g, lr):
@@ -1929,6 +2067,190 @@ def test_streaming_commit_kernel_resets_leaves(cuda_device, opt):
     claimed = to_np(res[0][0][0:rows:2])
     assert np.isnan(claimed[4]).all()  # the Inf row: x + (-x) is NaN
     assert (np.delete(claimed, 4, axis=0) == 0).all()
+
+
+def _commit_case(dev, seed, rows, w, n, leaves, n_claims, slab_dtype):
+    """One K17 call's inputs: a slab (an Inf row among the claims, so a
+    reset row is NaN) and ``leaves`` ``(dtype, fill)`` of its shape,
+    ``n_claims`` distinct claimed rows (the first also hit: a row both
+    claimed and hit), hits over every row and past ``rows_cap``, a
+    staged sketch and the four counts. Returns ``(args, state)``:
+    ``commit_rows``'s positional arguments and the tensors it writes."""
+    from distributed_embeddings_torch.ops import streaming as so
+
+    g = torch.Generator(dev).manual_seed(seed)
+    i32 = torch.int32
+    slab = torch.randn(rows, w, generator=g, device=dev).to(slab_dtype)
+    lv = [((torch.rand(rows, w, generator=g, device=dev) + 0.5).to(dt), f)
+          for dt, f in leaves]
+    claimed = torch.randperm(rows, generator=g, device=dev)[:n_claims]
+    if n_claims:
+        slab[claimed[0]] = float("inf")
+    scrub = torch.full((n,), rows, dtype=i32, device=dev)
+    at = torch.randperm(n, generator=g, device=dev)[:n_claims]
+    scrub[at] = claimed.to(i32)
+    hit = torch.randint(0, rows + 40, (n,), generator=g, device=dev,
+                        dtype=i32)
+    if n_claims:
+        hit[(at[0] + 1) % n] = claimed[0].to(i32)
+    r = so.Remap(torch.zeros(n, dtype=i32, device=dev),
+                 torch.randint(0, 2 ** 31 - 1, (n,), generator=g, device=dev,
+                               dtype=i32),
+                 torch.randint(0, 50, (n,), generator=g, device=dev,
+                               dtype=i32), scrub, hit,
+                 torch.tensor([n_claims, 3, 100, 30], device=dev))
+    slot_fp = torch.full((rows,), -1, dtype=i32, device=dev)
+    slot_freq = torch.randint(0, 40, (rows,), generator=g, device=dev,
+                              dtype=i32)
+    cms = torch.zeros((4, 64), dtype=i32, device=dev)
+    staged = torch.randint(0, 9, (4, 64), generator=g, device=dev,
+                           dtype=i32)
+    totals = torch.rand(4, generator=g, device=dev)
+    counters = [torch.ones(1, device=dev) for _ in range(4)]
+    steps = torch.zeros(1, dtype=i32, device=dev)
+    args = (slab, lv, r, slot_fp, slot_freq, cms, staged, totals, counters,
+            steps)
+    state = [slab, *[t for t, _ in lv], slot_fp, slot_freq, cms, totals,
+             steps, *counters]
+    return args, state
+
+
+def _clone_commit(args):
+    """A deep copy of ``_commit_case``'s arguments and written tensors."""
+    slab, lv, r, slot_fp, slot_freq, cms, staged, totals, counters, \
+        steps = args
+    a = (slab.clone(), [(t.clone(), f) for t, f in lv], r,
+         slot_fp.clone(), slot_freq.clone(), cms.clone(), staged,
+         totals.clone(), [c.clone() for c in counters], steps.clone())
+    return a, [a[0], *[t for t, _ in a[1]], a[3], a[4], a[5], a[7], a[9],
+               *a[8]]
+
+
+#: K17's leaves: none to four, float32 and bfloat16, fills 0 and 0.1
+COMMIT_LEAVES = [
+    (), ((torch.float32, 0.1),), ((torch.bfloat16, 0.0),),
+    ((torch.float32, 0.0), (torch.bfloat16, 0.1)),
+    ((torch.bfloat16, 0.1), (torch.bfloat16, 0.0), (torch.float32, 0.1)),
+    ((torch.float32, 0.0), (torch.float32, 0.1), (torch.bfloat16, 0.1),
+     (torch.bfloat16, 0.0))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slab_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("leaves", COMMIT_LEAVES,
+                         ids=["none", "f32", "bf16", "two", "three", "four"])
+@pytest.mark.parametrize("n_claims", [0, 1, 300])
+def test_streaming_commit_one_launch_edges(cuda_device, slab_dtype, leaves,
+                                           n_claims):
+    """K17 as one launch against its plain version: 0 to 4 leaves in
+    float32 and bfloat16 with fills 0 and 0.1, 0, 1 and 300 claims (a row
+    both claimed and hit takes the set before the max), widths 24 (16-byte
+    lanes in float32 and bfloat16 alike) and 5 (one element a lane),
+    ``enable`` None, True and False, ``finalize`` on and off: every
+    output bit-exact (NaN equals NaN), one launch a call; with ``enable``
+    False the slab, leaves, slot map and sketch are bitwise unchanged."""
+    from distributed_embeddings_torch.ops import streaming as so
+
+    dev = cuda_device
+    for w, n, en_kind, fin in ((24, 4_000, None, True),
+                               (24, 4_000, True, False),
+                               (5, 1_000, True, True),
+                               (24, 4_000, False, True),
+                               (5, 1_000, False, False)):
+        args, _ = _commit_case(dev, n_claims + w, 512, w, n, leaves,
+                               n_claims, slab_dtype)
+        en = None if en_kind is None else torch.tensor(en_kind, device=dev)
+        (ka, kst), (pa, pst) = _clone_commit(args), _clone_commit(args)
+        before = so.commit_rows.launches
+        so.commit_rows(*ka, enable=en, finalize=fin)
+        assert so.commit_rows.launches == before + 1
+        so.commit_rows_plain(*pa, enable=en, finalize=fin)
+        for k, (x, y) in enumerate(zip(kst, pst)):
+            np.testing.assert_array_equal(
+                to_np(x), to_np(y), err_msg=f"w{w} {en_kind} {fin} out {k}")
+        _, orig = _commit_case(dev, n_claims + w, 512, w, n, leaves,
+                               n_claims, slab_dtype)
+        moved = [not torch.equal(x, y) for x, y in zip(kst, orig)]
+        k = 4 + len(leaves)  # slab, leaves, slot_fp, slot_freq, cms
+        if en_kind is False:
+            assert not any(moved[:k])
+        else:
+            assert moved[k - 1]  # the staged sketch
+            assert moved[0] == (n_claims > 0)
+            if n_claims:
+                row = int(args[2].scrub_rows[args[2].scrub_rows < 512][0])
+                assert kst[k - 3][row] == args[2].fp[
+                    args[2].scrub_rows == row][0]
+        assert int(kst[k + 1]) == (int(fin) if en_kind is not False else 0)
+
+
+@pytest.mark.cuda
+def test_streaming_commit_record_hits_and_replays_in_a_cuda_graph(
+        cuda_device):
+    """K17 through its launch record: new tensors of the same layouts
+    build nothing; each of finalize, enable given, a leaf's fill or dtype,
+    the leaves' count, n and the width builds a new record; the call
+    captured in a ``torch.cuda.CUDAGraph`` (enable on the card) and
+    replayed twice with fresh inputs copied into the captured tensors
+    gives the eager call's bits (the launch leaves nothing to reset)."""
+    import importlib
+
+    so = importlib.import_module("distributed_embeddings_torch.ops."
+                                 "streaming")
+    dev = cuda_device
+    leaves = ((torch.float32, 0.1), (torch.bfloat16, 0.0))
+    on = torch.tensor(True, device=dev)
+
+    def case(seed, w=32, n=3_000, lv=leaves):
+        return _commit_case(dev, seed, 700, w, n, lv, 120, torch.float32)
+
+    so.commit_rows(*_clone_commit(case(0)[0])[0], enable=on)
+    builds = so._COMMIT.builds
+    for seed in (1, 2):
+        a = case(seed)[0]
+        (ka, kst), (pa, pst) = _clone_commit(a), _clone_commit(a)
+        so.commit_rows(*ka, enable=on)
+        so.commit_rows_plain(*pa, enable=on)
+        for k, (x, y) in enumerate(zip(kst, pst)):
+            np.testing.assert_array_equal(to_np(x), to_np(y),
+                                          err_msg=f"hit {seed} out {k}")
+    assert so._COMMIT.builds == builds
+    for k, (a, kw) in enumerate((
+            (case(3)[0], {"enable": on, "finalize": False}),
+            (case(3)[0], {}),
+            (case(3, lv=((torch.float32, 0.2), leaves[1]))[0],
+             {"enable": on}),
+            (case(3, lv=((torch.bfloat16, 0.1), leaves[1]))[0],
+             {"enable": on}),
+            (case(3, lv=leaves[:1])[0], {"enable": on}),
+            (case(3, n=3_001)[0], {"enable": on}),
+            (case(3, w=8)[0], {"enable": on}))):
+        so.commit_rows(*a, **kw)
+        assert so._COMMIT.builds == builds + 1 + k
+    cap, cst = _clone_commit(case(4)[0])
+    side = torch.cuda.Stream(device=dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        so.commit_rows(*_clone_commit(case(4)[0])[0], enable=on)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        so.commit_rows(*cap, enable=on)
+    for seed in (5, 6):
+        fresh = case(seed)[0]
+        (ea, est), (fa, fst) = _clone_commit(fresh), _clone_commit(fresh)
+        so.commit_rows(*ea, enable=on)
+        for dst, src in zip(cst, fst):
+            dst.copy_(src)
+        for dst, src in zip(cap[2], fresh[2]):
+            dst.copy_(src)
+        cap[6].copy_(fresh[6])
+        graph.replay()
+        torch.cuda.synchronize()
+        for k, (x, y) in enumerate(zip(cst, est)):
+            np.testing.assert_array_equal(to_np(x), to_np(y),
+                                          err_msg=f"replay {seed} out {k}")
+        assert not torch.equal(cst[0], fresh[0])
 
 
 @pytest.mark.cuda

@@ -1,5 +1,6 @@
 """The launch records of K21 (``ops/grad_health.py``), K11
-(``ops/adam.py``) and K6 (``ops/adagrad.py``) on CPU tensors: the records
+(``ops/adam.py``), K6 (``ops/adagrad.py``) and K12 (``ops/momentum.py``)
+on CPU tensors: the records
 are built without a launch (``build_on_cpu``), so their keys, their chunk
 plans and constants, their reuse and every rebuild or raise run here.
 
@@ -16,10 +17,14 @@ What is held, all exactly (integers, addresses and float32 constants):
   - K6's key holds the layouts, dtypes, ``eps`` and a constant lr (a
     tensor lr's layout), no address; its constants are the roundings of
     ``ops/adagrad.py:_lr_args`` (and of ``eps``) to the accumulator dtype;
-  - the live-range search of K6 and K11 (``csrc/row_update.cuh:
+  - K12's key holds the layouts, dtypes, ``momentum``, Nesterov and a
+    constant lr (a tensor lr's layout), no address; its constants are
+    ``ops/adam.py:_rnd``'s roundings of ``momentum`` and ``-lr`` to the
+    trace dtype;
+  - the live-range search of K6, K11 and K12 (``csrc/row_update.cuh:
     block_bounds``, transcribed) finds the ends of the negative prefix and
     of the live range of a sorted id stream, as ``np.searchsorted`` does;
-  - all three validate as their wrappers always have, raising the same
+  - all four validate as their wrappers always have, raising the same
     errors.
 """
 
@@ -33,13 +38,15 @@ from distributed_embeddings_torch.ops import _kernels
 from distributed_embeddings_torch.ops import adagrad as ada_mod
 from distributed_embeddings_torch.ops import adam as adam_mod
 from distributed_embeddings_torch.ops import (adagrad_rows, adam_rows,
-                                              grad_health)
+                                              grad_health, momentum_rows)
 
 gh = importlib.import_module("distributed_embeddings_torch.ops.grad_health")
+mom_mod = importlib.import_module("distributed_embeddings_torch.ops.momentum")
 
 torch.set_num_threads(1)
 
-THREADS = 256  # kThreads of csrc/grad_health.cu, adam.cu and adagrad.cu
+THREADS = 256  # kThreads of csrc/grad_health.cu, adam.cu, adagrad.cu and
+#                momentum.cu
 
 
 def _find(cache, module, *args):
@@ -304,7 +311,8 @@ def test_k11_validates_and_raises_as_before():
 
 
 def block_bounds(ids, v0, v1):
-    """``csrc/row_update.cuh:block_bounds`` (K6's and K11's) transcribed: the first indices of the
+    """``csrc/row_update.cuh:block_bounds`` (K6's, K11's and K12's)
+    transcribed: the first indices of the
     sorted ``ids`` holding a value >= v0 and >= v1, each round every one
     of THREADS threads probing one evenly spaced position of each open
     range (the block's ``__syncthreads_count`` is the sum)."""
@@ -449,3 +457,98 @@ def test_k6_validates_and_raises_as_before():
     before = (adagrad_rows.launches, ada_mod._CACHE.builds)
     adagrad_rows(*_ada_args())
     assert (adagrad_rows.launches, ada_mod._CACHE.builds) == before
+
+
+# ------------------------------------------------------------------ K12
+
+
+def _mom_args(seed=0, R=50, w=8, u=12, dt=torch.float32, sdt=torch.float32,
+              ids=torch.int32, lr=0.01, m=0.9, nesterov=False):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn((R, w), generator=g).to(sdt),
+            (0.1 * torch.randn((R, w), generator=g)).to(dt),
+            torch.arange(u, dtype=ids), torch.randn((u, w), generator=g).to(dt),
+            lr, m, nesterov)
+
+
+def test_k12_key_holds_no_addresses_and_fresh_tensors_hit():
+    cache = _kernels.LaunchCache()
+    a, b = _mom_args(0), _mom_args(1)
+    assert mom_mod.record_key(*a) == mom_mod.record_key(*b)
+    ptrs = {t.data_ptr() for t in a[:4] + b[:4]}
+    assert not ptrs & {k for k in mom_mod.record_key(*a)
+                       if isinstance(k, int)}
+    rec = _find(cache, mom_mod, *a)
+    assert _find(cache, mom_mod, *b) is rec and cache.builds == 1
+    assert rec.calls == () and rec.payload[2] is None
+    # a tensor lr: its layout, not its address or value
+    lr1, lr2 = torch.tensor(0.01), torch.tensor(0.5)
+    k1 = mom_mod.record_key(*_mom_args(lr=lr1))
+    assert k1 == mom_mod.record_key(*_mom_args(lr=lr2))
+    assert lr1.data_ptr() not in k1
+
+
+@pytest.mark.parametrize("change", [
+    dict(w=16), dict(w=1), dict(R=51), dict(u=13), dict(dt=torch.bfloat16),
+    dict(sdt=torch.bfloat16), dict(ids=torch.int64), dict(lr=0.02),
+    dict(m=0.8), dict(nesterov=True), dict(lr=torch.tensor(0.01)),
+    dict(lr=torch.tensor(0.01, dtype=torch.float64))])
+def test_k12_changed_layout_or_constant_builds_a_new_record(change):
+    cache = _kernels.LaunchCache()
+    _find(cache, mom_mod, *_mom_args())
+    _find(cache, mom_mod, *_mom_args(**change))
+    assert cache.builds == 2
+    _find(cache, mom_mod, *_mom_args(seed=3))
+    assert cache.builds == 2
+
+
+@pytest.mark.parametrize("tr", [torch.float32, torch.bfloat16])
+def test_k12_constants_rounded_once(tr):
+    rnd = adam_mod._rnd
+    for lr, m in ((0.01, 0.9), (0.3, 0.99), (1.0 / 3.0, 0.123456789)):
+        for nest in (False, True):
+            rec = mom_mod.find_record(*_mom_args(dt=tr, lr=lr, m=m,
+                                                 nesterov=nest),
+                                      build_on_cpu=True)
+            lr_as_is, c, prepared = rec.payload
+            assert lr_as_is and prepared is None
+            assert c == {"m": rnd(m, tr), "neg_lr": rnd(-lr, tr)}
+            if tr == torch.bfloat16:
+                assert c["m"] != m and c["neg_lr"] != -lr
+    # a card lr is read per call: converted where it is not float32
+    for lr, as_is in ((torch.tensor(0.01), True),
+                      (torch.tensor(0.01, dtype=torch.float64), False),
+                      (torch.full((1, 1), 0.01), True)):
+        rec = mom_mod.find_record(*_mom_args(dt=tr, lr=lr),
+                                  build_on_cpu=True)
+        assert rec.payload[0] is as_is
+        assert rec.payload[1] == {"m": rnd(0.9, tr), "neg_lr": 0.0}
+
+
+def test_k12_validates_and_raises_as_before():
+    def raises(match, changes):
+        args = list(_mom_args())
+        for k, v in changes.items():
+            args[k] = v
+        with pytest.raises(ValueError, match=match):
+            mom_mod.find_record(*args, build_on_cpu=True)
+
+    raises("slab: expected a contiguous 2-D", {0: torch.zeros(8, 50).t()})
+    raises("trace: expected a contiguous 2-D",
+           {1: torch.zeros(50, 8, dtype=torch.float64)})
+    raises("must share the slab's shape", {1: torch.zeros(50, 4)})
+    raises("uids: expected a contiguous", {2: torch.zeros(3, 4,
+                                                            dtype=torch.int32)})
+    raises("uids: expected a contiguous", {2: torch.zeros(12)})
+    raises("uvals: expected a contiguous", {3: torch.zeros(12, 4)})
+    raises("uvals: expected a contiguous",
+           {3: torch.zeros(12, 8, dtype=torch.bfloat16)})
+    raises("a tensor lr must hold one value", {4: torch.ones(2)})
+    m = torch.zeros(4, 8, device="meta")
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        momentum_rows(m, m, torch.zeros(2, dtype=torch.int32, device="meta"),
+                      torch.zeros(2, 8, device="meta"), 0.1, 0.9)
+    # the CPU wrapper runs the plain version, builds nothing
+    before = (momentum_rows.launches, mom_mod._CACHE.builds)
+    momentum_rows(*_mom_args())
+    assert (momentum_rows.launches, mom_mod._CACHE.builds) == before

@@ -1,6 +1,6 @@
-"""K16's launch records (``ops/streaming.py``) on CPU tensors, the views of
-an update call's one allocation, and the plain remap against the JAX
-package's ``remap_width`` where claims crowd one row.
+"""K16's and K17's launch records (``ops/streaming.py``) on CPU tensors,
+the views of an update call's one allocation, and the plain remap against
+the JAX package's ``remap_width`` where claims crowd one row.
 
 What is held, all exactly (integers and addresses):
   - K16's key, in both modes, holds the layouts of the tensors the call
@@ -9,7 +9,15 @@ What is held, all exactly (integers and addresses):
     address: fresh tensors of the same layouts find the record, each
     changed fact builds another, and the read-only key ignores the
     sketch and the policy;
-  - the records validate as the wrapper always has, raising the same
+  - K17's key holds the leaves' count, dtypes and fills, ``finalize``,
+    whether ``enable`` is given, and the layouts of every tensor the call
+    passes (the slab, the leaves, the ``pend`` views, the slot map, the
+    sketch and its staged copy, totals, counters, ``steps``, ``enable``);
+    no address: fresh tensors of the same layouts find the record and each
+    changed fact builds another; a call passes one address a tensor, in
+    the kernel's order, padded with nulls to the launch's five slots for
+    the leaves and ``enable``;
+  - the records validate as the wrappers always have, raising the same
     errors;
   - an update call's outputs are views of one allocation at the kernel's
     offsets (``csrc/streaming.cu:detpu_stream_remap_launch``): 16-byte
@@ -159,6 +167,155 @@ def test_update_outputs_are_views_of_one_allocation(n):
                    for v in views if v.numel())
     assert all(b <= c for (_, b), (c, _) in zip(spans, spans[1:]))
     assert spans[-1][1] <= buf.numel() * 4
+
+
+# ------------------------------------------------------- K17's records
+
+
+def _commit_args(seed=0, n=40, rows_cap=64, w=8, sdt=torch.float32,
+                 leaves=((torch.float32, 0.1),), enable=True, finalize=True):
+    """One ``commit_rows`` call's positional arguments (CPU tensors) and
+    its keywords."""
+    g = torch.Generator().manual_seed(seed)
+    i32 = torch.int32
+    lv = [(torch.rand((rows_cap, w), generator=g).to(dt), f)
+          for dt, f in leaves]
+    pend = som.Remap(torch.zeros(n, dtype=i32),
+                     torch.randint(0, 2 ** 31 - 1, (n,), generator=g,
+                                   dtype=i32),
+                     torch.randint(0, 9, (n,), generator=g, dtype=i32),
+                     torch.randint(0, rows_cap + 1, (n,), generator=g,
+                                   dtype=i32),
+                     torch.randint(0, rows_cap + 1, (n,), generator=g,
+                                   dtype=i32),
+                     torch.zeros(4, dtype=torch.int64))
+    args = (torch.randn((rows_cap, w), generator=g).to(sdt), lv, pend,
+            torch.full((rows_cap,), -1, dtype=i32),
+            torch.zeros(rows_cap, dtype=i32), torch.zeros((3, 61), dtype=i32),
+            torch.zeros((3, 61), dtype=i32), torch.zeros(4),
+            [torch.zeros(1) for _ in range(4)], torch.zeros(1, dtype=i32))
+    kw = {"enable": torch.tensor(True) if enable else None,
+          "finalize": finalize}
+    return args, kw
+
+
+def _find_commit(cache, args, kw):
+    return _kernels.find_or_build(
+        cache, som.commit_key(*args, **kw), som.build_commit_record, True,
+        True, *args, kw["enable"], kw["finalize"])
+
+
+@pytest.mark.parametrize("enable", [True, False])
+def test_k17_key_holds_no_addresses_and_fresh_tensors_hit(enable):
+    cache = _kernels.LaunchCache()
+    (a, kw), (b, kwb) = (_commit_args(0, enable=enable),
+                         _commit_args(1, enable=enable))
+    assert som.commit_key(*a, **kw) == som.commit_key(*b, **kwb)
+    ts = som._commit_tensors(*a, kw["enable"])
+    assert len(ts) == 16 + 1 + enable
+    ptrs = {t.data_ptr() for t in ts}
+    assert not ptrs & {k for k in som.commit_key(*a, **kw)
+                       if isinstance(k, int)}
+    rec = _find_commit(cache, a, kw)
+    assert _find_commit(cache, b, kwb) is rec and cache.builds == 1
+    prepared, pad = rec.payload
+    assert rec.calls == () and prepared is None
+    assert len(ts) + len(pad) == 21 and set(pad) <= {None}
+
+
+@pytest.mark.parametrize("change", [
+    dict(n=41), dict(n=0), dict(rows_cap=65), dict(w=16),
+    dict(sdt=torch.bfloat16), dict(leaves=()),
+    dict(leaves=((torch.bfloat16, 0.1),)), dict(leaves=((torch.float32, 0.0),)),
+    dict(leaves=((torch.float32, 0.1), (torch.float32, 0.1))),
+    dict(leaves=((torch.float32, 0.1),) * 4), dict(enable=False),
+    dict(finalize=False)])
+def test_k17_each_fact_builds_a_new_record(change):
+    """n, rows_cap, the width, the slab's dtype, the leaves' count, dtypes
+    and fills, whether enable is given, and finalize each key the record."""
+    cache = _kernels.LaunchCache()
+    _find_commit(cache, *_commit_args())
+    _find_commit(cache, *_commit_args(**change))
+    assert cache.builds == 2
+    _find_commit(cache, *_commit_args(seed=5))
+    _find_commit(cache, *_commit_args(seed=6, **change))
+    assert cache.builds == 2
+
+
+@pytest.mark.parametrize("leaves,enable", [
+    (((torch.float32, 0.1), (torch.bfloat16, 0.0)), True),
+    ((), False), (((torch.float32, 0.1),) * 4, True)])
+def test_k17_argument_block_holds_the_call_addresses(leaves, enable):
+    """A call passes one address a tensor, in the kernel's order
+    (``detpu_stream_commit_launch``): scrub_rows, fp, est, hit_rows,
+    counts, slot_fp, slot_freq, cms, staged, totals, the four counters,
+    steps, the slab, then five slots for the leaves and ``enable``, the
+    record's pad filling those left with nulls."""
+    args, kw = _commit_args(leaves=leaves, enable=enable)
+    rec = som.find_commit_record(*args, **kw, build_on_cpu=True)
+    _, pad = rec.payload
+    slab, lv, pend, slot_fp, slot_freq, cms, staged, totals, counters, \
+        steps = args
+    want = ([pend.scrub_rows, pend.fp, pend.est, pend.hit_rows, pend.counts,
+             slot_fp, slot_freq, cms, staged, totals] + counters
+            + [steps, slab] + [t for t, _ in lv]
+            + ([kw["enable"]] if enable else []))
+    ts = som._commit_tensors(*args, kw["enable"])
+    assert len(ts) == len(want) == 16 + len(leaves) + enable
+    assert all(a is b for a, b in zip(ts, want))
+    tail = (*(t.data_ptr() for t in ts), *pad)
+    assert len(tail) == 21 and tail[len(ts):] == (None,) * len(pad)
+
+
+def test_k17_validates_and_raises_as_before():
+    def raises(match, k=None, v=None, **change):
+        args, kw = _commit_args(**change)
+        args = list(args)
+        if k is not None:
+            args[k] = v
+        with pytest.raises(ValueError, match=match):
+            som.find_commit_record(*args, **kw, build_on_cpu=True)
+
+    i32 = torch.int32
+    args, _ = _commit_args()
+    pend = args[2]
+    raises(r"slab: expected a \[rows, w\] float32/bfloat16", 0,
+           torch.zeros(64))
+    raises(r"slab: expected a \[rows, w\] float32/bfloat16", 0,
+           torch.zeros((64, 8), dtype=torch.float64))
+    raises("slab: expected a contiguous", 0, torch.zeros(8, 64).t())
+    raises("leaf: expected a contiguous", 1, [(torch.zeros(64, 4), 0.1)])
+    raises("5 leaves: the kernel takes at most 4", 1,
+           [(torch.zeros(64, 8), 0.1)] * 5)
+    raises("scrub_rows: expected a contiguous", 2,
+           pend._replace(scrub_rows=torch.zeros(40)))
+    raises("hit_rows: expected a contiguous", 2,
+           pend._replace(hit_rows=torch.zeros(39, dtype=i32)))
+    raises("counts: expected a contiguous", 2,
+           pend._replace(counts=torch.zeros(4, dtype=i32)))
+    raises("slot_fp: expected a contiguous", 3, torch.zeros(63, dtype=i32))
+    raises("slot_freq: expected a contiguous", 4,
+           torch.zeros(64, dtype=torch.int64))
+    raises("cms: expected a contiguous", 5, torch.zeros((3, 61)))
+    raises("staged: expected a contiguous", 6, torch.zeros((3, 60),
+                                                           dtype=i32))
+    raises("totals: expected a contiguous", 7, torch.zeros(5))
+    raises("counter: expected a contiguous", 8,
+           [torch.zeros(1) for _ in range(3)] + [torch.zeros(2)])
+    raises("3 counters: expected the four", 8,
+           [torch.zeros(1) for _ in range(3)])
+    raises("steps: expected a contiguous", 9, torch.zeros(1))
+    args, kw = _commit_args()
+    with pytest.raises(ValueError, match="enable: expected a contiguous"):
+        som.find_commit_record(*args, enable=torch.tensor([True]),
+                               build_on_cpu=True)
+    m = torch.zeros((64, 8), device="meta")
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        som.commit_rows(m, *args[1:])
+    # the CPU wrapper runs the plain version, builds nothing
+    before = (som.commit_rows.launches, som._COMMIT.builds)
+    som.commit_rows(*args, **kw)
+    assert (som.commit_rows.launches, som._COMMIT.builds) == before
 
 
 # ----------------------------------------- the plain remap against JAX
