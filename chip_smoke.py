@@ -159,8 +159,9 @@ Phases (any failure raises and the script exits non-zero):
     DLRM over the Criteo-Kaggle vocabularies capped at 2M rows, bf16
     tables and compute, ``SparseSGD`` + SGD at lr 0.005, b=16384, guard
     off, the default sketch):
-   a. 3 steps with K13-K15 and 3 with their plain versions: every
-      telemetry leaf bitwise equal;
+   a. 3 steps with K13-K15 (a width's fold replayed from one launch
+      record) and 3 with their plain versions: every telemetry leaf
+      bitwise equal;
    b. 3 lockstep steps with telemetry on and off: losses, dense params
       and K3's inputs bitwise, the slab within the k-ulp bound (bitwise:
       K3 is deterministic);
@@ -168,12 +169,19 @@ Phases (any failure raises and the script exits non-zero):
       its ids folded (bitwise the plain fold of them);
    d. planted hot rows ranked first in their tables by ``hot_rows``;
    e. 2 warmup + 12 timed steps off and on (launches a step: K1, K2,
-      K4, K3, K13, K14, K15 once), ``telemetry_overhead_frac``;
+      K4, K3, K13, K14, K15 once), ``telemetry_overhead_frac`` (with
+      ``--parent`` in turns with the parent's K13-K15), and a profile
+      window: the device busy share and the sketch chain's device ms a
+      step (with ``--parent`` the parent's after it);
    f. K13, K14 and K15 timed on the step's stream (and, in phase 9f, on
       the ragged step's ~26.4M positions) beside their plain versions,
-      a PyTorch yardstick and their byte bounds; K14 and K15 also at
-      ``topk`` 2048 with its default 8192 candidates and at 16384
-      candidates, past their shared-memory tiles (bit-exact first).
+      a PyTorch yardstick and their byte bounds, K13 and K15 through
+      ``kernel_case`` (host and device ms, in turns with the parent's),
+      the width fold bitwise to its plain version; the host splits of
+      K13's, K15's and the fold's records (the fold's beside the
+      parent's three wrappers in turns); K14 and K15 also at ``topk``
+      2048 with its default 8192 candidates and at 16384 candidates,
+      past their tiles (bit-exact first).
 12. streaming, after freeing the telemetry state: streaming vocabularies
     (``parallel/streaming.py``; K16 remap and K17 commit in
     ``csrc/streaming.cu``; K16's update folds the admission sketch
@@ -288,7 +296,7 @@ The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Run from the root of a checkout:
 ``python3 chip_smoke.py``. With ``--parent DIR`` (a checkout of another
 commit, e.g. unpacked with ``git archive``), the launch-record kernels
-K1-K6, K8, K10, K11, K16, K18-K22 are also timed through that
+K1-K6, K8, K10-K13, K15-K22 are also timed through that
 checkout's wrappers, in turns with this tree's (``in_turns``), K1 is
 held bit-exact to that checkout's K1 at phase 4's shapes and the zoo's
 (and K2 within its tolerance of that checkout's), and the DLRM,
@@ -397,10 +405,9 @@ def parent_ops():
     """The parent checkout's ``ops.dense_update``, ``ops.exchange_pack``,
     ``ops.embedding_lookup``, ``ops.scatter_add``, ``ops.interaction``,
     ``ops.sparse_grad``, ``ops.grad_health``, ``ops.adam``,
-    ``ops.adagrad``, ``ops.momentum`` and ``ops.streaming`` modules and
-    its ``models.dlrm``
-    (key ``"dlrm"``),
-    loaded under the
+    ``ops.adagrad``, ``ops.momentum``, ``ops.streaming`` and
+    ``ops.sketch`` modules, its ``models.dlrm`` (key ``"dlrm"``) and its
+    ``analysis.telemetry`` (key ``"telemetry"``), loaded under the
     package name
     ``detpu_parent`` (its kernels built from its own sources into its own
     ``build/``), or None without ``--parent``."""
@@ -425,10 +432,12 @@ def parent_ops():
         for name in ("dense_update", "exchange_pack", "embedding_lookup",
                      "scatter_add", "interaction", "sparse_grad",
                      "grad_health", "adam", "adagrad", "momentum",
-                     "streaming"):
+                     "streaming", "sketch"):
             _parent[name] = importlib.import_module(
                 f"detpu_parent.ops.{name}")
         _parent["dlrm"] = importlib.import_module("detpu_parent.models.dlrm")
+        _parent["telemetry"] = importlib.import_module(
+            "detpu_parent.analysis.telemetry")
     return _parent
 
 
@@ -456,14 +465,34 @@ LOOKUP_SITES = (("lookup", "gather_combine"), ("lookup", "lengths_to_splits"),
                 ("dist_embedding", "row_to_split"))
 
 
+def parent_fold(wstate, ids, live, candidates, total=None, first=True):
+    """A width's fold through the parent checkout's K13, K14 pool and K15
+    wrappers (its ``analysis.telemetry._record``), its count set into or
+    added to ``total`` as ``ops.sketch.fold_ids`` does."""
+    par = parent_ops()
+    sk = par["sketch"]
+    counts = sk.cms_update(wstate["cms"], ids, live)
+    pool = sk.topk_pool(wstate["cms"], ids, live, min(candidates,
+                                                      ids.numel()))
+    count = sk.topk_merge(wstate["cms"], pool, counts, wstate["topk_ids"],
+                          wstate["topk_est"], wstate["ids"], candidates)
+    if total is not None:
+        if first:
+            total.copy_(count)
+        else:
+            total.add_(count)
+
+
 @contextlib.contextmanager
 def parent_wrappers():
-    """Route the steps' K19/K20/K22, K3/K18, K5, K6, K11, K12, K16, K17
-    and K21 call sites (the module globals ``parallel.exchange.pack_ids``/
+    """Route the steps' K19/K20/K22, K3/K18, K5, K6, K11, K12, K16, K17,
+    K21 and K13-K15 call sites (the module globals
+    ``parallel.exchange.pack_ids``/
     ``pack_columns``, ``parallel.optimizers.dense_update``/
     ``sgd_scatter``/``dedup_sparse_grad``/``adagrad_rows``/``adam_rows``/
-    ``momentum_rows``, ``parallel.streaming.remap_stage``/``commit_rows``
-    and ``parallel.trainer.grad_health``: the parent's
+    ``momentum_rows``, ``parallel.streaming.remap_stage``/``commit_rows``,
+    ``parallel.trainer.grad_health`` and ``analysis.telemetry.
+    sketch_fold``, which ``parent_fold`` serves: the parent's
     ``sgd_scatter`` takes its own K18 for the promoted chain), the
     interaction (``models.dlrm.dot_interact``: the parent's stacks the
     features and runs its K2 and K4) and their K1/K8/K10 call sites
@@ -471,6 +500,7 @@ def parent_wrappers():
     handed over as the parent's ``CopyPlan`` of the same copies."""
     import importlib
 
+    from distributed_embeddings_torch.analysis import telemetry as tmod
     from distributed_embeddings_torch.models import dlrm
     from distributed_embeddings_torch.parallel import (exchange, optimizers,
                                                        trainer)
@@ -491,7 +521,7 @@ def parent_wrappers():
              optimizers.dedup_sparse_grad, dlrm.dot_interact,
              trainer.grad_health, optimizers.adam_rows,
              optimizers.adagrad_rows, smod.remap_stage,
-             optimizers.momentum_rows, smod.commit_rows)
+             optimizers.momentum_rows, smod.commit_rows, tmod.sketch_fold)
     # the parent's interaction: its stack of the features, then its K2
     # (and, through its autograd Function, its K4)
     dlrm.dot_interact = par["dlrm"].dot_interact
@@ -508,6 +538,7 @@ def parent_wrappers():
     smod.remap_stage = par["streaming"].remap_stage
     optimizers.momentum_rows = par["momentum"].momentum_rows
     smod.commit_rows = par["streaming"].commit_rows
+    tmod.sketch_fold = parent_fold
     mods = {m: importlib.import_module(
         f"distributed_embeddings_torch.parallel.{m}")
         for m, _ in LOOKUP_SITES}
@@ -522,7 +553,7 @@ def parent_wrappers():
          optimizers.dedup_sparse_grad, dlrm.dot_interact,
          trainer.grad_health, optimizers.adam_rows,
          optimizers.adagrad_rows, smod.remap_stage,
-         optimizers.momentum_rows, smod.commit_rows) = saved
+         optimizers.momentum_rows, smod.commit_rows, tmod.sketch_fold) = saved
         for (m, name), fn in zip(LOOKUP_SITES, lookups):
             setattr(mods[m], name, fn)
 
@@ -626,7 +657,7 @@ def us_per_call(fn, n=2000, repeat=5):
 
 
 def launch_host_split(torch, what, key_fn, cache, tail, wrapper, ts,
-                      extra=None):
+                      extra=None, calls=500, launches=None):
     """The host time of a launch record's hit path, split: building the
     key (``key_fn``), finding the record (``cache``'s dict, with a fresh
     key each call, as the wrapper hashes one), the ``ctypes`` calls of
@@ -636,7 +667,10 @@ def launch_host_split(torch, what, key_fn, cache, tail, wrapper, ts,
     same tensors built one tuple a tensor (``ts``), the forms the
     launch path did not take, and ``extra`` (name -> a call: more parts
     of the wrapper, timed alone and also taken out of ``rest_us``).
-    Microseconds."""
+    ``calls``: launching calls a timing (few where the card takes longer
+    than the host, so that the launch queue never fills). ``launches``:
+    ``(call, count)``, the record's ``ctypes`` calls where they are not
+    its own ``calls`` with ``tail`` (a record of records). Microseconds."""
     from distributed_embeddings_torch.ops import _kernels
 
     torch.cuda.synchronize()
@@ -646,27 +680,28 @@ def launch_host_split(torch, what, key_fn, cache, tail, wrapper, ts,
     it = iter(keys * 6)
     stream = _kernels.stream_handle(rec.device)
 
-    def launches():
+    def own_launches():
         for fn, head in rec.calls:
             fn(*head, *tail, stream)
 
+    launch, n_launches = launches or (own_launches, len(rec.calls))
     out = {
         "key_us": us_per_call(key_fn),
         "lookup_us": us_per_call(lambda: cache.get(next(it)),
                                  n=2000, repeat=5),
-        "ctypes_us": us_per_call(launches, n=500),
+        "ctypes_us": us_per_call(launch, n=calls),
         "stream_us": us_per_call(lambda: _kernels.stream_handle(
             rec.device)),
-        "wrapper_us": us_per_call(wrapper, n=500),
+        "wrapper_us": us_per_call(wrapper, n=calls),
         "stream_object_us": us_per_call(
             lambda: torch.cuda.current_stream(dev).cuda_stream),
         "key_tuple_a_tensor_us": us_per_call(lambda: tuple(
             (t.data_ptr(), t.shape, t.stride(), t.dtype, t.get_device())
             for t in ts)),
-        "tensors_in_key": len(ts), "launches_per_call": len(rec.calls)}
+        "tensors_in_key": len(ts), "launches_per_call": n_launches}
     parts = ["key_us", "lookup_us", "ctypes_us", "stream_us"]
     for name, fn in (extra or {}).items():
-        out[name] = us_per_call(fn, n=500)
+        out[name] = us_per_call(fn, n=calls)
         if name != "through_forward_record_us":
             parts.append(name)
     torch.cuda.synchronize()
@@ -1385,8 +1420,7 @@ def plain_kernels(names=None):
              (optimizers, "momentum_rows", momentum.momentum_rows_plain),
              (telemetry, "sketch_update", sketch.cms_update_plain),
              (telemetry, "sketch_query", sketch.cms_query_plain),
-             (telemetry, "topk_pool", sketch.topk_pool_plain),
-             (telemetry, "topk_merge", sketch.topk_merge_plain),
+             (telemetry, "sketch_fold", sketch.fold_ids_plain),
              (streaming, "remap_stage", sops.remap_stage_plain),
              (streaming, "commit_rows", sops.commit_rows_plain),
              (exchange, "pack_ids", exchange_pack.pack_ids_plain),
@@ -5086,8 +5120,8 @@ TELEM_BATCH = 16384            # bench.py:run_telemetry_overhead's batch
 TELEM_STEPS = 12               # its timed steps (bench.py RESIL_STEPS)
 TELEM_WARMUP = 2
 TELEM_CHECK_STEPS = 3
-TELEMETRY_SITES = ("sketch_update", "sketch_query", "topk_pool",
-                   "topk_merge")  # the call sites of K13-K15
+#: the call sites of K13-K15 (``sketch_fold``: a width's fold, all three)
+TELEMETRY_SITES = ("sketch_update", "sketch_query", "sketch_fold")
 #: planted hot rows (table: row), each given half its table's ids
 TELEM_PLANTED = {2: 123_457, 11: 999, 20: KAGGLE_CAP - 1}
 
@@ -5342,92 +5376,129 @@ def telemetry_checks(torch, de, st, sizes, cfg):
 def telemetry_timed(torch, de, st, sizes, cfg):
     """``run_telemetry_overhead``: the step timed with telemetry off and
     on, host clock over TELEM_STEPS steps after TELEM_WARMUP, the same
-    batch each step, in the order off, on, on, off (each mode's time is
-    the mean of its two runs); launches counted over the timed
-    on-steps."""
+    batch each step. A turn times off then on; the turns run change,
+    parent, parent, change (the parent's K13-K15 through
+    ``parent_wrappers``; without ``--parent`` the change's turns alone),
+    each mode's time the mean of its side's turns. Launches counted over
+    the change's timed on-steps."""
     from distributed_embeddings_torch.analysis import telemetry as tel
 
     cats, batch = train_batch(torch, sizes, TELEM_BATCH, SEED + 150)
-    runs = {"off": [], "on": []}
+    sides = (("change", "parent", "parent", "change")
+             if parent_ops() is not None else ("change", "change"))
+    runs = {side: {"off": [], "on": []} for side in set(sides)}
     launches = None
-    for on in (False, True, True, False):
-        step = telemetry_step(de, cfg if on else None)
-        extra = (tel.init_telemetry(de, cfg, device="cuda"),) if on else ()
-        for _ in range(TELEM_WARMUP):
-            loss, st, *extra = step(st, cats, batch, *extra)
-        torch.cuda.synchronize()
-        zero_counts()
-        t0 = time.perf_counter()
-        for _ in range(TELEM_STEPS):
-            loss, st, *extra = step(st, cats, batch, *extra)
-        torch.cuda.synchronize()
-        runs["on" if on else "off"].append(
-            (time.perf_counter() - t0) / TELEM_STEPS)
-        if on:
-            launches = read_counts()
-            check(launches == telemetry_per_step(TELEM_STEPS),
-                  f"telemetry timed launches {launches}, expected "
-                  f"{telemetry_per_step(TELEM_STEPS)}")
-        check(bool(torch.isfinite(loss)), f"telemetry timed loss {loss}")
-    off, on = (float(np.mean(runs[k])) for k in ("off", "on"))
+    for side in sides:
+        for on in (False, True):
+            step = telemetry_step(de, cfg if on else None)
+            extra = (tel.init_telemetry(de, cfg, device="cuda"),) if on \
+                else ()
+            with (parent_wrappers() if side == "parent"
+                  else contextlib.nullcontext()):
+                for _ in range(TELEM_WARMUP):
+                    loss, st, *extra = step(st, cats, batch, *extra)
+                torch.cuda.synchronize()
+                zero_counts()
+                t0 = time.perf_counter()
+                for _ in range(TELEM_STEPS):
+                    loss, st, *extra = step(st, cats, batch, *extra)
+                torch.cuda.synchronize()
+            runs[side]["on" if on else "off"].append(
+                (time.perf_counter() - t0) / TELEM_STEPS)
+            if on and side == "change":
+                launches = read_counts()
+                check(launches == telemetry_per_step(TELEM_STEPS),
+                      f"telemetry timed launches {launches}, expected "
+                      f"{telemetry_per_step(TELEM_STEPS)}")
+            check(bool(torch.isfinite(loss)), f"telemetry timed loss {loss}")
+    off, on = (float(np.mean(runs["change"][k])) for k in ("off", "on"))
     metrics = {
         "telemetry_off_samples_per_sec": TELEM_BATCH / off,
         "telemetry_samples_per_sec": TELEM_BATCH / on,
         "telemetry_overhead_frac": on / off - 1.0,
         "step_ms_off": off * 1e3, "step_ms_on": on * 1e3,
-        "step_ms_runs": {k: [t * 1e3 for t in v] for k, v in runs.items()},
+        "step_ms_runs": {k: [t * 1e3 for t in v]
+                         for k, v in runs["change"].items()},
         "sketch": dict(cfg._asdict()), "batch": TELEM_BATCH,
         "steps": TELEM_STEPS}
+    if "parent" in runs:
+        poff, pon = (float(np.mean(runs["parent"][k])) for k in ("off",
+                                                                 "on"))
+        metrics["parent"] = {
+            "telemetry_overhead_frac": pon / poff - 1.0,
+            "step_ms_off": poff * 1e3, "step_ms_on": pon * 1e3,
+            "step_ms_runs": {k: [t * 1e3 for t in v]
+                             for k, v in runs["parent"].items()}}
     return st, launches, metrics
 
 
+#: the sketch chain's kernels a telemetry step runs (csrc/sketch.cu): K13,
+#: K14's pool (insert, select), K15 (the parent's 1024-thread CTA, or the
+#: one-CTA merge of a thread an entry)
 SKETCH_KERNELS = ("cms_update_kernel", "pool_insert_kernel",
-                  "pool_select_kernel", "topk_merge_kernel")
-SKETCH_CHAIN = re.compile(r"namespace\)::(" + "|".join(SKETCH_KERNELS)
-                          + r")[<(]")
+                  "pool_select_kernel", "topk_merge_block_kernel")
+PARENT_K15 = "topk_merge_kernel"
+SKETCH_CHAIN = re.compile(r"namespace\)::(" + "|".join(
+    SKETCH_KERNELS + (PARENT_K15,)) + r")[<(]")
 
 
 def telemetry_profile(torch, de, st, sizes, cfg, steps=5):
     """``torch.profiler`` over a few telemetry steps (as ``zoo_profile``):
     the device's busy time against the window, the top kernels, and
-    K13-K15's launch chain (csrc/sketch.cu) per step."""
+    K13-K15's launch chain (csrc/sketch.cu) per step; with ``--parent``
+    the same window through the parent's K13-K15 (``parent_wrappers``)
+    after it, under ``"parent"``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from distributed_embeddings_torch.analysis import telemetry as tel
 
     step = telemetry_step(de, cfg)
-    telem = tel.init_telemetry(de, cfg, device="cuda")
     cats, batch = train_batch(torch, sizes, TELEM_BATCH, SEED + 150)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
+    out = {}
+    for side in ("change", "parent") if parent_ops() else ("change",):
+        telem = tel.init_telemetry(de, cfg, device="cuda")
+        with (parent_wrappers() if side == "parent"
+              else contextlib.nullcontext()):
             _, st, telem = step(st, cats, batch, telem)
-        torch.cuda.synchronize()
-        window = (time.perf_counter() - t0) * 1e3
-    dev = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
-            dev[e.key] = e.self_device_time_total / 1e3
-    busy = sum(dev.values())
-    chain = {}
-    for key, ms in dev.items():
-        m = SKETCH_CHAIN.search(key)
-        if m:
-            chain[m.group(1)] = chain.get(m.group(1), 0.0) + ms / steps
-    top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
-    out = {"steps": steps, "window_ms_per_step": window / steps,
-           "device_busy_ms_per_step": busy / steps,
-           "device_busy_share": busy / window,
-           "sketch_chain_ms_per_step": chain,
-           "top_device_ms_per_step": [(k[:60], v / steps) for k, v in top]}
-    log("telemetry profile: " + json.dumps(out))
-    check(busy > 0, "telemetry profile: the trace holds no device time")
-    check(set(chain) == set(SKETCH_KERNELS), f"telemetry profile: the "
-          f"sketch chain is incomplete in the trace: {chain}")
-    return st, out
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(steps):
+                    _, st, telem = step(st, cats, batch, telem)
+                torch.cuda.synchronize()
+                window = (time.perf_counter() - t0) * 1e3
+        dev = {}
+        for e in prof.key_averages():
+            if (e.device_type == DeviceType.CUDA
+                    and e.self_device_time_total > 0):
+                dev[e.key] = e.self_device_time_total / 1e3
+        busy = sum(dev.values())
+        chain = {}
+        for key, ms in dev.items():
+            m = SKETCH_CHAIN.search(key)
+            if m:
+                chain[m.group(1)] = chain.get(m.group(1), 0.0) + ms / steps
+        top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
+        out[side] = {
+            "steps": steps, "window_ms_per_step": window / steps,
+            "device_busy_ms_per_step": busy / steps,
+            "device_busy_share": busy / window,
+            "sketch_chain_ms_per_step": chain,
+            "sketch_chain_total_ms_per_step": sum(chain.values()),
+            "top_device_ms_per_step": [(k[:60], v / steps) for k, v in top]}
+        check(busy > 0, f"telemetry profile ({side}): the trace holds no "
+              "device time")
+        want = set(SKETCH_KERNELS) if side == "change" else set(
+            SKETCH_KERNELS[:3] + (PARENT_K15,))
+        check(set(chain) == want, f"telemetry profile ({side}): the sketch "
+              f"chain is not {sorted(want)} in the trace: {chain}")
+    res = dict(out["change"])
+    if "parent" in out:
+        res["parent"] = out["parent"]
+    log("telemetry profile: " + json.dumps(res))
+    return st, res
 
 
 DEVICE_FN = re.compile(r"::(\w+(?:<[^<>()]*>)?)\(")
@@ -5479,19 +5550,92 @@ def pool_split(torch, cms, ids, live, k_pool, calls=10):
             "host_ms_per_call": float(np.median(host))}
 
 
-def sketch_kernel_times(torch, ids, live, cfg, what):
-    """CUDA-event medians of K13, K14 (the query alone, and the candidate
-    pool with its split by launch) and K15 on one width's telemetry
-    stream (``ids``, ``live``), each held bitwise to its plain version
-    first, beside its plain version, a PyTorch yardstick and its byte
-    bound (each input read once, each output written once). The live
-    count is held to the exact count, rounded once to float32."""
+def merge_bytes(depth, buckets, topk, k_pool, n_counts):
+    """The bytes K15 must move: the sketch words it reads (``depth`` a
+    carried id and a candidate, or the whole sketch where that is
+    fewer), the pool, the count words, the carried ids and estimates
+    read and written, and the accumulator read and written."""
+    return (min(depth * buckets, depth * (topk + k_pool)) * 4 + k_pool * 4
+            + n_counts * 8 + topk * 16 + 8)
+
+
+def fold_host_split(torch, ids, live, cfg):
+    """A width fold's host time a call (``analysis.telemetry._record``:
+    K13, K14's pool and K15 from one launch record) split as
+    ``launch_host_split`` splits a record's hit (10 calls a timing: the
+    card takes longer than the host over a fold), beside the parent's
+    ``_record`` (three wrappers that check and allocate), ``host_ms`` a
+    side in turns (change, parent, parent, change): microseconds a
+    call."""
+    from distributed_embeddings_torch.analysis import telemetry as tel
+    from distributed_embeddings_torch.ops import _kernels
+    from distributed_embeddings_torch.ops import sketch as sk
+
+    def state():
+        return {"cms": torch.zeros((cfg.depth, cfg.buckets),
+                                   dtype=torch.int32, device="cuda"),
+                "topk_ids": torch.full((cfg.topk,), -1, dtype=torch.int32,
+                                       device="cuda"),
+                "topk_est": torch.zeros(cfg.topk, dtype=torch.int32,
+                                        device="cuda"),
+                "ids": torch.zeros(1, device="cuda")}
+
+    ws, total = state(), torch.empty(1, device="cuda")
+    args = (ws["cms"], ids, live, ws["topk_ids"], ws["topk_est"], ws["ids"],
+            total, cfg.candidates)
+    wrapper = lambda: tel._record(ws, ids, live, cfg, total)  # noqa: E731
+    wrapper()
+    rec = sk._FOLD.records[sk.fold_key(*args)]
+    k_pool, upd, mrg, _, (pool, scratch, count) = rec.payload
+    c, i, l, ti, te, acc, tot = (t.data_ptr() for t in args[:7])
+
+    def fold_launches():  # the hit's three ctypes calls
+        stream = _kernels.stream_handle(rec.device)
+        for fn, head in upd.calls:
+            fn(*head, c, i, l, count, stream)
+        rec.lib.detpu_topk_pool(c, cfg.depth, cfg.buckets, i, l, ids.numel(),
+                                k_pool, pool, scratch, stream)
+        for fn, head in mrg.calls:
+            fn(*head, c, pool, ti, te, acc, count, tot, 1, stream)
+
+    out = launch_host_split(
+        torch, "fold_ids", lambda: sk.fold_key(*args), sk._FOLD, (),
+        wrapper, args[:7], calls=10, launches=(fold_launches, 3))
+    par = parent_ops()
+    if par is not None:
+        pws = state()
+        pwrap = lambda: par["telemetry"]._record(  # noqa: E731
+            pws, ids, live, cfg)
+        turns = {"wrapper_us": [], "parent_wrapper_us": []}
+        for name in ("wrapper_us", "parent_wrapper_us", "parent_wrapper_us",
+                     "wrapper_us"):
+            turns[name].append(1e3 * host_ms(
+                torch, wrapper if name == "wrapper_us" else pwrap))
+        torch.cuda.synchronize()
+        out["in_turns"] = {k: float(np.median(v)) for k, v in turns.items()}
+        log("fold host in turns (us a call): " + json.dumps(out["in_turns"]))
+    return out
+
+
+def sketch_kernel_times(torch, ids, live, cfg, what, host_split=False):
+    """K13, K14 (the query alone, and the candidate pool with its split by
+    launch) and K15 on one width's telemetry stream (``ids``, ``live``),
+    each held bitwise to its plain version first, and the width's fold
+    (``ops.sketch.fold_ids``) bitwise to ``record_ids_plain``. K13 and
+    K15 through ``kernel_case`` (event, host and device ms in turns with
+    the parent's wrappers, the plain version, a PyTorch yardstick, the
+    byte bound: each input read once, each output written once); K14 by
+    its CUDA-event median. The live count is held to the exact count,
+    rounded once to float32. ``host_split``: also the K13, K15 and fold
+    host splits."""
     from distributed_embeddings_torch.ops import _kernels
     from distributed_embeddings_torch.ops import sketch as sk
 
     n = ids.numel()
     k_pool = min(cfg.candidates, n)
     sketch_bytes = cfg.depth * cfg.buckets * 4
+    par = parent_ops()
+    psk = par["sketch"] if par is not None else None
     fresh = lambda: torch.zeros((cfg.depth, cfg.buckets),  # noqa: E731
                                 dtype=torch.int32, device="cuda")
     # bitwise: one fold from a fresh state, kernels against plain
@@ -5519,25 +5663,36 @@ def sketch_kernel_times(torch, ids, live, cfg, what):
         exact(torch, a, b, f"topk_merge {what}")
     check(float(cnt) == float(np.float32(n_live)), f"topk_merge {what}: "
           f"count {float(cnt)} is not {n_live} rounded once")
+    # the fold, twice from one prior state: kernels against plain
+    fws, pws = ({"cms": ck.clone(), "topk_ids": kt[0].clone(),
+                 "topk_est": kt[1].clone(), "ids": kt[2].clone()}
+                for _ in range(2))
+    ftot, ptot = torch.empty(1, device="cuda"), torch.empty(1,
+                                                            device="cuda")
+    for first in (True, False):
+        sk.fold_ids(fws, ids, live, cfg.candidates, ftot, first)
+        sk.fold_ids_plain(pws, ids, live, cfg.candidates, ptot, first)
+    for key in fws:
+        exact(torch, fws[key], pws[key], f"fold_ids {what} {key}")
+    exact(torch, ftot, ptot, f"fold_ids {what} total")
+    del fws, pws
     cases = {}
     # K13
     flat = sk._flat(sk.buckets_of_plain(torch.where(live, ids, 0),
                                         cfg.depth, cfg.buckets),
                     cfg.buckets)
     inc = live.to(torch.int32)[None].expand(cfg.depth, -1).reshape(-1)
-    sketch = fresh()
-    ms = time_ms(torch, lambda: sk.cms_update(sketch, ids, live), [()])
-    plain = time_ms(torch, lambda: sk.cms_update_plain(sketch, ids, live),
-                    [()])
-    lib = time_ms(torch, lambda: sketch.view(-1).index_add_(0, flat, inc),
-                  [()])
-    nbytes = n * 5 + 2 * sketch_bytes
-    cases["cms_update"] = dict(
-        case=f"{what}: {n} positions ({n_live} live), sketch "
-        f"{cfg.depth}x{cfg.buckets}", ms=ms, plain_ms=plain, library_ms=lib,
-        library="index_add_ on precomputed flat indices",
-        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-        bytes=nbytes)
+    sketch, psketch = fresh(), fresh()
+    nbytes = n * 5 + 2 * sketch_bytes + 8
+    cases["cms_update"] = kernel_case(
+        torch, "cms_update",
+        f"{what}: {n} positions ({n_live} live), sketch "
+        f"{cfg.depth}x{cfg.buckets}",
+        lambda: sk.cms_update(sketch, ids, live),
+        (lambda: psk.cms_update(psketch, ids, live)) if psk else None,
+        lambda: sketch.view(-1).index_add_(0, flat, inc), nbytes,
+        plain=lambda: sk.cms_update_plain(sketch, ids, live),
+        extra={"library": "index_add_ on precomputed flat indices"})
     del flat, inc
     # K14: the pool (sort, score, select) and the standalone query
     keys = torch.where(live, ids, sk.PAD)
@@ -5581,26 +5736,41 @@ def sketch_kernel_times(torch, ids, live, cfg, what):
         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
         bytes=nbytes)
     cases["cms_query"] = [pool_case, query_case]
-    # K15
-    ms = time_ms(torch, lambda: sk.topk_merge(ck, pool, counts, *kt,
-                                              cfg.candidates), [()])
-    plain = time_ms(torch, lambda: sk.topk_merge_plain(
-        ck, pool, pcounts, *pt, cfg.candidates), [()])
+    # K15 (each side merges into its own copy of the carried state)
+    pk = tuple(t.clone() for t in kt)
     all_est = torch.cat([kt[1], pool])
 
     def lib_merge():
         torch.unique(pool)
         return torch.topk(all_est, cfg.topk)
 
-    lib = time_ms(torch, lib_merge, [()])
-    nbytes = (sketch_bytes + k_pool * 4 + counts.numel() * 8
-              + cfg.topk * 16 + 8)
-    cases["topk_merge"] = dict(
-        case=f"{what}: pool {k_pool} into top {cfg.topk}", ms=ms,
-        plain_ms=plain, library_ms=lib,
-        library="torch.unique + torch.topk (not tie-exact)",
-        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-        bytes=nbytes)
+    nbytes = merge_bytes(cfg.depth, cfg.buckets, cfg.topk, k_pool,
+                         counts.numel())
+    cases["topk_merge"] = kernel_case(
+        torch, "topk_merge", f"{what}: pool {k_pool} into top {cfg.topk} "
+        f"({sk.merge_path(cfg.topk, cfg.candidates)})",
+        lambda: sk.topk_merge(ck, pool, counts, *kt, cfg.candidates),
+        (lambda: psk.topk_merge(ck, pool, counts, *pk, cfg.candidates))
+        if psk else None, lib_merge, nbytes,
+        plain=lambda: sk.topk_merge_plain(ck, pool, pcounts, *pt,
+                                          cfg.candidates),
+        extra={"library": "torch.unique + torch.topk (not tie-exact)"})
+    if host_split:
+        ts = (sketch, ids, live)
+        cases["cms_update"]["host_split"] = launch_host_split(
+            torch, "cms_update", lambda: sk.update_key(*ts), sk._UPDATE,
+            tuple(t.data_ptr() for t in ts) + (counts.data_ptr(),),
+            lambda: sk.cms_update(*ts), ts, calls=20)
+        mt = (ck, pool, counts, *kt)
+        out_c = torch.empty(1, device="cuda")
+        cases["topk_merge"]["host_split"] = launch_host_split(
+            torch, "topk_merge",
+            lambda: sk.merge_key(*mt, cfg.candidates), sk._MERGE,
+            (ck.data_ptr(), pool.data_ptr(), kt[0].data_ptr(),
+             kt[1].data_ptr(), kt[2].data_ptr(), counts.data_ptr(),
+             out_c.data_ptr(), 1),
+            lambda: sk.topk_merge(*mt, cfg.candidates), mt, calls=20)
+        cases["fold_host_split"] = fold_host_split(torch, ids, live, cfg)
     for name, c in (("cms_update", cases["cms_update"]),
                     ("topk_pool", pool_case), ("cms_query", query_case),
                     ("topk_merge", cases["topk_merge"])):
@@ -5650,7 +5820,8 @@ def phase_telemetry(torch):
         _, res = de.forward_with_residuals(st.emb_params, cats)
     ids, live = de.telemetry_streams(res)[128]
     cases = sketch_kernel_times(torch, ids, live, cfg,
-                                f"one-hot b{TELEM_BATCH}")
+                                f"one-hot b{TELEM_BATCH}", host_split=True)
+    metrics["fold_host_split"] = cases.pop("fold_host_split")
     # sizes past the shared-memory tiles (C5): topk 2048 with its default
     # 4 * topk candidates, and 16384 candidates; K14 and K15 bit-exact to
     # their plain versions on this stream, then timed

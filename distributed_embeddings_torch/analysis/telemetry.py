@@ -14,7 +14,8 @@ the threading ``make_hybrid_train_step(telemetry=...)``.
 
 The step updates the state IN PLACE (the JAX step donates it): the
 sketch update, the candidate pool and the top-k merge run on the
-hand-written kernels K13-K15 (``ops/sketch.py``), and on their plain
+hand-written kernels K13-K15 (``ops/sketch.py``), replayed for a width
+from one launch record (``ops/sketch.py:fold_ids``), and on their plain
 versions for CPU tensors. A count-min sketch only over-estimates, so a
 row reported cold is cold; ids are logical slab rows, mapped back to
 ``(table, row)`` on the host by :func:`hot_rows`.
@@ -35,7 +36,7 @@ from ..ops.sketch import TOPK_EMPTY, buckets_of_plain
 # a caller can route them to their plain versions)
 from ..ops.sketch import cms_query as sketch_query
 from ..ops.sketch import cms_update as sketch_update
-from ..ops.sketch import topk_merge, topk_pool
+from ..ops.sketch import fold_ids as sketch_fold
 from ..utils import envvars
 from ..utils.device import resolve_device
 
@@ -159,18 +160,18 @@ def cms_query(cms: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 
 
 def _record(wstate: Dict[str, torch.Tensor], ids: torch.Tensor,
-            live: torch.Tensor, config: TelemetryConfig
-            ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
-    """:func:`record_ids`, also returning the step's live count (``[1]``
-    float32, the exact count rounded once)."""
+            live: torch.Tensor, config: TelemetryConfig,
+            total: Optional[torch.Tensor] = None, first: bool = True
+            ) -> Dict[str, torch.Tensor]:
+    """:func:`record_ids` through the width's fold record (K13, K14's
+    pool and K15 in one replay, found by the layouts of the width's state
+    and stream and by ``config``); the step's live count (the exact
+    count rounded once to float32) is set into ``total`` (``first``) or
+    added to it."""
     ids = ids.to(torch.int32).reshape(-1).contiguous()
     live = live.reshape(-1).contiguous()
-    cms = wstate["cms"]
-    counts = sketch_update(cms, ids, live)
-    pool = topk_pool(cms, ids, live, min(config.candidates, ids.numel()))
-    count = topk_merge(cms, pool, counts, wstate["topk_ids"],
-                       wstate["topk_est"], wstate["ids"], config.candidates)
-    return wstate, count
+    sketch_fold(wstate, ids, live, config.candidates, total, first)
+    return wstate
 
 
 def record_ids(wstate: Dict[str, torch.Tensor], ids: torch.Tensor,
@@ -183,7 +184,7 @@ def record_ids(wstate: Dict[str, torch.Tensor], ids: torch.Tensor,
 
     ``ids [n]`` are logical slab rows (garbage where ``live [n]`` is
     False). Returns ``wstate`` (its tensors updated)."""
-    return _record(wstate, ids, live, config)[0]
+    return _record(wstate, ids, live, config)
 
 
 # ------------------------------------------------------ state persistence

@@ -11,17 +11,29 @@
 // bit. The hash, per id and depth row d:
 //   h = uint32(id) * (MULTS[d % 8] ^ d);  h ^= h >> 15;  h *= MIX;
 //   h ^= h >> 13;  column = h % buckets
+// K13 and K15 take the column without a division: a mask when buckets is
+// a power of two, else Lemire's fastmod (exact for 32-bit operands).
 //
-// K13 (detpu_cms_update): adds live[i] into cms[d, column(live ? id : 0)]
-//   for every position and depth row, and counts the live positions
-//   (one int64 per block; K15 adds them up). Integer adds commute, so
-//   atomics give JAX's result in any order. Zipfian traffic sends every
-//   occurrence of a hot id to the same depth words, so a warp first
-//   merges its lanes that hit one column (__match_any_sync) and adds
-//   their count once; and when the sketch fits in shared memory (the
-//   default 4 x 2048 x 4 B = 32 KB does) each block counts into its own
-//   copy and adds the copy's nonzero words to the sketch at its end.
-//   Otherwise the warps add to the sketch in device memory.
+// K13 (detpu_cms_update_*): adds live[i] into cms[d, column(live ? id :
+//   0)] for every position and depth row, and counts the live positions.
+//   Integer adds commute, so atomics give JAX's result in any order. One
+//   launch of persistent CTAs, one a SM, a lane 16 positions a round
+//   (four 16-byte loads of ids, one of live flags; element loads where
+//   either array is not 16-byte aligned). When the sketch fits in shared
+//   memory (the default 4 x 2048 x 4 B = 32 KB does), each CTA counts into
+//   its own copy with one shared-memory atomic a live position and depth
+//   row, then adds its copy's nonzero words to the sketch: one flush a
+//   CTA. Otherwise the warps add to the sketch in device memory. Measured
+//   in sketch_variants.py: a warp's merge of its lanes that hit one column
+//   (__match_any_sync per depth row) ran 4-5x slower on the one-hot and
+//   the ragged streams, and flushing once a thread-block cluster (each CTA
+//   summing its share of the columns over the cluster's copies through
+//   distributed shared memory) gained nothing: the flush is a small part
+//   of either stream's time. The live count: each CTA writes its partial
+//   and takes a ticket (a 64-bit counter in the record's scratch, never
+//   reset); the CTA holding a call's last ticket folds the partials into
+//   the one int64 the call returns. Nothing is reset between calls, so a
+//   launch replays in a CUDA graph.
 // K14 (detpu_cms_query, detpu_topk_pool): the standalone query
 //   est[j] = min over d of cms[d, column(max(ids[j], 0))], and the
 //   candidate pool of record_ids. JAX sorts the ids (dead positions as
@@ -76,28 +88,47 @@
 //   sort of radix_sort.cuh sorts the whole list on its 64 bits, and
 //   pool_take_kernel writes the ids of the k_pool smallest keys, the pad
 //   id past them. The keys are the same, so the pool is the same.
-// K15 (detpu_topk_merge, one block): sorts the pool and drops repeated
-//   values (jnp.unique(pool, size=candidates, fill_value=pad)), marks the
+// K15 (detpu_topk_merge_*): sorts the pool and drops repeated values
+//   (jnp.unique(pool, size=candidates, fill_value=pad)), marks the
 //   candidates that repeat a carried id, scores the rest by the query and
 //   the carried ids by max(query, carried estimate), takes the top `topk`
-//   of [carried | candidates] by the same key (carried slots first among
-//   equals), writes topk_ids (-1 where the estimate is negative) and
-//   topk_est (clamped at 0), and adds the step's live count, rounded once
-//   to float32, to the width's `ids` accumulator. Above
-//   detpu_topk_merge_max() (topk + candidates past what shared memory
-//   holds) the same kernel keeps its sort buffer and arrays in a device
-//   scratch instead: the same steps in the same order, so the same result.
+//   of [carried | candidates] by the key (INT32_MAX - score) << 32 | index
+//   (carried slots first among equals, then the lower index), writes
+//   topk_ids (-1 where the estimate is negative) and topk_est (clamped at
+//   0), and adds the step's live count, rounded once to float32, to the
+//   width's `ids` accumulator. Up to kBlockKeys = topk + candidates (the
+//   default 32 + 128) it is ONE CTA of a thread an entry and four
+//   barriers, no sort: a pool entry is kept where no earlier entry holds
+//   its value and goes to the place the kept values below it give; each
+//   thread scores its entry (the carried ids read broadcast from shared
+//   memory for the duplicate test, its depth words loaded at once); a
+//   key's rank is the number of keys below it (the keys are unique), and
+//   the ranks below topk write the result. (One warp bitonic-sorting the
+//   keys in registers with shuffles, with no barrier, measured slower
+//   than the parent's 1024-thread CTA: sketch_variants.py's
+//   `warp_sort`.) Past kBlockKeys the work is spread over the SMs: tiles
+//   of kSortTile keys bitonic-sorted in shared memory, a key's place in
+//   the whole order the sum of its binary searches in the other tiles
+//   (tile_rank_kernel), for [pool | carried ids] as one list; one CTA's
+//   scan compacts the unique candidates and marks those a carried id
+//   repeats (its key follows theirs); then the scores and the same two
+//   steps over the selection keys, whose rank-below-topk keys write the
+//   result: six launches, the same keys, so the same result.
 //
 // Bound: bytes. K13 and K14's pool read ~5 B a position (id and live
 // flag); K13 read-modify-writes the small sketch, the pool clears its
 // set (4 B a slot, 2-4 slots a position) and writes 8 B a distinct id;
-// K15 touches a few KB.
+// K15 reads depth words for each carried id and candidate. K13's
+// shared-memory atomics (depth a live position) and its flush (depth x
+// buckets words a CTA) and K15's chain of dependent steps are what the
+// designs above cut.
 //
 // C interface (ctypes): pointers and the stream as void*, returns the
 // cudaError_t of the launches.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #include <atomic>
 
@@ -110,7 +141,16 @@ __constant__ uint32_t kMults[8] = {0x9E3779B1u, 0x85EBCA77u, 0xC2B2AE3Du,
                                    0x27D4EB2Fu, 0x165667B1u, 0xD3A2646Du,
                                    0xFD7046C5u, 0xB55A4F09u};
 constexpr uint32_t kMix = 0x2C1B3C6Du;
-constexpr int kUpdThreads = 512;
+constexpr int kUpdThreads = 1024;
+constexpr int kPerLane = 16;      // K13's positions a lane a round
+constexpr int kChunk = 32 * kPerLane;  // a warp's positions a round
+constexpr int kBlockKeys = 512;   // K15's one-CTA merge: topk + candidates
+// its threads: a thread an entry, whole warps, and the padding past the
+// entries that its counting loops read
+constexpr int kBlockThreads = kBlockKeys + 32;
+constexpr int kSortThreads = 1024;
+constexpr int kSortTile = 1024;   // keys a CTA sorts past one CTA (8 KB)
+constexpr int kRankBatch = 8;     // tiles a thread searches at once
 constexpr int kInsThreads = 256;
 constexpr int kInsPer = 4;        // positions a thread takes each round
 constexpr int kFilter = 4096;     // a block's filter of ids it has seen
@@ -139,13 +179,17 @@ __device__ __forceinline__ int unflip(uint32_t w) {
   return static_cast<int>(w ^ 0x80000000u);
 }
 
-__device__ __forceinline__ uint32_t column(uint32_t id, int d,
-                                           uint32_t buckets) {
+__device__ __forceinline__ uint32_t hash_of(uint32_t id, int d) {
   uint32_t h = id * (kMults[d & 7] ^ static_cast<uint32_t>(d));
   h ^= h >> 15;
   h *= kMix;
   h ^= h >> 13;
-  return h % buckets;
+  return h;
+}
+
+__device__ __forceinline__ uint32_t column(uint32_t id, int d,
+                                           uint32_t buckets) {
+  return hash_of(id, d) % buckets;
 }
 
 // Count-min estimate of one id (JAX queries max(id, 0)).
@@ -172,63 +216,162 @@ __device__ __forceinline__ int key_score(unsigned long long k) {
   return static_cast<int>(0x7fffffffLL - static_cast<long long>(k >> 32));
 }
 
+// A sketch's columns without a division: h & mask when buckets is a power
+// of two, else Lemire's fastmod, h % b == umulhi64(ceil(2^64 / b) * h, b)
+// for every 32-bit h and b (b == 1 wraps the multiplier to 0: column 0).
+struct Cols {
+  unsigned long long mult;  // ceil(2^64 / buckets), mod 2^64
+  uint32_t buckets;
+  uint32_t mask;            // buckets - 1
+  int pow2;
+};
+
+Cols cols_of(int buckets) {
+  Cols c;
+  c.buckets = static_cast<uint32_t>(buckets);
+  c.mask = c.buckets - 1u;
+  c.pow2 = (c.buckets & c.mask) == 0u;
+  c.mult = ~0ull / c.buckets + 1ull;
+  return c;
+}
+
+__device__ __forceinline__ uint32_t fast_col(uint32_t h, const Cols& c) {
+  return c.pow2 ? (h & c.mask)
+                : static_cast<uint32_t>(__umul64hi(c.mult * h, c.buckets));
+}
+
+// query() through fast_col: the same words, so the same estimate.
+__device__ __forceinline__ int query_fast(const int* __restrict__ cms,
+                                          int depth, const Cols& c, int id) {
+  const uint32_t u = static_cast<uint32_t>(id < 0 ? 0 : id);
+  int est = 0x7fffffff;
+#pragma unroll 4
+  for (int d = 0; d < depth; ++d) {
+    const int v = __ldg(cms + static_cast<int64_t>(d) * c.buckets +
+                        fast_col(hash_of(u, d), c));
+    est = v < est ? v : est;
+  }
+  return est;
+}
+
 // ------------------------------------------------------------------ K13
 
+struct UpdParams {
+  Cols cols;
+  int depth;
+  int64_t n;
+  long long* partials;          // [grid], the record's scratch
+  unsigned long long* ticket;   // [1], the record's scratch, never reset
+};
+
+// Adds a live position into its column of every depth row of `target`.
+__device__ __forceinline__ void add_position(int* target, const UpdParams& p,
+                                             uint32_t id, bool ok) {
+  if (!ok) return;
+  for (int d = 0; d < p.depth; ++d) {
+    atomicAdd(target + static_cast<int64_t>(d) * p.cols.buckets +
+                  fast_col(hash_of(id, d), p.cols), 1);
+  }
+}
+
+// vec: ids and live both 16-byte aligned (decided per call).
 template <bool kShared>
 __global__ void __launch_bounds__(kUpdThreads)
-cms_update_kernel(int* __restrict__ cms, int depth, int buckets,
+cms_update_kernel(const UpdParams p, int* __restrict__ cms,
                   const int* __restrict__ ids,
-                  const uint8_t* __restrict__ live, int64_t n,
-                  long long* __restrict__ count_part) {
+                  const uint8_t* __restrict__ live, int vec,
+                  long long* __restrict__ count) {
   extern __shared__ int sh[];
   __shared__ long long warp_counts[kUpdThreads / 32];
-  const int cells = depth * buckets;
+  __shared__ int last;
+  const int cells = p.depth * static_cast<int>(p.cols.buckets);
   int* target = cms;
   if constexpr (kShared) {
-    for (int c = threadIdx.x; c < cells; c += blockDim.x) sh[c] = 0;
+    for (int c = threadIdx.x; c < cells; c += kUpdThreads) sh[c] = 0;
     __syncthreads();
     target = sh;
   }
   const int lane = threadIdx.x & 31;
+  const int64_t n = p.n;
   long long local = 0;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  // the bound is uniform over the block, so every lane of a warp runs
-  // each round (the ballot below names the whole warp)
-  for (int64_t base = static_cast<int64_t>(blockIdx.x) * blockDim.x;
-       base < n; base += stride) {
-    const int64_t i = base + threadIdx.x;
-    const bool ok = i < n && live[i] != 0;
-    const uint32_t id = ok ? static_cast<uint32_t>(ids[i]) : 0u;
-    local += ok ? 1 : 0;
-    const unsigned mask = __ballot_sync(0xffffffffu, ok);
-    if (ok) {
-      for (int d = 0; d < depth; ++d) {
-        const uint32_t col = column(id, d, static_cast<uint32_t>(buckets));
-        const unsigned peers = __match_any_sync(mask, col);
-        if (lane == __ffs(peers) - 1) {
-          atomicAdd(target + static_cast<int64_t>(d) * buckets + col,
-                    __popc(peers));
-        }
+  // warp w of the grid takes the chunks w, w + warps, ... of kChunk
+  // positions (the bound is uniform over the warp); lane l the positions
+  // [16 l, 16 l + 16) of a chunk
+  const int64_t warps = static_cast<int64_t>(gridDim.x) * (kUpdThreads / 32);
+  for (int64_t chunk = static_cast<int64_t>(blockIdx.x) * (kUpdThreads / 32)
+                       + (threadIdx.x >> 5);
+       chunk * kChunk < n; chunk += warps) {
+    const int64_t first = chunk * kChunk + lane * kPerLane;
+    int id[kPerLane];
+    uint32_t flags[kPerLane / 4] = {0u, 0u, 0u, 0u};  // a live byte each
+    if (vec && first + kPerLane <= n) {
+      const int4* iv = reinterpret_cast<const int4*>(ids + first);
+#pragma unroll
+      for (int q = 0; q < kPerLane / 4; ++q) {
+        const int4 v = __ldg(iv + q);
+        id[4 * q] = v.x;
+        id[4 * q + 1] = v.y;
+        id[4 * q + 2] = v.z;
+        id[4 * q + 3] = v.w;
+      }
+      const uint4 f = __ldg(reinterpret_cast<const uint4*>(live + first));
+      flags[0] = f.x;
+      flags[1] = f.y;
+      flags[2] = f.z;
+      flags[3] = f.w;
+    } else {
+#pragma unroll
+      for (int q = 0; q < kPerLane; ++q) {
+        const int64_t i = first + q;
+        const bool in = i < n;
+        id[q] = in ? __ldg(ids + i) : 0;
+        flags[q >> 2] |= (in && __ldg(live + i) != 0 ? 1u : 0u)
+                         << (8 * (q & 3));
       }
     }
+#pragma unroll
+    for (int q = 0; q < kPerLane; ++q) {
+      const bool ok = ((flags[q >> 2] >> (8 * (q & 3))) & 0xffu) != 0u;
+      local += ok ? 1 : 0;
+      add_position(target, p, static_cast<uint32_t>(id[q]), ok);
+    }
   }
-  // the block's live count
   for (int o = 16; o > 0; o >>= 1) {
     local += __shfl_down_sync(0xffffffffu, local, o);
   }
   if (lane == 0) warp_counts[threadIdx.x >> 5] = local;
-  __syncthreads();
+  __syncthreads();  // the CTA's copy and its warps' counts are complete
+  if constexpr (kShared) {
+    for (int c = threadIdx.x; c < cells; c += kUpdThreads) {
+      const int s = sh[c];
+      if (s != 0) atomicAdd(cms + c, s);
+    }
+  }
+  // the CTA's live count, then its ticket: the call's last CTA folds the
+  // partials into the call's count
   if (threadIdx.x == 0) {
     long long s = 0;
-    for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) {
-      s += warp_counts[w];
-    }
-    count_part[blockIdx.x] = s;
+    for (int w = 0; w < kUpdThreads / 32; ++w) s += warp_counts[w];
+    p.partials[blockIdx.x] = s;
+    __threadfence();
+    const unsigned long long old = atomicAdd(p.ticket, 1ull);
+    last = (old + 1) % static_cast<unsigned long long>(gridDim.x) == 0;
   }
-  if constexpr (kShared) {
-    for (int c = threadIdx.x; c < cells; c += blockDim.x) {
-      const int v = sh[c];
-      if (v != 0) atomicAdd(cms + c, v);
+  __syncthreads();
+  if (last) {
+    __threadfence();
+    long long s = 0;
+    for (int b = threadIdx.x; b < static_cast<int>(gridDim.x);
+         b += kUpdThreads) {
+      s += __ldcg(p.partials + b);
+    }
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(0xffffffffu, s, o);
+    if (lane == 0) warp_counts[threadIdx.x >> 5] = s;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      long long t = 0;
+      for (int w = 0; w < kUpdThreads / 32; ++w) t += warp_counts[w];
+      count[0] = t;
     }
   }
 }
@@ -548,112 +691,320 @@ pool_take_kernel(const unsigned long long* __restrict__ sorted, int k,
 
 // ------------------------------------------------------------------ K15
 
-// Exclusive scan of one int per thread over the block (kSelThreads).
-__device__ int block_scan(int v, int* warp_sums) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int x = v;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) warp_sums[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    int w = lane < static_cast<int>(blockDim.x >> 5) ? warp_sums[lane] : 0;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, w, o);
-      if (lane >= o) w += y;
-    }
-    warp_sums[lane] = w;
-  }
-  __syncthreads();
-  const int r = x - v + (warp > 0 ? warp_sums[warp - 1] : 0);
-  __syncthreads();
-  return r;
+struct MergeParams {
+  Cols cols;
+  int depth;
+  int k_pool;    // pool entries (<= cand_n)
+  int cand_n;    // candidates
+  int topk;      // carried slots
+  int n_count;   // int64 live-count words to sum
+  int block;     // 1: one CTA (topk + cand_n <= kBlockKeys)
+  // past it: the record's scratch
+  unsigned long long* tiles_pool;   // [k_pool + topk] sorted tiles
+  unsigned long long* sorted_pool;  // [k_pool + topk] sorted
+  int* cand;                        // [cand_n]
+  uint8_t* dup;                     // [cand_n] repeats a carried id
+  int* all_ids;                     // [topk + cand_n]
+  unsigned long long* keys;         // [topk + cand_n] selection keys
+  unsigned long long* tiles_sel;    // [topk + cand_n] sorted tiles
+};
+
+// The merge's result from the selection key of rank `i` (< topk).
+struct SelectOut {
+  int* topk_ids;
+  int* topk_est;
+  const int* all_ids;
+  int topk;
+};
+
+__device__ __forceinline__ void write_top(const SelectOut& o, int i,
+                                          unsigned long long key) {
+  const int est = key_score(key);
+  o.topk_ids[i] = est >= 0 ? o.all_ids[static_cast<uint32_t>(key)] : -1;
+  o.topk_est[i] = est > 0 ? est : 0;
 }
 
-// Shared memory (dynamic), or `scratch` in device memory when it is not
-// null: sort [m_all] u64 | cand [m_cand] int | all_ids [topk + cand] int |
-// all_est [topk + cand] int.
-__global__ void __launch_bounds__(kSelThreads)
-topk_merge_kernel(const int* __restrict__ cms, int depth, int buckets,
-                  const int* __restrict__ pool, int k_pool, int cand_n,
-                  int m_cand, int m_all, int* __restrict__ topk_ids,
-                  int* __restrict__ topk_est, int topk,
-                  float* __restrict__ ids_acc,
-                  const long long* __restrict__ count_part, int n_part,
-                  float* __restrict__ count_out,
-                  unsigned long long* scratch) {
-  extern __shared__ unsigned long long sh_merge[];
-  unsigned long long* s = scratch != nullptr ? scratch : sh_merge;
-  __shared__ int warp_sums[32];
-  __shared__ int uniq;
-  int* cand = reinterpret_cast<int*>(s + m_all);
-  int* all_ids = cand + m_cand;
-  int* all_est = all_ids + topk + cand_n;
-  // 1. jnp.unique(pool, size=cand_n, fill_value=pad): sort, then keep
-  // each value's first copy
-  for (int j = threadIdx.x; j < m_cand; j += blockDim.x) {
-    s[j] = j < k_pool
-        ? static_cast<unsigned long long>(flip(pool[j]))
-        : static_cast<unsigned long long>(flip(kPad));
+// The values one warp folds the live count into, loaded early.
+struct CountIn {
+  long long c;   // this lane's sum of the int64 count words
+  float acc;     // the width's accumulator (lane 0)
+  float total;   // total (lane 0; read when not first)
+};
+
+__device__ __forceinline__ CountIn load_count(const long long* count,
+                                              int n_count,
+                                              const float* ids_acc,
+                                              const float* total,
+                                              int first) {
+  const int lane = threadIdx.x & 31;
+  CountIn in{0, 0.0f, 0.0f};
+  for (int i = lane; i < n_count; i += 32) in.c += count[i];
+  if (lane == 0) {
+    in.acc = ids_acc[0];
+    if (total != nullptr && !first) in.total = total[0];
   }
+  return in;
+}
+
+// The live count (the warp's sum of `in.c`), rounded once to float32:
+// added to the width's accumulator and to `total` (set there when
+// `first`); lane 0 writes.
+__device__ __forceinline__ void fold_count(CountIn in, float* ids_acc,
+                                           float* total, int first) {
+  long long c = in.c;
+  for (int o = 16; o > 0; o >>= 1) c += __shfl_down_sync(0xffffffffu, c, o);
+  if ((threadIdx.x & 31) == 0) {
+    const float f = __ll2float_rn(c);
+    ids_acc[0] = __fadd_rn(in.acc, f);
+    if (total != nullptr) total[0] = first ? f : __fadd_rn(in.total, f);
+  }
+}
+
+// The merge by one CTA of topk + cand_n <= kBlockKeys threads, a thread
+// an entry, four barriers: the unique pool by counting (an entry is kept
+// where no earlier entry holds its value; a kept value's place is the
+// number of kept values below it), the scores (the duplicate test reads
+// the carried ids broadcast from shared memory; each thread's query loads
+// its depth words at once), and the selection by rank (a key's place is
+// the number of keys below it: the keys are unique). The counting loops
+// read 16 bytes of shared memory a step, the arrays padded past their
+// ends with values that count nowhere.
+__global__ void __launch_bounds__(kBlockThreads)
+topk_merge_block_kernel(const MergeParams p, const int* __restrict__ cms,
+                        const int* __restrict__ pool, int* topk_ids,
+                        int* topk_est, float* ids_acc,
+                        const long long* __restrict__ count, float* total,
+                        int first) {
+  __shared__ __align__(16) int s_pool[kBlockThreads];  // past P: kPad
+  __shared__ __align__(16) int s_kept[kBlockThreads];  // kept, or kPad
+  __shared__ int s_ids[kBlockKeys];                    // [carried | cand]
+  __shared__ __align__(16) unsigned long long s_keys[kBlockThreads];
+  const int t = threadIdx.x;
+  const int topk = p.topk, P = p.k_pool, M = topk + p.cand_n;
+  const int P4 = (P + 3) & ~3, M2 = (M + 1) & ~1;
+  const int v = t < P ? pool[t] : kPad;
+  const int cest = t < topk ? topk_est[t] : 0;
+  CountIn in{0, 0.0f, 0.0f};  // warp 0 loads the count's inputs first
+  if (t < 32) in = load_count(count, p.n_count, ids_acc, total, first);
+  s_pool[t] = v;
+  if (t < topk) s_ids[t] = topk_ids[t];
   __syncthreads();
-  bitonic_sort(s, m_cand);
-  for (int j0 = 0; j0 < m_cand; j0 += blockDim.x) {
-    const int j = j0 + threadIdx.x;
-    const bool keep = j < m_cand && (j == 0 || s[j] != s[j - 1]);
-    const int at = block_scan(keep ? 1 : 0, warp_sums);
-    const int base = j0 == 0 ? 0 : uniq;
-    if (keep) {
-      cand[base + at] = unflip(static_cast<uint32_t>(s[j]));
+  // 1. jnp.unique(pool, size=cand_n, fill_value=pad)
+  int same = 0;  // earlier entries that hold v
+#pragma unroll 8
+  for (int i = 0; i < P4; i += 4) {
+    const int4 w = *reinterpret_cast<const int4*>(s_pool + i);
+    same += (i < t && w.x == v) + (i + 1 < t && w.y == v) +
+            (i + 2 < t && w.z == v) + (i + 3 < t && w.w == v);
+  }
+  const bool keep = t < P && same == 0;
+  s_kept[t] = keep ? v : kPad;  // kPad counts below no value
+  const int uniq = __syncthreads_count(keep);
+  if (keep) {
+    int at = 0;
+#pragma unroll 8
+    for (int i = 0; i < P4; i += 4) {
+      const int4 w = *reinterpret_cast<const int4*>(s_kept + i);
+      at += (w.x < v) + (w.y < v) + (w.z < v) + (w.w < v);
     }
-    __syncthreads();
-    if (threadIdx.x == blockDim.x - 1) uniq = base + at + (keep ? 1 : 0);
-    __syncthreads();
+    s_ids[topk + at] = v;
   }
-  for (int j = uniq + threadIdx.x; j < cand_n; j += blockDim.x) {
-    cand[j] = kPad;
+  for (int c = uniq + t; c < p.cand_n; c += blockDim.x) {
+    s_ids[topk + c] = kPad;
   }
   __syncthreads();
-  // 2. estimates: carried slots re-query (the carried estimate a floor),
-  // candidates that repeat a carried id or pad score -1
-  for (int i = threadIdx.x; i < topk + cand_n; i += blockDim.x) {
-    int id, est;
-    if (i < topk) {
-      id = topk_ids[i];
-      est = id >= 0 ? max(query(cms, depth, buckets, id), topk_est[i]) : -1;
-    } else {
-      id = cand[i - topk];
-      bool dup = false;
-      for (int q = 0; q < topk; ++q) dup |= topk_ids[q] == id;
-      est = id != kPad && !dup ? query(cms, depth, buckets, id) : -1;
+  // 2. scores: carried slots re-query (the carried estimate a floor);
+  // candidates that repeat a carried id, and pads, score -1
+  int id = 0;
+  unsigned long long key = kNoKey;
+  if (t < M) {
+    id = s_ids[t];
+    bool need = t < topk ? id >= 0 : id != kPad;
+    if (t >= topk) {
+      int hits = 0;
+#pragma unroll 4
+      for (int q = 0; q < topk; ++q) hits += s_ids[q] == id;
+      need = need && hits == 0;
     }
-    all_ids[i] = id;
-    all_est[i] = est;
+    int est = -1;
+    if (need) {
+      est = query_fast(cms, p.depth, p.cols, id);
+      if (t < topk) est = max(est, cest);
+    }
+    key = sel_key(est, static_cast<uint32_t>(t));
   }
+  s_keys[t] = key;  // kNoKey past M counts below no key
   __syncthreads();
-  // 3. top `topk` of [carried | candidates]
-  for (int i = threadIdx.x; i < m_all; i += blockDim.x) {
-    s[i] = i < topk + cand_n ? sel_key(all_est[i], static_cast<uint32_t>(i))
-                             : kNoKey;
-  }
-  __syncthreads();
-  bitonic_sort(s, m_all);
-  for (int i = threadIdx.x; i < topk; i += blockDim.x) {
-    const int est = key_score(s[i]);
-    const int ix = static_cast<int>(s[i] & 0xffffffffu);
-    topk_ids[i] = est >= 0 ? all_ids[ix] : -1;
-    topk_est[i] = est > 0 ? est : 0;
+  // 3. the top `topk` of [carried | candidates]
+  if (t < M) {
+    int rank = 0;
+#pragma unroll 8
+    for (int i = 0; i < M2; i += 2) {
+      const ulonglong2 w = *reinterpret_cast<const ulonglong2*>(s_keys + i);
+      rank += (w.x < key) + (w.y < key);
+    }
+    if (rank < topk) {
+      const int est = key_score(key);
+      topk_ids[rank] = est >= 0 ? id : -1;
+      topk_est[rank] = est > 0 ? est : 0;
+    }
   }
   // 4. the live count, rounded once
-  if (threadIdx.x == 0) {
-    long long c = 0;
-    for (int b = 0; b < n_part; ++b) c += count_part[b];
-    const float f = __ll2float_rn(c);
-    ids_acc[0] = __fadd_rn(ids_acc[0], f);
-    count_out[0] = f;
+  if (t < 32) fold_count(in, ids_acc, total, first);
+}
+
+// Past one CTA. Sorts tiles of kSortTile keys in shared memory: keys[],
+// or where `keys` is null ((flipped value << 32) | position) of [pool |
+// carried ids] (k_pool of them from `pool`, the rest from `carried`);
+// past m, kNoKey. Writes the sorted tiles, or (o.topk_ids
+// not null: one tile) the merge's result from its first topk keys.
+__global__ void __launch_bounds__(kSortThreads)
+tile_sort_kernel(const unsigned long long* __restrict__ keys,
+                 const int* __restrict__ pool, int k_pool,
+                 const int* __restrict__ carried, int64_t m,
+                 unsigned long long* __restrict__ tiles, SelectOut o) {
+  __shared__ unsigned long long s[kSortTile];
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * kSortTile;
+  for (int i = threadIdx.x; i < kSortTile; i += kSortThreads) {
+    const int64_t j = base + i;
+    unsigned long long v = kNoKey;
+    if (j < m && keys == nullptr) {
+      const int id = j < k_pool ? pool[j] : carried[j - k_pool];
+      v = (static_cast<unsigned long long>(flip(id)) << 32) |
+          static_cast<uint32_t>(j);
+    } else if (j < m) {
+      v = keys[j];
+    }
+    s[i] = v;
   }
+  __syncthreads();
+  bitonic_sort(s, kSortTile);
+  if (o.topk_ids != nullptr) {
+    for (int i = threadIdx.x; i < o.topk; i += kSortThreads) {
+      write_top(o, i, s[i]);
+    }
+    return;
+  }
+  for (int i = threadIdx.x; i < kSortTile && base + i < m;
+       i += kSortThreads) {
+    tiles[base + i] = s[i];
+  }
+}
+
+// A key's place in the sorted whole of `tiles` (m unique keys in sorted
+// tiles of kSortTile): its place in its tile plus, for every other tile,
+// how many of its keys are smaller (binary searches, kRankBatch tiles at
+// once). Writes sorted[rank] = key, or (sorted null) the merge's result
+// for rank < topk.
+__global__ void __launch_bounds__(256)
+tile_rank_kernel(const unsigned long long* __restrict__ tiles, int64_t m,
+                 int ntiles, unsigned long long* __restrict__ sorted,
+                 SelectOut o) {
+  const int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (j >= m) return;
+  const unsigned long long key = tiles[j];
+  const int own = static_cast<int>(j / kSortTile);
+  int64_t rank = j - static_cast<int64_t>(own) * kSortTile;
+  for (int u0 = 0; u0 < ntiles; u0 += kRankBatch) {
+    const unsigned long long* t[kRankBatch];
+    int len[kRankBatch], pos[kRankBatch];
+#pragma unroll
+    for (int q = 0; q < kRankBatch; ++q) {
+      const int u = u0 + q;
+      const int64_t b = static_cast<int64_t>(u) * kSortTile;
+      t[q] = tiles + b;
+      len[q] = u < ntiles && u != own
+          ? static_cast<int>(m - b < kSortTile ? m - b : kSortTile) : 0;
+      pos[q] = 0;
+    }
+    for (int step = kSortTile; step > 0; step >>= 1) {
+#pragma unroll
+      for (int q = 0; q < kRankBatch; ++q) {
+        if (pos[q] + step <= len[q] && __ldg(t[q] + pos[q] + step - 1) < key) {
+          pos[q] += step;
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kRankBatch; ++q) rank += pos[q];
+  }
+  if (sorted != nullptr) {
+    sorted[rank] = key;
+  } else if (rank < o.topk) {
+    write_top(o, static_cast<int>(rank), key);
+  }
+}
+
+// One CTA over the sorted keys of [pool | carried ids] (m of them; equal
+// values in list order, so the pool's before the carried ids'): a pool
+// key whose value differs from the key before it starts a candidate
+// (ascending; a scan places them; the pad id past them to cand_n), and a
+// carried key right after a pool key of its value marks that candidate a
+// repeat of a carried id. Also the live count.
+__global__ void __launch_bounds__(kSortThreads)
+merge_unique_kernel(const MergeParams p,
+                    const unsigned long long* __restrict__ sorted, int m,
+                    const long long* __restrict__ count, float* ids_acc,
+                    float* total, int first) {
+  __shared__ int warp_sums[kSortThreads / 32];
+  const int P = p.k_pool;
+  const int per = (m + kSortThreads - 1) / kSortThreads;
+  const int lo = min(m, static_cast<int>(threadIdx.x) * per);
+  const int hi = min(m, lo + per);
+  for (int c = threadIdx.x; c < p.cand_n; c += kSortThreads) p.dup[c] = 0;
+  // the key before j: its value and whether it is the pool's
+  unsigned long long prev = lo > 0 ? sorted[lo - 1] : kNoKey;
+  int mine = 0;
+  for (int j = lo; j < hi; ++j) {
+    const unsigned long long k = sorted[j];
+    mine += static_cast<uint32_t>(k) < static_cast<uint32_t>(P) &&
+            (j == 0 || (k >> 32) != (prev >> 32)) ? 1 : 0;
+    prev = k;
+  }
+  int uniq;
+  int at = block_exclusive_scan(mine, warp_sums, &uniq);  // a barrier
+  prev = lo > 0 ? sorted[lo - 1] : kNoKey;
+  for (int j = lo; j < hi; ++j) {
+    const unsigned long long k = sorted[j];
+    const bool same = j > 0 && (k >> 32) == (prev >> 32);
+    if (static_cast<uint32_t>(k) < static_cast<uint32_t>(P)) {
+      if (!same) p.cand[at++] = unflip(static_cast<uint32_t>(k >> 32));
+    } else if (same && static_cast<uint32_t>(prev) <
+                           static_cast<uint32_t>(P)) {
+      p.dup[at - 1] = 1;
+    }
+    prev = k;
+  }
+  for (int c = uniq + threadIdx.x; c < p.cand_n; c += kSortThreads) {
+    p.cand[c] = kPad;
+  }
+  if (threadIdx.x < 32) {
+    fold_count(load_count(count, p.n_count, ids_acc, total, first),
+               ids_acc, total, first);
+  }
+}
+
+// The scores and selection keys of [carried | candidates].
+__global__ void __launch_bounds__(256)
+merge_score_kernel(const MergeParams p, const int* __restrict__ cms,
+                   const int* __restrict__ topk_ids,
+                   const int* __restrict__ topk_est) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= p.topk + p.cand_n) return;
+  int id, est = -1;
+  if (e < p.topk) {
+    id = topk_ids[e];
+    if (id >= 0) est = max(query_fast(cms, p.depth, p.cols, id), topk_est[e]);
+  } else {
+    const int c = e - p.topk;
+    id = p.cand[c];
+    if (id != kPad && p.dup[c] == 0) {
+      est = query_fast(cms, p.depth, p.cols, id);
+    }
+  }
+  p.all_ids[e] = id;
+  p.keys[e] = sel_key(est, static_cast<uint32_t>(e));
 }
 
 int next_pow2(int64_t v) {
@@ -833,48 +1184,202 @@ int insert_blocks_per_sm() {
   return nb;
 }
 
+struct UpdPrepared {
+  UpdParams p;
+  int grid;
+  int shared;     // the sketch fits in a CTA's shared memory
+  int64_t smem;
+};
+
+cudaError_t update_launch(const UpdPrepared& u, void* cms, const void* ids,
+                          const void* live, void* count, cudaStream_t st) {
+  const int vec = ((reinterpret_cast<uintptr_t>(ids) |
+                    reinterpret_cast<uintptr_t>(live)) & 15u) == 0u;
+  auto* c = static_cast<int*>(cms);
+  auto* i = static_cast<const int*>(ids);
+  auto* l = static_cast<const uint8_t*>(live);
+  auto* out = static_cast<long long*>(count);
+  if (u.shared) {
+    cms_update_kernel<true><<<u.grid, kUpdThreads, u.smem, st>>>(
+        u.p, c, i, l, vec, out);
+  } else {
+    cms_update_kernel<false><<<u.grid, kUpdThreads, 0, st>>>(u.p, c, i, l,
+                                                              vec, out);
+  }
+  return cudaGetLastError();
+}
+
+int update_prepare(int depth, int buckets, int64_t n, int sms, void* scratch,
+                   UpdPrepared* u) {
+  if (depth <= 0 || buckets <= 0 || n < 0 || sms <= 0 ||
+      static_cast<int64_t>(depth) * buckets > 0x7fffffffLL) {
+    return cudaErrorInvalidValue;
+  }
+  memset(u, 0, sizeof(*u));
+  u->p.cols = cols_of(buckets);
+  u->p.depth = depth;
+  u->p.n = n;
+  u->p.ticket = static_cast<unsigned long long*>(scratch);
+  u->p.partials = reinterpret_cast<long long*>(u->p.ticket + 1);
+  u->smem = static_cast<int64_t>(depth) * buckets * 4;
+  u->shared = u->smem <= max_dynamic_smem() - 1024;
+  if (u->shared) {
+    const cudaError_t e = allow_smem(cms_update_kernel<true>, u->smem);
+    if (e != cudaSuccess) return e;
+  }
+  u->grid = sms;  // the scratch holds a partial for each CTA
+  return cudaSuccess;
+}
+
+// Bytes of K15's device scratch (0 on the one-CTA path) and its carving.
+int64_t carve_merge(void* base, int topk, int cand_n, MergeParams* p) {
+  const int64_t m = static_cast<int64_t>(topk) + cand_n;
+  if (m <= kBlockKeys) return 0;
+  // [pool | carried] sorted (tiles, whole), candidates, repeat marks,
+  // [carried | candidates] ids, selection keys, their sorted tiles
+  const int64_t sizes[] = {m * 8, m * 8, cand_n * 4LL, cand_n * 1LL, m * 4,
+                           m * 8, m * 8};
+  void* ptrs[7];
+  int64_t off = 0;
+  for (int i = 0; i < 7; ++i) {
+    ptrs[i] = base == nullptr ? nullptr : static_cast<char*>(base) + off;
+    off += align16(sizes[i]);
+  }
+  if (p != nullptr) {
+    p->tiles_pool = static_cast<unsigned long long*>(ptrs[0]);
+    p->sorted_pool = static_cast<unsigned long long*>(ptrs[1]);
+    p->cand = static_cast<int*>(ptrs[2]);
+    p->dup = static_cast<uint8_t*>(ptrs[3]);
+    p->all_ids = static_cast<int*>(ptrs[4]);
+    p->keys = static_cast<unsigned long long*>(ptrs[5]);
+    p->tiles_sel = static_cast<unsigned long long*>(ptrs[6]);
+  }
+  return off;
+}
+
+int merge_prepare(int depth, int buckets, int k_pool, int cand_n, int topk,
+                  int n_count, void* scratch, MergeParams* p) {
+  if (depth <= 0 || buckets <= 0 || k_pool < 0 || k_pool > cand_n ||
+      topk <= 0 || n_count < 0 ||
+      static_cast<int64_t>(topk) + cand_n > 0x40000000LL) {
+    return cudaErrorInvalidValue;
+  }
+  memset(p, 0, sizeof(*p));
+  p->cols = cols_of(buckets);
+  p->depth = depth;
+  p->k_pool = k_pool;
+  p->cand_n = cand_n;
+  p->topk = topk;
+  p->n_count = n_count;
+  p->block = topk + cand_n <= kBlockKeys;
+  if (!p->block && scratch == nullptr) return cudaErrorInvalidValue;
+  carve_merge(scratch, topk, cand_n, p);
+  return cudaSuccess;
+}
+
+#define DETPU_LAUNCHED()                                   \
+  do {                                                     \
+    const cudaError_t e_ = cudaGetLastError();             \
+    if (e_ != cudaSuccess) return e_;                      \
+  } while (0)
+
+cudaError_t merge_launch(const MergeParams& p, const void* cms,
+                         const void* pool, void* topk_ids, void* topk_est,
+                         void* ids_acc, const void* count, void* total,
+                         int first, cudaStream_t st) {
+  const auto* c = static_cast<const int*>(cms);
+  const auto* pl = static_cast<const int*>(pool);
+  auto* ti = static_cast<int*>(topk_ids);
+  auto* te = static_cast<int*>(topk_est);
+  auto* acc = static_cast<float*>(ids_acc);
+  const auto* cnt = static_cast<const long long*>(count);
+  auto* tot = static_cast<float*>(total);
+  if (p.block) {
+    const int threads = (p.topk + p.cand_n + 4 + 31) / 32 * 32;
+    topk_merge_block_kernel<<<1, threads, 0, st>>>(p, c, pl, ti, te, acc, cnt,
+                                                   tot, first);
+    return cudaGetLastError();
+  }
+  const SelectOut none{nullptr, nullptr, nullptr, 0};
+  // the pool and the carried ids sorted as one list
+  const int m1 = p.k_pool + p.topk;
+  const unsigned long long* sorted = p.tiles_pool;
+  const int tiles1 = (m1 + kSortTile - 1) / kSortTile;
+  tile_sort_kernel<<<tiles1, kSortThreads, 0, st>>>(
+      nullptr, pl, p.k_pool, ti, m1, p.tiles_pool, none);
+  DETPU_LAUNCHED();
+  if (tiles1 > 1) {
+    tile_rank_kernel<<<(m1 + 255) / 256, 256, 0, st>>>(
+        p.tiles_pool, m1, tiles1, p.sorted_pool, none);
+    DETPU_LAUNCHED();
+    sorted = p.sorted_pool;
+  }
+  merge_unique_kernel<<<1, kSortThreads, 0, st>>>(p, sorted, m1, cnt, acc,
+                                                  tot, first);
+  DETPU_LAUNCHED();
+  const int m = p.topk + p.cand_n;
+  merge_score_kernel<<<(m + 255) / 256, 256, 0, st>>>(p, c, ti, te);
+  DETPU_LAUNCHED();
+  const SelectOut out{ti, te, p.all_ids, p.topk};
+  const int tiles = (m + kSortTile - 1) / kSortTile;
+  if (tiles == 1) {
+    tile_sort_kernel<<<1, kSortThreads, 0, st>>>(p.keys, nullptr, 0,
+                                                 nullptr, m, nullptr, out);
+    return cudaGetLastError();
+  }
+  tile_sort_kernel<<<tiles, kSortThreads, 0, st>>>(p.keys, nullptr, 0,
+                                                    nullptr, m, p.tiles_sel,
+                                                    none);
+  DETPU_LAUNCHED();
+  tile_rank_kernel<<<(m + 255) / 256, 256, 0, st>>>(p.tiles_sel, m, tiles,
+                                                    nullptr, out);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" const char* detpu_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Blocks (and int64 count partials) detpu_cms_update launches for n
-// positions.
-extern "C" int detpu_cms_update_blocks(int64_t n) {
-  // each block takes at least 16 positions a thread: fewer blocks, fewer
-  // words to merge from the shared copies
-  int64_t b = (n + kUpdThreads * 16 - 1) / (kUpdThreads * 16);
-  const int64_t cap = 2 * static_cast<int64_t>(sm_count());
-  if (b > cap) b = cap;
-  if (b < 1) b = 1;
-  return static_cast<int>(b);
+// ---------------------------------------------------------------- K13 API
+
+// Bytes of a prepared K13 launch (host memory the record owns).
+extern "C" int64_t detpu_cms_update_prepared_bytes(void) {
+  return sizeof(UpdPrepared);
+}
+
+// Bytes of K13's card scratch for a grid over `sms` SMs: the ticket and
+// a partial count for each CTA, at most one a SM (zeroed once by the
+// caller).
+extern "C" int64_t detpu_cms_update_scratch_bytes(int sms) {
+  return 8 * (1 + static_cast<int64_t>(sms));
+}
+
+// The launch of K13 for a sketch [depth, buckets] and n positions over
+// `sms` SMs, on `scratch` (detpu_cms_update_scratch_bytes(sms) bytes,
+// zeroed once), into `prepared`.
+extern "C" int detpu_cms_update_prepare(int depth, int buckets, int64_t n,
+                                        int sms, void* scratch,
+                                        void* prepared) {
+  UpdPrepared u;
+  const int e = update_prepare(depth, buckets, n, sms, scratch, &u);
+  if (e == cudaSuccess) memcpy(prepared, &u, sizeof(u));
+  return e;
+}
+
+// The CTAs of a prepared K13 launch.
+extern "C" int detpu_cms_update_grid(const void* prepared) {
+  return static_cast<const UpdPrepared*>(prepared)->grid;
 }
 
 // cms [depth, buckets] int32, updated in place; ids [n] int32, live [n]
-// bool (one byte each); count_part [detpu_cms_update_blocks(...)] int64
-// receives the live positions per block.
-extern "C" int detpu_cms_update(void* cms, int depth, int buckets,
-                                const void* ids, const void* live, int64_t n,
-                                void* count_part, void* stream) {
-  if (depth <= 0 || buckets <= 0 || n < 0) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int blocks = detpu_cms_update_blocks(n);
-  const int64_t smem = static_cast<int64_t>(depth) * buckets * 4;
-  auto* c = static_cast<int*>(cms);
-  auto* i = static_cast<const int*>(ids);
-  auto* l = static_cast<const uint8_t*>(live);
-  auto* p = static_cast<long long*>(count_part);
-  if (smem <= max_dynamic_smem() - 1024) {
-    const cudaError_t e = allow_smem(cms_update_kernel<true>, smem);
-    if (e != cudaSuccess) return e;
-    cms_update_kernel<true><<<blocks, kUpdThreads, smem, st>>>(
-        c, depth, buckets, i, l, n, p);
-  } else {
-    cms_update_kernel<false><<<blocks, kUpdThreads, 0, st>>>(
-        c, depth, buckets, i, l, n, p);
-  }
-  return cudaGetLastError();
+// bool (one byte each); count [1] int64 <- the live positions.
+extern "C" int detpu_cms_update_launch(const void* prepared, void* cms,
+                                       const void* ids, const void* live,
+                                       void* count, void* stream) {
+  return update_launch(*static_cast<const UpdPrepared*>(prepared), cms, ids,
+                       live, count, static_cast<cudaStream_t>(stream));
 }
 
 // est[j] = the count-min estimate of ids[j] (int32 each).
@@ -889,6 +1394,8 @@ extern "C" int detpu_cms_query(const void* cms, int depth, int buckets,
       static_cast<const int*>(ids), n, static_cast<int*>(est));
   return cudaGetLastError();
 }
+
+// ---------------------------------------------------------------- K14 API
 
 extern "C" int detpu_topk_pool_max(void);
 
@@ -997,63 +1504,47 @@ extern "C" int detpu_topk_pool(const void* cms, int depth, int buckets,
   return cudaErrorInvalidValue;  // more rounds than n < 2^31 needs
 }
 
-// The largest candidates + topk whose merge fits in shared memory; above
-// it detpu_topk_merge works in a device scratch.
-extern "C" int detpu_topk_merge_max(void) {
-  int k = 1;
-  // sort buffer (8 B), candidates (4 B) and the merged ids and estimates
-  // (8 B) per slot, powers of two
-  while (static_cast<int64_t>(2 * k) * 20 <= max_dynamic_smem() - 1024) {
-    k *= 2;
-  }
-  return k;
-}
+// ---------------------------------------------------------------- K15 API
 
-// Bytes of the merge's arrays (its shared memory, or its device scratch).
-int64_t merge_bytes(int topk, int cand_n) {
-  return static_cast<int64_t>(next_pow2(topk + cand_n)) * 8 +
-         static_cast<int64_t>(next_pow2(cand_n)) * 4 +
-         static_cast<int64_t>(topk + cand_n) * 8;
-}
+// The largest topk + candidates merged by one CTA; past it the merge
+// runs over the SMs on a device scratch.
+extern "C" int detpu_topk_merge_max(void) { return kBlockKeys; }
 
-// Bytes of device scratch detpu_topk_merge needs: 0 when its arrays fit in
-// shared memory.
+// Bytes of device scratch K15 needs (0 for one CTA).
 extern "C" int64_t detpu_topk_merge_scratch_bytes(int topk, int cand_n) {
-  if (topk + cand_n <= detpu_topk_merge_max()) return 0;
-  return merge_bytes(topk, cand_n);
+  return carve_merge(nullptr, topk, cand_n, nullptr);
+}
+
+// Bytes of a prepared K15 launch (host memory the record owns).
+extern "C" int64_t detpu_topk_merge_prepared_bytes(void) {
+  return sizeof(MergeParams);
+}
+
+// The launch of K15 for a sketch [depth, buckets], a pool of k_pool ids
+// padded to cand_n candidates, topk carried slots and n_count int64
+// live-count words, on `scratch` (detpu_topk_merge_scratch_bytes bytes,
+// null when 0), into `prepared`.
+extern "C" int detpu_topk_merge_prepare(int depth, int buckets, int k_pool,
+                                        int cand_n, int topk, int n_count,
+                                        void* scratch, void* prepared) {
+  MergeParams p;
+  const int e = merge_prepare(depth, buckets, k_pool, cand_n, topk, n_count,
+                              scratch, &p);
+  if (e == cudaSuccess) memcpy(prepared, &p, sizeof(p));
+  return e;
 }
 
 // The merge of record_ids (see the header): topk_ids and topk_est [topk]
 // int32 and the width's ids accumulator [1] float32 updated in place;
-// pool [k_pool] int32 from detpu_topk_pool (k_pool may be 0);
-// count_part [n_part] int64 from detpu_cms_update; count_out [1] float32
-// <- the live count rounded to float32; scratch of
-// detpu_topk_merge_scratch_bytes(topk, cand_n) bytes (null when 0).
-extern "C" int detpu_topk_merge(const void* cms, int depth, int buckets,
-                                const void* pool, int k_pool, int cand_n,
-                                void* topk_ids, void* topk_est, int topk,
-                                void* ids_acc, const void* count_part,
-                                int n_part, void* count_out, void* scratch,
-                                void* stream) {
-  if (depth <= 0 || buckets <= 0 || k_pool < 0 || k_pool > cand_n ||
-      topk <= 0 || static_cast<int64_t>(topk) + cand_n > 0x40000000LL) {
-    return cudaErrorInvalidValue;
-  }
-  const bool big = topk + cand_n > detpu_topk_merge_max();
-  if (big && scratch == nullptr) return cudaErrorInvalidValue;
-  const int m_cand = next_pow2(cand_n);
-  const int m_all = next_pow2(topk + cand_n);
-  const int64_t smem = big ? 0 : merge_bytes(topk, cand_n);
-  cudaError_t e = allow_smem(topk_merge_kernel, smem);
-  if (e != cudaSuccess) return e;
-  topk_merge_kernel<<<1, kSelThreads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(cms), depth, buckets,
-      static_cast<const int*>(pool), k_pool, cand_n, m_cand, m_all,
-      static_cast<int*>(topk_ids), static_cast<int*>(topk_est), topk,
-      static_cast<float*>(ids_acc),
-      static_cast<const long long*>(count_part), n_part,
-      static_cast<float*>(count_out),
-      big ? static_cast<unsigned long long*>(scratch) : nullptr);
-  return cudaGetLastError();
+// pool [k_pool] int32 from detpu_topk_pool; counts [n_count] int64 (their
+// sum is the live count); total [1] float32 (or null) <- that count
+// rounded once to float32 (first), or + it.
+extern "C" int detpu_topk_merge_launch(const void* prepared, const void* cms,
+                                       const void* pool, void* topk_ids,
+                                       void* topk_est, void* ids_acc,
+                                       const void* counts, void* total,
+                                       int first, void* stream) {
+  return merge_launch(*static_cast<const MergeParams*>(prepared), cms, pool,
+                      topk_ids, topk_est, ids_acc, counts, total, first,
+                      static_cast<cudaStream_t>(stream));
 }

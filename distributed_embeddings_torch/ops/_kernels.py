@@ -189,10 +189,16 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
                               _I, _I64, _I64, _P),
     },
     "sketch": {
-        # n -> blocks (and int64 count partials) of detpu_cms_update
-        "detpu_cms_update_blocks": (_I64,),
-        # cms, depth, buckets, ids, live, n, count_part, stream
-        "detpu_cms_update": (_P, _I, _I, _P, _P, _I64, _P, _P),
+        # -> the bytes of a prepared K13 launch; sms -> bytes of its card
+        # scratch
+        "detpu_cms_update_prepared_bytes": (),
+        "detpu_cms_update_scratch_bytes": (_I,),
+        # depth, buckets, n, sms, scratch, prepared (host, out)
+        "detpu_cms_update_prepare": (_I, _I, _I64, _I, _P, _P),
+        # prepared, cms, ids, live, count, stream
+        "detpu_cms_update_launch": (_P, _P, _P, _P, _P, _P),
+        # prepared -> its grid (CTAs)
+        "detpu_cms_update_grid": (_P,),
         # cms, depth, buckets, ids, n, est, stream
         "detpu_cms_query": (_P, _I, _I, _P, _I64, _P, _P),
         # n, k_pool -> bytes; n -> the bytes of it each call clears
@@ -202,15 +208,18 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "detpu_topk_pool_max": (),
         # cms, depth, buckets, ids, live, n, k_pool, pool, scratch, stream
         "detpu_topk_pool": (_P, _I, _I, _P, _P, _I64, _I, _P, _P, _P),
-        # -> the largest topk + candidates merged in shared memory
+        # -> the largest topk + candidates merged by one CTA; the bytes
+        # of a prepared K15 launch
         "detpu_topk_merge_max": (),
-        # topk, candidates -> bytes of device scratch (0 below the max)
+        "detpu_topk_merge_prepared_bytes": (),
+        # topk, candidates -> bytes of device scratch (0 for one CTA)
         "detpu_topk_merge_scratch_bytes": (_I, _I),
-        # cms, depth, buckets, pool, k_pool, candidates, topk_ids,
-        # topk_est, topk, ids_acc, count_part, n_part, count_out, scratch,
-        # stream
-        "detpu_topk_merge": (_P, _I, _I, _P, _I, _I, _P, _P, _I, _P, _P,
-                             _I, _P, _P, _P),
+        # depth, buckets, k_pool, candidates, topk, n_count, scratch,
+        # prepared (host, out)
+        "detpu_topk_merge_prepare": (_I, _I, _I, _I, _I, _I, _P, _P),
+        # prepared, cms, pool, topk_ids, topk_est, ids_acc, counts, total,
+        # first, stream
+        "detpu_topk_merge_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _P),
     },
     "exchange_pack": {
         # descs (host int64 [n, 8]), n, n_tiles, stream
@@ -290,6 +299,9 @@ RESTYPES = {"detpu_dedup_scratch_bytes": _I64,
             "detpu_topk_pool_scratch_bytes": _I64,
             "detpu_topk_pool_clear_bytes": _I64,
             "detpu_topk_merge_scratch_bytes": _I64,
+            "detpu_topk_merge_prepared_bytes": _I64,
+            "detpu_cms_update_prepared_bytes": _I64,
+            "detpu_cms_update_scratch_bytes": _I64,
             "detpu_grad_health_prepared_bytes": _I64,
             "detpu_adam_prepared_bytes": _I64,
             "detpu_adagrad_prepared_bytes": _I64,

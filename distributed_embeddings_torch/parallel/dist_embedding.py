@@ -979,14 +979,16 @@ class DistributedEmbedding:
             or a list of them (their id streams fold as one).
           config: a :class:`~..analysis.telemetry.TelemetryConfig`.
 
-        Widths fold in ascending order, and ``ids_total`` adds their
-        float32 live counts in that order, as JAX does. Returns the state
-        (the same tensors)."""
-        total = None
-        for w, (ids, live) in sorted(self.telemetry_streams(
-                residuals).items()):
-            _, count = tel._record(tstate[_wkey(w)], ids, live, config)
-            total = count if total is None else total + count
+        Widths fold in ascending order, each from its fold record, and
+        ``ids_total`` adds the sum of their float32 live counts, summed in
+        that order, as JAX does. Returns the state (the same tensors)."""
+        streams = sorted(self.telemetry_streams(residuals).items())
+        total = (torch.empty((1,), dtype=torch.float32,
+                             device=tstate["ids_total"].device)
+                 if streams else None)
+        for k, (w, (ids, live)) in enumerate(streams):
+            tel._record(tstate[_wkey(w)], ids, live, config, total,
+                        first=k == 0)
         tstate["steps"].add_(1)
         if total is not None:
             tstate["ids_total"].add_(total)

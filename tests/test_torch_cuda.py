@@ -1702,7 +1702,8 @@ def _telemetry_ids(rng, n, kind):
     rows, ~10% dead), ``zipf19`` (the ragged stream's ~19 positions a
     distinct live id), ``edges`` (``zipf`` with 2% negative ids and 1%
     ``INT32_MAX``, live and dead), ``spread`` (ids over all of int32, a
-    few repeated), ``distinct`` (every position live, no two alike)."""
+    few repeated), ``distinct`` (every position live, no two alike),
+    ``dead`` (``zipf`` with no live position)."""
     if kind == "distinct":
         ids = rng.permutation(4 * n)[:n] - 2 * n
         return ids.astype(np.int32), np.ones(n, bool)
@@ -1723,6 +1724,8 @@ def _telemetry_ids(rng, n, kind):
     live = rng.random(n) < 0.9
     if kind == "edges":
         live[0] = True  # the first pad-valued position is a live one
+    if kind == "dead":
+        live[:] = False
     return ids.astype(np.int32), live
 
 
@@ -1761,9 +1764,21 @@ def _sketch_case(n, depth, buckets, topk, cand, kind="zipf"):
     _sketch_case(1_000_000, 4, 2048, 32, 128, "spread"),  # probing
     _sketch_case(300_000, 4, 2048, 32, 0, "zipf"),  # cand: the pool max
     _sketch_case(2_000_000, 4, 2048, 32, 128, "distinct"),  # a full set
+    # K13's and K15's edges: buckets not a power of two (fastmod) and 1;
+    # a sketch past one CTA's shared memory (1 MB, device-memory adds);
+    # an all-dead stream; n below one CTA's share; K15's one-CTA limit
+    # (topk + candidates 512) and one past it (the device path, one tile)
+    _sketch_case(300_000, 4, 2047, 32, 128),
+    _sketch_case(40_000, 5, 3, 8, 40, "edges"),
+    _sketch_case(20_000, 2, 1, 8, 24),
+    _sketch_case(200_000, 4, 65_535, 32, 128, "spread"),
+    _sketch_case(30_000, 4, 2048, 32, 128, "dead"),
+    _sketch_case(7, 4, 2047, 4, 7),
+    _sketch_case(100_000, 4, 2048, 100, 412, "edges"),
+    _sketch_case(100_000, 4, 2048, 200, 313),
     # past shared memory (C5): topk 2048 with its default 8192 candidates
-    # (the pool in the tile, the merge in device memory), and candidates
-    # past the tile (both in device memory), one with INT32_MAX ids
+    # (the pool in the tile, the merge over the SMs), and candidates past
+    # the tile (both in device memory), one with INT32_MAX ids
     _sketch_case(2_600_000, 4, 2048, 2048, 8192, "zipf19"),
     _sketch_case(1_000_000, 4, 2048, 32, 16384, "spread"),
     _sketch_case(200_000, 4, 2048, 64, 20000, "edges"),
@@ -1772,10 +1787,11 @@ def test_sketch_kernels_match_plain(cuda_device, n, depth, buckets, topk,
                                     cand, kind):
     """K13 (sketch update and live count), K14 (query and candidate
     pool) and K15 (top-k merge) against their plain versions on the
-    card, three steps from one prior state: every leaf bit-exact.
-    ``cand`` 0 takes the largest pool the shared-memory tile holds (the
-    merge is left out); the C5 cases run past the tile, in device
-    memory."""
+    card, three steps from one prior state: every leaf bit-exact, one
+    launch a call each. ``cand`` 0 takes the largest pool the
+    shared-memory tile holds (the merge is left out); K15 merges in one
+    CTA up to topk + candidates 512 and over the SMs past it (the C5
+    cases, their pools in device memory past the tile)."""
     from distributed_embeddings_torch.ops import sketch as sk
 
     merge = cand > 0
@@ -1788,6 +1804,9 @@ def test_sketch_kernels_match_plain(cuda_device, n, depth, buckets, topk,
     elif cand > 8192:
         assert sk.pool_path(min(cand, n)) == "device"
         assert sk.merge_path(topk, cand) == "device"
+    else:
+        assert sk.merge_path(topk, cand) == (
+            "block" if topk + cand <= 512 else "device")
     runs = []
     for use_kernels in (True, False):
         rng = np.random.default_rng(n + depth)
@@ -1829,8 +1848,147 @@ def test_sketch_kernels_match_plain(cuda_device, n, depth, buckets, topk,
         for x, y in zip(a[1:], b[1:]):
             np.testing.assert_array_equal(to_np(x), to_np(y),
                                           err_msg=f"step {step}")
-    assert (runs[0][-1][-3] >= 0).any() or not merge  # hot rows found
-    assert (runs[0][-1][1] != sk.PAD).any()  # a pool of live ids
+    assert (runs[0][-1][-3] >= 0).any() or not merge or kind == "dead"
+    # a pool of live ids
+    assert (runs[0][-1][1] != sk.PAD).any() or kind == "dead"
+
+
+def _fold_state(rng, depth, buckets, topk, dev):
+    cms = rng.integers(0, 9, (depth, buckets)).astype(np.int32)
+    tids = np.full(topk, -1, np.int32)
+    tids[:topk // 2] = rng.permutation(200_000)[:topk // 2]
+    return {"cms": torch.from_numpy(cms).to(dev),
+            "topk_ids": torch.from_numpy(tids).to(dev),
+            "topk_est": torch.from_numpy(rng.integers(
+                0, 30, topk).astype(np.int32)).to(dev),
+            "ids": torch.tensor([5.0], device=dev)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,topk,cand", [(425_984, 32, 128),
+                                         (60, 32, 128), (300_000, 64, 4096),
+                                         (0, 64, 1000)])
+def test_sketch_fold_record_hits_and_replays_in_a_cuda_graph(cuda_device, n,
+                                                             topk, cand):
+    """A width's fold (``ops.sketch.fold_ids``: K13, K14's pool and K15
+    from one launch record) bit-exact to ``record_ids_plain`` over three
+    steps, ``total`` set then added; a second width of the same layouts
+    (new tensors) builds nothing and counts one launch of each kernel; a
+    fold captured in a ``torch.cuda.CUDAGraph`` and replayed twice with
+    new ids copied in gives the eager fold's bits (K13's ticket and the
+    record's count slot keep no state a replay breaks). An empty stream
+    (no pool, the merge past one CTA) folds too."""
+    from distributed_embeddings_torch.ops import sketch as sk
+
+    rng = np.random.default_rng(n + topk)
+    ids_np, live_np = _telemetry_ids(rng, n, "edges" if n else "dead")
+    ids = torch.from_numpy(ids_np).to(cuda_device)
+    live = torch.from_numpy(live_np).to(cuda_device)
+    ws = _fold_state(rng, 4, 2048, topk, cuda_device)
+    ps = {k: v.clone() for k, v in ws.items()}
+    tot, ptot = (torch.empty(1, device=cuda_device) for _ in range(2))
+    for step in range(3):
+        perm = torch.from_numpy(rng.permutation(n)).to(cuda_device)
+        sk.fold_ids(ws, ids[perm], live[perm], cand, tot, step == 0)
+        sk.fold_ids_plain(ps, ids[perm], live[perm], cand, ptot, step == 0)
+        for k in ws:
+            assert torch.equal(ws[k], ps[k]), (step, k)
+        assert torch.equal(tot, ptot), step
+    builds = sk._FOLD.builds
+    before = (sk.cms_update.launches, sk.topk_pool.launches,
+              sk.topk_merge.launches)
+    other = {k: v.clone() for k, v in ws.items()}
+    # new tensors of the steps' layouts (an empty tensor from numpy has
+    # stride 0, its index result stride 1: two layouts, two records)
+    sk.fold_ids(other, ids[perm].clone(), live[perm].clone(), cand,
+                tot.clone(), False)
+    assert sk._FOLD.builds == builds
+    assert (sk.cms_update.launches, sk.topk_pool.launches,
+            sk.topk_merge.launches) == (before[0] + 1,
+                                        before[1] + (1 if n else 0),
+                                        before[2] + 1)
+    # a CUDA graph of one fold, replayed with new streams copied in
+    gids, glive = ids.clone(), live.clone()
+    gs = {k: v.clone() for k, v in ws.items()}
+    gtot = torch.empty(1, device=cuda_device)
+    stream = torch.cuda.Stream(device=cuda_device)
+    stream.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(stream):
+        sk.fold_ids(gs, gids, glive, cand, gtot, True)
+    torch.cuda.current_stream(cuda_device).wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        sk.fold_ids(gs, gids, glive, cand, gtot, True)
+    for _ in range(2):
+        perm = torch.from_numpy(rng.permutation(n)).to(cuda_device)
+        want = {k: v.clone() for k, v in gs.items()}
+        wtot = torch.empty(1, device=cuda_device)
+        sk.fold_ids_plain(want, ids[perm], live[perm], cand, wtot, True)
+        gids.copy_(ids[perm])
+        glive.copy_(live[perm])
+        graph.replay()
+        torch.cuda.synchronize()
+        for k in gs:
+            assert torch.equal(gs[k], want[k]), k
+        assert torch.equal(gtot, wtot)
+
+
+@pytest.mark.cuda
+def test_sketch_records_hold_layouts_misaligned_views_and_graphs(
+        cuda_device):
+    """K13's and K15's records keyed on layouts: new tensors of the same
+    layouts build nothing (no address in a key); ids and live flags at
+    offsets that are not 16-byte aligned (K13's element loads) give the
+    plain version's bits; K13 captured in a CUDA graph and replayed
+    twice gives the eager counts (its ticket is never reset)."""
+    from distributed_embeddings_torch.ops import sketch as sk
+
+    rng = np.random.default_rng(77)
+    n = 100_003
+    ids_np, live_np = _telemetry_ids(rng, n + 3, "zipf")
+    ids = torch.from_numpy(ids_np).to(cuda_device)
+    live = torch.from_numpy(live_np).to(cuda_device)
+    for off in (0, 1, 3):
+        a, b = ids[off:off + n], live[off:off + n]
+        got = torch.zeros((4, 2047), dtype=torch.int32, device=cuda_device)
+        want = got.clone()
+        cnt = sk.cms_update(got, a, b)
+        pcnt = sk.cms_update_plain(want, a, b)
+        assert torch.equal(got, want) and torch.equal(cnt, pcnt), off
+    builds = sk._UPDATE.builds
+    cnt = sk.cms_update(got, ids[:n].clone(), live[:n].clone())
+    assert sk._UPDATE.builds == builds
+    assert sk.update_key(got, ids[:n], live[:n]) == sk.update_key(
+        got.clone(), ids[:n].clone(), live[:n].clone())
+    state = (torch.full((32,), -1, dtype=torch.int32, device=cuda_device),
+             torch.zeros(32, dtype=torch.int32, device=cuda_device),
+             torch.zeros(1, device=cuda_device))
+    pool = sk.topk_pool(got, ids[:n], live[:n], 128)
+    sk.topk_merge(got, pool, cnt, *state, 128)
+    builds = sk._MERGE.builds
+    sk.topk_merge(got, pool.clone(), cnt.clone(),
+                  *(t.clone() for t in state), 128)
+    assert sk._MERGE.builds == builds
+    # K13 in a CUDA graph
+    gids, glive = ids[:n].clone(), live[:n].clone()
+    sketch = torch.zeros((4, 2048), dtype=torch.int32, device=cuda_device)
+    stream = torch.cuda.Stream(device=cuda_device)
+    stream.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(stream):
+        out = sk.cms_update(sketch, gids, glive)
+    torch.cuda.current_stream(cuda_device).wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = sk.cms_update(sketch, gids, glive)
+    for k in range(2):
+        perm = torch.from_numpy(rng.permutation(n)).to(cuda_device)
+        gids.copy_(ids[perm])
+        glive.copy_(live[perm] if k else ~live[perm])
+        want = sketch.clone()
+        wcnt = sk.cms_update_plain(want, gids, glive)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(sketch, want) and torch.equal(out, wcnt), k
 
 
 def _remap_case(rng, n, rows_cap, cap, is64, dev):
