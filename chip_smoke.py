@@ -427,8 +427,8 @@ def parent_ops():
         importlib.import_module("detpu_parent.ops._kernels").build_all(
             ["dense_update", "exchange_pack", "gather_combine", "csr",
              "sgd_scatter", "sgd_promoted", "dot_interact",
-             "ragged_combine", "dedup", "grad_health", "adam", "adagrad",
-             "momentum", "streaming", "sketch"])
+             "ragged_combine", "ragged_grad", "dedup", "grad_health", "adam",
+             "adagrad", "momentum", "streaming", "sketch"])
         for name in ("dense_update", "exchange_pack", "embedding_lookup",
                      "scatter_add", "interaction", "sparse_grad",
                      "grad_health", "adam", "adagrad", "momentum",
@@ -483,14 +483,28 @@ def parent_fold(wstate, ids, live, candidates, total=None, first=True):
             total.add_(count)
 
 
+def parent_dense_branch(slab, acc, ids, vals, lr, eps):
+    """``SparseAdagrad``'s dense-apply branch as the parent checkout runs
+    it: a zero gradient slab, its K3 into it, its K7 over the slab."""
+    import torch
+
+    par = parent_ops()
+    g = torch.zeros(slab.shape, dtype=acc.dtype, device=slab.device)
+    par["scatter_add"].sgd_scatter(g, ids, vals, -1.0)
+    par["adagrad"].adagrad_dense(slab, acc, g, lr, eps)
+    return slab, acc
+
+
 @contextlib.contextmanager
 def parent_wrappers():
-    """Route the steps' K19/K20/K22, K3/K18, K5, K6, K11, K12, K16, K17,
-    K21 and K13-K15 call sites (the module globals
+    """Route the steps' K19/K20/K22, K3/K18, K5, K6, K7, K11, K12, K16,
+    K17, K21 and K13-K15 call sites (the module globals
     ``parallel.exchange.pack_ids``/
     ``pack_columns``, ``parallel.optimizers.dense_update``/
     ``sgd_scatter``/``dedup_sparse_grad``/``adagrad_rows``/``adam_rows``/
-    ``momentum_rows``, ``parallel.streaming.remap_stage``/``commit_rows``,
+    ``momentum_rows``/``adagrad_dense``, ``parallel.optimizers.
+    adagrad_dense_scatter`` (the parent's chain, ``parent_dense_branch``),
+    ``parallel.streaming.remap_stage``/``commit_rows``,
     ``parallel.trainer.grad_health`` and ``analysis.telemetry.
     sketch_fold``, which ``parent_fold`` serves: the parent's
     ``sgd_scatter`` takes its own K18 for the promoted chain), the
@@ -521,7 +535,8 @@ def parent_wrappers():
              optimizers.dedup_sparse_grad, dlrm.dot_interact,
              trainer.grad_health, optimizers.adam_rows,
              optimizers.adagrad_rows, smod.remap_stage,
-             optimizers.momentum_rows, smod.commit_rows, tmod.sketch_fold)
+             optimizers.momentum_rows, smod.commit_rows, tmod.sketch_fold,
+             optimizers.adagrad_dense, optimizers.adagrad_dense_scatter)
     # the parent's interaction: its stack of the features, then its K2
     # (and, through its autograd Function, its K4)
     dlrm.dot_interact = par["dlrm"].dot_interact
@@ -539,6 +554,8 @@ def parent_wrappers():
     optimizers.momentum_rows = par["momentum"].momentum_rows
     smod.commit_rows = par["streaming"].commit_rows
     tmod.sketch_fold = parent_fold
+    optimizers.adagrad_dense = par["adagrad"].adagrad_dense
+    optimizers.adagrad_dense_scatter = parent_dense_branch
     mods = {m: importlib.import_module(
         f"distributed_embeddings_torch.parallel.{m}")
         for m, _ in LOOKUP_SITES}
@@ -553,7 +570,8 @@ def parent_wrappers():
          optimizers.dedup_sparse_grad, dlrm.dot_interact,
          trainer.grad_health, optimizers.adam_rows,
          optimizers.adagrad_rows, smod.remap_stage,
-         optimizers.momentum_rows, smod.commit_rows, tmod.sketch_fold) = saved
+         optimizers.momentum_rows, smod.commit_rows, tmod.sketch_fold,
+         optimizers.adagrad_dense, optimizers.adagrad_dense_scatter) = saved
         for (m, name), fn in zip(LOOKUP_SITES, lookups):
             setattr(mods[m], name, fn)
 
@@ -1342,8 +1360,9 @@ def kernel_fns():
     """Every kernel wrapper of the port, by name (each counts its own
     launches)."""
     from distributed_embeddings_torch.ops import (
-        adagrad_dense, adagrad_rows, adam_rows, cms_query, cms_update,
-        commit_rows, dedup_sparse_grad, dense_update, dot_interact_bwd,
+        adagrad_dense, adagrad_dense_scatter, adagrad_rows, adam_rows,
+        cms_query, cms_update, commit_rows, dedup_sparse_grad, dense_update,
+        dot_interact_bwd,
         dot_interact_fwd, gather_combine, grad_health, lengths_to_splits,
         momentum_rows, pack_columns, pack_ids, ragged_combine, ragged_grad,
         ragged_row_ids, remap_stage, row_to_split, sgd_scatter,
@@ -1354,6 +1373,7 @@ def kernel_fns():
             "dot_interact_bwd": dot_interact_bwd, "sgd_scatter": sgd_scatter,
             "dedup_sparse_grad": dedup_sparse_grad,
             "adagrad_rows": adagrad_rows, "adagrad_dense": adagrad_dense,
+            "adagrad_dense_scatter": adagrad_dense_scatter,
             "ragged_combine": ragged_combine, "ragged_grad": ragged_grad,
             "lengths_to_splits": lengths_to_splits,
             "row_to_split": row_to_split, "ragged_row_ids": ragged_row_ids,
@@ -1416,6 +1436,8 @@ def plain_kernels(names=None):
               sparse_grad.dedup_sparse_grad_plain),
              (optimizers, "adagrad_rows", adagrad.adagrad_rows_plain),
              (optimizers, "adagrad_dense", adagrad.adagrad_dense_plain),
+             (optimizers, "adagrad_dense_scatter",
+              adagrad.adagrad_dense_scatter_plain),
              (optimizers, "adam_rows", adam.adam_rows_plain),
              (optimizers, "momentum_rows", momentum.momentum_rows_plain),
              (telemetry, "sketch_update", sketch.cms_update_plain),
@@ -2362,10 +2384,17 @@ def zoo_streams(cfg, b):
     return out
 
 
-def zoo_expected(de, opt, cfg, b, guard=True):
+def zoo_expected(de, opt, cfg, b, guard=True, acc_dtype=None):
     """Launches per step of each kernel on the zoo path: K1 once per plan
-    group; per slab K3 + K7 (dense-apply) or K5 + K6 (sparse); K22 once,
-    and K21 once under the guard."""
+    group; per slab the fused dense-apply call (dense-apply, where the
+    optimizer's constants make an untouched element a no-op: the zoo's
+    defaults), K3 + K7 (dense-apply otherwise) or K5 + K6 (sparse); K22
+    once, and K21 once under the guard."""
+    import torch
+
+    from distributed_embeddings_torch.ops.adagrad import (
+        untouched_rows_keep_bits)
+
     plan = next(iter(de._plan_cache.values()))
     want = {name: 0 for name in kernel_fns()}
     want.update(gather_combine=len(plan.groups), pack_ids=1, pack_columns=1)
@@ -2373,8 +2402,13 @@ def zoo_expected(de, opt, cfg, b, guard=True):
     regimes = {}
     for w, n in zoo_streams(cfg, b).items():
         dense = opt.dense_apply(de.rows_cap[w], n)
-        regimes[f"w{w}"] = "dense-apply" if dense else "sparse"
-        for name in (("sgd_scatter", "adagrad_dense") if dense
+        fused = dense and untouched_rows_keep_bits(
+            opt.initial_accumulator_value, opt.eps,
+            acc_dtype or torch.float32, ZOO_LR)
+        regimes[f"w{w}"] = ("dense-apply, fused" if fused else "dense-apply"
+                            if dense else "sparse")
+        for name in (("adagrad_dense_scatter",) if fused
+                     else ("sgd_scatter", "adagrad_dense") if dense
                      else ("dedup_sparse_grad", "adagrad_rows")):
             want[name] += 1
     return want, regimes
@@ -2445,7 +2479,7 @@ def zoo_small_check(torch, dtype, acc_dtype, ratio):
       the runs, and the 5-step trajectories part: finite losses, dense
       params, slabs and accumulators, and trained slabs, are all that
       is checked (the differences are logged). ``zoo_full_check`` holds
-      this path's K3 and K7 to their bounds on the step's own inputs."""
+      this path's fused call to its bounds on the step's own inputs."""
     from distributed_embeddings_torch.models import InputGenerator
     from distributed_embeddings_torch.parallel import (
         Adagrad, make_hybrid_train_step)
@@ -2473,7 +2507,8 @@ def zoo_small_check(torch, dtype, acc_dtype, ratio):
         torch.cuda.synchronize()
         counts = read_counts()
         if want is None:
-            want, regimes = zoo_expected(de, opt, cfg, SMALL_BATCH)
+            want, regimes = zoo_expected(de, opt, cfg, SMALL_BATCH,
+                                         acc_dtype=acc_dtype)
         expect = {k: (v * SMALL_STEPS if name == "kernels" else 0)
                   for k, v in want.items()}
         check(counts == expect, f"zoo small check ({name}): launches "
@@ -2537,8 +2572,8 @@ def recording(torch, opt, snapshot=True):
     (and, with ``snapshot``, before it runs, the rows of the slab and of
     each row-state leaf it will touch, whole leaves in Adagrad's
     dense-apply regime, and Adam's count), and what its own K3 (``g``,
-    the gradient slab) or K5 (``uids``, ``ugrads``) call gave the update
-    kernel."""
+    the gradient slab, on the slab-wide chain only) or K5 (``uids``,
+    ``ugrads``) call gave the update kernel."""
     from torch.utils import _pytree as pytree
 
     from distributed_embeddings_torch.parallel import optimizers
@@ -2636,7 +2671,9 @@ def zoo_full_check(torch, de, opt, st, data, cfg, label):
     - K6 (touched rows) and K7 (whole slab): accumulators bit-exact (the
       same per-op rounding); the kernels' correctly rounded ``rsqrt``
       and PyTorch's ``rsqrtf`` differ by up to 2 ulps, so slab values
-      within 3 ulps of their dtype of |old| + lr."""
+      within 3 ulps of their dtype of |old| + lr;
+    - the fused dense-apply call (w8 at the zoo's constants):
+      ``fused_check``."""
     from distributed_embeddings_torch.ops import (
         adagrad_dense_plain, adagrad_rows_plain, sgd_scatter_plain)
     from distributed_embeddings_torch.parallel import (
@@ -2662,6 +2699,10 @@ def zoo_full_check(torch, de, opt, st, data, cfg, label):
         rows = slab.shape[0]
         ids, vals = r["ids"], r["vals"]
         what = f"zoo full-size step {label} {key}"
+        if r["dense"] and "g" not in r:  # the fused dense-apply call
+            errs["adagrad_dense_scatter"] = fused_check(torch, r, slab, acc,
+                                                        opt.eps, what)
+            continue
         if r["dense"]:
             g = r["g"]
             ones = torch.ones((ids.numel(), 1), device="cuda")
@@ -2713,6 +2754,167 @@ def zoo_full_check(torch, de, opt, st, data, cfg, label):
     log(f"zoo: full-size step {label} at b={ZOO_BATCH}: loss "
         f"{float(loss):.5f}, launches {counts} (regimes {regimes})")
     return st, errs, regimes
+
+
+def host_bits(t):
+    """A float tensor's bits, NaN payloads included."""
+    import torch
+
+    return t.view(torch.int32 if t.element_size() == 4 else torch.int16)
+
+
+def fused_check(torch, r, slab, acc, eps, what):
+    """The dense-apply branch's one engine call (``adagrad_dense_scatter``)
+    held, on the step's own inputs (``recording``'s snapshot of the whole
+    slab and accumulator, the stream and the lr), to the chain it
+    replaces run on the card (a zero gradient slab, K3, K7: the parent's
+    branch): every row bit-exact; and to its plain version (the gradient
+    summed in stream order: ``add_in_stream_order`` on the card for the
+    rows hit at most L times, ``sgd_scatter_plain`` on CPU copies for the
+    rest; then ``adagrad_dense_plain``): the rows hit at most L times and
+    the untouched rows bit-exact, and on the rows hit more often the
+    chain's gradient within K3's bound of the plain one (k ulps of the
+    accumulator dtype of the sum of |rows|, k the hits). Returns the
+    largest slab difference to the plain version."""
+    from distributed_embeddings_torch.ops import (
+        adagrad_dense, adagrad_dense_plain, sgd_scatter, sgd_scatter_plain)
+    from distributed_embeddings_torch.ops.scatter_add import (
+        SPLIT, add_in_stream_order)
+
+    ids, vals, lr = r["ids"], r["vals"], r["lr"]
+    rows, w = slab.shape
+    cs, ca = r["slab"].clone(), r["state"].clone()
+    g = torch.zeros_like(ca)
+    sgd_scatter(g, ids, vals, -1.0)
+    adagrad_dense(cs, ca, g, lr, eps)
+    check(torch.equal(host_bits(slab), host_bits(cs))
+          and torch.equal(host_bits(acc), host_bits(ca)),
+          f"{what}: the fused call's slab or accumulators differ from the "
+          "chain's (zero slab + K3 + K7) bits")
+    wr = ids.long()
+    wr = torch.where(wr < 0, wr + rows, wr)
+    keep = (wr >= 0) & (wr < rows)
+    wr, v = wr[keep], vals[keep]
+    hits = torch.bincount(wr, minlength=rows)
+    few = hits <= SPLIT
+    sel = few[wr]
+    gp = add_in_stream_order(torch.zeros_like(ca), wr[sel], v[sel])
+    gl = sgd_scatter_plain(torch.zeros(ca.shape, dtype=ca.dtype), wr[~sel]
+                           .cpu(), v[~sel].cpu(), -1.0).to(ca.device)
+    gp[~few] = gl[~few]
+    ps, pa = r["slab"].clone(), r["state"].clone()
+    adagrad_dense_plain(ps, pa, gp, lr, eps)
+    check(torch.equal(host_bits(slab[few]), host_bits(ps[few]))
+          and torch.equal(host_bits(acc[few]), host_bits(pa[few])),
+          f"{what}: the fused call differs from the plain version on rows "
+          f"hit at most {SPLIT} times")
+    mag = torch.zeros((rows, w), device=ca.device).index_add_(
+        0, wr, v.float().abs())
+    tol = hits[:, None].float() * ulp(torch, mag, ca.dtype)
+    e3 = (g.float() - gp.float()).abs()
+    bad = int((e3 > tol + 1e-30)[~few].sum())
+    check(bad == 0, f"{what}: {bad} gradient values of the rows hit more "
+          f"than {SPLIT} times beyond K3's bound (max err "
+          f"{float(e3.max())})")
+    err = float((slab.float() - ps.float()).abs().max())
+    e_long = float(e3[~few].max()) if bool((~few).any()) else 0.0
+    log(f"zoo: {what} (dense-apply, fused): {ids.numel()} ids, "
+        f"{int((hits > 0).sum())} touched rows, {int((~few).sum())} hit "
+        f"more than {SPLIT} times (the most {int(hits.max())}); bit-exact "
+        f"to zero slab + K3 + K7 on every row and to the plain version on "
+        f"{int(few.sum())} rows; the gradient of the others within K3's "
+        f"bound (max err {e_long}); slab max_abs_err to the plain version "
+        f"{err}")
+    return err
+
+
+def zoo_slab_wide_check(torch):
+    """The dense-apply regime where the optimizer's constants keep the
+    slab-wide chain: ``SparseAdagrad(initial_accumulator_value=0,
+    eps=0)``, whose untouched elements JAX turns into NaN (``lr * 0 *
+    rsqrt(0)``). The tiny zoo capped at SMALL_ROWS rows a table, fp32,
+    one guarded step at b=SMALL_BATCH through the kernels (per
+    dense-apply slab K3 into a gradient slab, K7 over it; the launch
+    counts zeroed just before and read just after: this path's
+    launches), each kernel held to its plain version on the step's own
+    inputs (``recording``): K3's gradient slab within 2 k 2^-24 of the
+    sum of |rows| (``zoo_full_check``'s bound: the plain version's
+    ``index_add_`` adds in its atomics' order), K7 on that gradient slab
+    against ``adagrad_dense_plain``: NaN positions equal and every untouched
+    row all NaN, the accumulators (no NaN: 0 + g*g) bit-exact, the other
+    slab values within 3 ulps of |old| + lr. Returns ``(launches, slab
+    max_abs_err)``."""
+    from distributed_embeddings_torch.models import InputGenerator
+    from distributed_embeddings_torch.ops import (adagrad_dense_plain,
+                                                  sgd_scatter_plain)
+    from distributed_embeddings_torch.parallel import (
+        Adagrad, SparseAdagrad, make_hybrid_train_step)
+
+    opt = SparseAdagrad(initial_accumulator_value=0.0, eps=0.0)
+    cfg, de, opt, st = zoo_model(torch, torch.float32, SMALL_ROWS,
+                                 opt=opt, tx=Adagrad(ZOO_LR))
+    step = make_hybrid_train_step(de, zoo_loss, Adagrad(ZOO_LR), opt,
+                                  lr_schedule=ZOO_LR, nan_guard=True)
+    num, cats, lab = InputGenerator(cfg, SMALL_BATCH, alpha=1.05,
+                                    num_batches=1, seed=SEED + 43,
+                                    row_cap=SMALL_ROWS, device="cuda")[0]
+    with recording(torch, opt) as seen:
+        zero_counts()
+        loss, st = step(st, cats, (num, lab))
+        torch.cuda.synchronize()
+        launches = read_counts()
+    want, regimes = zoo_expected(de, opt, cfg, SMALL_BATCH)
+    check(launches == want, f"zoo slab-wide step: launches {launches}, "
+          f"expected {want}")
+    check(bool(torch.isfinite(loss)), f"zoo slab-wide step: loss "
+          f"{float(loss)}")
+    check("dense-apply" in regimes.values(), "zoo slab-wide step: no slab "
+          f"runs the dense-apply regime ({regimes})")
+    touched = zoo_touched(torch, de, cats)
+    err = 0.0
+    for key, r in seen.items():
+        if not r["dense"]:
+            continue
+        slab, acc = st.emb_params[key][0], st.emb_opt_state[key][0]
+        rows = slab.shape[0]
+        what = f"zoo slab-wide step {key}"
+        g, ids, vals = r["g"], r["ids"], r["vals"]
+        ones = torch.ones((ids.numel(), 1), device="cuda")
+        pg = sgd_scatter_plain(torch.zeros_like(g), ids, vals, -1.0)
+        mag = sgd_scatter_plain(torch.zeros_like(g), ids, vals.abs(), -1.0)
+        cnt = sgd_scatter_plain(torch.zeros((rows, 1), device="cuda"), ids,
+                                ones, -1.0)
+        e3 = (g - pg).abs()
+        bad = int((e3 > 2 * cnt * 2.0 ** -24 * mag + 1e-30).sum())
+        check(bad == 0, f"{what}: {bad} sgd_scatter values beyond 2 k "
+              f"2^-24 of the sum of |rows| (max err {float(e3.max())})")
+        ws, wa = r["slab"].clone(), r["state"].clone()
+        adagrad_dense_plain(ws, wa, g, r["lr"], opt.eps)
+        na = torch.isnan(slab)
+        untouched = torch.ones(rows, dtype=torch.bool, device="cuda")
+        untouched[touched[key]] = False
+        check(torch.equal(na, torch.isnan(ws))
+              and bool(na[untouched].all()) and bool(untouched.any()),
+              f"{what}: NaN positions differ from the plain version's, or "
+              "an untouched row is not all NaN")
+        check(torch.equal(acc, wa), f"{what}: adagrad_dense accumulators "
+              f"differ from the plain update's ({int((acc != wa).sum())} "
+              "values)")
+        es = (slab[~na] - ws[~na]).abs()
+        ts = 3 * ulp(torch, r["slab"][~na].abs() + ZOO_LR, slab.dtype)
+        bad = int((es > ts).sum())
+        check(bad == 0, f"{what}: {bad} adagrad_dense slab values beyond 3 "
+              f"ulps (max err {float(es.max())})")
+        err = max(err, float(es.max()))
+        log(f"  {what} ({regimes[key]}): {ids.numel()} ids, "
+            f"{int(untouched.sum())} untouched rows all NaN as JAX writes "
+            f"them; sgd_scatter max_abs_err {float(e3.max())} (<= 2 k "
+            f"2^-24 of the sum of |rows|), adagrad_dense NaN positions "
+            f"equal, accumulators bit-exact, slab max_abs_err "
+            f"{float(es.max())} (<= 3 ulps)")
+    log(f"zoo slab-wide step: launches {launches}")
+    del st, de, seen
+    return launches, err
 
 
 def zoo_touched(torch, de, cats):
@@ -2973,14 +3175,18 @@ def dedup_case(torch, label, ids, vals, rows):
 
 
 def zoo_kernel_times(torch, de, opt, st, data, cfg):
-    """CUDA-event medians of K5, K6, K7, and of K1 (hot 10, w16) and K3
-    (the w8 scatter-sum), at the shapes one full-size step gives them,
-    each against its plain version, one library call where there is one,
-    and its byte bound."""
+    """CUDA-event medians of K5, K6, the dense-apply branch (the fused
+    call against the parent's zero slab + K3 + K7), K7 alone, and of K1
+    (hot 10, w16) and K3 (the w8 scatter-sum), at the shapes one
+    full-size step gives them, each against its plain version, one
+    library call where there is one, and its bound."""
+    import importlib
+
     import torch.nn.functional as F
     from distributed_embeddings_torch.ops import (
-        adagrad_dense, adagrad_dense_plain, dedup_sparse_grad,
-        gather_combine, gather_combine_plain, sgd_scatter, sgd_scatter_plain)
+        adagrad_dense, adagrad_dense_plain, adagrad_dense_scatter,
+        adagrad_dense_scatter_plain, dedup_sparse_grad, gather_combine,
+        gather_combine_plain, sgd_scatter, sgd_scatter_plain)
     from distributed_embeddings_torch.ops.scatter_add import (
         SPLIT, add_in_stream_order)
     from distributed_embeddings_torch.parallel import (
@@ -3071,21 +3277,85 @@ def zoo_kernel_times(torch, de, opt, st, data, cfg):
         f"at most {SPLIT} hits bit-exact to the stream-order sum")
     del a, want, sel, cnt, few
 
-    # K7 over the w8 slab (dense-apply)
+    # the dense-apply branch on the w8 slab: the fused call (one engine
+    # call, the transition in its epilogue) in turns with the parent's
+    # chain (zero slab + K3 + K7) and the library yardstick (index_add_
+    # into a zeroed slab, then torch.optim.Adagrad(foreach=True).step on
+    # that dense gradient: its eps sits outside the square root). Each
+    # call updates the step's w8 slab and accumulators in place, as the
+    # step does.
+    ada = importlib.import_module("distributed_embeddings_torch.ops.adagrad")
     s8, a8 = st.emb_params["w8"][0], st.emb_opt_state["w8"][0]
+    bargs = (s8, a8, ids8, vals8, ZOO_LR, opt.eps)
+    es, ea = s8.element_size(), a8.element_size()
+    # the stream read once, each hit row's accumulator and slab row read
+    # and written once; 9 operations an element of a hit row and one add
+    # a stream element
+    nbytes = (ids8.numel() * (ids8.element_size() + w8 * ea)
+              + touched8 * w8 * 2 * (es + ea))
+    ops = 9 * touched8 * w8 + ids8.numel() * w8
+    param = torch.nn.Parameter(s8.clone(), requires_grad=False)
+    glib = torch.zeros_like(param)
+    tlib = torch.optim.Adagrad([param], lr=ZOO_LR, eps=opt.eps,
+                               initial_accumulator_value=0.1, foreach=True)
+
+    def library():
+        param.grad = glib.zero_().index_add_(0, ids8l, vals8)
+        tlib.step()
+
+    case = segment_case(
+        torch, "adagrad_dense_scatter", "zoo_w8_dense_apply",
+        lambda: adagrad_dense_scatter(*bargs),
+        (lambda: parent_dense_branch(*bargs)) if parent else None, library,
+        nbytes, lambda: adagrad_dense_scatter_plain(*bargs), ids8, R8,
+        extra={"library_call": "index_add_ + torch.optim.Adagrad("
+               "foreach=True).step", "touched_rows": touched8})
+    if ops / F32_OPS_PER_S > nbytes / HBM_BYTES_PER_S:
+        case.update(bound_ms=ops / F32_OPS_PER_S * 1e3,
+                    bound_by="operations")
+
+    def tree_chain():
+        sgd_scatter(gz.zero_(), ids8, vals8, -1.0)
+        adagrad_dense(s8, a8, gz, ZOO_LR, opt.eps)
+
+    case["tree_chain_ms"], _ = ab_ms(torch, tree_chain,
+                                     lambda: adagrad_dense_scatter(*bargs))
+    if parent:
+        case["parent_split"] = segment_split(
+            torch, lambda: parent_dense_branch(*bargs),
+            stages=SEGMENT_STAGES + (("adagrad_dense_kernel", "k7"),))
+        log("  adagrad_dense_scatter zoo w8: the parent chain's device "
+            "split " + json.dumps(case["parent_split"]))
+    case["host_split_us"] = launch_host_split(
+        torch, "adagrad_dense_scatter zoo w8",
+        lambda: ada.scatter_record_key(*bargs), ada._SCATTER,
+        (s8.data_ptr(), a8.data_ptr(), ids8.data_ptr(), vals8.data_ptr(),
+         None), lambda: adagrad_dense_scatter(*bargs), [s8, a8, ids8, vals8],
+        calls=10)
+    out["adagrad_dense_scatter"] = case
+    del param, glib, tlib
+
+    # K7 alone over the w8 slab (the slab-wide chain's second half), in
+    # turns with the parent's K7
     sgd_scatter(gz.zero_(), ids8, vals8, -1.0)
-    nbytes = 5 * s8.numel() * 4
+    kargs = (s8, a8, gz, ZOO_LR, opt.eps)
+    nbytes = 5 * s8.numel() * es
     ops = 9 * s8.numel()
-    out["adagrad_dense"] = {
-        "case": "zoo_w8_dense_apply",
-        "ms": time_ms(torch, lambda: adagrad_dense(s8, a8, gz, ZOO_LR,
-                                                   opt.eps), [()]),
-        "plain_ms": time_ms(torch, lambda: adagrad_dense_plain(
-            s8, a8, gz, ZOO_LR, opt.eps), [()]),
-        "library_ms": None,
-        "bound_ms": max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3,
-        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S
-        else "operations", "elements": s8.numel(), "bytes": nbytes}
+    case = kernel_case(
+        torch, "adagrad_dense", "zoo_w8_slab_wide",
+        lambda: adagrad_dense(*kargs),
+        (lambda: parent["adagrad"].adagrad_dense(*kargs)) if parent
+        else None, None, nbytes,
+        plain=lambda: adagrad_dense_plain(*kargs),
+        extra={"elements": s8.numel()})
+    if ops / F32_OPS_PER_S > nbytes / HBM_BYTES_PER_S:
+        case.update(bound_ms=ops / F32_OPS_PER_S * 1e3,
+                    bound_by="operations")
+    case["host_split_us"] = launch_host_split(
+        torch, "adagrad_dense zoo w8", lambda: ada.dense_record_key(*kargs),
+        ada._DENSE, (s8.data_ptr(), a8.data_ptr(), gz.data_ptr(), None),
+        lambda: adagrad_dense(*kargs), [s8, a8, gz], calls=10)
+    out["adagrad_dense"] = case
 
     # K5 on the w16 stream
     R16, w16 = st.emb_params["w16"].shape[1:]
@@ -3108,20 +3378,38 @@ def zoo_kernel_times(torch, de, opt, st, data, cfg):
             f"{c['plain_ms']:.4f}, library {lib}, bound "
             f"{c['bound_ms']:.4f}")
 
-    # both regimes on the w16 slab
+    # both regimes on the w16 slab, in turns with the parent's wrappers
+    # (change, parent, parent, change: its dense-apply regime is the
+    # zero slab + K3 + K7 chain)
     from distributed_embeddings_torch.parallel import SparseAdagrad
 
     regime_ms = {}
+    sides = ("change", "parent", "parent", "change") if parent else (
+        "change",)
     for label, ratio in (("dense_apply", 1e9), ("sparse", None)):
         o = SparseAdagrad(dense_apply_ratio=ratio)
-        regime_ms[label] = time_ms(
-            torch, lambda: o.apply_rows(s16, a16, ids16, vals16, ZOO_LR),
-            [()])
-    dense_bytes = s16.numel() * 4 * 6 + n * (4 + w16 * 4)
+        got = {}
+        for side in sides:
+            with (parent_wrappers() if side == "parent"
+                  else contextlib.nullcontext()):
+                got.setdefault(side, []).append(time_ms(
+                    torch, lambda: o.apply_rows(s16, a16, ids16, vals16,
+                                                ZOO_LR), [()]))
+        regime_ms[label] = float(np.median(got["change"]))
+        regime_ms["parent_" + label] = (float(np.median(got["parent"]))
+                                        if parent else None)
+    # the fused call: the stream read once, each distinct row's
+    # accumulator and slab row read and written once; the slab-wide
+    # chain: also the zero fill and K7's five slab-wide passes
+    fused_bytes = n * (4 + w16 * 4) + distinct * w16 * 4 * 4
+    chain_bytes = s16.numel() * 4 * 6 + n * (4 + w16 * 4)
     regime = {"w16_rows": R16, "ids": n, "unique_ids": distinct,
               "dense_apply_ms": regime_ms["dense_apply"],
+              "parent_dense_apply_ms": regime_ms["parent_dense_apply"],
               "sparse_ms": regime_ms["sparse"],
-              "dense_apply_bound_ms": dense_bytes / HBM_BYTES_PER_S * 1e3}
+              "parent_sparse_ms": regime_ms["parent_sparse"],
+              "dense_apply_bound_ms": fused_bytes / HBM_BYTES_PER_S * 1e3,
+              "slab_wide_bound_ms": chain_bytes / HBM_BYTES_PER_S * 1e3}
     log("zoo regimes on w16: " + json.dumps(regime))
     return st, out, regime
 
@@ -3131,15 +3419,18 @@ def phase_zoo(torch):
     from distributed_embeddings_torch.models import InputGenerator
 
     log("zoo: small-table check, kernels against plain versions")
-    errs = {"adagrad_rows": 0.0, "adagrad_dense": 0.0}
+    errs = {"adagrad_rows": 0.0, "adagrad_dense_scatter": 0.0}
     for dtype, acc_dtype in ((torch.float32, torch.float32),
                              (torch.bfloat16, torch.float32),
                              (torch.bfloat16, torch.bfloat16)):
         for ratio in (6.0, None):
             e = zoo_small_check(torch, dtype, acc_dtype, ratio)
             if dtype == torch.float32:
-                name = "adagrad_dense" if ratio else "adagrad_rows"
+                name = "adagrad_dense_scatter" if ratio else "adagrad_rows"
                 errs[name] = max(errs[name], e)
+    # the dense-apply regime's slab-wide chain (K3 + K7): eps = 0 over a
+    # zero accumulator
+    slab_wide_launches, errs["adagrad_dense"] = zoo_slab_wide_check(torch)
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -3206,7 +3497,8 @@ def phase_zoo(torch):
     del st
     torch.cuda.empty_cache()
     return launches, errs, kcases, {"fp32": fp32, "bf16": bf16,
-                                    "regimes_w16": regime}
+                                    "regimes_w16": regime,
+                                    "slab_wide_launches": slab_wide_launches}
 
 
 # ------------------------------------------------------------------ ragged
@@ -3950,6 +4242,8 @@ def ragged_kernel_times(torch, de, st, batches):
     against its plain version, one library call for the same function,
     and its byte bound: each input read once, each output written once,
     each distinct slab row read (and, for K3, written) once."""
+    import importlib
+
     import torch.nn.functional as F
     from distributed_embeddings_torch.ops import (
         lengths_to_splits, lengths_to_splits_plain, ragged_combine,
@@ -4043,18 +4337,38 @@ def ragged_kernel_times(torch, de, st, batches):
         gpad = torch.cat([g, torch.zeros((n, 1, w), dtype=g.dtype,
                                          device="cuda")], 1).reshape(-1, w)
         lib9.append((gpad, sidx))
+    # each batch's call in turn (the step's cycle), then the first batch's
+    # call through kernel_case: in turns with the parent's wrapper and
+    # index_select, its device ms and its record's host split
     ms = time_ms(torch, lambda a, kw: ragged_grad(*a, **kw), args9)
-    plain = time_ms(torch, lambda a, kw: ragged_grad_plain(*a, **kw),
-                    args9)
-    lib = time_ms(torch, lambda g, i: torch.index_select(g, 0, i), lib9)
     esize = args9[0][0][0].element_size()
     nbytes = (n * b * w * esize + live_ids * 4 + n * (b + 1) * 8
               + n * cap * (4 + w * esize))
-    cases["ragged_grad"] = dict(
-        case=f"{n}x{cap} positions", ms=ms, plain_ms=plain, library_ms=lib,
-        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-        positions=n * cap, bytes=nbytes)
-    del lib9
+    (g9, sp9), kw9 = args9[0]
+    gpad0, sidx0 = lib9[0]
+    case = kernel_case(
+        torch, "ragged_grad", f"{n}x{cap} positions",
+        lambda: ragged_grad(g9, sp9, **kw9),
+        None if par is None else (
+            lambda: par["sparse_grad"].ragged_grad(g9, sp9, **kw9)),
+        lambda: torch.index_select(gpad0, 0, sidx0), nbytes,
+        plain=lambda: ragged_grad_plain(g9, sp9, **kw9),
+        extra=dict(positions=n * cap, cycling_ms=ms))
+    sg = importlib.import_module(
+        "distributed_embeddings_torch.ops.sparse_grad")
+    key9 = (g9, sp9, kw9.get("cap") or kw9["values"].shape[1],
+            kw9.get("values"), kw9.get("rows"), kw9.get("roff"),
+            int(kw9.get("sentinel", 0)), kw9.get("ids_dtype"),
+            kw9.get("mean"), kw9.get("weights"), kw9.get("reciprocal", False))
+    ids_o, vals_o = ragged_grad(g9, sp9, **kw9)
+    case["host_split_us"] = launch_host_split(
+        torch, "ragged_grad", lambda: sg.ragged_grad_key(*key9), sg._K9,
+        tuple(None if t is None else t.data_ptr() for t in (
+            g9, sp9, *key9[3:6], key9[8], key9[9], ids_o, vals_o)),
+        lambda: ragged_grad(g9, sp9, **kw9),
+        [t for t in key9 if isinstance(t, torch.Tensor)], calls=20)
+    cases["ragged_grad"] = case
+    del lib9, ids_o, vals_o
 
     # K10 -------------------------------------------------------------
     # each entry point through this tree's wrapper and, in turns, the
@@ -5490,9 +5804,11 @@ def telemetry_profile(torch, de, st, sizes, cfg, steps=5):
             "top_device_ms_per_step": [(k[:60], v / steps) for k, v in top]}
         check(busy > 0, f"telemetry profile ({side}): the trace holds no "
               "device time")
-        want = set(SKETCH_KERNELS) if side == "change" else set(
-            SKETCH_KERNELS[:3] + (PARENT_K15,))
-        check(set(chain) == want, f"telemetry profile ({side}): the sketch "
+        # a parent checkout from before K15's one-CTA merge names its
+        # K15 launch PARENT_K15
+        want = [set(SKETCH_KERNELS)] + ([] if side == "change" else [set(
+            SKETCH_KERNELS[:3] + (PARENT_K15,))])
+        check(set(chain) in want, f"telemetry profile ({side}): the sketch "
               f"chain is not {sorted(want)} in the trace: {chain}")
     res = dict(out["change"])
     if "parent" in out:
@@ -8576,23 +8892,30 @@ def main():
         "still allocated")
     zoo_launches, zoo_errs, zoo_cases, zoo = phase_zoo(torch)
     launches["zoo"] = zoo_launches
+    # the dense-apply regime's slab-wide chain (eps = 0 over a zero
+    # accumulator): the path K7 runs on
+    launches["zoo_slab_wide"] = zoo.pop("slab_wide_launches")
     for k in kernels:
-        k["launches_by_path"]["zoo"] = zoo_launches[k["name"]]
+        for p in ("zoo", "zoo_slab_wide"):
+            k["launches_by_path"][p] = launches[p][k["name"]]
         k["max_abs_err"] = max(k["max_abs_err"], zoo_errs.get(k["name"], 0.0))
         if k["name"] in zoo_cases:
             k["cases"].append(zoo_cases[k["name"]])
-    for name, src, repl in (
+    for name, src, repl, path in (
             ("dedup_sparse_grad", "dedup.cu",
-             "distributed_embeddings_tpu/ops/sparse_grad.py:58"),
+             "distributed_embeddings_tpu/ops/sparse_grad.py:58", "zoo"),
             ("adagrad_rows", "adagrad.cu",
-             "distributed_embeddings_tpu/parallel/optimizers.py:214"),
+             "distributed_embeddings_tpu/parallel/optimizers.py:214", "zoo"),
+            ("adagrad_dense_scatter", "sgd_scatter.cu",
+             "distributed_embeddings_tpu/parallel/optimizers.py:197", "zoo"),
             ("adagrad_dense", "adagrad.cu",
-             "distributed_embeddings_tpu/parallel/optimizers.py:197")):
+             "distributed_embeddings_tpu/parallel/optimizers.py:203",
+             "zoo_slab_wide")):
         c = zoo_cases[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"distributed_embeddings_torch/csrc/{src}",
-            "replaces": repl, "launches": zoo_launches[name],
+            "replaces": repl, "launches": launches[path][name],
             "launches_by_path": {p: launches[p][name] for p in launches},
             "max_abs_err": zoo_errs[name], "ms": c["ms"],
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],

@@ -5,20 +5,17 @@
 // K6 (adagrad_rows), the sparse regime: per unique row of the dedup
 // output (K5), accum[id] += g*g, then slab[id] -= lr*g*rsqrt(accum+eps)
 // (take(mode="clip") reads, .at[].set/.add(mode="drop") writes);
-// K7 (adagrad_dense), the dense-apply regime: the same transition
-// elementwise over the whole slab, from the gradient slab that the
-// scatter-sum (K3) built.
+// K7 (adagrad_dense), the slab-wide half of the dense-apply regime: the
+// same transition elementwise over the whole slab, from the gradient slab
+// that the scatter-sum (K3) built. The dense-apply regime runs K7 only
+// where the constants do not make an untouched element a no-op (eps = 0
+// over a zero accumulator: JAX turns those elements into NaN); otherwise
+// it is one call of the sorted-segment engine whose epilogue applies the
+// transition to each hit row (segment_scatter.cuh, kModeAdagrad).
 //
-// Arithmetic, per element, with JAX's rounding chain: g, the accumulator
-// and every intermediate are in the accumulator dtype A (rounded after
-// each operation when A is bf16), the update is rounded to the slab
-// dtype S, and the slab add rounds to S:
-//   new = rA(acc + rA(g*g));  r = rA(rsqrt(rA(new + eps)))
-//   u = rA(rA(lr*g) * r)           (a constant lr, rounded to A)
-//   u = (lr*g) * r in fp32         (a device fp32 lr: JAX promotes)
-//   slab = rS(slab - rS(u))
-// The fp32 rsqrt is the correctly rounded __frsqrt_rn; products and sums
-// use the _rn intrinsics so no FMA contracts them.
+// Arithmetic, per element: adagrad_step.cuh (the one copy K6, K7 and the
+// engine's epilogue share), JAX's rounding chain in the accumulator dtype
+// A, the update rounded to the slab dtype S, then slab = rS(slab - u).
 //
 // K6 index rules (row_update.cuh): an id >= rows (the dropped-row
 // sentinel, the dedup's pad tail, ids past the slab) is skipped; a
@@ -43,18 +40,22 @@
 // (AdagradOp). The first design (two launches over all U ids, pad
 // included, one element a lane a load) is timed as the parent checkout's
 // wrapper in turns with it (row_variants.py and chip_smoke.py
-// --parent). K7 is a grid-stride elementwise loop.
+// --parent). K7's design: a grid-stride loop over 4-element chunks, each
+// thread moving 16 bytes of a float32 tensor (8 of a bf16 one) a load,
+// the gradient by a streaming load (read once), where the element count
+// and the three pointers allow it; one element a thread otherwise.
 //
-// Host side (K6): a launch record (ops/adagrad.py) keyed on the layouts,
+// Host side: a launch record each (ops/adagrad.py) keyed on the layouts,
 // the dtypes, eps and a constant lr holds the constants, rounded once, in
-// a prepared launch (detpu_adagrad_prepare); each call passes the slab,
-// accumulator, uids, ugrads and device-lr pointers to
-// detpu_adagrad_launch. The launch keeps no state between calls, so its
-// record replays in a CUDA graph.
+// a prepared launch (detpu_adagrad_prepare, detpu_adagrad_dense_prepare);
+// each call passes its pointers to detpu_adagrad_launch /
+// detpu_adagrad_dense_launch. Neither launch keeps state between calls,
+// so both records replay in a CUDA graph.
 //
 // C interface (ctypes): pointers and the stream as void*, returns the
 // cudaError_t of the launch.
 
+#include "adagrad_step.cuh"
 #include "row_update.cuh"
 
 #include <string.h>
@@ -69,6 +70,7 @@ using detpu::st;
 constexpr int kThreads = 256;
 constexpr int kCtasPerSm = 4;
 constexpr int kRows = 1;  // rows a lane group has in flight
+constexpr int kDenseCtasPerSm = 8;  // K7: a full SM of 256-thread CTAs
 
 // What a K6 record fixes: the shapes, dtypes and constants, rounded once.
 struct Consts {
@@ -89,25 +91,6 @@ struct Ptrs {
   const void* ug;
   const float* lr_dev;
 };
-
-// One element's transition; a, g in A; returns the new accumulator and
-// writes the update (rounded to S) to *upd. lr and eps arrive rounded to
-// A for a constant lr; with lr_on_card, lr is the fp32 device lr.
-template <typename TS, typename TA>
-__device__ __forceinline__ float transition(float a, float g, float lr,
-                                            bool lr_on_card, float eps,
-                                            float* upd) {
-  const float na = TA::rnd(__fadd_rn(a, TA::rnd(__fmul_rn(g, g))));
-  const float r = TA::rnd(__frsqrt_rn(TA::rnd(__fadd_rn(na, eps))));
-  float u;
-  if (lr_on_card) {
-    u = __fmul_rn(__fmul_rn(lr, g), r);
-  } else {
-    u = TA::rnd(__fmul_rn(TA::rnd(__fmul_rn(lr, g)), r));
-  }
-  *upd = TS::rnd(u);
-  return na;
-}
 
 // K6's Op for the walk: one row chunk's loads, transition and stores.
 template <typename TS, typename TA, int V>
@@ -139,8 +122,8 @@ struct AdagradOp {
 #pragma unroll
     for (int e = 0; e < V; ++e) {
       float upd;
-      k.a[e] = transition<TS, TA>(k.a[e], k.g[e], lr, lr_on_card, eps,
-                                  &upd);
+      k.a[e] = detpu::adagrad_transition<TS, TA>(
+          k.a[e], k.g[e], lr, lr_on_card, eps, &upd);
       k.p[e] = __fsub_rn(k.p[e], upd);
     }
   }
@@ -170,22 +153,32 @@ adagrad_rows_kernel(const Consts c, const Ptrs q, int group_log2) {
                                          group_log2, neg_end, live_end);
 }
 
-template <typename TS, typename TA>
-__global__ void __launch_bounds__(256)
+// K7: a grid-stride loop over V-element chunks of the three tensors.
+template <typename TS, typename TA, int V>
+__global__ void __launch_bounds__(kThreads)
 adagrad_dense_kernel(typename TS::E* __restrict__ slab,
                      typename TA::E* __restrict__ acc,
-                     const typename TA::E* __restrict__ grad, int64_t numel,
+                     const typename TA::E* __restrict__ grad, int64_t chunks,
                      float lr, const float* __restrict__ lr_dev, float eps) {
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                   threadIdx.x;
-       i < numel; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const float g = TA::load(grad[i]);
-    float upd;
-    const float na = transition<TS, TA>(
-        TA::load(acc[i]), g, lr_dev != nullptr ? __ldg(lr_dev) : lr,
-        lr_dev != nullptr, eps, &upd);
-    acc[i] = TA::store(na);
-    slab[i] = TS::store(__fsub_rn(TS::load(slab[i]), upd));
+  const bool on_card = lr_dev != nullptr;
+  const float l = on_card ? __ldg(lr_dev) : lr;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+       i < chunks; i += stride) {
+    const int64_t at = i * V;
+    float g[V], a[V], p[V];
+    detpu::ld_once<TA, V>(grad + at, g);
+    ld<TA, V>(acc + at, a);
+    ld<TS, V>(slab + at, p);
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      float upd;
+      a[e] = detpu::adagrad_transition<TS, TA>(a[e], g[e], l, on_card, eps,
+                                               &upd);
+      p[e] = __fsub_rn(p[e], upd);
+    }
+    st<TA, V>(acc + at, a);
+    st<TS, V>(slab + at, p);
   }
 }
 
@@ -210,16 +203,38 @@ cudaError_t rows_launch(const Consts& c, const Ptrs& q, bool vec,
              : rows_launch_v<TS, TA, int32_t, 1>(c, q, st);
 }
 
-template <typename TS, typename TA>
-cudaError_t dense_launch(void* slab, void* acc, const void* grad,
-                         int64_t numel, float lr, const float* lr_dev,
-                         float eps, cudaStream_t st) {
-  int64_t blocks = (numel + 255) / 256;
-  if (blocks > 132 * 64) blocks = 132 * 64;  // grid-stride beyond that
-  adagrad_dense_kernel<TS, TA><<<static_cast<unsigned>(blocks), 256, 0, st>>>(
-      static_cast<typename TS::E*>(slab), static_cast<typename TA::E*>(acc),
-      static_cast<const typename TA::E*>(grad), numel, lr, lr_dev, eps);
+// What a K7 record fixes: the element count, dtypes and constants.
+struct DenseConsts {
+  int64_t numel;
+  int32_t slab_dtype, acc_dtype;
+  int32_t lr_on_card;
+  int32_t sms;
+  float lr, eps;  // rounded to the accumulator dtype
+};
+
+template <typename TS, typename TA, int V>
+cudaError_t dense_launch_v(const DenseConsts& c, void* slab, void* acc,
+                           const void* grad, const float* lr_dev,
+                           cudaStream_t st) {
+  const int64_t chunks = c.numel / V;
+  int64_t blocks = (chunks + kThreads - 1) / kThreads;
+  const int64_t resident = static_cast<int64_t>(c.sms) * kDenseCtasPerSm;
+  if (blocks > resident) blocks = resident;  // grid-stride beyond that
+  adagrad_dense_kernel<TS, TA, V>
+      <<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
+          static_cast<typename TS::E*>(slab),
+          static_cast<typename TA::E*>(acc),
+          static_cast<const typename TA::E*>(grad), chunks, c.lr, lr_dev,
+          c.eps);
   return cudaGetLastError();
+}
+
+template <typename TS, typename TA>
+cudaError_t dense_launch(const DenseConsts& c, void* slab, void* acc,
+                         const void* grad, const float* lr_dev, bool vec,
+                         cudaStream_t st) {
+  return vec ? dense_launch_v<TS, TA, 4>(c, slab, acc, grad, lr_dev, st)
+             : dense_launch_v<TS, TA, 1>(c, slab, acc, grad, lr_dev, st);
 }
 
 }  // namespace
@@ -292,27 +307,62 @@ extern "C" int detpu_adagrad_launch(const void* prepared, void* slab,
                            : rows_launch<BF16, BF16>(*c, q, vec, st);
 }
 
-// K7: slab and acc [numel] (dtype codes as K6's), grad [numel] in
-// acc_dtype; lr and eps rounded to acc_dtype by the caller; lr_dev
-// (nullable) an fp32 lr on the card, used instead of lr.
-extern "C" int detpu_adagrad_dense(void* slab, int slab_dtype, void* acc,
-                                   int acc_dtype, const void* grad,
-                                   int64_t numel, float lr,
-                                   const void* lr_dev, float eps,
-                                   void* stream) {
-  if (numel < 0 || (slab_dtype != 0 && slab_dtype != 1) ||
+// The bytes of a prepared K7 launch.
+extern "C" int64_t detpu_adagrad_dense_prepared_bytes() {
+  return static_cast<int64_t>(sizeof(DenseConsts));
+}
+
+// Validate a K7 record and write its prepared launch to `out`
+// (detpu_adagrad_dense_prepared_bytes() bytes of host memory): slab and
+// acc [numel] (dtype codes as K6's), updated in place, from grad [numel]
+// in acc_dtype; lr and eps rounded to acc_dtype by the caller; lr_on_card
+// set when each call passes a float32 lr on the card instead; sms the
+// card's SMs. Launches nothing.
+extern "C" int detpu_adagrad_dense_prepare(int slab_dtype, int acc_dtype,
+                                           int64_t numel, float lr,
+                                           int lr_on_card, float eps, int sms,
+                                           void* out) {
+  if (numel <= 0 || sms <= 0 || out == nullptr ||
+      (slab_dtype != 0 && slab_dtype != 1) ||
       (acc_dtype != 0 && acc_dtype != 1)) {
     return cudaErrorInvalidValue;
   }
-  if (numel == 0) return cudaSuccess;
-  const float* l = static_cast<const float*>(lr_dev);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (slab_dtype == 0) {
-    return acc_dtype == 0
-        ? dense_launch<F32, F32>(slab, acc, grad, numel, lr, l, eps, st)
-        : dense_launch<F32, BF16>(slab, acc, grad, numel, lr, l, eps, st);
+  DenseConsts* c = static_cast<DenseConsts*>(out);
+  memset(c, 0, sizeof(DenseConsts));
+  c->numel = numel;
+  c->slab_dtype = slab_dtype;
+  c->acc_dtype = acc_dtype;
+  c->lr_on_card = lr_on_card != 0;
+  c->sms = sms;
+  c->lr = lr;
+  c->eps = eps;
+  return cudaSuccess;
+}
+
+// K7 through a prepared launch: the call's pointers (lr_dev null unless
+// the record takes a card lr). 4-element chunks where the element count
+// is a multiple of 4 and slab, acc and grad are aligned to 4 of their
+// elements; one element a thread otherwise.
+extern "C" int detpu_adagrad_dense_launch(const void* prepared, void* slab,
+                                          void* acc, const void* grad,
+                                          const void* lr_dev, void* stream) {
+  const DenseConsts* c = static_cast<const DenseConsts*>(prepared);
+  if (c == nullptr || slab == nullptr || acc == nullptr || grad == nullptr ||
+      (c->lr_on_card && lr_dev == nullptr)) {
+    return cudaErrorInvalidValue;
   }
-  return acc_dtype == 0
-      ? dense_launch<BF16, F32>(slab, acc, grad, numel, lr, l, eps, st)
-      : dense_launch<BF16, BF16>(slab, acc, grad, numel, lr, l, eps, st);
+  const float* l = c->lr_on_card ? static_cast<const float*>(lr_dev)
+                                 : nullptr;
+  const int es = c->slab_dtype == 0 ? 4 : 2, ea = c->acc_dtype == 0 ? 4 : 2;
+  const bool vec = c->numel % 4 == 0 && detpu::aligned4(slab, es) &&
+                   detpu::aligned4(acc, ea) && detpu::aligned4(grad, ea);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (c->slab_dtype == 0) {
+    return c->acc_dtype == 0
+        ? dense_launch<F32, F32>(*c, slab, acc, grad, l, vec, st)
+        : dense_launch<F32, BF16>(*c, slab, acc, grad, l, vec, st);
+  }
+  return c->acc_dtype == 0
+      ? dense_launch<BF16, F32>(*c, slab, acc, grad, l, vec, st)
+      : dense_launch<BF16, BF16>(*c, slab, acc, grad, l, vec, st);
 }

@@ -32,6 +32,14 @@
 // row groups fill each slot's tail in a grid-stride loop. Element offsets
 // are int64: the stream holds 3.4e9 elements, past 2^31.
 //
+// Host side: a launch record (ops/sparse_grad.py) keyed on the layouts,
+// the dtypes and the call's constant facts (cap, sentinel, the id
+// dtypes, the mean mode, which optional inputs are given) holds them in a
+// prepared launch (detpu_ragged_grad_prepare); each call passes its
+// pointers to detpu_ragged_grad_launch, which picks the widest row access
+// the cotangent's and the output's alignment allow. The launch keeps no
+// state between calls, so the record replays in a CUDA graph.
+//
 // C interface (ctypes): pointers and the stream as void*, returns the
 // cudaError_t of the launch.
 
@@ -234,56 +242,100 @@ cudaError_t dispatch(int vb, const Args& a, bool in64, int out64,
   return cudaErrorInvalidValue;
 }
 
+// What a K9 record fixes: the layout, the dtypes and the constants.
+struct Prepared {
+  int64_t g_slot_stride, g_row_stride, v_stride, w_stride, sentinel, b, cap;
+  int width, dtype, ids_in_64, ids_out_64, has_ids, has_mean, reciprocal;
+  int w_esize;  // 0: no weights
+  int n_slots;
+};
+
 }  // namespace
 
 extern "C" const char* detpu_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// dtype: 0 = float32, 1 = bfloat16 (cotangent and output rows).
-// values/ids_out may be null (no id stream); ids_in_64 / ids_out_64 give
-// their element types. w_esize: 0 = no weights, 4 = float32 (or int32
-// bits), 8 = int64 elements whose low 32 bits are the float32 bits.
-extern "C" int detpu_ragged_grad(
-    const void* g, int64_t g_slot_stride, int64_t g_row_stride, int width,
-    int dtype, const void* splits, const void* values, int ids_in_64,
-    int64_t v_stride, const void* rows, const void* roff, int64_t sentinel,
-    void* ids_out, int ids_out_64, const void* mean, int reciprocal,
-    const void* weights, int w_esize, int64_t w_stride, void* vals_out,
-    int n_slots, int64_t b, int64_t cap, void* stream) {
-  if (width <= 0 || n_slots < 0 || b < 0 || cap < 0 ||
+// The bytes of a prepared K9 launch.
+extern "C" int64_t detpu_ragged_grad_prepared_bytes() {
+  return static_cast<int64_t>(sizeof(Prepared));
+}
+
+// Validate a K9 record and write its prepared launch to `out`
+// (detpu_ragged_grad_prepared_bytes() bytes of host memory). dtype: 0 =
+// float32, 1 = bfloat16 (cotangent and output rows); the cotangent row of
+// (slot, r) at slot * g_slot_stride + r * g_row_stride elements. has_ids:
+// an id stream (values of ids_in_64 width, row stride v_stride, and
+// rows/roff) into ids_out of ids_out_64 width. w_esize: 0 = no weights,
+// 4 = float32 (or int32 bits), 8 = int64 elements whose low 32 bits are
+// the float32 bits, row stride w_stride. Launches nothing.
+extern "C" int detpu_ragged_grad_prepare(
+    int64_t g_slot_stride, int64_t g_row_stride, int width, int dtype,
+    int has_ids, int ids_in_64, int64_t v_stride, int64_t sentinel,
+    int ids_out_64, int has_mean, int reciprocal, int w_esize,
+    int64_t w_stride, int n_slots, int64_t b, int64_t cap, void* out) {
+  if (out == nullptr || width <= 0 || n_slots < 0 || b < 0 || cap < 0 ||
       (dtype != 0 && dtype != 1) ||
-      (weights != nullptr && w_esize != 4 && w_esize != 8) ||
-      ((ids_out == nullptr) != (values == nullptr))) {
+      (w_esize != 0 && w_esize != 4 && w_esize != 8)) {
     return cudaErrorInvalidValue;
   }
-  if (static_cast<int64_t>(n_slots) * cap == 0) return cudaSuccess;
-  const int esize = dtype == 0 ? 4 : 2;
+  Prepared* pr = static_cast<Prepared*>(out);
+  memset(pr, 0, sizeof(Prepared));
+  *pr = Prepared{g_slot_stride, g_row_stride, v_stride, w_stride, sentinel,
+                 b, cap, width, dtype, ids_in_64 != 0, ids_out_64 != 0,
+                 has_ids != 0, has_mean != 0, reciprocal != 0, w_esize,
+                 n_slots};
+  return cudaSuccess;
+}
+
+// K9 through a prepared launch: the call's pointers (values, rows, roff
+// and ids_out given exactly when the record has an id stream, mean and
+// weights when it has them; null otherwise). Rows move 16 bytes a lane
+// where the width, the cotangent's strides and the two row pointers
+// allow it, else 8, 4 or 2.
+extern "C" int detpu_ragged_grad_launch(
+    const void* prepared, const void* g, const void* splits,
+    const void* values, const void* rows, const void* roff, const void* mean,
+    const void* weights, void* ids_out, void* vals_out, void* stream) {
+  const Prepared* pr = static_cast<const Prepared*>(prepared);
+  if (pr == nullptr) return cudaErrorInvalidValue;
+  const bool ids = pr->has_ids != 0;
+  if (g == nullptr || splits == nullptr || vals_out == nullptr ||
+      (values != nullptr) != ids || (ids_out != nullptr) != ids ||
+      (ids && (rows == nullptr || roff == nullptr)) ||
+      (mean != nullptr) != (pr->has_mean != 0) ||
+      (weights != nullptr) != (pr->w_esize != 0)) {
+    return cudaErrorInvalidValue;
+  }
+  if (static_cast<int64_t>(pr->n_slots) * pr->cap == 0) return cudaSuccess;
+  const int esize = pr->dtype == 0 ? 4 : 2;
   int vb = 16;
-  while (vb > esize &&
-         ((width * esize) % vb != 0 || (g_slot_stride * esize) % vb != 0 ||
-          (g_row_stride * esize) % vb != 0 ||
-          reinterpret_cast<uintptr_t>(g) % vb != 0 ||
-          reinterpret_cast<uintptr_t>(vals_out) % vb != 0)) {
+  while (vb > esize && ((pr->width * esize) % vb != 0 ||
+                        (pr->g_slot_stride * esize) % vb != 0 ||
+                        (pr->g_row_stride * esize) % vb != 0 ||
+                        reinterpret_cast<uintptr_t>(g) % vb != 0 ||
+                        reinterpret_cast<uintptr_t>(vals_out) % vb != 0)) {
     vb /= 2;
   }
-  const int nv = width * esize / vb;
+  const int nv = pr->width * esize / vb;
   int group_log2 = 0;
   while ((1 << group_log2) < nv && group_log2 < 5) ++group_log2;
   const int64_t row_threads =
-      (static_cast<int64_t>(n_slots) * b) << group_log2;
+      (static_cast<int64_t>(pr->n_slots) * pr->b) << group_log2;
   const int64_t row_blocks = (row_threads + 255) / 256;
   const int64_t tail_blocks = 264;  // two waves of 132 SMs
   const int64_t blocks = row_blocks + tail_blocks;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  Args a{g, g_slot_stride, g_row_stride, width,
-         static_cast<const int64_t*>(splits), values, v_stride,
-         static_cast<const int64_t*>(rows), static_cast<const int64_t*>(roff),
-         sentinel, ids_out, static_cast<const int*>(mean), reciprocal,
-         weights, w_stride, weights ? w_esize : 4, vals_out, n_slots, b, cap,
-         group_log2, row_blocks};
+  const Args a{g, pr->g_slot_stride, pr->g_row_stride, pr->width,
+               static_cast<const int64_t*>(splits), values, pr->v_stride,
+               static_cast<const int64_t*>(rows),
+               static_cast<const int64_t*>(roff), pr->sentinel, ids_out,
+               static_cast<const int*>(mean), pr->reciprocal, weights,
+               pr->w_stride, pr->w_esize ? pr->w_esize : 4, vals_out,
+               pr->n_slots, pr->b, pr->cap, group_log2, row_blocks};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool in64 = ids_in_64 != 0;
-  return dtype == 0 ? dispatch<F32>(vb, a, in64, ids_out_64, blocks, s)
-                    : dispatch<BF16>(vb, a, in64, ids_out_64, blocks, s);
+  const bool in64 = pr->ids_in_64 != 0;
+  return pr->dtype == 0
+      ? dispatch<F32>(vb, a, in64, pr->ids_out_64, blocks, s)
+      : dispatch<BF16>(vb, a, in64, pr->ids_out_64, blocks, s);
 }

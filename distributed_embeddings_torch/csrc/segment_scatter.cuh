@@ -1,13 +1,24 @@
 // The sorted-segment scatter engine of K3 (sgd_scatter.cu) and K18
-// (sgd_promoted.cu), for Hopper (sm_90a).
+// (sgd_promoted.cu), and of SparseAdagrad's dense-apply branch (the
+// Adagrad mode, sgd_scatter.cu), for Hopper (sm_90a).
 //
-// Both kernels replace the XLA-lowered row scatter of the JAX package,
+// K3 and K18 replace the XLA-lowered row scatter of the JAX package,
 //   distributed_embeddings_tpu/parallel/optimizers.py:_sorted_scatter_add
-//   under SparseSGD.apply_rows (and SparseAdagrad's dense-apply sum),
+//   under SparseSGD.apply_rows,
 // slab.at[ids].add(update, mode="drop"). They differ only in the rounding
-// chain a row's updates go through (the `Chain` below); everything else
-// is this engine, which applies every distinct hit row ONCE, with no
-// atomics on the row path, deterministically:
+// chain a row's updates go through (the `Chain` below). The Adagrad mode
+// replaces SparseAdagrad.apply_rows's dense-apply branch (:197-209): the
+// scatter-sum of the stream into a zero gradient slab, then the Adagrad
+// transition over the slab. It sums each hit row as K3 would into a
+// zero-filled gradient row (from +0.0 in registers, every add rounded to
+// the accumulator dtype A, the same fixed order), and where the row's sum
+// is complete (the end of its unit in seg_rows, or seg_combine after the
+// last chunk) applies the transition (adagrad_step.cuh) to that row of
+// the accumulator and the slab: no gradient slab, no pass over rows no id
+// hit. Untouched rows keep their bits, which the slab-wide transition
+// gives them too wherever g = 0 is a no-op (ops/adagrad.py says when).
+// Everything else is this engine, which applies every distinct hit row
+// ONCE, with no atomics on the row path, deterministically:
 //
 // 1. Keys. Each id becomes its row under JAX indexing (a negative id
 //    counts from the end once; anything outside [0, rows) is dropped, the
@@ -38,7 +49,8 @@
 //    most n >> c segments, so the lists' places are fixed by n). The
 //    rows pass takes the classes longest first, so a Zipfian hot row's
 //    serial chain starts at the beginning of the pass, not at its end.
-//    K3 first cuts a segment longer than `split` (L) into chunks of L.
+//    K3 and the Adagrad mode first cut a segment longer than `split` (L)
+//    into chunks of L.
 // 4. Rows. A persistent launch. A group of lanes takes a work unit (a
 //    segment, or a chunk, and a block of columns); each lane owns 4
 //    columns (16-byte update loads where width and alignment allow, one
@@ -48,6 +60,8 @@
 //    and writes the row once. K3 adds a chunk's updates into a float32
 //    partial instead, and one last launch adds each long segment's
 //    partials into its row in chunk order (a fixed order: deterministic).
+//    The Adagrad mode does the same with a zero row in registers in place
+//    of the slab row, and ends each row in the transition's epilogue.
 //    K18 gives each segment of 256 or more entries whole blocks, one a
 //    32-column block: all 256 threads stream the segment's update rows
 //    into a 3-stage shared-memory ring with cp.async while one warp runs
@@ -74,6 +88,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
+
+#include "adagrad_step.cuh"
 
 namespace {
 
@@ -107,7 +123,7 @@ constexpr int kWordChunks = kWordClass + kClasses;  // K3's chunk count
 constexpr int kWordCombs = kWordChunks + 1;         // K3's long segments
 constexpr int kWords = 64;
 
-enum Mode : int { kModeK3 = 0, kModeK18 = 1 };
+enum Mode : int { kModeK3 = 0, kModeK18 = 1, kModeAdagrad = 2 };
 
 // One call's launches: fixed when the call is prepared (sizes, scratch,
 // the chain's constants), and the per-call pointers filled in at launch.
@@ -122,6 +138,8 @@ struct Params {
   int cast_vals;                 // K3: 1 the stream chain, 0 the dedup one
   int lr_on_card;                // the lr is a float32 scalar on the card
   float neg_lr;                  // else -lr, rounded by the caller
+  float ada_lr;                  // Adagrad: the constant lr, rounded to A
+  float eps;                     // Adagrad: eps, rounded to A
   int passes;
   int split;                     // K3: L; K18: 0
   int long_class;                // K18: kLongClass; K3: kClasses (none)
@@ -142,6 +160,7 @@ struct Params {
   int64_t pad_id;
   // per call
   void* slab;
+  void* acc;                     // Adagrad: the accumulator (vals' dtype)
   const void* ids;
   const void* vals;
   const float* lr;
@@ -499,6 +518,10 @@ struct Chain {
   bool dev;
   // one stream row's update of one element
   __device__ __forceinline__ float update(float x) const {
+    // Adagrad: vals are in A and the sum's lr is -1, so K3's
+    // rA(1 * rA(x)) is x (a NaN's payload aside: the add below makes it
+    // the canonical NaN K3 gives)
+    if (kMode == kModeAdagrad) return x;
     if (kMode == kModeK18) {
       // x is a bf16 value already when the update rows are bf16
       return __fmul_rn(nl, sizeof(typename Tv::E) == 2 ? x : bf16_round(x));
@@ -510,6 +533,7 @@ struct Chain {
   // the row's value after adding u: K3 rounds every add to the slab
   // dtype, K18 keeps float32 until the row is written
   __device__ __forceinline__ float add(float acc, float u) const {
+    if (kMode == kModeAdagrad) return Tv::rnd(__fadd_rn(acc, u));
     return kMode == kModeK18 ? __fadd_rn(acc, u) : Ts::rnd(__fadd_rn(acc, u));
   }
 };
@@ -544,6 +568,36 @@ __device__ __forceinline__ void store_e(T* dst, const T* src) {
   }
 }
 
+// The Adagrad mode's epilogue: E columns from c0 of `row`, whose summed
+// gradient g (in A, the vals' dtype Ta) is complete, through the
+// transition into the accumulator and the slab. One unit owns these
+// elements in the launch, so the read-only cache may serve their loads.
+// The loads come after the sum: loading them before it, to hide their
+// latency behind the sum, measured slower (PERF.md, Findings).
+template <typename Ts, typename Ta, int E>
+__device__ __forceinline__ void adagrad_apply(const Params& p, uint32_t row,
+                                              int c0, const float* g) {
+  using SE = typename Ts::E;
+  using AE = typename Ta::E;
+  const int64_t off = static_cast<int64_t>(row) * p.width + c0;
+  SE s[E];
+  AE a[E];
+  load_e<E>(s, static_cast<const SE*>(p.slab) + off);
+  load_e<E>(a, static_cast<const AE*>(p.acc) + off);
+  const bool on_card = p.lr_on_card != 0;
+  const float lr = on_card ? __ldg(p.lr) : p.ada_lr;
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    float upd;
+    const float na = detpu::adagrad_transition<Ts, Ta>(
+        Ta::load(a[e]), g[e], lr, on_card, p.eps, &upd);
+    a[e] = Ta::store(na);
+    s[e] = Ts::store(__fsub_rn(Ts::load(s[e]), upd));
+  }
+  store_e<E>(static_cast<AE*>(p.acc) + off, a);
+  store_e<E>(static_cast<SE*>(p.slab) + off, s);
+}
+
 template <typename Ts, typename Tv, int kMode>
 __device__ __forceinline__ Chain<Ts, Tv, kMode> chain_of(const Params& p) {
   Chain<Ts, Tv, kMode> ch;
@@ -555,7 +609,8 @@ __device__ __forceinline__ Chain<Ts, Tv, kMode> chain_of(const Params& p) {
 
 // One unit of the group path: the `len` sorted entries from `start`, the
 // lane's E columns of column block cb. partial == nullptr: into the slab
-// row; else (a K3 chunk) into that float32 partial row.
+// row (the Adagrad mode: into a zero row in registers, then through the
+// epilogue); else (a K3 or Adagrad chunk) into that float32 partial row.
 template <typename Ts, typename Tv, int kMode, int E>
 __device__ __forceinline__ void group_unit(
     const Params& p, const Chain<Ts, Tv, kMode>& ch, const uint32_t* sk,
@@ -570,10 +625,15 @@ __device__ __forceinline__ void group_unit(
             c0;
   float acc[E];
   if (partial == nullptr) {
-    SE s[E];
-    load_e<E>(s, row);
+    if constexpr (kMode == kModeAdagrad) {
 #pragma unroll
-    for (int e = 0; e < E; ++e) acc[e] = Ts::load(s[e]);
+      for (int e = 0; e < E; ++e) acc[e] = 0.0f;
+    } else {
+      SE s[E];
+      load_e<E>(s, row);
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[e] = Ts::load(s[e]);
+    }
   }
   int pn[kBatch];
 #pragma unroll
@@ -612,6 +672,8 @@ __device__ __forceinline__ void group_unit(
   }
   if (partial != nullptr) {
     store_e<E>(partial + c0, acc);
+  } else if constexpr (kMode == kModeAdagrad) {
+    adagrad_apply<Ts, Tv, E>(p, sk[start], c0, acc);
   } else {
     SE s[E];
 #pragma unroll
@@ -843,8 +905,9 @@ seg_rows(const __grid_constant__ Params p) {
 }
 
 // K3's long segments: each row gets its chunks' partials in chunk order,
-// every add rounded to the slab dtype.
-template <typename Ts, int E>
+// every add rounded to the slab dtype (the Adagrad mode: into a zero row
+// in registers, every add rounded to A, then through the epilogue).
+template <typename Ts, typename Tv, int kMode, int E>
 __global__ void __launch_bounds__(kThreads)
 seg_combine(const __grid_constant__ Params p) {
   using SE = typename Ts::E;
@@ -861,13 +924,18 @@ seg_combine(const __grid_constant__ Params p) {
     const int2 cm = p.combs[v / p.ncb];
     const int c0 = static_cast<int>(v % p.ncb) * (32 * E) + lane_g * E;
     if (c0 >= p.width) continue;
-    SE* row = static_cast<SE*>(p.slab) +
-              static_cast<int64_t>(sk[p.chunks[cm.x].x]) * w + c0;
+    const uint32_t key = sk[p.chunks[cm.x].x];
+    SE* row = static_cast<SE*>(p.slab) + static_cast<int64_t>(key) * w + c0;
     SE s[E];
-    load_e<E>(s, row);
     float acc[E];
+    if constexpr (kMode == kModeAdagrad) {
 #pragma unroll
-    for (int e = 0; e < E; ++e) acc[e] = Ts::load(s[e]);
+      for (int e = 0; e < E; ++e) acc[e] = 0.0f;
+    } else {
+      load_e<E>(s, row);
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[e] = Ts::load(s[e]);
+    }
     for (int q0 = 0; q0 < cm.y; q0 += kCombBatch) {
       float part[kCombBatch][E];
 #pragma unroll
@@ -882,14 +950,20 @@ seg_combine(const __grid_constant__ Params p) {
         if (q0 + b < cm.y) {
 #pragma unroll
           for (int e = 0; e < E; ++e) {
-            acc[e] = Ts::rnd(__fadd_rn(acc[e], part[b][e]));
+            acc[e] = kMode == kModeAdagrad
+                         ? Tv::rnd(__fadd_rn(acc[e], part[b][e]))
+                         : Ts::rnd(__fadd_rn(acc[e], part[b][e]));
           }
         }
       }
     }
+    if constexpr (kMode == kModeAdagrad) {
+      adagrad_apply<Ts, Tv, E>(p, key, c0, acc);
+    } else {
 #pragma unroll
-    for (int e = 0; e < E; ++e) s[e] = Ts::store(acc[e]);
-    store_e<E>(row, s);
+      for (int e = 0; e < E; ++e) s[e] = Ts::store(acc[e]);
+      store_e<E>(row, s);
+    }
   }
 }
 

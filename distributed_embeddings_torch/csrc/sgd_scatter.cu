@@ -31,6 +31,14 @@
 // same bits on every run, within k ulps of the plain version for k hits.
 // No atomics touch a row.
 //
+// The Adagrad mode (detpu_adagrad_scatter_*): SparseAdagrad's dense-apply
+// branch as one call of the engine (segment_scatter.cuh, kModeAdagrad):
+// each hit row's gradient summed as K3 sums it into a zero gradient slab
+// with lr = -1 (vals already in the accumulator dtype), then the Adagrad
+// transition applied to that row of the accumulator and the slab where
+// its sum is complete. The bits of the zero-fill + K3 + K7 chain on every
+// row it writes; rows no id hits are never read or written.
+//
 // C interface (ctypes): detpu_sgd_scatter_prepare validates one call's
 // layout and writes a prepared launch (detpu_segment_prepared_bytes()
 // bytes of host memory the caller owns) over a scratch buffer on the card
@@ -49,31 +57,63 @@ struct Prepared {
   int comb_blocks[2];
 };
 
-template <typename Ts, typename Tv>
+template <typename Ts, typename Tv, int kMode>
 void occupancy(Prepared* pr) {
   const int sms = pr->p.sms;
-  pr->rows_blocks[0] = resident_blocks(seg_rows<Ts, Tv, kModeK3, 1>, 0, sms);
-  pr->rows_blocks[1] = resident_blocks(seg_rows<Ts, Tv, kModeK3, 4>, 0, sms);
-  pr->comb_blocks[0] = resident_blocks(seg_combine<Ts, 1>, 0, sms);
-  pr->comb_blocks[1] = resident_blocks(seg_combine<Ts, 4>, 0, sms);
+  pr->rows_blocks[0] = resident_blocks(seg_rows<Ts, Tv, kMode, 1>, 0, sms);
+  pr->rows_blocks[1] = resident_blocks(seg_rows<Ts, Tv, kMode, 4>, 0, sms);
+  pr->comb_blocks[0] = resident_blocks(seg_combine<Ts, Tv, kMode, 1>, 0,
+                                       sms);
+  pr->comb_blocks[1] = resident_blocks(seg_combine<Ts, Tv, kMode, 4>, 0,
+                                       sms);
 }
 
-template <typename Ts, typename Tv, int E>
+template <int kMode>
+void occupancy_of(Prepared* pr) {
+  if (pr->p.slab_dtype == 0) {
+    if (pr->p.vals_dtype == 0) {
+      occupancy<F32, F32, kMode>(pr);
+    } else {
+      occupancy<F32, BF16, kMode>(pr);
+    }
+  } else if (pr->p.vals_dtype == 0) {
+    occupancy<BF16, F32, kMode>(pr);
+  } else {
+    occupancy<BF16, BF16, kMode>(pr);
+  }
+}
+
+template <typename Ts, typename Tv, int kMode, int E>
 cudaError_t rows_pass(const Params& p, int blocks, int comb_blocks,
                       cudaStream_t st) {
-  seg_rows<Ts, Tv, kModeK3, E><<<blocks, kThreads, 0, st>>>(p);
+  seg_rows<Ts, Tv, kMode, E><<<blocks, kThreads, 0, st>>>(p);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || p.split == 0) return e;
-  seg_combine<Ts, E><<<comb_blocks, kThreads, 0, st>>>(p);
+  seg_combine<Ts, Tv, kMode, E><<<comb_blocks, kThreads, 0, st>>>(p);
   return cudaGetLastError();
 }
 
-template <typename Ts, typename Tv>
+template <typename Ts, typename Tv, int kMode>
 cudaError_t rows_of(const Prepared& pr, const Params& p, cudaStream_t st) {
-  return p.vec ? rows_pass<Ts, Tv, 4>(p, pr.rows_blocks[1],
-                                      pr.comb_blocks[1], st)
-               : rows_pass<Ts, Tv, 1>(p, pr.rows_blocks[0],
-                                      pr.comb_blocks[0], st);
+  return p.vec ? rows_pass<Ts, Tv, kMode, 4>(p, pr.rows_blocks[1],
+                                             pr.comb_blocks[1], st)
+               : rows_pass<Ts, Tv, kMode, 1>(p, pr.rows_blocks[0],
+                                             pr.comb_blocks[0], st);
+}
+
+// The sort, the segment lists and the rows pass of a prepared call whose
+// per-call pointers are set.
+template <int kMode>
+cudaError_t run(const Prepared& pr, const Params& p, cudaStream_t st) {
+  cudaError_t e = p.ids64 ? sort_and_list<int64_t>(p, st)
+                          : sort_and_list<int32_t>(p, st);
+  if (e != cudaSuccess) return e;
+  if (p.slab_dtype == 0) {
+    return p.vals_dtype == 0 ? rows_of<F32, F32, kMode>(pr, p, st)
+                             : rows_of<F32, BF16, kMode>(pr, p, st);
+  }
+  return p.vals_dtype == 0 ? rows_of<BF16, F32, kMode>(pr, p, st)
+                           : rows_of<BF16, BF16, kMode>(pr, p, st);
 }
 
 }  // namespace
@@ -115,17 +155,7 @@ extern "C" int detpu_sgd_scatter_prepare(int64_t rows, int width,
                           kModeK3, cast_vals, neg_lr, lr_on_card, kSplit,
                           scratch, &pr->p);
   if (e != cudaSuccess) return e;
-  if (slab_dtype == 0) {
-    if (vals_dtype == 0) {
-      occupancy<F32, F32>(pr);
-    } else {
-      occupancy<F32, BF16>(pr);
-    }
-  } else if (vals_dtype == 0) {
-    occupancy<BF16, F32>(pr);
-  } else {
-    occupancy<BF16, BF16>(pr);
-  }
+  occupancy_of<kModeK3>(pr);
   return cudaGetLastError();
 }
 
@@ -149,14 +179,57 @@ extern "C" int detpu_sgd_scatter_launch(const void* prepared, void* slab,
   p.vec = p.width % 4 == 0 && aligned(slab, 4 * ssz) &&
           aligned(vals, 4 * vsz);
   shape_groups(&p);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e = p.ids64 ? sort_and_list<int64_t>(p, st)
-                          : sort_and_list<int32_t>(p, st);
+  return run<kModeK3>(*pr, p, static_cast<cudaStream_t>(stream));
+}
+
+// The Adagrad mode: slab [rows, width] (slab_dtype) and acc [rows, width]
+// (acc_dtype; dtype codes as K3's), updated in place from ids [n] (int32,
+// or int64 when ids_is_64) and vals [n, width] in acc_dtype, n < 2^31,
+// rows < 2^32. lr and eps rounded to acc_dtype by the caller; lr is used
+// unless lr_on_card, when each launch reads the float32 lr at its `lr`
+// pointer. scratch: detpu_sgd_scatter_scratch_bytes bytes, 256-B aligned.
+extern "C" int detpu_adagrad_scatter_prepare(int64_t rows, int width,
+                                             int slab_dtype, int acc_dtype,
+                                             int ids_is_64, int64_t n,
+                                             float lr, int lr_on_card,
+                                             float eps, void* scratch,
+                                             void* out) {
+  Prepared* pr = static_cast<Prepared*>(out);
+  if (pr == nullptr) return cudaErrorInvalidValue;
+  memset(pr, 0, sizeof(Prepared));
+  cudaError_t e = prepare(rows, width, slab_dtype, acc_dtype, ids_is_64, n,
+                          kModeAdagrad, 1, 0.0f, lr_on_card, kSplit, scratch,
+                          &pr->p);
   if (e != cudaSuccess) return e;
-  if (p.slab_dtype == 0) {
-    return p.vals_dtype == 0 ? rows_of<F32, F32>(*pr, p, st)
-                             : rows_of<F32, BF16>(*pr, p, st);
+  pr->p.ada_lr = lr;
+  pr->p.eps = eps;
+  occupancy_of<kModeAdagrad>(pr);
+  return cudaGetLastError();
+}
+
+// Launch a prepared Adagrad-mode call on `stream`: the slab and the
+// accumulator (updated in place), ids, vals, and the float32 lr on the
+// card (null for a constant lr).
+extern "C" int detpu_adagrad_scatter_launch(const void* prepared, void* slab,
+                                            void* acc, const void* ids,
+                                            const void* vals, const void* lr,
+                                            void* stream) {
+  const Prepared* pr = static_cast<const Prepared*>(prepared);
+  if (pr == nullptr || slab == nullptr || acc == nullptr ||
+      (pr->p.lr_on_card && lr == nullptr)) {
+    return cudaErrorInvalidValue;
   }
-  return p.vals_dtype == 0 ? rows_of<BF16, F32>(*pr, p, st)
-                           : rows_of<BF16, BF16>(*pr, p, st);
+  if (pr->p.n == 0) return cudaSuccess;
+  Params p = pr->p;
+  p.slab = slab;
+  p.acc = acc;
+  p.ids = ids;
+  p.vals = vals;
+  p.lr = static_cast<const float*>(lr);
+  const int ssz = p.slab_dtype == 0 ? 4 : 2;
+  const int asz = p.vals_dtype == 0 ? 4 : 2;
+  p.vec = p.width % 4 == 0 && aligned(slab, 4 * ssz) &&
+          aligned(acc, 4 * asz) && aligned(vals, 4 * asz);
+  shape_groups(&p);
+  return run<kModeAdagrad>(*pr, p, static_cast<cudaStream_t>(stream));
 }

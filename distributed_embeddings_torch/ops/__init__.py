@@ -1,7 +1,8 @@
 """Lookup ops and the hand-written kernels' wrappers."""
 
-from .adagrad import (adagrad_dense, adagrad_dense_plain, adagrad_rows,
-                      adagrad_rows_plain)
+from .adagrad import (adagrad_dense, adagrad_dense_plain,
+                      adagrad_dense_scatter, adagrad_dense_scatter_plain,
+                      adagrad_rows, adagrad_rows_plain)
 from .adam import adam_rows, adam_rows_plain, bias_powers
 from .dense_update import dense_update, dense_update_plain
 from .embedding_lookup import (Ragged, SparseIds, embedding_lookup,
@@ -39,7 +40,9 @@ __all__ = ["Ragged", "SparseIds", "embedding_lookup", "gather_combine",
            "sgd_scatter_promoted_plain", "dedup_sparse_grad",
            "dedup_sparse_grad_plain", "ragged_grad", "ragged_grad_plain",
            "combiner_grad_values", "adagrad_rows", "adagrad_rows_plain",
-           "adagrad_dense", "adagrad_dense_plain", "adam_rows",
+           "adagrad_dense", "adagrad_dense_plain",
+           "adagrad_dense_scatter", "adagrad_dense_scatter_plain",
+           "adam_rows",
            "adam_rows_plain", "bias_powers", "momentum_rows",
            "momentum_rows_plain", "cms_update", "cms_update_plain",
            "cms_query", "cms_query_plain", "topk_pool", "topk_pool_plain",

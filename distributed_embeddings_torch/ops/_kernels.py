@@ -88,6 +88,13 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "detpu_sgd_scatter_launch": (_P, _P, _P, _P, _P, _P),
         # n, width -> bytes of card scratch
         "detpu_sgd_scatter_scratch_bytes": (_I64, _I),
+        # rows, width, slab_dtype, acc_dtype, ids_is_64, n, lr, lr_on_card,
+        # eps, scratch, prepared (host, out): SparseAdagrad's dense-apply
+        # branch on the engine
+        "detpu_adagrad_scatter_prepare": (_I64, _I, _I, _I, _I, _I64, _F,
+                                          _I, _F, _P, _P),
+        # prepared, slab, acc, ids, vals, lr, stream
+        "detpu_adagrad_scatter_launch": (_P, _P, _P, _P, _P, _P, _P),
         # -> the bytes of a prepared launch / K3's chunk L / a sort tile
         "detpu_segment_prepared_bytes": (),
         "detpu_segment_split": (),
@@ -124,10 +131,13 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "detpu_adagrad_launch": (_P, _P, _P, _P, _P, _P, _P),
         # -> the bytes of a prepared launch
         "detpu_adagrad_prepared_bytes": (),
-        # slab, slab_dtype, acc, acc_dtype, grad, numel, lr, lr_dev, eps,
-        # stream
-        "detpu_adagrad_dense": (_P, _I, _P, _I, _P, _I64, ctypes.c_float,
-                                _P, ctypes.c_float, _P),
+        # slab_dtype, acc_dtype, numel, lr, lr_on_card, eps, sms, prepared
+        # (host, out)
+        "detpu_adagrad_dense_prepare": (_I, _I, _I64, _F, _I, _F, _I, _P),
+        # prepared, slab, acc, grad, lr_dev, stream
+        "detpu_adagrad_dense_launch": (_P, _P, _P, _P, _P, _P),
+        # -> the bytes of a prepared K7 launch
+        "detpu_adagrad_dense_prepared_bytes": (),
     },
     "adam": {
         # slab_dtype, mom_dtype, rows, width, ids_is_64, u, b1, omb1, b2,
@@ -180,13 +190,17 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "detpu_ragged_combine_prepared_bytes": (),
     },
     "ragged_grad": {
-        # g, g_slot_stride, g_row_stride, width, dtype, splits, values,
-        # ids_in_64, v_stride, rows, roff, sentinel, ids_out, ids_out_64,
-        # mean, reciprocal, weights, w_esize, w_stride, vals_out, n_slots,
-        # b, cap, stream
-        "detpu_ragged_grad": (_P, _I64, _I64, _I, _I, _P, _P, _I, _I64, _P,
-                              _P, _I64, _P, _I, _P, _I, _P, _I, _I64, _P,
-                              _I, _I64, _I64, _P),
+        # g_slot_stride, g_row_stride, width, dtype, has_ids, ids_in_64,
+        # v_stride, sentinel, ids_out_64, has_mean, reciprocal, w_esize,
+        # w_stride, n_slots, b, cap, prepared (host, out)
+        "detpu_ragged_grad_prepare": (_I64, _I64, _I, _I, _I, _I, _I64,
+                                      _I64, _I, _I, _I, _I, _I64, _I, _I64,
+                                      _I64, _P),
+        # prepared, g, splits, values, rows, roff, mean, weights, ids_out,
+        # vals_out, stream
+        "detpu_ragged_grad_launch": (_P,) * 11,
+        # -> the bytes of a prepared launch
+        "detpu_ragged_grad_prepared_bytes": (),
     },
     "sketch": {
         # -> the bytes of a prepared K13 launch; sms -> bytes of its card
@@ -305,6 +319,8 @@ RESTYPES = {"detpu_dedup_scratch_bytes": _I64,
             "detpu_grad_health_prepared_bytes": _I64,
             "detpu_adam_prepared_bytes": _I64,
             "detpu_adagrad_prepared_bytes": _I64,
+            "detpu_adagrad_dense_prepared_bytes": _I64,
+            "detpu_ragged_grad_prepared_bytes": _I64,
             "detpu_momentum_prepared_bytes": _I64,
             "detpu_stream_remap_prepared_bytes": _I64,
             "detpu_stream_remap_scratch_bytes": _I64,

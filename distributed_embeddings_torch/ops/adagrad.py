@@ -1,6 +1,8 @@
 """The Adagrad row update of ``SparseAdagrad`` on the hand-written
 kernels K6 (per unique row) and K7 (elementwise over a slab), both in
-``csrc/adagrad.cu``, with their plain PyTorch versions.
+``csrc/adagrad.cu``, and on the sorted-segment engine's Adagrad mode (the
+whole dense-apply branch in one call, ``csrc/sgd_scatter.cu``), with
+their plain PyTorch versions.
 
 Counterpart of the two branches of
 ``distributed_embeddings_tpu/parallel/optimizers.py:SparseAdagrad.
@@ -35,16 +37,30 @@ order). It launches through the shared launch path
 (``_kernels.LaunchRecord``): a record keyed on the layouts, the dtypes,
 ``eps`` and a constant ``lr`` holds the constants, rounded once; each
 call passes five pointers.
+
+:func:`adagrad_dense_scatter` is the dense-apply branch: the scatter-sum
+of the stream into a zero gradient slab (K3's chain with lr -1), then K7
+over the slab. On the card it is one call of the engine whose epilogue
+applies the transition to each hit row where its sum is complete: no
+gradient slab, and the rows no id hits are neither read nor written.
+Those rows keep their bits under the slab-wide transition too whenever
+``g = 0`` is a no-op there, which :func:`untouched_rows_keep_bits`
+decides from host constants; ``SparseAdagrad`` runs the slab-wide chain
+(a gradient slab, K3, K7) where it is not (``eps = 0`` over a zero
+accumulator: JAX turns those elements into NaN).
 """
 
 from __future__ import annotations
 
+import functools
+import math
 from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from . import _kernels
+from .scatter_add import _check_constants, sgd_scatter_plain
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -132,20 +148,6 @@ def _lr_args(lr: Lr, acc_dtype: torch.dtype, device):
     return float(torch.tensor(float(lr), dtype=acc_dtype)), None
 
 
-def _check_pair(slab, acc):
-    if slab.device.type != "cuda":
-        raise ValueError(f"unsupported device {slab.device}")
-    for name, t in (("slab", slab), ("acc", acc)):
-        if t.dtype not in _DTYPE_CODE or t.dim() != 2 \
-                or not t.is_contiguous() or t.device != slab.device:
-            raise ValueError(f"{name}: expected a contiguous 2-D float32/"
-                             f"bfloat16 tensor on {slab.device}, got "
-                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
-    if acc.shape != slab.shape:
-        raise ValueError(f"acc {tuple(acc.shape)} != slab "
-                         f"{tuple(slab.shape)}")
-
-
 def check_layout(slab: torch.Tensor, state: dict, uids: torch.Tensor,
                  uvals: torch.Tensor, vals_name: str = "uvals") -> None:
     """The layout checks of the row kernels (K6, K11, K12): ``slab`` and
@@ -211,14 +213,7 @@ def build_record(slab: torch.Tensor, acc: torch.Tensor, uids: torch.Tensor,
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
     check_layout(slab, {"acc": acc}, uids, ugrads, "ugrads")
-    lr_as_is = True
-    if isinstance(lr, torch.Tensor):
-        if lr.numel() != 1:
-            raise ValueError(f"a tensor lr must hold one value, got shape "
-                             f"{tuple(lr.shape)}")
-        lr_f, lr_as_is = 0.0, lr.dtype == torch.float32 and lr.device == dev
-    else:
-        lr_f = _lr_args(lr, acc.dtype, dev)[0]
+    lr_as_is, lr_f = _lr_record(lr, acc, dev)
     consts = {"lr": lr_f, "eps": float(torch.tensor(float(eps),
                                                      dtype=acc.dtype))}
     lib, calls, prepared = None, [], None
@@ -267,43 +262,284 @@ def adagrad_rows(slab: torch.Tensor, acc: torch.Tensor, uids: torch.Tensor,
     args = (slab, acc, uids, ugrads, lr, eps)
     rec = _kernels.find_or_build(_CACHE, record_key(*args), build_record,
                                  False, False, *args)
-    lr_p = None
-    if isinstance(lr, torch.Tensor):
-        lr_p = (lr if rec.payload[0] else _lr_args(
-            lr, acc.dtype, slab.device)[1]).data_ptr()
     adagrad_rows.launches += rec.replay(slab.data_ptr(), acc.data_ptr(),
                                         uids.data_ptr(), ugrads.data_ptr(),
-                                        lr_p)
+                                        _card_lr_ptr(rec, lr, acc))
     return slab, acc
+
+
+def _lr_record(lr: Lr, acc: torch.Tensor, dev: torch.device):
+    """``(lr_as_is, lr as the kernels take it)`` for a record: a tensor
+    lr (one value; 0.0 here, read on the card each call, ``lr_as_is``
+    false where it is converted to float32 on the card first) or a
+    constant rounded as :func:`_lr_args` rounds it."""
+    if isinstance(lr, torch.Tensor):
+        if lr.numel() != 1:
+            raise ValueError(f"a tensor lr must hold one value, got shape "
+                             f"{tuple(lr.shape)}")
+        return lr.dtype == torch.float32 and lr.device == dev, 0.0
+    return True, _lr_args(lr, acc.dtype, dev)[0]
+
+
+def _card_lr_ptr(rec: _kernels.LaunchRecord, lr: Lr, acc: torch.Tensor):
+    """The address of a tensor lr as the record's kernel reads it (a
+    float32 copy on the card where the record says it is converted), or
+    None for a constant lr."""
+    if not isinstance(lr, torch.Tensor):
+        return None
+    return (lr if rec.payload[0] else _lr_args(
+        lr, acc.dtype, acc.device)[1]).data_ptr()
+
+
+#: K7's launch records, by layout and constants
+_DENSE = _kernels.LaunchCache()
+
+
+def dense_record_key(slab: torch.Tensor, acc: torch.Tensor,
+                     grad: torch.Tensor, lr: Lr, eps: float) -> tuple:
+    """Every fact K7's launch record rests on: ``eps``, the constant
+    ``lr`` (or a tensor ``lr``'s layout) and the layouts of the slab, the
+    accumulator and the gradient slab. No address: each call passes its
+    own (the 16-byte lanes are decided on the card side each call)."""
+    ts = (slab, acc, grad)
+    return ("adagrad_dense",
+            _kernels.layout_key(lr) if isinstance(lr, torch.Tensor) else lr,
+            eps, *map(_kernels._SHAPE, ts), *map(_kernels._STRIDE, ts),
+            *map(_kernels._DTYPE, ts), *map(_kernels._DEVICE, ts))
+
+
+def build_dense_record(slab: torch.Tensor, acc: torch.Tensor,
+                       grad: torch.Tensor, lr: Lr,
+                       eps: float) -> _kernels.LaunchRecord:
+    """Validate a K7 call as :func:`adagrad_dense` does (raising as it
+    does) and build its launch record: the constants rounded once
+    (``record.payload``: ``(lr_as_is, constants, prepared)``) and, for
+    CUDA tensors, the prepared launch. CPU tensors (the tests) get a
+    record without launches."""
+    dev = slab.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    for name, t in (("slab", slab), ("acc", acc)):
+        if t.dtype not in _DTYPE_CODE or t.dim() != 2 \
+                or not t.is_contiguous() or t.device != dev:
+            raise ValueError(f"{name}: expected a contiguous 2-D float32/"
+                             f"bfloat16 tensor on {dev}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    if acc.shape != slab.shape:
+        raise ValueError(f"acc {tuple(acc.shape)} != slab "
+                         f"{tuple(slab.shape)}")
+    if grad.dtype != acc.dtype or grad.shape != acc.shape \
+            or grad.device != dev or not grad.is_contiguous():
+        raise ValueError(f"grad: expected a contiguous "
+                         f"{tuple(acc.shape)} {acc.dtype} tensor, got "
+                         f"{grad.dtype} {tuple(grad.shape)} on {grad.device}")
+    lr_as_is, lr_f = _lr_record(lr, acc, dev)
+    consts = {"lr": lr_f, "eps": float(torch.tensor(float(eps),
+                                                     dtype=acc.dtype))}
+    lib, calls, prepared = None, [], None
+    if dev.type == "cuda" and slab.numel() > 0:
+        lib = _kernels.library("adagrad")
+        prepared = np.zeros(lib.detpu_adagrad_dense_prepared_bytes(),
+                            np.uint8)
+        _kernels.check(lib, lib.detpu_adagrad_dense_prepare(
+            _DTYPE_CODE[slab.dtype], _DTYPE_CODE[acc.dtype], slab.numel(),
+            consts["lr"], int(isinstance(lr, torch.Tensor)), consts["eps"],
+            _kernels.sm_count(dev.index or 0), prepared.ctypes.data),
+            "adagrad_dense")
+        calls.append((lib.detpu_adagrad_dense_launch,
+                      (prepared.ctypes.data,)))
+    return _kernels.LaunchRecord(lib, "adagrad_dense", calls,
+                                 _kernels.device_index(dev),
+                                 payload=(lr_as_is, consts, prepared))
+
+
+def find_dense_record(slab, acc, grad, lr: Lr, eps: float,
+                      build_on_cpu: bool = False
+                      ) -> Optional[_kernels.LaunchRecord]:
+    """K7's record of a call, found in :data:`_DENSE` by
+    :func:`dense_record_key` or built (:func:`build_dense_record`) and
+    kept. A miss on CPU tensors is validated and gives None unless
+    ``build_on_cpu``."""
+    args = (slab, acc, grad, lr, eps)
+    return _kernels.find_or_build(_DENSE, dense_record_key(*args),
+                                  build_dense_record,
+                                  slab.device.type == "cpu", build_on_cpu,
+                                  *args)
 
 
 def adagrad_dense(slab: torch.Tensor, acc: torch.Tensor, grad: torch.Tensor,
                   lr: Lr, eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """K7: the Adagrad transition of every element of ``slab [R, w]`` and
     ``acc [R, w]`` from the gradient slab ``grad [R, w]`` (accumulator
-    dtype), in place; an element with ``g = 0`` keeps its bits. Returns
-    ``(slab, acc)``. CPU tensors run :func:`adagrad_dense_plain`; CUDA
-    tensors launch the kernel or raise."""
+    dtype), in place. Returns ``(slab, acc)``. CPU tensors run
+    :func:`adagrad_dense_plain`; CUDA tensors launch the kernel (through
+    the launch record of their layouts) or raise."""
     if slab.device.type == "cpu":
         return adagrad_dense_plain(slab, acc, grad, lr, eps)
-    _check_pair(slab, acc)
-    if grad.dtype != acc.dtype or grad.shape != acc.shape \
-            or grad.device != slab.device or not grad.is_contiguous():
-        raise ValueError(f"grad: expected a contiguous "
-                         f"{tuple(acc.shape)} {acc.dtype} tensor, got "
-                         f"{grad.dtype} {tuple(grad.shape)} on {grad.device}")
-    lr_f, lr_t = _lr_args(lr, acc.dtype, slab.device)
-    eps_f = float(torch.tensor(float(eps), dtype=acc.dtype))
-    lib = _kernels.library("adagrad")
-    err = lib.detpu_adagrad_dense(
-        slab.data_ptr(), _DTYPE_CODE[slab.dtype], acc.data_ptr(),
-        _DTYPE_CODE[acc.dtype], grad.data_ptr(), slab.numel(), lr_f,
-        None if lr_t is None else lr_t.data_ptr(), eps_f,
-        torch.cuda.current_stream(slab.device).cuda_stream)
-    _kernels.check(lib, err, "adagrad_dense")
-    adagrad_dense.launches += 1
+    args = (slab, acc, grad, lr, eps)
+    rec = _kernels.find_or_build(_DENSE, dense_record_key(*args),
+                                 build_dense_record, False, False, *args)
+    adagrad_dense.launches += rec.replay(
+        slab.data_ptr(), acc.data_ptr(), grad.data_ptr(),
+        _card_lr_ptr(rec, lr, acc))
+    return slab, acc
+
+
+# ------------------------------------- the dense-apply branch on the engine
+
+
+def _nonneg(x: float) -> bool:
+    """``x`` is +0.0 or above (not -0.0, not NaN)."""
+    return x > 0 or (x == 0 and math.copysign(1.0, x) > 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _sum_positive(init: float, eps: float, acc_dtype: torch.dtype) -> bool:
+    return bool(torch.tensor(init, dtype=acc_dtype)
+                + torch.tensor(eps, dtype=acc_dtype) > 0)
+
+
+def untouched_rows_keep_bits(initial_accumulator_value: float, eps: float,
+                             acc_dtype: torch.dtype, lr: Lr) -> bool:
+    """Whether the slab-wide Adagrad transition leaves every element with
+    ``g = +0`` as it was, so that the dense-apply branch may skip the rows
+    no id hits (:func:`adagrad_dense_scatter`) and still give the
+    slab-wide chain's bits on every row. From host constants only:
+
+    * the accumulator starts at ``initial_accumulator_value`` (rounded to
+      ``acc_dtype``) and only grows, so it must be +0.0 or above (a -0.0
+      accumulator would turn into +0.0) and ``rA(init) + rA(eps)`` above
+      0, so that ``rsqrt(acc + eps)`` is finite (``eps = 0`` over a zero
+      accumulator gives ``0 * inf = NaN``, which JAX writes);
+    * a constant lr must be +0.0 or above (a negative one turns a -0.0
+      slab element into +0.0). A tensor lr is read on the card only; it
+      is taken to be one (a schedule's learning rate).
+
+    A choice between two exact semantics, never a fallback."""
+    if not isinstance(lr, torch.Tensor) and not _nonneg(float(lr)):
+        return False
+    init = float(initial_accumulator_value)
+    return _nonneg(init) and _sum_positive(init, float(eps), acc_dtype)
+
+
+def adagrad_dense_scatter_plain(slab: torch.Tensor, acc: torch.Tensor,
+                                ids: torch.Tensor, vals: torch.Tensor,
+                                lr: Lr, eps: float
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`adagrad_dense_scatter`, the JAX
+    package's chain: a zero gradient slab in the accumulator dtype, the
+    scatter-sum of the stream into it (:func:`~.scatter_add.
+    sgd_scatter_plain` with lr -1: stream order on the CPU), then
+    :func:`adagrad_dense_plain` over the slab. Returns ``(slab, acc)``."""
+    g = torch.zeros(slab.shape, dtype=acc.dtype, device=slab.device)
+    sgd_scatter_plain(g, ids, vals, -1.0)
+    return adagrad_dense_plain(slab, acc, g, lr, eps)
+
+
+#: the engine's Adagrad-mode records, by layout and constants
+_SCATTER = _kernels.LaunchCache()
+
+
+def scatter_record_key(slab: torch.Tensor, acc: torch.Tensor,
+                       ids: torch.Tensor, vals: torch.Tensor, lr: Lr,
+                       eps: float) -> tuple:
+    """Every fact the Adagrad-mode record rests on: ``eps``, the constant
+    ``lr`` (or a tensor ``lr``'s layout) and the layouts of the slab, the
+    accumulator, the ids and the stream rows. No address: each call
+    passes its own."""
+    ts = (slab, acc, ids, vals)
+    return ("adagrad_dense_scatter",
+            _kernels.layout_key(lr) if isinstance(lr, torch.Tensor) else lr,
+            eps, *map(_kernels._SHAPE, ts), *map(_kernels._STRIDE, ts),
+            *map(_kernels._DTYPE, ts), *map(_kernels._DEVICE, ts))
+
+
+def build_scatter_record(slab: torch.Tensor, acc: torch.Tensor,
+                         ids: torch.Tensor, vals: torch.Tensor, lr: Lr,
+                         eps: float) -> _kernels.LaunchRecord:
+    """Validate an :func:`adagrad_dense_scatter` call (raising as it
+    does) and build its launch record: the constants rounded once and,
+    for CUDA tensors, the engine's scratch (owned by the record, zeroed
+    once: one stream at a time a record) and the prepared launch.
+    Payload: ``(lr_as_is, constants, scratch, prepared)``. CPU tensors
+    (the tests) get a record without launches."""
+    dev = slab.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    check_layout(slab, {"acc": acc}, ids, vals, "vals")
+    n, w = vals.shape
+    if n >= 2 ** 31 or slab.shape[0] >= 2 ** 32:
+        raise ValueError(f"adagrad_dense_scatter: {n} ids into "
+                         f"{slab.shape[0]} rows; the kernel takes fewer "
+                         "than 2^31 ids and 2^32 rows")
+    lr_as_is, lr_f = _lr_record(lr, acc, dev)
+    consts = {"lr": lr_f, "eps": float(torch.tensor(float(eps),
+                                                     dtype=acc.dtype))}
+    lib, calls, scratch, prepared = None, [], None, None
+    if dev.type == "cuda":
+        lib = _kernels.library("sgd_scatter")
+        _check_constants(lib, "sgd_scatter")
+        scratch = torch.zeros(lib.detpu_sgd_scatter_scratch_bytes(n, w),
+                              dtype=torch.uint8, device=dev)
+        prepared = np.zeros(lib.detpu_segment_prepared_bytes(), np.uint8)
+        _kernels.check(lib, lib.detpu_adagrad_scatter_prepare(
+            slab.shape[0], w, _DTYPE_CODE[slab.dtype],
+            _DTYPE_CODE[acc.dtype], int(ids.dtype == torch.int64), n,
+            consts["lr"], int(isinstance(lr, torch.Tensor)), consts["eps"],
+            scratch.data_ptr(), prepared.ctypes.data),
+            "adagrad_dense_scatter")
+        if n:
+            calls.append((lib.detpu_adagrad_scatter_launch,
+                          (prepared.ctypes.data,)))
+    return _kernels.LaunchRecord(lib, "adagrad_dense_scatter", calls,
+                                 _kernels.device_index(dev),
+                                 payload=(lr_as_is, consts, scratch,
+                                          prepared))
+
+
+def find_scatter_record(slab, acc, ids, vals, lr: Lr, eps: float,
+                        build_on_cpu: bool = False
+                        ) -> Optional[_kernels.LaunchRecord]:
+    """The Adagrad-mode record of a call, found in :data:`_SCATTER` by
+    :func:`scatter_record_key` or built (:func:`build_scatter_record`)
+    and kept. A miss on CPU tensors is validated and gives None unless
+    ``build_on_cpu``."""
+    args = (slab, acc, ids, vals, lr, eps)
+    return _kernels.find_or_build(_SCATTER, scatter_record_key(*args),
+                                  build_scatter_record,
+                                  slab.device.type == "cpu", build_on_cpu,
+                                  *args)
+
+
+def adagrad_dense_scatter(slab: torch.Tensor, acc: torch.Tensor,
+                          ids: torch.Tensor, vals: torch.Tensor, lr: Lr,
+                          eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``SparseAdagrad``'s dense-apply branch, in place on ``slab [R, w]``
+    and ``acc [R, w]`` (float32/bfloat16 each): the stream ``ids [n]``
+    (int32/int64; K3's index rules: a negative id counts from the end
+    once, anything else outside ``[0, R)`` is dropped), ``vals [n, w]``
+    in the accumulator dtype, summed by row, then the Adagrad transition
+    of each hit row. ``lr`` a float or a one-element tensor (a float32
+    one on the card is read there). Returns ``(slab, acc)``.
+
+    CPU tensors run :func:`adagrad_dense_scatter_plain` (the slab-wide
+    chain); CUDA tensors launch one engine call (through the launch
+    record of their layouts) or raise. On the card rows no id hits are
+    not touched: the caller takes this path only where
+    :func:`untouched_rows_keep_bits` holds, and every row then has the
+    bits of the chain of a zero slab, K3 and K7 on the card."""
+    if slab.device.type == "cpu":
+        return adagrad_dense_scatter_plain(slab, acc, ids, vals, lr, eps)
+    args = (slab, acc, ids, vals, lr, eps)
+    rec = _kernels.find_or_build(_SCATTER, scatter_record_key(*args),
+                                 build_scatter_record, False, False, *args)
+    if rec.calls:
+        adagrad_dense_scatter.launches += rec.replay(
+            slab.data_ptr(), acc.data_ptr(), ids.data_ptr(),
+            vals.data_ptr(), _card_lr_ptr(rec, lr, acc))
     return slab, acc
 
 
 adagrad_rows.launches = 0
 adagrad_dense.launches = 0
+adagrad_dense_scatter.launches = 0

@@ -20,7 +20,10 @@ The ragged backward (ROADMAP B6) runs on the hand-written kernel K9
 cotangent to its value positions (times the position's weight, divided
 by the row's length on mean slots) and, for the optimizer stream, gives
 each position its slab row or the dropped-row sentinel; the op-level
-:func:`combiner_grad_values` is the same expansion without ids.
+:func:`combiner_grad_values` is the same expansion without ids. It
+launches through the shared launch path (``_kernels.LaunchRecord``): a
+record keyed on the layouts and the call's constant facts holds the
+prepared launch; each call passes its addresses and its two outputs'.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ import torch
 
 from . import _kernels
 from .embedding_lookup import (_INT, _expect, _expect_rows, _rnd,
-                               _row_bounds, _stream, ragged_row_ids_plain,
+                               _row_bounds, ragged_row_ids_plain,
                                weight_floats)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -84,6 +87,103 @@ def ragged_grad_plain(g: torch.Tensor, splits: torch.Tensor, *,
     return ids, vals
 
 
+def _ids_dtype(values, ids_dtype):
+    """The id stream's dtype (None without one)."""
+    return None if values is None else ids_dtype or values.dtype
+
+
+def ragged_grad_key(g, splits, cap, values=None, rows=None, roff=None,
+                    sentinel=0, ids_dtype=None, mean=None, weights=None,
+                    reciprocal=False) -> tuple:
+    """Every fact K9's launch record rests on: ``cap``, ``sentinel``, the
+    id stream's dtype, ``reciprocal``, which of ``values``, ``rows``,
+    ``roff``, ``mean`` and ``weights`` are given, and the layouts (shape,
+    strides, dtype, device index) of every tensor given. No address: each
+    call passes its own."""
+    opt = (values, rows, roff, mean, weights)
+    ts = (g, splits) + tuple(t for t in opt if t is not None)
+    given = sum(1 << k for k, t in enumerate(opt) if t is not None)
+    return (cap, sentinel, _ids_dtype(values, ids_dtype), bool(reciprocal),
+            given, *map(_kernels._SHAPE, ts), *map(_kernels._STRIDE, ts),
+            *map(_kernels._DTYPE, ts), *map(_kernels._DEVICE, ts))
+
+
+def build_ragged_grad_record(g, splits, cap, values=None, rows=None,
+                             roff=None, sentinel=0, ids_dtype=None,
+                             mean=None, weights=None,
+                             reciprocal=False) -> _kernels.LaunchRecord:
+    """Validate a K9 call as :func:`ragged_grad` always has on the card
+    (raising as it did) and build its launch record: for CUDA tensors
+    the prepared launch. Payload: ``(vals shape, vals dtype, ids dtype or
+    None, device, prepared)``. CPU tensors (the tests) get a record
+    without launches."""
+    n, b, w = g.shape
+    dev = g.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    if g.dtype not in _DTYPE_CODE or (w > 1 and g.stride(2) != 1):
+        raise ValueError(f"g: expected float32/bfloat16 of unit element "
+                         f"stride, got {g.dtype} strides {g.stride()}")
+    _expect(splits, (torch.int64,), (n, b + 1), dev, "splits")
+    idt = _ids_dtype(values, ids_dtype)
+    if values is not None:
+        _expect_rows(values, _INT, n, dev, "values")
+        if values.shape[1] < cap:
+            raise ValueError(f"values: {values.shape[1]} per slot for a "
+                             f"capacity of {cap}")
+        _expect(rows, (torch.int64,), (n,), dev, "rows")
+        _expect(roff, (torch.int64,), (n,), dev, "roff")
+        if idt not in _INT:
+            raise ValueError(f"ids_dtype {idt} is not int32/int64")
+    if mean is not None:
+        _expect(mean, (torch.int32,), (n,), dev, "mean")
+    if weights is not None:
+        _expect_rows(weights, (torch.float32,) + _INT, n, dev, "weights")
+        if weights.shape[1] < cap:
+            raise ValueError(f"weights: {weights.shape[1]} per slot for a "
+                             f"capacity of {cap}")
+    lib, calls, prepared = None, [], None
+    if dev.type == "cuda":
+        lib = _kernels.library("ragged_grad")
+        prepared = np.zeros(lib.detpu_ragged_grad_prepared_bytes(), np.uint8)
+        _kernels.check(lib, lib.detpu_ragged_grad_prepare(
+            g.stride(0), g.stride(1), w, _DTYPE_CODE[g.dtype],
+            int(values is not None),
+            int(values is not None and values.dtype == torch.int64),
+            0 if values is None else values.stride(0), sentinel,
+            int(idt == torch.int64), int(mean is not None),
+            int(bool(reciprocal)),
+            0 if weights is None else weights.element_size(),
+            0 if weights is None else weights.stride(0), n, b, cap,
+            prepared.ctypes.data), "ragged_grad")
+        if n * cap:
+            calls.append((lib.detpu_ragged_grad_launch,
+                          (prepared.ctypes.data,)))
+    return _kernels.LaunchRecord(lib, "ragged_grad", calls,
+                                 _kernels.device_index(dev),
+                                 payload=((n, cap, w), g.dtype, idt, dev,
+                                          prepared))
+
+
+def find_ragged_grad_record(g, splits, cap, values=None, rows=None,
+                            roff=None, sentinel=0, ids_dtype=None, mean=None,
+                            weights=None, reciprocal=False,
+                            build_on_cpu: bool = False):
+    """K9's record of a call, found in :data:`_K9` by
+    :func:`ragged_grad_key` or built (:func:`build_ragged_grad_record`)
+    and kept. A miss on CPU tensors is validated and gives None unless
+    ``build_on_cpu``."""
+    args = (g, splits, cap, values, rows, roff, sentinel, ids_dtype, mean,
+            weights, reciprocal)
+    return _kernels.find_or_build(_K9, ragged_grad_key(*args),
+                                  build_ragged_grad_record,
+                                  g.device.type == "cpu", build_on_cpu,
+                                  *args)
+
+
+_K9 = _kernels.LaunchCache()
+
+
 def ragged_grad(g: torch.Tensor, splits: torch.Tensor, *,
                 cap: Optional[int] = None,
                 values: Optional[torch.Tensor] = None,
@@ -111,7 +211,9 @@ def ragged_grad(g: torch.Tensor, splits: torch.Tensor, *,
 
     Returns ``(ids [n, cap] or None, vals [n, cap, w])``. A CPU ``g``
     runs :func:`ragged_grad_plain`; a CUDA ``g`` launches the kernel
-    (``csrc/ragged_grad.cu``) or raises."""
+    (``csrc/ragged_grad.cu``) through the launch record of its layouts
+    (the first call validates and prepares, later ones allocate the two
+    outputs and pass the addresses) or raises."""
     if g.dim() != 3 or splits.dim() != 2:
         raise ValueError(f"g must be [n, b, w] and splits [n, b + 1], got "
                          f"{tuple(g.shape)}, {tuple(splits.shape)}")
@@ -121,58 +223,28 @@ def ragged_grad(g: torch.Tensor, splits: torch.Tensor, *,
         cap = values.shape[1]
     if values is not None and (rows is None or roff is None):
         raise ValueError("an id stream needs rows= and roff=")
-    kw = dict(cap=int(cap), values=values, rows=rows, roff=roff,
-              sentinel=int(sentinel), ids_dtype=ids_dtype, mean=mean,
-              weights=weights, reciprocal=reciprocal)
+    args = (g, splits, int(cap), values, rows, roff, int(sentinel),
+            ids_dtype, mean, weights, reciprocal)
     if g.device.type == "cpu":
-        return ragged_grad_plain(g, splits, **kw)
-    if g.device.type != "cuda":
-        raise ValueError(f"unsupported device {g.device}")
-    n, b, w = g.shape
-    dev = g.device
-    if g.dtype not in _DTYPE_CODE or (w > 1 and g.stride(2) != 1):
-        raise ValueError(f"g: expected float32/bfloat16 of unit element "
-                         f"stride, got {g.dtype} strides {g.stride()}")
-    _expect(splits, (torch.int64,), (n, b + 1), dev, "splits")
-    ids = None
-    if values is not None:
-        _expect_rows(values, _INT, n, dev, "values")
-        if values.shape[1] < cap:
-            raise ValueError(f"values: {values.shape[1]} per slot for a "
-                             f"capacity of {cap}")
-        _expect(rows, (torch.int64,), (n,), dev, "rows")
-        _expect(roff, (torch.int64,), (n,), dev, "roff")
-        ids = torch.empty((n, cap), dtype=ids_dtype or values.dtype,
-                          device=dev)
-        if ids.dtype not in _INT:
-            raise ValueError(f"ids_dtype {ids.dtype} is not int32/int64")
-    if mean is not None:
-        _expect(mean, (torch.int32,), (n,), dev, "mean")
-    if weights is not None:
-        _expect_rows(weights, (torch.float32,) + _INT, n, dev, "weights")
-        if weights.shape[1] < cap:
-            raise ValueError(f"weights: {weights.shape[1]} per slot for a "
-                             f"capacity of {cap}")
-    vals = torch.empty((n, cap, w), dtype=g.dtype, device=dev)
-    if n * cap == 0:
-        return ids, vals
-    lib = _kernels.library("ragged_grad")
-    err = lib.detpu_ragged_grad(
-        g.data_ptr(), g.stride(0), g.stride(1), w, _DTYPE_CODE[g.dtype],
-        splits.data_ptr(), None if values is None else values.data_ptr(),
-        int(values is not None and values.dtype == torch.int64),
-        0 if values is None else values.stride(0),
-        None if rows is None else rows.data_ptr(),
-        None if roff is None else roff.data_ptr(), int(sentinel),
-        None if ids is None else ids.data_ptr(),
-        int(ids is not None and ids.dtype == torch.int64),
-        None if mean is None else mean.data_ptr(), int(bool(reciprocal)),
-        None if weights is None else weights.data_ptr(),
-        0 if weights is None else weights.element_size(),
-        0 if weights is None else weights.stride(0), vals.data_ptr(), n, b,
-        int(cap), _stream(g))
-    _kernels.check(lib, err, "ragged_grad")
-    ragged_grad.launches += 1
+        return ragged_grad_plain(g, splits, cap=args[2], values=values,
+                                 rows=rows, roff=roff, sentinel=args[6],
+                                 ids_dtype=ids_dtype, mean=mean,
+                                 weights=weights, reciprocal=reciprocal)
+    rec = (_K9.get(ragged_grad_key(*args))
+           or find_ragged_grad_record(*args))
+    shape, dtype, idt, dev = rec.payload[:4]
+    vals = torch.empty(*shape, dtype=dtype, device=dev)
+    ids = None if idt is None else torch.empty(*shape[:2], dtype=idt,
+                                               device=dev)
+    if rec.calls:
+        ragged_grad.launches += rec.replay(
+            g.data_ptr(), splits.data_ptr(),
+            None if values is None else values.data_ptr(),
+            None if rows is None else rows.data_ptr(),
+            None if roff is None else roff.data_ptr(),
+            None if mean is None else mean.data_ptr(),
+            None if weights is None else weights.data_ptr(),
+            None if ids is None else ids.data_ptr(), vals.data_ptr())
     return ids, vals
 
 

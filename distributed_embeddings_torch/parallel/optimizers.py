@@ -49,7 +49,8 @@ from typing import Callable, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
-from ..ops.adagrad import adagrad_dense, adagrad_rows
+from ..ops.adagrad import (adagrad_dense, adagrad_dense_scatter,
+                           adagrad_rows, untouched_rows_keep_bits)
 from ..ops.adam import adam_rows, bias_powers
 from ..ops.dense_update import rsqrt_f32, sqrt_f32, dense_update
 from ..ops.momentum import momentum_rows
@@ -106,9 +107,17 @@ class SparseAdagrad:
     untouched row sees ``g = 0``, and ``acc + 0 == acc``,
     ``slab - 0 == slab``.
 
-    * dense-apply: K3 scatter-sums the stream into a zero gradient slab
-      in the accumulator dtype (with lr -1, exactly), then K7 runs the
-      transition elementwise over the whole slab;
+    * dense-apply: the stream scatter-summed into a zero gradient slab
+      in the accumulator dtype (K3's chain with lr -1, exactly), then the
+      transition elementwise over the whole slab. Where an untouched
+      element is a no-op (``ops.adagrad.untouched_rows_keep_bits`` of
+      ``initial_accumulator_value``, ``eps``, the accumulator dtype and
+      the lr) that is one call of the sorted-segment engine that applies
+      the transition to each hit row where its sum is formed
+      (``adagrad_dense_scatter``): no gradient slab, no pass over rows
+      no id hit, the same bits. Otherwise (``eps = 0`` over a zero
+      accumulator: JAX writes NaN into untouched elements) a gradient
+      slab, K3 into it, then K7 over the slab;
     * sparse: K5 sorts and sums duplicate ids (vocab bound: at most
       ``rows + 1`` distinct ids, the sentinel included), then K6 updates
       each unique row.
@@ -150,6 +159,10 @@ class SparseAdagrad:
         vals = vals.to(accum.dtype)
         rows = slab.shape[0]
         if self.dense_apply(rows, ids.shape[0]):
+            if untouched_rows_keep_bits(self.initial_accumulator_value,
+                                        self.eps, accum.dtype, lr):
+                adagrad_dense_scatter(slab, accum, ids, vals, lr, self.eps)
+                return slab, accum
             g = torch.zeros(slab.shape, dtype=accum.dtype,
                             device=slab.device)
             sgd_scatter(g, ids, vals, -1.0)

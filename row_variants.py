@@ -3,7 +3,8 @@
 ``csrc/grad_health.cu``, the SparseAdam row update, ``csrc/adam.cu``, and
 the SparseAdagrad row update, ``csrc/adagrad.cu``): patched builds of
 each kernel (``variants.py``), held bit-equal to the tree's build and
-timed against it in turns on one NVIDIA GPU.
+timed against it in turns on one NVIDIA GPU; and the two designs of
+SparseAdagrad's dense-apply branch against each other (K7).
 
 K21 (one launch of persistent CTAs over chunks of ~128 KB, a ticket a
 tensor, the last CTA of a tensor folding its partials; 4 16-byte loads
@@ -46,6 +47,20 @@ two diagnostics (timed, not held to the plain version): ``diag_empty``
 returns after the live-range search), each also timed one call between
 events (``*_single``, as a wrapper is) beside the tree.
 
+K7, the dense-apply branch (``--only k7``): ``fused``, the tree's one
+engine call with the Adagrad transition in its epilogue
+(``csrc/segment_scatter.cuh``, ``ops/adagrad.py:adagrad_dense_scatter``),
+against
+``k3_then_k7``, the slab-wide chain (a zero gradient slab, K3
+into it, the 16-byte-lane K7 over the slab), and ``k3_then_k7_scalar``
+(the same with K7 one element a thread, the first design's loads, a
+patched ``csrc/adagrad.cu``); all three from the same state must give
+the same bits on every row. Inputs: the zoo's w8 call (2,686,976 ids
+into 60,336 rows of width 8, one row hit 66,981 times) and the w16 slab
+forced dense (2,883,584 ids into 70.2M rows of width 16), both float32,
+lr 0.01, eps 1e-7. ``wrapper`` is the tree's fused call through its
+wrapper, ``parent_wrapper`` (``--parent``) the parent checkout's chain.
+
 Inputs: K21 on the DLRM step's gradients at b=65536 (26 bf16 [65536, 128]
 cotangents, contiguous views of one [26, 65536, 128] buffer as K4 leaves
 them, and the 16 float32 gradients of the MLPs 512-256-128 /
@@ -78,7 +93,7 @@ that checkout's, are timed in the same turns as ``wrapper`` and
 ``parent_wrapper`` (event ms a call, host included).
 
 Run from the root of a checkout: ``python3 row_variants.py [--parent
-DIR] [--only k21,k11,k6,k12]``. Prints the card's name and power limit, then
+DIR] [--only k21,k11,k6,k12,k7]``. Prints the card's name and power limit, then
 one JSON line a kernel, input and variant.
 """
 
@@ -562,6 +577,93 @@ def run_k12(torch, cs, kernels, mom, parent):
         torch.cuda.empty_cache()
 
 
+#: K7 one element a thread on every call (V = 1)
+K7_SCALAR = vs.replace(("  const bool vec = c->numel % 4 == 0 && "
+                        "detpu::aligned4(slab, es) &&",
+                        "  const bool vec = false && "
+                        "detpu::aligned4(slab, es) &&"))
+
+
+def k7_stream(torch, rows, n, hot, seed):
+    """``n`` ids into ``rows`` (a power-law draw, one row hit ``hot``
+    more times, shuffled) and N(0, 0.25) float32 rows of width 8 or 16."""
+    import chip_smoke as cs
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    ids = torch.cat([cs.device_power_law(torch, gen, rows, n - hot),
+                     torch.full((hot,), rows // 2, dtype=torch.int32,
+                                device="cuda")])
+    ids = ids[torch.randperm(n, generator=gen, device="cuda")].int()
+    return ids, gen
+
+
+def run_k7(torch, cs, kernels, ada, parent):
+    libs = vs.build(kernels, "adagrad", {"tree": None,
+                                         "scalar": K7_SCALAR},
+                    "row_variants")
+    sa = importlib.import_module("distributed_embeddings_torch.ops."
+                                 "scatter_add")
+    for what, (rows, width, n, hot) in (
+            ("zoo_w8_fp32", (ZOO_W8_ROWS, 8, 2_686_976, 66_981)),
+            ("zoo_w16_fp32_forced_dense", (ZOO_W16_ROWS, 16, ZOO_W16_U,
+                                           0))):
+        ids, gen = k7_stream(torch, rows, n, hot, seed=700 + width)
+        vals = torch.randn((n, width), generator=gen, device="cuda") * 0.5
+        slab0 = torch.randn((rows, width), generator=gen, device="cuda")
+        acc0 = torch.rand((rows, width), generator=gen, device="cuda") + 0.1
+        slab, acc = slab0.clone(), acc0.clone()
+        g = torch.zeros_like(acc)
+        args = (slab, acc, ids, vals, 0.01, 1e-7)
+        k7 = {}
+        for name, lib in libs.items():
+            with library(kernels, "adagrad", lib):
+                k7[name] = ada.build_dense_record(slab, acc, g, 0.01, 1e-7)
+        k3 = sa.find_sgd_record(sa._K3, g, ids, vals, -1.0)
+        fused = ada.build_scatter_record(*args)
+        ptrs = (slab.data_ptr(), acc.data_ptr(), ids.data_ptr(),
+                vals.data_ptr(), None)
+
+        def chain(rec):
+            g.zero_()
+            k3.replay(g.data_ptr(), ids.data_ptr(), vals.data_ptr(), None)
+            rec.replay(slab.data_ptr(), acc.data_ptr(), g.data_ptr(), None)
+
+        fns = {"fused": lambda: fused.replay(*ptrs),
+               "k3_then_k7": lambda: chain(k7["tree"]),
+               "k3_then_k7_scalar": lambda: chain(k7["scalar"])}
+        want = None
+        for name, fn in fns.items():  # the fused call first
+            slab.copy_(slab0)
+            acc.copy_(acc0)
+            fn()
+            torch.cuda.synchronize()
+            if want is None:
+                want = (slab.clone(), acc.clone())
+            elif not all(torch.equal(x.view(torch.int32),
+                                     y.view(torch.int32))
+                         for x, y in zip((slab, acc), want)):
+                raise SystemExit(f"K7 {what} {name}: bits differ from the "
+                                 "fused call's")
+        del want
+        fns["wrapper"] = lambda: ada.adagrad_dense_scatter(*args)
+        if parent is not None:
+            fns["parent_wrapper"] = lambda: cs.parent_dense_branch(*args)
+        hit = int(torch.unique(ids).numel())
+        fused_bytes = n * (4 + width * 4) + hit * width * 16
+        chain_bytes = n * (4 + width * 4) + rows * width * 4 * 6
+        for name, t in timed(torch, cs, fns).items():
+            nbytes = (fused_bytes if name.startswith("fused")
+                      or name == "wrapper" else chain_bytes)
+            print(json.dumps({"kernel": "K7", "input": what,
+                              "variant": name, "ids": n, "hit_rows": hit,
+                              "bytes": nbytes, "bound_ms": nbytes
+                              / cs.HBM_BYTES_PER_S * 1e3, **t}), flush=True)
+        del slab, acc, g, slab0, acc0, vals, ids, fns, args, k7, k3, fused
+        torch.cuda.empty_cache()
+
+
+def main():
+    import torch
 def main():
     import torch
 
@@ -570,7 +672,7 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("row_variants.py needs a CUDA card")
     argv = sys.argv[1:]
-    only = {"k21", "k11", "k6", "k12"}
+    only = {"k21", "k11", "k6", "k12", "k7"}
     while argv:
         if len(argv) >= 2 and argv[0] == "--parent":
             cs.PARENT_DIR = os.path.abspath(argv[1])
@@ -578,7 +680,7 @@ def main():
             only = set(argv[1].split(","))
         else:
             raise SystemExit("usage: python3 row_variants.py [--parent DIR]"
-                             " [--only k21,k11,k6,k12]")
+                             " [--only k21,k11,k6,k12,k7]")
         argv = argv[2:]
     print(vs.card_line(), flush=True)
     kernels = importlib.import_module(
@@ -603,6 +705,11 @@ def main():
         mom = importlib.import_module("distributed_embeddings_torch.ops."
                                       "momentum")
         run_k12(torch, cs, kernels, mom, parent)
+        torch.cuda.empty_cache()
+    if "k7" in only:
+        ada = importlib.import_module("distributed_embeddings_torch.ops."
+                                      "adagrad")
+        run_k7(torch, cs, kernels, ada, parent)
 
 
 if __name__ == "__main__":

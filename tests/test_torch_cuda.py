@@ -51,6 +51,8 @@ ascend every entry it writes lies in [0, nnz]. K1's bounds at hot 10 and
 at its wide grid are stated in its test.
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -59,7 +61,8 @@ from distributed_embeddings_torch.models import (
     DLRMConfig, DLRMDense, InputGenerator, bce_with_logits, build_synthetic,
     synthetic_models_v3)
 from distributed_embeddings_torch.ops import (
-    adagrad_dense, adagrad_dense_plain, adagrad_rows, adagrad_rows_plain,
+    adagrad_dense, adagrad_dense_plain, adagrad_dense_scatter,
+    adagrad_dense_scatter_plain, adagrad_rows, adagrad_rows_plain,
     adam_rows, adam_rows_plain, momentum_rows, momentum_rows_plain,
     dedup_sparse_grad, dedup_sparse_grad_plain, dot_interact_bwd,
     dot_interact_bwd_plain, dot_interact_fwd, dot_interact_fwd_plain,
@@ -676,11 +679,342 @@ def test_adagrad_dense_kernel_matches_plain(cuda_device, slab_dtype,
         assert torch.equal(ga.cpu()[zero], acc.cpu()[zero])
 
 
+def _host_bits(t):
+    """A float tensor's bits (NaN payloads included), on the host."""
+    t = t.detach().cpu()
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int16)
+
+
+def _w8_stream(rng, ids_dtype, acc_dtype, device):
+    """The zoo's w8 dense-apply call: 2,686,976 ids into 60,336 rows of
+    width 8 (uniform ids, a power-law share, one row hit 66,981 times, -3,
+    -R, the sentinel, an id past it and one below -R), the last third of
+    the rows untouched but for the hot row and the wrapped ids; N(0,
+    0.25) rows."""
+    R, w = 60_336, 8
+    ids = np.concatenate([rng.integers(0, 40_000, 2_000_000),
+                          (rng.zipf(1.5, 619_990) - 1) % 40_000,
+                          np.full(66_981, 50_000),
+                          [-3, -R, R, R + 5, -R - 1]])
+    ids = rng.permutation(ids)
+    vals = (rng.normal(size=(len(ids), w)) * 0.5).astype(np.float32)
+    return (R, w, ids, torch.from_numpy(ids).to(ids_dtype).to(device),
+            torch.from_numpy(vals).to(acc_dtype).to(device))
+
+
+def _chain(slab, acc, tid, vals, lr, eps):
+    """The slab-wide chain on the card (the parent's dense branch): a
+    zero gradient slab, K3 into it, K7 over the slab. Returns the
+    gradient slab."""
+    g = torch.zeros(slab.shape, dtype=acc.dtype, device=slab.device)
+    sgd_scatter(g, tid, vals, -1.0)
+    adagrad_dense(slab, acc, g, lr, eps)
+    return g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slab_dtype,acc_dtype", ADAGRAD_PAIRS)
+def test_adagrad_dense_scatter_bit_exact_to_the_chain(cuda_device,
+                                                      slab_dtype,
+                                                      acc_dtype):
+    """The dense-apply branch as one engine call against the chain it
+    replaces (a zero gradient slab, K3, K7) on the zoo's w8 call with a
+    row of 66,981 hits: slab and accumulator bit-exact on every row, the
+    chunked rows included; against the plain version (the gradient
+    summed in stream order on the CPU, the transition on the card) bit-
+    exact on every row hit at most L = 256 times and on the untouched
+    rows (their bits unchanged); K3's gradient on the rows hit more often
+    within K3's bound (k ulps of the accumulator dtype of the sum of
+    |rows|, k the hits). A constant and a device lr, int32 and int64 ids;
+    one launch of the fused call and no K3 or K7."""
+    from distributed_embeddings_torch.ops.scatter_add import SPLIT
+
+    rng = np.random.default_rng(7)
+    for ids_dtype, lr in ((torch.int32, 0.01),
+                          (torch.int64, torch.tensor(0.013)),
+                          (torch.int32, torch.tensor(0.013))):
+        R, w, ids, tid, vals = _w8_stream(rng, ids_dtype, acc_dtype,
+                                          cuda_device)
+        lr_d = lr.to(cuda_device) if isinstance(lr, torch.Tensor) else lr
+        slab = torch.from_numpy(rng.normal(size=(R, w)).astype(
+            np.float32)).to(slab_dtype).to(cuda_device)
+        acc = torch.from_numpy((0.1 + rng.random((R, w))).astype(
+            np.float32)).to(acc_dtype).to(cuda_device)
+        fs, fa = slab.clone(), acc.clone()
+        counts = (adagrad_dense_scatter.launches, sgd_scatter.launches,
+                  adagrad_dense.launches)
+        adagrad_dense_scatter(fs, fa, tid, vals, lr_d, 1e-7)
+        assert (adagrad_dense_scatter.launches, sgd_scatter.launches,
+                adagrad_dense.launches) == (counts[0] + 1, *counts[1:])
+        cs, ca = slab.clone(), acc.clone()
+        g = _chain(cs, ca, tid, vals, lr_d, 1e-7)
+        assert torch.equal(_host_bits(fs), _host_bits(cs))
+        assert torch.equal(_host_bits(fa), _host_bits(ca))
+        wrapped = np.where(ids < 0, ids + R, ids)
+        kept = (wrapped >= 0) & (wrapped < R)
+        rows = wrapped[kept]
+        hits = np.bincount(rows, minlength=R)
+        assert hits[50_000] == 66_981
+        few = hits <= SPLIT
+        assert (~few).sum() > 1 and (hits == 0).sum() > R // 4
+        # the plain version on the rows hit at most L times
+        sel = kept.copy()
+        sel[sel] &= few[rows]
+        gp = torch.zeros((R, w), dtype=acc_dtype)
+        sgd_scatter_plain(gp, torch.from_numpy(ids[sel]),
+                          vals.cpu()[torch.from_numpy(sel)], -1.0)
+        ps, pa = slab.clone(), acc.clone()
+        adagrad_dense_plain(ps, pa, gp.to(cuda_device), lr_d, 1e-7)
+        fr = torch.from_numpy(few).to(cuda_device)
+        assert torch.equal(_host_bits(fs[fr]), _host_bits(ps[fr]))
+        assert torch.equal(_host_bits(fa[fr]), _host_bits(pa[fr]))
+        untouched = torch.from_numpy(hits == 0).to(cuda_device)
+        for got, old in ((fs, slab), (fa, acc)):
+            assert torch.equal(_host_bits(got[untouched]),
+                               _host_bits(old[untouched]))
+        # K3's gradient on the chunked rows
+        t = torch.from_numpy(rows).to(cuda_device)
+        v = vals.double()[torch.from_numpy(kept).to(cuda_device)]
+        exact = torch.zeros((R, w), dtype=torch.float64,
+                            device=cuda_device).index_add_(0, t, v)
+        mag = torch.zeros((R, w), dtype=torch.float64,
+                          device=cuda_device).index_add_(0, t, v.abs())
+        k = torch.from_numpy(hits).to(cuda_device)[:, None].double()
+        mant = 23 if acc_dtype == torch.float32 else 7
+        ulp = torch.exp2(torch.floor(torch.log2(mag.clamp(min=2.0 ** -126)))
+                         - mant)
+        long = ~fr
+        assert bool(((g.double() - exact).abs()[long]
+                     <= (k * ulp)[long]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["empty", "all_dropped", "width3",
+                                  "unaligned", "one_row", "w128_bf16"])
+def test_adagrad_dense_scatter_edges(cuda_device, case):
+    """The fused call at its edges, bit-exact to the chain (zero slab +
+    K3 + K7) and to the plain version run on CPU copies (every row here
+    is hit at most 256 times): no ids (no launch), every id dropped
+    (nothing moves), a width of 3 (one column a lane), stream rows 4
+    bytes off their buffer (one column a lane), one row hit 1,000 times
+    (chunked, held to the chain only), a 128-wide bf16 slab over fp32
+    accumulators."""
+    rng = np.random.default_rng(len(case))
+    R, w, sdt, adt = 300, 16, torch.float32, torch.float32
+    ids = rng.integers(-R, R + 3, 2000)
+    if case == "width3":
+        w = 3
+    if case == "w128_bf16":
+        w, sdt = 128, torch.bfloat16
+    if case == "empty":
+        ids = ids[:0]
+    if case == "all_dropped":
+        ids = np.concatenate([np.full(50, R), [R + 9, -R - 4]])
+    if case == "one_row":
+        ids = np.concatenate([ids, np.full(1000, 17)])
+    ids = rng.permutation(ids)
+    tid = torch.from_numpy(ids).int().to(cuda_device)
+    n, off = len(ids), int(case == "unaligned")
+    vals = torch.from_numpy(rng.normal(size=n * w + 1).astype(
+        np.float32)).to(adt).to(cuda_device)[off:off + n * w].view(n, w)
+    assert (vals.data_ptr() % 16 != 0) == bool(off)
+    slab = torch.from_numpy(rng.normal(size=(R, w)).astype(np.float32)).to(
+        sdt).to(cuda_device)
+    acc = torch.from_numpy((0.1 + rng.random((R, w))).astype(np.float32)
+                           ).to(adt).to(cuda_device)
+    for lr in (0.05, torch.tensor(0.02, device=cuda_device)):
+        fs, fa = slab.clone(), acc.clone()
+        before = adagrad_dense_scatter.launches
+        adagrad_dense_scatter(fs, fa, tid, vals, lr, 1e-7)
+        assert adagrad_dense_scatter.launches == before + (case != "empty")
+        cs, ca = slab.clone(), acc.clone()
+        _chain(cs, ca, tid, vals, lr, 1e-7)
+        assert torch.equal(_host_bits(fs), _host_bits(cs))
+        assert torch.equal(_host_bits(fa), _host_bits(ca))
+        moved = not torch.equal(fs, slab)
+        assert moved == (case not in ("empty", "all_dropped"))
+        if case != "one_row":
+            ps, pa = slab.cpu(), acc.cpu()
+            adagrad_dense_scatter_plain(
+                ps, pa, tid.cpu(), vals.cpu(),
+                lr.cpu() if isinstance(lr, torch.Tensor) else lr, 1e-7)
+            assert torch.equal(_host_bits(fs), _host_bits(ps))
+            assert torch.equal(_host_bits(fa), _host_bits(pa))
+
+
+def _nan_bits_equal(a, b):
+    """Equal NaN positions and equal bits elsewhere (a NaN's payload is
+    the rounding path's: the card's bf16 conversion and PyTorch's
+    differ)."""
+    a, b = a.detach().cpu().float(), b.detach().cpu().float()
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(_host_bits(a[~na]),
+                                               _host_bits(b[~nb]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slab_dtype,acc_dtype", ADAGRAD_PAIRS)
+def test_sparse_adagrad_dense_regime_takes_the_path_its_constants_give(
+        cuda_device, slab_dtype, acc_dtype):
+    """``SparseAdagrad.apply_rows`` in the dense-apply regime on the
+    card: with the default constants one fused launch (no K3, no K7, no
+    gradient slab); with ``eps = 0`` over a zero accumulator the
+    slab-wide chain (one K3, one K7), whose untouched elements turn NaN
+    as JAX's do, held to its plain version (the gradient in stream order
+    on the CPU, the transition on the card): NaN positions equal and
+    every other bit equal."""
+    rng = np.random.default_rng(41)
+    R, w = 500, 16
+    ids = rng.permutation(np.concatenate([rng.integers(0, 300, 3000),
+                                          [-2, R, R + 1]]))
+    tid = torch.from_numpy(ids).int().to(cuda_device)
+    vals = torch.from_numpy(rng.normal(size=(len(ids), w)).astype(
+        np.float32)).to(cuda_device)
+    slab = torch.from_numpy(rng.normal(size=(R, w)).astype(np.float32)).to(
+        slab_dtype).to(cuda_device)
+    kernels = (adagrad_dense_scatter, sgd_scatter, adagrad_dense)
+    for init, eps, want in ((0.1, 1e-7, (1, 0, 0)), (0.0, 0.0, (0, 1, 1))):
+        opt = SparseAdagrad(initial_accumulator_value=init, eps=eps,
+                            dense_apply_ratio=1e9)
+        acc = torch.full((R, w), init, dtype=acc_dtype, device=cuda_device)
+        for lr in (0.05, torch.tensor(0.02, device=cuda_device)):
+            s, a = slab.clone(), acc.clone()
+            before = [k.launches for k in kernels]
+            opt.apply_rows(s, a, tid, vals, lr)
+            assert tuple(k.launches - b for k, b in
+                         zip(kernels, before)) == want
+            g = torch.zeros((R, w), dtype=acc_dtype)
+            sgd_scatter_plain(g, tid.cpu(), vals.to(acc_dtype).cpu(), -1.0)
+            ps, pa = slab.clone(), acc.clone()
+            adagrad_dense_plain(ps, pa, g.to(cuda_device), lr, eps)
+            assert _nan_bits_equal(s, ps) and _nan_bits_equal(a, pa)
+            untouched = torch.ones(R, dtype=torch.bool)
+            untouched[torch.from_numpy(np.where(ids < 0, ids + R, ids)[
+                (ids < R)])] = False
+            assert bool(torch.isnan(s.cpu()[untouched]).all()) == (eps == 0)
+
+
+@pytest.mark.cuda
+def test_adagrad_dense_scatter_record_hits_and_replays_in_a_cuda_graph(
+        cuda_device):
+    """The fused call through its launch record: new tensors of the same
+    layouts build nothing; a changed width, dtype or eps builds a new
+    record; a call captured in a ``torch.cuda.CUDAGraph`` (device lr) and
+    replayed twice with fresh inputs copied into the captured tensors
+    gives the eager call's bits each time (the engine's tickets are
+    never reset, so nothing needs resetting between replays)."""
+    ada = importlib.import_module("distributed_embeddings_torch.ops.adagrad")
+    rng = np.random.default_rng(23)
+    R, w, n = 3000, 16, 40_000
+    ids = np.concatenate([rng.integers(-5, R + 2, n - 700),
+                          np.full(700, 11)])
+
+    def case():
+        t = torch.from_numpy(rng.permutation(ids)).int().to(cuda_device)
+        v = torch.from_numpy(rng.normal(size=(n, w)).astype(
+            np.float32)).to(cuda_device)
+        return [torch.from_numpy(rng.normal(size=(R, w)).astype(
+            np.float32)).abs().to(cuda_device) for _ in range(2)], t, v
+
+    def pair(fn, slab, acc, t, v, lr, eps=1e-7):
+        out = [slab.clone(), acc.clone()]
+        fn(*out, t, v, lr, eps)
+        return out
+
+    lr = torch.tensor(0.02, device=cuda_device)
+    (slab, acc), t, v = case()
+    pair(adagrad_dense_scatter, slab, acc, t, v, lr)
+    builds = ada._SCATTER.builds
+    (slab, acc), t, v = case()
+    want = pair(lambda *x: (_chain(*x), None), slab, acc, t, v, lr)
+    got = pair(adagrad_dense_scatter, slab, acc, t, v, lr)
+    assert ada._SCATTER.builds == builds
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    pair(adagrad_dense_scatter, slab[:, :8].contiguous(),
+         acc[:, :8].contiguous(), t, v[:, :8].contiguous(), lr)
+    assert ada._SCATTER.builds == builds + 1
+    pair(adagrad_dense_scatter, slab, acc, t, v, lr, eps=1e-6)
+    assert ada._SCATTER.builds == builds + 2
+    state = [slab.clone(), acc.clone()]
+    tin, vin = t.clone(), v.clone()
+    stream = torch.cuda.Stream(device=cuda_device)
+    stream.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(stream):
+        adagrad_dense_scatter(*state, tin, vin, lr, 1e-7)
+    torch.cuda.current_stream(cuda_device).wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        adagrad_dense_scatter(*state, tin, vin, lr, 1e-7)
+    for _ in range(2):
+        (s0, a0), t0, v0 = case()
+        want = pair(adagrad_dense_scatter, s0, a0, t0, v0, lr)
+        state[0].copy_(s0)
+        state[1].copy_(a0)
+        tin.copy_(t0)
+        vin.copy_(v0)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(state, want))
+        assert not torch.equal(state[0], s0)
+
+
+@pytest.mark.cuda
+def test_adagrad_dense_record_hits_and_replays_in_a_cuda_graph(cuda_device):
+    """K7 through its launch record: new tensors of the same layouts
+    build nothing, a changed eps builds a new record, an element count
+    not a multiple of 4 takes one element a thread bit-exact, and a call
+    captured in a CUDA graph replays the eager call's bits."""
+    ada = importlib.import_module("distributed_embeddings_torch.ops.adagrad")
+    rng = np.random.default_rng(29)
+
+    def case(R=2000, w=8):
+        return [torch.from_numpy((rng.random((R, w)) + 0.1).astype(
+            np.float32)).to(cuda_device) for _ in range(3)]
+
+    lr = torch.tensor(0.02, device=cuda_device)
+    s, a, g = case()
+    adagrad_dense(s.clone(), a.clone(), g, lr, 1e-7)
+    builds = ada._DENSE.builds
+    s, a, g = case()
+    got, want = [s.clone(), a.clone()], [s.clone(), a.clone()]
+    adagrad_dense(*got, g, lr, 1e-7)
+    adagrad_dense_plain(*want, g, lr, 1e-7)
+    assert ada._DENSE.builds == builds
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    adagrad_dense(s.clone(), a.clone(), g, lr, 1e-6)
+    assert ada._DENSE.builds == builds + 1
+    s3, a3, g3 = case(R=333, w=3)
+    got, want = [s3.clone(), a3.clone()], [s3.clone(), a3.clone()]
+    adagrad_dense(*got, g3, 0.05, 1e-7)
+    adagrad_dense_plain(*want, g3, 0.05, 1e-7)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    state, gin = [s.clone(), a.clone()], g.clone()
+    stream = torch.cuda.Stream(device=cuda_device)
+    stream.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(stream):
+        adagrad_dense(*state, gin, lr, 1e-7)
+    torch.cuda.current_stream(cuda_device).wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        adagrad_dense(*state, gin, lr, 1e-7)
+    for _ in range(2):
+        s0, a0, g0 = case()
+        want = [s0.clone(), a0.clone()]
+        adagrad_dense(*want, g0, lr, 1e-7)
+        state[0].copy_(s0)
+        state[1].copy_(a0)
+        gin.copy_(g0)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(state, want))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("ratio", [6.0, None], ids=["dense", "sparse"])
 def test_zoo_train_on_the_card_matches_the_cpu(cuda_device, ratio):
     """The capped tiny zoo trained 3 steps with ``SparseAdagrad`` +
-    ``Adagrad`` on the card (K1, then K3 + K7 or K5 + K6 per slab) and on
+    ``Adagrad`` on the card (K1, then the fused dense-apply call or K5 +
+    K6 per slab) and on
     the CPU (the plain versions) from one state, float32: losses within
     1e-5 relative, tables within 1e-5, accumulators and dense params
     within 1e-4 relative / absolute (cuBLAS and the CPU sum in other
@@ -708,7 +1042,7 @@ def test_zoo_train_on_the_card_matches_the_cpu(cuda_device, ratio):
         step = make_hybrid_train_step(de, _mse, Adagrad(0.01), opt,
                                       lr_schedule=0.01)
         kernels = (sgd_scatter, adagrad_dense, dedup_sparse_grad,
-                   adagrad_rows)
+                   adagrad_rows, adagrad_dense_scatter)
         before = [k.launches for k in kernels]
         losses = []
         for k in range(3):
@@ -719,11 +1053,11 @@ def test_zoo_train_on_the_card_matches_the_cpu(cuda_device, ratio):
         launched = [k.launches - b for k, b in zip(kernels, before)]
         slabs = 2 * 3  # two width slabs, three steps
         if dev == "cpu":
-            assert launched == [0, 0, 0, 0]
+            assert launched == [0, 0, 0, 0, 0]
         elif ratio is None:
-            assert launched == [0, 0, slabs, slabs]
-        else:
-            assert launched == [slabs, slabs, 0, 0]
+            assert launched == [0, 0, slabs, slabs, 0]
+        else:  # the default constants: the fused dense-apply call
+            assert launched == [0, 0, 0, 0, slabs]
         out[str(dev)] = (np.array(losses), de.get_weights(state.emb_params),
                          {k: to_np(v) for k, v in
                           state.emb_opt_state.items()},
@@ -1511,6 +1845,71 @@ def test_ragged_grad_kernel_matches_plain(cuda_device, dtype, width):
     _, wv = ragged_grad_plain(g, splits.to(cuda_device), cap=cap + 9)
     assert torch.equal(gv, wv)
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_ragged_grad_record_hits_and_replays_in_a_cuda_graph(cuda_device):
+    """K9 through its launch record: new tensors of the same layouts
+    build nothing; a changed fact (``reciprocal``, the weights given)
+    builds a new record; a call captured in a ``torch.cuda.CUDAGraph``
+    and replayed twice with fresh inputs copied into the captured tensors
+    writes the plain version's bits into the captured outputs each time
+    (the launch keeps no state between calls)."""
+    from distributed_embeddings_torch.ops import ragged_grad, ragged_grad_plain
+
+    sg = importlib.import_module(
+        "distributed_embeddings_torch.ops.sparse_grad")
+    rng = np.random.default_rng(31)
+    n, b, w, vocab, cap = 3, 200, 16, 40, 1000
+
+    def case():
+        lengths = rng.integers(0, 7, (n, b))
+        splits = torch.from_numpy(np.concatenate(
+            [np.zeros((n, 1), np.int64), np.cumsum(lengths, 1)], 1))
+        values = torch.from_numpy(rng.integers(-2, vocab + 2, (n, cap)))
+        g = torch.from_numpy(rng.normal(size=(n, b, w)).astype(np.float32))
+        return [t.to(cuda_device) for t in (g, splits, values.int())]
+
+    meta = dict(rows=torch.full((n,), vocab, dtype=torch.int64,
+                                device=cuda_device),
+                roff=torch.arange(n, dtype=torch.int64,
+                                  device=cuda_device) * vocab,
+                mean=torch.tensor([1, 0, 1], dtype=torch.int32,
+                                  device=cuda_device),
+                sentinel=n * vocab + 1)
+
+    def plain(g, sp, v):
+        return ragged_grad_plain(g, sp, cap=cap, values=v, **meta)
+
+    g, sp, v = case()
+    ragged_grad(g, sp, values=v, **meta)
+    builds = sg._K9.builds
+    g, sp, v = case()
+    before = ragged_grad.launches
+    got, want = ragged_grad(g, sp, values=v, **meta), plain(g, sp, v)
+    assert sg._K9.builds == builds and ragged_grad.launches == before + 1
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    ragged_grad(g, sp, values=v, reciprocal=True, **meta)
+    assert sg._K9.builds == builds + 1
+    ragged_grad(g, sp, values=v, weights=torch.ones(
+        (n, cap), device=cuda_device), **meta)
+    assert sg._K9.builds == builds + 2
+    ins = [t.clone() for t in (g, sp, v)]
+    stream = torch.cuda.Stream(device=cuda_device)
+    stream.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(stream):
+        ragged_grad(ins[0], ins[1], values=ins[2], **meta)
+    torch.cuda.current_stream(cuda_device).wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = ragged_grad(ins[0], ins[1], values=ins[2], **meta)
+    for _ in range(2):
+        fresh = case()
+        for t, f in zip(ins, fresh):
+            t.copy_(f)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(outs, plain(*fresh)))
 
 
 @pytest.mark.cuda
