@@ -291,6 +291,40 @@ Phases (any failure raises and the script exits non-zero):
       all-reduce, cotangent exchange, apply; host and device ms). Its
       samples/s are those of 8 ranks time-sharing one H100 over gloo:
       not a multi-GPU and not an NCCL number.
+   e. row-sliced tables (``row_slice``) and model-parallel input
+      (``MpInputs``, ``pack_mp_inputs``):
+      a. (run after 14a, in this process) K1, K8 and K9 with per-slot
+         row bases and K20's summing descriptor against their plain
+         versions, bit-exact: slice-edge ids (``rbase - 1``, ``rbase``,
+         ``rbase + rows - 1``, ``rbase + rows``, negative, past the
+         table), fp32 and bf16, masked and unmasked slots in one launch,
+         in-block weights, rows past the capacity; sums of k = 2, 4 and
+         8 parts in fp32 and bf16 with NaN and Inf bits and an unaligned
+         width; a CUDA-graph replay of each new record. Then (after 14d,
+         alone) K1 with row bases and K20's unpack with its sums timed at
+         e-c's rank-0 shapes, K8 and K9 with row bases on a ragged block
+         of 32 slots (8 sources x 4 row slices of a 2M-row table) at
+         b=2048, beside their plain versions and byte bounds;
+      b. 14b's small tables and world-1 run, row-sliced (``row_slice``
+         700,000, no column slicing), fed by ``pack_mp_inputs``: 5 world-8
+         steps and an eval batch within 14b's bounds of world 1; the same
+         steps with data-parallel input equal bit for bit; a control with
+         rank 3's row bases dropped must fail the bounds; every K20 call
+         and every K1 call with row bases bit-exact to its plain version
+         on the step's own inputs;
+      c. the Criteo-1TB tables at width 128, ``row_slice`` 1.4e9 and no
+         column slicing (tables 0, 9, 19, 20 and 21 split 4 ways; 6.67 GB
+         of bf16 slab a rank), bf16, ``SparseSGD`` + SGD at 0.005, guard
+         on, global batch 65536 of Zipfian ids as ``MpInputs``: one
+         checked step (K1 with row bases and K20 bit-exact on every rank,
+         each width slab's touched rows against the plain scatter), 2
+         warmup + 5 timed steps with the launches counted (a rank a step:
+         K1 1 with row bases, K19 0, K20 3 with one sum, K2 1, K4 1, K3
+         1, K21 2, K22 1) and the stage split (no id exchange runs);
+      d. ``distributed_embeddings_torch.dryrun.dryrun_multichip(8)`` on
+         ``cuda:0``: both slicing modes engaged, a finite loss, every
+         row-slice mode launched (K8 and K9 with row bases on its ragged
+         feature).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Run from the root of a checkout:
@@ -560,8 +594,19 @@ def parent_wrappers():
         f"distributed_embeddings_torch.parallel.{m}")
         for m, _ in LOOKUP_SITES}
     lookups = [getattr(mods[m], name) for m, name in LOOKUP_SITES]
+
+    def without_rbase(fn):
+        # the parent's wrappers have no row bases: this tree's call sites
+        # pass rbase=None on an unsliced group
+        def call(*a, rbase=None, **kw):
+            check(rbase is None, "the parent's lookups take no row bases")
+            return fn(*a, **kw)
+        return call
+
     for m, name in LOOKUP_SITES:
-        setattr(mods[m], name, getattr(par["embedding_lookup"], name))
+        fn = getattr(par["embedding_lookup"], name)
+        setattr(mods[m], name, without_rbase(fn) if name in (
+            "gather_combine", "ragged_combine") else fn)
     try:
         yield
     finally:
@@ -1392,13 +1437,31 @@ def epilogue(steps=1, guard=True):
     return {"grad_health": steps if guard else 0, "dense_update": steps}
 
 
+#: the row-slice modes of K1, K8 and K9 and K20's sums: (kernels-line
+#: name, wrapper, the wrapper's count of those launches)
+MODE_COUNTS = (
+    ("gather_combine_row_base", "gather_combine", "launches_rbase"),
+    ("ragged_combine_row_base", "ragged_combine", "launches_rbase"),
+    ("ragged_grad_row_base", "ragged_grad", "launches_rbase"),
+    ("pack_columns_sum", "pack_columns", "launches_sum"))
+
+
 def zero_counts():
-    for fn in kernel_fns().values():
+    fns = kernel_fns()
+    for fn in fns.values():
         fn.launches = 0
+    for _, name, attr in MODE_COUNTS:
+        setattr(fns[name], attr, 0)
 
 
 def read_counts():
     return {name: fn.launches for name, fn in kernel_fns().items()}
+
+
+def read_mode_counts():
+    fns = kernel_fns()
+    return {mode: getattr(fns[name], attr)
+            for mode, name, attr in MODE_COUNTS}
 
 
 @contextlib.contextmanager
@@ -3195,9 +3258,10 @@ def zoo_kernel_times(torch, de, opt, st, data, cfg):
     k1_calls = []
     real_k1 = lookup.gather_combine
 
-    def recording_k1(slab, ids, rows, roff, div=None, mask=None):
+    def recording_k1(slab, ids, rows, roff, div=None, mask=None,
+                     rbase=None):
         k1_calls.append((slab, ids, rows, roff, div, mask))
-        return real_k1(slab, ids, rows, roff, div, mask)
+        return real_k1(slab, ids, rows, roff, div, mask, rbase=rbase)
 
     step = make_hybrid_train_step(de, zoo_loss, Adagrad(ZOO_LR), opt,
                                   lr_schedule=ZOO_LR, nan_guard=False)
@@ -3890,6 +3954,13 @@ def ragged_small_check(torch, table_dtype):
         f"(max err {control[1]})")
 
 
+def unbased(kw):
+    """A recorded call's keywords for the parent's wrappers, which take no
+    row base (the call's ``rbase`` is None: an unsliced group)."""
+    check(kw.get("rbase") is None, "the parent's wrappers take no row base")
+    return {k: v for k, v in kw.items() if k != "rbase"}
+
+
 @contextlib.contextmanager
 def record_calls(module, name, keep_out=True, on_call=None):
     """Wrap ``module.<name>`` (a kernel wrapper the package calls by that
@@ -4302,7 +4373,8 @@ def ragged_kernel_times(torch, de, st, batches):
     nbytes = live_ids * 4 + n * (b + 1) * 8 + uniq8[0] * row + out_bytes
     par = parent_ops()
     parent8 = None if par is None else (
-        lambda: par["embedding_lookup"].ragged_combine(*a0, **kw0))
+        lambda: par["embedding_lookup"].ragged_combine(*a0,
+                                                       **unbased(kw0)))
     case = kernel_case(
         torch, "ragged_combine", f"{n}x{b} rows, cap {cap}",
         lambda: ragged_combine(*a0, **kw0), parent8,
@@ -4350,7 +4422,8 @@ def ragged_kernel_times(torch, de, st, batches):
         torch, "ragged_grad", f"{n}x{cap} positions",
         lambda: ragged_grad(g9, sp9, **kw9),
         None if par is None else (
-            lambda: par["sparse_grad"].ragged_grad(g9, sp9, **kw9)),
+            lambda: par["sparse_grad"].ragged_grad(g9, sp9,
+                                                   **unbased(kw9))),
         lambda: torch.index_select(gpad0, 0, sidx0), nbytes,
         plain=lambda: ragged_grad_plain(g9, sp9, **kw9),
         extra=dict(positions=n * cap, cycling_ms=ms))
@@ -4359,12 +4432,14 @@ def ragged_kernel_times(torch, de, st, batches):
     key9 = (g9, sp9, kw9.get("cap") or kw9["values"].shape[1],
             kw9.get("values"), kw9.get("rows"), kw9.get("roff"),
             int(kw9.get("sentinel", 0)), kw9.get("ids_dtype"),
-            kw9.get("mean"), kw9.get("weights"), kw9.get("reciprocal", False))
+            kw9.get("mean"), kw9.get("weights"), kw9.get("reciprocal", False),
+            kw9.get("rbase"))
     ids_o, vals_o = ragged_grad(g9, sp9, **kw9)
     case["host_split_us"] = launch_host_split(
         torch, "ragged_grad", lambda: sg.ragged_grad_key(*key9), sg._K9,
         tuple(None if t is None else t.data_ptr() for t in (
-            g9, sp9, *key9[3:6], key9[8], key9[9], ids_o, vals_o)),
+            g9, sp9, *key9[3:6], kw9.get("rbase"), key9[8], key9[9], ids_o,
+            vals_o)),
         lambda: ragged_grad(g9, sp9, **kw9),
         [t for t in key9 if isinstance(t, torch.Tensor)], calls=20)
     cases["ragged_grad"] = case
@@ -7780,16 +7855,18 @@ W8_STAGES = ("id_exchange", "lookup", "output_exchange", "dense",
              "all_reduce", "cotangent_exchange", "apply")
 
 
-def w8_per_step(groups, widths, steps=1):
+def w8_per_step(groups, widths, steps=1, mp=False):
     """Launches of ``steps`` world-8 DLRM steps on one rank: K1 once per
-    plan group, K3 once per width slab, K19 once, K20 three times (the
-    lookup rows, the unpack, the cotangent pack), K2 and K4 once, K21
-    twice (the local cotangents before the all-reduce, the averaged
-    dense gradients after it) and K22 once."""
+    plan group, K3 once per width slab, K19 once (none with
+    model-parallel input, ``mp``: no id block is packed), K20 three
+    times (the lookup rows, the unpack, the cotangent pack), K2 and K4
+    once, K21 twice (the local cotangents before the all-reduce, the
+    averaged dense gradients after it) and K22 once."""
     want = {name: 0 for name in kernel_fns()}
-    want.update(gather_combine=groups, sgd_scatter=widths, pack_ids=1,
-                pack_columns=3, dot_interact_fwd=1, dot_interact_bwd=1,
-                grad_health=2, dense_update=1)
+    want.update(gather_combine=groups, sgd_scatter=widths,
+                pack_ids=0 if mp else 1, pack_columns=3,
+                dot_interact_fwd=1, dot_interact_bwd=1, grad_health=2,
+                dense_update=1)
     return {k: v * steps for k, v in want.items()}
 
 
@@ -7856,7 +7933,8 @@ def pack_checks(torch):
         exchange.pack_ids, exchange.pack_columns = real_ids, real_cols
 
 
-def w8_model(torch, sizes, cst, compute_dtype):
+def w8_model(torch, sizes, cst, compute_dtype, row_slice=None,
+             dp_input=True):
     from distributed_embeddings_torch.models import DLRMConfig
     from distributed_embeddings_torch.parallel import DistributedEmbedding
 
@@ -7868,6 +7946,7 @@ def w8_model(torch, sizes, cst, compute_dtype):
     de = DistributedEmbedding(cfg.embedding_configs(), world_size=W8,
                               strategy="comm_balanced",
                               column_slice_threshold=cst,
+                              row_slice=row_slice, dp_input=dp_input,
                               compute_dtype=compute_dtype)
     return cfg, de
 
@@ -8124,9 +8203,11 @@ def w8_stage_marks(torch):
             setattr(mod, name, fn)
 
 
-def w8_staged_steps(torch, step, st, batches, steps):
+def w8_staged_steps(torch, step, st, batches, steps, stages=W8_STAGES):
     """``steps`` real world-8 steps (after one unmarked) with their stage
-    bounds marked: per stage the medians of host ms and device ms."""
+    bounds marked: per stage the medians of host ms and device ms
+    (``stages``: W8_STAGES, or with model-parallel input, where no id
+    exchange runs, the stages after it)."""
     split = []
     with w8_stage_marks(torch) as (mark, marks):
         for k in range(1 + steps):
@@ -8134,18 +8215,17 @@ def w8_staged_steps(torch, step, st, batches, steps):
             mark()
             _, st = step(st, *batches[k % len(batches)])
             mark()
-            check(len(marks) == len(W8_STAGES) + 1, f"world 8 stage split: "
-                  f"{len(marks)} marks a step, expected "
-                  f"{len(W8_STAGES) + 1}")
+            check(len(marks) == len(stages) + 1, f"world 8 stage split: "
+                  f"{len(marks)} marks a step, expected {len(stages) + 1}")
             if k:
                 split.append({name: (
                     (marks[i + 1][0] - marks[i][0]) * 1e3,
                     marks[i][1].elapsed_time(marks[i + 1][1]))
-                    for i, name in enumerate(W8_STAGES)})
+                    for i, name in enumerate(stages)})
     return st, {name: {"host_ms": float(np.median([s[name][0] for s in split])),
                        "device_ms": float(np.median([s[name][1]
                                                      for s in split]))}
-                for name in W8_STAGES}
+                for name in stages}
 
 
 def w8_rank_full(torch, rank):
@@ -8248,10 +8328,332 @@ def w8_rank_full(torch, rank):
     return out
 
 
+# ----------------------------------- row slices and model-parallel input (14e)
+
+W8E_SMALL_RS = 700_000         # the 20,000-row tables split 4 ways, the
+                               # 7,421-row one 2 ways
+W8E_RS = 1_400_000_000         # the 25.6M-40M-row tables split 4 ways
+W8E_STEPS = 5
+W8E_WARMUP = 2
+W8E_DROP_RANK = 3              # the control drops this rank's row bases
+#: the small check's bounds of world 1 (14b's)
+W8_SMALL_BOUNDS = {"loss_err": 1e-5, "dense_err": 1e-5, "pred_err": 1e-5,
+                   "slab_max_err": 1e-6, "slab_rel_err": 1e-3}
+
+
+def drop_row_bases(torch, de):
+    """The control: this layer's row-sliced slots read their table's
+    first rows (its row bases zeroed)."""
+    real = de._plan_rbase
+
+    def zeros(plan, gi, device, reps=1):
+        rb = real(plan, gi, device, reps)
+        return None if rb is None else torch.zeros_like(rb)
+
+    de._plan_rbase = zeros
+
+
+def mp_feed(torch, de, batch, rows):
+    """A numpy global batch as this rank takes it with model-parallel
+    input: its block of the packed ids (``pack_mp_inputs`` on the host,
+    then to the card) and its rows of the dense batch."""
+    cats, num, lab = batch
+    return (de.pack_mp_inputs(cats, device="cuda"),
+            torch.from_numpy(num[rows].copy()).cuda(),
+            torch.from_numpy(lab[rows].copy()).cuda())
+
+
+@contextlib.contextmanager
+def row_base_checks(torch):
+    """Route the step's K1, K8 and K9 call sites through checkers: each
+    launch with row bases must give the plain version's bits on the same
+    inputs (K1 at hotness 1 without weights, where its sum is one term).
+    Yields the checked calls by kernel and, under ``"err"``, the largest
+    difference each showed."""
+    from distributed_embeddings_torch.ops import (gather_combine_plain,
+                                                  ragged_combine_plain)
+    from distributed_embeddings_torch.ops.sparse_grad import (
+        ragged_grad_plain)
+    from distributed_embeddings_torch.parallel import apply, lookup
+
+    real = (lookup.gather_combine, lookup.ragged_combine, apply.ragged_grad)
+    names = ("gather_combine", "ragged_combine", "ragged_grad")
+    n = dict.fromkeys(names, 0)
+    n["err"] = dict.fromkeys(names, 0.0)
+
+    def note(name, got, want):
+        n["err"][name] = max(n["err"][name], bits_err(
+            torch, got, want, f"{name} with row bases on the step's inputs"))
+        n[name] += 1
+
+    def k1(slab, ids, rows, roff, div, mask=None, weights=None, rbase=None):
+        got = real[0](slab, ids, rows, roff, div, mask, weights, rbase=rbase)
+        if rbase is not None and ids.shape[2] == 1 and weights is None:
+            note("gather_combine", got, gather_combine_plain(
+                slab, ids, rows, roff, div, mask, weights, rbase))
+        return got
+
+    def k8(*a, **kw):
+        got = real[1](*a, **kw)
+        if kw.get("rbase") is not None:
+            note("ragged_combine", got, ragged_combine_plain(*a, **kw))
+        return got
+
+    def k9(*a, **kw):
+        got = real[2](*a, **kw)
+        if kw.get("rbase") is not None:
+            want = ragged_grad_plain(*a, **kw)
+            note("ragged_grad", got[0], want[0])
+            note("ragged_grad", got[1], want[1])
+        return got
+
+    lookup.gather_combine, lookup.ragged_combine, apply.ragged_grad = (
+        k1, k8, k9)
+    try:
+        yield n
+    finally:
+        lookup.gather_combine, lookup.ragged_combine, apply.ragged_grad = real
+
+
+def w8e_rank_small(torch, rank, tmp):
+    """14e-b on one rank: the small tables row-sliced (``row_slice``
+    W8E_SMALL_RS, no column slicing) from 14b's tables and dense
+    parameters: the model-parallel run (``pack_mp_inputs``), the same
+    steps with data-parallel input, and the control (rank
+    W8E_DROP_RANK's row bases dropped, model-parallel input); rank 0
+    writes each run's tables to ``tmp``."""
+    from distributed_embeddings_torch.models import DLRMDense
+    from distributed_embeddings_torch.parallel import bootstrap
+
+    b = W8_SMALL_BATCH // W8
+    rows = slice(rank * b, (rank + 1) * b)
+    out = {}
+    for run in ("mp", "dp", "control"):
+        cfg, de = w8_model(torch, w8_small_sizes(), None, None,
+                           row_slice=W8E_SMALL_RS, dp_input=run == "dp")
+        if run == "control" and rank == W8E_DROP_RANK:
+            drop_row_bases(torch, de)
+        dense = DLRMDense(cfg, device="cuda")
+        st = w8_small_state(torch, de, dense, tmp)
+        if run == "dp":
+            def feed(bt):
+                return w8_to_card(torch, bt, rows)
+        else:
+            def feed(bt, de=de):
+                return mp_feed(torch, de, bt, rows)
+        zero_counts()
+        with pack_checks(torch) as n, row_base_checks(torch) as nr:
+            losses, st, pred = w8_small_run(torch, de, st, feed)
+        tables = de.get_weights(st.emb_params, all_ranks=False)
+        if rank == 0:
+            for t, a in enumerate(tables):
+                np.save(os.path.join(tmp, f"w8e_{run}_{t}.npy"), a)
+        plan = next(iter(de._plan_cache.values()))
+        out[run] = {"losses": losses, "checked": dict(n),
+                    "row_base_checked": dict(nr),
+                    "launches": read_counts(), "modes": read_mode_counts(),
+                    "dense": [p.detach().cpu().numpy()
+                              for p in st.dense_params.parameters()],
+                    "pred": bootstrap.to_host(pred),
+                    "row_sliced": sorted(de.strategy.row_sliced_tables),
+                    "based_groups": int(sum(bool(r.any())
+                                            for r in plan.rsliced))}
+        del st, dense, tables
+    torch.cuda.empty_cache()
+    return out
+
+
+def mp_full_batch(torch, de, rank, seed):
+    """A global batch of 14e-c (Zipfian ids over each Criteo-1TB table,
+    W8_BATCH rows) as rank ``rank`` takes it: its packed block of the
+    ids on the card and its rows of N(0, 1) features and 0/1 labels."""
+    from distributed_embeddings_torch.utils.data import power_law_ids
+
+    rng = np.random.default_rng(seed)
+    cats = [power_law_ids(rng, v, (W8_BATCH,)).astype(np.int32)
+            for v in CRITEO_1TB_SIZES]
+    num = rng.normal(size=(W8_BATCH, 13)).astype(np.float32)
+    lab = (rng.random(W8_BATCH) < 0.25).astype(np.float32)
+    b = W8_BATCH // W8
+    mp, num_t, lab_t = mp_feed(torch, de, (cats, num, lab),
+                               slice(rank * b, (rank + 1) * b))
+    return mp, (num_t, lab_t)
+
+
+def w8e_rank_full(torch, rank):
+    """14e-c on one rank: the Criteo-1TB tables row-sliced (``row_slice``
+    1.4e9, no column slicing), model-parallel input (see main's
+    docstring, phase 14e-c)."""
+    from distributed_embeddings_torch.models import DLRMDense
+    from distributed_embeddings_torch.parallel import (
+        SGD, SparseSGD, init_hybrid_state, make_hybrid_train_step)
+
+    cfg, de = w8_model(torch, CRITEO_1TB_SIZES, None, torch.bfloat16,
+                       row_slice=W8E_RS, dp_input=False)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    dense = DLRMDense(cfg, device="cuda", generator=gen)
+    st = init_hybrid_state(de, SparseSGD(), dense, SGD(TRAIN_LR),
+                           generator=gen, dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    out = {"slab_bytes": sum(v.numel() * v.element_size()
+                             for v in st.emb_params.values()),
+           "instances": len(de.strategy.table_ids_list[rank]),
+           "row_sliced": sorted(de.strategy.row_sliced_tables),
+           "column_sliced": len(de.strategy.sliced_out_ranges)}
+    t0 = time.perf_counter()
+    batches = [mp_full_batch(torch, de, rank, SEED + 700 + k)
+               for k in range(4)]
+    out["pack_ms_a_batch"] = (time.perf_counter() - t0) / 4 * 1e3
+    # e-c1: one checked step
+    rec = w8_recording_sgd(torch)
+    step = make_hybrid_train_step(de, loss_fn, SGD(TRAIN_LR), rec,
+                                  lr_schedule=TRAIN_LR, nan_guard=True)
+    zero_counts()
+    with pack_checks(torch) as n, row_base_checks(torch) as nr:
+        loss, st = step(st, *batches[0])
+        torch.cuda.synchronize()
+    counts, modes = read_counts(), read_mode_counts()
+    plan = next(iter(de._plan_cache.values()))
+    based = int(sum(bool(r.any()) for r in plan.rsliced))
+    want = w8_per_step(len(plan.groups), len(de.widths), mp=True)
+    check(counts == want, f"world 8 e rank {rank} checked step: launches "
+          f"{counts}, expected {want}")
+    check(modes["gather_combine_row_base"] == based
+          and modes["pack_columns_sum"] == 1, f"world 8 e rank {rank}: "
+          f"row-slice launches {modes}, expected K1 {based} and one sum")
+    check(nr["gather_combine"] == based and n["pack_columns"] == 3,
+          f"world 8 e rank {rank}: checked calls {dict(n)} {dict(nr)}")
+    check(bool(torch.isfinite(loss)), f"world 8 e rank {rank}: loss {loss}")
+    out["checked"], out["row_base_checked"] = dict(n), dict(nr)
+    out["scatter_err"] = w8_scatter_check(torch, rec.seen)
+    out["plan"] = {"groups": [(g.kind, g.width, g.hot, g.n)
+                              for g in plan.groups],
+                   "based_groups": based, "l_max": plan.l_max,
+                   "s_max": plan.s_max, "rows_cap": dict(de.rows_cap)}
+    rec.seen.clear()
+    # e-c2: warmup, then timed steps with the launches counted
+    step = make_hybrid_train_step(de, loss_fn, SGD(TRAIN_LR), SparseSGD(),
+                                  lr_schedule=TRAIN_LR, nan_guard=True)
+    for k in range(W8E_WARMUP):
+        _, st = step(st, *batches[k % len(batches)])
+    torch.cuda.synchronize()
+    zero_counts()
+    times, losses = [], []
+    t0 = time.perf_counter()
+    for k in range(W8E_STEPS):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        loss, st = step(st, *batches[k % len(batches)])
+        ev[1].record()
+        times.append(ev)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    out["wall_s"] = time.perf_counter() - t0
+    counts, modes = read_counts(), read_mode_counts()
+    want = w8_per_step(len(plan.groups), len(de.widths), W8E_STEPS, mp=True)
+    check(counts == want, f"world 8 e rank {rank} timed: launches {counts}, "
+          f"expected {want}")
+    out["launches"], out["modes"] = counts, modes
+    out["step_ms"] = [s.elapsed_time(e) for s, e in times]
+    out["losses"] = [float(x) for x in losses]
+    check(np.isfinite(out["losses"]).all(), f"world 8 e rank {rank}: "
+          "non-finite loss")
+    # e-c3: the stage split (no id exchange with model-parallel input)
+    st, out["stages"] = w8_staged_steps(torch, step, st, batches,
+                                        W8_STAGE_STEPS, stages=W8_STAGES[1:])
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def w8_run_errors(ref, r0, tmp, prefix):
+    """One world-8 small run (rank 0's result ``r0``, its tables in
+    ``tmp`` as ``<prefix>_<t>.npy``) against the world-1 reference: the
+    largest loss, dense-parameter and prediction differences, the
+    largest slab difference and the update's relative L2 error."""
+    loss_err = float(np.abs(np.subtract(r0["losses"], ref["losses"])).max())
+    dense_err = max(float(np.abs(a - b).max())
+                    for a, b in zip(r0["dense"], ref["dense"]))
+    pred_err = float(np.abs(r0["pred"].reshape(-1)
+                            - ref["pred"].reshape(-1)).max())
+    sq_err, sq_upd, worst = 0.0, 0.0, 0.0
+    for t, want in enumerate(ref["tables"]):
+        a = np.load(os.path.join(tmp, f"{prefix}_{t}.npy"))
+        init = np.load(os.path.join(tmp, f"table_{t}.npy"))
+        err = a.astype(np.float64) - want
+        sq_err += float(np.square(err).sum())
+        sq_upd += float(np.square(want.astype(np.float64) - init).sum())
+        worst = max(worst, float(np.abs(err).max()))
+    return {"loss_err": loss_err, "dense_err": dense_err,
+            "pred_err": pred_err, "slab_max_err": worst,
+            "slab_rel_err": (sq_err / max(sq_upd, 1e-300)) ** 0.5,
+            "losses": r0["losses"]}
+
+
+def within_bounds(errs):
+    return all(errs[k] <= v for k, v in W8_SMALL_BOUNDS.items())
+
+
+def w8e_compare_small(torch, ref, ranks, tmp):
+    """14e-b: the model-parallel row-sliced run within 14b's bounds of
+    world 1, the control beyond them, the data-parallel run equal to the
+    model-parallel one bit for bit."""
+    first = ranks[0]["small_e"]
+    out = {}
+    for run in ("mp", "dp", "control"):
+        r0 = first[run]
+        check(r0["row_sliced"], f"world 8 e small {run}: no table was "
+              "row-sliced")
+        for r, res in enumerate(ranks):
+            got = res["small_e"][run]
+            check(got["losses"] == r0["losses"] and all(
+                np.array_equal(a, b) for a, b in zip(got["dense"],
+                                                     r0["dense"])),
+                f"world 8 e small {run}: rank {r} differs from rank 0")
+            if run != "control":
+                calls = SMALL_STEPS + 1
+                want = calls * r0["based_groups"]
+                check(got["checked"]["pack_columns"] >= 3 * SMALL_STEPS + 2
+                      and got["row_base_checked"]["gather_combine"] == want
+                      and got["modes"]["gather_combine_row_base"] == want
+                      and got["modes"]["pack_columns_sum"] == calls
+                      and got["launches"]["pack_ids"] == (
+                          calls if run == "dp" else 0),
+                      f"world 8 e small {run} rank {r}: checked "
+                      f"{got['checked']} {got['row_base_checked']}, "
+                      f"launches {got['modes']} {got['launches']}")
+        out[run] = w8_run_errors(ref, r0, tmp, f"w8e_{run}")
+    m, c = out["mp"], out["control"]
+    check(within_bounds(m), f"world 8 e small: beyond the bound of world "
+          f"1: {m}")
+    check(not within_bounds(c), f"world 8 e small control (rank "
+          f"{W8E_DROP_RANK}'s row bases dropped) stays within the bound: "
+          f"{c}")
+    mp, dp = first["mp"], first["dp"]
+    same = (mp["losses"] == dp["losses"]
+            and all(np.array_equal(a, b) for a, b in zip(mp["dense"],
+                                                         dp["dense"]))
+            and np.array_equal(mp["pred"], dp["pred"])
+            and all(np.array_equal(
+                np.load(os.path.join(tmp, f"w8e_mp_{t}.npy")),
+                np.load(os.path.join(tmp, f"w8e_dp_{t}.npy")))
+                for t in range(len(CRITEO_1TB_SIZES))))
+    check(same, "world 8 e small: the data-parallel run differs from the "
+          "model-parallel one")
+    out["dp_equals_mp"] = same
+    out["row_sliced"] = first["mp"]["row_sliced"]
+    out["checked"] = {run: first[run]["checked"] for run in ("mp", "dp")}
+    out["err"] = {
+        "pack_columns": max(first[run]["checked"]["err"]["pack_columns"]
+                            for run in ("mp", "dp")),
+        "gather_combine": max(first[run]["row_base_checked"]["err"][
+            "gather_combine"] for run in ("mp", "dp"))}
+    return out
+
+
 def w8_rank(rank, store, tmp, results):
     """A rank process of phase 14: join the gloo group on the one card,
-    run 14b and 14c, send the results. Any failure raises (the process
-    exits non-zero and the phase fails)."""
+    run 14b, 14c, 14e-b and 14e-c, send the results. Any failure raises
+    (the process exits non-zero and the phase fails)."""
     import torch
 
     torch.cuda.set_device(0)
@@ -8268,7 +8670,17 @@ def w8_rank(rank, store, tmp, results):
     t0 = time.perf_counter()
     full = w8_rank_full(torch, rank)
     full["seconds"] = time.perf_counter() - t0
-    results.put((rank, {"small": small, "full": full}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    small_e = w8e_rank_small(torch, rank, tmp)
+    small_e["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    full_e = w8e_rank_full(torch, rank)
+    full_e["seconds"] = time.perf_counter() - t0
+    results.put((rank, {"small": small, "full": full, "small_e": small_e,
+                        "full_e": full_e}))
     torch.distributed.destroy_process_group()
 
 
@@ -8333,29 +8745,10 @@ def w8_compare_small(torch, ref, ranks, tmp):
                       and got["checked"]["pack_columns"]
                       >= 3 * SMALL_STEPS + 2, f"world 8 small rank {r}: "
                       f"checked K19/K20 calls {got['checked']}")
-        loss_err = float(np.abs(np.subtract(r0["losses"],
-                                            ref["losses"])).max())
-        dense_err = max(float(np.abs(a - b).max())
-                        for a, b in zip(r0["dense"], ref["dense"]))
-        pred_err = float(np.abs(r0["pred"].reshape(-1)
-                                - ref["pred"].reshape(-1)).max())
-        sq_err, sq_upd, worst = 0.0, 0.0, 0.0
-        for t, want in enumerate(ref["tables"]):
-            a = np.load(os.path.join(tmp, f"w8_{run}_{t}.npy"))
-            init = np.load(os.path.join(tmp, f"table_{t}.npy"))
-            err = a.astype(np.float64) - want
-            sq_err += float(np.square(err).sum())
-            sq_upd += float(np.square(want.astype(np.float64) - init).sum())
-            worst = max(worst, float(np.abs(err).max()))
-        out[run] = {"loss_err": loss_err, "dense_err": dense_err,
-                    "pred_err": pred_err, "slab_max_err": worst,
-                    "slab_rel_err": (sq_err / max(sq_upd, 1e-300)) ** 0.5,
-                    "losses": r0["losses"]}
+        out[run] = w8_run_errors(ref, r0, tmp, f"w8_{run}")
     m, c = out["main"], out["control"]
-    check(m["loss_err"] <= 1e-5 and m["dense_err"] <= 1e-5
-          and m["pred_err"] <= 1e-5 and m["slab_max_err"] <= 1e-6
-          and m["slab_rel_err"] <= 1e-3,
-          f"world 8 small: beyond the bound of world 1: {m}")
+    check(within_bounds(m), f"world 8 small: beyond the bound of world 1: "
+          f"{m}")
     check(c["slab_rel_err"] > 1e-3, f"world 8 small control (source rank "
           f"{W8_DROP_RANK}'s cotangents dropped) stays within the bound: "
           f"{c}")
@@ -8743,11 +9136,399 @@ def pack_kernel_times(torch):
     return cases, w1_stage_yardstick(torch)
 
 
+def _sliced_slots(torch, rng, n, w, dtype, dim=40, k=4):
+    """``n`` slots, slot ``s`` the row slice ``s % k`` of one
+    ``dim``-row table, on the card: slab, rows, roff, row bases and each
+    slot's slice-edge ids (``rbase - 1``, ``rbase``, ``rbase + rows -
+    1``, ``rbase + rows``, negative and past the table)."""
+    slab = torch.from_numpy(rng.normal(size=(dim, w)).astype(np.float32)
+                            ).to(dtype).cuda()
+    rows = torch.full((n,), dim // k, dtype=torch.int64, device="cuda")
+    rbase = torch.tensor([(s % k) * (dim // k) for s in range(n)],
+                         dtype=torch.int64, device="cuda")
+    edges = [[rb - 1, rb, rb + dim // k - 1, rb + dim // k, -1, -7, dim,
+              dim + 100] for rb in rbase.tolist()]
+    return slab, rows, rbase.clone(), rbase, edges
+
+
+def _edge_csr(torch, rng, n, b, dim, edges, ids_dt, frac=1.0):
+    """A CSR id block ``[n, cap + b + cap]`` (values with each slot's
+    edge ids first, lengths, float32 weight bits) and its splits, on the
+    card; ``frac`` < 1 cuts the capacity below the rows' total."""
+    lengths = rng.integers(0, 7, size=(n, b))
+    lengths[:, 0] = 8
+    splits = np.concatenate([np.zeros((n, 1), np.int64),
+                             np.cumsum(lengths, 1)], 1)
+    cap = int(splits[:, -1].max() * frac)
+    vals = rng.integers(-3, dim + 3, size=(n, cap))
+    for s in range(n):
+        vals[s, :8] = edges[s]
+    w = rng.uniform(0.25, 2.0, size=(n, cap)).astype(np.float32)
+    block = np.concatenate([vals, lengths, w.view(np.int32).astype(np.int64)],
+                           1)
+    block = torch.from_numpy(block).to(ids_dt).cuda()
+    return block, cap, torch.from_numpy(splits).cuda()
+
+
+def _sum_case(torch, k, w, b, unaligned, dtype, seed):
+    """A K20 plan summing ``k`` column blocks of a ``[k, b, s]`` source
+    (block ``r`` at row ``r``, column ``r * w``) into ``[b, w]``, beside
+    a plain copy; the source carries NaN and Inf bits."""
+    from distributed_embeddings_torch.ops import exchange_pack as xp
+
+    off = 1 if unaligned else 0
+    s = k * w + 4 + off
+    plan = xp.CopyPlan([(0, 3, s, 0, b * w, w, b, w)],
+                       sums=[(0, 0, w, b, w, [(0, r * b * s + r * w + off, s)
+                                              for r in range(k)])])
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    src = (torch.randn((k, b, s), generator=gen, device="cuda")
+           * torch.logspace(-3, 3, s, device="cuda")).to(dtype)
+    flat = src.view(-1)
+    flat[::97] = float("nan")
+    flat[5::89] = float("inf")
+    flat[7::83] = -float("inf")
+    return plan, src
+
+
+def row_slice_kernel_checks(torch):
+    """14e-a: K1, K8 and K9 with row bases and K20's summing descriptor
+    against their plain versions on the card, bit-exact, and a CUDA-graph
+    replay of each new record (see main's docstring). Returns the largest
+    difference by mode (0.0: every bit agreed)."""
+    from distributed_embeddings_torch.ops import (
+        exchange_pack as xp, gather_combine, gather_combine_plain,
+        ragged_combine, ragged_combine_plain, ragged_grad, ragged_grad_plain)
+
+    errs = {mode: 0.0 for mode, _, _ in MODE_COUNTS}
+    rng = np.random.default_rng(SEED + 800)
+    n, b, dim = 8, 70, 40
+    mask = torch.tensor([1, 0, 1, 1, 1, 1, 0, 1], dtype=torch.int32,
+                        device="cuda")
+    mean = torch.tensor([0, 1] * 4, dtype=torch.int32, device="cuda")
+    calls = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for w in (3, 16, 128):
+            slab, rows, roff, rbase, edges = _sliced_slots(torch, rng, n, w,
+                                                           dtype)
+            div = torch.ones(n, device="cuda")
+            g = torch.from_numpy(rng.normal(size=(n, b, w)).astype(
+                np.float32)).to(dtype).cuda()
+            for ids_dt in (torch.int32, torch.int64):
+                ids = rng.integers(-3, dim + 3, size=(n, b, 1))
+                for s in range(n):
+                    ids[s, :8, 0] = edges[s]
+                ids = torch.from_numpy(ids).to(ids_dt).cuda()
+                args = (slab, ids, rows, roff, div, mask)
+                errs["gather_combine_row_base"] = max(
+                    errs["gather_combine_row_base"], bits_err(
+                        torch, gather_combine(*args, rbase=rbase),
+                        gather_combine_plain(*args, rbase=rbase),
+                        f"K1 row bases {dtype} w{w} {ids_dt}"))
+                for frac in (1.0, 0.6):
+                    block, cap, splits = _edge_csr(torch, rng, n, b, dim,
+                                                   edges, ids_dt, frac)
+                    values = block[:, :cap]
+                    for wts in (None, block[:, cap + b:]):
+                        kw = dict(mean=mean, mask=mask, weights=wts,
+                                  rbase=rbase)
+                        errs["ragged_combine_row_base"] = max(
+                            errs["ragged_combine_row_base"], bits_err(
+                                torch, ragged_combine(slab, values, splits,
+                                                      rows, roff, **kw),
+                                ragged_combine_plain(slab, values, splits,
+                                                     rows, roff, **kw),
+                                f"K8 row bases {dtype} w{w} {ids_dt}"))
+                        gkw = dict(values=values, rows=rows, roff=roff,
+                                   sentinel=dim + 1, ids_dtype=ids_dt,
+                                   mean=mean, weights=wts, rbase=rbase)
+                        got = ragged_grad(g, splits, **gkw)
+                        want = ragged_grad_plain(g, splits, **gkw)
+                        for x, y in zip(got, want):
+                            errs["ragged_grad_row_base"] = max(
+                                errs["ragged_grad_row_base"], bits_err(
+                                    torch, x, y, f"K9 row bases {dtype} "
+                                    f"w{w} {ids_dt}"))
+                        calls += 2
+    for dtype in (torch.float32, torch.bfloat16):
+        for k in (2, 4, 8):
+            for w, unaligned in ((128, False), (8, False), (7, True)):
+                plan, src = _sum_case(torch, k, w, 300, unaligned, dtype,
+                                      k + w)
+                out = torch.full((600 * w,), 5.0, dtype=dtype, device="cuda")
+                want = torch.full_like(out, 5.0)
+                xp.pack_columns(plan, [src], [out])
+                xp.pack_columns_plain(plan, [src], [want])
+                check(bool(torch.isnan(out).any()), "K20 sum: no NaN case")
+                errs["pack_columns_sum"] = max(
+                    errs["pack_columns_sum"], bits_err(
+                        torch, out, want, f"K20 sum k={k} {dtype} w{w}"))
+    graphs = row_slice_graph_check(torch)
+    log(f"world 8 e a: K1/K8/K9 row bases and K20 sums bit-exact to their "
+        f"plain versions ({calls} K8/K9 calls, 18 sums; {graphs} CUDA-graph "
+        f"replays bit-exact): {errs}")
+    return errs
+
+
+def row_slice_graph_check(torch):
+    """K1, K8 and K9 with row bases and a K20 sum on their records: a
+    second call with new inputs of the same layouts builds nothing; a
+    capture of the four calls, replayed twice on fresh inputs copied into
+    the captured tensors, gives the plain versions' bits. Returns the
+    replays checked."""
+    import importlib
+
+    from distributed_embeddings_torch.ops import (
+        exchange_pack as xp, gather_combine, gather_combine_plain,
+        ragged_combine, ragged_combine_plain, ragged_grad, ragged_grad_plain)
+
+    el = importlib.import_module(
+        "distributed_embeddings_torch.ops.embedding_lookup")
+    sg = importlib.import_module(
+        "distributed_embeddings_torch.ops.sparse_grad")
+    rng = np.random.default_rng(SEED + 801)
+    n, b, w, dim, cap = 8, 64, 16, 40, 320
+    slab, rows, roff, rbase, _ = _sliced_slots(torch, rng, n, w,
+                                               torch.bfloat16)
+    mask = torch.ones(n, dtype=torch.int32, device="cuda")
+    div = torch.ones(n, device="cuda")
+    mean = torch.tensor([1, 0] * 4, dtype=torch.int32, device="cuda")
+    plan, _ = _sum_case(torch, 4, w, b, False, torch.float32, 1)
+
+    def inputs():
+        lengths = rng.integers(0, 6, (n, b))
+        splits = np.concatenate([np.zeros((n, 1), np.int64),
+                                 np.cumsum(lengths, 1)], 1)
+        return [torch.from_numpy(x).cuda() for x in (
+            rng.integers(-2, dim + 2, size=(n, b, 1)).astype(np.int32),
+            splits, rng.integers(-2, dim + 2, (n, cap)).astype(np.int32),
+            rng.normal(size=(n, b, w)).astype(np.float32),
+            rng.normal(size=(4, b, 4 * w + 4)).astype(np.float32))]
+
+    def calls(ids, splits, values, g, src, out):
+        ii, vv = ragged_grad(g, splits, values=values, rows=rows, roff=roff,
+                             sentinel=dim, mean=mean, rbase=rbase)
+        xp.pack_columns(plan, [src], [out])
+        return (gather_combine(slab, ids, rows, roff, div, mask, rbase=rbase),
+                ragged_combine(slab, values, splits, rows, roff, mean=mean,
+                               mask=mask, rbase=rbase), ii, vv, out)
+
+    def plain(ids, splits, values, g, src):
+        out = torch.zeros(2 * b * w, device="cuda")
+        xp.pack_columns_plain(plan, [src], [out])
+        ii, vv = ragged_grad_plain(g, splits, values=values, rows=rows,
+                                   roff=roff, sentinel=dim, mean=mean,
+                                   rbase=rbase)
+        return (gather_combine_plain(slab, ids, rows, roff, div, mask,
+                                     rbase=rbase),
+                ragged_combine_plain(slab, values, splits, rows, roff,
+                                     mean=mean, mask=mask, rbase=rbase),
+                ii, vv, out)
+
+    def same(got, want, what):
+        for x, y in zip(got, want):
+            bits_err(torch, x, y, what)
+
+    out = torch.zeros(2 * b * w, device="cuda")
+    calls(*inputs(), out)
+    builds = (el._GATHER.builds, el._RAGGED.builds, sg._K9.builds,
+              plan.launch_cache.builds)
+    fresh = inputs()
+    same(calls(*fresh, out), plain(*fresh), "row-slice records, a hit")
+    check((el._GATHER.builds, el._RAGGED.builds, sg._K9.builds,
+           plan.launch_cache.builds) == builds,
+          "row-slice records: a call of the same layouts built a record")
+    ins = [t.clone() for t in inputs()]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        calls(*ins, out)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = calls(*ins, out)
+    for k in range(2):
+        fresh = inputs()
+        for t, f in zip(ins, fresh):
+            t.copy_(f)
+        graph.replay()
+        torch.cuda.synchronize()
+        same(outs, plain(*fresh), f"row-slice records, graph replay {k}")
+    return 2
+
+
+def row_slice_kernel_times(torch):
+    """14e timing, in this process alone (eight contending ranks would
+    distort kernel times): K1 with row bases on each row-sliced group of
+    14e-c's rank 0 (its 6.67 GB bf16 slab, a Zipfian model-parallel
+    block) and K20's unpack with its sums at that rank's shapes; K8 and K9
+    with row bases on a ragged block of 32 slots (8 sources x 4 row
+    slices of a 2M-row fp32 table) at b=2048, U{1..30} Zipfian ids a row.
+    Each beside its plain version and its byte bound; no one PyTorch
+    call computes them (library: not measured)."""
+    from distributed_embeddings_torch.ops import (
+        exchange_pack as xp, gather_combine, gather_combine_plain,
+        ragged_combine, ragged_combine_plain, ragged_grad, ragged_grad_plain)
+    from distributed_embeddings_torch.parallel import exchange
+    from distributed_embeddings_torch.utils.data import power_law_ids
+
+    cases = {}
+    _, de = w8_model(torch, CRITEO_1TB_SIZES, None, torch.bfloat16,
+                     row_slice=W8E_RS, dp_input=False)
+    de._rank = 0
+    rng = np.random.default_rng(SEED + 810)
+    cats = [power_law_ids(rng, v, (W8_BATCH,)).astype(np.int32)
+            for v in CRITEO_1TB_SIZES]
+    ids_recv, _, b, plan = de._mp_block(de.pack_mp_inputs(cats, rank=0,
+                                                          device="cuda"),
+                                        "cuda")
+    slab = torch.empty((de.rows_cap[128], 128), dtype=torch.bfloat16,
+                       device="cuda").uniform_(-0.05, 0.05)
+    for gi, g in enumerate(plan.groups):
+        rbase = de._plan_rbase(plan, gi, "cuda", reps=W8)
+        if rbase is None:
+            continue
+        meta = de._plan_meta(plan, gi, "cuda", reps=W8)
+        ids = ids_recv[:, g.goff:g.goff + g.n * g.blen].reshape(
+            W8 * g.n, b, g.hot).contiguous()
+        loc = ids.long() - rbase.view(-1, 1, 1)
+        inr = (loc >= 0) & (loc < meta[0].view(-1, 1, 1))
+        uniq = int(torch.unique((loc + meta[1].view(-1, 1, 1))[inr]).numel())
+        nbytes = uniq * 128 * 2 + ids.numel() * 4 + ids.shape[0] * b * 256
+        cases["gather_combine_row_base"] = kernel_case(
+            torch, "gather_combine_row_base", f"world8_rank0_group{gi}",
+            lambda: gather_combine(slab, ids, *meta, rbase=rbase), None,
+            None, nbytes,
+            plain=lambda: gather_combine_plain(slab, ids, *meta,
+                                               rbase=rbase),
+            extra={"unique_rows": uniq, "slots": ids.shape[0]})
+    del slab
+    cplan, pieces = exchange._unpack_copy_plan(de, plan)
+    dp = torch.randn((W8, b, plan.s_max), device="cuda").to(torch.bfloat16)
+    buf = torch.empty(sum(b * w for _, w in pieces), dtype=torch.bfloat16,
+                      device="cuda")
+    nbytes = int(sum(r[6] * r[7] * 2 * 2 for r in cplan.a)
+                 + sum(p[0, 6] * p[0, 7] * 2 * (len(p) + 1)
+                       for p in cplan.sums))
+    cases["pack_columns_sum"] = kernel_case(
+        torch, "pack_columns_sum", "world8_rank0_unpack",
+        lambda: xp.pack_columns(cplan, [dp], [buf]), None, None, nbytes,
+        plain=lambda: xp.pack_columns_plain(cplan, [dp], [buf]),
+        extra={"sums": len(cplan.sums), "copies": len(cplan.a),
+               "parts": [len(p) for p in cplan.sums]})
+    del dp, buf
+    # K8 / K9: 8 sources x 4 row slices of a 2M-row table
+    n, bk, rows_t, k = 32, 2048, 2_000_000, 4
+    tab = torch.empty((rows_t, 128), device="cuda").uniform_(-0.05, 0.05)
+    rows = torch.full((n,), rows_t // k, dtype=torch.int64, device="cuda")
+    rbase = torch.tensor([(s % k) * (rows_t // k) for s in range(n)],
+                         dtype=torch.int64, device="cuda")
+    roff = rbase.clone()
+    lengths = rng.integers(1, 31, size=(n, bk))
+    splits = torch.from_numpy(np.concatenate(
+        [np.zeros((n, 1), np.int64), np.cumsum(lengths, 1)], 1)).cuda()
+    cap = int(lengths.sum(1).max())
+    values = torch.from_numpy(power_law_ids(rng, rows_t, (n, cap)).astype(
+        np.int32)).cuda()
+    mean = torch.zeros(n, dtype=torch.int32, device="cuda")
+    mask = torch.ones(n, dtype=torch.int32, device="cuda")
+    pos = int(lengths.sum())
+    loc = values.long() - rbase.view(-1, 1)
+    uniq = int(torch.unique((loc + roff.view(-1, 1))[
+        (loc >= 0) & (loc < rows.view(-1, 1))]).numel())
+    kw = dict(mean=mean, mask=mask, rbase=rbase)
+    cases["ragged_combine_row_base"] = kernel_case(
+        torch, "ragged_combine_row_base", "32_slots_b2048_U1_30",
+        lambda: ragged_combine(tab, values, splits, rows, roff, **kw), None,
+        None, uniq * 512 + values.numel() * 4 + splits.numel() * 8
+        + n * bk * 512,
+        plain=lambda: ragged_combine_plain(tab, values, splits, rows, roff,
+                                           **kw),
+        extra={"positions": pos, "unique_rows": uniq})
+    g = torch.randn((n, bk, 128), device="cuda")
+    gkw = dict(values=values, rows=rows, roff=roff, sentinel=rows_t,
+               rbase=rbase)
+    cases["ragged_grad_row_base"] = kernel_case(
+        torch, "ragged_grad_row_base", "32_slots_b2048_U1_30",
+        lambda: ragged_grad(g, splits, **gkw), None, None,
+        g.numel() * 4 + values.numel() * 4 + splits.numel() * 8
+        + n * cap * (512 + 4),
+        plain=lambda: ragged_grad_plain(g, splits, **gkw),
+        extra={"positions": pos})
+    del tab, g
+    gc.collect()
+    torch.cuda.empty_cache()
+    return cases
+
+
+def row_slice_results(torch, ranks, rs_errs, rs_cases, small_e):
+    """14e-c's checks across the ranks and 14e-d (the dryrun twin at
+    world 8 on the card); returns the row-slice modes' launches by path
+    (``world8_rowslice``: rank 0's timed window of 14e-c; ``dryrun``:
+    rank 0's dryrun step), their cases and differences, and the log's
+    result."""
+    from distributed_embeddings_torch.dryrun import dryrun_multichip
+
+    full = [r["full_e"] for r in ranks]
+    r0 = full[0]
+    check(r0["row_sliced"] and not r0["column_sliced"], "world 8 e full: "
+          f"row-sliced tables {r0['row_sliced']}, column-sliced ranges "
+          f"{r0['column_sliced']}")
+    for r, f in enumerate(full):
+        check(f["losses"] == r0["losses"], f"world 8 e: rank {r}'s losses "
+              "differ from rank 0's (one global mean)")
+        for k, v in f["checked"]["err"].items():
+            check(v == 0.0, f"world 8 e rank {r}: {k} differs from plain")
+        for k, v in f["row_base_checked"]["err"].items():
+            rs_errs["gather_combine_row_base"] = max(
+                rs_errs["gather_combine_row_base"], v)
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(W8, device="cuda")
+    dry_s = time.perf_counter() - t0
+    dl = dry["launches"]
+    check(np.isfinite(dry["loss"]) and dry["row_sliced_tables"]
+          and dry["sliced_out_ranges"], f"dryrun: loss {dry['loss']}, "
+          f"slicing {dry['row_sliced_tables']} {dry['sliced_out_ranges']}")
+    for mode, _, _ in MODE_COUNTS:
+        check(dl[mode] > 0, f"dryrun: {mode} launched no time ({dl})")
+    wall = max(f["wall_s"] for f in full)
+    result = {
+        "world": W8, "global_batch": W8_BATCH, "steps": W8E_STEPS,
+        "input": "model-parallel (pack_mp_inputs), row_slice 1.4e9",
+        "transport": "gloo over host memory, 8 ranks time-sharing one "
+                     "H100 (not a multi-GPU or NCCL number)",
+        "samples_per_s_8_ranks_on_one_h100_over_gloo":
+            W8E_STEPS * W8_BATCH / wall,
+        "wall_step_ms": wall / W8E_STEPS * 1e3,
+        "rank_step_ms_p50": [float(np.median(f["step_ms"])) for f in full],
+        "stage_ms_p50_by_rank": [f["stages"] for f in full],
+        "slab_gb_by_rank": [f["slab_bytes"] / 1e9 for f in full],
+        "peak_gb_by_rank": [f["peak_gb"] for f in full],
+        "pack_ms_a_batch_by_rank": [f["pack_ms_a_batch"] for f in full],
+        "row_sliced": r0["row_sliced"], "plan": r0["plan"],
+        "launches_per_step_rank0": {
+            n: v / W8E_STEPS for n, v in {**r0["launches"],
+                                         **r0["modes"]}.items() if v},
+        "scatter_max_err": max(f["scatter_err"] for f in full),
+        "loss_first": r0["losses"][0], "loss_last": r0["losses"][-1],
+        "small": small_e, "kernel_errs": rs_errs,
+        "dryrun": {"loss": dry["loss"], "launches": dl, "seconds": dry_s,
+                   "row_sliced_tables": dry["row_sliced_tables"],
+                   "sliced_out_ranges": dry["sliced_out_ranges"]}}
+    log("world 8 e: " + json.dumps(result))
+    return {"launches": {"world8_rowslice": r0["launches"], "dryrun": dl},
+            "modes": {"world8_rowslice": r0["modes"],
+                      "dryrun": {m: dl[m] for m, _, _ in MODE_COUNTS}},
+            "errs": rs_errs, "cases": rs_cases, "result": result}
+
+
 def phase_world8(torch):
     """Phase 14: the hybrid train step at world 8 on one card (see
     main's docstring). Returns (launches of rank 0's timed window, the
     K19/K20 rows' cases, the largest kernel-vs-plain difference each of
-    K19/K20 showed in the phase's checks, the result)."""
+    K19/K20 showed in the phase's checks, the result, and 14e's rows:
+    launches by path and mode, cases and differences of the row-slice
+    modes)."""
     import shutil
     import tempfile
 
@@ -8756,7 +9537,9 @@ def phase_world8(torch):
     errs = dict(edge["err"])
     for k, v in w8_shape_checks(torch).items():
         errs[k] = max(errs[k], v)
+    rs_errs = row_slice_kernel_checks(torch)
     cases, w1_stages = pack_kernel_times(torch)
+    rs_cases = row_slice_kernel_times(torch)
     _, de = w8_model(torch, CRITEO_1TB_SIZES, W8_CST, torch.bfloat16)
     per_rank = [sum(de.rows_cap[w] * w * 2 for w in de.widths)
                 for _ in range(W8)]
@@ -8780,9 +9563,15 @@ def phase_world8(torch):
             "before the ranks start")
         ranks, rank_s = w8_run_ranks(torch, tmp)
         small = w8_compare_small(torch, ref, ranks, tmp)
+        small_e = w8e_compare_small(torch, ref, ranks, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log("world 8 b: " + json.dumps(small))
+    log("world 8 e b: " + json.dumps(small_e))
+    errs["pack_columns"] = max(errs["pack_columns"],
+                               small_e["err"]["pack_columns"])
+    rs_errs["gather_combine_row_base"] = max(
+        rs_errs["gather_combine_row_base"], small_e["err"]["gather_combine"])
     full = [r["full"] for r in ranks]
     r0 = full[0]
     for res in ranks:
@@ -8819,10 +9608,15 @@ def phase_world8(torch):
         "world1_stage_ms_k19_k20_vs_cat": w1_stages,
         "rank_seconds": {"small": [r["small"]["seconds"] for r in ranks],
                          "full": [f["seconds"] for f in full],
-                         "ranks_total": rank_s},
-        "phase_seconds": time.perf_counter() - t_start}
+                         "small_e": [r["small_e"]["seconds"] for r in ranks],
+                         "full_e": [r["full_e"]["seconds"] for r in ranks],
+                         "ranks_total": rank_s}}
     log("world 8: " + json.dumps(result))
-    return r0["launches"], cases, errs, result
+    rs = row_slice_results(torch, ranks, rs_errs, rs_cases, small_e)
+    result["row_slice"] = rs["result"]
+    result["phase_seconds"] = time.perf_counter() - t_start
+    log(f"world 8 phase {result['phase_seconds']:.1f} s")
+    return r0["launches"], cases, errs, result, rs
 
 
 def main():
@@ -9110,12 +9904,14 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    w8_launches, w8_cases, w8_errs, world8 = phase_world8(torch)
+    w8_launches, w8_cases, w8_errs, world8, rs = phase_world8(torch)
     launches["world8"] = w8_launches
     for k in kernels:
         names = (csr_names if k["name"] == "csr" else k14 if k["name"] ==
                  "cms_query" else (k["name"],))
         k["launches_by_path"]["world8"] = sum(w8_launches[n] for n in names)
+        for p, got in rs["launches"].items():
+            k["launches_by_path"][p] = sum(got.get(n, 0) for n in names)
     for name, repl, entry_points in (
             ("pack_ids", "distributed_embeddings_tpu/parallel/exchange.py:89",
              {"build_send_blocks": "distributed_embeddings_tpu/parallel/"
@@ -9145,6 +9941,32 @@ def main():
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
             "library_ms": c["library_ms"], "shape": c["case"],
             "cases": cases, "entry_points": entry_points})
+    for k in kernels:
+        if k["name"] in ("pack_ids", "pack_columns"):
+            for p, got in rs["launches"].items():
+                k["launches_by_path"][p] = got.get(k["name"], 0)
+    # the row-slice modes (14e): their launches where the path runs them
+    for mode, src, repl, path in (
+            ("gather_combine_row_base", "gather_combine.cu",
+             "distributed_embeddings_tpu/parallel/lookup.py:167",
+             "world8_rowslice"),
+            ("ragged_combine_row_base", "ragged_combine.cu",
+             "distributed_embeddings_tpu/parallel/lookup.py:55", "dryrun"),
+            ("ragged_grad_row_base", "ragged_grad.cu",
+             "distributed_embeddings_tpu/parallel/apply.py:222", "dryrun"),
+            ("pack_columns_sum", "exchange_pack.cu",
+             "distributed_embeddings_tpu/parallel/dist_embedding.py:1093",
+             "world8_rowslice")):
+        c = rs["cases"][mode]
+        kernels.append({
+            "name": mode, "route": "cuda",
+            "source": f"distributed_embeddings_torch/csrc/{src}",
+            "replaces": repl, "launches": rs["modes"][path][mode],
+            "launches_by_path": {p: m[mode] for p, m in rs["modes"].items()},
+            "max_abs_err": rs["errs"][mode], "ms": c["ms"],
+            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+            "shape": c["case"], "cases": [c]})
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']}: no launch on its main path")
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -2,16 +2,21 @@
 //
 // Replaces the XLA-lowered gather of the JAX package:
 //   distributed_embeddings_tpu/parallel/lookup.py:lookup_group, kind "d"
+//     (row-sliced slots included, :167-184)
 //   distributed_embeddings_tpu/ops/packed_slab.py:packed_gather
 //   distributed_embeddings_tpu/ops/embedding_lookup.py:embedding_lookup
 //     (dense branch)
-// For every (slot, sample) output row it clips each of the row's `hot`
-// ids into the slot's table [0, rows-1], adds the slot's slab row offset,
-// reads the slab row, optionally scales it by a per-id weight and zeroes
-// it where the slot masks out-of-range ids (a multiply by 0, not a
-// select), sums over `hot` in fp32 as a chain of fmaf(f, x, acc) over
-// h = 0..hot-1, divides by the slot's divisor (hot for mean slots), and
-// stores once in the slab's dtype.
+// For every (slot, sample) output row it subtracts the slot's row base
+// from each of the row's `hot` ids where the launch has bases (a
+// row-sliced table's slot holds the rows [rbase, rbase + rows) of its
+// table; a template flag, so the launch without bases keeps the
+// instruction stream it had), clips the id into [0, rows-1], adds the
+// slot's slab row offset, reads the slab row, optionally scales it by a
+// per-id weight and zeroes it where the slot masks ids outside [0, rows)
+// (a multiply by 0, not a select: a NaN row stays NaN), sums over `hot`
+// in fp32 as a chain of fmaf(f, x, acc) over h = 0..hot-1, divides by the
+// slot's divisor (hot for mean slots), and stores once in the slab's
+// dtype.
 //
 // Bound: bytes. The distinct rows read (Zipfian: many hit L2) and the
 // output written dominate (26 x 65536 x 256 B = 436 MB at the DLRM
@@ -92,6 +97,7 @@ struct Args {
   const int64_t* roff;  // [n_slots] first slab row per slot
   const float* div;     // [n_slots] divisor per slot
   const int* mask;      // [n_slots] or null: 1 = out-of-range ids read 0
+  const int64_t* rbase; // [n_slots] row base per slot (read when RB)
   const float* weights; // [n_slots, b, hot] or null
   void* out;            // [n_slots, b, width]
   int n_slots;
@@ -100,7 +106,7 @@ struct Args {
   int group_log2;       // lanes per output row = 1 << group_log2
 };
 
-template <typename Tr, int VB, typename IdT>
+template <typename Tr, int VB, typename IdT, bool RB>
 __global__ void __launch_bounds__(kThreads)
 gather_combine_kernel(const Args a) {
   constexpr int R = kRows;
@@ -121,6 +127,7 @@ gather_combine_kernel(const Args a) {
     const int64_t base = a.roff[slot];
     const bool masked = a.mask != nullptr && a.mask[slot] != 0;
     const float d = a.div[slot];
+    const int64_t rb = RB ? a.rbase[slot] : 0;
     const int64_t row0 = static_cast<int64_t>(slot) * a.b;
     bool live[R];
 #pragma unroll
@@ -141,6 +148,7 @@ gather_combine_kernel(const Args a) {
         for (int r = 0; r < R; ++r) {
           q[r] = (row0 + s0 + static_cast<int64_t>(r) * gpb) * a.hot + h;
           id[r] = live[r] ? static_cast<int64_t>(ids[q[r]]) : 0;
+          if constexpr (RB) id[r] -= rb;  // the slot's range-local id
         }
         RawT raw[R];
         float f[R];
@@ -194,19 +202,26 @@ struct Prepared {
   int ids64;       // ids are int64
   int dtype;       // 0 = float32, 1 = bfloat16
   int weighted;    // the launch reads per-id weights
+  int based;       // the launch subtracts per-slot row bases
   unsigned grid_x;
   unsigned grid_y;
 };
 
-template <typename Tr, int VB>
-cudaError_t launch_ids(const Prepared& p, const Args& a, cudaStream_t st) {
+template <typename Tr, int VB, bool RB>
+cudaError_t launch_based(const Prepared& p, const Args& a, cudaStream_t st) {
   const dim3 grid(p.grid_x, p.grid_y);
   if (p.ids64) {
-    gather_combine_kernel<Tr, VB, int64_t><<<grid, kThreads, 0, st>>>(a);
+    gather_combine_kernel<Tr, VB, int64_t, RB><<<grid, kThreads, 0, st>>>(a);
   } else {
-    gather_combine_kernel<Tr, VB, int32_t><<<grid, kThreads, 0, st>>>(a);
+    gather_combine_kernel<Tr, VB, int32_t, RB><<<grid, kThreads, 0, st>>>(a);
   }
   return cudaGetLastError();
+}
+
+template <typename Tr, int VB>
+cudaError_t launch_ids(const Prepared& p, const Args& a, cudaStream_t st) {
+  return p.based ? launch_based<Tr, VB, true>(p, a, st)
+                 : launch_based<Tr, VB, false>(p, a, st);
 }
 
 template <typename Tr>
@@ -238,15 +253,16 @@ extern "C" int64_t detpu_gather_combine_prepared_bytes() {
 // Validate one K1 call's fixed arguments and write its prepared launch to
 // `out`: the slab [slab_rows, width] (dtype 0 = float32, 1 = bfloat16),
 // ids of n_slots x b x hot (int64 when ids_is_64, else int32), the
-// per-slot rows, roff, div and mask (null: none), whether the launch
-// reads weights, and vb, the bytes a lane loads: 16, 8, 4 or 2, at least
-// the element size, dividing a row's bytes and the slab's address (the
-// output the launch gets must be vb-aligned too).
+// per-slot rows, roff, div, mask (null: none) and row bases (int64,
+// null: none), whether the launch reads weights, and vb, the bytes a
+// lane loads: 16, 8, 4 or 2, at least the element size, dividing a row's
+// bytes and the slab's address (the output the launch gets must be
+// vb-aligned too).
 extern "C" int detpu_gather_combine_prepare(
     const void* slab, int64_t slab_rows, int width, int ids_is_64,
     const void* rows, const void* roff, const void* div, const void* mask,
-    int weighted, int n_slots, int64_t b, int hot, int dtype, int vb,
-    void* out) {
+    const void* rbase, int weighted, int n_slots, int64_t b, int hot,
+    int dtype, int vb, void* out) {
   const int esize = dtype == 0 ? 4 : 2;
   if (width <= 0 || hot <= 0 || slab_rows <= 0 || n_slots < 0 || b < 0 ||
       (dtype != 0 && dtype != 1) ||
@@ -268,11 +284,13 @@ extern "C" int detpu_gather_combine_prepare(
               static_cast<const int64_t*>(rows),
               static_cast<const int64_t*>(roff),
               static_cast<const float*>(div), static_cast<const int*>(mask),
-              nullptr, nullptr, n_slots, b, hot, group_log2};
+              static_cast<const int64_t*>(rbase), nullptr, nullptr, n_slots,
+              b, hot, group_log2};
   p->vb = vb;
   p->ids64 = ids_is_64 != 0;
   p->dtype = dtype;
   p->weighted = weighted != 0;
+  p->based = rbase != nullptr;
   p->grid_x = static_cast<unsigned>(gx);
   p->grid_y = static_cast<unsigned>(gy);
   return cudaSuccess;

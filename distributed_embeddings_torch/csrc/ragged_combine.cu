@@ -5,19 +5,25 @@
 //   distributed_embeddings_tpu/ops/embedding_lookup.py:_ragged_combine
 //   distributed_embeddings_tpu/parallel/lookup.py:lookup_group,
 //     kinds "r" and "rw" (gather, weights, mask, segment scatter-add,
-//     mean divide)
+//     mean divide), and ragged_decode's row base (:55-85, :185-223)
 // the counterpart of the reference library's
 // EmbeddingLookupVariableHotness (embedding_lookup_kernels.cu:175-249).
 // For every (slot, row) it walks the row's value positions
 // p in [start, min(splits[r + 1], cap)) (start = min(splits[r], cap),
 // 0 for the first row, as the JAX marks/cumsum segment ids assign
-// positions), clips each id into the slot's table, adds the slot's slab
+// positions), subtracts the slot's row base from each id where the launch
+// has bases (a row-sliced table's slot holds the rows [rbase, rbase +
+// rows); a template flag, so the launch without bases keeps the
+// instruction stream it had), clips the id into the slot's table, adds
+// the slot's slab
 // row offset, reads the slab row, multiplies it by the position's weight
 // rounded to the slab dtype (and by 0 where the slot masks an
 // out-of-range id), and adds the products in fp32, in position order.
 // The sum rounds to the slab dtype (the dtype JAX sums in), a mean slot
 // divides it by max(splits[r + 1] - splits[r], 1) rounded to the slab
-// dtype (the CLAIMED length, even where capacity truncated the row), and
+// dtype (the CLAIMED length, even where capacity truncated the row, and
+// the row's whole length on a row slice, not its ids in the slice's
+// range: a row's slices then sum to the unsliced mean), and
 // the result is stored in the output dtype. Products and adds use
 // __fmul_rn/__fadd_rn, so nvcc does not contract them into FMAs: for a
 // float32 slab the result is the plain version's bit for bit.
@@ -128,6 +134,7 @@ struct Args {
   const int64_t* roff;    // [n_slots] first slab row per slot
   const int* mean;        // [n_slots] or null: 1 = divide by the length
   const int* mask;        // [n_slots] or null: 1 = out-of-range ids read 0
+  const int64_t* rbase;   // [n_slots] row base per slot (read when RB)
   const void* weights;    // [n_slots, *] f32 bits, row stride w_stride
   int64_t w_stride;
   int w_esize;            // 4: f32/int32 elements; 8: int64 (low half)
@@ -171,10 +178,20 @@ template <typename IdT>
 struct Slot {
   int slot;
   const int64_t* sp;
-  int64_t nrows, base, wbase;
+  int64_t nrows, base, wbase, rbase;
   const IdT* ids;
   bool masked, is_mean;
 };
+
+// A position's id, range-local on a row-sliced slot.
+template <bool RB, typename IdT>
+__device__ __forceinline__ int64_t local_id(const Slot<IdT>& s, IdT v) {
+  if constexpr (RB) {
+    return static_cast<int64_t>(v) - s.rbase;
+  } else {
+    return static_cast<int64_t>(v);
+  }
+}
 
 // Row r's sum done: round it to the slab dtype, divide a mean slot's by
 // the claimed length (rounded to the slab dtype), store it.
@@ -230,7 +247,7 @@ __device__ __forceinline__ RawT word_row(const Args& a, const E* slab,
 
 // The general form: rows [r_begin, r_end) of the slot, a lane group a
 // row, each position's row read from its id.
-template <typename Tr, typename To, int VB, typename IdT>
+template <typename Tr, typename To, int VB, typename IdT, bool RB>
 __device__ void general_rows(const Args& a, const Slot<IdT>& s,
                              int64_t r_begin, int64_t r_end, int gi,
                              int groups, int lane_g, int G) {
@@ -255,7 +272,7 @@ __device__ void general_rows(const Args& a, const Slot<IdT>& s,
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
           if (p + u < sp.end) {
-            const int64_t id = static_cast<int64_t>(s.ids[p + u]);
+            const int64_t id = local_id<RB>(s, s.ids[p + u]);
             const int64_t g = global_row(id, s.nrows, s.base, a.slab_rows);
             raw[u] = __ldg(reinterpret_cast<const RawT*>(
                 slab + g * a.width + col));
@@ -277,7 +294,7 @@ __device__ void general_rows(const Args& a, const Slot<IdT>& s,
   }
 }
 
-template <typename Tr, typename To, int VB, typename IdT>
+template <typename Tr, typename To, int VB, typename IdT, bool RB>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 ragged_combine_kernel(const __grid_constant__ Args a) {
   using E = typename Tr::E;
@@ -309,6 +326,7 @@ ragged_combine_kernel(const __grid_constant__ Args a) {
             static_cast<int64_t>(s.slot) * a.v_stride;
     s.masked = a.mask != nullptr && a.mask[s.slot] != 0;
     s.is_mean = a.mean != nullptr && a.mean[s.slot] != 0;
+    s.rbase = RB ? a.rbase[s.slot] : 0;
     s.wbase = static_cast<int64_t>(s.slot) * a.w_stride * wstep;
     const int64_t ps = span_of(s.sp, r0, a.cap).start;
     // the flat form: rows that follow one another; rend[i]: row i's end
@@ -325,7 +343,8 @@ ragged_combine_kernel(const __grid_constant__ Args a) {
       }
     }
     if (__syncthreads_and(ok) == 0) {
-      general_rows<Tr, To, VB>(a, s, r0, r0 + nr, gi, groups, lane_g, G);
+      general_rows<Tr, To, VB, IdT, RB>(a, s, r0, r0 + nr, gi, groups,
+                                        lane_g, G);
       __syncthreads();  // the next tile rewrites the row ends
       continue;
     }
@@ -342,8 +361,8 @@ ragged_combine_kernel(const __grid_constant__ Args a) {
         }
       }
       if (i1 == i0) {  // one row past the source words: from its ids
-        general_rows<Tr, To, VB>(a, s, r0 + i0, r0 + i0 + 1, gi, groups,
-                                 lane_g, G);
+        general_rows<Tr, To, VB, IdT, RB>(a, s, r0 + i0, r0 + i0 + 1, gi,
+                                          groups, lane_g, G);
         ++i0;
         continue;
       }
@@ -361,7 +380,7 @@ ragged_combine_kernel(const __grid_constant__ Args a) {
         for (int k = 0; k < kCountUnroll; ++k) {
           const int q = qb + k * nthreads + tid;
           if (q < npos) {
-            const int64_t id = static_cast<int64_t>(idv[k]);
+            const int64_t id = local_id<RB>(s, idv[k]);
             src[q] = static_cast<uint32_t>(
                          global_row(id, s.nrows, s.base, a.slab_rows)) |
                      (s.masked && (id < 0 || id >= s.nrows) ? kZero : 0u);
@@ -418,23 +437,29 @@ ragged_combine_kernel(const __grid_constant__ Args a) {
 
 using Kernel = const void*;
 
-template <typename Tr, typename To, int VB>
+template <typename Tr, typename To, int VB, bool RB>
 Kernel pick_ids(bool ids64) {
   return ids64 ? reinterpret_cast<Kernel>(
-                     &ragged_combine_kernel<Tr, To, VB, int64_t>)
+                     &ragged_combine_kernel<Tr, To, VB, int64_t, RB>)
                : reinterpret_cast<Kernel>(
-                     &ragged_combine_kernel<Tr, To, VB, int32_t>);
+                     &ragged_combine_kernel<Tr, To, VB, int32_t, RB>);
+}
+
+template <typename Tr, typename To, int VB>
+Kernel pick_based(bool ids64, bool based) {
+  return based ? pick_ids<Tr, To, VB, true>(ids64)
+               : pick_ids<Tr, To, VB, false>(ids64);
 }
 
 template <typename Tr, typename To>
-Kernel pick_vb(int vb, bool ids64) {
+Kernel pick_vb(int vb, bool ids64, bool based) {
   switch (vb) {
-    case 16: return pick_ids<Tr, To, 16>(ids64);
-    case 8: return pick_ids<Tr, To, 8>(ids64);
-    case 4: return pick_ids<Tr, To, 4>(ids64);
+    case 16: return pick_based<Tr, To, 16>(ids64, based);
+    case 8: return pick_based<Tr, To, 8>(ids64, based);
+    case 4: return pick_based<Tr, To, 4>(ids64, based);
     case 2:
       if constexpr (sizeof(typename Tr::E) <= 2) {
-        return pick_ids<Tr, To, 2>(ids64);
+        return pick_based<Tr, To, 2>(ids64, based);
       }
       break;
     default: break;
@@ -462,13 +487,14 @@ extern "C" int64_t detpu_ragged_combine_prepared_bytes() {
 // Validate one call's fixed layout and write its launch into `prepared`
 // (detpu_ragged_combine_prepared_bytes() bytes of host memory).
 //   dtype / out_dtype: 0 = float32, 1 = bfloat16; ids_is_64: values are
-//   int64 (else int32); w_esize: 0 = no weights, 4 = float32 (or int32
-//   bits), 8 = int64 elements whose low 32 bits are the float32 bits.
+//   int64 (else int32); rbase: per-slot row bases (int64, null: none);
+//   w_esize: 0 = no weights, 4 = float32 (or int32 bits), 8 = int64
+//   elements whose low 32 bits are the float32 bits.
 extern "C" int detpu_ragged_combine_prepare(
     const void* slab, int64_t slab_rows, int width, int dtype, int ids_is_64,
     int64_t v_stride, const void* rows, const void* roff, const void* mean,
-    const void* mask, int w_esize, int64_t w_stride, int out_dtype,
-    int n_slots, int64_t b, int64_t cap, void* prepared) {
+    const void* mask, const void* rbase, int w_esize, int64_t w_stride,
+    int out_dtype, int n_slots, int64_t b, int64_t cap, void* prepared) {
   if (width <= 0 || slab_rows <= 0 || n_slots < 0 || b < 0 || cap < 0 ||
       (dtype != 0 && dtype != 1) || (out_dtype != 0 && out_dtype != 1) ||
       (w_esize != 0 && w_esize != 4 && w_esize != 8) ||
@@ -500,6 +526,7 @@ extern "C" int detpu_ragged_combine_prepare(
   a.roff = static_cast<const int64_t*>(roff);
   a.mean = static_cast<const int*>(mean);
   a.mask = static_cast<const int*>(mask);
+  a.rbase = static_cast<const int64_t*>(rbase);
   a.w_stride = w_stride;
   a.w_esize = w_esize ? w_esize : 4;
   a.n_slots = n_slots;
@@ -509,11 +536,12 @@ extern "C" int detpu_ragged_combine_prepare(
   a.tiles_per_slot = (b + kTile - 1) / kTile;
   a.tiles = a.tiles_per_slot * n_slots;
   const bool ids64 = ids_is_64 != 0;
+  const bool based = rbase != nullptr;
   Kernel k = dtype == 0
-      ? (out_dtype == 0 ? pick_vb<F32, F32>(vb, ids64)
-                        : pick_vb<F32, BF16>(vb, ids64))
-      : (out_dtype == 0 ? pick_vb<BF16, F32>(vb, ids64)
-                        : pick_vb<BF16, BF16>(vb, ids64));
+      ? (out_dtype == 0 ? pick_vb<F32, F32>(vb, ids64, based)
+                        : pick_vb<F32, BF16>(vb, ids64, based))
+      : (out_dtype == 0 ? pick_vb<BF16, F32>(vb, ids64, based)
+                        : pick_vb<BF16, BF16>(vb, ids64, based));
   if (k == nullptr) return cudaErrorInvalidValue;
   p->kernel = k;
   if (a.tiles == 0) return cudaSuccess;

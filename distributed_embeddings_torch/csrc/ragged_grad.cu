@@ -12,10 +12,16 @@
 // the counterpart of the reference library's variable-hotness backward
 // (embedding_lookup_kernels.cu:493-494, 539-627).
 // For every slot and every position p < cap it writes
-//   * the id values[p] + roff if p lies in a row and 0 <= values[p] <
-//     rows, else the sentinel (a row past the slab: the optimizer drops
-//     it), when ids are asked for;
-//   * the row g[row(p)] * w_p / len, in the cotangent's dtype, rounded
+//   * the id v + roff if p lies in a row and 0 <= v < rows, else the
+//     sentinel (a row past the slab: the optimizer drops it), when ids
+//     are asked for; v is values[p], less the slot's row base where the
+//     launch has bases (a row-sliced slot holds the rows [rbase, rbase +
+//     rows) of its table: ids outside the slice drop; a template flag, so
+//     the launch without bases keeps the registers and instruction stream
+//     it had);
+//   * the row g[row(p)] * w_p / len (a row slice's cotangent is the
+//     row's whole cotangent, len its whole length), in the cotangent's
+//     dtype, rounded
 //     after each op as JAX does: the weight rounds to the dtype and the
 //     product rounds, then the division by max(len, 1) (rounded to the
 //     dtype) rounds; the reciprocal mode multiplies by round(1 / len).
@@ -86,6 +92,7 @@ struct Args {
   int64_t v_stride;
   const int64_t* rows;    // [n_slots] table rows per slot
   const int64_t* roff;    // [n_slots] first slab row per slot
+  const int64_t* rbase;   // [n_slots] row base per slot, or null
   int64_t sentinel;
   void* ids_out;          // [n_slots, cap] or null
   const int* mean;        // [n_slots] or null
@@ -110,7 +117,7 @@ __device__ __forceinline__ void put_id(void* out, int ids64, int64_t i,
   }
 }
 
-template <typename Tr, int VB, typename IdT>
+template <typename Tr, int VB, typename IdT, bool RB>
 __global__ void __launch_bounds__(256)
 ragged_grad_kernel(const Args a, int ids64) {
   using E = typename Tr::E;
@@ -176,6 +183,7 @@ ragged_grad_kernel(const Args a, int ids64) {
             static_cast<int64_t>(slot) * a.v_stride;
   const int64_t nrows = a.rows != nullptr ? a.rows[slot] : 0;
   const int64_t base = a.roff != nullptr ? a.roff[slot] : 0;
+  const int64_t rb = RB ? a.rbase[slot] : 0;
 
   for (int v = lane; v < nv; v += G) {
     const int64_t col = static_cast<int64_t>(v) * V;
@@ -204,7 +212,8 @@ ragged_grad_kernel(const Args a, int ids64) {
       const int64_t q = static_cast<int64_t>(slot) * a.cap + p;
       *reinterpret_cast<RawT*>(vals + q * a.width + col) = raw;
       if (a.ids_out != nullptr && v == 0) {
-        const int64_t id = static_cast<int64_t>(ids[p]);
+        int64_t id = static_cast<int64_t>(ids[p]);
+        if constexpr (RB) id -= rb;  // the slot's range-local id
         put_id(a.ids_out, ids64, q,
                     id >= 0 && id < nrows ? id + base : a.sentinel);
       }
@@ -212,17 +221,25 @@ ragged_grad_kernel(const Args a, int ids64) {
   }
 }
 
-template <typename Tr, int VB>
-cudaError_t launch(const Args& a, bool in64, int out64, int64_t blocks,
-                   cudaStream_t stream) {
+template <typename Tr, int VB, bool RB>
+cudaError_t launch_based(const Args& a, bool in64, int out64, int64_t blocks,
+                         cudaStream_t stream) {
   if (in64) {
-    ragged_grad_kernel<Tr, VB, int64_t>
+    ragged_grad_kernel<Tr, VB, int64_t, RB>
         <<<static_cast<unsigned>(blocks), 256, 0, stream>>>(a, out64);
   } else {
-    ragged_grad_kernel<Tr, VB, int32_t>
+    ragged_grad_kernel<Tr, VB, int32_t, RB>
         <<<static_cast<unsigned>(blocks), 256, 0, stream>>>(a, out64);
   }
   return cudaGetLastError();
+}
+
+template <typename Tr, int VB>
+cudaError_t launch(const Args& a, bool in64, int out64, int64_t blocks,
+                   cudaStream_t stream) {
+  return a.rbase != nullptr
+      ? launch_based<Tr, VB, true>(a, in64, out64, blocks, stream)
+      : launch_based<Tr, VB, false>(a, in64, out64, blocks, stream);
 }
 
 template <typename Tr>
@@ -248,6 +265,7 @@ struct Prepared {
   int width, dtype, ids_in_64, ids_out_64, has_ids, has_mean, reciprocal;
   int w_esize;  // 0: no weights
   int n_slots;
+  int has_rbase;
 };
 
 }  // namespace
@@ -268,15 +286,18 @@ extern "C" int64_t detpu_ragged_grad_prepared_bytes() {
 // an id stream (values of ids_in_64 width, row stride v_stride, and
 // rows/roff) into ids_out of ids_out_64 width. w_esize: 0 = no weights,
 // 4 = float32 (or int32 bits), 8 = int64 elements whose low 32 bits are
-// the float32 bits, row stride w_stride. Launches nothing.
+// the float32 bits, row stride w_stride. has_rbase: the id stream
+// subtracts per-slot row bases (int64). Launches nothing.
 extern "C" int detpu_ragged_grad_prepare(
     int64_t g_slot_stride, int64_t g_row_stride, int width, int dtype,
     int has_ids, int ids_in_64, int64_t v_stride, int64_t sentinel,
     int ids_out_64, int has_mean, int reciprocal, int w_esize,
-    int64_t w_stride, int n_slots, int64_t b, int64_t cap, void* out) {
+    int64_t w_stride, int n_slots, int64_t b, int64_t cap, int has_rbase,
+    void* out) {
   if (out == nullptr || width <= 0 || n_slots < 0 || b < 0 || cap < 0 ||
       (dtype != 0 && dtype != 1) ||
-      (w_esize != 0 && w_esize != 4 && w_esize != 8)) {
+      (w_esize != 0 && w_esize != 4 && w_esize != 8) ||
+      (has_rbase != 0 && has_ids == 0)) {
     return cudaErrorInvalidValue;
   }
   Prepared* pr = static_cast<Prepared*>(out);
@@ -284,19 +305,20 @@ extern "C" int detpu_ragged_grad_prepare(
   *pr = Prepared{g_slot_stride, g_row_stride, v_stride, w_stride, sentinel,
                  b, cap, width, dtype, ids_in_64 != 0, ids_out_64 != 0,
                  has_ids != 0, has_mean != 0, reciprocal != 0, w_esize,
-                 n_slots};
+                 n_slots, has_rbase != 0};
   return cudaSuccess;
 }
 
 // K9 through a prepared launch: the call's pointers (values, rows, roff
-// and ids_out given exactly when the record has an id stream, mean and
-// weights when it has them; null otherwise). Rows move 16 bytes a lane
-// where the width, the cotangent's strides and the two row pointers
-// allow it, else 8, 4 or 2.
+// and ids_out given exactly when the record has an id stream, mean,
+// rbase and weights when it has them; null otherwise). Rows move 16
+// bytes a lane where the width, the cotangent's strides and the two row
+// pointers allow it, else 8, 4 or 2.
 extern "C" int detpu_ragged_grad_launch(
     const void* prepared, const void* g, const void* splits,
-    const void* values, const void* rows, const void* roff, const void* mean,
-    const void* weights, void* ids_out, void* vals_out, void* stream) {
+    const void* values, const void* rows, const void* roff, const void* rbase,
+    const void* mean, const void* weights, void* ids_out, void* vals_out,
+    void* stream) {
   const Prepared* pr = static_cast<const Prepared*>(prepared);
   if (pr == nullptr) return cudaErrorInvalidValue;
   const bool ids = pr->has_ids != 0;
@@ -304,6 +326,7 @@ extern "C" int detpu_ragged_grad_launch(
       (values != nullptr) != ids || (ids_out != nullptr) != ids ||
       (ids && (rows == nullptr || roff == nullptr)) ||
       (mean != nullptr) != (pr->has_mean != 0) ||
+      (rbase != nullptr) != (pr->has_rbase != 0) ||
       (weights != nullptr) != (pr->w_esize != 0)) {
     return cudaErrorInvalidValue;
   }
@@ -329,7 +352,8 @@ extern "C" int detpu_ragged_grad_launch(
   const Args a{g, pr->g_slot_stride, pr->g_row_stride, pr->width,
                static_cast<const int64_t*>(splits), values, pr->v_stride,
                static_cast<const int64_t*>(rows),
-               static_cast<const int64_t*>(roff), pr->sentinel, ids_out,
+               static_cast<const int64_t*>(roff),
+               static_cast<const int64_t*>(rbase), pr->sentinel, ids_out,
                static_cast<const int*>(mean), pr->reciprocal, weights,
                pr->w_stride, pr->w_esize ? pr->w_esize : 4, vals_out,
                pr->n_slots, pr->b, pr->cap, group_log2, row_blocks};

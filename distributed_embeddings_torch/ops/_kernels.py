@@ -55,10 +55,10 @@ _F = ctypes.c_float
 #: C signature of each exported function, per source stem
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "gather_combine": {
-        # slab, slab_rows, width, ids_is_64, rows, roff, div, mask,
+        # slab, slab_rows, width, ids_is_64, rows, roff, div, mask, rbase,
         # weighted, n_slots, b, hot, dtype, vb, prepared (host, out)
         "detpu_gather_combine_prepare": (_P, _I64, _I, _I, _P, _P, _P, _P,
-                                         _I, _I, _I64, _I, _I, _I, _P),
+                                         _P, _I, _I, _I64, _I, _I, _I, _P),
         # prepared, ids, weights, out, stream
         "detpu_gather_combine_launch": (_P, _P, _P, _P, _P),
         # -> the bytes of a prepared launch
@@ -179,10 +179,10 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "ragged_combine": {
         # slab, slab_rows, width, dtype, ids_is_64, v_stride, rows, roff,
-        # mean, mask, w_esize, w_stride, out_dtype, n_slots, b, cap,
+        # mean, mask, rbase, w_esize, w_stride, out_dtype, n_slots, b, cap,
         # prepared (host, out)
         "detpu_ragged_combine_prepare": (_P, _I64, _I, _I, _I, _I64, _P, _P,
-                                         _P, _P, _I, _I64, _I, _I, _I64,
+                                         _P, _P, _P, _I, _I64, _I, _I, _I64,
                                          _I64, _P),
         # prepared, values, splits, weights, out, stream
         "detpu_ragged_combine_launch": (_P, _P, _P, _P, _P, _P),
@@ -192,13 +192,13 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "ragged_grad": {
         # g_slot_stride, g_row_stride, width, dtype, has_ids, ids_in_64,
         # v_stride, sentinel, ids_out_64, has_mean, reciprocal, w_esize,
-        # w_stride, n_slots, b, cap, prepared (host, out)
+        # w_stride, n_slots, b, cap, has_rbase, prepared (host, out)
         "detpu_ragged_grad_prepare": (_I64, _I64, _I, _I, _I, _I, _I64,
                                       _I64, _I, _I, _I, _I, _I64, _I, _I64,
-                                      _I64, _P),
-        # prepared, g, splits, values, rows, roff, mean, weights, ids_out,
-        # vals_out, stream
-        "detpu_ragged_grad_launch": (_P,) * 11,
+                                      _I64, _I, _P),
+        # prepared, g, splits, values, rows, roff, rbase, mean, weights,
+        # ids_out, vals_out, stream
+        "detpu_ragged_grad_launch": (_P,) * 12,
         # -> the bytes of a prepared launch
         "detpu_ragged_grad_prepared_bytes": (),
     },
@@ -238,7 +238,9 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "exchange_pack": {
         # descs (host int64 [n, 8]), n, n_tiles, stream
         "detpu_pack_ids": (_P, _I, _I64, _P),
-        "detpu_pack_cols": (_P, _I, _I64, _P),
+        # descs (host int64 [n + n_rows, 8]: the descriptors, then the
+        # sums' address rows), n, n_rows, n_tiles, stream
+        "detpu_pack_cols": (_P, _I, _I, _I64, _P),
         # -> the most descriptors a launch takes / the units a tile covers
         "detpu_pack_max_descs": (),
         "detpu_pack_tile_units": (),

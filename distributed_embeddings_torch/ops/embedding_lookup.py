@@ -97,12 +97,15 @@ def gather_combine_plain(slab: torch.Tensor, ids: torch.Tensor,
                          rows: torch.Tensor, roff: torch.Tensor,
                          div: torch.Tensor,
                          mask: Optional[torch.Tensor] = None,
-                         weights: Optional[torch.Tensor] = None
+                         weights: Optional[torch.Tensor] = None,
+                         rbase: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
     """Plain PyTorch version of :func:`gather_combine`: the same
     arithmetic (fp32 accumulation, one rounding to the slab dtype)."""
     n = ids.shape[0]
     ids64 = ids.long()
+    if rbase is not None:
+        ids64 = ids64 - rbase.view(n, 1, 1)
     r = rows.view(n, 1, 1)
     loc = torch.minimum(ids64.clamp(min=0), r - 1)
     grow = (loc + roff.view(n, 1, 1)).clamp(max=slab.shape[0] - 1)
@@ -140,20 +143,22 @@ def _prepared(lib, what: str) -> np.ndarray:
 
 
 def gather_record_key(slab, ids, rows, roff, div, mask=None,
-                      weights=None) -> tuple:
+                      weights=None, rbase=None) -> tuple:
     """Every fact K1's launch record rests on: per slab, ``rows``,
-    ``roff``, ``div`` and ``mask`` its address, shape, strides, dtype and
-    device (the vector width and the dtype code follow from the slab's),
-    and the layouts of ``ids`` (``n``, ``b``, ``hot``) and ``weights``,
-    whose addresses are read per call."""
+    ``roff``, ``div``, ``mask`` and ``rbase`` its address, shape,
+    strides, dtype and device (the vector width and the dtype code follow
+    from the slab's; ``rbase``'s facts close the key), and the layouts of
+    ``ids`` (``n``, ``b``, ``hot``) and ``weights``, whose addresses are
+    read per call."""
     ts = (slab, rows, roff, div) if mask is None else (slab, rows, roff,
                                                        div, mask)
-    return (len(ts), *_kernels.tensor_key(ts), _kernels.layout_key(ids),
-            _kernels.layout_key(weights))
+    key = (len(ts), *_kernels.tensor_key(ts), _kernels.layout_key(ids),
+           _kernels.layout_key(weights))
+    return key if rbase is None else key + _kernels.tensor_key((rbase,))
 
 
 def build_gather_record(slab, ids, rows, roff, div, mask=None,
-                        weights=None) -> _kernels.LaunchRecord:
+                        weights=None, rbase=None) -> _kernels.LaunchRecord:
     """Validate a K1 call as :func:`gather_combine` always has (raising as
     it did) and build its launch record: for CUDA tensors the prepared
     launch (``csrc/gather_combine.cu``), bound to the library. The
@@ -174,6 +179,8 @@ def build_gather_record(slab, ids, rows, roff, div, mask=None,
     _expect(div, (torch.float32,), (n,), dev, "div")
     if mask is not None:
         _expect(mask, (torch.int32,), (n,), dev, "mask")
+    if rbase is not None:
+        _expect(rbase, (torch.int64,), (n,), dev, "rbase")
     if weights is not None:
         _expect(weights, (torch.float32,), (n, b, hot), dev, "weights")
     w = slab.shape[1]
@@ -186,6 +193,7 @@ def build_gather_record(slab, ids, rows, roff, div, mask=None,
             slab.data_ptr(), slab.shape[0], w, int(ids.dtype == torch.int64),
             rows.data_ptr(), roff.data_ptr(), div.data_ptr(),
             None if mask is None else mask.data_ptr(),
+            None if rbase is None else rbase.data_ptr(),
             int(weights is not None), n, b, hot, _DTYPE_CODE[slab.dtype],
             vb, buf.ctypes.data), "gather_combine")
         if n * b:
@@ -196,15 +204,16 @@ def build_gather_record(slab, ids, rows, roff, div, mask=None,
 
 
 def find_gather_record(cache: _kernels.LaunchCache, slab, ids, rows, roff,
-                       div, mask=None, weights=None,
+                       div, mask=None, weights=None, rbase=None,
                        build_on_cpu: bool = False):
     """K1's launch record of a call: found in ``cache`` by
     :func:`gather_record_key`, or built (:func:`build_gather_record`) and
     kept (:func:`~._kernels.find_or_build`)."""
     return _kernels.find_or_build(
-        cache, gather_record_key(slab, ids, rows, roff, div, mask, weights),
+        cache, gather_record_key(slab, ids, rows, roff, div, mask, weights,
+                                 rbase),
         build_gather_record, slab.device.type == "cpu", build_on_cpu, slab,
-        ids, rows, roff, div, mask, weights)
+        ids, rows, roff, div, mask, weights, rbase)
 
 
 _GATHER = _kernels.LaunchCache()
@@ -213,17 +222,20 @@ _GATHER = _kernels.LaunchCache()
 def gather_combine(slab: torch.Tensor, ids: torch.Tensor,
                    rows: torch.Tensor, roff: torch.Tensor,
                    div: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                   weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   weights: Optional[torch.Tensor] = None,
+                   rbase: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K1: per-slot clipped row gather and hotness combine.
 
     ``slab [R, w]`` (float32 or bfloat16) holds the slots' tables;
-    ``ids [n, b, hot]`` (int32/int64) are table-local ids. Slot ``k``
-    reads ``slab[clip(id, 0, rows[k]-1) + roff[k]]`` (int64 ``rows``,
+    ``ids [n, b, hot]`` (int32/int64) are table ids. With ``rbase`` (int64
+    ``[n]``: a row-sliced slot's first table row) slot ``k`` reads the
+    range-local id ``id - rbase[k]``, else the id. Slot ``k`` reads
+    ``slab[clip(id, 0, rows[k]-1) + roff[k]]`` (int64 ``rows``,
     ``roff``), optionally times ``weights [n, b, hot]`` (float32) and
-    times 0 where ``mask[k]`` (int32) is set and the id lies outside
-    ``[0, rows[k])``, sums over ``hot`` in fp32, divides by ``div[k]``
-    (float32; ``hot`` for mean slots) and returns ``[n, b, w]`` in the
-    slab's dtype.
+    times 0 where ``mask[k]`` (int32) is set and the (local) id lies
+    outside ``[0, rows[k])``, sums over ``hot`` in fp32, divides by
+    ``div[k]`` (float32; ``hot`` for mean slots) and returns ``[n, b,
+    w]`` in the slab's dtype.
 
     A CPU slab runs :func:`gather_combine_plain`; a CUDA slab launches
     the kernel (``csrc/gather_combine.cu``) or raises. The first call
@@ -235,20 +247,26 @@ def gather_combine(slab: torch.Tensor, ids: torch.Tensor,
         if ids.dim() != 3:
             raise ValueError(f"ids must be [n, b, hot], got "
                              f"{tuple(ids.shape)}")
-        return gather_combine_plain(slab, ids, rows, roff, div, mask, weights)
+        return gather_combine_plain(slab, ids, rows, roff, div, mask, weights,
+                                    rbase)
     rec = (_GATHER.get(gather_record_key(slab, ids, rows, roff, div, mask,
-                                         weights))
+                                         weights, rbase))
            or find_gather_record(_GATHER, slab, ids, rows, roff, div, mask,
-                                 weights))
+                                 weights, rbase))
     shape, dtype, dev = rec.payload[:3]
     out = torch.empty(*shape, dtype=dtype, device=dev)
-    gather_combine.launches += rec.replay(
-        ids.data_ptr(), None if weights is None else weights.data_ptr(),
-        out.data_ptr())
+    n = rec.replay(ids.data_ptr(),
+                   None if weights is None else weights.data_ptr(),
+                   out.data_ptr())
+    gather_combine.launches += n
+    if rbase is not None:
+        gather_combine.launches_rbase += n
     return out
 
 
 gather_combine.launches = 0
+#: the launches with row bases (row-sliced slots), also in ``launches``
+gather_combine.launches_rbase = 0
 
 
 def _expect(t: torch.Tensor, dtypes, shape, device, what: str) -> None:
@@ -613,7 +631,8 @@ def ragged_combine_plain(slab: torch.Tensor, values: torch.Tensor,
                          mean: Optional[torch.Tensor] = None,
                          mask: Optional[torch.Tensor] = None,
                          weights: Optional[torch.Tensor] = None,
-                         out_dtype: Optional[torch.dtype] = None
+                         out_dtype: Optional[torch.dtype] = None,
+                         rbase: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
     """Plain PyTorch version of :func:`ragged_combine`, with the same
     arithmetic in the same order: one pass per position of the longest
@@ -625,6 +644,8 @@ def ragged_combine_plain(slab: torch.Tensor, values: torch.Tensor,
     start, end = _row_bounds(splits, cap)
     count = _rnd((splits[:, 1:] - splits[:, :-1]).clamp(min=1).float(), dt)
     ids = values.long()
+    if rbase is not None:
+        ids = ids - rbase.view(n, 1)
     r = rows.view(n, 1)
     wf = None if weights is None else _rnd(weight_floats(weights), dt)
     acc = torch.zeros((n, b, w), dtype=torch.float32, device=slab.device)
@@ -650,23 +671,26 @@ def ragged_combine_plain(slab: torch.Tensor, values: torch.Tensor,
 
 
 def ragged_record_key(slab, values, splits, rows, roff, mean=None,
-                      mask=None, weights=None, out_dtype=None) -> tuple:
+                      mask=None, weights=None, out_dtype=None,
+                      rbase=None) -> tuple:
     """Every fact K8's launch record rests on: per slab, ``rows``,
-    ``roff``, ``mean`` and ``mask`` its address, shape, strides, dtype and
-    device (which of the optional two are given leads the key), the
-    LAYOUTS of ``values``, ``splits`` and ``weights`` (their addresses are
-    read per call) and the output dtype."""
+    ``roff``, ``mean``, ``mask`` and ``rbase`` its address, shape,
+    strides, dtype and device (which of ``mean`` and ``mask`` are given
+    leads the key, ``rbase``'s facts close it), the LAYOUTS of
+    ``values``, ``splits`` and ``weights`` (their addresses are read per
+    call) and the output dtype."""
     ts = (slab, rows, roff) if mean is None and mask is None else tuple(
         t for t in (slab, rows, roff, mean, mask) if t is not None)
-    return ((mean is not None) + 2 * (mask is not None),
-            *_kernels.tensor_key(ts), _kernels.layout_key(values),
-            _kernels.layout_key(splits), _kernels.layout_key(weights),
-            out_dtype)
+    key = ((mean is not None) + 2 * (mask is not None),
+           *_kernels.tensor_key(ts), _kernels.layout_key(values),
+           _kernels.layout_key(splits), _kernels.layout_key(weights),
+           out_dtype)
+    return key if rbase is None else key + _kernels.tensor_key((rbase,))
 
 
 def build_ragged_record(slab, values, splits, rows, roff, mean=None,
-                        mask=None, weights=None,
-                        out_dtype=None) -> _kernels.LaunchRecord:
+                        mask=None, weights=None, out_dtype=None,
+                        rbase=None) -> _kernels.LaunchRecord:
     """Validate a K8 call as :func:`ragged_combine` always has (raising as
     it did) and build its launch record: for CUDA tensors the prepared
     launch (``csrc/ragged_combine.cu``: the vector width, the source
@@ -694,6 +718,8 @@ def build_ragged_record(slab, values, splits, rows, roff, mean=None,
     for t, what in ((mean, "mean"), (mask, "mask")):
         if t is not None:
             _expect(t, (torch.int32,), (n,), dev, what)
+    if rbase is not None:
+        _expect(rbase, (torch.int64,), (n,), dev, "rbase")
     if weights is not None:
         _expect_rows(weights, (torch.float32,) + _INT, n, dev, "weights")
         if weights.shape[1] < cap:
@@ -710,6 +736,7 @@ def build_ragged_record(slab, values, splits, rows, roff, mean=None,
             rows.data_ptr(), roff.data_ptr(),
             None if mean is None else mean.data_ptr(),
             None if mask is None else mask.data_ptr(),
+            None if rbase is None else rbase.data_ptr(),
             0 if weights is None else weights.element_size(),
             0 if weights is None else weights.stride(0),
             _DTYPE_CODE[out_dtype], n, b, cap, buf.ctypes.data),
@@ -723,15 +750,16 @@ def build_ragged_record(slab, values, splits, rows, roff, mean=None,
 
 def find_ragged_record(cache: _kernels.LaunchCache, slab, values, splits,
                        rows, roff, mean=None, mask=None, weights=None,
-                       out_dtype=None, build_on_cpu: bool = False):
+                       out_dtype=None, rbase=None,
+                       build_on_cpu: bool = False):
     """K8's launch record of a call: found in ``cache`` by
     :func:`ragged_record_key`, or built (:func:`build_ragged_record`) and
     kept (:func:`~._kernels.find_or_build`)."""
     return _kernels.find_or_build(
         cache, ragged_record_key(slab, values, splits, rows, roff, mean,
-                                 mask, weights, out_dtype),
+                                 mask, weights, out_dtype, rbase),
         build_ragged_record, slab.device.type == "cpu", build_on_cpu, slab,
-        values, splits, rows, roff, mean, mask, weights, out_dtype)
+        values, splits, rows, roff, mean, mask, weights, out_dtype, rbase)
 
 
 _RAGGED = _kernels.LaunchCache()
@@ -742,12 +770,15 @@ def ragged_combine(slab: torch.Tensor, values: torch.Tensor,
                    roff: torch.Tensor, mean: Optional[torch.Tensor] = None,
                    mask: Optional[torch.Tensor] = None,
                    weights: Optional[torch.Tensor] = None,
-                   out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                   out_dtype: Optional[torch.dtype] = None,
+                   rbase: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K8: per-slot CSR gather and combine.
 
     ``slab [R, w]`` (float32/bfloat16) holds the slots' tables;
-    ``values [n, cap]`` (int32/int64) the table-local ids of each slot's
-    CSR batch and ``splits [n, b + 1]`` (int64) its row offsets. Row
+    ``values [n, cap]`` (int32/int64) the table ids of each slot's CSR
+    batch (range-local ids ``values - rbase[k]`` where ``rbase``, int64
+    ``[n]``, gives a row-sliced slot's first table row) and ``splits [n,
+    b + 1]`` (int64) its row offsets. Row
     ``r`` of slot ``k`` sums, over positions ``p`` in
     ``[min(splits[r], cap), min(splits[r + 1], cap))``,
     ``slab[clip(values[p], 0, rows[k] - 1) + roff[k]]`` times
@@ -771,20 +802,27 @@ def ragged_combine(slab: torch.Tensor, values: torch.Tensor,
                          f"got {tuple(values.shape)}, {tuple(splits.shape)}")
     if slab.device.type == "cpu":
         return ragged_combine_plain(slab, values, splits, rows, roff, mean,
-                                    mask, weights, out_dtype)
+                                    mask, weights, out_dtype, rbase)
     rec = (_RAGGED.get(ragged_record_key(slab, values, splits, rows, roff,
-                                         mean, mask, weights, out_dtype))
+                                         mean, mask, weights, out_dtype,
+                                         rbase))
            or find_ragged_record(_RAGGED, slab, values, splits, rows, roff,
-                                 mean, mask, weights, out_dtype))
+                                 mean, mask, weights, out_dtype,
+                                 rbase=rbase))
     shape, dtype, dev = rec.payload[:3]
     out = torch.empty(*shape, dtype=dtype, device=dev)
-    ragged_combine.launches += rec.replay(
-        values.data_ptr(), splits.data_ptr(),
-        None if weights is None else weights.data_ptr(), out.data_ptr())
+    n = rec.replay(values.data_ptr(), splits.data_ptr(),
+                   None if weights is None else weights.data_ptr(),
+                   out.data_ptr())
+    ragged_combine.launches += n
+    if rbase is not None:
+        ragged_combine.launches_rbase += n
     return out
 
 
 ragged_combine.launches = 0
+#: the launches with row bases (row-sliced slots), also in ``launches``
+ragged_combine.launches_rbase = 0
 
 
 def embedding_lookup(params: torch.Tensor, ids: IdsLike,

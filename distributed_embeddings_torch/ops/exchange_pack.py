@@ -14,7 +14,11 @@ transposes and slices.
 A :class:`CopyPlan` lists the copies in ELEMENTS, by the index of the
 source and of the destination tensor in the lists a call passes, so it
 is built once per exchange plan and reused every step; a call only
-supplies the tensors. A source index of ``-1`` zero-fills. On the card
+supplies the tensors. A source index of ``-1`` zero-fills. A plan may
+also hold SUMS (K20 only): a destination block that is the sum of
+``k >= 2`` source blocks of its dtype, added in order and rounded to the
+dtype after each add (the unpack of a row-sliced table's slices). On the
+card
 the wrapper turns each copy into a descriptor (addresses patched from the
 tensors, the widest unit the alignment allows) and launches once per
 :data:`MAX_DESCS` descriptors; on the CPU it runs :func:`batched_copy_plain`.
@@ -56,6 +60,12 @@ class CopyPlan:
     ``dst`` index the tensor lists of a call (``src == -1``: zero-fill).
     Copies without elements are dropped.
 
+    ``sums`` (optional): per sum ``(dst, dst_off, dst_stride, rows, cols,
+    parts)``, ``parts`` a list of ``k >= 2`` ``(src, src_off,
+    src_stride)`` (one row stride for all): the destination block is
+    ``part 0 + part 1 + ...``, added left to right in the destination's
+    dtype, which must be the sources'.
+
     ``src_width`` (optional, per source index; 0 for none) declares a
     source read by logical rows of that width: it may then arrive as any
     2-D ``[rows, width]`` tensor whose columns are contiguous (a column
@@ -64,23 +74,37 @@ class CopyPlan:
     must stay inside one logical row and step whole rows."""
 
     def __init__(self, copies: Sequence[Sequence[int]],
-                 src_width: Sequence[int] = ()):
+                 src_width: Sequence[int] = (), sums: Sequence = ()):
         a = np.asarray(list(copies), dtype=np.int64).reshape(-1, 8)
         self.a = a[(a[:, ROWS] > 0) & (a[:, COLS] > 0)]
         a = self.a
-        read = a[:, SRC] >= 0
+        #: per sum, its parts as copies ``[k, 8]`` (one destination)
+        self.sums = []
+        for dst, doff, dstride, rows, cols, parts in sums:
+            if len(parts) < 2:
+                raise ValueError("a sum needs at least two parts")
+            if len({p[2] for p in parts}) != 1:
+                raise ValueError("a sum's parts must share a row stride")
+            if rows > 0 and cols > 0:
+                self.sums.append(np.asarray(
+                    [(p[0], p[1], p[2], dst, doff, dstride, rows, cols)
+                     for p in parts], np.int64))
+        every = np.concatenate([a] + self.sums) if self.sums else a
+        read = every[:, SRC] >= 0
+        if self.sums and (np.concatenate(self.sums)[:, SRC] < 0).any():
+            raise ValueError("a sum's parts must read sources")
         #: the source indices read, and per index the elements it must hold
-        self.used_src = sorted(set(a[read, SRC].tolist()))
+        self.used_src = sorted(set(every[read, SRC].tolist()))
         self.n_src = self.used_src[-1] + 1 if self.used_src else 0
-        self.n_dst = int(a[:, DST].max()) + 1 if len(a) else 0
-        s_last = (a[:, ROWS] - 1) * a[:, SRC_STRIDE] + a[:, SRC_OFF] \
-            + a[:, COLS]
-        d_last = (a[:, ROWS] - 1) * a[:, DST_STRIDE] + a[:, DST_OFF] \
-            + a[:, COLS]
+        self.n_dst = int(every[:, DST].max()) + 1 if len(every) else 0
+        s_last = (every[:, ROWS] - 1) * every[:, SRC_STRIDE] \
+            + every[:, SRC_OFF] + every[:, COLS]
+        d_last = (every[:, ROWS] - 1) * every[:, DST_STRIDE] \
+            + every[:, DST_OFF] + every[:, COLS]
         src_need = np.zeros(self.n_src, np.int64)
-        np.maximum.at(src_need, a[read, SRC], s_last[read])
+        np.maximum.at(src_need, every[read, SRC], s_last[read])
         dst_need = np.zeros(self.n_dst, np.int64)
-        np.maximum.at(dst_need, a[:, DST], d_last)
+        np.maximum.at(dst_need, every[:, DST], d_last)
         self.src_need, self.dst_need = src_need.tolist(), dst_need.tolist()
         width = np.zeros(max(self.n_src, len(src_width)), np.int64)
         width[:len(src_width)] = src_width
@@ -88,7 +112,7 @@ class CopyPlan:
         #: (offset // width, offset % width, stride // width)
         self.row_src = [i for i in self.used_src if width[i]]
         self.src_width = width.tolist()
-        w = np.where(read, width[np.maximum(a[:, SRC], 0)], 0)
+        w = np.where(a[:, SRC] >= 0, width[np.maximum(a[:, SRC], 0)], 0)
         self.rowwise = w > 0
         wr = np.where(self.rowwise, w, 1)
         self.q_off, self.r_off = a[:, SRC_OFF] // wr, a[:, SRC_OFF] % wr
@@ -96,11 +120,13 @@ class CopyPlan:
         if ((self.r_off + a[:, COLS] > wr) | (a[:, SRC_STRIDE] % wr != 0)
                 )[self.rowwise].any():
             raise ValueError("a copy of a row-wise source crosses a row")
+        if any(width[p[:, SRC]].any() for p in self.sums):
+            raise ValueError("a sum cannot read a row-wise source")
         #: the card's launch records by tensor facts (:func:`find_record`)
         self.launch_cache = _kernels.LaunchCache()
 
     def __len__(self) -> int:
-        return len(self.a)
+        return len(self.a) + len(self.sums)
 
 
 def _check_tensors(plan: CopyPlan, srcs, dsts, what: str):
@@ -170,6 +196,16 @@ def batched_copy_plain(plan: CopyPlan, srcs: Sequence[torch.Tensor],
             s = srcs[si]
             view.copy_(s.as_strided((rows, cols), (ss, 1),
                                     s.storage_offset() + so))
+    for parts in plan.sums:
+        _, _, _, di, do, ds, rows, cols = parts[0].tolist()
+        d = dsts[di]
+        total = None
+        for si, so, ss in parts[:, :3].tolist():
+            s = srcs[si]
+            x = s.as_strided((rows, cols), (ss, 1), s.storage_offset() + so)
+            total = x if total is None else total + x
+        d.as_strided((rows, cols), (ds, 1), d.storage_offset() + do).copy_(
+            total)
 
 
 def _lowbit(x: np.ndarray) -> np.ndarray:
@@ -234,22 +270,86 @@ def descriptors(plan: CopyPlan, srcs, dsts, src_dtype, dst_dtype
     return out
 
 
+#: the first summing mode: float32 (10-12) and bfloat16 (13-15) sums in
+#: units of 1, 2, 4 elements, the part count from bit 8
+SUM_MODE = 10
+
+
+def sum_descriptors(plan: CopyPlan, srcs, dsts, dtype):
+    """``(descriptors int64 [m, 8], addresses [m] of int64 [k])`` of the
+    plan's sums for one call: per sum its destination, the parts' row
+    stride, rows and columns in its unit (1, 2 or 4 elements, the widest
+    every address, stride and row length allows), and its mode (``10 +
+    3 * (dtype is bfloat16) + log2(unit) + (k << 8)``; column 0, the
+    index of its first address, is set per launch); and its parts'
+    addresses."""
+    if dtype not in _FLOATS:
+        raise ValueError(f"exchange sum: {dtype} is not a float dtype")
+    es = _ESIZE[dtype]
+    out = np.zeros((len(plan.sums), 8), np.int64)
+    addrs = []
+    for i, parts in enumerate(plan.sums):
+        _, _, ss, di, do, ds, rows, cols = parts[0].tolist()
+        daddr = dsts[di].data_ptr() + do * es
+        sa = [srcs[si].data_ptr() + so * es
+              for si, so in parts[:, :2].tolist()]
+        g = (daddr // es) | ds | cols | ss
+        for x in sa:
+            g |= x // es
+        per = min(int(_lowbit(np.int64(g))), 4)
+        if any(x % es for x in sa + [daddr]):
+            raise ValueError("exchange sum: a tensor is not aligned to its "
+                             "element size")
+        out[i, 1:6] = (daddr, ss // per, ds // per, rows, cols // per)
+        out[i, 7] = (SUM_MODE + 3 * (dtype == torch.bfloat16)
+                     + int(np.log2(per)) + (len(sa) << 8))
+        addrs.append(np.asarray(sa, np.int64))
+    return out, addrs
+
+
 def launch_chunks(plan: CopyPlan, srcs, dsts, src_dtype, dst_dtype,
                   what: str):
-    """``[(descriptors int64 [<= MAX_DESCS, 8], tiles)]`` of one call:
-    :func:`descriptors` split into launches, each descriptor's first tile
-    (column 6) counted from its launch's start."""
+    """``[(array int64 [n + n_rows, 8], tiles, n, n_rows)]`` of one call:
+    :func:`descriptors`, then :func:`sum_descriptors`, split into
+    launches of at most :data:`MAX_DESCS` rows, each launch's
+    descriptors followed by its sums' address rows (8 addresses a row;
+    column 0 of a sum its first address's index there), each
+    descriptor's first tile (column 6) counted from its launch's start."""
     desc = descriptors(plan, srcs, dsts, src_dtype, dst_dtype)
+    addrs = [None] * len(desc)
+    if plan.sums:
+        sdesc, saddrs = sum_descriptors(plan, srcs, dsts, dst_dtype)
+        desc = np.concatenate([desc, sdesc])
+        addrs += saddrs
     tiles = -(-(desc[:, 4] * desc[:, 5]) // TILE_UNITS)
+    groups, cur, n_addr = [], [], 0
+    for i in range(len(desc)):
+        k = 0 if addrs[i] is None else len(addrs[i])
+        if cur and len(cur) + 1 + -(-(n_addr + k) // 8) > MAX_DESCS:
+            groups.append(cur)
+            cur, n_addr = [], 0
+        cur.append(i)
+        n_addr += k
+    if cur:
+        groups.append(cur)
     chunks = []
-    for s in range(0, len(desc), MAX_DESCS):
-        chunk = np.ascontiguousarray(desc[s:s + MAX_DESCS])
-        t = tiles[s:s + MAX_DESCS]
-        chunk[:, 6] = np.cumsum(t) - t
+    for idx in groups:
+        d = desc[idx].copy()
+        t = tiles[idx]
+        d[:, 6] = np.cumsum(t) - t
+        flat = []
+        for j, i in enumerate(idx):
+            if addrs[i] is not None:
+                d[j, 0] = len(flat)
+                flat.extend(addrs[i].tolist())
+        n_rows = -(-len(flat) // 8)
+        rows = np.zeros((n_rows, 8), np.int64)
+        rows.reshape(-1)[:len(flat)] = flat
         n_tiles = int(t.sum())
         if n_tiles >= 2 ** 31:
             raise ValueError(f"{what}: {n_tiles} tiles in one launch")
-        chunks.append((chunk, n_tiles))
+        chunks.append((np.ascontiguousarray(np.concatenate([d, rows])),
+                       n_tiles, len(idx), n_rows))
     return chunks
 
 
@@ -280,6 +380,8 @@ def _validate(plan: CopyPlan, what: str, srcs, dsts):
     if what == "pack_ids":
         if plan.n_dst > 1:
             raise ValueError("pack_ids writes one destination")
+        if plan.sums:
+            raise ValueError("pack_ids copies; only pack_columns sums")
         out = dsts[0]
         sdt = {srcs[i].dtype for i in plan.used_src if i < len(srcs)}
         if sdt - {out.dtype}:
@@ -290,6 +392,9 @@ def _validate(plan: CopyPlan, what: str, srcs, dsts):
         if dt is not None and dt not in _WRAPPERS[what][1]:
             raise ValueError(f"{what}: dtype {dt} is not one of "
                              f"{_WRAPPERS[what][1]}")
+    if plan.sums and sdt != ddt:
+        raise ValueError(f"{what}: a sum's parts must have the output's "
+                         f"dtype, got {sdt} and {ddt}")
     return sdt, ddt
 
 
@@ -312,11 +417,13 @@ def build_record(plan: CopyPlan, what: str, srcs, dsts
     if dev.type == "cuda":
         lib = _library()
         fn = getattr(lib, _WRAPPERS[what][0])
-        calls = [(fn, (chunk.ctypes.data, len(chunk), n_tiles))
-                 for chunk, n_tiles in chunks]
+        calls = [(fn, (chunk.ctypes.data, n, n_rows, n_tiles)
+                  if what == "pack_columns"
+                  else (chunk.ctypes.data, n, n_tiles))
+                 for chunk, n_tiles, n, n_rows in chunks]
     return _kernels.LaunchRecord(
         lib, what, calls, (dev.index or 0) if dev.type == "cuda" else -1,
-        payload=chunks)
+        payload=[c[:2] for c in chunks])
 
 
 def record_key(what: str, srcs: Sequence[torch.Tensor],
@@ -375,11 +482,16 @@ def pack_columns(plan: CopyPlan, srcs: Sequence[torch.Tensor],
     if rec is None:
         batched_copy_plain(plan, list(srcs), dsts)
     else:
-        pack_columns.launches += rec.replay()
+        n = rec.replay()
+        pack_columns.launches += n
+        if plan.sums:
+            pack_columns.launches_sum += n
     return dsts
 
 
 pack_columns.launches = 0
+#: the launches of plans with sums (row slices), also in ``launches``
+pack_columns.launches_sum = 0
 
 
 def pack_ids_plain(plan: CopyPlan, srcs: Sequence[torch.Tensor],
@@ -400,5 +512,5 @@ def pack_columns_plain(plan: CopyPlan, srcs: Sequence[torch.Tensor],
 
 
 __all__ = ["CopyPlan", "MAX_DESCS", "batched_copy_plain", "descriptors",
-           "pack_columns", "pack_columns_plain", "pack_ids",
-           "pack_ids_plain"]
+           "launch_chunks", "pack_columns", "pack_columns_plain", "pack_ids",
+           "pack_ids_plain", "sum_descriptors"]

@@ -49,7 +49,8 @@ def ragged_grad_plain(g: torch.Tensor, splits: torch.Tensor, *,
                       sentinel: int = 0, ids_dtype=None,
                       mean: Optional[torch.Tensor] = None,
                       weights: Optional[torch.Tensor] = None,
-                      reciprocal: bool = False):
+                      reciprocal: bool = False,
+                      rbase: Optional[torch.Tensor] = None):
     """Plain PyTorch version of :func:`ragged_grad`, slot by slot, with
     the same rounding after each op."""
     n, b, w = g.shape
@@ -82,6 +83,8 @@ def ragged_grad_plain(g: torch.Tensor, splits: torch.Tensor, *,
         vals[k] = x.to(dt)
         if ids is not None:
             v = values[k, :cap].long()
+            if rbase is not None:
+                v = v - rbase[k]
             ok = live & (v >= 0) & (v < rows[k])
             ids[k] = torch.where(ok, v + roff[k], sentinel).to(ids.dtype)
     return ids, vals
@@ -94,13 +97,13 @@ def _ids_dtype(values, ids_dtype):
 
 def ragged_grad_key(g, splits, cap, values=None, rows=None, roff=None,
                     sentinel=0, ids_dtype=None, mean=None, weights=None,
-                    reciprocal=False) -> tuple:
+                    reciprocal=False, rbase=None) -> tuple:
     """Every fact K9's launch record rests on: ``cap``, ``sentinel``, the
     id stream's dtype, ``reciprocal``, which of ``values``, ``rows``,
-    ``roff``, ``mean`` and ``weights`` are given, and the layouts (shape,
-    strides, dtype, device index) of every tensor given. No address: each
-    call passes its own."""
-    opt = (values, rows, roff, mean, weights)
+    ``roff``, ``mean``, ``weights`` and ``rbase`` are given, and the
+    layouts (shape, strides, dtype, device index) of every tensor given.
+    No address: each call passes its own."""
+    opt = (values, rows, roff, mean, weights, rbase)
     ts = (g, splits) + tuple(t for t in opt if t is not None)
     given = sum(1 << k for k, t in enumerate(opt) if t is not None)
     return (cap, sentinel, _ids_dtype(values, ids_dtype), bool(reciprocal),
@@ -110,8 +113,8 @@ def ragged_grad_key(g, splits, cap, values=None, rows=None, roff=None,
 
 def build_ragged_grad_record(g, splits, cap, values=None, rows=None,
                              roff=None, sentinel=0, ids_dtype=None,
-                             mean=None, weights=None,
-                             reciprocal=False) -> _kernels.LaunchRecord:
+                             mean=None, weights=None, reciprocal=False,
+                             rbase=None) -> _kernels.LaunchRecord:
     """Validate a K9 call as :func:`ragged_grad` always has on the card
     (raising as it did) and build its launch record: for CUDA tensors
     the prepared launch. Payload: ``(vals shape, vals dtype, ids dtype or
@@ -135,6 +138,10 @@ def build_ragged_grad_record(g, splits, cap, values=None, rows=None,
         _expect(roff, (torch.int64,), (n,), dev, "roff")
         if idt not in _INT:
             raise ValueError(f"ids_dtype {idt} is not int32/int64")
+        if rbase is not None:
+            _expect(rbase, (torch.int64,), (n,), dev, "rbase")
+    elif rbase is not None:
+        raise ValueError("rbase= needs an id stream (values=)")
     if mean is not None:
         _expect(mean, (torch.int32,), (n,), dev, "mean")
     if weights is not None:
@@ -155,7 +162,7 @@ def build_ragged_grad_record(g, splits, cap, values=None, rows=None,
             int(bool(reciprocal)),
             0 if weights is None else weights.element_size(),
             0 if weights is None else weights.stride(0), n, b, cap,
-            prepared.ctypes.data), "ragged_grad")
+            int(rbase is not None), prepared.ctypes.data), "ragged_grad")
         if n * cap:
             calls.append((lib.detpu_ragged_grad_launch,
                           (prepared.ctypes.data,)))
@@ -167,14 +174,14 @@ def build_ragged_grad_record(g, splits, cap, values=None, rows=None,
 
 def find_ragged_grad_record(g, splits, cap, values=None, rows=None,
                             roff=None, sentinel=0, ids_dtype=None, mean=None,
-                            weights=None, reciprocal=False,
+                            weights=None, reciprocal=False, rbase=None,
                             build_on_cpu: bool = False):
     """K9's record of a call, found in :data:`_K9` by
     :func:`ragged_grad_key` or built (:func:`build_ragged_grad_record`)
     and kept. A miss on CPU tensors is validated and gives None unless
     ``build_on_cpu``."""
     args = (g, splits, cap, values, rows, roff, sentinel, ids_dtype, mean,
-            weights, reciprocal)
+            weights, reciprocal, rbase)
     return _kernels.find_or_build(_K9, ragged_grad_key(*args),
                                   build_ragged_grad_record,
                                   g.device.type == "cpu", build_on_cpu,
@@ -191,7 +198,8 @@ def ragged_grad(g: torch.Tensor, splits: torch.Tensor, *,
                 roff: Optional[torch.Tensor] = None, sentinel: int = 0,
                 ids_dtype=None, mean: Optional[torch.Tensor] = None,
                 weights: Optional[torch.Tensor] = None,
-                reciprocal: bool = False):
+                reciprocal: bool = False,
+                rbase: Optional[torch.Tensor] = None):
     """K9: the per-position cotangent stream of a CSR lookup.
 
     ``g [n, b, w]`` (float32/bfloat16, unit element stride; slots and
@@ -205,9 +213,12 @@ def ragged_grad(g: torch.Tensor, splits: torch.Tensor, *,
     claimed length ``max(splits[r + 1] - splits[r], 1)`` rounded to that
     dtype; positions past the last row get zero rows. With ``values
     [n, cap']`` (``cap' >= cap``, int32/int64 table-local ids), it also
-    gives each position's slab row ``values[k, p] + roff[k]`` where the
-    position lies in a row and the id in ``[0, rows[k])``, else
-    ``sentinel``, in ``ids_dtype`` (default: the values').
+    gives each position's slab row ``v + roff[k]`` where the position
+    lies in a row and the id ``v`` in ``[0, rows[k])``, else
+    ``sentinel``, in ``ids_dtype`` (default: the values'). ``v`` is
+    ``values[k, p]``, less ``rbase[k]`` (int64 ``[n]``) where given: a
+    row-sliced slot holds its table's rows ``[rbase, rbase + rows)``, and
+    every other id of it drops.
 
     Returns ``(ids [n, cap] or None, vals [n, cap, w])``. A CPU ``g``
     runs :func:`ragged_grad_plain`; a CUDA ``g`` launches the kernel
@@ -223,13 +234,16 @@ def ragged_grad(g: torch.Tensor, splits: torch.Tensor, *,
         cap = values.shape[1]
     if values is not None and (rows is None or roff is None):
         raise ValueError("an id stream needs rows= and roff=")
+    if rbase is not None and values is None:
+        raise ValueError("rbase= needs an id stream (values=)")
     args = (g, splits, int(cap), values, rows, roff, int(sentinel),
-            ids_dtype, mean, weights, reciprocal)
+            ids_dtype, mean, weights, reciprocal, rbase)
     if g.device.type == "cpu":
         return ragged_grad_plain(g, splits, cap=args[2], values=values,
                                  rows=rows, roff=roff, sentinel=args[6],
                                  ids_dtype=ids_dtype, mean=mean,
-                                 weights=weights, reciprocal=reciprocal)
+                                 weights=weights, reciprocal=reciprocal,
+                                 rbase=rbase)
     rec = (_K9.get(ragged_grad_key(*args))
            or find_ragged_grad_record(*args))
     shape, dtype, idt, dev = rec.payload[:4]
@@ -237,18 +251,24 @@ def ragged_grad(g: torch.Tensor, splits: torch.Tensor, *,
     ids = None if idt is None else torch.empty(*shape[:2], dtype=idt,
                                                device=dev)
     if rec.calls:
-        ragged_grad.launches += rec.replay(
+        n = rec.replay(
             g.data_ptr(), splits.data_ptr(),
             None if values is None else values.data_ptr(),
             None if rows is None else rows.data_ptr(),
             None if roff is None else roff.data_ptr(),
+            None if rbase is None else rbase.data_ptr(),
             None if mean is None else mean.data_ptr(),
             None if weights is None else weights.data_ptr(),
             None if ids is None else ids.data_ptr(), vals.data_ptr())
+        ragged_grad.launches += n
+        if rbase is not None:
+            ragged_grad.launches_rbase += n
     return ids, vals
 
 
 ragged_grad.launches = 0
+#: the launches with row bases (row-sliced slots), also in ``launches``
+ragged_grad.launches_rbase = 0
 
 
 def combiner_grad_values(out_grad: torch.Tensor, row_splits: torch.Tensor,

@@ -3,7 +3,7 @@ process-group layer and the hybrid gradients, the train and eval steps,
 streaming vocabularies, and the serving runtime."""
 
 from . import bootstrap, streaming
-from .dist_embedding import DistributedEmbedding
+from .dist_embedding import DistributedEmbedding, MpInputs
 from .grads import (broadcast_variables, hybrid_gradients, mean_flat,
                     resolve_dp_gradient, split_mp_dp)
 from .optimizers import (SGD, Adagrad, Adam, AdamState, ScheduleState,
@@ -19,7 +19,7 @@ from .trainer import (HybridTrainState, init_hybrid_state,
                       make_hybrid_eval_step, make_hybrid_train_loop,
                       make_hybrid_train_step)
 
-__all__ = ["DistributedEmbedding", "ExchangePlan", "build_plan",
+__all__ = ["DistributedEmbedding", "MpInputs", "ExchangePlan", "build_plan",
            "Expired", "Failed", "Overloaded", "Request", "ServeConfig",
            "Served", "ServingRuntime", "drive", "resolve_rungs",
            "synthetic_request", "DistEmbeddingStrategy",

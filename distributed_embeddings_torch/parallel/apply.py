@@ -15,7 +15,10 @@ gradient is ever built.
 Dense groups (kind ``"d"``) build their stream with torch ops; ragged
 groups (``"r"``/``"rw"``) on K10 (the row offsets from the residual's
 lengths) and K9 (:func:`~..ops.sparse_grad.ragged_grad`, the per-position
-ids and cotangent rows). Row-sliced slots (ROADMAP A9) raise.
+ids and cotangent rows). A row-sliced slot's ids are range-local (less
+its row base): an id outside its slice drops to the sentinel, and its
+cotangent is the input's whole cotangent (each slice's output summed
+into it).
 """
 
 from __future__ import annotations
@@ -127,10 +130,6 @@ def received_width_streams(de, plan, ids_recv, mp_grad, b: int):
     world = de.world_size
     per_width: Dict[str, List] = {}
     for gi, g in enumerate(plan.groups):
-        if plan.rsliced[gi].any():
-            raise NotImplementedError(
-                "the sparse backward of row-sliced slots is not ported "
-                "yet: ROADMAP A9")
         rows, roff, _, _ = de._plan_meta(plan, gi, mp_grad.device)
         sent = de.rows_cap[g.width]  # dropped-row sentinel (logical)
         region = ids_recv[:, g.goff:g.goff + g.n * g.blen]
@@ -146,6 +145,9 @@ def received_width_streams(de, plan, ids_recv, mp_grad, b: int):
         # [world, b, n, w] cotangent layout, a free view; only the small
         # id tensor transposes
         ids4 = region.reshape(world, g.n, b, g.hot).transpose(1, 2)
+        rbase = de._plan_rbase(plan, gi, mp_grad.device)
+        if rbase is not None:  # row-sliced slots: range-local ids
+            ids4 = ids4 - rbase.to(ids4.dtype)[None, None, :, None]
         ok = (ids4 >= 0) & (ids4 < rows[None, None, :, None])
         if valid is not None:
             ok = ok & valid[None, None, :, None]
@@ -182,6 +184,7 @@ def _ragged_stream(de, plan, gi, g, b, region, gsl, rows, roff, sent):
           gsl.permute(0, 2, 1, 3).reshape(world * g.n, b, g.width))
     ids, vals = ragged_grad(
         g3, splits, values=values, rows=rows, roff=roff, sentinel=sent,
-        ids_dtype=idt, mean=mean, weights=wbits)
+        ids_dtype=idt, mean=mean, weights=wbits,
+        rbase=de._plan_rbase(plan, gi, gsl.device, reps=world))
     return (ids.reshape(world, g.n, g.hot),
             vals.reshape(world, g.n, g.hot, g.width), g.width)

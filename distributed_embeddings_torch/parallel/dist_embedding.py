@@ -16,10 +16,15 @@ At world 1 the slabs are ``{"w128": [1, rows_cap, 128]}`` and the
 exchanges are passthroughs. At ``world_size > 1`` every rank is a
 process of a ``torch.distributed`` group (``process_group=``, see
 ``parallel/bootstrap.py``) and holds only ITS slab ``[1, rows_cap, w]``;
-the forward takes this rank's rows of the batch (data-parallel input),
-exchanges ids, looks up its tables, exchanges the outputs back and
-unpacks them (``parallel/exchange.py``, kernels K19/K20), the column
-slices of a sliced table side by side.
+the forward takes this rank's rows of the batch (data-parallel input)
+and exchanges ids, or, with ``dp_input=False``, this rank's block of a
+:class:`MpInputs` batch (model-parallel input: the ids of its tables
+over the global batch, packed on the host by
+:meth:`~DistributedEmbedding.pack_mp_inputs`; no id exchange runs),
+looks up its tables, exchanges the outputs back and unpacks them
+(``parallel/exchange.py``, kernels K19/K20), the column slices of a
+sliced table side by side and the row slices of a row-sliced table
+(``row_slice=``) summed.
 
 Inputs are dense id tensors, :class:`~..ops.embedding_lookup.Ragged`
 CSR batches (tables with a combiner; optional per-id weights ride the
@@ -35,18 +40,20 @@ carried slot map (``forward_with_residuals(streaming=)``,
 ``parallel/streaming.py``, kernels K16-K17). Both at world 1.
 
 Not yet ported, each raising ``NotImplementedError`` with its ROADMAP
-item: row slicing (A9), model-parallel input (``dp_input=False``),
-streaming and telemetry at world > 1 and the pipelined step's
+item: streaming and telemetry at world > 1 and the pipelined step's
 ``"serve"`` streaming form (A7b), and the ``'raise'`` invalid-id policy
 (A12).
 
 Ids must lie in ``[0, input_dim)``; out-of-range ids CLIP in the
 forward (a negative id reads row 0, one past the table its last row),
-as in the JAX package.
+as in the JAX package. A row slice reads a ZERO row for every id outside
+its range (the slices' outputs sum), so a row-sliced table reads zero
+for an id outside the table.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -76,6 +83,28 @@ CHECKPOINT_CHUNK_ELEMS = 128 * 1024 * 1024
 
 def _wkey(width: int) -> str:
     return f"w{width}"
+
+
+@dataclasses.dataclass
+class MpInputs:
+    """A model-parallel input batch (``dp_input=False``), the JAX
+    package's ``MpInputs``.
+
+    * ``packed``: the id blocks ``[world_dest, world_src, l_max]`` (every
+      rank's, as :meth:`DistributedEmbedding.pack_mp_inputs` builds them
+      on the host), ``[world_src, l_max]`` (this rank's block: what its
+      id exchange would have received) or ``[1, world_src, l_max]`` (the
+      same, as a one-rank shard); numpy or a tensor. Row ``[r, s]`` holds
+      source shard ``s``'s local batch of ids for every input rank ``r``
+      owns, in the plan's group-region layout.
+    * ``hots``: per global input its encoding: an int (dense hotness),
+      ``("r"|"rw", capacity)`` or ``("d", hot, num_slots)``.
+    * ``local_batch``: the per-shard batch ``b``.
+    """
+
+    packed: Any
+    hots: tuple
+    local_batch: int
 
 
 def slab_layout(strategy: DistEmbeddingStrategy
@@ -132,7 +161,14 @@ class DistributedEmbedding:
         Read only at world > 1, where this process's rank in it decides
         which slab it holds.
       dp_input: data-parallel input (each rank passes its rows of the
-        batch); ``False`` (model-parallel input) raises: ROADMAP A7b.
+        batch); ``False``: model-parallel input (each rank passes an
+        :class:`MpInputs` batch, its tables' ids over the global batch,
+        and no id exchange runs). World 1 takes a plain input list either
+        way.
+      row_slice: an int element threshold: a table over it (and not
+        column-sliced) splits into power-of-two row ranges, each a slice
+        on its own rank (``strategy.maybe_slice_table_row``); a slice
+        reads zero for ids outside its range and the slices' outputs sum.
       strategy, column_slice_threshold, input_table_map, input_hotness,
         table_loads: passed to :class:`DistEmbeddingStrategy`.
       compute_dtype: torch dtype the outputs are cast to (``None`` keeps
@@ -156,13 +192,12 @@ class DistributedEmbedding:
                  table_loads: Optional[Sequence[float]] = None,
                  process_group=None,
                  dp_input: bool = True):
-        if not dp_input:
-            raise NotImplementedError(
-                "model-parallel input (MpInputs, pack_mp_inputs) is not "
-                "ported yet: ROADMAP A7b")
-        if row_slice is not None:
-            raise NotImplementedError(
-                "row slicing is not ported yet: ROADMAP A9")
+        if row_slice is not None and (isinstance(row_slice, bool)
+                                      or not isinstance(row_slice, int)):
+            # bool subclasses int: row_slice=True would mean threshold 1
+            raise TypeError(
+                "row_slice takes an int element threshold, got "
+                f"{row_slice!r}")
         if invalid_id_policy == "raise":
             raise NotImplementedError(
                 "the 'raise' ingestion checks are not ported yet: "
@@ -175,6 +210,7 @@ class DistributedEmbedding:
         if self.world_size < 1:
             raise ValueError(f"world_size must be >= 1, got {world_size}")
         self.process_group = process_group
+        self.dp_input = bool(dp_input)
         self._rank = None if self.world_size > 1 else 0
         self.compute_dtype = compute_dtype
         self.invalid_id_policy = invalid_id_policy
@@ -183,12 +219,13 @@ class DistributedEmbedding:
             embeddings, self.world_size, strategy=strategy,
             input_table_map=input_table_map,
             column_slice_threshold=column_slice_threshold,
-            input_hotness=input_hotness, table_loads=table_loads)
+            input_hotness=input_hotness, row_slice_threshold=row_slice,
+            table_loads=table_loads)
         if len(self.strategy.global_configs) < self.world_size:
             raise NotImplementedError(
                 "Fewer tables than ranks is not supported (reference "
                 "constraint, dist_model_parallel.py:252-253)")
-        # slices per global table (column slicing)
+        # slices per global table (column or row slicing)
         self.slices_per_table = [0] * len(self.strategy.global_configs)
         for tids in self.strategy.table_ids_list:
             for tid in tids:
@@ -294,17 +331,24 @@ class DistributedEmbedding:
 
     def _slice_plan(self) -> List[List[tuple]]:
         """Per (rank, local table): ``(table id, slab row offset, rows,
-        first column, width)``; a table's column slices are consumed in
-        rank order, the JAX package's ``_slice_plan``."""
+        first column, width, first row)``; a table's column slices are
+        consumed in rank order, and a row slice spans every column from
+        its first global row (the JAX package's ``_slice_plan``)."""
         col = [0] * len(self.strategy.global_configs)
+        row_sliced = self.strategy.row_sliced_tables
         plan = []
         for r, cfgs in enumerate(self.strategy.local_configs_list):
             rank_plan = []
             for m, cfg in enumerate(cfgs):
                 tid = self.strategy.table_ids_list[r][m]
                 w = int(cfg["output_dim"])
+                if tid in row_sliced:
+                    rank_plan.append((tid, self.row_offsets_list[r][m],
+                                      int(cfg["input_dim"]), 0, w,
+                                      int(cfg["_row_base"])))
+                    continue
                 rank_plan.append((tid, self.row_offsets_list[r][m],
-                                  int(cfg["input_dim"]), col[tid], w))
+                                  int(cfg["input_dim"]), col[tid], w, 0))
                 col[tid] += w
             plan.append(rank_plan)
         return plan
@@ -320,7 +364,7 @@ class DistributedEmbedding:
         cfg = self.strategy.global_configs[tid]
         host = None
         for r, rank_plan in enumerate(self._slice_plan()):
-            for t2, roff, rows, c0, w in rank_plan:
+            for t2, roff, rows, c0, w, r0 in rank_plan:
                 if t2 != tid:
                     continue
                 slab = params[_wkey(w)][0]
@@ -340,7 +384,7 @@ class DistributedEmbedding:
                                      device=slab.device))
                         bootstrap.broadcast_(chunk, r, self.process_group)
                     if keep:
-                        host[s:s + n, c0:c0 + w].copy_(chunk)
+                        host[r0 + s:r0 + s + n, c0:c0 + w].copy_(chunk)
         return host
 
     def get_table(self, params: EmbedParams, tid: int,
@@ -400,8 +444,8 @@ class DistributedEmbedding:
         checkpoint codec records it in ``meta.json``).
 
         At world > 1 each rank builds only its own slab ``[1, rows_cap,
-        w]``, reading its tables' rows (and, for a column slice, its
-        columns) from the full sources.
+        w]``, reading its tables' rows (for a column slice its columns,
+        for a row slice its row range) from the full sources.
 
         ``use_lock=True`` serializes the build across this user's
         processes on one per-uid file lock (the JAX package's lock; its
@@ -447,14 +491,14 @@ class DistributedEmbedding:
                 buf = torch.zeros((1, self.rows_cap[w], w), dtype=dtype,
                                   device=dev)
                 step = max(1, int(chunk_elems) // w)
-                for tid, roff, rows, c0, tw in mine:
+                for tid, roff, rows, c0, tw, r0 in mine:
                     if tw != w:
                         continue
                     src = loaded[tid]
                     for s in range(0, rows, step):
                         n = min(step, rows - s)
                         buf[0, roff + s:roff + s + n].copy_(
-                            rows_of(src, s, n, c0, w).to(dtype))
+                            rows_of(src, r0 + s, n, c0, w).to(dtype))
                 out[_wkey(w)] = buf
             return out
 
@@ -571,6 +615,216 @@ class DistributedEmbedding:
         return out, encs, shapes, comm_dtype
 
     @staticmethod
+    def _enc_of_hot(h) -> tuple:
+        """An :class:`MpInputs` ``hots`` entry as a routing descriptor: an
+        int is a 2-D dense hotness; tuples pass through (``("r"|"rw",
+        cap)`` ragged, ``("d", hot, num_slots)`` N-D dense)."""
+        if isinstance(h, (tuple, list)):
+            if h[0] == "d":
+                return ("d", int(h[1]), int(h[2]) if len(h) > 2 else 1)
+            return (h[0], int(h[1]))
+        return ("d", int(h), 1)
+
+    def pack_mp_inputs(self, inputs, dtype=None, hots=None,
+                       local_batch: Optional[int] = None,
+                       as_numpy: bool = False, device="cuda",
+                       rank: Optional[int] = None) -> MpInputs:
+        """Pack per-feature GLOBAL-batch ids into :class:`MpInputs` on the
+        host (numpy), the JAX package's ``pack_mp_inputs``.
+
+        ``inputs[i]`` is ``[global_batch]`` / ``[global_batch, hotness]``
+        dense ids or a :class:`~..ops.embedding_lookup.Ragged` over the
+        global batch (values ``[cap]``, row splits ``[global_batch + 1]``,
+        optional weights), ordered by shard (shard ``s`` owns rows
+        ``s * b:(s + 1) * b``); numpy or CPU tensors. An entry may be
+        ``None`` (a feature only other processes hold): then ``hots``
+        (every input's encoding: an int hotness, ``("r"|"rw", cap)``) is
+        required, and ``local_batch`` too when every entry is ``None``. A
+        ragged input packs each shard's ids at a per-shard capacity: its
+        global capacity, or ``hots[i]``'s; a shard whose ids overflow it
+        raises.
+
+        Args:
+          dtype: the id dtype (numpy or torch); default int64 if any given
+            array is int64, else int32 (the data-parallel promotion).
+          as_numpy: return the packed blocks as host numpy.
+          device: else the block goes to this device as a tensor.
+          rank: pack only that rank's block ``[world_src, l_max]`` (a
+            tensor path default: this process's rank at world > 1);
+            ``None`` with ``as_numpy`` packs every rank's, ``[world,
+            world, l_max]``.
+        """
+        world = self.world_size
+
+        def host(x):
+            return x.cpu().numpy() if isinstance(x, torch.Tensor) \
+                else np.asarray(x)
+
+        arrs = []
+        for x in inputs:
+            if isinstance(x, Ragged):  # its fields as numpy
+                arrs.append(Ragged(values=host(x.values),
+                                   row_splits=host(x.row_splits),
+                                   weights=None if x.weights is None
+                                   else host(x.weights)))
+            elif x is None:
+                arrs.append(None)
+            else:
+                a = host(x)
+                arrs.append(a[:, None] if a.ndim == 1 else a)
+        if len(arrs) != self.strategy.num_inputs:
+            raise ValueError(
+                f"Expected {self.strategy.num_inputs} inputs, got "
+                f"{len(arrs)}")
+
+        def glen(a):
+            return (a.row_splits.shape[0] - 1 if isinstance(a, Ragged)
+                    else a.shape[0])
+
+        some = next((a for a in arrs if a is not None), None)
+        if some is None:
+            if local_batch is None or hots is None:
+                raise ValueError(
+                    "pack_mp_inputs with all-None inputs needs explicit "
+                    "hots= and local_batch= (the layout must match the "
+                    "owning processes')")
+            b = int(local_batch)
+        else:
+            gb = glen(some)
+            if gb % world:
+                raise ValueError(
+                    f"Global batch {gb} not divisible by world size {world}")
+            b = gb // world
+            if local_batch is not None and int(local_batch) != b:
+                raise ValueError(
+                    f"local_batch={local_batch} contradicts inputs ({b})")
+            for i, a in enumerate(arrs):
+                if a is not None and glen(a) != gb:
+                    raise ValueError(f"Input {i} batch {glen(a)} != {gb}")
+
+        def is64(a):
+            if isinstance(a, Ragged):
+                return np.int64 in (a.values.dtype, a.row_splits.dtype)
+            return a.dtype == np.int64
+
+        if dtype is None:
+            np_dtype = np.dtype(np.int64 if any(
+                a is not None and is64(a) for a in arrs) else np.int32)
+        else:
+            np_dtype = np.dtype(str(dtype).replace("torch.", ""))
+        if hots is None and any(a is None for a in arrs):
+            raise ValueError(
+                "pack_mp_inputs with None entries needs explicit hots= "
+                "(the encoding of every input must be globally known)")
+        encs = []
+        for i, a in enumerate(arrs):
+            comb = self.strategy.global_configs[
+                self.strategy.input_table_map[i]].get("combiner")
+            if hots is not None:
+                enc = self._enc_of_hot(hots[i])
+            elif isinstance(a, Ragged):
+                enc = ("rw" if a.weights is not None else "r",
+                       int(a.values.shape[0]))
+            else:
+                enc = self._dense_enc(a.shape, comb)
+            if a is not None:
+                if isinstance(a, Ragged) != (enc[0] in ("r", "rw")):
+                    raise ValueError(f"Input {i} encoding {enc} does not "
+                                     "match the provided value type")
+                if isinstance(a, Ragged) and \
+                        (a.weights is not None) != (enc[0] == "rw"):
+                    raise ValueError(f"Input {i}: weighted ragged needs an "
+                                     f"('rw', cap) hots entry, got {enc}")
+                if enc[0] == "d":
+                    canon = self._dense_enc(a.shape, comb)
+                    # without a combiner ("d", h, ns) and ("d", 1, h * ns)
+                    # build the same hotness-1 slot layout
+                    ok = (enc[1:] == canon[1:] if comb
+                          else enc[1] * enc[2] == canon[1] * canon[2])
+                    if not ok:
+                        raise ValueError(
+                            f"Input {i} shape {a.shape} does not match "
+                            f"hots[{i}]={hots[i] if hots else enc}")
+            encs.append(enc)
+
+        plan = self._get_plan(encs, b)
+        if rank is None and not as_numpy and world > 1:
+            rank = self.rank
+        dests = range(world) if rank is None else [int(rank)]
+        packed_np = np.zeros((len(dests), world, plan.l_max), np_dtype)
+        for inst in plan.instances:
+            a = arrs[inst.input_id]
+            if a is None or inst.rank not in dests:
+                continue
+            row = packed_np[inst.rank if rank is None else 0]
+            g = plan.groups[inst.group]
+            p0 = g.goff + inst.slot0 * g.blen
+            span = inst.num_slots * g.blen
+            if g.kind in ("r", "rw"):
+                values, splits = a.values, a.row_splits
+                cap = g.hot
+                for sh in range(world):
+                    lo, hi = int(splits[sh * b]), int(splits[(sh + 1) * b])
+                    if hi - lo > cap:
+                        raise ValueError(
+                            f"Input {inst.input_id}: shard {sh} nnz "
+                            f"{hi - lo} exceeds per-shard capacity {cap}")
+                    blk = np.zeros(g.blen, np_dtype)
+                    blk[:hi - lo] = values[lo:hi]
+                    blk[cap:cap + b] = np.diff(splits[sh * b:(sh + 1) * b
+                                                      + 1])
+                    if g.kind == "rw":  # float32 bits ride the block
+                        wb = np.zeros(cap, np.float32)
+                        wb[:hi - lo] = a.weights[lo:hi]
+                        blk[cap + b:] = wb.view(np.int32)
+                    row[sh, p0:p0 + span] = blk
+            else:
+                if inst.transposed:  # slot-major within each shard block
+                    flat = (a.reshape(world, b, inst.num_slots, g.hot)
+                            .transpose(0, 2, 1, 3).reshape(world, -1))
+                else:
+                    flat = a.reshape(world, -1)
+                row[:, p0:p0 + span] = flat
+        hots_out = tuple(
+            (enc[1] if enc[2] == 1 else enc) if enc[0] == "d" else enc
+            for enc in encs)
+        if as_numpy:
+            packed = packed_np if rank is None else packed_np[0]
+        else:
+            packed = torch.from_numpy(packed_np[0] if rank is not None
+                                      else packed_np).to(
+                resolve_device(device))
+        return MpInputs(packed=packed, hots=hots_out, local_batch=b)
+
+    def _mp_block(self, inputs, device):
+        """This rank's received id block ``[world, l_max]`` from an
+        :class:`MpInputs` batch, and its plan encodings and batch."""
+        if not isinstance(inputs, MpInputs):
+            raise ValueError(
+                "dp_input=False requires an MpInputs batch; build one with "
+                "pack_mp_inputs()")
+        if len(inputs.hots) != self.strategy.num_inputs:
+            raise ValueError(
+                f"Expected {self.strategy.num_inputs} hotness entries, got "
+                f"{len(inputs.hots)}")
+        encs = [self._enc_of_hot(h) for h in inputs.hots]
+        b = int(inputs.local_batch)
+        plan = self._get_plan(encs, b)
+        block = torch.as_tensor(inputs.packed)
+        if block.dim() == 3 and block.shape[0] == self.world_size:
+            block = block[self.rank]  # every rank's blocks: take this one's
+        elif block.dim() == 3 and block.shape[0] == 1:
+            block = block[0]
+        if tuple(block.shape) != (self.world_size, plan.l_max):
+            raise ValueError(
+                f"MpInputs packed shape {tuple(block.shape)} does not match "
+                f"the plan layout {(self.world_size, plan.l_max)}; repack "
+                "with pack_mp_inputs() from this DistributedEmbedding")
+        if block.dtype not in (torch.int32, torch.int64):
+            block = block.to(torch.int32)
+        return block.to(device).contiguous(), encs, b, plan
+
+    @staticmethod
     def _as_ragged(inp: SparseIds, device) -> Ragged:
         """A COO batch as CSR: its row ids -> row splits (``row_to_split``,
         K10 on the card), in the values' dtype."""
@@ -593,16 +847,20 @@ class DistributedEmbedding:
         row of the ``[world, n]`` plan tensors, the JAX ``_plan_row``),
         cached per plan: ``rows``/``roff`` (int64), the divisor (``hot``
         on mean slots of a multi-hot group, else 1) and the zero-read mask
-        (``None`` unless ``masked_reads``), each repeated ``reps`` times
-        (one copy per source rank of a ``[world * n, ...]`` region)."""
+        (int32, set on the row-sliced slots, or on every slot under
+        ``masked_reads``; ``None`` when no slot is set), each repeated
+        ``reps`` times (one copy per source rank of a ``[world * n, ...]``
+        region)."""
         key = (id(plan), gi, str(device), reps)
         meta = self._meta_cache.get(key)
         if meta is None:
             g, my = plan.groups[gi], self.rank
             mean = plan.mean[gi][my] > 0
             div = np.where(mean & (g.hot > 1), float(g.hot), 1.0)
-            mask = (torch.ones(g.n * reps, dtype=torch.int32, device=device)
-                    if self.masked_reads else None)
+            masked = (np.ones(g.n, bool) if self.masked_reads
+                      else plan.rsliced[gi][my] > 0)
+            mask = (torch.as_tensor(np.tile(masked, reps), dtype=torch.int32,
+                                    device=device) if masked.any() else None)
             meta = (torch.as_tensor(np.tile(plan.rows[gi][my], reps),
                                     dtype=torch.int64, device=device),
                     torch.as_tensor(np.tile(plan.roff[gi][my], reps),
@@ -612,6 +870,19 @@ class DistributedEmbedding:
                     mask)
             self._meta_cache[key] = meta
         return meta
+
+    def _plan_rbase(self, plan, gi: int, device, reps: int = 1):
+        """One group's row bases (this rank's row of ``plan.rbase``,
+        int64, repeated ``reps`` times), cached per plan; ``None`` when no
+        slot of the group is row-sliced on any rank (the JAX lookup's
+        gate)."""
+        key = ("rbase", id(plan), gi, str(device), reps)
+        if key not in self._meta_cache:
+            self._meta_cache[key] = (
+                torch.as_tensor(np.tile(plan.rbase[gi][self.rank], reps),
+                                dtype=torch.int64, device=device)
+                if plan.rsliced[gi].any() else None)
+        return self._meta_cache[key]
 
     def _plan_ragged_meta(self, plan, gi: int, device, reps: int = 1):
         """A ragged group's per-slot flags (this rank's row, repeated
@@ -675,9 +946,27 @@ class DistributedEmbedding:
         At world > 1 every rank of the group must call with its own rows
         of the batch: the ids go to their tables' ranks, each rank looks
         up its tables, and the outputs come back as ``[b, W]`` per input
-        (the column slices of a sliced table side by side)."""
+        (the column slices of a sliced table side by side, a row-sliced
+        table's slices summed in slice order). A ``dp_input=False`` layer
+        takes an :class:`MpInputs` batch instead: its block (this rank's,
+        see :class:`MpInputs`) IS the received id block, and the id
+        exchange does not run."""
         device = next(iter(params.values())).device
         local = {k: v[0] for k, v in params.items()}
+        if isinstance(inputs, MpInputs) and self.world_size == 1:
+            raise ValueError("world_size == 1 takes a plain input list (mp "
+                             "and dp input coincide)")
+        if self.world_size > 1 and (not self.dp_input
+                                    or isinstance(inputs, MpInputs)):
+            if self.dp_input:
+                raise ValueError("an MpInputs batch needs a dp_input=False "
+                                 "layer")
+            if streaming is not None:
+                raise NotImplementedError(
+                    "streaming vocabularies at world > 1 are not ported "
+                    "yet: ROADMAP A7b")
+            ids_recv, encs, b, plan = self._mp_block(inputs, device)
+            return self._world_forward(plan, local, ids_recv, encs, b)
         entries, encs, shapes, comm_dtype = self._normalize_inputs(
             inputs, device)
 
@@ -695,10 +984,7 @@ class DistributedEmbedding:
                     "yet: ROADMAP A7b")
             ids_recv = exchange_mod.exchange_ids(self, plan, entries,
                                                  comm_dtype, device)
-            mp_out = lookup_mod.plan_lookup(self, plan, local, ids_recv)
-            dp_recv = exchange_mod.exchange_outputs(self, mp_out)
-            result = exchange_mod.unpack_outputs(self, plan, dp_recv)
-            return result, ("dist", ids_recv, tuple(encs), b)
+            return self._world_forward(plan, local, ids_recv, encs, b)
         ids_recv = exchange_mod.build_send_blocks(self, plan, entries,
                                                   comm_dtype, device)
         pending = None
@@ -727,6 +1013,15 @@ class DistributedEmbedding:
         result = [outs[i] for i in self.strategy.rev_global_input_ids]
         res = ("dist", ids_recv, tuple(encs), b)
         return (result, res) if pending is None else (result, res, pending)
+
+    def _world_forward(self, plan, local, ids_recv, encs, b):
+        """The world > 1 forward from this rank's received id block: its
+        lookups, the output exchange and the unpack (column slices side
+        by side, row slices summed)."""
+        mp_out = lookup_mod.plan_lookup(self, plan, local, ids_recv)
+        dp_recv = exchange_mod.exchange_outputs(self, mp_out)
+        result = exchange_mod.unpack_outputs(self, plan, dp_recv)
+        return result, ("dist", ids_recv, tuple(encs), b)
 
     # --------------------------------------------------------- streaming vocab
 

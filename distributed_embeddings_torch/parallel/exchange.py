@@ -146,21 +146,24 @@ def pack_grad_blocks_plain(de, plan, out_grads, b: int, out_dtype
 def slice_map(de, plan):
     """``(smap, widths)``: per worker-order instance ``j``, ``smap[j] =
     (input, first column)`` of its slice in that input's output, and per
-    input the output width (the sum of its column slices). Column slices
+    input the output width (the sum of its column slices; a row-sliced
+    table's slices each span the whole width, from column 0). The slices
     of one input take consecutive worker entries in rank order, the JAX
     package's in-place collapse (``strategy.create_sliced_configs``)."""
 
     def build():
         rev = de.strategy.rev_global_input_ids
+        row_sliced = de.strategy.row_sliced_tables
         smap: List = [None] * len(plan.instances)
         widths = []
         e = 0
         for i, tid in enumerate(de.strategy.input_table_map):
-            pos = 0
+            pos, rows_split = 0, tid in row_sliced
             for s in range(de.slices_per_table[tid]):
                 j = rev[e + s]
-                smap[j] = (i, pos)
-                pos += plan.out_width(plan.instances[j])
+                w = plan.out_width(plan.instances[j])
+                smap[j] = (i, 0 if rows_split else pos)
+                pos = w if rows_split else pos + w
             widths.append(pos)
             e += de.slices_per_table[tid]
         return smap, widths
@@ -214,8 +217,9 @@ def _ids_copy_plan(de, plan, entries) -> CopyPlan:
 def _grad_copy_plan(de, plan, b: int) -> CopyPlan:
     """K20's cotangent copies: input ``i``'s ``[b, W_i]`` cotangent (read
     by rows, so it may be a column slice of a wider tensor), each of its
-    column slices into its instance's columns of ``[world, b, s_max]``;
-    dead columns zero."""
+    column slices into its instance's columns of ``[world, b, s_max]``
+    (a row-sliced table's whole cotangent into each of its slices': the
+    JAX package's ``expanded.extend([g] * k)``); dead columns zero."""
     world, s_max = de.world_size, plan.s_max
     if not plan.groups:
         return CopyPlan([_zero_rows(world, b, s_max)])
@@ -263,8 +267,11 @@ def lookup_copy_plan(de, plan) -> CopyPlan:
 def _unpack_copy_plan(de, plan):
     """K20's unpack: each instance's columns of source rank
     ``inst.rank`` into its input's output, the column slices of a sliced
-    table side by side. The outputs are consecutive ``[b, W_i]`` pieces
-    of one buffer; returns ``(CopyPlan, [(offset, W_i)])``."""
+    table side by side; a row-sliced table's slices SUMMED into its
+    output, in slice order (one summing descriptor an input, the JAX
+    package's ``total = total + part``). The outputs are consecutive
+    ``[b, W_i]`` pieces of one buffer; returns ``(CopyPlan, [(offset,
+    W_i)])``."""
 
     def build():
         b, s_max = plan.b, plan.s_max
@@ -273,14 +280,23 @@ def _unpack_copy_plan(de, plan):
         for w in widths:
             offs.append(o)
             o += b * w
-        copies = []
-        for j, inst in enumerate(plan.instances):
+        row_sliced = de.strategy.row_sliced_tables
+        copies, parts = [], {}
+        # expanded order: inputs ascending, each input's slices in slice
+        # order (the order the JAX package sums row slices in)
+        for j in de.strategy.rev_global_input_ids:
+            inst = plan.instances[j]
             i, pos = smap[j]
             g = plan.groups[inst.group]
-            copies.append((0, inst.rank * b * s_max + g.col
-                           + inst.slot0 * g.width, s_max, 0, offs[i] + pos,
-                           widths[i], b, plan.out_width(inst)))
-        return CopyPlan(copies), list(zip(offs, widths))
+            src_off = inst.rank * b * s_max + g.col + inst.slot0 * g.width
+            if de.strategy.input_table_map[i] in row_sliced:
+                parts.setdefault(i, []).append((0, src_off, s_max))
+                continue
+            copies.append((0, src_off, s_max, 0, offs[i] + pos, widths[i],
+                           b, plan.out_width(inst)))
+        sums = [(0, offs[i], widths[i], b, widths[i], p)
+                for i, p in sorted(parts.items())]
+        return CopyPlan(copies, sums=sums), list(zip(offs, widths))
 
     return _cached(de, ("unpack_copy", id(plan)), build)
 

@@ -13,7 +13,13 @@ divisor/mask as small device arrays:
   into CSR offsets (:func:`~..ops.embedding_lookup.lengths_to_splits`),
   and the CSR gather-combine K8
   (:func:`~..ops.embedding_lookup.ragged_combine`), both reading the
-  region in place. Row-sliced slots (ROADMAP A9) raise.
+  region in place.
+
+A row-sliced slot (``row_slice=``) holds its table's rows ``[rbase,
+rbase + rows)``: both kernels take the group's per-slot row bases and
+subtract them from the ids before the clip, and the slot masks every id
+outside its range to a zero read (a multiply by 0, as the JAX lookup
+does), so the slices' outputs sum to the table's.
 
 The JAX package decodes a ragged region into per-position arrays
 (``csr_seg``, ``ragged_decode``, ``region_weights``,
@@ -85,15 +91,13 @@ def lookup_group(de, plan, gi: int, g, slab, ids_recv, b: int,
     ``slab`` is this rank's ``[rows_cap, w]``; a ragged group's output is
     in ``out_dtype`` (default the compute dtype, else the slab's), a
     dense group's in the slab's."""
-    if plan.rsliced[gi].any():
-        raise NotImplementedError(
-            "the lookup of row-sliced slots is not ported yet: ROADMAP A9")
     world = de.world_size
     rows, roff, div, mask = de._plan_meta(plan, gi, slab.device, reps=world)
+    rbase = de._plan_rbase(plan, gi, slab.device, reps=world)
     region = ids_recv[:, g.goff:g.goff + g.n * g.blen]
     if g.kind == "d":
         ids = region.reshape(world * g.n, b, g.hot).contiguous()
-        red = gather_combine(slab, ids, rows, roff, div, mask)
+        red = gather_combine(slab, ids, rows, roff, div, mask, rbase=rbase)
     else:
         mean, valid = de._plan_ragged_meta(plan, gi, slab.device,
                                            reps=world)
@@ -102,5 +106,5 @@ def lookup_group(de, plan, gi: int, g, slab, ids_recv, b: int,
         red = ragged_combine(slab, values, splits, rows, roff, mean=mean,
                              mask=mask, weights=wbits,
                              out_dtype=(out_dtype or de.compute_dtype
-                                        or slab.dtype))
+                                        or slab.dtype), rbase=rbase)
     return red.reshape(world, g.n, b, g.width)

@@ -14,8 +14,11 @@
   slab.)
 
 At world > 1 every rank runs the step on its rows of the batch, in
-lockstep: the embedding forward and the sparse backward exchange over
-the layer's process group, and the loss, the guard's probe and every
+lockstep (a ``dp_input=False`` layer takes its embedding input as an
+:class:`~.dist_embedding.MpInputs` batch, the ids of its tables over the
+global batch, while the dense batch stays this rank's rows): the
+embedding forward and the sparse backward exchange over the layer's
+process group, and the loss, the guard's probe and every
 dense gradient are averaged in ONE float32 all-reduce
 (:func:`~.grads.mean_flat`), so every rank applies the same dense update
 and skips a non-finite batch together.
@@ -51,6 +54,7 @@ from ..ops.grad_health import grad_health
 from ..utils import obs
 from . import grads as grads_mod
 from . import streaming as smod
+from .dist_embedding import MpInputs
 
 
 class HybridTrainState(NamedTuple):
@@ -326,7 +330,9 @@ def make_hybrid_train_step(de, loss_fn: Callable, dense_tx, emb_optimizer,
 
     Args:
       de: the embedding layer; at world > 1 every rank of its group
-        calls the step, in the same order, with its rows of the batch.
+        calls the step, in the same order, with its rows of the batch
+        (``cat_inputs`` an :class:`~.dist_embedding.MpInputs` batch for a
+        ``dp_input=False`` layer).
       loss_fn: ``loss_fn(dense_params, emb_outputs, batch) -> scalar``
         mean loss over the batch.
       dense_tx: the dense optimizer (``init(params)``,
@@ -395,6 +401,9 @@ def _index(tree, k: int):
     axis on every field; ``dense_shape`` is per step)."""
     if isinstance(tree, torch.Tensor):
         return tree[k]
+    if isinstance(tree, MpInputs):
+        return MpInputs(packed=tree.packed[k], hots=tree.hots,
+                        local_batch=tree.local_batch)
     if isinstance(tree, (Ragged, SparseIds)):
         w = None if tree.weights is None else tree.weights[k]
         if isinstance(tree, Ragged):
@@ -422,10 +431,12 @@ def make_hybrid_train_loop(de, loss_fn: Callable, dense_tx, emb_optimizer,
     :func:`make_hybrid_train_step`
     over the leading axis of every input (each categorical input
     ``[K, batch, ...]``, or a :class:`Ragged` / :class:`SparseIds` whose
-    fields all lead with ``K``; ``batch`` any structure of ``[K, ...]``
-    tensors). The JAX loop scans inside one compiled program (its
-    ``unroll`` is a ``lax.scan`` knob, not taken here); this is a Python
-    loop with the same per-step semantics, guard included.
+    fields all lead with ``K``; for a ``dp_input=False`` layer one
+    :class:`~.dist_embedding.MpInputs` whose ``packed`` leads with ``K``;
+    ``batch`` any structure of ``[K, ...]`` tensors). The JAX loop scans
+    inside one compiled program (its ``unroll`` is a ``lax.scan`` knob,
+    not taken here); this is a Python loop with the same per-step
+    semantics, guard included.
 
     ``with_metrics`` (``None`` follows ``DETPU_OBS``) instruments every
     step: the loop then returns ``(losses, state, metrics[, telem][,
@@ -440,14 +451,16 @@ def make_hybrid_train_loop(de, loss_fn: Callable, dense_tx, emb_optimizer,
         nan_guard=nan_guard, telemetry=telemetry, dynamic=dynamic)
 
     def loop(state: HybridTrainState, cat_stacks, batch_stacks, *telem):
-        c0 = cat_stacks[0]
+        mp = isinstance(cat_stacks, MpInputs)
+        c0 = cat_stacks.packed if mp else cat_stacks[0]
         K = (c0.values if isinstance(c0, (Ragged, SparseIds))
              else c0).shape[0]
         losses: List[torch.Tensor] = []
         per_step = []
         for k in range(K):
-            out = step(state, [_index(c, k) for c in cat_stacks],
-                       _index(batch_stacks, k), *telem)
+            cats = (_index(cat_stacks, k) if mp
+                    else [_index(c, k) for c in cat_stacks])
+            out = step(state, cats, _index(batch_stacks, k), *telem)
             loss, state = out[:2]
             if with_metrics:
                 per_step.append(out[2])

@@ -81,12 +81,20 @@ def get_categorical_feature_type(size: int):
 
 class DummyDataset:
     """Fixed synthetic batches (all-zero ids, like the reference's
-    ``DummyDataset`` — measuring the compute path, not input randomness)."""
+    ``DummyDataset`` — measuring the compute path, not input randomness).
+
+    ``num_workers`` ranks split the ``batch_size`` global batch: the
+    numerical features and labels are one rank's rows. The categorical
+    ids are one rank's rows too (``dp_input=True``), or, with
+    ``dp_input=False``, the whole global batch a model-parallel input
+    needs (``DistributedEmbedding.pack_mp_inputs`` packs it), as the
+    Criteo reader's ``dp_input`` gives them."""
 
     def __init__(self, batch_size: int, num_numerical_features: int,
                  table_sizes: Sequence[int], num_batches: int,
-                 hotness=1, num_workers: int = 1):
+                 hotness=1, num_workers: int = 1, dp_input: bool = True):
         local_bs = batch_size // num_workers
+        cat_bs = local_bs if dp_input else local_bs * num_workers
         self.numerical = np.zeros((local_bs, num_numerical_features),
                                   np.float32)
         # hotness: one int for all tables, or a per-table sequence (the
@@ -95,7 +103,7 @@ class DummyDataset:
             hotness = [int(hotness)] * len(table_sizes)
         if len(hotness) != len(table_sizes):
             raise ValueError("hotness list must match table_sizes")
-        self.categorical = [np.zeros((local_bs, h), np.int32)
+        self.categorical = [np.zeros((cat_bs, h), np.int32)
                             for h in hotness]
         self.labels = np.ones((local_bs, 1), np.float32)
         self.num_batches = num_batches

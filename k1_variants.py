@@ -98,7 +98,8 @@ def main():
                            np.uint8)
             _kernels.check(lib, lib.detpu_gather_combine_prepare(
                 slab.data_ptr(), total, 128, 0, rows.data_ptr(),
-                roff.data_ptr(), div.data_ptr(), None, 0, n, b, hot, 1, 16,
+                roff.data_ptr(), div.data_ptr(), None, None, 0, n, b, hot, 1,
+                16,
                 buf.ctypes.data), name)
             out = torch.empty((n, b, 128), dtype=torch.bfloat16, device=dev)
 

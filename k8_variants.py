@@ -385,7 +385,7 @@ def stage(hash_log2=12, tile=256):
              "      stage_reset(a, clk);\n"
              "      // 1. source words: the row, or a masked bad id's flag\n"),
             ("          if (q < npos) {\n"
-             "            const int64_t id = static_cast<int64_t>(idv[k]);\n"
+             "            const int64_t id = local_id<RB>(s, idv[k]);\n"
              "            src[q] = static_cast<uint32_t>(\n"
              "                         global_row(id, s.nrows, s.base, "
              "a.slab_rows)) |\n"
@@ -394,7 +394,7 @@ def stage(hash_log2=12, tile=256):
              "          }\n",
              "          uint32_t key = kEmpty;\n"
              "          if (q < npos) {\n"
-             "            const int64_t id = static_cast<int64_t>(idv[k]);\n"
+             "            const int64_t id = local_id<RB>(s, idv[k]);\n"
              "            key = static_cast<uint32_t>(\n"
              "                global_row(id, s.nrows, s.base, a.slab_rows));\n"
              "            src[q] = key | (s.masked && (id < 0 || id >= "

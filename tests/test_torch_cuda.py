@@ -4527,3 +4527,241 @@ def test_dot_interact_feature_counts_on_the_card(cuda_device, dtype, f):
                                                   2.0 ** -126))) - 7)
         np.testing.assert_array_less(np.abs(gb - wb),
                                      ulp + 2.0 ** -20 * scale + 1e-30)
+
+
+# ------------------------------------------- row-sliced slots and sums
+
+
+def _sliced_slots(rng, n, w, dtype, device, dim=40, k=4):
+    """``n`` slots, slot ``s`` the row slice ``s % k`` of one
+    ``dim``-row table: the slab, rows, roff and row bases."""
+    slab = torch.from_numpy(rng.normal(size=(dim, w)).astype(np.float32)
+                            ).to(dtype).to(device)
+    rows = torch.full((n,), dim // k, dtype=torch.int64, device=device)
+    rbase = torch.tensor([(s % k) * (dim // k) for s in range(n)],
+                         dtype=torch.int64, device=device)
+    return slab, rows, rbase.clone(), rbase
+
+
+def _slice_edge_ids(rbase, rows, dim):
+    """Each slot's ids at its slice edges and outside the table."""
+    return [[rb - 1, rb, rb + r - 1, rb + r, -1, -7, dim, dim + 100]
+            for rb, r in zip(rbase.tolist(), rows.tolist())]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("width", [3, 16, 128])
+def test_row_base_gather_kernel_matches_plain(cuda_device, dtype, width):
+    """K1 with per-slot row bases against its plain version: ids at the
+    slice edges (``rbase - 1``, ``rbase``, ``rbase + rows - 1``,
+    ``rbase + rows``), negative and past the table, masked and unmasked
+    slots in one launch, int32 and int64 ids; hot 1 bit-exact (an id
+    outside a masked slot's slice reads exact zero), hot 3 at the
+    gather's stated bounds (fp32 1e-6; bf16 1 ulp)."""
+    rng = np.random.default_rng(width)
+    n, b, dim = 8, 70, 40
+    slab, rows, roff, rbase = _sliced_slots(rng, n, width, dtype,
+                                            cuda_device, dim)
+    edges = _slice_edge_ids(rbase, rows, dim)
+    mask = torch.tensor([1, 0, 1, 1, 1, 1, 0, 1], dtype=torch.int32,
+                        device=cuda_device)
+    for ids_dt in (torch.int32, torch.int64):
+        for hot in (1, 3):
+            ids = rng.integers(-3, dim + 3, size=(n, b, hot))
+            for s in range(n):
+                ids[s].reshape(-1)[:8] = edges[s]
+            ids = torch.from_numpy(ids).to(ids_dt).to(cuda_device)
+            div = torch.full((n,), float(hot), device=cuda_device)
+            got = gather_combine(slab, ids, rows, roff, div, mask,
+                                 rbase=rbase)
+            want = gather_combine_plain(slab, ids, rows, roff, div, mask,
+                                        rbase=rbase)
+            if hot == 1:
+                assert torch.equal(_bits(got), _bits(want))
+                loc = ids[..., 0].long() - rbase[:, None]
+                out = ((loc < 0) | (loc >= rows[:, None])) & (
+                    mask[:, None] == 1)
+                assert out.any() and not got[out].any()
+            elif dtype == torch.float32:
+                torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+            else:
+                assert_within_ulps(to_np(got), to_np(want), np.maximum(
+                    np.abs(to_np(want)), 1e-30), 1, f"w{width} hot3")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("width", [3, 16, 128])
+def test_row_base_ragged_kernels_match_plain(cuda_device, dtype, width):
+    """K8 and K9 with per-slot row bases against their plain versions,
+    bit-exact: slice-edge ids, masked and unmasked slots, sum and mean
+    slots (the mean by the row's whole length), in-block weight bits,
+    int32 and int64 values, rows past the capacity."""
+    from distributed_embeddings_torch.ops import (
+        ragged_combine, ragged_combine_plain, ragged_grad, ragged_grad_plain)
+
+    rng = np.random.default_rng(200 + width)
+    n, b, dim = 8, 60, 40
+    slab, rows, roff, rbase = _sliced_slots(rng, n, width, dtype,
+                                            cuda_device, dim)
+    edges = _slice_edge_ids(rbase, rows, dim)
+    mask = torch.tensor([1, 1, 0, 1, 1, 1, 1, 0], dtype=torch.int32,
+                        device=cuda_device)
+    mean = torch.tensor([0, 1] * 4, dtype=torch.int32, device=cuda_device)
+    g = torch.from_numpy(rng.normal(size=(n, b, width)).astype(np.float32)
+                         ).to(dtype).to(cuda_device)
+    for ids_dt in (torch.int32, torch.int64):
+        for frac in (1.0, 0.6):
+            block, cap, splits, _ = _ragged_block(rng, n, b, dim, 6, ids_dt,
+                                                  frac, 0, "bits")
+            for s in range(n):
+                block[s, :8] = torch.tensor(edges[s], dtype=ids_dt)
+            block, splits = block.to(cuda_device), splits.to(cuda_device)
+            values, wt = block[:, :cap], block[:, cap + b:]
+            for w in (None, wt):
+                kw = dict(mean=mean, mask=mask, weights=w, rbase=rbase)
+                got = ragged_combine(slab, values, splits, rows, roff, **kw)
+                want = ragged_combine_plain(slab, values, splits, rows,
+                                            roff, **kw)
+                assert torch.equal(_bits(got), _bits(want)), (ids_dt, frac)
+                gkw = dict(values=values, rows=rows, roff=roff,
+                           sentinel=dim + 1, ids_dtype=ids_dt, mean=mean,
+                           weights=w, rbase=rbase)
+                gi, gv = ragged_grad(g, splits, **gkw)
+                wi, wv = ragged_grad_plain(g, splits, cap=cap, **gkw)
+                assert torch.equal(gi, wi)
+                assert torch.equal(_bits(gv), _bits(wv))
+    torch.cuda.synchronize()
+
+
+def _sum_plan(k, w, b, s, unaligned):
+    """A K20 plan: one plain copy, then the sum of ``k`` blocks of a
+    ``[k, b, s]`` source (block ``r`` at row ``r``, column ``r * w``)."""
+    from distributed_embeddings_torch.ops import exchange_pack as xp
+
+    off = 1 if unaligned else 0
+    parts = [(0, r * b * s + r * w + off, s) for r in range(k)]
+    return xp.CopyPlan([(0, 3, s, 0, b * w, w, b, w)],
+                       sums=[(0, 0, w, b, w, parts)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [2, 4, 8])
+@pytest.mark.parametrize("width,unaligned", [(128, False), (8, False),
+                                             (7, True)])
+def test_exchange_sum_kernel_matches_plain(cuda_device, dtype, k, width,
+                                           unaligned):
+    """K20's summing descriptor against its plain version (``total =
+    total + part`` in slice order in the dtype), bit-exact: k = 2, 4, 8
+    row slices, NaN and Inf bits among the parts, an unaligned width
+    (units of one element)."""
+    from distributed_embeddings_torch.ops import exchange_pack as xp
+
+    b = 300
+    s = k * width + 4 + (1 if unaligned else 0)
+    plan = _sum_plan(k, width, b, s, unaligned)
+    gen = torch.Generator(device=cuda_device).manual_seed(k + width)
+    src = (torch.randn((k, b, s), generator=gen, device=cuda_device)
+           * torch.logspace(-3, 3, s, device=cuda_device)).to(dtype)
+    flat = src.view(-1)
+    flat[::97] = float("nan")
+    flat[5::89] = float("inf")
+    flat[7::83] = -float("inf")
+    out = torch.full((2 * b * width,), 5.0, dtype=dtype, device=cuda_device)
+    want = torch.full_like(out, 5.0)
+    n0 = xp.pack_columns.launches
+    xp.pack_columns(plan, [src], [out])
+    assert xp.pack_columns.launches == n0 + 1
+    xp.pack_columns_plain(plan, [src], [want])
+    assert torch.equal(_bits(out), _bits(want))
+    assert torch.isnan(out).any()
+
+
+@pytest.mark.cuda
+def test_row_slice_records_replay_in_a_cuda_graph(cuda_device):
+    """K1, K8 and K9 with row bases and K20's sum on their records: a
+    second call with new inputs of the same layouts builds nothing; a
+    capture of the four calls replayed on fresh inputs copied into the
+    captured tensors equals the plain versions bit for bit each time."""
+    from distributed_embeddings_torch.ops import (
+        exchange_pack as xp, ragged_combine, ragged_combine_plain,
+        ragged_grad, ragged_grad_plain)
+
+    el = importlib.import_module(
+        "distributed_embeddings_torch.ops.embedding_lookup")
+    sg = importlib.import_module(
+        "distributed_embeddings_torch.ops.sparse_grad")
+    rng = np.random.default_rng(77)
+    n, b, w, dim, cap = 8, 64, 16, 40, 320
+    slab, rows, roff, rbase = _sliced_slots(rng, n, w, torch.bfloat16,
+                                            cuda_device, dim)
+    mask = torch.ones(n, dtype=torch.int32, device=cuda_device)
+    div = torch.ones(n, device=cuda_device)
+    mean = torch.tensor([1, 0] * 4, dtype=torch.int32, device=cuda_device)
+    plan = _sum_plan(4, w, b, 4 * w + 4, False)
+
+    def inputs():
+        ids = torch.from_numpy(rng.integers(-2, dim + 2, size=(n, b, 1))
+                               ).int().to(cuda_device)
+        lengths = rng.integers(0, 6, (n, b))
+        splits = torch.from_numpy(np.concatenate(
+            [np.zeros((n, 1), np.int64), np.cumsum(lengths, 1)], 1)
+        ).to(cuda_device)
+        values = torch.from_numpy(rng.integers(-2, dim + 2, (n, cap))
+                                  ).int().to(cuda_device)
+        g = torch.from_numpy(rng.normal(size=(n, b, w)).astype(np.float32)
+                             ).to(cuda_device)
+        src = torch.from_numpy(rng.normal(size=(4, b, 4 * w + 4))
+                               .astype(np.float32)).to(cuda_device)
+        return [ids, splits, values, g, src]
+
+    def calls(ids, splits, values, g, src, out):
+        a = gather_combine(slab, ids, rows, roff, div, mask, rbase=rbase)
+        c = ragged_combine(slab, values, splits, rows, roff, mean=mean,
+                           mask=mask, rbase=rbase)
+        d = ragged_grad(g, splits, values=values, rows=rows, roff=roff,
+                        sentinel=dim, mean=mean, rbase=rbase)
+        xp.pack_columns(plan, [src], [out])
+        return a, c, d[0], d[1], out
+
+    def plain(ids, splits, values, g, src):
+        out = torch.zeros(2 * b * w, device=cuda_device)
+        xp.pack_columns_plain(plan, [src], [out])
+        d = ragged_grad_plain(g, splits, values=values, rows=rows,
+                              roff=roff, sentinel=dim, mean=mean,
+                              rbase=rbase)
+        return (gather_combine_plain(slab, ids, rows, roff, div, mask,
+                                     rbase=rbase),
+                ragged_combine_plain(slab, values, splits, rows, roff,
+                                     mean=mean, mask=mask, rbase=rbase),
+                d[0], d[1], out)
+
+    out = torch.zeros(2 * b * w, device=cuda_device)
+    calls(*inputs(), out)
+    builds = (el._GATHER.builds, el._RAGGED.builds, sg._K9.builds,
+              plan.launch_cache.builds)
+    fresh = inputs()
+    got = calls(*fresh, out)
+    assert (el._GATHER.builds, el._RAGGED.builds, sg._K9.builds,
+            plan.launch_cache.builds) == builds
+    assert all(torch.equal(_bits(x), _bits(y))
+               for x, y in zip(got, plain(*fresh)))
+    ins = [t.clone() for t in inputs()]
+    side = torch.cuda.Stream(device=cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(side):
+        calls(*ins, out)
+    torch.cuda.current_stream(cuda_device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = calls(*ins, out)
+    for _ in range(2):
+        fresh = inputs()
+        for t, f in zip(ins, fresh):
+            t.copy_(f)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(_bits(x), _bits(y))
+                   for x, y in zip(outs, plain(*fresh)))

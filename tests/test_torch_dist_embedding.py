@@ -190,10 +190,15 @@ def test_unported_paths_raise():
     assert sum(tde.slices_per_table) > len(configs)  # column slices
     with pytest.raises(RuntimeError, match="process group"):
         tde.init(device="cpu")
-    with pytest.raises(NotImplementedError, match="A7b"):
-        DistributedEmbedding(configs, world_size=8, dp_input=False)
-    with pytest.raises(NotImplementedError, match="A9"):
-        DistributedEmbedding(CONFIGS, world_size=1, row_slice=100)
+    # model-parallel input and row slicing are ported; world 1 never
+    # row-slices, and the threshold is an int
+    assert not DistributedEmbedding(configs, world_size=8,
+                                    dp_input=False).dp_input
+    one = DistributedEmbedding(CONFIGS, world_size=1, row_slice=100)
+    assert not one.strategy.row_sliced_tables
+    assert one.slices_per_table == [1] * len(CONFIGS)
+    with pytest.raises(TypeError, match="row_slice"):
+        DistributedEmbedding(CONFIGS, world_size=1, row_slice=True)
     # ragged inputs are ported; on a table without a combiner they are
     # refused, as in the JAX package
     tde = DistributedEmbedding(CONFIGS[:1], world_size=1)

@@ -513,8 +513,13 @@ def test_world8_paths_not_ported_raise():
     assert len(de._get_plan([("d", 1, 1)] * 8, 2).instances) == 8
     with pytest.raises(RuntimeError, match="process group"):
         de.rank
-    with pytest.raises(NotImplementedError, match="A7b"):
-        DistributedEmbedding(configs, WORLD, dp_input=False)
+    # model-parallel input is ported: a plain id list to such a layer
+    # raises, naming the MpInputs batch it takes
+    mp = DistributedEmbedding(configs, WORLD, dp_input=False)
+    with pytest.raises(ValueError, match="MpInputs"):
+        mp.forward_with_residuals({"w4": torch.zeros((1, 8, 4))},
+                                  [torch.zeros((2, 1), dtype=torch.int32)]
+                                  * 8)
     args = (de, lambda *a: None, SGD(0.1), SparseSGD())
     for kw in (dict(telemetry=True), dict(dynamic=True)):
         with pytest.raises(NotImplementedError, match="A7b"):

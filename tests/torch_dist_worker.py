@@ -37,6 +37,9 @@ def _layer(spec, world):
         spec["configs"], world_size=world,
         strategy=spec.get("strategy", "basic"),
         column_slice_threshold=spec.get("column_slice_threshold"),
+        row_slice=spec.get("row_slice"),
+        dp_input=spec.get("dp_input", True),
+        masked_reads=spec.get("masked_reads", False),
         input_table_map=spec.get("input_table_map"),
         compute_dtype=_dtype(spec.get("compute_dtype")))
 
@@ -63,13 +66,75 @@ def _inputs(spec_inputs, rank, world):
     return out
 
 
+def global_inputs(spec_inputs, world):
+    """The global batch of a spec's inputs for ``pack_mp_inputs``, with
+    each input's ``hots`` entry: a dense array as it is; a ragged entry's
+    per-rank CSRs as one global :class:`Ragged` packed at the per-rank
+    capacity, so the model-parallel blocks equal the ones the
+    data-parallel id exchange builds."""
+    import numpy as np
+
+    from distributed_embeddings_torch.ops.embedding_lookup import Ragged
+
+    out, hots = [], []
+    for x in spec_inputs:
+        if not (isinstance(x, tuple) and x[0] == "ragged"):
+            out.append(x)
+            hots.append(x.shape[1] if x.ndim == 2 else 1)
+            continue
+        _, vals, splits, wts = x
+        cap = len(vals[0])
+        n = [int(s[-1]) for s in splits]
+        off = np.concatenate([[0], np.cumsum(n)])
+        gs = np.concatenate([splits[0][:1]] + [s[1:] + o for s, o in
+                                                zip(splits, off)])
+        gv = np.zeros(cap * world, vals[0].dtype)
+        gv[:off[-1]] = np.concatenate([v[:k] for v, k in zip(vals, n)])
+        gw = None
+        if wts is not None:
+            gw = np.zeros(cap * world, np.float32)
+            gw[:off[-1]] = np.concatenate([w[:k] for w, k in zip(wts, n)])
+        out.append(Ragged(values=torch.from_numpy(gv),
+                          row_splits=torch.from_numpy(gs.astype(
+                              splits[0].dtype)),
+                          weights=None if gw is None
+                          else torch.from_numpy(gw)))
+        hots.append(("r" if wts is None else "rw", cap))
+    return out, hots
+
+
+def _feed(de, spec_inputs, rank, world):
+    """This rank's embedding input: its rows (data-parallel input) or its
+    block of the packed global batch (``dp_input=False``)."""
+    if de.dp_input:
+        return _inputs(spec_inputs, rank, world)
+    inputs, hots = global_inputs(spec_inputs, world)
+    return de.pack_mp_inputs(inputs, hots=hots, device="cpu")
+
+
+def _control_rbase(de, rank, spec):
+    """The control that drops the row bases on ``spec["drop_rbase"]``'s
+    rank: its row-sliced slots read their table's first rows."""
+    if spec.get("drop_rbase") != rank:
+        return
+    real = de._plan_rbase
+
+    def zeros(plan, gi, device, reps=1):
+        rb = real(plan, gi, device, reps)
+        return None if rb is None else torch.zeros_like(rb)
+
+    de._plan_rbase = zeros
+
+
 def case_forward(rank, world, spec):
-    """Forward on this rank's rows: the received id block, the outputs
-    and (rank 0) the tables gathered back over the group."""
+    """Forward on this rank's rows (or its model-parallel block): the
+    received id block, the outputs and (rank 0) the tables gathered back
+    over the group."""
     de = _layer(spec, world)
+    _control_rbase(de, rank, spec)
     params = de.set_weights(spec["tables"], device="cpu")
     outs, res = de.forward_with_residuals(
-        params, _inputs(spec["inputs"], rank, world))
+        params, _feed(de, spec["inputs"], rank, world))
     tables = de.get_weights(params, all_ranks=False)
     return {"ids": res[1].numpy(),
             "outs": [o.float().numpy() for o in outs],
@@ -89,6 +154,7 @@ def case_train(rank, world, spec):
                                                        SparseSGD)
 
     de = _layer(spec, world)
+    _control_rbase(de, rank, spec)
     params = de.set_weights(spec["tables"], device="cpu")
     opt = (SparseAdagrad(initial_accumulator_value=0.1)
            if spec["optimizer"] == "adagrad" else SparseSGD())
@@ -97,7 +163,7 @@ def case_train(rank, world, spec):
     for step_inputs in spec["steps"]:
         with torch.no_grad():
             outs, res = de.forward_with_residuals(
-                params, _inputs(step_inputs, rank, world))
+                params, _feed(de, step_inputs, rank, world))
         outs = [o.detach().requires_grad_() for o in outs]
         loss = _quadratic_loss(outs)
         grads = torch.autograd.grad(loss, outs)
@@ -106,7 +172,7 @@ def case_train(rank, world, spec):
         losses.append(float(loss))
     acc = ({k: v[0].numpy() for k, v in opt_state.items()}
            if spec["optimizer"] == "adagrad" else None)
-    return {"losses": losses, "acc": acc,
+    return {"losses": losses, "acc": acc, "ids": res[1].numpy(),
             "slabs": {k: v[0].float().numpy() for k, v in params.items()},
             "tables": de.get_weights(params, all_ranks=False)}
 
@@ -173,7 +239,7 @@ def case_dlrm(rank, world, spec):
 
     def run(st, batch):
         cats, num, lab = batch
-        cats = _inputs(cats, rank, world)
+        cats = _feed(de, cats, rank, world)
         num, lab = bootstrap.shard_batch(
             (torch.from_numpy(num.copy()), torch.from_numpy(lab.copy())),
             rank, world)
@@ -209,7 +275,7 @@ def case_dlrm(rank, world, spec):
     cats, num, lab = spec["eval_batch"]
     pred = make_hybrid_eval_step(
         de, lambda m, outs, b: torch.sigmoid(m(b, outs).float()))(
-        state, _inputs(cats, rank, world),
+        state, _feed(de, cats, rank, world),
         bootstrap.shard_batch(torch.from_numpy(num.copy()), rank, world))
     controls = {}
     for control in spec.get("controls", ()):
@@ -226,6 +292,57 @@ def case_dlrm(rank, world, spec):
             "dense": [p.detach().numpy() for p in dense_p],
             "pred": pred.float().numpy(),
             "pred_all": bootstrap.to_host(pred), "controls": controls}
+
+
+def case_mp_loop(rank, world, spec):
+    """The DLRM step over ``spec["batches"]`` with model-parallel input,
+    once step by step and once through ``make_hybrid_train_loop`` with
+    the batches' blocks stacked into one :class:`MpInputs`, each from the
+    same state: the losses, slabs and dense parameters of both."""
+    from distributed_embeddings_torch.models import (DLRMConfig, DLRMDense,
+                                                     bce_with_logits)
+    from distributed_embeddings_torch.parallel import (
+        SGD, MpInputs, SparseSGD, bootstrap, make_hybrid_train_loop,
+        make_hybrid_train_step)
+    from distributed_embeddings_torch.utils.convert import (
+        hybrid_state_from_jax)
+
+    cfg = DLRMConfig(**spec["model"])
+    de = _layer(dict(spec, configs=cfg.embedding_configs()), world)
+
+    def fresh():
+        return hybrid_state_from_jax(de, DLRMDense(cfg, device="cpu"),
+                                     spec["tables"], spec["dense_tree"], 0,
+                                     device="cpu")
+
+    def loss_fn(m, outs, batch):
+        n, y = batch
+        return bce_with_logits(m(n, outs), y)
+
+    args = (de, loss_fn, SGD(spec["lr"]), SparseSGD())
+    kw = dict(lr_schedule=spec["lr"], nan_guard=True)
+    blocks, dense = [], []
+    for cats, num, lab in spec["batches"]:
+        blocks.append(_feed(de, cats, rank, world))
+        dense.append(bootstrap.shard_batch(
+            (torch.from_numpy(num.copy()), torch.from_numpy(lab.copy())),
+            rank, world))
+    st, losses = fresh(), []
+    step = make_hybrid_train_step(*args, **kw)
+    for mp, batch in zip(blocks, dense):
+        loss, st = step(st, mp, batch)
+        losses.append(float(loss))
+    stacked = MpInputs(packed=torch.stack([b.packed for b in blocks]),
+                       hots=blocks[0].hots,
+                       local_batch=blocks[0].local_batch)
+    llosses, lst = make_hybrid_train_loop(*args, **kw)(
+        fresh(), stacked, tuple(torch.stack(x) for x in zip(*dense)))
+    return {"losses": losses, "loop_losses": [float(x) for x in llosses],
+            "slabs_equal": all(torch.equal(st.emb_params[k], v)
+                               for k, v in lst.emb_params.items()),
+            "dense_equal": all(torch.equal(a, b) for a, b in zip(
+                st.dense_params.parameters(),
+                lst.dense_params.parameters()))}
 
 
 def case_glue(rank, world, spec):
@@ -274,7 +391,7 @@ def case_glue(rank, world, spec):
 
 
 CASES = {"forward": case_forward, "train": case_train, "dlrm": case_dlrm,
-         "glue": case_glue}
+         "mp_loop": case_mp_loop, "glue": case_glue}
 
 
 def serve(rank, world, store, inq, outq):
