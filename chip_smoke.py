@@ -325,6 +325,45 @@ Phases (any failure raises and the script exits non-zero):
          ``cuda:0``: both slicing modes engaged, a finite loss, every
          row-slice mode launched (K8 and K9 with row bases on its ragged
          feature).
+   f. the instrumented hybrid step at world 8 (``with_metrics``,
+      ``telemetry=``, ``dynamic=``; run in the same rank processes after
+      14e-c): every rank carries its own row of the telemetry and
+      streaming state, folds the ids it received (K13, K14's pool and
+      K15 a width), remaps and commits its own streaming tables (K16,
+      K17), runs K21 on its cotangents and on the averaged dense
+      gradients, and gathers every rank's metrics (one all-gather):
+      a. 14b's small tables, row-sliced (``row_slice`` 700,000), tables
+         7, 13, 15, 17 and 24 streaming (their ids Zipfian over 4x their
+         rows), fp32, the guard, the metrics and the default telemetry
+         on, b=4096 global: 5 lockstep steps, each with the kernels and,
+         from a copy of the same state, through ``plain_kernels()``: on
+         every rank the telemetry and streaming states bitwise equal,
+         the metrics' counts exact (the loss and norms within 1e-3
+         relative, 6a's bound), the slabs within 14b's bounds; a NaN
+         batch on rank 5 (every rank skips: slabs, dense parameters and
+         streaming state bitwise unchanged, ``skipped_steps`` all 1,
+         telemetry still counts); a control dropping the row bases of
+         one rank's telemetry stream must change that rank's telemetry
+         and no other's;
+      b. 14c's Criteo-1TB configuration with ``with_metrics`` and the
+         default ``TelemetryConfig``: one checked step (each width fold
+         bitwise its plain fold on the same state and stream, K19/K20
+         bit-exact, the per-rank ``ids_routed`` summing to every slice's
+         65,536 ids, no overflow or invalid id, the byte metrics the
+         plan's), 2 warmup steps, then 3 timed steps each with
+         telemetry and metrics off, on, on, off (launches a rank a step
+         counted: 14c's plus K13, K14's pool and K15 once), the calls of
+         the fold and of K21 timed inside the step, and the stage splits
+         off and on (the fold and the metrics gather as stages);
+      c. 12c's streaming DLRM (the capped Criteo-Kaggle tables, five
+         streaming, ``SparseAdagrad``, the guard on) across the 8 ranks,
+         b=65,536 global: one checked step (every K16 and K17 call held
+         to its plain version on the owning rank), 2 warmup + 3 timed
+         steps (K16 and K17 timed inside the step), ``occupancy``
+         gathered on every rank.
+      Its samples/s are those of 8 ranks time-sharing one H100 over
+      gloo. ``python3 chip_smoke.py --world8f`` runs phases 1, 2 and 14f
+      alone (to debug it; it prints no result).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Run from the root of a checkout:
@@ -8158,13 +8197,15 @@ def w8_touched_recorder(torch):
 
 
 @contextlib.contextmanager
-def w8_stage_marks(torch):
+def w8_stage_marks(torch, extra=()):
     """Mark the stage bounds of the real world-8 step (the trainer's
     own ``make_hybrid_train_step``): the exchange layer's three
     all-to-alls, the unpack and ``grads.mean_flat`` are wrapped so that
-    each bound records an event and synchronizes. Yields ``mark`` (call
-    it before and after the step) and the list of ``(host s, event)``
-    marks; the stages are W8_STAGES, in order."""
+    each bound records an event and synchronizes (and each ``(owner,
+    name, before, after)`` of ``extra``). Yields ``mark`` (call it
+    before and after the step) and the list of ``(host s, event)``
+    marks; the stages are W8_STAGES, in order (W8F_STAGES with 14f-b's
+    ``extra``)."""
     from distributed_embeddings_torch.parallel import exchange, grads
 
     marks = []
@@ -8193,6 +8234,8 @@ def w8_stage_marks(torch):
             (exchange, "unpack_outputs"): (False, True),
             (grads, "mean_flat"): (True, True),
             (exchange, "exchange_grads"): (False, True)}
+    real.update({(owner, name): (before, after)
+                 for owner, name, before, after in extra})
     saved = {k: getattr(*k) for k in real}
     for (mod, name), (before, after) in real.items():
         setattr(mod, name, wrap(saved[(mod, name)], before, after))
@@ -8203,13 +8246,15 @@ def w8_stage_marks(torch):
             setattr(mod, name, fn)
 
 
-def w8_staged_steps(torch, step, st, batches, steps, stages=W8_STAGES):
+def w8_staged_steps(torch, step, st, batches, steps, stages=W8_STAGES,
+                    extra=()):
     """``steps`` real world-8 steps (after one unmarked) with their stage
     bounds marked: per stage the medians of host ms and device ms
     (``stages``: W8_STAGES, or with model-parallel input, where no id
-    exchange runs, the stages after it)."""
+    exchange runs, the stages after it; more with ``extra`` bounds, see
+    :func:`w8_stage_marks`)."""
     split = []
-    with w8_stage_marks(torch) as (mark, marks):
+    with w8_stage_marks(torch, extra) as (mark, marks):
         for k in range(1 + steps):
             marks.clear()
             mark()
@@ -8650,10 +8695,652 @@ def w8e_compare_small(torch, ref, ranks, tmp):
     return out
 
 
-def w8_rank(rank, store, tmp, results):
+# ------------------------------- the instrumented step at world 8 (14f)
+
+#: 14f-a's streaming tables: small unsliced tables (under W8E_SMALL_RS)
+W8F_STREAM = (7, 13, 15, 17, 24)
+W8F_EXT = 4                    # their external ids span 4x their rows
+W8F_STEPS = 3                  # timed steps a run of 14f-b and 14f-c
+#: 14f-b's stage bounds: W8_STAGES with the telemetry fold after the
+#: unpack and the metrics gather after the dense update
+W8F_STAGES = ("id_exchange", "lookup", "output_exchange", "telemetry",
+              "dense", "all_reduce", "cotangent_exchange",
+              "apply_and_tallies", "metrics_gather", "tail")
+
+
+def w8f_small_model(torch):
+    """14f-a's layer: 14b's capped tables, row-sliced (``row_slice``
+    W8E_SMALL_RS), tables W8F_STREAM streaming (capacity + buckets = the
+    table's rows, a 17th of them buckets), ``comm_balanced``, fp32."""
+    from distributed_embeddings_torch.models import DLRMConfig
+    from distributed_embeddings_torch.parallel import DistributedEmbedding
+
+    cfg = DLRMConfig(table_sizes=w8_small_sizes(), embedding_dim=128,
+                     num_numerical_features=13,
+                     bottom_mlp_dims=(512, 256, 128),
+                     top_mlp_dims=(1024, 1024, 512, 256, 1))
+    configs = []
+    for t, c in enumerate(cfg.embedding_configs()):
+        if t in W8F_STREAM:
+            nb = max(1, int(c["input_dim"]) // 17)
+            c = dict(c, streaming={"capacity": int(c["input_dim"]) - nb,
+                                   "buckets": nb})
+        configs.append(c)
+    de = DistributedEmbedding(configs, world_size=W8,
+                              strategy="comm_balanced",
+                              row_slice=W8E_SMALL_RS)
+    return cfg, de
+
+
+def w8f_small_batch(seed, b=W8_SMALL_BATCH):
+    """14b's batch with the streaming tables' ids Zipfian over W8F_EXT
+    times their rows (external ids past the slot map)."""
+    from distributed_embeddings_torch.utils.data import power_law_ids
+
+    rng = np.random.default_rng(seed)
+    cats = [power_law_ids(rng, v * (W8F_EXT if t in W8F_STREAM else 1),
+                          (b,)).astype(np.int32)
+            for t, v in enumerate(w8_small_sizes())]
+    return (cats, rng.normal(size=(b, 13)).astype(np.float32),
+            (rng.random(b) < 0.25).astype(np.float32))
+
+
+def same_tree(torch, a, b):
+    """Whether two state trees hold the same bits everywhere."""
+    if isinstance(a, dict):
+        return all(same_tree(torch, a[k], b[k]) for k in a)
+    return bool(torch.equal(a, b))
+
+
+def w8f_metrics_close(torch, got, want, tol, what):
+    """:func:`metrics_close` with a streaming step's ``stream_*`` counts
+    held exactly."""
+    got, want = dict(got), dict(want)
+    for k in [k for k in got if k.startswith("stream_")]:
+        check(torch.equal(got.pop(k), want.pop(k)), f"{what} {k}")
+    return metrics_close(torch, [got], [want], tol, what)
+
+
+def w8f_control_rank(de):
+    """The first rank holding a row slice that does not start at row 0
+    (dropping its row bases changes what it reads)."""
+    for r, cfgs in enumerate(de.strategy.local_configs_list):
+        if any(int(c.get("_row_base", 0)) > 0 for c in cfgs):
+            return r
+    raise RuntimeError("chip_smoke: no rank holds a based row slice")
+
+
+@contextlib.contextmanager
+def telemetry_without_row_bases(torch, de):
+    """The control: this layer's telemetry stream reads its row-sliced
+    slots with their row bases dropped (the lookup keeps them)."""
+    real = de.telemetry_streams
+    real_rbase = de._plan_rbase
+
+    def zeros(plan, gi, device, reps=1):
+        rb = real_rbase(plan, gi, device, reps)
+        return None if rb is None else torch.zeros_like(rb)
+
+    def streams(residuals):
+        de._plan_rbase = zeros
+        try:
+            return real(residuals)
+        finally:
+            del de._plan_rbase
+
+    de.telemetry_streams = streams
+    try:
+        yield
+    finally:
+        del de.telemetry_streams
+
+
+#: 14f-a's plain run: every call site but K3's. K3's plain version
+#: (``index_add_``) adds each id's update into the slab, rounding at the
+#: slab's magnitude (an fp32 ulp of 0.05 is 3.7e-9 against updates of
+#: ~1e-6 a step), so with it one lockstep step's slab update differs by
+#: 6.05e-3 relative on an H100 at these sizes; K3 is held to it in 6a,
+#: 14c and 14f-b's scatter checks. With K3 on both sides the slabs are
+#: held to 14b's bounds.
+W8F_PLAIN = (
+    "gather_combine", "ragged_combine", "lengths_to_splits", "ragged_grad",
+    "row_to_split", "dot_interact_fwd", "dot_interact_bwd",
+    "sgd_scatter_promoted", "dedup_sparse_grad", "adagrad_rows",
+    "adagrad_dense", "adagrad_dense_scatter", "adam_rows", "momentum_rows",
+    "sketch_update", "sketch_query", "sketch_fold", "remap_stage",
+    "commit_rows", "pack_ids", "pack_columns", "grad_health",
+    "dense_update")
+
+
+def w8f_rank_small(torch, rank, tmp):
+    """14f-a on one rank: 5 guarded instrumented steps with telemetry and
+    streaming, each with the kernels and, from a copy of the same state,
+    with every call site but K3's routed to its plain version
+    (W8F_PLAIN; lockstep), a NaN batch on rank W8_NAN_RANK, and the
+    control dropping one rank's row bases in its telemetry stream."""
+    from distributed_embeddings_torch.analysis import telemetry as tel
+    from distributed_embeddings_torch.models import DLRMDense
+    from distributed_embeddings_torch.parallel import (
+        SGD, SparseSGD, init_streaming, make_hybrid_train_step)
+    from distributed_embeddings_torch.utils import obs
+
+    cfg, de = w8f_small_model(torch)
+    dense = DLRMDense(cfg, device="cuda")
+    st = w8_small_state(torch, de, dense, tmp)
+    tcfg, scfg = tel.TelemetryConfig(), stream_config()
+    telem = tel.init_telemetry(de, tcfg, device="cuda")
+    ss = init_streaming(de, scfg, device="cuda")
+    step = make_hybrid_train_step(
+        de, loss_fn, SGD(W8_SMALL_LR), SparseSGD(), lr_schedule=W8_SMALL_LR,
+        nan_guard=True, with_metrics=True, telemetry=tcfg, dynamic=scfg)
+    b = W8_SMALL_BATCH // W8
+    rows = slice(rank * b, (rank + 1) * b)
+    counts = {"kernels": {}, "plain": {}}
+    slab_max = slab_rel = metric_err = 0.0
+    summaries = []
+    for k in range(SMALL_STEPS):
+        cats, num, lab = w8_to_card(torch, w8f_small_batch(SEED + 800 + k),
+                                    rows)
+        twin, t2, s2 = clone_state(st), clone_tree(telem), clone_tree(ss)
+        before = {key: v.float().clone() for key, v in st.emb_params.items()}
+        out = {}
+        for name in ("kernels", "plain"):
+            zero_counts()
+            with (plain_kernels(W8F_PLAIN) if name == "plain"
+                  else contextlib.nullcontext()):
+                out[name] = (step(st, cats, (num, lab), telem, ss)
+                             if name == "kernels" else
+                             step(twin, cats, (num, lab), t2, s2))
+            torch.cuda.synchronize()
+            for key, v in read_counts().items():
+                counts[name][key] = counts[name].get(key, 0) + v
+        (lk, st, mk, telem, ss), (_, twin, mp, t2, s2) = (out["kernels"],
+                                                          out["plain"])
+        what = f"world 8 f small rank {rank} step {k}"
+        check(bool(torch.isfinite(lk)), f"{what}: loss {lk}")
+        telem_equal(torch, telem, t2, f"{what} telemetry")
+        telem_equal(torch, ss, s2, f"{what} streaming state")
+        metric_err = max(metric_err, w8f_metrics_close(torch, mk, mp, 1e-3,
+                                                       what))
+        for key in st.emb_params:
+            a = st.emb_params[key].float()
+            p = twin.emb_params[key].float()
+            slab_max = max(slab_max, float((a - p).abs().max()))
+            upd = float((p - before[key]).norm())
+            slab_rel = max(slab_rel, float((a - p).norm()) / max(upd, 1e-30))
+        summaries.append(obs.summarize(mk))
+        del twin, t2, s2, before, out
+    owns = any(t in de.streaming_tables
+               for t in de.strategy.table_ids_list[rank])
+    # the NaN batch: every rank skips, telemetry still counts
+    cats, num, lab = w8_to_card(torch, w8f_small_batch(SEED + 850), rows)
+    if rank == W8_NAN_RANK:
+        num[0, 3] = float("nan")
+    snap, s_snap = clone_state(st), clone_tree(ss)
+    t_steps = int(telem["steps"])
+    loss, st, m, telem, ss = step(st, cats, (num, lab), telem, ss)
+    torch.cuda.synchronize()
+    check(not bool(torch.isfinite(loss)), f"world 8 f rank {rank}: the NaN "
+          "batch gave a finite loss")
+    check(bool((m["skipped_steps"] == 1).all()), f"world 8 f rank {rank}: "
+          f"skipped_steps {m['skipped_steps'].tolist()}")
+    check(same_tree(torch, st.emb_params, snap.emb_params)
+          and same_tree(torch, ss, s_snap)
+          and all(torch.equal(a, c) for a, c in zip(
+              st.dense_params.parameters(), snap.dense_params.parameters())),
+          f"world 8 f rank {rank}: the NaN batch changed the state")
+    check(int(telem["steps"]) == t_steps + 1, f"world 8 f rank {rank}: "
+          "telemetry did not count the skipped step")
+    del snap, s_snap
+    # the control: one rank's telemetry stream without its row bases
+    control = w8f_control_rank(de)
+    cats, num, lab = w8_to_card(torch, w8f_small_batch(SEED + 860), rows)
+    twin, t2, s2 = clone_state(st), clone_tree(telem), clone_tree(ss)
+    with (telemetry_without_row_bases(torch, de) if rank == control
+          else contextlib.nullcontext()):
+        step(st, cats, (num, lab), telem, ss)
+    with plain_kernels(W8F_PLAIN):
+        step(twin, cats, (num, lab), t2, s2)
+    torch.cuda.synchronize()
+    control_differs = not same_tree(torch, telem, t2)
+    del twin, t2, s2
+    torch.cuda.empty_cache()
+    return {"counts": counts, "slab_max_err": slab_max,
+            "slab_rel_err": slab_rel, "metric_rel_err": metric_err,
+            "owns_streaming": owns, "control_rank": control,
+            "control_differs": control_differs,
+            "row_sliced": sorted(de.strategy.row_sliced_tables),
+            "streaming": sorted(de.streaming_tables),
+            "summary_last": summaries[-1]}
+
+
+@contextlib.contextmanager
+def fold_checks(torch):
+    """Route the telemetry's width folds (``analysis.telemetry.
+    sketch_fold``) through a checker: each fold (K13, K14's pool, K15)
+    must leave the width's state and the step's count as the plain fold
+    does on copies of the same state and stream, bitwise. Yields the
+    checked folds and the positions of the last."""
+    from distributed_embeddings_torch.analysis import telemetry as tmod
+    from distributed_embeddings_torch.ops import sketch
+
+    real = tmod.sketch_fold
+    n = {"folds": 0, "positions": 0}
+
+    def fold(wstate, ids, live, candidates, total=None, first=True):
+        ws = {k: v.clone() for k, v in wstate.items()}
+        tot = None if total is None else total.clone()
+        real(wstate, ids, live, candidates, total, first)
+        sketch.fold_ids_plain(ws, ids, live, candidates, tot, first)
+        for k in ws:
+            exact(torch, wstate[k], ws[k], f"world 8 fold {k}")
+        if total is not None:
+            exact(torch, total, tot, "world 8 fold count")
+        n["folds"] += 1
+        n["positions"] = int(ids.numel())
+
+    tmod.sketch_fold = fold
+    try:
+        yield n
+    finally:
+        tmod.sketch_fold = real
+
+
+@contextlib.contextmanager
+def call_times(torch, sites):
+    """CUDA-event ms of every call through the ``(module, name)`` call
+    sites, inside the real step (8 ranks time-share the card, so these
+    are contended times). Yields ``{name: [ms, ...]}``, filled on
+    exit."""
+    saved = {(m, n): getattr(m, n) for m, n in sites}
+    evs = {n: [] for _, n in sites}
+
+    def wrap(fn, name):
+        def timed(*a, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*a, **kw)
+            e1.record()
+            evs[name].append((e0, e1))
+            return out
+        return timed
+
+    for (m, n), fn in saved.items():
+        setattr(m, n, wrap(fn, n))
+    ms = {}
+    try:
+        yield ms
+    finally:
+        for (m, n), fn in saved.items():
+            setattr(m, n, fn)
+        torch.cuda.synchronize()
+        ms.update({n: [a.elapsed_time(b) for a, b in v]
+                   for n, v in evs.items()})
+
+
+def w8f_per_step(groups, widths, folds, steps=1):
+    """Launches of ``steps`` instrumented world-8 DLRM steps with
+    telemetry on one rank: 14c's (K21 twice: the cotangents, the averaged
+    dense gradients) and, per folded width, K13, K14's pool and K15
+    once."""
+    want = w8_per_step(groups, widths, steps)
+    for name in ("cms_update", "topk_pool", "topk_merge"):
+        want[name] = folds * steps
+    return want
+
+
+def w8f_rank_full(torch, rank):
+    """14f-b on one rank: 14c's Criteo-1TB step with ``with_metrics``
+    and the default telemetry (see main's docstring, phase 14f-b)."""
+    from distributed_embeddings_torch.analysis import telemetry as tmod
+    from distributed_embeddings_torch.models import DLRMDense
+    from distributed_embeddings_torch.parallel import (
+        SGD, SparseSGD, init_hybrid_state, make_hybrid_train_step, trainer)
+
+    cfg, de = w8_model(torch, CRITEO_1TB_SIZES, W8_CST, torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    dense = DLRMDense(cfg, device="cuda", generator=gen)
+    st = init_hybrid_state(de, SparseSGD(), dense, SGD(TRAIN_LR),
+                           generator=gen, dtype=torch.bfloat16, device="cuda")
+    tcfg = tmod.TelemetryConfig()
+    telem = tmod.init_telemetry(de, tcfg, device="cuda")
+    torch.cuda.synchronize()
+    out = {"slab_bytes": sum(v.numel() * v.element_size()
+                             for v in st.emb_params.values())}
+    b = W8_BATCH // W8
+    batches = [train_batch(torch, CRITEO_1TB_SIZES, b,
+                           seed=SEED + 900 + 16 * k + rank)
+               for k in range(4)]
+    args = (de, loss_fn, SGD(TRAIN_LR), SparseSGD())
+    on = make_hybrid_train_step(*args, lr_schedule=TRAIN_LR, nan_guard=True,
+                                with_metrics=True, telemetry=tcfg)
+    off = make_hybrid_train_step(*args, lr_schedule=TRAIN_LR, nan_guard=True)
+    # f-b1: one checked step
+    zero_counts()
+    with fold_checks(torch) as nf, pack_checks(torch) as n:
+        loss, st, m, telem = on(st, *batches[0], telem)
+        torch.cuda.synchronize()
+    counts = read_counts()
+    plan = next(iter(de._plan_cache.values()))
+    want = w8f_per_step(len(plan.groups), len(de.widths), len(de.widths))
+    check(counts == want, f"world 8 f rank {rank} checked step: launches "
+          f"{counts}, expected {want}")
+    check(bool(torch.isfinite(loss)), f"world 8 f rank {rank}: loss {loss}")
+    routed = int(m["ids_routed"].sum())
+    check(routed == sum(de.slices_per_table) * W8_BATCH, f"world 8 f rank "
+          f"{rank}: ids_routed sum {routed}, expected every id of every "
+          f"slice {sum(de.slices_per_table)} x {W8_BATCH}")
+    check(int(m["id_overflow"].sum()) == 0
+          and int(m["invalid_id_count"].sum()) == 0, f"world 8 f rank "
+          f"{rank}: overflow {m['id_overflow'].tolist()}, invalid "
+          f"{m['invalid_id_count'].tolist()}")
+    plan_bytes = {"id_a2a_bytes": (W8 - 1) * plan.l_max * 4,
+                  "out_a2a_bytes": (W8 - 1) * b * plan.s_max * 2,
+                  "grad_a2a_bytes": (W8 - 1) * b * plan.s_max * 2}
+    for k, v in plan_bytes.items():
+        check(bool((m[k] == v).all()), f"world 8 f rank {rank}: {k} "
+              f"{m[k].tolist()}, the plan's {v}")
+    out.update(checked=dict(n), folds_checked=dict(nf),
+               ids_routed=m["ids_routed"].tolist(), plan_bytes=plan_bytes,
+               ids_total=float(telem["ids_total"]))
+    # f-b2: warmup, then off, on, on, off, the launches counted
+    for k in range(W8_WARMUP):
+        _, st = off(st, *batches[k % len(batches)])
+        _, st, _, telem = on(st, *batches[k % len(batches)], telem)
+    torch.cuda.synchronize()
+    runs = {"off": [], "on": []}
+    launches = {}
+    in_step = {}
+    sites = ((tmod, "sketch_fold"), (trainer, "grad_health"))
+    for label in ("off", "on", "on", "off"):
+        zero_counts()
+        ctx = (call_times(torch, sites) if label == "on" and not in_step
+               else contextlib.nullcontext({}))
+        with ctx as ms:
+            times = []
+            for k in range(W8F_STEPS):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                if label == "on":
+                    _, st, _, telem = on(st, *batches[k % len(batches)],
+                                         telem)
+                else:
+                    _, st = off(st, *batches[k % len(batches)])
+                ev[1].record()
+                times.append(ev)
+            torch.cuda.synchronize()
+        if ms:
+            in_step = {k: float(np.median(v)) for k, v in ms.items()}
+        runs[label].append(float(np.median([a.elapsed_time(c)
+                                            for a, c in times])))
+        launches.setdefault(label, read_counts())
+    want_on = w8f_per_step(len(plan.groups), len(de.widths), len(de.widths),
+                           W8F_STEPS)
+    want_off = w8_per_step(len(plan.groups), len(de.widths), W8F_STEPS)
+    check(launches["on"] == want_on and launches["off"] == want_off,
+          f"world 8 f rank {rank} timed: launches {launches}, expected "
+          f"on {want_on}, off {want_off}")
+    out.update(step_ms={k: float(np.median(v)) for k, v in runs.items()},
+               launches=launches["on"], in_step_ms=in_step)
+    # f-b3: the stage splits, off and on
+    st, out["stages_off"] = w8_staged_steps(torch, off, st, batches,
+                                            W8_STAGE_STEPS)
+    extra = ((de, "update_telemetry", False, True),
+             (trainer, "_gather_metrics", True, True))
+
+    def on_step(s, cats, batch):
+        loss, s, _, _ = on(s, cats, batch, telem)
+        return loss, s
+
+    st, out["stages_on"] = w8_staged_steps(torch, on_step, st, batches,
+                                           W8_STAGE_STEPS, stages=W8F_STAGES,
+                                           extra=extra)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def w8f_stream_model(torch):
+    """12c's streaming DLRM at world 8: the 26 Criteo-Kaggle tables at
+    width 128 capped at 2M rows, the five past the cap streaming, fp32
+    tables, bf16 compute, ``SparseAdagrad``; the basic strategy."""
+    from distributed_embeddings_torch.models import DLRMConfig
+    from distributed_embeddings_torch.parallel import DistributedEmbedding
+
+    cfg = DLRMConfig(table_sizes=ragged_sizes(), embedding_dim=128,
+                     num_numerical_features=13,
+                     bottom_mlp_dims=(512, 256, 128),
+                     top_mlp_dims=(1024, 1024, 512, 256, 1),
+                     compute_dtype=torch.bfloat16)
+    dynamic = [dict(c, streaming={"capacity": STREAM_CAPACITY,
+                                  "buckets": STREAM_BUCKETS})
+               if t in STREAM_OVERCAP else c
+               for t, c in enumerate(cfg.embedding_configs())]
+    return cfg, DistributedEmbedding(dynamic, world_size=W8,
+                                     compute_dtype=torch.bfloat16)
+
+
+@contextlib.contextmanager
+def commits_in_turns(torch, rank):
+    """The streaming commits of one step taken by the ranks in rank order
+    (gloo barriers around every rank's ``parallel.streaming.commit``):
+    the checks of K17 copy a rank's whole slab and accumulator, and eight
+    ranks doing so at once do not fit on the card."""
+    import torch.distributed as dist
+
+    from distributed_embeddings_torch.parallel import streaming as smod
+
+    real = smod.commit
+
+    def commit(*a, **kw):
+        for _ in range(rank):
+            dist.barrier()
+        try:
+            return real(*a, **kw)
+        finally:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            for _ in range(rank, W8):
+                dist.barrier()
+
+    smod.commit = commit
+    try:
+        yield
+    finally:
+        smod.commit = real
+
+
+def w8f_rank_stream(torch, rank):
+    """14f-c on one rank (see main's docstring, phase 14f-c)."""
+    from distributed_embeddings_torch.models import DLRMDense
+    from distributed_embeddings_torch.parallel import (
+        SGD, SparseAdagrad, init_hybrid_state, init_streaming)
+    from distributed_embeddings_torch.parallel import streaming as smod
+
+    cfg, de = w8f_stream_model(torch)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 180)
+    dense = DLRMDense(cfg, device="cuda", generator=gen)
+    st = init_hybrid_state(de, SparseAdagrad(), dense, SGD(TRAIN_LR),
+                           generator=gen, dtype=torch.float32,
+                           device="cuda")
+    scfg = stream_config()
+    ss = init_streaming(de, scfg, device="cuda")
+    step = make_step_with(de, scfg, SparseAdagrad())
+    b = TRAIN_BATCH // W8
+    bgen = torch.Generator(device="cuda").manual_seed(SEED + 181)
+    batches = []
+    for _ in range(STREAM_BATCHES):
+        cats, (num, lab) = stream_dlrm_batch(torch, bgen, TRAIN_BATCH)
+        sl = slice(rank * b, (rank + 1) * b)
+        batches.append(([c[sl].contiguous() for c in cats],
+                        (num[sl].contiguous(), lab[sl].contiguous())))
+    torch.cuda.synchronize()
+    out = {"slab_bytes": sum(v.numel() * v.element_size()
+                             for v in st.emb_params.values()),
+           "streaming_here": sorted(
+               t for t in de.strategy.table_ids_list[rank]
+               if t in de.streaming_tables)}
+    # f-c1: one checked step, K16 and K17 held to their plain versions
+    errs = {}
+    zero_counts()
+    with stream_checks(torch, errs, f"world 8 f stream rank {rank}"
+                       ) as calls, commits_in_turns(torch, rank):
+        loss, st, ss = step(st, *batches[0], ss)
+        torch.cuda.synchronize()
+    counts = read_counts()
+    here = 1 if out["streaming_here"] else 0
+    check(counts["remap_stage"] == here and counts["commit_rows"] == here
+          and calls["remap"] == here and calls["commit"] == here,
+          f"world 8 f stream rank {rank}: K16/K17 launches {counts}, "
+          f"checked {calls}, streaming tables here {out['streaming_here']}")
+    check(bool(torch.isfinite(loss)), f"world 8 f stream rank {rank}: loss "
+          f"{loss}")
+    out.update(checked=dict(calls), errs=errs)
+    # f-c2: warmup, then timed steps with the launches counted
+    for k in range(W8_WARMUP):
+        _, st, ss = step(st, *batches[k % len(batches)], ss)
+    torch.cuda.synchronize()
+    zero_counts()
+    times = []
+    t0 = time.perf_counter()
+    with call_times(torch, ((smod, "remap_stage"),
+                            (smod, "commit_rows"))) as ms:
+        for k in range(W8F_STEPS):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            _, st, ss = step(st, *batches[k % len(batches)], ss)
+            ev[1].record()
+            times.append(ev)
+        torch.cuda.synchronize()
+    out["wall_s"] = time.perf_counter() - t0
+    out["launches"] = read_counts()
+    out["step_ms"] = float(np.median([a.elapsed_time(c) for a, c in times]))
+    out["in_step_ms"] = {k: float(np.median(v)) for k, v in ms.items() if v}
+    out["occupancy"] = smod.occupancy(de, ss)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def w8f_reckon(torch):
+    """14f's device memory reckoned from the layouts before the ranks
+    start (GB): 14f-b's bf16 slabs a rank (14c's) and 14f-c's fp32 slabs,
+    Adagrad accumulators and slot maps a rank, and 14f-c's checked-step
+    peak on the card (every rank's state, one rank at a time holding its
+    K17 check's copies: slab and accumulator, and the float comparison's
+    three slab-sized temporaries)."""
+    _, de_b = w8_model(torch, CRITEO_1TB_SIZES, W8_CST, torch.bfloat16)
+    _, de_c = w8f_stream_model(torch)
+    b = sum(de_b.rows_cap[w] * w * 2 for w in de_b.widths)
+    c = sum(de_c.rows_cap[w] * (w * 4 * 2 + 8) for w in de_c.widths)
+    slab_c = max(de_c.rows_cap[w] * w * 4 for w in de_c.widths)
+    return {"14f-b_slab_gb_a_rank": b / 1e9,
+            "14f-b_slabs_gb": W8 * b / 1e9,
+            "14f-c_state_gb_a_rank": c / 1e9,
+            "14f-c_checked_step_peak_gb": (W8 * c + 5 * slab_c) / 1e9}
+
+
+def w8f_results(torch, ranks):
+    """14f's checks across the ranks; returns the paths' launches (rank
+    0's a step of 14f-b with telemetry and metrics on, and of 14f-c the
+    first rank holding a streaming table) and the logged result."""
+    small = [r["small_f"] for r in ranks]
+    full = [r["full_f"] for r in ranks]
+    stream = [r["stream_f"] for r in ranks]
+    s0 = small[0]
+    b0 = full[0]
+    occ = [s["occupancy"] for s in stream]
+    owner = next(r for r, s in enumerate(stream) if s["streaming_here"])
+    err = {"remap_stage": 0.0, "commit_rows": 0.0}
+    for s in stream:
+        for k, v in s["errs"].items():
+            err[k] = max(err.get(k, 0.0), v)
+    result = {
+        "transport": "gloo over host memory, 8 ranks time-sharing one "
+                     "H100 (not a multi-GPU or NCCL number)",
+        "small": {"row_sliced": s0["row_sliced"],
+                  "streaming": s0["streaming"],
+                  "owns_streaming": [s["owns_streaming"] for s in small],
+                  "slab_max_err_by_rank": [s["slab_max_err"] for s in small],
+                  "slab_rel_err_by_rank": [s["slab_rel_err"] for s in small],
+                  "launches_per_step_rank0": {
+                      n: v / SMALL_STEPS for n, v in
+                      s0["counts"]["kernels"].items() if v},
+                  "metric_rel_err": max(s["metric_rel_err"] for s in small),
+                  "control_rank": s0["control_rank"],
+                  "summary_last_step": s0["summary_last"]},
+        "full": {
+            "samples_per_s_8_ranks_on_one_h100_over_gloo": {
+                k: W8_BATCH / (max(f["step_ms"][k] for f in full) / 1e3)
+                for k in ("off", "on")},
+            "rank_step_ms_p50": {k: [f["step_ms"][k] for f in full]
+                                 for k in ("off", "on")},
+            "metrics_and_telemetry_overhead_frac": (
+                max(f["step_ms"]["on"] for f in full)
+                / max(f["step_ms"]["off"] for f in full) - 1.0),
+            "launches_per_step_rank0": {
+                n: v / W8F_STEPS for n, v in b0["launches"].items() if v},
+            "in_step_ms_rank0": b0["in_step_ms"],
+            "in_step_ms_max_rank": {
+                k: max(f["in_step_ms"].get(k, 0.0) for f in full)
+                for k in b0["in_step_ms"]},
+            "stages_off_rank0": b0["stages_off"],
+            "stages_on_rank0": b0["stages_on"],
+            "ids_routed_by_rank": b0["ids_routed"],
+            "ids_total_by_rank": [f["ids_total"] for f in full],
+            "plan_bytes": b0["plan_bytes"],
+            "folds_checked_rank0": b0["folds_checked"],
+            "slab_gb_by_rank": [f["slab_bytes"] / 1e9 for f in full],
+            "peak_gb_by_rank": [f["peak_gb"] for f in full]},
+        "stream": {
+            "samples_per_s_8_ranks_on_one_h100_over_gloo":
+                W8F_STEPS * TRAIN_BATCH / max(s["wall_s"] for s in stream),
+            "rank_step_ms_p50": [s["step_ms"] for s in stream],
+            "streaming_tables_by_rank": [s["streaming_here"] for s in stream],
+            "launches_per_step_owner": {
+                n: v / W8F_STEPS for n, v in stream[owner]["launches"].items()
+                if v},
+            "owner": owner,
+            "in_step_ms_by_rank": [s["in_step_ms"] for s in stream],
+            "checked": [s["checked"] for s in stream],
+            "kernel_errs": err, "occupancy": occ[0],
+            "slab_gb_by_rank": [s["slab_bytes"] / 1e9 for s in stream],
+            "peak_gb_by_rank": [s["peak_gb"] for s in stream]}}
+    log("world 8 f: " + json.dumps(result))
+    for r, s in enumerate(small):
+        check(s["slab_max_err"] <= W8_SMALL_BOUNDS["slab_max_err"]
+              and s["slab_rel_err"] <= W8_SMALL_BOUNDS["slab_rel_err"],
+              f"world 8 f small rank {r}: slabs beyond 14b's bounds "
+              f"({s['slab_max_err']}, {s['slab_rel_err']})")
+        kc, pc = s["counts"]["kernels"], s["counts"]["plain"]
+        check(not any(v for k, v in pc.items() if k != "sgd_scatter"),
+              f"world 8 f small rank {r}: the plain run launched {pc}")
+        here = SMALL_STEPS if s["owns_streaming"] else 0
+        check(kc["cms_update"] == kc["topk_pool"] == kc["topk_merge"]
+              == SMALL_STEPS and kc["grad_health"] == 2 * SMALL_STEPS
+              and kc["remap_stage"] == kc["commit_rows"] == here,
+              f"world 8 f small rank {r}: launches {kc}")
+        check(s["control_differs"] == (r == s0["control_rank"]),
+              f"world 8 f small control (rank {s0['control_rank']}'s "
+              f"telemetry without its row bases): rank {r} "
+              f"{'differs' if s['control_differs'] else 'agrees'}")
+    check(any(s["owns_streaming"] for s in small), "world 8 f small: no rank "
+          "holds a streaming table")
+    check(all(o == occ[0] for o in occ), "world 8 f stream: occupancy "
+          "differs between ranks")
+    check(occ[0]["admitted"] > 0 and occ[0]["hit_ids"] > 0,
+          f"world 8 f stream: nothing admitted or hit {occ[0]}")
+    launches = {"world8_instrumented": {
+        n: v // W8F_STEPS for n, v in b0["launches"].items()},
+        "world8_streaming": {
+        n: v // W8F_STEPS for n, v in stream[owner]["launches"].items()}}
+    return launches, err, result
+
+
+def w8_rank(rank, store, tmp, results, parts=("b", "c", "e", "f")):
     """A rank process of phase 14: join the gloo group on the one card,
-    run 14b, 14c, 14e-b and 14e-c, send the results. Any failure raises
-    (the process exits non-zero and the phase fails)."""
+    run 14b, 14c, 14e-b, 14e-c, 14f-a, 14f-b and 14f-c (those ``parts``
+    name), send the results. Any failure raises (the process exits
+    non-zero and the phase fails)."""
     import torch
 
     torch.cuda.set_device(0)
@@ -8664,36 +9351,38 @@ def w8_rank(rank, store, tmp, results):
 
     bootstrap.initialize("gloo", f"file://{store}", W8, rank,
                          timeout_s=W8_TIMEOUT_S)
-    t0 = time.perf_counter()
-    small = w8_rank_small(torch, rank, tmp)
-    small["seconds"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    full = w8_rank_full(torch, rank)
-    full["seconds"] = time.perf_counter() - t0
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    small_e = w8e_rank_small(torch, rank, tmp)
-    small_e["seconds"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    full_e = w8e_rank_full(torch, rank)
-    full_e["seconds"] = time.perf_counter() - t0
-    results.put((rank, {"small": small, "full": full, "small_e": small_e,
-                        "full_e": full_e}))
+    runs = {"b": (("small", w8_rank_small, True),),
+            "c": (("full", w8_rank_full, False),),
+            "e": (("small_e", w8e_rank_small, True),
+                  ("full_e", w8e_rank_full, False)),
+            "f": (("small_f", w8f_rank_small, True),
+                  ("full_f", w8f_rank_full, False),
+                  ("stream_f", w8f_rank_stream, False))}
+    out = {}
+    for part in parts:
+        for key, fn, small in runs[part]:
+            t0 = time.perf_counter()
+            out[key] = fn(torch, rank, tmp) if small else fn(torch, rank)
+            out[key]["seconds"] = time.perf_counter() - t0
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+    results.put((rank, out))
     torch.distributed.destroy_process_group()
 
 
-def w8_run_ranks(torch, tmp):
-    """Start the W8 rank processes, wait for every result; a rank that
-    exits non-zero fails the phase. Stops every process it started."""
+def w8_run_ranks(torch, tmp, parts=("b", "c", "e", "f")):
+    """Start the W8 rank processes (running ``parts`` of phase 14), wait
+    for every result; a rank that exits non-zero fails the phase. Stops
+    every process it started."""
     import multiprocessing as mp
     import queue
 
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     store = os.path.join(tmp, "store")
-    procs = [ctx.Process(target=w8_rank, args=(r, store, tmp, results))
+    procs = [ctx.Process(target=w8_rank, args=(r, store, tmp, results,
+                                               parts))
              for r in range(W8)]
     t0 = time.perf_counter()
     for p in procs:
@@ -9550,6 +10239,8 @@ def phase_world8(torch):
         f"for {W8} ranks on one card; instances a rank "
         f"{[len(t) for t in de.strategy.table_ids_list]}")
     del de
+    log("world 8 f: memory reckoned before the ranks start: "
+        + json.dumps(w8f_reckon(torch)))
     gc.collect()
     torch.cuda.empty_cache()
     tmp = tempfile.mkdtemp(prefix="w8_")
@@ -9614,9 +10305,40 @@ def phase_world8(torch):
     log("world 8: " + json.dumps(result))
     rs = row_slice_results(torch, ranks, rs_errs, rs_cases, small_e)
     result["row_slice"] = rs["result"]
+    f_launches, f_errs, result["instrumented"] = w8f_results(torch, ranks)
+    rs["launches"].update(f_launches)
+    rs["errs_f"] = f_errs
+    rs["result_f"] = result["instrumented"]
+    result["rank_seconds"].update(
+        {k: [r[k]["seconds"] for r in ranks]
+         for k in ("small_f", "full_f", "stream_f")})
     result["phase_seconds"] = time.perf_counter() - t_start
     log(f"world 8 phase {result['phase_seconds']:.1f} s")
     return r0["launches"], cases, errs, result, rs
+
+
+def phase_world8_f_only(torch):
+    """Phase 14f alone (``--world8f``): 14b's small tables and dense
+    parameters written for the ranks (and 14b's world-1 run), then the
+    rank processes run 14f only; its checks and result."""
+    import shutil
+    import tempfile
+
+    log("world 8 f: memory reckoned before the ranks start: "
+        + json.dumps(w8f_reckon(torch)))
+    tmp = tempfile.mkdtemp(prefix="w8f_")
+    try:
+        w8_small_reference(torch, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        ranks, rank_s = w8_run_ranks(torch, tmp, parts=("f",))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches, _, _ = w8f_results(torch, ranks)
+    log(f"world 8 f only: ranks {rank_s:.1f} s, seconds by run "
+        + json.dumps({k: [r[k]["seconds"] for r in ranks]
+                      for k in ("small_f", "full_f", "stream_f")})
+        + " launches " + json.dumps(launches))
 
 
 def main():
@@ -9626,10 +10348,12 @@ def main():
     except ImportError as e:
         raise SystemExit(f"chip_smoke: PyTorch is not installed ({e})")
     argv = sys.argv[1:]
+    only_f = argv == ["--world8f"]
     if len(argv) == 2 and argv[0] == "--parent":
         PARENT_DIR = os.path.abspath(argv[1])
-    elif argv:
-        raise SystemExit("usage: python3 chip_smoke.py [--parent DIR]")
+    elif argv and not only_f:
+        raise SystemExit("usage: python3 chip_smoke.py [--parent DIR | "
+                         "--world8f]")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this script "
                          "runs only on a GPU")
@@ -9643,6 +10367,9 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     phase_device(torch)
     phase_build()
+    if only_f:  # phase 14f alone, to debug it; prints no result
+        phase_world8_f_only(torch)
+        return
     _, de, state = phase_model(torch)
     errs = phase_check(torch, de, state)
     serve_launches, _ = phase_serve(torch, de, state)
@@ -9967,6 +10694,38 @@ def main():
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
             "shape": c["case"], "cases": [c]})
+    # 14f: K13-K17 and K21 on each rank's own stream and state at world 8
+    f = rs["result_f"]
+    f_names = {"cms_update": ("cms_update",),
+               "cms_query": k14, "topk_merge": ("topk_merge",),
+               "remap_stage": ("remap_stage",),
+               "commit_rows": ("commit_rows",),
+               "grad_health": ("grad_health",)}
+    for k in kernels:
+        if k["name"] not in f_names:
+            continue
+        names = f_names[k["name"]]
+        k["max_abs_err"] = max(k["max_abs_err"],
+                               rs["errs_f"].get(k["name"], 0.0))
+        stream = k["name"] in ("remap_stage", "commit_rows")
+        site = {"remap_stage": "remap_stage", "commit_rows": "commit_rows",
+                "grad_health": "grad_health"}.get(k["name"], "sketch_fold")
+        k["world8"] = {
+            "runs_at_world8": True,
+            "launches_per_step_rank": {
+                p: sum(rs["launches"][p].get(n, 0) for n in names)
+                for p in ("world8_instrumented", "world8_streaming")},
+            "in_step_ms": (
+                {"14f-c_by_rank": [m.get(site) for m in
+                                   f["stream"]["in_step_ms_by_rank"]]}
+                if stream else
+                {"14f-b_rank0": f["full"]["in_step_ms_rank0"].get(site),
+                 "14f-b_max_rank": f["full"]["in_step_ms_max_rank"].get(
+                     site)}),
+            "note": "CUDA-event ms of the call inside the real world-8 "
+                    "step, 8 ranks time-sharing one card (contended)"
+                    + ("" if site != "sketch_fold" else "; the width "
+                       "fold (K13, K14's pool and K15 in one replay)")}
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']}: no launch on its main path")
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -1,14 +1,19 @@
 """Access telemetry: per-width hot-row sketches and per-rank load
 accounting, carried through the train step (counterpart of
-``distributed_embeddings_tpu/analysis/telemetry.py``), at world 1.
+``distributed_embeddings_tpu/analysis/telemetry.py``).
 
-The state is a plain dict of tensors with JAX's keys, shapes and dtypes,
-every leaf with a leading ``[world]`` axis: ``steps`` (int32 ``[w, 1]``),
-``ids_total`` (float32 ``[w, 1]``) and per width slab ``"w<width>"``:
-``cms`` (the count-min sketch, int32 ``[w, depth, buckets]``),
-``topk_ids``/``topk_est`` (int32 ``[w, topk]``, the carried hot rows and
-their estimates) and ``ids`` (float32 ``[w, 1]``, the width's
-cumulative live ids). The emission point is
+The state is a plain dict of tensors with JAX's keys and dtypes, every
+leaf with a leading axis of 1: JAX's ``[world]`` axis at world 1, and at
+world > 1 this rank's row of it (each rank holds its own, as it holds
+its own slabs): ``steps`` (int32 ``[1, 1]``), ``ids_total`` (float32
+``[1, 1]``) and per width slab ``"w<width>"``: ``cms`` (the count-min
+sketch, int32 ``[1, depth, buckets]``), ``topk_ids``/``topk_est`` (int32
+``[1, topk]``, the carried hot rows and their estimates) and ``ids``
+(float32 ``[1, 1]``, the width's cumulative live ids). At world > 1
+:func:`gather_state` (a collective) gives every rank JAX's ``[world,
+...]`` leaves on the host, and the host summaries (:func:`hot_rows`,
+:func:`load_balance`, :func:`summarize_telemetry`) read through it. The
+emission point is
 :meth:`~..parallel.dist_embedding.DistributedEmbedding.update_telemetry`,
 the threading ``make_hybrid_train_step(telemetry=...)``.
 
@@ -95,14 +100,13 @@ def _wkey(width: int) -> str:
 def init_telemetry(de, config: Optional[TelemetryConfig] = None,
                    device="cuda") -> Dict[str, Any]:
     """Fresh telemetry state for ``de`` on ``device`` (the card unless the
-    caller asks for the CPU; raises without one): every leaf carries the
-    leading ``[world]`` axis."""
+    caller asks for the CPU; raises without one): every leaf carries a
+    leading axis of 1 (at world > 1, this rank's row)."""
     config = config or config_from_env()
     dev = resolve_device(device)
-    world = de.world_size
 
     def stacked(shape, dtype, fill=0):
-        return torch.full((world,) + shape, fill, dtype=dtype, device=dev)
+        return torch.full((1,) + shape, fill, dtype=dtype, device=dev)
 
     state: Dict[str, Any] = {
         "steps": stacked((1,), torch.int32),
@@ -261,6 +265,29 @@ def _fetch(state) -> Dict[str, Any]:
                 if isinstance(v, torch.Tensor) else np.asarray(v), state)
 
 
+def gather_state(de, state) -> Dict[str, Any]:
+    """Every rank's telemetry (or streaming) state as host numpy
+    ``[world, ...]`` leaves in rank order (JAX's state), on every rank: a
+    collective at world > 1 (every rank of ``de``'s group must call), one
+    gather of the leaves' bytes. World 1: the host copy."""
+    if de.world_size == 1:
+        return _fetch(state)
+    from ..parallel import bootstrap
+
+    return _unflatten(state, bootstrap.gather_leaves(_leaves(state),
+                                                     de.process_group))
+
+
+def _host_state(de, state) -> Dict[str, Any]:
+    """A state on the host with every rank's rows: gathered when ``de``
+    runs at world > 1 and the state is this rank's tensors, else the
+    host copy (a gathered state passes through)."""
+    if de is not None and de.world_size > 1 and any(
+            isinstance(v, torch.Tensor) for v in _leaves(state)):
+        return gather_state(de, state)
+    return _fetch(state)
+
+
 def _slab_row_to_table(de, rank: int, width: int,
                        row: int) -> Optional[Tuple[int, int]]:
     """Map a logical slab row back to ``(global_table_id, table_row)``
@@ -286,8 +313,9 @@ def hot_rows(de, state, topk: Optional[int] = None
     """Per-global-table hot rows ``{table_id: [(row, est_count), ...]}``
     (descending estimate, then row), decoded from every rank's carried
     top-k; a ``(table, row)`` seen on several ranks keeps the largest
-    estimate."""
-    host = _fetch(state)
+    estimate. At world > 1 a rank's own state is gathered first
+    (:func:`gather_state`: every rank must call)."""
+    host = _host_state(de, state)
     per_table: Dict[int, Dict[int, int]] = {}
     for w in de.widths:
         ws = host[_wkey(w)]
@@ -308,10 +336,12 @@ def hot_rows(de, state, topk: Optional[int] = None
     return out
 
 
-def load_balance(state) -> Dict[str, Any]:
+def load_balance(state, de=None) -> Dict[str, Any]:
     """Per-rank cumulative routed-id load and the imbalance ratio
-    (max/mean; 1.0 is balanced)."""
-    host = _fetch(state)
+    (max/mean; 1.0 is balanced). At world > 1 pass ``de`` (a rank's own
+    state is then gathered: every rank must call) or a
+    :func:`gather_state` result."""
+    host = _host_state(de, state)
     loads = np.asarray(host["ids_total"]).reshape(-1).astype(float)
     mean = float(loads.mean()) if loads.size else 0.0
     return {
@@ -352,8 +382,9 @@ def summarize_telemetry(de, state, topk: Optional[int] = None
                         ) -> Dict[str, Any]:
     """JSON-able run summary: per-table hot rows with a Zipf exponent
     estimate, per-rank loads and the imbalance ratio, per-width id
-    totals, the step count."""
-    host = _fetch(state)
+    totals, the step count. At world > 1 a rank's own state is gathered
+    first (every rank must call)."""
+    host = _host_state(de, state)
     hot = hot_rows(de, host, topk=topk)
     tables = []
     for tid in sorted(hot):

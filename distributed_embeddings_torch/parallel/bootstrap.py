@@ -12,10 +12,11 @@ it, :class:`~.dist_embedding.DistributedEmbedding` takes the group
 takes its mesh axis.
 
 The collectives the hybrid step runs (:func:`all_to_all`,
-:func:`all_reduce_sum_`, :func:`broadcast_`) hand their tensors to the
-group's own backend as they are, on the host or on the card (gloo
-copies a CUDA tensor through host memory itself); bfloat16 travels as
-its bytes in the all-to-all and the broadcast (copies, not sums).
+:func:`all_reduce_sum_`, :func:`broadcast_`, :func:`all_gather`) hand
+their tensors to the group's own backend as they are, on the host or on
+the card (gloo copies a CUDA tensor through host memory itself);
+bfloat16 travels as its bytes in the copying collectives (copies, not
+sums). :func:`to_host` and :func:`gather_leaves` gather onto the host.
 """
 
 from __future__ import annotations
@@ -152,6 +153,36 @@ def broadcast_(x: torch.Tensor, src: int, group) -> torch.Tensor:
     return x
 
 
+def all_gather(x: torch.Tensor, group, world_size: int) -> torch.Tensor:
+    """Every rank's ``x`` stacked in rank order, ``[world, *x.shape]``, on
+    ``x``'s device (a new tensor; world 1: ``x[None]``)."""
+    if world_size == 1:
+        return x[None]
+    x = x.contiguous()
+    out = torch.empty((world_size,) + tuple(x.shape), dtype=x.dtype,
+                      device=x.device)
+    dist.all_gather(list(_wire(out).unbind(0)), _wire(x), group=group)
+    return out
+
+
+def gather_leaves(leaves, group) -> list:
+    """Every rank's tensors ``leaves`` (each ``[1, ...]``, the same
+    shapes and dtypes on every rank) as host numpy ``[world, ...]``
+    arrays in rank order, through ONE gather of their bytes (so int32
+    and float32 leaves travel bit for bit); every rank must call."""
+    flat = torch.cat([t.detach().contiguous().reshape(-1).view(torch.uint8)
+                      for t in leaves]) if leaves else torch.zeros(0)
+    rows = to_host(flat[None], group)
+    out, pos = [], 0
+    for t in leaves:
+        n = t.numel() * t.element_size()
+        dtype = torch.empty(0, dtype=t.dtype).numpy().dtype
+        out.append(np.ascontiguousarray(rows[:, pos:pos + n]).view(dtype)
+                   .reshape((rows.shape[0],) + tuple(t.shape[1:])))
+        pos += n
+    return out
+
+
 def shard_batch(tree, rank: Optional[int] = None,
                 world_size: Optional[int] = None):
     """This rank's rows of a GLOBAL batch (the reference's per-rank
@@ -225,6 +256,7 @@ def broadcast_seed(seed: int, group=None) -> int:
     return int(t.cpu()[0])
 
 
-__all__ = ["all_reduce_sum_", "all_to_all", "broadcast_", "broadcast_seed",
-           "group_rank", "initialize", "process_count", "process_index",
-           "shard_batch", "to_host", "world"]
+__all__ = ["all_gather", "all_reduce_sum_", "all_to_all", "broadcast_",
+           "broadcast_seed", "gather_leaves", "group_rank", "initialize",
+           "process_count", "process_index", "shard_batch", "to_host",
+           "world"]

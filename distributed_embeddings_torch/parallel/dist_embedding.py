@@ -37,12 +37,14 @@ of them.
 telemetry (``analysis/telemetry.py``, kernels K13-K15). Tables with a
 ``"streaming"`` entry serve an unbounded external id space through a
 carried slot map (``forward_with_residuals(streaming=)``,
-``parallel/streaming.py``, kernels K16-K17). Both at world 1.
+``parallel/streaming.py``, kernels K16-K17). ``step_metrics`` tallies a
+forward's exchange and overflow metrics. At world > 1 each of them runs
+on the id block this rank received, with this rank's plan rows and
+state.
 
 Not yet ported, each raising ``NotImplementedError`` with its ROADMAP
-item: streaming and telemetry at world > 1 and the pipelined step's
-``"serve"`` streaming form (A7b), and the ``'raise'`` invalid-id policy
-(A12).
+item: the pipelined step's ``"serve"`` streaming form (A7b) and the
+``'raise'`` invalid-id policy (A12).
 
 Ids must lie in ``[0, input_dim)``; out-of-range ids CLIP in the
 forward (a negative id reads row 0, one past the table its last row),
@@ -932,10 +934,12 @@ class DistributedEmbedding:
         (``ids_block`` is the ``[world, l_max]`` block this rank RECEIVED:
         source rank ``r``'s ids for this rank's tables).
 
-        ``streaming`` (streaming vocabularies, :mod:`.streaming`, world 1):
-        ``(config, state)`` (the local state, without its world axis)
+        ``streaming`` (streaming vocabularies, :mod:`.streaming`):
+        ``(config, state)`` (the local state, without its leading axis)
         remaps every streaming-table slot's external ids through the slot
-        map right after the id block is built (hits read their slot,
+        map right after the id block is built or received, or taken from
+        an :class:`MpInputs` batch (a copy: the batch stays as it is;
+        hits read their slot,
         everything else its shared bucket) and stages this step's
         admissions; the return grows a third element, the per-width
         ``pending`` dict the trainer hands to :func:`.streaming.commit`.
@@ -961,12 +965,11 @@ class DistributedEmbedding:
             if self.dp_input:
                 raise ValueError("an MpInputs batch needs a dp_input=False "
                                  "layer")
-            if streaming is not None:
-                raise NotImplementedError(
-                    "streaming vocabularies at world > 1 are not ported "
-                    "yet: ROADMAP A7b")
             ids_recv, encs, b, plan = self._mp_block(inputs, device)
-            return self._world_forward(plan, local, ids_recv, encs, b)
+            if streaming is not None:  # the remap writes the block
+                ids_recv = ids_recv.clone()
+            return self._world_forward(plan, local, ids_recv, encs, b,
+                                       streaming)
         entries, encs, shapes, comm_dtype = self._normalize_inputs(
             inputs, device)
 
@@ -978,13 +981,10 @@ class DistributedEmbedding:
             raise ValueError("All inputs must share the batch dimension")
         plan = self._get_plan(encs, b)
         if self.world_size > 1:
-            if streaming is not None:
-                raise NotImplementedError(
-                    "streaming vocabularies at world > 1 are not ported "
-                    "yet: ROADMAP A7b")
             ids_recv = exchange_mod.exchange_ids(self, plan, entries,
                                                  comm_dtype, device)
-            return self._world_forward(plan, local, ids_recv, encs, b)
+            return self._world_forward(plan, local, ids_recv, encs, b,
+                                       streaming)
         ids_recv = exchange_mod.build_send_blocks(self, plan, entries,
                                                   comm_dtype, device)
         pending = None
@@ -1014,27 +1014,35 @@ class DistributedEmbedding:
         res = ("dist", ids_recv, tuple(encs), b)
         return (result, res) if pending is None else (result, res, pending)
 
-    def _world_forward(self, plan, local, ids_recv, encs, b):
-        """The world > 1 forward from this rank's received id block: its
-        lookups, the output exchange and the unpack (column slices side
-        by side, row slices summed)."""
+    def _world_forward(self, plan, local, ids_recv, encs, b, streaming):
+        """The world > 1 forward from this rank's received id block: the
+        streaming remap (every sender's block), its lookups, the output
+        exchange and the unpack (column slices side by side, row slices
+        summed)."""
+        pending = None
+        if streaming is not None:
+            ids_recv, pending = self._streaming_remap(plan, ids_recv,
+                                                      streaming)
         mp_out = lookup_mod.plan_lookup(self, plan, local, ids_recv)
         dp_recv = exchange_mod.exchange_outputs(self, mp_out)
         result = exchange_mod.unpack_outputs(self, plan, dp_recv)
-        return result, ("dist", ids_recv, tuple(encs), b)
+        res = ("dist", ids_recv, tuple(encs), b)
+        return (result, res) if pending is None else (result, res, pending)
 
     # --------------------------------------------------------- streaming vocab
 
     def _streaming_plan_arrays(self, plan, gi: int, device):
-        """One group's streaming plan arrays (JAX's per-slot
-        ``_streaming_plan_arrays``, expanded to positions), cached per
-        plan: ``None`` when the group has no streaming slot, else
-        ``(slots, cap, nbuckets, tid, roff)``: the
-        slot indices (int64 ``[k]``), then per position of those slots
-        (slot-major, as the region holds them: ``b * hot`` ids a dense
+        """One group's streaming plan arrays on this rank (JAX's per-slot
+        ``_streaming_plan_arrays`` row of this rank, expanded to
+        positions), cached per plan and rank: ``None`` when the group has
+        no streaming slot here, else ``(slots, cap, nbuckets, tid,
+        roff)``: the slot indices (int64 ``[k]``), then per position of
+        those slots in every sender's block (sender-major, then slot,
+        then position, as the region holds them: ``b * hot`` ids a dense
         slot, ``hot`` values a ragged one) its table's capacity, bucket
         count, table id (the hash salt) and slab row offset (int32)."""
-        key = ("streaming", id(plan), gi, str(device))
+        my = self.rank
+        key = ("streaming", id(plan), gi, str(device), my)
         if key in self._meta_cache:
             return self._meta_cache[key]
         g = plan.groups[gi]
@@ -1042,17 +1050,18 @@ class DistributedEmbedding:
         for inst in plan.instances:
             tid = self.strategy.input_table_map[inst.input_id]
             info = self.streaming_tables.get(tid)
-            if inst.group != gi or inst.rank != 0 or info is None:
+            if inst.group != gi or inst.rank != my or info is None:
                 continue
             for k in range(inst.slot0, inst.slot0 + inst.num_slots):
                 per_slot[k] = (info[0], info[1], tid,
-                               int(plan.roff[gi][0][k]))
+                               int(plan.roff[gi][my][k]))
         meta = None
         if per_slot:
             slots = sorted(per_slot)
             per = plan.b * g.hot if g.kind == "d" else g.hot
-            cols = np.repeat(np.asarray([per_slot[k] for k in slots],
-                                        np.int32), per, axis=0)
+            cols = np.tile(np.repeat(np.asarray(
+                [per_slot[k] for k in slots], np.int32), per, axis=0),
+                (self.world_size, 1))
             meta = (torch.as_tensor(slots, dtype=torch.int64, device=device),
                     *(torch.as_tensor(np.ascontiguousarray(cols[:, j]),
                                       device=device) for j in range(4)))
@@ -1061,14 +1070,18 @@ class DistributedEmbedding:
 
     def _streaming_remap(self, plan, ids_recv, streaming):
         """Remap every streaming-table slot's external ids in the id block
-        through the slot map (:func:`.streaming.remap_width`, one call
-        per width over the streaming slots of all its groups in plan
-        order) and, in update mode, stage the admissions. Only live
-        streaming positions are rewritten (``ids >= 0``; a ragged slot's
-        positions below ``min(total length, capacity)``): other slots,
-        dead positions, negative ids, lengths and weights stay as they
-        are. Returns ``(ids_recv, pending)``: ``{width: (staged_cms,
-        remap)}`` in update mode, else ``None``."""
+        ``[world, l_max]`` (one block per sender) through the slot map
+        (:func:`.streaming.remap_width`, one call per width over the
+        streaming slots of all its groups in plan order, each group's
+        positions sender-major, then slot, then position, as JAX orders
+        them) and, in update mode, stage the admissions. Only live
+        streaming positions are rewritten in place (``ids >= 0``; a
+        ragged slot's positions below ``min(total length, capacity)``):
+        other slots, dead positions, negative ids, lengths and weights
+        stay as they are. A width with no streaming slot on this rank is
+        not remapped (its state stays as it is). Returns ``(ids_recv,
+        pending)``: ``{width: (staged_cms, remap)}`` in update mode, else
+        ``None``."""
         from . import streaming as smod
 
         if not self.streaming_tables:
@@ -1084,6 +1097,7 @@ class DistributedEmbedding:
                 f"streaming form {update!r}: the pipelined step's 'serve' "
                 "form is not ported yet: ROADMAP A7b")
         dev, b = ids_recv.device, plan.b
+        world = ids_recv.shape[0]
         per_width: Dict[int, list] = {}
         sites = []
         for gi, g in enumerate(plan.groups):
@@ -1091,17 +1105,18 @@ class DistributedEmbedding:
             if meta is None:
                 continue
             slots, *per_pos = meta
-            region = ids_recv[0, g.goff:g.goff + g.n * g.blen].view(
-                g.n, g.blen)
-            sel = region.index_select(0, slots)
+            region = ids_recv[:, g.goff:g.goff + g.n * g.blen].view(
+                world, g.n, g.blen)
+            sel = region.index_select(1, slots)
             if g.kind == "d":
                 vals = sel
                 live = torch.ones_like(vals, dtype=torch.bool)
             else:  # values, then the lengths (and the weight bits)
-                vals = sel[:, :g.hot]
-                tot = sel[:, g.hot:g.hot + b].sum(dim=1, dtype=torch.int32)
+                vals = sel[:, :, :g.hot]
+                tot = sel[:, :, g.hot:g.hot + b].sum(dim=2,
+                                                     dtype=torch.int32)
                 live = (torch.arange(g.hot, dtype=torch.int32, device=dev)
-                        [None] < tot.clamp(max=g.hot)[:, None])
+                        [None, None] < tot.clamp(max=g.hot)[:, :, None])
             acc = per_width.setdefault(g.width, [])
             start = sum(p[0].numel() for p in acc)
             acc.append((vals.reshape(-1), live.reshape(-1), *per_pos))
@@ -1120,7 +1135,7 @@ class DistributedEmbedding:
             new = remapped[g.width][start:start + vals.numel()].view(
                 vals.shape)
             new = torch.where(live & (vals >= 0), new.to(vals.dtype), vals)
-            region[slots, :vals.shape[1]] = new
+            region[:, slots, :vals.shape[2]] = new
         return ids_recv, (pending if update else None)
 
     # ----------------------------------------------------------- observability
@@ -1128,10 +1143,11 @@ class DistributedEmbedding:
     def step_metrics(self, residuals, out_dtype=None
                      ) -> Dict[str, torch.Tensor]:
         """Exchange and overflow metrics of one forward from its
-        residuals (JAX's ``step_metrics``): a few sums over tensors the
-        step holds and tallies of the static plan, each a ``[1]`` tensor
-        on the residuals' device (world 1; the trainer adds the norms,
-        loss, step and sentinels):
+        residuals (JAX's ``step_metrics``): a few sums over the id block
+        this rank received and tallies of this rank's plan rows, each a
+        ``[1]`` tensor on the residuals' device (the trainer adds the
+        norms, loss, step and sentinels, and at world > 1 gathers every
+        rank's into JAX's ``[world]`` vectors):
 
         * ``ids_routed`` (int32): live ids this rank received, the dense
           slots' static count plus the ragged totals clamped to capacity;
@@ -1147,9 +1163,6 @@ class DistributedEmbedding:
 
         ``out_dtype``: the exchanged activations' dtype (the trainer
         passes the cotangents'); default ``compute_dtype`` or float32."""
-        if self.world_size > 1:
-            raise NotImplementedError(
-                "step metrics at world > 1 are not ported yet: ROADMAP A7b")
         _, ids_recv, encs, b = residuals
         plan = self._get_plan(list(encs), b)
         world, my, dev = self.world_size, self.rank, ids_recv.device
@@ -1214,13 +1227,13 @@ class DistributedEmbedding:
         rows the forward routed and whether each is live, over every
         group of that width in plan order (``residuals``: the second
         output of :meth:`forward_with_residuals`, or a list of them, whose
-        streams concatenate). A dense slot's id is live when it lies in
-        its table and the slot is live; a ragged slot's position also
-        when it lies within the slot's claimed values."""
-        if self.world_size > 1:
-            raise NotImplementedError(
-                "access telemetry at world > 1 is not ported yet: ROADMAP "
-                "A7b")
+        streams concatenate; each group's ids sender-major, as received).
+        A dense slot's id is live when it lies in its table slice and the
+        slot is live; a ragged slot's position also when it lies within
+        the slot's claimed values. On a row-sliced slot the id is first
+        made local to the slice (its row base subtracted), so each id is
+        counted on exactly the slice that owns it (JAX's
+        ``update_telemetry``)."""
         res_list = ([residuals] if residuals and residuals[0] == "dist"
                     else list(residuals))
         world = self.world_size
@@ -1229,13 +1242,10 @@ class DistributedEmbedding:
             _, ids_recv, encs, b = res
             plan = self._get_plan(list(encs), b)
             for gi, g in enumerate(plan.groups):
-                if plan.rsliced[gi].any():
-                    raise NotImplementedError(
-                        "telemetry of row-sliced slots is not ported yet: "
-                        "ROADMAP A9")
                 dev = ids_recv.device
                 rows, roff, _, _ = self._plan_meta(plan, gi, dev)
                 valid, _ = self._plan_bwd_meta(plan, gi, dev)
+                rbase = self._plan_rbase(plan, gi, dev)
                 region = ids_recv[:, g.goff:g.goff + g.n * g.blen]
                 if g.kind == "d":
                     ids = region.reshape(world, g.n, b, g.hot)
@@ -1246,6 +1256,8 @@ class DistributedEmbedding:
                     tot = r3[:, :, g.hot:g.hot + b].sum(dim=2,
                                                         dtype=torch.int32)
                     per_slot = (slice(None), slice(None), None)
+                if rbase is not None:
+                    ids = ids - rbase[None][per_slot]
                 live = (ids >= 0) & (ids < rows[None][per_slot])
                 if valid is not None:
                     live = live & valid[None][per_slot]

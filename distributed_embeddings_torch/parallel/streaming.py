@@ -1,6 +1,6 @@
 """Streaming vocabularies: frequency-gated admission and approximate-LFU
 eviction for capacity-bounded dynamic tables (counterpart of
-``distributed_embeddings_tpu/parallel/streaming.py``), at world 1.
+``distributed_embeddings_tpu/parallel/streaming.py``).
 
 A table whose config carries ``"streaming": {"capacity": C, "buckets":
 B}`` (with ``input_dim == C + B``) serves external ids from an unbounded
@@ -16,13 +16,17 @@ id space out of its ``C + B`` slab rows:
   estimate reaches the occupant's recorded frequency plus
   ``evict_margin``; the evicted id falls back to its bucket.
 
-The state is a plain dict of tensors with JAX's keys, shapes and dtypes,
-every leaf with a leading ``[world]`` axis: ``steps`` (int32 ``[w, 1]``),
-the cumulative ``admitted``/``evicted``/``bucket_ids``/``hit_ids``
-(float32 ``[w, 1]``) and, per width slab holding a streaming table,
-``"w<width>"``: ``slot_fp`` (31-bit fingerprint per logical slab row,
-:data:`SLOT_FREE` when free), ``slot_freq`` (the occupant's estimate)
-and ``cms`` (the admission sketch, ``[w, depth, buckets]``), int32.
+The state is a plain dict of tensors with JAX's keys and dtypes, every
+leaf with a leading axis of 1 (JAX's ``[world]`` axis at world 1; at
+world > 1 this rank's row of it, as each rank holds its own slabs):
+``steps`` (int32 ``[1, 1]``), the cumulative ``admitted``/``evicted``/
+``bucket_ids``/``hit_ids`` (float32 ``[1, 1]``) and, per width slab
+holding a streaming table, ``"w<width>"``: ``slot_fp`` (31-bit
+fingerprint per logical slab row, :data:`SLOT_FREE` when free),
+``slot_freq`` (the occupant's estimate) and ``cms`` (the admission
+sketch, ``[1, depth, buckets]``), int32. A rank that holds no streaming
+slot of a width keeps that width's state untouched; its ``steps`` still
+advance with the guard's verdict, as JAX's do.
 
 :func:`remap_width` runs on the hand-written kernel K16 (with K13 for
 the sketch fold) and :func:`commit` on K17 (``ops/streaming.py``); the
@@ -34,7 +38,9 @@ only reads the slot map; the commit, after the optimizer scatter and
 under the guard's verdict, is the only writer of the carried state, so a
 guard-skipped step leaves slot map, sketch, counters, slabs and moments
 bitwise unchanged. :func:`encode_state`, :func:`decode_state` and
-:func:`occupancy` are host functions (numpy).
+:func:`occupancy` are host functions (numpy); at world > 1
+:func:`occupancy` gathers every rank's state first (a collective), and
+the codec waits for the world > 1 checkpoints (ROADMAP A7b).
 """
 
 from __future__ import annotations
@@ -112,18 +118,17 @@ def init_streaming(de, config: Optional[StreamingConfig] = None,
                    device="cuda") -> Dict[str, Any]:
     """Fresh streaming state for ``de`` on ``device`` (the card unless
     the caller asks for the CPU; raises without one): every leaf carries
-    the leading ``[world]`` axis. Raises ``ValueError`` when no table
-    declares a ``"streaming"`` entry."""
+    a leading axis of 1 (at world > 1, this rank's row). Raises
+    ``ValueError`` when no table declares a ``"streaming"`` entry."""
     if not de.streaming_tables:
         raise ValueError(
             "init_streaming: no table declares a 'streaming' config "
             "entry — nothing to carry")
     config = config or config_from_env()
     dev = resolve_device(device)
-    world = de.world_size
 
     def stacked(shape, dtype, fill=0):
-        return torch.full((world,) + shape, fill, dtype=dtype, device=dev)
+        return torch.full((1,) + shape, fill, dtype=dtype, device=dev)
 
     state: Dict[str, Any] = {"steps": stacked((1,), torch.int32)}
     for name in COUNTERS:
@@ -267,6 +272,8 @@ def commit(de, params: Dict[str, torch.Tensor], pending, state,
     widths = sorted(pending)
     dev = state["steps"].device
     totals = torch.zeros(4, dtype=torch.float32, device=dev)
+    if not widths:  # a rank with no streaming slot: only the step count
+        state["steps"].add_(1 if enable is None else enable.to(torch.int32))
     counters = [state[name] for name in COUNTERS]
     for i, w in enumerate(widths):
         staged, r = pending[w]
@@ -292,6 +299,13 @@ def _host(state):
                 if isinstance(v, torch.Tensor) else np.array(v), state)
 
 
+def _single_world(de, what: str) -> None:
+    if de.world_size > 1:
+        raise NotImplementedError(
+            f"{what} at world > 1 belongs to the world > 1 checkpoints, "
+            "not ported yet: ROADMAP A7b")
+
+
 def _table_home(de, tid: int) -> Tuple[int, int, int]:
     """``(rank, slab row offset, width)`` of an (unsliced) streaming
     table."""
@@ -309,7 +323,8 @@ def encode_state(de, state) -> Dict[str, np.ndarray]:
     (JAX's keys): per streaming table its slot fingerprints and
     frequencies as ``[capacity]`` arrays, each width's sketch, the
     per-rank counters and the world size. :func:`decode_state` inverts
-    it under any plan whose logical tables match."""
+    it under any plan whose logical tables match (world 1)."""
+    _single_world(de, "encode_state")
     host = _host(state)
     out: Dict[str, np.ndarray] = {
         "world": np.asarray([de.world_size], np.int32),
@@ -335,7 +350,8 @@ def decode_state(de, template, encoded: Optional[Dict[str, np.ndarray]]):
     drift), gives a pristine :func:`fresh_like` state: streaming state
     never blocks a restore (cold slot maps only send ids back to their
     buckets). Sketches and counters saved at another world size or
-    sketch geometry are reset, with a warning."""
+    sketch geometry are reset, with a warning (world 1)."""
+    _single_world(de, "decode_state")
     log = logging.getLogger(__name__)
     fresh = _host(fresh_like(template))
     state = _host(fresh_like(template))
@@ -388,9 +404,14 @@ def decode_state(de, template, encoded: Optional[Dict[str, np.ndarray]]):
 
 
 def occupancy(de, state) -> Dict[str, Any]:
-    """Host summary of a streaming state: per-table slot occupancy and
-    the cumulative admission / eviction / bucket / hit counters."""
-    host = _host(state)
+    """Host summary of a streaming state: per-table slot occupancy (read
+    on the rank that holds the table, :func:`_table_home`) and the
+    cumulative admission / eviction / bucket / hit counters summed over
+    the ranks. At world > 1 a rank's own state is gathered first
+    (``analysis.telemetry.gather_state``: every rank must call)."""
+    from ..analysis import telemetry as tel
+
+    host = tel._host_state(de, state)
     tables = []
     for tid, (cap, nb) in sorted(de.streaming_tables.items()):
         r, roff, w = _table_home(de, tid)

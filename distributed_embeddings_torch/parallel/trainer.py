@@ -33,12 +33,14 @@ guard's select fused.
 
 Access telemetry (``telemetry=``, ``analysis/telemetry.py``) and
 streaming vocabularies (``dynamic=``, ``parallel/streaming.py``) ride
-through both as extra arguments and results, telemetry first (world 1).
-The instrumented step (``with_metrics`` / ``DETPU_OBS=1``) returns the
-:data:`~..utils.obs.STEP_METRIC_KEYS` dict beside the loss and state
-(world 1). Not yet ported, each raising with its ROADMAP item: step
-metrics, telemetry and streaming at world > 1, and microbatch schedules
-(A7b).
+through both as extra arguments and results, telemetry first; at world
+> 1 each rank carries its own row of either state. The instrumented step
+(``with_metrics`` / ``DETPU_OBS=1``) returns the
+:data:`~..utils.obs.STEP_METRIC_KEYS` dict beside the loss and state; at
+world > 1 every rank gets every rank's metrics, gathered in rank order
+into JAX's ``[world]`` and ``[world, n_tables]`` vectors by one
+collective. Not yet ported: microbatch schedules (the pipelined step,
+A7b).
 """
 
 from __future__ import annotations
@@ -52,6 +54,7 @@ from ..analysis import telemetry as tel
 from ..ops.embedding_lookup import Ragged, SparseIds
 from ..ops.grad_health import grad_health
 from ..utils import obs
+from . import bootstrap
 from . import grads as grads_mod
 from . import streaming as smod
 from .dist_embedding import MpInputs
@@ -149,16 +152,23 @@ def _check_mesh(de, mesh):
             "exchange over DistributedEmbedding(process_group=...)")
 
 
-def _not_ported(de, with_metrics, mesh, tel_cfg=None, dyn_cfg=None):
-    _check_mesh(de, mesh)
-    if de.world_size > 1 and (tel_cfg is not None or dyn_cfg is not None):
-        raise NotImplementedError(
-            "telemetry and streaming vocabularies at world > 1 are not "
-            "ported yet: ROADMAP A7b")
-    if with_metrics and de.world_size > 1:
-        raise NotImplementedError(
-            "step metrics (with_metrics / DETPU_OBS=1) at world > 1 are "
-            "not ported yet: ROADMAP A7b")
+def _gather_metrics(de, metrics) -> dict:
+    """Every rank's metrics in rank order on every rank (JAX's
+    ``out_specs=P(axis)``): a ``[1]`` entry becomes ``[world]``, a ``[1,
+    n_tables]`` one ``[world, n_tables]``. ONE all-gather of one float32
+    buffer; the int32 entries travel as their bits. Stays on the card."""
+    keys = list(metrics)
+    flat = torch.cat([metrics[k].reshape(-1).view(torch.float32)
+                      for k in keys])
+    rows = bootstrap.all_gather(flat, de.process_group, de.world_size)
+    out, pos = {}, 0
+    for k in keys:
+        v = metrics[k]
+        n = v.numel()
+        out[k] = rows[:, pos:pos + n].contiguous().view(v.dtype).reshape(
+            (de.world_size,) + tuple(v.shape[1:]))
+        pos += n
+    return out
 
 
 def _apply_dense_and_assemble(state, dense_grads, dense_tx, ok, nan_guard):
@@ -200,15 +210,15 @@ def _hybrid_local_step(de, loss_fn, dense_tx, emb_optimizer, lr_schedule,
     :func:`make_hybrid_train_loop`): embedding forward, one backward
     giving the dense gradients and the embedding-output cotangents,
     both optimizer updates, step counter bump. Returns ``(loss, state)``,
-    or ``(loss, state, metrics)`` with ``with_metrics`` (world 1).
+    or ``(loss, state, metrics)`` with ``with_metrics``.
 
     With ``telemetry_cfg``, the forward's routed ids fold into ``telem``
-    (the stacked telemetry state, in place) right after the forward,
+    (this rank's telemetry state, in place) right after the forward,
     whatever the guard decides: as in the JAX step, a skipped step still
     counts the ids it routed.
 
     With ``streaming_cfg``, the forward remaps the streaming tables'
-    external ids through the slot map of ``sstate`` (the stacked
+    external ids through the slot map of ``sstate`` (this rank's
     streaming state) and stages the admissions; they commit, in place,
     after the sparse apply and under the guard's verdict
     (:func:`~.streaming.commit`): a skipped step leaves the slot map,
@@ -226,7 +236,11 @@ def _hybrid_local_step(de, loss_fn, dense_tx, emb_optimizer, lr_schedule,
     At world > 1 the loss, the guard's probe and the dense gradients are
     means over the ranks (one all-reduce), so the returned loss is the
     global batch's and every rank takes the same verdict; the sparse
-    apply scales the local cotangents by ``1/world``.
+    apply scales the local cotangents by ``1/world``. K21 then runs
+    twice, when the guard or the metrics need it: once on the local
+    cotangents (the probe, the sentinels and ``emb_grad_norm``) and once
+    on the averaged dense gradients (the guard's dense energy and
+    ``dense_grad_norm``); the metrics of every rank are gathered after.
     """
     with torch.no_grad():
         if streaming_cfg is not None:
@@ -251,8 +265,9 @@ def _hybrid_local_step(de, loss_fn, dense_tx, emb_optimizer, lr_schedule,
     n_out = len(out_grads)
     health = probe = dense_sq = None
     if de.world_size > 1:
-        if nan_guard:
-            probe = 0.0 * grad_health(out_grads)[0].sum()
+        if nan_guard or with_metrics:
+            health = grad_health(list(out_grads))
+            probe = 0.0 * health[0].sum()
         # the JAX step's pmeans of the loss, the dense gradients and the
         # probe, as one all-reduce: a NaN on any rank reaches every rank
         # and all skip together
@@ -262,8 +277,10 @@ def _hybrid_local_step(de, loss_fn, dense_tx, emb_optimizer, lr_schedule,
         loss, dense_grads = means[0], means[len(extra):]
         if nan_guard:
             probe = means[1]
-            dense_sq = (grad_health(dense_grads)[0].sum() if dense_grads
-                        else torch.zeros_like(probe))
+        if health is not None:
+            if dense_grads:  # [3, n_out + n_dense], as at world 1
+                health = torch.cat([health, grad_health(dense_grads)], 1)
+            dense_sq = health[0, n_out:].sum()
     elif nan_guard or with_metrics:
         health = grad_health(list(out_grads) + dense_grads)
         probe = 0.0 * health[0, :n_out].sum()
@@ -294,10 +311,13 @@ def _hybrid_local_step(de, loss_fn, dense_tx, emb_optimizer, lr_schedule,
                                           nan_guard)
     if not with_metrics:
         return loss, new_state
-    metrics = de.step_metrics(
-        res, out_dtype=out_grads[0].dtype if out_grads else None)
-    return loss, new_state, _finish_metrics(
-        de, metrics, health, n_out, loss, ok, state, sstats, lr)
+    metrics = _finish_metrics(
+        de, de.step_metrics(
+            res, out_dtype=out_grads[0].dtype if out_grads else None),
+        health, n_out, loss, ok, state, sstats, lr)
+    if de.world_size > 1:
+        metrics = _gather_metrics(de, metrics)
+    return loss, new_state, metrics
 
 
 def _with_aux_signature(core, tel_on: bool, dyn_on: bool):
@@ -363,12 +383,13 @@ def make_hybrid_train_step(de, loss_fn: Callable, dense_tx, emb_optimizer,
         place. A step built without a streaming table raises
         ``ValueError`` when called.
       mesh: ``None`` or the layer's process group (the JAX step's mesh).
-      with_metrics: instrument the step (world 1): it then returns
-        ``(loss, state, metrics[, telem][, stream])``, ``metrics`` the
+      with_metrics: instrument the step: it then returns ``(loss, state,
+        metrics[, telem][, stream])``, ``metrics`` the
         :data:`~..utils.obs.STEP_METRIC_KEYS` dict (with a streaming
-        step, :data:`~..utils.obs.STREAMING_METRIC_KEYS` too) of ``[1]``
-        tensors on the card, the ``table_*`` sentinels ``[1, n_tables]``.
-        Nothing is read on the host. ``None`` follows ``DETPU_OBS``.
+        step, :data:`~..utils.obs.STREAMING_METRIC_KEYS` too) of
+        ``[world]`` tensors on the card (every rank's, in rank order),
+        the ``table_*`` sentinels ``[world, n_tables]``. Nothing is read
+        on the host. ``None`` follows ``DETPU_OBS``.
 
     The state's slabs and dense parameters are updated in place (the
     JAX step donates them); the returned state holds the same tensors.
@@ -379,7 +400,7 @@ def make_hybrid_train_step(de, loss_fn: Callable, dense_tx, emb_optimizer,
         nan_guard = obs.nanguard_enabled()
     tel_cfg = tel.resolve_config(telemetry)
     dyn_cfg = smod.resolve_config(dynamic)
-    _not_ported(de, with_metrics, mesh, tel_cfg, dyn_cfg)
+    _check_mesh(de, mesh)
 
     def core(state: HybridTrainState, cat_inputs, batch, aux):
         telem = aux[0] if tel_cfg is not None else None
@@ -441,8 +462,8 @@ def make_hybrid_train_loop(de, loss_fn: Callable, dense_tx, emb_optimizer,
     ``with_metrics`` (``None`` follows ``DETPU_OBS``) instruments every
     step: the loop then returns ``(losses, state, metrics[, telem][,
     stream])``, each metric stacked along a leading step axis (``[K,
-    1]``; the sentinels ``[K, 1, n_tables]``), as JAX's scan stacks
-    them."""
+    world]``; the sentinels ``[K, world, n_tables]``), as JAX's scan
+    stacks them."""
     if with_metrics is None:
         with_metrics = obs.metrics_enabled()
     step = make_hybrid_train_step(
@@ -511,14 +532,15 @@ def make_hybrid_eval_step(de, pred_fn: Callable, mesh=None, dynamic=None):
     through the slot map READ-ONLY: admitted ids read their slots,
     everything else its shared bucket; nothing is admitted and the state
     is never written, so interleaved eval leaves the training trajectory
-    alone (world 1). At world > 1 every rank calls with its rows of the
-    batch and gets ITS predictions (``bootstrap.to_host`` gathers them);
+    alone. At world > 1 every rank calls with its rows of the batch (and
+    its streaming state) and gets ITS predictions (``bootstrap.to_host``
+    gathers them);
     ``mesh`` is ``None`` or the layer's process group. The JAX version's
     ``donate_inputs`` is an XLA buffer-reuse knob with no counterpart
     here.
     """
     dyn_cfg = smod.resolve_config(dynamic)
-    _not_ported(de, False, mesh, dyn_cfg=dyn_cfg)
+    _check_mesh(de, mesh)
 
     if dyn_cfg is None:
         def eval_step(state: HybridTrainState, cat_inputs, batch):

@@ -29,7 +29,7 @@ Nothing here imports JAX: the arrays arrive as numpy.
 
 from __future__ import annotations
 
-from typing import Any, Mapping, Sequence
+from typing import Any, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -287,29 +287,48 @@ def _nested_to_numpy(state: Mapping[str, Any]) -> dict:
             else v.detach().cpu().numpy().copy() for k, v in state.items()}
 
 
-def telemetry_state_from_jax(tree: Mapping[str, Any],
-                             device="cuda") -> dict:
+def _rank_rows(tree: Mapping[str, Any], rank: Optional[int]) -> Mapping:
+    """``rank``'s ``[1, ...]`` row of every leaf of a ``[world, ...]``
+    tree (``None``: the tree as it is)."""
+    if rank is None:
+        return tree
+    return {k: _rank_rows(v, rank) if isinstance(v, Mapping)
+            else np.asarray(v)[int(rank):int(rank) + 1]
+            for k, v in tree.items()}
+
+
+def telemetry_state_from_jax(tree: Mapping[str, Any], device="cuda",
+                             rank: Optional[int] = None) -> dict:
     """The port's telemetry state (``analysis/telemetry.py``) from a JAX
-    one given as numpy (the same nested dict), copied to ``device``."""
-    return _nested_from_numpy(tree, device)
+    one given as numpy (the same nested dict), copied to ``device``; at
+    world > 1 ``rank`` picks that rank's ``[1, ...]`` row of JAX's
+    ``[world, ...]`` leaves (the state the rank carries)."""
+    return _nested_from_numpy(_rank_rows(tree, rank), device)
 
 
 def telemetry_state_to_numpy(state: Mapping[str, Any]) -> dict:
     """A telemetry state as a nested dict of numpy arrays (host copies),
-    the form the JAX package's state takes through ``np.asarray``."""
+    the form the JAX package's state takes through ``np.asarray``; a
+    rank's state gives its ``[1, ...]`` row (the inverse of
+    :func:`telemetry_state_from_jax` with ``rank=``;
+    ``analysis.telemetry.gather_state`` gives every rank's)."""
     return _nested_to_numpy(state)
 
 
-def streaming_state_from_jax(tree: Mapping[str, Any],
-                             device="cuda") -> dict:
+def streaming_state_from_jax(tree: Mapping[str, Any], device="cuda",
+                             rank: Optional[int] = None) -> dict:
     """The port's streaming state (``parallel/streaming.py``) from a JAX
     one given as numpy (the same nested dict: ``steps`` int32, the four
     counters float32, per width ``slot_fp``/``slot_freq``/``cms``
-    int32), copied to ``device``."""
-    return _nested_from_numpy(tree, device)
+    int32), copied to ``device``; at world > 1 ``rank`` picks that
+    rank's ``[1, ...]`` row."""
+    return _nested_from_numpy(_rank_rows(tree, rank), device)
 
 
 def streaming_state_to_numpy(state: Mapping[str, Any]) -> dict:
     """A streaming state as a nested dict of numpy arrays (host copies),
-    the form the JAX package's state takes through ``np.asarray``."""
+    the form the JAX package's state takes through ``np.asarray``; a
+    rank's state gives its ``[1, ...]`` row (the inverse of
+    :func:`streaming_state_from_jax` with ``rank=``;
+    ``analysis.telemetry.gather_state`` gives every rank's)."""
     return _nested_to_numpy(state)

@@ -4,8 +4,9 @@ of the parts of ``distributed_embeddings_tpu/utils/obs.py`` the port
 calls): the two readers ``make_hybrid_train_step`` and
 ``make_hybrid_train_loop`` call (read when a step is BUILT), the key
 tuples of the instrumented step's metrics dict (the port's own copy of
-JAX's), :class:`MetricsLogger`, and the counters and structured events
-the checkpoint codec and the fault points record."""
+JAX's), :func:`summarize` of one metrics dict, :class:`MetricsLogger`,
+and the counters and structured events the checkpoint codec and the
+fault points record."""
 
 from __future__ import annotations
 
@@ -24,10 +25,10 @@ OBS_ENV = "DETPU_OBS"
 NANGUARD_ENV = "DETPU_NANGUARD"
 
 #: Keys of the instrumented step's metrics dict (``with_metrics=True`` /
-#: ``DETPU_OBS=1``). Every value is a ``[1]`` tensor at world 1 (JAX's
-#: per-rank ``[world]`` vector), except the three per-table health
-#: sentinels (``table_*``), which are ``[1, n_tables]``; the train loop
-#: stacks each along a leading step axis.
+#: ``DETPU_OBS=1``). Every value is a per-rank ``[world]`` tensor (JAX's
+#: per-rank vector; ``[1]`` at world 1), except the three per-table
+#: health sentinels (``table_*``), which are ``[world, n_tables]``; the
+#: train loop stacks each along a leading step axis.
 STEP_METRIC_KEYS = (
     "ids_routed",        # live (non-padding) ids this rank received
     "id_overflow",       # ragged ids lost to static-capacity truncation
@@ -126,6 +127,42 @@ def record_fault(point: str) -> None:
 # --------------------------------------------------------- host collection
 
 
+def summarize(metrics: Dict[str, Any]) -> Dict[str, Any]:
+    """Host scalar summary of one step-metrics dict (JAX's
+    ``obs.summarize``): per-rank vectors reduce to totals (sums for
+    counts and bytes, the max for overflow, fractions, norms, skips and
+    the table sentinels), other entries to their first element; a vector
+    of more than one entry also reports its ``<key>_p50`` and
+    ``<key>_p95``. Tensors are read back here."""
+    import numpy as np
+
+    def host(v):
+        if hasattr(v, "detach"):
+            v = v.detach().cpu().numpy()
+        return np.asarray(v).reshape(-1)
+
+    out: Dict[str, Any] = {}
+    for k in STEP_METRIC_KEYS + STREAMING_METRIC_KEYS:
+        if k not in metrics:
+            continue
+        v = host(metrics[k])
+        if v.size == 0:
+            continue
+        if k in ("ids_routed", "invalid_id_count", "id_a2a_bytes",
+                 "out_a2a_bytes", "grad_a2a_bytes"
+                 ) or k in STREAMING_METRIC_KEYS:
+            out[k] = float(v.sum())
+        elif k in ("id_overflow", "out_pad_frac", "emb_grad_norm",
+                   "skipped_steps") or k in TABLE_HEALTH_KEYS:
+            out[k] = float(v.max())
+        else:
+            out[k] = float(v[0])
+        if v.size > 1:
+            out[f"{k}_p50"] = float(np.percentile(v, 50))
+            out[f"{k}_p95"] = float(np.percentile(v, 95))
+    return out
+
+
 class MetricsLogger:
     """Fsynced JSONL sidecar of step metrics and counters (JAX's
     ``MetricsLogger``): every record is one JSON line, written, flushed
@@ -133,8 +170,8 @@ class MetricsLogger:
     leaves every earlier record parseable. Records:
 
     * ``{"section": "step_metrics", "step": N, "metrics": {...}}`` from
-      :meth:`log_step`; tensors are read back and listified (``[1]``
-      vectors stay vectors);
+      :meth:`log_step`; tensors are read back and listified (the
+      per-rank ``[world]`` vectors stay vectors);
     * ``{"section": "counters", "counters": {...}}`` from
       :meth:`log_counters`: the process counters."""
 

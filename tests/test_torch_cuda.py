@@ -4765,3 +4765,110 @@ def test_row_slice_records_replay_in_a_cuda_graph(cuda_device):
         torch.cuda.synchronize()
         assert all(torch.equal(_bits(x), _bits(y))
                    for x, y in zip(outs, plain(*fresh)))
+
+
+# ------------------------------------------------ world > 1 plan rows (K13-K16)
+
+
+def _rank_layer(configs, rank, **kw):
+    """A world-8 layer that plans as ``rank`` does (no process group: no
+    collective runs)."""
+    de = DistributedEmbedding(configs, 8, **kw)
+    de._rank = rank
+    return de
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rank", [1, 6])
+def test_world8_width_fold_on_a_rank_plan_row(cuda_device, rank):
+    """A width's fold (K13, K14's pool and K15) on the id stream a world-8
+    rank's plan row gives (``telemetry_streams`` of a received block
+    ``[8, l_max]``: each group's positions sender-major, a row-sliced
+    group's ids made local to this rank's slice), bit-exact to the plain
+    fold; ids outside the rank's slice are not live."""
+    from distributed_embeddings_torch.ops import sketch as sk
+
+    configs = ([{"input_dim": 4000, "output_dim": 16} for _ in range(2)]
+               + [{"input_dim": 300 + 7 * i, "output_dim": 16,
+                   "combiner": "sum" if i % 2 else None}
+                  for i in range(6)])
+    de = _rank_layer(configs, rank, row_slice=20_000)
+    assert de.strategy.row_sliced_tables == {0, 1}
+    b = 8192
+    encs = [("d", 1, 1)] * 2 + [("d", 2 if i % 2 else 1, 1) for i in range(6)]
+    plan = de._get_plan(encs, b)
+    assert any(plan.rsliced[gi][rank].any() for gi in range(len(plan.groups)))
+    rng = np.random.default_rng(rank)
+    block = torch.from_numpy(rng.integers(-3, 4003, (8, plan.l_max))
+                             .astype(np.int32)).to(cuda_device)
+    streams = de.telemetry_streams(("dist", block, tuple(encs), b))
+    ids, live = streams[16]
+    assert 0 < int(live.sum()) < live.numel()
+    ws = _fold_state(rng, 4, 2048, 32, cuda_device)
+    ps = {k: v.clone() for k, v in ws.items()}
+    tot, ptot = (torch.empty(1, device=cuda_device) for _ in range(2))
+    sk.fold_ids(ws, ids, live, 128, tot, True)
+    sk.fold_ids_plain(ps, ids, live, 128, ptot, True)
+    for k in ws:
+        assert torch.equal(ws[k], ps[k]), k
+    assert torch.equal(tot, ptot)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("is64", [False, True])
+def test_world8_streaming_remap_on_a_rank_plan_row(cuda_device, is64):
+    """K16's update on the streaming slots a world-8 rank's plan row
+    names, over every sender's block of a received ``[8, l_max]`` block
+    (sender-major), bit-exact to its plain version: the remapped block
+    (other slots untouched), the staged sketch and the claims; the second
+    step, after a commit, hits the slot map."""
+    from distributed_embeddings_torch.parallel import (StreamingConfig,
+                                                       init_streaming)
+    from distributed_embeddings_torch.parallel import streaming as smod
+    from distributed_embeddings_torch.ops import streaming as sops
+
+    configs = ([{"input_dim": 200 + i, "output_dim": 16} for i in range(6)]
+               + [{"input_dim": 5000 + 300, "output_dim": 16,
+                   "streaming": {"capacity": 5000, "buckets": 300}},
+                  {"input_dim": 64 + 8, "output_dim": 16,
+                   "streaming": {"capacity": 64, "buckets": 8}}])
+    owner = next(r for r, t in enumerate(
+        DistributedEmbedding(configs, 8).strategy.table_ids_list) if 6 in t)
+    de = _rank_layer(configs, owner)
+    b = 4096
+    encs = [("d", 1, 1)] * 8
+    plan = de._get_plan(encs, b)
+    cfg = StreamingConfig(admit_min_count=2, evict_margin=1, depth=4,
+                          buckets=4096)
+    ss = smod.local_state(init_streaming(de, cfg, device=cuda_device))
+    slab = {"w16": torch.zeros((de.rows_cap[16], 16), device=cuda_device)}
+    rng = np.random.default_rng(int(is64))
+    dtype = np.int64 if is64 else np.int32
+    for step in range(2):
+        ext = (rng.zipf(1.3, (8, plan.l_max)) + 10 ** 6).astype(dtype)
+        if is64:
+            ext[:, ::3] += 2 ** 33
+        block = torch.from_numpy(ext).to(cuda_device)
+        got_blk, got = de._streaming_remap(plan, block.clone(), (cfg, ss))
+        real = smod.remap_stage
+        smod.remap_stage = sops.remap_stage_plain
+        try:
+            want_blk, want = de._streaming_remap(plan, block.clone(),
+                                                 (cfg, ss))
+        finally:
+            smod.remap_stage = real
+        assert torch.equal(got_blk, want_blk)
+        streaming = torch.zeros(plan.l_max, dtype=torch.bool)
+        for gi, g in enumerate(plan.groups):
+            meta = de._streaming_plan_arrays(plan, gi, cuda_device)
+            for k in ([] if meta is None else meta[0].tolist()):
+                streaming[g.goff + k * g.blen:g.goff + (k + 1) * g.blen] = 1
+        changed = (got_blk != block).cpu()
+        assert changed.any() and not changed[:, ~streaming].any()
+        (gs, gr), (ws, wr) = got[16], want[16]
+        assert torch.equal(gs, ws)
+        for f in sops.Remap._fields:
+            g, w = getattr(gr, f), getattr(wr, f)
+            assert (g is None and w is None) or torch.equal(g, w), f
+        smod.commit(de, slab, got, ss)
+    assert int(ss["hit_ids"]) > 0 and int(ss["admitted"]) > 0

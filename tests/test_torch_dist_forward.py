@@ -500,11 +500,17 @@ def test_descriptor_units_follow_alignment():
 
 
 def test_world8_paths_not_ported_raise():
-    """What of world > 1 waits (ROADMAP A7b) raises, naming it; a world-8
-    layer outside a process group plans but cannot run."""
+    """What of world > 1 waits (ROADMAP A7b) raises, naming it: the
+    serving runtime, the checkpoints, the streaming state's codec and the
+    pipelined step's ``"serve"`` streaming form. The instrumented,
+    telemetry and streaming steps build at world 8 with the arity of
+    world 1; a world-8 layer outside a process group plans but cannot
+    run."""
+    import inspect
+
     from distributed_embeddings_torch.parallel import (
         SGD, ServingRuntime, SparseSGD, make_hybrid_eval_step,
-        make_hybrid_train_step)
+        make_hybrid_train_loop, make_hybrid_train_step, streaming)
     from distributed_embeddings_torch.utils.checkpoint import (
         restore_train_state, save_train_state)
 
@@ -521,11 +527,17 @@ def test_world8_paths_not_ported_raise():
                                   [torch.zeros((2, 1), dtype=torch.int32)]
                                   * 8)
     args = (de, lambda *a: None, SGD(0.1), SparseSGD())
-    for kw in (dict(telemetry=True), dict(dynamic=True)):
-        with pytest.raises(NotImplementedError, match="A7b"):
-            make_hybrid_train_step(*args, **kw)
-    with pytest.raises(NotImplementedError, match="A7b"):
-        make_hybrid_eval_step(de, lambda *a: None, dynamic=True)
+    base = ["state", "cat_inputs", "batch"]
+    for kw, aux in ((dict(telemetry=True), ["telem"]),
+                    (dict(dynamic=True), ["stream"]),
+                    (dict(telemetry=True, dynamic=True, with_metrics=True),
+                     ["telem", "stream"]),
+                    (dict(with_metrics=True), [])):
+        step = make_hybrid_train_step(*args, **kw)
+        assert list(inspect.signature(step).parameters) == base + aux, kw
+        assert callable(make_hybrid_train_loop(*args, **kw))
+    ev = make_hybrid_eval_step(de, lambda *a: None, dynamic=True)
+    assert list(inspect.signature(ev).parameters) == base + ["stream"]
     with pytest.raises(NotImplementedError, match="A7b"):
         ServingRuntime(de, lambda *a: None, None)
     with pytest.raises(NotImplementedError, match="A7b"):
@@ -533,8 +545,15 @@ def test_world8_paths_not_ported_raise():
     with pytest.raises(NotImplementedError, match="A7b"):
         restore_train_state("/nonexistent", de, SparseSGD(), None, None,
                             device="cpu")
+    sde = DistributedEmbedding(configs[:7] + [
+        {"input_dim": 20, "output_dim": 4,
+         "streaming": {"capacity": 16, "buckets": 4}}], WORLD)
     with pytest.raises(NotImplementedError, match="A7b"):
-        de.telemetry_streams(("dist", None, (), 2))
+        sde._streaming_remap(None, None, (None, None, "serve"))
+    for fn in (lambda: streaming.encode_state(sde, {}),
+               lambda: streaming.decode_state(sde, {}, {})):
+        with pytest.raises(NotImplementedError, match="A7b"):
+            fn()
 
 
 def test_bootstrap_join_gives_up_and_backends_are_explicit(tmp_path):

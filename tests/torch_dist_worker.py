@@ -390,8 +390,255 @@ def case_glue(rank, world, spec):
         "init": {k: v[0].numpy() for k, v in a.items()}}
 
 
+class Linear(torch.nn.Module):
+    """A dense part of one weight ``w`` (the JAX tests' ``{"w": w}``)."""
+
+    def __init__(self, w):
+        super().__init__()
+        import numpy as np
+
+        self.w = torch.nn.Parameter(torch.from_numpy(
+            np.array(w, np.float32)))
+
+
+def loss_of(name):
+    """The instrumented cases' losses, each plus ``0 * sum(batch)`` (a
+    NaN batch makes the loss NaN):
+
+    * ``"proj"``: ``mean((concat(outs) @ w) ** 2)``;
+    * ``"sq"``: ``sum(mean(out ** 2)) * w``;
+    * ``"mean"``: ``sum(mean(out)) * mean(w)``."""
+
+    def f(m, outs, batch):
+        if name == "proj":
+            x = torch.cat([o.reshape(o.shape[0], -1).float() for o in outs],
+                          1)
+            loss = ((x @ m.w) ** 2).mean()
+        elif name == "sq":
+            loss = sum((o.float() ** 2).mean() for o in outs) * m.w
+        else:
+            loss = sum(o.float().mean() for o in outs) * m.w.mean()
+        return loss + batch.sum() * 0.0
+
+    return f
+
+
+def _np_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _np_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_np_tree(v) for v in tree)
+    return tree.detach().cpu().numpy().copy()
+
+
+def _hybrid_controls(de, rank, spec):
+    """The instrumented cases' controls (each must fail its bound):
+
+    * ``"stream_rank0"``: the streaming plan taken from rank 0's row on
+      every rank (the world-1 code);
+    * ``"metrics_reversed"``: the metrics gathered in reversed rank
+      order.
+
+    Returns a function that undoes the patch."""
+    from distributed_embeddings_torch.parallel import bootstrap
+
+    control = spec.get("control")
+    if control == "stream_rank0":
+        real = de._streaming_plan_arrays
+
+        def rank0(plan, gi, device):
+            mine, de._rank = de._rank, 0
+            try:
+                return real(plan, gi, device)
+            finally:
+                de._rank = mine
+
+        de._streaming_plan_arrays = rank0
+        return lambda: None
+    if control == "metrics_reversed":
+        real_gather = bootstrap.all_gather
+
+        def reversed_order(x, group, world_size):
+            return real_gather(x, group, world_size).flip(0)
+
+        bootstrap.all_gather = reversed_order
+        return lambda: setattr(bootstrap, "all_gather", real_gather)
+    return lambda: None
+
+
+def _stack_feeds(feeds):
+    """Per-step embedding inputs as the loop takes them: dense inputs
+    stacked along a leading step axis, or one stacked MpInputs."""
+    from distributed_embeddings_torch.parallel import MpInputs
+
+    if isinstance(feeds[0], MpInputs):
+        return MpInputs(packed=torch.stack([f.packed for f in feeds]),
+                        hots=feeds[0].hots,
+                        local_batch=feeds[0].local_batch)
+    return [torch.stack(x) for x in zip(*feeds)]
+
+
+def case_hybrid(rank, world, spec):
+    """The hybrid train step (or, with ``spec["loop"]``, the train loop)
+    with step metrics, telemetry and streaming as the spec asks, over
+    ``spec["steps"]`` (global inputs, this rank takes its rows or its
+    model-parallel block), from ``spec["tables"]`` and a dense weight
+    ``spec["w"]``, ``SparseSGD`` + ``SGD`` at ``spec["lr"]``. Returns the
+    losses, the metrics of every step, this rank's telemetry and
+    streaming states, its slabs, and the host summaries (collectives).
+    ``spec["nan_after"]``: then one more step with a NaN batch, reporting
+    whether every parameter, optimizer and streaming leaf kept its bits;
+    ``spec["eval"]``: then the eval step (read-only streaming) on the
+    last inputs, its predictions and whether the streaming state kept
+    its bits. ``spec["telemetry_off_twin"]``: also return the same steps
+    run without telemetry (losses and state). ``spec["telem_init"]`` /
+    ``spec["stream_init"]``: a JAX ``[world, ...]`` state (numpy) to
+    start from, this rank's row carried over by the converters."""
+    import numpy as np
+
+    from distributed_embeddings_torch.analysis import telemetry as tel
+    from distributed_embeddings_torch.parallel import (
+        SGD, HybridTrainState, SparseSGD, StreamingConfig, init_streaming,
+        make_hybrid_eval_step, make_hybrid_train_loop,
+        make_hybrid_train_step)
+    from distributed_embeddings_torch.parallel import streaming as smod
+    from distributed_embeddings_torch.utils.convert import (
+        streaming_state_from_jax, telemetry_state_from_jax)
+
+    de = _layer(spec, world)
+    _control_rbase(de, rank, spec)
+    undo = _hybrid_controls(de, rank, spec)
+    tcfg = (tel.TelemetryConfig(*spec["telemetry"])
+            if spec.get("telemetry") else None)
+    scfg = (StreamingConfig(*spec["dynamic"]) if spec.get("dynamic")
+            else None)
+    with_metrics = spec.get("with_metrics", False)
+    feeds = [_feed(de, s, rank, world) for s in spec["steps"]]
+    b = spec["local_batch"]
+    batch = torch.zeros(b)
+
+    def fresh():
+        params = de.set_weights(spec["tables"], device="cpu")
+        opt = SparseSGD()
+        dense = Linear(spec["w"])
+        return HybridTrainState(
+            emb_params=params, emb_opt_state=opt.init(params),
+            dense_params=dense,
+            dense_opt_state=SGD(spec["lr"]).init(list(dense.parameters())),
+            step=torch.zeros((), dtype=torch.int32))
+
+    def run(tcfg):
+        state = fresh()
+        aux = []
+        if tcfg is not None:
+            aux.append(
+                tel.init_telemetry(de, tcfg, device="cpu")
+                if spec.get("telem_init") is None else
+                telemetry_state_from_jax(spec["telem_init"], device="cpu",
+                                         rank=rank))
+        if scfg is not None:
+            aux.append(
+                init_streaming(de, scfg, device="cpu")
+                if spec.get("stream_init") is None else
+                streaming_state_from_jax(spec["stream_init"], device="cpu",
+                                         rank=rank))
+        args = (de, loss_of(spec["loss"]), SGD(spec["lr"]), SparseSGD())
+        kw = dict(lr_schedule=spec["lr"], with_metrics=with_metrics,
+                  nan_guard=spec.get("nan_guard", False), telemetry=tcfg,
+                  dynamic=scfg)
+        losses, metrics = [], []
+        if spec.get("loop"):
+            out = make_hybrid_train_loop(*args, **kw)(
+                state, _stack_feeds(feeds),
+                torch.zeros((len(feeds), b)), *aux)
+            losses = [float(x) for x in out[0]]
+            if with_metrics:
+                metrics = out[2]
+        else:
+            step = make_hybrid_train_step(*args, **kw)
+            for feed in feeds:
+                out = step(state, feed, batch, *aux)
+                state = out[1]
+                losses.append(float(out[0]))
+                if with_metrics:
+                    metrics.append(out[2])
+        state = out[1]
+        aux = list(out[3:] if with_metrics else out[2:])
+        return losses, metrics, state, aux, step if not spec.get(
+            "loop") else None
+
+    try:
+        losses, metrics, state, aux, step = run(tcfg)
+    finally:
+        undo()
+    telem = aux[0] if tcfg is not None else None
+    sstate = aux[-1] if scfg is not None else None
+    res = {"losses": losses, "metrics": _np_tree(metrics),
+           "slabs": {k: v[0].float().numpy().copy()
+                     for k, v in state.emb_params.items()},
+           "w": state.dense_params.w.detach().numpy().copy()}
+    if telem is not None:
+        res["telem"] = _np_tree(telem)
+        res["hot_rows"] = tel.hot_rows(de, telem)
+        res["load_balance"] = tel.load_balance(telem, de=de)
+        res["summary"] = tel.summarize_telemetry(de, telem)
+        gathered = tel.gather_state(de, telem)
+        if rank == 0:
+            res["gathered"] = gathered
+    if sstate is not None:
+        res["stream"] = _np_tree(sstate)
+        res["occupancy"] = smod.occupancy(de, sstate)
+    if spec.get("telemetry_off_twin"):
+        olosses, _, ostate, _, _ = run(None)
+        res["off_losses"] = olosses
+        res["same_state"] = all(
+            torch.equal(a, b) for a, b in zip(
+                pytree_leaves(state), pytree_leaves(ostate)))
+        res["same_loss_bits"] = [
+            np.float32(x).tobytes() for x in losses] == [
+            np.float32(x).tobytes() for x in olosses]
+    if spec.get("nan_after"):
+        before = [t.clone() for t in pytree_leaves((state, sstate))]
+        tsteps = None if telem is None else telem["steps"].clone()
+        out = step(state, feeds[-1], torch.full((b,), float("nan")),
+                   *aux)
+        res["nan_loss"] = float(out[0])
+        res["nan_unchanged"] = all(
+            torch.equal(a, b) for a, b in zip(
+                before, pytree_leaves((out[1], sstate)))
+            if a.dtype != torch.int32 or a.dim() != 0)
+        res["nan_step"] = int(out[1].step)
+        if with_metrics:
+            res["nan_metrics"] = _np_tree(out[2])
+        if telem is not None:
+            res["nan_telem_steps"] = int(telem["steps"]) - int(tsteps)
+    if spec.get("eval"):
+        before = [t.clone() for t in pytree_leaves(sstate)]
+        ev = make_hybrid_eval_step(
+            de, lambda m, outs, bt: torch.stack(
+                [o.float().reshape(o.shape[0], -1).sum(1) for o in outs], 1),
+            dynamic=scfg)
+        res["pred"] = ev(state, feeds[-1], batch, sstate).numpy()
+        res["eval_unchanged"] = all(torch.equal(a, b) for a, b in zip(
+            before, pytree_leaves(sstate)))
+    return res
+
+
+def pytree_leaves(tree):
+    """The tensor leaves of a state (a module's parameters included)."""
+    from torch.utils import _pytree as pytree
+
+    out = []
+    for leaf in pytree.tree_leaves(tree):
+        if isinstance(leaf, torch.nn.Module):
+            out += [p.detach() for p in leaf.parameters()]
+        elif isinstance(leaf, torch.Tensor):
+            out.append(leaf.detach())
+    return out
+
+
 CASES = {"forward": case_forward, "train": case_train, "dlrm": case_dlrm,
-         "mp_loop": case_mp_loop, "glue": case_glue}
+         "mp_loop": case_mp_loop, "glue": case_glue, "hybrid": case_hybrid}
 
 
 def serve(rank, world, store, inq, outq):
