@@ -364,6 +364,36 @@ Phases (any failure raises and the script exits non-zero):
       Its samples/s are those of 8 ranks time-sharing one H100 over
       gloo. ``python3 chip_smoke.py --world8f`` runs phases 1, 2 and 14f
       alone (to debug it; it prints no result).
+   g. the K-microbatch pipelined step (``schedule=pipelined_schedule(2)``;
+      run in the same rank processes after 14f): each rank's id, output
+      and cotangent exchanges stay in flight (gloo ``async_op``) under
+      the other microbatch's lookups and dense work:
+      a. 14f-a's model, batches, telemetry, metrics and guard with the
+         pipelined K = 2 step: 3 lockstep steps, each with the kernels,
+         from a copy of the same state through ``plain_kernels()``
+         (telemetry, streaming state and metric counts bitwise, slabs
+         within 14b's bounds) and, from another copy, the serialized
+         step on the kernels (losses, slabs and dense parameters within
+         JAX's rtol 2e-5 / atol 2e-6, the integer state and metric
+         counts bitwise); launches a rank a step checked (K16 read-only
+         once a microbatch and its update once on the ranks holding a
+         streaming table); a NaN batch on rank 5 skipped on every rank
+         with the state's bits kept and telemetry counting;
+      b. 14c's Criteo-1TB step (bf16, b=65,536 global), one layer
+         serialized and one pipelined over one state: one checked
+         pipelined step (K19/K20 bit-exact, launches a rank a step: K19,
+         K1, K20, K2 and K4 once a microbatch, K3 once a slab, K21
+         twice, K22 once), 2 warmup steps each, then 3 timed steps each
+         serialized, pipelined, pipelined, serialized (launches counted),
+         and 3 steps each with every phase scope timed (host ms and
+         CUDA-event ms by phase, the exchanges' waits among them);
+   And in the main process, on the DLRM state right after phase 6: c.
+   the world-1 DLRM step pipelined K = 2 beside the
+   serialized one, 10 timed steps each in turns (serialized, pipelined,
+   pipelined, serialized), launches counted (K19, K1, K20, K2 and K4
+   once a microbatch, K3, K21 and K22 once a step).
+   ``python3 chip_smoke.py --world8g`` runs phases 1, 2 and 14g-a/b
+   alone (to debug it; it prints no result).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Run from the root of a checkout:
@@ -7973,7 +8003,7 @@ def pack_checks(torch):
 
 
 def w8_model(torch, sizes, cst, compute_dtype, row_slice=None,
-             dp_input=True):
+             dp_input=True, schedule=None):
     from distributed_embeddings_torch.models import DLRMConfig
     from distributed_embeddings_torch.parallel import DistributedEmbedding
 
@@ -7986,7 +8016,8 @@ def w8_model(torch, sizes, cst, compute_dtype, row_slice=None,
                               strategy="comm_balanced",
                               column_slice_threshold=cst,
                               row_slice=row_slice, dp_input=dp_input,
-                              compute_dtype=compute_dtype)
+                              compute_dtype=compute_dtype,
+                              schedule=schedule)
     return cfg, de
 
 
@@ -8101,8 +8132,8 @@ def w8_rank_small(torch, rank, tmp):
         st = w8_small_state(torch, de, dense, tmp)
         real = exchange.exchange_grads
 
-        def dropped(de_, packed):
-            got = real(de_, packed)
+        def dropped(de_, packed, *a, **kw):
+            got = real(de_, packed, *a, **kw)
             got[W8_DROP_RANK].zero_()
             return got
 
@@ -8708,10 +8739,11 @@ W8F_STAGES = ("id_exchange", "lookup", "output_exchange", "telemetry",
               "apply_and_tallies", "metrics_gather", "tail")
 
 
-def w8f_small_model(torch):
+def w8f_small_model(torch, schedule=None):
     """14f-a's layer: 14b's capped tables, row-sliced (``row_slice``
     W8E_SMALL_RS), tables W8F_STREAM streaming (capacity + buckets = the
-    table's rows, a 17th of them buckets), ``comm_balanced``, fp32."""
+    table's rows, a 17th of them buckets), ``comm_balanced``, fp32 (14g-a
+    passes the pipelined schedule)."""
     from distributed_embeddings_torch.models import DLRMConfig
     from distributed_embeddings_torch.parallel import DistributedEmbedding
 
@@ -8728,7 +8760,7 @@ def w8f_small_model(torch):
         configs.append(c)
     de = DistributedEmbedding(configs, world_size=W8,
                               strategy="comm_balanced",
-                              row_slice=W8E_SMALL_RS)
+                              row_slice=W8E_SMALL_RS, schedule=schedule)
     return cfg, de
 
 
@@ -9336,11 +9368,474 @@ def w8f_results(torch, ranks):
     return launches, err, result
 
 
-def w8_rank(rank, store, tmp, results, parts=("b", "c", "e", "f")):
+# ------------------------------------------- the pipelined step (14g)
+
+W8G_K = 2                      # microbatches of the pipelined step
+W8G_SMALL_STEPS = 3            # 14g-a's lockstep steps
+W8G_STEPS = 3                  # timed steps a turn of 14g-b
+W1G_STEPS = 10                 # timed steps a turn of 14g-c
+#: JAX's pipelined-vs-serialized bounds (tests/test_pipeline.py)
+W8G_RTOL, W8G_ATOL = 2e-5, 2e-6
+#: the kernels the pipelined step launches once a microbatch (the rest
+#: once a step): the id blocks (K19), the lookups (K1; K8 and K10 on
+#: ragged groups), the lookup rows, the unpack and the cotangent pack
+#: (K20), the interaction (K2, K4) and the ragged cotangent rows (K9)
+PER_MICROBATCH = ("pack_ids", "gather_combine", "ragged_combine",
+                  "lengths_to_splits", "pack_columns", "dot_interact_fwd",
+                  "dot_interact_bwd", "ragged_grad")
+
+
+def pipelined_per_step(want, K=W8G_K):
+    """The serialized step's launches ``want`` as the pipelined step's
+    with K microbatches: PER_MICROBATCH K times as often, the rest (the
+    sparse apply a slab, the telemetry fold a width, K16's update and
+    K17, K21, K22) as often."""
+    return {k: v * K if k in PER_MICROBATCH else v for k, v in want.items()}
+
+
+def allclose(torch, a, b):
+    """Within JAX's pipelined-vs-serialized bounds (W8G_RTOL, W8G_ATOL)."""
+    return bool(torch.allclose(a.float(), b.float(), rtol=W8G_RTOL,
+                               atol=W8G_ATOL))
+
+
+def w8g_rank_small(torch, rank, tmp):
+    """14g-a on one rank (see main's docstring, phase 14g-a)."""
+    from distributed_embeddings_torch.analysis import telemetry as tel
+    from distributed_embeddings_torch.models import DLRMDense
+    from distributed_embeddings_torch.parallel import (
+        SGD, SparseSGD, init_streaming, make_hybrid_train_step)
+    from distributed_embeddings_torch.parallel.schedule import (
+        pipelined_schedule)
+
+    cfg, de = w8f_small_model(
+        torch, schedule=pipelined_schedule(W8G_K, streaming=True))
+    _, de_s = w8f_small_model(torch)
+    check(de.schedule.microbatches == W8G_K
+          and de_s.schedule.microbatches == 1, "world 8 g: schedules "
+          f"{de.schedule.name}, {de_s.schedule.name}")
+    dense = DLRMDense(cfg, device="cuda")
+    st = w8_small_state(torch, de, dense, tmp)
+    tcfg, scfg = tel.TelemetryConfig(), stream_config()
+    telem = tel.init_telemetry(de, tcfg, device="cuda")
+    ss = init_streaming(de, scfg, device="cuda")
+    kw = dict(lr_schedule=W8_SMALL_LR, nan_guard=True, with_metrics=True,
+              telemetry=tcfg, dynamic=scfg)
+    pipe = make_hybrid_train_step(de, loss_fn, SGD(W8_SMALL_LR),
+                                  SparseSGD(), **kw)
+    ser = make_hybrid_train_step(de_s, loss_fn, SGD(W8_SMALL_LR),
+                                 SparseSGD(), **kw)
+    b = W8_SMALL_BATCH // W8
+    rows = slice(rank * b, (rank + 1) * b)
+    owns = any(t in de.streaming_tables
+               for t in de.strategy.table_ids_list[rank])
+    counts = {"kernels": {}, "plain": {}, "serialized": {}}
+    err = {"slab_max": 0.0, "slab_rel": 0.0, "metric_rel": 0.0,
+           "ser_loss": 0.0, "ser_slab": 0.0, "ser_dense": 0.0,
+           "ser_metric_rel": 0.0}
+    for k in range(W8G_SMALL_STEPS):
+        cats, num, lab = w8_to_card(
+            torch, w8f_small_batch(SEED + 1000 + k), rows)
+        twin, t2, s2 = clone_state(st), clone_tree(telem), clone_tree(ss)
+        sst, t3, s3 = clone_state(st), clone_tree(telem), clone_tree(ss)
+        before = {key: v.float().clone() for key, v in st.emb_params.items()}
+        out = {}
+        for name, (fn, args) in (
+                ("kernels", (pipe, (st, cats, (num, lab), telem, ss))),
+                ("plain", (pipe, (twin, cats, (num, lab), t2, s2))),
+                ("serialized", (ser, (sst, cats, (num, lab), t3, s3)))):
+            zero_counts()
+            with (plain_kernels(W8F_PLAIN) if name == "plain"
+                  else contextlib.nullcontext()):
+                out[name] = fn(*args)
+            torch.cuda.synchronize()
+            for key, v in read_counts().items():
+                counts[name][key] = counts[name].get(key, 0) + v
+        (lk, st, mk, telem, ss), (_, twin, mp, t2, s2), \
+            (ls, sst, ms, t3, s3) = (out["kernels"], out["plain"],
+                                     out["serialized"])
+        what = f"world 8 g small rank {rank} step {k}"
+        check(bool(torch.isfinite(lk)), f"{what}: loss {lk}")
+        # kernels against plain, in lockstep
+        telem_equal(torch, telem, t2, f"{what} telemetry")
+        telem_equal(torch, ss, s2, f"{what} streaming state")
+        err["metric_rel"] = max(err["metric_rel"], w8f_metrics_close(
+            torch, mk, mp, 1e-3, what))
+        for key in st.emb_params:
+            a = st.emb_params[key].float()
+            p = twin.emb_params[key].float()
+            err["slab_max"] = max(err["slab_max"], float((a - p).abs().max()))
+            upd = float((p - before[key]).norm())
+            err["slab_rel"] = max(err["slab_rel"], float((a - p).norm())
+                                  / max(upd, 1e-30))
+        # pipelined against serialized, both on the kernels
+        what_s = f"{what} pipelined vs serialized"
+        telem_equal(torch, telem, t3, f"{what_s} telemetry")
+        telem_equal(torch, ss, s3, f"{what_s} streaming state")
+        err["ser_metric_rel"] = max(err["ser_metric_rel"], w8f_metrics_close(
+            torch, mk, ms, 1e-3, what_s))
+        check(allclose(torch, lk, ls), f"{what_s}: loss {float(lk)} vs "
+              f"{float(ls)}")
+        err["ser_loss"] = max(err["ser_loss"], abs(float(lk) - float(ls)))
+        for key in st.emb_params:
+            a, c = st.emb_params[key], sst.emb_params[key]
+            check(allclose(torch, a, c), f"{what_s}: slab {key} beyond "
+                  f"rtol {W8G_RTOL} / atol {W8G_ATOL}")
+            err["ser_slab"] = max(err["ser_slab"], float(
+                (a.float() - c.float()).abs().max()))
+        for a, c in zip(st.dense_params.parameters(),
+                        sst.dense_params.parameters()):
+            check(allclose(torch, a, c), f"{what_s}: dense parameters")
+            err["ser_dense"] = max(err["ser_dense"], float(
+                (a.detach().float() - c.detach().float()).abs().max()))
+        del twin, t2, s2, sst, t3, s3, before, out
+    check(err["slab_max"] <= W8_SMALL_BOUNDS["slab_max_err"]
+          and err["slab_rel"] <= W8_SMALL_BOUNDS["slab_rel_err"],
+          f"world 8 g small rank {rank}: slabs beyond 14b's bounds {err}")
+    here = W8G_SMALL_STEPS if owns else 0
+    kc = counts["kernels"]
+    check(kc["remap_stage"] == (W8G_K + 1) * here
+          and kc["commit_rows"] == here
+          and kc["cms_update"] == kc["topk_pool"] == kc["topk_merge"]
+          == W8G_SMALL_STEPS and kc["grad_health"] == 2 * W8G_SMALL_STEPS
+          and kc["pack_ids"] == W8G_K * W8G_SMALL_STEPS
+          and kc["pack_columns"] == 3 * W8G_K * W8G_SMALL_STEPS,
+          f"world 8 g small rank {rank}: launches {kc}")
+    check(not any(v for n, v in counts["plain"].items()
+                  if n != "sgd_scatter"),
+          f"world 8 g small rank {rank}: the plain run launched "
+          f"{counts['plain']}")
+    # the NaN batch: every rank skips, telemetry still counts
+    cats, num, lab = w8_to_card(torch, w8f_small_batch(SEED + 1050), rows)
+    if rank == W8_NAN_RANK:
+        num[0, 3] = float("nan")
+    snap, s_snap = clone_state(st), clone_tree(ss)
+    t_steps = int(telem["steps"])
+    loss, st, m, telem, ss = pipe(st, cats, (num, lab), telem, ss)
+    torch.cuda.synchronize()
+    check(not bool(torch.isfinite(loss)), f"world 8 g rank {rank}: the NaN "
+          "batch gave a finite loss")
+    check(bool((m["skipped_steps"] == 1).all()), f"world 8 g rank {rank}: "
+          f"skipped_steps {m['skipped_steps'].tolist()}")
+    check(same_tree(torch, st.emb_params, snap.emb_params)
+          and same_tree(torch, ss, s_snap)
+          and all(torch.equal(a, c) for a, c in zip(
+              st.dense_params.parameters(), snap.dense_params.parameters())),
+          f"world 8 g rank {rank}: the NaN batch changed the state")
+    check(int(telem["steps"]) == t_steps + 1, f"world 8 g rank {rank}: "
+          "telemetry did not count the skipped step")
+    del snap, s_snap
+    torch.cuda.empty_cache()
+    return {"counts": counts, "err": err, "owns_streaming": owns,
+            "schedule": de.schedule.name}
+
+
+@contextlib.contextmanager
+def scope_times(torch):
+    """Time every phase scope the step enters (``utils.obs.scope``,
+    replaced for the block by a timer): host ms between its enter and exit
+    and CUDA-event ms between events recorded there, without a sync (the
+    exchanges stay in flight). Yields the list of spans ``(name, host
+    ms, (start event, end event))`` to read after a synchronize."""
+    from distributed_embeddings_torch.utils import obs
+
+    spans = []
+
+    class Timed:
+        __slots__ = ("name", "t0", "e0")
+
+        def __init__(self, name):
+            self.name = name
+
+        def __enter__(self):
+            self.e0 = torch.cuda.Event(enable_timing=True)
+            self.e0.record()
+            self.t0 = time.perf_counter()
+            return self
+
+        def __exit__(self, *exc):
+            e1 = torch.cuda.Event(enable_timing=True)
+            e1.record()
+            spans.append((self.name, (time.perf_counter() - self.t0) * 1e3,
+                          (self.e0, e1)))
+            return False
+
+    real = obs.scope
+    obs.scope = Timed
+    try:
+        yield spans
+    finally:
+        obs.scope = real
+
+
+def scoped_steps(torch, step, st, batches, steps):
+    """``steps`` real steps (after one untimed) with every phase scope
+    timed (:func:`scope_times`): per phase name the medians over the
+    steps of its host ms and CUDA-event ms summed over the step (the
+    ``*_wait`` phases: the ms the host blocked on each exchange), and the
+    step's host ms."""
+    per = []
+    for k in range(1 + steps):
+        torch.cuda.synchronize()
+        with scope_times(torch) as spans:
+            t0 = time.perf_counter()
+            _, st = step(st, *batches[k % len(batches)])
+            torch.cuda.synchronize()
+            host = (time.perf_counter() - t0) * 1e3
+        if not k:
+            continue
+        split = {"step": (host, 0.0)}
+        for name, ms, (e0, e1) in spans:
+            h, d = split.get(name, (0.0, 0.0))
+            split[name] = (h + ms, d + e0.elapsed_time(e1))
+        per.append(split)
+    names = sorted(set().union(*per))
+    return st, {n: {"host_ms": float(np.median([p.get(n, (0.0, 0.0))[0]
+                                                for p in per])),
+                    "device_ms": float(np.median([p.get(n, (0.0, 0.0))[1]
+                                                  for p in per]))}
+                for n in names}
+
+
+def w8g_rank_full(torch, rank):
+    """14g-b on one rank (see main's docstring, phase 14g-b)."""
+    from distributed_embeddings_torch.models import DLRMDense
+    from distributed_embeddings_torch.parallel import (
+        SGD, SparseSGD, init_hybrid_state, make_hybrid_train_step)
+    from distributed_embeddings_torch.parallel.schedule import (
+        pipelined_schedule)
+
+    cfg, de_s = w8_model(torch, CRITEO_1TB_SIZES, W8_CST, torch.bfloat16)
+    _, de_p = w8_model(torch, CRITEO_1TB_SIZES, W8_CST, torch.bfloat16,
+                       schedule=pipelined_schedule(W8G_K))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    dense = DLRMDense(cfg, device="cuda", generator=gen)
+    st = init_hybrid_state(de_s, SparseSGD(), dense, SGD(TRAIN_LR),
+                           generator=gen, dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    b = W8_BATCH // W8
+    batches = [train_batch(torch, CRITEO_1TB_SIZES, b,
+                           seed=SEED + 1100 + 16 * k + rank)
+               for k in range(4)]
+    args = (loss_fn, SGD(TRAIN_LR), SparseSGD())
+    kw = dict(lr_schedule=TRAIN_LR, nan_guard=True)
+    steps = {"serialized": make_hybrid_train_step(de_s, *args, **kw),
+             "pipelined": make_hybrid_train_step(de_p, *args, **kw)}
+    out = {"slab_bytes": sum(v.numel() * v.element_size()
+                             for v in st.emb_params.values())}
+    # g-b1: one checked pipelined step
+    zero_counts()
+    with pack_checks(torch) as n:
+        loss, st = steps["pipelined"](st, *batches[0])
+        torch.cuda.synchronize()
+    counts = read_counts()
+    plan = next(iter(de_p._plan_cache.values()))
+    check(plan.b == b // W8G_K, f"world 8 g rank {rank}: the microbatch "
+          f"plan's batch {plan.b}")
+    serial = w8_per_step(len(plan.groups), len(de_p.widths))
+    want = pipelined_per_step(serial)
+    check(counts == want, f"world 8 g rank {rank} checked step: launches "
+          f"{counts}, expected {want}")
+    check(bool(torch.isfinite(loss)), f"world 8 g rank {rank}: loss {loss}")
+    out["checked"] = dict(n)
+    # g-b2: warmup, then serialized, pipelined, pipelined, serialized
+    for k in range(W8_WARMUP):
+        for fn in steps.values():
+            _, st = fn(st, *batches[k % len(batches)])
+    torch.cuda.synchronize()
+    runs = {"serialized": [], "pipelined": []}
+    launches = {}
+    for label in ("serialized", "pipelined", "pipelined", "serialized"):
+        zero_counts()
+        times = []
+        for k in range(W8G_STEPS):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            _, st = steps[label](st, *batches[k % len(batches)])
+            ev[1].record()
+            times.append(ev)
+        torch.cuda.synchronize()
+        runs[label].append(float(np.median([a.elapsed_time(c)
+                                            for a, c in times])))
+        launches.setdefault(label, read_counts())
+    want = {"serialized": {k: v * W8G_STEPS for k, v in serial.items()},
+            "pipelined": {k: v * W8G_STEPS for k, v in
+                          pipelined_per_step(serial).items()}}
+    check(launches == want, f"world 8 g rank {rank} timed: launches "
+          f"{launches}, expected {want}")
+    out.update(step_ms=runs, launches=launches["pipelined"],
+               launches_serialized=launches["serialized"])
+    # g-b3: every phase scope timed, serialized then pipelined
+    out["phases"] = {}
+    for label in ("serialized", "pipelined"):
+        st, out["phases"][label] = scoped_steps(torch, steps[label], st,
+                                                batches, W8_STAGE_STEPS)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def w8g_results(torch, ranks):
+    """14g-a/b's checks across the ranks; returns the paths' launches
+    (rank 0's a step of 14g-b pipelined, and of 14g-a the first rank
+    holding a streaming table), the K19/K20 checks' largest differences
+    and the logged result."""
+    small = [r["small_g"] for r in ranks]
+    full = [r["full_g"] for r in ranks]
+    owner = next(r for r, s in enumerate(small) if s["owns_streaming"])
+    b0 = full[0]
+
+    def rate(label):
+        return [W8_BATCH / (max(f["step_ms"][label][i] for f in full) / 1e3)
+                for i in range(2)]
+
+    def waits(label):
+        return {r: {n: v["host_ms"] for n, v in f["phases"][label].items()
+                    if n.endswith("_wait") or n in ("step",
+                                                    "dense_all_reduce")}
+                for r, f in enumerate(full)}
+
+    ser, pipe = rate("serialized"), rate("pipelined")
+    result = {
+        "transport": "gloo over host memory, 8 ranks time-sharing one "
+                     "H100 (not a multi-GPU or NCCL number)",
+        "microbatches": W8G_K, "schedule": small[0]["schedule"],
+        "small": {"err_by_rank": [s["err"] for s in small],
+                  "owns_streaming": [s["owns_streaming"] for s in small],
+                  "launches_per_step_owner": {
+                      n: v / W8G_SMALL_STEPS for n, v in
+                      small[owner]["counts"]["kernels"].items() if v}},
+        "full": {
+            "samples_per_s_8_ranks_on_one_h100_over_gloo": {
+                "serialized_turns_1_4": ser, "pipelined_turns_2_3": pipe},
+            "pipelined_over_serialized": float(np.mean(pipe)
+                                               / np.mean(ser)),
+            "rank_step_ms_p50": {k: [f["step_ms"][k] for f in full]
+                                 for k in ("serialized", "pipelined")},
+            "launches_per_step_rank0": {
+                n: v / W8G_STEPS for n, v in b0["launches"].items() if v},
+            "launches_per_step_rank0_serialized": {
+                n: v / W8G_STEPS for n, v in
+                b0["launches_serialized"].items() if v},
+            "phases_rank0": b0["phases"],
+            "wait_host_ms_by_rank": {k: waits(k) for k in ("serialized",
+                                                           "pipelined")},
+            "slab_gb_by_rank": [f["slab_bytes"] / 1e9 for f in full],
+            "peak_gb_by_rank": [f["peak_gb"] for f in full]}}
+    log("world 8 g: " + json.dumps(result))
+    errs = {"pack_ids": 0.0, "pack_columns": 0.0}
+    for f in full:
+        check(f["checked"]["pack_ids"] == W8G_K
+              and f["checked"]["pack_columns"] == 3 * W8G_K,
+              f"world 8 g: checked K19/K20 calls {f['checked']}")
+        for k, v in f["checked"]["err"].items():
+            errs[k] = max(errs[k], v)
+    launches = {
+        "world8_pipelined": {n: v // W8G_STEPS
+                             for n, v in b0["launches"].items()},
+        "world8_pipelined_small": {
+            n: v // W8G_SMALL_STEPS
+            for n, v in small[owner]["counts"]["kernels"].items()}}
+    return launches, errs, result
+
+
+@contextlib.contextmanager
+def record_builds():
+    """Count the launch records built inside the block, by kind
+    (``LaunchCache.add``, wrapped): a step that builds records in its
+    steady state pays their validation and descriptors on the host every
+    time. Yields ``{kind: builds}``."""
+    from distributed_embeddings_torch.ops import _kernels
+
+    real = _kernels.LaunchCache.add
+    n = {}
+
+    def add(self, key, record):
+        n[record.what] = n.get(record.what, 0) + 1
+        return real(self, key, record)
+
+    _kernels.LaunchCache.add = add
+    try:
+        yield n
+    finally:
+        _kernels.LaunchCache.add = real
+
+
+def w1_pipelined(torch, state):
+    """14g-c (see main's docstring): the world-1 DLRM step pipelined K = 2
+    beside the serialized one on phase 6's state, with the launch records
+    built in each timed window and each phase's host and event ms
+    (:func:`scoped_steps`). Returns the pipelined step's launches a step
+    and the result."""
+    from distributed_embeddings_torch.models import DLRMConfig
+    from distributed_embeddings_torch.parallel import (
+        SGD, DistributedEmbedding, SparseSGD, make_hybrid_train_step)
+    from distributed_embeddings_torch.parallel.schedule import (
+        pipelined_schedule)
+
+    cfg = DLRMConfig(table_sizes=CRITEO_1TB_SIZES, embedding_dim=128,
+                     num_numerical_features=13,
+                     bottom_mlp_dims=(512, 256, 128),
+                     top_mlp_dims=(1024, 1024, 512, 256, 1),
+                     compute_dtype=torch.bfloat16)
+    layers = {label: DistributedEmbedding(
+        cfg.embedding_configs(), world_size=1, compute_dtype=torch.bfloat16,
+        schedule=sched) for label, sched in (
+            ("serialized", None), ("pipelined", pipelined_schedule(W8G_K)))}
+    st = train_state(torch, state)
+    steps = {label: make_hybrid_train_step(
+        de, loss_fn, SGD(TRAIN_LR), SparseSGD(), lr_schedule=TRAIN_LR,
+        nan_guard=True) for label, de in layers.items()}
+    batches = [train_batch(torch, CRITEO_1TB_SIZES, TRAIN_BATCH,
+                           seed=SEED + 1200 + k) for k in range(4)]
+    for k in range(WARMUP_RUNS):
+        for fn in steps.values():
+            _, st = fn(st, *batches[k % len(batches)])
+    torch.cuda.synchronize()
+    runs = {"serialized": [], "pipelined": []}
+    launches, builds = {}, {}
+    for label in ("serialized", "pipelined", "pipelined", "serialized"):
+        zero_counts()
+        times, losses = [], []
+        with record_builds() as nb:
+            for k in range(W1G_STEPS):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                loss, st = steps[label](st, *batches[k % len(batches)])
+                ev[1].record()
+                times.append(ev)
+                losses.append(loss)
+            torch.cuda.synchronize()
+        check(bool(torch.isfinite(torch.stack(losses)).all()),
+              f"world 1 g {label}: non-finite loss")
+        runs[label].append(float(np.median([a.elapsed_time(c)
+                                            for a, c in times])))
+        launches.setdefault(label, read_counts())
+        builds.setdefault(label, dict(nb))
+    phases = {}
+    for label in ("serialized", "pipelined"):
+        st, phases[label] = scoped_steps(torch, steps[label], st, batches, 3)
+    serial = {n: W1G_STEPS if n in DLRM_KERNELS else 0
+              for n in kernel_fns()}
+    want = {"serialized": serial, "pipelined": pipelined_per_step(serial)}
+    check(launches == want, f"world 1 g: launches {launches}, expected "
+          f"{want}")
+    result = {"microbatches": W8G_K, "batch": TRAIN_BATCH,
+              "step_ms_p50": runs,
+              "record_builds_in_timed_steps": builds, "phases": phases,
+              "pipelined_over_serialized_ms": float(
+                  np.mean(runs["pipelined"]) / np.mean(runs["serialized"])),
+              "launches_per_step": {n: v / W1G_STEPS for n, v in
+                                    launches["pipelined"].items() if v}}
+    log("world 1 g: " + json.dumps(result))
+    return {n: v // W1G_STEPS for n, v in launches["pipelined"].items()}, \
+        result
+
+
+def w8_rank(rank, store, tmp, results, parts=("b", "c", "e", "f", "g")):
     """A rank process of phase 14: join the gloo group on the one card,
-    run 14b, 14c, 14e-b, 14e-c, 14f-a, 14f-b and 14f-c (those ``parts``
-    name), send the results. Any failure raises (the process exits
-    non-zero and the phase fails)."""
+    run 14b, 14c, 14e-b, 14e-c, 14f-a, 14f-b, 14f-c, 14g-a and 14g-b
+    (those ``parts`` name), send the results. Any failure raises (the
+    process exits non-zero and the phase fails)."""
     import torch
 
     torch.cuda.set_device(0)
@@ -9357,7 +9852,9 @@ def w8_rank(rank, store, tmp, results, parts=("b", "c", "e", "f")):
                   ("full_e", w8e_rank_full, False)),
             "f": (("small_f", w8f_rank_small, True),
                   ("full_f", w8f_rank_full, False),
-                  ("stream_f", w8f_rank_stream, False))}
+                  ("stream_f", w8f_rank_stream, False)),
+            "g": (("small_g", w8g_rank_small, True),
+                  ("full_g", w8g_rank_full, False))}
     out = {}
     for part in parts:
         for key, fn, small in runs[part]:
@@ -9371,7 +9868,7 @@ def w8_rank(rank, store, tmp, results, parts=("b", "c", "e", "f")):
     torch.distributed.destroy_process_group()
 
 
-def w8_run_ranks(torch, tmp, parts=("b", "c", "e", "f")):
+def w8_run_ranks(torch, tmp, parts=("b", "c", "e", "f", "g")):
     """Start the W8 rank processes (running ``parts`` of phase 14), wait
     for every result; a rank that exits non-zero fails the phase. Stops
     every process it started."""
@@ -10053,8 +10550,15 @@ def row_slice_kernel_times(torch):
     block) and K20's unpack with its sums at that rank's shapes; K8 and K9
     with row bases on a ragged block of 32 slots (8 sources x 4 row
     slices of a 2M-row fp32 table) at b=2048, U{1..30} Zipfian ids a row.
-    Each beside its plain version and its byte bound; no one PyTorch
-    call computes them (library: not measured)."""
+    Each beside its plain version and its byte bound, and K1, K8 and K9
+    beside the one PyTorch call that computes their function from
+    indices computed before the timing (the ids made range-local, masked
+    and offset to slab rows): ``F.embedding_bag`` (sum, the 0/1 mask as
+    ``per_sample_weights``) for K1 and K8, ``index_select`` of each
+    position's cotangent row for K9. K20's copies and 4-part sums in one
+    pass have no one call (``torch.cat`` copies, a sum adds: two)."""
+    import torch.nn.functional as F
+
     from distributed_embeddings_torch.ops import (
         exchange_pack as xp, gather_combine, gather_combine_plain,
         ragged_combine, ragged_combine_plain, ragged_grad, ragged_grad_plain)
@@ -10084,10 +10588,14 @@ def row_slice_kernel_times(torch):
         inr = (loc >= 0) & (loc < meta[0].view(-1, 1, 1))
         uniq = int(torch.unique((loc + meta[1].view(-1, 1, 1))[inr]).numel())
         nbytes = uniq * 128 * 2 + ids.numel() * 4 + ids.shape[0] * b * 256
+        lib_rows = (loc.clamp(min=0).minimum(meta[0].view(-1, 1, 1) - 1)
+                    + meta[1].view(-1, 1, 1)).reshape(-1, 1)
+        lib_w = inr.to(slab.dtype).reshape(-1, 1)
         cases["gather_combine_row_base"] = kernel_case(
             torch, "gather_combine_row_base", f"world8_rank0_group{gi}",
             lambda: gather_combine(slab, ids, *meta, rbase=rbase), None,
-            None, nbytes,
+            lambda: F.embedding_bag(lib_rows, slab, mode="sum",
+                                    per_sample_weights=lib_w), nbytes,
             plain=lambda: gather_combine_plain(slab, ids, *meta,
                                                rbase=rbase),
             extra={"unique_rows": uniq, "slots": ids.shape[0]})
@@ -10126,10 +10634,29 @@ def row_slice_kernel_times(torch):
     uniq = int(torch.unique((loc + roff.view(-1, 1))[
         (loc >= 0) & (loc < rows.view(-1, 1))]).numel())
     kw = dict(mean=mean, mask=mask, rbase=rbase)
+    # the library calls' inputs: every live position's slab row and 0/1
+    # mask, flat, with each row's offset into them (K8), and each
+    # position's cotangent row (K9; a dead position reads row 0)
+    live = (torch.arange(cap, device="cuda")[None]
+            < splits[:, -1:]).reshape(-1)
+    lib_rows = (loc.clamp(min=0).minimum(rows.view(-1, 1) - 1)
+                + roff.view(-1, 1)).reshape(-1)[live]
+    lib_w = ((loc >= 0) & (loc < rows.view(-1, 1))).float().reshape(
+        -1)[live]
+    lib_off = (splits[:, :-1] + torch.cumsum(splits[:, -1], 0)[:, None]
+               - splits[:, -1:]).reshape(-1)
+    pos_rows = torch.searchsorted(
+        splits[:, 1:].contiguous(),
+        torch.arange(cap, device="cuda").expand(n, cap).contiguous(),
+        right=True)
+    pos_rows = (pos_rows.clamp(max=bk - 1)
+                + torch.arange(n, device="cuda")[:, None] * bk).reshape(-1)
     cases["ragged_combine_row_base"] = kernel_case(
         torch, "ragged_combine_row_base", "32_slots_b2048_U1_30",
         lambda: ragged_combine(tab, values, splits, rows, roff, **kw), None,
-        None, uniq * 512 + values.numel() * 4 + splits.numel() * 8
+        lambda: F.embedding_bag(lib_rows, tab, lib_off, mode="sum",
+                                per_sample_weights=lib_w),
+        uniq * 512 + values.numel() * 4 + splits.numel() * 8
         + n * bk * 512,
         plain=lambda: ragged_combine_plain(tab, values, splits, rows, roff,
                                            **kw),
@@ -10137,14 +10664,16 @@ def row_slice_kernel_times(torch):
     g = torch.randn((n, bk, 128), device="cuda")
     gkw = dict(values=values, rows=rows, roff=roff, sentinel=rows_t,
                rbase=rbase)
+    g2 = g.view(n * bk, 128)
     cases["ragged_grad_row_base"] = kernel_case(
         torch, "ragged_grad_row_base", "32_slots_b2048_U1_30",
-        lambda: ragged_grad(g, splits, **gkw), None, None,
+        lambda: ragged_grad(g, splits, **gkw), None,
+        lambda: torch.index_select(g2, 0, pos_rows),
         g.numel() * 4 + values.numel() * 4 + splits.numel() * 8
         + n * cap * (512 + 4),
         plain=lambda: ragged_grad_plain(g, splits, **gkw),
         extra={"positions": pos})
-    del tab, g
+    del tab, g, g2, lib_rows, lib_w, lib_off, pos_rows
     gc.collect()
     torch.cuda.empty_cache()
     return cases
@@ -10309,9 +10838,13 @@ def phase_world8(torch):
     rs["launches"].update(f_launches)
     rs["errs_f"] = f_errs
     rs["result_f"] = result["instrumented"]
+    g_launches, g_errs, result["pipelined"] = w8g_results(torch, ranks)
+    rs["launches"].update(g_launches)
+    for k, v in g_errs.items():
+        errs[k] = max(errs[k], v)
     result["rank_seconds"].update(
         {k: [r[k]["seconds"] for r in ranks]
-         for k in ("small_f", "full_f", "stream_f")})
+         for k in ("small_f", "full_f", "stream_f", "small_g", "full_g")})
     result["phase_seconds"] = time.perf_counter() - t_start
     log(f"world 8 phase {result['phase_seconds']:.1f} s")
     return r0["launches"], cases, errs, result, rs
@@ -10341,6 +10874,28 @@ def phase_world8_f_only(torch):
         + " launches " + json.dumps(launches))
 
 
+def phase_world8_g_only(torch):
+    """Phase 14g-a/b alone (``--world8g``): 14b's small tables and dense
+    parameters written for the ranks (and 14b's world-1 run), then the
+    rank processes run 14g only; its checks and result."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="w8g_")
+    try:
+        w8_small_reference(torch, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        ranks, rank_s = w8_run_ranks(torch, tmp, parts=("g",))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches, _, _ = w8g_results(torch, ranks)
+    log(f"world 8 g only: ranks {rank_s:.1f} s, seconds by run "
+        + json.dumps({k: [r[k]["seconds"] for r in ranks]
+                      for k in ("small_g", "full_g")})
+        + " launches " + json.dumps(launches))
+
+
 def main():
     global PARENT_DIR
     try:
@@ -10349,11 +10904,12 @@ def main():
         raise SystemExit(f"chip_smoke: PyTorch is not installed ({e})")
     argv = sys.argv[1:]
     only_f = argv == ["--world8f"]
+    only_g = argv == ["--world8g"]
     if len(argv) == 2 and argv[0] == "--parent":
         PARENT_DIR = os.path.abspath(argv[1])
-    elif argv and not only_f:
+    elif argv and not (only_f or only_g):
         raise SystemExit("usage: python3 chip_smoke.py [--parent DIR | "
-                         "--world8f]")
+                         "--world8f | --world8g]")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this script "
                          "runs only on a GPU")
@@ -10370,6 +10926,9 @@ def main():
     if only_f:  # phase 14f alone, to debug it; prints no result
         phase_world8_f_only(torch)
         return
+    if only_g:  # phase 14g-a/b alone, to debug it; prints no result
+        phase_world8_g_only(torch)
+        return
     _, de, state = phase_model(torch)
     errs = phase_check(torch, de, state)
     serve_launches, _ = phase_serve(torch, de, state)
@@ -10377,6 +10936,9 @@ def main():
     for k, v in train_errs.items():
         errs[k] = max(errs.get(k, 0.0), v)
     launches = {"serve": serve_launches, "train": train_launches}
+    # 14g-c: the world-1 DLRM step pipelined, on phase 6's state (before
+    # phase 7's lr-24 step of the promoted scatter leaves it diverged)
+    launches["world1_pipelined"], _ = w1_pipelined(torch, state)
     kernels = phase_time(torch, de, state, errs, launches)
     for name, src, repl, entry_points in (
             ("grad_health", "grad_health.cu",

@@ -10,7 +10,10 @@ launch), back to the tables' ranks (:func:`~.exchange.exchange_grads`;
 a passthrough at world 1), the per-group id streams are rebuilt from
 the forward's residual, and each width slab gets ONE optimizer scatter
 (:func:`apply_width_streams`) scaled by ``1/world``. No dense table
-gradient is ever built.
+gradient is ever built. The pipelined step runs the two halves apart
+(:func:`cotangent_exchange` with the exchange left in flight, then
+:func:`cotangent_streams_finish`) and merges its microbatches' streams
+into the same one scatter per slab.
 
 Dense groups (kind ``"d"``) build their stream with torch ops; ragged
 groups (``"r"``/``"rw"``) on K10 (the row offsets from the residual's
@@ -23,13 +26,16 @@ into it).
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, NamedTuple
 
 import torch
 
 from ..ops.embedding_lookup import lengths_to_splits
 from ..ops.sparse_grad import ragged_grad
+from ..utils import obs
+from . import bootstrap
 from . import exchange as exchange_mod
+from . import schedule
 from .lookup import _wkey, region_views
 
 
@@ -72,9 +78,10 @@ def apply_width_streams(de, params, opt_state,
             vals = vals * torch.tensor(scale, dtype=vals.dtype,
                                        device=vals.device)
         st = new_state[k] if isinstance(new_state, dict) else new_state
-        slab, st = optimizer.apply_rows(new_params[k], st,
-                                        ids.contiguous(), vals.contiguous(),
-                                        lr)
+        with obs.scope(f"sparse_apply_{k}"):
+            slab, st = optimizer.apply_rows(new_params[k], st,
+                                            ids.contiguous(),
+                                            vals.contiguous(), lr)
         new_params[k] = slab
         if isinstance(new_state, dict):
             new_state[k] = st
@@ -98,11 +105,57 @@ def sparse_apply_gradients(de, params, opt_state, residuals, out_grads,
                                optimizer, lr, scale, enable=enable)
 
 
-def cotangent_width_streams(de, residuals, out_grads, fallback_dtype=None):
+class Cotangents(NamedTuple):
+    """One microbatch's cotangents on their way back to the tables'
+    ranks: the plan, the forward's received id block and batch, the
+    exchange (an :class:`~.bootstrap.InFlight`) and its phase name."""
+
+    plan: object
+    ids_recv: torch.Tensor
+    b: int
+    pending: bootstrap.InFlight
+    phase: str
+
+
+def cotangent_exchange(de, residuals, out_grads, fallback_dtype=None,
+                       tag: str = "", in_flight: bool = False
+                       ) -> Cotangents:
+    """The first half of :func:`cotangent_width_streams`: put the output
+    cotangents in the plan's column layout (K20) and exchange them, under
+    the ``grad_all_to_all{tag}`` scope. ``in_flight`` leaves the
+    all-to-all in flight (the pipelined step); else it completes here
+    (:func:`~.exchange.exchange_grads`)."""
+    _, ids_recv, encs, b = residuals
+    plan = de._get_plan(list(encs), b)
+    out_dtype = out_grads[0].dtype if out_grads else fallback_dtype
+    phase = schedule.PHASE_GRAD_EXCHANGE + tag
+    with obs.scope(phase):
+        packed = exchange_mod.pack_grad_blocks(de, plan, out_grads, b,
+                                               out_dtype)
+    if in_flight:
+        pending = exchange_mod.exchange_grads_start(de, packed)
+    else:
+        pending = bootstrap.InFlight(
+            exchange_mod.exchange_grads(de, packed, tag))
+    return Cotangents(plan, ids_recv, b, pending, phase)
+
+
+def cotangent_streams_finish(de, cot: Cotangents):
+    """The second half of :func:`cotangent_width_streams`: wait for the
+    exchange, then rebuild the per-width streams
+    (:func:`received_width_streams`; K9 and K10 on ragged groups)."""
+    mp_grad = exchange_mod.wait(cot.pending, cot.phase)
+    return received_width_streams(de, cot.plan, cot.ids_recv, mp_grad,
+                                  cot.b)
+
+
+def cotangent_width_streams(de, residuals, out_grads, fallback_dtype=None,
+                            tag: str = ""):
     """The sparse backward MINUS the optimizer scatter: put the output
     cotangents in the plan's column layout and rebuild the per-width
     ``{"w<width>": [(ids, update rows, width), ...]}`` streams from the
-    forward residual.
+    forward residual (:func:`cotangent_exchange`, then
+    :func:`cotangent_streams_finish`).
 
     Per dense group the stream is b-major: ids ``[world, b, n, hot]``
     (table-local id + the slot's slab row offset), update rows
@@ -114,13 +167,8 @@ def cotangent_width_streams(de, residuals, out_grads, fallback_dtype=None):
     ``mean`` slots), from K9. Ids outside their table, every id of a
     padding slot and every position outside the rows become the
     dropped-row sentinel ``rows_cap[w]``: a bad id trains nothing."""
-    _, ids_recv, encs, b = residuals
-    plan = de._get_plan(list(encs), b)
-    out_dtype = out_grads[0].dtype if out_grads else fallback_dtype
-    packed = exchange_mod.pack_grad_blocks(de, plan, out_grads, b,
-                                           out_dtype)
-    mp_grad = exchange_mod.exchange_grads(de, packed)
-    return received_width_streams(de, plan, ids_recv, mp_grad, b)
+    return cotangent_streams_finish(de, cotangent_exchange(
+        de, residuals, out_grads, fallback_dtype=fallback_dtype, tag=tag))
 
 
 def received_width_streams(de, plan, ids_recv, mp_grad, b: int):

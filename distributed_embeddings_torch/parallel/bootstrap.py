@@ -14,7 +14,10 @@ takes its mesh axis.
 The collectives the hybrid step runs (:func:`all_to_all`,
 :func:`all_reduce_sum_`, :func:`broadcast_`, :func:`all_gather`) hand
 their tensors to the group's own backend as they are, on the host or on
-the card (gloo copies a CUDA tensor through host memory itself);
+the card (gloo copies a CUDA tensor through host memory itself); the
+all-to-all can also be left in flight (:func:`all_to_all_start`, an
+:class:`InFlight` to wait on), which is how the pipelined step keeps its
+exchanges under other microbatches' compute;
 bfloat16 travels as its bytes in the copying collectives (copies, not
 sums). :func:`to_host` and :func:`gather_leaves` gather onto the host.
 """
@@ -127,16 +130,49 @@ def _wire(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.uint8) if t.dtype == torch.bfloat16 else t
 
 
-def all_to_all(x: torch.Tensor, group, world_size: int) -> torch.Tensor:
-    """``out[r] = x_on_rank_r[my rank]`` over the leading ``[world, ...]``
-    axis (the tiled all-to-all of the JAX package). World 1 returns
-    ``x`` itself."""
+class InFlight:
+    """A collective left in flight (:func:`all_to_all_start`):
+    :meth:`wait` blocks until it is done and returns its output. It holds
+    the send and receive buffers until then, so neither is freed or
+    reused while the backend still reads or writes them. One without a
+    ``work`` (world 1, or an exchange already completed) waits for
+    nothing."""
+
+    __slots__ = ("out", "_work", "_keep")
+
+    def __init__(self, out: torch.Tensor, work=None, keep=()):
+        self.out = out
+        self._work = work
+        self._keep = keep
+
+    def wait(self) -> torch.Tensor:
+        """The output, once the collective is done (on the card, the
+        current stream is made to wait for it)."""
+        if self._work is not None:
+            self._work.wait()
+            self._work, self._keep = None, ()
+        return self.out
+
+
+def all_to_all_start(x: torch.Tensor, group, world_size: int) -> InFlight:
+    """Start ``out[r] = x_on_rank_r[my rank]`` over the leading ``[world,
+    ...]`` axis (the tiled all-to-all of the JAX package) and return it
+    in flight: ``.wait()`` gives ``out``. World 1 returns ``x`` itself,
+    done. Every rank must start its collectives in the same order."""
     if world_size == 1:
-        return x
+        return InFlight(x)
     x = x.contiguous()
     out = torch.empty_like(x)
-    dist.all_to_all_single(_wire(out), _wire(x), group=group)
-    return out
+    work = dist.all_to_all_single(_wire(out), _wire(x), group=group,
+                                  async_op=True)
+    return InFlight(out, work, keep=(x,))
+
+
+def all_to_all(x: torch.Tensor, group, world_size: int) -> torch.Tensor:
+    """``out[r] = x_on_rank_r[my rank]`` over the leading ``[world, ...]``
+    axis: :func:`all_to_all_start`, then its wait. World 1 returns ``x``
+    itself."""
+    return all_to_all_start(x, group, world_size).wait()
 
 
 def all_reduce_sum_(x: torch.Tensor, group) -> torch.Tensor:
@@ -256,7 +292,8 @@ def broadcast_seed(seed: int, group=None) -> int:
     return int(t.cpu()[0])
 
 
-__all__ = ["all_gather", "all_reduce_sum_", "all_to_all", "broadcast_",
+__all__ = ["InFlight", "all_gather", "all_reduce_sum_", "all_to_all",
+           "all_to_all_start", "broadcast_",
            "broadcast_seed", "gather_leaves", "group_rank", "initialize",
            "process_count", "process_index", "shard_batch", "to_host",
            "world"]

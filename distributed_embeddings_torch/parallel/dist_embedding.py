@@ -42,9 +42,15 @@ forward's exchange and overflow metrics. At world > 1 each of them runs
 on the id block this rank received, with this rank's plan rows and
 state.
 
-Not yet ported, each raising ``NotImplementedError`` with its ROADMAP
-item: the pipelined step's ``"serve"`` streaming form (A7b) and the
-``'raise'`` invalid-id policy (A12).
+The layer carries the step schedule the trainer runs (``schedule=``,
+``parallel/schedule.py``): the serialized step, or the K-microbatch
+pipelined step, which runs the forward in its three parts with the
+exchanges in flight, serves streaming ids read-only a microbatch
+(``streaming=(config, state, "serve")``) and stages the admissions once
+(:meth:`~DistributedEmbedding.streaming_stage`).
+
+Not yet ported, raising ``NotImplementedError`` with its ROADMAP item:
+the ``'raise'`` invalid-id policy (A12).
 
 Ids must lie in ``[0, input_dim)``; out-of-range ids CLIP in the
 forward (a negative id reads row 0, one past the table its last row),
@@ -67,6 +73,7 @@ from ..analysis import telemetry as tel
 from ..layers.embedding import default_embeddings_init
 from ..ops import packed_slab as ps
 from ..ops.embedding_lookup import Ragged, SparseIds, row_to_split
+from ..utils import obs
 from ..utils.convert import host_tensor
 from ..utils.device import resolve_device
 from . import apply as apply_mod
@@ -74,6 +81,7 @@ from . import bootstrap
 from . import exchange as exchange_mod
 from . import lookup as lookup_mod
 from . import plan as plan_mod
+from . import schedule as schedule_mod
 from .strategy import DistEmbeddingStrategy
 
 EmbedParams = Dict[str, torch.Tensor]
@@ -149,6 +157,23 @@ def _map_tensors(fn, tree):
         lambda v: fn(v) if isinstance(v, torch.Tensor) else v, tree)
 
 
+class _Forward:
+    """One forward between its parts (``DistributedEmbedding.
+    _forward_begin`` / ``_forward_lookup`` / ``_forward_finish``): the
+    pipelined step holds one a microbatch, with its exchanges in flight
+    (:class:`~.bootstrap.InFlight`)."""
+
+    __slots__ = ("local", "streaming", "tag", "in_flight", "plan", "encs",
+                 "b", "shapes", "ids", "ids_recv", "pending", "reds", "out")
+
+    def __init__(self, local, streaming, tag, in_flight):
+        self.local, self.streaming = local, streaming
+        self.tag, self.in_flight = tag, in_flight
+        self.plan = self.encs = self.b = self.shapes = None
+        self.ids = self.ids_recv = self.pending = self.reds = None
+        self.out = None
+
+
 class DistributedEmbedding:
     """Embedding tables behind one plan-driven lookup.
 
@@ -178,6 +203,17 @@ class DistributedEmbedding:
       masked_reads: out-of-range ids read a ZERO row instead of clipping.
       invalid_id_policy: ``'clamp'`` (default) or ``'drop'`` (forces
         ``masked_reads``).
+      schedule: the :class:`~.schedule.StepSchedule` the trainer's hybrid
+        step runs. ``None`` / ``"serialized"`` (default) is the
+        serialized step (streaming layers declare their admission-staging
+        overlap); ``"pipelined"``, or an explicit
+        :func:`~.schedule.pipelined_schedule`, opts into the K-microbatch
+        pipelined step (``DETPU_MICROBATCH`` resolves K for the string
+        form): the per-rank batch splits into K chains whose exchanges
+        stay in flight under the other microbatches' lookups and dense
+        compute, with gradients accumulated so the applied update matches
+        the serialized step (K=1 is the serialized step, launch for
+        launch; the per-rank batch must divide by K).
     """
 
     def __init__(self,
@@ -193,7 +229,8 @@ class DistributedEmbedding:
                  invalid_id_policy: str = "clamp",
                  table_loads: Optional[Sequence[float]] = None,
                  process_group=None,
-                 dp_input: bool = True):
+                 dp_input: bool = True,
+                 schedule=None):
         if row_slice is not None and (isinstance(row_slice, bool)
                                       or not isinstance(row_slice, int)):
             # bool subclasses int: row_slice=True would mean threshold 1
@@ -264,6 +301,10 @@ class DistributedEmbedding:
             slab_layout(self.strategy)
         self._plan_cache: Dict[tuple, plan_mod.ExchangePlan] = {}
         self._meta_cache: Dict[tuple, tuple] = {}
+        # the step schedule the trainer runs (parallel/schedule.py): K = 1
+        # is the serialized step, K > 1 the pipelined one
+        self.schedule = schedule_mod.resolve_schedule(
+            schedule, streaming=bool(self.streaming_tables))
 
     # ------------------------------------------------------------------ params
 
@@ -928,7 +969,7 @@ class DistributedEmbedding:
         return self.forward_with_residuals(params, inputs)[0]
 
     def forward_with_residuals(self, params: EmbedParams, inputs,
-                               streaming=None):
+                               streaming=None, phase_tag: str = ""):
         """Forward pass that also returns the routing residuals
         ``("dist", ids_block, encs, b)`` the sparse backward will read
         (``ids_block`` is the ``[world, l_max]`` block this rank RECEIVED:
@@ -944,8 +985,17 @@ class DistributedEmbedding:
         admissions; the return grows a third element, the per-width
         ``pending`` dict the trainer hands to :func:`.streaming.commit`.
         ``(config, state, False)`` is the read-only form (eval, serving):
-        remap only, a 2-tuple return. The residuals carry the REMAPPED
+        remap only, a 2-tuple return. ``(config, state, "serve")`` is the
+        pipelined step's per-microbatch form: the read-only remap (one
+        K16 read-only launch a width, nothing admitted) plus a third
+        element, this call's raw per-width
+        :class:`~.streaming.WidthStream` dict, which the step
+        concatenates over its microbatches for
+        :meth:`streaming_stage`. The residuals carry the REMAPPED
         block, so the backward and telemetry see in-range slab rows.
+
+        ``phase_tag`` suffixes every phase scope of this forward (the
+        pipelined step's ``_mb{k}`` microbatch instances).
 
         At world > 1 every rank of the group must call with its own rows
         of the batch: the ids go to their tables' ranks, each rank looks
@@ -954,9 +1004,26 @@ class DistributedEmbedding:
         table's slices summed in slice order). A ``dp_input=False`` layer
         takes an :class:`MpInputs` batch instead: its block (this rank's,
         see :class:`MpInputs`) IS the received id block, and the id
-        exchange does not run."""
+        exchange does not run.
+
+        The forward runs in three parts (:meth:`_forward_begin`,
+        :meth:`_forward_lookup`, :meth:`_forward_finish`), here back to
+        back; the pipelined step runs them apart, with each exchange left
+        in flight."""
+        return self._forward_finish(self._forward_lookup(
+            self._forward_begin(params, inputs, streaming, phase_tag)))
+
+    def _forward_begin(self, params: EmbedParams, inputs, streaming=None,
+                       tag: str = "", in_flight: bool = False
+                       ) -> "_Forward":
+        """The forward's first part: normalize the inputs, plan, build the
+        send blocks (K19) and start the id exchange (at world 1 the blocks
+        are the received block; with an :class:`MpInputs` batch the block
+        is taken as it is). ``in_flight`` leaves the exchange in flight;
+        else it completes here."""
         device = next(iter(params.values())).device
-        local = {k: v[0] for k, v in params.items()}
+        f = _Forward({k: v[0] for k, v in params.items()}, streaming, tag,
+                     in_flight)
         if isinstance(inputs, MpInputs) and self.world_size == 1:
             raise ValueError("world_size == 1 takes a plain input list (mp "
                              "and dp input coincide)")
@@ -965,12 +1032,12 @@ class DistributedEmbedding:
             if self.dp_input:
                 raise ValueError("an MpInputs batch needs a dp_input=False "
                                  "layer")
-            ids_recv, encs, b, plan = self._mp_block(inputs, device)
+            ids_recv, f.encs, f.b, f.plan = self._mp_block(inputs, device)
             if streaming is not None:  # the remap writes the block
                 ids_recv = ids_recv.clone()
-            return self._world_forward(plan, local, ids_recv, encs, b,
-                                       streaming)
-        entries, encs, shapes, comm_dtype = self._normalize_inputs(
+            f.ids = bootstrap.InFlight(ids_recv)
+            return f
+        entries, encs, f.shapes, comm_dtype = self._normalize_inputs(
             inputs, device)
 
         def batch_of(e):
@@ -979,55 +1046,78 @@ class DistributedEmbedding:
         b = batch_of(entries[0])
         if any(batch_of(e) != b for e in entries):
             raise ValueError("All inputs must share the batch dimension")
-        plan = self._get_plan(encs, b)
-        if self.world_size > 1:
-            ids_recv = exchange_mod.exchange_ids(self, plan, entries,
-                                                 comm_dtype, device)
-            return self._world_forward(plan, local, ids_recv, encs, b,
-                                       streaming)
-        ids_recv = exchange_mod.build_send_blocks(self, plan, entries,
-                                                  comm_dtype, device)
-        pending = None
-        if streaming is not None:
-            ids_recv, pending = self._streaming_remap(plan, ids_recv,
-                                                      streaming)
-        reds = lookup_mod.plan_lookup_groups(self, plan, local, ids_recv)
-        outs = []
-        for inst in plan.instances:  # worker order == input order here
-            g = plan.groups[inst.group]
-            red = reds[inst.group]  # [1, n, b, w]
-            if inst.num_slots == 1:
-                o = red[0, inst.slot0]
-            else:
-                o = red[0, inst.slot0:inst.slot0 + inst.num_slots
-                        ].transpose(0, 1).reshape(b, -1)
-            shape = shapes[inst.input_id]
-            if shape is not None and len(shape) >= 2:
-                comb = self.strategy.global_configs[
-                    self.strategy.input_table_map[inst.input_id]
-                ].get("combiner")
-                lead = shape[1:] if comb is None else shape[1:-1]
-                if comb is None or lead:
-                    o = o.reshape((b,) + tuple(lead) + (g.width,))
-            outs.append(o)
-        result = [outs[i] for i in self.strategy.rev_global_input_ids]
-        res = ("dist", ids_recv, tuple(encs), b)
-        return (result, res) if pending is None else (result, res, pending)
+        f.encs, f.b = encs, b
+        f.plan = plan = self._get_plan(encs, b)
+        if self.world_size == 1:
+            with obs.scope(schedule_mod.PHASE_ID_EXCHANGE + tag):
+                f.ids = bootstrap.InFlight(
+                    exchange_mod.build_send_blocks(self, plan, entries,
+                                                   comm_dtype, device))
+        elif in_flight:
+            f.ids = exchange_mod.exchange_ids_start(
+                self, plan, entries, comm_dtype, device, tag)
+        else:
+            f.ids = bootstrap.InFlight(exchange_mod.exchange_ids(
+                self, plan, entries, comm_dtype, device, tag))
+        return f
 
-    def _world_forward(self, plan, local, ids_recv, encs, b, streaming):
-        """The world > 1 forward from this rank's received id block: the
-        streaming remap (every sender's block), its lookups, the output
-        exchange and the unpack (column slices side by side, row slices
-        summed)."""
-        pending = None
-        if streaming is not None:
-            ids_recv, pending = self._streaming_remap(plan, ids_recv,
-                                                      streaming)
-        mp_out = lookup_mod.plan_lookup(self, plan, local, ids_recv)
-        dp_recv = exchange_mod.exchange_outputs(self, mp_out)
-        result = exchange_mod.unpack_outputs(self, plan, dp_recv)
-        res = ("dist", ids_recv, tuple(encs), b)
-        return (result, res) if pending is None else (result, res, pending)
+    def _forward_lookup(self, f: "_Forward") -> "_Forward":
+        """The forward's second part: wait for the received id block, run
+        the streaming remap, the lookups and (world > 1) start the output
+        exchange."""
+        ids_recv = exchange_mod.wait(
+            f.ids, schedule_mod.PHASE_ID_EXCHANGE + f.tag)
+        f.ids = None
+        if f.streaming is not None:
+            ids_recv, f.pending = self._streaming_remap(
+                f.plan, ids_recv, f.streaming, tag=f.tag)
+        f.ids_recv = ids_recv
+        if self.world_size == 1:
+            f.reds = lookup_mod.plan_lookup_groups(self, f.plan, f.local,
+                                                   ids_recv, tag=f.tag)
+            return f
+        mp_out = lookup_mod.plan_lookup(self, f.plan, f.local, ids_recv,
+                                        tag=f.tag)
+        f.out = (exchange_mod.exchange_outputs_start(self, mp_out, f.tag)
+                 if f.in_flight else bootstrap.InFlight(
+                     exchange_mod.exchange_outputs(self, mp_out, f.tag)))
+        return f
+
+    def _forward_finish(self, f: "_Forward"):
+        """The forward's last part: (world > 1) wait for the outputs and
+        unpack them (the column slices of a sliced table side by side,
+        row slices summed); the outputs in input order, the residuals and,
+        with streaming, the pending dict."""
+        plan, b = f.plan, f.b
+        if self.world_size > 1:
+            dp_recv = exchange_mod.wait(
+                f.out, schedule_mod.PHASE_OUT_EXCHANGE + f.tag)
+            f.out = None
+            result = exchange_mod.unpack_outputs(self, plan, dp_recv)
+        else:
+            outs = []
+            for inst in plan.instances:  # worker order == input order here
+                g = plan.groups[inst.group]
+                red = f.reds[inst.group]  # [1, n, b, w]
+                if inst.num_slots == 1:
+                    o = red[0, inst.slot0]
+                else:
+                    o = red[0, inst.slot0:inst.slot0 + inst.num_slots
+                            ].transpose(0, 1).reshape(b, -1)
+                shape = f.shapes[inst.input_id]
+                if shape is not None and len(shape) >= 2:
+                    comb = self.strategy.global_configs[
+                        self.strategy.input_table_map[inst.input_id]
+                    ].get("combiner")
+                    lead = shape[1:] if comb is None else shape[1:-1]
+                    if comb is None or lead:
+                        o = o.reshape((b,) + tuple(lead) + (g.width,))
+                outs.append(o)
+            result = [outs[i] for i in self.strategy.rev_global_input_ids]
+            f.reds = None
+        res = ("dist", f.ids_recv, tuple(f.encs), b)
+        return (result, res) if f.pending is None else (result, res,
+                                                        f.pending)
 
     # --------------------------------------------------------- streaming vocab
 
@@ -1068,7 +1158,7 @@ class DistributedEmbedding:
         self._meta_cache[key] = meta
         return meta
 
-    def _streaming_remap(self, plan, ids_recv, streaming):
+    def _streaming_remap(self, plan, ids_recv, streaming, tag: str = ""):
         """Remap every streaming-table slot's external ids in the id block
         ``[world, l_max]`` (one block per sender) through the slot map
         (:func:`.streaming.remap_width`, one call per width over the
@@ -1080,8 +1170,12 @@ class DistributedEmbedding:
         other slots, dead positions, negative ids, lengths and weights
         stay as they are. A width with no streaming slot on this rank is
         not remapped (its state stays as it is). Returns ``(ids_recv,
-        pending)``: ``{width: (staged_cms, remap)}`` in update mode, else
-        ``None``."""
+        pending)``: ``{width: (staged_cms, remap)}`` in update mode, in
+        the ``"serve"`` form (a read-only remap) ``{width: WidthStream}``,
+        the raw stream each width was remapped from (feed
+        :meth:`streaming_stage`), else ``None``. Each width runs under
+        ``streaming_serve_w{w}{tag}`` (serve) or ``streaming_admit_w{w}``
+        (the other forms)."""
         from . import streaming as smod
 
         if not self.streaming_tables:
@@ -1092,10 +1186,13 @@ class DistributedEmbedding:
             (config, sstate), update = streaming, True
         else:
             config, sstate, update = streaming
-        if update not in (True, False):
-            raise NotImplementedError(
-                f"streaming form {update!r}: the pipelined step's 'serve' "
-                "form is not ported yet: ROADMAP A7b")
+        if update not in (True, False, "serve"):
+            raise ValueError(
+                f"streaming form {update!r}: the third element is True "
+                "(stage admissions), False (read-only) or 'serve'")
+        serve = update == "serve"
+        if serve:
+            update = False
         dev, b = ids_recv.device, plan.b
         world = ids_recv.shape[0]
         per_width: Dict[int, list] = {}
@@ -1126,17 +1223,46 @@ class DistributedEmbedding:
             stream = smod.WidthStream(*(
                 torch.cat([p[j] for p in pieces]) if len(pieces) > 1
                 else pieces[0][j] for j in range(6)))
-            remapped[w], pend = smod.remap_width(
-                sstate[_wkey(w)], stream, self.rows_cap[w], config,
-                update=update)
-            if pend is not None:
+            with obs.scope(f"streaming_serve_w{w}{tag}" if serve
+                           else f"streaming_admit_w{w}"):
+                remapped[w], pend = smod.remap_width(
+                    sstate[_wkey(w)], stream, self.rows_cap[w], config,
+                    update=update)
+            if serve:
+                pending[w] = stream
+            elif pend is not None:
                 pending[w] = pend
         for g, region, slots, start, vals, live in sites:
             new = remapped[g.width][start:start + vals.numel()].view(
                 vals.shape)
             new = torch.where(live & (vals >= 0), new.to(vals.dtype), vals)
             region[:, slots, :vals.shape[2]] = new
-        return ids_recv, (pending if update else None)
+        return ids_recv, (pending if update or serve else None)
+
+    def streaming_stage(self, width_streams, config, sstate):
+        """The pipelined step's ONE admission-staging pass: concatenate
+        each width's raw external-id streams (the ``"serve"`` form's third
+        return of :meth:`forward_with_residuals`, one dict a microbatch)
+        in microbatch order and run :func:`.streaming.remap_width` in
+        update mode over the result (one K16 update a width), under the
+        ``streaming_admit_w{w}`` scope: the stream of the serialized
+        step, microbatch-major, as the JAX package orders it. ``sstate``
+        is the local streaming state. Returns the ``pending`` dict
+        :func:`.streaming.commit` takes."""
+        from . import streaming as smod
+
+        widths = sorted({w for ws in width_streams for w in ws})
+        pending: Dict[int, tuple] = {}
+        for w in widths:
+            parts = [ws[w] for ws in width_streams if w in ws]
+            stream = smod.WidthStream(*(
+                torch.cat([getattr(p, f) for p in parts]) if len(parts) > 1
+                else getattr(parts[0], f) for f in smod.WidthStream._fields))
+            with obs.scope(f"streaming_admit_w{w}"):
+                _, pending[w] = smod.remap_width(
+                    sstate[_wkey(w)], stream, self.rows_cap[w], config,
+                    update=True)
+        return pending
 
     # ----------------------------------------------------------- observability
 

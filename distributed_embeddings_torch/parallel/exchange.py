@@ -15,8 +15,11 @@ of K19 (:func:`~..ops.exchange_pack.pack_ids`, the id blocks) or K20
 The collectives run over the layer's process group
 (:mod:`.bootstrap`): the dp->mp id exchange (:func:`exchange_ids`), the
 mp->dp output exchange (:func:`exchange_outputs`) and the reverse
-cotangent exchange (:func:`exchange_grads`). At world 1 each is a
-passthrough and no collective runs.
+cotangent exchange (:func:`exchange_grads`). Each is a start that leaves
+the all-to-all in flight (``*_start``, an :class:`~.bootstrap.InFlight`)
+followed by its :func:`wait`: the serialized step waits at once, the
+pipelined step later. At world 1 each is a passthrough and no
+collective runs.
 
 :func:`assemble_cells` (the JAX package's concatenation of cells) stays
 as the reference layout: :func:`build_send_blocks_plain` and
@@ -31,7 +34,9 @@ from typing import Dict, List
 import torch
 
 from ..ops.exchange_pack import CopyPlan, pack_columns, pack_ids
+from ..utils import obs
 from . import bootstrap
+from . import schedule
 
 # Marks exchange-layout cells covered by a multi-cell content array placed
 # at an earlier slot (no-combiner multi-hot features span `hotness` slots).
@@ -372,28 +377,70 @@ def unpack_outputs(de, plan, dp_recv) -> List[torch.Tensor]:
 # ------------------------------------------------------------ collectives
 
 
-def exchange_ids(de, plan, entries, comm_dtype, device) -> torch.Tensor:
-    """The dp->mp id exchange: assemble the send blocks and run the
-    all-to-all; ``recv[r]`` is source rank ``r``'s block for this rank."""
-    send = build_send_blocks(de, plan, entries, comm_dtype, device)
-    return bootstrap.all_to_all(send, de.process_group, de.world_size)
+def wait(pending: bootstrap.InFlight, phase: str) -> torch.Tensor:
+    """Wait for an exchange in flight, under its ``<phase>_wait`` scope
+    (``phase`` the exchange's scope name, microbatch tag included)."""
+    with obs.scope(f"{phase}_wait"):
+        return pending.wait()
 
 
-def exchange_outputs(de, mp_out: torch.Tensor) -> torch.Tensor:
-    """The mp->dp activation exchange: ``dp_recv[r]`` is this rank's
-    batch as computed by source rank ``r``."""
-    return bootstrap.all_to_all(mp_out, de.process_group, de.world_size)
+def exchange_ids_start(de, plan, entries, comm_dtype, device, tag: str = ""
+                       ) -> bootstrap.InFlight:
+    """Start the dp->mp id exchange: assemble the send blocks (K19) and
+    leave the all-to-all in flight, under the ``id_all_to_all{tag}``
+    scope. ``.wait()`` gives ``recv``: ``recv[r]`` is source rank ``r``'s
+    block for this rank."""
+    with obs.scope(schedule.PHASE_ID_EXCHANGE + tag):
+        send = build_send_blocks(de, plan, entries, comm_dtype, device)
+        return bootstrap.all_to_all_start(send, de.process_group,
+                                          de.world_size)
 
 
-def exchange_grads(de, packed: torch.Tensor) -> torch.Tensor:
-    """The reverse cotangent exchange (what autodiff of the forward
-    exchange would insert). World 1 is a passthrough."""
-    return bootstrap.all_to_all(packed, de.process_group, de.world_size)
+def exchange_ids(de, plan, entries, comm_dtype, device, tag: str = ""
+                 ) -> torch.Tensor:
+    """The dp->mp id exchange: :func:`exchange_ids_start`, then its
+    wait."""
+    return wait(exchange_ids_start(de, plan, entries, comm_dtype, device,
+                                   tag), schedule.PHASE_ID_EXCHANGE + tag)
+
+
+def exchange_outputs_start(de, mp_out: torch.Tensor, tag: str = ""
+                           ) -> bootstrap.InFlight:
+    """Start the mp->dp activation exchange (``out_all_to_all{tag}``):
+    ``.wait()`` gives ``dp_recv``, ``dp_recv[r]`` this rank's batch as
+    computed by source rank ``r``."""
+    with obs.scope(schedule.PHASE_OUT_EXCHANGE + tag):
+        return bootstrap.all_to_all_start(mp_out, de.process_group,
+                                          de.world_size)
+
+
+def exchange_outputs(de, mp_out: torch.Tensor, tag: str = ""
+                     ) -> torch.Tensor:
+    """The mp->dp activation exchange: :func:`exchange_outputs_start`,
+    then its wait."""
+    return wait(exchange_outputs_start(de, mp_out, tag),
+                schedule.PHASE_OUT_EXCHANGE + tag)
+
+
+def exchange_grads_start(de, packed: torch.Tensor) -> bootstrap.InFlight:
+    """Start the reverse cotangent exchange (what autodiff of the forward
+    exchange would insert) on the packed ``[world, b, s_max]`` blocks.
+    World 1 is a passthrough."""
+    return bootstrap.all_to_all_start(packed, de.process_group,
+                                      de.world_size)
+
+
+def exchange_grads(de, packed: torch.Tensor, tag: str = "") -> torch.Tensor:
+    """The reverse cotangent exchange: :func:`exchange_grads_start`, then
+    its wait."""
+    return wait(exchange_grads_start(de, packed),
+                schedule.PHASE_GRAD_EXCHANGE + tag)
 
 
 __all__: List[str] = [
     "assemble_cells", "build_send_blocks", "build_send_blocks_plain",
-    "exchange_grads", "exchange_ids", "exchange_outputs",
+    "exchange_grads", "exchange_grads_start", "exchange_ids",
+    "exchange_ids_start", "exchange_outputs", "exchange_outputs_start",
     "lookup_copy_plan", "pack_grad_blocks", "pack_grad_blocks_plain",
     "pack_lookup_rows",
-    "slice_map", "unpack_outputs"]
+    "slice_map", "unpack_outputs", "wait"]

@@ -40,6 +40,7 @@ import torch
 
 from ..ops.embedding_lookup import (gather_combine, lengths_to_splits,
                                     ragged_combine)
+from ..utils import obs
 from . import exchange as exchange_mod
 
 
@@ -58,39 +59,47 @@ def region_views(g, b: int, region: torch.Tensor):
     return values, lengths, wbits
 
 
-def plan_lookup(de, plan, params, ids_recv) -> torch.Tensor:
+def plan_lookup(de, plan, params, ids_recv, tag: str = "") -> torch.Tensor:
     """All this rank's lookups in exchange-row layout ``[world, b,
     s_max]`` in ``compute_dtype`` (the cast before the output exchange,
     reference ``dist_model_parallel.py:300``): one launch per group, then
     ONE K20 launch that places every (source rank, slot) block at its
     columns, casting on the way; the columns of this rank's dead slots
-    are zero."""
+    are zero. ``tag``: the microbatch tag of the groups' scopes."""
     reds = [lookup_group(de, plan, gi, g, params[_wkey(g.width)], ids_recv,
-                         plan.b, out_dtype=params[_wkey(g.width)].dtype)
+                         plan.b, out_dtype=params[_wkey(g.width)].dtype,
+                         tag=tag)
             for gi, g in enumerate(plan.groups)]
     slab = next(iter(params.values()))
     return exchange_mod.pack_lookup_rows(
         de, plan, reds, de.compute_dtype or slab.dtype, slab.device)
 
 
-def plan_lookup_groups(de, plan, params, ids_recv) -> List[torch.Tensor]:
+def plan_lookup_groups(de, plan, params, ids_recv, tag: str = ""
+                       ) -> List[torch.Tensor]:
     """Per-group combined lookups in slot-major ``[world, n, b, width]``
     layout, cast to the layer's ``compute_dtype``."""
     sections = []
     for gi, g in enumerate(plan.groups):
         red = lookup_group(de, plan, gi, g, params[_wkey(g.width)],
-                           ids_recv, plan.b)
+                           ids_recv, plan.b, tag=tag)
         dt = de.compute_dtype
         sections.append(red.to(dt) if dt is not None else red)
     return sections
 
 
 def lookup_group(de, plan, gi: int, g, slab, ids_recv, b: int,
-                 out_dtype=None) -> torch.Tensor:
-    """One exchange group's combined lookup ``[world, n, b, width]``.
-    ``slab`` is this rank's ``[rows_cap, w]``; a ragged group's output is
-    in ``out_dtype`` (default the compute dtype, else the slab's), a
-    dense group's in the slab's."""
+                 out_dtype=None, tag: str = "") -> torch.Tensor:
+    """One exchange group's combined lookup ``[world, n, b, width]``,
+    under the ``lookup_w{w}_{kind}{tag}`` scope. ``slab`` is this rank's
+    ``[rows_cap, w]``; a ragged group's output is in ``out_dtype``
+    (default the compute dtype, else the slab's), a dense group's in the
+    slab's."""
+    with obs.scope(f"lookup_w{g.width}_{g.kind}{tag}"):
+        return _lookup_group(de, plan, gi, g, slab, ids_recv, b, out_dtype)
+
+
+def _lookup_group(de, plan, gi, g, slab, ids_recv, b, out_dtype):
     world = de.world_size
     rows, roff, div, mask = de._plan_meta(plan, gi, slab.device, reps=world)
     rbase = de._plan_rbase(plan, gi, slab.device, reps=world)

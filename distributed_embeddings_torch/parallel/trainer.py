@@ -39,8 +39,19 @@ through both as extra arguments and results, telemetry first; at world
 :data:`~..utils.obs.STEP_METRIC_KEYS` dict beside the loss and state; at
 world > 1 every rank gets every rank's metrics, gathered in rank order
 into JAX's ``[world]`` and ``[world, n_tables]`` vectors by one
-collective. Not yet ported: microbatch schedules (the pipelined step,
-A7b).
+collective.
+
+A layer built with a pipelined schedule (``DistributedEmbedding(...,
+schedule="pipelined")`` or ``schedule=pipelined_schedule(K)``,
+``parallel/schedule.py``) runs the K-microbatch pipelined step
+(:func:`_pipelined_local_step`) in the train step and the loop: the
+rank's batch splits into K microbatches whose id, output and cotangent
+exchanges stay in flight (``torch.distributed``'s ``async_op``) under
+the other microbatches' lookups and dense compute, on the one compute
+stream, with the losses, dense gradients and per-width update streams
+accumulated so the applied update is the serialized step's up to float
+summation order. K = 1 runs the serialized step. The eval step stays
+serialized.
 """
 
 from __future__ import annotations
@@ -51,11 +62,13 @@ import torch
 from torch.utils import _pytree as pytree
 
 from ..analysis import telemetry as tel
-from ..ops.embedding_lookup import Ragged, SparseIds
+from ..ops.embedding_lookup import Ragged, SparseIds, row_to_split
 from ..ops.grad_health import grad_health
 from ..utils import obs
+from . import apply as apply_mod
 from . import bootstrap
 from . import grads as grads_mod
+from . import schedule as schedule_mod
 from . import streaming as smod
 from .dist_embedding import MpInputs
 
@@ -242,6 +255,15 @@ def _hybrid_local_step(de, loss_fn, dense_tx, emb_optimizer, lr_schedule,
     on the averaged dense gradients (the guard's dense energy and
     ``dense_grad_norm``); the metrics of every rank are gathered after.
     """
+    K = _microbatch_count(de)
+    if K > 1:
+        return _pipelined_local_step(
+            de, loss_fn, dense_tx, emb_optimizer, lr_schedule, state,
+            cat_inputs, batch, K, nan_guard=nan_guard,
+            telemetry_cfg=telemetry_cfg, telem=telem,
+            streaming_cfg=streaming_cfg, sstate=sstate,
+            with_metrics=with_metrics)
+    pending = None
     with torch.no_grad():
         if streaming_cfg is not None:
             outs, res, pending = de.forward_with_residuals(
@@ -251,29 +273,59 @@ def _hybrid_local_step(de, loss_fn, dense_tx, emb_optimizer, lr_schedule,
             outs, res = de.forward_with_residuals(state.emb_params,
                                                   cat_inputs)
         if telemetry_cfg is not None:
-            de.update_telemetry(tel.local_state(telem), res, telemetry_cfg)
+            with obs.scope("telemetry"):
+                de.update_telemetry(tel.local_state(telem), res,
+                                    telemetry_cfg)
+    loss, dense_grads, out_grads = _dense_forward_backward(
+        state, loss_fn, outs, batch)
+    loss, dense_grads, health, ok = _guard(
+        de, loss, dense_grads, list(out_grads), nan_guard, with_metrics)
+    lr = lr_schedule(state.step) if callable(lr_schedule) else lr_schedule
+    return _apply_and_finish(
+        de, state, dense_tx, emb_optimizer, lambda: de.sparse_apply_gradients(
+            state.emb_params, state.emb_opt_state, res, list(out_grads),
+            emb_optimizer, lr, enable=ok),
+        dense_grads, loss, ok, nan_guard, streaming_cfg, pending, sstate,
+        with_metrics, health, len(out_grads), lr, [res],
+        out_grads[0].dtype if out_grads else None)
+
+
+def _dense_forward_backward(state, loss_fn, outs, batch, tag: str = ""):
+    """The dense model's forward and one backward (the
+    ``dense_forward_backward{tag}`` phase): the loss (detached), the dense
+    gradients and the embedding outputs' cotangents. The outputs enter
+    as detached leaves: no graph edge reaches a slab."""
     outs = [o.detach().requires_grad_() for o in outs]
     params = list(state.dense_params.parameters())
-    with torch.enable_grad():
+    with obs.scope(schedule_mod.PHASE_DENSE + tag), torch.enable_grad():
         loss = loss_fn(state.dense_params, outs, batch)
         grads = torch.autograd.grad(loss, params + outs)
-    dense_grads, out_grads = list(grads[:len(params)]), grads[len(params):]
-    loss = loss.detach()
+    return loss.detach(), list(grads[:len(params)]), grads[len(params):]
 
-    # K21 gives the energies the guard reads: 0 * (embedding-cotangent
-    # energy) is 0 when finite and NaN otherwise
+
+def _guard(de, loss, dense_grads, out_grads, nan_guard, with_metrics):
+    """K21 and, at world > 1, the one all-reduce: returns ``(loss, dense
+    gradients, health, ok)``, the loss and dense gradients averaged over
+    the ranks, ``health`` K21's ``[3, n_out + n_dense]`` (``None`` when
+    neither the guard nor the metrics ask) and ``ok`` the guard's verdict
+    (``None`` without the guard).
+
+    The guard reads the energies K21 gives: 0 * (embedding-cotangent
+    energy) is 0 when finite and NaN otherwise. At world > 1 the JAX
+    step's pmeans of the loss, the dense gradients and that probe are
+    ONE all-reduce (``dense_all_reduce``), so a NaN on any rank reaches
+    every rank and all skip together; K21 runs on the local cotangents
+    before it and on the averaged dense gradients after it."""
     n_out = len(out_grads)
     health = probe = dense_sq = None
     if de.world_size > 1:
         if nan_guard or with_metrics:
-            health = grad_health(list(out_grads))
+            health = grad_health(out_grads)
             probe = 0.0 * health[0].sum()
-        # the JAX step's pmeans of the loss, the dense gradients and the
-        # probe, as one all-reduce: a NaN on any rank reaches every rank
-        # and all skip together
         extra = [loss] + ([probe] if nan_guard else [])
-        means = grads_mod.mean_flat(extra + dense_grads, de.process_group,
-                                    de.world_size)
+        with obs.scope("dense_all_reduce"):
+            means = grads_mod.mean_flat(extra + dense_grads,
+                                        de.process_group, de.world_size)
         loss, dense_grads = means[0], means[len(extra):]
         if nan_guard:
             probe = means[1]
@@ -282,19 +334,29 @@ def _hybrid_local_step(de, loss_fn, dense_tx, emb_optimizer, lr_schedule,
                 health = torch.cat([health, grad_health(dense_grads)], 1)
             dense_sq = health[0, n_out:].sum()
     elif nan_guard or with_metrics:
-        health = grad_health(list(out_grads) + dense_grads)
+        health = grad_health(out_grads + dense_grads)
         probe = 0.0 * health[0, :n_out].sum()
         dense_sq = health[0, n_out:].sum()
     ok = None
     if nan_guard:
         ok = (torch.isfinite(loss.float()) & torch.isfinite(dense_sq)
               & torch.isfinite(probe))
+    return loss, dense_grads, health, ok
 
-    lr = lr_schedule(state.step) if callable(lr_schedule) else lr_schedule
+
+def _apply_and_finish(de, state, dense_tx, emb_optimizer, sparse_apply,
+                      dense_grads, loss, ok, nan_guard, streaming_cfg,
+                      pending, sstate, with_metrics, health, n_out, lr,
+                      res_list, out_dtype):
+    """The step from its sparse apply on, shared by the serialized and the
+    pipelined step: ``sparse_apply()`` (the per-slab scatters, in place)
+    with the guard's select of the small optimizer leaves around it, the
+    streaming commit, the dense update (K22) and the metrics (each
+    residual's ``step_metrics`` summed, ``out_pad_frac`` kept from the
+    first, as JAX sums its microbatches')."""
     small = _small_leaves(de, state.emb_opt_state) if nan_guard else []
     before = [t.clone() for t in small]
-    de.sparse_apply_gradients(state.emb_params, state.emb_opt_state, res,
-                              list(out_grads), emb_optimizer, lr, enable=ok)
+    sparse_apply()
     with torch.no_grad():
         for t, old in zip(small, before):
             # the sparse apply advanced it in place: keep the old value
@@ -302,22 +364,231 @@ def _hybrid_local_step(de, loss_fn, dense_tx, emb_optimizer, lr_schedule,
             t.copy_(torch.where(ok, t, old))
         sstats = None
         if streaming_cfg is not None:
-            sstats = smod.commit(
-                de, de.local_view(state.emb_params), pending,
-                smod.local_state(sstate), enable=ok,
-                opt_state=de.local_view(state.emb_opt_state),
-                optimizer=emb_optimizer)
-    new_state = _apply_dense_and_assemble(state, dense_grads, dense_tx, ok,
-                                          nan_guard)
+            with obs.scope("streaming_commit"):
+                sstats = smod.commit(
+                    de, de.local_view(state.emb_params), pending,
+                    smod.local_state(sstate), enable=ok,
+                    opt_state=de.local_view(state.emb_opt_state),
+                    optimizer=emb_optimizer)
+    with obs.scope("dense_update"):
+        new_state = _apply_dense_and_assemble(state, dense_grads, dense_tx,
+                                              ok, nan_guard)
     if not with_metrics:
         return loss, new_state
-    metrics = _finish_metrics(
-        de, de.step_metrics(
-            res, out_dtype=out_grads[0].dtype if out_grads else None),
-        health, n_out, loss, ok, state, sstats, lr)
+    metrics = None
+    for res in res_list:
+        m = de.step_metrics(res, out_dtype=out_dtype)
+        if metrics is None:
+            metrics = m
+            continue
+        for k in m:
+            if k != "out_pad_frac":  # a plan tally, equal per microbatch
+                metrics[k] = metrics[k] + m[k]
+    metrics = _finish_metrics(de, metrics, health, n_out, loss, ok, state,
+                              sstats, lr)
     if de.world_size > 1:
         metrics = _gather_metrics(de, metrics)
     return loss, new_state, metrics
+
+
+def _microbatch_count(de) -> int:
+    """The schedule's microbatch count the step builders split by (1: the
+    serialized step)."""
+    return int(getattr(getattr(de, "schedule", None), "microbatches", 1)
+               or 1)
+
+
+def _microbatch_inputs(cat_inputs, batch, K: int):
+    """Split one rank's batch into K microbatches along the leading batch
+    dimension: ``[(cat_inputs_k, batch_k), ...]`` (JAX
+    ``_microbatch_inputs``).
+
+    Dense categorical inputs and every tensor of ``batch`` take rows
+    ``[k*b/K, (k+1)*b/K)`` (views). A
+    :class:`~..ops.embedding_lookup.Ragged` keeps its FULL static
+    capacity a microbatch (a skewed microbatch may hold most of the ids):
+    its values (and weights) are gathered from the CSR offset of the
+    microbatch's first row, the index clipped to ``capacity - 1`` (JAX's
+    ``mode="clip"``), and its row splits rebased to 0; the offset stays
+    on the device (no host read). A :class:`~..ops.embedding_lookup.
+    SparseIds` goes to CSR first (``row_to_split``, K10 on the card).
+    ``b % K != 0`` raises ``ValueError`` (unequal microbatches would break
+    the exact mean-of-means loss accumulation)."""
+
+    def norm(x):
+        if isinstance(x, SparseIds):
+            values = torch.as_tensor(x.values)
+            return Ragged(values=values,
+                          row_splits=row_to_split(
+                              torch.as_tensor(x.indices).to(values.device),
+                              x.dense_shape[0], dtype=values.dtype),
+                          weights=x.weights)
+        if isinstance(x, Ragged):
+            return Ragged(values=torch.as_tensor(x.values),
+                          row_splits=torch.as_tensor(x.row_splits),
+                          weights=(None if x.weights is None
+                                   else torch.as_tensor(x.weights)))
+        return torch.as_tensor(x)
+
+    cats = [norm(c) for c in cat_inputs]
+
+    def rows_of(x):
+        return (x.row_splits.shape[0] - 1 if isinstance(x, Ragged)
+                else x.shape[0])
+
+    if cats:
+        b = rows_of(cats[0])
+    else:
+        b = pytree.tree_leaves(batch)[0].shape[0]
+    if b % K:
+        raise ValueError(
+            f"pipelined step: per-rank batch {b} does not divide into {K} "
+            "microbatches; pick K | batch (DETPU_MICROBATCH / the "
+            "pipelined_schedule argument)")
+    mbb = b // K
+
+    def slice_cat(x, k):
+        if isinstance(x, Ragged):
+            splits = x.row_splits
+            lo = splits[k * mbb]
+            sub = splits[k * mbb:(k + 1) * mbb + 1] - lo
+            cap = x.values.shape[0]
+            idx = (lo + torch.arange(cap, dtype=splits.dtype,
+                                     device=splits.device)).clamp_(
+                0, cap - 1)
+            vals = x.values.index_select(0, idx)
+            wts = (None if x.weights is None
+                   else x.weights.index_select(0, idx))
+            return Ragged(values=vals, row_splits=sub, weights=wts)
+        return x[k * mbb:(k + 1) * mbb]
+
+    out = []
+    for k in range(K):
+        batch_k = pytree.tree_map(
+            lambda a, k=k: a[k * mbb:(k + 1) * mbb]
+            if isinstance(a, torch.Tensor) else a, batch)
+        out.append(([slice_cat(c, k) for c in cats], batch_k))
+    return out
+
+
+def _pipelined_local_step(de, loss_fn, dense_tx, emb_optimizer, lr_schedule,
+                          state, cat_inputs, batch, K, nan_guard=False,
+                          telemetry_cfg=None, telem=None, streaming_cfg=None,
+                          sstate=None, with_metrics=False):
+    """The K-microbatch pipelined hybrid step (JAX
+    ``_pipelined_local_step``; run when ``de.schedule`` has ``microbatches
+    > 1``, with the serialized step's arguments and results).
+
+    JAX leaves the overlap to XLA's scheduler; eager PyTorch issues it in
+    this order, on one compute stream, every rank issuing its collectives
+    in the same order:
+
+    1. every microbatch's send blocks (K19), its id exchange started;
+    2. per microbatch: wait for its ids, the read-only streaming serve
+       (K16), the lookups (K1, K8 + K10), the lookup rows (K20), its
+       output exchange started;
+    3. per microbatch: wait for its outputs, unpack them (K20), its dense
+       forward/backward, its cotangents packed (K20) and their exchange
+       started;
+    4. with the cotangent exchanges in flight: the telemetry fold over
+       every microbatch's residuals (one K13 + K14 pool + K15 a width),
+       the one admission-staging pass (:meth:`~.dist_embedding.
+       DistributedEmbedding.streaming_stage`, one K16 update a width),
+       the accumulated loss and dense gradients, the guard's probe on the
+       concatenated cotangents (K21) and the one all-reduce;
+    5. per microbatch: wait for its cotangents and rebuild its streams
+       (K9, K10); then ONE apply a width slab over the streams
+       concatenated microbatch-major, scaled by ``1/(world K)``, the
+       commit (K17), the dense update (K22) and the metrics.
+
+    Numerics are JAX's, in JAX's order: ``loss = sum(losses[1:],
+    losses[0]) * (1/K)``; the dense gradients summed the same way, times
+    1/K, then averaged over the ranks; the concatenated cotangents (each
+    input's over the microbatches, times 1/K) feed the probe, the
+    sentinels and the norms. Like JAX's, it relies on ``loss_fn`` being an
+    unweighted mean over the rank's batch (then each microbatch's
+    cotangents are K times the full batch's, and the 1/K undoes it
+    exactly for a power-of-two K). The step metrics sum over the
+    microbatches (``out_pad_frac`` excepted). ``dp_input=False`` raises
+    ``NotImplementedError``, as JAX does: model-parallel input has no id
+    exchange to hide."""
+    if not de.dp_input:
+        raise NotImplementedError(
+            "pipelined schedules need dp inputs: mp-input mode has no id "
+            "exchange to hide (use dp_input=True or a serialized "
+            "schedule)")
+    world = de.world_size
+    mbs = _microbatch_inputs(cat_inputs, batch, K)
+    tags = [schedule_mod.microbatch_tag(k) for k in range(K)]
+    serve = (None if streaming_cfg is None else
+             (streaming_cfg, smod.local_state(sstate), "serve"))
+    with torch.no_grad():
+        fwds = [de._forward_begin(state.emb_params, cats_k, serve, tag,
+                                  in_flight=True)
+                for (cats_k, _), tag in zip(mbs, tags)]
+        for f in fwds:
+            de._forward_lookup(f)
+    losses, dense_list, out_list, res_list, serve_list, cots = (
+        [], [], [], [], [], [])
+    fallback = next(iter(state.emb_params.values())).dtype
+    for (_, batch_k), f, tag in zip(mbs, fwds, tags):
+        with torch.no_grad():
+            fwd = de._forward_finish(f)
+        outs, res = fwd[0], fwd[1]
+        if serve is not None:
+            serve_list.append(fwd[2])
+        loss_k, dgrads_k, ograds_k = _dense_forward_backward(
+            state, loss_fn, outs, batch_k, tag)
+        with torch.no_grad():
+            cots.append(apply_mod.cotangent_exchange(
+                de, res, list(ograds_k), fallback_dtype=fallback, tag=tag,
+                in_flight=True))
+        losses.append(loss_k)
+        dense_list.append(dgrads_k)
+        out_list.append(ograds_k)
+        res_list.append(res)
+    del fwds
+
+    with torch.no_grad():
+        if telemetry_cfg is not None:
+            with obs.scope("telemetry"):
+                de.update_telemetry(tel.local_state(telem), res_list,
+                                    telemetry_cfg)
+        pending = None
+        if serve is not None:
+            pending = de.streaming_stage(serve_list, streaming_cfg,
+                                         smod.local_state(sstate))
+        inv_k = 1.0 / K
+        loss = sum(losses[1:], losses[0]) * inv_k
+        dense_grads = [sum(gs[1:], gs[0]) * inv_k
+                       for gs in zip(*dense_list)]
+        cat_grads = [torch.cat([og[i] for og in out_list], 0) * inv_k
+                     for i in range(len(out_list[0]))]
+        loss, dense_grads, health, ok = _guard(
+            de, loss, dense_grads, cat_grads, nan_guard, with_metrics)
+    lr = lr_schedule(state.step) if callable(lr_schedule) else lr_schedule
+
+    def sparse_apply():
+        # each microbatch's cotangents rebuilt into its streams (K9, K10),
+        # merged microbatch-major into ONE scatter a width slab
+        per_width = {}
+        with torch.no_grad():
+            for cot in cots:
+                for key, tris in apply_mod.cotangent_streams_finish(
+                        de, cot).items():
+                    per_width.setdefault(key, []).extend(tris)
+            opt_state = state.emb_opt_state
+            apply_mod.apply_width_streams(
+                de, de.local_view(state.emb_params),
+                de.local_view(opt_state) if isinstance(opt_state, dict)
+                else opt_state, per_width, emb_optimizer, lr,
+                scale=1.0 / (world * K), enable=ok)
+
+    return _apply_and_finish(
+        de, state, dense_tx, emb_optimizer, sparse_apply, dense_grads, loss,
+        ok, nan_guard, streaming_cfg, pending, sstate, with_metrics, health,
+        len(cat_grads), lr, res_list,
+        cat_grads[0].dtype if cat_grads else None)
 
 
 def _with_aux_signature(core, tel_on: bool, dyn_on: bool):

@@ -7,7 +7,8 @@ switches (``DETPU_OBS``, ``DETPU_NANGUARD``, ``DETPU_SGD_DEDUP``), the
 checkpoint and fault knobs (``DETPU_CKPT_RING``, ``DETPU_FAULT``,
 ``DETPU_ON_MISMATCH``), the access-telemetry geometry
 (``DETPU_TELEMETRY*``) and the streaming-vocab policy
-(``DETPU_ADMIT_*``, ``DETPU_EVICT_MARGIN``), with the JAX
+(``DETPU_ADMIT_*``, ``DETPU_EVICT_MARGIN``) and the pipelined step's
+microbatch count (``DETPU_MICROBATCH``), with the JAX
 package's names and defaults, so one environment configures
 both packages alike.
 """
@@ -156,3 +157,16 @@ declare("DETPU_EVICT_MARGIN", default="1",
         doc="approximate-LFU eviction margin: a claim on an occupied "
             "slot succeeds only when the incoming estimate >= occupant "
             "frequency + margin (0 = ties evict)")
+
+# the pipelined step's microbatch count (parallel/schedule.py)
+declare("DETPU_MICROBATCH", default="2",
+        doc="microbatch count K of steps built with a pipelined schedule "
+            "(parallel.schedule.pipelined_schedule(K=None) resolves K "
+            "here; only schedule='pipelined' opt-ins read it, the "
+            "default schedule stays serialized regardless). The per-rank "
+            "batch splits into K chains whose exchanges stay in flight "
+            "under the other microbatches' lookups and dense compute, "
+            "with gradients accumulated so the applied update matches "
+            "the serialized step (K=1 IS the serialized step; the opt-in "
+            "default is 2 so asking for a pipeline builds one). The "
+            "per-rank batch must divide by K")

@@ -5,17 +5,19 @@ calls): the two readers ``make_hybrid_train_step`` and
 ``make_hybrid_train_loop`` call (read when a step is BUILT), the key
 tuples of the instrumented step's metrics dict (the port's own copy of
 JAX's), :func:`summarize` of one metrics dict, :class:`MetricsLogger`,
-and the counters and structured events the checkpoint codec and the
-fault points record."""
+the counters and structured events the checkpoint codec and the fault
+points record, and the step's phase scopes (:func:`scope`, named as
+``parallel/schedule.py`` names the phases)."""
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
 import threading
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, Iterator, List, Optional
 
 from . import envvars
 
@@ -23,6 +25,9 @@ logger = logging.getLogger(__name__)
 
 OBS_ENV = "DETPU_OBS"
 NANGUARD_ENV = "DETPU_NANGUARD"
+
+#: prefix of every phase scope's profiler range (``detpu/<name>``)
+SCOPE_PREFIX = "detpu"
 
 #: Keys of the instrumented step's metrics dict (``with_metrics=True`` /
 #: ``DETPU_OBS=1``). Every value is a per-rank ``[world]`` tensor (JAX's
@@ -77,6 +82,59 @@ def nanguard_enabled() -> bool:
     (``DETPU_NANGUARD`` unset or truthy); ``DETPU_NANGUARD=0`` builds the
     unguarded step."""
     return envvars.enabled(NANGUARD_ENV)
+
+
+# ------------------------------------------------------------ phase scopes
+
+#: the list :func:`phase_log` collects scope names into (None: off)
+_phase_log: Optional[List[str]] = None
+
+
+class scope:
+    """``with obs.scope(name):`` marks one phase of the step: a
+    ``torch.profiler.record_function("detpu/<name>")`` range while a
+    profiler records (the port's counterpart of JAX's
+    ``jax.named_scope``), the name appended to the active
+    :func:`phase_log`, and nothing else (no profiler, no log: two
+    checks). The names are ``parallel/schedule.py``'s phases, with the
+    pipelined step's ``_mb{k}`` tags; a wait on an exchange in flight is
+    ``<phase>_wait``."""
+
+    __slots__ = ("name", "_rf")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._rf = None
+
+    def __enter__(self):
+        import torch
+
+        if _phase_log is not None:
+            _phase_log.append(self.name)
+        if torch.autograd._profiler_enabled():
+            self._rf = torch.profiler.record_function(
+                f"{SCOPE_PREFIX}/{self.name}")
+            self._rf.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
+            self._rf = None
+        return False
+
+
+@contextlib.contextmanager
+def phase_log() -> Iterator[List[str]]:
+    """Collect the names of the scopes entered inside the block, in the
+    order the host entered them (the order the step issued its phases:
+    the tests read the pipelined step's schedule from it)."""
+    global _phase_log
+    saved, _phase_log = _phase_log, []
+    try:
+        yield _phase_log
+    finally:
+        _phase_log = saved
 
 
 def counter_inc(name: str, n: int = 1) -> int:

@@ -4872,3 +4872,305 @@ def test_world8_streaming_remap_on_a_rank_plan_row(cuda_device, is64):
             assert (g is None and w is None) or torch.equal(g, w), f
         smod.commit(de, slab, got, ss)
     assert int(ss["hit_ids"]) > 0 and int(ss["admitted"]) > 0
+
+
+# ------------------------------------------------ the pipelined step (K = 2)
+
+
+def _pipe_model(dev, schedule):
+    """A small streaming model (a static and a streaming table in one
+    group, a streaming multi-hot table, a ragged table) and its state on
+    ``dev``, from one CPU init."""
+    cfgs = [{"input_dim": 500, "output_dim": 16},
+            {"input_dim": 3000 + 200, "output_dim": 16,
+             "streaming": {"capacity": 3000, "buckets": 200}},
+            {"input_dim": 800 + 64, "output_dim": 16, "combiner": "sum",
+             "streaming": {"capacity": 800, "buckets": 64}},
+            {"input_dim": 700, "output_dim": 16, "combiner": "mean"}]
+    de = DistributedEmbedding(cfgs, world_size=1, schedule=schedule)
+    params = de.init(torch.Generator().manual_seed(0), device="cpu")
+    params = {k: v.to(dev) for k, v in params.items()}
+    lin = torch.nn.Linear(64, 1).to(dev)
+    with torch.no_grad():
+        lin.weight.copy_(torch.linspace(-1, 1, 64, device=dev)[None])
+        lin.bias.zero_()
+    opt = SparseAdagrad()
+    st = HybridTrainState(params, opt.init(params), lin,
+                          SGD(0.05).init(list(lin.parameters())),
+                          torch.zeros((), dtype=torch.int32, device=dev))
+    return de, opt, st
+
+
+def _pipe_batches(n_steps, b=2048, nan_step=None):
+    """Numpy batches of :func:`_pipe_model`: dense, int64 external ids, a
+    ragged table's CSR (capacity 4 a row), labels."""
+    rng = np.random.default_rng(9)
+    out = []
+    for k in range(n_steps):
+        ext = 10 ** 7 + (rng.zipf(1.2, (b, 4)) - 1) % 20_000
+        lens = rng.integers(0, 5, size=b)
+        splits = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+        vals = np.zeros(4 * b, np.int64)
+        vals[:splits[-1]] = rng.integers(0, 700, size=int(splits[-1]))
+        y = rng.normal(size=b).astype(np.float32)
+        if k == nan_step:
+            y[0] = np.nan
+        out.append(([rng.integers(0, 500, b).astype(np.int32),
+                     ext[:, 0].astype(np.int64), ext[:, 1:].astype(np.int64),
+                     (vals, splits)], y))
+    return out
+
+
+def _pipe_feed(cats, dev):
+    from distributed_embeddings_torch.ops.embedding_lookup import Ragged
+
+    out = []
+    for c in cats:
+        if isinstance(c, tuple):
+            out.append(Ragged(values=torch.from_numpy(c[0]).to(dev),
+                              row_splits=torch.from_numpy(c[1]).to(dev)))
+        else:
+            out.append(torch.from_numpy(c).to(dev))
+    return out
+
+
+def _pipe_loss(m, outs, y):
+    x = torch.cat([o.reshape(o.shape[0], -1) for o in outs], 1)
+    return torch.mean((m(x)[:, 0] - y) ** 2)
+
+
+@pytest.mark.cuda
+def test_pipelined_train_step_on_the_card_matches_the_cpu(cuda_device):
+    """Four guarded, instrumented ``SparseAdagrad`` steps of the pipelined
+    K = 2 step with telemetry and streaming (the third a NaN batch), on
+    the card (kernels) and on the CPU (plain versions) from one state:
+    the telemetry and streaming state and the metric counts bitwise,
+    losses, slabs and accumulators within 1e-4; on the card, launches a
+    step: K19, K1 (a dense group), K8, K10 (twice: the lookup and the
+    backward) and K20 (the cotangent pack) once a microbatch, K16
+    read-only once a microbatch and its update once, K13,
+    K14's pool, K15, K17, K21 and K22 once."""
+    from distributed_embeddings_torch.analysis import telemetry as tel
+    from distributed_embeddings_torch.ops import (
+        cms_update, commit_rows, gather_combine, grad_health,
+        lengths_to_splits, pack_columns, pack_ids, ragged_combine,
+        remap_stage, topk_merge, topk_pool)
+    from distributed_embeddings_torch.parallel import (
+        StreamingConfig, init_streaming)
+    from distributed_embeddings_torch.parallel.schedule import (
+        pipelined_schedule)
+
+    scfg = StreamingConfig(2, 1, 4, 1024)
+    tcfg = tel.TelemetryConfig()
+    batches = _pipe_batches(4, nan_step=2)
+    kernels = {"pack_ids": (pack_ids, 2),
+               "gather_combine": (gather_combine, 2 * 2),  # two dense groups
+               "ragged_combine": (ragged_combine, 2),
+               "lengths_to_splits": (lengths_to_splits, 2 + 2),
+               "pack_columns": (pack_columns, 2), "remap_stage": (remap_stage,
+                                                                  2 + 1),
+               "commit_rows": (commit_rows, 1), "cms_update": (cms_update, 1),
+               "topk_pool": (topk_pool, 1), "topk_merge": (topk_merge, 1),
+               "grad_health": (grad_health, 1)}
+    runs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        de, opt, st = _pipe_model(dev, pipelined_schedule(2, streaming=True))
+        step = make_hybrid_train_step(
+            de, _pipe_loss, SGD(0.05), opt, lr_schedule=0.05, nan_guard=True,
+            with_metrics=True, telemetry=tcfg, dynamic=scfg)
+        ss = init_streaming(de, scfg, device=dev)
+        tm = tel.init_telemetry(de, tcfg, device=dev)
+        losses, mets = [], []
+        for cats, y in batches:
+            for fn, _ in kernels.values():
+                fn.launches = 0
+            loss, st, m, tm, ss = step(st, _pipe_feed(cats, dev),
+                                       torch.from_numpy(y).to(dev), tm, ss)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+                got = {k: fn.launches for k, (fn, _) in kernels.items()}
+                assert got == {k: n for k, (_, n) in kernels.items()}, got
+            losses.append(float(loss))
+            mets.append(m)
+        runs.append((losses, st, ss, tm, mets))
+    (lk, sk, ssk, tk, mk), (lp, sp, ssp, tp, mp) = runs
+    np.testing.assert_allclose(lk[:2] + lk[3:], lp[:2] + lp[3:], rtol=1e-4,
+                               atol=1e-6)
+    assert np.isnan(lk[2]) and np.isnan(lp[2])
+    for a, b in ((ssk, ssp), (tk, tp)):
+        for k in a:
+            if isinstance(a[k], dict):
+                for f in a[k]:
+                    np.testing.assert_array_equal(to_np(a[k][f]),
+                                                  to_np(b[k][f]), err_msg=f)
+            elif a[k].dtype == torch.int32:
+                np.testing.assert_array_equal(to_np(a[k]), to_np(b[k]))
+            else:
+                np.testing.assert_allclose(to_np(a[k]), to_np(b[k]),
+                                           rtol=1e-6)
+    for a, b in zip(mk, mp):
+        for k in ("ids_routed", "id_overflow", "invalid_id_count",
+                  "skipped_steps", "stream_admitted", "stream_evicted",
+                  "stream_hit_ids", "stream_bucket_ids"):
+            np.testing.assert_array_equal(to_np(a[k]), to_np(b[k]), err_msg=k)
+    np.testing.assert_allclose(to_np(sk.emb_params["w16"]),
+                               to_np(sp.emb_params["w16"]), rtol=1e-4,
+                               atol=1e-5)
+    np.testing.assert_allclose(to_np(sk.emb_opt_state["w16"]),
+                               to_np(sp.emb_opt_state["w16"]), rtol=1e-4,
+                               atol=1e-5)
+    assert float(ssk["admitted"][0, 0]) > 0 and int(ssk["steps"][0, 0]) == 3
+    assert int(mk[2]["skipped_steps"][0]) == 1
+
+
+def _two_microbatches(de, st, cats_pair, ys, cfg_ss):
+    """Two same-layout microbatches through the pipelined step's halves,
+    every returned tensor alive at once: both forwards begun and looked
+    up before either finishes, both cotangent exchanges started before
+    either stream is rebuilt. Returns each microbatch's outputs, residual
+    block and update streams."""
+    from distributed_embeddings_torch.parallel import apply
+
+    with torch.no_grad():
+        fwds = [de._forward_begin(st.emb_params, c, cfg_ss, f"_mb{k}",
+                                  in_flight=True)
+                for k, c in enumerate(cats_pair)]
+        for f in fwds:
+            de._forward_lookup(f)
+        outs = [de._forward_finish(f) for f in fwds]
+    cots = []
+    for (o, res, _), y in zip(outs, ys):
+        o = [t.detach().float().requires_grad_() for t in o]
+        grads = torch.autograd.grad(_pipe_loss(st.dense_params, o, y), o)
+        with torch.no_grad():
+            cots.append(apply.cotangent_exchange(de, res, list(grads),
+                                                 in_flight=True))
+    with torch.no_grad():
+        streams = [apply.cotangent_streams_finish(de, c) for c in cots]
+    return [(o, res[1], s) for (o, res, _), s in zip(outs, streams)]
+
+
+def _same_microbatches(got, want):
+    """Whether two runs of :func:`_two_microbatches` agree: the residual
+    blocks and the update streams' ids bitwise, the outputs within 1e-6
+    relative (K1 sums a hot-3 slot in another order than its plain
+    version) and the update rows within 1e-5."""
+    for (go, gr, gs), (wo, wr, ws) in zip(got, want):
+        if not all(torch.allclose(a.float().cpu(), b.float().cpu(),
+                                  rtol=1e-6, atol=1e-7)
+                   for a, b in zip(go, wo)):
+            return False
+        if not torch.equal(gr.cpu(), wr.cpu()):
+            return False
+        for key in ws:
+            for (gi, gv, _), (wi, wv, _) in zip(gs[key], ws[key]):
+                if not torch.equal(gi.cpu(), wi.cpu()) or not torch.allclose(
+                        gv.float().cpu(), wv.float().cpu(), rtol=1e-5,
+                        atol=1e-6):
+                    return False
+    return True
+
+
+@pytest.mark.cuda
+def test_pipelined_microbatches_keep_their_own_buffers(cuda_device):
+    """The pipelined step holds microbatch 0's lookups, packed blocks and
+    cotangent rows while microbatch 1 runs the same launch records on the
+    same layout: every tensor a wrapper on the path returns (K19, K1, K8,
+    K10, K16 read-only, K20, K9) must be its own allocation. Two
+    microbatches run on the card with everything alive at once agree
+    with the same run on the CPU (plain versions; bounds in
+    :func:`_same_microbatches`). Control: a K1 wrapper that
+    returns one buffer a layout (as a record that handed out its own
+    scratch would) makes microbatch 0's outputs microbatch 1's and fails
+    the comparison."""
+    from distributed_embeddings_torch.parallel import (
+        StreamingConfig, init_streaming, lookup)
+    from distributed_embeddings_torch.parallel import streaming as smod
+    from distributed_embeddings_torch.parallel.schedule import (
+        pipelined_schedule)
+
+    scfg = StreamingConfig(1, 1, 4, 1024)
+    (c0, y0), (c1, y1) = _pipe_batches(2, b=1024)
+    runs = {}
+    for label, dev in (("kernels", cuda_device),
+                       ("plain", torch.device("cpu"))):
+        de, _, st = _pipe_model(dev, pipelined_schedule(2, streaming=True))
+        ss = smod.local_state(init_streaming(de, scfg, device=dev))
+        runs[label] = (de, st, ss, dev)
+
+    def run(key):
+        de, st, ss, dev = runs[key]
+        return _two_microbatches(
+            de, st, [_pipe_feed(c0, dev), _pipe_feed(c1, dev)],
+            [torch.from_numpy(y0).to(dev), torch.from_numpy(y1).to(dev)],
+            (scfg, ss, "serve"))
+
+    want = run("plain")
+    assert _same_microbatches(run("kernels"), want)
+    real = lookup.gather_combine
+    held = {}
+
+    def aliasing(*a, **kw):
+        out = real(*a, **kw)
+        buf = held.setdefault((tuple(out.shape), out.dtype), out)
+        return buf.copy_(out)
+
+    lookup.gather_combine = aliasing
+    try:
+        bad = run("kernels")
+    finally:
+        lookup.gather_combine = real
+    assert not _same_microbatches(bad, want)
+
+
+@pytest.mark.cuda
+def test_microbatch_inputs_on_the_card_without_a_host_sync(cuda_device):
+    """``_microbatch_inputs`` on a card ``Ragged`` (weighted), a
+    ``SparseIds`` (through K10's ``row_to_split``) and a dense input
+    reads no offset on the host: it runs under
+    ``torch.cuda.set_sync_debug_mode("error")``, and its slices equal
+    the CPU's bitwise."""
+    from distributed_embeddings_torch.ops.embedding_lookup import (
+        Ragged, SparseIds)
+    from distributed_embeddings_torch.parallel import trainer
+
+    rng = np.random.default_rng(4)
+    b, K = 4096, 2
+    lens = rng.integers(0, 9, size=b)
+    splits = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    cap = int(splits[-1]) + 64
+    vals = rng.integers(0, 10 ** 6, size=cap).astype(np.int32)
+    wts = rng.random(cap).astype(np.float32)
+    rows = np.repeat(np.arange(b), lens).astype(np.int32)
+    dense = rng.integers(0, 100, size=(b, 3)).astype(np.int32)
+    y = rng.normal(size=(b, 2)).astype(np.float32)
+
+    def inputs(dev):
+        t = (lambda a: torch.from_numpy(a).to(dev))
+        return ([Ragged(values=t(vals), row_splits=t(splits),
+                        weights=t(wts)),
+                 SparseIds(indices=t(rows), values=t(vals[:len(rows)]),
+                           dense_shape=(b, 8)), t(dense)], {"y": t(y)})
+
+    want = trainer._microbatch_inputs(*inputs("cpu"), K)
+    cats, batch = inputs(cuda_device)
+    # K10's launch record is built outside the checked region
+    trainer._microbatch_inputs(cats, batch, K)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = trainer._microbatch_inputs(cats, batch, K)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for (gc, gb), (wc, wb) in zip(got, want):
+        for g, w in zip(gc, wc):
+            if isinstance(w, Ragged):
+                for a, c in ((g.values, w.values),
+                             (g.row_splits, w.row_splits),
+                             (g.weights, w.weights)):
+                    assert (a is None) == (c is None)
+                    if a is not None:
+                        np.testing.assert_array_equal(to_np(a), to_np(c))
+            else:
+                np.testing.assert_array_equal(to_np(g), to_np(w))
+        np.testing.assert_array_equal(to_np(gb["y"]), to_np(wb["y"]))

@@ -501,11 +501,11 @@ def test_descriptor_units_follow_alignment():
 
 def test_world8_paths_not_ported_raise():
     """What of world > 1 waits (ROADMAP A7b) raises, naming it: the
-    serving runtime, the checkpoints, the streaming state's codec and the
-    pipelined step's ``"serve"`` streaming form. The instrumented,
-    telemetry and streaming steps build at world 8 with the arity of
-    world 1; a world-8 layer outside a process group plans but cannot
-    run."""
+    serving runtime, the checkpoints and the streaming state's codec. The
+    instrumented, telemetry and streaming steps build at world 8 with the
+    arity of world 1; a world-8 layer outside a process group plans but
+    cannot run. The streaming forms are ``True``, ``False`` and the
+    pipelined step's ``"serve"``; any other raises."""
     import inspect
 
     from distributed_embeddings_torch.parallel import (
@@ -548,8 +548,8 @@ def test_world8_paths_not_ported_raise():
     sde = DistributedEmbedding(configs[:7] + [
         {"input_dim": 20, "output_dim": 4,
          "streaming": {"capacity": 16, "buckets": 4}}], WORLD)
-    with pytest.raises(NotImplementedError, match="A7b"):
-        sde._streaming_remap(None, None, (None, None, "serve"))
+    with pytest.raises(ValueError, match="'serve'"):
+        sde._streaming_remap(None, None, (None, None, "stage"))
     for fn in (lambda: streaming.encode_state(sde, {}),
                lambda: streaming.decode_state(sde, {}, {})):
         with pytest.raises(NotImplementedError, match="A7b"):

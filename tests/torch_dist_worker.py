@@ -637,8 +637,150 @@ def pytree_leaves(tree):
     return out
 
 
+class PipeDense(torch.nn.Module):
+    """The pipelined A/B matrix's dense part (``tests/test_pipeline.py``'s
+    ``{"w": [cols, 1], "v": [13, 1]}``)."""
+
+    def __init__(self, w, v):
+        super().__init__()
+        import numpy as np
+
+        self.w = torch.nn.Parameter(torch.from_numpy(np.array(w, np.float32)))
+        self.v = torch.nn.Parameter(torch.from_numpy(np.array(v, np.float32)))
+
+
+def pipe_loss(m, outs, batch):
+    """``tests/test_pipeline.py``'s ``_loss_fn``: ``mean((concat(outs) @
+    w + n @ v - y) ** 2)``."""
+    n, y = batch
+    x = torch.cat([e.reshape(e.shape[0], -1) for e in outs], 1)
+    return ((x @ m.w + n @ m.v - y) ** 2).mean()
+
+
+def _pipe_control(de, control, K):
+    """The pipelined runs' controls; returns a function that undoes the
+    patch. Each fails its bound but ``"stream_reversed"``, which keeps
+    every bit (K16's claims do not depend on the stream's order).
+
+    * ``"stream_reversed"``: the admission stage takes the microbatches'
+      streaming streams in reversed order;
+    * ``"stream_dropped"``: the admission stage takes the last
+      microbatch's streaming streams only;
+    * ``"no_inv_k"``: the sparse apply scaled by ``1/world``, not
+      ``1/(world K)``;
+    * ``"serialized_order"``: every exchange of the pipelined step waited
+      for as soon as it starts (nothing in flight)."""
+    from distributed_embeddings_torch.parallel import apply
+
+    if control is None:
+        return lambda: None
+    if control == "stream_reversed":
+        real = de.streaming_stage
+        de.streaming_stage = lambda streams, *a: real(streams[::-1], *a)
+        return lambda: None
+    if control == "stream_dropped":
+        real = de.streaming_stage
+        de.streaming_stage = lambda streams, *a: real(streams[-1:], *a)
+        return lambda: None
+    if control == "no_inv_k":
+        real_apply = apply.apply_width_streams
+
+        def scaled(*a, scale, **kw):
+            return real_apply(*a, scale=scale * K, **kw)
+
+        apply.apply_width_streams = scaled
+        return lambda: setattr(apply, "apply_width_streams", real_apply)
+    if control == "serialized_order":
+        real_begin, real_cot = de._forward_begin, apply.cotangent_exchange
+        de._forward_begin = (lambda *a, in_flight=False, **kw:
+                             real_begin(*a, in_flight=False, **kw))
+        apply.cotangent_exchange = (lambda *a, in_flight=False, **kw:
+                                    real_cot(*a, in_flight=False, **kw))
+        return lambda: setattr(apply, "cotangent_exchange", real_cot)
+    raise ValueError(f"unknown control {control!r}")
+
+
+def pipeline_run(spec, K, rank=0, world=1, control=None):
+    """One run of the pipelined A/B matrix (``tests/test_pipeline.py``'s
+    ``_run``) on the port: the layer with ``pipelined_schedule(K)`` (K = 1:
+    ``schedule=None``), ``spec["steps"]`` guarded steps of
+    :func:`pipe_loss` from ``spec["tables"]`` and the dense weights, this
+    rank's rows of ``spec["inputs"]`` and ``(n, y)``. Returns the losses,
+    the tables (rank 0's copy), this rank's telemetry and streaming
+    states and the last step's metrics (numpy), and the phase log of the
+    last step."""
+    from distributed_embeddings_torch.analysis import telemetry as tel
+    from distributed_embeddings_torch.parallel import (
+        SGD, DistributedEmbedding, HybridTrainState, SparseAdagrad,
+        SparseAdam, SparseSGD, StreamingConfig, bootstrap, init_streaming,
+        make_hybrid_train_step)
+    from distributed_embeddings_torch.parallel.schedule import (
+        pipelined_schedule)
+    from distributed_embeddings_torch.utils import obs
+
+    streaming = spec["streaming"]
+    de = DistributedEmbedding(
+        spec["configs"], world_size=world, row_slice=spec.get("row_slice"),
+        schedule=(None if K == 1
+                  else pipelined_schedule(K, streaming=streaming)))
+    params = de.set_weights(spec["tables"], device="cpu")
+    opt = {"sgd": SparseSGD, "adagrad": SparseAdagrad,
+           "adam": SparseAdam}[spec["opt"]]()
+    dense = PipeDense(spec["w"], spec["v"])
+    tx = SGD(spec["dense_lr"])
+    state = HybridTrainState(params, opt.init(params), dense,
+                             tx.init(list(dense.parameters())),
+                             torch.zeros((), dtype=torch.int32))
+    tcfg = tel.TelemetryConfig() if spec["telemetry"] else None
+    scfg = StreamingConfig(admit_min_count=1) if streaming else None
+    aux = []
+    if tcfg is not None:
+        aux.append(tel.init_telemetry(de, tcfg, device="cpu"))
+    if scfg is not None:
+        aux.append(init_streaming(de, scfg, device="cpu"))
+    cats = _inputs(spec["inputs"], rank, world)
+    n, y = bootstrap.shard_batch(
+        (torch.from_numpy(spec["n"].copy()),
+         torch.from_numpy(spec["y"].copy())), rank, world)
+    step = make_hybrid_train_step(
+        de, pipe_loss, tx, opt, lr_schedule=spec["lr"],
+        with_metrics=spec["metrics"], nan_guard=True, telemetry=tcfg,
+        dynamic=scfg)
+    undo = _pipe_control(de, control, K)
+    losses, metrics = [], None
+    try:
+        for _ in range(spec["steps"]):
+            with obs.phase_log() as names:
+                out = step(state, cats, (n, y), *aux)
+            state = out[1]
+            losses.append(float(out[0]))
+            rest = list(out[2:])
+            if spec["metrics"]:
+                metrics = rest.pop(0)
+            aux = rest
+    finally:
+        undo()
+    return {"losses": losses,
+            "tables": de.get_weights(state.emb_params, all_ranks=False),
+            "aux": [_np_tree(a) for a in aux],
+            "metrics": None if metrics is None else _np_tree(metrics),
+            "phases": list(names)}
+
+
+def case_pipeline(rank, world, spec):
+    """The pipelined A/B matrix at world ``world``: the serialized run,
+    the pipelined K = 2 run, then one pipelined run per
+    ``spec["controls"]`` (:func:`_pipe_control`)."""
+    out = {"serialized": pipeline_run(spec, 1, rank, world),
+           "pipelined": pipeline_run(spec, 2, rank, world)}
+    for control in spec.get("controls", ()):
+        out[control] = pipeline_run(spec, 2, rank, world, control)
+    return out
+
+
 CASES = {"forward": case_forward, "train": case_train, "dlrm": case_dlrm,
-         "mp_loop": case_mp_loop, "glue": case_glue, "hybrid": case_hybrid}
+         "mp_loop": case_mp_loop, "glue": case_glue, "hybrid": case_hybrid,
+         "pipeline": case_pipeline}
 
 
 def serve(rank, world, store, inq, outq):
