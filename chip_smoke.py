@@ -394,6 +394,40 @@ Phases (any failure raises and the script exits non-zero):
    once a microbatch, K3, K21 and K22 once a step).
    ``python3 chip_smoke.py --world8g`` runs phases 1, 2 and 14g-a/b
    alone (to debug it; it prints no result).
+   h. the DLRM example, its checkpoints and the convergence driver at
+      world 8 (eight more rank processes on ``cuda:0``, each calling
+      ``examples/dlrm_main.py``'s ``main`` with ``--world_size 8
+      --rank r --backend gloo``, or ``train_dlrm_convergence(world_size=
+      8)``):
+      a. 14b's small tables row-sliced as 14e-b's (``--row_slice``
+         700,000), bf16, telemetry on (``DETPU_TELEMETRY=1``),
+         ``--dp_input``, b=4096 global, base lr 240: from one state saved
+         at step 0, 6 steps on the card (launches a rank counted: K1,
+         K2, K4, K18, K19, K20, K21 twice a step, K22, K13, K14's pool,
+         K15), the same as 3 steps + ``--save_state`` + a resume to 6
+         (bitwise equal on every rank), and the same 6 steps with
+         ``--device cpu`` (the plain versions): losses and dense
+         parameters within 1e-5, every bf16 slab element within one
+         bf16 ulp of its magnitude or 1e-6, and the slabs' update within
+         ``W8H_BOUNDS``' relative L2 of the CPU's (two controls must
+         fail that on every rank: the state before the steps, and half
+         of the CPU run's update);
+      b. 13c's configuration at world 8 with ``MpInputs`` (26 capped
+         Kaggle vocabularies, 10,569,296 rows, 2.71 GB bf16, dim 128,
+         b=65,536 global, lr 24): run A 40 steps with eval every 20 and
+         ``--metrics_out`` every 10; run B 20 steps with
+         ``--save_state``; run C restored from B to 40: losses and every
+         rank's slabs, dense parameters and schedule count bitwise A's;
+         step ms and samples/s, the chief-written save's and the
+         restore's seconds, the checkpoint's bytes; then B's world-8
+         checkpoint restored by the example at world 1 under
+         ``DETPU_ON_MISMATCH=reshard`` in the main process: its dump
+         bitwise the world-8 dump of step 20;
+      c. ``tests/test_convergence.py``'s run uncut (8 tables of 200,
+         dim 8, b=1024, 240 steps): end AUC > 0.82 and start < middle <
+         end, the same AUCs on every rank.
+      ``python3 chip_smoke.py --world8h`` runs phases 1, 2 and 14h alone
+      (to debug it; it prints no result).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Run from the root of a checkout:
@@ -9831,11 +9865,11 @@ def w1_pipelined(torch, state):
         result
 
 
-def w8_rank(rank, store, tmp, results, parts=("b", "c", "e", "f", "g")):
-    """A rank process of phase 14: join the gloo group on the one card,
-    run 14b, 14c, 14e-b, 14e-c, 14f-a, 14f-b, 14f-c, 14g-a and 14g-b
-    (those ``parts`` name), send the results. Any failure raises (the
-    process exits non-zero and the phase fails)."""
+def w8_rank(rank, store, tmp, parts=("b", "c", "e", "f", "g")):
+    """A rank process of phase 14: join the gloo group (at ``store``) on
+    the one card, run 14b, 14c, 14e-b, 14e-c, 14f-a, 14f-b, 14f-c, 14g-a
+    and 14g-b (those ``parts`` name), return the results. Any failure
+    raises (and fails the phase)."""
     import torch
 
     torch.cuda.set_device(0)
@@ -9844,8 +9878,7 @@ def w8_rank(rank, store, tmp, results, parts=("b", "c", "e", "f", "g")):
     torch.backends.cudnn.allow_tf32 = False
     from distributed_embeddings_torch.parallel import bootstrap
 
-    bootstrap.initialize("gloo", f"file://{store}", W8, rank,
-                         timeout_s=W8_TIMEOUT_S)
+    bootstrap.initialize("gloo", store, W8, rank, timeout_s=W8_TIMEOUT_S)
     runs = {"b": (("small", w8_rank_small, True),),
             "c": (("full", w8_rank_full, False),),
             "e": (("small_e", w8e_rank_small, True),
@@ -9864,50 +9897,22 @@ def w8_rank(rank, store, tmp, results, parts=("b", "c", "e", "f", "g")):
             gc.collect()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
-    results.put((rank, out))
     torch.distributed.destroy_process_group()
+    return out
 
 
-def w8_run_ranks(torch, tmp, parts=("b", "c", "e", "f", "g")):
-    """Start the W8 rank processes (running ``parts`` of phase 14), wait
-    for every result; a rank that exits non-zero fails the phase. Stops
-    every process it started."""
-    import multiprocessing as mp
-    import queue
+def w8_run_ranks(torch, tmp, parts=("b", "c", "e", "f", "g"), target=None):
+    """Start the W8 rank processes (``target``, default :func:`w8_rank`,
+    running ``parts`` of phase 14), wait for every result; a rank that
+    fails fails the phase. Stops every process it started
+    (``bootstrap.spawn_ranks``)."""
+    from distributed_embeddings_torch.parallel.bootstrap import spawn_ranks
 
-    ctx = mp.get_context("spawn")
-    results = ctx.Queue()
-    store = os.path.join(tmp, "store")
-    procs = [ctx.Process(target=w8_rank, args=(r, store, tmp, results,
-                                               parts))
-             for r in range(W8)]
     t0 = time.perf_counter()
-    for p in procs:
-        p.start()
-    got = {}
-    try:
-        while len(got) < W8:
-            try:
-                rank, res = results.get(timeout=5)
-                got[rank] = res
-            except queue.Empty:
-                dead = [(r, p.exitcode) for r, p in enumerate(procs)
-                        if p.exitcode not in (None, 0)]
-                check(not dead, f"world 8: rank(s) failed (rank, exit "
-                      f"code) {dead}")
-                check(time.perf_counter() - t0 < W8_TIMEOUT_S,
-                      f"world 8: ranks {sorted(set(range(W8)) - set(got))} "
-                      f"gave no result in {W8_TIMEOUT_S} s")
-        for r, p in enumerate(procs):
-            p.join(timeout=120)
-            check(p.exitcode == 0, f"world 8: rank {r} exit code "
-                  f"{p.exitcode}")
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join()
-    return [got[r] for r in range(W8)], time.perf_counter() - t0
+    got = spawn_ranks(target or w8_rank,
+                      lambda r, store: (r, store, tmp, parts), W8,
+                      W8_TIMEOUT_S, what="chip_smoke: world 8")
+    return got, time.perf_counter() - t0
 
 
 def w8_compare_small(torch, ref, ranks, tmp):
@@ -10896,6 +10901,403 @@ def phase_world8_g_only(torch):
         + " launches " + json.dumps(launches))
 
 
+# ------------------------------------------- the example at world 8 (14h)
+
+W8H_SMALL_BATCH = 4096         # 14h-a: 14b's global batch
+W8H_SMALL_STEPS = 6
+W8H_SMALL_SAVE_AT = 3
+W8H_SMALL_LR = 240.0           # the schedule's warmup gives 0.03-0.18
+W8H_STEPS = 40                 # 14h-b: 13c's runs, at world 8
+W8H_SAVE_AT = 20
+W8H_CONV_STEPS = 240           # 14h-c: tests/test_convergence.py's run
+W8H_DEV = "cuda"               # where 14h's example and driver run
+#: 14h-a's bounds, the card's run (kernels) against the CPU's (plain
+#: versions): 14b's loss and dense bounds; each bf16 slab element within
+#: one bf16 ulp of its magnitude or 14b's 1e-6 (``slab_over``: the
+#: elements outside that, which must be none); and the relative L2 of
+#: the slabs' update, ``|card - cpu| / |cpu - start|`` (``slab_rel_err``).
+#: 14b's 1e-3 for it is an fp32 bound: in bf16 the steps move a touched
+#: element by one ulp or a few, so one last bit rounded the other way
+#: (an f32 sum that differs in its 7th digit) is of the update's own
+#: size. The bound sits between the sound run's largest reading (0.081
+#: by rank on one H100) and the controls' smallest, each on every rank:
+#: the state before the steps (the rank's update dropped: 1.0) and half
+#: of the CPU run's update rounded to bf16 (a kernel that applies half
+#: of it: ~0.5). A larger lr moves more elements (``slab_moved``) but
+#: parts the card's run from the CPU's past 14b's loss and dense bounds
+#: (bf16 last bits rounded the other way on hot rows feed the MLPs: at
+#: 1200 and 2400 the dense parameters part by 7e-5 and 3e-4)
+W8H_BOUNDS = {"loss_err": 1e-5, "dense_err": 1e-5, "slab_over": 0,
+              "slab_rel_err": 0.2}
+#: the controls, each held beyond ``slab_rel_err`` on every rank
+W8H_CONTROLS = ("control_start_rel", "control_half_rel")
+#: the kernels 14h-a's example runs a step on every rank (bf16 tables
+#: under the schedule: K18, not K3; data-parallel input: K19; telemetry:
+#: K13, K14's pool and K15 in the width's fold)
+W8H_KERNELS = ("gather_combine", "dot_interact_fwd", "dot_interact_bwd",
+               "sgd_scatter_promoted", "pack_ids", "pack_columns",
+               "grad_health", "dense_update", "cms_update", "topk_pool",
+               "topk_merge")
+
+
+def w8h_main(argv, rank, dev=W8H_DEV):
+    """``examples/dlrm_main.py``'s ``main`` as rank ``rank`` of the
+    group this process has joined, on ``dev``."""
+    from distributed_embeddings_torch.examples import dlrm_main
+
+    return dlrm_main.main(list(argv) + [
+        "--world_size", str(W8), "--rank", str(rank), "--backend", "gloo",
+        "--device", dev])
+
+
+def w8h_small_args(tmp):
+    """14h-a's command line: 14b's small tables, row-sliced as 14e-b's,
+    bf16, data-parallel input, b=4096 global."""
+    return ["--table_sizes", ",".join(map(str, w8_small_sizes())),
+            "--batch_size", str(W8H_SMALL_BATCH),
+            "--learning_rate", str(W8H_SMALL_LR),
+            "--param_dtype", "bfloat16", "--row_slice", str(W8E_SMALL_RS),
+            "--dp_input", "--eval_batches", "1",
+            "--checkpoint_out", os.path.join(tmp, "w8h_small_dump")]
+
+
+def w8h_slab_errs(torch, got, want, start):
+    """This rank's bf16 slabs of the card run against the CPU run's:
+    the largest difference in bf16 ulps (bits as ordered integers), the
+    largest absolute difference, the elements the update moved
+    (``want != start``), and the relative L2 of the update
+    (``|got - want| / |want - start|``)."""
+    ulps, over, moved, abs_err, num, den = 0, 0, 0, 0.0, 0.0, 0.0
+    for k, w in want.items():
+        g = got[k].cpu()
+
+        def ordered(t):
+            b = t.view(torch.int16).to(torch.int32)
+            return torch.where(b < 0, -(b & 0x7FFF), b)
+
+        ulps = max(ulps, int((ordered(g) - ordered(w)).abs().max()))
+        d = g.double() - w.double()
+        mag = torch.maximum(g.double().abs(), w.double().abs())
+        ulp = torch.exp2(torch.floor(torch.log2(mag.clamp_min(1e-30))) - 7)
+        over += int((d.abs() > torch.maximum(ulp, torch.full_like(
+            ulp, 1e-6))).sum())
+        abs_err = max(abs_err, float(d.abs().max()))
+        num += float((d * d).sum())
+        u = w.double() - start[k].double()
+        den += float((u * u).sum())
+        moved += int((u != 0).sum())
+    return {"slab_over": over, "slab_ulps": ulps, "slab_max_err": abs_err,
+            "slab_moved": moved,
+            "slab_rel_err": (num / den) ** 0.5 if den else 0.0,
+            "update_norm": den ** 0.5}
+
+
+def w8h_rank_small(torch, rank, tmp, dev=W8H_DEV):
+    """14h-a on one rank: the example from one saved state at step 0 on
+    the card (6 steps, launches counted), as 3 steps + save + a resume to
+    6 (bitwise equal), and on the CPU (the plain versions), with
+    telemetry on."""
+    args = w8h_small_args(tmp)
+    s0 = os.path.join(tmp, "w8h_small_s0")
+    s3 = os.path.join(tmp, "w8h_small_s3")
+    os.environ["DETPU_TELEMETRY"] = "1"
+    try:
+        w8h_main(args + ["--num_batches", "0", "--save_state", s0], rank,
+                 dev)
+        zero_counts()
+        full = w8h_main(args + ["--num_batches", str(W8H_SMALL_STEPS),
+                                "--restore_state", s0], rank, dev)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        counts = read_counts()
+        modes = read_mode_counts()
+        first = w8h_main(args + ["--num_batches", str(W8H_SMALL_SAVE_AT),
+                                 "--restore_state", s0, "--save_state", s3],
+                         rank, dev)
+        rest = w8h_main(args + ["--num_batches", str(W8H_SMALL_STEPS),
+                                "--restore_state", s3], rank, dev)
+        check(first.losses + rest.losses == full.losses,
+              f"14h-a rank {rank}: resumed losses differ")
+        example_state_equal(torch, full.state, rest.state,
+                            f"14h-a rank {rank} resumed at step "
+                            f"{W8H_SMALL_SAVE_AT}")
+        del first, rest
+        start = w8h_main(args + ["--num_batches", "0", "--restore_state",
+                                 s0], rank, "cpu")
+        plain = w8h_main(args + ["--num_batches", str(W8H_SMALL_STEPS),
+                                 "--restore_state", s0], rank, "cpu")
+    finally:
+        os.environ.pop("DETPU_TELEMETRY", None)
+    errs = w8h_slab_errs(torch, full.state.emb_params,
+                         plain.state.emb_params, start.state.emb_params)
+    # the controls (W8H_BOUNDS): the state before the steps, and half of
+    # the plain run's update
+    s0, p6 = start.state.emb_params, plain.state.emb_params
+    half = {k: (s0[k].double() + (v.double() - s0[k].double()) / 2)
+            .to(v.dtype) for k, v in p6.items()}
+    for name, got in (("start", s0), ("half", half)):
+        e = w8h_slab_errs(torch, got, p6, s0)
+        errs[f"control_{name}_rel"] = e["slab_rel_err"]
+        errs[f"control_{name}_over"] = e["slab_over"]
+    errs["loss_err"] = float(np.abs(np.array(full.losses)
+                                    - np.array(plain.losses)).max())
+    errs["dense_err"] = max(
+        float((p.detach().cpu().double() - q.detach().double()).abs().max())
+        for p, q in zip(full.state.dense_params.parameters(),
+                        plain.state.dense_params.parameters()))
+    return {"losses": full.losses, "plain_losses": plain.losses,
+            "auc": full.auc, "plain_auc": plain.auc, "counts": counts,
+            "modes": modes, "errs": errs}
+
+
+def w8h_full_args(tmp, name):
+    """14h-b's command line: 13c's (the capped Kaggle vocabularies, the
+    example's width, MLPs, b=65,536 and lr 24, bf16, eval every 20), at
+    world 8 with model-parallel input (the example's default there)."""
+    return example_args(tmp, ragged_sizes())[:-1] + [
+        os.path.join(tmp, name)]
+
+
+def w8h_rank_full(torch, rank, tmp, dev=W8H_DEV):
+    """14h-b on one rank: run A (40 steps, ``--metrics_out`` every 10),
+    run B (20 steps and ``--save_state``), run C (restored from B to 40):
+    C's losses and this rank's slabs, dense parameters and schedule
+    count bitwise A's."""
+    ck = os.path.join(tmp, "w8h_state")
+    t0 = time.perf_counter()
+    a = w8h_main(w8h_full_args(tmp, "w8h_dump") + [
+        "--num_batches", str(W8H_STEPS), "--metrics_out",
+        os.path.join(tmp, "w8h_metrics.jsonl"), "--metrics_interval", "10"],
+        rank, dev)
+    run_a_s = time.perf_counter() - t0
+    b = w8h_main(w8h_full_args(tmp, "w8h_dump_b") + [
+        "--num_batches", str(W8H_SAVE_AT), "--save_state", ck], rank, dev)
+    ck_bytes = dir_bytes(ck) if rank == 0 else None
+    b_losses, save_s = b.losses, b.save_s[-1]
+    del b
+    gc.collect()
+    c = w8h_main(w8h_full_args(tmp, "w8h_dump") + [
+        "--num_batches", str(W8H_STEPS), "--restore_state", ck], rank, dev)
+    check(b_losses + c.losses == a.losses,
+          f"14h-b rank {rank}: resumed losses differ")
+    example_state_equal(torch, a.state, c.state,
+                        f"14h-b rank {rank} resumed at step {W8H_SAVE_AT}")
+    timed = a.step_s[EXAMPLE_WARMUP:]
+    slab_bytes = sum(v.numel() * v.element_size()
+                     for v in a.state.emb_params.values())
+    transfer = w8h_transfer_s(torch, c)
+    return {"losses": a.losses, "auc": a.auc, "step_s": a.step_s,
+            "transfer_s": transfer,
+            "step_ms_p50": float(np.median(timed)) * 1e3,
+            "loop_s": a.loop_s, "run_a_s": run_a_s, "save_s": save_s,
+            "restore_s": c.restore_s, "checkpoint_bytes": ck_bytes,
+            "slab_bytes": slab_bytes}
+
+
+def w8h_transfer_s(torch, run):
+    """Host seconds of moving the largest table of ``run``'s final
+    state to the host: to rank 0 alone (``get_table(all_ranks=False)``,
+    what a chief-written save does) and broadcast to every rank
+    (``all_ranks=True``), each between barriers, in turns (chief,
+    broadcast, broadcast, chief)."""
+    from distributed_embeddings_torch.parallel import bootstrap
+
+    de = run.de
+    tid = int(np.argmax([c["input_dim"] for c in
+                         de.strategy.global_configs]))
+    out = {"table": tid, "chief": [], "broadcast": []}
+    for mode in ("chief", "broadcast", "broadcast", "chief"):
+        bootstrap.barrier(de.process_group)
+        t0 = time.perf_counter()
+        de.get_table(run.state.emb_params, tid,
+                     all_ranks=mode == "broadcast")
+        bootstrap.barrier(de.process_group)
+        out[mode].append(time.perf_counter() - t0)
+    return out
+
+
+def w8h_rank_conv(torch, rank, dev=W8H_DEV):
+    """14h-c on one rank: ``train_dlrm_convergence`` at world 8, the JAX
+    learning test's configuration uncut."""
+    from distributed_embeddings_torch.models import (
+        LearnableClicks, train_dlrm_convergence, warmup_poly_decay_schedule)
+
+    t0 = time.perf_counter()
+    aucs = train_dlrm_convergence(
+        LearnableClicks([200] * 8, num_numerical=4, seed=123, scale=1.2),
+        world_size=W8, steps=W8H_CONV_STEPS, batch=1024, embedding_dim=8,
+        lr_schedule=warmup_poly_decay_schedule(*CONV_SCHEDULE),
+        eval_n=8192, device=dev)
+    return {"aucs": list(aucs), "wall_s": time.perf_counter() - t0}
+
+
+def w8h_rank(rank, store, tmp, parts=("a", "b", "c")):
+    """A rank process of phase 14h: join the gloo group (at ``store``) on
+    the one card, run 14h-a, 14h-b and 14h-c (those ``parts`` name),
+    return the results. Any failure raises (and fails the phase)."""
+    import torch
+
+    if W8H_DEV == "cuda":
+        torch.cuda.set_device(0)
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from distributed_embeddings_torch.parallel import bootstrap
+
+    bootstrap.initialize("gloo", store, W8, rank, timeout_s=W8_TIMEOUT_S)
+    runs = {"a": lambda: w8h_rank_small(torch, rank, tmp),
+            "b": lambda: w8h_rank_full(torch, rank, tmp),
+            "c": lambda: w8h_rank_conv(torch, rank)}
+    out = {}
+    for part in parts:
+        t0 = time.perf_counter()
+        out[part] = runs[part]()
+        out[part]["seconds"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.distributed.destroy_process_group()
+    return out
+
+
+def w8h_dumps_equal(a, b):
+    """Two ``--checkpoint_out`` dumps hold the same tables bit for bit
+    (member by member); returns the table count."""
+    with np.load(a) as za, np.load(b) as zb:
+        check(sorted(za.files) == sorted(zb.files),
+              f"dumps {a} and {b} hold other tables")
+        for k in za.files:
+            x, y = za[k], zb[k]
+            check(x.dtype == y.dtype and x.shape == y.shape
+                  and x.tobytes() == y.tobytes(),
+                  f"dump table {k}: the world-1 restore differs from the "
+                  "world-8 dump")
+        return len(za.files)
+
+
+def w8h_reshard_world1(torch, tmp, dev=W8H_DEV):
+    """14h-b's last step in the main process: run B's world-8 checkpoint
+    restored by the example at world 1 under ``DETPU_ON_MISMATCH=
+    reshard`` (no step left to take), its dump bitwise the world-8 dump
+    of step 20."""
+    from distributed_embeddings_torch.examples import dlrm_main
+
+    os.environ["DETPU_ON_MISMATCH"] = "reshard"
+    try:
+        w1 = dlrm_main.main(w8h_full_args(tmp, "w8h_dump_w1") + [
+            "--num_batches", str(W8H_SAVE_AT), "--eval_batches", "0",
+            "--restore_state", os.path.join(tmp, "w8h_state"),
+            "--device", dev])
+    finally:
+        os.environ.pop("DETPU_ON_MISMATCH", None)
+    check(int(w1.state.step) == W8H_SAVE_AT and w1.steps_run == 0,
+          f"14h-b world-1 restore at step {int(w1.state.step)}")
+    restore_s = w1.restore_s
+    del w1
+    gc.collect()
+    n = w8h_dumps_equal(os.path.join(tmp, "w8h_dump_b.npz"),
+                        os.path.join(tmp, "w8h_dump_w1.npz"))
+    return {"restore_s_world1": restore_s, "tables_bitwise": n}
+
+
+def phase_world8_h(torch, dev=W8H_DEV):
+    """Phase 14h: the DLRM example, its checkpoints and the convergence
+    driver at world 8 (see main's docstring). Returns (rank 0's launches
+    of 14h-a's 6 steps, the same by row-slice mode, the result)."""
+    import shutil
+    import tempfile
+
+    t_start = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="w8h_")
+    try:
+        ranks, rank_s = w8_run_ranks(torch, tmp, ("a", "b", "c"), w8h_rank)
+        reshard = w8h_reshard_world1(torch, tmp, dev)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    small = [r["a"] for r in ranks]
+    full = [r["b"] for r in ranks]
+    conv = [r["c"] for r in ranks]
+    steps = W8H_SMALL_STEPS
+    log("world 8 h a: card against the CPU by rank " + json.dumps(
+        [s["errs"] for s in small]))
+    log("world 8 h seconds by part and rank: " + json.dumps(
+        {p: [r[p]["seconds"] for r in ranks] for p in ("a", "b", "c")}))
+    for r, s in enumerate(small):
+        check(s["losses"] == small[0]["losses"] and
+              s["auc"] == small[0]["auc"],
+              f"14h-a rank {r}: losses or AUC differ from rank 0's")
+        for k, bound in W8H_BOUNDS.items():
+            check(s["errs"][k] <= bound, f"14h-a rank {r}: {k} "
+                  f"{s['errs'][k]} > {bound} (card against the CPU)")
+        for name in W8H_CONTROLS:
+            check(s["errs"][name] > W8H_BOUNDS["slab_rel_err"],
+                  f"14h-a rank {r}: the control {name} "
+                  f"{s['errs'][name]} passes the slab bound")
+        if dev != "cuda":  # the plain versions count no launch
+            continue
+        c = s["counts"]
+        for name in W8H_KERNELS:
+            check(c[name] >= steps, f"14h-a rank {r}: {name} launched "
+                  f"{c[name]} times in {steps} steps")
+        check(c["sgd_scatter_promoted"] == steps
+              and c["dot_interact_bwd"] == steps
+              and c["dense_update"] == steps
+              and c["grad_health"] == 2 * steps
+              and c["sgd_scatter"] == 0,
+              f"14h-a rank {r}: launches {c}")
+    for r, f in enumerate(full):
+        check(f["losses"] == full[0]["losses"],
+              f"14h-b rank {r}: losses differ from rank 0's")
+        check(np.isfinite(f["losses"]).all(), f"14h-b rank {r}: losses")
+    for r, c in enumerate(conv):
+        a0, mid, end = c["aucs"]
+        check(c["aucs"] == conv[0]["aucs"],
+              f"14h-c rank {r}: AUCs differ from rank 0's")
+        check(end > 0.82 and a0 < mid < end,
+              f"14h-c: AUC start/mid/end {c['aucs']} misses the JAX "
+              "learning test's limits (end > 0.82, rising)")
+    f0 = full[0]
+    wall = max(f["loop_s"] for f in full)
+    result = {
+        "transport": "gloo over host memory, 8 ranks time-sharing one "
+                     "H100 (not a multi-GPU or NCCL number)",
+        "a": {"bounds": W8H_BOUNDS,
+              "errs_max": {k: max(s["errs"][k] for s in small)
+                           for k in small[0]["errs"]},
+              "losses": small[0]["losses"],
+              "plain_losses": small[0]["plain_losses"],
+              "auc": small[0]["auc"], "plain_auc": small[0]["plain_auc"],
+              "launches_rank0_6_steps_and_eval": {
+                  n: v for n, v in small[0]["counts"].items() if v},
+              "row_slice_modes_rank0": small[0]["modes"],
+              "resume_bitwise": True},
+        "b": {"global_batch": TRAIN_BATCH, "steps": W8H_STEPS,
+              "step_ms_p50_by_rank": [f["step_ms_p50"] for f in full],
+              "samples_per_s_step": TRAIN_BATCH / (f0["step_ms_p50"] / 1e3),
+              "samples_per_s_loop": TRAIN_BATCH * W8H_STEPS / wall,
+              "loop_s_max": wall, "run_a_s": f0["run_a_s"],
+              "save_s": f0["save_s"],
+              "restore_s_by_rank": [f["restore_s"] for f in full],
+              "checkpoint_bytes": f0["checkpoint_bytes"],
+              "largest_table_to_host_s": f0["transfer_s"],
+              "slab_bytes_by_rank": [f["slab_bytes"] for f in full],
+              "loss_first": f0["losses"][0], "loss_last": f0["losses"][-1],
+              "auc": f0["auc"], "resume_bitwise": True, **reshard},
+        "c": {"aucs": conv[0]["aucs"],
+              "wall_s_by_rank": [c["wall_s"] for c in conv]},
+        "rank_seconds": {p: [r[p]["seconds"] for r in ranks]
+                         for p in ("a", "b", "c")},
+        "ranks_total_s": rank_s}
+    result["phase_seconds"] = time.perf_counter() - t_start
+    log("world 8 h: " + json.dumps(result))
+    return small[0]["counts"], small[0]["modes"], result
+
+
+def phase_world8_h_only(torch):
+    """Phase 14h alone (``--world8h``): its checks and result."""
+    launches, _, _ = phase_world8_h(torch)
+    log("world 8 h only: launches " + json.dumps(launches))
+
+
 def main():
     global PARENT_DIR
     try:
@@ -10905,11 +11307,12 @@ def main():
     argv = sys.argv[1:]
     only_f = argv == ["--world8f"]
     only_g = argv == ["--world8g"]
+    only_h = argv == ["--world8h"]
     if len(argv) == 2 and argv[0] == "--parent":
         PARENT_DIR = os.path.abspath(argv[1])
-    elif argv and not (only_f or only_g):
+    elif argv and not (only_f or only_g or only_h):
         raise SystemExit("usage: python3 chip_smoke.py [--parent DIR | "
-                         "--world8f | --world8g]")
+                         "--world8f | --world8g | --world8h]")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this script "
                          "runs only on a GPU")
@@ -10928,6 +11331,9 @@ def main():
         return
     if only_g:  # phase 14g-a/b alone, to debug it; prints no result
         phase_world8_g_only(torch)
+        return
+    if only_h:  # phase 14h alone, to debug it; prints no result
+        phase_world8_h_only(torch)
         return
     _, de, state = phase_model(torch)
     errs = phase_check(torch, de, state)
@@ -11288,6 +11694,21 @@ def main():
                     "step, 8 ranks time-sharing one card (contended)"
                     + ("" if site != "sketch_fold" else "; the width "
                        "fold (K13, K14's pool and K15 in one replay)")}
+    # 14h: the example, its checkpoints and the convergence driver at
+    # world 8; rank 0's launches in 14h-a's counted run
+    gc.collect()
+    torch.cuda.empty_cache()
+    h_launches, h_modes, world8["example"] = phase_world8_h(torch)
+    launches["world8_example"] = h_launches
+    for k in kernels:
+        names = (csr_names if k["name"] == "csr" else k14 if k["name"] ==
+                 "cms_query" else (k["name"],))
+        k["launches_by_path"]["world8_example"] = (
+            h_modes[k["name"]] if k["name"] in h_modes else
+            sum(h_launches.get(n, 0) for n in names))
+    for name in W8H_KERNELS:
+        check(h_launches[name] > 0,
+              f"{name}: no launch on the world-8 example's path")
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']}: no launch on its main path")
     log(f"total {time.perf_counter() - t_start:.1f} s")

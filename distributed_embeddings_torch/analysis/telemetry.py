@@ -213,26 +213,44 @@ def _unflatten(template, leaves: List):
     return build(template)
 
 
-def save_telemetry_state(path: str, state) -> None:
+def save_telemetry_state(path: str, state, de=None) -> None:
     """Persist the raw carried state (atomic tmp + fsync + rename
     ``.npz``, leaves ``leaf_<i>`` in JAX's flatten order) so a resumed run
-    continues the accumulation."""
-    arrays = {f"leaf_{i}": v.detach().cpu().numpy()
-              for i, v in enumerate(_leaves(state))}
-    tmp = path + ".tmp"
-    with open(tmp, "wb") as f:
-        np.savez(f, **arrays)
-        f.flush()
-        os.fsync(f.fileno())
-    os.replace(tmp, path)
+    continues the accumulation. At world > 1 (``de`` given) every rank
+    must call: the state is gathered (:func:`gather_state`) and rank 0
+    writes JAX's ``[world, ...]`` leaves; the ranks meet at a barrier
+    after the write."""
+    multi = de is not None and de.world_size > 1
+    if multi:
+        leaves = _leaves(gather_state(de, state))
+        if de.rank != 0:
+            leaves = None
+    else:
+        leaves = [v.detach().cpu().numpy() for v in _leaves(state)]
+    if leaves is not None:
+        arrays = {f"leaf_{i}": v for i, v in enumerate(leaves)}
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            np.savez(f, **arrays)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+    if multi:
+        from ..parallel import bootstrap
+
+        bootstrap.barrier(de.process_group)
 
 
-def restore_telemetry_state(path: str, fresh_state):
+def restore_telemetry_state(path: str, fresh_state, de=None):
     """Rebuild a carried state from :func:`save_telemetry_state` output
     (the port's or the JAX package's), on the devices of ``fresh_state``
-    (an :func:`init_telemetry` result for the same model and config). On
-    any mismatch (config drift, torn file) the fresh state is returned:
+    (an :func:`init_telemetry` result for the same model and config). At
+    world > 1 (``de`` given) the file holds ``[world, ...]`` leaves and
+    this rank takes its row; no collective. On any mismatch (config
+    drift, another world size, a torn file) the fresh state is returned:
     telemetry never blocks a resume."""
+    world = de.world_size if de is not None else 1
+    rank = de.rank if world > 1 else 0
     try:
         with np.load(path) as loaded:
             leaves = _leaves(fresh_state)
@@ -244,11 +262,13 @@ def restore_telemetry_state(path: str, fresh_state):
             for i, leaf in enumerate(leaves):
                 arr = loaded[f"leaf_{i}"]
                 want = torch.empty(0, dtype=leaf.dtype).numpy().dtype
-                if tuple(arr.shape) != tuple(leaf.shape) or arr.dtype != want:
+                shape = (world,) + tuple(leaf.shape[1:])
+                if tuple(arr.shape) != shape or arr.dtype != want:
                     raise ValueError(
                         f"leaf {i}: saved {arr.shape}/{arr.dtype} != "
-                        f"expected {tuple(leaf.shape)}/{want}")
-                out.append(torch.from_numpy(arr.copy()).to(leaf.device))
+                        f"expected {shape}/{want}")
+                out.append(torch.from_numpy(arr[rank:rank + 1].copy())
+                           .to(leaf.device))
             return _unflatten(fresh_state, out)
     except Exception:  # noqa: BLE001 - never block a resume
         logging.getLogger(__name__).exception(
@@ -274,6 +294,7 @@ def gather_state(de, state) -> Dict[str, Any]:
         return _fetch(state)
     from ..parallel import bootstrap
 
+    bootstrap.group_rank(de.process_group, de.world_size)  # in a group
     return _unflatten(state, bootstrap.gather_leaves(_leaves(state),
                                                      de.process_group))
 

@@ -22,13 +22,7 @@ Run it: ``python -m distributed_embeddings_torch.dryrun 8 [cpu]``.
 
 from __future__ import annotations
 
-import os
-import queue
-import shutil
 import sys
-import tempfile
-import time
-import traceback
 
 import numpy as np
 import torch
@@ -187,27 +181,21 @@ def run_rank(rank: int, n_ranks: int, device, seed: int = 0) -> dict:
                       for p in state.dense_params.parameters()]}
 
 
-def _serve_rank(rank, n_ranks, store, device, seed, results):
-    """A rank process: join the group, run the step, send the result (or
-    the traceback, then exit non-zero)."""
-    try:
-        torch.set_num_threads(1)
-        dev = torch.device(device)
-        if dev.type == "cuda":
-            dev = torch.device("cuda", rank % torch.cuda.device_count())
-            torch.cuda.set_device(dev)
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
-        from .parallel import bootstrap
+def _serve_rank(rank, n_ranks, store, device, seed):
+    """A rank process: join the group, run the step, return its result."""
+    torch.set_num_threads(1)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    from .parallel import bootstrap
 
-        bootstrap.initialize("gloo", f"file://{store}", n_ranks, rank,
-                             timeout_s=TIMEOUT_S)
-        out = run_rank(rank, n_ranks, dev, seed)
-        torch.distributed.destroy_process_group()
-        results.put((rank, True, out))
-    except BaseException:  # noqa: BLE001 - reported to the caller
-        results.put((rank, False, traceback.format_exc()))
-        sys.exit(1)
+    bootstrap.initialize("gloo", store, n_ranks, rank, timeout_s=TIMEOUT_S)
+    out = run_rank(rank, n_ranks, dev, seed)
+    torch.distributed.destroy_process_group()
+    return out
 
 
 def dryrun_multichip(n_ranks: int, device="cuda", seed: int = 0,
@@ -220,52 +208,17 @@ def dryrun_multichip(n_ranks: int, device="cuda", seed: int = 0,
     dense parameters after it). Raises if a rank
     fails, the ranks disagree on the loss, or they take longer than
     ``timeout_s``."""
-    import torch.multiprocessing as mp
-
+    from .parallel.bootstrap import spawn_ranks
     from .utils.device import resolve_device
 
     n_ranks = int(n_ranks)
     if n_ranks < 1:
         raise ValueError(f"n_ranks must be >= 1, got {n_ranks}")
     dev = resolve_device(device)
-    ctx = mp.get_context("spawn")
-    results = ctx.Queue()
-    tmp = tempfile.mkdtemp(prefix="detpu_dryrun_")
-    procs = [ctx.Process(target=_serve_rank,
-                         args=(r, n_ranks, os.path.join(tmp, "store"),
-                               dev.type, seed, results))
-             for r in range(n_ranks)]
-    got = {}
-    t0 = time.perf_counter()
-    try:
-        for p in procs:
-            p.start()
-        while len(got) < n_ranks:
-            try:
-                rank, ok, res = results.get(timeout=1)
-            except queue.Empty:
-                dead = [(r, p.exitcode) for r, p in enumerate(procs)
-                        if p.exitcode not in (None, 0) and r not in got]
-                if dead:
-                    raise RuntimeError(f"dryrun: rank(s) exited (rank, "
-                                       f"exit code) {dead}") from None
-                if time.perf_counter() - t0 > timeout_s:
-                    left = sorted(set(range(n_ranks)) - set(got))
-                    raise RuntimeError(f"dryrun: ranks {left} gave no "
-                                       f"result in {timeout_s} s") from None
-                continue
-            if not ok:
-                raise RuntimeError(f"dryrun: rank {rank} failed:\n{res}")
-            got[rank] = res
-        for p in procs:
-            p.join(timeout=60)
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join()
-        shutil.rmtree(tmp, ignore_errors=True)
-    losses = {got[r]["loss"] for r in range(n_ranks)}
+    got = spawn_ranks(_serve_rank,
+                      lambda r, store: (r, n_ranks, store, dev.type, seed),
+                      n_ranks, timeout_s, what="dryrun")
+    losses = {g["loss"] for g in got}
     if len(losses) != 1:
         raise AssertionError(f"dryrun: the ranks' losses differ: {losses}")
     return got[0]

@@ -1,4 +1,4 @@
-"""DLRM training example at world 1 (counterpart of the JAX package's
+"""DLRM training example (counterpart of the JAX package's
 ``examples/dlrm/main.py``): the MLPerf DLRM trained with the hybrid
 step, embeddings on the hand-written kernels and the MLPs on cuBLAS,
 on the Criteo raw-binary dataset (or synthetic data when no
@@ -16,8 +16,28 @@ package's ``'<V2'`` encoding).
         --device cpu --num_batches 20 --batch_size 64 \\
         --table_sizes 50,50,50 --embedding_dim 8 \\
         --bottom_mlp_dims 16,8 --top_mlp_dims 16,1
+    python -m distributed_embeddings_torch.examples.dlrm_main \\
+        --device cpu --world_size 8 --backend gloo ...   # 8 ranks
 
-The flags are the JAX example's, with its defaults, plus ``--device``.
+The flags are the JAX example's, with its defaults, plus the port's
+``--device``, ``--world_size``, ``--rank``, ``--init_method``,
+``--backend`` and ``--row_slice``. At world > 1 each rank is one process
+of a ``torch.distributed`` group (``parallel/bootstrap.py:initialize``
+with ``--backend``, which has no default there, ``--init_method``,
+``--bootstrap_timeout_s`` and ``--bootstrap_retries``), on
+``cuda:(rank % device_count)`` unless ``--device cpu``. ``--world_size``
+without ``--rank`` starts every rank itself (:func:`launch`, a
+``file://`` store in a temporary directory); a process already in its
+group (as rank ``--rank`` of ``--world_size``) uses that group and needs
+no ``--init_method``. As in the JAX example on
+its mesh: rank 0 (the chief) alone prints and writes the metrics, the
+telemetry JSON and the dump, every rank joining the collectives behind
+them; the input is model-parallel (``MpInputs``) unless ``--dp_input``,
+which gives each rank its rows of the global batch; the eval predictions
+gather in rank order, so every rank computes the same AUC; checkpoints
+are the chief-written saves and per-rank restores of
+``utils/checkpoint.py``.
+
 The JAX example runs its loop through the resilient driver
 (``run_resilient``); here a plain loop does what the example's flags
 ask: the step, the ``on_step`` cadence (a log line every 1000 steps,
@@ -25,7 +45,9 @@ eval every ``--eval_interval``), a checkpoint every
 ``--checkpoint_interval`` steps and one at exit, and a resume at
 ``state.step`` with the data stream fast-forwarded to it. Flags whose
 machinery is not ported raise ``NotImplementedError`` naming their
-ROADMAP item when set. :func:`main` returns a :class:`RunResult`.
+ROADMAP item when set; so does ``--serve_qps`` with ``--dp_input`` at
+world > 1 (the serving mesh, ROADMAP A7b). :func:`main` returns a
+:class:`RunResult` (or, when it started the ranks, each rank's summary).
 
 Step metrics: ``--metrics_out F`` or ``DETPU_OBS=1`` builds the
 instrumented step, and every ``--metrics_interval`` steps (from step 0)
@@ -53,9 +75,9 @@ from ..analysis import telemetry
 from ..models.dlrm import DLRMConfig, DLRMDense, bce_with_logits
 from ..models.schedules import warmup_poly_decay_schedule
 from ..parallel import (SGD, DistributedEmbedding, ServeConfig,
-                        ServingRuntime, SparseSGD, drive, init_hybrid_state,
-                        make_hybrid_eval_step, make_hybrid_train_step,
-                        synthetic_request)
+                        ServingRuntime, SparseSGD, bootstrap, drive,
+                        init_hybrid_state, make_hybrid_eval_step,
+                        make_hybrid_train_step, synthetic_request)
 from ..utils import checkpoint, envvars, obs
 from ..utils.data import RawBinaryDataset, fast_forward, power_law_ids
 from ..utils.device import resolve_device
@@ -77,7 +99,9 @@ def _list(v: str) -> List[str]:
 
 
 def build_parser() -> argparse.ArgumentParser:
-    """The JAX example's flags (names and defaults), plus ``--device``."""
+    """The JAX example's flags (names and defaults), plus the port's
+    ``--device``, ``--world_size``, ``--rank``, ``--init_method``,
+    ``--backend`` and ``--row_slice``."""
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
 
     def flag(name, **kw):
@@ -111,7 +135,8 @@ def build_parser() -> argparse.ArgumentParser:
     flag("checkpoint_out", default="/tmp/embedding_weights",
          help="np.savez path for final global embedding weights")
     bool_flag("dp_input", False,
-              "feed data-parallel id shards (world > 1 only: ROADMAP A7b)")
+              "feed data-parallel id shards (world > 1: each rank its rows "
+              "of the global batch; default model-parallel MpInputs)")
     flag("eval_interval", type=int, default=0,
          help="evaluate every N training steps (0 = only at the end)")
     flag("auc_threshold", type=float, default=None,
@@ -139,9 +164,9 @@ def build_parser() -> argparse.ArgumentParser:
     flag("quarantine_max", type=int, default=None,
          help="quarantined batch budget (ROADMAP A12)")
     flag("bootstrap_timeout_s", type=float, default=None,
-         help="multi-host join deadline (ROADMAP A7b)")
+         help="process-group join and collective deadline (seconds)")
     flag("bootstrap_retries", type=int, default=2,
-         help="multi-host join retries (ROADMAP A7b)")
+         help="process-group join retries")
     flag("metrics_out", default=None,
          help="step-metrics JSONL sidecar path; default "
               "<checkpoint_out>.metrics.jsonl when DETPU_OBS=1")
@@ -160,8 +185,19 @@ def build_parser() -> argparse.ArgumentParser:
     flag("param_dtype", default="float32", choices=list(DTYPES),
          help="embedding table (slab) dtype")
     flag("device", default="cuda",
-         help="torch device to run on (default the card; 'cpu' runs every "
-              "kernel's plain version)")
+         help="torch device to run on (default the card, cuda:(rank % "
+              "devices) at world > 1; 'cpu' runs every kernel's plain "
+              "version)")
+    flag("world_size", type=int, default=1,
+         help="ranks (processes) of the run; without --rank, start them all")
+    flag("rank", type=int, default=None, help="this process's rank")
+    flag("init_method", default=None,
+         help="the group's rendezvous (tcp://localhost:PORT or "
+              "file:///path); not needed in a group already joined")
+    flag("backend", default=None, choices=["gloo", "nccl"],
+         help="the group's backend; required at world > 1")
+    flag("row_slice", type=int, default=None,
+         help="row-slice tables above this many elements (world > 1)")
     return p
 
 
@@ -169,8 +205,6 @@ def _refuse_unported(args) -> None:
     """Raise for a non-default flag whose machinery is not ported."""
     unported = [
         ("plan_audit", args.plan_audit != "off", "A4b"),
-        ("bootstrap_timeout_s", args.bootstrap_timeout_s is not None, "A7b"),
-        ("bootstrap_retries", args.bootstrap_retries != 2, "A7b"),
         ("checkpoint_time_s", args.checkpoint_time_s != 0, "A12"),
         ("rollback_max", args.rollback_max is not None, "A12"),
         ("quarantine_max", args.quarantine_max is not None, "A12"),
@@ -228,13 +262,95 @@ class RunResult(NamedTuple):
     loop_s: float
 
 
-def main(argv: Optional[Sequence[str]] = None) -> RunResult:
+def _launched_rank(argv) -> Dict[str, Any]:
+    """A rank process of :func:`launch`: run the example, return its
+    summary."""
+    res = main(argv)
+    return {"losses": res.losses, "auc": res.auc,
+            "stop_reason": res.stop_reason, "steps_run": res.steps_run,
+            "step": int(res.state.step), "save_s": res.save_s,
+            "restore_s": res.restore_s, "step_s": res.step_s,
+            "loop_s": res.loop_s}
+
+
+def launch(argv: Sequence[str], world_size: int, backend: str,
+           device: str = "cuda", timeout_s: Optional[float] = None
+           ) -> List[Dict[str, Any]]:
+    """Run the example with ``argv`` in ``world_size`` spawned rank
+    processes joined on a ``file://`` store in a temporary directory
+    (``backend`` explicit; ``device`` ``"cuda"`` puts rank r on
+    ``cuda:(r % device_count)``, ``"cpu"`` runs the plain versions).
+    Returns each rank's summary in rank order (its losses, AUC, stop
+    reason, steps, final step and timings). When a rank fails (an
+    exception, a non-zero exit, or no result in ``timeout_s``), every
+    rank is stopped and ``RuntimeError`` carries the rank's traceback
+    (:func:`~..parallel.bootstrap.spawn_ranks`)."""
+    def args_for_rank(r, store):
+        return (list(argv) + ["--world_size", str(world_size), "--rank",
+                              str(r), "--backend", backend,
+                              "--init_method", store, "--device", device],)
+
+    return bootstrap.spawn_ranks(_launched_rank, args_for_rank, world_size,
+                                 timeout_s, what="launch")
+
+
+def main(argv: Optional[Sequence[str]] = None):
     """Run the example with ``argv`` (the command line without the
-    program name; ``sys.argv[1:]`` when ``None``)."""
+    program name; ``sys.argv[1:]`` when ``None``). Returns a
+    :class:`RunResult`; with ``--world_size`` > 1 and no ``--rank`` it
+    starts the ranks (:func:`launch`) and returns their summaries."""
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
     _refuse_unported(args)
-    dev = resolve_device(args.device)
+    world = int(args.world_size)
+    if world > 1 and args.backend is None:
+        raise ValueError("--backend is required at world > 1: 'gloo' or "
+                         "'nccl' (nothing switches from one to the other)")
+    if world > 1 and args.dp_input and args.serve_qps > 0:
+        raise NotImplementedError(
+            "--serve_qps with --dp_input at world > 1 serves on the "
+            "serving mesh, not ported yet: ROADMAP A7b")
+    if world > 1 and args.rank is None:
+        return launch(argv, world, args.backend, args.device,
+                      args.bootstrap_timeout_s)
+    joined = False
+    if world > 1 and torch.distributed.is_initialized():
+        # this process is already a rank of its group: it must be this one
+        have = (torch.distributed.get_world_size(),
+                torch.distributed.get_rank())
+        if have != (world, args.rank):
+            raise ValueError(f"this process is rank {have[1]} of a group of "
+                             f"{have[0]}, not --rank {args.rank} of "
+                             f"--world_size {world}")
+    elif world > 1:
+        if args.init_method is None:
+            raise ValueError("--rank needs --init_method (the group's "
+                             "rendezvous)")
+        joined = bootstrap.initialize(
+            args.backend, args.init_method, world, args.rank,
+            timeout_s=args.bootstrap_timeout_s,
+            retries=args.bootstrap_retries)
+    try:
+        return _run(args, world)
+    finally:
+        if joined:
+            torch.distributed.destroy_process_group()
+
+
+def _run(args, world: int) -> RunResult:
+    """The example's body on this rank (world 1, or a joined group)."""
+    rank = 0 if world == 1 else bootstrap.group_rank(None, world)
+    is_chief = rank == 0
+    dev = resolve_device(args.device)  # raises without a card
+    if world > 1 and dev.type == "cuda":
+        dev = torch.device(f"cuda:{rank % torch.cuda.device_count()}")
+        torch.cuda.set_device(dev)
     dtype = DTYPES[args.param_dtype]
+    use_mp_input = (not args.dp_input) and world > 1
+
+    def say(*a) -> None:
+        if is_chief:
+            print(*a)
 
     table_sizes = [int(s) for s in args.table_sizes]
     if args.dataset_path is not None:
@@ -246,12 +362,20 @@ def main(argv: Optional[Sequence[str]] = None) -> RunResult:
         num_numerical_features=args.num_numerical_features,
         bottom_mlp_dims=[int(d) for d in args.bottom_mlp_dims],
         top_mlp_dims=[int(d) for d in args.top_mlp_dims])
-    # world 1: the input is data-parallel by construction (the JAX
-    # example's model-parallel input only means anything on a mesh)
+    # model-parallel input only means anything across ranks
     de = DistributedEmbedding(
-        cfg.embedding_configs(), world_size=1, strategy=args.dist_strategy,
-        column_slice_threshold=args.column_slice_threshold)
-    print(de.strategy.describe())
+        cfg.embedding_configs(), world_size=world,
+        strategy=args.dist_strategy, dp_input=not use_mp_input,
+        column_slice_threshold=args.column_slice_threshold,
+        row_slice=args.row_slice)
+    say(de.strategy.describe())
+    if args.batch_size % world:
+        # the per-rank slicing would silently drop the remainder of every
+        # global batch: fail loudly instead (the JAX example's check)
+        raise ValueError(
+            f"--batch_size {args.batch_size} must be divisible by the "
+            f"global device count {world} ({world} processes)")
+    lb = args.batch_size // world
 
     dense = DLRMDense(cfg, device=dev,
                       generator=torch.Generator(device=dev).manual_seed(0))
@@ -282,18 +406,19 @@ def main(argv: Optional[Sequence[str]] = None) -> RunResult:
             restore_from, de, emb_opt, dense, tx,
             on_mismatch=envvars.get("DETPU_ON_MISMATCH"), device=dev)
         restore_s = time.perf_counter() - t0
-        print("restored train state at step", int(state.step), "from",
-              restore_from)
+        say("restored train state at step", int(state.step), "from",
+            restore_from)
     else:
         state = init_hybrid_state(
             de, emb_opt, dense, tx,
             generator=torch.Generator(device=dev).manual_seed(1),
             dtype=dtype, device=dev)
-    # step metrics (world 1: this process is the chief and writes them)
+    # step metrics: every rank runs the instrumented step (its metrics
+    # are gathered over the group), the chief writes them
     with_metrics = obs.metrics_enabled() or args.metrics_out is not None
     metrics_log = (obs.MetricsLogger(
         args.metrics_out or args.checkpoint_out + ".metrics.jsonl")
-        if with_metrics else None)
+        if with_metrics and is_chief else None)
     with_telemetry = telemetry.telemetry_enabled()
     step_fn = make_hybrid_train_step(de, loss_fn, tx, emb_opt,
                                      lr_schedule=sched,
@@ -306,27 +431,40 @@ def main(argv: Optional[Sequence[str]] = None) -> RunResult:
     if telem is not None and restore_from and telemetry_path is not None \
             and os.path.isfile(telemetry_path + ".state.npz"):
         telem = telemetry.restore_telemetry_state(
-            telemetry_path + ".state.npz", telem)
+            telemetry_path + ".state.npz", telem, de)
 
     def to_dev(a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a).to(dev, non_blocking=True)
+        return torch.from_numpy(np.ascontiguousarray(a)).to(
+            dev, non_blocking=True)
+
+    def rows(a: np.ndarray) -> np.ndarray:
+        """This rank's rows of a global batch array."""
+        return a if world == 1 else a[rank * lb:(rank + 1) * lb]
+
+    def prep_cats(cats):
+        """Global per-feature id arrays -> this rank's embedding input."""
+        if use_mp_input:
+            return de.pack_mp_inputs(cats, device=dev)
+        return [to_dev(rows(c)) for c in cats]
 
     def data_source(start):
         """Batch stream positioned at absolute step ``start`` (no batch
-        replayed or skipped on resume)."""
+        replayed or skipped on resume); every rank reads the same global
+        batches and takes its part."""
         if args.dataset_path is not None:
             it = RawBinaryDataset(
                 data_path=args.dataset_path, batch_size=args.batch_size,
                 numerical_features=args.num_numerical_features,
                 categorical_features=list(range(len(table_sizes))),
                 categorical_feature_sizes=table_sizes,
-                drop_last_batch=True, dp_input=True, start_batch=start)
+                drop_last_batch=True, dp_input=not use_mp_input,
+                start_batch=start)
         else:
             it = itertools.islice(
                 synthetic_batches(cfg, args.num_batches, args.batch_size),
                 start, None)
         for num, cats, labels in it:
-            yield [to_dev(c) for c in cats], (to_dev(num), to_dev(labels))
+            yield prep_cats(cats), (to_dev(rows(num)), to_dev(rows(labels)))
 
     if args.dataset_path is not None:
         eval_data = RawBinaryDataset(
@@ -334,7 +472,7 @@ def main(argv: Optional[Sequence[str]] = None) -> RunResult:
             numerical_features=args.num_numerical_features,
             categorical_features=list(range(len(table_sizes))),
             categorical_feature_sizes=table_sizes,
-            drop_last_batch=True, valid=True, dp_input=True)
+            drop_last_batch=True, valid=True, dp_input=not use_mp_input)
     else:
         # a fixed held-out synthetic set so mid-training eval is meaningful
         eval_data = (list(synthetic_batches(cfg, args.eval_batches,
@@ -345,12 +483,13 @@ def main(argv: Optional[Sequence[str]] = None) -> RunResult:
         de, lambda dp, outs, n: torch.sigmoid(dp(n, outs)))
 
     def evaluate(cur_state) -> float:
-        """Full pass over the eval split -> AUC."""
+        """Full pass over the eval split -> the global AUC (every rank's
+        predictions gathered in rank order, on every rank)."""
         all_preds, all_labels = [], []
         for num, cats, labels in eval_data:
-            preds = eval_fn(cur_state, [to_dev(c) for c in cats],
-                            to_dev(num))
-            all_preds.append(preds.float().cpu().numpy())
+            preds = eval_fn(cur_state, prep_cats(cats), to_dev(rows(num)))
+            all_preds.append(preds.float().cpu().numpy() if world == 1
+                             else bootstrap.to_host(preds, de.process_group))
             all_labels.append(np.asarray(labels))
         return binary_auc(np.concatenate(all_labels),
                           np.concatenate(all_preds))
@@ -361,15 +500,15 @@ def main(argv: Optional[Sequence[str]] = None) -> RunResult:
         """The JAX example's per-step callback (``step``: the ordinal of
         the step just taken, 0 first, as the resilient driver counts)."""
         if step % 1000 == 0:
-            print("step:", step, " loss:", float(loss))
+            say("step:", step, " loss:", float(loss))
         if (args.eval_interval and eval_data is not None and step
                 and step % args.eval_interval == 0):
             auc = evaluate(cur_state)
             last_auc[0] = auc
-            print(f"eval step: {step} AUC: {auc}")
+            say(f"eval step: {step} AUC: {auc}")
             if args.auc_threshold is not None and auc >= args.auc_threshold:
-                print(f"AUC threshold {args.auc_threshold} reached at "
-                      f"step {step}, stopping")
+                say(f"AUC threshold {args.auc_threshold} reached at "
+                    f"step {step}, stopping")
                 return True
         return False
 
@@ -381,10 +520,11 @@ def main(argv: Optional[Sequence[str]] = None) -> RunResult:
                                     keep_last_n=keep_last_n)
         if telem is not None:
             summary = telemetry.summarize_telemetry(de, telem)
-            with open(telemetry_path, "w", encoding="utf-8") as f:
-                json.dump(summary, f)
+            if is_chief:
+                with open(telemetry_path, "w", encoding="utf-8") as f:
+                    json.dump(summary, f)
             telemetry.save_telemetry_state(telemetry_path + ".state.npz",
-                                           telem)
+                                           telem, de)
         save_s.append(time.perf_counter() - t0)
 
     losses: List[float] = []
@@ -419,10 +559,13 @@ def main(argv: Optional[Sequence[str]] = None) -> RunResult:
     if eval_data is not None and stop_reason != "on_step":
         auc = evaluate(state)
         last_auc[0] = auc
-        print(f"Evaluation completed, AUC: {auc}")
+        say(f"Evaluation completed, AUC: {auc}")
 
     serving = serve_results = None
-    if args.serve_qps > 0:
+    if args.serve_qps > 0 and use_mp_input:
+        say("serving epilogue skipped: the ServingRuntime coalesces "
+            "data-parallel requests — rerun with --dp_input")
+    elif args.serve_qps > 0:
         # inference epilogue: the deadline-bounded serving runtime over
         # the just-trained state, variable-size Zipfian requests
         rt = ServingRuntime(
@@ -444,17 +587,20 @@ def main(argv: Optional[Sequence[str]] = None) -> RunResult:
               f"shed={s['shed']}, deadline_missed={s['deadline_missed']}, "
               f"pad={s['pad_fraction']:.2f}, recompiles=0")
 
-    # the embedding dump, in the JAX package's on-disk dtypes
-    tables = {f"arr_{t}": de._table_tensor(state.emb_params, t)
+    # the embedding dump, in the JAX package's on-disk dtypes: every rank
+    # sends its slices to the chief, which writes
+    tables = {f"arr_{t}": de._table_tensor(state.emb_params, t,
+                                           all_ranks=False)
               for t in range(len(table_sizes))}
-    path = args.checkpoint_out
-    if not path.endswith(".npz"):
-        path += ".npz"  # np.savez's naming
-    with open(path, "wb") as f:
-        checkpoint.save_npz(f, tables)
-    print("saved", len(tables), "tables to", args.checkpoint_out)
+    if is_chief:
+        path = args.checkpoint_out
+        if not path.endswith(".npz"):
+            path += ".npz"  # np.savez's naming
+        with open(path, "wb") as f:
+            checkpoint.save_npz(f, tables)
+    say("saved", len(tables), "tables to", args.checkpoint_out)
     if args.save_state:
-        print("saved full train state to", args.save_state)
+        say("saved full train state to", args.save_state)
     if metrics_log is not None:
         # the final process-counter snapshot
         metrics_log.log_counters(final=True)

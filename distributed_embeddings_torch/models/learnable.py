@@ -76,7 +76,8 @@ def _scaled(base, s: float):
 
 
 def train_dlrm_convergence(task: LearnableClicks, *, world_size: int = 1,
-                           mesh=None, steps: int = 360, batch: int = 8192,
+                           mesh=None, process_group=None,
+                           steps: int = 360, batch: int = 8192,
                            embedding_dim: int = 16, lr_schedule=0.01,
                            param_dtype: Optional[torch.dtype] = None,
                            eval_n: int = 16384, seed: int = 0,
@@ -90,7 +91,7 @@ def train_dlrm_convergence(task: LearnableClicks, *, world_size: int = 1,
     step ``steps // 3``).
 
     The same run as the JAX package's (the bench's ``convergence``
-    capture and the slow learning tests), at world 1: the model is
+    capture and the slow learning tests): the model is
     ``DLRMConfig(task.table_sizes, embedding_dim, bottom MLP [2d, d],
     top MLP [64, 32, 1])``, the embedding optimizer sparse, the dense one
     optax-like, and the eval :func:`~..parallel.make_hybrid_eval_step` +
@@ -112,18 +113,30 @@ def train_dlrm_convergence(task: LearnableClicks, *, world_size: int = 1,
     JAX package's to the digit. ``init_state(de, dense, emb_optimizer,
     dense_tx) -> HybridTrainState`` replaces that init (the tests carry
     the JAX package's initial state over); ``on_step(i, loss, state)``
-    is called after every step. ``world_size > 1`` and ``mesh`` are not
-    ported yet (ROADMAP A7b)."""
+    is called after every step.
+
+    ``world_size > 1``: this process is one rank of ``process_group``
+    (``None``: the default group), as each device of the JAX package's
+    mesh is: every rank draws the same batches and eval set from the
+    seeded generators and takes its rows (``batch`` and ``eval_n`` must
+    divide by the world), and the eval predictions gather in rank order,
+    so every rank computes the same AUCs. ``init_state`` receives this
+    rank's layer. The port has no mesh object: ``mesh`` must be
+    ``None``."""
     from ..parallel import (SGD, Adam, DistributedEmbedding, SparseAdam,
-                            SparseSGD, init_hybrid_state,
+                            SparseSGD, bootstrap, init_hybrid_state,
                             make_hybrid_eval_step, make_hybrid_train_step)
     from ..utils.device import resolve_device
     from ..utils.metrics import binary_auc
     from .dlrm import DLRMConfig, DLRMDense, bce_with_logits
 
-    if world_size != 1 or mesh is not None:
+    if mesh is not None:
         raise NotImplementedError(
-            "the multi-rank convergence run is not ported yet: ROADMAP A7b")
+            "the port has no mesh object: run one process a rank "
+            "(world_size=, process_group=)")
+    if batch % world_size or eval_n % world_size:
+        raise ValueError(f"batch {batch} and eval_n {eval_n} must be "
+                         f"divisible by world_size {world_size}")
     dev = resolve_device(device)
     cfg = DLRMConfig(table_sizes=task.table_sizes,
                      embedding_dim=embedding_dim,
@@ -136,7 +149,9 @@ def train_dlrm_convergence(task: LearnableClicks, *, world_size: int = 1,
             c["embeddings_initializer"] = _scaled(
                 c["embeddings_initializer"], float(emb_init_scale))
     de = DistributedEmbedding(emb_configs, world_size=world_size,
-                              strategy="memory_balanced")
+                              strategy="memory_balanced",
+                              process_group=process_group)
+    rank = de.rank
     dense = DLRMDense(cfg, device=dev,
                       generator=torch.Generator(device=dev).manual_seed(seed))
     if dense_lr is None:
@@ -171,7 +186,9 @@ def train_dlrm_convergence(task: LearnableClicks, *, world_size: int = 1,
         de, lambda d, outs, num: torch.sigmoid(d(num, outs)))
 
     def put(x):
-        return torch.as_tensor(x, device=dev)
+        """This rank's rows of a global array, on the device."""
+        n = x.shape[0] // world_size
+        return torch.as_tensor(x[rank * n:(rank + 1) * n], device=dev)
 
     ev_num, ev_cats, ev_y = task.sample(np.random.default_rng(999), eval_n)
     ev_num = put(ev_num)
@@ -179,7 +196,9 @@ def train_dlrm_convergence(task: LearnableClicks, *, world_size: int = 1,
 
     def auc(st):
         pred = eval_fn(st, ev_cats, ev_num)
-        return binary_auc(ev_y, pred.float().cpu().numpy())
+        pred = (pred.float().cpu().numpy() if world_size == 1 else
+                bootstrap.to_host(pred, de.process_group))
+        return binary_auc(ev_y, pred)
 
     auc0 = auc(state)
     rng = np.random.default_rng(seed + 7)

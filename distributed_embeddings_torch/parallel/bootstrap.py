@@ -20,12 +20,21 @@ all-to-all can also be left in flight (:func:`all_to_all_start`, an
 exchanges under other microbatches' compute;
 bfloat16 travels as its bytes in the copying collectives (copies, not
 sums). :func:`to_host` and :func:`gather_leaves` gather onto the host.
+
+The checkpoint layer adds :func:`barrier`, :func:`send_to_chief` (one
+tensor from its owner rank to group rank 0 only, point to point: a
+chief-written save moves each table through host memory once) and
+:func:`broadcast_object` (rank 0's small picklable object, the restore's
+decision) and :func:`all_gather_object`. Every collective names the group
+it runs on. :func:`spawn_ranks` starts a job's ranks as processes of one
+host and collects their results (the example's launcher, the dryrun).
 """
 
 from __future__ import annotations
 
 import datetime
 import logging
+import os
 import time
 from typing import Optional
 
@@ -219,6 +228,65 @@ def gather_leaves(leaves, group) -> list:
     return out
 
 
+def barrier(group) -> None:
+    """Wait until every rank of ``group`` (``None``: the default group)
+    reaches this call; nothing outside a process group."""
+    if dist.is_initialized():
+        dist.barrier(group=group)
+
+
+def _global(group, r: int) -> int:
+    return dist.get_global_rank(group, r) if group is not None else r
+
+
+def send_to_chief(x: Optional[torch.Tensor], owner: int, group,
+                  shape, dtype: torch.dtype) -> Optional[torch.Tensor]:
+    """Group rank ``owner``'s tensor on group rank 0 as a CPU tensor of
+    ``shape`` and ``dtype``; ``None`` on every other rank. ``owner``
+    passes ``x`` (on any device), the others ``None``. Point to point:
+    no rank but the chief receives the bytes, and ranks other than
+    ``owner`` and 0 return at once. gloo's point-to-point takes host
+    tensors, so the owner copies its tensor to the host first (NCCL's
+    takes the card's); bfloat16 travels as its bytes. Every rank of a
+    transfer must make its calls in the same order."""
+    me = dist.get_rank(group)
+    if owner == 0:
+        return x.detach().cpu() if me == 0 else None
+    nccl = dist.get_backend(group) == dist.Backend.NCCL
+    if me == owner:
+        src = x.detach().contiguous()
+        if not nccl:
+            src = src.cpu()
+        dist.send(_wire(src), _global(group, 0), group=group)
+        return None
+    if me != 0:
+        return None
+    buf = torch.empty(tuple(shape), dtype=dtype,
+                      device="cuda" if nccl else "cpu")
+    dist.recv(_wire(buf), _global(group, owner), group=group)
+    return buf.cpu()
+
+
+def broadcast_object(obj, group):
+    """Group rank 0's ``obj`` (small, picklable) on every rank; the
+    others pass anything (``None``)."""
+    if not dist.is_initialized() or dist.get_world_size(group) == 1:
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=_global(group, 0), group=group)
+    return box[0]
+
+
+def all_gather_object(obj, group) -> list:
+    """Every rank's ``obj`` (small, picklable) in rank order, on every
+    rank; ``[obj]`` outside a group."""
+    if not dist.is_initialized() or dist.get_world_size(group) == 1:
+        return [obj]
+    out = [None] * dist.get_world_size(group)
+    dist.all_gather_object(out, obj, group=group)
+    return out
+
+
 def shard_batch(tree, rank: Optional[int] = None,
                 world_size: Optional[int] = None):
     """This rank's rows of a GLOBAL batch (the reference's per-rank
@@ -292,8 +360,81 @@ def broadcast_seed(seed: int, group=None) -> int:
     return int(t.cpu()[0])
 
 
-__all__ = ["InFlight", "all_gather", "all_reduce_sum_", "all_to_all",
-           "all_to_all_start", "broadcast_",
+def _spawned_rank(target, rank, args, results) -> None:
+    """A process of :func:`spawn_ranks`: run ``target(*args)``, send its
+    result (or its traceback, then exit non-zero)."""
+    import sys
+    import traceback
+
+    try:
+        results.put((rank, True, target(*args)))
+    except BaseException:  # noqa: BLE001 - reported to the parent
+        results.put((rank, False, traceback.format_exc()))
+        sys.exit(1)
+
+
+def spawn_ranks(target, args_for_rank, world_size: int,
+                timeout_s: Optional[float] = None, what: str = "ranks"
+                ) -> list:
+    """Run ``target(*args_for_rank(rank, init_method))`` in
+    ``world_size`` spawned processes, one a rank, and return what each
+    returned, in rank order. ``init_method`` is a ``file://`` store in a
+    temporary directory, removed on the way out, for the ranks to join
+    (:func:`initialize`). ``target`` and the arguments must pickle.
+    When a rank raises (its traceback travels in the error), exits
+    without a result, or the ranks give no result in ``timeout_s``
+    (``None``: no limit), every process is stopped and ``RuntimeError``
+    (prefixed ``what``) is raised."""
+    import queue
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    tmp = tempfile.mkdtemp(prefix="detpu_ranks_")
+    store = "file://" + os.path.join(tmp, "store")
+    procs = [ctx.Process(target=_spawned_rank, args=(
+        target, r, tuple(args_for_rank(r, store)), results))
+             for r in range(world_size)]
+    got = {}
+    t0 = time.monotonic()
+    try:
+        for p in procs:
+            p.start()
+        while len(got) < world_size:
+            try:
+                rank, ok, res = results.get(timeout=1)
+            except queue.Empty:
+                dead = [(r, p.exitcode) for r, p in enumerate(procs)
+                        if p.exitcode not in (None, 0) and r not in got]
+                if dead:
+                    raise RuntimeError(f"{what}: rank(s) exited without a "
+                                       f"result (rank, exit code) {dead}"
+                                       ) from None
+                if timeout_s is not None and \
+                        time.monotonic() - t0 > timeout_s:
+                    left = sorted(set(range(world_size)) - set(got))
+                    raise RuntimeError(f"{what}: ranks {left} gave no "
+                                       f"result in {timeout_s} s") from None
+                continue
+            if not ok:
+                raise RuntimeError(f"{what}: rank {rank} failed:\n{res}")
+            got[rank] = res
+        for p in procs:
+            p.join(timeout=60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return [got[r] for r in range(world_size)]
+
+
+__all__ = ["InFlight", "all_gather", "all_gather_object", "all_reduce_sum_",
+           "all_to_all", "all_to_all_start", "barrier", "broadcast_", "broadcast_object",
            "broadcast_seed", "gather_leaves", "group_rank", "initialize",
-           "process_count", "process_index", "shard_batch", "to_host",
-           "world"]
+           "process_count", "process_index", "send_to_chief", "shard_batch",
+           "spawn_ranks", "to_host", "world"]

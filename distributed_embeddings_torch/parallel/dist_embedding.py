@@ -398,13 +398,17 @@ class DistributedEmbedding:
 
     def _table_tensor(self, params: EmbedParams, tid: int,
                       chunk_elems: int = CHECKPOINT_CHUNK_ELEMS,
-                      keep: bool = True) -> Optional[torch.Tensor]:
+                      all_ranks: bool = True) -> Optional[torch.Tensor]:
         """ONE global table ``[input_dim, output_dim]`` as a CPU tensor
         in the slab's dtype (bfloat16 kept), copied in row chunks of at
-        most ``chunk_elems`` elements. At world > 1 each slice's owner
-        broadcasts its chunks over the group (every rank must call);
-        ``keep=False`` joins the collectives and returns ``None``."""
+        most ``chunk_elems`` elements. At world > 1 every rank must call:
+        with ``all_ranks`` each slice's owner broadcasts its chunks over
+        the group and every rank returns the table; without, each owner
+        sends its chunks to rank 0 alone (``bootstrap.send_to_chief``),
+        rank 0 returns the table and the others ``None``, holding at most
+        one chunk of their own on the host."""
         cfg = self.strategy.global_configs[tid]
+        keep = all_ranks or self.rank == 0
         host = None
         for r, rank_plan in enumerate(self._slice_plan()):
             for t2, roff, rows, c0, w, r0 in rank_plan:
@@ -418,14 +422,18 @@ class DistributedEmbedding:
                 step = max(1, int(chunk_elems) // w)
                 for s in range(0, rows, step):
                     n = min(step, rows - s)
+                    mine = (slab[roff + s:roff + s + n]
+                            if r == self.rank else None)
                     if self.world_size == 1:
-                        chunk = slab[roff + s:roff + s + n]
-                    else:
-                        chunk = (slab[roff + s:roff + s + n].clone()
-                                 if r == self.rank else torch.empty(
-                                     (n, w), dtype=slab.dtype,
-                                     device=slab.device))
+                        chunk = mine
+                    elif all_ranks:
+                        chunk = (mine.clone() if mine is not None
+                                 else torch.empty((n, w), dtype=slab.dtype,
+                                                  device=slab.device))
                         bootstrap.broadcast_(chunk, r, self.process_group)
+                    else:
+                        chunk = bootstrap.send_to_chief(
+                            mine, r, self.process_group, (n, w), slab.dtype)
                     if keep:
                         host[r0 + s:r0 + s + n, c0:c0 + w].copy_(chunk)
         return host
@@ -438,12 +446,12 @@ class DistributedEmbedding:
         checkpoint writer holds one table, not the model. numpy has no
         bfloat16, so bfloat16 tables come back as float32 (exact).
 
-        At world > 1 every rank must call (the chunks are broadcast over
-        the group, the reference's chunked allgather); with ``all_ranks=
-        False`` only rank 0 keeps the table and the others return
+        At world > 1 every rank must call: with ``all_ranks`` the chunks
+        are broadcast over the group (the reference's chunked
+        allgather); with ``all_ranks=False`` each owner sends its chunks
+        to rank 0 only, which keeps the table, and the others return
         ``None``."""
-        keep = all_ranks or self.rank == 0
-        t = self._table_tensor(params, tid, chunk_elems, keep=keep)
+        t = self._table_tensor(params, tid, chunk_elems, all_ranks=all_ranks)
         if t is None:
             return None
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
@@ -491,8 +499,13 @@ class DistributedEmbedding:
         for a row slice its row range) from the full sources.
 
         ``use_lock=True`` serializes the build across this user's
-        processes on one per-uid file lock (the JAX package's lock; its
-        turn-taking across hosts is not ported: ROADMAP A7b)."""
+        processes on one per-uid file lock (the JAX package's lock); at
+        world > 1 the ranks also take strict turns in rank order, each
+        build between group barriers (every rank joins every barrier), as
+        the JAX package's processes do. The lock wraps only the rank's
+        own build, never a barrier wait: held across a wait it would
+        deadlock two ranks on one host (one holds the lock waiting at
+        the barrier, the other waits on the lock)."""
         from ..utils import runtime
 
         runtime.fault_point("checkpoint_read")
@@ -549,12 +562,23 @@ class DistributedEmbedding:
             return build()
         import fcntl
 
-        with open(self._uid_lock_path(), "w") as lock_file:
-            fcntl.flock(lock_file, fcntl.LOCK_EX)
-            try:
-                return build()
-            finally:
-                fcntl.flock(lock_file, fcntl.LOCK_UN)
+        def locked_build():
+            with open(self._uid_lock_path(), "w") as lock_file:
+                fcntl.flock(lock_file, fcntl.LOCK_EX)
+                try:
+                    return build()
+                finally:
+                    fcntl.flock(lock_file, fcntl.LOCK_UN)
+
+        if self.world_size == 1:
+            return locked_build()
+        me = self.rank
+        for _ in range(me):
+            bootstrap.barrier(self.process_group)
+        out = locked_build()
+        for _ in range(me, self.world_size):
+            bootstrap.barrier(self.process_group)
+        return out
 
     @staticmethod
     def local_view(params):

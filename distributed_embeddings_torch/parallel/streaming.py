@@ -39,8 +39,9 @@ under the guard's verdict, is the only writer of the carried state, so a
 guard-skipped step leaves slot map, sketch, counters, slabs and moments
 bitwise unchanged. :func:`encode_state`, :func:`decode_state` and
 :func:`occupancy` are host functions (numpy); at world > 1
-:func:`occupancy` gathers every rank's state first (a collective), and
-the codec waits for the world > 1 checkpoints (ROADMAP A7b).
+:func:`encode_state` and :func:`occupancy` gather every rank's state
+first (a collective), and :func:`decode_state` fills only this rank's
+row.
 """
 
 from __future__ import annotations
@@ -299,13 +300,6 @@ def _host(state):
                 if isinstance(v, torch.Tensor) else np.array(v), state)
 
 
-def _single_world(de, what: str) -> None:
-    if de.world_size > 1:
-        raise NotImplementedError(
-            f"{what} at world > 1 belongs to the world > 1 checkpoints, "
-            "not ported yet: ROADMAP A7b")
-
-
 def _table_home(de, tid: int) -> Tuple[int, int, int]:
     """``(rank, slab row offset, width)`` of an (unsliced) streaming
     table."""
@@ -320,12 +314,17 @@ def _table_home(de, tid: int) -> Tuple[int, int, int]:
 
 def encode_state(de, state) -> Dict[str, np.ndarray]:
     """Host-side, plan-agnostic encoding of a carried streaming state
-    (JAX's keys): per streaming table its slot fingerprints and
-    frequencies as ``[capacity]`` arrays, each width's sketch, the
-    per-rank counters and the world size. :func:`decode_state` inverts
-    it under any plan whose logical tables match (world 1)."""
-    _single_world(de, "encode_state")
-    host = _host(state)
+    (JAX's keys and shapes): per streaming table its slot fingerprints
+    and frequencies as ``[capacity]`` arrays read on the table's home
+    rank, each width's sketch and the per-rank counters as ``[world,
+    ...]`` arrays, and the world size. At world > 1 every rank must call
+    (``analysis.telemetry.gather_state``, a collective) and every rank
+    gets the whole encoding. :func:`decode_state` inverts it under any
+    plan whose logical tables match."""
+    from ..analysis import telemetry as tel
+
+    host = (tel.gather_state(de, state) if de.world_size > 1
+            else _host(state))
     out: Dict[str, np.ndarray] = {
         "world": np.asarray([de.world_size], np.int32),
     }
@@ -345,20 +344,33 @@ def encode_state(de, state) -> Dict[str, np.ndarray]:
 def decode_state(de, template, encoded: Optional[Dict[str, np.ndarray]]):
     """Rebuild a carried streaming state from :func:`encode_state` output
     under ``de``'s plan, with ``template`` (an :func:`init_streaming`
-    result for the same config) giving structure, dtypes and device.
-    ``None``/empty input, or an input that does not fit (a capacity
-    drift), gives a pristine :func:`fresh_like` state: streaming state
-    never blocks a restore (cold slot maps only send ids back to their
-    buckets). Sketches and counters saved at another world size or
-    sketch geometry are reset, with a warning (world 1)."""
-    _single_world(de, "decode_state")
+    result for the same config: this rank's ``[1, ...]`` state) giving
+    structure, dtypes and device; no collective. This rank's row of
+    JAX's decoded ``[world, ...]`` state: the slot maps of the streaming
+    tables homed on this rank, and the counters and sketches saved at
+    this world size (another world size or sketch geometry resets them,
+    with a warning: a warm-up degradation; the slot maps carry over
+    intact). ``None``/empty input, or an input that does not fit (a
+    capacity drift), gives a pristine :func:`fresh_like` state: streaming
+    state never blocks a restore (cold slot maps only send ids back to
+    their buckets)."""
     log = logging.getLogger(__name__)
+    world, rank = de.world_size, de.rank
     fresh = _host(fresh_like(template))
     state = _host(fresh_like(template))
+
+    def row_of(src, tgt):
+        """This rank's row of a saved ``[world, ...]`` leaf, or ``None``
+        when the leaf was saved at another world size or geometry."""
+        src = np.asarray(src)
+        if src.shape != (world,) + tgt.shape[1:]:
+            return None
+        return src[rank:rank + 1].astype(tgt.dtype)
+
     if encoded:
         try:
             same_world = (int(np.asarray(encoded["world"]).reshape(-1)[0])
-                          == de.world_size)
+                          == world)
             for tid, (cap, _) in sorted(de.streaming_tables.items()):
                 r, roff, w = _table_home(de, tid)
                 for field, key in (("slot_fp", f"t{tid}_fp"),
@@ -368,25 +380,28 @@ def decode_state(de, template, encoded: Optional[Dict[str, np.ndarray]]):
                         raise ValueError(
                             f"{key}: saved shape {src.shape} != ({cap},) — "
                             "streaming capacity drift")
-                    state[_wkey(w)][field][r, roff:roff + cap] = src
+                    if r == rank:
+                        state[_wkey(w)][field][0, roff:roff + cap] = src
             for name in ("steps",) + COUNTERS:
                 src = encoded.get(f"c_{name}")
-                if src is not None and same_world \
-                        and src.shape == state[name].shape:
-                    state[name] = np.asarray(src).astype(state[name].dtype)
+                if src is not None and same_world:
+                    row = row_of(src, state[name])
+                    if row is not None:
+                        state[name] = row
             for w in streaming_widths(de):
                 src = encoded.get(f"w{w}_cms")
                 tgt = state[_wkey(w)]["cms"]
-                if src is not None and same_world \
-                        and src.shape == tgt.shape:
-                    state[_wkey(w)]["cms"] = np.asarray(src).astype(
-                        tgt.dtype)
+                row = (row_of(src, tgt) if src is not None and same_world
+                       else None)
+                if row is not None:
+                    state[_wkey(w)]["cms"] = row
                 elif src is not None:
                     log.warning(
                         "streaming decode: admission sketch w%d re-shards "
                         "from world/geometry %s to %s — resetting (warm-up "
                         "degradation; slot maps carried over intact)", w,
-                        src.shape, tgt.shape)
+                        np.asarray(src).shape,
+                        (world,) + tgt.shape[1:])
         except Exception:  # noqa: BLE001 - never block a restore
             log.exception("streaming state decode failed; starting fresh")
             state = fresh

@@ -1,7 +1,7 @@
-"""Full train-state checkpoint/resume at world 1 (counterpart of
+"""Full train-state checkpoint/resume (counterpart of
 ``distributed_embeddings_tpu/utils/checkpoint.py``), in the JAX
 package's on-disk format, so a checkpoint written by either package
-restores in the other.
+restores in the other, at world 1 or at world > 1 (one process a rank).
 
 Layout under ``path/`` (the JAX package's)::
 
@@ -32,14 +32,23 @@ Layout under ``path/`` (the JAX package's)::
 * ``meta.json`` records the plan fingerprint (``strategy.plan_spec``):
   restore compares it with the restoring model's and, under
   ``on_mismatch="reshard"``, re-slices the full logical tables under
-  the current plan (at world 1, a checkpoint of the JAX package's
-  8-device mesh loads as the one rank's tables) and rebuilds Adam's
-  per-slab counts from their consensus.
+  the current plan (a world-8 checkpoint restores at world 1 and the
+  reverse) and rebuilds Adam's per-slab counts from their consensus.
+* At world > 1 every rank calls both functions. The chief (rank 0)
+  stages, writes and commits; each slice's owner sends its chunks to it
+  alone, so the chief holds one reassembled table and the other ranks at
+  most one chunk. Small per-rank leaves (Adam's ``[1, 1, 1]`` counts)
+  are gathered into the JAX package's ``[world, ...]`` leaves. On
+  restore only the chief CRC-verifies and picks the generation
+  (``path`` or ``<path>.prev``); it broadcasts that choice with the
+  manifest, so every rank restores the same generation, and each rank
+  builds its own slabs from the memory-mapped files.
 
 ``DETPU_FAULT=die:checkpoint_write`` kills the process inside the write
 path, ``DETPU_FAULT=corrupt@ckpt`` flips a byte in a just-committed
-table file (``utils/runtime.py``). The offline ``reshard_checkpoint``
-(and ``tools/reshard.py``) are not ported yet (ROADMAP A8).
+table file (``utils/runtime.py``); at world > 1 both act in the chief.
+The offline ``reshard_checkpoint`` (and ``tools/reshard.py``) are not
+ported yet (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -246,15 +255,18 @@ def _archive_to_ring(path: str, prev: str, keep_last_n: int) -> None:
     prune_ring(path, keep_last_n)
 
 
-def _commit_staging(staging: str, path: str, ring_n: int = 0) -> None:
+def _commit_staging(staging: str, path: str, keep_previous: bool = True,
+                    ring_n: int = 0) -> None:
     """Swap a fully written staging directory into ``path`` (the old
-    checkpoint to ``<path>.prev``, the former ``.prev`` into the ring
-    under ``ring_n > 0``), then honour a ``DETPU_FAULT=corrupt@ckpt``
-    drill by flipping a byte mid-file in the committed first table."""
+    checkpoint to ``<path>.prev`` when ``keep_previous``, the former
+    ``.prev`` into the ring under ``ring_n > 0``), then honour a
+    ``DETPU_FAULT=corrupt@ckpt`` drill by flipping a byte mid-file in the
+    committed first table."""
     runtime.fault_point("checkpoint_commit")
     prev = previous_checkpoint_path(path)
     if os.path.isdir(path):
-        if os.path.isfile(os.path.join(path, "meta.json")):
+        if keep_previous and os.path.isfile(os.path.join(path,
+                                                         "meta.json")):
             if os.path.isdir(prev):
                 if ring_n > 0 and os.path.isfile(
                         os.path.join(prev, "meta.json")):
@@ -262,7 +274,7 @@ def _commit_staging(staging: str, path: str, ring_n: int = 0) -> None:
                 else:
                     shutil.rmtree(prev)
             os.replace(path, prev)
-        else:  # invalid leftovers: drop them
+        else:  # invalid leftovers (or no fallback kept): drop them
             shutil.rmtree(path)
     os.replace(staging, path)
     _fsync_dir(os.path.dirname(os.path.abspath(path)))
@@ -420,13 +432,24 @@ def _components(opt_state, params):
         "slab-dict layouts of the parallel.optimizers classes")
 
 
-def _world_one(de) -> None:
-    if de.world_size != 1:
-        raise NotImplementedError(
-            "checkpoints at world > 1 are not ported yet: ROADMAP A7b")
+def _gather_aux(de, comp: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """An aux optimizer component as the JAX package saves it: at world
+    > 1 each rank's ``[1, ...]`` leaf gathered into ``[world, ...]`` in
+    rank order (a collective); at world 1 the host copy."""
+    keys = list(comp)
+    leaves = [torch.as_tensor(comp[k]) for k in keys]
+    if de.world_size == 1:
+        return {k: v.detach().cpu() for k, v in zip(keys, leaves)}
+    from ..parallel import bootstrap
+
+    rows = bootstrap.gather_leaves(leaves, de.process_group)
+    return {k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in zip(keys, rows)}
 
 
 def save_train_state(path: str, de, state,
+                     is_chief: Optional[bool] = None,
+                     keep_previous: bool = True,
                      keep_last_n: int = 0,
                      run_id: Optional[str] = None,
                      aux_states: Optional[Dict[str, Dict[str, Any]]]
@@ -434,33 +457,56 @@ def save_train_state(path: str, de, state,
     """Write the full train state (a ``HybridTrainState``) under ``path``
     (a directory), atomically, in the JAX package's format.
 
-    The displaced checkpoint is kept at ``<path>.prev``; ``keep_last_n``
-    > 0 rotates the former ``.prev`` into ``<path>.ring/`` and prunes it
-    to that many entries. ``run_id`` stamps the manifest with a run lineage.
+    At world > 1 every rank must call (the table transfers and the
+    gather of per-rank leaves are collectives); only the chief, rank 0
+    (the one rank the tables are sent to), writes. ``is_chief`` is the
+    JAX signature's: ``None`` or ``rank == 0``, and any other value
+    raises ``ValueError`` on every rank together, before any transfer.
+    When this returns on any rank, the new checkpoint is at ``path``
+    (the ranks meet at a barrier after the chief's commit).
+
+    With ``keep_previous`` (the default) the displaced checkpoint is kept
+    at ``<path>.prev``, the restore fallback; ``keep_last_n`` > 0 rotates
+    the former ``.prev`` into ``<path>.ring/`` and prunes it to that many
+    entries. ``run_id`` stamps the manifest with a run lineage.
     ``aux_states``: named flat ``{key: array}`` dicts (numpy or tensors)
     saved as ``aux/<name>.npz`` (the streaming state through
-    ``parallel.streaming.encode_state``; read back with
-    :func:`load_aux_state`). (World 1: the JAX package's ``is_chief``
-    and multi-host fetches are not ported, ROADMAP A7b.)"""
-    _world_one(de)
+    ``parallel.streaming.encode_state``, a collective at world > 1 whose
+    result every rank holds; the chief writes its own). Read back with
+    :func:`load_aux_state`."""
+    multi = de.world_size > 1
+    chief = de.rank == 0
+    bad = [] if is_chief is None or bool(is_chief) == chief else [de.rank]
+    if multi:  # every rank learns of a bad argument: none is left waiting
+        from ..parallel import bootstrap
+
+        bad = sum(bootstrap.all_gather_object(bad, de.process_group), [])
+    if bad:
+        raise ValueError(f"is_chief must be None or rank == 0 (the chief "
+                         f"is rank 0, the one the tables are sent to); "
+                         f"rank(s) {bad} passed otherwise")
+    is_chief = chief
     staging = _staging_path(path)
     manifest: Dict[str, int] = {}
 
     def put(rel, writer):
         manifest[rel] = _atomic_file(os.path.join(staging, rel), writer)
 
-    if os.path.isdir(staging):  # leftover of an earlier killed save
-        shutil.rmtree(staging)
-    os.makedirs(os.path.join(staging, "tables"))
+    if is_chief:
+        if os.path.isdir(staging):  # leftover of an earlier killed save
+            shutil.rmtree(staging)
+        os.makedirs(os.path.join(staging, "tables"))
     n_tables = len(de.strategy.global_configs)
 
     def dump_tables(sub, comp):
-        # table-at-a-time: host memory caps at ONE table
-        os.makedirs(os.path.join(staging, sub), exist_ok=True)
+        # table-at-a-time: the chief's host memory caps at ONE table
+        if is_chief:
+            os.makedirs(os.path.join(staging, sub), exist_ok=True)
         for t in range(n_tables):
-            table = de._table_tensor(comp, t)
-            put(f"{sub}/table_{t:03d}.npy",
-                lambda f, a=table: save_npy(f, a))
+            table = de._table_tensor(comp, t, all_ranks=False)
+            if is_chief:
+                put(f"{sub}/table_{t:03d}.npy",
+                    lambda f, a=table: save_npy(f, a))
 
     def host(v):
         return v.detach().cpu() if isinstance(v, torch.Tensor) \
@@ -470,42 +516,48 @@ def save_train_state(path: str, de, state,
     slabs, aux = _components(state.emb_opt_state, state.emb_params)
     for name, comp in slabs.items():
         dump_tables(f"emb_opt/{name}", comp)
-    os.makedirs(os.path.join(staging, "emb_opt"), exist_ok=True)
-    for name, comp in aux.items():
-        put(f"emb_opt/{name}.npz",
-            lambda f, c=comp: save_npz(f, {k: host(v)
-                                           for k, v in c.items()}))
-    if aux_states:
-        os.makedirs(os.path.join(staging, "aux"), exist_ok=True)
-        for name, enc in sorted(aux_states.items()):
-            put(f"aux/{name}.npz",
-                lambda f, c=enc: save_npz(f, {k: host(v)
-                                              for k, v in c.items()}))
-    dense = dense_state_dict(state.dense_params, state.dense_opt_state,
-                             state.step.detach().cpu().to(torch.int32)
-                             .reshape(()))
-    put("dense.msgpack", lambda f: f.write(packb(dense)))
+    aux = {name: _gather_aux(de, comp) for name, comp in aux.items()}
+    if is_chief:
+        os.makedirs(os.path.join(staging, "emb_opt"), exist_ok=True)
+        for name, comp in aux.items():
+            put(f"emb_opt/{name}.npz", lambda f, c=comp: save_npz(f, c))
+        if aux_states:
+            os.makedirs(os.path.join(staging, "aux"), exist_ok=True)
+            for name, enc in sorted(aux_states.items()):
+                put(f"aux/{name}.npz",
+                    lambda f, c=enc: save_npz(f, {k: host(v)
+                                                  for k, v in c.items()}))
+        dense = dense_state_dict(state.dense_params, state.dense_opt_state,
+                                 state.step.detach().cpu().to(torch.int32)
+                                 .reshape(()))
+        put("dense.msgpack", lambda f: f.write(packb(dense)))
 
-    def dt(tree):
-        return _dtype_name(next(iter(tree.values())).dtype)
+        def dt(tree):
+            return _dtype_name(next(iter(tree.values())).dtype)
 
-    meta = {"num_tables": n_tables,
-            "step": int(state.step),
-            "tables": [[int(c["input_dim"]), int(c["output_dim"])]
-                       for c in de.strategy.global_configs],
-            "plan": de.strategy.plan_spec(),
-            "slab_components": sorted(slabs),
-            "aux_components": sorted(aux),
-            "aux_states": sorted(aux_states or {}),
-            "dtypes": {"tables": dt(state.emb_params),
-                       **{name: dt(comp) for name, comp in slabs.items()}},
-            "files": dict(manifest)}
-    if run_id is not None:
-        meta["run_id"] = str(run_id)
-    _atomic_file(os.path.join(staging, "meta.json"),
-                 lambda f: f.write(json.dumps(meta).encode()))
-    _fsync_dir(staging)
-    _commit_staging(staging, path, ring_n=int(keep_last_n))
+        meta = {"num_tables": n_tables,
+                "step": int(state.step),
+                "tables": [[int(c["input_dim"]), int(c["output_dim"])]
+                           for c in de.strategy.global_configs],
+                "plan": de.strategy.plan_spec(),
+                "slab_components": sorted(slabs),
+                "aux_components": sorted(aux),
+                "aux_states": sorted(aux_states or {}),
+                "dtypes": {"tables": dt(state.emb_params),
+                           **{name: dt(comp)
+                              for name, comp in slabs.items()}},
+                "files": dict(manifest)}
+        if run_id is not None:
+            meta["run_id"] = str(run_id)
+        _atomic_file(os.path.join(staging, "meta.json"),
+                     lambda f: f.write(json.dumps(meta).encode()))
+        _fsync_dir(staging)
+        _commit_staging(staging, path, keep_previous=keep_previous,
+                        ring_n=int(keep_last_n))
+    if multi:
+        from ..parallel import bootstrap
+
+        bootstrap.barrier(de.process_group)
 
 
 def _aux_consensus(comp: Dict[str, Any]) -> float:
@@ -523,23 +575,25 @@ def _aux_consensus(comp: Dict[str, Any]) -> float:
 
 
 def _adapt_aux(name: str, comp: Dict[str, Any], wkey: str,
-               like: torch.Tensor, resharding: bool,
-               device) -> torch.Tensor:
+               like: torch.Tensor, resharding: bool, device,
+               rank: int = 0, world: int = 1) -> torch.Tensor:
     """Restore one aux optimizer leaf (``emb_opt/<name>.npz`` entry
-    ``wkey``) in the shape and dtype of ``like`` (the init's leaf), on
-    ``device``: exactly as saved under the same plan, rebuilt from the
-    saved consensus under a re-shard."""
+    ``wkey``) in the shape and dtype of ``like`` (this rank's leaf of the
+    init, ``[1, ...]``, of the JAX package's ``[world, ...]`` leaf), on
+    ``device``: this rank's row as saved when the saved leaf fills the
+    world's, rebuilt from the saved consensus under a re-shard."""
     arr = comp.get(wkey)
     if arr is not None:
         arr = np.asarray(arr)
-        if arr.size == like.numel():
-            return torch.from_numpy(arr.copy()).reshape(like.shape).to(
+        if arr.size == world * like.numel():
+            row = arr.reshape((world, like.numel()))[rank]
+            return torch.from_numpy(row.copy()).reshape(like.shape).to(
                 device=device, dtype=like.dtype)
         if not resharding:
             raise runtime.CheckpointMismatch(
                 f"aux optimizer component {name}/{wkey}: saved shape "
-                f"{arr.shape} cannot fill {tuple(like.shape)} and the "
-                "checkpoint plan matches the model — corrupt aux "
+                f"{arr.shape} cannot fill {(world,) + tuple(like.shape[1:])}"
+                " and the checkpoint plan matches the model — corrupt aux "
                 "component?")
     elif not resharding:
         raise runtime.CheckpointMismatch(
@@ -547,6 +601,22 @@ def _adapt_aux(name: str, comp: Dict[str, Any], wkey: str,
             f"{wkey!r} though the checkpoint plan matches the model")
     return torch.full(tuple(like.shape), _aux_consensus(comp),
                       dtype=like.dtype, device=device)
+
+
+def _choose_generation(path: str, fallback: bool):
+    """``(path, meta, fell_back)`` of the whole generation to restore:
+    ``path`` if it verifies, else ``<path>.prev`` under ``fallback``;
+    raises :class:`~.runtime.CheckpointCorrupt` when neither does."""
+    try:
+        return path, verify_checkpoint(path), False
+    except runtime.CheckpointCorrupt as e:
+        prev = previous_checkpoint_path(path)
+        if not (fallback and os.path.isdir(prev)):
+            raise
+        logger.warning(
+            "checkpoint at %s failed validation (%s); falling back to the "
+            "previous valid checkpoint at %s", path, e, prev)
+        return prev, verify_checkpoint(prev), True
 
 
 def restore_train_state(path: str, de, emb_optimizer, dense_template,
@@ -567,39 +637,58 @@ def restore_train_state(path: str, de, emb_optimizer, dense_template,
 
     ``on_mismatch``: ``"error"`` raises
     :class:`~.runtime.CheckpointMismatch` when the checkpoint's plan
-    fingerprint differs from ``de``'s; ``"reshard"`` re-slices the full
-    logical tables under ``de``'s plan, rebuilds Adam's per-slab counts
-    from their consensus and records ``checkpoint_reshard``.
+    fingerprint differs from ``de``'s (another world size, placement or
+    slicing); ``"reshard"`` re-slices the full logical tables under
+    ``de``'s plan, rebuilds Adam's per-slab counts from their consensus
+    and records ``checkpoint_reshard``.
 
     The checkpoint is CRC-verified first; a torn one falls back to
     ``<path>.prev`` with ``fallback`` (recording
     ``checkpoint_prev_fallback``), else
-    :class:`~.runtime.CheckpointCorrupt` propagates. ``mesh`` belongs to
-    world > 1 (ROADMAP A7b)."""
+    :class:`~.runtime.CheckpointCorrupt` propagates. At world > 1 every
+    rank must call: only rank 0 verifies and chooses the generation, and
+    every rank restores the one it chose (or raises the error it met);
+    each rank builds its own slabs and takes its row of every ``[world,
+    ...]`` aux leaf. The port has no mesh object: ``mesh`` must be
+    ``None``."""
     from ..parallel.trainer import HybridTrainState
 
-    _world_one(de)
     if mesh is not None:
         raise NotImplementedError(
-            "restoring onto a mesh is not ported yet: ROADMAP A7b")
+            "the port has no mesh object: each rank is a process of a "
+            "torch.distributed group")
     if on_mismatch not in ("error", "reshard"):
         raise ValueError(
             f"on_mismatch must be 'error' | 'reshard', got {on_mismatch!r}")
     runtime.fault_point("checkpoint_read")
-    try:
-        meta = verify_checkpoint(path)
-    except runtime.CheckpointCorrupt as e:
-        prev = previous_checkpoint_path(path)
-        if not (fallback and os.path.isdir(prev)):
-            raise
-        logger.warning(
-            "checkpoint at %s failed validation (%s); falling back to the "
-            "previous valid checkpoint at %s", path, e, prev)
-        meta = verify_checkpoint(prev)
-        from . import obs
+    from . import obs
 
-        obs.record_event("checkpoint_prev_fallback", path=path, prev=prev)
-        path = prev
+    if de.world_size == 1:
+        path0 = path
+        path, meta, fell_back = _choose_generation(path, fallback)
+    else:
+        from ..parallel import bootstrap
+
+        path0 = path
+        decision, err = None, None
+        if de.rank == 0:
+            try:
+                decision = ("ok",) + _choose_generation(path, fallback)
+            except runtime.CheckpointCorrupt as e:
+                decision = ("corrupt", str(e))
+            except Exception as e:  # noqa: BLE001 - every rank must learn
+                decision, err = ("failed", repr(e)), e
+        decision = bootstrap.broadcast_object(decision, de.process_group)
+        if decision[0] == "corrupt":
+            raise runtime.CheckpointCorrupt(decision[1])
+        if decision[0] == "failed":
+            if err is not None:
+                raise err
+            raise RuntimeError(f"rank 0 could not open the checkpoint at "
+                               f"{path!r}: {decision[1]}")
+        _, path, meta, fell_back = decision
+    if fell_back:
+        obs.record_event("checkpoint_prev_fallback", path=path0, prev=path)
     validate_checkpoint_model(path, meta, de)
     resharding = _check_plan(path, meta, de, on_mismatch)
     n = meta["num_tables"]
@@ -654,7 +743,8 @@ def restore_train_state(path: str, de, emb_optimizer, dense_template,
                     new.append(slab_comps[name][k])
                 else:
                     new.append(_adapt_aux(name, aux_comps[name], k, like,
-                                          resharding, dev))
+                                          resharding, dev, de.rank,
+                                          de.world_size))
             opt_state[k] = tuple(new)
     else:
         opt_state = emb_optimizer.init(emb_params)  # SparseSGD: stateless
@@ -662,6 +752,12 @@ def restore_train_state(path: str, de, emb_optimizer, dense_template,
         tree = unpackb(f.read())
     dense_opt_state, step = load_dense_state_dict(tree, dense_template,
                                                   dense_tx)
+    if de.world_size > 1:
+        # every rank has read the generation before any rank goes on
+        # (to a save whose commit would move it)
+        from ..parallel import bootstrap
+
+        bootstrap.barrier(de.process_group)
     return HybridTrainState(
         emb_params=emb_params, emb_opt_state=opt_state,
         dense_params=dense_template, dense_opt_state=dense_opt_state,

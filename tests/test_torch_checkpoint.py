@@ -556,6 +556,20 @@ def test_ring_keeps_the_newest_generations(tmp_path):
     assert [s for s, _ in ckpt.ring_entries(path)] == [2]
 
 
+def test_is_chief_must_be_rank0s(tmp_path):
+    """At world 1 the one process is the chief: ``is_chief=False`` raises
+    and writes nothing; ``True`` and ``None`` write the same files."""
+    de, st = _small_state()
+    with pytest.raises(ValueError, match="is_chief"):
+        ckpt.save_train_state(str(tmp_path / "no"), de, st, is_chief=False)
+    assert not (tmp_path / "no").exists()
+    ckpt.save_train_state(str(tmp_path / "yes"), de, st, is_chief=True)
+    ckpt.save_train_state(str(tmp_path / "none"), de, st)
+    for f in ("meta.json", "dense.msgpack", "tables/table_000.npy"):
+        assert (tmp_path / "yes" / f).read_bytes() == \
+            (tmp_path / "none" / f).read_bytes(), f
+
+
 def test_mismatched_model_is_refused(tmp_path):
     """A checkpoint of other table shapes or another table count raises
     ``CheckpointMismatch`` before any data streams."""

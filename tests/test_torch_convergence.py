@@ -105,9 +105,19 @@ def test_warmup_poly_decay_schedule_equal(args):
 
 
 def test_convergence_run_rejects_what_is_not_ported():
-    task = LearnableClicks([10] * 2, num_numerical=2)
-    with pytest.raises(NotImplementedError, match="A7"):
-        train_dlrm_convergence(task, world_size=8, device="cpu")
+    """The port has no mesh object: a mesh raises. ``world_size=8`` is
+    ported (``tests/test_torch_world_example.py`` runs it in eight
+    ranks); outside a process group it raises for the missing group,
+    and a batch the world does not divide raises."""
+    task = LearnableClicks([10] * 8, num_numerical=2)
+    with pytest.raises(NotImplementedError, match="mesh"):
+        train_dlrm_convergence(task, mesh=object(), device="cpu")
+    with pytest.raises(RuntimeError, match="process group"):
+        train_dlrm_convergence(task, world_size=8, steps=1, batch=8,
+                               eval_n=16, device="cpu")
+    with pytest.raises(ValueError, match="divisible"):
+        train_dlrm_convergence(task, world_size=8, steps=1, batch=12,
+                               eval_n=16, device="cpu")
     with pytest.raises(ValueError, match="optimizer"):
         train_dlrm_convergence(task, steps=1, batch=8, eval_n=16,
                                optimizer="lamb", device="cpu")

@@ -5174,3 +5174,49 @@ def test_microbatch_inputs_on_the_card_without_a_host_sync(cuda_device):
             else:
                 np.testing.assert_array_equal(to_np(g), to_np(w))
         np.testing.assert_array_equal(to_np(gb["y"]), to_np(wb["y"]))
+
+
+@pytest.mark.cuda
+def test_world2_chief_written_save_of_cuda_bf16_slabs(cuda_device, tmp_path):
+    """Two gloo ranks on ``cuda:0``: a checkpoint restored onto the card
+    gives bitwise the slabs the CPU restore gives, and the chief-written
+    save of those CUDA bf16 slabs (each slice's owner sending its chunks
+    to rank 0 from the card) is byte for byte the CPU save."""
+    import os
+
+    from torch_dist_worker import RankGroup
+
+    paths = {n: str(tmp_path / n) for n in ("p0", "cpu", "cuda")}
+    model = dict(table_sizes=[50, 37, 64, 29, 50, 41, 23, 58, 33, 45],
+                 embedding_dim=8, num_numerical_features=4,
+                 bottom_mlp_dims=(16, 8), top_mlp_dims=(16, 1))
+    base = dict(model=model, strategy="memory_balanced", opt="sgd",
+                sched=(2.0, 4, 8, 6), batches=[], dtype="bfloat16")
+    group = RankGroup(2, tmp_path)
+    try:
+        group.run("ckpt", dict(base, ops=[("init",),
+                                          ("save", paths["p0"], {})]))
+        got = {}
+        for dev in ("cpu", "cuda"):
+            got[dev] = group.run("ckpt", dict(
+                base, device="cuda:0" if dev == "cuda" else "cpu",
+                ops=[("restore", paths["p0"], "error", {}),
+                     ("snap", "snap"), ("save", paths[dev], {})]))
+    finally:
+        group.close()
+    for r in range(2):
+        a, b = got["cpu"][r], got["cuda"][r]
+        assert "error" not in a and "error" not in b
+        for k in a["snap"]["emb"]:
+            assert a["snap"]["emb"][k].dtype == np.int16  # bf16 bits
+            np.testing.assert_array_equal(a["snap"]["emb"][k],
+                                          b["snap"]["emb"][k])
+    names = []
+    for root, _, files in os.walk(paths["cpu"]):
+        names += [os.path.relpath(os.path.join(root, f), paths["cpu"])
+                  for f in files]
+    assert "tables/table_009.npy" in names
+    for rel in names:
+        with open(os.path.join(paths["cpu"], rel), "rb") as f1, \
+                open(os.path.join(paths["cuda"], rel), "rb") as f2:
+            assert f1.read() == f2.read(), rel

@@ -501,10 +501,13 @@ def test_descriptor_units_follow_alignment():
 
 def test_world8_paths_not_ported_raise():
     """What of world > 1 waits (ROADMAP A7b) raises, naming it: the
-    serving runtime, the checkpoints and the streaming state's codec. The
-    instrumented, telemetry and streaming steps build at world 8 with the
-    arity of world 1; a world-8 layer outside a process group plans but
-    cannot run. The streaming forms are ``True``, ``False`` and the
+    serving runtime (the serving mesh). The checkpoints and the streaming
+    state's codec are collectives at world > 1: outside a process group
+    they raise for the missing group, not for a missing port
+    (``tests/test_torch_world_checkpoint.py`` runs them in one). The
+    instrumented, telemetry and streaming steps build at world 8 with
+    the arity of world 1; a world-8 layer outside a process group plans
+    but cannot run. The streaming forms are ``True``, ``False`` and the
     pipelined step's ``"serve"``; any other raises."""
     import inspect
 
@@ -540,11 +543,11 @@ def test_world8_paths_not_ported_raise():
     assert list(inspect.signature(ev).parameters) == base + ["stream"]
     with pytest.raises(NotImplementedError, match="A7b"):
         ServingRuntime(de, lambda *a: None, None)
-    with pytest.raises(NotImplementedError, match="A7b"):
-        save_train_state("/nonexistent", de, None)
-    with pytest.raises(NotImplementedError, match="A7b"):
-        restore_train_state("/nonexistent", de, SparseSGD(), None, None,
-                            device="cpu")
+    for fn in (lambda: save_train_state("/nonexistent", de, None),
+               lambda: restore_train_state("/nonexistent", de, SparseSGD(),
+                                           None, None, device="cpu")):
+        with pytest.raises(RuntimeError, match="process group"):
+            fn()
     sde = DistributedEmbedding(configs[:7] + [
         {"input_dim": 20, "output_dim": 4,
          "streaming": {"capacity": 16, "buckets": 4}}], WORLD)
@@ -552,7 +555,7 @@ def test_world8_paths_not_ported_raise():
         sde._streaming_remap(None, None, (None, None, "stage"))
     for fn in (lambda: streaming.encode_state(sde, {}),
                lambda: streaming.decode_state(sde, {}, {})):
-        with pytest.raises(NotImplementedError, match="A7b"):
+        with pytest.raises(RuntimeError, match="process group"):
             fn()
 
 

@@ -13,6 +13,7 @@ This module imports torch, numpy and the port only: the ranks never
 load JAX.
 """
 
+import logging
 import os
 import queue
 import traceback
@@ -778,9 +779,354 @@ def case_pipeline(rank, world, spec):
     return out
 
 
+# ------------------------------------------------ checkpoints (world > 1)
+
+
+def ckpt_optimizers(name, sched):
+    """The port's (sparse optimizer, dense optimizer, sparse lr) of a
+    checkpoint spec's ``opt``: ``"sgd"`` (SparseSGD + SGD under the
+    schedule ``sched``), ``"adagrad"`` (SparseAdagrad + Adagrad 0.1) or
+    ``"adam"`` (SparseAdam + Adam 1e-3)."""
+    from distributed_embeddings_torch.models.schedules import (
+        warmup_poly_decay_schedule)
+    from distributed_embeddings_torch.parallel import (
+        SGD, Adagrad, Adam, SparseAdagrad, SparseAdam, SparseSGD)
+
+    if name == "sgd":
+        lr = warmup_poly_decay_schedule(*sched)
+        return SparseSGD(), SGD(lr), lr
+    if name == "adagrad":
+        return SparseAdagrad(), Adagrad(0.1), 0.05
+    return SparseAdam(), Adam(1e-3), 0.01
+
+
+def state_bits(de, state, rank):
+    """This rank's whole train state as numpy: its slabs and slab-shaped
+    optimizer leaves (bf16 as their int16 bits), every other optimizer
+    leaf, the dense parameters and optimizer state, the step; and on rank
+    0 the logical tables (``get_weights``, a collective)."""
+    from torch.utils import _pytree
+
+    def bits(t):
+        t = t.detach().cpu()
+        return (t.view(torch.int16) if t.dtype == torch.bfloat16
+                else t).numpy().copy()
+
+    out = {"step": int(state.step),
+           "emb": {k: bits(v) for k, v in sorted(state.emb_params.items())},
+           "opt": [bits(t) for t in _pytree.tree_leaves(
+               state.emb_opt_state)],
+           "dense": [bits(p) for p in state.dense_params.parameters()],
+           "dense_opt": [bits(t) for t in _pytree.tree_leaves(
+               state.dense_opt_state)]}
+    tables = de.get_weights(state.emb_params, all_ranks=False)
+    out["tables"] = tables if rank == 0 else None
+    return out
+
+
+def case_ckpt(rank, world, spec):
+    """Checkpoint operations at world ``world`` on a DLRM layer, in the
+    order ``spec["ops"]`` lists them (each ``(op, *args)``), on a
+    context this rank keeps; returns what the ops recorded by name.
+
+    * ``("restore", path, name, kwargs)``: ``restore_train_state`` into a
+      fresh dense module; an exception is recorded (type and message)
+      under ``name`` instead of the state.
+    * ``("save", path, kwargs)``: ``save_train_state``.
+    * ``("save_chief", path, is_chief_by_rank, name)``:
+      ``save_train_state`` with this rank's ``is_chief``; an exception is
+      recorded (type and message) under ``name``, else ``"saved"``.
+    * ``("steps", n, name)``: the next ``n`` of ``spec["batches"]`` from
+      the current position; the losses under ``name``.
+    * ``("seek", i)``: the batch position.
+    * ``("snap", name)``: :func:`state_bits`.
+    * ``("corrupt", path)``: rank 0 flips a byte mid-file in the first
+      table file; a barrier.
+    * ``("events", name)``: the kinds of the events ``obs`` recorded.
+    * ``("init",)``: a fresh state (``init_hybrid_state``, seeded).
+    * ``("stream_from_jax", tree)`` / ``("telem_from_jax", tree)``: this
+      rank's row of a JAX ``[world, ...]`` streaming / telemetry state.
+    * ``("encode", name)``: ``encode_state`` (a collective).
+    * ``("decode", encoded, name)`` / ``("load_aux", path, name)``:
+      ``decode_state`` of an encoding / of a checkpoint's aux file into a
+      fresh state (it becomes the carried one); the numpy state and the
+      warnings logged.
+    * ``("save_aux", path, kwargs)``: ``save_train_state`` with the
+      streaming state's encoding.
+    * ``("telem_save", path)`` / ``("telem_restore", path, name)``: the
+      telemetry state file (the restore into a fresh state, as numpy).
+
+    ``spec["streaming"]`` (``{table: {"capacity", "buckets"}}``),
+    ``spec["scfg"]`` and ``spec["tcfg"]`` give the streaming tables and
+    the two configs; ``spec["device"]`` where the restores and steps run
+    (default the CPU; ``init`` draws on the CPU), ``spec["dtype"]`` the
+    tables' dtype of ``init``.
+    """
+    import logging
+
+    from distributed_embeddings_torch.analysis import telemetry as tel
+    from distributed_embeddings_torch.models import (DLRMConfig, DLRMDense,
+                                                     bce_with_logits)
+    from distributed_embeddings_torch.parallel import (
+        StreamingConfig, bootstrap, init_hybrid_state, init_streaming,
+        make_hybrid_train_step)
+    from distributed_embeddings_torch.parallel import streaming as smod
+    from distributed_embeddings_torch.utils import checkpoint as ckpt
+    from distributed_embeddings_torch.utils import obs
+    from distributed_embeddings_torch.utils.convert import (
+        streaming_state_from_jax, streaming_state_to_numpy,
+        telemetry_state_from_jax, telemetry_state_to_numpy)
+
+    cfg = DLRMConfig(**spec["model"])
+    configs = cfg.embedding_configs()
+    for tid, sc in spec.get("streaming", {}).items():
+        configs[tid]["streaming"] = sc
+    de = _layer(dict(spec, configs=configs), world)
+    emb_opt, tx, lr = ckpt_optimizers(spec["opt"], spec.get("sched"))
+
+    def loss_fn(m, outs, batch):
+        n, y = batch
+        return bce_with_logits(m(n, outs), y)
+
+    step = make_hybrid_train_step(de, loss_fn, tx, emb_opt, lr_schedule=lr)
+    scfg = (StreamingConfig(*spec["scfg"]) if spec.get("scfg") else None)
+    tcfg = (tel.TelemetryConfig(*spec["tcfg"]) if spec.get("tcfg")
+            else None)
+    out, state, pos, ss, telem = {}, None, 0, None, None
+    dev = spec.get("device", "cpu")
+    if dev != "cpu":
+        torch.cuda.set_device(torch.device(dev))
+    obs.drain_events()
+    warned = _WarningLog()
+    logging.getLogger("distributed_embeddings_torch").addHandler(warned)
+    for op, *args in spec["ops"]:
+        if op == "init":
+            dense = DLRMDense(cfg, device="cpu",
+                              generator=torch.Generator().manual_seed(9))
+            state = init_hybrid_state(
+                de, emb_opt, dense, tx, device="cpu",
+                dtype=getattr(torch, spec.get("dtype", "float32")),
+                generator=torch.Generator().manual_seed(3))
+        elif op == "stream_from_jax":
+            ss = streaming_state_from_jax(args[0], device="cpu", rank=rank)
+        elif op == "encode":
+            out[args[0]] = smod.encode_state(de, ss)
+        elif op == "decode":
+            enc, name = args
+            warned.records.clear()
+            ss = smod.decode_state(de, init_streaming(de, scfg, device="cpu"),
+                                   enc)
+            out[name] = (streaming_state_to_numpy(ss), list(warned.records))
+        elif op == "save_aux":
+            path, kw = args
+            ckpt.save_train_state(path, de, state, aux_states={
+                "streaming": smod.encode_state(de, ss)}, **kw)
+        elif op == "load_aux":
+            path, name = args
+            warned.records.clear()
+            ss = smod.decode_state(de, init_streaming(de, scfg, device="cpu"),
+                                   ckpt.load_aux_state(path, "streaming"))
+            out[name] = (streaming_state_to_numpy(ss), list(warned.records))
+        elif op == "telem_from_jax":
+            telem = telemetry_state_from_jax(args[0], device="cpu",
+                                             rank=rank)
+        elif op == "telem_save":
+            tel.save_telemetry_state(args[0], telem, de)
+        elif op == "telem_restore":
+            path, name = args
+            got = tel.restore_telemetry_state(
+                path, tel.init_telemetry(de, tcfg, device="cpu"), de)
+            out[name] = telemetry_state_to_numpy(got)
+        elif op == "restore":
+            path, name, kw = args
+            dense = DLRMDense(cfg, device=dev,
+                              generator=torch.Generator(
+                                  device=dev).manual_seed(9))
+            try:
+                state = ckpt.restore_train_state(path, de, emb_opt, dense,
+                                                 tx, device=dev, **kw)
+            except Exception as e:  # noqa: BLE001 - the result
+                out[name] = (type(e).__name__, str(e))
+        elif op == "save":
+            path, kw = args
+            ckpt.save_train_state(path, de, state, **kw)
+        elif op == "save_chief":
+            path, chiefs, name = args
+            try:
+                ckpt.save_train_state(path, de, state,
+                                      is_chief=chiefs[rank])
+                out[name] = "saved"
+            except Exception as e:  # noqa: BLE001 - the result
+                out[name] = (type(e).__name__, str(e))
+        elif op == "seek":
+            pos = args[0]
+        elif op == "steps":
+            n, name = args
+            losses = []
+            for cats, num, lab in spec["batches"][pos:pos + n]:
+                feed = [c.to(dev) for c in _feed(de, list(cats), rank,
+                                                 world)]
+                num, lab = bootstrap.shard_batch(
+                    (torch.from_numpy(num.copy()),
+                     torch.from_numpy(lab.copy())), rank, world)
+                loss, state = step(state, feed, (num.to(dev), lab.to(dev)))
+                losses.append(float(loss))
+            pos += n
+            out[name] = losses
+        elif op == "snap":
+            out[args[0]] = state_bits(de, state, rank)
+        elif op == "corrupt":
+            if rank == 0:
+                target = os.path.join(args[0], "tables", "table_000.npy")
+                with open(target, "r+b") as f:
+                    f.seek(os.path.getsize(target) // 2)
+                    byte = f.read(1)
+                    f.seek(-1, os.SEEK_CUR)
+                    f.write(bytes([byte[0] ^ 0xFF]))
+            bootstrap.barrier(None)
+        elif op == "events":
+            out[args[0]] = [e["event"] for e in obs.drain_events()]
+        else:
+            raise ValueError(f"unknown checkpoint op {op!r}")
+    return out
+
+
+def case_example(rank, world, spec):
+    """The port's DLRM example (``examples/dlrm_main.py``) on this rank
+    of the group: for each ``(name, argv)`` of ``spec["runs"]``, ``main``
+    with the group's flags and ``--checkpoint_out <dir>/rank<r>/<name>``
+    (so what each rank writes lands in its own directory), under
+    ``spec["env"]``. Returns per run what the rank printed, its losses,
+    the AUC, and :func:`state_bits` of the final state."""
+    import contextlib
+    import io
+
+    from distributed_embeddings_torch.examples import dlrm_main
+
+    env = spec.get("env", {})
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    out = {}
+    try:
+        for name, argv in spec["runs"]:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                res = dlrm_main.main(list(argv) + [
+                    "--world_size", str(world), "--rank", str(rank),
+                    "--backend", "gloo", "--device", "cpu",
+                    "--checkpoint_out",
+                    os.path.join(spec["dir"], f"rank{rank}", name)])
+            out[name] = {"stdout": buf.getvalue(), "losses": res.losses,
+                         "auc": res.auc, "steps_run": res.steps_run,
+                         "snap": state_bits(res.de, res.state, rank)}
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return out
+
+
+def case_joined_flags(rank, world, spec):
+    """The example's ``main`` in this rank's joined group with the flags
+    of ``spec["claims"]`` (each ``(name, world_size, rank shift)``: it
+    claims rank ``(rank + shift) % world_size`` of ``world_size``);
+    records the ``ValueError`` it raises, or ``"ran"``."""
+    from distributed_embeddings_torch.examples import dlrm_main
+
+    out = {}
+    for name, w, shift in spec["claims"]:
+        try:
+            dlrm_main.main(list(spec["argv"]) + [
+                "--world_size", str(w), "--rank", str((rank + shift) % w),
+                "--backend", "gloo", "--device", "cpu"])
+            out[name] = "ran"
+        except ValueError as e:
+            out[name] = str(e)
+    return out
+
+
+def case_convergence(rank, world, spec):
+    """``train_dlrm_convergence`` at world ``world`` (SparseAdam + Adam)
+    from JAX's initial tables and dense parameters (``spec["tables"]``,
+    ``spec["dense_tree"]``); its per-step losses, the three AUCs and this
+    rank's own predictions of the last eval (before their gather)."""
+    import numpy as np
+
+    from distributed_embeddings_torch.models import (
+        LearnableClicks, train_dlrm_convergence, warmup_poly_decay_schedule)
+    from distributed_embeddings_torch.utils.convert import (
+        hybrid_state_from_jax)
+
+    task = LearnableClicks(spec["sizes"], num_numerical=4, seed=123,
+                           scale=1.2)
+
+    def init_state(de, dense, emb_opt, tx):
+        return hybrid_state_from_jax(de, dense, spec["tables"],
+                                     spec["dense_tree"], 0, device="cpu",
+                                     emb_optimizer=emb_opt, dense_tx=tx)
+
+    from distributed_embeddings_torch.parallel import bootstrap
+
+    local = []
+    real = bootstrap.to_host
+
+    def kept(x, group=None):
+        local[:] = [x.detach().float().cpu().numpy().copy()]
+        return real(x, group)
+
+    bootstrap.to_host = kept
+    losses = []
+    try:
+        aucs = train_dlrm_convergence(
+            task, world_size=world, steps=spec["steps"],
+            batch=spec["batch"], embedding_dim=spec["dim"],
+            lr_schedule=warmup_poly_decay_schedule(*spec["sched"]),
+            eval_n=spec["eval_n"], seed=0, device="cpu",
+            init_state=init_state,
+            on_step=lambda i, loss, st: losses.append(float(loss)))
+    finally:
+        bootstrap.to_host = real
+    return {"losses": np.array(losses), "aucs": list(aucs),
+            "preds0": local[0].reshape(-1)}
+
+
+class _WarningLog(logging.Handler):
+    """The messages of the warnings logged while it is attached."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(record.getMessage())
+
+
+def case_lock_turns(rank, world, spec):
+    """``set_weights(use_lock=True)`` at world ``world``: each rank
+    appends its rank to ``spec["log"]`` inside its build; returns the
+    slabs with and without the lock."""
+    de = _layer(spec, world)
+    plain = de.set_weights(spec["tables"], device="cpu")
+    real = de._slice_plan
+
+    def logged():
+        with open(spec["log"], "a") as f:
+            f.write(f"{rank}\n")
+        return real()
+
+    de._slice_plan = logged
+    locked = de.set_weights(spec["tables"], device="cpu", use_lock=True)
+    de._slice_plan = real
+    return {"equal": all(torch.equal(plain[k], locked[k]) for k in plain)}
+
+
 CASES = {"forward": case_forward, "train": case_train, "dlrm": case_dlrm,
          "mp_loop": case_mp_loop, "glue": case_glue, "hybrid": case_hybrid,
-         "pipeline": case_pipeline}
+         "pipeline": case_pipeline, "ckpt": case_ckpt,
+         "lock_turns": case_lock_turns, "example": case_example,
+         "joined_flags": case_joined_flags, "convergence": case_convergence}
 
 
 def serve(rank, world, store, inq, outq):
@@ -848,15 +1194,23 @@ class RankGroup:
 
     def collect(self):
         """Every rank's result of the submitted case, in rank order."""
+        import time
+
         name, got = self.pending, {}
-        try:
-            while len(got) < self.world:
-                rank, ok, res = self.outq.get(timeout=CASE_TIMEOUT_S)
-                got[rank] = (ok, res)
-        except queue.Empty:
-            self.broken = f"case {name!r} timed out"
-            raise RuntimeError(f"case {name!r}: only ranks {sorted(got)} "
-                               f"answered in {CASE_TIMEOUT_S} s") from None
+        t0 = time.monotonic()
+        while len(got) < self.world:
+            try:
+                rank, ok, res = self.outq.get(timeout=2)
+            except queue.Empty:
+                dead = [(r, p.exitcode) for r, p in enumerate(self.procs)
+                        if p.exitcode is not None and r not in got]
+                late = time.monotonic() - t0 > CASE_TIMEOUT_S
+                if dead or late:
+                    self.broken = f"case {name!r}: ranks {sorted(got)} " \
+                                  f"answered, (rank, exit code) {dead}"
+                    raise RuntimeError(self.broken) from None
+                continue
+            got[rank] = (ok, res)
         errs = [f"rank {r}:\n{res}" for r, (ok, res) in sorted(got.items())
                 if not ok]
         if errs:

@@ -198,3 +198,150 @@ def metrics_mismatch(got, want):
         elif not np.allclose(g, w, rtol=METRIC_RTOL, atol=METRIC_ATOL):
             bad.append(k)
     return bad
+
+
+# ------------------------------------------------ checkpoints (world 8)
+
+#: the DLRM of ``tests/test_torch_checkpoint.py`` (>= 8 tables: the mesh)
+CKPT_SIZES = [50, 37, 64, 29, 50, 41, 23, 58, 33, 45]
+CKPT_DIM, CKPT_NUM, CKPT_B = 8, 4, 64
+CKPT_MODEL = dict(table_sizes=CKPT_SIZES, embedding_dim=CKPT_DIM,
+                  num_numerical_features=CKPT_NUM, bottom_mlp_dims=(16, 8),
+                  top_mlp_dims=(16, 1))
+CKPT_SCHED = (2.0, 4, 8, 6)  # base lr, warmup, decay start, decay steps
+#: the checkpoint cases: sparse optimizer, table dtype, plan
+CKPT_CASES = {
+    "sgd_bf16": dict(opt="sgd", dtype="bfloat16"),
+    "adagrad": dict(opt="adagrad", dtype="float32"),
+    "adam": dict(opt="adam", dtype="float32"),
+    "colslice": dict(opt="sgd", dtype="float32", column_slice_threshold=256),
+    "rowslice": dict(opt="sgd", dtype="float32", row_slice=300),
+}
+
+
+def ckpt_batches(n, seed=5):
+    """``n`` global DLRM batches ``(cats, num, labels)`` of CKPT_B rows."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        cats = [rng.integers(0, s, size=(CKPT_B,)).astype(np.int32)
+                for s in CKPT_SIZES]
+        num = rng.normal(size=(CKPT_B, CKPT_NUM)).astype(np.float32)
+        lab = (rng.random((CKPT_B, 1)) < 0.3).astype(np.float32)
+        out.append((cats, num, lab))
+    return out
+
+
+def ckpt_spec(case, **kw):
+    """The rank side's spec of a checkpoint case (``case_ckpt``)."""
+    c = CKPT_CASES[case]
+    return dict(model=CKPT_MODEL, strategy="memory_balanced",
+                column_slice_threshold=c.get("column_slice_threshold"),
+                row_slice=c.get("row_slice"), opt=c["opt"],
+                sched=CKPT_SCHED, batches=ckpt_batches(6), **kw)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_ckpt_parts(case):
+    """JAX (layer, dense module, sparse optimizer, optax tx, train step)
+    of a checkpoint case on the 8-device mesh."""
+    from distributed_embeddings_tpu.models.dlrm import (
+        DLRMConfig as JaxConfig, DLRMDense as JaxDense, bce_with_logits)
+    from distributed_embeddings_tpu.models.schedules import (
+        warmup_poly_decay_schedule)
+    from distributed_embeddings_tpu.parallel.optimizers import (
+        SparseAdagrad, SparseAdam)
+
+    c = CKPT_CASES[case]
+    cfg = JaxConfig(**CKPT_MODEL)
+    jde = JaxDE(cfg.embedding_configs(), world_size=WORLD,
+                strategy="memory_balanced",
+                column_slice_threshold=c.get("column_slice_threshold"),
+                row_slice=c.get("row_slice"))
+    dense = JaxDense(cfg)
+    if c["opt"] == "sgd":
+        lr = warmup_poly_decay_schedule(*CKPT_SCHED)
+        emb_opt, tx = JaxSparseSGD(), optax.sgd(lr)
+    elif c["opt"] == "adagrad":
+        emb_opt, tx, lr = SparseAdagrad(), optax.adagrad(0.1), 0.05
+    else:
+        emb_opt, tx, lr = SparseAdam(), optax.adam(1e-3), 0.01
+
+    def loss(p, outs, batch):
+        n, y = batch
+        return bce_with_logits(dense.apply(p, n, outs), y)
+
+    step = make_hybrid_train_step(jde, loss, tx, emb_opt, mesh=mesh(),
+                                  lr_schedule=lr, with_metrics=False,
+                                  telemetry=False)
+    return jde, dense, emb_opt, tx, step
+
+
+def jax_ckpt_state(case, seed=0):
+    """A JAX train state of a checkpoint case on the mesh with every
+    component non-trivial: random tables, random slab-shaped optimizer
+    state, Adam counts 3 + rank (so a gather out of rank order shows),
+    the dense parameters of flax's init and step 7."""
+    jde, dense, emb_opt, tx, _ = jax_ckpt_parts(case)
+    dtype = getattr(jnp, CKPT_CASES[case]["dtype"])
+    rng = np.random.default_rng(seed)
+
+    def tables(lo, hi):
+        return [rng.uniform(lo, hi, size=(s, CKPT_DIM)).astype(np.float32)
+                for s in CKPT_SIZES]
+
+    params = jde.set_weights(tables(-0.1, 0.1), mesh=mesh(), dtype=dtype)
+    opt = emb_opt.init(params)
+
+    def slab_like(like):
+        return jde.set_weights(tables(0.05, 0.2), mesh=mesh(),
+                               dtype=like.dtype)
+
+    if CKPT_CASES[case]["opt"] == "adagrad":
+        new = slab_like(next(iter(opt.values())))
+        assert {k: v.shape for k, v in new.items()} == \
+            {k: v.shape for k, v in opt.items()}
+        opt = new
+    elif CKPT_CASES[case]["opt"] == "adam":
+        mu = slab_like(next(iter(opt.values()))[0])
+        nu = slab_like(next(iter(opt.values()))[1])
+        assert all(mu[k].shape == opt[k][0].shape for k in opt)
+        opt = {k: (mu[k], nu[k], jnp.asarray(
+            (3 + np.arange(WORLD)).reshape(WORLD, 1, 1).astype(
+                np.asarray(c).dtype)))
+            for k, (_, _, c) in opt.items()}
+    dp = dense.init(jax.random.key(1), jnp.zeros((2, CKPT_NUM)),
+                    [jnp.zeros((2, CKPT_DIM))] * len(CKPT_SIZES))
+    # flax's init keeps its modules' creation order (kernel, bias); a
+    # state a step returns has JAX's sorted dict order, as the port
+    # writes it: checkpoints of trained states are what is compared
+    dp = jax.tree.map(lambda a: a, dp)
+    return JaxState(params, opt, dp, tx.init(dp), jnp.asarray(7, jnp.int32))
+
+
+def jax_ckpt_steps(case, state, batches):
+    """The JAX train step over ``batches``: (losses, state)."""
+    step = jax_ckpt_parts(case)[4]
+    losses = []
+    for cats, num, lab in batches:
+        loss, state = step(state, [jnp.asarray(c) for c in cats],
+                           (jnp.asarray(num), jnp.asarray(lab)))
+        losses.append(float(loss))
+    return losses, state
+
+
+def tree_bits_equal(a, b):
+    """Two JAX (or numpy) trees equal bit for bit (bf16 compared as
+    raw bits)."""
+    la, lb = jax.tree.leaves(a), jax.tree.leaves(b)
+    if len(la) != len(lb):
+        return False
+    for x, y in zip(la, lb):
+        x, y = np.asarray(x), np.asarray(y)
+        if x.dtype != y.dtype or x.shape != y.shape:
+            return False
+        if x.dtype.itemsize == 2:
+            x, y = x.view(np.uint16), y.view(np.uint16)
+        if not np.array_equal(x, y):
+            return False
+    return True
